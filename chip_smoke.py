@@ -15,7 +15,16 @@ them. Phases, each printing its lines before the last:
    requests through the unmodified `run_inference_single` and one batched
    generate of four ragged rows; both kernels' launch counts must rise;
 6. the last-position prefill logits of the 2-frame request with the kernels
-   against the same forward on the plain attention.
+   against the same forward on the plain attention;
+7. the training flash attention (K4a forward, K4b dK/dV, K4c dQ) against
+   autograd through its plain twin at training shapes, and each kernel's
+   time beside the plain forward's and backward's;
+8. the training path at TEOChat-7B width: the port's `train()` takes three
+   optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
+   projector, cosine schedule, accumulation 2, remat) on 16 synthetic
+   2-frame conversations; the three K4 launch counts must rise;
+9. one micro-step's loss and trainable gradients with the kernels against
+   the same step on the plain attention.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -38,12 +47,16 @@ from teochat_tpu.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI
 from teochat_tpu.eval.inference import run_inference_single
 from teochat_tpu.mm_utils import tokenizer_image_token
 from teochat_torch.checkpoint.bridge import init_teochat
+from teochat_torch.data.dataset import DataArguments, make_supervised_data_module
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
+from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
+from teochat_torch.train.train import ModelArguments, TrainingArguments, train
+from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
 
 SEED = 0
 # |kernel (bf16 out) - plain (fp32 on the same bf16 inputs)|: outputs are
@@ -53,6 +66,25 @@ FLASH_TOL = 2e-2
 DECODE_TOL = 2e-2
 # ||logits(kernels) - logits(plain)|| / ||logits(plain)|| after 32 bf16 layers
 LOGITS_REL_L2_BOUND = 5e-2
+# The flash backward rounds P and dS to bf16 before its products and writes
+# bf16 gradients (8 bits: 2^-9 relative rounding on each of many terms):
+# each gradient is held to GRAD_REL_L2 of its norm and its largest error to
+# GRAD_REL_MAX of its largest element
+GRAD_REL_L2 = 1e-2
+GRAD_REL_MAX = 2e-2
+# One 7B-width micro-step, kernels vs plain attention on the same bf16
+# weights and batch: the attention differs by bf16 rounding of P and dS in
+# 32 layers, the rest is the same code. The loss is a mean over ~2,000
+# tokens. A gradient passes forward and back through up to 32 random bf16
+# layers, which amplify the rounding. Worst leaf's relative L2, read on an
+# H100 with chip_probe.py: kernels vs plain 7.9e-2 to 8.1e-2 (seeds 0, 1);
+# two correct plain attentions, P rounded to bf16 or not, 7.9e-2 to 8.3e-2;
+# 2.4e-2 for either pair at 4 layers. Planted faults: K4b starting one q
+# tile late reads 5.0e-1, K4c without di 2.5 (the K4 phase, which holds
+# each kernel's own gradients to 1e-2, fails on both as well)
+TRAIN_LOSS_REL_BOUND = 1e-2
+TRAIN_GRAD_REL_L2_BOUND = 1.5e-1
+N_TRAIN_SAMPLES = 16
 N_TIMED = 25
 
 PROMPT_2 = ("This is a pair of satellite images of the same location taken before "
@@ -98,6 +130,8 @@ class FrameProcessor:
         self.rs = np.random.RandomState(seed)
 
     def preprocess(self, paths):
+        if isinstance(paths, str):  # the training dataset asks for one frame at a time
+            paths = [paths]
         rgb = self.rs.rand(len(paths), 3, self.size, self.size).astype(np.float32)
         mean = np.asarray(OPENAI_DATASET_MEAN, np.float32)[None, :, None, None]
         std = np.asarray(OPENAI_DATASET_STD, np.float32)[None, :, None, None]
@@ -310,6 +344,225 @@ def phase_logits(model, ids, frames):
     check(rel <= LOGITS_REL_L2_BOUND, f"logits rel L2 {rel} > {LOGITS_REL_L2_BOUND}")
 
 
+def _flash_grads(fn, q, k, v, do):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v)
+    o.backward(do.to(o.dtype))
+    return [x.detach().float() for x in (o, q.grad, k.grad, v.grad)]
+
+
+def _plain_trainable(q, k, v):
+    return flash_mod.flash_attention_plain(q.float(), k.float(), v.float())
+
+
+def phase_flash_backward(gen):
+    cases = [  # (B, S, H, Hkv, padded); D = 128, causal; the first is reported in the JSON line
+        (4, 1024, 32, 32, False),  # the training batch
+        (1, 600, 32, 32, True),  # ragged S, through the padded wrapper
+        (1, 1024, 32, 8, False),  # GQA
+        (1, 2048, 32, 32, False),
+    ]
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    times = None
+    for b, s, h, hkv, padded in cases:
+        d = 128
+        q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+        do = _randn((b, s, h, d), gen)
+        fn = (flash_mod.flash_attention_trainable_padded if padded
+              else flash_mod.flash_attention_trainable)
+        got = _flash_grads(fn, q, k, v, do)
+        sync()
+        want = _flash_grads(_plain_trainable, q, k, v, do)
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        check(all(torch.isfinite(g).all().item() for g in got), "flash backward finite")
+        check(errs[0] <= FLASH_TOL, f"K4a output error {errs[0]} > {FLASH_TOL}")
+        rel = []
+        for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            r2 = ((g - w).norm() / w.norm()).item()
+            rmax = (g - w).abs().max().item() / w.abs().max().item()
+            rel.append(f"{name} rel L2 {r2:.3e} rel max {rmax:.3e}")
+            check(r2 <= GRAD_REL_L2 and rmax <= GRAD_REL_MAX,
+                  f"{name}: rel L2 {r2} (bound {GRAD_REL_L2}), rel max {rmax} (bound {GRAD_REL_MAX})")
+        worst["fwd"] = max(worst["fwd"], errs[0])
+        worst["dq"] = max(worst["dq"], errs[1])
+        worst["dkv"] = max(worst["dkv"], errs[2], errs[3])
+        log(f"[K4 flash train] B={b} S={s} H={h} Hkv={hkv} D={d} padded={padded}: o max_abs_err "
+            f"{errs[0]:.3e}; dq/dk/dv max_abs_err {errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; "
+            + "; ".join(rel))
+        if times is None:
+            times = _time_flash_backward(q, k, v, do)
+    return worst, times
+
+
+def _time_flash_backward(q, k, v, do):
+    """Each K4 kernel alone (the backward ones from saved residuals), and the
+    plain forward and backward, at one shape."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    t = {
+        "fwd": time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale)),
+        "dkv": time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale)),
+        "dq": time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale)),
+        "plain_fwd": time_ms(lambda: flash_mod.flash_attention_plain(q, k, v)),
+    }
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    op = flash_mod.flash_attention_plain(qg, kg, vg)
+    t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(op, (qg, kg, vg), do, retain_graph=True))
+    product = 2 * b * h * s * s * d / 2  # one causal S x S x D product
+    log(f"[K4 flash train] B={b} S={s} H={h} D={d} times: K4a {t['fwd']:.4f} ms "
+        f"({2 * product / t['fwd'] / 1e9:.1f} TFLOP/s), K4b {t['dkv']:.4f} ms "
+        f"({4 * product / t['dkv'] / 1e9:.1f} TFLOP/s), K4c {t['dq']:.4f} ms "
+        f"({3 * product / t['dq'] / 1e9:.1f} TFLOP/s); plain forward {t['plain_fwd']:.4f} ms, "
+        f"plain backward {t['plain_bwd']:.4f} ms")
+    return t
+
+
+TRAIN_QA = [
+    ("Identify the damaged buildings in the second image and give their bounding boxes.",
+     "There are three damaged buildings: [12, 40, 20, 48], [51, 8, 60, 17] and [70, 70, 79, 80]."),
+    ("Was any building destroyed? Answer yes or no.", "Yes."),
+    ("Classify the damage to the building at [33, 20, 41, 29].",
+     "The building at [33, 20, 41, 29] shows major damage: part of its roof is gone."),
+    ("What type of disaster happened between the two images?",
+     "A flood: water covers the roads and the fields in the second image."),
+]
+
+
+def train_samples(n: int):
+    """n synthetic xBD-style 2-frame conversations: a question and an answer."""
+    out = []
+    for i in range(n):
+        q, a = TRAIN_QA[i % len(TRAIN_QA)]
+        out.append({
+            "conversations": [
+                {"from": "human", "value": PROMPT_2.split("<video>")[0] + f"<video> {q}"},
+                {"from": "gpt", "value": a},
+            ],
+            "video": [f"pre_disaster_{i}.png", f"post_disaster_{i}.png"],
+            "timestamp": ["2019-01-15", "2019-03-15"],
+        })
+    return out
+
+
+def _k4_counts():
+    return {"fwd": flash_mod.FWD_RES_LAUNCHES.count, "dkv": flash_mod.BWD_DKV_LAUNCHES.count,
+            "dq": flash_mod.BWD_DQ_LAUNCHES.count}
+
+
+def phase_train(cfg, params, tokenizer, processor):
+    before = {p: x.float() for p, x in tree_leaves_with_path(params["projector"])}
+    targs = TrainingArguments(
+        per_device_train_batch_size=4, gradient_accumulation_steps=2, learning_rate=2e-4,
+        mm_projector_lr=2e-5, lr_scheduler_type="cosine", warmup_ratio=0.03, max_grad_norm=1.0,
+        gradient_checkpointing=True, max_steps=3, num_train_epochs=2, save_strategy="no",
+        logging_steps=1, lora_r=128, lora_alpha=256.0, bf16=True, seed=SEED,
+    )
+    history = []
+    flash_mod.FWD_RES_LAUNCHES.reset()
+    flash_mod.BWD_DKV_LAUNCHES.reset()
+    flash_mod.BWD_DQ_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    state, sec = wall(lambda: train(
+        ModelArguments(), DataArguments(image_processor=processor), targs, cfg=cfg,
+        params=params, tokenizer=tokenizer, dataset=train_samples(N_TRAIN_SAMPLES),
+        history=history))
+    counts = _k4_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    micro = targs.max_steps * targs.gradient_accumulation_steps
+    check(len(history) == targs.max_steps and state.step == micro, "three optimizer steps")
+    check(all(np.isfinite(h["loss"]) for h in history), "training losses finite")
+    for h in history:
+        log(f"[train] step {h['step']}: loss {h['loss']:.6f}, {h['seconds']:.3f} s, "
+            f"{h['tokens'] / h['seconds']:.1f} tokens/s ({h['tokens']} valid of "
+            f"{h['padded_tokens']} padded tokens, {targs.gradient_accumulation_steps} micro-batches)")
+    steady = history[1:]
+    s_step = sum(h["seconds"] for h in steady) / len(steady)
+    tok_s = sum(h["tokens"] for h in steady) / sum(h["seconds"] for h in steady)
+    log(f"[train] TEOChat-7B int8 + LoRA r128: {sec:.2f} s for {len(history)} steps; steps 2-3: "
+        f"{s_step:.3f} s/step, {tok_s:.1f} valid tokens/s; peak allocated {peak:.3f} GiB")
+    log(f"[train] kernel launches during train(): K4a {counts['fwd']}, K4b {counts['dkv']}, "
+        f"K4c {counts['dq']} over {micro} micro-steps of {cfg.llm.num_layers} layers")
+    layers = cfg.llm.num_layers * micro
+    check(counts["fwd"] >= layers and counts["dkv"] >= layers and counts["dq"] >= layers,
+          f"K4 launches {counts} below {layers}")
+
+    # every adapter and projector leaf moved (A from its seeded draw, B from 0)
+    dev = params["llm"]["embed_tokens"]["embedding"].device
+    init_lora = add_lora_params(torch.Generator(device=dev).manual_seed(SEED),
+                                params["llm"], rank=targs.lora_r, alpha=targs.lora_alpha)
+    want = dict(tree_leaves_with_path(partition_params(
+        {"llm": init_lora}, lora_trainable_filter)[0]))
+    got = dict(tree_leaves_with_path(partition_params(
+        {"llm": state.params["llm"]}, lora_trainable_filter)[0]))
+    check(sorted(got) == sorted(want) and len(got) == 14, "LoRA leaves")
+    for path, x in got.items():
+        check(not torch.equal(x, want[path]), f"{path} did not change")
+    del init_lora, want
+    for path, x in tree_leaves_with_path(state.params["projector"]):
+        check(not torch.equal(x, before[path]), f"projector/{path} did not change")
+    return counts
+
+
+def parity_batch(cfg, params, tokenizer, processor, gen):
+    """The parity phase's inputs: params with fp32 LoRA (B drawn nonzero from
+    `gen`, so every adapter gets a gradient) and projector masters, their
+    trainable leaves by path, and one 4-row batch of `train_samples`."""
+    dev = params["llm"]["embed_tokens"]["embedding"].device
+    llm = add_lora_params(gen, params["llm"], rank=128, alpha=256.0)
+    for group in LORA_TARGET_GROUPS:
+        for proj in llm["layers"][group].values():
+            proj["lora_b"] = torch.randn(proj["lora_b"].shape, generator=gen, device=dev) * 1e-3
+    params = fp32_masters({**params, "llm": llm}, lora_trainable_filter)
+    module = make_supervised_data_module(
+        tokenizer, DataArguments(image_processor=processor),
+        tokens_per_frame=cfg.vision.num_patches, max_length=cfg.tokenizer_model_max_length,
+        dataset=train_samples(4))
+    ds = module["train_dataset"]
+    plan, pixels = module["data_collator"]([ds[i] for i in range(len(ds))])
+    pixels = torch.as_tensor(pixels).to(dev, torch.bfloat16)
+    leaves = dict(tree_leaves_with_path(partition_params(params, lora_trainable_filter)[0]))
+    for x in leaves.values():
+        x.requires_grad_(True)
+    return params, leaves, plan, pixels
+
+
+def micro_step(cfg, params, leaves, plan, pixels, impl):
+    """One micro-step's loss and trainable gradients (remat on, as in training)."""
+    loss = teochat_mod.forward_train(params, cfg, plan, pixels, remat=True, attn_impl=impl)
+    return loss.item(), torch.autograd.grad(loss, list(leaves.values()))
+
+
+def compare_steps(leaves, got, want):
+    """(loss relative difference, gradients' relative L2 over all leaves,
+    {path: each leaf's relative L2}) of two micro_step results."""
+    (la, ga), (lb, gb) = got, want
+    rels = {path: ((a.float() - b.float()).norm() / b.float().norm()).item()
+            for path, a, b in zip(leaves, ga, gb)}
+    total = (sum((a.float() - b.float()).pow(2).sum() for a, b in zip(ga, gb)).sqrt()
+             / sum(b.float().pow(2).sum() for b in gb).sqrt()).item()
+    return abs(la - lb) / abs(lb), total, rels
+
+
+def phase_train_parity(cfg, params, tokenizer, processor, gen):
+    """One micro-step at full width, kernels vs plain attention, LoRA B nonzero."""
+    params, leaves, plan, pixels = parity_batch(cfg, params, tokenizer, processor, gen)
+    got = micro_step(cfg, params, leaves, plan, pixels, "auto")
+    want = micro_step(cfg, params, leaves, plan, pixels, "plain")
+    check(np.isfinite(got[0]) and all(torch.isfinite(g).all().item() for g in got[1]),
+          "parity finite")
+    loss_rel, total, rels = compare_steps(leaves, got, want)
+    worst_path = max(rels, key=rels.get)
+    log(f"[train parity] B={plan.labels.shape[0]} S={plan.labels.shape[1]} one micro-step, "
+        f"kernels vs plain attention: loss {got[0]:.6f} vs {want[0]:.6f}, rel diff "
+        f"{loss_rel:.3e} (bound {TRAIN_LOSS_REL_BOUND}); gradients rel L2 {total:.3e} over all "
+        f"{len(rels)} trainable leaves, worst leaf {worst_path} {rels[worst_path]:.3e} "
+        f"(bound {TRAIN_GRAD_REL_L2_BOUND})")
+    check(loss_rel <= TRAIN_LOSS_REL_BOUND, f"loss rel diff {loss_rel}")
+    check(rels[worst_path] <= TRAIN_GRAD_REL_L2_BOUND, f"gradient rel L2 {rels[worst_path]}")
+
+
 def main():
     phase_device()
     phase_build()
@@ -338,6 +591,10 @@ def main():
 
     phase_logits(model, ids, frames)
 
+    k4_err, k4_ms = phase_flash_backward(gen)
+    train_launches = phase_train(cfg, params, tokenizer, processor)
+    phase_train_parity(cfg, params, tokenizer, processor, gen)
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "teochat_torch/csrc/flash_attention.cu",
@@ -349,6 +606,21 @@ def main():
          "replaces": "teochat_tpu/ops/decode_attention.py:44",
          "launches": launches["decode"], "max_abs_err": dec_err,
          "ms": dec_ms[0], "plain_ms": dec_ms[1]},
+        {"name": "flash_attention_fwd_res", "route": "cuda",
+         "source": "teochat_torch/csrc/flash_attention.cu",
+         "replaces": "teochat_tpu/ops/flash_attention.py:243",
+         "launches": train_launches["fwd"], "max_abs_err": k4_err["fwd"],
+         "ms": k4_ms["fwd"], "plain_ms": k4_ms["plain_fwd"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "teochat_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "teochat_tpu/ops/flash_attention.py:348",
+         "launches": train_launches["dkv"], "max_abs_err": k4_err["dkv"],
+         "ms": k4_ms["dkv"], "plain_ms": k4_ms["plain_bwd"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "teochat_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "teochat_tpu/ops/flash_attention.py:421",
+         "launches": train_launches["dq"], "max_abs_err": k4_err["dq"],
+         "ms": k4_ms["dq"], "plain_ms": k4_ms["plain_bwd"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

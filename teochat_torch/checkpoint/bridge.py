@@ -31,15 +31,17 @@ def _leaf_to_torch(name: str, arr, device, dtype) -> torch.Tensor:
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
-    # quantization and norm scales stay fp32, as in the JAX trees
+    # quantization and norm scales stay fp32, as in the JAX trees; LoRA
+    # leaves are fp32 masters (the forward casts them to the activation dtype)
     if t.is_floating_point() and dtype is not None and name != "scale":
-        t = t.to(dtype)
+        t = t.float() if name.startswith("lora_") else t.to(dtype)
     return t.to(device)
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None, _name: str = ""):
     """numpy params tree -> tensors on `device`. Float leaves other than
-    'scale' are cast to `dtype` (None keeps them); integer leaves keep theirs."""
+    'scale' and the LoRA leaves (fp32) are cast to `dtype` (None keeps them);
+    integer leaves keep theirs."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

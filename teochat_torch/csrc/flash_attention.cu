@@ -1,7 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in and out.
 //
 // Replaces teochat_tpu/ops/flash_attention.py::_flash_kernel (driven there by
-// _flash_bhsd / flash_attention). It computes what that kernel computes:
+// _flash_bhsd / flash_attention; K1, inference) and, with the STATS flag,
+// ::_flash_fwd_res_kernel (K4a, the training forward, which also stores each
+// row's m and l for the backward in flash_attention_bwd.cu). It computes
+// what those kernels compute:
 // tiled online-softmax attention with fp32 running max, denominator and
 // accumulator; causal kv tiles above the diagonal are skipped and the diagonal
 // tile is masked per element; GQA query head h reads kv head h / (H / Hkv);
@@ -25,37 +28,28 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <cmath>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using teochat::MASK_VALUE;
+using teochat::mma_16816;
+using teochat::pack_bf16;
 
 constexpr int BQ = 64;        // query rows per block (16 per warp)
 constexpr int BK = 64;        // keys per kv tile
 constexpr int NTHREADS = 128;
-constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // flash_attention.py:29
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16; `lo` sits in the low half, which
-// the mma fragment reads as the lower column index.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
+// STATS (K4a, the training forward) also writes each row's running max m
+// and denominator l, fp32 [B, H, S], for the backward kernels.
+template <int D, bool STATS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  int S, int T, int H, int Hkv,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_st, long long k_sh,
@@ -197,6 +191,11 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + gid + 8 * r;
     if (row >= S) continue;
+    if (STATS && tig == 0) {  // m and l are the same on the 4 lanes of a quad
+      const long long idx = (static_cast<long long>(b) * H + h) * S + row;
+      m_out[idx] = m_run[r];
+      l_out[idx] = l_run[r];
+    }
     const float inv = l_run[r] == 0.f ? 1.f : 1.f / l_run[r];
     uint16_t* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * D;
 #pragma unroll
@@ -206,16 +205,13 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int teochat_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
-    int B, int S, int T, int H, int Hkv, int D,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh,
-    float scale, int causal, void* stream) {
+template <bool STATS>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m, float* l,
+               int B, int S, int T, int H, int Hkv, int D,
+               long long q_sb, long long q_ss, long long q_sh,
+               long long k_sb, long long k_st, long long k_sh,
+               long long v_sb, long long v_st, long long v_sh,
+               float scale, int causal, void* stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const uint16_t*>(k);
@@ -223,15 +219,45 @@ extern "C" int teochat_flash_attention_fwd(
   auto* op = static_cast<uint16_t*>(o);
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 128) {
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, op, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
+    flash_fwd_kernel<128, STATS><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, op, m, l, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
         v_sb, v_st, v_sh, scale, causal);
   } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, op, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
+    flash_fwd_kernel<64, STATS><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, op, m, l, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
         v_sb, v_st, v_sh, scale, causal);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1, the inference forward. Returns cudaGetLastError() after the launch.
+extern "C" int teochat_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o,
+    int B, int S, int T, int H, int Hkv, int D,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh,
+    float scale, int causal, void* stream) {
+  return launch_fwd<false>(q, k, v, o, nullptr, nullptr, B, S, T, H, Hkv, D,
+                           q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
+                           scale, causal, stream);
+}
+
+// K4a, the training forward: K1 plus m and l (fp32 [B, H, S], contiguous).
+// Replaces teochat_tpu/ops/flash_attention.py::_flash_fwd_res_kernel, whose
+// statistics are padded to 128 lanes for the TPU's tiling; here one float a row.
+extern "C" int teochat_flash_attention_fwd_res(
+    const void* q, const void* k, const void* v, void* o, void* m, void* l,
+    int B, int S, int T, int H, int Hkv, int D,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh,
+    float scale, int causal, void* stream) {
+  return launch_fwd<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l),
+                          B, S, T, H, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
+                          v_sb, v_st, v_sh, scale, causal, stream);
 }

@@ -4,7 +4,7 @@
 `tokens_per_frame`, `encode`, `generate`), so the unmodified
 `teochat_tpu.eval.inference.run_inference_single` drives it. Prompt lengths
 are bucketed as in the JAX package, so the cache size and the prefill shapes
-are the same on both backends.
+are the same on both backends. `forward_train` is the training loss.
 """
 
 from __future__ import annotations
@@ -61,6 +61,39 @@ def multimodal_embeds(params: Params, cfg: TEOChatConfig, plan: fusion_mod.Fusio
                       vision_tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings + vision splice -> [B, L, D]."""
     return fuse_embeds(params["llm"], plan, vision_tokens)
+
+
+def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPlan,
+                  pixel_values: torch.Tensor, remat: bool = False,
+                  attn_impl: str = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy over the valid labels of a fused batch.
+
+    The tower is frozen, so it runs without a graph; the projector, the
+    fusion and the decoder carry gradients. The decoder runs cache-free on
+    the right-padded plan (`right_padded=True`: the flash kernels on CUDA).
+    `remat` recomputes decoder layers in the backward (HF gradient
+    checkpointing); `attn_impl='plain'` runs the plain attention instead.
+    """
+    if not isinstance(cfg.llm, LlamaConfig):
+        raise NotImplementedError("only the LLaMA backend is ported")
+    dev = pixel_values.device
+    with torch.no_grad():
+        hidden = vit_forward(params["vision"], cfg.vision, pixel_values,
+                             select_layer=cfg.mm_vision_select_layer)
+        feats = select_features(hidden, cfg.mm_vision_select_feature)
+    vision_tokens = projector_forward(params["projector"], cfg.projector, feats)
+    embeds = multimodal_embeds(params, cfg, plan, vision_tokens)
+    logits = llama_mod.llama_forward(
+        params["llm"], cfg.llm, embeds,
+        position_ids=torch.as_tensor(plan.position_ids, device=dev),
+        attention_mask=torch.as_tensor(plan.attention_mask, device=dev),
+        right_padded=True, remat=remat, attn_impl=attn_impl,
+    )
+    labels = torch.as_tensor(plan.labels, dtype=torch.long, device=dev)[:, 1:]
+    valid = labels != fusion_mod.IGNORE_INDEX
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tok_lp = torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    return -(tok_lp * valid).sum() / valid.sum().clamp(min=1)
 
 
 class TEOChat:

@@ -5,7 +5,8 @@ as arguments; each entry returns ``cudaGetLastError()``), so they compile with
 ``nvcc`` alone, in seconds, without PyTorch's headers. The shared library is
 built at first use into ``teochat_torch/csrc/build/`` (listed in
 ``.gitignore``) under a name that hashes the sources and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+edited source is rebuilt and an unchanged one is loaded as it is. Each
+source compiles in its own ``nvcc``, all started together, then one link.
 """
 
 from __future__ import annotations
@@ -22,13 +23,22 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "teochat_flash_attention_fwd": (
         [_P, _P, _P, _P] + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]
+    ),
+    "teochat_flash_attention_fwd_res": (
+        [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]
+    ),
+    "teochat_flash_attention_bwd_dkv": (
+        [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P] * 2
+    ),
+    "teochat_flash_attention_bwd_dq": (
+        [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P]
     ),
     "teochat_decode_attention": (
         [_P] * 5 + [_I] * 5 + [_LL] * 8 + [_F, _P]
@@ -70,6 +80,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _compile_and_link(sources, out: Path) -> str:
+    """One nvcc -c per source, run together, then nvcc -shared into `out`;
+    returns what they printed."""
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    for src, proc in zip(sources, procs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, out)
+    return log
+
+
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernels."""
     global _library
@@ -77,22 +112,16 @@ def library() -> KernelLibrary:
         return _library
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libteochat_kernels_{digest.hexdigest()[:16]}.so"
     log, seconds = "", 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(sources, out)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
     _library = KernelLibrary(out, seconds, log)
     return _library
 

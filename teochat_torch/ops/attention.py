@@ -2,12 +2,16 @@
 
 Port of teochat_tpu/ops/attention.py. `plain_attention` is the reference
 (the JAX package's `xla_attention`): fp32 logits and softmax whatever the
-input dtype. `dot_product_attention` sends a causal, mask-free, bias-free
-self-attention (S == T) on a CUDA tensor to the hand-written flash kernel
-(ops/flash_attention.py); everything else, and every CPU tensor, takes the
-plain path. Unlike the TPU rule there is no length or head-dim gate: the
-kernel takes every prefill the model makes, and raises on a CUDA shape or
-dtype it does not take rather than dropping to the plain path.
+input dtype. `dot_product_attention` sends a causal, bias-free
+self-attention (S == T) on a CUDA tensor to the hand-written flash kernels
+(ops/flash_attention.py): a right-padded one (the training forward) to the
+differentiable `flash_attention_trainable_padded`, dropping the padding mask
+as the JAX cache-free path does (causality hides the padded keys), and a
+mask-free one (the prefill) to the inference kernel. Everything else, and
+every CPU tensor, takes the plain path. Unlike the TPU rule there is no
+length or head-dim gate: the kernels take every shape the model makes, and
+raise on a CUDA shape or dtype they do not take rather than dropping to the
+plain path.
 """
 
 from __future__ import annotations
@@ -78,23 +82,29 @@ def dot_product_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     impl: str = "auto",
+    right_padded: bool = False,
 ) -> torch.Tensor:
-    """Attention entry point. impl: auto | plain | flash."""
+    """Attention entry point. impl: auto | plain | flash.
+
+    `right_padded` says that `mask` only marks right padding of a causal
+    self-attention, so the flash kernels may drop it."""
     if impl == "auto":
         use_flash = (
             q.is_cuda
             and causal
             and bias is None
-            and mask is None
+            and (mask is None or right_padded)
             and q.shape[1] == k.shape[1]
         )
         impl = "flash" if use_flash else "plain"
     if impl == "flash":
-        if bias is not None or mask is not None:
-            raise ValueError("the flash kernel takes no mask or bias")
-        from teochat_torch.ops.flash_attention import flash_attention
+        from teochat_torch.ops import flash_attention as flash_mod
 
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        if bias is not None or (mask is not None and not right_padded):
+            raise ValueError("the flash kernels take no mask or bias")
+        if right_padded:
+            return flash_mod.flash_attention_trainable_padded(q, k, v, causal, scale)
+        return flash_mod.flash_attention(q, k, v, causal=causal, scale=scale)
     if impl != "plain":
         raise ValueError(f"unknown attention impl {impl!r}")
     return plain_attention(q, k, v, bias=bias, mask=mask, causal=causal, scale=scale)

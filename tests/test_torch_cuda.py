@@ -9,7 +9,11 @@ imports it, so skip that file):
 Inputs are bf16 from a seeded generator; the reference is the plain twin in
 fp32 on the same bf16 inputs. Outputs are averages of N(0, 1) values, so
 |o| < 4 and bf16 output rounding alone reaches 2^-8 * 4 = 1.6e-2; P is
-rounded to bf16 before the PV product, as in the TPU kernels.
+rounded to bf16 before the PV product, as in the TPU kernels. The flash
+backward (K4b, K4c) also rounds P and dS to bf16 before its products and
+writes bf16 gradients, so each gradient is held to GRAD_REL_L2 of its norm
+(bf16 keeps 8 bits: 2^-9 relative rounding per term, summed over many
+terms) and its largest error to GRAD_REL_MAX of its largest element.
 """
 
 import pytest
@@ -20,6 +24,8 @@ from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops.attention import dot_product_attention
 
 TOL = 2e-2
+GRAD_REL_L2 = 1e-2
+GRAD_REL_MAX = 2e-2
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +108,68 @@ def test_cuda_tensors_the_kernels_do_not_take_raise(gen):
     with pytest.raises(ValueError):
         dec_mod.decode_attention(qb[:, 0], qb.transpose(1, 2), qb.transpose(1, 2),
                                  torch.tensor([3], device="cuda"))  # int64 lengths
+
+
+def _trainable_case(gen, b, s, h, hkv, d):
+    q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+    do = _randn((b, s, h, d), gen)
+    return q, k, v, do
+
+
+def _grads(fn, q, k, v, do):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v)
+    o.backward(do.to(o.dtype))
+    return [x.detach().float() for x in (o, q.grad, k.grad, v.grad)]
+
+
+def _counts():
+    return (flash_mod.FWD_RES_LAUNCHES.count, flash_mod.BWD_DKV_LAUNCHES.count,
+            flash_mod.BWD_DQ_LAUNCHES.count)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,d,padded",
+    [
+        (1, 64, 2, 2, 128, False),  # one tile
+        (2, 256, 4, 4, 128, False),  # several tiles: the causal skip in all three
+        (2, 333, 4, 1, 128, True),  # ragged S through the padded wrapper, GQA 4:1
+        (1, 130, 4, 2, 64, False),  # head_dim 64, GQA 2:1, ragged
+    ],
+)
+def test_flash_backward_matches_plain(gen, b, s, h, hkv, d, padded):
+    q, k, v, do = _trainable_case(gen, b, s, h, hkv, d)
+    fn = flash_mod.flash_attention_trainable_padded if padded else flash_mod.flash_attention_trainable
+    before = _counts()
+    got = _grads(fn, q, k, v, do)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before)
+    want = _grads(lambda q, k, v: flash_mod.flash_attention_plain(q.float(), k.float(), v.float()),
+                  q, k, v, do)
+    assert (got[0] - want[0]).abs().max().item() <= TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.shape == w.shape, name
+        assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item(), name
+
+
+def test_flash_backward_skips_above_the_diagonal(gen):
+    """dO only on the first 64 rows: keys past row 63 get exactly zero dK and
+    dV (their q tiles are skipped or masked), and dQ of later rows is zero."""
+    q, k, v, do = _trainable_case(gen, 1, 256, 2, 2, 128)
+    do[:, 64:] = 0
+    _, dq, dk, dv = _grads(flash_mod.flash_attention_trainable, q, k, v, do)
+    assert dk[:, 64:].abs().max().item() == 0.0 and dv[:, 64:].abs().max().item() == 0.0
+    assert dq[:, 64:].abs().max().item() == 0.0
+    assert dk[:, :64].abs().max().item() > 0 and dv[:, :64].abs().max().item() > 0
+
+
+def test_flash_backward_refuses_what_it_does_not_take(gen):
+    q = _randn((1, 64, 2, 96), gen).requires_grad_(True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_mod.flash_attention_trainable(q, q, q)
+    x = torch.randn(1, 64, 2, 128, device="cuda", requires_grad=True)  # fp32
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention_trainable(x, x, x)
+    with pytest.raises(ValueError, match="no backward"):  # K1 records no graph
+        flash_mod.flash_attention(x.to(torch.bfloat16), x.to(torch.bfloat16), x.to(torch.bfloat16))
