@@ -1,17 +1,21 @@
 """Measurements of the PyTorch / CUDA port on one NVIDIA card, beside the smoke.
 
-    python3 chip_probe.py decode [--root DIR]
+    python3 chip_probe.py decode [--root DIR] [--quant int8 int4] [--batches 1 8]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k4
+    python3 chip_probe.py k3k5
     python3 chip_probe.py profile-train
 
 Each command prints the card's name and power limit first, then its lines.
 `--root` (every command) imports `teochat_torch` and `chip_smoke` from
 another checkout, so two trees can be timed in one session on one card.
 
-- decode: the 2-frame greedy request of the smoke at batch 1 and 8 (random
-  TEOChat-7B int8, seed 0): TTFT and ms per decode step, from the median
-  wall time of `generate` with 1 and with 33 new tokens over --reps runs.
+- decode: the 2-frame greedy request of the smoke at each batch size of
+  --batches, for each weight format of --quant in turn (random TEOChat-7B,
+  seed 0; int4 is the fused packed model with its int4 lm_head): TTFT and
+  ms per decode step, from the median wall time of `generate` with 1 and
+  with 33 new tokens over --reps runs. One process, one card: int8 and
+  int4 are read side by side.
 - parity: one 7B-width training micro-step (the smoke's parity batch) under
   each attention of a pair, for each seed and decoder depth: the loss
   difference and the gradients' relative L2, overall and for the worst
@@ -20,6 +24,9 @@ another checkout, so two trees can be timed in one session on one card.
   (the same on fp32 q, k and v: P and dP unrounded).
 - k4: the smoke's K4 phase (the kernels against their plain twin at the
   training shapes); exits nonzero where it fails.
+- k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
+  against their plain versions at the 7B shapes); exits nonzero where one
+  fails, after running both.
 - profile-train: `torch.profiler` over the second optimizer step of the
   smoke's `train()` run (two micro-steps); device time by kernel class and
   the kernels that take the most.
@@ -50,39 +57,42 @@ def _import_tree(root: Path):
 
 
 def cmd_decode(smoke, args):
-    from teochat_tpu.config import GenerationConfig, TEOChatConfig
-    from teochat_tpu.constants import IMAGE_TOKEN_INDEX
-    from teochat_tpu.mm_utils import tokenizer_image_token
+    from teochat_torch.config import GenerationConfig, TEOChatConfig
+    from teochat_torch.constants import IMAGE_TOKEN_INDEX
+    from teochat_torch.mm_utils import tokenizer_image_token
 
-    cfg = TEOChatConfig(quant="int8")
-    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    params = smoke.init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int8")
     tokenizer = smoke.WordTokenizer()
-    model = smoke.teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
-    processor = smoke.FrameProcessor(cfg.vision.image_size, smoke.SEED)
     prompt = smoke.PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>")
     ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
-    frames = processor.preprocess(["a", "b"])["pixel_values"]
     n_new = 33
     g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
     gn = GenerationConfig(max_new_tokens=n_new, temperature=0.0, do_sample=False,
                           stop_strings=())
-    for bs in (1, 8):
-        batch_ids, batch_frames = [ids] * bs, np.concatenate([frames] * bs, axis=0)
-        model.generate(batch_ids, batch_frames, g1)
-        out = model.generate(batch_ids, batch_frames, gn)  # warm-up, and the step count
-        steps = max(len(r) for r in out) - 1
-        t1, tn = [], []
-        for _ in range(args.reps):
-            t1.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, g1))[1])
-            tn.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, gn))[1])
-        ttft, full = statistics.median(t1), statistics.median(tn)
-        ms_step = (full - ttft) / steps * 1e3
-        print(f"[decode] root={args.root} bs {bs}: TTFT {ttft * 1e3:.2f} ms (median of "
-              f"{args.reps}, {min(t1) * 1e3:.2f}-{max(t1) * 1e3:.2f}); {steps} decode steps "
-              f"{ms_step:.3f} ms/step, {bs * 1e3 / ms_step:.2f} tok/s (generate of {n_new} "
-              f"tokens: median {full * 1e3:.2f} ms, {min(tn) * 1e3:.2f}-{max(tn) * 1e3:.2f})",
-              flush=True)
+    for quant in args.quant:
+        cfg = TEOChatConfig(quant="int8" if quant == "int8" else None)
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+        params = smoke.init_teochat(cfg, gen, "cuda", torch.bfloat16, quant=quant)
+        model = smoke.teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
+        processor = smoke.FrameProcessor(cfg.vision.image_size, smoke.SEED)
+        frames = processor.preprocess(["a", "b"])["pixel_values"]
+        for bs in args.batches:
+            batch_ids, batch_frames = [ids] * bs, np.concatenate([frames] * bs, axis=0)
+            model.generate(batch_ids, batch_frames, g1)
+            out = model.generate(batch_ids, batch_frames, gn)  # warm-up, and the step count
+            steps = max(len(r) for r in out) - 1
+            t1, tn = [], []
+            for _ in range(args.reps):
+                t1.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, g1))[1])
+                tn.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, gn))[1])
+            ttft, full = statistics.median(t1), statistics.median(tn)
+            ms_step = (full - ttft) / steps * 1e3
+            print(f"[decode] root={args.root} {quant} bs {bs}: TTFT {ttft * 1e3:.2f} ms (median "
+                  f"of {args.reps}, {min(t1) * 1e3:.2f}-{max(t1) * 1e3:.2f}); {steps} decode "
+                  f"steps {ms_step:.3f} ms/step, {bs * 1e3 / ms_step:.2f} tok/s (generate of "
+                  f"{n_new} tokens: median {full * 1e3:.2f} ms, {min(tn) * 1e3:.2f}-"
+                  f"{max(tn) * 1e3:.2f})", flush=True)
+        del model, params
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ parity
@@ -109,7 +119,7 @@ def _attention(name: str):
 
 
 def cmd_parity(smoke, args):
-    from teochat_tpu.config import TEOChatConfig
+    from teochat_torch.config import TEOChatConfig
 
     names = sorted({n for pair in args.pairs for n in pair.split(":")})
     for layers in args.layers:
@@ -150,6 +160,19 @@ def cmd_k4(smoke, args):
     print("[k4] passed", flush=True)
 
 
+def cmd_k3k5(smoke, args):
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    failed = False
+    for name, phase in (("k5", smoke.phase_vit_attention), ("k3", smoke.phase_int4)):
+        try:
+            phase(gen)
+            print(f"[{name}] passed", flush=True)
+        except RuntimeError as e:
+            failed = True
+            print(f"[{name}] FAILED: {e}", flush=True)
+    sys.exit(1 if failed else 0)
+
+
 # ------------------------------------------------------------------ profile-train
 
 
@@ -168,7 +191,7 @@ KERNEL_CLASSES = (  # (class, substrings of the kernel's name); the first match 
 def cmd_profile_train(smoke, args):
     from torch.profiler import ProfilerActivity, profile
 
-    from teochat_tpu.config import TEOChatConfig
+    from teochat_torch.config import TEOChatConfig
     from teochat_torch.train import train as train_mod
 
     cfg = TEOChatConfig(quant="int8")
@@ -232,11 +255,13 @@ def cmd_profile_train(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "parity", "k4", "profile-train"):
+    for name in ("decode", "parity", "k4", "k3k5", "profile-train"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
             p.add_argument("--reps", type=int, default=5)
+            p.add_argument("--quant", nargs="+", default=["int8"], choices=["int8", "int4"])
+            p.add_argument("--batches", type=int, nargs="+", default=[1, 8])
         if name == "parity":
             p.add_argument("--seeds", type=int, nargs="+", default=[0])
             p.add_argument("--layers", type=int, nargs="+", default=[32])
@@ -245,7 +270,7 @@ def main():
     smoke = _import_tree(args.root)
     smoke.phase_device()
     smoke.phase_build()
-    {"decode": cmd_decode, "parity": cmd_parity, "k4": cmd_k4,
+    {"decode": cmd_decode, "parity": cmd_parity, "k4": cmd_k4, "k3k5": cmd_k3k5,
      "profile-train": cmd_profile_train}[args.cmd](smoke, args)
 
 

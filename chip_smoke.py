@@ -10,28 +10,50 @@ them. Phases, each printing its lines before the last:
    ptxas's register / spill report);
 3. the flash-attention kernel (K1) against its plain twin at prefill shapes;
 4. the decode-attention kernel (K2) against its plain twin at decode shapes;
-5. the main path at TEOChat-7B width (ViT-L/14, mlp2x_gelu, LLaMA-7B with
-   int8 weights, bf16 activations, random weights from a seed): three
-   requests through the unmodified `run_inference_single` and one batched
-   generate of four ragged rows; both kernels' launch counts must rise;
-6. the last-position prefill logits of the 2-frame request with the kernels
-   against the same forward on the plain attention;
-7. the training flash attention (K4a forward, K4b dK/dV, K4c dQ) against
-   autograd through its plain twin at training shapes, and each kernel's
-   time beside the plain forward's and backward's;
-8. the training path at TEOChat-7B width: the port's `train()` takes three
-   optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
-   projector, cosine schedule, accumulation 2, remat) on 16 synthetic
-   2-frame conversations; the three K4 launch counts must rise;
-9. one micro-step's loss and trainable gradients with the kernels against
-   the same step on the plain attention.
+5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
+   against their plain version at the 7B projections' shapes, M = 1, 4, 768;
+6. the one-shot ViT attention (K5) against its plain version at the tower's
+   shape;
+7. the int4 path at TEOChat-7B width and depth (ViT-L/14 through K5,
+   mlp2x_gelu, LLaMA-7B with fused packed-int4 projections and an int4
+   lm_head, bf16 activations, random weights from a seed): three requests
+   through `run_inference_single` and one batched generate of four ragged
+   rows; the launch counts of K1, K2, K3b, K3c and K5 must rise;
+8. the prefill logits of that model with the int4 kernels against the same
+   forward on the plain `int4_proj`;
+9. one request through a 4-layer decoder at 7B width with 2 kv heads and
+   unfused int4 projections, whose k and v are flat leaves: K3a must launch;
+10. the int8 path at TEOChat-7B width (LLaMA-7B with int8 weights): the same
+    requests; K1, K2 and K5 must launch;
+11. the last-position prefill logits of the 2-frame request with the kernels
+    against the same forward on the plain attention;
+12. the training flash attention (K4a forward, K4b dK/dV, K4c dQ) against
+    autograd through its plain twin at training shapes, and each kernel's
+    time beside the plain forward's and backward's;
+13. the training path at TEOChat-7B width: the port's `train()` takes three
+    optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
+    projector, cosine schedule, accumulation 2, remat) on 16 synthetic
+    2-frame conversations; the three K4 launch counts must rise;
+14. one micro-step's loss and trainable gradients with the kernels against
+    the same step on the plain attention.
+
+Every path runs at full width and depth. Beside each kernel's time the run
+takes the time of its plain version, of the one PyTorch call that computes
+the same function where there is one (`scaled_dot_product_attention`; used
+nowhere in the port), and works out the least time the card could take:
+the larger of the bytes moved over 3.35 TB/s and the operations over
+989 TFLOP/s (bf16), the H100 SXM's published rates.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -41,11 +63,12 @@ import types
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from teochat_tpu.config import GenerationConfig, TEOChatConfig
-from teochat_tpu.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
-from teochat_tpu.eval.inference import run_inference_single
-from teochat_tpu.mm_utils import tokenizer_image_token
+from teochat_torch.config import GenerationConfig, TEOChatConfig
+from teochat_torch.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from teochat_torch.eval.inference import run_inference_single
+from teochat_torch.mm_utils import tokenizer_image_token
 from teochat_torch.checkpoint.bridge import init_teochat
 from teochat_torch.data.dataset import DataArguments, make_supervised_data_module
 from teochat_torch.models import fusion as fusion_mod
@@ -54,6 +77,9 @@ from teochat_torch.models import teochat as teochat_mod
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
+from teochat_torch.ops import int4_matmul as int4_mod
+from teochat_torch.ops import quant as quant_mod
+from teochat_torch.ops import vit_attention as vit_mod
 from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
 from teochat_torch.train.train import ModelArguments, TrainingArguments, train
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
@@ -86,6 +112,34 @@ TRAIN_LOSS_REL_BOUND = 1e-2
 TRAIN_GRAD_REL_L2_BOUND = 1.5e-1
 N_TRAIN_SAMPLES = 16
 N_TIMED = 25
+# int4 product, kernel (bf16 out) vs plain (fp32 on the same bf16 x and the
+# same bytes): both accumulate exact products in fp32, so what is left is the
+# kernel's one bf16 rounding of the output, at most half an ulp = 2^-8 =
+# 3.9e-3 of each element (read on an H100: relative L2 1.6e-3 to 1.7e-3,
+# largest error 1.7e-3 to 3.0e-3 of the largest |output| at every shape),
+# plus fp32 summation order (~1e-6)
+INT4_REL_L2 = 3e-3
+INT4_REL_MAX = 4e-3  # largest error over the largest |output|
+VIT_TOL = 2e-2  # as FLASH_TOL: bf16 output rounding of |o| < 4, P rounded to bf16
+# prefill logits, int4 kernels vs plain int4_proj on the same weights and the
+# same attention kernels: the two sum in another order, which flips the bf16
+# rounding of a few outputs of each of the 128 projections, and 32 random
+# bf16 layers amplify that as they amplify the attention's rounding above.
+# Read on an H100: 3.3e-2 (the attention comparison reads 3.8e-2), the same
+# argmax with a top-2 margin three times the largest logit difference. The
+# K3 phase holds each product to 3e-3 at fixed shapes; this one holds the
+# path's own calls (strided slices of the fused outputs, the padded fan-in at
+# the prompt's M) to the order that rounding alone reaches at this depth
+INT4_LOGITS_REL_L2_BOUND = 5e-2
+# the H100 SXM's published rates, for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+# the 7B decoder's projections (fan-in, fan-out): q|k|v fused, out, gate|up
+# fused, down (its packed fan-in padded 5504 -> 5632 byte rows), lm_head (its
+# 32000 columns padded to 63 tiles of 512)
+INT4_SHAPES = [("qkv", 4096, 12288), ("out", 4096, 4096), ("gateup", 4096, 22016),
+               ("down", 11008, 4096), ("lm_head", 4096, 32000)]
+INT4_MS = (1, 4, 768)  # decode at batch 1 and 4, the 2-frame prompt's prefill
 
 PROMPT_2 = ("This is a pair of satellite images of the same location taken before "
             "and after a natural disaster: <video> Identify the damaged buildings "
@@ -142,17 +196,31 @@ def sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, n=N_TIMED):
-    """Median over n runs, each timed with CUDA events, after one warm-up."""
+def _hold_device():
+    """Enqueue ~3 ms of device work (an fp32 product without TF32), so that
+    what the host enqueues next waits in the stream and then runs back to
+    back. Its 64 MB operands also push earlier data out of the L2."""
+    a = torch.ones((4096, 4096), device="cuda")
+    torch.mm(a, a)
+
+
+def time_ms(fn, n=N_TIMED, inner=4, queued=True):
+    """One call's device time: the median over n measurements, each of `inner`
+    calls between two CUDA events, after one warm-up. With `queued` the calls
+    are enqueued behind a blocking product, so the events bracket the device's
+    work alone; without it a call's host time counts where it is the longer."""
     fn()
     times = []
     for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            _hold_device()
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -167,6 +235,24 @@ def wall(fn):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: (ms, 'bytes' | 'operations')."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_row(err, ms, plain_ms, nbytes, flops, library_ms=None):
+    """One kernel's measurements for the JSON line (launches come later)."""
+    bound, by = bound_ms(nbytes, flops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def _bhsd(x):
+    """[B, S, H, D] -> the [B, H, S, D] view scaled_dot_product_attention takes."""
+    return x.transpose(1, 2)
 
 
 def phase_device():
@@ -223,8 +309,14 @@ def phase_flash(gen):
         check(err <= FLASH_TOL, f"flash error {err} > {FLASH_TOL}")
         worst = max(worst, err)
         if main is None:
-            main = (ms, plain_ms)
-    return worst, main
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                _bhsd(q), _bhsd(k), _bhsd(v), is_causal=True))
+            nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
+            main = kernel_row(None, ms, plain_ms, nbytes, flops, lib_ms)
+            log(f"[K1 flash] same shape: scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                f"{main['bound_ms']:.4f} ms ({main['bound_by']})")
+    main["max_abs_err"] = worst
+    return main
 
 
 def phase_decode(gen):
@@ -236,6 +328,7 @@ def phase_decode(gen):
         (8, 32, 32, 1025, ragged),
         (1, 32, 8, 1025, [1025]),
         (8, 32, 8, 1025, ragged),
+        (1, 32, 2, 300, [290]),  # 16 query heads a kv head: two blocks of 8
     ]
     worst, main = 0.0, None
     for b, h, hkv, t, lengths in cases:
@@ -259,11 +352,167 @@ def phase_decode(gen):
         check(err <= DECODE_TOL, f"decode error {err} > {DECODE_TOL}")
         worst = max(worst, err)
         if main is None:
-            main = (ms, plain_ms)
-    return worst, main
+            live = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k, v, attn_mask=live[:, None, None, :]))
+            n_live = int(lens.sum().item())
+            main = kernel_row(None, ms, plain_ms, nbytes + 2 * 2 * b * h * d,
+                              4 * n_live * h * d, lib_ms)
+            log(f"[K2 decode] same shape: scaled_dot_product_attention with the length mask "
+                f"{lib_ms:.4f} ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']})")
+    main["max_abs_err"] = worst
+    return main
 
 
-def phase_main_path(model, tokenizer, processor):
+def _int4_case(name, k, n, m, packed, run, plain):
+    """One int4 product (`packed`: one weight's bytes) against its plain
+    version; returns (abs err, ms, plain ms, bytes, flops)."""
+    got = run()
+    sync()
+    want = plain()  # fp32: the plain version keeps the dtype of the x it is given
+    check(got.shape == want.shape and got.dtype == torch.bfloat16, f"{name}: shape / dtype")
+    check(torch.isfinite(got).all().item(), f"{name}: output finite")
+    diff = got.float() - want
+    rel_l2 = (diff.norm() / want.norm()).item()
+    err, top = diff.abs().max().item(), want.abs().max().item()
+    ms = time_ms(run)
+    call_ms = time_ms(run, inner=1, queued=False)  # one call on an idle card, host included
+    plain_ms = time_ms(plain, n=3, inner=1)
+    nbytes = packed.numel() + 2 * m * k + 2 * m * n + 4 * n  # bytes, x, y, scale
+    flops = 2 * m * k * n
+    bound, by = bound_ms(nbytes, flops)
+    log(f"[K3 int4] {name} K={k} N={n} M={m} {str(packed.dtype)[6:]}: rel L2 {rel_l2:.3e} "
+        f"(bound {INT4_REL_L2}) max_abs_err {err:.3e} = {err / top:.3e} of max |y| "
+        f"(bound {INT4_REL_MAX}); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s; {call_ms:.4f} ms a call on an idle card) plain "
+        f"{plain_ms:.4f} ms bound {bound:.4f} ms ({by})")
+    check(rel_l2 <= INT4_REL_L2, f"{name} M={m}: rel L2 {rel_l2} > {INT4_REL_L2}")
+    check(err <= INT4_REL_MAX * top, f"{name} M={m}: max err {err / top} of max > {INT4_REL_MAX}")
+    return err, ms, plain_ms, nbytes, flops
+
+
+def phase_int4(gen):
+    """K3a, K3b, K3c at the 7B shapes. Weights are random kernels through the
+    port's quantizer (so the K and N paddings are the real ones); timed
+    launches walk a stack of copies larger than the 50 MB L2."""
+    rows, worst = {}, {"k3a": 0.0, "k3b": 0.0, "k3c": 0.0}
+
+    def quantized(k, n):
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        return quant_mod.quantize_kernel_int4(w)
+
+    for name, k, n in INT4_SHAPES:
+        a, b = quantized(k, n), quantized(k, n)
+        tiles2 = torch.stack([a["packed_tiles"], b["packed_tiles"]])
+        scale2 = torch.stack([a["scale"], b["scale"]])
+        check(tiles2.dtype == torch.int8 and tiles2.shape[-1] == 512, f"{name}: v3 tiles of 512")
+        reps = -(-160 * 2**20 // tiles2[0].numel())  # copies that exceed the L2 three times
+        rot_tiles = tiles2[1:].expand(reps, -1, -1, -1).contiguous()
+        rot_scale = scale2[1:].expand(reps, -1).contiguous()
+        # a timed launch finds its weight out of the L2, as a decode step finds each layer's
+        nxt = itertools.cycle(range(reps)).__next__
+        for m in INT4_MS:
+            x = _randn((m, k), gen)
+            if name == "lm_head":  # K3b: one weight, tiles [63, 2048, 512]
+                key, label = "k3b", "K3b lm_head"
+                run = lambda: int4_mod.int4_matmul_tiled(
+                    x, rot_tiles[nxt()], scale2[1], n_out=n)
+                plain = lambda: int4_mod.int4_matmul_tiled_plain(
+                    x.float(), tiles2[1], scale2[1], n_out=n)
+            else:  # K3c: the layer picked out of the stack
+                key, label = "k3c", f"K3c {name}"
+                run = lambda: int4_mod.int4_matmul_tiled_stacked(
+                    x, rot_tiles, rot_scale, nxt(), n_out=n)
+                plain = lambda: int4_mod.int4_matmul_tiled_stacked_plain(
+                    x.float(), tiles2, scale2, 1, n_out=n)
+                got = int4_mod.int4_matmul_tiled_stacked(x, tiles2, scale2, 0, n_out=n)
+                want = int4_mod.int4_matmul_tiled_stacked_plain(
+                    x.float(), tiles2, scale2, 0, n_out=n)
+                check(((got.float() - want).norm() / want.norm()).item() <= INT4_REL_L2,
+                      f"{label} M={m}: layer 0 of the stack")
+            out = _int4_case(label, k, n, m, tiles2[1], run, plain)
+            worst[key] = max(worst[key], out[0])
+            if m == 1 and name in ("gateup", "lm_head"):  # the rows of the JSON line
+                rows[key] = kernel_row(None, *out[1:])
+        if name == "out":  # K3b on u8 bytes: the v3 bytes with the top bit flipped
+            u8 = (tiles2[1].view(torch.uint8) ^ 0x80).contiguous()
+            x = _randn((4, k), gen)
+            out = _int4_case(
+                "K3b out", k, n, 4, u8,
+                lambda: int4_mod.int4_matmul_tiled(x, u8, scale2[1], n_out=n),
+                lambda: int4_mod.int4_matmul_tiled_plain(x.float(), u8, scale2[1], n_out=n))
+            worst["k3b"] = max(worst["k3b"], out[0])
+        del a, b, tiles2, rot_tiles
+
+    # K3a: an unfused k or v of a model with 2 kv heads: K 4096, N 256, flat u8
+    k, n = 4096, 256
+    leaf = quantized(k, n)
+    check("packed" in leaf and leaf["packed"].dtype == torch.uint8, "K3a: flat u8 leaf")
+    for m in INT4_MS:
+        x = _randn((m, k), gen)
+        out = _int4_case(
+            "K3a flat", k, n, m, leaf["packed"],
+            lambda: int4_mod.int4_matmul(x, leaf["packed"], leaf["scale"]),
+            lambda: int4_mod.int4_matmul_plain(x.float(), leaf["packed"], leaf["scale"]))
+        worst["k3a"] = max(worst["k3a"], out[0])
+        if m == 1:
+            rows["k3a"] = kernel_row(None, *out[1:])
+    for key in rows:
+        rows[key]["max_abs_err"] = worst[key]
+    return rows
+
+
+def phase_vit_attention(gen):
+    cases = [  # (B, S, H, D); the first is reported in the JSON line
+        (2, 257, 16, 64),  # a 2-frame request's encode
+        (32, 257, 16, 64),
+        (3, 100, 16, 64),  # ragged against every tile
+        (16, 1024, 16, 64),  # the longest the gate lets through
+    ]
+    worst, main = 0.0, None
+    for b, s, h, d in cases:
+        q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
+        got = vit_mod.vit_attention(q, k, v)
+        sync()
+        want = vit_mod.vit_attention_plain(q.float(), k.float(), v.float())
+        err = (got.float() - want).abs().max().item()
+        check(torch.isfinite(got).all().item(), "vit attention output finite")
+        ms = time_ms(lambda: vit_mod.vit_attention(q, k, v))
+        plain_ms = time_ms(lambda: vit_mod.vit_attention_plain(q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(_bhsd(q), _bhsd(k), _bhsd(v)))
+        flops, nbytes = 4 * b * h * s * s * d, 2 * 4 * b * s * h * d
+        row = kernel_row(err, ms, plain_ms, nbytes, flops, lib_ms)
+        log(f"[K5 vit attention] B={b} S={s} H={h} D={d}: max_abs_err={err:.3e} (tol {VIT_TOL}) "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.4f} ms "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        check(err <= VIT_TOL, f"vit attention error {err} > {VIT_TOL}")
+        worst = max(worst, err)
+        main = main or row
+    main["max_abs_err"] = worst
+    return main
+
+
+INFERENCE_COUNTERS = {  # the kernels an inference path may launch
+    "K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
+    "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED, "K5": vit_mod.LAUNCHES,
+}
+
+
+def counted(tag, fn):
+    """Run one path with every inference kernel's count set to 0 just before
+    it and read just after; returns (fn's result, {kernel: launches})."""
+    for counter in INFERENCE_COUNTERS.values():
+        counter.reset()
+    out = fn()
+    counts = {name: c.count for name, c in INFERENCE_COUNTERS.items()}
+    log(f"[{tag}] kernel launches on this path: "
+        + ", ".join(f"{name} {n}" for name, n in counts.items())
+        + f"; peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return out, counts
+
+
+def phase_main_path(model, tokenizer, processor, tag="main"):
     cfg = model.cfg
     requests = [
         ("2-frame greedy", PROMPT_2, 2, 0.0),
@@ -278,7 +527,7 @@ def phase_main_path(model, tokenizer, processor):
             temperature=temp, max_new_tokens=32, rng=SEED + 1,
         ))
         check(isinstance(answer, str) and answer, f"{name}: empty answer")
-        log(f"[main] request {name}: {sec:.3f} s answer={answer[:160]!r}")
+        log(f"[{tag}] request {name}: {sec:.3f} s answer={answer[:160]!r}")
 
     # per-phase times of the 2-frame greedy request, from the same entry points
     frames = processor.preprocess(["a", "b"])["pixel_values"]
@@ -290,12 +539,19 @@ def phase_main_path(model, tokenizer, processor):
           and torch.isfinite(toks).all().item(), "encode output")
     g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
     g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
-    _, ttft_s = wall(lambda: model.generate([ids], frames, g1))
-    out, full_s = wall(lambda: model.generate([ids], frames, g32))
+    # host time spreads from one generate to the next: the median of three
+    ttfts, fulls = [], []
+    for _ in range(3):
+        ttfts.append(wall(lambda: model.generate([ids], frames, g1))[1])
+        out, full_s = wall(lambda: model.generate([ids], frames, g32))
+        fulls.append(full_s)
+    ttft_s, full_s = statistics.median(ttfts), statistics.median(fulls)
     steps = len(out[0]) - 1
-    log(f"[main] 2-frame bs1: encode {encode_s * 1e3:.2f} ms, TTFT {ttft_s * 1e3:.2f} ms "
+    log(f"[{tag}] 2-frame bs1: encode {encode_s * 1e3:.2f} ms, TTFT {ttft_s * 1e3:.2f} ms "
         f"(encode + fuse + prefill + first token), decode {steps} steps "
-        f"{steps / (full_s - ttft_s):.2f} tok/s ({(full_s - ttft_s) / steps * 1e3:.2f} ms/step)")
+        f"{steps / (full_s - ttft_s):.2f} tok/s ({(full_s - ttft_s) / steps * 1e3:.2f} ms/step); "
+        f"TTFT and decode from the medians of 3 generates of 1 and of 32 tokens "
+        f"(32 tokens: {min(fulls):.3f}-{max(fulls):.3f} s)")
 
     # one batched generate of four ragged rows (2, 1, 4 and 0 frames)
     rows = [
@@ -311,12 +567,29 @@ def phase_main_path(model, tokenizer, processor):
     outs, sec = wall(lambda: model.generate(batch_ids, batch_frames, g16, rng=SEED))
     check(len(outs) == 4 and all(0 < len(r) <= 16 for r in outs), "batched lengths")
     check(all(0 <= t < cfg.llm.vocab_size for r in outs for t in r), "batched token ids")
-    log(f"[main] batched generate of 4 ragged rows (prompt lengths "
+    log(f"[{tag}] batched generate of 4 ragged rows (prompt lengths "
         f"{[len(r) for r in batch_ids]}): {sec:.3f} s, tokens per row {[len(r) for r in outs]}")
     return ids, frames
 
 
-def phase_logits(model, ids, frames):
+@contextlib.contextmanager
+def plain_int4():
+    """Route every int4 product to its plain version, also on the card."""
+    names = ("int4_matmul", "int4_matmul_tiled", "int4_matmul_tiled_stacked")
+    saved = {name: getattr(int4_mod, name) for name in names}
+    for name in names:
+        setattr(int4_mod, name, functools.partial(saved[name], impl="plain"))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(int4_mod, name, saved[name])
+
+
+def phase_logits(model, ids, frames, compare="attention"):
+    """Last-position prefill logits of the 2-frame request, kernels against
+    plain: `compare` = 'attention' (flash kernel vs plain attention) or
+    'int4' (int4 kernels vs plain int4_proj, the attention kernels in both)."""
     cfg = model.cfg
     vision = model.encode(frames)
     tpf = model.tokens_per_frame
@@ -330,18 +603,28 @@ def phase_logits(model, ids, frames):
     logits = {}
     for impl in ("auto", "plain"):
         cache = llama_mod.init_cache(cfg.llm, 1, pad_to + 2, dtype=torch.bfloat16, device="cuda")
-        logits[impl] = llama_mod.llama_forward(
-            model.params["llm"], cfg.llm, embeds, position_ids=pos, cache=cache,
-            write_slots=pos, logits_mode="last", last_index=last, attn_impl=impl,
-        )[0, -1]
+        with plain_int4() if (compare, impl) == ("int4", "plain") else contextlib.nullcontext():
+            logits[impl] = llama_mod.llama_forward(
+                model.params["llm"], cfg.llm, embeds, position_ids=pos, cache=cache,
+                write_slots=pos, logits_mode="last", last_index=last,
+                attn_impl=impl if compare == "attention" else "auto",
+            )[0, -1]
     a, b = logits["auto"], logits["plain"]
     check(tuple(a.shape) == (cfg.llm.vocab_size,) and torch.isfinite(a).all().item(),
           "logits finite")
     rel = ((a - b).norm() / b.norm()).item()
-    log(f"[logits] 2-frame prefill (S={pad_to}, {plan.seq_lens[0]} live) last-position "
-        f"logits, kernels vs plain attention: rel L2 {rel:.3e} (bound {LOGITS_REL_L2_BOUND}), "
-        f"argmax {int(a.argmax())} vs {int(b.argmax())}")
-    check(rel <= LOGITS_REL_L2_BOUND, f"logits rel L2 {rel} > {LOGITS_REL_L2_BOUND}")
+    bound = LOGITS_REL_L2_BOUND if compare == "attention" else INT4_LOGITS_REL_L2_BOUND
+    what = "plain attention" if compare == "attention" else "plain int4_proj"
+    top2 = torch.topk(b, 2).values
+    margin, worst = (top2[0] - top2[1]).item(), (a - b).abs().max().item()
+    log(f"[logits {compare}] 2-frame prefill (S={pad_to}, {plan.seq_lens[0]} live) "
+        f"last-position logits, kernels vs {what}: rel L2 {rel:.3e} (bound {bound}), "
+        f"argmax {int(a.argmax())} vs {int(b.argmax())} (plain's top-2 margin {margin:.3e}, "
+        f"largest logit difference {worst:.3e})")
+    check(rel <= bound, f"logits rel L2 {rel} > {bound}")
+    if compare == "int4":  # the same token, unless the two best are closer than the error
+        check(int(a.argmax()) == int(b.argmax()) or margin <= 2 * worst,
+              "int4 kernels and plain int4_proj pick different tokens")
 
 
 def _flash_grads(fn, q, k, v, do):
@@ -363,7 +646,7 @@ def phase_flash_backward(gen):
         (1, 2048, 32, 32, False),
     ]
     worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
-    times = None
+    rows = None
     for b, s, h, hkv, padded in cases:
         d = 128
         q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
@@ -389,14 +672,17 @@ def phase_flash_backward(gen):
         log(f"[K4 flash train] B={b} S={s} H={h} Hkv={hkv} D={d} padded={padded}: o max_abs_err "
             f"{errs[0]:.3e}; dq/dk/dv max_abs_err {errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; "
             + "; ".join(rel))
-        if times is None:
-            times = _time_flash_backward(q, k, v, do)
-    return worst, times
+        if rows is None:
+            rows = _time_flash_backward(q, k, v, do)
+    for name, row in rows.items():
+        row["max_abs_err"] = worst[name]
+    return rows
 
 
 def _time_flash_backward(q, k, v, do):
-    """Each K4 kernel alone (the backward ones from saved residuals), and the
-    plain forward and backward, at one shape."""
+    """Each K4 kernel alone (the backward ones from saved residuals), the
+    plain forward and backward and scaled_dot_product_attention's, at one
+    shape; returns each kernel's row for the JSON line."""
     b, s, h, d = q.shape
     scale = d ** -0.5
     o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale)
@@ -410,13 +696,30 @@ def _time_flash_backward(q, k, v, do):
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     op = flash_mod.flash_attention_plain(qg, kg, vg)
     t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(op, (qg, kg, vg), do, retain_graph=True))
+    qt, kt, vt = (_bhsd(x).detach().requires_grad_(True) for x in (q, k, v))
+    t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    ol = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    t["lib_bwd"] = time_ms(
+        lambda: torch.autograd.grad(ol, (qt, kt, vt), _bhsd(do), retain_graph=True))
     product = 2 * b * h * s * s * d / 2  # one causal S x S x D product
     log(f"[K4 flash train] B={b} S={s} H={h} D={d} times: K4a {t['fwd']:.4f} ms "
         f"({2 * product / t['fwd'] / 1e9:.1f} TFLOP/s), K4b {t['dkv']:.4f} ms "
         f"({4 * product / t['dkv'] / 1e9:.1f} TFLOP/s), K4c {t['dq']:.4f} ms "
         f"({3 * product / t['dq'] / 1e9:.1f} TFLOP/s); plain forward {t['plain_fwd']:.4f} ms, "
-        f"plain backward {t['plain_bwd']:.4f} ms")
-    return t
+        f"plain backward {t['plain_bwd']:.4f} ms; scaled_dot_product_attention forward "
+        f"{t['lib_fwd']:.4f} ms, backward (dq, dk and dv in one call) {t['lib_bwd']:.4f} ms")
+    # bytes: bf16 [B, S, H, D] tensors in and out, fp32 [B, H, S] statistics;
+    # operations: the products each kernel's function needs from its inputs
+    # (K4a: S and PV; K4b: S, dP, dV, dK; K4c: S, dP, dQ), causal halves
+    tensor, stat = 2 * q.numel(), 4 * b * h * s
+    return {
+        "fwd": kernel_row(None, t["fwd"], t["plain_fwd"], 4 * tensor + 2 * stat, 2 * product,
+                          t["lib_fwd"]),
+        "dkv": kernel_row(None, t["dkv"], t["plain_bwd"], 6 * tensor + 3 * stat, 4 * product,
+                          t["lib_bwd"]),
+        "dq": kernel_row(None, t["dq"], t["plain_bwd"], 5 * tensor + 3 * stat, 3 * product,
+                         t["lib_bwd"]),
+    }
 
 
 TRAIN_QA = [
@@ -563,12 +866,67 @@ def phase_train_parity(cfg, params, tokenizer, processor, gen):
     check(rels[worst_path] <= TRAIN_GRAD_REL_L2_BOUND, f"gradient rel L2 {rels[worst_path]}")
 
 
+def phase_k3a_path(cfg, gen, tokenizer, processor):
+    """One request through a 4-layer decoder at 7B width with 2 kv heads and
+    unfused int4 projections: k and v are 256 wide, so flat `packed` leaves."""
+    llm = dataclasses.replace(cfg.llm, num_layers=4, num_kv_heads=2)
+    cfg = dataclasses.replace(cfg, llm=llm)
+    params = init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int4", fuse_projections=False)
+    attn = params["llm"]["layers"]["attn"]
+    check(attn["k"]["packed"].shape == (4, 2048, 256) and "packed_tiles" in attn["q"],
+          "flat k and v beside tiled q")
+    model = teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
+
+    def request():
+        return wall(lambda: run_inference_single(
+            model, processor, tokenizer, PROMPT_2, ["a.png", "b.png"],
+            timestamps=["2019-01-15", "2019-02-15"], temperature=0.0, max_new_tokens=8))
+
+    (answer, sec), counts = counted("K3a path", request)
+    check(isinstance(answer, str) and answer, "K3a path: empty answer")
+    log(f"[K3a path] 4 layers, 2 kv heads, unfused int4: {sec:.3f} s answer={answer[:80]!r}")
+    # a layer runs 5 tiled projections (q, out, gate, up, down) and 2 flat ones (k, v)
+    check(counts["K3a"] > 0 and counts["K3a"] * 5 == counts["K3c"] * 2, f"K3a launches {counts}")
+    check(counts["K2"] > 0 and counts["K3b"] > 0, f"decode steps and the lm_head ran {counts}")
+    return counts
+
+
+def phase_int4_path(gen, tokenizer):
+    """The int4 inference path at full width and depth, then its logits check."""
+    cfg = TEOChatConfig()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = wall(lambda: init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int4"))
+    log(f"[int4] init TEOChat-7B int4 (fused q|k|v and gate|up, int4 lm_head; random, seed "
+        f"{SEED}): {init_s:.2f} s, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    model = teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
+    processor = FrameProcessor(cfg.vision.image_size, SEED)
+    (ids, frames), counts = counted(
+        "int4", lambda: phase_main_path(model, tokenizer, processor, tag="int4"))
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c", "K5")) and counts["K3a"] == 0,
+          f"int4 path launches {counts}")
+    # every forward runs 4 stacked projections in each layer and one lm_head;
+    # every encode runs the 23 layers below the selected one
+    n_layers, vit_layers = cfg.llm.num_layers, cfg.vision.num_layers - 1
+    check(counts["K3c"] == 4 * n_layers * counts["K3b"], f"K3c per forward {counts}")
+    check(counts["K5"] % vit_layers == 0, f"K5 per encode {counts}")
+    phase_logits(model, ids, frames, compare="int4")
+    k3a_counts = phase_k3a_path(cfg, gen, tokenizer, processor)
+    return counts, k3a_counts
+
+
 def main():
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    flash_err, flash_ms = phase_flash(gen)
-    dec_err, dec_ms = phase_decode(gen)
+    rows = {"K1": phase_flash(gen), "K2": phase_decode(gen)}
+    k3 = phase_int4(gen)
+    rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"]})
+    rows["K5"] = phase_vit_attention(gen)
+    tokenizer = WordTokenizer()
+
+    int4_counts, k3a_counts = phase_int4_path(gen, tokenizer)
+    torch.cuda.empty_cache()
 
     cfg = TEOChatConfig(quant="int8")
     torch.cuda.reset_peak_memory_stats()
@@ -576,51 +934,43 @@ def main():
     log(f"[main] init TEOChat-7B int8 (random, seed {SEED}): {init_s:.2f} s, "
         f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    tokenizer = WordTokenizer()
     model = teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
     processor = FrameProcessor(cfg.vision.image_size, SEED)
-
-    flash_mod.LAUNCHES.reset()
-    dec_mod.LAUNCHES.reset()
-    ids, frames = phase_main_path(model, tokenizer, processor)
-    launches = {"flash": flash_mod.LAUNCHES.count, "decode": dec_mod.LAUNCHES.count}
-    log(f"[main] kernel launches during the main path: K1 flash {launches['flash']}, "
-        f"K2 decode {launches['decode']}; peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    check(launches["flash"] > 0 and launches["decode"] > 0, "both kernels ran on the main path")
-
+    (ids, frames), int8_counts = counted(
+        "main", lambda: phase_main_path(model, tokenizer, processor))
+    check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
+          f"int8 path launches {int8_counts}")
     phase_logits(model, ids, frames)
 
-    k4_err, k4_ms = phase_flash_backward(gen)
+    k4_rows = phase_flash_backward(gen)
     train_launches = phase_train(cfg, params, tokenizer, processor)
     phase_train_parity(cfg, params, tokenizer, processor, gen)
 
+    def row(name, source, replaces, launches, measured):
+        return {"name": name, "route": "cuda", "source": f"teochat_torch/csrc/{source}",
+                "replaces": f"teochat_tpu/ops/{replaces}", "launches": launches, **measured}
+
+    # launches: K1, K2, K3b, K3c, K5 on the int4 path, K3a on its own request,
+    # K4a-c in train(); the int8 path's counts are checked above
     kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "teochat_torch/csrc/flash_attention.cu",
-         "replaces": "teochat_tpu/ops/flash_attention.py:32",
-         "launches": launches["flash"], "max_abs_err": flash_err,
-         "ms": flash_ms[0], "plain_ms": flash_ms[1]},
-        {"name": "decode_attention", "route": "cuda",
-         "source": "teochat_torch/csrc/decode_attention.cu",
-         "replaces": "teochat_tpu/ops/decode_attention.py:44",
-         "launches": launches["decode"], "max_abs_err": dec_err,
-         "ms": dec_ms[0], "plain_ms": dec_ms[1]},
-        {"name": "flash_attention_fwd_res", "route": "cuda",
-         "source": "teochat_torch/csrc/flash_attention.cu",
-         "replaces": "teochat_tpu/ops/flash_attention.py:243",
-         "launches": train_launches["fwd"], "max_abs_err": k4_err["fwd"],
-         "ms": k4_ms["fwd"], "plain_ms": k4_ms["plain_fwd"]},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda",
-         "source": "teochat_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "teochat_tpu/ops/flash_attention.py:348",
-         "launches": train_launches["dkv"], "max_abs_err": k4_err["dkv"],
-         "ms": k4_ms["dkv"], "plain_ms": k4_ms["plain_bwd"]},
-        {"name": "flash_attention_bwd_dq", "route": "cuda",
-         "source": "teochat_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "teochat_tpu/ops/flash_attention.py:421",
-         "launches": train_launches["dq"], "max_abs_err": k4_err["dq"],
-         "ms": k4_ms["dq"], "plain_ms": k4_ms["plain_bwd"]},
+        row("flash_attention", "flash_attention.cu", "flash_attention.py:32",
+            int4_counts["K1"], rows["K1"]),
+        row("decode_attention", "decode_attention.cu", "decode_attention.py:44",
+            int4_counts["K2"], rows["K2"]),
+        row("flash_attention_fwd_res", "flash_attention.cu", "flash_attention.py:243",
+            train_launches["fwd"], k4_rows["fwd"]),
+        row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:348",
+            train_launches["dkv"], k4_rows["dkv"]),
+        row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:421",
+            train_launches["dq"], k4_rows["dq"]),
+        row("int4_matmul", "int4_matmul.cu", "int4_matmul.py:44",
+            k3a_counts["K3a"], rows["K3a"]),
+        row("int4_matmul_tiled", "int4_matmul.cu", "int4_matmul.py:208",
+            int4_counts["K3b"], rows["K3b"]),
+        row("int4_matmul_tiled_stacked", "int4_matmul.cu", "int4_matmul.py:348",
+            int4_counts["K3c"], rows["K3c"]),
+        row("vit_attention", "vit_attention.cu", "vit_attention.py:42",
+            int4_counts["K5"], rows["K5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,20 @@
 
 `to_torch` turns a JAX-layout params tree (nested dicts and lists of numpy
 arrays, e.g. `np.asarray` of every leaf of the JAX package's `vision`,
-`projector` and `llm` trees, plain or int8-quantized) into tensors on one
-device; `to_numpy` goes back. Layouts are unchanged: stacked `[L, ...]`
-per-layer leaves, `kernel [in, out]`, int8 `scale [out]`.
+`projector` and `llm` trees, plain, int8- or int4-quantized) into tensors on
+one device; `to_numpy` goes back. Layouts are unchanged: stacked `[L, ...]`
+per-layer leaves, `kernel [in, out]`, int8 `scale [out]`; the int4 leaves
+`packed` (uint8) and `packed_tiles` (int8 or uint8) keep their bytes and
+dtype, so a tree from the JAX `quantize_llama_params_int4` loads byte for
+byte.
 
 `init_teochat` makes a random TEOChat directly on a device, with the JAX
-package's init scheme. With quant='int8' it draws and quantizes one layer's
-projection at a time, so the peak stays near the int8 model (about 7 GB for
-the 7B decoder) rather than the bf16 one (13.5 GB).
+package's init scheme. With quant='int8' or 'int4' it draws and quantizes one
+layer's projection at a time, so the peak stays near the quantized model
+rather than the bf16 one (13.5 GB for the 7B decoder).
+
+The device defaults to the card: `device=None` means "cuda" and raises when
+there is none; the CPU is used only when the caller passes "cpu".
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from teochat_tpu.config import TEOChatConfig
-from teochat_torch.ops.quant import quantize_kernel
+from teochat_torch.config import TEOChatConfig
+from teochat_torch.ops.quant import quantize_kernel, quantize_kernel_int4
+from teochat_torch.utils import resolve_device
 
 Params = Dict
 
@@ -39,9 +46,11 @@ def _leaf_to_torch(name: str, arr, device, dtype) -> torch.Tensor:
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None, _name: str = ""):
-    """numpy params tree -> tensors on `device`. Float leaves other than
-    'scale' and the LoRA leaves (fp32) are cast to `dtype` (None keeps them);
-    integer leaves keep theirs."""
+    """numpy params tree -> tensors on `device` (None = the card). Float
+    leaves other than 'scale' and the LoRA leaves (fp32) are cast to `dtype`
+    (None keeps them); integer leaves (int8 kernels, packed int4 bytes) keep
+    theirs."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -81,6 +90,8 @@ class _Init:
         if quant is None:
             return {"kernel": torch.stack(
                 [self.normal((fan_in, fan_out), std) for _ in range(n_layers)])}
+        if quant == "int4":
+            return self.stacked_int4(n_layers, fan_in, (fan_out,), std)
         if quant != "int8":
             raise NotImplementedError(f"quant={quant!r} is not ported yet")
         kernel = torch.empty((n_layers, fan_in, fan_out), dtype=torch.int8, device=self.device)
@@ -89,6 +100,22 @@ class _Init:
             qp = quantize_kernel(self.normal((fan_in, fan_out), std, torch.float32))
             kernel[i], scale[i] = qp["kernel"], qp["scale"]
         return {"kernel": kernel, "scale": scale}
+
+
+    def stacked_int4(self, n_layers: int, fan_in: int, fan_outs, std: float) -> Params:
+        """A stacked int4 projection whose output is the concatenation of
+        `fan_outs` (q|k|v, gate|up or a single projection), drawn, quantized
+        and packed one layer at a time into the stacked leaves."""
+        out: Params = {}
+        for i in range(n_layers):
+            kernel = torch.cat(
+                [self.normal((fan_in, n), std, torch.float32) for n in fan_outs], dim=-1)
+            for name, leaf in quantize_kernel_int4(kernel).items():
+                if name not in out:
+                    out[name] = torch.empty((n_layers, *leaf.shape), dtype=leaf.dtype,
+                                            device=self.device)
+                out[name][i] = leaf
+        return out
 
 
 def _init_vit(ini: _Init, cfg) -> Params:
@@ -137,26 +164,35 @@ def _init_projector(ini: _Init, cfg) -> Params:
     return {"layers": layers} if layers else {}
 
 
-def _init_llama(ini: _Init, cfg, quant: Optional[str]) -> Params:
+def _init_llama(ini: _Init, cfg, quant: Optional[str], fuse_projections: bool) -> Params:
     d, i_sz, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hkv_d = cfg.num_kv_heads * cfg.head_dim
     std = 0.02
+    if quant == "int4" and fuse_projections:
+        # the leaves quantize_llama_params_int4 makes: q|k|v and gate|up fused
+        attn = {"qkv": ini.stacked_int4(L, d, (d, hkv_d, hkv_d), std),
+                "out": ini.stacked(L, d, d, std, quant)}
+        mlp = {"gateup": ini.stacked_int4(L, d, (i_sz, i_sz), std),
+               "down": ini.stacked(L, i_sz, d, std, quant)}
+    else:
+        attn = {
+            "q": ini.stacked(L, d, d, std, quant),
+            "k": ini.stacked(L, d, hkv_d, std, quant),
+            "v": ini.stacked(L, d, hkv_d, std, quant),
+            "out": ini.stacked(L, d, d, std, quant),
+        }
+        mlp = {
+            "gate": ini.stacked(L, d, i_sz, std, quant),
+            "up": ini.stacked(L, d, i_sz, std, quant),
+            "down": ini.stacked(L, i_sz, d, std, quant),
+        }
     params = {
         "embed_tokens": {"embedding": ini.normal((cfg.vocab_size, d), std)},
         "layers": {
             "input_norm": {"scale": ini.ones32((L, d))},
-            "attn": {
-                "q": ini.stacked(L, d, d, std, quant),
-                "k": ini.stacked(L, d, hkv_d, std, quant),
-                "v": ini.stacked(L, d, hkv_d, std, quant),
-                "out": ini.stacked(L, d, d, std, quant),
-            },
+            "attn": attn,
             "post_attn_norm": {"scale": ini.ones32((L, d))},
-            "mlp": {
-                "gate": ini.stacked(L, d, i_sz, std, quant),
-                "up": ini.stacked(L, d, i_sz, std, quant),
-                "down": ini.stacked(L, i_sz, d, std, quant),
-            },
+            "mlp": mlp,
         },
         "final_norm": {"scale": ini.ones32((d,))},
     }
@@ -167,13 +203,16 @@ def _init_llama(ini: _Init, cfg, quant: Optional[str]) -> Params:
 
 
 def init_teochat(cfg: TEOChatConfig, generator: torch.Generator, device=None,
-                 dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = "int8") -> Params:
-    """Random TEOChat params on `device`, drawn from `generator` (which must
-    live on that device). The decoder's projections and lm_head are int8
-    when quant='int8'; the tower and projector stay in `dtype`."""
-    ini = _Init(generator, device, dtype)
+                 dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = "int8",
+                 fuse_projections: bool = True) -> Params:
+    """Random TEOChat params on `device` (None = the card), drawn from
+    `generator` (which must live on that device). The decoder's projections
+    and lm_head are int8 when quant='int8' and packed int4 when quant='int4'
+    (q|k|v and gate|up fused unless `fuse_projections` is False); the tower
+    and projector stay in `dtype`."""
+    ini = _Init(generator, resolve_device(device), dtype)
     return {
         "vision": _init_vit(ini, cfg.vision),
         "projector": _init_projector(ini, cfg.projector),
-        "llm": _init_llama(ini, cfg.llm, quant),
+        "llm": _init_llama(ini, cfg.llm, quant, fuse_projections),
     }

@@ -16,7 +16,9 @@
 // and accumulators in registers, and reads the layer slab of the
 // [L, B, T, Hkv, D] cache in place through its strides (no copy per step).
 //
-// Layout: one block of 8 warps per (kv head, batch row). Each group of
+// Layout: one block of 8 warps per (kv head, batch row); a group wider than
+// 8 query heads is split over several blocks of 8 heads, which read the kv
+// head again (registers hold 8 queries and accumulators). Each group of
 // D / 8 lanes walks its own subset of the slots with a private online-softmax
 // state; the states are merged with shuffles inside a warp, then across warps
 // in shared memory. At B = 1, Hkv = 32 this fills 32 of 132 SMs: splitting T
@@ -46,7 +48,7 @@ template <int D, int G>
 __global__ void __launch_bounds__(NTHREADS)
 decode_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, const int* __restrict__ lengths,
-              uint16_t* __restrict__ o, int T, int H,
+              uint16_t* __restrict__ o, int T, int H, int Hkv,
               long long q_sb, long long q_sh,
               long long k_sb, long long k_sh, long long k_st,
               long long v_sb, long long v_sh, long long v_st, float scale) {
@@ -56,7 +58,8 @@ decode_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   __shared__ float sm_l[NWARPS][G];
   __shared__ float sm_acc[NWARPS][G][D];
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+  // this block's G query heads start at hq0; they read kv head hk
+  const int hq0 = blockIdx.x * G, hk = hq0 / (H / Hkv), b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / LPK, dl = lane % LPK;
   const int len = min(max(lengths[b], 0), T);
@@ -64,7 +67,7 @@ decode_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   float qf[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    unpack8(*reinterpret_cast<const uint4*>(q + b * q_sb + (hk * G + g) * q_sh + dl * 8), qf[g]);
+    unpack8(*reinterpret_cast<const uint4*>(q + b * q_sb + (hq0 + g) * q_sh + dl * 8), qf[g]);
 
   float m[G], l[G], acc[G][8];
 #pragma unroll
@@ -160,20 +163,20 @@ decode_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
     out *= lsum == 0.f ? 1.f : 1.f / lsum;
     const __nv_bfloat16 ob = __float2bfloat16_rn(out);
-    o[(static_cast<long long>(b) * H + hk * G + g) * D + d] =
+    o[(static_cast<long long>(b) * H + hq0 + g) * D + d] =
         *reinterpret_cast<const uint16_t*>(&ob);
   }
 }
 
 template <int D>
 int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
-             const uint16_t* v, const int* lens, uint16_t* o, int T, int H,
+             const uint16_t* v, const int* lens, uint16_t* o, int T, int H, int Hkv,
              long long q_sb, long long q_sh, long long k_sb, long long k_sh,
              long long k_st, long long v_sb, long long v_sh, long long v_st,
              float scale) {
 #define TEOCHAT_DECODE_LAUNCH(GV)                                            \
   decode_kernel<D, GV><<<grid, NTHREADS, 0, st>>>(                           \
-      q, k, v, lens, o, T, H, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, \
+      q, k, v, lens, o, T, H, Hkv, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, \
       scale)
   switch (G) {
     case 1: TEOCHAT_DECODE_LAUNCH(1); break;
@@ -198,8 +201,11 @@ extern "C" int teochat_decode_attention(
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     float scale, void* stream) {
-  const dim3 grid(Hkv, B);
-  const int G = H / Hkv;
+  if (Hkv <= 0 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = H / Hkv;
+  const int G = group > 8 ? 8 : group;  // heads per block
+  if (group % G) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(H / G, B);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const uint16_t*>(k);
   const auto* vp = static_cast<const uint16_t*>(v);
@@ -207,10 +213,10 @@ extern "C" int teochat_decode_attention(
   auto* op = static_cast<uint16_t*>(o);
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch_d<128>(G, grid, st, qp, kp, vp, lp, op, T, H, q_sb, q_sh,
+    return launch_d<128>(G, grid, st, qp, kp, vp, lp, op, T, H, Hkv, q_sb, q_sh,
                          k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
   if (D == 64)
-    return launch_d<64>(G, grid, st, qp, kp, vp, lp, op, T, H, q_sb, q_sh,
+    return launch_d<64>(G, grid, st, qp, kp, vp, lp, op, T, H, Hkv, q_sb, q_sh,
                         k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,8 @@ array for array: `DataArguments`, `preprocess_multimodal`, `preprocess`
 with its v1 branch (the LLaMA recipe's template), `LazySupervisedDataset`,
 `TEOChatCollator` (which builds the port's FusionPlan) and
 `make_supervised_data_module`. The conversation templates, constants,
-`tokenizer_image_token`, `order_pick_k` and the sampler are shared with
-`teochat_tpu` as they are. Not ported yet: the llama_2, mpt and plain
+`tokenizer_image_token`, `order_pick_k` and the sampler are this package's
+own copies of the JAX package's host modules. Not ported yet: the llama_2, mpt and plain
 templates and `mm_use_im_start_end` (the vision tokenizer imports jax).
 """
 
@@ -21,16 +21,16 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from teochat_tpu import conversation as conversation_lib
-from teochat_tpu.constants import (
+from teochat_torch import conversation as conversation_lib
+from teochat_torch.constants import (
     DEFAULT_IMAGE_TOKEN,
     DEFAULT_VIDEO_TOKEN,
     IGNORE_INDEX,
     MAX_IMAGE_LENGTH,
     MAX_VIDEO_LENGTH,
 )
-from teochat_tpu.mm_utils import tokenizer_image_token
-from teochat_tpu.utils import order_pick_k
+from teochat_torch.mm_utils import tokenizer_image_token
+from teochat_torch.utils import order_pick_k
 from teochat_torch.models.fusion import build_fusion_plan
 from teochat_torch.models.teochat import round_to_bucket
 
@@ -222,8 +222,8 @@ class LazySupervisedDataset:
         proc = self.data_args.image_processor
         if self.data_args.image_aspect_ratio == "pad":
             # square-pad with the CLIP mean colour before resize/crop
-            from teochat_tpu.data.processing import _to_pil
-            from teochat_tpu.mm_utils import expand2square
+            from teochat_torch.data.processing import _to_pil
+            from teochat_torch.mm_utils import expand2square
 
             background = tuple(int(x * 255) for x in proc.image_mean)
             return [proc.preprocess(expand2square(_to_pil(f), background))["pixel_values"][0]

@@ -3,8 +3,7 @@
 `build_fusion_plan` is host code: per row it expands each IMAGE_TOKEN_INDEX
 sentinel into `tokens_per_frame` vision slots, truncates to `max_length`,
 pads to `pad_to` and emits gather indices, as numpy arrays equal to the JAX
-package's. It is kept here without JAX; a shared jax-free module in
-`teochat_tpu` would replace this copy. `fuse` splices the vision tokens into
+package's. It is kept here without JAX. `fuse` splices the vision tokens into
 the text embeddings on the device. Frames are consumed in flat batch order,
 and text-only rows consume no frame.
 """
@@ -17,7 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from teochat_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from teochat_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
 @dataclasses.dataclass

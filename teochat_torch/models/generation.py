@@ -17,7 +17,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from teochat_tpu.config import LlamaConfig
+from teochat_torch.config import LlamaConfig
 from teochat_torch.models import llama as llama_mod
 
 

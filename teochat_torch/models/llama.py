@@ -1,7 +1,9 @@
 """LLaMA-2 decoder (port of teochat_tpu/models/llama.py).
 
 Params keep the JAX layout: stacked per-layer tensors (`[L, ...]`), kernels
-`[in, out]`, int8 projections as {'kernel' int8, 'scale' fp32 [out]}, LoRA
+`[in, out]`, int8 projections as {'kernel' int8, 'scale' fp32 [out]}, int4
+projections as {'packed_tiles' | 'packed', 'scale'} (ops/quant.py), optionally
+fused into 'qkv' and 'gateup' leaves, LoRA
 adapters as extra leaves of a projection ('lora_a' [L, in, r], 'lora_b'
 [L, r, out], 'lora_scale' [L], fp32 masters).
 
@@ -32,10 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from teochat_tpu.config import LlamaConfig
+from teochat_torch.config import LlamaConfig
 from teochat_torch.ops.attention import dot_product_attention
 from teochat_torch.ops.decode_attention import decode_attention
-from teochat_torch.ops.quant import quantized_proj
+from teochat_torch.ops.quant import int4_proj, quantized_proj
+from teochat_torch.utils import resolve_device
 
 Params = Dict
 
@@ -56,6 +59,8 @@ class KVCache:
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> KVCache:
+    """Zeroed cache buffers on `device` (None = the card, see resolve_device)."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -91,10 +96,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, p: Params) -> torch.Tensor:
-    if "packed" in p or "packed_tiles" in p:
-        raise NotImplementedError("int4 projections are not ported yet")
-    if "scale" in p:  # int8 weight-only
+def _is_int4(p: Params) -> bool:
+    return "packed" in p or "packed_tiles" in p
+
+
+def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None) -> torch.Tensor:
+    if _is_int4(p):  # int4 w4a16; stacked leaves stay whole and `layer` picks
+        y = int4_proj(x, p, layer)
+    elif "scale" in p:  # int8 weight-only
         y = quantized_proj(x, p)
     else:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
@@ -107,11 +116,16 @@ def _proj(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
-def _mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    if "gateup" in lp:
-        raise NotImplementedError("fused gate|up projections are not ported yet")
-    gate = F.silu(_proj(x, lp["gate"]).float()).to(x.dtype)
-    return _proj(gate * _proj(x, lp["up"]), lp["down"])
+def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None) -> torch.Tensor:
+    if "gateup" in lp:  # fused gate|up (ops/quant.py fuse_projections)
+        gu = _proj(x, lp["gateup"], layer)
+        i_sz = gu.shape[-1] // 2
+        gate_in, up = gu[..., :i_sz], gu[..., i_sz:]
+    else:
+        gate_in = _proj(x, lp["gate"], layer)
+        up = _proj(x, lp["up"], layer)
+    gate = F.silu(gate_in.float()).to(x.dtype)
+    return _proj(gate * up, lp["down"], layer)
 
 
 def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache],
@@ -120,16 +134,23 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:
-        raise NotImplementedError("fused q|k|v projections are not ported yet")
-    q = apply_rope(_proj(x, lp["q"]).reshape(b, s, h, hd), cos, sin)
-    k = apply_rope(_proj(x, lp["k"]).reshape(b, s, hkv, hd), cos, sin)
-    v = _proj(x, lp["v"]).reshape(b, s, hkv, hd)
+        # fused q|k|v projection (ops/quant.py fuse_projections): one weight
+        # read and one launch instead of three
+        fused = _proj(x, lp["qkv"], layer)
+        q = fused[..., : h * hd]
+        k = fused[..., h * hd: (h + hkv) * hd]
+        v = fused[..., (h + hkv) * hd:]
+    else:
+        q, k, v = (_proj(x, lp[n], layer) for n in ("q", "k", "v"))
+    q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
+    k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
+    v = v.reshape(b, s, hkv, hd)
     if cache is None:
         # cache-free path: causal self-attention over S, plus the padding mask
         # (which the flash kernels drop for a right-padded batch)
         out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
                                     impl=attn_impl, right_padded=right_padded)
-        return _proj(out.reshape(b, s, h * hd), lp["out"])
+        return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
     k_slab, v_slab = cache.k[layer], cache.v[layer]  # [B, T, Hkv, D] views
     if s > 1:
         # prefill: one contiguous panel; causal attention over the fresh K/V
@@ -147,7 +168,7 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
             q[:, 0], k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
             lengths, impl=attn_impl,
         )[:, None]
-    return _proj(out.reshape(b, s, h * hd), lp["out"])
+    return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
 
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
@@ -156,16 +177,24 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
                              prefill_start, attn_impl, attention_mask, right_padded)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, lp["mlp"])
+    return x + _mlp(y, lp["mlp"], layer)
 
 
 def unstack_layers(tree, n_layers: int):
     """A stacked params tree -> one tree per layer (views). `unbind` gives a
     trainable [L, ...] leaf one gradient stack in the backward, where
-    indexing each layer would add a full-size zero tensor per layer."""
+    indexing each layer would add a full-size zero tensor per layer.
+
+    An int4 group keeps its `packed` / `packed_tiles` and `scale` leaves
+    stacked in every layer's tree (the JAX cached forward does the same):
+    `_proj` hands them to `int4_proj` with the layer index, and the kernel
+    reads that layer's bytes out of the whole buffer. Its other leaves (LoRA)
+    are split like everything else."""
     if isinstance(tree, dict):
-        per_key = {k: unstack_layers(v, n_layers) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n_layers)]
+        whole = ("packed", "packed_tiles", "scale") if _is_int4(tree) else ()
+        stacked = {k: v for k, v in tree.items() if k in whole}
+        per_key = {k: unstack_layers(v, n_layers) for k, v in tree.items() if k not in whole}
+        return [{**stacked, **{k: v[i] for k, v in per_key.items()}} for i in range(n_layers)]
     return tree.unbind(0)
 
 
@@ -245,10 +274,10 @@ def llama_forward(
     head = params.get("lm_head")
     if head is None:  # tied embeddings
         return torch.matmul(x, params["embed_tokens"]["embedding"].to(x.dtype).T).float()
-    if "packed" in head or "packed_tiles" in head:
-        raise NotImplementedError("int4 lm_head is not ported yet")
     if "lora_a" in head:
         raise NotImplementedError("a LoRA lm_head is not ported yet")
+    if _is_int4(head):  # int4 lm_head: the product in x's dtype, fp32 logits
+        return int4_proj(x, head).float()
     if "scale" in head:  # int8 weight-only lm_head
         return quantized_proj(x, head, fp32_out=True)
     return torch.matmul(x, head["kernel"].to(x.dtype)).float()

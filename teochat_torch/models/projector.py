@@ -11,7 +11,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from teochat_tpu.config import ProjectorConfig
+from teochat_torch.config import ProjectorConfig
 
 Params = Dict
 

@@ -1,8 +1,8 @@
 """TEOChat: CLIP tower + projector + LLaMA decoder (port of teochat_tpu/models/teochat.py).
 
 `TEOChat` has the JAX class's surface (`cfg`, `tokenizer`,
-`tokens_per_frame`, `encode`, `generate`), so the unmodified
-`teochat_tpu.eval.inference.run_inference_single` drives it. Prompt lengths
+`tokens_per_frame`, `encode`, `generate`), so `run_inference_single`
+(eval/inference.py, a copy of the JAX package's) drives it. Prompt lengths
 are bucketed as in the JAX package, so the cache size and the prefill shapes
 are the same on both backends. `forward_train` is the training loss.
 """
@@ -14,7 +14,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from teochat_tpu.config import GenerationConfig, LlamaConfig, TEOChatConfig
+from teochat_torch.config import GenerationConfig, TEOChatConfig
 from teochat_torch.checkpoint.bridge import init_teochat  # noqa: F401  (public here too)
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
@@ -27,6 +27,14 @@ Params = dict
 # prefill-length buckets (fused tokens) and frame-count buckets
 SEQ_BUCKETS = (128, 256, 512, 768, 1024, 1536, 2048, 3072, 4352)
 FRAME_BUCKETS = (1, 2, 4, 8, 16)
+
+
+def _require_llama(cfg: TEOChatConfig) -> None:
+    """Configs are read by their fields, so a tree of the JAX package's
+    classes (field for field the same) describes the same model; an MPT
+    decoder is told by its `d_model` field, as `TEOChatConfig.from_json` does."""
+    if hasattr(cfg.llm, "d_model"):
+        raise NotImplementedError("only the LLaMA backend is ported")
 
 
 def round_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -74,8 +82,7 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
     `remat` recomputes decoder layers in the backward (HF gradient
     checkpointing); `attn_impl='plain'` runs the plain attention instead.
     """
-    if not isinstance(cfg.llm, LlamaConfig):
-        raise NotImplementedError("only the LLaMA backend is ported")
+    _require_llama(cfg)
     dev = pixel_values.device
     with torch.no_grad():
         hidden = vit_forward(params["vision"], cfg.vision, pixel_values,
@@ -100,8 +107,7 @@ class TEOChat:
     """Imperative shell for the harnesses; params live on one device."""
 
     def __init__(self, cfg: TEOChatConfig, params: Params, tokenizer=None):
-        if not isinstance(cfg.llm, LlamaConfig):
-            raise NotImplementedError("only the LLaMA backend is ported")
+        _require_llama(cfg)
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer

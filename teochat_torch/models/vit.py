@@ -2,9 +2,12 @@
 
 Params keep the JAX layout: stacked per-layer tensors under `layers`
 (`[L, ...]`), dense kernels `[in, out]`. The layer loop runs only the prefix
-that `select_layer` needs (select_layer = -2 runs 23 of 24 layers). Attention
-is the plain masked attention (ops/attention.py), as the TPU path used XLA
-here; the one-shot ViT attention kernel is later work.
+that `select_layer` needs (select_layer = -2 runs 23 of 24 layers). The
+spatial attention goes through `vit_attention` (ops/vit_attention.py: the
+one-shot kernel on a CUDA tensor, the plain attention on a CPU tensor)
+whenever the sequence is inside the JAX function's gate for its kernel
+(64 <= S <= 1024); the temporal attention over a few frames, and shorter
+or longer sequences, take the plain attention (ops/attention.py).
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from teochat_tpu.config import VisionConfig
+from teochat_torch.config import VisionConfig
 from teochat_torch.ops.attention import plain_attention
+from teochat_torch.ops.vit_attention import in_kernel_range, vit_attention
 
 Params = Dict
 
@@ -61,7 +65,10 @@ def _attn_block(x: torch.Tensor, p: Params, cfg: VisionConfig) -> torch.Tensor:
     q = _dense(x, p["q"]).reshape(b, n, h, hd)
     k = _dense(x, p["k"]).reshape(b, n, h, hd)
     v = _dense(x, p["v"]).reshape(b, n, h, hd)
-    out = plain_attention(q, k, v, causal=False)
+    if in_kernel_range(n):
+        out = vit_attention(q, k, v)
+    else:
+        out = plain_attention(q, k, v, causal=False)
     return _dense(out.reshape(b, n, h * hd), p["out"])
 
 

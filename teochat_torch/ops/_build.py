@@ -43,6 +43,12 @@ _SIGNATURES = {
     "teochat_decode_attention": (
         [_P] * 5 + [_I] * 5 + [_LL] * 8 + [_F, _P]
     ),
+    "teochat_int4_matmul": [_P] * 4 + [_I] * 4 + [_LL, _P],
+    "teochat_int4_matmul_tiled": [_P] * 4 + [_I] * 6 + [_LL, _I, _P],
+    "teochat_int4_matmul_tiled_stacked": (
+        [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _LL, _P]
+    ),
+    "teochat_vit_attention": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_F, _P],
 }
 
 
@@ -124,6 +130,20 @@ def library() -> KernelLibrary:
         seconds = time.perf_counter() - t0
     _library = KernelLibrary(out, seconds, log)
     return _library
+
+
+def launch(name: str, like, *args) -> None:
+    """Launch entry `name` on `like`'s device and current stream (the stream
+    is passed as the entry's last argument); raise if the launch is refused.
+    The device guard is taken only when that device is not the current one."""
+    import torch
+
+    device = like.device
+    if device.index == torch.cuda.current_device():
+        library().call(name, *args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            library().call(name, *args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check_bf16_operand(name: str, t, ndim: int) -> None:

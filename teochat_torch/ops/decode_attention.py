@@ -19,7 +19,7 @@ from teochat_torch.ops.attention import NEG_INF
 
 LAUNCHES = _build.LaunchCounter("decode_attention")
 HEAD_DIMS = (64, 128)
-GROUP_SIZES = (1, 2, 4, 8)
+GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
@@ -59,19 +59,16 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        lib.call(
-            "teochat_decode_attention",
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            b, h, hkv, t, d,
-            q.stride(0), q.stride(1),
-            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-            float(scale), stream,
-        )
+    _build.launch(
+        "teochat_decode_attention", q,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(),
+        b, h, hkv, t, d,
+        q.stride(0), q.stride(1),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        float(scale),
+    )
     LAUNCHES.count += 1
     return out
 

@@ -63,15 +63,12 @@ def _flash_cuda(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        lib.call(
-            "teochat_flash_attention_fwd",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, h, hkv, d, *_strides(q, k, v),
-            float(scale), int(causal), stream,
-        )
+    _build.launch(
+        "teochat_flash_attention_fwd", q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, t, h, hkv, d, *_strides(q, k, v),
+        float(scale), int(causal),
+    )
     LAUNCHES.count += 1
     return out
 
@@ -120,16 +117,13 @@ def _fwd_res_cuda(q, k, v, causal: bool, scale: float):
     l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        lib.call(
-            "teochat_flash_attention_fwd_res",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            m.data_ptr(), l.data_ptr(),
-            b, s, t, h, hkv, d, *_strides(q, k, v),
-            float(scale), int(causal), stream,
-        )
+    _build.launch(
+        "teochat_flash_attention_fwd_res", q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(),
+        b, s, t, h, hkv, d, *_strides(q, k, v),
+        float(scale), int(causal),
+    )
     FWD_RES_LAUNCHES.count += 1
     return out, m, l
 

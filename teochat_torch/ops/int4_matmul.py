@@ -1,0 +1,250 @@
+"""Fused int4-dequantize matmul (w4a16): packing, the kernels' wrappers, the plain versions.
+
+Port of teochat_tpu/ops/int4_matmul.py. Packing: W [K, N] int4 -> one byte
+per two weights, [K/2, N], where the LOW four bits hold rows [0, K/2) and the
+HIGH four bits rows [K/2, K). Two byte formats, told apart by dtype:
+
+    uint8 (v0):  p = (L + 8) | ((H + 8) << 4)
+    int8  (v3):  b = (L + 8) + 16 * H            (the v0 bits with the top bit flipped)
+
+and two layouts: flat `[K/2, N]`, and tiled `[ceil(N/bn), K/2, bn]` where each
+bn-wide column band is contiguous (N zero-padded; a pad byte decodes to
+nonzero values, so padded columns are never scaled into an output).
+
+`int4_matmul` (flat, K3a), `int4_matmul_tiled` (K3b) and
+`int4_matmul_tiled_stacked` (K3c, the layer picked from the stacked buffer
+without a copy) launch the CUDA kernels of csrc/int4_matmul.cu for a CUDA
+tensor and take the plain version beside them (unpack -> matmul with fp32
+accumulation -> scale -> cast) for a CPU tensor. On the card x must be bf16
+and its rows contiguous; the kernels read the bytes as the quantizer wrote
+them and bound their reads of x at its true K, so a fan-in padded at
+quantize time needs no padded copy of x.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from teochat_torch.ops import _build
+
+TILE_BN = 512
+
+LAUNCHES_FLAT = _build.LaunchCounter("int4_matmul")
+LAUNCHES_TILED = _build.LaunchCounter("int4_matmul_tiled")
+LAUNCHES_STACKED = _build.LaunchCounter("int4_matmul_tiled_stacked")
+
+
+# ------------------------------------------------------------------ packing
+
+def _even_fan_in(w_q: torch.Tensor) -> int:
+    k = w_q.shape[-2]
+    if k % 2:
+        raise ValueError(f"int4 packing needs an even fan-in, got {k}")
+    return k
+
+
+def pack_int4(w_q: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] int values in [-8, 7] -> packed uint8 [..., K/2, N] (split halves)."""
+    k = _even_fan_in(w_q)
+    lo = (w_q[..., : k // 2, :].to(torch.int32) + 8).to(torch.uint8)
+    hi = (w_q[..., k // 2:, :].to(torch.int32) + 8).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4_halves(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """packed uint8 [..., K/2, N] -> [..., K, N] values (lo half then hi half)."""
+    p = packed.to(torch.int32)
+    return torch.cat([(p & 0xF) - 8, (p >> 4) - 8], dim=-2).to(dtype)
+
+
+def pack_int4_i8(w_q: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] int values in [-8, 7] -> packed int8 [..., K/2, N], b = (L+8) + 16*H."""
+    k = _even_fan_in(w_q)
+    lo = w_q[..., : k // 2, :].to(torch.int32) + 8
+    hi = w_q[..., k // 2:, :].to(torch.int32)
+    return (lo + 16 * hi).to(torch.int8)  # range [-128, 127], exact
+
+
+def unpack_int4_i8(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 [..., K/2, N] -> [..., K, N] values (lo half then hi half)."""
+    p = packed.to(torch.int32)
+    # arithmetic shift = floor(b / 16) = H exactly (L + 8 is in [0, 15])
+    return torch.cat([(p & 0xF) - 8, p >> 4], dim=-2).to(dtype)
+
+
+def unpack_int4_any(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Layout-dispatching unpack: int8 = v3 combined byte, uint8 = v0 nibbles."""
+    if packed.dtype == torch.int8:
+        return unpack_int4_i8(packed, dtype)
+    return unpack_int4_halves(packed, dtype)
+
+
+def _tile(packed: torch.Tensor, bn: int) -> torch.Tensor:
+    """[K/2, N] bytes -> [ceil(N/bn), K/2, bn], N zero-padded."""
+    k2, n = packed.shape
+    n_pad = -(-n // bn) * bn
+    if n_pad != n:
+        packed = torch.nn.functional.pad(packed, (0, n_pad - n))
+    return packed.reshape(k2, n_pad // bn, bn).permute(1, 0, 2).contiguous()
+
+
+def pack_int4_tiled(w_q: torch.Tensor, bn: int = TILE_BN) -> torch.Tensor:
+    """[K, N] int4 values -> [ceil(N/bn), K/2, bn] uint8 (N zero-padded)."""
+    return _tile(pack_int4(w_q), bn)
+
+
+def pack_int4_tiled_i8(w_q: torch.Tensor, bn: int = TILE_BN) -> torch.Tensor:
+    """[K, N] int4 values -> [ceil(N/bn), K/2, bn] int8 v3 bytes (N zero-padded).
+
+    Pad value 0 decodes as (L, H) = (-8, 0): padded output columns are sliced
+    off and their scales never applied."""
+    return _tile(pack_int4_i8(w_q), bn)
+
+
+def untile(packed_tiles: torch.Tensor) -> torch.Tensor:
+    """[..., n_tiles, K/2, bn] -> flat [..., K/2, n_tiles * bn]."""
+    n_tiles, k2, bn = packed_tiles.shape[-3:]
+    return packed_tiles.movedim(-3, -2).reshape(*packed_tiles.shape[:-3], k2, n_tiles * bn)
+
+
+# ----------------------------------------------------------- plain versions
+
+def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero activations against the quantizer's zero-padded fan-in rows."""
+    if x.shape[-1] == k:
+        return x
+    return torch.nn.functional.pad(x, (0, k - x.shape[-1]))
+
+
+def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """What K3a computes, in plain PyTorch: unpack, fp32 product, scale, cast."""
+    w = unpack_int4_any(packed, torch.float32)
+    y = torch.matmul(_pad_k(x, w.shape[-2]).float(), w)
+    return (y * scale.float()).to(x.dtype)
+
+
+def int4_matmul_tiled_plain(x: torch.Tensor, packed_tiles: torch.Tensor, scale: torch.Tensor,
+                            *, n_out: int) -> torch.Tensor:
+    """What K3b computes, in plain PyTorch; padded columns are dropped before the scale."""
+    w = unpack_int4_any(untile(packed_tiles), torch.float32)[..., :n_out]
+    y = torch.matmul(_pad_k(x, w.shape[-2]).float(), w)
+    return (y * scale[..., :n_out].float()).to(x.dtype)
+
+
+def int4_matmul_tiled_stacked_plain(x, packed_tiles, scale, layer: int, *, n_out: int):
+    """What K3c computes, in plain PyTorch, on layer `layer` of the stack."""
+    return int4_matmul_tiled_plain(x, packed_tiles[layer], scale[layer], n_out=n_out)
+
+
+# ------------------------------------------------------------ the wrappers
+
+def _use_kernel(name: str, x: torch.Tensor, impl: str) -> bool:
+    if impl == "auto":
+        if x.is_cuda:
+            return True
+        if x.device.type == "cpu":
+            return False
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown {name} impl {impl!r}")
+    return impl == "kernel"
+
+
+def _check_cuda_args(name: str, x, packed, scale, byte_dtypes, packed_ndim: int, n_scale: int):
+    """Raise on what the kernels cannot read."""
+    if x.ndim != 2:
+        raise ValueError(f"{name}: x must be [M, K], got {tuple(x.shape)}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(f"{name}: the int4 kernels are forward only")
+    _build.check_bf16_operand("x", x, 2)
+    if packed.dtype not in byte_dtypes or packed.ndim != packed_ndim:
+        raise ValueError(f"{name}: packed must be {packed_ndim}-d {byte_dtypes}, got "
+                         f"{packed.ndim}-d {packed.dtype}")
+    if scale.dtype != torch.float32 or scale.shape[-1] < n_scale:
+        raise ValueError(f"{name}: scale must be fp32 with at least {n_scale} columns, got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if not (packed.is_contiguous() and scale.is_contiguous()):
+        raise ValueError(f"{name}: packed and scale must be contiguous")
+    if not (x.device == packed.device == scale.device):
+        raise ValueError(f"{name}: x, packed and scale on different devices")
+    k, k2 = x.shape[1], packed.shape[-2]
+    # the fan-in may have been padded at quantize time, never the activations
+    if k > 2 * k2 or k % 8 or k2 % 8:
+        raise ValueError(f"{name}: K = {k} against {k2} byte rows not supported "
+                         "(need K <= 2 * k2, both multiples of 8)")
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
+                impl: str = "auto") -> torch.Tensor:
+    """y = (x @ unpack(packed)) * scale from the flat layout.
+
+    x [M, K]; packed uint8 [K/2, N] (split halves); scale fp32 [N]. Returns
+    [M, N] in x's dtype. impl: auto | plain | kernel."""
+    if not _use_kernel("int4_matmul", x, impl):
+        return int4_matmul_plain(x, packed, scale)
+    k2, n = packed.shape[-2:]
+    _check_cuda_args("int4_matmul", x, packed, scale, (torch.uint8,), 2, n)
+    if n % 4 or scale.ndim != 1:
+        raise ValueError(f"int4_matmul: N = {n} must be a multiple of 4 and scale 1-d")
+    m, k = x.shape
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("teochat_int4_matmul", x, x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), m, k, k2, n, x.stride(0))
+    LAUNCHES_FLAT.count += 1
+    return out
+
+
+def int4_matmul_tiled(x: torch.Tensor, packed_tiles: torch.Tensor, scale: torch.Tensor, *,
+                      n_out: int, impl: str = "auto") -> torch.Tensor:
+    """y[:, :n_out] = (x @ unpack(packed_tiles)) * scale with dense per-tile reads.
+
+    x [M, K]; packed_tiles [n_tiles, K/2, bn] (int8 = v3 bytes, uint8 = v0);
+    scale fp32 with at least n_out entries (the true width, or padded to
+    n_tiles * bn as the JAX function takes it)."""
+    if not _use_kernel("int4_matmul_tiled", x, impl):
+        return int4_matmul_tiled_plain(x, packed_tiles, scale, n_out=n_out)
+    _check_cuda_args("int4_matmul_tiled", x, packed_tiles, scale,
+                     (torch.int8, torch.uint8), 3, n_out)
+    n_tiles, k2, bn = packed_tiles.shape
+    if bn % 128 or n_out > n_tiles * bn or scale.ndim != 1:
+        raise ValueError(f"int4_matmul_tiled: tile width {bn} (need a multiple of 128), "
+                         f"n_out {n_out} or scale {tuple(scale.shape)} not supported")
+    m, k = x.shape
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("teochat_int4_matmul_tiled", x, x.data_ptr(), packed_tiles.data_ptr(),
+                  scale.data_ptr(), out.data_ptr(), m, k, k2, n_tiles, bn, n_out, x.stride(0),
+                  int(packed_tiles.dtype == torch.int8))
+    LAUNCHES_TILED.count += 1
+    return out
+
+
+def int4_matmul_tiled_stacked(x: torch.Tensor, packed_tiles: torch.Tensor, scale: torch.Tensor,
+                              layer: int, *, n_out: int, impl: str = "auto") -> torch.Tensor:
+    """y[:, :n_out] = (x @ unpack(packed_tiles[layer])) * scale[layer].
+
+    packed_tiles [L, n_tiles, K/2, bn] and scale fp32 [L, >= n_out] stay whole:
+    the kernel reads only the selected layer's bytes."""
+    layer = int(layer)
+    if not _use_kernel("int4_matmul_tiled_stacked", x, impl):
+        return int4_matmul_tiled_stacked_plain(x, packed_tiles, scale, layer, n_out=n_out)
+    _check_cuda_args("int4_matmul_tiled_stacked", x, packed_tiles, scale,
+                     (torch.int8, torch.uint8), 4, n_out)
+    n_layers, n_tiles, k2, bn = packed_tiles.shape
+    if bn % 128 or n_out > n_tiles * bn or scale.ndim != 2 or scale.shape[0] != n_layers:
+        raise ValueError(f"int4_matmul_tiled_stacked: tile width {bn} (need a multiple of "
+                         f"128), n_out {n_out} or scale {tuple(scale.shape)} not supported")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"int4_matmul_tiled_stacked: layer {layer} of {n_layers}")
+    m, k = x.shape
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("teochat_int4_matmul_tiled_stacked", x, x.data_ptr(), packed_tiles.data_ptr(),
+                  scale.data_ptr(), out.data_ptr(), m, k, k2, n_tiles, bn, n_out, x.stride(0),
+                  int(packed_tiles.dtype == torch.int8), layer, scale.stride(0))
+    LAUNCHES_STACKED.count += 1
+    return out

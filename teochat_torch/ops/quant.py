@@ -1,11 +1,11 @@
-"""Int8 weight-only quantization for the decoder.
+"""Int8 and int4 weight-only quantization for the decoder.
 
-Port of teochat_tpu/ops/quant.py (`quantize_kernel`, `dequantize_kernel`,
-`quantized_proj`, `quantize_llama_params`): symmetric per-output-channel int8
-weights with fp32 scales, in the JAX layout (`kernel [..., in, out]` int8,
-`scale [..., out]` fp32). Scales commute with the product, so a projection
-is a matmul over the int8 weight converted to the activation dtype, then one
-fp32 multiply. The JAX package leaves this product to XLA; here it is
+Port of teochat_tpu/ops/quant.py. Int8 (`quantize_kernel`,
+`dequantize_kernel`, `quantized_proj`, `quantize_llama_params`): symmetric
+per-output-channel int8 weights with fp32 scales, in the JAX layout
+(`kernel [..., in, out]` int8, `scale [..., out]` fp32). Scales commute
+with the product, so a projection is a matmul over the int8 weight
+converted to the activation dtype, then one fp32 multiply. The JAX package leaves this product to XLA; here it is
 `torch.matmul`. A fused w8a16 kernel that reads the int8 bytes directly is
 later work.
 
@@ -15,6 +15,17 @@ int8 kernel and its fp32 scale, and dequantizes again in the backward,
 dx = (dy * scale) @ W_i8^T: plain autograd through `kernel.to(x.dtype)`
 would save a bf16 copy of every weight it touches (13.5 GB for the 7B
 decoder without remat).
+
+Int4, w4a16 (`quantize_kernel_int4`, `unpack_int4`, `int4_proj`,
+`quantize_llama_params_int4`): per-output-channel scale `amax / 7`, values
+clipped to [-8, 7], two per byte (ops/int4_matmul.py). An output narrower
+than one 512-column tile keeps the flat u8 `packed` leaf; a wider one is
+stored as `packed_tiles`, v3 int8 bytes in the tile-contiguous layout, with
+its fan-in zero-padded by `_pad_k2`. `int4_proj` is the fused
+dequantize-matmul: the hand-written kernels on a CUDA tensor, the plain
+unpack -> matmul -> scale on a CPU tensor. Forward only, as in the JAX
+package (int4 is a serving format). The JAX module's search for a block
+size that fits the TPU's vector memory has no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ from typing import Dict
 
 import torch
 
+from teochat_torch.ops import int4_matmul as int4_mod
+
+INT4_TILE_BN = int4_mod.TILE_BN
 _QUANT_TARGETS = ("attn", "mlp")  # groups inside llm/layers whose kernels quantize
 
 
@@ -80,4 +94,122 @@ def quantize_llama_params(params: Dict, quantize_lm_head: bool = True) -> Dict:
     out["layers"] = layers
     if quantize_lm_head and "lm_head" in params:
         out["lm_head"] = quantize_kernel(params["lm_head"]["kernel"])
+    return out
+
+
+# ---------------------------------------------------------------- int4 w4a16
+
+def _pad_k2(k2: int) -> int:
+    """Packed fan-in (K/2) padded to a multiple of 256, as the JAX quantizer
+    pads it (LLaMA's down projection: K = 11008 -> k2 = 5504 -> 5632), so
+    that trees quantized by either package hold the same bytes."""
+    if k2 <= 128 or k2 % 256 == 0:
+        return k2
+    return ((k2 + 255) // 256) * 256
+
+
+def quantize_kernel_int4(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., in, out] float -> {'packed_tiles': int8 [..., ceil(out/bn), in/2, bn],
+    'scale': fp32 [..., out]}, or {'packed': uint8 [..., in/2, out], 'scale'}
+    for an output narrower than one tile."""
+    k32 = kernel.float()
+    fan_in = k32.shape[-2]
+    if fan_in % 2:
+        raise ValueError(f"int4 packing needs an even fan-in, got {fan_in}")
+    amax = k32.abs().amax(dim=-2)
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 7.0)
+    q = torch.round(k32 / scale[..., None, :]).clamp(-8, 7).to(torch.int32)
+    if q.shape[-1] < INT4_TILE_BN:
+        return {"packed": int4_mod.pack_int4(q), "scale": scale}
+    # zero-pad the fan-in (the zero rows contribute nothing: int4_proj reads
+    # the activations past their true K as zeros)
+    k2p = _pad_k2(fan_in // 2)
+    if 2 * k2p != fan_in:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 2 * k2p - fan_in))
+    if q.ndim == 2:
+        tiles = int4_mod.pack_int4_tiled_i8(q, INT4_TILE_BN)
+    else:
+        lead = q.shape[:-2]
+        flat = q.reshape(-1, *q.shape[-2:])
+        tiles = torch.stack([int4_mod.pack_int4_tiled_i8(w, INT4_TILE_BN) for w in flat])
+        tiles = tiles.reshape(*lead, *tiles.shape[1:])
+    return {"packed_tiles": tiles, "scale": scale}
+
+
+def unpack_int4(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """[..., in/2, out] packed bytes -> [..., in, out] centered int4 values.
+
+    Dispatches on dtype: int8 = v3 combined byte, uint8 = split nibbles."""
+    return int4_mod.unpack_int4_any(packed, dtype)
+
+
+def _int4_proj_tiled(x: torch.Tensor, p: Dict[str, torch.Tensor], layer=None) -> torch.Tensor:
+    tiles, scale = p["packed_tiles"], p["scale"]
+    n_out = scale.shape[-1]  # true (unpadded) output width
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])  # a strided slice becomes contiguous here
+    if tiles.ndim == 4:
+        if layer is None:
+            raise ValueError(
+                "int4_proj: layer-stacked packed_tiles (ndim=4) require a "
+                "layer index; pass layer= or slice the layer axis first"
+            )
+        y = int4_mod.int4_matmul_tiled_stacked(x2, tiles, scale, layer, n_out=n_out)
+    else:
+        y = int4_mod.int4_matmul_tiled(x2, tiles, scale, n_out=n_out)
+    return y.reshape(*lead, n_out)
+
+
+def int4_proj(x: torch.Tensor, p: Dict[str, torch.Tensor], layer=None) -> torch.Tensor:
+    """y = (x @ unpack(W_i4)) * scale, in x's dtype.
+
+    `layer`: when `p` holds layer-stacked leaves ([L, ...]), selects the
+    layer; a stacked `packed_tiles` buffer is handed to the kernel whole."""
+    if "packed_tiles" in p:
+        return _int4_proj_tiled(x, p, layer)
+    packed, scale = p["packed"], p["scale"]
+    if packed.ndim == 3:  # stacked flat layout: a layer is a contiguous view
+        if layer is None:
+            raise ValueError("int4_proj: layer-stacked packed (ndim=3) requires a layer index")
+        packed, scale = packed[layer], scale[layer]
+    lead = x.shape[:-1]
+    y = int4_mod.int4_matmul(x.reshape(-1, x.shape[-1]), packed, scale)
+    return y.reshape(*lead, scale.shape[-1])
+
+
+def quantize_llama_params_int4(params: Dict, quantize_lm_head: bool = True,
+                               fuse_projections: bool = True) -> Dict:
+    """Quantize the decoder projections to packed int4 (layer-stacked leaves).
+
+    `fuse_projections` concatenates q|k|v and gate|up along the output before
+    packing (per-column scales are unchanged by the concat, so the math is
+    the same): 4 projections a layer instead of 7. The fused leaves are the
+    'qkv' / 'gateup' keys that models/llama.py looks for."""
+    out = dict(params)
+    layers = dict(params["layers"])
+
+    def _plain(group, names):
+        return all(set(layers[group][n].keys()) == {"kernel"} for n in names)
+
+    if fuse_projections and _plain("attn", ("q", "k", "v")) and _plain("mlp", ("gate", "up")):
+        attn, mlp = layers["attn"], layers["mlp"]
+        qkv = torch.cat([attn[n]["kernel"] for n in ("q", "k", "v")], dim=-1)
+        gateup = torch.cat([mlp[n]["kernel"] for n in ("gate", "up")], dim=-1)
+        layers["attn"] = {
+            "qkv": quantize_kernel_int4(qkv),
+            "out": quantize_kernel_int4(attn["out"]["kernel"]),
+        }
+        layers["mlp"] = {
+            "gateup": quantize_kernel_int4(gateup),
+            "down": quantize_kernel_int4(mlp["down"]["kernel"]),
+        }
+    else:
+        for group in _QUANT_TARGETS:
+            layers[group] = {
+                name: quantize_kernel_int4(proj["kernel"])
+                for name, proj in layers[group].items()
+            }
+    out["layers"] = layers
+    if quantize_lm_head and "lm_head" in params:
+        out["lm_head"] = quantize_kernel_int4(params["lm_head"]["kernel"])
     return out

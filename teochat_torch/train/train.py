@@ -23,8 +23,8 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from teochat_tpu.config import TEOChatConfig
-from teochat_tpu.data.sampler import LengthGroupedSampler
+from teochat_torch.config import TEOChatConfig
+from teochat_torch.data.sampler import LengthGroupedSampler
 from teochat_torch.data.dataset import (
     DataArguments,
     make_supervised_data_module,

@@ -30,7 +30,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from teochat_tpu.config import TEOChatConfig
+from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import teochat as teochat_mod
 

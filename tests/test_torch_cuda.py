@@ -14,6 +14,9 @@ backward (K4b, K4c) also rounds P and dS to bf16 before its products and
 writes bf16 gradients, so each gradient is held to GRAD_REL_L2 of its norm
 (bf16 keeps 8 bits: 2^-9 relative rounding per term, summed over many
 terms) and its largest error to GRAD_REL_MAX of its largest element.
+The int4 products (K3a-c) accumulate exact products in fp32 on both sides,
+so they differ from the fp32 plain version by the one bf16 rounding of the
+output: half an ulp, 2^-8 = 3.9e-3 of the element at most.
 """
 
 import pytest
@@ -21,11 +24,16 @@ import torch
 
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
+from teochat_torch.ops import int4_matmul as int4_mod
+from teochat_torch.ops import quant as quant_mod
+from teochat_torch.ops import vit_attention as vit_mod
 from teochat_torch.ops.attention import dot_product_attention
 
 TOL = 2e-2
 GRAD_REL_L2 = 1e-2
 GRAD_REL_MAX = 2e-2
+INT4_REL_L2 = 3e-3
+INT4_REL_MAX = 4e-3
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +85,7 @@ def test_flash_reads_strided_inputs(gen):
         (2, 32, 8, 300, 128, [300, 129]),  # GQA 4:1
         (2, 8, 1, 70, 128, [5, 70]),  # GQA 8:1
         (2, 4, 2, 50, 64, [50, 17]),  # head_dim 64
+        (2, 32, 2, 90, 128, [90, 33]),  # GQA 16:1, two blocks of 8 heads a kv head
     ],
 )
 def test_decode_kernel_matches_plain(gen, b, h, hkv, t, d, lengths):
@@ -173,3 +182,111 @@ def test_flash_backward_refuses_what_it_does_not_take(gen):
         flash_mod.flash_attention_trainable(x, x, x)
     with pytest.raises(ValueError, match="no backward"):  # K1 records no graph
         flash_mod.flash_attention(x.to(torch.bfloat16), x.to(torch.bfloat16), x.to(torch.bfloat16))
+
+
+def _assert_int4_close(got, want):
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = got.float() - want
+    assert diff.norm().item() <= INT4_REL_L2 * want.norm().item()
+    assert diff.abs().max().item() <= INT4_REL_MAX * want.abs().max().item()
+
+
+def _int4_leaf(gen, k, n):
+    return quant_mod.quantize_kernel_int4(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 200])  # 9 and 200 take the tensor-core kernel
+@pytest.mark.parametrize("k,n", [(256, 256), (1024, 72)])  # 72: a ragged last band
+def test_int4_flat_kernel_matches_plain(gen, m, k, n):
+    leaf = _int4_leaf(gen, k, n)
+    assert leaf["packed"].dtype == torch.uint8
+    x = _randn((m, k), gen)
+    before = int4_mod.LAUNCHES_FLAT.count
+    got = int4_mod.int4_matmul(x, leaf["packed"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert int4_mod.LAUNCHES_FLAT.count == before + 1
+    _assert_int4_close(got, int4_mod.int4_matmul_plain(x.float(), leaf["packed"], leaf["scale"]))
+
+
+@pytest.mark.parametrize("fmt", ["i8", "u8"])
+@pytest.mark.parametrize("m", [1, 4, 7, 16, 130])
+@pytest.mark.parametrize("k,n", [(512, 1024), (600, 700)])  # 600: fan-in padded; 700: N padded
+def test_int4_tiled_kernel_matches_plain(gen, fmt, m, k, n):
+    leaf = _int4_leaf(gen, k, n)
+    tiles, scale = leaf["packed_tiles"], leaf["scale"]
+    if fmt == "u8":  # the same weights in the older byte format
+        tiles = (tiles.view(torch.uint8) ^ 0x80).contiguous()
+    x = _randn((m, k), gen)
+    before = int4_mod.LAUNCHES_TILED.count
+    got = int4_mod.int4_matmul_tiled(x, tiles, scale, n_out=n)
+    torch.cuda.synchronize()
+    assert int4_mod.LAUNCHES_TILED.count == before + 1
+    _assert_int4_close(got, int4_mod.int4_matmul_tiled_plain(x.float(), tiles, scale, n_out=n))
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+def test_int4_stacked_kernel_picks_each_layer(gen, m):
+    k, n = 600, 700
+    leaves = [_int4_leaf(gen, k, n) for _ in range(3)]
+    tiles = torch.stack([leaf["packed_tiles"] for leaf in leaves])
+    scale = torch.stack([leaf["scale"] for leaf in leaves])
+    x = _randn((m, k), gen)
+    for layer in range(3):
+        before = int4_mod.LAUNCHES_STACKED.count
+        got = int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, layer, n_out=n)
+        torch.cuda.synchronize()
+        assert int4_mod.LAUNCHES_STACKED.count == before + 1
+        _assert_int4_close(got, int4_mod.int4_matmul_tiled_stacked_plain(
+            x.float(), tiles, scale, layer, n_out=n))
+    # int4_proj reads a strided slice of a fused output through its row stride
+    wide = _randn((m, 2 * k), gen)
+    got = quant_mod.int4_proj(wide[:, :k], {"packed_tiles": tiles, "scale": scale}, layer=2)
+    want = quant_mod.int4_proj(wide[:, :k].contiguous(), {"packed_tiles": tiles, "scale": scale}, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
+    leaf = _int4_leaf(gen, 512, 1024)
+    tiles, scale = leaf["packed_tiles"], leaf["scale"]
+    with pytest.raises(ValueError):  # fp32 x: no kernel, and no fallback
+        int4_mod.int4_matmul_tiled(torch.randn(2, 512, device="cuda"), tiles, scale, n_out=1024)
+    x = _randn((2, 512), gen)
+    with pytest.raises(ValueError):  # more columns than the tiles hold
+        int4_mod.int4_matmul_tiled(x, tiles, scale, n_out=2048)
+    with pytest.raises(ValueError):  # x wider than the weight's fan-in
+        int4_mod.int4_matmul_tiled(_randn((2, 1040), gen), tiles, scale, n_out=1024)
+    with pytest.raises(ValueError):  # columns of x are not contiguous
+        int4_mod.int4_matmul_tiled(_randn((512, 2), gen).t(), tiles, scale, n_out=1024)
+    with pytest.raises(IndexError):
+        int4_mod.int4_matmul_tiled_stacked(x, tiles[None], scale[None], 1, n_out=1024)
+    with pytest.raises(NotImplementedError):  # forward only
+        int4_mod.int4_matmul_tiled(x.requires_grad_(True), tiles, scale, n_out=1024)
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 257, 16), (3, 100, 4), (1, 64, 2), (1, 1024, 2)])
+def test_vit_attention_kernel_matches_plain(gen, b, s, h):
+    q, k, v = (_randn((b, s, h, 64), gen) for _ in range(3))
+    before = vit_mod.LAUNCHES.count
+    got = vit_mod.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert vit_mod.LAUNCHES.count == before + 1
+    want = vit_mod.vit_attention_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64)
+    assert (got.float() - want).abs().max().item() <= TOL
+
+
+def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen):
+    qkv = _randn((2, 130, 3, 4, 64), gen)
+    q, k, v = qkv.unbind(2)
+    got = vit_mod.vit_attention(q, k, v, scale=0.2)
+    want = vit_mod.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError):  # head_dim 128
+        x = _randn((1, 64, 2, 128), gen)
+        vit_mod.vit_attention(x, x, x)
+    with pytest.raises(ValueError):  # S below the gate: no fallback on the card
+        x = _randn((1, 8, 2, 64), gen)
+        vit_mod.vit_attention(x, x, x)
+    with pytest.raises(ValueError):  # fp32
+        x = torch.randn(1, 64, 2, 64, device="cuda")
+        vit_mod.vit_attention(x, x, x)

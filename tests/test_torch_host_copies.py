@@ -1,0 +1,246 @@
+"""The port's own copies of the JAX package's host modules (config,
+constants, conversation, mm_utils, utils, data.sampler, data.processing,
+eval.inference) behave as their originals, the port imports nothing of JAX
+or of the JAX package, and its entry points default to the card."""
+
+import dataclasses
+import pathlib
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from teochat_tpu import config as jax_config
+from teochat_tpu import constants as jax_constants
+from teochat_tpu import conversation as jax_conv
+from teochat_tpu import mm_utils as jax_mm
+from teochat_tpu import utils as jax_utils
+from teochat_tpu.data import sampler as jax_sampler
+from teochat_tpu.eval import inference as jax_inference
+from teochat_torch import config as torch_config
+from teochat_torch import constants as torch_constants
+from teochat_torch import conversation as torch_conv
+from teochat_torch import mm_utils as torch_mm
+from teochat_torch import utils as torch_utils
+from teochat_torch.checkpoint import bridge
+from teochat_torch.data import processing as torch_processing
+from teochat_torch.data import sampler as torch_sampler
+from teochat_torch.eval import inference as torch_inference
+from teochat_torch.models import llama as torch_llama
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+CONFIG_CLASSES = ["VisionConfig", "ProjectorConfig", "LlamaConfig", "MptConfig",
+                  "GenerationConfig", "MeshConfig", "TEOChatConfig"]
+
+
+def _fields(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        default = f.default if f.default is not dataclasses.MISSING else (
+            f.default_factory() if f.default_factory is not dataclasses.MISSING else "<required>")
+        # nested configs compare by their own fields
+        out[f.name] = dataclasses.asdict(default) if dataclasses.is_dataclass(default) else default
+    return out
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_dataclass_fields_and_defaults(name):
+    assert _fields(getattr(torch_config, name)) == _fields(getattr(jax_config, name))
+
+
+def test_tiny_test_config_and_json_round_trip():
+    want, got = jax_config.tiny_test_config(vocab_size=96), torch_config.tiny_test_config(vocab_size=96)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_json() == want.to_json()
+    # a config serialized by either package loads in the other
+    assert dataclasses.asdict(torch_config.TEOChatConfig.from_json(want.to_json())) == \
+        dataclasses.asdict(want)
+    assert got.llm.head_dim == want.llm.head_dim and got.vision.num_patches == want.vision.num_patches
+    hf = {"hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+          "num_attention_heads": 4, "vocab_size": 100}
+    assert dataclasses.asdict(torch_config.llama_config_from_hf(hf)) == \
+        dataclasses.asdict(jax_config.llama_config_from_hf(hf))
+
+
+def test_constants_equal():
+    names = [n for n in dir(jax_constants) if n.isupper()]
+    assert len(names) >= 20 and names == [n for n in dir(torch_constants) if n.isupper()]
+    for n in names:
+        assert getattr(torch_constants, n) == getattr(jax_constants, n), n
+
+
+def _render(mod, name, turns):
+    conv = mod.conv_templates[name].copy()
+    for i, text in enumerate(turns):
+        conv.append_message(conv.roles[i % 2], text)
+    try:
+        return conv.get_prompt(), conv.sep, conv.sep2, conv.sep_style.name
+    except (TypeError, AssertionError) as e:  # a template that cannot render these turns
+        return type(e).__name__
+
+
+@pytest.mark.parametrize("name", sorted(jax_conv.conv_templates))
+def test_conversation_templates_render_the_same_prompt(name):
+    assert sorted(torch_conv.conv_templates) == sorted(jax_conv.conv_templates)
+    one_turn = ["<image>\nWhat changed between the images?", None]
+    two_turns = [one_turn[0], "A building was demolished.", "Where?", None]
+    single = _render(torch_conv, name, one_turn)
+    assert isinstance(single, tuple) and single == _render(jax_conv, name, one_turn)
+    assert _render(torch_conv, name, two_turns) == _render(jax_conv, name, two_turns)
+    assert torch_conv.default_conversation.get_prompt() == jax_conv.default_conversation.get_prompt()
+
+
+class WordTokenizer:
+    bos_token_id = 1
+
+    def __init__(self):
+        self.vocab = {}
+
+    def __call__(self, text):
+        ids = [1] + [self.vocab.setdefault(w, len(self.vocab) + 10) for w in text.split()]
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids):
+        return " ".join(f"<{int(i)}>" for i in ids)
+
+
+@pytest.mark.parametrize("prompt", [
+    "USER: <image> what is this ASSISTANT:",
+    "Image 1: <image> Image 2: <image> compare them",
+    "no image here",
+    "<image>",
+])
+def test_tokenizer_image_token_same_ids(prompt):
+    want = jax_mm.tokenizer_image_token(prompt, WordTokenizer())
+    assert torch_mm.tokenizer_image_token(prompt, WordTokenizer()) == want
+    np.testing.assert_array_equal(
+        torch_mm.tokenizer_image_token(prompt, WordTokenizer(), return_tensors="np"),
+        jax_mm.tokenizer_image_token(prompt, WordTokenizer(), return_tensors="np"))
+    pt = torch_mm.tokenizer_image_token(prompt, WordTokenizer(), return_tensors="pt")
+    assert pt.dtype == torch.long and pt.tolist() == want
+    assert torch_mm.get_model_name_from_path("a/b/checkpoint-7/") == \
+        jax_mm.get_model_name_from_path("a/b/checkpoint-7/")
+
+
+def test_order_pick_k_same_pick():
+    items = list("abcdefghijklmnop")
+    for k in (3, 16, 40):
+        np.random.seed(5)
+        want = jax_utils.order_pick_k(items, k)
+        np.random.seed(5)
+        assert torch_utils.order_pick_k(items, k) == want
+
+
+@pytest.mark.parametrize("group_by_modality", [False, True])
+def test_length_grouped_sampler_same_indices(group_by_modality):
+    rs = np.random.RandomState(6)
+    lengths = (rs.randint(5, 400, 97) * rs.choice([1, -1], 97)).tolist()
+    kwargs = dict(batch_size=4, world_size=2, lengths=lengths, group_by_modality=group_by_modality)
+    want = jax_sampler.LengthGroupedSampler(generator=np.random.RandomState(3), **kwargs)
+    got = torch_sampler.LengthGroupedSampler(generator=np.random.RandomState(3), **kwargs)
+    assert len(got) == len(want) and list(got) == list(want)
+    assert sorted(got) == list(range(97))
+
+
+def test_to_pil_accepts_arrays_and_images():
+    pytest.importorskip("PIL")
+    from teochat_tpu.data.processing import _to_pil as jax_to_pil
+
+    rs = np.random.RandomState(7)
+    for arr in (rs.randint(0, 255, (5, 6, 3)).astype(np.uint8), rs.rand(5, 6, 3).astype(np.float32)):
+        want, got = jax_to_pil(arr), torch_processing._to_pil(arr)
+        assert got.mode == "RGB" and got.size == want.size
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert torch_processing._to_pil(got) is not None
+    with pytest.raises(TypeError):
+        torch_processing._to_pil(3)
+
+
+class StubModel:
+    """Records what `generate` is given and answers with fixed ids."""
+
+    cfg = types.SimpleNamespace(mm_use_im_start_end=False)
+
+    def __init__(self):
+        self.calls = []
+
+    def generate(self, input_ids, pixel_values, gen, rng=None):
+        self.calls.append((input_ids, pixel_values, gen, rng))
+        return [[11, 12, 13]]
+
+
+class StubProcessor:
+    def preprocess(self, paths):
+        return {"pixel_values": np.full((len(paths), 3, 2, 2), len(paths), np.float32)}
+
+
+@pytest.mark.parametrize("strategy,prefix", [("interleave", True), (None, False)])
+def test_run_inference_single_same_prompt_ids_and_output(strategy, prefix):
+    kwargs = dict(
+        inp="These are images taken at different times: <video> Were any buildings damaged?",
+        image_paths=["b.png", "a.png", "c.png"], timestamps=["2020-03-01", "2020-01-01", "2020-02-01"],
+        prompt_strategy=strategy, chronological_prefix=prefix, temperature=0.0, max_new_tokens=5)
+    calls = []
+    for mod in (jax_inference, torch_inference):
+        model = StubModel()
+        text = mod.run_inference_single(model, StubProcessor(), WordTokenizer(), **kwargs)
+        (ids, pixels, gen, rng), = model.calls
+        calls.append((text, ids, pixels.tolist(), dataclasses.asdict(gen), rng))
+    assert calls[0] == calls[1]
+    assert calls[0][0] == "<11> <12> <13>"
+    # the frames are sorted by time before they are named in the prompt
+    assert torch_inference._build_prompt(
+        kwargs["inp"], kwargs["image_paths"], "v1", kwargs["timestamps"], strategy, prefix,
+    ) == jax_inference._build_prompt(
+        kwargs["inp"], kwargs["image_paths"], "v1", kwargs["timestamps"], strategy, prefix)
+
+
+def test_inference_helpers_same_results():
+    text = "boxes [1, 2, 3, 4] and [10, 20, 30, 40]"
+    assert torch_inference.extract_bboxes(text) == jax_inference.extract_bboxes(text) == \
+        [[1, 2, 3, 4], [10, 20, 30, 40]]
+    assert torch_inference.replace_video_token("x <video> y", ["a", "b"], "interleave") == \
+        jax_inference.replace_video_token("x <video> y", ["a", "b"], "interleave")
+    example = {"conversations": [{"value": "find [1, 2, 3, 4]"}, {"value": "at [5, 6, 7, 8]"}],
+               "task": "det", "video": ["a.png"], "timestamp": ["2020-01-01"]}
+    assert torch_inference._collect_output(example, "r", "fmow") == \
+        jax_inference._collect_output(example, "r", "fmow")
+    with pytest.raises(ValueError):
+        torch_inference._collect_output(example, "r", "xbd_loc")
+    # the dataset loop goes one example at a time, through the port's own function
+    outs = [mod.run_inference([example], StubModel(), WordTokenizer(), StubProcessor(), "interleave",
+                              True, "v1", 0.0, 4, progress=False)
+            for mod in (jax_inference, torch_inference)]
+    assert outs[0] == outs[1] and outs[1][0]["response"] == "<11> <12> <13>"
+    with pytest.raises(NotImplementedError):  # the batched loop is not ported
+        torch_inference.run_inference([example], StubModel(), WordTokenizer(), StubProcessor(),
+                                      "interleave", True, "v1", 0.0, 4, batch_size=2)
+
+
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|teochat_tpu)\b", re.M)
+
+
+def test_port_has_no_import_of_jax_or_the_jax_package():
+    files = sorted((REPO / "teochat_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                              REPO / "chip_probe.py"]
+    assert len(files) > 25
+    bad = [(str(f.relative_to(REPO)), m.group(0).strip())
+           for f in files for m in IMPORT_RE.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card_and_take_the_cpu_on_request():
+    assert torch_utils.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert torch_utils.resolve_device(None).type == "cuda"
+        return
+    cfg = torch_config.tiny_test_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.to_torch({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.init_teochat(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_llama.init_cache(cfg.llm, 1, 4)
+    assert bridge.to_torch({"w": np.zeros(2, np.float32)}, "cpu")["w"].device.type == "cpu"

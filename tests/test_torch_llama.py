@@ -47,10 +47,10 @@ def test_bridge_round_trip(plain_params):
     _, params = plain_params
     for tree in (params, jax_quant.quantize_llama_params(params)):
         tree = _np_tree(tree)
-        _assert_trees_equal(to_numpy(to_torch(tree)), tree)
+        _assert_trees_equal(to_numpy(to_torch(tree, "cpu")), tree)
     # bf16 leaves arrive as ml_dtypes arrays and keep their values
     bf = np.asarray(jnp.asarray(_np_tree(params)["embed_tokens"]["embedding"], jnp.bfloat16))
-    t = to_torch({"embedding": bf})["embedding"]
+    t = to_torch({"embedding": bf}, "cpu")["embedding"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(to_numpy(t), bf.astype(np.float32))
 
@@ -65,7 +65,7 @@ def test_quantization_is_bitwise_equal(plain_params):
                                   np.asarray(jax_quant.dequantize_kernel(qj)))
     _, params = plain_params
     _assert_trees_equal(
-        to_numpy(torch_quant.quantize_llama_params(to_torch(_np_tree(params)))),
+        to_numpy(torch_quant.quantize_llama_params(to_torch(_np_tree(params), "cpu"))),
         _np_tree(jax_quant.quantize_llama_params(params)),
     )
 
@@ -101,7 +101,7 @@ def _run_torch(params, cfg, emb, seq_lens, pad_to, t_max, dec_ids):
     lens = torch.from_numpy(seq_lens)
     mask = torch.arange(pad_to)[None] < lens[:, None]
     pos = torch.where(mask, torch.cumsum(mask, dim=1) - 1, 0)
-    cache = torch_llama.init_cache(cfg, b, t_max, dtype=torch.float32)
+    cache = torch_llama.init_cache(cfg, b, t_max, dtype=torch.float32, device="cpu")
     logits = torch_llama.llama_forward(
         params, cfg, torch.from_numpy(emb), position_ids=pos, cache=cache,
         write_slots=torch.where(mask, pos, t_max - 1), logits_mode="last",
@@ -133,7 +133,7 @@ def test_cached_prefill_then_decode_matches_jax(quant, kv_heads):
     dec_ids = rs.randint(3, cfg.vocab_size, (3, N_DECODE)).astype(np.int32)
     t_max = pad_to + N_DECODE + 1
     want = _run_jax(params, cfg, emb, seq_lens, pad_to, t_max, dec_ids)
-    got = _run_torch(to_torch(_np_tree(params)), cfg, emb, seq_lens, pad_to, t_max, dec_ids)
+    got = _run_torch(to_torch(_np_tree(params), "cpu"), cfg, emb, seq_lens, pad_to, t_max, dec_ids)
     for w, g in zip(want, got):
         assert g.shape == w.shape == (3, 1, cfg.vocab_size)
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
@@ -141,8 +141,8 @@ def test_cached_prefill_then_decode_matches_jax(quant, kv_heads):
 
 def test_unported_options_raise(plain_params):
     cfg, params = plain_params
-    tparams = to_torch(_np_tree(params))
-    cache = torch_llama.init_cache(cfg, 2, 8, dtype=torch.float32)
+    tparams = to_torch(_np_tree(params), "cpu")
+    cache = torch_llama.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
     x = torch.zeros(1, 1, cfg.hidden_size)
     one = torch.zeros(1, 1, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="wider than the batch"):

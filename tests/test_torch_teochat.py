@@ -30,6 +30,7 @@ from teochat_tpu.models import teochat as jax_teochat
 from teochat_tpu.ops import quant as jax_quant
 from teochat_torch.checkpoint.bridge import init_teochat as torch_init_teochat
 from teochat_torch.checkpoint.bridge import to_numpy, to_torch
+from teochat_torch.eval.inference import run_inference_single as torch_run_inference_single
 from teochat_torch.models import fusion as torch_fusion
 from teochat_torch.models import generation as torch_gen
 from teochat_torch.models import teochat as torch_teochat
@@ -79,7 +80,7 @@ def models():
     llm = dict(params["llm"])
     llm["lm_head"] = {"kernel": llm["lm_head"]["kernel"] * 40.0}  # well-separated argmax
     params = {**params, "llm": llm}
-    tparams = to_torch(jax.tree.map(np.asarray, params))
+    tparams = to_torch(jax.tree.map(np.asarray, params), "cpu")
     return jax_teochat.TEOChat(cfg, params), torch_teochat.TEOChat(cfg, tparams)
 
 
@@ -150,7 +151,7 @@ def test_run_inference_single_same_string(models):
         temperature=0.0, max_new_tokens=6,
     )
     want = run_inference_single(jm, proc, tok, **kwargs)
-    got = run_inference_single(tm, proc, tok, **kwargs)
+    got = torch_run_inference_single(tm, proc, tok, **kwargs)
     assert got == want and got
 
 
@@ -175,15 +176,18 @@ def test_init_teochat_has_the_jax_layout_and_generates(quant):
 
 
 def test_port_imports_without_jax_or_triton():
+    """Nor with the JAX package: every module of the port, the smoke and the probe."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['triton'] = None\n"
+        "sys.modules['teochat_tpu'] = None\n"
         "import teochat_torch\n"
         "for m in pkgutil.walk_packages(teochat_torch.__path__, 'teochat_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
-        "bad = sorted(n for n in sys.modules if n.startswith(('jax.', 'triton.', 'jaxlib')))\n"
+        "import chip_smoke, chip_probe\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.startswith(('jax.', 'triton.', 'jaxlib', 'teochat_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

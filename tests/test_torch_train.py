@@ -110,7 +110,7 @@ def test_lora_proj_matches_jax(quant):
 
     (_, want), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
         jnp.asarray(x), jnp.asarray(p["lora_a"]), jnp.asarray(p["lora_b"]))
-    tp = to_torch(p)
+    tp = to_torch(p, "cpu")
     tx = torch.from_numpy(x).requires_grad_(True)
     for name in ("lora_a", "lora_b"):
         tp[name].requires_grad_(True)
@@ -126,7 +126,7 @@ def test_add_lora_params_and_merge_match_jax(tiny):
     cfg, params = tiny
     jl = jax_lora.add_lora_params(jax.random.PRNGKey(2), params["llm"], rank=8, alpha=16.0)
     gen = torch.Generator().manual_seed(2)
-    tl = torch_lora.add_lora_params(gen, to_torch(_np(params["llm"])), rank=8, alpha=16.0)
+    tl = torch_lora.add_lora_params(gen, to_torch(_np(params["llm"]), "cpu"), rank=8, alpha=16.0)
     want, got = _np(jl), to_numpy(tl)
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
@@ -136,13 +136,13 @@ def test_add_lora_params_and_merge_match_jax(tiny):
     # merge: the same adapters on both sides
     lora = _random_lora_b(jl, seed=3)
     merged_j = _np(jax_lora.merge_lora(lora))
-    merged_t = to_numpy(torch_lora.merge_lora(to_torch(lora)))
+    merged_t = to_numpy(torch_lora.merge_lora(to_torch(lora, "cpu")))
     assert jax.tree.structure(merged_t) == jax.tree.structure(merged_j)
     for w, g in zip(jax.tree.leaves(merged_j), jax.tree.leaves(merged_t)):
         np.testing.assert_allclose(g, w, rtol=FAST, atol=FAST)
     with pytest.raises(ValueError, match="int8"):
         torch_lora.merge_lora(to_torch(_np(jax_lora.add_lora_params(
-            jax.random.PRNGKey(2), jax_quant.quantize_llama_params(params["llm"]), rank=4))))
+            jax.random.PRNGKey(2), jax_quant.quantize_llama_params(params["llm"]), rank=4)), "cpu"))
 
 
 def _batch(cfg, seed):
@@ -185,7 +185,7 @@ def test_forward_train_loss_and_gradients_match_jax(tiny, quant, remat):
         jax_trainer.combine_params(t, frozen), cfg, jplan, jnp.asarray(pixels), remat=remat))(
         trainable)
 
-    tparams = to_torch(params)
+    tparams = to_torch(params, "cpu")
     leaves = dict(torch_trainer.tree_leaves_with_path(
         torch_trainer.partition_params(tparams, jax_lora.lora_trainable_filter)[0]))
     for x in leaves.values():
@@ -219,7 +219,7 @@ def test_three_steps_with_projector_group_and_accumulation_match_jax(tiny):
         jlosses.append(float(loss))
 
     topt = torch_trainer.MultiSteps(torch_trainer.make_optimizer(1e-3, **opt_kw), 2)
-    tstate = torch_trainer.init_train_state(to_torch(params), topt,
+    tstate = torch_trainer.init_train_state(to_torch(params, "cpu"), topt,
                                             jax_lora.lora_trainable_filter)
     tstep = torch_trainer.make_train_step(cfg, topt,
                                           trainable_filter=jax_lora.lora_trainable_filter)
@@ -247,7 +247,7 @@ def test_optimizer_matches_optax_on_the_same_gradients():
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jp)
     topt = torch_trainer.MultiSteps(torch_trainer.make_optimizer(1e-3, **kw), 2)
-    tp = to_torch(params)
+    tp = to_torch(params, "cpu")
     tstate = topt.init(tp)
     tleaves = dict(torch_trainer.tree_leaves_with_path(tp))
     for g in grads:
@@ -339,12 +339,12 @@ def test_tiny_train_end_to_end_matches_jax(tmp_path, capsys, monkeypatch):
     jax_adapters = jax_lora.add_lora_params(jax.random.PRNGKey(3), params["llm"], rank=4,
                                             alpha=8.0)
     monkeypatch.setattr(torch_train_mod, "add_lora_params",
-                        lambda gen, llm, rank, alpha: to_torch(_np(jax_adapters)))
+                        lambda gen, llm, rank, alpha: to_torch(_np(jax_adapters), "cpu"))
     history = []
     tstate = torch_train_mod.train(
         torch_train_mod.ModelArguments(),
         torch_data.DataArguments(image_processor=TinyProcessor()),
-        torch_train_mod.TrainingArguments(**common), cfg=cfg, params=to_torch(_np(params)),
+        torch_train_mod.TrainingArguments(**common), cfg=cfg, params=to_torch(_np(params), "cpu"),
         tokenizer=MockTokenizer(), dataset=data, max_steps_override=steps, history=history)
 
     assert len(jlosses) == len(history) == steps
@@ -365,7 +365,7 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny):
 
     cfg, params = tiny
     cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, vocab_size=256))
-    params = to_torch(_np(jax_teochat.init_teochat(jax.random.PRNGKey(13), cfg)),
+    params = to_torch(_np(jax_teochat.init_teochat(jax.random.PRNGKey(13), cfg)), "cpu",
                       dtype=torch.bfloat16)
     before = {p: x.clone() for p, x in torch_trainer.tree_leaves_with_path(params)}
     args = torch_train_mod.TrainingArguments(
@@ -400,7 +400,7 @@ def test_train_refuses_what_is_not_ported(tiny):
     with pytest.raises(NotImplementedError, match="save"):
         torch_train_mod.train(torch_train_mod.ModelArguments(), torch_data.DataArguments(),
                               torch_train_mod.TrainingArguments(save_strategy="steps"),
-                              cfg=cfg, params=to_torch(_np(params)), tokenizer=MockTokenizer())
+                              cfg=cfg, params=to_torch(_np(params), "cpu"), tokenizer=MockTokenizer())
 
 
 def test_train_modules_import_without_jax():
@@ -422,7 +422,7 @@ def test_bridge_keeps_lora_leaves_fp32():
                   "lora_a": rs.randn(2, 4, 3).astype(np.float32),
                   "lora_b": rs.randn(2, 3, 6).astype(np.float32),
                   "lora_scale": np.full((2,), 2.0, np.float32)}}
-    t = to_torch(tree, dtype=torch.bfloat16)["q"]
+    t = to_torch(tree, "cpu", dtype=torch.bfloat16)["q"]
     assert t["kernel"].dtype == torch.bfloat16
     assert all(t[n].dtype == torch.float32 for n in ("lora_a", "lora_b", "lora_scale"))
     back = to_numpy({"q": t})["q"]

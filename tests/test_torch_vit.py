@@ -25,7 +25,7 @@ def setup(request):
     cfg = tiny_test_config(add_time_attn=request.param)
     params = jax_teochat.init_teochat(jax.random.PRNGKey(1), cfg)
     frames = np.random.RandomState(2).randn(4, 3, 28, 28).astype(np.float32)
-    return cfg, params, to_torch(jax.tree.map(np.asarray, params)), frames
+    return cfg, params, to_torch(jax.tree.map(np.asarray, params), "cpu"), frames
 
 
 def test_vit_hidden_states_match_jax(setup):
