@@ -1,21 +1,29 @@
 """Measurements of the PyTorch / CUDA port on one NVIDIA card, beside the smoke.
 
     python3 chip_probe.py decode [--root DIR] [--quant int8 int4] [--batches 1 8]
+    python3 chip_probe.py decode-paths [--turns 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k4
     python3 chip_probe.py k3k5
+    python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
 
 Each command prints the card's name and power limit first, then its lines.
 `--root` (every command) imports `teochat_torch` and `chip_smoke` from
 another checkout, so two trees can be timed in one session on one card.
 
-- decode: the 2-frame greedy request of the smoke at each batch size of
-  --batches, for each weight format of --quant in turn (random TEOChat-7B,
-  seed 0; int4 is the fused packed model with its int4 lm_head): TTFT and
-  ms per decode step, from the median wall time of `generate` with 1 and
-  with 33 new tokens over --reps runs. One process, one card: int8 and
-  int4 are read side by side.
+- decode: the main bench's decode set-up (`teochat_torch.bench.main`: the
+  2-frame prompt of 640 fused tokens on stand-in embeddings, a random
+  LLaMA-7B decoder from seed 0, greedy, never stopping) at each batch size
+  of --batches, for each weight format of --quant in turn (int4 is the
+  fused packed decoder with its int4 lm_head): prefill + first token and ms
+  per decode step, from the median wall time of `generate_tokens` with 1
+  and with 33 new tokens over --reps runs. One process, one card: int8 and
+  int4 are read side by side. `--root` needs a tree that has the bench.
+- decode-paths: one int8 model, one process: ms per decode step of the
+  smoke's 2-frame request through `TEOChat.generate` and of the bench's
+  decode set-up, in turns, so that the two can be told from the host's
+  spread.
 - parity: one 7B-width training micro-step (the smoke's parity batch) under
   each attention of a pair, for each seed and decoder depth: the loss
   difference and the gradients' relative L2, overall and for the worst
@@ -27,6 +35,9 @@ another checkout, so two trees can be timed in one session on one card.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
+- s1s2: the smoke's phases for the kernel benches' eight variants (the int4
+  ones and the one-sweep attention ones against their plain versions); exits
+  nonzero where one fails, after running both.
 - profile-train: `torch.profiler` over the second optimizer step of the
   smoke's `train()` run (two micro-steps); device time by kernel class and
   the kernels that take the most.
@@ -43,7 +54,6 @@ import sys
 from collections import defaultdict
 from pathlib import Path
 
-import numpy as np
 import torch
 
 
@@ -57,42 +67,67 @@ def _import_tree(root: Path):
 
 
 def cmd_decode(smoke, args):
+    from teochat_torch.bench import main as bench_main
+
+    n_new = 33
+    settings = bench_main.Settings(seed=smoke.SEED, decode_new=n_new)
+    for quant in args.quant:
+        for bs in args.batches:
+            with torch.no_grad():
+                run_generate, _, prompt_len = bench_main.build_decode_setup(settings, bs, quant)
+                run_generate(1)
+                run_generate(n_new)  # warm-up
+                t1, tn = [], []
+                for _ in range(args.reps):
+                    t1.append(smoke.wall(lambda: run_generate(1))[1])
+                    tn.append(smoke.wall(lambda: run_generate(n_new))[1])
+            steps = n_new - 1
+            ttft, full = statistics.median(t1), statistics.median(tn)
+            ms_step = (full - ttft) / steps * 1e3
+            print(f"[decode] root={args.root} {quant} bs {bs}: prefill of {prompt_len} tokens + "
+                  f"first token {ttft * 1e3:.2f} ms (median of {args.reps}, "
+                  f"{min(t1) * 1e3:.2f}-{max(t1) * 1e3:.2f}); {steps} decode steps "
+                  f"{ms_step:.3f} ms/step, {bs * 1e3 / ms_step:.2f} tok/s (generate of "
+                  f"{n_new} tokens: median {full * 1e3:.2f} ms, {min(tn) * 1e3:.2f}-"
+                  f"{max(tn) * 1e3:.2f})", flush=True)
+            del run_generate
+            torch.cuda.empty_cache()
+
+
+def cmd_decode_paths(smoke, args):
+    from teochat_torch.bench import main as bench_main
     from teochat_torch.config import GenerationConfig, TEOChatConfig
     from teochat_torch.constants import IMAGE_TOKEN_INDEX
     from teochat_torch.mm_utils import tokenizer_image_token
 
-    tokenizer = smoke.WordTokenizer()
-    prompt = smoke.PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>")
-    ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
     n_new = 33
-    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
-    gn = GenerationConfig(max_new_tokens=n_new, temperature=0.0, do_sample=False,
-                          stop_strings=())
-    for quant in args.quant:
-        cfg = TEOChatConfig(quant="int8" if quant == "int8" else None)
-        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-        params = smoke.init_teochat(cfg, gen, "cuda", torch.bfloat16, quant=quant)
-        model = smoke.teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
-        processor = smoke.FrameProcessor(cfg.vision.image_size, smoke.SEED)
-        frames = processor.preprocess(["a", "b"])["pixel_values"]
-        for bs in args.batches:
-            batch_ids, batch_frames = [ids] * bs, np.concatenate([frames] * bs, axis=0)
-            model.generate(batch_ids, batch_frames, g1)
-            out = model.generate(batch_ids, batch_frames, gn)  # warm-up, and the step count
-            steps = max(len(r) for r in out) - 1
-            t1, tn = [], []
-            for _ in range(args.reps):
-                t1.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, g1))[1])
-                tn.append(smoke.wall(lambda: model.generate(batch_ids, batch_frames, gn))[1])
-            ttft, full = statistics.median(t1), statistics.median(tn)
-            ms_step = (full - ttft) / steps * 1e3
-            print(f"[decode] root={args.root} {quant} bs {bs}: TTFT {ttft * 1e3:.2f} ms (median "
-                  f"of {args.reps}, {min(t1) * 1e3:.2f}-{max(t1) * 1e3:.2f}); {steps} decode "
-                  f"steps {ms_step:.3f} ms/step, {bs * 1e3 / ms_step:.2f} tok/s (generate of "
-                  f"{n_new} tokens: median {full * 1e3:.2f} ms, {min(tn) * 1e3:.2f}-"
-                  f"{max(tn) * 1e3:.2f})", flush=True)
-        del model, params
-        torch.cuda.empty_cache()
+    with torch.no_grad():
+        run_generate, _, _ = bench_main.build_decode_setup(
+            bench_main.Settings(seed=smoke.SEED, decode_new=n_new), 1, "int8")
+    cfg = TEOChatConfig(quant="int8")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    tokenizer = smoke.WordTokenizer()
+    model = smoke.teochat_mod.TEOChat(
+        cfg, smoke.init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int8"),
+        tokenizer=tokenizer)
+    frames = smoke.FrameProcessor(cfg.vision.image_size, smoke.SEED).preprocess(
+        ["a", "b"])["pixel_values"]
+    ids = tokenizer_image_token(
+        smoke.PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"), tokenizer,
+        IMAGE_TOKEN_INDEX)
+    g1, gn = (GenerationConfig(max_new_tokens=n, temperature=0.0, do_sample=False,
+                               stop_strings=()) for n in (1, n_new))
+    for turn in range(args.turns + 1):  # turn 0 warms both up
+        s1 = smoke.wall(lambda: model.generate([ids], frames, g1))[1]
+        sn = smoke.wall(lambda: model.generate([ids], frames, gn))[1]
+        with torch.no_grad():
+            b1 = smoke.wall(lambda: run_generate(1))[1]
+            bn = smoke.wall(lambda: run_generate(n_new))[1]
+        if turn:
+            print(f"[decode-paths] turn {turn}: generate {(sn - s1) / (n_new - 1) * 1e3:.2f} "
+                  f"ms/step (TTFT {s1 * 1e3:.2f} ms); bench set-up "
+                  f"{(bn - b1) / (n_new - 1) * 1e3:.2f} ms/step (prefill + 1 token "
+                  f"{b1 * 1e3:.2f} ms)", flush=True)
 
 
 # ------------------------------------------------------------------ parity
@@ -160,10 +195,10 @@ def cmd_k4(smoke, args):
     print("[k4] passed", flush=True)
 
 
-def cmd_k3k5(smoke, args):
+def _run_phases(smoke, phases):
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     failed = False
-    for name, phase in (("k5", smoke.phase_vit_attention), ("k3", smoke.phase_int4)):
+    for name, phase in phases:
         try:
             phase(gen)
             print(f"[{name}] passed", flush=True)
@@ -171,6 +206,14 @@ def cmd_k3k5(smoke, args):
             failed = True
             print(f"[{name}] FAILED: {e}", flush=True)
     sys.exit(1 if failed else 0)
+
+
+def cmd_k3k5(smoke, args):
+    _run_phases(smoke, (("k5", smoke.phase_vit_attention), ("k3", smoke.phase_int4)))
+
+
+def cmd_s1s2(smoke, args):
+    _run_phases(smoke, (("s2", smoke.phase_bench_vit), ("s1", smoke.phase_bench_int4)))
 
 
 # ------------------------------------------------------------------ profile-train
@@ -255,13 +298,15 @@ def cmd_profile_train(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "parity", "k4", "k3k5", "profile-train"):
+    for name in ("decode", "decode-paths", "parity", "k4", "k3k5", "s1s2", "profile-train"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
             p.add_argument("--reps", type=int, default=5)
             p.add_argument("--quant", nargs="+", default=["int8"], choices=["int8", "int4"])
             p.add_argument("--batches", type=int, nargs="+", default=[1, 8])
+        if name == "decode-paths":
+            p.add_argument("--turns", type=int, default=3)
         if name == "parity":
             p.add_argument("--seeds", type=int, nargs="+", default=[0])
             p.add_argument("--layers", type=int, nargs="+", default=[32])
@@ -270,8 +315,8 @@ def main():
     smoke = _import_tree(args.root)
     smoke.phase_device()
     smoke.phase_build()
-    {"decode": cmd_decode, "parity": cmd_parity, "k4": cmd_k4, "k3k5": cmd_k3k5,
-     "profile-train": cmd_profile_train}[args.cmd](smoke, args)
+    {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k4": cmd_k4,
+     "k3k5": cmd_k3k5, "s1s2": cmd_s1s2, "profile-train": cmd_profile_train}[args.cmd](smoke, args)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,15 @@ them. Phases, each printing its lines before the last:
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
     2-frame conversations; the three K4 launch counts must rise;
 14. one micro-step's loss and trainable gradients with the kernels against
-    the same step on the plain attention.
+    the same step on the plain attention;
+15. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
+    v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
+    plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
+    512; the attention ones at [32, 257, 16, 64] and [2, 257, 16, 64];
+16. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
+    `vit_attention.main()`): the eight launch counts, and those of K3b and
+    K5 (their `v0` and `current` rows), must rise;
+17. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -44,8 +52,8 @@ nowhere in the port), and works out the least time the card could take:
 the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
-The line before the last is a JSON object with each kernel's launches,
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each of the seventeen
+kernels' launches, error, times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,7 +64,6 @@ import functools
 import itertools
 import json
 import statistics
-import subprocess
 import sys
 import time
 import types
@@ -65,6 +72,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from teochat_torch.bench import _timing
+from teochat_torch.bench import int4_kernel as bench_int4
+from teochat_torch.bench import main as bench_main
+from teochat_torch.bench import vit_attention as bench_vit
+from teochat_torch.bench._timing import bound_ms, kernel_row, sync, time_ms, wall
 from teochat_torch.config import GenerationConfig, TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from teochat_torch.eval.inference import run_inference_single
@@ -111,7 +123,6 @@ GRAD_REL_MAX = 2e-2
 TRAIN_LOSS_REL_BOUND = 1e-2
 TRAIN_GRAD_REL_L2_BOUND = 1.5e-1
 N_TRAIN_SAMPLES = 16
-N_TIMED = 25
 # int4 product, kernel (bf16 out) vs plain (fp32 on the same bf16 x and the
 # same bytes): both accumulate exact products in fp32, so what is left is the
 # kernel's one bf16 rounding of the output, at most half an ulp = 2^-8 =
@@ -131,9 +142,6 @@ VIT_TOL = 2e-2  # as FLASH_TOL: bf16 output rounding of |o| < 4, P rounded to bf
 # path's own calls (strided slices of the fused outputs, the padded fan-in at
 # the prompt's M) to the order that rounding alone reaches at this depth
 INT4_LOGITS_REL_L2_BOUND = 5e-2
-# the H100 SXM's published rates, for each kernel's bound
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
 # the 7B decoder's projections (fan-in, fan-out): q|k|v fused, out, gate|up
 # fused, down (its packed fan-in padded 5504 -> 5632 byte rows), lm_head (its
 # 32000 columns padded to 63 tiles of 512)
@@ -192,62 +200,9 @@ class FrameProcessor:
         return {"pixel_values": (rgb - mean) / std}
 
 
-def sync():
-    torch.cuda.synchronize()
-
-
-def _hold_device():
-    """Enqueue ~3 ms of device work (an fp32 product without TF32), so that
-    what the host enqueues next waits in the stream and then runs back to
-    back. Its 64 MB operands also push earlier data out of the L2."""
-    a = torch.ones((4096, 4096), device="cuda")
-    torch.mm(a, a)
-
-
-def time_ms(fn, n=N_TIMED, inner=4, queued=True):
-    """One call's device time: the median over n measurements, each of `inner`
-    calls between two CUDA events, after one warm-up. With `queued` the calls
-    are enqueued behind a blocking product, so the events bracket the device's
-    work alone; without it a call's host time counts where it is the longer."""
-    fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if queued:
-            _hold_device()
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def wall(fn):
-    sync()
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    return out, time.perf_counter() - t0
-
-
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def bound_ms(nbytes: float, flops: float):
-    """The least time the card could take: (ms, 'bytes' | 'operations')."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def kernel_row(err, ms, plain_ms, nbytes, flops, library_ms=None):
-    """One kernel's measurements for the JSON line (launches come later)."""
-    bound, by = bound_ms(nbytes, flops)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms}
 
 
 def _bhsd(x):
@@ -258,11 +213,7 @@ def _bhsd(x):
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    log(_timing.smi_line())  # the card's name and power limit, as nvidia-smi gives them
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"count {torch.cuda.device_count()} name {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -364,9 +315,10 @@ def phase_decode(gen):
     return main
 
 
-def _int4_case(name, k, n, m, packed, run, plain):
-    """One int4 product (`packed`: one weight's bytes) against its plain
-    version; returns (abs err, ms, plain ms, bytes, flops)."""
+def _int4_case(name, k, n, m, packed, run, plain, tag="K3 int4", scaled=True):
+    """One int4 product (`packed`: one weight's bytes; k: the rows of x it
+    meets) against its plain version; returns (abs err, ms, plain ms, bytes,
+    flops)."""
     got = run()
     sync()
     want = plain()  # fp32: the plain version keeps the dtype of the x it is given
@@ -378,10 +330,10 @@ def _int4_case(name, k, n, m, packed, run, plain):
     ms = time_ms(run)
     call_ms = time_ms(run, inner=1, queued=False)  # one call on an idle card, host included
     plain_ms = time_ms(plain, n=3, inner=1)
-    nbytes = packed.numel() + 2 * m * k + 2 * m * n + 4 * n  # bytes, x, y, scale
+    nbytes = packed.numel() + 2 * m * k + 2 * m * n + 4 * n * scaled  # bytes, x, y, scale
     flops = 2 * m * k * n
     bound, by = bound_ms(nbytes, flops)
-    log(f"[K3 int4] {name} K={k} N={n} M={m} {str(packed.dtype)[6:]}: rel L2 {rel_l2:.3e} "
+    log(f"[{tag}] {name} K={k} N={n} M={m} {str(packed.dtype)[6:]}: rel L2 {rel_l2:.3e} "
         f"(bound {INT4_REL_L2}) max_abs_err {err:.3e} = {err / top:.3e} of max |y| "
         f"(bound {INT4_REL_MAX}); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
         f"{flops / ms / 1e9:.2f} TFLOP/s; {call_ms:.4f} ms a call on an idle card) plain "
@@ -915,6 +867,131 @@ def phase_int4_path(gen, tokenizer):
     return counts, k3a_counts
 
 
+def phase_bench_int4(gen):
+    """S1: the six kernels of the int4 kernel bench at the gate projection
+    (K 4096, N 11008, tiles of 512), M = 1 and 8, held as tight as K3 (both
+    sides sum the same exact products in fp32). The byte-reuse kernels get xa
+    and xb made beforehand, as their plain versions do, so both round the same
+    way; a timed launch finds its tiles out of the L2."""
+    k, n = bench_int4.K, bench_int4.N
+    w_q = torch.randint(-8, 8, (k, n), generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    tiles, tiles_i8 = int4_mod.pack_int4_tiled(w_q), bench_int4.pack_int4_i8(w_q)
+    tiles_i4 = bench_int4.pack_int4_native(w_q)
+    rows, worst = {}, {}
+    for m in (1, 8):
+        x = _randn((m, k), gen)
+        ops = bench_int4.byte_reuse_operands(x, k // 2)
+        cases = [  # (key, tiles, kernel(tiles), plain())
+            ("S1-v2", tiles,
+             lambda t: bench_int4.v2_matmul(x, t, scale, n_out=n, operands=ops),
+             lambda: bench_int4.v2_matmul_plain(x.float(), tiles, scale, n_out=n, operands=ops)),
+            ("S1-v3", tiles_i8,
+             lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, operands=ops),
+             lambda: bench_int4.v3_matmul_plain(x.float(), tiles_i8, scale, n_out=n,
+                                                operands=ops)),
+            ("S1-v3 mask16", tiles_i8,
+             lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, mask_dtype=torch.int16,
+                                            operands=ops),
+             lambda: bench_int4.v3_matmul_plain(x.float(), tiles_i8, scale, n_out=n,
+                                                mask_dtype=torch.int16, operands=ops)),
+            ("S1-v5", tiles_i8,
+             lambda t: bench_int4.v5_matmul(x, t, scale, n_out=n, operands=ops),
+             lambda: bench_int4.v5_matmul_plain(x.float(), tiles_i8, scale, n_out=n,
+                                                operands=ops)),
+            ("S1-v4", tiles_i4,
+             lambda t: bench_int4.v4_matmul(x, t, scale, n_out=n),
+             lambda: bench_int4.v4_matmul_plain(x.float(), tiles_i4, scale, n_out=n)),
+            ("S1-dma", tiles,
+             lambda t: bench_int4.dma_only_matmul(x, t, n_out=n),
+             lambda: bench_int4.dma_only_matmul_plain(x.float(), tiles, n_out=n)),
+        ]
+        for key, t0, kernel, plain in cases:
+            nxt = _timing.rotation(t0)
+            dma = key == "S1-dma"  # half of x, no scale
+            out = _int4_case(key, k // 2 if dma else k, n, m, t0, lambda: kernel(nxt()), plain,
+                             tag="S1 int4 bench", scaled=not dma)
+            key = key.split()[0]  # the mask16 case counts toward S1-v3's error
+            worst[key] = max(worst.get(key, 0.0), out[0])
+            if m == 1 and key not in rows:
+                rows[key] = kernel_row(None, *out[1:])
+    # the unpack probe: exact small integers, so the column sums are equal
+    nxt = _timing.rotation(tiles)
+    cols, total = bench_int4.vpu_only(tiles)
+    sync()
+    want_cols, want_total = bench_int4.vpu_only_plain(tiles)
+    err = (cols - want_cols).abs().max().item()
+    check(err == 0.0 and cols.shape == (tiles.shape[0], tiles.shape[2]),
+          f"S1-vpu: column sums differ by {err}")
+    check(abs(total.item() - want_total.item()) <= 1e-6 * abs(want_total.item()), "S1-vpu: total")
+    ms = time_ms(lambda: bench_int4.vpu_only(nxt())[0])
+    plain_ms = time_ms(lambda: bench_int4.vpu_only_plain(tiles)[0], n=3, inner=1)
+    nbytes = tiles.numel() + 4 * cols.numel()
+    rows["S1-vpu"] = kernel_row(err, ms, plain_ms, nbytes, 2 * 2 * tiles.numel())
+    log(f"[S1 int4 bench] S1-vpu: column sums equal, total {total.item():.0f}; kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s) plain {plain_ms:.4f} ms bound "
+        f"{rows['S1-vpu']['bound_ms']:.4f} ms ({rows['S1-vpu']['bound_by']})")
+    for key in worst:
+        rows[key]["max_abs_err"] = worst[key]
+    return rows
+
+
+def phase_bench_vit(gen):
+    """S2: the two one-sweep attention kernels at the bench's shape, at a 2-frame
+    request's and at two ragged ones; c's time includes its transposes, as the
+    bench's does."""
+    rows = {}
+    for key, fn in (("S2-b", bench_vit.call_b), ("S2-c", bench_vit.call_c)):
+        worst = 0.0
+        # the first shape has 7 masked keys beside 9 live ones: a lost key mask shows there;
+        # the bench's own shape is the one reported in the JSON line
+        for b, s, h, d in ((2, 9, 16, 64), (32, 257, 16, 64), (2, 257, 16, 64), (3, 100, 16, 64)):
+            q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
+            got = fn(q, k, v)
+            sync()
+            want = bench_vit.call_plain(q.float(), k.float(), v.float())
+            err = (got.float() - want).abs().max().item()
+            check(got.shape == want.shape and torch.isfinite(got).all().item(),
+                  f"{key}: output finite")
+            ms = time_ms(lambda: fn(q, k, v))
+            plain_ms = time_ms(lambda: bench_vit.call_plain(q, k, v))
+            lib_ms = time_ms(lambda: bench_vit.call_library(q, k, v))
+            nbytes, flops = bench_vit.bound(b, s, h, d)
+            row = kernel_row(err, ms, plain_ms, nbytes, flops, lib_ms)
+            log(f"[S2 vit bench] {key} B={b} S={s} H={h} D={d}: max_abs_err={err:.3e} (tol "
+                f"{bench_vit.TOL}) kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
+                f"{plain_ms:.4f} ms scaled_dot_product_attention {lib_ms:.4f} ms bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            check(err <= bench_vit.TOL, f"{key} error {err} > {bench_vit.TOL}")
+            worst = max(worst, err)
+            if (b, s) == (bench_vit.B, bench_vit.S):
+                rows[key] = row
+        rows[key]["max_abs_err"] = worst
+    return rows
+
+
+def phase_bench_run():
+    """The three benches in-process, as their users run them: the two kernel
+    benches (every variant's count and those of K3b and K5 must rise), then
+    the main bench's encode and e2e phases. Returns the kernel benches' counts."""
+    counters = {**bench_int4.COUNTERS, **bench_vit.COUNTERS,
+                "K3b": int4_mod.LAUNCHES_TILED, "K5": vit_mod.LAUNCHES}
+    for counter in counters.values():
+        counter.reset()
+    _, sec = wall(lambda: (bench_int4.main(quick=True), bench_vit.main()))
+    counts = {name: c.count for name, c in counters.items()}
+    log(f"[bench] int4_kernel --quick and vit_attention: {sec:.2f} s; kernel launches: "
+        + ", ".join(f"{name} {n}" for name, n in counts.items()))
+    check(all(n > 0 for n in counts.values()), f"kernel bench launches {counts}")
+
+    results, main_counts = counted(
+        "bench main", lambda: bench_main.main(["--phases", "encode", "e2e"]))
+    check(all(main_counts[k] > 0 for k in ("K1", "K2", "K5")), f"bench main launches {main_counts}")
+    for key in ("encode_frames_per_sec", "xbd_2frame_e2e_latency_s_32newtok"):
+        check(np.isfinite(results[key]) and results[key] > 0, f"bench main: {key}")
+    return counts
+
+
 def main():
     phase_device()
     phase_build()
@@ -945,13 +1022,23 @@ def main():
     k4_rows = phase_flash_backward(gen)
     train_launches = phase_train(cfg, params, tokenizer, processor)
     phase_train_parity(cfg, params, tokenizer, processor, gen)
+    del model, params
+    torch.cuda.empty_cache()
 
-    def row(name, source, replaces, launches, measured):
+    s_rows = {**phase_bench_int4(gen), **phase_bench_vit(gen)}
+    bench_counts = phase_bench_run()
+
+    def row(name, source, replaces, launches, measured, where="teochat_tpu/ops/"):
         return {"name": name, "route": "cuda", "source": f"teochat_torch/csrc/{source}",
-                "replaces": f"teochat_tpu/ops/{replaces}", "launches": launches, **measured}
+                "replaces": where + replaces, "launches": launches, **measured}
+
+    def bench_row(key, source, replaces):
+        name = "bench_" + key.replace("S1-", "int4_").replace("S2-", "vit_attention_")
+        return row(name, source, replaces, bench_counts[key], s_rows[key], where="scripts/")
 
     # launches: K1, K2, K3b, K3c, K5 on the int4 path, K3a on its own request,
-    # K4a-c in train(); the int8 path's counts are checked above
+    # K4a-c in train(), the benches' variants in their benches; the int8 path's
+    # and the main bench's counts are checked above
     kernels = [
         row("flash_attention", "flash_attention.cu", "flash_attention.py:32",
             int4_counts["K1"], rows["K1"]),
@@ -971,6 +1058,14 @@ def main():
             int4_counts["K3c"], rows["K3c"]),
         row("vit_attention", "vit_attention.cu", "vit_attention.py:42",
             int4_counts["K5"], rows["K5"]),
+        bench_row("S1-v2", "bench_int4_kernel.cu", "bench_int4_kernel.py:55"),
+        bench_row("S1-v3", "bench_int4_kernel.cu", "bench_int4_kernel.py:135"),
+        bench_row("S1-v4", "bench_int4_kernel.cu", "bench_int4_kernel.py:219"),
+        bench_row("S1-v5", "bench_int4_kernel.cu", "bench_int4_kernel.py:281"),
+        bench_row("S1-vpu", "bench_int4_kernel.cu", "bench_int4_kernel.py:342"),
+        bench_row("S1-dma", "bench_int4_kernel.cu", "bench_int4_kernel.py:383"),
+        bench_row("S2-b", "bench_vit_attention.cu", "bench_vit_attention.py:36"),
+        bench_row("S2-c", "bench_vit_attention.cu", "bench_vit_attention.py:76"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,402 @@
+"""Benchmark of the port's main paths on one NVIDIA card.
+
+Port of the phases of bench.py whose modules the port has. Each prints what
+its JAX twin returns, under the same key where the quantity is the same, on
+`TEOChatConfig()` at full width and depth (ViT-L/14 @ 224 px in bf16;
+LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
+
+- encode: `encode_frames_per_sec` (a batch of 32 frames through the tower
+  and the projector);
+- decode: `decode_tokens_per_sec` (+ `_min` / `_max` over the timed batches),
+  `ttft_s_prefill640_int8`, `prefill_tokens`, `hbm_stream_peak_gbps` and the
+  roofline keys `decode_effective_hbm_gbps`, `decode_pct_of_hbm_peak`;
+- decode_bs8 / decode_bs16: `decode_tokens_per_sec_bs8` / `_bs16`;
+- decode_int4: `decode_tokens_per_sec_int4` and its `_int4` roofline keys;
+- e2e: `xbd_2frame_e2e_latency_s_32newtok` (encode 2 frames + prefill 640
+  fused tokens + 32 new tokens);
+- train: `train_tokens_per_sec`, `train_mfu` (LoRA r128 over the int8
+  backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`.
+
+The two peaks are measured on this card, not read from a data sheet: the
+stream peak by tall-skinny `torch.matmul`s over eight distinct 512 MB bf16
+panels (the pattern decode is bound by), the tensor-core peak by four chained
+8192^3 bf16 products. Phases whose modules are not ported yet raise
+NotImplementedError and name their ROADMAP item (`UNPORTED`). Times are host
+wall times around work that ends in a synchronize.
+
+Run: python3 -m teochat_torch.bench.main [--phases encode decode ...]
+The last line is one JSON object of every key.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from teochat_torch.bench import _timing
+from teochat_torch.checkpoint import bridge
+from teochat_torch.config import TEOChatConfig
+from teochat_torch.constants import IMAGE_TOKEN_INDEX
+from teochat_torch.models import fusion as fusion_mod
+from teochat_torch.models import generation as gen_mod
+from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.train import lora as lora_mod
+from teochat_torch.train import trainer as trainer_mod
+from teochat_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class Settings:
+    """What the phases run on; the defaults are the published widths and bench.py's shapes."""
+
+    cfg: TEOChatConfig = dataclasses.field(default_factory=TEOChatConfig)
+    device: Optional[str] = None  # None = the card
+    seed: int = 0
+    prompt_len: int = 640  # fused prompt: 2 frames and `text_tokens` + 3 text tokens, padded
+    text_tokens: int = 123
+    decode_new: int = 64
+    e2e_new: int = 32
+    enc_batch: int = 32
+    enc_iters: int = 20
+    train_batch: int = 2
+    iters: int = 3
+    stream_side: int = 16384  # the stream probe's panels are [side, side] bf16
+    stream_panels: int = 8
+    stream_reps: int = 6
+    matmul_side: int = 8192
+
+    @property
+    def dev(self) -> torch.device:
+        return resolve_device(self.device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    @property
+    def tokens_per_frame(self) -> int:
+        n = self.cfg.vision.num_patches
+        return n if self.cfg.mm_vision_select_feature == "patch" else n + 1
+
+    def generator(self, offset: int = 0) -> torch.Generator:
+        return torch.Generator(device=self.dev).manual_seed(self.seed + offset)
+
+    def prompt_ids(self, batch: int):
+        """bench.py's 2-frame prompt: BOS, two image sentinels, the text tokens."""
+        return [[1] + [IMAGE_TOKEN_INDEX, 7] * 2 + list(range(10, 10 + self.text_tokens))] * batch
+
+    def frames(self, n: int) -> torch.Tensor:
+        size = self.cfg.vision.image_size
+        rgb = np.random.RandomState(0).randn(n, 3, size, size).astype(np.float32)
+        return torch.from_numpy(rgb).to(self.dev, self.dtype)
+
+
+def _never_stop() -> gen_mod.StopSpec:
+    return gen_mod.StopSpec(keyword_ids=np.zeros((1, 1), np.int32),
+                            keyword_lens=np.zeros((1,), np.int32), eos_id=-1)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in trainer_mod.tree_leaves_with_path(tree))
+
+
+# ------------------------------------------------------------- the two peaks
+
+def measure_stream_peak_gbps(st: Settings) -> float:
+    """Achievable weight-streaming bandwidth on this card, the pattern decode is
+    bound by: tall-skinny products that each read a fresh [side, side] bf16
+    panel (eight distinct 512 MB panels at the default size, far past the L2),
+    chained through a data dependence; GB/s of panel bytes over the wall time."""
+    n, k, dev = st.stream_side, st.stream_panels, st.dev
+    ws = [torch.full((n, n), 1e-4, dtype=torch.bfloat16, device=dev) for _ in range(k)]
+    x0 = torch.ones((8, n), dtype=torch.bfloat16, device=dev)
+
+    def chain():
+        x, acc = x0, torch.zeros((8, n), dtype=torch.float32, device=dev)
+        for _ in range(st.stream_reps):
+            for w in ws:
+                acc = acc + torch.matmul(x, w).float()
+            x = x + (acc[:, :1] * 1e-12).to(torch.bfloat16)
+        return acc
+
+    dt = _timing.timeit(chain, iters=1, device=dev)
+    return st.stream_reps * k * 2 * n * n / dt / 1e9
+
+
+def measure_tensor_core_peak_tflops(st: Settings) -> float:
+    """Achievable bf16 matmul rate on this card: four chained side^3 products.
+    The MFU denominator: measured, not a data sheet's."""
+    n, dev = st.matmul_side, st.dev
+    x = torch.ones((n, n), dtype=torch.bfloat16, device=dev)
+    w = torch.full((n, n), 1e-4, dtype=torch.bfloat16, device=dev)
+
+    def chain():
+        y = x
+        for _ in range(4):
+            y = torch.matmul(y, w)
+        return y
+
+    dt = _timing.timeit(chain, iters=3, device=dev)
+    return 4 * 2 * n ** 3 / dt / 1e12
+
+
+# ------------------------------------------------------------------ arithmetic
+
+def _roofline_keys(tok_s: float, weight_bytes: int, kv_bytes: float,
+                   peak_gbps: float, tag: str = "") -> dict:
+    """Effective device-memory GB/s of a measured decode rate against the
+    card's measured stream peak. bytes/step = every weight byte once + the
+    KV bytes a step reads."""
+    eff = tok_s * (weight_bytes + kv_bytes) / 1e9
+    return {
+        f"decode_effective_hbm_gbps{tag}": eff,
+        f"decode_pct_of_hbm_peak{tag}": eff / peak_gbps if peak_gbps else None,
+    }
+
+
+def _llm_matmul_params(cfg) -> int:
+    """Backbone matmul params (per-token FLOPs = 2x this in a forward):
+    q/k/v/o + gate/up/down per layer + the lm_head."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    kvh = cfg.num_kv_heads * cfg.head_dim
+    per_layer = h * h * 2 + h * kvh * 2 + 3 * h * i
+    return cfg.num_layers * per_layer + cfg.vocab_size * h
+
+
+def _train_mfu(cfg, tok_s: float, seq: int, peak_tflops: float, full_finetune: bool) -> float:
+    """Model-FLOPs utilization (useful FLOPs only: remat's recompute is not
+    credited). Per token: forward 2P; backward 4P when weight gradients are
+    computed (full fine-tuning) or 2P when only activation gradients flow
+    through the frozen backbone (LoRA). Attention adds 12 L h T_avg (scores and
+    context, forward and backward), in both modes."""
+    p = _llm_matmul_params(cfg)
+    factor = 6 if full_finetune else 4
+    att = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * (seq / 2)
+    return tok_s * (factor * p + att) / (peak_tflops * 1e12)
+
+
+# --------------------------------------------------------------------- phases
+
+def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8"):
+    """(run_generate, max_new, prompt_len): `run_generate(n_new)` prefills the
+    2-frame prompt of `batch` rows on stand-in fused embeddings and decodes
+    greedily without ever stopping; it carries `weight_bytes` (every leaf of
+    the decoder) and `kv_bytes` (the live KV bytes a decode step reads, mean
+    over the steps: the decode kernel reads each row up to its length)."""
+    cfg, dev = st.cfg, st.dev
+    llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant=quant)
+    prompt_len, max_new = st.prompt_len, st.decode_new
+    t_max = prompt_len + max_new + 1
+    plan = fusion_mod.build_fusion_plan(
+        st.prompt_ids(batch), tokens_per_frame=st.tokens_per_frame, pad_to=prompt_len)
+    embeds = torch.from_numpy(
+        (np.random.RandomState(1).randn(batch, prompt_len, cfg.llm.hidden_size) * 0.02)
+        .astype(np.float32)).to(dev, st.dtype)
+    seq_lens, mask, pos = (torch.as_tensor(a, device=dev)
+                           for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
+    stop, gen = _never_stop(), st.generator()
+
+    def run_generate(n_new: int):
+        return gen_mod.generate_tokens(
+            llm, cfg.llm, embeds, seq_lens, mask, pos, stop, gen,
+            max_new_tokens=n_new, temperature=0.0, do_sample=False, cache_len=t_max)[0]
+
+    run_generate.weight_bytes = _tree_bytes(llm)
+    mean_live = float(plan.seq_lens.sum()) + batch * (max_new - 1) / 2
+    run_generate.kv_bytes = (2 * cfg.llm.num_layers * mean_live * cfg.llm.num_kv_heads
+                             * cfg.llm.head_dim * torch.empty((), dtype=st.dtype).element_size())
+    return run_generate, max_new, prompt_len
+
+
+def _decode_times(st: Settings, batch: int, quant: str):
+    """(sorted full-loop times, prefill + 1 token time, the setup)."""
+    run_generate, max_new, prompt_len = build_decode_setup(st, batch, quant)
+    t_fulls = _timing.timeit_all(lambda: run_generate(max_new), st.iters, st.dev)
+    t_one = _timing.timeit(lambda: run_generate(1), st.iters, st.dev)
+    return t_fulls, t_one, run_generate, max_new, prompt_len
+
+
+def phase_encode(st: Settings) -> dict:
+    params = bridge.init_encoder(st.cfg, st.generator(), st.dev, st.dtype)
+    frames = st.frames(st.enc_batch)
+    with torch.no_grad():
+        dt = _timing.timeit(lambda: teochat_mod.encode_frames(params, st.cfg, frames),
+                            st.enc_iters, st.dev)
+    return {"encode_s_per_batch": dt, "encode_frames_per_sec": st.enc_batch / dt}
+
+
+def phase_decode(st: Settings) -> dict:
+    with torch.no_grad():
+        t_fulls, t_one, run_generate, max_new, prompt_len = _decode_times(st, 1, "int8")
+    # spread: tok/s from each full-loop batch against the median prefill
+    tok_s = sorted((max_new - 1) / (t - t_one) for t in t_fulls)
+    peak = measure_stream_peak_gbps(st)
+    return {
+        "decode_tokens_per_sec": tok_s[1],
+        "decode_tokens_per_sec_min": tok_s[0],
+        "decode_tokens_per_sec_max": tok_s[-1],
+        "ttft_s_prefill640_int8": t_one,
+        "full_loop_s": t_fulls[1],
+        "prefill_tokens": prompt_len,
+        "hbm_stream_peak_gbps": peak,
+        **_roofline_keys(tok_s[1], run_generate.weight_bytes, run_generate.kv_bytes, peak),
+    }
+
+
+def _phase_decode_batched(st: Settings, batch: int) -> dict:
+    """Serving throughput: `batch` concurrent sequences share each weight read."""
+    with torch.no_grad():
+        t_fulls, t_one, _, max_new, _ = _decode_times(st, batch, "int8")
+    return {f"decode_tokens_per_sec_bs{batch}": batch * (max_new - 1) / (t_fulls[1] - t_one)}
+
+
+def phase_decode_bs8(st: Settings) -> dict:
+    return _phase_decode_batched(st, 8)
+
+
+def phase_decode_bs16(st: Settings) -> dict:
+    return _phase_decode_batched(st, 16)
+
+
+def phase_decode_int4(st: Settings) -> dict:
+    """Batch-1 decode with packed int4 weights (w4a16) and a bf16 KV cache."""
+    with torch.no_grad():
+        t_fulls, t_one, run_generate, max_new, _ = _decode_times(st, 1, "int4")
+    tok_s = (max_new - 1) / (t_fulls[1] - t_one)
+    peak = measure_stream_peak_gbps(st)
+    return {
+        "decode_tokens_per_sec_int4": tok_s,
+        **_roofline_keys(tok_s, run_generate.weight_bytes, run_generate.kv_bytes, peak,
+                         tag="_int4"),
+    }
+
+
+def phase_e2e(st: Settings) -> dict:
+    """2-frame encode + prefill + 32 new tokens, one process: end-to-end latency."""
+    cfg, dev = st.cfg, st.dev
+    params = bridge.init_teochat(cfg, st.generator(), dev, st.dtype, quant="int8")
+    prompt_len, max_new = st.prompt_len, st.e2e_new
+    plan = fusion_mod.build_fusion_plan(
+        st.prompt_ids(1), tokens_per_frame=st.tokens_per_frame, pad_to=prompt_len)
+    frames = st.frames(2)
+    seq_lens, mask, pos = (torch.as_tensor(a, device=dev)
+                           for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
+    stop, gen = _never_stop(), st.generator()
+
+    def fn():
+        vt = teochat_mod.encode_frames(params, cfg, frames)
+        emb = teochat_mod.multimodal_embeds(params, cfg, plan, vt)
+        return gen_mod.generate_tokens(
+            params["llm"], cfg.llm, emb, seq_lens, mask, pos, stop, gen,
+            max_new_tokens=max_new, temperature=0.0, do_sample=False,
+            cache_len=prompt_len + max_new + 1)[0]
+
+    with torch.no_grad():
+        return {"xbd_2frame_e2e_latency_s_32newtok": _timing.timeit(fn, st.iters, dev)}
+
+
+def phase_train(st: Settings) -> dict:
+    """LoRA train steps at the recipe's shapes (8-bit backbone + LoRA r128 /
+    alpha 256 + trainable fp32 projector, bf16 tower, remat): tokens/s and MFU
+    of a single optimizer step a call."""
+    cfg, dev = st.cfg, st.dev
+    params = bridge.init_teochat(cfg, st.generator(), dev, st.dtype, quant="int8")
+    params["llm"] = lora_mod.add_lora_params(st.generator(1), params["llm"], rank=128,
+                                             alpha=256.0)
+    params = trainer_mod.fp32_masters(params, lora_mod.lora_trainable_filter)
+    batch, seq = st.train_batch, st.prompt_len
+    ids = st.prompt_ids(batch)
+    plan = fusion_mod.build_fusion_plan(
+        ids, tokens_per_frame=st.tokens_per_frame, pad_to=seq,
+        labels=[[-100] * 5 + r[5:] for r in ids])
+    frames = st.frames(2 * batch)
+    optimizer = trainer_mod.make_optimizer(2e-4, projector_lr=2e-5, total_steps=100)
+    state = [trainer_mod.init_train_state(params, optimizer, lora_mod.lora_trainable_filter)]
+    step = trainer_mod.make_train_step(cfg, optimizer,
+                                       trainable_filter=lora_mod.lora_trainable_filter,
+                                       remat=True)
+
+    def fn():
+        state[0], loss = step(state[0], plan, frames)
+        return loss
+
+    dt = _timing.timeit(fn, st.iters, dev)
+    state.clear()
+    peak = measure_tensor_core_peak_tflops(st)
+    tok_s = batch * seq / dt
+    return {
+        f"train_step_s_bs{batch}_seq{seq}": dt,
+        "train_tokens_per_sec": tok_s,
+        "tensor_core_peak_tflops": peak,
+        "train_mfu": _train_mfu(cfg.llm, tok_s, seq, peak, full_finetune=False),
+    }
+
+
+PHASES: Dict[str, Callable[[Settings], dict]] = {
+    "encode": phase_encode,
+    "decode": phase_decode,
+    "decode_bs8": phase_decode_bs8,
+    "decode_bs16": phase_decode_bs16,
+    "decode_int4": phase_decode_int4,
+    "e2e": phase_e2e,
+    "train": phase_train,
+}
+
+# bench.py's other phases and keys, and the ROADMAP (queue 1) item each waits for
+UNPORTED = {
+    "decode_bs32": "the fp8 KV cache, item 11",
+    "decode_int4_fp8kv": "the fp8 KV cache, item 11",
+    "ttft_int8act": "w8a8 prefill, item 15",
+    "encode_w8a8": "the w8a8 tower, item 15",
+    "decode_spec": "speculative decoding, item 8",
+    "ttft_turn2": "multi-turn chat, item 8",
+    "serve": "the serving engine, item 9",
+    "ttft_prefix": "the serving engine's prefix cache, item 9",
+    "ttft_prefix_curve": "the serving engine's prefix cache, item 9",
+    "eval": "batched evaluation, item 10",
+    "preprocess": "device preprocessing, item 10",
+    "encode_pipeline": "device preprocessing, item 10",
+    "train_bf16": "full fine-tuning, item 13 (deferred)",
+    "train_accum8": "the accumulation-8 row of the train phase, item 13 (deferred)",
+}
+
+
+def run_phase(name: str, st: Settings) -> dict:
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"bench phase {name!r} needs {UNPORTED[name]} of ROADMAP.md queue 1, not ported yet")
+    if name not in PHASES:
+        raise ValueError(f"unknown bench phase {name!r}; ported: {sorted(PHASES)}")
+    out = PHASES[name](st)
+    if st.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", nargs="+", default=list(PHASES),
+                        help=f"ported: {' '.join(PHASES)}; not ported: {' '.join(UNPORTED)}")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    st = Settings(seed=args.seed)
+    if st.dev.type != "cuda":
+        raise RuntimeError("the bench measures the card: it does not run on the CPU")
+    smi = _timing.smi_line()
+    print(smi, flush=True)
+    results = {"device": torch.cuda.get_device_name(0), "smi": smi, "seed": args.seed}
+    for name in args.phases:
+        (out, seconds) = _timing.wall(lambda: run_phase(name, st), st.dev)
+        print(f"# {name}: {seconds:.1f} s " + json.dumps(out), flush=True)
+        results.update(out)
+    print(json.dumps(results), flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -101,7 +101,6 @@ class _Init:
             kernel[i], scale[i] = qp["kernel"], qp["scale"]
         return {"kernel": kernel, "scale": scale}
 
-
     def stacked_int4(self, n_layers: int, fan_in: int, fan_outs, std: float) -> Params:
         """A stacked int4 projection whose output is the concatenation of
         `fan_outs` (q|k|v, gate|up or a single projection), drawn, quantized
@@ -202,6 +201,22 @@ def _init_llama(ini: _Init, cfg, quant: Optional[str], fuse_projections: bool) -
     return params
 
 
+def init_encoder(cfg: TEOChatConfig, generator: torch.Generator, device=None,
+                 dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Random tower and projector alone: {'vision', 'projector'}."""
+    ini = _Init(generator, resolve_device(device), dtype)
+    return {"vision": _init_vit(ini, cfg.vision),
+            "projector": _init_projector(ini, cfg.projector)}
+
+
+def init_llama(cfg, generator: torch.Generator, device=None,
+               dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = "int8",
+               fuse_projections: bool = True) -> Params:
+    """A random decoder alone (`cfg` is the LlamaConfig), quantized as in init_teochat."""
+    ini = _Init(generator, resolve_device(device), dtype)
+    return _init_llama(ini, cfg, quant, fuse_projections)
+
+
 def init_teochat(cfg: TEOChatConfig, generator: torch.Generator, device=None,
                  dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = "int8",
                  fuse_projections: bool = True) -> Params:
@@ -210,9 +225,7 @@ def init_teochat(cfg: TEOChatConfig, generator: torch.Generator, device=None,
     and lm_head are int8 when quant='int8' and packed int4 when quant='int4'
     (q|k|v and gate|up fused unless `fuse_projections` is False); the tower
     and projector stay in `dtype`."""
-    ini = _Init(generator, resolve_device(device), dtype)
     return {
-        "vision": _init_vit(ini, cfg.vision),
-        "projector": _init_projector(ini, cfg.projector),
-        "llm": _init_llama(ini, cfg.llm, quant, fuse_projections),
+        **init_encoder(cfg, generator, device, dtype),
+        "llm": init_llama(cfg.llm, generator, device, dtype, quant, fuse_projections),
     }

@@ -16,12 +16,17 @@ writes bf16 gradients, so each gradient is held to GRAD_REL_L2 of its norm
 terms) and its largest error to GRAD_REL_MAX of its largest element.
 The int4 products (K3a-c) accumulate exact products in fp32 on both sides,
 so they differ from the fp32 plain version by the one bf16 rounding of the
-output: half an ulp, 2^-8 = 3.9e-3 of the element at most.
+output: half an ulp, 2^-8 = 3.9e-3 of the element at most. The kernel
+benches' int4 variants (S1) are held to the same bound against their plain
+versions, with xa and xb rounded to bf16 once for both sides, and their
+attention variants (S2) to TOL.
 """
 
 import pytest
 import torch
 
+from teochat_torch.bench import int4_kernel as bench_int4
+from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops import int4_matmul as int4_mod
@@ -290,3 +295,120 @@ def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen):
     with pytest.raises(ValueError):  # fp32
         x = torch.randn(1, 64, 2, 64, device="cuda")
         vit_mod.vit_attention(x, x, x)
+
+
+# ------------------------------------------------ the kernel benches' variants (S1, S2)
+
+
+def _bench_int4_inputs(gen, k, n, m, bn=512):
+    w_q = torch.randint(-8, 8, (k, n), generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    return w_q, scale, _randn((m, k), gen)
+
+
+BENCH_INT4_CASES = {  # name -> (packer, kernel, plain, takes xa / xb)
+    "v2": (int4_mod.pack_int4_tiled, bench_int4.v2_matmul, bench_int4.v2_matmul_plain, True),
+    "v3": (bench_int4.pack_int4_i8, bench_int4.v3_matmul, bench_int4.v3_matmul_plain, True),
+    "v5": (bench_int4.pack_int4_i8, bench_int4.v5_matmul, bench_int4.v5_matmul_plain, True),
+    "v4": (bench_int4.pack_int4_native, bench_int4.v4_matmul, bench_int4.v4_matmul_plain, False),
+}
+
+
+@pytest.mark.parametrize("name", list(BENCH_INT4_CASES))
+@pytest.mark.parametrize("k,n,m,bn,band", [
+    (4096, 11008, 1, 512, 0),  # the bench's projection
+    (4096, 11008, 8, 512, 0),
+    (256, 700, 3, 512, 128),  # ragged N; v3: a wide band
+    (512, 2048, 19, 1024, 64),  # three row chunks of 8, a wider tile
+])
+def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, band):
+    pack, kernel, plain, split = BENCH_INT4_CASES[name]
+    w_q, scale, x = _bench_int4_inputs(gen, k, n, m)
+    tiles = pack(w_q, bn)
+    # xa and xb are rounded to bf16 once, for both sides
+    kw = {"operands": bench_int4.byte_reuse_operands(x, k // 2)} if split else {}
+    band_kw = {"band": band} if name == "v3" else {}  # only the sweep's variant takes one
+    kw_kernel = {**kw, **band_kw}
+    counter = bench_int4.COUNTERS[f"S1-{name}"]
+    before = counter.count
+    got = kernel(x, tiles, scale, n_out=n, **kw_kernel)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    _assert_int4_close(got, plain(x.float(), tiles, scale, n_out=n, **kw))
+    if split:  # and the wrapper's own split gives the same bytes
+        assert torch.equal(kernel(x, tiles, scale, n_out=n, **band_kw), got)
+    if name == "v3":
+        m16 = kernel(x, tiles, scale, n_out=n, mask_dtype=torch.int16, **kw_kernel)
+        assert torch.equal(m16, got)  # the mask's width changes the code, not the result
+    # against the exact product: the bf16 rounding of xa adds ~1e-3 relative L2
+    exact = x.float() @ w_q.float() * scale
+    bound = bench_int4.BYTE_REUSE_REL_MAX if split else bench_int4.EXACT_REL_MAX
+    assert (got.float() - exact).abs().max().item() <= bound * exact.abs().max().item()
+
+
+@pytest.mark.parametrize("k,n,m", [(4096, 11008, 1), (4096, 11008, 8), (256, 700, 11)])
+def test_bench_int4_probes_match_plain(gen, k, n, m):
+    w_q, _, x = _bench_int4_inputs(gen, k, n, m)
+    tiles = int4_mod.pack_int4_tiled(w_q)
+    before = bench_int4.LAUNCHES_DMA.count, bench_int4.LAUNCHES_VPU.count
+    got = bench_int4.dma_only_matmul(x, tiles, n_out=n)
+    cols, total = bench_int4.vpu_only(tiles)
+    torch.cuda.synchronize()
+    assert (bench_int4.LAUNCHES_DMA.count, bench_int4.LAUNCHES_VPU.count) == (
+        before[0] + 1, before[1] + 1)
+    _assert_int4_close(got, bench_int4.dma_only_matmul_plain(x.float(), tiles, n_out=n))
+    want_cols, want_total = bench_int4.vpu_only_plain(tiles)
+    assert torch.equal(cols, want_cols)  # sums of small integers: exact
+    assert abs(total.item() - want_total.item()) <= 1e-6 * abs(want_total.item())
+
+
+def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
+    w_q, scale, x = _bench_int4_inputs(gen, 256, 700, 2)
+    u8, i8 = int4_mod.pack_int4_tiled(w_q), bench_int4.pack_int4_i8(w_q)
+    with pytest.raises(ValueError):  # int8 tiles to the u8 kernel: no fallback
+        bench_int4.v2_matmul(x, i8, scale, n_out=700)
+    with pytest.raises(ValueError):  # fp32 x
+        bench_int4.v3_matmul(x.float(), i8, scale, n_out=700)
+    with pytest.raises(ValueError):  # more columns than the tiles hold
+        bench_int4.v5_matmul(x, i8, scale, n_out=2048)
+    with pytest.raises(ValueError):  # x narrower than the weight's fan-in
+        bench_int4.v4_matmul(x[:, :128], u8, scale, n_out=700)
+    with pytest.raises(ValueError):  # a band the kernel has no instance for
+        bench_int4.v3_matmul(x, i8, scale, n_out=700, band=16)
+    with pytest.raises(ValueError):  # a tile width that is no multiple of 128
+        bench_int4.vpu_only(int4_mod.pack_int4_tiled(w_q, 64))
+
+
+@pytest.mark.parametrize("name", ["b", "c"])
+@pytest.mark.parametrize("b,s,h,bh", [(32, 257, 16, 8), (2, 257, 16, 16), (3, 100, 4, 1),
+                                      (1, 17, 2, 2), (1, 832, 2, 1)])
+def test_bench_vit_variant_matches_plain(gen, name, b, s, h, bh):
+    q, k, v = (_randn((b, s, h, 64), gen) for _ in range(3))
+    counter = bench_vit.COUNTERS[f"S2-{name}"]
+    before = counter.count
+    got = bench_vit.call_b(q, k, v, bh=bh) if name == "b" else bench_vit.call_c(q, k, v)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    want = bench_vit.call_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64) and got.is_contiguous()
+    assert (got.float() - want).abs().max().item() <= bench_vit.TOL
+
+
+def test_bench_vit_reads_strided_inputs_and_refuses_the_rest(gen):
+    qkv = _randn((2, 130, 3, 4, 64), gen)
+    q, k, v = qkv.unbind(2)
+    for fn in (lambda *qkv: bench_vit.call_b(*qkv, bh=2), bench_vit.call_c):
+        got = fn(q, k, v)
+        torch.testing.assert_close(got, fn(q.contiguous(), k.contiguous(), v.contiguous()),
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError):  # head_dim 128
+            x = _randn((1, 64, 2, 128), gen)
+            fn(x, x, x)
+        with pytest.raises(ValueError):  # the score rows of S = 833 do not fit an SM
+            x = _randn((1, 833, 2, 64), gen)
+            fn(x, x, x)
+        with pytest.raises(ValueError):  # fp32
+            x = torch.randn(1, 64, 2, 64, device="cuda")
+            fn(x, x, x)
+    with pytest.raises(ValueError):  # bh must divide H
+        bench_vit.call_b(q, k, v, bh=3)

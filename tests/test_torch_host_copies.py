@@ -219,13 +219,17 @@ def test_inference_helpers_same_results():
                                       "interleave", True, "v1", 0.0, 4, batch_size=2)
 
 
-IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|teochat_tpu)\b", re.M)
+# the JAX package, the JAX scripts (scripts/*.py) and the JAX bench (bench.py) at the root
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|teochat_tpu|scripts|bench)\b", re.M)
 
 
 def test_port_has_no_import_of_jax_or_the_jax_package():
     files = sorted((REPO / "teochat_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                               REPO / "chip_probe.py"]
     assert len(files) > 25
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {f"teochat_torch/bench/{m}.py" for m in ("_timing", "int4_kernel", "vit_attention",
+                                                     "main")} <= names
     bad = [(str(f.relative_to(REPO)), m.group(0).strip())
            for f in files for m in IMPORT_RE.finditer(f.read_text())]
     assert not bad, bad
