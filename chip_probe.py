@@ -3,7 +3,9 @@
     python3 chip_probe.py decode [--root DIR] [--quant int8 int4] [--batches 1 8]
     python3 chip_probe.py decode-paths [--turns 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
+    python3 chip_probe.py k1
     python3 chip_probe.py k4
+    python3 chip_probe.py k1k4a [--root DIR] [--tiles 64x64 128x128 ...] [--long]
     python3 chip_probe.py k3k5
     python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
@@ -30,8 +32,20 @@ another checkout, so two trees can be timed in one session on one card.
   leaf. Attentions: `auto` (the K4 kernels), `plain` (the fp32 reference,
   which rounds P to bf16 before PV as the kernels do) and `plain_fp32`
   (the same on fp32 q, k and v: P and dP unrounded).
+- k1: the smoke's K1 phase (the flash forward against its plain twin at the
+  prefill shapes, head_dim 64, short, strided and non-causal cases); exits
+  nonzero where it fails.
 - k4: the smoke's K4 phase (the kernels against their plain twin at the
   training shapes); exits nonzero where it fails.
+- k1k4a: the flash forward alone at the table's two shapes (K1: B1 S768, K4a
+  with its statistics: B4 S1024; H32 D128, causal): the tree's kernel as
+  its wrappers launch it, `scaled_dot_product_attention` on the same
+  inputs, and, where the tree's source has the tile macros, the same source
+  built for each query-tile x kv-tile size of --tiles (`BQxBK`, or
+  `BQxBKxSTAGES` for another depth of the kv ring; each held to the tree's
+  own output). With `--root` on a parent checkout (say, unpacked with
+  `git archive` into the gitignored `results/`) and once without, both
+  kernels are read in one run on one card.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
@@ -195,6 +209,118 @@ def cmd_k4(smoke, args):
     print("[k4] passed", flush=True)
 
 
+# ------------------------------------------------------------------ k1k4a
+
+K1K4A_SHAPES = (("K1", 1, 768, False), ("K4a", 4, 1024, True))  # (row, B, S, with m and l)
+
+
+def _flash_tile_builds(build, tiles):
+    """flash_attention.cu compiled once for each (BQ, BK, stages), all at once;
+    returns {(bq, bk, stages): ctypes library}."""
+    import ctypes
+    import subprocess
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for bq, bk, stages in tiles:
+        out = build.BUILD_DIR / f"flash_probe_bq{bq}_bk{bk}_st{stages}.so"
+        procs[bq, bk, stages] = (out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, f"-DTEOCHAT_FLASH_BQ={bq}",
+             f"-DTEOCHAT_FLASH_BK={bk}", f"-DTEOCHAT_FLASH_STAGES={stages}", "-shared", "-o", str(out),
+             str(build.CSRC / "flash_attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tile, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "arning", "rror")):
+                print(f"[k1k4a] build {tile}: {line.strip()}", flush=True)
+        if proc.returncode != 0:
+            sys.exit(f"[k1k4a] nvcc failed for tile {tile}")
+        libs[tile] = ctypes.CDLL(str(out))
+        for name in ("teochat_flash_attention_fwd", "teochat_flash_attention_fwd_res"):
+            fn = getattr(libs[tile], name)
+            fn.argtypes, fn.restype = build._SIGNATURES[name], ctypes.c_int
+    return libs
+
+
+SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDG", "STG", "SYNCS", "MUFU", "SHFL",
+                "BAR", "WARPGROUP")
+
+
+def _flash_forward_sass(build):
+    """Static opcode counts of each forward kernel in the tree's built
+    library, by `cuobjdump -sass`: what the two products and the loads
+    compiled to."""
+    import re
+    import shutil
+    import subprocess
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(build.library().path)], capture_output=True,
+                          text=True, check=True).stdout
+    for block in text.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if "flash_fwd_kernel" not in name:
+            continue
+        ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", block))
+        counts = ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPCODES)
+        print(f"[k1k4a] sass {name}: {sum(ops.values())} instructions: {counts}", flush=True)
+
+
+def cmd_k1k4a(smoke, args):
+    import torch.nn.functional as F
+
+    from teochat_torch.ops import _build as build
+    from teochat_torch.ops import flash_attention as flash_mod
+
+    _flash_forward_sass(build)
+    source = (build.CSRC / "flash_attention.cu").read_text()
+    tiles = [tuple(int(x) for x in (t + "x2").split("x")[:3]) for t in args.tiles]
+    libs = _flash_tile_builds(build, tiles) if "TEOCHAT_FLASH_BQ" in source else {}
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    h, d = 32, 128
+    scale = d ** -0.5
+    shapes = K1K4A_SHAPES + ((("S4096", 1, 4096, False),) if args.long else ())
+    for row, b, s, stats in shapes:
+        q, k, v = (smoke._randn((b, s, h, d), gen) for _ in range(3))
+        flops = 4 * b * h * s * s * d / 2
+        if stats:
+            own = lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale)[0]  # noqa: E731
+        else:
+            own = lambda: flash_mod._flash_cuda(q, k, v, True, scale)  # noqa: E731
+        ref = own()
+        want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+        err = (ref.float() - want).abs().max().item()
+        lib_ms = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            smoke._bhsd(q), smoke._bhsd(k), smoke._bhsd(v), is_causal=True))
+        ms = smoke.time_ms(own)
+        print(f"[k1k4a] root={args.root} {row} B={b} S={s} H={h} D={d}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), max_abs_err {err:.3e}; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)", flush=True)
+        out = torch.empty_like(ref)
+        m = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        l = torch.empty_like(m)
+        for (bq, bk, stages), lib in libs.items():
+            stream = torch.cuda.current_stream().cuda_stream
+            tail = (b, s, s, h, h, d, *flash_mod._strides(q, k, v), scale, 1, stream)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            if stats:
+                run = lambda: lib.teochat_flash_attention_fwd_res(  # noqa: E731
+                    *ptrs, m.data_ptr(), l.data_ptr(), *tail)
+            else:
+                run = lambda: lib.teochat_flash_attention_fwd(*ptrs, *tail)  # noqa: E731
+            out.zero_()
+            rc = run()
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs().max().item()
+            t_ms = smoke.time_ms(run)
+            print(f"[k1k4a]   tile BQ={bq} BK={bk} stages={stages}: {t_ms:.4f} ms ({flops / t_ms / 1e9:.1f} "
+                  f"TFLOP/s, {t_ms / lib_ms:.2f}x the library call), rc {rc}, max |o - tree's o| "
+                  f"{diff:.3e}", flush=True)
+
+
 def _run_phases(smoke, phases):
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     failed = False
@@ -206,6 +332,10 @@ def _run_phases(smoke, phases):
             failed = True
             print(f"[{name}] FAILED: {e}", flush=True)
     sys.exit(1 if failed else 0)
+
+
+def cmd_k1(smoke, args):
+    _run_phases(smoke, (("k1", smoke.phase_flash),))
 
 
 def cmd_k3k5(smoke, args):
@@ -298,13 +428,18 @@ def cmd_profile_train(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-paths", "parity", "k4", "k3k5", "s1s2", "profile-train"):
+    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k3k5", "s1s2",
+                 "profile-train"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
             p.add_argument("--reps", type=int, default=5)
             p.add_argument("--quant", nargs="+", default=["int8"], choices=["int8", "int4"])
             p.add_argument("--batches", type=int, nargs="+", default=[1, 8])
+        if name == "k1k4a":
+            p.add_argument("--tiles", nargs="+", default=["64x64", "64x128", "128x64", "128x128"])
+            p.add_argument("--long", action="store_true",
+                           help="also B1 S4096: many kv tiles a block, little set-up beside them")
         if name == "decode-paths":
             p.add_argument("--turns", type=int, default=3)
         if name == "parity":
@@ -315,8 +450,8 @@ def main():
     smoke = _import_tree(args.root)
     smoke.phase_device()
     smoke.phase_build()
-    {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k4": cmd_k4,
-     "k3k5": cmd_k3k5, "s1s2": cmd_s1s2, "profile-train": cmd_profile_train}[args.cmd](smoke, args)
+    {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
+     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k3k5": cmd_k3k5, "s1s2": cmd_s1s2, "profile-train": cmd_profile_train}[args.cmd](smoke, args)
 
 
 if __name__ == "__main__":

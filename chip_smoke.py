@@ -8,7 +8,9 @@ them. Phases, each printing its lines before the last:
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: compile the CUDA kernels from teochat_torch/csrc (seconds, and
    ptxas's register / spill report);
-3. the flash-attention kernel (K1) against its plain twin at prefill shapes;
+3. the flash-attention kernel (K1) against its plain twin at prefill shapes,
+   at head_dim 64, below 64 rows, on strided slices of a fused q|k|v
+   projection and on a non-causal call with S != T;
 4. the decode-attention kernel (K2) against its plain twin at decode shapes;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4, 768;
@@ -28,8 +30,9 @@ them. Phases, each printing its lines before the last:
 11. the last-position prefill logits of the 2-frame request with the kernels
     against the same forward on the plain attention;
 12. the training flash attention (K4a forward, K4b dK/dV, K4c dQ) against
-    autograd through its plain twin at training shapes, and each kernel's
-    time beside the plain forward's and backward's;
+    autograd through its plain twin at training shapes, K4a's m and l
+    against the plain row maximum and sum, and each kernel's time beside
+    the plain forward's and backward's;
 13. the training path at TEOChat-7B width: the port's `train()` takes three
     optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
@@ -110,6 +113,13 @@ LOGITS_REL_L2_BOUND = 5e-2
 # GRAD_REL_MAX of its largest element
 GRAD_REL_L2 = 1e-2
 GRAD_REL_MAX = 2e-2
+# K4a's m and l against the fp32 plain row maximum and sum of exp(s - m) on
+# the same bf16 inputs. Scores are sums of 128 products of N(0, 1) values
+# times D^-0.5, |s| < 8: the tensor cores' fp32 sum and the plain one differ
+# by ~1e-5 there, which moves m by as much and each term of l by ~1e-5 of
+# itself; ex2.approx adds 2e-7 relative
+STAT_M_TOL = 2e-4
+STAT_L_REL_TOL = 1e-3
 # One 7B-width micro-step, kernels vs plain attention on the same bf16
 # weights and batch: the attention differs by bf16 rounding of P and dS in
 # 32 layers, the rest is the same code. The loss is a mean over ~2,000
@@ -226,7 +236,9 @@ def phase_build():
     log(f"[build] {lib.path.name} nvcc {lib.build_seconds:.2f}s load+total "
         f"{time.perf_counter() - t0:.2f}s")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        # registers and spills of each kernel, and what ptxas warns of (an
+        # ignored setmaxnreg, C7508; serialized wgmma, C7510)
+        if any(word in line.lower() for word in ("registers", "spill", "error", "warning")):
             log(f"[build] {line.strip()}")
 
 
@@ -234,18 +246,37 @@ def _randn(shape, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
+def _fused_qkv(b, s, h, hkv, d, gen):
+    """q, k and v as the fused int4 q|k|v projection hands them to the
+    attention: column slices of one [B, S, (H + 2 Hkv) D] output."""
+    fused = _randn((b, s, (h + 2 * hkv) * d), gen)
+    return (fused[..., : h * d].view(b, s, h, d),
+            fused[..., h * d : (h + hkv) * d].view(b, s, hkv, d),
+            fused[..., (h + hkv) * d :].view(b, s, hkv, d))
+
+
 def phase_flash(gen):
-    cases = [  # (B, S, H, Hkv, D, causal); the first is reported in the JSON line
-        (1, 768, 32, 32, 128, True),  # the 2-frame prompt bucket
-        (1, 600, 32, 32, 128, True),  # ragged S
-        (1, 768, 32, 8, 128, True),  # GQA
-        (4, 768, 32, 32, 128, True),
-        (1, 1536, 32, 32, 128, True),  # the 4-frame prompt bucket
-        (4, 1536, 32, 32, 128, True),  # the batched generate's prefill
+    cases = [  # (B, S, T, H, Hkv, D, causal, fused); the first is reported in the JSON line
+        (1, 768, 768, 32, 32, 128, True, False),  # the 2-frame prompt bucket
+        (1, 600, 600, 32, 32, 128, True, False),  # ragged S
+        (1, 768, 768, 32, 8, 128, True, False),  # GQA
+        (4, 768, 768, 32, 32, 128, True, False),
+        (1, 1536, 1536, 32, 32, 128, True, False),  # the 4-frame prompt bucket
+        (4, 1536, 1536, 32, 32, 128, True, False),  # the batched generate's prefill
+        (1, 768, 768, 32, 32, 128, True, True),  # v (and q, k) a strided slice of q|k|v
+        (2, 768, 768, 16, 16, 64, True, False),  # head_dim 64
+        (2, 40, 40, 32, 8, 128, True, False),  # S below one warpgroup's 64 rows
+        (1, 9, 9, 4, 4, 64, True, False),
+        (2, 300, 801, 32, 32, 128, False, False),  # non-causal, S != T, ragged T
+        (2, 257, 257, 8, 2, 64, False, True),
     ]
     worst, main = 0.0, None
-    for b, s, h, hkv, d, causal in cases:
-        q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+    for b, s, t, h, hkv, d, causal, fused in cases:
+        if fused:
+            q, k, v = _fused_qkv(b, s, h, hkv, d, gen)
+            check(not v.is_contiguous(), "the fused case reads strided views")
+        else:
+            q, k, v = _randn((b, s, h, d), gen), _randn((b, t, hkv, d), gen), _randn((b, t, hkv, d), gen)
         got = flash_mod.flash_attention(q, k, v, causal=causal)
         sync()
         want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
@@ -253,9 +284,9 @@ def phase_flash(gen):
         check(torch.isfinite(got).all().item(), "flash output finite")
         ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=causal))
         plain_ms = time_ms(lambda: flash_mod.flash_attention_plain(q, k, v, causal=causal))
-        flops = 4 * b * h * s * s * d / (2 if causal else 1)
-        log(f"[K1 flash] B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal}: "
-            f"max_abs_err={err:.3e} (tol {FLASH_TOL}) kernel {ms:.4f} ms "
+        flops = 4 * b * h * s * k.shape[1] * d / (2 if causal else 1)
+        log(f"[K1 flash] B={b} S={s} T={k.shape[1]} H={h} Hkv={hkv} D={d} causal={causal} "
+            f"fused={fused}: max_abs_err={err:.3e} (tol {FLASH_TOL}) kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.4f} ms")
         check(err <= FLASH_TOL, f"flash error {err} > {FLASH_TOL}")
         worst = max(worst, err)
@@ -590,6 +621,19 @@ def _plain_trainable(q, k, v):
     return flash_mod.flash_attention_plain(q.float(), k.float(), v.float())
 
 
+def _flash_statistics_errors(q, k, v):
+    """K4a's m and l (which K4b and K4c take as they are) against the plain
+    row maximum and sum: (largest |m - plain|, largest |l - plain| / plain)."""
+    _, m, l = flash_mod._fwd_res_cuda(q, k, v, True, q.shape[-1] ** -0.5)
+    sync()
+    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float())
+    m_err = (m - want_m).abs().max().item()
+    l_err = ((l - want_l).abs() / want_l).max().item()
+    check(m_err <= STAT_M_TOL, f"K4a row maximum off by {m_err} > {STAT_M_TOL}")
+    check(l_err <= STAT_L_REL_TOL, f"K4a denominator off by {l_err} > {STAT_L_REL_TOL}")
+    return m_err, l_err
+
+
 def phase_flash_backward(gen):
     cases = [  # (B, S, H, Hkv, padded); D = 128, causal; the first is reported in the JSON line
         (4, 1024, 32, 32, False),  # the training batch
@@ -611,6 +655,7 @@ def phase_flash_backward(gen):
         errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
         check(all(torch.isfinite(g).all().item() for g in got), "flash backward finite")
         check(errs[0] <= FLASH_TOL, f"K4a output error {errs[0]} > {FLASH_TOL}")
+        stat_errs = _flash_statistics_errors(q, k, v)
         rel = []
         for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
             r2 = ((g - w).norm() / w.norm()).item()
@@ -622,7 +667,8 @@ def phase_flash_backward(gen):
         worst["dq"] = max(worst["dq"], errs[1])
         worst["dkv"] = max(worst["dkv"], errs[2], errs[3])
         log(f"[K4 flash train] B={b} S={s} H={h} Hkv={hkv} D={d} padded={padded}: o max_abs_err "
-            f"{errs[0]:.3e}; dq/dk/dv max_abs_err {errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; "
+            f"{errs[0]:.3e}; m max_abs_err {stat_errs[0]:.3e} (tol {STAT_M_TOL}), l max rel err "
+            f"{stat_errs[1]:.3e} (tol {STAT_L_REL_TOL}); dq/dk/dv max_abs_err {errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; "
             + "; ".join(rel))
         if rows is None:
             rows = _time_flash_backward(q, k, v, do)

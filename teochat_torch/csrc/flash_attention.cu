@@ -6,205 +6,409 @@
 // row's m and l for the backward in flash_attention_bwd.cu). It computes
 // what those kernels compute:
 // tiled online-softmax attention with fp32 running max, denominator and
-// accumulator; causal kv tiles above the diagonal are skipped and the diagonal
-// tile is masked per element; GQA query head h reads kv head h / (H / Hkv);
-// a row whose denominator is 0 is written as 0 (the `l == 0` guard).
+// accumulator; P is rounded to bf16 before P V; causal kv tiles above the
+// diagonal are skipped and the diagonal tile is masked per element; GQA query
+// head h reads kv head h / (H / Hkv); a row whose denominator is 0 is written
+// as 0 (the `l == 0` guard).
 //
-// What bounds it on an H100: at prefill lengths (S >= 512, D = 128) the two
-// products QK^T and PV, i.e. tensor-core FLOPs; K and V bytes are re-read once
-// per 64-row query tile and mostly hit L2. The design keeps the query tile and
-// the output accumulator in registers for the whole kv loop (nothing but the
-// final output goes back to device memory) and issues both products on
-// mma.sync m16n8k16 bf16 with fp32 accumulation. The score tile is turned
-// into the A operand of PV in registers, without a trip through shared memory.
+// What bounds it on an H100: at prefill and training lengths (S >= 512,
+// D = 128) the two products Q K^T and P V, that is tensor-core operations;
+// the bytes of q, k, v and o alone would take a sixth of that time or less.
+// Only `wgmma` reaches the tensor cores' full rate, and it reads its B
+// operand from shared memory. Next in line is the softmax: an SM does 16
+// exponentials a clock against 2,048 tensor-core multiply-adds, so at
+// D = 128 the exponentials of a tile take half as long as its products, and
+// they have to run while the tensor cores are busy, not in between. The
+// design (hopper_async.cuh has the pieces):
+// - one block an SM, which walks over many query tiles of BQ = 128 rows:
+//   two consumer warpgroups of 64 rows each, and one producer warp. K and V
+//   are read once for every 128 query rows. A work item pairs a long causal
+//   tile with a short one, so every item costs the same and handing them out
+//   in turn balances the SMs; neighbouring SMs work on the same head, which
+//   keeps its K and V in the L2;
+// - the producer loads a tile's Q and walks its kv tiles of BK = 128 keys
+//   through a ring of two stages: one TMA load a 64-column box, written
+//   with the 128-byte swizzle that `wgmma` reads without bank conflicts,
+//   its arrival counted on the stage's `full` mbarrier. K and V have
+//   barriers of their own, and so has Q, so the next tile's Q, K and V
+//   arrive while the consumers finish this one and write it out: a block's
+//   start-up is paid once, not once a tile. `setmaxnreg` hands the
+//   producer's registers to the consumers. TMA fills rows past the tensor's
+//   end with zeros, so no load is guarded;
+// - a consumer multiplies Q (shared memory) by K (shared memory, K-major)
+//   into 64 score registers a thread, runs the softmax there in base 2 (the
+//   scale rides on the exponent's multiply-add; row maximum over the quad by
+//   shuffles; the denominator is kept as a per-thread partial sum until the
+//   end, since a row's rescale factor is the same on the quad's four
+//   lanes), packs P to bf16 as the register A operand of the second
+//   product, and multiplies by V read MN-major (`tnspB`) from the tile as it
+//   was loaded: no transposed copy, and the score tile never visits shared
+//   memory. After each product it arrives on the stage's `empty` barrier,
+//   which the producer waits on before it overwrites the stage;
+// - the two consumer warpgroups take turns at the tensor cores (a pair of
+//   named barriers): a turn is P V of one kv tile and Q K^T of the next, and
+//   while one warpgroup has the turn the other runs its softmax. Left to
+//   themselves they would wait for the same stage, multiply together and
+//   then both leave the tensor cores idle for a softmax.
 //
-// Layout: one block of 4 warps per (query tile of 64 rows, head, batch row);
-// each warp owns 16 query rows. The TPU kernel's sequential kv grid axis is
-// the loop inside the block. q, k and v are read as [B, S|T, H|Hkv, D]
-// through their strides (the last dimension contiguous); o is contiguous
-// [B, S, H, D]. Causal masking assumes S == T (a self-attention prefill), as
-// the TPU kernel does. Later work: wgmma + TMA, double-buffered kv tiles.
+// q, k and v are read as [B, S|T, H|Hkv, D] through their strides (the last
+// dimension contiguous, the others multiples of 8 elements, the base aligned
+// to 16 bytes: what a tensor map takes), with no copy; o is contiguous
+// [B, S, H, D], m and l fp32 [B, H, S]. Keys past T score MASK_VALUE; rows
+// past S are computed on zeros and written nowhere. Causal masking assumes
+// S == T (a self-attention prefill), as the TPU kernel does.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper_async.cuh"
 #include "mma_bf16.cuh"
+
+// The tile sizes and the ring's depth; chip_probe.py builds this file with
+// other values to time them.
+#ifndef TEOCHAT_FLASH_BQ
+#define TEOCHAT_FLASH_BQ 128
+#endif
+#ifndef TEOCHAT_FLASH_BK
+#define TEOCHAT_FLASH_BK 128
+#endif
+#ifndef TEOCHAT_FLASH_STAGES
+#define TEOCHAT_FLASH_STAGES 2
+#endif
 
 namespace {
 
-using teochat::MASK_VALUE;
-using teochat::mma_16816;
-using teochat::pack_bf16;
+using namespace teochat;
 
-constexpr int BQ = 64;        // query rows per block (16 per warp)
-constexpr int BK = 64;        // keys per kv tile
-constexpr int NTHREADS = 128;
+constexpr int BQ = TEOCHAT_FLASH_BQ;  // query rows per block: 64 a consumer warpgroup
+constexpr int BK = TEOCHAT_FLASH_BK;  // keys per kv tile
+constexpr int NWG = BQ / 64;          // consumer warpgroups
+constexpr int STAGES = TEOCHAT_FLASH_STAGES;  // kv tiles in flight
+constexpr int NTHREADS = (NWG + 1) * 128;
+static_assert(BQ == 64 || BQ == 128, "one or two consumer warpgroups");
+static_assert(BK == 64 || BK == 128, "a kv tile is one or two 64-key wgmma widths");
+// registers a thread after setmaxnreg: (consumers + producer) * 128 threads
+// must fit the SM's 65,536, with two blocks an SM where one warpgroup consumes
+constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 216;
+constexpr int PRODUCER_REGS = NWG == 2 ? 24 : 40;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+enum Barrier { K_FULL = 0, V_FULL = 1, K_EMPTY = 2, V_EMPTY = 3 };
+constexpr uint32_t N_BARRIERS = 2 + 4 * STAGES;  // Q's two, then four a stage
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // 1024 to align the tiles, Q, the K and V rings, the barriers
+  return 1024 + size_t(BQ + 2 * STAGES * BK) * D * 2 + 8 * N_BARRIERS;
+}
+
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The box of `map` that starts at column d0 of row `row` of head `head`.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int rows_first, int d0, int row, int head, int b) {
+  tma_load_4d(dst, map, bar, d0, rows_first ? row : head, rows_first ? head : row, b);
+}
+
+// One query tile of one head: its first row and the kv tiles it walks.
+struct Tile {
+  int b, h, q0, n_kv;
+};
+
+// The query tiles a block works through, in order. A work item is one head's
+// causal tiles qt and n_qt - 1 - qt together (every item then walks
+// n_qt + 1 kv tiles, so handing items out in turn balances the SMs), or one
+// tile of a non-causal call. Items that follow each other belong to the
+// same head or its neighbour and run at the same time on neighbouring SMs,
+// which keeps K and V in the L2 while they are needed.
+struct TileWalk {
+  int n_qt, per_head, n_items, H, T, causal;
+  int item, half;
+
+  __device__ TileWalk(int S, int T_, int H_, int B, int causal_)
+      : n_qt((S + BQ - 1) / BQ), H(H_), T(T_), causal(causal_), item(blockIdx.x), half(0) {
+    per_head = causal ? (n_qt + 1) / 2 : n_qt;
+    n_items = per_head * H * B;
+  }
+
+  __device__ bool next(Tile& t) {
+    if (item >= n_items) return false;
+    const int bh = item / per_head, pi = item % per_head;
+    const int far = n_qt - 1 - pi;  // the long tile first
+    const int qt = !causal ? pi : half == 0 ? far : pi;
+    t.b = bh / H, t.h = bh % H, t.q0 = qt * BQ;
+    t.n_kv = (T + BK - 1) / BK;
+    if (causal) t.n_kv = min(t.n_kv, (t.q0 + BQ - 1) / BK + 1);
+    if (causal && half == 0 && far != pi) {
+      half = 1;
+    } else {
+      half = 0, item += gridDim.x;
+    }
+    return true;
+  }
+};
 
 // STATS (K4a, the training forward) also writes each row's running max m
-// and denominator l, fp32 [B, H, S], for the backward kernels.
+// and denominator l, fp32 [B, H, S], for the backward kernels. `order` says
+// for q (bit 0), k (bit 1) and v (bit 2) whether the map has rows before heads.
 template <int D, bool STATS>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out,
-                 int S, int T, int H, int Hkv,
-                 long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_st, long long k_sh,
-                 long long v_sb, long long v_st, long long v_sh,
-                 float scale, int causal) {
-  constexpr int LD = D + 8;  // padded shared row, in bf16 elements
-  __shared__ __align__(16) uint16_t ks[BK * LD];
-  __shared__ __align__(16) uint16_t vs[BK * LD];
+__global__ void __launch_bounds__(NTHREADS, NWG == 1 ? 2 : 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, int order,
+                 uint16_t* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int B, int S, int T, int H, int Hkv, float scale, int causal) {
+  constexpr int BOXES = D / 64;  // 64-column boxes a row
+  constexpr uint32_t Q_BOX = BQ * SWIZZLE_ROW_BYTES, KV_BOX = BK * SWIZZLE_ROW_BYTES;
+  constexpr uint32_t Q_BYTES = BOXES * Q_BOX, KV_BYTES = BOXES * KV_BOX;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  // causal tiles further down the sequence do the most work: start them first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int row0 = qt * BQ + warp * 16;  // this warp's first query row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + Q_BYTES;
+  const uint32_t v_s = k_s + STAGES * KV_BYTES;
+  const uint32_t q_full = v_s + STAGES * KV_BYTES, q_empty = q_full + 8;
+  auto bar = [q_full](Barrier kind, int stage) {
+    return q_full + 8u * (2 + kind * STAGES + stage);
+  };
 
-  // Query fragments for the whole head dimension stay in registers.
-  uint32_t qf[D / 16][4];
-  {
-    const uint16_t* qb = q + b * q_sb + h * q_sh;
-    const int r_lo = row0 + gid, r_hi = row0 + gid + 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      qf[kk][0] = r_lo < S ? *reinterpret_cast<const uint32_t*>(qb + r_lo * q_ss + c) : 0u;
-      qf[kk][1] = r_hi < S ? *reinterpret_cast<const uint32_t*>(qb + r_hi * q_ss + c) : 0u;
-      qf[kk][2] = r_lo < S ? *reinterpret_cast<const uint32_t*>(qb + r_lo * q_ss + c + 8) : 0u;
-      qf[kk][3] = r_hi < S ? *reinterpret_cast<const uint32_t*>(qb + r_hi * q_ss + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);  // the producer's arrival, with the bytes to come
+    mbar_init(q_empty, NWG * 4);  // one arrival a consumer warp
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar(K_FULL, st), 1);
+      mbar_init(bar(V_FULL, st), 1);
+      mbar_init(bar(K_EMPTY, st), NWG * 4);
+      mbar_init(bar(V_EMPTY, st), NWG * 4);
     }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
+  TileWalk walk(S, T, H, B, causal);
+  Tile tile;
+  // tiles and kv tiles this block has started: they number the barriers'
+  // phases, the same on the producer's and the consumers' side
+  int n_tiles = 0, n_kv_tiles = 0;
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == NWG) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != NWG * 128) return;
+    tma_prefetch_map(&q_map);
+    tma_prefetch_map(&k_map);
+    tma_prefetch_map(&v_map);
+    while (walk.next(tile)) {
+      const int hk = tile.h / (H / Hkv);
+      // a fresh buffer is free at once; a used one when its readers have arrived
+      mbar_wait(q_empty, (n_tiles & 1) ^ 1);
+      mbar_arrive_expect_tx(q_full, Q_BYTES);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows gid and gid + 8
-  float l_run[2] = {0.f, 0.f};
-
-  int n_kv = (T + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (qt * BQ + BQ - 1) / BK + 1);
-
-  const uint16_t* kb = k + b * k_sb + hk * k_sh;
-  const uint16_t* vb = v + b * v_sb + hk * v_sh;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int CH = D / 8;  // 16-byte chunks per row
-    for (int idx = tid; idx < BK * CH; idx += NTHREADS) {
-      const int r = idx / CH, c = (idx % CH) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (k0 + r < T) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (k0 + r) * k_st + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_st + c);
+      for (int c = 0; c < BOXES; ++c)
+        load_rows(q_s + c * Q_BOX, &q_map, q_full, order & 1, c * 64, tile.q0, tile.h, tile.b);
+      for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
+        const int st = n_kv_tiles % STAGES;
+        const uint32_t reuse = ((n_kv_tiles / STAGES) & 1) ^ 1;
+        mbar_wait(bar(K_EMPTY, st), reuse);
+        mbar_arrive_expect_tx(bar(K_FULL, st), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c)
+          load_rows(k_s + st * KV_BYTES + c * KV_BOX, &k_map, bar(K_FULL, st), order & 2, c * 64,
+                    j * BK, hk, tile.b);
+        mbar_wait(bar(V_EMPTY, st), reuse);
+        mbar_arrive_expect_tx(bar(V_FULL, st), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c)
+          load_rows(v_s + st * KV_BYTES + c * KV_BOX, &v_map, bar(V_FULL, st), order & 4, c * 64,
+                    j * BK, hk, tile.b);
       }
-      *reinterpret_cast<uint4*>(&ks[r * LD + c]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[r * LD + c]) = vv4;
+      ++n_tiles;
     }
-    __syncthreads();
+  } else {
+    // ------------------------------------------------------------ consumer
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int gid = lane >> 2, tig = lane & 3;  // fragment coordinates
+    const float c2 = scale * LOG2E;             // scores in base-2 units
+    const uint64_t q_desc = smem_desc_k_major(q_s + wg * 64 * SWIZZLE_ROW_BYTES);
 
-    // S = Q K^T for this warp's 16 rows x BK keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    // The two warpgroups take turns at the tensor cores: one multiplies
+    // while the other runs its softmax. A warpgroup waits for its turn on
+    // its own named barrier and ends it by arriving on the other's; the
+    // second warpgroup gives the first its opening turn.
+    constexpr int TURN = 1;  // named barriers TURN and TURN + 1
+    auto take_turn = [wg] { if (NWG == 2) named_bar_sync(TURN + wg, 256); };
+    auto pass_turn = [wg] { if (NWG == 2) named_bar_arrive(TURN + (wg ^ 1), 256); };
+    if (NWG == 2 && wg == 1) named_bar_arrive(TURN, 256);
+
+    float s[BK / 2];
+    // S = Q K^T for this warpgroup's 64 rows x the BK keys of kv tile `n`
+    // of the block's count; the last one of a query tile frees Q as well
+    auto scores = [&](int n, bool last) {
+      const int st = n % STAGES;
+      mbar_wait(bar(K_FULL, st), (n / STAGES) & 1);
+      const uint64_t k_desc = smem_desc_k_major(k_s + st * KV_BYTES);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint16_t* kr = &ks[(nt * 8 + gid) * LD + kk * 16 + tig * 2];
-        mma_16816(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
+        const uint32_t in_box = (kk % 4) * 32;  // four 16-deep steps a 64-column box
+        wgmma_ss(s, desc_advance(q_desc, (kk / 4) * Q_BOX + in_box),
+                 desc_advance(k_desc, (kk / 4) * KV_BOX + in_box), kk != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) {
+        mbar_arrive(bar(K_EMPTY, st));
+        if (last) mbar_arrive(q_empty);
+      }
+    };
+
+    while (walk.next(tile)) {
+      const int row_lo = tile.q0 + wg * 64 + warp * 16 + gid;  // this thread's rows: row_lo, + 8
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY};  // base-2 units
+      float l_run[2] = {0.f, 0.f};              // this thread's share of the row's sum
+
+      mbar_wait(q_full, n_tiles & 1);
+      mbar_wait(bar(K_FULL, n_kv_tiles % STAGES), (n_kv_tiles / STAGES) & 1);
+      take_turn();
+      scores(n_kv_tiles, tile.n_kv == 1);
+      pass_turn();
+
+      for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
+        const int k0 = j * BK;
+        // mask (ragged keys and the causal diagonal) where the tile needs it
+        if (k0 + BK > T || (causal && k0 + BK - 1 > row_lo - gid)) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int row = row_lo + ((i >> 1) & 1) * 8;
+            const int col = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+            if (col >= T || (causal && col > row)) s[i] = MASK_VALUE;
+          }
+        }
+        // The scale into base-2 units rides on the exponent's multiply-add:
+        // p = 2^(s c2 - m), the row maximum taken over the raw scores. That
+        // needs c2 > 0; any other scale is multiplied in first. A masked score
+        // is MASK_VALUE before the scale: times c2 it stays far below any
+        // real score (or overflows to -inf, which masks as well).
+        float mul = c2;
+        if (!(c2 > 0.f)) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) s[i] = s[i] == MASK_VALUE ? MASK_VALUE : s[i] * c2;
+          mul = 1.f;
+        }
+
+        // online softmax; a row's BK scores are spread over the 4 lanes of a quad
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains, not one
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt)
+            mx[nt & 3] = fmaxf(mx[nt & 3], fmaxf(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]));
+          float top = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+          top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 1));
+          top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 2));
+          const float m_next = fmaxf(m_run[r], top * mul);
+          alpha[r] = exp2_fast(m_run[r] - m_next);
+          m_run[r] = m_next;
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+            s[4 * nt + 2 * r] = exp2_fast(fmaf(s[4 * nt + 2 * r], mul, -m_next));
+            s[4 * nt + 2 * r + 1] = exp2_fast(fmaf(s[4 * nt + 2 * r + 1], mul, -m_next));
+            sum[nt & 3] += s[4 * nt + 2 * r] + s[4 * nt + 2 * r + 1];
+          }
+          l_run[r] = alpha[r] * l_run[r] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+        }
+
+        // P as the A operand of P V: registers 8 kk .. 8 kk + 7 are step kk
+        uint32_t p[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+        // this turn: acc += P V (V read MN-major from the tile as it was
+        // loaded), then the next tile's scores
+        const int st = n_kv_tiles % STAGES;
+        mbar_wait(bar(V_FULL, st), (n_kv_tiles / STAGES) & 1);
+        take_turn();
+        const uint64_t v_desc = smem_desc_mn_major(v_s + st * KV_BYTES, KV_BOX);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs_tb(acc, p[kk], desc_advance(v_desc, kk * 16 * SWIZZLE_ROW_BYTES), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(bar(V_EMPTY, st));
+        if (j + 1 < tile.n_kv) scores(n_kv_tiles + 1, j + 2 == tile.n_kv);
+        pass_turn();
+      }
+      ++n_tiles;
+
+      // the other warpgroup and the loads go on while this one writes its rows
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int row = row_lo + 8 * r;
+        if (row >= S) continue;
+        if (STATS && tig == 0) {  // m and l are the same on the 4 lanes of a quad
+          const long long idx = (static_cast<long long>(tile.b) * H + tile.h) * S + row;
+          m_out[idx] = m_run[r] * LN2;  // back to natural units: p = exp(s - m)
+          l_out[idx] = l;
+        }
+        const float inv = l == 0.f ? 1.f : 1.f / l;
+        uint16_t* orow = o + ((static_cast<long long>(tile.b) * S + row) * H + tile.h) * D;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<uint32_t*>(orow + dt * 8 + tig * 2) =
+              pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
       }
     }
-
-    // scale, then mask (ragged keys and the causal diagonal)
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + gid + (e >= 2 ? 8 : 0);
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (col >= T || (causal && col > row)) x = MASK_VALUE;
-        s[nt][e] = x;
-      }
-    }
-
-    // online softmax; a row's 64 scores are spread over the 4 lanes of a quad
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_next = fmaxf(m_run[r], mx);
-      alpha[r] = __expf(m_run[r] - m_next);
-      m_run[r] = m_next;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        s[nt][2 * r] = __expf(s[nt][2 * r] - m_next);
-        s[nt][2 * r + 1] = __expf(s[nt][2 * r + 1] - m_next);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[r] = alpha[r] * l_run[r] + sum;
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // acc += P V: the C fragments of two neighbouring key tiles are exactly
-    // the A fragment of one 16-deep step of the second product
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const uint16_t* vr = &vs[(kk * 16 + tig * 2) * LD + dt * 8 + gid];
-        const uint32_t b0 = uint32_t(vr[0]) | (uint32_t(vr[LD]) << 16);
-        const uint32_t b1 = uint32_t(vr[8 * LD]) | (uint32_t(vr[9 * LD]) << 16);
-        mma_16816(acc[dt], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gid + 8 * r;
-    if (row >= S) continue;
-    if (STATS && tig == 0) {  // m and l are the same on the 4 lanes of a quad
-      const long long idx = (static_cast<long long>(b) * H + h) * S + row;
-      m_out[idx] = m_run[r];
-      l_out[idx] = l_run[r];
-    }
-    const float inv = l_run[r] == 0.f ? 1.f : 1.f / l_run[r];
-    uint16_t* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + tig * 2) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
   }
 }
 
+template <int D, bool STATS>
+int launch_kernel(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+                  int order, void* o, float* m, float* l, int B, int S, int T, int H, int Hkv,
+                  float scale, int causal, void* stream) {
+  // above 48 KB shared memory is dynamic and has to be asked for; the
+  // attribute belongs to the device the launch goes to, so it is set each time
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, STATS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes<D>()));
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block an SM (two where one warpgroup consumes), each walking its share of the items
+  const long long n_qt = (S + BQ - 1) / BQ;
+  const long long items = (causal ? (n_qt + 1) / 2 : n_qt) * H * B;
+  const int blocks = static_cast<int>(items < sms * (3 - NWG) ? items : sms * (3 - NWG));
+  flash_fwd_kernel<D, STATS><<<blocks, NTHREADS, smem_bytes<D>(), static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, order, static_cast<uint16_t*>(o), m, l, B, S, T, H, Hkv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Encodes the three tensor maps from the pointers and strides of this call
+// (nothing is kept between calls), then launches.
 template <bool STATS>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m, float* l,
                int B, int S, int T, int H, int Hkv, int D,
@@ -212,29 +416,24 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m, f
                long long k_sb, long long k_st, long long k_sh,
                long long v_sb, long long v_st, long long v_sh,
                float scale, int causal, void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  auto* op = static_cast<uint16_t*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128) {
-    flash_fwd_kernel<128, STATS><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, op, m, l, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
-        v_sb, v_st, v_sh, scale, causal);
-  } else if (D == 64) {
-    flash_fwd_kernel<64, STATS><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, op, m, l, S, T, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
-        v_sb, v_st, v_sh, scale, causal);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  int q_rows_first, k_rows_first, v_rows_first;
+  int err = encode_bf16_rows_map(&q_map, &q_rows_first, q, B, S, H, D, q_sb, q_ss, q_sh, BQ);
+  if (!err) err = encode_bf16_rows_map(&k_map, &k_rows_first, k, B, T, Hkv, D, k_sb, k_st, k_sh, BK);
+  if (!err) err = encode_bf16_rows_map(&v_map, &v_rows_first, v, B, T, Hkv, D, v_sb, v_st, v_sh, BK);
+  if (err) return err;
+  const int order = q_rows_first | (k_rows_first << 1) | (v_rows_first << 2);
+  return D == 128 ? launch_kernel<128, STATS>(q_map, k_map, v_map, order, o, m, l, B, S, T, H, Hkv,
+                                              scale, causal, stream)
+                  : launch_kernel<64, STATS>(q_map, k_map, v_map, order, o, m, l, B, S, T, H, Hkv,
+                                             scale, causal, stream);
 }
 
 }  // namespace
 
-// K1, the inference forward. Returns cudaGetLastError() after the launch.
+// K1, the inference forward. Returns 0, or the error of the tensor maps'
+// encoding or of the launch.
 extern "C" int teochat_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int S, int T, int H, int Hkv, int D,

@@ -1,0 +1,298 @@
+// Hopper's asynchronous machinery for the attention kernels (sm_90a): the
+// warpgroup product `wgmma`, `mbarrier`s, bulk tensor (TMA) loads, and the
+// host side of a tensor map. Kept apart from the kernels so that each of
+// them (the forward in flash_attention.cu first) builds on the same pieces.
+//
+// wgmma. Four warps (a warpgroup, 128 threads) multiply a 64-row A tile by
+// a B tile read from shared memory; the sum stays in registers. Thread t of
+// the warpgroup (warp w = t / 32, gid = lane / 4, tig = lane % 4) holds of a
+// 64 x N fp32 result, in register i: row 16 w + gid + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 tig + (i % 2) -- four registers for each 8 columns,
+// laid out as the C fragment of mma.sync m16n8. An A operand held in
+// registers is, for each 16-deep step, the A fragment of mma.sync m16n8k16,
+// so registers 8 kk .. 8 kk + 7 of a score tile, packed two by two to bf16,
+// are the A operand of step kk of the next product.
+//
+// Shared-memory operands are bf16 tiles as a TMA load with the 128-byte
+// swizzle writes them: rows of 64 elements (128 bytes) one after the other,
+// the 16-byte chunks of row r permuted by r % 8, the tile's base aligned to
+// 1024 bytes. A tile wider than 64 elements is several such boxes. A
+// descriptor names the swizzle, a start address and two strides:
+// - K-major (the reduction runs along a row: Q and K in Q K^T): 8 rows are
+//   1024 bytes apart (the stride offset); a 16-deep step k is 32 k bytes
+//   into the row, and step 4 starts the next box;
+// - MN-major (the reduction runs down the rows: V in P V, `tnspB`): 8 rows
+//   of the reduction are 1024 bytes apart (the stride offset), 64 columns
+//   are one box apart (the leading offset); a 16-deep step is 16 rows =
+//   2048 bytes further down.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace teochat {
+
+// ------------------------------------------------------------------ wgmma
+
+constexpr uint32_t SWIZZLE_ROW_BYTES = 128;   // one row of a 64-wide bf16 box
+constexpr uint32_t SWIZZLE_ATOM_BYTES = 1024;  // 8 such rows: the swizzle's period
+
+// Descriptor of a 128-byte-swizzled tile at shared address `addr` (bytes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t leading_bytes,
+                                              uint32_t stride_bytes) {
+  return uint64_t((addr & 0x3FFFFu) >> 4) | (uint64_t(leading_bytes >> 4) << 16) |
+         (uint64_t(stride_bytes >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// K-major operand; the leading offset is not read under a swizzle.
+__device__ __forceinline__ uint64_t smem_desc_k_major(uint32_t addr) {
+  return smem_desc(addr, 16, SWIZZLE_ATOM_BYTES);
+}
+
+// MN-major operand whose 64-column boxes lie `box_bytes` apart.
+__device__ __forceinline__ uint64_t smem_desc_mn_major(uint32_t addr, uint32_t box_bytes) {
+  return smem_desc(addr, box_bytes, SWIZZLE_ATOM_BYTES);
+}
+
+// A descriptor moved `bytes` further into shared memory.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// Orders ordinary register and shared-memory accesses before the next wgmma.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers, B in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers, B in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// Give registers back to (dec) or take them from (inc) the SM's pool, for the
+// whole warpgroup. Only inside one if / else on the warpgroup's role, or the
+// compiler ignores it (warning C7508).
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// Named barriers (1-15; 0 is __syncthreads) over `threads` threads: `sync`
+// waits until that many have arrived, `arrive` counts in without waiting.
+// Two warpgroups pass a turn back and forth with a pair of them.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --------------------------------------------------------------- mbarrier
+// All addresses are 32-bit shared-memory addresses (`smem_u32`).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+
+// After the inits, before any thread or the TMA unit uses the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` of bulk copies to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` is over. A barrier
+// starts in phase 0, so a wait for parity 1 on a fresh barrier returns at
+// once. A wait that never ends (a lost arrival) traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins == (1u << 22)) __trap();
+  }
+}
+
+// -------------------------------------------------------------------- TMA
+
+// Load the box at coordinates (c0, c1, c2, c3) of a rank-4 tensor map into
+// shared memory at `dst`; its bytes are counted on barrier `bar`. Elements
+// outside the tensor arrive as zeros and count all the same.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ------------------------------------------------------- tensor map (host)
+
+constexpr int TENSOR_MAP_ERROR = 100000;  // added to a CUresult, to tell it from a cudaError_t
+
+// A bf16 [B, N, H, D] tensor read through its strides (in elements; the last
+// dimension contiguous) as boxes of `box_rows` rows x 64 columns of one head
+// of one batch row, written with the 128-byte swizzle. The map's dimensions
+// are (D, H, N, B), or (D, N, H, B) where a head's stride is the larger, so
+// that the strides ascend; `*rows_first` says which, and the kernel orders
+// its coordinates by it. libcuda's encoder is reached through the
+// runtime's entry-point lookup, so nothing links against it. Returns 0, a cudaError_t, or
+// TENSOR_MAP_ERROR + CUresult.
+inline int encode_bf16_rows_map(CUtensorMap* map, int* rows_first, const void* base,
+                                int batch, int rows, int heads, int head_dim,
+                                long long stride_b, long long stride_n, long long stride_h,
+                                int box_rows) {
+  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                            &found);
+#endif
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+
+  *rows_first = stride_n < stride_h;
+  const int r = *rows_first ? 1 : 2, h = *rows_first ? 2 : 1;  // where rows and heads go
+  cuuint64_t dims[4] = {cuuint64_t(head_dim), 0, 0, cuuint64_t(batch)};
+  cuuint64_t strides[4] = {2, 0, 0, cuuint64_t(stride_b) * 2};  // bytes; [0] is implied
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  dims[r] = cuuint64_t(rows), strides[r] = cuuint64_t(stride_n) * 2, box[r] = cuuint32_t(box_rows);
+  dims[h] = cuuint64_t(heads), strides[h] = cuuint64_t(stride_h) * 2;
+  // a dimension of one element is never stepped over: give it the stride a
+  // dense tensor would have, whatever the view carries
+  for (int i = 1; i < 4; ++i)
+    if (dims[i] == 1) strides[i] = strides[i - 1] * dims[i - 1];
+  const CUresult res = reinterpret_cast<EncodeTiled>(fn)(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides + 1, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
+}
+
+}  // namespace teochat

@@ -8,11 +8,13 @@ Port of teochat_tpu/ops/flash_attention.py:
   di = rowsum(o * dO) in fp32 with torch ops, as the JAX package does outside
   its kernels, then launches K4b (dK, dV; `_bwd_dkv_kernel`) and K4c (dQ;
   `_bwd_dq_kernel`).
-The kernels are csrc/flash_attention.cu (K1, K4a) and
-csrc/flash_attention_bwd.cu (K4b, K4c); their source notes say what bounds
-them on the card and how they are laid out. A CPU tensor goes to the plain
-twin (ops/attention.py::plain_attention, with autograd for the trainable
-one); a CUDA tensor launches the kernels or raises.
+The kernels are csrc/flash_attention.cu (K1, K4a: one `wgmma` kernel fed by
+TMA loads) and csrc/flash_attention_bwd.cu (K4b, K4c); their source notes
+say what bounds them on the card and how they are laid out. A CPU tensor
+goes to the plain twin (ops/attention.py::plain_attention, with autograd for
+the trainable one); a CUDA tensor launches the kernels or raises.
+`flash_forward_schedule` walks the forward kernel's tiles in plain PyTorch,
+so that its schedule can be held against the JAX kernels without a card.
 """
 
 from __future__ import annotations
@@ -22,18 +24,94 @@ from typing import Optional
 import torch
 
 from teochat_torch.ops import _build
-from teochat_torch.ops.attention import plain_attention
+from teochat_torch.ops.attention import NEG_INF, _repeat_kv, plain_attention
 
 LAUNCHES = _build.LaunchCounter("flash_attention")  # K1
 FWD_RES_LAUNCHES = _build.LaunchCounter("flash_attention_fwd_res")  # K4a
 BWD_DKV_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dkv")  # K4b
 BWD_DQ_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dq")  # K4c
 HEAD_DIMS = (64, 128)
+# the forward kernel's tiles (csrc/flash_attention.cu: TEOCHAT_FLASH_BQ, _BK)
+FWD_BLOCK_Q = 128  # query rows a tile: two warpgroups of 64
+FWD_BLOCK_K = 128  # keys a kv tile
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None) -> torch.Tensor:
     """What the kernel computes, in plain PyTorch (fp32 logits and softmax)."""
     return plain_attention(q, k, v, causal=causal, scale=scale)
+
+
+def flash_statistics_plain(q, k, v, *, causal: bool = True, scale=None):
+    """What K4a stores beside o, in plain PyTorch: each row's largest scaled
+    score m and the sum l of exp(score - m) over its keys, fp32 [B, H, S]."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    logits = torch.einsum("bshd,bthd->bhst", q.float(),
+                          _repeat_kv(k, h // k.shape[2]).float()) * scale
+    if causal:
+        rows = torch.arange(s, device=q.device)[:, None] + (t - s)
+        logits = torch.where(rows >= torch.arange(t, device=q.device)[None, :], logits, NEG_INF)
+    m = logits.amax(-1)
+    return m, torch.exp(logits - m[..., None]).sum(-1)
+
+
+def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
+                           block_q: int = FWD_BLOCK_Q, block_k: int = FWD_BLOCK_K):
+    """The forward kernel's schedule, tile by tile, in plain PyTorch.
+
+    Returns (o [B, S, H, D] in q's dtype, m, l fp32 [B, H, S]). As in
+    csrc/flash_attention.cu: a tile of `block_q` query rows walks the kv
+    tiles of `block_k` keys up to its diagonal; rows past S and keys past T
+    are read as zeros, and keys past T are then masked; scores are scaled
+    into base-2 units, the running maximum, sum and accumulator are fp32, P
+    is rounded to v's dtype (bf16 on the card) before P V; a row whose sum
+    is 0 is written as 0; m leaves in natural units. (The order in which a
+    block takes its tiles, and which warpgroup multiplies when, move no
+    number.)"""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    log2e = 1.4426950408889634
+    c2 = scale * log2e
+    pad_s, pad_t = -s % block_q, -t % block_k
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_s)).float()
+    kp = torch.nn.functional.pad(_repeat_kv(k, h // hkv), (0, 0, 0, 0, 0, pad_t)).float()
+    vp = torch.nn.functional.pad(_repeat_kv(v, h // hkv), (0, 0, 0, 0, 0, pad_t))
+    o = torch.zeros((b, s + pad_s, h, d), dtype=torch.float32, device=q.device)
+    m_out = torch.zeros((b, h, s + pad_s), dtype=torch.float32, device=q.device)
+    l_out = torch.zeros_like(m_out)
+    for q0 in range(0, s + pad_s, block_q):
+        n_kv = (t + pad_t) // block_k
+        if causal:
+            n_kv = min(n_kv, (q0 + block_q - 1) // block_k + 1)
+        rows = torch.arange(q0, q0 + block_q, device=q.device)
+        m = torch.full((b, h, block_q), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, block_q, d), device=q.device)
+        for j in range(n_kv):
+            k0 = j * block_k
+            cols = torch.arange(k0, k0 + block_k, device=q.device)
+            sc = torch.einsum("bshd,bthd->bhst", qp[:, q0:q0 + block_q],
+                              kp[:, k0:k0 + block_k]) * c2
+            dead = (cols >= t)[None, :]
+            if causal:
+                dead = dead | (cols[None, :] > rows[:, None])
+            sc = torch.where(dead, NEG_INF, sc)
+            m_next = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2(m - m_next)
+            p = torch.exp2(sc - m_next[..., None])
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhst,bthd->bhsd", p.to(v.dtype).float(), vp[:, k0:k0 + block_k].float())
+            m = m_next
+        inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+        o[:, q0:q0 + block_q] = (acc * inv[..., None]).transpose(1, 2)
+        m_out[:, :, q0:q0 + block_q] = m / log2e
+        l_out[:, :, q0:q0 + block_q] = l
+    return o[:, :s].to(q.dtype), m_out[:, :, :s].contiguous(), l_out[:, :, :s].contiguous()
 
 
 def _check_cuda_operands(q, k, v) -> None:

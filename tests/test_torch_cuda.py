@@ -39,6 +39,8 @@ GRAD_REL_L2 = 1e-2
 GRAD_REL_MAX = 2e-2
 INT4_REL_L2 = 3e-3
 INT4_REL_MAX = 4e-3
+STAT_M_ATOL = 2e-4  # K4a's row maximum, absolute
+STAT_L_RTOL = 1e-3  # K4a's denominator, relative
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +63,13 @@ def _randn(shape, gen):
         (2, 333, 333, 4, 1, 128, True),  # ragged S, GQA 4:1
         (1, 130, 130, 4, 2, 64, True),  # head_dim 64
         (2, 100, 257, 4, 4, 128, False),  # non-causal, S != T, ragged T
+        (1, 9, 9, 2, 2, 128, True),  # S far below one warpgroup's 64 rows
+        (2, 40, 40, 4, 2, 64, True),  # S < 64 at head_dim 64, GQA
+        (1, 257, 257, 2, 2, 64, True),  # head_dim 64: three query tiles, one key past 256
+        (1, 640, 640, 2, 1, 128, True),  # five kv tiles: each ring stage reused
+        (2, 300, 70, 4, 2, 64, False),  # non-causal, S != T, head_dim 64
+        (1, 1, 1, 2, 2, 128, True),  # one query, one key
+        (3, 768, 768, 8, 8, 128, True),  # the 2-frame prompt bucket, batched
     ],
 )
 def test_flash_kernel_matches_plain(gen, b, s, t, h, hkv, d, causal):
@@ -81,6 +90,62 @@ def test_flash_reads_strided_inputs(gen):
     got = flash_mod.flash_attention(q, k, v, causal=True)
     want = flash_mod.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_reads_v_from_a_fused_projection(gen):
+    """q, k and v as the fused int4 q|k|v projection hands them over: column
+    slices of one [B, S, (H + 2 Hkv) D] output, each with the fused row's
+    stride; v differs from k, so a wrong V operand cannot pass."""
+    b, s, h, hkv, d = 2, 200, 8, 2, 128
+    fused = _randn((b, s, (h + 2 * hkv) * d), gen)
+    q = fused[..., : h * d].view(b, s, h, d)
+    k = fused[..., h * d : (h + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (h + hkv) * d :].view(b, s, hkv, d)
+    assert v.stride(1) == (h + 2 * hkv) * d and not v.is_contiguous()
+    got = flash_mod.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    assert (got.float() - want).abs().max().item() <= TOL
+    same = flash_mod.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+
+
+def test_flash_reads_head_major_inputs(gen):
+    """[B, H, S, D] storage read as [B, S, H, D] views: a head's stride is
+    the larger one, so the tensor maps put rows before heads."""
+    q, k, v = (_randn((2, 4, 150, 128), gen).transpose(1, 2) for _ in range(3))
+    got = flash_mod.flash_attention(q, k, v, causal=True)
+    want = flash_mod.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "b,s,t,h,hkv,d,causal",
+    [
+        (4, 1024, 1024, 32, 32, 128, True),  # the training batch
+        (2, 333, 333, 4, 1, 128, True),  # ragged S, GQA 4:1
+        (1, 40, 40, 2, 2, 64, True),  # S < 64, head_dim 64
+        (2, 100, 257, 4, 4, 128, False),  # non-causal, S != T
+    ],
+)
+def test_flash_forward_statistics_match_plain(gen, b, s, t, h, hkv, d, causal):
+    """K4a's m and l against the row maximum and the sum of exp(s - m) of the
+    fp32 scores on the same bf16 inputs. Scores are sums of D products of
+    N(0, 1) values times D^-0.5, |s| < 8: the tensor cores' fp32 sum and the
+    plain one differ by ~1e-5 there, which moves m by as much and each term
+    of l, exp(s - m) in (0, 1], by ~1e-5 of itself; ex2.approx adds 2e-7."""
+    q, k, v = _randn((b, s, h, d), gen), _randn((b, t, hkv, d), gen), _randn((b, t, hkv, d), gen)
+    before = flash_mod.FWD_RES_LAUNCHES.count
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_mod.FWD_RES_LAUNCHES.count == before + 1
+    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float(),
+                                                      causal=causal)
+    assert m.shape == l.shape == (b, h, s) and m.dtype == l.dtype == torch.float32
+    torch.testing.assert_close(m, want_m, rtol=0, atol=STAT_M_ATOL)
+    torch.testing.assert_close(l, want_l, rtol=STAT_L_RTOL, atol=0)
+    want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    assert (o.float() - want).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize(
