@@ -6,6 +6,9 @@
     python3 chip_probe.py k1
     python3 chip_probe.py k4
     python3 chip_probe.py k1k4a [--root DIR] [--tiles 64x64 128x128 ...] [--long]
+    python3 chip_probe.py k4bc [--root DIR] [--variants dqbk=128,stages=2 stages=4 ...] [--long]
+    python3 chip_probe.py train-step [--root DIR]
+    python3 chip_probe.py int8-proj [--root DIR]
     python3 chip_probe.py k3k5
     python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
@@ -46,6 +49,30 @@ another checkout, so two trees can be timed in one session on one card.
   own output). With `--root` on a parent checkout (say, unpacked with
   `git archive` into the gitignored `results/`) and once without, both
   kernels are read in one run on one card.
+- k4bc: the flash backward alone at the table's shape (B4 S1024 H32 D128,
+  causal; `--long` adds a GQA shape and B1 S4096): SASS counts of the tree's
+  backward kernels, the di preamble (the torch line in a tree from before
+  it), K4b and K4c as the wrappers launch them, the library's one backward
+  call on the same inputs, and, where the tree's source has the macros, the
+  same source built for each of --variants (`dqbk` K4c's kv tile, which at
+  128 keys leaves shared memory for two stages; `stages` the rings' depth), with ptxas's registers, spills and warnings, each held
+  to the tree's own gradients.
+  With `--root` on a parent checkout and once without, both are read in one
+  run on one card.
+- train-step: the smoke's training phase alone (`train()` for three
+  optimizer steps at 7B width): s a step and tokens/s; with `--root`, a
+  parent's beside the tree's in one call.
+- int8-proj: what the int8 projection's roundings cost, at the 7B decoder's
+  seven projection shapes. (a) One cuBLAS product with a bf16 and with an
+  fp32 result at M 1, 8, 640 and 4096. (b) The tree's `quantized_proj` 224
+  times at M 1 (one decode step's projections), device drained. (c) The
+  backward's dx = (dy * scale) @ W^T at M 4096 with dy * scale rounded to
+  bf16 as the product's operand (what the port does), split into a bf16
+  head and a bf16 remainder (two products, one fp32 sum), and as fp32
+  operands with and without TF32 (what the JAX reference computes on a CPU):
+  ms a product, ms an optimizer step of the recipe (32 layers, 2
+  micro-steps), and for each how many of 256 dx values lie a bf16 step from
+  the exact sum's rounding.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
@@ -65,6 +92,7 @@ import dataclasses
 import importlib
 import statistics
 import sys
+import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -214,59 +242,76 @@ def cmd_k4(smoke, args):
 K1K4A_SHAPES = (("K1", 1, 768, False), ("K4a", 4, 1024, True))  # (row, B, S, with m and l)
 
 
-def _flash_tile_builds(build, tiles):
-    """flash_attention.cu compiled once for each (BQ, BK, stages), all at once;
-    returns {(bq, bk, stages): ctypes library}."""
+def _probe_builds(tag, build, source, variants, entries):
+    """`source` (a file of csrc/) compiled once for each variant, all at once:
+    `variants` maps a label to its extra nvcc flags. Prints what ptxas says of
+    each build (registers, spills, warnings, under the kernel's name) and
+    returns {label: ctypes library} with `entries` given their signatures."""
     import ctypes
     import subprocess
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for bq, bk, stages in tiles:
-        out = build.BUILD_DIR / f"flash_probe_bq{bq}_bk{bk}_st{stages}.so"
-        procs[bq, bk, stages] = (out, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, f"-DTEOCHAT_FLASH_BQ={bq}",
-             f"-DTEOCHAT_FLASH_BK={bk}", f"-DTEOCHAT_FLASH_STAGES={stages}", "-shared", "-o", str(out),
-             str(build.CSRC / "flash_attention.cu")],
+    for i, (label, flags) in enumerate(variants.items()):
+        out = build.BUILD_DIR / f"{tag}_probe_{i}.so"
+        procs[label] = (out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-o", str(out),
+             str(build.CSRC / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for tile, (out, proc) in procs.items():
+    for label, (out, proc) in procs.items():
         log = proc.communicate()[0]
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "arning", "rror")):
-                print(f"[k1k4a] build {tile}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                line = line.split("'")[1] if "'" in line else line
+            elif not any(w in line for w in ("registers", "spill", "arning", "rror")):
+                continue
+            print(f"[{tag}] build {label}: {line.strip()}", flush=True)
         if proc.returncode != 0:
-            sys.exit(f"[k1k4a] nvcc failed for tile {tile}")
-        libs[tile] = ctypes.CDLL(str(out))
-        for name in ("teochat_flash_attention_fwd", "teochat_flash_attention_fwd_res"):
-            fn = getattr(libs[tile], name)
+            sys.exit(f"[{tag}] nvcc failed for {label}")
+        libs[label] = ctypes.CDLL(str(out))
+        libs[label].path = out
+        for name in entries:
+            fn = getattr(libs[label], name)
             fn.argtypes, fn.restype = build._SIGNATURES[name], ctypes.c_int
     return libs
+
+
+def _flash_tile_builds(build, tiles):
+    """flash_attention.cu compiled once for each (BQ, BK, stages);
+    returns {(bq, bk, stages): ctypes library}."""
+    variants = {(bq, bk, stages): [f"-DTEOCHAT_FLASH_BQ={bq}", f"-DTEOCHAT_FLASH_BK={bk}",
+                                   f"-DTEOCHAT_FLASH_STAGES={stages}"]
+                for bq, bk, stages in tiles}
+    return _probe_builds("k1k4a", build, "flash_attention.cu", variants,
+                         ("teochat_flash_attention_fwd", "teochat_flash_attention_fwd_res"))
 
 
 SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDG", "STG", "SYNCS", "MUFU", "SHFL",
                 "BAR", "WARPGROUP")
 
 
-def _flash_forward_sass(build):
-    """Static opcode counts of each forward kernel in the tree's built
-    library, by `cuobjdump -sass`: what the two products and the loads
-    compiled to."""
+def _kernel_sass(tag, build, kernels, path=None):
+    """Static opcode counts of each kernel whose name holds `kernels`, in the
+    tree's built library (or the library at `path`), by `cuobjdump -sass`:
+    what the products and the loads compiled to. `WARPGROUP` counts the
+    arrive / wait pairs around a run of `HGMMA`: as many as `HGMMA` itself
+    means ptxas serialized them."""
     import re
     import shutil
     import subprocess
     from collections import Counter
 
     tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).with_name("cuobjdump"))
-    text = subprocess.run([tool, "-sass", str(build.library().path)], capture_output=True,
-                          text=True, check=True).stdout
+    text = subprocess.run([tool, "-sass", str(path or build.library().path)],
+                          capture_output=True, text=True, check=True).stdout
     for block in text.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
-        if "flash_fwd_kernel" not in name:
+        if kernels not in name:
             continue
         ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", block))
         counts = ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPCODES)
-        print(f"[k1k4a] sass {name}: {sum(ops.values())} instructions: {counts}", flush=True)
+        print(f"[{tag}] sass {name}: {sum(ops.values())} instructions: {counts}", flush=True)
 
 
 def cmd_k1k4a(smoke, args):
@@ -275,7 +320,7 @@ def cmd_k1k4a(smoke, args):
     from teochat_torch.ops import _build as build
     from teochat_torch.ops import flash_attention as flash_mod
 
-    _flash_forward_sass(build)
+    _kernel_sass("k1k4a", build, "flash_fwd_kernel")
     source = (build.CSRC / "flash_attention.cu").read_text()
     tiles = [tuple(int(x) for x in (t + "x2").split("x")[:3]) for t in args.tiles]
     libs = _flash_tile_builds(build, tiles) if "TEOCHAT_FLASH_BQ" in source else {}
@@ -321,6 +366,78 @@ def cmd_k1k4a(smoke, args):
                   f"{diff:.3e}", flush=True)
 
 
+# ------------------------------------------------------------------ k4bc
+
+K4BC_MACROS = {"dqbk": "TEOCHAT_FLASH_BWD_DQ_BK", "stages": "TEOCHAT_FLASH_BWD_STAGES"}
+
+
+def cmd_k4bc(smoke, args):
+    import torch.nn.functional as F
+
+    from teochat_torch.ops import _build as build
+    from teochat_torch.ops import flash_attention as flash_mod
+
+    _kernel_sass("k4bc", build, "flash_bwd_")
+    source = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    variants = {}
+    for spec in args.variants if "TEOCHAT_FLASH_BWD_DQ_BK" in source else ():
+        variants[spec] = [f"-D{K4BC_MACROS[key]}={int(value)}"
+                          for key, value in (kv.split("=") for kv in spec.split(","))]
+    entries = ("teochat_flash_attention_bwd_dkv", "teochat_flash_attention_bwd_dq")
+    libs = _probe_builds("k4bc", build, "flash_attention_bwd.cu", variants, entries)
+    for label, lib in libs.items():
+        _kernel_sass(f"k4bc {label}", build, "kernelILi128", path=lib.path)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    d = 128
+    scale = d ** -0.5
+    shapes = [("B4 S1024", 4, 1024, 32, 32)]
+    if args.long:
+        shapes += [("B4 S1024 Hkv8", 4, 1024, 32, 8), ("B1 S4096", 1, 4096, 32, 32)]
+    for row, b, s, h, hkv in shapes:
+        q, do = smoke._randn((b, s, h, d), gen), smoke._randn((b, s, h, d), gen)
+        k, v = smoke._randn((b, s, hkv, d), gen), smoke._randn((b, s, hkv, d), gen)
+        o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale)
+        # a tree from before the preamble kernel computes di with torch ops
+        di_fn = getattr(flash_mod, "_bwd_di_cuda", None) or (
+            lambda o, do: (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous())
+        di = di_fn(o, do)
+        dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale)
+        dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale)
+        product = 2 * b * h * s * s * d / 2  # one causal S x S x D product
+        qt, kt, vt = (smoke._bhsd(x).detach().requires_grad_(True) for x in (q, k, v))
+        if hkv == h:
+            ol = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            lib_ms = smoke.time_ms(lambda: torch.autograd.grad(
+                ol, (qt, kt, vt), smoke._bhsd(do), retain_graph=True))
+        else:
+            lib_ms = float("nan")  # the library call takes no grouped kv heads as they are
+        t_di = smoke.time_ms(lambda: di_fn(o, do))
+        t_dkv = smoke.time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale))
+        t_dq = smoke.time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale))
+        total = t_di + t_dkv + t_dq
+        print(f"[k4bc] root={args.root} {row} H={h} Hkv={hkv} D={d}: di {t_di:.4f} ms, K4b "
+              f"{t_dkv:.4f} ms ({4 * product / t_dkv / 1e9:.1f} TFLOP/s), K4c {t_dq:.4f} ms "
+              f"({3 * product / t_dq / 1e9:.1f} TFLOP/s), together {total:.4f} ms; "
+              f"scaled_dot_product_attention backward {lib_ms:.4f} ms ({total / lib_ms:.2f}x)",
+              flush=True)
+        out_k, out_v, out_q = torch.empty_like(dk), torch.empty_like(dv), torch.empty_like(dq)
+        for label, lib in libs.items():
+            head = flash_mod._bwd_args(q, k, v, do, m, l, di, True, scale)
+            run_dkv = lambda: lib.teochat_flash_attention_bwd_dkv(  # noqa: E731
+                *head, out_k.data_ptr(), out_v.data_ptr())
+            run_dq = lambda: lib.teochat_flash_attention_bwd_dq(*head, out_q.data_ptr())  # noqa: E731
+            for x in (out_k, out_v, out_q):
+                x.zero_()
+            rcs = (run_dkv(), run_dq())
+            torch.cuda.synchronize()
+            diff = max((a.float() - b_.float()).abs().max().item()
+                       for a, b_ in ((out_k, dk), (out_v, dv), (out_q, dq)))
+            v_dkv, v_dq = smoke.time_ms(run_dkv), smoke.time_ms(run_dq)
+            print(f"[k4bc]   {label}: K4b {v_dkv:.4f} ms ({4 * product / v_dkv / 1e9:.1f} TFLOP/s), "
+                  f"K4c {v_dq:.4f} ms ({3 * product / v_dq / 1e9:.1f} TFLOP/s), rc {rcs}, "
+                  f"max |gradient - tree's| {diff:.3e}", flush=True)
+
+
 def _run_phases(smoke, phases):
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     failed = False
@@ -350,6 +467,7 @@ def cmd_s1s2(smoke, args):
 
 
 KERNEL_CLASSES = (  # (class, substrings of the kernel's name); the first match wins
+    ("K4 di", ("flash_bwd_di",)),
     ("K4b dK/dV", ("flash_bwd_dkv",)),
     ("K4c dQ", ("flash_bwd_dq",)),
     ("K4a forward", ("flash_fwd",)),
@@ -425,11 +543,110 @@ def cmd_profile_train(smoke, args):
         print(f"[profile]   {ms:9.2f} ms {n:6d}x {name[:150]}")
 
 
+# ------------------------------------------------------------------ train-step
+
+
+def cmd_train_step(smoke, args):
+    from teochat_torch.config import TEOChatConfig
+
+    cfg = TEOChatConfig(quant="int8")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = smoke.init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int8")
+    processor = smoke.FrameProcessor(cfg.vision.image_size, smoke.SEED)
+    print(f"[train-step] root={args.root}", flush=True)
+    smoke.phase_train(cfg, params, smoke.WordTokenizer(), processor)
+
+
+# ------------------------------------------------------------------ int8-proj
+
+# [in, out] of a 7B layer's projections: q, k, v, o, gate, up, down
+PROJ_SHAPES = [(4096, 4096)] * 4 + [(4096, 11008)] * 2 + [(11008, 4096)]
+
+
+def cmd_int8_proj(smoke, args):
+    from teochat_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    with torch.no_grad():
+        # (a) the result's dtype
+        for k, n in sorted(set(PROJ_SHAPES)) + [(4096, 32000)]:
+            w = smoke._randn((k, n), gen)
+            for m in (1, 8, 640, 4096):
+                x = smoke._randn((m, k), gen)
+                t_bf = smoke.time_ms(lambda: torch.mm(x, w))
+                t_f32 = smoke.time_ms(lambda: torch.mm(x, w, out_dtype=f32))
+                print(f"[int8-proj] product M={m} K={k} N={n}: bf16 result {t_bf:.4f} ms, fp32 "
+                      f"result {t_f32:.4f} ms ({t_f32 / t_bf:.3f}x)", flush=True)
+            del w
+        # (b) one decode step's projections through the tree's wrapper
+        ps = [{"kernel": torch.randint(-127, 128, s, generator=gen, device="cuda", dtype=torch.int8),
+               "scale": torch.rand(s[1], generator=gen, device="cuda") * 1e-2} for s in PROJ_SHAPES]
+        xs = {k: smoke._randn((1, 1, k), gen) for k in (4096, 11008)}
+
+        def step():
+            for _ in range(32):
+                for p in ps:
+                    quant.quantized_proj(xs[p["kernel"].shape[0]], p)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"[int8-proj] root={args.root}: 224 quantized_proj at M=1, device drained: median "
+              f"{statistics.median(times):.2f} ms, {min(times):.2f}-{max(times):.2f}", flush=True)
+        # (c) the backward's operand
+        m = 4096
+
+        def dx_bf16(g, wt):
+            return torch.mm(g.to(bf16), wt.to(bf16), out_dtype=f32).to(bf16)
+
+        def dx_split(g, wt):
+            head = g.to(bf16)
+            both = torch.cat([head, (g - head.float()).to(bf16)])
+            y = torch.mm(both, wt.to(bf16), out_dtype=f32)
+            return (y[:m] + y[m:]).to(bf16)
+
+        def dx_fp32(g, wt):
+            return torch.mm(g, wt.float()).to(bf16)
+
+        def dx_tf32(g, wt):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.mm(g, wt.float()).to(bf16)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+
+        forms = (("bf16 operand", dx_bf16), ("bf16 head + remainder", dx_split),
+                 ("fp32 operands", dx_fp32), ("fp32 operands, TF32", dx_tf32))
+        per_layer = {name: 0.0 for name, _ in forms}
+        for p in ps:
+            k, n = p["kernel"].shape
+            wt = p["kernel"].t()  # [out, in], int8: every form converts it, as the port does
+            g = torch.randn((m, n), generator=gen, device="cuda") * p["scale"]
+            rows = slice(0, 64)  # the exact sum in fp64 on a few rows
+            exact = torch.mm(g[rows].double(), wt.double()).float().to(bf16)
+            for name, fn in forms:
+                t = smoke.time_ms(lambda: fn(g, wt))
+                per_layer[name] += t
+                off = (fn(g, wt)[rows].float() != exact.float()).float().mean().item() * 256
+                print(f"[int8-proj] dx M={m} N={n} K={k}, {name}: {t:.4f} ms, {off:.1f} of 256 "
+                      f"a bf16 step from the exact sum's rounding", flush=True)
+        for name, ms in per_layer.items():
+            print(f"[int8-proj] dx, {name}: {ms:.3f} ms a layer, {ms * 64:.1f} ms an optimizer "
+                  f"step (32 layers, 2 micro-steps)", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k3k5", "s1s2",
-                 "profile-train"):
+    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "s1s2",
+                 "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
@@ -440,6 +657,11 @@ def main():
             p.add_argument("--tiles", nargs="+", default=["64x64", "64x128", "128x64", "128x128"])
             p.add_argument("--long", action="store_true",
                            help="also B1 S4096: many kv tiles a block, little set-up beside them")
+        if name == "k4bc":
+            p.add_argument("--variants", nargs="*",
+                           default=["dqbk=128,stages=2", "stages=2", "stages=4"],
+                           help="key=value[,key=value] over dqbk, stages")
+            p.add_argument("--long", action="store_true", help="also a GQA shape and B1 S4096")
         if name == "decode-paths":
             p.add_argument("--turns", type=int, default=3)
         if name == "parity":
@@ -451,7 +673,9 @@ def main():
     smoke.phase_device()
     smoke.phase_build()
     {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
-     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k3k5": cmd_k3k5, "s1s2": cmd_s1s2, "profile-train": cmd_profile_train}[args.cmd](smoke, args)
+     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "s1s2": cmd_s1s2,
+     "profile-train": cmd_profile_train, "train-step": cmd_train_step,
+     "int8-proj": cmd_int8_proj}[args.cmd](smoke, args)
 
 
 if __name__ == "__main__":

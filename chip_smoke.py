@@ -29,10 +29,15 @@ them. Phases, each printing its lines before the last:
     requests; K1, K2 and K5 must launch;
 11. the last-position prefill logits of the 2-frame request with the kernels
     against the same forward on the plain attention;
-12. the training flash attention (K4a forward, K4b dK/dV, K4c dQ) against
-    autograd through its plain twin at training shapes, K4a's m and l
-    against the plain row maximum and sum, and each kernel's time beside
-    the plain forward's and backward's;
+12. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
+    K4c dQ) against autograd through its plain twin at training shapes, at
+    head_dim 64, on non-causal calls with S != T, on ragged lengths that
+    leave the last tiles part-filled and on strided slices of a fused q|k|v;
+    K4a's m and l against the plain row maximum and sum; di against its
+    torch line; K4b and K4c from saved residuals against their tile walks
+    (`flash_backward_dkv_schedule`, `_dq_schedule`) on the same bf16 inputs;
+    and each kernel's time beside the plain forward's and backward's and the
+    library's one backward call;
 13. the training path at TEOChat-7B width: the port's `train()` takes three
     optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
@@ -113,6 +118,17 @@ LOGITS_REL_L2_BOUND = 5e-2
 # GRAD_REL_MAX of its largest element
 GRAD_REL_L2 = 1e-2
 GRAD_REL_MAX = 2e-2
+# K4b and K4c against their tile walks (flash_backward_*_schedule) on the same
+# bf16 inputs, m, l and di: the same tiles, roundings and fp32 sums, so what
+# differs is the order of the sums and ex2.approx against exp, which move a P
+# or dS across a bf16 rounding boundary now and then, and the gradient's own
+# last rounding likewise (read on an H100: relative L2 up to 2.3e-4, largest
+# error up to 4.4e-3 of the largest gradient, which is one bf16 step)
+WALK_REL_L2 = 1e-3
+WALK_REL_MAX = 1e-2
+# the di preamble against its torch line, both fp32 sums of the same 128
+# exact products in another order: of the largest |di|
+DI_REL_TOL = 1e-5
 # K4a's m and l against the fp32 plain row maximum and sum of exp(s - m) on
 # the same bf16 inputs. Scores are sums of 128 products of N(0, 1) values
 # times D^-0.5, |s| < 8: the tensor cores' fp32 sum and the plain one differ
@@ -238,7 +254,9 @@ def phase_build():
     for line in lib.log.splitlines():
         # registers and spills of each kernel, and what ptxas warns of (an
         # ignored setmaxnreg, C7508; serialized wgmma, C7510)
-        if any(word in line.lower() for word in ("registers", "spill", "error", "warning")):
+        if "Compiling entry function" in line and "'" in line:
+            log(f"[build] {line.split(chr(39))[1]}")  # the kernel the next lines speak of
+        elif any(word in line.lower() for word in ("registers", "spill", "error", "warning")):
             log(f"[build] {line.strip()}")
 
 
@@ -617,16 +635,13 @@ def _flash_grads(fn, q, k, v, do):
     return [x.detach().float() for x in (o, q.grad, k.grad, v.grad)]
 
 
-def _plain_trainable(q, k, v):
-    return flash_mod.flash_attention_plain(q.float(), k.float(), v.float())
-
-
-def _flash_statistics_errors(q, k, v):
+def _flash_statistics_errors(q, k, v, causal):
     """K4a's m and l (which K4b and K4c take as they are) against the plain
     row maximum and sum: (largest |m - plain|, largest |l - plain| / plain)."""
-    _, m, l = flash_mod._fwd_res_cuda(q, k, v, True, q.shape[-1] ** -0.5)
+    _, m, l = flash_mod._fwd_res_cuda(q, k, v, causal, q.shape[-1] ** -0.5)
     sync()
-    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float())
+    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float(),
+                                                      causal=causal)
     m_err = (m - want_m).abs().max().item()
     l_err = ((l - want_l).abs() / want_l).max().item()
     check(m_err <= STAT_M_TOL, f"K4a row maximum off by {m_err} > {STAT_M_TOL}")
@@ -634,42 +649,82 @@ def _flash_statistics_errors(q, k, v):
     return m_err, l_err
 
 
+def _check_grad(name, got, want, l2_bound, max_bound):
+    """Hold one gradient to its relative L2 and relative largest error."""
+    r2 = ((got - want).norm() / want.norm()).item()
+    rmax = (got - want).abs().max().item() / want.abs().max().item()
+    check(r2 <= l2_bound and rmax <= max_bound,
+          f"{name}: rel L2 {r2} (bound {l2_bound}), rel max {rmax} (bound {max_bound})")
+    return f"{name} rel L2 {r2:.3e} rel max {rmax:.3e}"
+
+
+def _flash_backward_against_schedules(q, k, v, do, causal):
+    """di, K4b and K4c from K4a's saved residuals against the preamble's torch
+    line and the two tile walks on the same bf16 inputs."""
+    scale = q.shape[-1] ** -0.5
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, causal, scale)
+    di = flash_mod._bwd_di_cuda(o, do)
+    sync()
+    want_di = flash_mod.flash_di_plain(o, do)
+    di_err = (di - want_di).abs().max().item() / want_di.abs().max().item()
+    check(di_err <= DI_REL_TOL, f"di off by {di_err} of its largest (bound {DI_REL_TOL})")
+    dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, causal, scale)
+    dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, causal, scale)
+    sync()
+    want_dk, want_dv = flash_mod.flash_backward_dkv_schedule(q, k, v, do, m, l, want_di,
+                                                             causal=causal)
+    want_dq = flash_mod.flash_backward_dq_schedule(q, k, v, do, m, l, want_di, causal=causal)
+    rel = [_check_grad(name, g.float(), w.float(), WALK_REL_L2, WALK_REL_MAX)
+           for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))]
+    return f"di rel max {di_err:.3e} (bound {DI_REL_TOL}); vs tile walks: " + "; ".join(rel)
+
+
 def phase_flash_backward(gen):
-    cases = [  # (B, S, H, Hkv, padded); D = 128, causal; the first is reported in the JSON line
-        (4, 1024, 32, 32, False),  # the training batch
-        (1, 600, 32, 32, True),  # ragged S, through the padded wrapper
-        (1, 1024, 32, 8, False),  # GQA
-        (1, 2048, 32, 32, False),
+    cases = [  # (B, S, T, H, Hkv, D, causal, how); the first is reported in the JSON line
+        (4, 1024, 1024, 32, 32, 128, True, ""),  # the training batch
+        (1, 600, 600, 32, 32, 128, True, "padded"),  # ragged S, through the padded wrapper
+        (1, 1024, 1024, 32, 8, 128, True, ""),  # GQA
+        (1, 2048, 2048, 32, 32, 128, True, ""),
+        (2, 300, 801, 32, 32, 128, False, ""),  # non-causal, S != T, both ragged
+        (2, 801, 300, 8, 2, 64, False, ""),  # the same at head_dim 64 with GQA
+        (2, 768, 768, 16, 16, 64, True, ""),  # head_dim 64
+        # the last q tile (of 64 and of 128 rows) and the last kv tile part-filled
+        (1, 1000, 1000, 32, 8, 128, True, "padded"),
+        (2, 40, 40, 32, 8, 128, True, "padded"),  # below one tile
+        (1, 768, 768, 32, 32, 128, True, "fused"),  # strided slices of a fused q|k|v
     ]
     worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     rows = None
-    for b, s, h, hkv, padded in cases:
-        d = 128
-        q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+    for b, s, t, h, hkv, d, causal, how in cases:
+        if how == "fused":
+            q, k, v = _fused_qkv(b, s, h, hkv, d, gen)
+            check(not v.is_contiguous(), "the fused case reads strided views")
+        else:
+            q, k, v = (_randn((b, s, h, d), gen), _randn((b, t, hkv, d), gen),
+                       _randn((b, t, hkv, d), gen))
         do = _randn((b, s, h, d), gen)
-        fn = (flash_mod.flash_attention_trainable_padded if padded
-              else flash_mod.flash_attention_trainable)
+        if how == "padded":
+            fn = flash_mod.flash_attention_trainable_padded
+        else:
+            fn = functools.partial(flash_mod.flash_attention_trainable, causal=causal)
         got = _flash_grads(fn, q, k, v, do)
         sync()
-        want = _flash_grads(_plain_trainable, q, k, v, do)
+        want = _flash_grads(lambda q, k, v: flash_mod.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal), q, k, v, do)
         errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
         check(all(torch.isfinite(g).all().item() for g in got), "flash backward finite")
         check(errs[0] <= FLASH_TOL, f"K4a output error {errs[0]} > {FLASH_TOL}")
-        stat_errs = _flash_statistics_errors(q, k, v)
-        rel = []
-        for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
-            r2 = ((g - w).norm() / w.norm()).item()
-            rmax = (g - w).abs().max().item() / w.abs().max().item()
-            rel.append(f"{name} rel L2 {r2:.3e} rel max {rmax:.3e}")
-            check(r2 <= GRAD_REL_L2 and rmax <= GRAD_REL_MAX,
-                  f"{name}: rel L2 {r2} (bound {GRAD_REL_L2}), rel max {rmax} (bound {GRAD_REL_MAX})")
+        stat_errs = _flash_statistics_errors(q, k, v, causal)
+        rel = [_check_grad(name, g, w, GRAD_REL_L2, GRAD_REL_MAX)
+               for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:])]
+        walks = _flash_backward_against_schedules(q, k, v, do, causal)
         worst["fwd"] = max(worst["fwd"], errs[0])
         worst["dq"] = max(worst["dq"], errs[1])
         worst["dkv"] = max(worst["dkv"], errs[2], errs[3])
-        log(f"[K4 flash train] B={b} S={s} H={h} Hkv={hkv} D={d} padded={padded}: o max_abs_err "
-            f"{errs[0]:.3e}; m max_abs_err {stat_errs[0]:.3e} (tol {STAT_M_TOL}), l max rel err "
-            f"{stat_errs[1]:.3e} (tol {STAT_L_REL_TOL}); dq/dk/dv max_abs_err {errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; "
-            + "; ".join(rel))
+        log(f"[K4 flash train] B={b} S={s} T={t} H={h} Hkv={hkv} D={d} causal={causal} {how}: "
+            f"o max_abs_err {errs[0]:.3e}; m max_abs_err {stat_errs[0]:.3e} (tol {STAT_M_TOL}), "
+            f"l max rel err {stat_errs[1]:.3e} (tol {STAT_L_REL_TOL}); dq/dk/dv max_abs_err "
+            f"{errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e}; " + "; ".join(rel) + "; " + walks)
         if rows is None:
             rows = _time_flash_backward(q, k, v, do)
     for name, row in rows.items():
@@ -678,17 +733,21 @@ def phase_flash_backward(gen):
 
 
 def _time_flash_backward(q, k, v, do):
-    """Each K4 kernel alone (the backward ones from saved residuals), the
-    plain forward and backward and scaled_dot_product_attention's, at one
-    shape; returns each kernel's row for the JSON line."""
+    """Each K4 kernel alone (the backward ones and the di preamble from saved
+    residuals), the plain forward and backward and
+    scaled_dot_product_attention's, at one shape; returns each kernel's row
+    for the JSON line."""
     b, s, h, d = q.shape
     scale = d ** -0.5
     o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    di = flash_mod._bwd_di_cuda(o, do)
     t = {
         "fwd": time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale)),
+        "di": time_ms(lambda: flash_mod._bwd_di_cuda(o, do)),
+        "plain_di": time_ms(lambda: flash_mod.flash_di_plain(o, do)),
         "dkv": time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale)),
         "dq": time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale)),
+        "bwd": time_ms(lambda: flash_mod._bwd_cuda(q, k, v, o, m, l, do, True, scale)),
         "plain_fwd": time_ms(lambda: flash_mod.flash_attention_plain(q, k, v)),
     }
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -700,16 +759,20 @@ def _time_flash_backward(q, k, v, do):
     t["lib_bwd"] = time_ms(
         lambda: torch.autograd.grad(ol, (qt, kt, vt), _bhsd(do), retain_graph=True))
     product = 2 * b * h * s * s * d / 2  # one causal S x S x D product
+    tensor, stat = 2 * q.numel(), 4 * b * h * s  # bytes of a bf16 [B, S, H, D], of an fp32 [B, H, S]
+    together = t["di"] + t["dkv"] + t["dq"]
     log(f"[K4 flash train] B={b} S={s} H={h} D={d} times: K4a {t['fwd']:.4f} ms "
         f"({2 * product / t['fwd'] / 1e9:.1f} TFLOP/s), K4b {t['dkv']:.4f} ms "
         f"({4 * product / t['dkv'] / 1e9:.1f} TFLOP/s), K4c {t['dq']:.4f} ms "
-        f"({3 * product / t['dq'] / 1e9:.1f} TFLOP/s); plain forward {t['plain_fwd']:.4f} ms, "
-        f"plain backward {t['plain_bwd']:.4f} ms; scaled_dot_product_attention forward "
-        f"{t['lib_fwd']:.4f} ms, backward (dq, dk and dv in one call) {t['lib_bwd']:.4f} ms")
+        f"({3 * product / t['dq'] / 1e9:.1f} TFLOP/s), di {t['di']:.4f} ms (its torch line "
+        f"{t['plain_di']:.4f} ms, bytes bound {bound_ms(2 * tensor + stat, 0)[0]:.4f} ms); "
+        f"di + K4b + K4c {together:.4f} ms, the three launched back to back {t['bwd']:.4f} ms; "
+        f"plain forward {t['plain_fwd']:.4f} ms, plain backward {t['plain_bwd']:.4f} ms; "
+        f"scaled_dot_product_attention forward {t['lib_fwd']:.4f} ms, backward (dq, dk and dv "
+        f"in one call, its own di included) {t['lib_bwd']:.4f} ms: {together / t['lib_bwd']:.2f}x")
     # bytes: bf16 [B, S, H, D] tensors in and out, fp32 [B, H, S] statistics;
     # operations: the products each kernel's function needs from its inputs
     # (K4a: S and PV; K4b: S, dP, dV, dK; K4c: S, dP, dQ), causal halves
-    tensor, stat = 2 * q.numel(), 4 * b * h * s
     return {
         "fwd": kernel_row(None, t["fwd"], t["plain_fwd"], 4 * tensor + 2 * stat, 2 * product,
                           t["lib_fwd"]),

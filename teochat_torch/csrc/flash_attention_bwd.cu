@@ -1,365 +1,783 @@
-// Flash-attention backward for Hopper (sm_90a): K4b (dK, dV) and K4c (dQ).
+// Flash-attention backward for Hopper (sm_90a): di, K4b (dK, dV) and K4c (dQ).
 //
 // Replaces teochat_tpu/ops/flash_attention.py::_bwd_dkv_kernel and
 // ::_bwd_dq_kernel (driven there by _flash_bwd under the custom_vjp
 // flash_attention_trainable). Both recompute the probabilities from the
 // forward's per-row statistics (K4a in flash_attention.cu) instead of storing
 // them:
-//   s  = (q k^T) * scale, causal mask -0.7 * FLT_MAX (not -inf)
+//   s  = (q k^T) * scale, masked scores -0.7 * FLT_MAX (not -inf)
 //   p  = exp(s - m) * l_inv,  l_inv = 1 where l == 0
-//   ds = p * (dp - di),  dp = dO v^T,  di = rowsum(o * dO) (computed before)
+//   ds = p * (dp - di),  dp = dO v^T,  di = rowsum(o * dO)
 //   dV = sum p^T dO,  dK = sum ds^T q * scale,  dQ = sum ds k * scale
+// di is a reduction the JAX package computes outside its kernels; here a
+// small preamble kernel computes it (8 or 16 lanes a row), so that no fp32
+// copy of o and dO is ever made.
 //
-// What bounds them on an H100: at training lengths (S = 1024, D = 128) the
-// four products per tile pair (two to rebuild p and dp, two to accumulate),
-// i.e. tensor-core FLOPs; q, k, v and dO are re-read from L2 once per tile
-// pair. Both kernels issue every product on mma.sync m16n8k16 (bf16 in, fp32
-// accumulation), keep the gradient accumulators in registers for the whole
-// loop, and turn p and ds into A operands in registers (mma_bf16.cuh). p and
-// ds are rounded to bf16 before their products; the TPU kernels multiply them
-// in fp32.
+// What bounds K4b and K4c on an H100: at training lengths (S = 1024,
+// D = 128) the four (K4b) or three (K4c) products a tile pair, that is
+// tensor-core operations; the bytes of their inputs and outputs alone would
+// take a fifth of that time or less. Only `wgmma` reaches the tensor cores'
+// full rate, and it reads its B operand from shared memory. There is one
+// exponential a score against four or three products, so the softmax part
+// weighs a third of what it does in the forward. The design follows the
+// forward's (hopper_async.cuh has the pieces):
+// - one block an SM, which walks over many work items: two consumer
+//   warpgroups and one producer warp; `setmaxnreg` hands the producer's
+//   registers to the consumers, which keep every accumulator in registers;
+// - the tiles a block owns stay resident in shared memory, the tiles it
+//   walks arrive through a ring of stages, each one TMA load a 64-column box
+//   written with the 128-byte swizzle, its arrival counted on the stage's
+//   `full` mbarrier; a consumer warp arrives on the stage's `empty` barrier
+//   after the last product that reads it. The next item's resident tiles
+//   have barriers of their own, so they arrive while this item is written
+//   out. TMA fills rows past the tensor's end with zeros: no load is guarded;
+// - the two products that rebuild p and dp read both operands from shared
+//   memory (K-major: the reduction runs along D); p and ds are made in the
+//   score registers, rounded to bf16 (the TPU kernels multiply them in fp32)
+//   and packed as the register A operand of the accumulating products, whose
+//   B operand is a tile read MN-major (`tnspB`) as it was loaded: no
+//   transposed copy, and no score ever visits shared memory;
+// - a work item pairs a long causal tile with a short one, so that every
+//   item costs the same and handing them out in turn balances the SMs;
+// - the two consumer warpgroups run free: each starts the accumulating
+//   products of one step and the score products of the next as one batch and
+//   waits for it, and runs its exponentials while the other's batch has the
+//   tensor cores. Taking turns as in the forward (a pair of named barriers)
+//   only costs time here, with three or four products for one exponential a
+//   score (K4c 0.147 ms against 0.125 on an H100 at B4 S1024 H32 D128), and
+//   is not kept. Waiting for the score products alone, so that a
+//   warpgroup's exponentials run under its own accumulating products, made
+//   ptxas put a wait after every `wgmma` and spill: not kept either.
 //
-// K4b: one block of 4 warps per (kv tile of 64 keys, kv head, batch row); each
-// warp owns 16 keys. The Pallas grid walks (group member, q tile) pairs in
-// order so one VMEM scratch sums the GQA group's gradient; here that walk is
-// the loop inside the block, over the q heads of the group and the q tiles at
-// or below the diagonal. dK and dV stay in registers: no atomics, so the
-// result does not depend on scheduling. The kv tile stays in shared memory;
-// each step stages a 32-row q and dO tile and its m, 1/l and di.
+// K4c (dQ): a block owns DQ_BQ = 128 query rows of one head, 64 a
+// warpgroup; Q and dO stay resident, K and V tiles of DQ_BK = 64 keys come
+// through the ring up to the diagonal (tiles of 128 keys spill and are
+// slower). S = Q K^T, dP = dO V^T, then dQ += dS K with the K tile read
+// MN-major. Each thread keeps the softmax offset (m and l in one number, see
+// `softmax_offset`) and the di of its two rows in registers.
 //
-// K4c: one block of 4 warps per (q tile of 64 rows, q head, batch row); each
-// warp owns 16 rows, whose q and dO fragments stay in registers while the
-// loop walks kv tiles of 32 keys up to the diagonal.
+// K4b (dK, dV): the transposed form, which needs no transpose of P: a block
+// owns DKV_BK = 128 keys of one kv head, 64 a warpgroup; K and V stay
+// resident, Q and dO tiles of DKV_BQ = 64 rows come through the ring, for
+// each q head of the kv head's group in turn and each q tile at or below the
+// diagonal. S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
+// with the dO and Q tiles read MN-major. dK and dV are 128 registers a
+// thread, so a score tile takes DKV_SUB = 32 rows of the stage at a time
+// (`wgmma` at N = 32: 16 + 16 registers): with 64-row score tiles ptxas
+// spilled the packed operands and put a wait after every `wgmma`. The
+// statistics are now one a column: the producer warp writes the tile's
+// softmax offsets and di into the stage beside the TMA loads. The Pallas
+// grid walks (group member, q tile) pairs in order so that one VMEM scratch
+// sums the GQA group's gradient; here that walk is the loop inside the block
+// and the sum stays in registers: no atomics, so the result does not depend
+// on scheduling.
 //
 // Layout: q and dO are read as [B, S, H, D] and k, v as [B, T, Hkv, D]
-// through their strides (last dimension contiguous, 16-byte aligned rows);
+// through their strides (the last dimension contiguous, the others multiples
+// of 8 elements, the base aligned to 16 bytes: what a tensor map takes);
 // m, l and di are fp32 [B, H, S]; dq, dk and dv are written contiguous in the
-// inputs' shapes. Causal masking assumes S == T. Later work: wgmma + TMA,
-// a pipelined tile ring, di folded into a preamble.
+// inputs' shapes. Keys past T are masked; rows past S are computed on zeros
+// and add exactly nothing. Causal masking assumes S == T.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper_async.cuh"
 #include "mma_bf16.cuh"
+
+// K4c's kv tile and the rings' depth; chip_probe.py builds this file with
+// other values to time them.
+#ifndef TEOCHAT_FLASH_BWD_DQ_BK
+#define TEOCHAT_FLASH_BWD_DQ_BK 64
+#endif
+#ifndef TEOCHAT_FLASH_BWD_STAGES
+#define TEOCHAT_FLASH_BWD_STAGES 3
+#endif
 
 namespace {
 
 using namespace teochat;
 
-constexpr int NTHREADS = 128;
-constexpr int BKV = 64;   // K4b: keys per block (16 per warp)
-constexpr int BQS = 32;   // K4b: q rows staged per step
-constexpr int BQD = 64;   // K4c: q rows per block (16 per warp)
-constexpr int BKS = 32;   // K4c: keys per kv step
+constexpr int DKV_BK = 128;  // K4b: keys a block owns
+constexpr int DKV_BQ = 64;   // K4b: query rows a ring stage
+constexpr int DKV_SUB = 32;  // K4b: query rows a score tile (see the kernel's note)
+constexpr int PARTS = DKV_BQ / DKV_SUB;
+constexpr int DQ_BQ = 128;   // K4c: query rows a block owns
+constexpr int DQ_BK = TEOCHAT_FLASH_BWD_DQ_BK;  // K4c: keys a ring stage
+constexpr int STAGES = TEOCHAT_FLASH_BWD_STAGES;
+constexpr int NWG = 2;  // consumer warpgroups, 64 rows of the owned tile each
+constexpr int NTHREADS = (NWG + 1) * 128;
+static_assert(DKV_BK == NWG * 64 && DQ_BQ == NWG * 64, "a block owns two warpgroups' 64 rows");
+static_assert(DKV_BQ % DKV_SUB == 0, "a ring stage is whole score tiles");
+static_assert(DQ_BK == 64 || DQ_BK == 128, "a kv tile is one or two 64-key wgmma widths");
+// registers a thread after setmaxnreg: (2 consumers + producer) * 128 threads
+// may take the 64,512 the block was launched with (168 each), no more: the
+// registers beyond that are never handed out, and `setmaxnreg.inc` waits for
+// them. K4b's producer is a whole warp that also loads the statistics and
+// spills below ~46 registers; K4c's is one thread
+constexpr int DKV_CONSUMER_REGS = 224, DKV_PRODUCER_REGS = 56;
+constexpr int DQ_CONSUMER_REGS = 240, DQ_PRODUCER_REGS = 24;
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct Strides {
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long o_sb, o_ss, o_sh;  // dO
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = exp(s - m) / l = 2^(s scale log2(e) - offset), offset = m log2(e) +
+// log2(l): a row's maximum and denominator in one number, so that p costs one
+// multiply-add and one exponential. 1 / l = 1 where l == 0.
+__device__ __forceinline__ float softmax_offset(float m, float l) {
+  return l == 0.f ? m * LOG2E : fmaf(m, LOG2E, log2f(l));
+}
+
+__device__ __forceinline__ void st_shared_f32(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// The box of `map` that starts at column d0 of row `row` of head `head`.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int rows_first, int d0, int row, int head, int b) {
+  tma_load_4d(dst, map, bar, d0, rows_first ? row : head, rows_first ? head : row, b);
+}
+
+// `order` says for q (bit 0), k (bit 1), v (bit 2) and dO (bit 3) whether the
+// tensor map has rows before heads.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+  int order;
+};
+
+// ---------------------------------------------------------------- di
+
+// di[b, h, s] = sum_d o[b, s, h, d] * dO[b, s, h, d] in fp32, both tensors
+// contiguous: D / 8 lanes a row, each with one 16-byte load from either
+// tensor, so a warp reads whole rows one after the other.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_di_kernel(const uint16_t* __restrict__ o, const uint16_t* __restrict__ dout,
+                    float* __restrict__ di, long long rows, int S, int H) {
+  constexpr int LANES = D / 8;  // lanes a row: 8 or 16
+  const long long r = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LANES;
+  const int part = threadIdx.x % LANES;
+  float sum = 0.f;
+  if (r < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + r * D + part * 8);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + r * D + part * 8);
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 is the upper half of its fp32
+      sum = fmaf(__uint_as_float(aw[i] << 16), __uint_as_float(bw[i] << 16), sum);
+      sum = fmaf(__uint_as_float(aw[i] & 0xffff0000u), __uint_as_float(bw[i] & 0xffff0000u), sum);
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (part == 0 && r < rows) {
+    const long long bs = r / H;  // r = (b * S + s) * H + h
+    const int h = static_cast<int>(r % H), s = static_cast<int>(bs % S);
+    di[((bs / S) * H + h) * S + s] = sum;
+  }
+}
+
+// ---------------------------------------------------------------- K4c: dQ
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // 1024 to align the tiles, Q and dO, the K and V rings, the barriers
+  return 1024 + size_t(2 * DQ_BQ + 2 * STAGES * DQ_BK) * D * 2 + 8 * (2 + 2 * STAGES);
+}
+
+// One query tile of one head: its first row and the kv tiles it walks.
+struct DqTile {
+  int b, h, q0, n_kv;
+};
+
+// The query tiles a block works through, in order. A work item is one head's
+// causal tiles qt and n_qt - 1 - qt together (every item then walks the same
+// number of keys), or one tile of a non-causal call. Items that follow each
+// other belong to the same head or its neighbour and run at the same time on
+// neighbouring SMs, which keeps K and V in the L2 while they are needed.
+struct DqWalk {
+  int n_qt, per_head, n_items, H, T, causal;
+  int item, half;
+
+  __device__ DqWalk(int S, int T_, int H_, int B, int causal_)
+      : n_qt((S + DQ_BQ - 1) / DQ_BQ), H(H_), T(T_), causal(causal_), item(blockIdx.x), half(0) {
+    per_head = causal ? (n_qt + 1) / 2 : n_qt;
+    n_items = per_head * H * B;
+  }
+
+  __device__ bool next(DqTile& t) {
+    if (item >= n_items) return false;
+    const int bh = item / per_head, pi = item % per_head;
+    const int far = n_qt - 1 - pi;  // the long tile first
+    const int qt = !causal ? pi : half == 0 ? far : pi;
+    t.b = bh / H, t.h = bh % H, t.q0 = qt * DQ_BQ;
+    t.n_kv = (T + DQ_BK - 1) / DQ_BK;
+    if (causal) t.n_kv = min(t.n_kv, (t.q0 + DQ_BQ - 1) / DQ_BK + 1);
+    if (causal && half == 0 && far != pi) {
+      half = 1;
+    } else {
+      half = 0, item += gridDim.x;
+    }
+    return true;
+  }
 };
 
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * BKV + 2 * BQS) * (D + 8) * 2 + 3 * BQS * 4;
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ m,
+                    const float* __restrict__ l, const float* __restrict__ di,
+                    uint16_t* __restrict__ dq, int B, int S, int T, int H, int Hkv, float scale,
+                    int causal) {
+  constexpr int BOXES = D / 64;  // 64-column boxes a row
+  constexpr uint32_t Q_BOX = DQ_BQ * SWIZZLE_ROW_BYTES, KV_BOX = DQ_BK * SWIZZLE_ROW_BYTES;
+  constexpr uint32_t Q_BYTES = BOXES * Q_BOX, KV_BYTES = BOXES * KV_BOX;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + Q_BYTES;
+  const uint32_t k_s = do_s + Q_BYTES;
+  const uint32_t v_s = k_s + STAGES * KV_BYTES;
+  const uint32_t q_full = v_s + STAGES * KV_BYTES, q_empty = q_full + 8;
+  auto kv_full = [q_full](int stage) { return q_full + 8u * (2 + stage); };
+  auto kv_empty = [q_full](int stage) { return q_full + 8u * (2 + STAGES + stage); };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);         // the producer's arrival, with the bytes to come
+    mbar_init(q_empty, NWG * 4);  // one arrival a consumer warp
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(kv_full(st), 1);
+      mbar_init(kv_empty(st), NWG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  DqWalk walk(S, T, H, B, causal);
+  DqTile tile;
+  // tiles and kv tiles this block has started: they number the barriers'
+  // phases, the same on the producer's and the consumers' side
+  int n_tiles = 0, n_kv_tiles = 0;
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == NWG) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<DQ_PRODUCER_REGS>();
+    if (threadIdx.x != NWG * 128) return;
+    tma_prefetch_map(&maps.q);
+    tma_prefetch_map(&maps.k);
+    tma_prefetch_map(&maps.v);
+    tma_prefetch_map(&maps.dout);
+    while (walk.next(tile)) {
+      const int hk = tile.h / (H / Hkv);
+      // a fresh buffer is free at once; a used one when its readers have arrived
+      mbar_wait(q_empty, (n_tiles & 1) ^ 1);
+      mbar_arrive_expect_tx(q_full, 2 * Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < BOXES; ++c) {
+        load_rows(q_s + c * Q_BOX, &maps.q, q_full, maps.order & 1, c * 64, tile.q0, tile.h,
+                  tile.b);
+        load_rows(do_s + c * Q_BOX, &maps.dout, q_full, maps.order & 8, c * 64, tile.q0, tile.h,
+                  tile.b);
+      }
+      for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
+        const int st = n_kv_tiles % STAGES;
+        mbar_wait(kv_empty(st), ((n_kv_tiles / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(kv_full(st), 2 * KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c) {
+          load_rows(k_s + st * KV_BYTES + c * KV_BOX, &maps.k, kv_full(st), maps.order & 2,
+                    c * 64, j * DQ_BK, hk, tile.b);
+          load_rows(v_s + st * KV_BYTES + c * KV_BOX, &maps.v, kv_full(st), maps.order & 4,
+                    c * 64, j * DQ_BK, hk, tile.b);
+        }
+      }
+      ++n_tiles;
+    }
+  } else {
+    // ------------------------------------------------------------ consumer
+    setmaxnreg_inc<DQ_CONSUMER_REGS>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int gid = lane >> 2, tig = lane & 3;  // fragment coordinates
+    const float c2 = scale * LOG2E;             // scores in base-2 units
+    const uint64_t q_desc = smem_desc_k_major(q_s + wg * 64 * SWIZZLE_ROW_BYTES);
+    const uint64_t do_desc = smem_desc_k_major(do_s + wg * 64 * SWIZZLE_ROW_BYTES);
+
+    float s[DQ_BK / 2], dp[DQ_BK / 2];
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows x the keys of kv
+    // tile `n` of the block's count; the last one of a query tile frees Q and dO
+    auto scores = [&](int n, bool last) {
+      const int st = n % STAGES;
+      mbar_wait(kv_full(st), (n / STAGES) & 1);
+      const uint64_t k_desc = smem_desc_k_major(k_s + st * KV_BYTES);
+      const uint64_t v_desc = smem_desc_k_major(v_s + st * KV_BYTES);
+      wgmma_fence();
+      wgmma_ss_first(s, q_desc, k_desc);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;  // four 16-deep steps a 64-column box
+        wgmma_ss(s, desc_advance(q_desc, (kk / 4) * Q_BOX + in_box),
+                 desc_advance(k_desc, (kk / 4) * KV_BOX + in_box), 1);
+      }
+      wgmma_ss_first(dp, do_desc, v_desc);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;
+        wgmma_ss(dp, desc_advance(do_desc, (kk / 4) * Q_BOX + in_box),
+                 desc_advance(v_desc, (kk / 4) * KV_BOX + in_box), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (last && lane == 0) mbar_arrive(q_empty);
+    };
+
+    while (walk.next(tile)) {
+      const int row_lo = tile.q0 + wg * 64 + warp * 16 + gid;  // this thread's rows: row_lo, + 8
+      // p = exp(s - m) / l = 2^(s c2 - ml2): the row's maximum and denominator
+      // in one base-2 offset. Rows past S take m = 0, 1 / l = 1, di = 0 (their
+      // q and dO are zeros)
+      float ml2[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + 8 * r;
+        if (row < S) {
+          const long long idx = (static_cast<long long>(tile.b) * H + tile.h) * S + row;
+          ml2[r] = softmax_offset(m[idx], l[idx]);
+          di_r[r] = di[idx];
+        }
+      }
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      mbar_wait(q_full, n_tiles & 1);
+      mbar_wait(kv_full(n_kv_tiles % STAGES), (n_kv_tiles / STAGES) & 1);
+      scores(n_kv_tiles, tile.n_kv == 1);
+
+      for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
+        const int k0 = j * DQ_BK;
+        // scores into base-2 units, less the row's offset
+#pragma unroll
+        for (int i = 0; i < DQ_BK / 2; ++i) s[i] = fmaf(s[i], c2, -ml2[(i >> 1) & 1]);
+        // mask (ragged keys and the causal diagonal) where the tile needs it
+        if (k0 + DQ_BK > T || (causal && k0 + DQ_BK - 1 > row_lo - gid)) {
+#pragma unroll
+          for (int i = 0; i < DQ_BK / 2; ++i) {
+            const int row = row_lo + ((i >> 1) & 1) * 8;
+            const int col = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+            if (col >= T || (causal && col > row)) s[i] = MASK_VALUE;
+          }
+        }
+        // ds = p (dp - di), in place of s
+#pragma unroll
+        for (int i = 0; i < DQ_BK / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          s[i] = exp2_fast(s[i]) * (dp[i] - di_r[r]);
+        }
+        // dS as the A operand of dS K: registers 8 kk .. 8 kk + 7 are step kk
+        uint32_t a[DQ_BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+
+        // dQ += dS K (K read MN-major from the tile as it was
+        // loaded), then the next tile's scores
+        const int st = n_kv_tiles % STAGES;
+        const uint64_t k_desc = smem_desc_mn_major(k_s + st * KV_BYTES, KV_BOX);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk)
+          wgmma_rs_tb(acc, a[kk], desc_advance(k_desc, kk * 16 * SWIZZLE_ROW_BYTES), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(kv_empty(st));
+        if (j + 1 < tile.n_kv) scores(n_kv_tiles + 1, j + 2 == tile.n_kv);
+      }
+      ++n_tiles;
+
+      // the other warpgroup and the loads go on while this one writes its rows
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + 8 * r;
+        if (row >= S) continue;
+        uint16_t* out = dq + ((static_cast<long long>(tile.b) * S + row) * H + tile.h) * D;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<uint32_t*>(out + dt * 8 + tig * 2) =
+              pack_bf16(acc[4 * dt + 2 * r] * scale, acc[4 * dt + 2 * r + 1] * scale);
+      }
+    }
+  }
 }
 
+// ---------------------------------------------------------------- K4b: dK, dV
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ di, uint16_t* __restrict__ dk,
-                     uint16_t* __restrict__ dv, int S, int T, int H, int Hkv,
-                     Strides st, float scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;               // [BKV][LD]
-  uint16_t* vs = ks + BKV * LD;      // [BKV][LD]
-  uint16_t* qs = vs + BKV * LD;      // [BQS][LD]
-  uint16_t* dos = qs + BQS * LD;     // [BQS][LD]
-  float* ms = reinterpret_cast<float*>(dos + BQS * LD);  // [BQS]
-  float* linvs = ms + BQS;
-  float* dis = linvs + BQS;
+constexpr size_t dkv_smem_bytes() {
+  // 1024 to align the tiles, K and V, the Q and dO rings, the statistics'
+  // ring (softmax offset and di a row), the barriers
+  return 1024 + size_t(2 * DKV_BK + 2 * STAGES * DKV_BQ) * D * 2 + STAGES * 2 * DKV_BQ * 4 +
+         8 * (2 + 2 * STAGES);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * BKV;  // tile 0 has the most q tiles: it starts first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int wr = warp * 16;  // this warp's first key inside the tile
+// One kv tile of one kv head: its first key and the q tiles each head of the
+// group walks, [qt0, n_qt).
+struct DkvTile {
+  int b, hk, k0, qt0;
+};
 
-  load_tile<D>(ks, LD, k + b * st.k_sb + hk * st.k_sh, st.k_st, k0, BKV, T, tid, NTHREADS);
-  load_tile<D>(vs, LD, v + b * st.v_sb + hk * st.v_sh, st.v_st, k0, BKV, T, tid, NTHREADS);
+// The kv tiles a block works through. A work item is one kv head's causal
+// tiles j and n_kt - 1 - j together (tile j walks the q tiles from its
+// diagonal down, so the pair always walks the same number), or one tile of a
+// non-causal call.
+struct DkvWalk {
+  int item, half;  // the rest is worked out from the sizes each time: fewer registers held
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  __device__ DkvWalk() : item(blockIdx.x), half(0) {}
+
+  __device__ bool next(DkvTile& t, int T, int Hkv, int B, int causal) {
+    const int n_kt = (T + DKV_BK - 1) / DKV_BK;
+    const int per_head = causal ? (n_kt + 1) / 2 : n_kt;
+    if (item >= per_head * Hkv * B) return false;
+    const int bh = item / per_head, pi = item % per_head;
+    const int far = n_kt - 1 - pi;
+    const int kt = !causal ? pi : half == 0 ? pi : far;  // the long tile first
+    t.b = bh / Hkv, t.hk = bh % Hkv, t.k0 = kt * DKV_BK;
+    t.qt0 = causal ? t.k0 / DKV_BQ : 0;  // q tiles wholly above the diagonal are skipped
+    if (causal && half == 0 && far != pi) {
+      half = 1;
+    } else {
+      half = 0, item += gridDim.x;
+    }
+    return true;
   }
+};
 
-  const int nq = (S + BQS - 1) / BQS;
-  const int qt0 = causal ? k0 / BQS : 0;  // q tiles wholly above the diagonal are skipped
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const uint16_t* qb = q + b * st.q_sb + h * st.q_sh;
-    const uint16_t* ob = dout + b * st.o_sb + h * st.o_sh;
-    const long long row_base = (static_cast<long long>(b) * H + h) * S;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BQS;
-      __syncthreads();  // every warp is done with the previous q tile
-      load_tile<D>(qs, LD, qb, st.q_ss, q0, BQS, S, tid, NTHREADS);
-      load_tile<D>(dos, LD, ob, st.o_ss, q0, BQS, S, tid, NTHREADS);
-      for (int i = tid; i < BQS; i += NTHREADS) {
-        // rows past S: q = dO = 0 and di = 0, so they add exactly nothing
-        float mm = 0.f, ll = 1.f, dd = 0.f;
-        if (q0 + i < S) {
-          mm = m[row_base + q0 + i];
-          ll = l[row_base + q0 + i];
-          dd = di[row_base + q0 + i];
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ m,
+                     const float* __restrict__ l, const float* __restrict__ di,
+                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int B, int S, int T,
+                     int H, int Hkv, float scale, int causal) {
+  constexpr int BOXES = D / 64;
+  constexpr uint32_t KV_BOX = DKV_BK * SWIZZLE_ROW_BYTES, Q_BOX = DKV_BQ * SWIZZLE_ROW_BYTES;
+  constexpr uint32_t KV_BYTES = BOXES * KV_BOX, Q_BYTES = BOXES * Q_BOX;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + KV_BYTES;
+  const uint32_t q_s = v_s + KV_BYTES;
+  const uint32_t do_s = q_s + STAGES * Q_BYTES;
+  const uint32_t stat_s = do_s + STAGES * Q_BYTES;
+  // the statistics are written and read with ordinary loads and stores
+  const uint32_t kv_full = stat_s + STAGES * 2 * DKV_BQ * 4, kv_empty = kv_full + 8;
+  auto q_full = [kv_full](int stage) { return kv_full + 8u * (2 + stage); };
+  auto q_empty = [kv_full](int stage) { return kv_full + 8u * (2 + STAGES + stage); };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, NWG * 4);  // one arrival a consumer warp
+    for (int st = 0; st < STAGES; ++st) {
+      // the lane that announces the loads, then every lane after its statistics
+      mbar_init(q_full(st), 33);
+      mbar_init(q_empty(st), NWG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  DkvWalk walk;
+  DkvTile tile;
+  const int G = H / Hkv, n_qt = (S + DKV_BQ - 1) / DKV_BQ;
+  int n_tiles = 0, n_steps = 0;  // they number the barriers' phases on both sides
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == NWG) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<DKV_PRODUCER_REGS>();
+    if (threadIdx.x >= NWG * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      tma_prefetch_map(&maps.q);
+      tma_prefetch_map(&maps.k);
+      tma_prefetch_map(&maps.v);
+      tma_prefetch_map(&maps.dout);
+    }
+    while (walk.next(tile, T, Hkv, B, causal)) {
+      if (lane == 0) {
+        mbar_wait(kv_empty, (n_tiles & 1) ^ 1);
+        mbar_arrive_expect_tx(kv_full, 2 * KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c) {
+          load_rows(k_s + c * KV_BOX, &maps.k, kv_full, maps.order & 2, c * 64, tile.k0, tile.hk,
+                    tile.b);
+          load_rows(v_s + c * KV_BOX, &maps.v, kv_full, maps.order & 4, c * 64, tile.k0, tile.hk,
+                    tile.b);
         }
-        ms[i] = mm;
-        linvs[i] = ll == 0.f ? 1.f : 1.f / ll;
-        dis[i] = dd;
       }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQS queries
-      float pt[BQS / 8][4], dst[BQS / 8][4];
+      for (int g = 0; g < G; ++g) {
+        const int h = tile.hk * G + g;
+        const long long row_base = (static_cast<long long>(tile.b) * H + h) * S;
+        for (int qt = tile.qt0; qt < n_qt; ++qt, ++n_steps) {
+          const int st = n_steps % STAGES, q0 = qt * DKV_BQ;
+          mbar_wait(q_empty(st), ((n_steps / STAGES) & 1) ^ 1);
+          if (lane == 0) {  // the tiles first: their latency is the longer
+            mbar_arrive_expect_tx(q_full(st), 2 * Q_BYTES);
 #pragma unroll
-      for (int nt = 0; nt < BQS / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pt[nt][e] = dst[nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, ks, LD, wr, kk * 16, gid, tig);
-        load_a(av, vs, LD, wr, kk * 16, gid, tig);
-#pragma unroll
-        for (int nt = 0; nt < BQS / 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_rows(b0, b1, qs, LD, nt * 8, kk * 16, gid, tig);
-          mma_16816(pt[nt], ak, b0, b1);
-          load_b_rows(b0, b1, dos, LD, nt * 8, kk * 16, gid, tig);
-          mma_16816(dst[nt], av, b0, b1);
+            for (int c = 0; c < BOXES; ++c) {
+              load_rows(q_s + st * Q_BYTES + c * Q_BOX, &maps.q, q_full(st), maps.order & 1,
+                        c * 64, q0, h, tile.b);
+              load_rows(do_s + st * Q_BYTES + c * Q_BOX, &maps.dout, q_full(st), maps.order & 8,
+                        c * 64, q0, h, tile.b);
+            }
+          }
+          const uint32_t stat = stat_s + st * 2 * DKV_BQ * 4;
+          for (int i = lane; i < DKV_BQ; i += 32) {
+            // rows past S: q = dO = 0 and di = 0, so they add exactly nothing
+            float off = 0.f, dd = 0.f;
+            if (q0 + i < S) {
+              off = softmax_offset(m[row_base + q0 + i], l[row_base + q0 + i]);
+              dd = di[row_base + q0 + i];
+            }
+            st_shared_f32(stat + 4 * i, off);
+            st_shared_f32(stat + 4 * (DKV_BQ + i), dd);
+          }
+          mbar_arrive(q_full(st));
         }
       }
+      ++n_tiles;
+    }
+  } else {
+    // ------------------------------------------------------------ consumer
+    setmaxnreg_inc<DKV_CONSUMER_REGS>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int gid = lane >> 2, tig = lane & 3;  // fragment coordinates
+    const float c2 = scale * LOG2E;             // scores in base-2 units
+    const uint64_t k_desc = smem_desc_k_major(k_s + wg * 64 * SWIZZLE_ROW_BYTES);
+    const uint64_t v_desc = smem_desc_k_major(v_s + wg * 64 * SWIZZLE_ROW_BYTES);
 
-      // p^T and ds^T, element by element
+    float st_[DKV_SUB / 2], dpt[DKV_SUB / 2];
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys x the
+    // DKV_SUB rows of part `part` of step `n` of the block's count; the last
+    // one of a kv tile frees K and V
+    auto scores = [&](int n, int part) {
+      const int st = n % STAGES;
+      if (part == 0) mbar_wait(q_full(st), (n / STAGES) & 1);
+      const uint32_t rows = part * DKV_SUB * SWIZZLE_ROW_BYTES;
+      const uint64_t q_desc = smem_desc_k_major(q_s + st * Q_BYTES + rows);
+      const uint64_t do_desc = smem_desc_k_major(do_s + st * Q_BYTES + rows);
+      wgmma_ss_first(st_, k_desc, q_desc);
 #pragma unroll
-      for (int nt = 0; nt < BQS / 8; ++nt) {
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;  // four 16-deep steps a 64-column box
+        wgmma_ss(st_, desc_advance(k_desc, (kk / 4) * KV_BOX + in_box),
+                 desc_advance(q_desc, (kk / 4) * Q_BOX + in_box), 1);
+      }
+      wgmma_ss_first(dpt, v_desc, do_desc);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + wr + gid + (e >= 2 ? 8 : 0);
-          const int qi = nt * 8 + tig * 2 + (e & 1);
-          float s = pt[nt][e] * scale;
-          if (key >= T || (causal && key > q0 + qi)) s = MASK_VALUE;
-          const float p = __expf(s - ms[qi]) * linvs[qi];
-          pt[nt][e] = p;
-          dst[nt][e] = p * (dst[nt][e] - dis[qi]);
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;
+        wgmma_ss(dpt, desc_advance(v_desc, (kk / 4) * KV_BOX + in_box),
+                 desc_advance(do_desc, (kk / 4) * Q_BOX + in_box), 1);
+      }
+    };
+
+    while (walk.next(tile, T, Hkv, B, causal)) {
+      const int key_lo = tile.k0 + wg * 64 + warp * 16 + gid;  // this thread's keys: key_lo, + 8
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      const int per_head = n_qt - tile.qt0, steps = G * per_head;
+
+      mbar_wait(kv_full, n_tiles & 1);
+      mbar_wait(q_full(n_steps % STAGES), (n_steps / STAGES) & 1);
+      wgmma_fence();
+      scores(n_steps, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      for (int i_step = 0; i_step < steps; ++i_step, ++n_steps) {
+        const int st = n_steps % STAGES;
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part) {
+          const int q0 = (tile.qt0 + i_step % per_head) * DKV_BQ + part * DKV_SUB;
+          const uint32_t stat = stat_s + (st * 2 * DKV_BQ + part * DKV_SUB) * 4;
+          // p^T and ds^T: a column is a query row, with its own softmax offset
+          // and di; each 16 columns are packed as the A operand of step kk
+          // (registers 8 kk .. 8 kk + 7)
+          const bool edge = key_lo - gid + 15 >= T || (causal && key_lo - gid + 15 > q0);
+          uint32_t ap[DKV_SUB / 16][4], ads[DKV_SUB / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < DKV_SUB / 16; ++kk) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int nt = 2 * kk + half, c = nt * 8 + tig * 2;
+              const float2 off = ld_shared_f32x2(stat + 4 * c);
+              const float2 dd = ld_shared_f32x2(stat + 4 * (DKV_BQ + c));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * nt + e;
+                float x = fmaf(st_[i], c2, -((e & 1) ? off.y : off.x));
+                if (edge) {  // ragged keys and the causal diagonal
+                  const int key = key_lo + (e >> 1) * 8, row = q0 + c + (e & 1);
+                  if (key >= T || (causal && key > row)) x = MASK_VALUE;
+                }
+                st_[i] = exp2_fast(x);
+                dpt[i] = st_[i] * (dpt[i] - ((e & 1) ? dd.y : dd.x));
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ap[kk][e] = pack_bf16(st_[8 * kk + 2 * e], st_[8 * kk + 2 * e + 1]);
+              ads[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+            }
+          }
+
+          // dV += P^T dO and dK += dS^T Q (dO and Q read MN-major
+          // from the tiles as they were loaded), then the next part's scores
+          const uint32_t rows = part * DKV_SUB * SWIZZLE_ROW_BYTES;
+          const uint64_t do_desc = smem_desc_mn_major(do_s + st * Q_BYTES + rows, Q_BOX);
+          const uint64_t q_desc = smem_desc_mn_major(q_s + st * Q_BYTES + rows, Q_BOX);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DKV_SUB / 16; ++kk)
+            wgmma_rs_tb(dv_acc, ap[kk], desc_advance(do_desc, kk * 16 * SWIZZLE_ROW_BYTES), 1);
+#pragma unroll
+          for (int kk = 0; kk < DKV_SUB / 16; ++kk)
+            wgmma_rs_tb(dk_acc, ads[kk], desc_advance(q_desc, kk * 16 * SWIZZLE_ROW_BYTES), 1);
+          const bool last_part = part + 1 == PARTS;
+          if (!last_part) {
+            scores(n_steps, part + 1);
+          } else if (i_step + 1 < steps) {
+            scores(n_steps + 1, 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          if (last_part && lane == 0) {
+            mbar_arrive(q_empty(st));
+            if (i_step + 1 == steps) mbar_arrive(kv_empty);  // K and V were last read above
+          }
         }
       }
+      ++n_tiles;
 
-      // dV += P^T dO and dK += dS^T Q: the queries are the reduction axis
+      // the other warpgroup and the loads go on while this one writes its keys
 #pragma unroll
-      for (int kk = 0; kk < BQS / 16; ++kk) {
-        uint32_t ap[4], ads[4];
-        c_to_a(ap, pt[2 * kk], pt[2 * kk + 1]);
-        c_to_a(ads, dst[2 * kk], dst[2 * kk + 1]);
+      for (int r = 0; r < 2; ++r) {
+        const int key = key_lo + 8 * r;
+        if (key >= T) continue;
+        const long long off = ((static_cast<long long>(tile.b) * T + key) * Hkv + tile.hk) * D;
 #pragma unroll
         for (int dt = 0; dt < D / 8; ++dt) {
-          uint32_t b0, b1;
-          load_b_cols(b0, b1, dos, LD, kk * 16, dt * 8, gid, tig);
-          mma_16816(dv_acc[dt], ap, b0, b1);
-          load_b_cols(b0, b1, qs, LD, kk * 16, dt * 8, gid, tig);
-          mma_16816(dk_acc[dt], ads, b0, b1);
+          const int c = dt * 8 + tig * 2;
+          *reinterpret_cast<uint32_t*>(dk + off + c) =
+              pack_bf16(dk_acc[4 * dt + 2 * r] * scale, dk_acc[4 * dt + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + c) =
+              pack_bf16(dv_acc[4 * dt + 2 * r], dv_acc[4 * dt + 2 * r + 1]);
         }
       }
     }
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + wr + gid + 8 * r;
-    if (key >= T) continue;
-    const long long off = ((static_cast<long long>(b) * T + key) * Hkv + hk) * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int c = dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(dk + off + c) =
-          pack_bf16(dk_acc[dt][2 * r] * scale, dk_acc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + c) =
-          pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
-    }
-  }
+static_assert(dq_smem_bytes<128>() <= 227 * 1024 && dkv_smem_bytes<128>() <= 227 * 1024,
+              "the tiles and rings fit an SM's shared memory");
+
+// ---------------------------------------------------------------- launches
+
+// What both entries are given; see TEOCHAT_BWD_ARGS below.
+struct Call {
+  const void *q, *k, *v, *dout;
+  const float *m, *l, *di;
+  int B, S, T, H, Hkv, D;
+  long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// The four tensor maps of a call (nothing is kept between calls): q and dO
+// in boxes of `q_rows` rows, k and v in boxes of `kv_rows`.
+int encode_maps(Maps* maps, const Call& c, int q_rows, int kv_rows) {
+  int qf, kf, vf, of;
+  int err = encode_bf16_rows_map(&maps->q, &qf, c.q, c.B, c.S, c.H, c.D, c.q_sb, c.q_ss, c.q_sh,
+                                 q_rows);
+  if (!err)
+    err = encode_bf16_rows_map(&maps->k, &kf, c.k, c.B, c.T, c.Hkv, c.D, c.k_sb, c.k_st, c.k_sh,
+                               kv_rows);
+  if (!err)
+    err = encode_bf16_rows_map(&maps->v, &vf, c.v, c.B, c.T, c.Hkv, c.D, c.v_sb, c.v_st, c.v_sh,
+                               kv_rows);
+  if (!err)
+    err = encode_bf16_rows_map(&maps->dout, &of, c.dout, c.B, c.S, c.H, c.D, c.o_sb, c.o_ss,
+                               c.o_sh, q_rows);
+  if (!err) maps->order = qf | (kf << 1) | (vf << 2) | (of << 3);
+  return err;
+}
+
+// One block an SM, each walking its share of the items. Above 48 KB shared
+// memory is dynamic and has to be asked for; the attribute belongs to the
+// device the launch goes to, so it is set each time.
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem, long long items, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *blocks = static_cast<int>(items < sms ? items : sms);
+  return static_cast<int>(err);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                    const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ di, uint16_t* __restrict__ dq,
-                    int S, int T, int H, int Hkv, Strides st, float scale, int causal) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) uint16_t ks[BKS * LD];
-  __shared__ __align__(16) uint16_t vs[BKS * LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  // causal tiles further down the sequence do the most work: start them first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int row0 = qt * BQD + warp * 16;
-
-  // q and dO fragments of this warp's 16 rows stay in registers
-  uint32_t qf[D / 16][4], of[D / 16][4];
-  {
-    const uint16_t* qb = q + b * st.q_sb + h * st.q_sh;
-    const uint16_t* ob = dout + b * st.o_sb + h * st.o_sh;
-    const int r_lo = row0 + gid, r_hi = row0 + gid + 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      qf[kk][0] = r_lo < S ? ld32(qb + r_lo * st.q_ss + c) : 0u;
-      qf[kk][1] = r_hi < S ? ld32(qb + r_hi * st.q_ss + c) : 0u;
-      qf[kk][2] = r_lo < S ? ld32(qb + r_lo * st.q_ss + c + 8) : 0u;
-      qf[kk][3] = r_hi < S ? ld32(qb + r_hi * st.q_ss + c + 8) : 0u;
-      of[kk][0] = r_lo < S ? ld32(ob + r_lo * st.o_ss + c) : 0u;
-      of[kk][1] = r_hi < S ? ld32(ob + r_hi * st.o_ss + c) : 0u;
-      of[kk][2] = r_lo < S ? ld32(ob + r_lo * st.o_ss + c + 8) : 0u;
-      of[kk][3] = r_hi < S ? ld32(ob + r_hi * st.o_ss + c + 8) : 0u;
-    }
-  }
-  // rows gid and gid + 8; rows past S take m = 0, 1/l = 1, di = 0 (dO is 0)
-  float m_r[2], linv_r[2], di_r[2];
-  const long long row_base = (static_cast<long long>(b) * H + h) * S;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gid + 8 * r;
-    m_r[r] = 0.f;
-    linv_r[r] = 1.f;
-    di_r[r] = 0.f;
-    if (row < S) {
-      const float ll = l[row_base + row];
-      m_r[r] = m[row_base + row];
-      linv_r[r] = ll == 0.f ? 1.f : 1.f / ll;
-      di_r[r] = di[row_base + row];
-    }
-  }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
-
-  int n_kv = (T + BKS - 1) / BKS;
-  if (causal) n_kv = min(n_kv, (qt * BQD + BQD - 1) / BKS + 1);
-  const uint16_t* kb = k + b * st.k_sb + hk * st.k_sh;
-  const uint16_t* vb = v + b * st.v_sb + hk * st.v_sh;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BKS;
-    __syncthreads();  // every warp is done with the previous kv tile
-    load_tile<D>(ks, LD, kb, st.k_st, k0, BKS, T, tid, NTHREADS);
-    load_tile<D>(vs, LD, vb, st.v_st, k0, BKS, T, tid, NTHREADS);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for 16 rows x BKS keys
-    float s[BKS / 8][4], dp[BKS / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BKS / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, ks, LD, nt * 8, kk * 16, gid, tig);
-        mma_16816(s[nt], qf[kk], b0, b1);
-        load_b_rows(b0, b1, vs, LD, nt * 8, kk * 16, gid, tig);
-        mma_16816(dp[nt], of[kk], b0, b1);
-      }
-    }
-
-    // ds = p * (dp - di), in place of s
-#pragma unroll
-    for (int nt = 0; nt < BKS / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = row0 + gid + 8 * r;
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (col >= T || (causal && col > row)) x = MASK_VALUE;
-        const float p = __expf(x - m_r[r]) * linv_r[r];
-        s[nt][e] = p * (dp[nt][e] - di_r[r]);
-      }
-    }
-
-    // dQ += dS K: the keys are the reduction axis
-#pragma unroll
-    for (int kk = 0; kk < BKS / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b_cols(b0, b1, ks, LD, kk * 16, dt * 8, gid, tig);
-        mma_16816(dq_acc[dt], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gid + 8 * r;
-    if (row >= S) continue;
-    uint16_t* out = dq + ((static_cast<long long>(b) * S + row) * H + h) * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + tig * 2) =
-          pack_bf16(dq_acc[dt][2 * r] * scale, dq_acc[dt][2 * r + 1] * scale);
-  }
-}
-
-template <int D>
-int launch_dkv(const uint16_t* q, const uint16_t* k, const uint16_t* v, const uint16_t* dout,
-               const float* m, const float* l, const float* di, uint16_t* dk, uint16_t* dv,
-               int B, int S, int T, int H, int Hkv, const Strides& st, float scale,
-               int causal, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, dout, m, l, di, dk, dv, S, T, H, Hkv, st, scale, causal);
+int launch_dkv(const Call& c, uint16_t* dk, uint16_t* dv) {
+  Maps maps;
+  int blocks, err = encode_maps(&maps, c, DKV_BQ, DKV_BK);
+  const long long n_kt = (c.T + DKV_BK - 1) / DKV_BK;
+  const long long items = (c.causal ? (n_kt + 1) / 2 : n_kt) * c.Hkv * c.B;
+  if (!err) err = prepare(flash_bwd_dkv_kernel<D>, dkv_smem_bytes<D>(), items, &blocks);
+  if (err) return err;
+  flash_bwd_dkv_kernel<D><<<blocks, NTHREADS, dkv_smem_bytes<D>(), c.stream>>>(
+      maps, c.m, c.l, c.di, dk, dv, c.B, c.S, c.T, c.H, c.Hkv, c.scale, c.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dq(const uint16_t* q, const uint16_t* k, const uint16_t* v, const uint16_t* dout,
-              const float* m, const float* l, const float* di, uint16_t* dq,
-              int B, int S, int T, int H, int Hkv, const Strides& st, float scale,
-              int causal, cudaStream_t stream) {
-  const dim3 grid((S + BQD - 1) / BQD, H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, 0, stream>>>(
-      q, k, v, dout, m, l, di, dq, S, T, H, Hkv, st, scale, causal);
+int launch_dq(const Call& c, uint16_t* dq) {
+  Maps maps;
+  int blocks, err = encode_maps(&maps, c, DQ_BQ, DQ_BK);
+  const long long n_qt = (c.S + DQ_BQ - 1) / DQ_BQ;
+  const long long items = (c.causal ? (n_qt + 1) / 2 : n_qt) * c.H * c.B;
+  if (!err) err = prepare(flash_bwd_dq_kernel<D>, dq_smem_bytes<D>(), items, &blocks);
+  if (err) return err;
+  flash_bwd_dq_kernel<D><<<blocks, NTHREADS, dq_smem_bytes<D>(), c.stream>>>(
+      maps, c.m, c.l, c.di, dq, c.B, c.S, c.T, c.H, c.Hkv, c.scale, c.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The two backward entries take the same arguments: q, k, v, dO (bf16,
-// strided), m, l, di (fp32 [B, H, S]), the outputs, sizes, strides, scale,
-// causal and the stream. Each returns cudaGetLastError() after its launch.
+// strided), m, l, di (fp32 [B, H, S]), sizes, strides, scale, causal and the
+// stream, then the outputs. Each returns 0, or the error of the tensor maps'
+// encoding or of the launch.
 #define TEOCHAT_BWD_ARGS                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *m, \
       const void *l, const void *di, int B, int S, int T, int H, int Hkv,       \
@@ -368,45 +786,47 @@ int launch_dq(const uint16_t* q, const uint16_t* k, const uint16_t* v, const uin
       long long v_sh, long long o_sb, long long o_ss, long long o_sh,           \
       float scale, int causal, void *stream
 
+#define TEOCHAT_BWD_CALL                                                                  \
+  Call {                                                                                  \
+    q, k, v, dout, static_cast<const float*>(m), static_cast<const float*>(l),            \
+        static_cast<const float*>(di), B, S, T, H, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_st,  \
+        k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh, scale, causal,                          \
+        static_cast<cudaStream_t>(stream)                                                 \
+  }
+
 // K4b: dK and dV, contiguous [B, T, Hkv, D].
 extern "C" int teochat_flash_attention_bwd_dkv(TEOCHAT_BWD_ARGS, void* dk, void* dv) {
-  const Strides st{q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh};
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  const auto* op = static_cast<const uint16_t*>(dout);
-  const auto* mp = static_cast<const float*>(m);
-  const auto* lp = static_cast<const float*>(l);
-  const auto* dp = static_cast<const float*>(di);
+  const Call c = TEOCHAT_BWD_CALL;
   auto* dkp = static_cast<uint16_t*>(dk);
   auto* dvp = static_cast<uint16_t*>(dv);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_dkv<128>(qp, kp, vp, op, mp, lp, dp, dkp, dvp, B, S, T, H, Hkv, st,
-                           scale, causal, s);
-  if (D == 64)
-    return launch_dkv<64>(qp, kp, vp, op, mp, lp, dp, dkp, dvp, B, S, T, H, Hkv, st,
-                          scale, causal, s);
+  if (D == 128) return launch_dkv<128>(c, dkp, dvp);
+  if (D == 64) return launch_dkv<64>(c, dkp, dvp);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4c: dQ, contiguous [B, S, H, D].
 extern "C" int teochat_flash_attention_bwd_dq(TEOCHAT_BWD_ARGS, void* dq) {
-  const Strides st{q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh};
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  const auto* op = static_cast<const uint16_t*>(dout);
-  const auto* mp = static_cast<const float*>(m);
-  const auto* lp = static_cast<const float*>(l);
-  const auto* dp = static_cast<const float*>(di);
-  auto* dqp = static_cast<uint16_t*>(dq);
+  const Call c = TEOCHAT_BWD_CALL;
+  if (D == 128) return launch_dq<128>(c, static_cast<uint16_t*>(dq));
+  if (D == 64) return launch_dq<64>(c, static_cast<uint16_t*>(dq));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The preamble: di = rowsum(o * dO), fp32 [B, H, S], from contiguous bf16
+// o and dO [B, S, H, D].
+extern "C" int teochat_flash_attention_bwd_di(const void* o, const void* dout, void* di, int B,
+                                              int S, int H, int D, void* stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * S * H;
+  const long long per_block = 256 / (D / 8);  // rows a block of 256 threads takes
+  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+  const auto* op = static_cast<const uint16_t*>(o);
+  const auto* dp = static_cast<const uint16_t*>(dout);
+  auto* out = static_cast<float*>(di);
   auto s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch_dq<128>(qp, kp, vp, op, mp, lp, dp, dqp, B, S, T, H, Hkv, st, scale,
-                          causal, s);
-  if (D == 64)
-    return launch_dq<64>(qp, kp, vp, op, mp, lp, dp, dqp, B, S, T, H, Hkv, st, scale,
-                         causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_di_kernel<128><<<blocks, 256, 0, s>>>(op, dp, out, rows, S, H);
+  else
+    flash_bwd_di_kernel<64><<<blocks, 256, 0, s>>>(op, dp, out, rows, S, H);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -77,84 +77,81 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both K-major.
+// The operand lists of one `wgmma`: the result's registers as the template
+// names them, and as constraints ("+f" read and written, "=f" written only).
+#define TEOCHAT_WGMMA_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define TEOCHAT_WGMMA_R32 \
+  TEOCHAT_WGMMA_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define TEOCHAT_WGMMA_R64                                                                     \
+  TEOCHAT_WGMMA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+                    "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
+                    "%60, %61, %62, %63"
+#define TEOCHAT_WGMMA_D8(c, d, i) \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define TEOCHAT_WGMMA_D16(c, d, i) TEOCHAT_WGMMA_D8(c, d, i), TEOCHAT_WGMMA_D8(c, d, i + 8)
+#define TEOCHAT_WGMMA_D32(c, d, i) TEOCHAT_WGMMA_D16(c, d, i), TEOCHAT_WGMMA_D16(c, d, i + 16)
+#define TEOCHAT_WGMMA_D64(c, d, i) TEOCHAT_WGMMA_D32(c, d, i), TEOCHAT_WGMMA_D32(c, d, i + 32)
+
+// One m64nNk16 bf16 product into fp32. SHAPE is the instruction's shape, REGS
+// and OUTS the result's lists above, A, B and P the template's names of the
+// operands and of the accumulate flag, TAIL the scales and transposes
+// ("1, 1, 0, 0": both operands K-major; "1, 1, 1": A in registers, B
+// MN-major); the inputs follow in the template's order.
+#define TEOCHAT_WGMMA(SHAPE, REGS, A, B, P, TAIL, OUTS, ...)                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                             \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 {" REGS "}, " A ", " \
+               B ", p, " TAIL ";\n}\n"                                                    \
+               : OUTS                                                                     \
+               : __VA_ARGS__)
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B in shared memory, both
+// K-major; N = 32 (for a score tile that has to leave registers to two
+// 64 x 128 accumulators), 64 or 128 by the size of d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  TEOCHAT_WGMMA("m64n32k16", TEOCHAT_WGMMA_R16, "%16", "%17", "%18", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D16("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  TEOCHAT_WGMMA("m64n64k16", TEOCHAT_WGMMA_R32, "%32", "%33", "%34", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D32("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers, B in shared memory MN-major.
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  TEOCHAT_WGMMA("m64n128k16", TEOCHAT_WGMMA_R64, "%64", "%65", "%66", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D64("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers, B in shared memory MN-major.
+// The first step of such a product: D = A B. D is written and not read, which
+// also tells the compiler that its old values are dead (after `wgmma_ss` with
+// accumulate = 0 it has to keep them).
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  TEOCHAT_WGMMA("m64n32k16", TEOCHAT_WGMMA_R16, "%16", "%17", "%18", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D16("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  TEOCHAT_WGMMA("m64n64k16", TEOCHAT_WGMMA_R32, "%32", "%33", "%34", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D32("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  TEOCHAT_WGMMA("m64n128k16", TEOCHAT_WGMMA_R64, "%64", "%65", "%66", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D64("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A in registers, B in shared memory
+// MN-major; N = 64 or 128.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  TEOCHAT_WGMMA("m64n64k16", TEOCHAT_WGMMA_R32, "{%32, %33, %34, %35}", "%36", "%37", "1, 1, 1",
+                TEOCHAT_WGMMA_D32("+f", d, 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                "l"(desc_b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  TEOCHAT_WGMMA("m64n128k16", TEOCHAT_WGMMA_R64, "{%64, %65, %66, %67}", "%68", "%69", "1, 1, 1",
+                TEOCHAT_WGMMA_D64("+f", d, 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                "l"(desc_b), "r"(accumulate));
 }
 
 // Give registers back to (dec) or take them from (inc) the SM's pool, for the

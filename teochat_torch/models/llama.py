@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from teochat_torch.config import LlamaConfig
 from teochat_torch.ops.attention import dot_product_attention
 from teochat_torch.ops.decode_attention import decode_attention
-from teochat_torch.ops.quant import int4_proj, quantized_proj
+from teochat_torch.ops.quant import int4_proj, matmul_fp32, quantized_proj
 from teochat_torch.utils import resolve_device
 
 Params = Dict
@@ -111,8 +111,9 @@ def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None) -> torch.Tens
         if p["lora_a"].ndim == 3:
             raise NotImplementedError("multi-LoRA (adapter-stacked) leaves are not ported yet")
         a, b = p["lora_a"].to(x.dtype), p["lora_b"].to(x.dtype)
-        delta = torch.matmul(torch.matmul(x, a), b)  # fp32 accumulation in each product
-        y = y + (delta.float() * p["lora_scale"].detach().float()).to(x.dtype)
+        # x a is rounded to x's dtype, (x a) b stays the fp32 sum until the scale
+        delta = matmul_fp32(torch.matmul(x, a), b)
+        y = y + (delta * p["lora_scale"].detach().float()).to(x.dtype)
     return y
 
 
@@ -273,11 +274,11 @@ def llama_forward(
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     head = params.get("lm_head")
     if head is None:  # tied embeddings
-        return torch.matmul(x, params["embed_tokens"]["embedding"].to(x.dtype).T).float()
+        return matmul_fp32(x, params["embed_tokens"]["embedding"].to(x.dtype).T)
     if "lora_a" in head:
         raise NotImplementedError("a LoRA lm_head is not ported yet")
     if _is_int4(head):  # int4 lm_head: the product in x's dtype, fp32 logits
         return int4_proj(x, head).float()
     if "scale" in head:  # int8 weight-only lm_head
         return quantized_proj(x, head, fp32_out=True)
-    return torch.matmul(x, head["kernel"].to(x.dtype)).float()
+    return matmul_fp32(x, head["kernel"].to(x.dtype))  # the fp32 sum, not a rounded product

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "teochat_flash_attention_bwd_dq": (
         [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P]
     ),
+    "teochat_flash_attention_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P],
     "teochat_decode_attention": (
         [_P] * 5 + [_I] * 5 + [_LL] * 8 + [_F, _P]
     ),

@@ -4,17 +4,19 @@ Port of teochat_tpu/ops/flash_attention.py:
 - `flash_attention`, the inference forward (K1, `_flash_kernel`);
 - `flash_attention_trainable` and `_padded`, the training attention: an
   autograd.Function whose forward is K4a (`_flash_fwd_res_kernel`: K1 plus
-  each row's max m and denominator l) and whose backward computes
-  di = rowsum(o * dO) in fp32 with torch ops, as the JAX package does outside
-  its kernels, then launches K4b (dK, dV; `_bwd_dkv_kernel`) and K4c (dQ;
-  `_bwd_dq_kernel`).
-The kernels are csrc/flash_attention.cu (K1, K4a: one `wgmma` kernel fed by
-TMA loads) and csrc/flash_attention_bwd.cu (K4b, K4c); their source notes
-say what bounds them on the card and how they are laid out. A CPU tensor
-goes to the plain twin (ops/attention.py::plain_attention, with autograd for
-the trainable one); a CUDA tensor launches the kernels or raises.
-`flash_forward_schedule` walks the forward kernel's tiles in plain PyTorch,
-so that its schedule can be held against the JAX kernels without a card.
+  each row's max m and denominator l) and whose backward launches a small
+  preamble kernel for di = rowsum(o * dO) (fp32 [B, H, S]; the JAX package
+  computes it outside its kernels), then K4b (dK, dV; `_bwd_dkv_kernel`) and
+  K4c (dQ; `_bwd_dq_kernel`).
+The kernels are csrc/flash_attention.cu (K1, K4a) and
+csrc/flash_attention_bwd.cu (di, K4b, K4c): persistent `wgmma` kernels fed by
+TMA loads through a ring of shared-memory tiles; their source notes say what
+bounds them on the card and how they are laid out. A CPU tensor goes to the
+plain twin (ops/attention.py::plain_attention, with autograd for the
+trainable one); a CUDA tensor launches the kernels or raises.
+`flash_forward_schedule`, `flash_backward_dkv_schedule` and
+`flash_backward_dq_schedule` walk the kernels' tiles in plain PyTorch, so
+that their schedules can be held against the JAX kernels without a card.
 """
 
 from __future__ import annotations
@@ -34,6 +36,11 @@ HEAD_DIMS = (64, 128)
 # the forward kernel's tiles (csrc/flash_attention.cu: TEOCHAT_FLASH_BQ, _BK)
 FWD_BLOCK_Q = 128  # query rows a tile: two warpgroups of 64
 FWD_BLOCK_K = 128  # keys a kv tile
+# the backward kernels' tiles (csrc/flash_attention_bwd.cu: DKV_BK, DKV_BQ, DQ_BQ, DQ_BK)
+BWD_DKV_BLOCK_K = 128  # K4b: keys a block owns, two warpgroups of 64
+BWD_DKV_BLOCK_Q = 64  # K4b: query rows a step of the ring
+BWD_DQ_BLOCK_Q = 128  # K4c: query rows a block owns, two warpgroups of 64
+BWD_DQ_BLOCK_K = 64  # K4c: keys a step of the ring
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None) -> torch.Tensor:
@@ -112,6 +119,106 @@ def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
         m_out[:, :, q0:q0 + block_q] = m / log2e
         l_out[:, :, q0:q0 + block_q] = l
     return o[:, :s].to(q.dtype), m_out[:, :, :s].contiguous(), l_out[:, :, :s].contiguous()
+
+
+def flash_di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(o * dO) in fp32, [B, S, H, D] x 2 -> [B, H, S]: what the
+    backward's preamble kernel computes."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _backward_operands(q, k, v, do, m, l, di, block_q: int, block_k: int):
+    """The backward tile walks' inputs: q, k, v, dO in fp32 with rows past S
+    and keys past T as zeros (k and v expanded to the q heads), and the
+    rows' m, 1 / l (1 where l == 0) and di, padded with 0, 1 and 0."""
+    h, hkv = q.shape[2], k.shape[2]
+    pad_s, pad_t = -q.shape[1] % block_q, -k.shape[1] % block_k
+    pad = torch.nn.functional.pad
+    qp, dop = (pad(x, (0, 0, 0, 0, 0, pad_s)).float() for x in (q, do))
+    kp, vp = (pad(_repeat_kv(x, h // hkv), (0, 0, 0, 0, 0, pad_t)).float() for x in (k, v))
+    linv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    return qp, kp, vp, dop, pad(m, (0, pad_s)), pad(linv, (0, pad_s), value=1.0), pad(di, (0, pad_s))
+
+
+def _backward_tile(qt, kt, vt, dot, m, linv, di, q0: int, k0: int, t: int,
+                   causal: bool, scale: float, dtype):
+    """P and dS of one (query tile, kv tile) pair, [B, H, rows, keys], each
+    rounded to `dtype` as the kernels round them before their products."""
+    rows = torch.arange(q0, q0 + qt.shape[1], device=qt.device)
+    cols = torch.arange(k0, k0 + kt.shape[1], device=qt.device)
+    sc = torch.einsum("bshd,bthd->bhst", qt, kt) * scale
+    dead = (cols >= t)[None, :]
+    if causal:
+        dead = dead | (cols[None, :] > rows[:, None])
+    p = torch.exp(torch.where(dead, NEG_INF, sc) - m[..., None]) * linv[..., None]
+    dp = torch.einsum("bshd,bthd->bhst", dot, vt)
+    ds = p * (dp - di[..., None])
+    return p.to(dtype).float(), ds.to(dtype).float()
+
+
+def flash_backward_dkv_schedule(q, k, v, do, m, l, di, *, causal: bool = True, scale=None,
+                                block_q: int = BWD_DKV_BLOCK_Q,
+                                block_k: int = BWD_DKV_BLOCK_K):
+    """K4b's schedule, tile by tile, in plain PyTorch: (dk, dv) [B, T, Hkv, D]
+    in k's dtype from q, k, v, dO and the rows' m, l and di (fp32 [B, H, S]).
+
+    As in csrc/flash_attention_bwd.cu: a block owns `block_k` keys and walks,
+    for each q head of its kv head's group, the tiles of `block_q` query rows
+    at or below its diagonal; rows past S and keys past T are read as zeros,
+    keys past T and above the diagonal are masked; p = exp(s - m) / l with
+    1 / l = 1 where l == 0, ds = p (dp - di); P and dS are rounded to the
+    inputs' dtype before dV += P^T dO and dK += dS^T Q; the sums are fp32
+    over the whole walk (the group's heads included) and `scale` meets the
+    fp32 dK before its one rounding."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    qp, kp, vp, dop, mp, linv, dip = _backward_operands(q, k, v, do, m, l, di, block_q, block_k)
+    dk = torch.zeros((b, kp.shape[1], h, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, kp.shape[1], block_k):
+        # q tiles wholly above the diagonal are skipped
+        first = (k0 // block_q) * block_q if causal else 0
+        for q0 in range(first, qp.shape[1], block_q):
+            rows, keys = slice(q0, q0 + block_q), slice(k0, k0 + block_k)
+            p, ds = _backward_tile(qp[:, rows], kp[:, keys], vp[:, keys], dop[:, rows],
+                                   mp[..., rows], linv[..., rows], dip[..., rows],
+                                   q0, k0, t, causal, scale, q.dtype)
+            dv[:, keys] += torch.einsum("bhst,bshd->bthd", p, dop[:, rows])
+            dk[:, keys] += torch.einsum("bhst,bshd->bthd", ds, qp[:, rows])
+
+    def group_sum(x):  # [B, T, H, D] -> [B, T, Hkv, D]: the group's heads into their kv head
+        return x[:, :t].reshape(b, t, hkv, h // hkv, d).sum(3)
+
+    return (group_sum(dk) * scale).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def flash_backward_dq_schedule(q, k, v, do, m, l, di, *, causal: bool = True, scale=None,
+                               block_q: int = BWD_DQ_BLOCK_Q, block_k: int = BWD_DQ_BLOCK_K):
+    """K4c's schedule, tile by tile, in plain PyTorch: dq [B, S, H, D] in q's
+    dtype. A block owns `block_q` query rows and walks the kv tiles of
+    `block_k` keys up to its diagonal; padding, masking, p, ds and the
+    rounding of dS as in `flash_backward_dkv_schedule`; dQ += dS K in fp32,
+    times `scale` before the one rounding."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    qp, kp, vp, dop, mp, linv, dip = _backward_operands(q, k, v, do, m, l, di, block_q, block_k)
+    dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, qp.shape[1], block_q):
+        n_kv = kp.shape[1] // block_k
+        if causal:
+            n_kv = min(n_kv, (q0 + block_q - 1) // block_k + 1)
+        rows = slice(q0, q0 + block_q)
+        for k0 in range(0, n_kv * block_k, block_k):
+            keys = slice(k0, k0 + block_k)
+            _, ds = _backward_tile(qp[:, rows], kp[:, keys], vp[:, keys], dop[:, rows],
+                                   mp[..., rows], linv[..., rows], dip[..., rows],
+                                   q0, k0, t, causal, scale, q.dtype)
+            dq[:, rows] += torch.einsum("bhst,bthd->bshd", ds, kp[:, keys])
+    return (dq[:, :s] * scale).to(q.dtype)
 
 
 def _check_cuda_operands(q, k, v) -> None:
@@ -239,14 +346,28 @@ def _bwd_dq_cuda(q, k, v, do, m, l, di, causal: bool, scale: float):
     return dq
 
 
-def _bwd_cuda(q, k, v, o, m, l, do, causal: bool, scale: float):
-    """di = rowsum(o * dO) in fp32 [B, H, S], then K4b and K4c."""
+def _bwd_di_cuda(o, do):
+    """The backward's preamble kernel: di = rowsum(o * dO), fp32 [B, H, S]."""
+    _build.check_bf16_operand("o", o, 4)
     _build.check_bf16_operand("do", do, 4)
+    b, s, h, d = o.shape
+    if do.shape != o.shape or d not in HEAD_DIMS:
+        raise ValueError(f"flash backward: o {o.shape}, dO {do.shape}, head_dim in {HEAD_DIMS}")
+    if not (o.is_contiguous() and do.is_contiguous()):
+        raise ValueError("flash backward: o and dO must be contiguous")
+    di = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
+    _build.launch("teochat_flash_attention_bwd_di", o, o.data_ptr(), do.data_ptr(),
+                  di.data_ptr(), b, s, h, d)
+    return di
+
+
+def _bwd_cuda(q, k, v, o, m, l, do, causal: bool, scale: float):
+    """di = rowsum(o * dO) in fp32 [B, H, S] (the preamble kernel), then K4b and K4c."""
     if do.shape != q.shape:
         raise ValueError(f"flash backward: dO {do.shape} != q {q.shape}")
-    if q.numel() == 0:
+    if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    di = _bwd_di_cuda(o, do)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, m, l, di, causal, scale)
     return _bwd_dq_cuda(q, k, v, do, m, l, di, causal, scale), dk, dv
 

@@ -5,9 +5,12 @@ Port of teochat_tpu/ops/quant.py. Int8 (`quantize_kernel`,
 per-output-channel int8 weights with fp32 scales, in the JAX layout
 (`kernel [..., in, out]` int8, `scale [..., out]` fp32). Scales commute
 with the product, so a projection is a matmul over the int8 weight
-converted to the activation dtype, then one fp32 multiply. The JAX package leaves this product to XLA; here it is
-`torch.matmul`. A fused w8a16 kernel that reads the int8 bytes directly is
-later work.
+converted to the activation dtype, then one fp32 multiply on the fp32 sum
+(`matmul_fp32`: 16-bit operands, the fp32 accumulator as the result, as
+JAX's `preferred_element_type=float32`; also the lm_head's and the LoRA
+delta's product). The JAX package leaves this product to XLA; here it is
+cuBLAS. A fused w8a16 kernel that reads the int8 bytes directly is later
+work.
 
 The frozen int8 backbone still passes a gradient to x (LoRA in earlier
 layers needs it). The projection is an autograd.Function that saves the
@@ -53,33 +56,81 @@ def dequantize_kernel(p: Dict[str, torch.Tensor], dtype=torch.float32) -> torch.
     return (p["kernel"].float() * p["scale"][..., None, :]).to(dtype)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """a [M, K] @ b [K, N], both in one 16-bit dtype, summed in fp32 and
+    rounded once to `out_dtype`. On the card one cuBLAS product that writes
+    `out_dtype` from its fp32 accumulator; on the CPU, where `mm` has no
+    `out_dtype`, the product of fp32 copies: the same sum of exact products."""
+    if a.is_cuda:
+        return torch.mm(a, b) if out_dtype == a.dtype else torch.mm(a, b, out_dtype=out_dtype)
+    return torch.mm(a.float(), b.float()).to(out_dtype)
+
+
+class _MatmulFp32(torch.autograd.Function):
+    """y = a @ b as the fp32 accumulator; the gradients in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm(a, b, torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        g = dy.to(a.dtype)  # a tensor-core operand: rounded once, as the MXU rounds it
+        da = _mm(g, b.t(), a.dtype) if ctx.needs_input_grad[0] else None
+        db = _mm(a.t(), g, b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] -> fp32 [..., N]: bf16 operands, the fp32
+    accumulator as the result (JAX's `preferred_element_type=float32`), where
+    `torch.matmul` would round it to bf16. fp32 operands go to `torch.matmul`."""
+    if x.dtype != w.dtype:
+        raise ValueError(f"matmul_fp32: operand dtypes {x.dtype} and {w.dtype} differ")
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _MatmulFp32.apply(x2, w)
+    else:  # no graph to record: skip the autograd.Function's host cost
+        y = _mm(x2, w, torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 class _Int8Proj(torch.autograd.Function):
     """y = (x @ W_i8) * scale, with dx from the saved int8 kernel."""
 
     @staticmethod
     def forward(ctx, x, kernel, scale, fp32_out: bool):
-        y = torch.matmul(x, kernel.to(x.dtype))
-        if not fp32_out:  # a projection: product in x's dtype, then the scale
-            y = (y.float() * scale.float()).to(x.dtype)
-        else:  # the lm_head: fp32 logits
-            y = y.float() * scale.float()
+        y = matmul_fp32(x, kernel.to(x.dtype)) * scale.float()  # the scale on the fp32 sum
         ctx.save_for_backward(kernel, scale)
         ctx.x_dtype = x.dtype
-        return y
+        return y if fp32_out else y.to(x.dtype)  # fp32 logits, or a projection: one rounding
 
     @staticmethod
     def backward(ctx, dy):
         kernel, scale = ctx.saved_tensors
+        # dy * scale is an operand of the product, so in a 16-bit dtype it is
+        # rounded once before it; the sum is fp32 and rounded once to x's
+        # dtype. The JAX package multiplies the fp32 dy * scale: about 110 of
+        # 256 dx values then differ by one bf16 step. An operand kept whole
+        # leaves the bf16 tensor cores: on an H100 at 7B width and 4,096 rows
+        # the same product takes 2.4x the time as a bf16 head plus a bf16
+        # remainder, and 9.9x with fp32 operands (chip_probe.py int8-proj)
         g = (dy.float() * scale.float()).to(ctx.x_dtype)
-        return torch.matmul(g, kernel.to(ctx.x_dtype).t()), None, None, None
+        dx = matmul_fp32(g, kernel.to(ctx.x_dtype).t()).to(ctx.x_dtype)
+        return dx, None, None, None
 
 
 def quantized_proj(x: torch.Tensor, p: Dict[str, torch.Tensor],
                    fp32_out: bool = False) -> torch.Tensor:
-    """y = (x @ W_i8) * scale: the product in x's dtype, the scale in fp32.
+    """y = (x @ W_i8) * scale: the product summed in fp32, scaled there, and
+    rounded once to x's dtype.
 
     kernel is [in, out] and scale [out] (one layer's slice). `fp32_out`
-    (the int8 lm_head) returns the fp32 product times the scale."""
+    (the int8 lm_head) returns the scaled fp32 sum itself."""
     return _Int8Proj.apply(x, p["kernel"], p["scale"], fp32_out)
 
 

@@ -41,6 +41,13 @@ INT4_REL_L2 = 3e-3
 INT4_REL_MAX = 4e-3
 STAT_M_ATOL = 2e-4  # K4a's row maximum, absolute
 STAT_L_RTOL = 1e-3  # K4a's denominator, relative
+# K4b and K4c against their tile walks on the same bf16 inputs: summation
+# order and ex2.approx against exp move a P, a dS or a gradient across a bf16
+# rounding boundary now and then (read on an H100: relative L2 up to 2.3e-4,
+# largest error up to 4.4e-3 of the largest gradient: one bf16 step)
+WALK_REL_L2 = 1e-3
+WALK_REL_MAX = 1e-2
+DI_REL_TOL = 1e-5  # the di preamble against its torch line, of the largest |di|
 
 pytestmark = pytest.mark.cuda
 
@@ -241,6 +248,77 @@ def test_flash_backward_skips_above_the_diagonal(gen):
     assert dk[:, 64:].abs().max().item() == 0.0 and dv[:, 64:].abs().max().item() == 0.0
     assert dq[:, 64:].abs().max().item() == 0.0
     assert dk[:, :64].abs().max().item() > 0 and dv[:, :64].abs().max().item() > 0
+
+
+def _general_case(gen, b, s, t, h, hkv, d, fused):
+    """q, k, v, dO; `fused`: q, k and v are column slices of one q|k|v projection."""
+    if fused:
+        qkv = _randn((b, s, (h + 2 * hkv) * d), gen)
+        q = qkv[..., : h * d].view(b, s, h, d)
+        k = qkv[..., h * d: (h + hkv) * d].view(b, s, hkv, d)
+        v = qkv[..., (h + hkv) * d:].view(b, s, hkv, d)
+    else:
+        q, k, v = _randn((b, s, h, d), gen), _randn((b, t, hkv, d), gen), _randn((b, t, hkv, d), gen)
+    return q, k, v, _randn((b, s, h, d), gen)
+
+
+BACKWARD_CASES = [  # (B, S, T, H, Hkv, D, causal, fused)
+    (2, 300, 801, 4, 4, 128, False, False),  # non-causal, S != T, both ragged
+    (2, 801, 300, 8, 2, 64, False, False),  # the same at head_dim 64 with GQA 4:1
+    (2, 768, 768, 4, 4, 64, True, False),  # head_dim 64
+    (1, 1000, 1000, 8, 2, 128, True, False),  # the last q tile (of 64, of 128) and kv tile part-filled
+    (2, 40, 40, 8, 2, 128, True, False),  # below one tile
+    (1, 1, 1, 2, 2, 64, True, False),  # one query, one key
+    (1, 768, 768, 4, 4, 128, True, True),  # strided slices of a fused q|k|v
+    (1, 1024, 1024, 8, 1, 128, True, False),  # GQA 8:1: the group's sum over eight heads
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,fused", BACKWARD_CASES)
+def test_flash_backward_matches_plain_on_the_new_cases(gen, b, s, t, h, hkv, d, causal, fused):
+    q, k, v, do = _general_case(gen, b, s, t, h, hkv, d, fused)
+    got = _grads(lambda q, k, v: flash_mod.flash_attention_trainable(q, k, v, causal=causal),
+                 q, k, v, do)
+    torch.cuda.synchronize()
+    want = _grads(lambda q, k, v: flash_mod.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=causal), q, k, v, do)
+    assert (got[0] - want[0]).abs().max().item() <= TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item(), name
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,fused", BACKWARD_CASES)
+def test_flash_backward_kernels_match_their_tile_walks(gen, b, s, t, h, hkv, d, causal, fused):
+    """di, K4b and K4c from K4a's residuals against the preamble's torch line
+    and `flash_backward_*_schedule` on the same bf16 inputs: the same tiles,
+    roundings and fp32 sums in another order."""
+    q, k, v, do = _general_case(gen, b, s, t, h, hkv, d, fused)
+    scale = d ** -0.5
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, causal, scale)
+    di = flash_mod._bwd_di_cuda(o, do)
+    want_di = flash_mod.flash_di_plain(o, do)
+    assert (di - want_di).abs().max().item() <= DI_REL_TOL * want_di.abs().max().item()
+    dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, causal, scale)
+    dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, causal, scale)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_mod.flash_backward_dkv_schedule(q, k, v, do, m, l, want_di,
+                                                             causal=causal)
+    want_dq = flash_mod.flash_backward_dq_schedule(q, k, v, do, m, l, want_di, causal=causal)
+    for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        g, w = g.float(), w.float()
+        assert (g - w).norm().item() <= WALK_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= WALK_REL_MAX * w.abs().max().item(), name
+
+
+def test_flash_backward_is_the_same_on_every_run(gen):
+    """dK and dV sum the GQA group inside the block, without atomics."""
+    q, k, v, do = _general_case(gen, 2, 512, 512, 8, 2, 128, False)
+    first = _grads(flash_mod.flash_attention_trainable, q, k, v, do)
+    for _ in range(3):
+        again = _grads(flash_mod.flash_attention_trainable, q, k, v, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_backward_refuses_what_it_does_not_take(gen):
