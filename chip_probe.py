@@ -10,6 +10,7 @@
     python3 chip_probe.py train-step [--root DIR]
     python3 chip_probe.py int8-proj [--root DIR]
     python3 chip_probe.py k3k5
+    python3 chip_probe.py k5k2 [--root DIR] [--chunks 32 128]
     python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
 
@@ -67,15 +68,29 @@ another checkout, so two trees can be timed in one session on one card.
   fp32 result at M 1, 8, 640 and 4096. (b) The tree's `quantized_proj` 224
   times at M 1 (one decode step's projections), device drained. (c) The
   backward's dx = (dy * scale) @ W^T at M 4096 with dy * scale rounded to
-  bf16 as the product's operand (what the port does), split into a bf16
-  head and a bf16 remainder (two products, one fp32 sum), and as fp32
-  operands with and without TF32 (what the JAX reference computes on a CPU):
-  ms a product, ms an optimizer step of the recipe (32 layers, 2
-  micro-steps), and for each how many of 256 dx values lie a bf16 step from
-  the exact sum's rounding.
+  bf16 as the product's operand (the port before it kept the operand
+  whole), as the tree computes it (`ops/quant.py::mm_fp32_operand` where it
+  exists), and the fp32 operand split into a bf16 head and a bf16
+  remainder three ways: stacked along the reduction against two copies of
+  W^T (one product, one fp32 accumulator), as two products of which the
+  second accumulates into the first's fp32 result (`torch.addmm` with
+  `out_dtype`, where the card's torch offers it), and stacked as rows (one
+  product, then an fp32 add of the two halves): ms a product, ms an
+  optimizer step of the recipe (32 layers, 2 micro-steps), and for each how
+  many of 256 dx values lie a bf16 step from the exact sum's rounding.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
+- k5k2: the ViT attention (K5) and the decode attention (K2) alone at the
+  kernel table's shapes: SASS counts of the tree's two kernels (`HGMMA`,
+  `UTMALDG`, `HMMA`, `LDS`; spills from ptxas in the build log), K5 at
+  [32,257,16,64], [2,257,16,64] and [16,1024,16,64] and K2 at B1 T801 len
+  580 (H 32, D 128) and B8 T1025 ragged, as the wrappers launch them, beside
+  `scaled_dot_product_attention` on the same inputs and the bound; K1's own
+  kernel non-causal at head_dim 64 on K5's inputs, as a yardstick; and,
+  where the tree's source has the macro, K2 built with each slot chunk of
+  --chunks (`TEOCHAT_DECODE_CHUNK`), held to the tree's own output. With `--root` on a parent checkout and once without, both trees
+  are read in one call on one card.
 - s1s2: the smoke's phases for the kernel benches' eight variants (the int4
   ones and the one-sweep attention ones against their plain versions); exits
   nonzero where one fails, after running both.
@@ -459,6 +474,84 @@ def cmd_k3k5(smoke, args):
     _run_phases(smoke, (("k5", smoke.phase_vit_attention), ("k3", smoke.phase_int4)))
 
 
+# ------------------------------------------------------------------ k5k2
+
+K5_SHAPES = ((32, 257), (2, 257), (16, 1024))  # (B, S) at H 16, D 64
+K2_SHAPES = (("B1 T801", 32, 801, [580]),
+             ("B8 T1025", 32, 1025, [1025, 1, 517, 1024, 64, 300, 1000, 2]))  # (row, H, T, lens)
+
+
+def cmd_k5k2(smoke, args):
+    import torch.nn.functional as F
+
+    from teochat_torch.bench._timing import bound_ms
+    from teochat_torch.ops import _build as build
+    from teochat_torch.ops import decode_attention as dec_mod
+    from teochat_torch.ops import flash_attention as flash_mod
+    from teochat_torch.ops import vit_attention as vit_mod
+
+    _kernel_sass("k5k2", build, "vit_attention_kernel")
+    _kernel_sass("k5k2", build, "decode_")
+    dec_src = (build.CSRC / "decode_attention.cu").read_text()
+    dec_libs = _probe_builds("k2", build, "decode_attention.cu", {
+        f"chunk={c}": [f"-DTEOCHAT_DECODE_CHUNK={c}"] for c in args.chunks},
+        ("teochat_decode_attention",)) if "TEOCHAT_DECODE_CHUNK" in dec_src else {}
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    h, d = 16, 64
+    for b, s in K5_SHAPES:
+        q, k, v = (smoke._randn((b, s, h, d), gen) for _ in range(3))
+        ref = vit_mod.vit_attention(q, k, v)
+        want = vit_mod.vit_attention_plain(q.float(), k.float(), v.float())
+        err = (ref.float() - want).abs().max().item()
+        ms = smoke.time_ms(lambda: vit_mod.vit_attention(q, k, v))
+        lib_ms = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            smoke._bhsd(q), smoke._bhsd(k), smoke._bhsd(v)))
+        k1_ms = smoke.time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=False))
+        bound, by = bound_ms(2 * 4 * b * s * h * d, 4 * b * h * s * s * d)
+        print(f"[k5k2] root={args.root} K5 B={b} S={s} H={h} D={d}: kernel {ms:.4f} ms, max_abs_err "
+              f"{err:.3e}; scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); K1 "
+              f"non-causal {k1_ms:.4f} ms; bound {bound:.4f} ms ({by})", flush=True)
+    d = 128
+    for row, h, t, lengths in K2_SHAPES:
+        b = len(lengths)
+        k = smoke._randn((b, t, h, d), gen).transpose(1, 2)
+        v = smoke._randn((b, t, h, d), gen).transpose(1, 2)
+        q = smoke._randn((b, h, d), gen)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        ref = dec_mod.decode_attention(q, k, v, lens)
+        want = dec_mod.decode_attention_plain(q.float(), k.float(), v.float(), lens)
+        err = (ref.float() - want).abs().max().item()
+        ms = smoke.time_ms(lambda: dec_mod.decode_attention(q, k, v, lens))
+        mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+        lib_ms = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :]))
+        nbytes = 2 * int(lens.sum().item()) * h * d * 2
+        bound, by = bound_ms(nbytes + 4 * b * h * d, 4 * int(lens.sum().item()) * h * d)
+        print(f"[k5k2] root={args.root} K2 {row} H={h} D={d} lengths={lengths}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s of live KV), max_abs_err {err:.3e}; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        out = torch.empty_like(ref)
+        n_chunks = -(-t // min(args.chunks))
+        part_ml = torch.empty((b, h, n_chunks, 2), device="cuda")
+        part_acc = torch.empty((b, h, n_chunks, d), device="cuda")
+        for label, lib in dec_libs.items():
+            tickets = torch.zeros(b * h, dtype=torch.int32, device="cuda")
+            run = lambda: lib.teochat_decode_attention(  # noqa: E731
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(), b, h, h, t, d,
+                q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3], d ** -0.5, stream())
+            out.zero_()
+            rc = run()
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs().max().item()
+            t_ms = smoke.time_ms(run)
+            print(f"[k5k2]   K2 {label}: {t_ms:.4f} ms ({nbytes / t_ms / 1e6:.1f} GB/s), rc {rc}, "
+                  f"max |o - tree's o| {diff:.3e}, tickets back to 0: "
+                  f"{bool((tickets == 0).all().item())}", flush=True)
+
+
 def cmd_s1s2(smoke, args):
     _run_phases(smoke, (("s2", smoke.phase_bench_vit), ("s1", smoke.phase_bench_int4)))
 
@@ -606,24 +699,39 @@ def cmd_int8_proj(smoke, args):
         def dx_bf16(g, wt):
             return torch.mm(g.to(bf16), wt.to(bf16), out_dtype=f32).to(bf16)
 
-        def dx_split(g, wt):
+        def dx_tree(g, wt):  # the tree's own product, whichever form it takes
+            helper = getattr(quant, "mm_fp32_operand", None)
+            return helper(g, wt.to(bf16), bf16) if helper else dx_bf16(g, wt)
+
+        def dx_reduction(g, wt):
+            head = g.to(bf16)
+            w16 = wt.to(bf16)
+            both = torch.cat([head, (g - head.float()).to(bf16)], 1)
+            return torch.mm(both, torch.cat([w16, w16], 0), out_dtype=f32).to(bf16)
+
+        def dx_addmm(g, wt):
+            head = g.to(bf16)
+            w16 = wt.to(bf16)
+            y = torch.mm(head, w16, out_dtype=f32)
+            return torch.addmm(y, (g - head.float()).to(bf16), w16, out_dtype=f32).to(bf16)
+
+        def dx_rows(g, wt):
             head = g.to(bf16)
             both = torch.cat([head, (g - head.float()).to(bf16)])
             y = torch.mm(both, wt.to(bf16), out_dtype=f32)
             return (y[:m] + y[m:]).to(bf16)
 
-        def dx_fp32(g, wt):
-            return torch.mm(g, wt.float()).to(bf16)
-
-        def dx_tf32(g, wt):
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                return torch.mm(g, wt.float()).to(bf16)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-
-        forms = (("bf16 operand", dx_bf16), ("bf16 head + remainder", dx_split),
-                 ("fp32 operands", dx_fp32), ("fp32 operands, TF32", dx_tf32))
+        forms = [("bf16 operand", dx_bf16), ("the tree's", dx_tree),
+                 ("head + remainder along the reduction", dx_reduction),
+                 ("head + remainder in two accumulating products", dx_addmm),
+                 ("head + remainder as stacked rows", dx_rows)]
+        try:
+            probe_g = torch.randn((8, 16), device="cuda")
+            dx_addmm(probe_g, torch.ones((16, 8), device="cuda", dtype=torch.int8))
+        except (RuntimeError, TypeError) as e:
+            print(f"[int8-proj] two accumulating products: not offered by torch "
+                  f"{torch.__version__} ({str(e).splitlines()[0][:120]})", flush=True)
+            forms = [f for f in forms if f[1] is not dx_addmm]
         per_layer = {name: 0.0 for name, _ in forms}
         for p in ps:
             k, n = p["kernel"].shape
@@ -645,8 +753,8 @@ def cmd_int8_proj(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "s1s2",
-                 "profile-train", "train-step", "int8-proj"):
+    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k5k2",
+                 "s1s2", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
@@ -662,6 +770,9 @@ def main():
                            default=["dqbk=128,stages=2", "stages=2", "stages=4"],
                            help="key=value[,key=value] over dqbk, stages")
             p.add_argument("--long", action="store_true", help="also a GQA shape and B1 S4096")
+        if name == "k5k2":
+            p.add_argument("--chunks", type=int, nargs="+", default=[32, 128],
+                           help="K2 slot chunks to build the source with")
         if name == "decode-paths":
             p.add_argument("--turns", type=int, default=3)
         if name == "parity":
@@ -673,7 +784,8 @@ def main():
     smoke.phase_device()
     smoke.phase_build()
     {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
-     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "s1s2": cmd_s1s2,
+     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k5k2": cmd_k5k2,
+     "s1s2": cmd_s1s2,
      "profile-train": cmd_profile_train, "train-step": cmd_train_step,
      "int8-proj": cmd_int8_proj}[args.cmd](smoke, args)
 

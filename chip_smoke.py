@@ -11,11 +11,15 @@ them. Phases, each printing its lines before the last:
 3. the flash-attention kernel (K1) against its plain twin at prefill shapes,
    at head_dim 64, below 64 rows, on strided slices of a fused q|k|v
    projection and on a non-causal call with S != T;
-4. the decode-attention kernel (K2) against its plain twin at decode shapes;
+4. the decode-attention kernel (K2) against its plain twin at decode shapes,
+   at the edges of its slot chunks (1, CHUNK - 1, CHUNK, CHUNK + 1 and T
+   live slots), in a ragged batch and with rows of no live slot (written as
+   0); each case twice, bit-equal;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4, 768;
 6. the one-shot ViT attention (K5) against its plain version at the tower's
-   shape;
+   shape for a 2-frame request and a 32-frame encode, at a ragged 100, at a
+   336-pixel tower's 577 and at the gate's 1024;
 7. the int4 path at TEOChat-7B width and depth (ViT-L/14 through K5,
    mlp2x_gelu, LLaMA-7B with fused packed-int4 projections and an int4
    lm_head, bf16 activations, random weights from a seed): three requests
@@ -321,45 +325,56 @@ def phase_flash(gen):
 
 def phase_decode(gen):
     ragged = [1025, 1, 517, 1024, 64, 300, 1000, 2]
-    cases = [  # (B, H, Hkv, T, lengths), D=128; the first is reported in the JSON line
-        (1, 32, 32, 801, [580]),  # 2-frame request: T = 768 + 32 + 1, last step
-        (4, 32, 32, 1553, [1100, 1080, 1120, 60]),  # the batched generate's cache
-        (1, 32, 32, 1025, [1025]),
-        (8, 32, 32, 1025, ragged),
-        (1, 32, 8, 1025, [1025]),
-        (8, 32, 8, 1025, ragged),
-        (1, 32, 2, 300, [290]),  # 16 query heads a kv head: two blocks of 8
+    c = dec_mod.CHUNK
+    cases = [  # (B, H, Hkv, T, lengths, D); the first is reported in the JSON line
+        (1, 32, 32, 801, [580], 128),  # 2-frame request: T = 768 + 32 + 1, last step
+        (4, 32, 32, 1553, [1100, 1080, 1120, 60], 128),  # the batched generate's cache
+        (1, 32, 32, 1025, [1025], 128),
+        (8, 32, 32, 1025, ragged, 128),
+        (1, 32, 8, 1025, [1025], 128),
+        (8, 32, 8, 1025, ragged, 128),
+        (1, 32, 2, 300, [290], 128),  # 16 query heads a kv head: two blocks of 8
+        # the split's edges: 1, CHUNK - 1, CHUNK, CHUNK + 1 and T live slots
+        (5, 32, 32, 801, [1, c - 1, c, c + 1, 801], 128),
+        (5, 32, 8, 801, [1, c - 1, c, c + 1, 801], 128),
+        (5, 16, 16, 300, [1, c - 1, c, c + 1, 300], 64),
+        (3, 32, 32, 801, [0, 580, 0], 128),  # rows with no live slot are written as 0
     ]
     worst, main = 0.0, None
-    for b, h, hkv, t, lengths in cases:
-        d = 128
+    for b, h, hkv, t, lengths, d in cases:
         # a layer slab of the [L, B, T, Hkv, D] cache, read in place as [B, Hkv, T, D]
         k_slab, v_slab = _randn((b, t, hkv, d), gen), _randn((b, t, hkv, d), gen)
         k, v = k_slab.transpose(1, 2), v_slab.transpose(1, 2)
         q = _randn((b, h, d), gen)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         got = dec_mod.decode_attention(q, k, v, lens)
+        again = dec_mod.decode_attention(q, k, v, lens)
         sync()
+        check(torch.equal(got, again), "decode: the same bits on a second call (tickets reset)")
         want = dec_mod.decode_attention_plain(q.float(), k.float(), v.float(), lens)
-        err = (got.float() - want).abs().max().item()
+        live = lens > 0  # the plain twin gives the mean of V where the kernel gives 0
+        check(got[~live].abs().sum().item() == 0.0, "decode: a row without live slots is 0")
+        err = (got.float() - want)[live].abs().max().item()
         check(torch.isfinite(got).all().item(), "decode output finite")
         ms = time_ms(lambda: dec_mod.decode_attention(q, k, v, lens))
         plain_ms = time_ms(lambda: dec_mod.decode_attention_plain(q, k, v, lens))
-        nbytes = 2 * int(lens.sum().item()) * hkv * d * 2
+        n_live = int(lens.sum().item())
+        nbytes = 2 * n_live * hkv * d * 2
+        lib_ms = None
+        if live.all():
+            mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :], enable_gqa=hkv != h))
+        row = kernel_row(err, ms, plain_ms, nbytes + 2 * 2 * b * h * d, 4 * n_live * h * d, lib_ms)
+        lib_text = "n/a (a row without live slots)" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[K2 decode] B={b} H={h} Hkv={hkv} D={d} T={t} lengths={lens.tolist()}: "
             f"max_abs_err={err:.3e} (tol {DECODE_TOL}) kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s of live KV) plain {plain_ms:.4f} ms")
+            f"({nbytes / ms / 1e6:.1f} GB/s of live KV) plain {plain_ms:.4f} ms "
+            f"scaled_dot_product_attention with the length mask {lib_text} bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         check(err <= DECODE_TOL, f"decode error {err} > {DECODE_TOL}")
         worst = max(worst, err)
-        if main is None:
-            live = torch.arange(t, device="cuda")[None, :] < lens[:, None]
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], k, v, attn_mask=live[:, None, None, :]))
-            n_live = int(lens.sum().item())
-            main = kernel_row(None, ms, plain_ms, nbytes + 2 * 2 * b * h * d,
-                              4 * n_live * h * d, lib_ms)
-            log(f"[K2 decode] same shape: scaled_dot_product_attention with the length mask "
-                f"{lib_ms:.4f} ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']})")
+        main = main or row
     main["max_abs_err"] = worst
     return main
 
@@ -469,6 +484,8 @@ def phase_vit_attention(gen):
         (32, 257, 16, 64),
         (3, 100, 16, 64),  # ragged against every tile
         (16, 1024, 16, 64),  # the longest the gate lets through
+        (4, 577, 16, 64),  # a 336-pixel tower: three windows of keys
+        (2, 577, 16, 64),
     ]
     worst, main = 0.0, None
     for b, s, h, d in cases:

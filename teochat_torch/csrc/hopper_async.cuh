@@ -79,18 +79,26 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // The operand lists of one `wgmma`: the result's registers as the template
 // names them, and as constraints ("+f" read and written, "=f" written only).
-#define TEOCHAT_WGMMA_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define TEOCHAT_WGMMA_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define TEOCHAT_WGMMA_R16 TEOCHAT_WGMMA_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define TEOCHAT_WGMMA_R32 \
   TEOCHAT_WGMMA_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define TEOCHAT_WGMMA_R64                                                                     \
   TEOCHAT_WGMMA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
                     "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
                     "%60, %61, %62, %63"
+#define TEOCHAT_WGMMA_R128                                                                     \
+  TEOCHAT_WGMMA_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "  \
+                    "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
+                    "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "   \
+                    "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+                    "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define TEOCHAT_WGMMA_D8(c, d, i) \
   c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
 #define TEOCHAT_WGMMA_D16(c, d, i) TEOCHAT_WGMMA_D8(c, d, i), TEOCHAT_WGMMA_D8(c, d, i + 8)
 #define TEOCHAT_WGMMA_D32(c, d, i) TEOCHAT_WGMMA_D16(c, d, i), TEOCHAT_WGMMA_D16(c, d, i + 16)
 #define TEOCHAT_WGMMA_D64(c, d, i) TEOCHAT_WGMMA_D32(c, d, i), TEOCHAT_WGMMA_D32(c, d, i + 32)
+#define TEOCHAT_WGMMA_D128(c, d, i) TEOCHAT_WGMMA_D64(c, d, i), TEOCHAT_WGMMA_D64(c, d, i + 64)
 
 // One m64nNk16 bf16 product into fp32. SHAPE is the instruction's shape, REGS
 // and OUTS the result's lists above, A, B and P the template's names of the
@@ -105,8 +113,14 @@ __device__ __forceinline__ void wgmma_wait() {
                : __VA_ARGS__)
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A and B in shared memory, both
-// K-major; N = 32 (for a score tile that has to leave registers to two
-// 64 x 128 accumulators), 64 or 128 by the size of d.
+// K-major; N = 16 or 256 (the ViT attention's 272-key window), 32 (for a
+// score tile that has to leave registers to two 64 x 128 accumulators), 64
+// or 128 by the size of d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  TEOCHAT_WGMMA("m64n16k16", TEOCHAT_WGMMA_R8, "%8", "%9", "%10", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D8("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   TEOCHAT_WGMMA("m64n32k16", TEOCHAT_WGMMA_R16, "%16", "%17", "%18", "1, 1, 0, 0",
@@ -123,9 +137,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
                 TEOCHAT_WGMMA_D64("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  TEOCHAT_WGMMA("m64n256k16", TEOCHAT_WGMMA_R128, "%128", "%129", "%130", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D128("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // The first step of such a product: D = A B. D is written and not read, which
 // also tells the compiler that its old values are dead (after `wgmma_ss` with
 // accumulate = 0 it has to keep them).
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[8], uint64_t desc_a, uint64_t desc_b) {
+  TEOCHAT_WGMMA("m64n16k16", TEOCHAT_WGMMA_R8, "%8", "%9", "%10", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D8("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
+}
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
   TEOCHAT_WGMMA("m64n32k16", TEOCHAT_WGMMA_R16, "%16", "%17", "%18", "1, 1, 0, 0",
                 TEOCHAT_WGMMA_D16("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
@@ -137,6 +161,11 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t desc_a, 
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   TEOCHAT_WGMMA("m64n128k16", TEOCHAT_WGMMA_R64, "%64", "%65", "%66", "1, 1, 0, 0",
                 TEOCHAT_WGMMA_D64("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  TEOCHAT_WGMMA("m64n256k16", TEOCHAT_WGMMA_R128, "%128", "%129", "%130", "1, 1, 0, 0",
+                TEOCHAT_WGMMA_D128("=f", d, 0), "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A in registers, B in shared memory

@@ -6,6 +6,14 @@ stayed unwired; the port has no XLA, so the kernel (csrc/decode_attention.cu)
 runs every decode step. The plain twin is the JAX function's `impl="xla"`
 branch. A CPU tensor goes to the twin; a CUDA tensor launches the kernel or
 raises.
+
+The kernel splits each row's slots into chunks of CHUNK, one block a chunk
+(flash-decoding): each block writes a partial (m, l, acc) to an fp32
+workspace and the last block of a row's head group to finish merges them in
+chunk order. `decode_attention_split_schedule` is that walk in plain
+PyTorch. The tickets that tell a block it is the last stay zero between
+calls (the kernel resets them); one buffer of them is kept per device and
+size, so calls that share it run on one stream, as the decode loop's do.
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ from teochat_torch.ops.attention import NEG_INF
 LAUNCHES = _build.LaunchCounter("decode_attention")
 HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
+CHUNK = 64  # cache slots a block of the kernel takes
+MAX_HEADS_A_BLOCK = 8
+_tickets = {}  # (device, count) -> int32 zeros, reset by the kernel after each launch
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
@@ -36,6 +47,55 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch
     live = torch.arange(t, device=q.device)[None, None, :] < lengths.to(q.device)[:, None, None]
     probs = torch.softmax(torch.where(live, logits, NEG_INF), dim=-1)
     return torch.einsum("bht,bhtd->bhd", probs, vf).to(q.dtype)
+
+
+def decode_attention_split_schedule(q, k_cache, v_cache, lengths, *, scale=None,
+                                    chunk: int = CHUNK) -> torch.Tensor:
+    """The kernel's split walk in plain PyTorch, fp32 statistics.
+
+    As in csrc/decode_attention.cu: the slots go in chunks of `chunk`; a
+    chunk past a row's live slots (other than chunk 0) is left out; each
+    chunk's partial is its own row maximum m_c, l_c = sum exp(s - m_c) and
+    acc_c = sum exp(s - m_c) v over its live slots; the partials are merged
+    in chunk order against their largest m, and a row whose l is 0 (length 0)
+    is written as 0. q [B, H, D]; k_cache, v_cache [B, Hkv, T, D]; lengths [B]."""
+    b, h, d = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    kf = k_cache.float().repeat_interleave(h // hkv, dim=1)
+    vf = v_cache.float().repeat_interleave(h // hkv, dim=1)
+    lens = lengths.to(q.device).long().clamp(0, t)
+    n_live = torch.clamp((lens + chunk - 1) // chunk, min=1)  # [B]
+    ms, ls, accs = [], [], []
+    for c0 in range(0, t, chunk):
+        sc = torch.einsum("bhd,bhtd->bht", q.float(), kf[:, :, c0:c0 + chunk]) * scale
+        slot = torch.arange(c0, min(c0 + chunk, t), device=q.device)
+        live = slot[None, None, :] < lens[:, None, None]
+        sc = torch.where(live, sc, float("-inf"))
+        m = sc.amax(-1)  # -inf where the chunk has no live slot
+        p = torch.where(live, torch.exp(sc - torch.where(m.isinf(), 0.0, m)[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bht,bhtd->bhd", p, vf[:, :, c0:c0 + chunk]))
+    m_c, l_c, acc_c = torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+    taken = torch.arange(m_c.shape[-1], device=q.device)[None, :] < n_live[:, None]  # [B, C]
+    m_c = torch.where(taken[:, None, :], m_c, float("-inf"))
+    mx = m_c.amax(-1)
+    f = torch.where(m_c.isinf(), 0.0, torch.exp(m_c - torch.where(mx.isinf(), 0.0, mx)[..., None]))
+    l = (l_c * f).sum(-1)
+    acc = (acc_c * f[..., None]).sum(-2)
+    out = torch.where(l[..., None] == 0, 0.0, acc / torch.where(l == 0, 1.0, l)[..., None])
+    return out.to(q.dtype)
+
+
+def _tickets_for(device, count: int) -> torch.Tensor:
+    """A buffer of `count` zero tickets on `device`, kept for the next call
+    (the kernel leaves it zero); never freed, so a captured launch keeps its pointer."""
+    key = (device, count)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
@@ -59,10 +119,15 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    n_chunks = -(-t // CHUNK)
+    part_ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=q.device)
+    tickets = _tickets_for(q.device, b * (h // min(h // hkv, MAX_HEADS_A_BLOCK)))
     _build.launch(
         "teochat_decode_attention", q,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
+        part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
         b, h, hkv, t, d,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

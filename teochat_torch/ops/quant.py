@@ -17,7 +17,9 @@ layers needs it). The projection is an autograd.Function that saves the
 int8 kernel and its fp32 scale, and dequantizes again in the backward,
 dx = (dy * scale) @ W_i8^T: plain autograd through `kernel.to(x.dtype)`
 would save a bf16 copy of every weight it touches (13.5 GB for the 7B
-decoder without remat).
+decoder without remat). The fp32 `dy * scale` meets the weight whole
+(`mm_fp32_operand`), as in the reference's gradient; so does the fp32
+cotangent in `matmul_fp32`'s gradients.
 
 Int4, w4a16 (`quantize_kernel_int4`, `unpack_int4`, `int4_proj`,
 `quantize_llama_params_int4`): per-output-channel scale `amax / 7`, values
@@ -66,6 +68,34 @@ def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     return torch.mm(a.float(), b.float()).to(out_dtype)
 
 
+def _split_bf16(g: torch.Tensor):
+    """An fp32 tensor as a 16-bit head and the 16-bit rounding of what the
+    head leaves: head + remainder is g to about 2^-17 of each element."""
+    head = g.to(torch.bfloat16)
+    return head, (g - head.float()).to(torch.bfloat16)
+
+
+def mm_fp32_operand(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """a [M, K] @ b [K, N] where one operand is fp32 and the other bf16 (a
+    cotangent against a weight or an activation), summed in fp32 and rounded
+    once to `out_dtype`: what JAX's transpose of a `preferred_element_type=
+    float32` product computes. On the card the fp32 operand goes to the bf16
+    tensor cores as a head and a remainder: two cuBLAS products, the second
+    accumulating into the first's fp32 result (on an H100 the cheapest of
+    three such forms, chip_probe.py int8-proj). On the CPU, the product of
+    fp32 copies."""
+    f32 = torch.float32
+    if not a.is_cuda or a.dtype == b.dtype == f32:
+        return torch.mm(a.float(), b.float()).to(out_dtype)
+    if a.dtype == f32:
+        head, rest = _split_bf16(a)
+        y = torch.addmm(torch.mm(head, b, out_dtype=f32), rest, b, out_dtype=f32)
+    else:
+        head, rest = _split_bf16(b)
+        y = torch.addmm(torch.mm(a, head, out_dtype=f32), a, rest, out_dtype=f32)
+    return y.to(out_dtype)
+
+
 class _MatmulFp32(torch.autograd.Function):
     """y = a @ b as the fp32 accumulator; the gradients in the operands' dtype."""
 
@@ -77,9 +107,9 @@ class _MatmulFp32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         a, b = ctx.saved_tensors
-        g = dy.to(a.dtype)  # a tensor-core operand: rounded once, as the MXU rounds it
-        da = _mm(g, b.t(), a.dtype) if ctx.needs_input_grad[0] else None
-        db = _mm(a.t(), g, b.dtype) if ctx.needs_input_grad[1] else None
+        g = dy.float()  # the fp32 cotangent, whole, as the reference transposes it
+        da = mm_fp32_operand(g, b.t(), a.dtype) if ctx.needs_input_grad[0] else None
+        db = mm_fp32_operand(a.t(), g, b.dtype) if ctx.needs_input_grad[1] else None
         return da, db
 
 
@@ -112,15 +142,11 @@ class _Int8Proj(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         kernel, scale = ctx.saved_tensors
-        # dy * scale is an operand of the product, so in a 16-bit dtype it is
-        # rounded once before it; the sum is fp32 and rounded once to x's
-        # dtype. The JAX package multiplies the fp32 dy * scale: about 110 of
-        # 256 dx values then differ by one bf16 step. An operand kept whole
-        # leaves the bf16 tensor cores: on an H100 at 7B width and 4,096 rows
-        # the same product takes 2.4x the time as a bf16 head plus a bf16
-        # remainder, and 9.9x with fp32 operands (chip_probe.py int8-proj)
-        g = (dy.float() * scale.float()).to(ctx.x_dtype)
-        dx = matmul_fp32(g, kernel.to(ctx.x_dtype).t()).to(ctx.x_dtype)
+        # the reference multiplies the fp32 dy * scale by the weight: it stays
+        # fp32 here too, and the weight is converted once
+        g = dy.reshape(-1, dy.shape[-1]).float() * scale.float()
+        dx = mm_fp32_operand(g, kernel.to(ctx.x_dtype).t(), ctx.x_dtype)
+        dx = dx.reshape(*dy.shape[:-1], kernel.shape[0])
         return dx, None, None, None
 
 

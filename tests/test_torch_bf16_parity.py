@@ -6,7 +6,8 @@ bf16: every product sums exact bf16 x bf16 products in fp32, and what is
 held is where that sum is rounded. The reference returns the fp32 sum for
 the logits (`preferred_element_type=float32`), scales the int8 projection's
 fp32 sum before its one rounding, and keeps the second LoRA product in fp32
-until `lora_scale`. JAX matmuls run at `highest` (tests/conftest.py), torch
+until `lora_scale`; its gradients meet the fp32 cotangent (and the int8
+projection's fp32 dy * scale) whole. JAX matmuls run at `highest` (tests/conftest.py), torch
 on the CPU has no TF32.
 """
 
@@ -107,17 +108,71 @@ def test_matmul_fp32_is_the_accumulator():
 
 
 def test_matmul_fp32_gradients_match_a_bf16_product():
-    """Gradients arrive in the operands' dtype: the cotangent rounded once as
-    an operand, each product summed in fp32 and rounded once."""
+    """The gradients of the fp32-accumulated product are JAX's: `jax.grad` of
+    the reference's einsum (`preferred_element_type=float32`) transposes with
+    the fp32 cotangent whole, sums in fp32 and rounds once to the operands'
+    bf16. No gradient is a bf16 step from JAX's; the cotangent rounded to bf16
+    first (the port before this repair) moved 104 of a's 256."""
     rs = np.random.RandomState(8)
-    a = torch.from_numpy(rs.randn(4, 64).astype(np.float32)).bfloat16().requires_grad_(True)
-    b = torch.from_numpy(rs.randn(64, 32).astype(np.float32)).bfloat16().requires_grad_(True)
-    dy = torch.from_numpy(rs.randn(4, 32).astype(np.float32))
-    torch_quant.matmul_fp32(a, b).backward(dy)
-    g = dy.bfloat16().float()
+    a32 = rs.randn(4, 64).astype(np.float32)
+    b32 = rs.randn(64, 32).astype(np.float32)
+    dy = rs.randn(4, 32).astype(np.float32)
+    want_a, want_b = jax.grad(
+        lambda aa, bb: jnp.sum(jnp.einsum("md,df->mf", aa, bb, preferred_element_type=jnp.float32)
+                               * dy), argnums=(0, 1))(_bf16(a32), _bf16(b32))
+    a = torch.from_numpy(a32).bfloat16().requires_grad_(True)
+    b = torch.from_numpy(b32).bfloat16().requires_grad_(True)
+    torch_quant.matmul_fp32(a, b).backward(torch.from_numpy(dy))
     assert a.grad.dtype == b.grad.dtype == torch.bfloat16
-    assert torch.equal(a.grad, (g @ b.detach().float().t()).bfloat16())
-    assert torch.equal(b.grad, (a.detach().float().t() @ g).bfloat16())
+    for got, want in ((a.grad, want_a), (b.grad, want_b)):
+        assert _steps_apart(got, torch.from_numpy(np.asarray(want.astype(jnp.float32))).bfloat16()) == 0
+    rounded = (torch.from_numpy(dy).bfloat16().float() @ b.detach().float().t()).bfloat16()
+    assert _steps_apart(rounded, a.grad) > 0
+
+
+def test_lora_proj_gradients_match_jax():
+    """`_proj` with a LoRA adapter at lora_scale 1.5 in bf16, against the
+    reference's `_proj` under `jax.grad`: the gradients of the fp32 lora_a and
+    lora_b masters and of x. Both sides sum exact bf16 products in fp32 and
+    round where the reference rounds, so they differ only where two fp32 sums
+    in another order fall on either side of a bf16 rounding: read 0 of 256 x
+    values, 0 of 512 lora_a and 0 of 384 lora_b values apart; held to one in
+    64 of each a bf16 step apart, none further. Rounding the fp32 cotangent
+    of the second LoRA product to bf16 (the port before this repair) moved
+    76 of 256 x, 307 of 512 lora_a and 157 of 384 lora_b values, some by
+    more than a step."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(4, 64).astype(np.float32)
+    p = {
+        "kernel": (rs.randn(64, 48) * 0.1).astype(np.float32),
+        "lora_a": (rs.randn(64, 8) * 0.1).astype(np.float32),
+        "lora_b": (rs.randn(8, 48) * 0.1).astype(np.float32),
+        "lora_scale": np.asarray(1.5, np.float32),
+    }
+    w = rs.randn(4, 48).astype(np.float32)
+
+    def jax_loss(xx, la, lb):
+        pj = {"kernel": _bf16(p["kernel"]), "lora_a": la, "lora_b": lb,
+              "lora_scale": jnp.asarray(p["lora_scale"])}
+        return jnp.sum(jax_llama._proj(xx, pj).astype(jnp.float32) * w)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(_bf16(x), jnp.asarray(p["lora_a"]),
+                                                 jnp.asarray(p["lora_b"]))
+    xt = torch.from_numpy(x).bfloat16().requires_grad_(True)
+    pt = to_torch({**p, "kernel": np.asarray(_bf16(p["kernel"]).astype(jnp.float32))}, "cpu")
+    pt["kernel"] = pt["kernel"].bfloat16()
+    pt["lora_a"].requires_grad_(True)
+    pt["lora_b"].requires_grad_(True)
+    (torch_llama._proj(xt, pt).float() * torch.from_numpy(w)).sum().backward()
+    assert xt.grad.dtype == torch.bfloat16 and pt["lora_a"].grad.dtype == torch.float32
+    for got, ref in ((xt.grad, want[0]), (pt["lora_a"].grad, want[1]), (pt["lora_b"].grad, want[2])):
+        ref = torch.from_numpy(np.asarray(ref.astype(jnp.float32)))
+        got = got.float()
+        # the fp32 masters' gradients are bf16 values cast up, on both sides
+        assert torch.equal(got.bfloat16().float(), got) and torch.equal(ref.bfloat16().float(), ref)
+        step = 2.0 ** -7 * ref.abs()  # one bf16 step at |ref| (8 bits of mantissa)
+        assert int((got != ref).sum()) <= got.numel() // 64
+        assert ((got - ref).abs() <= step + 1e-30).all()
 
 
 def _int8_case():
@@ -148,14 +203,13 @@ def test_int8_projection_rounds_once():
 
 
 def test_int8_projection_dx_is_one_rounding_from_jax():
-    """dx = (dy * scale) @ W^T. The reference multiplies the fp32 dy * scale;
-    the port rounds it to bf16 as the product's operand (once, 2^-9 relative
-    on each term), sums in fp32 and rounds the sum once: a known deviation.
-    So each dx lies within 2^-9 * sum |g| |W| of the reference's fp32 value,
-    plus the final rounding's half step (2^-9 relative); it is exactly the
-    one rounding of the exact sum over the rounded operand (no second
-    rounding of the sum). Read: 112 of 256 differ from the reference's, by
-    one bf16 step except where the sum cancels to a small value."""
+    """dx = (dy * scale) @ W^T, with the fp32 dy * scale whole as the
+    reference's gradient has it (`teochat_tpu/ops/quant.py:46-50` under
+    `jax.grad`), summed in fp32 and rounded once. Held to JAX's dx: at most 2
+    of 256 a bf16 step apart (two fp32 sums in another order on either side
+    of a rounding; the card's head-and-remainder split leaves ~2^-17 of each
+    term as well), none further. Read here: 0 apart. Rounding dy * scale to
+    bf16 first (the port before this repair) moved 112 of 256."""
     x, w, dy = _int8_case()
     pj = jax_quant.quantize_kernel(jnp.asarray(w))
     want = np.asarray(jax.grad(
@@ -165,15 +219,15 @@ def test_int8_projection_dx_is_one_rounding_from_jax():
     torch_quant.quantized_proj(xt, to_torch(_np_tree(pj), "cpu")).backward(
         torch.from_numpy(dy).bfloat16())
     assert xt.grad.dtype == torch.bfloat16
-    g = np.abs(np.asarray(_bf16(dy).astype(jnp.float32)) * np.asarray(pj["scale"]))
-    spread = g @ np.abs(np.asarray(pj["kernel"], np.float32)).T  # sum |g| |W|, [1, 256]
-    bound = 2.0 ** -9 * spread + 2.0 ** -8 * np.abs(want)
-    got = xt.grad.float().numpy()
-    assert (np.abs(got - want) <= bound).all()
-    g16 = torch.from_numpy(np.asarray(_bf16(dy).astype(jnp.float32)) * np.asarray(pj["scale"]))
-    exact = g16.bfloat16().double() @ torch.from_numpy(np.array(pj["kernel"])).double().t()
-    assert _steps_apart(xt.grad, exact.float().bfloat16()) == 0
-    assert (got != want).sum() <= 128
+    got, ref = xt.grad.float(), torch.from_numpy(want)
+    assert int((got != ref).sum()) <= 2
+    assert ((got - ref).abs() <= 2.0 ** -7 * ref.abs()).all()  # at most one bf16 step
+    # and one rounding of the exact sum over the fp32 operand
+    g = torch.from_numpy(np.asarray(_bf16(dy).astype(jnp.float32)) * np.asarray(pj["scale"]))
+    exact = g.double() @ torch.from_numpy(np.array(pj["kernel"])).double().t()
+    assert _steps_apart(xt.grad, exact.float().bfloat16()) <= 2
+    rounded = g.bfloat16().double() @ torch.from_numpy(np.array(pj["kernel"])).double().t()
+    assert _steps_apart(rounded.float().bfloat16(), ref.bfloat16()) > 64  # what the repair buys
 
 
 def test_lora_delta_stays_fp32_until_the_scale():

@@ -163,6 +163,12 @@ def test_flash_forward_statistics_match_plain(gen, b, s, t, h, hkv, d, causal):
         (2, 8, 1, 70, 128, [5, 70]),  # GQA 8:1
         (2, 4, 2, 50, 64, [50, 17]),  # head_dim 64
         (2, 32, 2, 90, 128, [90, 33]),  # GQA 16:1, two blocks of 8 heads a kv head
+        # the split's edges: 1, CHUNK - 1, CHUNK, CHUNK + 1 and T slots, and none
+        (6, 32, 32, 801, 128, [1, 63, 64, 65, 801, 0]),
+        (6, 32, 8, 200, 128, [1, 63, 64, 65, 200, 0]),  # GQA 4:1, T a ragged chunk
+        (6, 32, 2, 129, 128, [1, 63, 64, 65, 129, 0]),  # GQA 16:1
+        (6, 16, 16, 256, 64, [1, 63, 64, 65, 256, 0]),  # head_dim 64
+        (8, 32, 32, 1025, 128, [1025, 1, 517, 1024, 64, 300, 1000, 2]),  # a ragged batch
     ],
 )
 def test_decode_kernel_matches_plain(gen, b, h, hkv, t, d, lengths):
@@ -182,6 +188,24 @@ def test_decode_kernel_matches_plain(gen, b, h, hkv, t, d, lengths):
     live = lens > 0
     assert (got.float() - want)[live].abs().max().item() <= TOL
     assert got[~live].abs().sum().item() == 0.0
+
+
+def test_decode_kernel_is_the_same_on_every_run(gen):
+    """The last block of a row's chunks merges them in chunk order and resets
+    its ticket: a second call on the same inputs gives the same bits, and so
+    does a call of another shape in between."""
+    k = _randn((4, 32, 801, 128), gen)
+    v = _randn((4, 32, 801, 128), gen)
+    q = _randn((4, 32, 128), gen)
+    lens = torch.tensor([580, 801, 64, 3], dtype=torch.int32, device="cuda")
+    first = dec_mod.decode_attention(q, k, v, lens)
+    again = dec_mod.decode_attention(q, k, v, lens)
+    dec_mod.decode_attention(q[:1], k[:1], v[:1], lens[:1])
+    third = dec_mod.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+    want = dec_mod.decode_attention_split_schedule(q.float(), k.float(), v.float(), lens)
+    assert (first.float() - want).abs().max().item() <= TOL
 
 
 def test_cuda_tensors_the_kernels_do_not_take_raise(gen):
@@ -411,7 +435,13 @@ def test_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
         int4_mod.int4_matmul_tiled(x.requires_grad_(True), tiles, scale, n_out=1024)
 
 
-@pytest.mark.parametrize("b,s,h", [(2, 257, 16), (3, 100, 4), (1, 64, 2), (1, 1024, 2)])
+@pytest.mark.parametrize("b,s,h", [
+    (2, 257, 16), (3, 100, 4), (1, 64, 2), (1, 1024, 2),
+    (32, 257, 16),  # the bench's encode: two warpgroups a block, persistent blocks
+    (2, 272, 4), (2, 273, 4),  # one window exactly; a second window with one key
+    (1, 577, 16), (4, 577, 16),  # a 336-pixel tower: three windows, at both launch shapes
+    (3, 65, 8),  # a second query tile with one row
+])
 def test_vit_attention_kernel_matches_plain(gen, b, s, h):
     q, k, v = (_randn((b, s, h, 64), gen) for _ in range(3))
     before = vit_mod.LAUNCHES.count
@@ -423,12 +453,18 @@ def test_vit_attention_kernel_matches_plain(gen, b, s, h):
     assert (got.float() - want).abs().max().item() <= TOL
 
 
-def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen):
-    qkv = _randn((2, 130, 3, 4, 64), gen)
+@pytest.mark.parametrize("b,s,h", [(2, 130, 4), (32, 257, 16)])  # both launch shapes
+def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen, b, s, h):
+    qkv = _randn((b, s, 3, h, 64), gen)
     q, k, v = qkv.unbind(2)
     got = vit_mod.vit_attention(q, k, v, scale=0.2)
     want = vit_mod.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.2)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # head-major views ([B, H, S, D] transposed) are read in place as well
+    hm = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    torch.testing.assert_close(vit_mod.vit_attention(*hm, scale=0.2), want, rtol=0, atol=0)
+    sched = vit_mod.vit_attention_schedule(q.float(), k.float(), v.float(), scale=0.2)
+    assert (got.float() - sched).abs().max().item() <= TOL
     with pytest.raises(ValueError):  # head_dim 128
         x = _randn((1, 64, 2, 128), gen)
         vit_mod.vit_attention(x, x, x)
@@ -438,6 +474,35 @@ def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen):
     with pytest.raises(ValueError):  # fp32
         x = torch.randn(1, 64, 2, 64, device="cuda")
         vit_mod.vit_attention(x, x, x)
+
+
+# ------------------------------------------------ gradients with an fp32 operand (F2b, F3)
+
+
+def _steps_off_exact(got, a, b):
+    """How many of `got` (bf16) differ from the one rounding of the exact sum a @ b."""
+    exact = (a.double() @ b.double()).float().to(torch.bfloat16)
+    return int((got != exact).sum()), got.numel()
+
+
+def test_fp32_cotangent_products_are_one_rounding_of_the_exact_sum(gen):
+    """matmul_fp32's gradients and the int8 projection's dx take the fp32
+    cotangent whole (a bf16 head and remainder in one product): at most 2 of
+    256 values a bf16 step from the exact sum's rounding."""
+    a = _randn((64, 1024), gen).requires_grad_(True)
+    b = _randn((1024, 512), gen).requires_grad_(True)
+    dy = torch.randn((64, 512), generator=gen, device="cuda")
+    quant_mod.matmul_fp32(a, b).backward(dy)
+    for got, x, y in ((a.grad, dy, b.detach().t()), (b.grad, a.detach().t(), dy)):
+        off, n = _steps_off_exact(got, x, y)
+        assert got.dtype == torch.bfloat16 and off <= 2 * n / 256, (off, n)
+    w = torch.randint(-127, 128, (1024, 512), generator=gen, device="cuda", dtype=torch.int8)
+    p = {"kernel": w, "scale": torch.rand(512, generator=gen, device="cuda") * 1e-2}
+    x = _randn((64, 1024), gen).requires_grad_(True)
+    dy16 = _randn((64, 512), gen)
+    quant_mod.quantized_proj(x, p).backward(dy16)
+    off, n = _steps_off_exact(x.grad, dy16.float() * p["scale"], w.float().t())
+    assert off <= 2 * n / 256, (off, n)
 
 
 # ------------------------------------------------ the kernel benches' variants (S1, S2)
