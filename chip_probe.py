@@ -10,6 +10,7 @@
     python3 chip_probe.py train-step [--root DIR]
     python3 chip_probe.py int8-proj [--root DIR]
     python3 chip_probe.py k3k5
+    python3 chip_probe.py k3 [--root DIR] [--ms 1 4 16 768] [--ttft]
     python3 chip_probe.py k5k2 [--root DIR] [--chunks 32 128]
     python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
@@ -81,6 +82,16 @@ another checkout, so two trees can be timed in one session on one card.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
+- k3: the int4 product alone at the 7B decoder's four projection shapes
+  (q|k|v, out, gate|up, down; v3 tiles from the port's quantizer, the layer
+  picked from a stack of copies larger than the L2): SASS counts of the
+  tree's int4 kernels (`HGMMA`, `UTMALDG`, `HMMA`) and ptxas's registers and
+  spills for its M > 8 kernel; for each M of --ms, K3c as the wrappers launch
+  it (ms, TFLOP/s, GB/s, the bound, the error against the plain version)
+  and `torch._weight_int4pack_mm` on the same weights where the tree's
+  smoke sets it up, both timed over as many copies of their weights. `--ttft` adds the `decode` command's int4 and int8
+  prefill + first token at batch 1. With `--root` on a parent checkout and
+  once without, both trees are read in one call on one card.
 - k5k2: the ViT attention (K5) and the decode attention (K2) alone at the
   kernel table's shapes: SASS counts of the tree's two kernels (`HGMMA`,
   `UTMALDG`, `HMMA`, `LDS`; spills from ptxas in the build log), K5 at
@@ -474,6 +485,83 @@ def cmd_k3k5(smoke, args):
     _run_phases(smoke, (("k5", smoke.phase_vit_attention), ("k3", smoke.phase_int4)))
 
 
+# -------------------------------------------------------------------- k3
+
+# the 7B decoder's projections (fan-in, fan-out): q|k|v and gate|up fused,
+# out, down (its packed fan-in padded 5504 -> 5632 byte rows)
+K3_SHAPES = (("qkv", 4096, 12288), ("out", 4096, 4096), ("gateup", 4096, 22016),
+             ("down", 11008, 4096))
+
+
+def _ptxas_report(tag, log, kernel):
+    """ptxas's lines (registers, spills) for each entry whose name holds `kernel`."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            name = line.split("'")[1] if "'" in line else line
+            for nxt in lines[i + 1:i + 6]:
+                if "spill" in nxt or "registers" in nxt:
+                    print(f"[{tag}] ptxas {name}: {nxt.strip()}", flush=True)
+
+
+def cmd_k3(smoke, args):
+    from teochat_torch.bench._timing import bound_ms
+    from teochat_torch.ops import _build as build
+    from teochat_torch.ops import int4_matmul as int4_mod
+    from teochat_torch.ops import quant as quant_mod
+
+    tag = f"k3 root={args.root}"
+    _kernel_sass(tag, build, "int4_matmul_cu")
+    _ptxas_report(tag, build.library().log, "int4_large_m")
+    library = getattr(smoke, "int4pack_library", None)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    for name, k, n in K3_SHAPES:
+        leaf = quant_mod.quantize_kernel_int4(
+            torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+        tiles, scale = leaf["packed_tiles"], leaf["scale"]
+        n_tiles, k2, tw = tiles.shape
+        reps = -(-160 * 2**20 // tiles.numel())  # copies that exceed the L2 three times
+        rot_tiles = tiles[None].expand(reps, -1, -1, -1).contiguous()
+        rot_scale = scale[None].expand(reps, -1).contiguous()
+        state = [0]
+
+        def nxt():
+            state[0] = (state[0] + 1) % reps
+            return state[0]
+
+        # the library's calls walk as many copies of its weights as the kernel's
+        lib = library(tiles, scale, n, copies=reps) if library else None
+        for m in args.ms:
+            x = smoke._randn((m, k), gen)
+            want = int4_mod.int4_matmul_tiled_plain(x.float(), tiles, scale, n_out=n)
+            got = int4_mod.int4_matmul_tiled_stacked(x, rot_tiles, rot_scale, 0, n_out=n)
+            rel_l2 = ((got.float() - want).norm() / want.norm()).item()
+            ms = smoke.time_ms(lambda: int4_mod.int4_matmul_tiled_stacked(
+                x, rot_tiles, rot_scale, nxt(), n_out=n))
+            nbytes = tiles.numel() + 2 * m * k + 2 * m * n + 4 * n
+            flops = 2 * m * k * n
+            bound, by = bound_ms(nbytes, flops)
+            lib_text = "none"
+            if lib is not None:
+                prepare, call = lib
+                xp = prepare(x)
+                try:
+                    lib_l2 = ((call(xp).float() - want).norm() / want.norm()).item()
+                    lib_ms = smoke.time_ms(lambda: call(xp))
+                    lib_text = f"{lib_ms:.4f} ms (rel L2 {lib_l2:.2e}, {ms / lib_ms:.2f}x)"
+                except RuntimeError as e:
+                    lib_text = f"none: {str(e)[:160]}"
+            print(f"[{tag}] K3c {name} K={k} N={n} M={m}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), rel L2 "
+                  f"{rel_l2:.2e}; bound {bound:.4f} ms ({by}); torch._weight_int4pack_mm "
+                  f"{lib_text}", flush=True)
+        del rot_tiles, rot_scale, lib
+        torch.cuda.empty_cache()
+    if args.ttft:
+        cmd_decode(smoke, argparse.Namespace(root=args.root, reps=5, quant=["int4", "int8"],
+                                             batches=[1]))
+
+
 # ------------------------------------------------------------------ k5k2
 
 K5_SHAPES = ((32, 257), (2, 257), (16, 1024))  # (B, S) at H 16, D 64
@@ -753,8 +841,8 @@ def cmd_int8_proj(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k5k2",
-                 "s1s2", "profile-train", "train-step", "int8-proj"):
+    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k3",
+                 "k5k2", "s1s2", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
@@ -770,6 +858,10 @@ def main():
                            default=["dqbk=128,stages=2", "stages=2", "stages=4"],
                            help="key=value[,key=value] over dqbk, stages")
             p.add_argument("--long", action="store_true", help="also a GQA shape and B1 S4096")
+        if name == "k3":
+            p.add_argument("--ms", type=int, nargs="+", default=[1, 4, 16, 768])
+            p.add_argument("--ttft", action="store_true",
+                           help="also int4 and int8 prefill + first token at batch 1")
         if name == "k5k2":
             p.add_argument("--chunks", type=int, nargs="+", default=[32, 128],
                            help="K2 slot chunks to build the source with")
@@ -784,7 +876,8 @@ def main():
     smoke.phase_device()
     smoke.phase_build()
     {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
-     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k5k2": cmd_k5k2,
+     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
+     "k5k2": cmd_k5k2,
      "s1s2": cmd_s1s2,
      "profile-train": cmd_profile_train, "train-step": cmd_train_step,
      "int8-proj": cmd_int8_proj}[args.cmd](smoke, args)

@@ -16,7 +16,9 @@ them. Phases, each printing its lines before the last:
    live slots), in a ragged batch and with rows of no live slot (written as
    0); each case twice, bit-equal;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
-   against their plain version at the 7B projections' shapes, M = 1, 4, 768;
+   against their plain version at the 7B projections' shapes, M = 1, 4 (the
+   small-M kernel), 16 and 768 (the M > 8 `wgmma` kernel), each beside
+   `torch._weight_int4pack_mm` on the same weights;
 6. the one-shot ViT attention (K5) against its plain version at the tower's
    shape for a 2-frame request and a 32-frame encode, at a ragged 100, at a
    336-pixel tower's 577 and at the gate's 1024;
@@ -59,13 +61,16 @@ them. Phases, each printing its lines before the last:
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
-the same function where there is one (`scaled_dot_product_attention`; used
-nowhere in the port), and works out the least time the card could take:
+the same function where there is one (`scaled_dot_product_attention`,
+`torch._weight_int4pack_mm`; used nowhere in the port), and works out the
+least time the card could take:
 the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
-The line before the last is a JSON object with each of the seventeen
-kernels' launches, error, times and bound; the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each of the eighteen
+kernel rows' launches, error, times and bound (K3c has two: its wrapper runs
+the M > 8 kernel at prefill and the byte-streaming one at decode); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -177,7 +182,13 @@ INT4_LOGITS_REL_L2_BOUND = 5e-2
 # 32000 columns padded to 63 tiles of 512)
 INT4_SHAPES = [("qkv", 4096, 12288), ("out", 4096, 4096), ("gateup", 4096, 22016),
                ("down", 11008, 4096), ("lm_head", 4096, 32000)]
-INT4_MS = (1, 4, 768)  # decode at batch 1 and 4, the 2-frame prompt's prefill
+# decode at batch 1 and 4 (the small-M kernel), batched decode at 16 and the
+# 2-frame prompt's prefill (the M > 8 kernel)
+INT4_MS = (1, 4, 16, 768)
+# torch._weight_int4pack_mm, the library's w4a16 product, against the plain
+# version on the same bytes: its scales are bf16 (one more rounding of each,
+# 2^-9 relative) and it rounds its own way, so it is held to 1e-2 relative L2
+INT4_LIBRARY_REL_L2 = 1e-2
 
 PROMPT_2 = ("This is a pair of satellite images of the same location taken before "
             "and after a natural disaster: <video> Identify the damaged buildings "
@@ -379,10 +390,63 @@ def phase_decode(gen):
     return main
 
 
-def _int4_case(name, k, n, m, packed, run, plain, tag="K3 int4", scaled=True):
+def int4pack_library(packed, scale, n_out, copies=1):
+    """`torch._weight_int4pack_mm` set up to compute what K3 computes on one
+    weight's bytes (`packed`: flat [k2, N] or tiles [n_tiles, k2, TW]): the
+    values repacked unsigned (v + 8) by `torch._convert_weight_to_int4pack`,
+    groups of 128 rows that each carry their column's scale (in bf16), zeros
+    0. Returns (prepare, call): prepare(x) pads x to the padded fan-in
+    (outside the timed call), call(xp) is the product. With `copies` > 1 the
+    packed weights and scales are held that many times and each call reads
+    the next copy, as the kernel's timed launches walk a stack of copies
+    larger than the L2. A yardstick only: the port never calls it."""
+    flat = int4_mod.untile(packed) if packed.ndim == 3 else packed
+    w = int4_mod.unpack_int4_any(flat[:, :n_out], torch.int32)  # [2 k2, n_out] in [-8, 7]
+    q = (w + 8).t().contiguous()  # [N, K] unsigned, a row a column of W
+    b = torch._convert_weight_to_int4pack((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+    groups = w.shape[0] // 128
+    sz = torch.stack([scale[:n_out].to(torch.bfloat16).expand(groups, n_out),
+                      torch.zeros((groups, n_out), dtype=torch.bfloat16, device=w.device)],
+                     dim=-1)
+    bs = b[None].expand(copies, *b.shape).contiguous()
+    szs = sz[None].expand(copies, *sz.shape).contiguous()
+    nxt = itertools.cycle(range(copies)).__next__
+
+    def prepare(x):
+        return F.pad(x, (0, w.shape[0] - x.shape[1])).contiguous()
+
+    def call(xp):
+        i = nxt()
+        return torch._weight_int4pack_mm(xp, bs[i], 128, szs[i])
+
+    return prepare, call
+
+
+def _int4_library_ms(name, m, x, library, want):
+    """The library call's ms on x, after holding it to INT4_LIBRARY_REL_L2 of
+    the plain version; None (with the reason printed) where the card's torch
+    refuses the shape."""
+    if library is None:
+        return None
+    prepare, call = library
+    xp = prepare(x)
+    try:
+        got = call(xp)
+        sync()
+    except RuntimeError as e:
+        log(f"[K3 int4] {name} M={m}: torch._weight_int4pack_mm refused: {str(e)[:200]}")
+        return None
+    rel_l2 = ((got.float() - want).norm() / want.norm()).item()
+    check(rel_l2 <= INT4_LIBRARY_REL_L2, f"{name} M={m}: library rel L2 {rel_l2}")
+    return time_ms(lambda: call(xp))
+
+
+def _int4_case(name, k, n, m, packed, run, plain, tag="K3 int4", scaled=True, x=None,
+               library=None):
     """One int4 product (`packed`: one weight's bytes; k: the rows of x it
-    meets) against its plain version; returns (abs err, ms, plain ms, bytes,
-    flops)."""
+    meets) against its plain version, and the library's product on x where
+    `library` is given; returns (abs err, ms, plain ms, bytes, flops,
+    library ms or None)."""
     got = run()
     sync()
     want = plain()  # fp32: the plain version keeps the dtype of the x it is given
@@ -397,21 +461,23 @@ def _int4_case(name, k, n, m, packed, run, plain, tag="K3 int4", scaled=True):
     nbytes = packed.numel() + 2 * m * k + 2 * m * n + 4 * n * scaled  # bytes, x, y, scale
     flops = 2 * m * k * n
     bound, by = bound_ms(nbytes, flops)
+    lib_ms = _int4_library_ms(name, m, x, library, want)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"[{tag}] {name} K={k} N={n} M={m} {str(packed.dtype)[6:]}: rel L2 {rel_l2:.3e} "
         f"(bound {INT4_REL_L2}) max_abs_err {err:.3e} = {err / top:.3e} of max |y| "
         f"(bound {INT4_REL_MAX}); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
         f"{flops / ms / 1e9:.2f} TFLOP/s; {call_ms:.4f} ms a call on an idle card) plain "
-        f"{plain_ms:.4f} ms bound {bound:.4f} ms ({by})")
+        f"{plain_ms:.4f} ms bound {bound:.4f} ms ({by}) torch._weight_int4pack_mm {lib}")
     check(rel_l2 <= INT4_REL_L2, f"{name} M={m}: rel L2 {rel_l2} > {INT4_REL_L2}")
     check(err <= INT4_REL_MAX * top, f"{name} M={m}: max err {err / top} of max > {INT4_REL_MAX}")
-    return err, ms, plain_ms, nbytes, flops
+    return err, ms, plain_ms, nbytes, flops, lib_ms
 
 
 def phase_int4(gen):
     """K3a, K3b, K3c at the 7B shapes. Weights are random kernels through the
     port's quantizer (so the K and N paddings are the real ones); timed
     launches walk a stack of copies larger than the 50 MB L2."""
-    rows, worst = {}, {"k3a": 0.0, "k3b": 0.0, "k3c": 0.0}
+    rows, worst = {}, {"k3a": 0.0, "k3b": 0.0, "k3c": 0.0, "k3c_decode": 0.0}
 
     def quantized(k, n):
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
@@ -425,8 +491,10 @@ def phase_int4(gen):
         reps = -(-160 * 2**20 // tiles2[0].numel())  # copies that exceed the L2 three times
         rot_tiles = tiles2[1:].expand(reps, -1, -1, -1).contiguous()
         rot_scale = scale2[1:].expand(reps, -1).contiguous()
-        # a timed launch finds its weight out of the L2, as a decode step finds each layer's
+        # a timed launch finds its weight out of the L2, as a decode step finds
+        # each layer's; the library's timed calls walk as many copies of theirs
         nxt = itertools.cycle(range(reps)).__next__
+        library = int4pack_library(b["packed_tiles"], b["scale"], n, copies=reps)
         for m in INT4_MS:
             x = _randn((m, k), gen)
             if name == "lm_head":  # K3b: one weight, tiles [63, 2048, 512]
@@ -446,9 +514,13 @@ def phase_int4(gen):
                     x.float(), tiles2, scale2, 0, n_out=n)
                 check(((got.float() - want).norm() / want.norm()).item() <= INT4_REL_L2,
                       f"{label} M={m}: layer 0 of the stack")
-            out = _int4_case(label, k, n, m, tiles2[1], run, plain)
+            if key == "k3c" and m <= int4_mod.SMALL_M:
+                key = "k3c_decode"  # the same wrapper's decode kernel
+            out = _int4_case(label, k, n, m, tiles2[1], run, plain, x=x, library=library)
             worst[key] = max(worst[key], out[0])
-            if m == 1 and name in ("gateup", "lm_head"):  # the rows of the JSON line
+            # the rows of the JSON line: K3c's two kernels at gate|up (the
+            # prefill's and decode's), K3b at decode
+            if (name, m) in (("gateup", 768), ("gateup", 1), ("lm_head", 1)):
                 rows[key] = kernel_row(None, *out[1:])
         if name == "out":  # K3b on u8 bytes: the v3 bytes with the top bit flipped
             u8 = (tiles2[1].view(torch.uint8) ^ 0x80).contiguous()
@@ -458,20 +530,22 @@ def phase_int4(gen):
                 lambda: int4_mod.int4_matmul_tiled(x, u8, scale2[1], n_out=n),
                 lambda: int4_mod.int4_matmul_tiled_plain(x.float(), u8, scale2[1], n_out=n))
             worst["k3b"] = max(worst["k3b"], out[0])
-        del a, b, tiles2, rot_tiles
+        del a, b, tiles2, rot_tiles, rot_scale, library
 
     # K3a: an unfused k or v of a model with 2 kv heads: K 4096, N 256, flat u8
     k, n = 4096, 256
     leaf = quantized(k, n)
     check("packed" in leaf and leaf["packed"].dtype == torch.uint8, "K3a: flat u8 leaf")
+    library = int4pack_library(leaf["packed"], leaf["scale"], n)
     for m in INT4_MS:
         x = _randn((m, k), gen)
         out = _int4_case(
             "K3a flat", k, n, m, leaf["packed"],
             lambda: int4_mod.int4_matmul(x, leaf["packed"], leaf["scale"]),
-            lambda: int4_mod.int4_matmul_plain(x.float(), leaf["packed"], leaf["scale"]))
+            lambda: int4_mod.int4_matmul_plain(x.float(), leaf["packed"], leaf["scale"]),
+            x=x, library=library)
         worst["k3a"] = max(worst["k3a"], out[0])
-        if m == 1:
+        if m == 768:
             rows["k3a"] = kernel_row(None, *out[1:])
     for key in rows:
         rows[key]["max_abs_err"] = worst[key]
@@ -513,7 +587,8 @@ def phase_vit_attention(gen):
 
 INFERENCE_COUNTERS = {  # the kernels an inference path may launch
     "K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
-    "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED, "K5": vit_mod.LAUNCHES,
+    "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED,
+    "K3c M<=8": int4_mod.LAUNCHES_STACKED_SMALL_M, "K5": vit_mod.LAUNCHES,
 }
 
 
@@ -981,8 +1056,9 @@ def phase_int4_path(gen, tokenizer):
     processor = FrameProcessor(cfg.vision.image_size, SEED)
     (ids, frames), counts = counted(
         "int4", lambda: phase_main_path(model, tokenizer, processor, tag="int4"))
-    check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c", "K5")) and counts["K3a"] == 0,
-          f"int4 path launches {counts}")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c M<=8", "K5"))
+          and counts["K3c"] > counts["K3c M<=8"] and counts["K3a"] == 0,
+          f"int4 path launches (prefill and decode both run K3c) {counts}")
     # every forward runs 4 stacked projections in each layer and one lm_head;
     # every encode runs the 23 layers below the selected one
     n_layers, vit_layers = cfg.llm.num_layers, cfg.vision.num_layers - 1
@@ -1124,7 +1200,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"K1": phase_flash(gen), "K2": phase_decode(gen)}
     k3 = phase_int4(gen)
-    rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"]})
+    rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"],
+                 "K3c M<=8": k3["k3c_decode"]})
     rows["K5"] = phase_vit_attention(gen)
     tokenizer = WordTokenizer()
 
@@ -1162,7 +1239,8 @@ def main():
         name = "bench_" + key.replace("S1-", "int4_").replace("S2-", "vit_attention_")
         return row(name, source, replaces, bench_counts[key], s_rows[key], where="scripts/")
 
-    # launches: K1, K2, K3b, K3c, K5 on the int4 path, K3a on its own request,
+    # launches: K1, K2, K3b, K3c (its prefill's M > 8 kernel and its decode's
+    # kernel apart), K5 on the int4 path, K3a on its own request,
     # K4a-c in train(), the benches' variants in their benches; the int8 path's
     # and the main bench's counts are checked above
     kernels = [
@@ -1181,7 +1259,9 @@ def main():
         row("int4_matmul_tiled", "int4_matmul.cu", "int4_matmul.py:208",
             int4_counts["K3b"], rows["K3b"]),
         row("int4_matmul_tiled_stacked", "int4_matmul.cu", "int4_matmul.py:348",
-            int4_counts["K3c"], rows["K3c"]),
+            int4_counts["K3c"] - int4_counts["K3c M<=8"], rows["K3c"]),
+        row("int4_matmul_tiled_stacked_decode", "int4_matmul.cu", "int4_matmul.py:348",
+            int4_counts["K3c M<=8"], rows["K3c M<=8"]),
         row("vit_attention", "vit_attention.cu", "vit_attention.py:42",
             int4_counts["K5"], rows["K5"]),
         bench_row("S1-v2", "bench_int4_kernel.cu", "bench_int4_kernel.py:55"),

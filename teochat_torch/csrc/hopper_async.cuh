@@ -1,4 +1,4 @@
-// Hopper's asynchronous machinery for the attention kernels (sm_90a): the
+// Hopper's asynchronous machinery for the attention and int4 kernels (sm_90a): the
 // warpgroup product `wgmma`, `mbarrier`s, bulk tensor (TMA) loads, and the
 // host side of a tensor map. Kept apart from the kernels so that each of
 // them (the forward in flash_attention.cu first) builds on the same pieces.
@@ -103,8 +103,9 @@ __device__ __forceinline__ void wgmma_wait() {
 // One m64nNk16 bf16 product into fp32. SHAPE is the instruction's shape, REGS
 // and OUTS the result's lists above, A, B and P the template's names of the
 // operands and of the accumulate flag, TAIL the scales and transposes
-// ("1, 1, 0, 0": both operands K-major; "1, 1, 1": A in registers, B
-// MN-major); the inputs follow in the template's order.
+// ("1, 1, 0, 0": both operands K-major; "1, 1, 0, 1": A K-major, B
+// MN-major; "1, 1, 1": A in registers, B MN-major); the inputs follow in the
+// template's order.
 #define TEOCHAT_WGMMA(SHAPE, REGS, A, B, P, TAIL, OUTS, ...)                              \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                             \
                "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 {" REGS "}, " A ", " \
@@ -183,6 +184,15 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
                 "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both in shared memory, A K-major
+// and B MN-major (`tnspB`: the int4 product's dequantized weights, whose
+// rows are the reduction).
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  TEOCHAT_WGMMA("m64n128k16", TEOCHAT_WGMMA_R64, "%64", "%65", "%66", "1, 1, 0, 1",
+                TEOCHAT_WGMMA_D64("+f", d, 0), "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // Give registers back to (dec) or take them from (inc) the SM's pool, for the
 // whole warpgroup. Only inside one if / else on the warpgroup's role, or the
 // compiler ignores it (warning C7508).
@@ -212,6 +222,20 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 16-byte store to shared memory by an ordinary thread.
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (`wgmma`, TMA); between the stores and the mbarrier arrival that
+// hands the tile over. Without it the tensor cores may read stale bytes.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {

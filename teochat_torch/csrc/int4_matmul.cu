@@ -31,24 +31,49 @@
 //     matching x values with one 16-byte load per half of K (x stays in
 //     L1 / L2), and the accumulators stay in registers. Nibbles become
 //     floats without an integer convert: 0x4B000000 | v is the float 2^23 + v.
-//   * M > 8 (prefill): bound by the multiply-accumulates. A block computes a
-//     128 x 128 output tile on mma.sync m16n8k16 (bf16 in, fp32 accumulate):
-//     per step it dequantizes 32 byte rows into two bf16 tiles in shared
-//     memory (low and high halves of K) beside the two matching x tiles.
-// Later work: split-K for the narrow projections at batch 1, and a
-// wgmma + TMA pipeline for the prefill shape.
+//   * M > 8 (prefill): bound by the multiply-accumulates (989 TFLOP/s of
+//     bf16 against 3.35 TB/s: at M 768 the products take 5-8x the bytes'
+//     time). A block owns a 128 x 128 output tile and walks the byte rows in
+//     steps of 64; a step is two m64n128k16 x 4 `wgmma` chains a consumer
+//     warpgroup, one for each half of K, both operands in shared memory with
+//     the 128-byte swizzle:
+//       - A, x: two TMA boxes of 128 rows x 64 columns, at columns r0 and
+//         k2 + r0 of the step's byte rows r0 .. r0 + 63 (K-major). TMA reads
+//         x through its row stride and gives zeros past K and past M;
+//       - B, the weights: two dequant warpgroups read the step's raw bytes
+//         straight into registers (8 columns of one byte row a thread,
+//         4-byte loads issued a step ahead), turn each nibble into bf16 with
+//         the magic number 0x4300 (bf16 128 + v), and write one 16-byte
+//         chunk of the low-half tile and one of the high-half tile at chunk
+//         c ^ (r % 8) of row r of its 64-column box: the 128-byte swizzle a
+//         TMA load would write, read MN-major (`tnspB`) because a byte row
+//         is a k row. Byte rows past k2 are written as zeros, so the columns
+//         of x past k2 that the low box reads (the high half's values, when
+//         k2 % 64 != 0) meet zero weights;
+//       - the tiles go round a ring of 3 stages with full / empty mbarriers;
+//         the dequant threads fence their stores into the async proxy
+//         before they arrive on `full`;
+//       - the fp32 accumulator is scaled per column and rounded once to
+//         bf16; rows past M and columns past n_out are never written.
+//     A row tile's blocks are launched next to each other, so that a weight
+//     band is read from memory once and from L2 by the other row tiles.
+//     Measured on an H100 (PERF.md, section 6): 128-column bands with two
+//     dequant warpgroups beat 256-column ones (one dequant warpgroup: a
+//     launch of more than 384 threads leaves ptxas too few registers for an
+//     N 256 accumulator) at every 7B projection, M 16 and 768; a loader warp
+//     with cp.async beside three dequant warps was slower still.
+// Later work: split-K for the narrow projections at batch 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "mma_bf16.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 
-using teochat::load_a;
-using teochat::mma_16816;
+using namespace teochat;
 
 struct Weights {
   const uint8_t* bytes;   // first byte of the (layer's) weight
@@ -195,12 +220,33 @@ void launch_small_m(const uint16_t* x, const Weights& w, const float* scale, uin
 
 // ------------------------------------------------------------- large M
 
-constexpr int LG_THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int LG_BM = 128;
-constexpr int LG_BN = 128;
-constexpr int LG_KT = 32;            // byte rows per step (32 of each K half)
-constexpr int LG_XLD = LG_KT + 8;    // x tile row, in bf16 elements
-constexpr int LG_WLD = LG_BN + 8;    // weight tile row, in k-pairs (uint32)
+// The tile walk, written out in plain PyTorch as
+// teochat_torch/ops/int4_matmul.py::int4_prefill_schedule, whose constants
+// a test holds equal to these.
+#define TEOCHAT_INT4_BM 128    // rows of x a block: two consumer warpgroups of 64
+#define TEOCHAT_INT4_BN 128    // columns a block
+#define TEOCHAT_INT4_STEP 64   // byte rows a step: one 64-wide swizzled box of each half
+
+constexpr int LG_BM = TEOCHAT_INT4_BM;
+constexpr int LG_BN = TEOCHAT_INT4_BN;
+constexpr int LG_STEP = TEOCHAT_INT4_STEP;
+constexpr int LG_NWG = 2;  // consumer warpgroups 0 and 1
+constexpr int LG_DQ_THREADS = 256;  // warpgroups 2 and 3 dequantize
+constexpr int LG_THREADS = LG_NWG * 128 + LG_DQ_THREADS;
+// stages of x and weight tiles in flight, 64 KB each: 192 of the 227 KB
+// (3 beat 2 at every 7B projection, PERF.md section 6)
+constexpr int LG_STAGES = 3;
+constexpr uint32_t LG_X_BYTES = LG_BM * SWIZZLE_ROW_BYTES;      // one half's x tile
+constexpr uint32_t LG_BOX_BYTES = LG_STEP * SWIZZLE_ROW_BYTES;  // 64 k rows x 64 columns
+constexpr uint32_t LG_W_BYTES = (LG_BN / 64) * LG_BOX_BYTES;    // one half's weight tile
+// a stage: x low, x high, W low, W high; every tile 1024-byte aligned
+constexpr uint32_t LG_STAGE_BYTES = 2 * LG_X_BYTES + 2 * LG_W_BYTES;
+constexpr size_t LG_SMEM = 1024 + LG_STAGES * LG_STAGE_BYTES + 16 * LG_STAGES;
+// The block is launched with 128 registers a thread (65,536 / 512);
+// setmaxnreg moves the dequant threads' to the consumers, whose accumulator
+// is 64 of them: 256 x 152 + 256 x 104 = 512 x 128.
+constexpr int LG_CONSUMER_REGS = 152;
+constexpr int LG_DEQUANT_REGS = 104;
 
 // bf16 pair (128 + a, 128 + b) minus (136, 136): the exact values a - 8, b - 8
 __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t pair) {
@@ -211,103 +257,174 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t pair) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(LG_THREADS)
-int4_large_m_kernel(const uint16_t* __restrict__ x, Weights w,
+// 8 u8 bytes (columns 0-3 in b0, 4-7 in b1) -> 8 bf16 weights of the low
+// half and 8 of the high half, column 0 in the low bits of .x
+__device__ __forceinline__ void dequant8(uint32_t b0, uint32_t b1, uint4& lo, uint4& hi) {
+  const uint32_t l0 = b0 & 0x0F0F0F0Fu, l1 = b1 & 0x0F0F0F0Fu;
+  const uint32_t h0 = (b0 >> 4) & 0x0F0F0F0Fu, h1 = (b1 >> 4) & 0x0F0F0F0Fu;
+  // byte j and byte j + 1 into bits 0-7 and 16-23
+  lo = make_uint4(nibbles_to_bf16x2(__byte_perm(l0, 0, 0x4140)),
+                  nibbles_to_bf16x2(__byte_perm(l0, 0, 0x4342)),
+                  nibbles_to_bf16x2(__byte_perm(l1, 0, 0x4140)),
+                  nibbles_to_bf16x2(__byte_perm(l1, 0, 0x4342)));
+  hi = make_uint4(nibbles_to_bf16x2(__byte_perm(h0, 0, 0x4140)),
+                  nibbles_to_bf16x2(__byte_perm(h0, 0, 0x4342)),
+                  nibbles_to_bf16x2(__byte_perm(h1, 0, 0x4140)),
+                  nibbles_to_bf16x2(__byte_perm(h1, 0, 0x4342)));
+}
+
+__global__ void __launch_bounds__(LG_THREADS, 1)
+int4_large_m_kernel(const __grid_constant__ CUtensorMap x_map, Weights w,
                     const float* __restrict__ scale, uint16_t* __restrict__ out,
-                    int M, int K, long long x_rs, int n_out) {
-  // x tiles row-major [BM][KT]; weight tiles [KT / 2][BN] of (k even, k odd)
-  // bf16 pairs, which is what one B-fragment register holds
-  __shared__ __align__(16) uint16_t xs_lo[LG_BM * LG_XLD];
-  __shared__ __align__(16) uint16_t xs_hi[LG_BM * LG_XLD];
-  __shared__ __align__(16) uint32_t ws_lo[(LG_KT / 2) * LG_WLD];
-  __shared__ __align__(16) uint32_t ws_hi[(LG_KT / 2) * LG_WLD];
+                    int M, int n_out) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + LG_STAGES * LG_STAGE_BYTES;
+  // stage st's tiles (half 0 low, 1 high) and its two barriers
+  auto x_s = [base](int st, int half) { return base + st * LG_STAGE_BYTES + half * LG_X_BYTES; };
+  auto w_s = [base](int st, int half) {
+    return base + st * LG_STAGE_BYTES + 2 * LG_X_BYTES + half * LG_W_BYTES;
+  };
+  auto full = [bars](int st) { return bars + 8u * st; };
+  auto empty = [bars](int st) { return bars + 8u * (LG_STAGES + st); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // warp tile: rows wm*32, cols wn*64
-  const int m0 = blockIdx.x * LG_BM;        // neighbours in x share a weight band
-  const int n0 = blockIdx.y * LG_BN;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < LG_STAGES; ++st) {
+      mbar_init(full(st), LG_DQ_THREADS + 1);  // each dequant thread, and the x loads' bytes
+      mbar_init(empty(st), LG_NWG * 4);        // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int m0 = blockIdx.x * LG_BM, n0 = blockIdx.y * LG_BN;
   const int k2 = w.k2;
-  const uint8_t* wb = w.bytes + (n0 / w.tw) * w.tile_stride + (n0 % w.tw);
-  const int cols_here = min(LG_BN, w.tw - n0 % w.tw);  // ragged only when flat
+  const int n_steps = (k2 + LG_STEP - 1) / LG_STEP;
+  const int wg = threadIdx.x >> 7;
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  if (wg >= LG_NWG) {
+    // ------------------------------------------------------------- dequant
+    setmaxnreg_dec<LG_DEQUANT_REGS>();
+    constexpr int CPR = LG_BN / 8;              // 8-column chunks in a row of the band
+    constexpr int RPP = LG_DQ_THREADS / CPR;    // rows a pass of the dequant threads
+    constexpr int PASSES = LG_STEP / RPP;       // passes a step
+    const int t = threadIdx.x - LG_NWG * 128;
+    const int c = t % CPR, row0 = t / CPR;  // this thread's chunk, and its first row
+    const int cols_here = min(LG_BN, w.tw - n0 % w.tw);  // less only in a flat last band
+    const bool ok0 = 8 * c + 4 <= cols_here, ok1 = 8 * c + 8 <= cols_here;
+    const uint8_t* wb = w.bytes + (n0 / w.tw) * w.tile_stride + n0 % w.tw + 8 * c;
+    // chunk c of row r: box c / 8, 16-byte chunk (c % 8) ^ (r % 8) of the row
+    const uint32_t chunk_off = (c / 8) * LG_BOX_BYTES;
 
-  for (int r0 = 0; r0 < k2; r0 += LG_KT) {
-    __syncthreads();  // every warp is done with the previous step's tiles
-    // x: BM rows x 4 chunks of 8 bf16, for each half of K
-    for (int idx = tid; idx < LG_BM * (LG_KT / 8); idx += LG_THREADS) {
-      const int row = idx / (LG_KT / 8), c = (idx % (LG_KT / 8)) * 8;
-      const int r = r0 + c;  // K, k2 and r are multiples of 8: a chunk is all in or all out
-      uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
-      if (m0 + row < M && r < k2) {
-        const uint16_t* xr = x + (m0 + row) * x_rs;
-        if (r < K) lo = *reinterpret_cast<const uint4*>(xr + r);
-        if (k2 + r < K) hi = *reinterpret_cast<const uint4*>(xr + k2 + r);
+    // the next step's bytes, loaded after this step's arrival on `full`
+    uint32_t raw[PASSES][2];
+    auto load = [&](int s) {
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        const int r = s * LG_STEP + p * RPP + row0;
+        const uint8_t* src = wb + static_cast<long long>(r) * w.tw;
+        raw[p][0] = r < k2 && ok0 ? __ldg(reinterpret_cast<const uint32_t*>(src)) : 0u;
+        raw[p][1] = r < k2 && ok1 ? __ldg(reinterpret_cast<const uint32_t*>(src + 4)) : 0u;
       }
-      *reinterpret_cast<uint4*>(&xs_lo[row * LG_XLD + c]) = lo;
-      *reinterpret_cast<uint4*>(&xs_hi[row * LG_XLD + c]) = hi;
+    };
+    if (t == 0) tma_prefetch_map(&x_map);
+    load(0);
+    for (int s = 0; s < n_steps; ++s) {
+      const int st = s % LG_STAGES;
+      mbar_wait(empty(st), ((s / LG_STAGES) & 1) ^ 1);  // a fresh stage is free at once
+      if (t == 0) {
+        mbar_arrive_expect_tx(full(st), 2 * LG_X_BYTES);
+        tma_load_4d(x_s(st, 0), &x_map, full(st), s * LG_STEP, m0, 0, 0);
+        tma_load_4d(x_s(st, 1), &x_map, full(st), k2 + s * LG_STEP, m0, 0, 0);
+      }
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        const int rr = p * RPP + row0;  // row of the step
+        uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;  // rows past k2: zero weights
+        if (s * LG_STEP + rr < k2) dequant8(raw[p][0] ^ w.flip, raw[p][1] ^ w.flip, lo, hi);
+        const uint32_t off = chunk_off + rr * SWIZZLE_ROW_BYTES + (((c & 7) ^ (rr & 7)) << 4);
+        st_shared_v4(w_s(st, 0) + off, lo);
+        st_shared_v4(w_s(st, 1) + off, hi);
+      }
+      fence_proxy_async_shared();
+      mbar_arrive(full(st));
+      if (s + 1 < n_steps) load(s + 1);
     }
-    // weights: 16 row pairs x 32 words of 4 columns
-    for (int idx = tid; idx < (LG_KT / 2) * (LG_BN / 4); idx += LG_THREADS) {
-      const int rp = idx / (LG_BN / 4), c = (idx % (LG_BN / 4)) * 4;
-      const int r = r0 + 2 * rp;
-      uint32_t b0 = 0u, b1 = 0u;
-      if (c + 4 <= cols_here) {  // rows past k2 meet x = 0: any bytes will do
-        if (r < k2) b0 = *reinterpret_cast<const uint32_t*>(wb + static_cast<long long>(r) * w.tw + c);
-        if (r + 1 < k2)
-          b1 = *reinterpret_cast<const uint32_t*>(wb + static_cast<long long>(r + 1) * w.tw + c);
-      }
-      b0 ^= w.flip;
-      b1 ^= w.flip;
-      uint32_t lo[4], hi[4];
+  } else {
+    // ------------------------------------------------------------ consumer
+    setmaxnreg_inc<LG_CONSUMER_REGS>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const bool idle = m0 + wg * 64 >= M;  // every row of this warpgroup lies past M
+    float acc[LG_BN / 2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // byte j of row r in bits 0-7, byte j of row r + 1 in bits 16-23
-        const uint32_t t = __byte_perm(b0, b1, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
-        lo[j] = nibbles_to_bf16x2(t & 0x000F000Fu);
-        hi[j] = nibbles_to_bf16x2((t >> 4) & 0x000F000Fu);
-      }
-      *reinterpret_cast<uint4*>(&ws_lo[rp * LG_WLD + c]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(&ws_hi[rp * LG_WLD + c]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    }
-    __syncthreads();
+    for (int i = 0; i < LG_BN / 2; ++i) acc[i] = 0.f;
 
+    for (int s = 0; s < n_steps; ++s) {
+      const int st = s % LG_STAGES;
+      mbar_wait(full(st), (s / LG_STAGES) & 1);
+      if (!idle) {
+        wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const uint16_t* xs = half ? xs_hi : xs_lo;
-      const uint32_t* ws = half ? ws_hi : ws_lo;
+        for (int half = 0; half < 2; ++half) {
+          const uint64_t a = smem_desc_k_major(x_s(st, half) + wg * 64 * SWIZZLE_ROW_BYTES);
+          const uint64_t b = smem_desc_mn_major(w_s(st, half), LG_BOX_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < LG_KT / 16; ++kk) {
-        uint32_t a[2][4];
-        load_a(a[0], xs, LG_XLD, wm * 32, kk * 16, gid, tig);
-        load_a(a[1], xs, LG_XLD, wm * 32 + 16, kk * 16, gid, tig);
+          for (int kk = 0; kk < LG_STEP / 16; ++kk)  // 32 bytes along A's row, 16 rows of B
+            wgmma_ss_tb(acc, desc_advance(a, kk * 32),
+                        desc_advance(b, kk * 16 * SWIZZLE_ROW_BYTES), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done with their stage
+      }
+      if (s > 0 && lane == 0) mbar_arrive(empty((s - 1) % LG_STAGES));
+    }
+    wgmma_wait<0>();
+    if (idle) return;
+
+    const int gid = lane >> 2, tig = lane & 3;
+    const bool pairs = (n_out & 1) == 0;  // 4-byte stores stay aligned
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const uint32_t* p = ws + (kk * 8 + tig) * LG_WLD + wn * 64 + nt * 8 + gid;
-          const uint32_t f0 = p[0], f1 = p[4 * LG_WLD];
-          mma_16816(acc[0][nt], a[0], f0, f1);
-          mma_16816(acc[1][nt], a[1], f0, f1);
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + wg * 64 + warp * 16 + gid + 8 * r;
+      if (row >= M) continue;
+      uint16_t* orow = out + static_cast<long long>(row) * n_out;
+#pragma unroll
+      for (int j = 0; j < LG_BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * tig;
+        const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+        if (pairs && n + 1 < n_out) {
+          const uint32_t packed = float_to_bf16(v0 * __ldg(scale + n)) |
+                                  (uint32_t(float_to_bf16(v1 * __ldg(scale + n + 1))) << 16);
+          *reinterpret_cast<uint32_t*>(orow + n) = packed;
+        } else {
+          if (n < n_out) orow[n] = float_to_bf16(v0 * __ldg(scale + n));
+          if (n + 1 < n_out) orow[n + 1] = float_to_bf16(v1 * __ldg(scale + n + 1));
         }
       }
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + i * 16 + gid + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 64 + nt * 8 + tig * 2 + (e & 1);
-        if (m < M && n < n_out)
-          out[static_cast<long long>(m) * n_out + n] = float_to_bf16(acc[i][nt][e] * scale[n]);
-      }
+int launch_large_m(const uint16_t* x, const Weights& w, const float* scale, uint16_t* out,
+                   int M, int K, long long x_rs, int n_out, cudaStream_t st) {
+  // a tensor map needs a 16-byte-aligned base; a band must not straddle tiles
+  if (reinterpret_cast<uintptr_t>(x) % 16 || (w.tile_stride != 0 && w.tw % LG_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // x as [1, M, 1, K] through its row stride, boxes of 128 rows x 64 columns
+  CUtensorMap x_map;
+  int rows_first = 0;
+  int err = encode_bf16_rows_map(&x_map, &rows_first, x, 1, M, 1, K, x_rs * M, x_rs,
+                                 x_rs * M, LG_BM);
+  if (err) return err;
+  if (!rows_first) return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB shared memory is dynamic and has to be asked for; the
+  // attribute belongs to the device the launch goes to, so it is set each time
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      int4_large_m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(LG_SMEM));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 grid((M + LG_BM - 1) / LG_BM, (n_out + LG_BN - 1) / LG_BN);
+  int4_large_m_kernel<<<grid, LG_THREADS, LG_SMEM, st>>>(x_map, w, scale, out, M, n_out);
+  return 0;
 }
 
 int launch(const void* x, const Weights& w, const void* scale, void* out,
@@ -329,8 +446,8 @@ int launch(const void* x, const Weights& w, const void* scale, void* out,
   } else if (M <= 8) {
     launch_small_m<8>(xp, w, sp, op, M, K, x_rs, n_out, st);
   } else {
-    const dim3 grid((M + LG_BM - 1) / LG_BM, (w.n_total + LG_BN - 1) / LG_BN);
-    int4_large_m_kernel<<<grid, LG_THREADS, 0, st>>>(xp, w, sp, op, M, K, x_rs, n_out);
+    const int err = launch_large_m(xp, w, sp, op, M, K, x_rs, n_out, st);
+    if (err) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,10 +28,17 @@ import torch
 from teochat_torch.ops import _build
 
 TILE_BN = 512
+# The M > 8 kernel's tiles (csrc/int4_matmul.cu: TEOCHAT_INT4_BM, _BN, _STEP)
+PREFILL_BLOCK_M = 128  # rows of x a block: two warpgroups of 64
+PREFILL_BLOCK_N = 128  # columns a block
+PREFILL_STEP = 64  # byte rows a step: 64 k of each half of K
+SMALL_M = 8  # the .cu runs M <= SMALL_M on its byte-streaming (decode) kernel
 
 LAUNCHES_FLAT = _build.LaunchCounter("int4_matmul")
 LAUNCHES_TILED = _build.LaunchCounter("int4_matmul_tiled")
 LAUNCHES_STACKED = _build.LaunchCounter("int4_matmul_tiled_stacked")
+# the launches of LAUNCHES_STACKED that went to the decode kernel (M <= SMALL_M)
+LAUNCHES_STACKED_SMALL_M = _build.LaunchCounter("int4_matmul_tiled_stacked, M <= 8")
 
 
 # ------------------------------------------------------------------ packing
@@ -134,6 +141,54 @@ def int4_matmul_tiled_plain(x: torch.Tensor, packed_tiles: torch.Tensor, scale: 
 def int4_matmul_tiled_stacked_plain(x, packed_tiles, scale, layer: int, *, n_out: int):
     """What K3c computes, in plain PyTorch, on layer `layer` of the stack."""
     return int4_matmul_tiled_plain(x, packed_tiles[layer], scale[layer], n_out=n_out)
+
+
+def int4_prefill_schedule(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
+                          n_out: int | None = None, layer: int | None = None) -> torch.Tensor:
+    """The M > 8 kernel's walk over one product, in plain PyTorch.
+
+    `packed` is any of the three layouts: flat [k2, N] (one tile of TW = N),
+    tiles [n_tiles, k2, TW], or a stack of them with `layer`. Row tiles of
+    PREFILL_BLOCK_M and column bands of PREFILL_BLOCK_N (a band never straddles
+    two tiles); each band walks the byte rows in steps of PREFILL_STEP. A
+    step reads x at columns r0 and k2 + r0, zero past K and past M as TMA
+    gives them, and dequantizes its bytes into a low and a high weight tile,
+    with zero weights for byte rows past k2 (so the high half's x values that
+    the low box reads when k2 % 64 != 0 add nothing) and zero bytes past a
+    flat weight's last column. The sums are fp32; the scale is applied to the
+    accumulator and the result rounded once to x's dtype; columns past n_out
+    and rows past M are never written."""
+    if layer is not None:
+        packed, scale = packed[layer], scale[layer]
+    tiles = packed[None] if packed.ndim == 2 else packed
+    n_tiles, k2, tw = tiles.shape
+    n_out = n_tiles * tw if n_out is None else n_out
+    bm, bn, step = PREFILL_BLOCK_M, PREFILL_BLOCK_N, PREFILL_STEP
+    if tiles.shape[0] > 1 and tw % bn:
+        raise ValueError(f"a band of {bn} columns would straddle tiles of {tw}")
+    m, k = x.shape
+    raw = tiles.view(torch.uint8) if tiles.dtype == torch.int8 else tiles
+    flip = 0x80 if tiles.dtype == torch.int8 else 0
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    for m0 in range(0, m, bm):
+        xt = torch.zeros((bm, 2 * k2 + step), dtype=torch.float32, device=x.device)
+        xt[: min(bm, m - m0), :k] = x[m0:m0 + bm].float()  # TMA: zeros past M and K
+        for n0 in range(0, n_out, bn):
+            t, c0 = divmod(n0, tw)
+            cols = min(bn, tw - c0)
+            acc = torch.zeros((bm, bn), dtype=torch.float32, device=x.device)
+            for r0 in range(0, k2, step):
+                rows = min(step, k2 - r0)
+                b = torch.zeros((step, bn), dtype=torch.int32, device=x.device)
+                b[:rows, :cols] = raw[t, r0:r0 + rows, c0:c0 + cols].to(torch.int32)
+                b ^= flip
+                w_lo, w_hi = ((b & 15) - 8).float(), ((b >> 4) - 8).float()
+                w_lo[rows:], w_hi[rows:] = 0.0, 0.0  # byte rows past k2: zero weights
+                acc += xt[:, r0:r0 + step] @ w_lo + xt[:, k2 + r0:k2 + r0 + step] @ w_hi
+            n1 = min(n0 + bn, n_out)
+            y = acc[: min(bm, m - m0), : n1 - n0] * scale[n0:n1].float()
+            out[m0:m0 + bm, n0:n1] = y.to(x.dtype)
+    return out
 
 
 # ------------------------------------------------------------ the wrappers
@@ -247,4 +302,6 @@ def int4_matmul_tiled_stacked(x: torch.Tensor, packed_tiles: torch.Tensor, scale
                   scale.data_ptr(), out.data_ptr(), m, k, k2, n_tiles, bn, n_out, x.stride(0),
                   int(packed_tiles.dtype == torch.int8), layer, scale.stride(0))
     LAUNCHES_STACKED.count += 1
+    if m <= SMALL_M:
+        LAUNCHES_STACKED_SMALL_M.count += 1
     return out

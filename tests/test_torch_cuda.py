@@ -15,8 +15,9 @@ writes bf16 gradients, so each gradient is held to GRAD_REL_L2 of its norm
 (bf16 keeps 8 bits: 2^-9 relative rounding per term, summed over many
 terms) and its largest error to GRAD_REL_MAX of its largest element.
 The int4 products (K3a-c) accumulate exact products in fp32 on both sides,
-so they differ from the fp32 plain version by the one bf16 rounding of the
-output: half an ulp, 2^-8 = 3.9e-3 of the element at most. The kernel
+so they differ from the fp32 plain version (or the M > 8 kernel's tile walk,
+`int4_prefill_schedule`) by the one bf16 rounding of the output: half an
+ulp, 2^-8 = 3.9e-3 of the element at most. The kernel
 benches' int4 variants (S1) are held to the same bound against their plain
 versions, with xa and xb rounded to bf16 once for both sides, and their
 attention variants (S2) to TOL.
@@ -404,10 +405,12 @@ def test_int4_stacked_kernel_picks_each_layer(gen, m):
     scale = torch.stack([leaf["scale"] for leaf in leaves])
     x = _randn((m, k), gen)
     for layer in range(3):
-        before = int4_mod.LAUNCHES_STACKED.count
+        before = int4_mod.LAUNCHES_STACKED.count, int4_mod.LAUNCHES_STACKED_SMALL_M.count
         got = int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, layer, n_out=n)
         torch.cuda.synchronize()
-        assert int4_mod.LAUNCHES_STACKED.count == before + 1
+        # the decode kernel's launches are counted apart as well
+        assert (int4_mod.LAUNCHES_STACKED.count, int4_mod.LAUNCHES_STACKED_SMALL_M.count) == (
+            before[0] + 1, before[1] + (m <= int4_mod.SMALL_M))
         _assert_int4_close(got, int4_mod.int4_matmul_tiled_stacked_plain(
             x.float(), tiles, scale, layer, n_out=n))
     # int4_proj reads a strided slice of a fused output through its row stride
@@ -433,6 +436,103 @@ def test_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
         int4_mod.int4_matmul_tiled_stacked(x, tiles[None], scale[None], 1, n_out=1024)
     with pytest.raises(NotImplementedError):  # forward only
         int4_mod.int4_matmul_tiled(x.requires_grad_(True), tiles, scale, n_out=1024)
+
+
+# the 7B decoder's projections (fan-in, fan-out): q|k|v and gate|up fused,
+# out, down (its packed fan-in padded 5504 -> 5632 byte rows)
+INT4_7B = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+
+
+@pytest.mark.parametrize("m", [16, 100, 768])  # batched decode, a short prompt, 2 frames
+@pytest.mark.parametrize("k,n", INT4_7B)
+def test_int4_prefill_kernel_at_the_7b_shapes(gen, k, n, m):
+    """The M > 8 kernel: K3c on layer 1 of 2 (v3 bytes) and the same bytes as
+    u8 tiles through K3b."""
+    leaves = [_int4_leaf(gen, k, n) for _ in range(2)]
+    tiles = torch.stack([leaf["packed_tiles"] for leaf in leaves])
+    scale = torch.stack([leaf["scale"] for leaf in leaves])
+    u8 = (tiles[1].view(torch.uint8) ^ 0x80).contiguous()
+    x = _randn((m, k), gen)
+    before = int4_mod.LAUNCHES_STACKED.count, int4_mod.LAUNCHES_TILED.count
+    got = int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, 1, n_out=n)
+    got_u8 = int4_mod.int4_matmul_tiled(x, u8, scale[1], n_out=n)
+    torch.cuda.synchronize()
+    assert (int4_mod.LAUNCHES_STACKED.count, int4_mod.LAUNCHES_TILED.count) == (
+        before[0] + 1, before[1] + 1)
+    want = int4_mod.int4_matmul_tiled_stacked_plain(x.float(), tiles, scale, 1, n_out=n)
+    _assert_int4_close(got, want)
+    _assert_int4_close(got_u8, want)
+
+
+@pytest.mark.parametrize("m", [16, 100, 768])
+def test_int4_prefill_flat_kernel_at_the_kv_shape(gen, m):
+    """K3a at an unfused k or v of a model with 2 kv heads: K 4096, N 256."""
+    leaf = _int4_leaf(gen, 4096, 256)
+    x = _randn((m, 4096), gen)
+    before = int4_mod.LAUNCHES_FLAT.count
+    got = int4_mod.int4_matmul(x, leaf["packed"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert int4_mod.LAUNCHES_FLAT.count == before + 1
+    _assert_int4_close(got, int4_mod.int4_matmul_plain(x.float(), leaf["packed"], leaf["scale"]))
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiled_u8", "tiled_i8", "stacked"])
+@pytest.mark.parametrize("m", [9, 70, 130])  # ragged against the 128-row tile
+@pytest.mark.parametrize("k,k2", [(208, 104), (200, 104), (96, 128)])
+def test_int4_prefill_kernel_matches_its_walk(gen, layout, m, k, k2):
+    """The kernel against `int4_prefill_schedule` on the CPU tests' cases:
+    k2 % 64 != 0, K < 2 k2, K < k2; N 640 (a ragged tile and, flat, a ragged
+    band); x a column slice of a wider activation (row stride > K)."""
+    n = 640
+    w = torch.randint(-8, 8, (2 * k2, n), generator=gen, device="cuda")
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.1 + 0.01
+    x = _randn((m, 2 * k + 8), gen)[:, 8:8 + k]
+    if layout == "flat":
+        packed = int4_mod.pack_int4(w)
+        got = int4_mod.int4_matmul(x, packed, scale)
+        walk = int4_mod.int4_prefill_schedule(x.float(), packed, scale)
+    elif layout == "stacked":
+        packed = torch.stack([int4_mod.pack_int4_tiled_i8(w.flip(0)),
+                              int4_mod.pack_int4_tiled_i8(w)])
+        scale2 = torch.stack([scale * 2, scale])
+        got = int4_mod.int4_matmul_tiled_stacked(x, packed, scale2, 1, n_out=n)
+        walk = int4_mod.int4_prefill_schedule(x.float(), packed, scale2, n_out=n, layer=1)
+    else:
+        pack = int4_mod.pack_int4_tiled if layout == "tiled_u8" else int4_mod.pack_int4_tiled_i8
+        packed = pack(w)
+        got = int4_mod.int4_matmul_tiled(x, packed, scale, n_out=n)
+        walk = int4_mod.int4_prefill_schedule(x.float(), packed, scale, n_out=n)
+    torch.cuda.synchronize()
+    _assert_int4_close(got, walk)
+
+
+@pytest.mark.parametrize("m,launches", [(16, 600), (768, 200)])
+def test_int4_prefill_kernel_is_bit_stable_over_many_launches(gen, m, launches):
+    """A stress case for the hand-over of the dequantized tiles: the dequant
+    threads' ordinary shared-memory stores reach `wgmma` (the async proxy)
+    only through their `fence.proxy.async` before the `full` arrival. Without
+    it the products may read a stage's bytes from an earlier step. Back to
+    back launches over four layers of out's shape (N 4096: 32 column bands),
+    at M 16, where the consumers wait on the dequant threads and issue
+    `wgmma` right after their arrival, and at M 768; each output must be
+    bit-equal to the first launch on its layer."""
+    k, n, n_layers = 4096, 4096, 4
+    leaves = [_int4_leaf(gen, k, n) for _ in range(n_layers)]
+    tiles = torch.stack([leaf["packed_tiles"] for leaf in leaves])
+    scale = torch.stack([leaf["scale"] for leaf in leaves])
+    x = _randn((m, k), gen)
+    before = int4_mod.LAUNCHES_STACKED.count
+    first = torch.stack([int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, layer, n_out=n)
+                         for layer in range(n_layers)])
+    outs = torch.stack([int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, i % n_layers,
+                                                           n_out=n)
+                        for i in range(launches)])
+    torch.cuda.synchronize()
+    assert int4_mod.LAUNCHES_STACKED.count == before + n_layers + launches
+    _assert_int4_close(first[1], int4_mod.int4_matmul_tiled_stacked_plain(
+        x.float(), tiles, scale, 1, n_out=n))
+    differ = (outs != first.repeat(launches // n_layers, 1, 1)).flatten(1).any(1)
+    assert not differ.any(), f"launches {differ.nonzero().flatten().tolist()[:20]} differ"
 
 
 @pytest.mark.parametrize("b,s,h", [
