@@ -10,7 +10,7 @@
     python3 chip_probe.py train-step [--root DIR]
     python3 chip_probe.py int8-proj [--root DIR]
     python3 chip_probe.py k3k5
-    python3 chip_probe.py k3 [--root DIR] [--ms 1 4 16 768] [--ttft]
+    python3 chip_probe.py k3 [--root DIR] [--ms 1 2 4 8 16 768] [--ttft]
     python3 chip_probe.py k5k2 [--root DIR] [--chunks 32 128]
     python3 chip_probe.py s1s2
     python3 chip_probe.py profile-train
@@ -83,14 +83,22 @@ another checkout, so two trees can be timed in one session on one card.
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
 - k3: the int4 product alone at the 7B decoder's four projection shapes
-  (q|k|v, out, gate|up, down; v3 tiles from the port's quantizer, the layer
-  picked from a stack of copies larger than the L2): SASS counts of the
-  tree's int4 kernels (`HGMMA`, `UTMALDG`, `HMMA`) and ptxas's registers and
-  spills for its M > 8 kernel; for each M of --ms, K3c as the wrappers launch
-  it (ms, TFLOP/s, GB/s, the bound, the error against the plain version)
-  and `torch._weight_int4pack_mm` on the same weights where the tree's
-  smoke sets it up, both timed over as many copies of their weights. `--ttft` adds the `decode` command's int4 and int8
-  prefill + first token at batch 1. With `--root` on a parent checkout and
+  (q|k|v, out, gate|up, down on K3c: v3 tiles from the port's quantizer,
+  the layer picked from a stack of copies larger than the L2), the lm_head
+  (K3b) and an unfused 256-wide k or v (K3a, flat u8), each over copies of
+  its weight larger than the L2: SASS counts of the tree's int4 kernels
+  (`HGMMA`, `UTMALDG`, `HMMA`, `LDG.128`, `PRMT`) and ptxas's registers and
+  spills for each; for each M of --ms, the kernel as the wrappers launch it
+  (ms, TFLOP/s, GB/s, share of the bound, the error against the plain
+  version) and `torch._weight_int4pack_mm` on the same weights where the
+  tree's smoke sets it up, both timed over as many copies of their weights;
+  beside them the kernel at M 1 on one copy of its weight (L2-warm after
+  the first call) and the host time of a call at M 1 (200 calls enqueued
+  back to back); then one decode step's K3 device time at batch 1, the
+  129 launches summed
+  (32 layers of the four K3c shapes and the lm_head), for the kernel and
+  the library. `--ttft` adds the `decode` command's int4 and int8 prefill +
+  first token at batch 1. With `--root` on a parent checkout and
   once without, both trees are read in one call on one card.
 - k5k2: the ViT attention (K5) and the decode attention (K2) alone at the
   kernel table's shapes: SASS counts of the tree's two kernels (`HGMMA`,
@@ -313,8 +321,8 @@ def _flash_tile_builds(build, tiles):
                          ("teochat_flash_attention_fwd", "teochat_flash_attention_fwd_res"))
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDG", "STG", "SYNCS", "MUFU", "SHFL",
-                "BAR", "WARPGROUP")
+SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDG", "LDG.128", "STG", "SYNCS",
+                "MUFU", "SHFL", "PRMT", "BAR", "WARPGROUP")
 
 
 def _kernel_sass(tag, build, kernels, path=None):
@@ -335,7 +343,10 @@ def _kernel_sass(tag, build, kernels, path=None):
         name = block.split(None, 1)[0]
         if kernels not in name:
             continue
-        ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", block))
+        full = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)", block)
+        ops = Counter(op.split(".")[0] for op in full)
+        # 16-byte global loads, whatever their cache modifiers
+        ops["LDG.128"] = sum(op.startswith("LDG") and ".128" in op for op in full)
         counts = ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPCODES)
         print(f"[{tag}] sass {name}: {sum(ops.values())} instructions: {counts}", flush=True)
 
@@ -487,10 +498,14 @@ def cmd_k3k5(smoke, args):
 
 # -------------------------------------------------------------------- k3
 
-# the 7B decoder's projections (fan-in, fan-out): q|k|v and gate|up fused,
-# out, down (its packed fan-in padded 5504 -> 5632 byte rows)
-K3_SHAPES = (("qkv", 4096, 12288), ("out", 4096, 4096), ("gateup", 4096, 22016),
-             ("down", 11008, 4096))
+# the 7B decoder's projections (fan-in, fan-out, entry): q|k|v and gate|up
+# fused, out, down (its packed fan-in padded 5504 -> 5632 byte rows) on K3c;
+# the lm_head on K3b; an unfused k or v of a model with 2 kv heads on K3a (flat)
+K3_SHAPES = (("qkv", 4096, 12288, "K3c"), ("out", 4096, 4096, "K3c"),
+             ("gateup", 4096, 22016, "K3c"), ("down", 11008, 4096, "K3c"),
+             ("lm_head", 4096, 32000, "K3b"), ("kv", 4096, 256, "K3a"))
+# one int4 decode step at batch 1: each projection once a layer, the lm_head once
+K3_STEP_LAUNCHES = {"qkv": 32, "out": 32, "gateup": 32, "down": 32, "lm_head": 1}
 
 
 def _ptxas_report(tag, log, kernel):
@@ -511,17 +526,21 @@ def cmd_k3(smoke, args):
     from teochat_torch.ops import quant as quant_mod
 
     tag = f"k3 root={args.root}"
+    time_ms = smoke.time_ms
     _kernel_sass(tag, build, "int4_matmul_cu")
-    _ptxas_report(tag, build.library().log, "int4_large_m")
+    for kernel in ("int4_large_m", "int4_small_m", "int4_decode"):
+        _ptxas_report(tag, build.library().log, kernel)
     library = getattr(smoke, "int4pack_library", None)
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    for name, k, n in K3_SHAPES:
+    step = {"kernel": 0.0, "library": 0.0}  # ms of one decode step's K3 launches at M 1
+    for name, k, n, entry in K3_SHAPES:
         leaf = quant_mod.quantize_kernel_int4(
             torch.randn((k, n), generator=gen, device="cuda") * 0.02)
-        tiles, scale = leaf["packed_tiles"], leaf["scale"]
-        n_tiles, k2, tw = tiles.shape
-        reps = -(-160 * 2**20 // tiles.numel())  # copies that exceed the L2 three times
-        rot_tiles = tiles[None].expand(reps, -1, -1, -1).contiguous()
+        packed = leaf["packed"] if entry == "K3a" else leaf["packed_tiles"]
+        scale = leaf["scale"]
+        k2 = packed.shape[-2]
+        reps = -(-160 * 2**20 // packed.numel())  # copies that exceed the L2 three times
+        rot = packed[None].expand(reps, *packed.shape).contiguous()
         rot_scale = scale[None].expand(reps, -1).contiguous()
         state = [0]
 
@@ -529,34 +548,72 @@ def cmd_k3(smoke, args):
             state[0] = (state[0] + 1) % reps
             return state[0]
 
+        if entry == "K3a":
+            run = lambda x: int4_mod.int4_matmul(x, rot[nxt()], scale)
+        elif entry == "K3b":
+            run = lambda x: int4_mod.int4_matmul_tiled(x, rot[nxt()], scale, n_out=n)
+        else:
+            run = lambda x: int4_mod.int4_matmul_tiled_stacked(x, rot, rot_scale, nxt(), n_out=n)
         # the library's calls walk as many copies of its weights as the kernel's
-        lib = library(tiles, scale, n, copies=reps) if library else None
+        lib = library(packed, scale, n, copies=reps) if library else None
+        # the kernel at M 1 over one copy that stays in the L2: what the
+        # weights' trip from memory adds
+        x1 = smoke._randn((1, k), gen)
+        if entry == "K3a":
+            warm_ms = time_ms(lambda: int4_mod.int4_matmul(x1, packed, scale))
+        elif entry == "K3b":
+            warm_ms = time_ms(lambda: int4_mod.int4_matmul_tiled(x1, packed, scale, n_out=n))
+        else:
+            warm_ms = time_ms(lambda: int4_mod.int4_matmul_tiled_stacked(
+                x1, packed[None], scale[None], 0, n_out=n))
+        print(f"[{tag}] {entry} {name}: the kernel at M 1 on one copy (in the L2 after the "
+              f"first call) {warm_ms:.4f} ms", flush=True)
         for m in args.ms:
             x = smoke._randn((m, k), gen)
-            want = int4_mod.int4_matmul_tiled_plain(x.float(), tiles, scale, n_out=n)
-            got = int4_mod.int4_matmul_tiled_stacked(x, rot_tiles, rot_scale, 0, n_out=n)
+            if entry == "K3a":
+                want = int4_mod.int4_matmul_plain(x.float(), packed, scale)
+            else:
+                want = int4_mod.int4_matmul_tiled_plain(x.float(), packed, scale, n_out=n)
+            got = run(x)
             rel_l2 = ((got.float() - want).norm() / want.norm()).item()
-            ms = smoke.time_ms(lambda: int4_mod.int4_matmul_tiled_stacked(
-                x, rot_tiles, rot_scale, nxt(), n_out=n))
-            nbytes = tiles.numel() + 2 * m * k + 2 * m * n + 4 * n
+            ms = time_ms(lambda: run(x))
+            nbytes = packed.numel() + 2 * m * k + 2 * m * n + 4 * n
             flops = 2 * m * k * n
             bound, by = bound_ms(nbytes, flops)
-            lib_text = "none"
+            lib_text, lib_ms = "none", None
             if lib is not None:
                 prepare, call = lib
                 xp = prepare(x)
                 try:
                     lib_l2 = ((call(xp).float() - want).norm() / want.norm()).item()
-                    lib_ms = smoke.time_ms(lambda: call(xp))
+                    lib_ms = time_ms(lambda: call(xp))
                     lib_text = f"{lib_ms:.4f} ms (rel L2 {lib_l2:.2e}, {ms / lib_ms:.2f}x)"
                 except RuntimeError as e:
                     lib_text = f"none: {str(e)[:160]}"
-            print(f"[{tag}] K3c {name} K={k} N={n} M={m}: kernel {ms:.4f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), rel L2 "
-                  f"{rel_l2:.2e}; bound {bound:.4f} ms ({by}); torch._weight_int4pack_mm "
-                  f"{lib_text}", flush=True)
-        del rot_tiles, rot_scale, lib
+            if m == 1:  # the wrapper's host time: the eager decode step waits on the host
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):  # fewer than the launch queue holds: nothing blocks
+                    run(x)
+                host_us = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
+                print(f"[{tag}] {entry} {name} M=1: {host_us:.1f} us of host time a call (200 "
+                      f"calls enqueued back to back)", flush=True)
+            if m == 1 and name in K3_STEP_LAUNCHES:
+                step["kernel"] += K3_STEP_LAUNCHES[name] * ms
+                step["library"] += K3_STEP_LAUNCHES[name] * (lib_ms or float("nan"))
+            print(f"[{tag}] {entry} {name} K={k} k2={k2} N={n} M={m}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s, "
+                  f"{bound / ms:.3f} of the bound), rel L2 {rel_l2:.2e}; bound {bound:.4f} ms "
+                  f"({by}); torch._weight_int4pack_mm {lib_text}", flush=True)
+        del rot, rot_scale, lib
         torch.cuda.empty_cache()
+    if 1 in args.ms:
+        n_launches = sum(K3_STEP_LAUNCHES.values())
+        print(f"[{tag}] int4 decode step at batch 1, K3's {n_launches} launches (32 layers x "
+              f"q|k|v, out, gate|up, down on K3c + the lm_head on K3b): kernel "
+              f"{step['kernel']:.4f} ms, torch._weight_int4pack_mm {step['library']:.4f} ms",
+              flush=True)
     if args.ttft:
         cmd_decode(smoke, argparse.Namespace(root=args.root, reps=5, quant=["int4", "int8"],
                                              batches=[1]))
@@ -859,7 +916,7 @@ def main():
                            help="key=value[,key=value] over dqbk, stages")
             p.add_argument("--long", action="store_true", help="also a GQA shape and B1 S4096")
         if name == "k3":
-            p.add_argument("--ms", type=int, nargs="+", default=[1, 4, 16, 768])
+            p.add_argument("--ms", type=int, nargs="+", default=[1, 2, 4, 8, 16, 768])
             p.add_argument("--ttft", action="store_true",
                            help="also int4 and int8 prefill + first token at batch 1")
         if name == "k5k2":

@@ -17,8 +17,8 @@ them. Phases, each printing its lines before the last:
    0); each case twice, bit-equal;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4 (the
-   small-M kernel), 16 and 768 (the M > 8 `wgmma` kernel), each beside
-   `torch._weight_int4pack_mm` on the same weights;
+   split-K `mma.sync` decode kernel), 16 and 768 (the M > 8 `wgmma`
+   kernel), each beside `torch._weight_int4pack_mm` on the same weights;
 6. the one-shot ViT attention (K5) against its plain version at the tower's
    shape for a 2-frame request and a 32-frame encode, at a ragged 100, at a
    336-pixel tower's 577 and at the gate's 1024;
@@ -69,7 +69,7 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 
 The line before the last is a JSON object with each of the eighteen
 kernel rows' launches, error, times and bound (K3c has two: its wrapper runs
-the M > 8 kernel at prefill and the byte-streaming one at decode); the
+the M > 8 kernel at prefill and the split-K one at decode); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -182,7 +182,7 @@ INT4_LOGITS_REL_L2_BOUND = 5e-2
 # 32000 columns padded to 63 tiles of 512)
 INT4_SHAPES = [("qkv", 4096, 12288), ("out", 4096, 4096), ("gateup", 4096, 22016),
                ("down", 11008, 4096), ("lm_head", 4096, 32000)]
-# decode at batch 1 and 4 (the small-M kernel), batched decode at 16 and the
+# decode at batch 1 and 4 (the M <= 8 kernel), batched decode at 16 and the
 # 2-frame prompt's prefill (the M > 8 kernel)
 INT4_MS = (1, 4, 16, 768)
 # torch._weight_int4pack_mm, the library's w4a16 product, against the plain

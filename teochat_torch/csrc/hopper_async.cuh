@@ -297,6 +297,29 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 
 constexpr int TENSOR_MAP_ERROR = 100000;  // added to a CUresult, to tell it from a cudaError_t
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, or 0 and a cudaError_t in *err
+inline EncodeTiled tensor_map_encoder(int* err) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                         cudaEnableDefault, &found);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                cudaEnableDefault, &found);
+#endif
+  *err = e != cudaSuccess ? static_cast<int>(e)
+         : found != cudaDriverEntryPointSuccess || fn == nullptr
+             ? static_cast<int>(cudaErrorSymbolNotFound)
+             : 0;
+  return *err ? nullptr : reinterpret_cast<EncodeTiled>(fn);
+}
+
 // A bf16 [B, N, H, D] tensor read through its strides (in elements; the last
 // dimension contiguous) as boxes of `box_rows` rows x 64 columns of one head
 // of one batch row, written with the 128-byte swizzle. The map's dimensions
@@ -309,22 +332,9 @@ inline int encode_bf16_rows_map(CUtensorMap* map, int* rows_first, const void* b
                                 int batch, int rows, int heads, int head_dim,
                                 long long stride_b, long long stride_n, long long stride_h,
                                 int box_rows) {
-  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                            &found);
-#endif
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-    return static_cast<int>(cudaErrorSymbolNotFound);
+  int err = 0;
+  const EncodeTiled fn = tensor_map_encoder(&err);
+  if (err) return err;
 
   *rows_first = stride_n < stride_h;
   const int r = *rows_first ? 1 : 2, h = *rows_first ? 2 : 1;  // where rows and heads go
@@ -338,10 +348,33 @@ inline int encode_bf16_rows_map(CUtensorMap* map, int* rows_first, const void* b
   // dense tensor would have, whatever the view carries
   for (int i = 1; i < 4; ++i)
     if (dims[i] == 1) strides[i] = strides[i - 1] * dims[i - 1];
-  const CUresult res = reinterpret_cast<EncodeTiled>(fn)(
+  const CUresult res = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides + 1, box,
       elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
+}
+
+// A rank-4 tensor of `type` (dims innermost first; strides in bytes of
+// dims 1-3, multiples of 16; the base 16-byte aligned) read in boxes of
+// `box`, written with the 128-byte swizzle (the box's inner extent at most
+// 128 bytes); elements outside the tensor arrive as zeros. A dimension of
+// one element gets the stride a dense tensor would have. Returns 0, a
+// cudaError_t, or TENSOR_MAP_ERROR + CUresult.
+inline int encode_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                         const cuuint64_t (&dims)[4], cuuint64_t const (&strides)[3],
+                         const cuuint32_t (&box)[4]) {
+  int err = 0;
+  const EncodeTiled fn = tensor_map_encoder(&err);
+  if (err) return err;
+  const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
+  cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) st[i] = (i ? st[i - 1] : elem) * dims[i];
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, type, 4, const_cast<void*>(base), dims, st, box, elem_strides,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
 }
 

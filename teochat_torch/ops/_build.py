@@ -44,10 +44,10 @@ _SIGNATURES = {
     "teochat_decode_attention": (
         [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _P]
     ),
-    "teochat_int4_matmul": [_P] * 4 + [_I] * 4 + [_LL, _P],
-    "teochat_int4_matmul_tiled": [_P] * 4 + [_I] * 6 + [_LL, _I, _P],
+    "teochat_int4_matmul": [_P] * 4 + [_I] * 4 + [_LL, _I, _P, _P, _P],
+    "teochat_int4_matmul_tiled": [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _P, _P, _P],
     "teochat_int4_matmul_tiled_stacked": (
-        [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _LL, _P]
+        [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _LL, _I, _P, _P, _P]
     ),
     "teochat_vit_attention": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_F, _P],
     # the kernel benches' variants (csrc/bench_int4_kernel.cu, bench_vit_attention.cu)
@@ -172,6 +172,35 @@ def check_bf16_operand(name: str, t, ndim: int) -> None:
             f"{name}: strides {t.stride()} / base alignment not supported "
             "(last dim contiguous, other strides multiples of 8 elements)"
         )
+
+
+_tickets = {}  # (device, count) -> int32 zeros, reset by the kernels after each launch
+
+
+def tickets_for(device, count: int):
+    """A buffer of `count` zero tickets on `device` for the kernels that merge
+    their blocks' partials in the launch (the last block to take a ticket
+    resets it, so the buffer is zero again after every launch). Kept for the
+    next call and never freed, so a captured launch keeps its pointer; calls
+    that share it run on one stream."""
+    import torch
+
+    key = (device, count)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
+_sm_counts = {}  # device -> its streaming multiprocessors
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA `device`, read once."""
+    import torch
+
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
 
 
 class LaunchCounter:

@@ -30,7 +30,6 @@ HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
 CHUNK = 64  # cache slots a block of the kernel takes
 MAX_HEADS_A_BLOCK = 8
-_tickets = {}  # (device, count) -> int32 zeros, reset by the kernel after each launch
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
@@ -89,15 +88,6 @@ def decode_attention_split_schedule(q, k_cache, v_cache, lengths, *, scale=None,
     return out.to(q.dtype)
 
 
-def _tickets_for(device, count: int) -> torch.Tensor:
-    """A buffer of `count` zero tickets on `device`, kept for the next call
-    (the kernel leaves it zero); never freed, so a captured launch keeps its pointer."""
-    key = (device, count)
-    if key not in _tickets:
-        _tickets[key] = torch.zeros(count, dtype=torch.int32, device=device)
-    return _tickets[key]
-
-
 def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     _build.check_bf16_operand("q", q, 3)
     _build.check_bf16_operand("k_cache", k_cache, 4)
@@ -122,7 +112,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     n_chunks = -(-t // CHUNK)
     part_ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=q.device)
-    tickets = _tickets_for(q.device, b * (h // min(h // hkv, MAX_HEADS_A_BLOCK)))
+    tickets = _build.tickets_for(q.device, b * (h // min(h // hkv, MAX_HEADS_A_BLOCK)))
     _build.launch(
         "teochat_decode_attention", q,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -18,7 +18,11 @@ tensor and take the plain version beside them (unpack -> matmul with fp32
 accumulation -> scale -> cast) for a CPU tensor. On the card x must be bf16
 and its rows contiguous; the kernels read the bytes as the quantizer wrote
 them and bound their reads of x at its true K, so a fan-in padded at
-quantize time needs no padded copy of x.
+quantize time needs no padded copy of x. At M <= SMALL_M the wrapper also
+picks the decode kernel's K slices (`decode_k_slices`) and hands it an fp32
+workspace for the slices' partials and a kept buffer of zero tickets;
+`int4_decode_schedule` and `int4_prefill_schedule` are the two kernels'
+walks in plain PyTorch, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -32,7 +36,19 @@ TILE_BN = 512
 PREFILL_BLOCK_M = 128  # rows of x a block: two warpgroups of 64
 PREFILL_BLOCK_N = 128  # columns a block
 PREFILL_STEP = 64  # byte rows a step: 64 k of each half of K
-SMALL_M = 8  # the .cu runs M <= SMALL_M on its byte-streaming (decode) kernel
+SMALL_M = 8  # the .cu runs M <= SMALL_M on its split-K mma.sync (decode) kernel
+# The M <= 8 kernel's walk (csrc/int4_matmul.cu: TEOCHAT_INT4_DECODE_BN, _ALIGN)
+DECODE_BLOCK_N = 128  # columns a block
+DECODE_ALIGN = 8  # a K slice's byte rows are whole groups of this (one mma's k)
+# The split rule's sizes (PERF.md section 6, PR 10): the kernel's blocks
+# resident on an SM at once (csrc/int4_matmul.cu: DC_BLOCKS_PER_SM, held by
+# its launch bounds); the most slices a band's last block sums one after
+# another before they cost more than they save
+DECODE_BLOCKS_PER_SM = 3
+DECODE_MAX_SLICES = 32
+# The SMs the plain walk assumes unless given a count: an H100 SXM's (the
+# wrappers read the count of the card they launch on)
+H100_SXM_SMS = 132
 
 LAUNCHES_FLAT = _build.LaunchCounter("int4_matmul")
 LAUNCHES_TILED = _build.LaunchCounter("int4_matmul_tiled")
@@ -191,6 +207,76 @@ def int4_prefill_schedule(x: torch.Tensor, packed: torch.Tensor, scale: torch.Te
     return out
 
 
+def decode_k_slices(n_out: int, k2: int, sms: int) -> int:
+    """How many K slices the M <= 8 kernel cuts k2 byte rows into, for
+    ceil(n_out / DECODE_BLOCK_N) bands on a card of `sms` SMs, by what
+    measured fastest on an H100: one block an SM where the bands are fewer
+    than the SMs (at most DECODE_MAX_SLICES), two slices where twice the
+    bands still fit in one wave (DECODE_BLOCKS_PER_SM blocks an SM), else
+    one; then the largest count at most that which the kernel's cut
+    (`decode_slice_rows`) gives exactly. M does not enter: at every M <= 8
+    the kernel does the same work."""
+    bands = -(-n_out // DECODE_BLOCK_N)
+    if bands <= sms:
+        k_slices = min(sms // bands, DECODE_MAX_SLICES, k2 // DECODE_ALIGN)
+    else:
+        k_slices = 2 if 2 * bands <= DECODE_BLOCKS_PER_SM * sms else 1
+    while -(-k2 // decode_slice_rows(k2, k_slices)) != k_slices:
+        k_slices -= 1
+    return k_slices
+
+
+def decode_slice_rows(k2: int, k_slices: int) -> int:
+    """The byte rows of each K slice but the last, as the kernel cuts them:
+    k2 / k_slices rounded up to whole groups of DECODE_ALIGN."""
+    per_slice = -(-k2 // k_slices)
+    return -(-per_slice // DECODE_ALIGN) * DECODE_ALIGN
+
+
+def int4_decode_schedule(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
+                         n_out: int | None = None, layer: int | None = None,
+                         k_slices: int | None = None,
+                         sms: int = H100_SXM_SMS) -> torch.Tensor:
+    """The M <= 8 kernel's walk over one product, in plain PyTorch.
+
+    `packed` is any of the three layouts, as for `int4_prefill_schedule`.
+    Column bands of DECODE_BLOCK_N (a band never straddles two tiles: tiles
+    must be a whole number of bands wide, as the kernel's entries require);
+    K cut into `k_slices` slices of `decode_slice_rows` byte rows (the last
+    one ragged), `decode_k_slices`' count for a card of `sms` SMs unless
+    given. Each (band, slice) sums x at columns r and k2 + r of its rows,
+    zero past K, against the low and high nibbles of those byte rows into
+    an fp32 partial; the band's partials are summed in slice order, the
+    scale applied to that sum and the result rounded once to x's dtype.
+    Columns past the last are never written."""
+    if layer is not None:
+        packed, scale = packed[layer], scale[layer]
+    bn = DECODE_BLOCK_N
+    if packed.ndim == 3 and packed.shape[-1] % bn:
+        raise ValueError(f"a band of {bn} columns would straddle tiles of {packed.shape[-1]}")
+    flat = packed if packed.ndim == 2 else untile(packed)  # [k2, columns]
+    k2, n_total = flat.shape
+    n_out = n_total if n_out is None else n_out
+    k_slices = decode_k_slices(n_out, k2, sms) if k_slices is None else k_slices
+    rows = decode_slice_rows(k2, k_slices)
+    m, k = x.shape
+    raw = flat.view(torch.uint8) if flat.dtype == torch.int8 else flat
+    flip = 0x80 if flat.dtype == torch.int8 else 0
+    xf = torch.zeros((m, 2 * k2), dtype=torch.float32, device=x.device)
+    xf[:, :k] = x.float()
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    for n0 in range(0, n_out, bn):
+        n1 = min(n0 + bn, n_out)
+        b = raw[:, n0:n1].to(torch.int32) ^ flip
+        w_lo, w_hi = ((b & 15) - 8).float(), ((b >> 4) - 8).float()
+        acc = torch.zeros((m, n1 - n0), dtype=torch.float32, device=x.device)
+        for r0 in range(0, k2, rows):  # slice order
+            r1 = min(k2, r0 + rows)
+            acc = acc + (xf[:, r0:r1] @ w_lo[r0:r1] + xf[:, k2 + r0:k2 + r1] @ w_hi[r0:r1])
+        out[:, n0:n1] = (acc * scale[n0:n1].float()).to(x.dtype)
+    return out
+
+
 # ------------------------------------------------------------ the wrappers
 
 def _use_kernel(name: str, x: torch.Tensor, impl: str) -> bool:
@@ -229,6 +315,22 @@ def _check_cuda_args(name: str, x, packed, scale, byte_dtypes, packed_ndim: int,
                          "(need K <= 2 * k2, both multiples of 8)")
 
 
+def _split_args(x: torch.Tensor, m: int, n_out: int, k2: int):
+    """The entries' last three arguments: the M <= 8 kernel's K slices, its
+    fp32 partials (a fresh buffer each call, of a size fixed by the shape)
+    and the bands' zero tickets (a kept buffer); (1, 0, 0) where nothing is
+    split, and for M > 8. Also returns the partials' tensor, which the caller
+    holds until the launch is enqueued."""
+    k_slices = decode_k_slices(n_out, k2, _build.sm_count(x.device)) if m <= SMALL_M else 1
+    if k_slices == 1:
+        return (1, 0, 0), None
+    bands = -(-n_out // DECODE_BLOCK_N)
+    part = torch.empty(bands * k_slices * m * DECODE_BLOCK_N, dtype=torch.float32,
+                       device=x.device)
+    tickets = _build.tickets_for(x.device, bands)
+    return (k_slices, part.data_ptr(), tickets.data_ptr()), part
+
+
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
                 impl: str = "auto") -> torch.Tensor:
     """y = (x @ unpack(packed)) * scale from the flat layout.
@@ -245,8 +347,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    split, _part = _split_args(x, m, n, k2)
     _build.launch("teochat_int4_matmul", x, x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                  out.data_ptr(), m, k, k2, n, x.stride(0))
+                  out.data_ptr(), m, k, k2, n, x.stride(0), *split)
     LAUNCHES_FLAT.count += 1
     return out
 
@@ -270,9 +373,10 @@ def int4_matmul_tiled(x: torch.Tensor, packed_tiles: torch.Tensor, scale: torch.
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    split, _part = _split_args(x, m, n_out, k2)
     _build.launch("teochat_int4_matmul_tiled", x, x.data_ptr(), packed_tiles.data_ptr(),
                   scale.data_ptr(), out.data_ptr(), m, k, k2, n_tiles, bn, n_out, x.stride(0),
-                  int(packed_tiles.dtype == torch.int8))
+                  int(packed_tiles.dtype == torch.int8), *split)
     LAUNCHES_TILED.count += 1
     return out
 
@@ -298,9 +402,10 @@ def int4_matmul_tiled_stacked(x: torch.Tensor, packed_tiles: torch.Tensor, scale
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    split, _part = _split_args(x, m, n_out, k2)
     _build.launch("teochat_int4_matmul_tiled_stacked", x, x.data_ptr(), packed_tiles.data_ptr(),
                   scale.data_ptr(), out.data_ptr(), m, k, k2, n_tiles, bn, n_out, x.stride(0),
-                  int(packed_tiles.dtype == torch.int8), layer, scale.stride(0))
+                  int(packed_tiles.dtype == torch.int8), layer, scale.stride(0), *split)
     LAUNCHES_STACKED.count += 1
     if m <= SMALL_M:
         LAUNCHES_STACKED_SMALL_M.count += 1

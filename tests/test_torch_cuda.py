@@ -28,6 +28,7 @@ import torch
 
 from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.bench import vit_attention as bench_vit
+from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops import int4_matmul as int4_mod
@@ -533,6 +534,106 @@ def test_int4_prefill_kernel_is_bit_stable_over_many_launches(gen, m, launches):
         x.float(), tiles, scale, 1, n_out=n))
     differ = (outs != first.repeat(launches // n_layers, 1, 1)).flatten(1).any(1)
     assert not differ.any(), f"launches {differ.nonzero().flatten().tolist()[:20]} differ"
+
+
+# the M <= 8 kernel: K3a's 256-wide k or v (K 4096: 32 K slices of 64 byte
+# rows merged in the launch) and N 640 over 1024 byte rows (K < 2 k2; a
+# ragged tile and, flat, a ragged band; 26 slices of 40 rows, the last 24)
+INT4_DECODE_CASES = [(4096, 2048, 256), (2000, 1024, 640)]
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiled_u8", "tiled_v3", "stacked"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("k,k2,n", INT4_DECODE_CASES)
+def test_int4_decode_kernel_matches_plain_and_its_walk(gen, layout, m, k, k2, n):
+    """The split-K kernel against the plain version and `int4_decode_schedule`,
+    x a column slice of a wider activation (row stride > K)."""
+    w = torch.randint(-8, 8, (2 * k2, n), generator=gen, device="cuda")
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.01 + 0.001
+    x = _randn((m, 2 * k + 8), gen)[:, 8:8 + k]
+    sms = _build.sm_count(x.device)  # the walk cuts K as the wrapper does on this card
+    counter = int4_mod.LAUNCHES_TILED
+    if layout == "flat":
+        packed, counter = int4_mod.pack_int4(w), int4_mod.LAUNCHES_FLAT
+        run = lambda: int4_mod.int4_matmul(x, packed, scale)
+        plain = int4_mod.int4_matmul_plain(x.float(), packed, scale)
+        walk = int4_mod.int4_decode_schedule(x.float(), packed, scale, sms=sms)
+    elif layout == "stacked":
+        packed = torch.stack([int4_mod.pack_int4_tiled_i8(w.flip(0)),
+                              int4_mod.pack_int4_tiled_i8(w)])
+        scale2, counter = torch.stack([scale * 2, scale]), int4_mod.LAUNCHES_STACKED_SMALL_M
+        run = lambda: int4_mod.int4_matmul_tiled_stacked(x, packed, scale2, 1, n_out=n)
+        plain = int4_mod.int4_matmul_tiled_stacked_plain(x.float(), packed, scale2, 1, n_out=n)
+        walk = int4_mod.int4_decode_schedule(x.float(), packed, scale2, n_out=n, layer=1,
+                                             sms=sms)
+    else:
+        pack = int4_mod.pack_int4_tiled if layout == "tiled_u8" else int4_mod.pack_int4_tiled_i8
+        packed = pack(w)
+        run = lambda: int4_mod.int4_matmul_tiled(x, packed, scale, n_out=n)
+        plain = int4_mod.int4_matmul_tiled_plain(x.float(), packed, scale, n_out=n)
+        walk = int4_mod.int4_decode_schedule(x.float(), packed, scale, n_out=n, sms=sms)
+    before = counter.count
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    assert int4_mod.decode_k_slices(n, k2, sms) > 1  # both cases merge partials in the launch
+    _assert_int4_close(got, plain)
+    _assert_int4_close(got, walk)
+
+
+def _out_stack(gen, n_layers):
+    """out's shape (K 4096, N 4096: 32 bands x 4 K slices) over n_layers layers."""
+    leaves = [_int4_leaf(gen, 4096, 4096) for _ in range(n_layers)]
+    return (torch.stack([leaf["packed_tiles"] for leaf in leaves]),
+            torch.stack([leaf["scale"] for leaf in leaves]))
+
+
+def test_int4_decode_kernel_is_bit_stable_over_many_launches(gen):
+    """600 back-to-back M 1 launches over four layers, each bit-equal to the
+    first launch on its layer: the partials are merged in slice order by
+    whichever block of a band comes last, and the tickets are reset."""
+    n_layers, launches = 4, 600
+    tiles, scale = _out_stack(gen, n_layers)
+    x = _randn((1, 4096), gen)
+    before = int4_mod.LAUNCHES_STACKED_SMALL_M.count
+    first = torch.stack([int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, layer, n_out=4096)
+                         for layer in range(n_layers)])
+    outs = torch.stack([int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, i % n_layers,
+                                                           n_out=4096)
+                        for i in range(launches)])
+    torch.cuda.synchronize()
+    assert int4_mod.LAUNCHES_STACKED_SMALL_M.count == before + n_layers + launches
+    _assert_int4_close(first[1], int4_mod.int4_matmul_tiled_stacked_plain(
+        x.float(), tiles, scale, 1, n_out=4096))
+    differ = (outs != first.repeat(launches // n_layers, 1, 1)).flatten(1).any(1)
+    assert not differ.any(), f"launches {differ.nonzero().flatten().tolist()[:20]} differ"
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_int4_decode_kernel_replays_in_a_cuda_graph(gen, m):
+    """One launch captured in a CUDA graph and replayed 100 times, each
+    replay bit-equal to the eager launch: the workspace is sized by the
+    shape, the tickets stay zero between launches."""
+    tiles, scale = _out_stack(gen, 2)
+    x = _randn((m, 4096), gen)
+    eager = int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, 1, n_out=4096)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up torch.cuda.graph asks for
+        int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, 1, n_out=4096)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = int4_mod.int4_matmul_tiled_stacked(x, tiles, scale, 1, n_out=4096)
+    replays = []
+    for _ in range(100):
+        graph.replay()
+        replays.append(static.clone())
+    torch.cuda.synchronize()
+    _assert_int4_close(eager, int4_mod.int4_matmul_tiled_stacked_plain(
+        x.float(), tiles, scale, 1, n_out=4096))
+    differ = [i for i, out in enumerate(replays) if not torch.equal(out, eager)]
+    assert not differ, f"replays {differ[:20]} differ from the eager launch"
 
 
 @pytest.mark.parametrize("b,s,h", [

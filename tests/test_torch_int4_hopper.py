@@ -157,7 +157,8 @@ def test_schedule_refuses_a_band_that_straddles_tiles():
 
 def test_module_tile_sizes_are_the_kernels():
     """The sizes the walk takes are the ones the CUDA source is built with,
-    and the M > 8 kernel is the wgmma one, not mma.sync.
+    and the M > 8 kernel is the wgmma one, not mma.sync (which the M <= 8
+    kernel uses).
 
     The dequant threads' `fence.proxy.async` (their ordinary stores, then
     `wgmma` reading them through the async proxy) is only looked for here.
@@ -171,7 +172,7 @@ def test_module_tile_sizes_are_the_kernels():
              re.findall(r"#define TEOCHAT_INT4_(BM|BN|STEP) (\d+)", source)}
     assert sizes == {"BM": torch_i4.PREFILL_BLOCK_M, "BN": torch_i4.PREFILL_BLOCK_N,
                      "STEP": torch_i4.PREFILL_STEP}
-    assert "mma_16816" not in source and "wgmma_ss_tb" in source and "tma_load" in source
     body = source[source.index("int4_large_m_kernel("):source.index("int launch_large_m(")]
+    assert "mma_16816" not in body and "wgmma_ss_tb" in body and "tma_load" in body
     assert re.search(r"fence_proxy_async_shared\(\);\s*mbar_arrive\(full\(st\)\);", body)
     assert f"M <= {torch_i4.SMALL_M})" in source
