@@ -12,7 +12,7 @@
     python3 chip_probe.py k3k5
     python3 chip_probe.py k3 [--root DIR] [--ms 1 2 4 8 16 768] [--ttft]
     python3 chip_probe.py k5k2 [--root DIR] [--chunks 32 128]
-    python3 chip_probe.py s1s2
+    python3 chip_probe.py s1s2 [--root DIR]
     python3 chip_probe.py profile-train
 
 Each command prints the card's name and power limit first, then its lines.
@@ -110,9 +110,14 @@ another checkout, so two trees can be timed in one session on one card.
   where the tree's source has the macro, K2 built with each slot chunk of
   --chunks (`TEOCHAT_DECODE_CHUNK`), held to the tree's own output. With `--root` on a parent checkout and once without, both trees
   are read in one call on one card.
-- s1s2: the smoke's phases for the kernel benches' eight variants (the int4
-  ones and the one-sweep attention ones against their plain versions); exits
-  nonzero where one fails, after running both.
+- s1s2: the S2 attention bench at [32, 257, 16, 64] (S2-b at each bh of
+  1, 2, 4, 8, 16, S2-c's call and its kernel alone, K5 and
+  `scaled_dot_product_attention` on the same inputs, beside the bound), the
+  same at [32, 300, 16, 64] and [8, 832, 16, 64] (two sweeps; S2-b at bh 8),
+  then the smoke's phases for the kernel benches' eight variants (the int4
+  ones and the attention ones against their plain versions); exits nonzero
+  where one fails, after running both. With `--root` on a parent checkout
+  and once without, both trees are read in one call on one card.
 - profile-train: `torch.profiler` over the second optimizer step of the
   smoke's `train()` run (two micro-steps); device time by kernel class and
   the kernels that take the most.
@@ -697,7 +702,31 @@ def cmd_k5k2(smoke, args):
                   f"{bool((tickets == 0).all().item())}", flush=True)
 
 
+# the S2 bench's shape, then two that take the kernel's two sweeps: (B, S)
+S2_SHAPES = ((32, 257), (32, 300), (8, 832))
+
+
 def cmd_s1s2(smoke, args):
+    from teochat_torch.bench import vit_attention as bench_vit
+    from teochat_torch.ops import vit_attention as vit_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    h, d = bench_vit.H, bench_vit.D
+    for b, s in S2_SHAPES:
+        q, k, v = (smoke._randn((b, s, h, d), gen) for _ in range(3))
+        qf, kf, vf = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sweep = (1, 2, 4, 8, 16) if s == bench_vit.S else (8,)
+        rows = [(f"S2-b bh={bh}", lambda bh=bh: bench_vit.call_b(q, k, v, bh=bh))
+                for bh in sweep]
+        rows += [("S2-c call", lambda: bench_vit.call_c(q, k, v)),
+                 ("S2-c kernel alone", lambda: bench_vit.call_c_flat(qf, kf, vf)),
+                 ("K5", lambda: vit_mod.vit_attention(q, k, v)),
+                 ("scaled_dot_product_attention", lambda: bench_vit.call_library(q, k, v))]
+        bound, by = smoke.bound_ms(*bench_vit.bound(b, s, h, d))
+        for label, fn in rows:
+            ms = smoke.time_ms(fn)
+            print(f"[s1s2] root={args.root} [{b},{s},{h},{d}] {label}: {ms:.4f} ms "
+                  f"({ms / bound:.2f}x the bound, {bound:.4f} ms, {by})", flush=True)
     _run_phases(smoke, (("s2", smoke.phase_bench_vit), ("s1", smoke.phase_bench_int4)))
 
 

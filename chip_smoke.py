@@ -53,7 +53,9 @@ them. Phases, each printing its lines before the last:
 15. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
-    512; the attention ones at [32, 257, 16, 64] and [2, 257, 16, 64];
+    512, with `torch._weight_int4pack_mm` on the same weights beside v2-v5
+    at M 1; the attention ones at [32, 257, 16, 64] and [2, 257, 16, 64],
+    at S 9 and 100, and at S 300 and 832 (two sweeps);
 16. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
@@ -1081,6 +1083,10 @@ def phase_bench_int4(gen):
     tiles, tiles_i8 = int4_mod.pack_int4_tiled(w_q), bench_int4.pack_int4_i8(w_q)
     tiles_i4 = bench_int4.pack_int4_native(w_q)
     rows, worst = {}, {}
+    # the library's product on the same weights (v2-v5 compute x @ unpack *
+    # scale); its timed calls walk copies that exceed the L2 three times
+    reps = -(-160 * 2**20 // tiles.numel())
+    library = int4pack_library(tiles, scale, n, copies=reps)
     for m in (1, 8):
         x = _randn((m, k), gen)
         ops = bench_int4.byte_reuse_operands(x, k // 2)
@@ -1111,8 +1117,10 @@ def phase_bench_int4(gen):
         for key, t0, kernel, plain in cases:
             nxt = _timing.rotation(t0)
             dma = key == "S1-dma"  # half of x, no scale
+            # v4's plain version is the exact product, which the library is held to
+            lib = library if (key, m) == ("S1-v4", 1) else None
             out = _int4_case(key, k // 2 if dma else k, n, m, t0, lambda: kernel(nxt()), plain,
-                             tag="S1 int4 bench", scaled=not dma)
+                             tag="S1 int4 bench", scaled=not dma, x=x, library=lib)
             key = key.split()[0]  # the mask16 case counts toward S1-v3's error
             worst[key] = max(worst.get(key, 0.0), out[0])
             if m == 1 and key not in rows:
@@ -1135,19 +1143,24 @@ def phase_bench_int4(gen):
         f"{rows['S1-vpu']['bound_ms']:.4f} ms ({rows['S1-vpu']['bound_by']})")
     for key in worst:
         rows[key]["max_abs_err"] = worst[key]
+    for key in ("S1-v2", "S1-v3", "S1-v5"):  # the same function on the same x and weights
+        rows[key]["library_ms"] = rows["S1-v4"]["library_ms"]
     return rows
 
 
 def phase_bench_vit(gen):
-    """S2: the two one-sweep attention kernels at the bench's shape, at a 2-frame
-    request's and at two ragged ones; c's time includes its transposes, as the
-    bench's does."""
+    """S2: the bench's attention kernel through both entries at the bench's
+    shape, at a 2-frame request's, at two ragged ones and at two that take
+    two sweeps (S 300, and 832, the gate); c's time includes its transposes,
+    as the bench's does, and its row also carries the kernel alone on rows
+    already flat."""
     rows = {}
     for key, fn in (("S2-b", bench_vit.call_b), ("S2-c", bench_vit.call_c)):
         worst = 0.0
-        # the first shape has 7 masked keys beside 9 live ones: a lost key mask shows there;
+        # the first shape has 263 masked keys beside 9 live ones: a lost key mask shows there;
         # the bench's own shape is the one reported in the JSON line
-        for b, s, h, d in ((2, 9, 16, 64), (32, 257, 16, 64), (2, 257, 16, 64), (3, 100, 16, 64)):
+        for b, s, h, d in ((2, 9, 16, 64), (32, 257, 16, 64), (2, 257, 16, 64), (3, 100, 16, 64),
+                           (2, 300, 16, 64), (2, 832, 16, 64)):
             q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
             got = fn(q, k, v)
             sync()
@@ -1160,9 +1173,14 @@ def phase_bench_vit(gen):
             lib_ms = time_ms(lambda: bench_vit.call_library(q, k, v))
             nbytes, flops = bench_vit.bound(b, s, h, d)
             row = kernel_row(err, ms, plain_ms, nbytes, flops, lib_ms)
+            alone = ""
+            if key == "S2-c":
+                qf, kf, vf = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                row["kernel_alone_ms"] = time_ms(lambda: bench_vit.call_c_flat(qf, kf, vf))
+                alone = f" (kernel alone {row['kernel_alone_ms']:.4f} ms)"
             log(f"[S2 vit bench] {key} B={b} S={s} H={h} D={d}: max_abs_err={err:.3e} (tol "
-                f"{bench_vit.TOL}) kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
-                f"{plain_ms:.4f} ms scaled_dot_product_attention {lib_ms:.4f} ms bound "
+                f"{bench_vit.TOL}) kernel {ms:.4f} ms{alone} ({flops / ms / 1e9:.1f} TFLOP/s) "
+                f"plain {plain_ms:.4f} ms scaled_dot_product_attention {lib_ms:.4f} ms bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             check(err <= bench_vit.TOL, f"{key} error {err} > {bench_vit.TOL}")
             worst = max(worst, err)

@@ -4,17 +4,24 @@ Port of scripts/bench_vit_attention.py. Variants:
 
   plain     the plain attention (ops/attention.plain_attention): the score
             matrices go through device memory (the script's XLA row)
-  current   the production kernel (ops/vit_attention.vit_attention, K5): two
-            sweeps over the keys, q k^T computed twice
-  b_nopad   one sweep, the whole score row on the SM, [B, S, H, D] read in
-            place, `bh` heads a block
+  current   the production kernel (ops/vit_attention.vit_attention, K5): P
+            rounded to bf16 before P V, divided by l after
+  b_nopad   [B, S, H, D] read in place, `bh` heads a work item, p / l
+            rounded to bf16 before P V (the script's `_kernel_b`)
   c_flat    the same on contiguous [B H, S, D] rows; the call includes the
-            transposes to and from that layout
+            transposes to and from that layout (`_kernel_c`)
   library   one `scaled_dot_product_attention` call, as the library's time
             (measured here, used nowhere in the port)
 
-b and c are CUDA kernels of csrc/bench_vit_attention.cu with their plain
-version beside them (`*_plain`, taken by CPU tensors) and a launch counter.
+b and c are one CUDA kernel (csrc/bench_vit_attention.cu) behind two entries
+that differ in their tensor maps, with their plain version beside them
+(`call_plain`, taken by CPU tensors) and a launch counter each. The kernel
+is K5's design: keys in windows of WINDOW = 272 whose scores a 64-row query
+tile holds in registers, `wgmma` on TMA-fed tiles, persistent blocks. Up to
+one window (the bench's S = 257) it is one sweep; past it a first sweep
+takes each row's maximum and sum and a second recomputes the scores for
+bf16(p / l) V. `one_sweep_schedule` is that walk in plain PyTorch, held
+against the script's Pallas kernels on the CPU by the tests.
 
 Run: python3 -m teochat_torch.bench.vit_attention
 """
@@ -30,12 +37,15 @@ import torch.nn.functional as F
 from teochat_torch.bench import _timing
 from teochat_torch.ops import _build
 from teochat_torch.ops import vit_attention as vit_mod
-from teochat_torch.ops.attention import plain_attention
+from teochat_torch.ops.attention import NEG_INF, plain_attention
 from teochat_torch.utils import resolve_device
 
 B, S, H, D = 32, 257, 16, 64
 HEAD_DIM = 64
-MAX_SEQ = 832  # 13 key tiles of score rows fit an SM's shared memory
+TILE_Q = 64  # query rows a consumer warpgroup of the kernel takes
+WINDOW = 272  # keys whose scores a query tile holds at once (256 + 16)
+MAX_SEQ = 832  # the bench's gate: up to four windows
+LOG2E = 1.4426950408889634
 # |kernel (bf16 out) - plain (fp32 on the same bf16 inputs)|: outputs are averages of
 # N(0, 1) values, |o| < 4, so the bf16 output rounding alone reaches 2^-8 * 4 = 1.6e-2;
 # p / l is rounded to bf16 before the product with v on both sides
@@ -53,6 +63,53 @@ def call_plain(q, k, v):
 
 call_b_plain = call_plain  # what S2-b computes
 call_c_plain = call_plain  # what S2-c computes (its transposes cancel)
+
+
+def one_sweep_schedule(q, k, v, *, window: int = WINDOW, tile_q: int = TILE_Q,
+                       scale: float | None = None) -> torch.Tensor:
+    """The kernel's walk, in plain PyTorch; [B, S, H, D] in and out.
+
+    As in csrc/bench_vit_attention.cu: query tiles of `tile_q` rows (rows
+    past S read as zeros) meet the keys in windows of `window`; keys past S
+    are read as zeros and their scores masked; the scale rides on the
+    base-2 exponent, p = 2^(s c2 - m) with c2 = scale log2 e and m the row's
+    maximum in those units. Each window updates m and l = sum p, l rescaled
+    by 2^(m_old - m_new) (0 in the first window). The kernel holds a single
+    window's p in registers and goes on to P V with it; past one window it
+    recomputes each window's scores in a second sweep: the numbers are the
+    same either way, and are the ones below. p (1 / l) is rounded to v's
+    dtype (bf16 on the card) before P V; o leaves in q's dtype."""
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    c2 = scale * LOG2E
+    pad_s, pad_t = -s % tile_q, -s % window
+    pad = torch.nn.functional.pad
+    qp = pad(q, (0, 0, 0, 0, 0, pad_s)).float()
+    kp = pad(k, (0, 0, 0, 0, 0, pad_t)).float()
+    vp = pad(v, (0, 0, 0, 0, 0, pad_t))
+    starts = range(0, s + pad_t, window)
+    o = torch.zeros((b, s + pad_s, h, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s + pad_s, tile_q):
+        def scores(k0):
+            sc = torch.einsum("bshd,bthd->bhst", qp[:, q0:q0 + tile_q], kp[:, k0:k0 + window])
+            return torch.where(torch.arange(k0, k0 + window, device=q.device) >= s, NEG_INF, sc)
+
+        m = torch.full((b, h, tile_q), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        for k0 in starts:  # the first sweep: m and l
+            sc = scores(k0)
+            m_next = torch.maximum(m, sc.amax(-1) * c2)
+            l = torch.exp2(m - m_next) * l + torch.exp2(sc * c2 - m_next[..., None]).sum(-1)
+            m = m_next
+        inv = 1 / l
+        acc = torch.zeros((b, h, tile_q, d), device=q.device)
+        for k0 in starts:  # the second: bf16(p / l) V
+            p = torch.exp2(scores(k0) * c2 - m[..., None]) * inv[..., None]
+            acc += torch.einsum("bhst,bthd->bhsd", p.to(v.dtype).float(),
+                                vp[:, k0:k0 + window].float())
+        o[:, q0:q0 + tile_q] = acc.transpose(1, 2)
+    return o[:, :s].to(q.dtype)
 
 
 def call_current(q, k, v):

@@ -50,6 +50,13 @@ STAT_L_RTOL = 1e-3  # K4a's denominator, relative
 WALK_REL_L2 = 1e-3
 WALK_REL_MAX = 1e-2
 DI_REL_TOL = 1e-5  # the di preamble against its torch line, of the largest |di|
+# S2 against its walk (`one_sweep_schedule`) on the same bf16 inputs: both
+# round p / l and o to bf16, so what differs is ex2.approx against exp2 and
+# the order of the fp32 sums, which move a p / l or an o across a bf16
+# rounding boundary now and then. One bf16 step of o is at most 2^-7 of |o|;
+# a flipped p / l moves o by at most 2^-8 of that p's share of the row's
+# values, less than one step of the largest |o|: two steps bound both
+S2_WALK_REL = 2.0 ** -6  # of the largest |o|
 
 pytestmark = pytest.mark.cuda
 
@@ -789,18 +796,29 @@ def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
 
 
 @pytest.mark.parametrize("name", ["b", "c"])
-@pytest.mark.parametrize("b,s,h,bh", [(32, 257, 16, 8), (2, 257, 16, 16), (3, 100, 4, 1),
-                                      (1, 17, 2, 2), (1, 832, 2, 1)])
+@pytest.mark.parametrize("b,s,h,bh", [
+    (32, 257, 16, 1), (32, 257, 16, 2), (32, 257, 16, 4), (32, 257, 16, 8),
+    (32, 257, 16, 16),  # the bench's shape at each bh of its sweep: one window, 15 keys masked
+    (2, 257, 16, 16), (3, 100, 4, 1), (1, 17, 2, 2),
+    (2, 300, 4, 2),  # two sweeps; the second window holds 28 keys
+    (1, 832, 2, 1),  # the gate: four windows, the last with 16 keys
+])
 def test_bench_vit_variant_matches_plain(gen, name, b, s, h, bh):
     q, k, v = (_randn((b, s, h, 64), gen) for _ in range(3))
     counter = bench_vit.COUNTERS[f"S2-{name}"]
     before = counter.count
-    got = bench_vit.call_b(q, k, v, bh=bh) if name == "b" else bench_vit.call_c(q, k, v)
+    call = (lambda: bench_vit.call_b(q, k, v, bh=bh)) if name == "b" else (
+        lambda: bench_vit.call_c(q, k, v))
+    got = call()
     torch.cuda.synchronize()
     assert counter.count == before + 1
     want = bench_vit.call_plain(q.float(), k.float(), v.float())
     assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64) and got.is_contiguous()
     assert (got.float() - want).abs().max().item() <= bench_vit.TOL
+    walk = bench_vit.one_sweep_schedule(q, k, v)  # bf16 in: p / l rounded as the kernel does
+    walk_err = (got.float() - walk.float()).abs().max().item()
+    assert walk_err <= S2_WALK_REL * walk.float().abs().max().item()
+    assert torch.equal(call(), got)  # no atomics: the same bits on every call
 
 
 def test_bench_vit_reads_strided_inputs_and_refuses_the_rest(gen):
@@ -813,7 +831,7 @@ def test_bench_vit_reads_strided_inputs_and_refuses_the_rest(gen):
         with pytest.raises(ValueError):  # head_dim 128
             x = _randn((1, 64, 2, 128), gen)
             fn(x, x, x)
-        with pytest.raises(ValueError):  # the score rows of S = 833 do not fit an SM
+        with pytest.raises(ValueError):  # S = 833 is past the bench's gate
             x = _randn((1, 833, 2, 64), gen)
             fn(x, x, x)
         with pytest.raises(ValueError):  # fp32
