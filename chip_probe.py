@@ -13,6 +13,7 @@
     python3 chip_probe.py k3 [--root DIR] [--ms 1 2 4 8 16 768] [--ttft]
     python3 chip_probe.py k5k2 [--root DIR] [--chunks 32 128]
     python3 chip_probe.py s1s2 [--root DIR]
+    python3 chip_probe.py s1-ring
     python3 chip_probe.py profile-train
 
 Each command prints the card's name and power limit first, then its lines.
@@ -114,10 +115,21 @@ another checkout, so two trees can be timed in one session on one card.
   1, 2, 4, 8, 16, S2-c's call and its kernel alone, K5 and
   `scaled_dot_product_attention` on the same inputs, beside the bound), the
   same at [32, 300, 16, 64] and [8, 832, 16, 64] (two sweeps; S2-b at bh 8),
-  then the smoke's phases for the kernel benches' eight variants (the int4
+  the int4 bench's S1 at K 4096, N 11008, M 1 and 8 (v3 with both masks,
+  v4, v2, v5, dma, vpu at M 1, K3 as the bench's v0 row, and
+  `torch._weight_int4pack_mm` on the same weights, beside the bound; tiles
+  rotated out of the L2), then the smoke's phases for the kernel benches' eight variants (the int4
   ones and the attention ones against their plain versions); exits nonzero
   where one fails, after running both. With `--root` on a parent checkout
   and once without, both trees are read in one call on one card.
+- s1-ring: what sets the pace of the int4 bench's ring body (S1-v3, S1-v4)
+  at K 4096, N 11008, M 1, tiles rotated out of the L2: two reference
+  streams over the same bytes in one launch (16-byte loads; one thread's
+  bulk copies into rings of 2, 4 and 8 stages of 16 KB, 132 items) and an
+  empty launch; then v3 and v4 as built and rebuilt from edited copies of
+  `bench_int4_kernel.cu` (consumers that only load, no merge, both, ring
+  depths 2, 3, 6, 8, M 1 on the M > 1 kernels), each also on the same
+  bytes cut as 132 tiles of 344 rows (one slice a tile, nothing to merge).
 - profile-train: `torch.profiler` over the second optimizer step of the
   smoke's `train()` run (two micro-steps); device time by kernel class and
   the kernels that take the most.
@@ -706,6 +718,48 @@ def cmd_k5k2(smoke, args):
 S2_SHAPES = ((32, 257), (32, 300), (8, 832))
 
 
+def _s1_times(smoke, args):
+    """S1's variants and K3 (the bench's v0 row) at the bench's shape, M 1 and
+    8, each call's tiles rotated out of the L2, beside the bound and the
+    library's product on the same weights (also rotated)."""
+    from teochat_torch.bench import _timing
+    from teochat_torch.bench import int4_kernel as bench_int4
+    from teochat_torch.ops import int4_matmul as int4_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    k, n = bench_int4.K, bench_int4.N
+    w_q = torch.randint(-8, 8, (k, n), generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    tiles, tiles_i8 = int4_mod.pack_int4_tiled(w_q), bench_int4.pack_int4_i8(w_q)
+    tiles_i4 = bench_int4.pack_int4_native(w_q)
+    scale_pad = torch.nn.functional.pad(scale, (0, tiles.shape[0] * tiles.shape[2] - n))
+    prepare, library = smoke.int4pack_library(tiles, scale, n,
+                                              copies=-(-160 * 2**20 // tiles.numel()))
+    for m in (1, 8):
+        x = smoke._randn((m, k), gen)
+        ops = bench_int4.byte_reuse_operands(x, k // 2)
+        bound, by = smoke.bound_ms(tiles.numel() + 2 * m * k + 2 * m * n + 4 * n, 2 * m * k * n)
+        rows = [
+            ("S1-v3", tiles_i8, lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, operands=ops)),
+            ("S1-v3 mask16", tiles_i8, lambda t: bench_int4.v3_matmul(
+                x, t, scale, n_out=n, mask_dtype=torch.int16, operands=ops)),
+            ("S1-v4", tiles_i4, lambda t: bench_int4.v4_matmul(x, t, scale, n_out=n)),
+            ("S1-v2", tiles, lambda t: bench_int4.v2_matmul(x, t, scale, n_out=n, operands=ops)),
+            ("S1-v5", tiles_i8, lambda t: bench_int4.v5_matmul(x, t, scale, n_out=n, operands=ops)),
+            ("S1-dma", tiles, lambda t: bench_int4.dma_only_matmul(x, t, n_out=n)),
+            ("K3 (v0)", tiles, lambda t: int4_mod.int4_matmul_tiled(x, t, scale_pad, n_out=n)),
+        ]
+        if m == 1:
+            rows.append(("S1-vpu", tiles, lambda t: bench_int4.vpu_only(t)[0]))
+        xp = prepare(x)
+        rows.append(("torch._weight_int4pack_mm", None, lambda _: library(xp)))
+        for label, t0, fn in rows:
+            nxt = _timing.rotation(t0) if t0 is not None else (lambda: None)
+            ms = smoke.time_ms(lambda: fn(nxt()))
+            print(f"[s1s2] root={args.root} S1 K={k} N={n} M={m} {label}: {ms:.4f} ms "
+                  f"({ms / bound:.2f}x the bound, {bound:.4f} ms, {by})", flush=True)
+
+
 def cmd_s1s2(smoke, args):
     from teochat_torch.bench import vit_attention as bench_vit
     from teochat_torch.ops import vit_attention as vit_mod
@@ -727,7 +781,248 @@ def cmd_s1s2(smoke, args):
             ms = smoke.time_ms(fn)
             print(f"[s1s2] root={args.root} [{b},{s},{h},{d}] {label}: {ms:.4f} ms "
                   f"({ms / bound:.2f}x the bound, {bound:.4f} ms, {by})", flush=True)
+    _s1_times(smoke, args)
     _run_phases(smoke, (("s2", smoke.phase_bench_vit), ("s1", smoke.phase_bench_int4)))
+
+
+# ------------------------------------------------------------------ s1-ring
+
+# Reference streams over the same bytes in one launch: 16-byte loads in a
+# grid-stride loop, and one thread's 1-D bulk copies into a ring of `stages`
+# slots (one item a block), each consumed by a load and an xor.
+_STREAM_SRC = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+#include "hopper_async.cuh"
+using namespace teochat;
+
+__global__ void __launch_bounds__(256) ldg_stream(const uint4* __restrict__ p, long long n16,
+                                                  uint32_t* out) {
+  uint32_t acc = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + stride < n16; i += 2 * stride) {
+    const uint4 a = __ldcs(p + i), b = __ldcs(p + i + stride);
+    acc ^= a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w;
+  }
+  for (; i < n16; i += stride) { const uint4 a = p[i]; acc ^= a.x ^ a.y ^ a.z ^ a.w; }
+  if (acc == 0x12345678u) out[0] = acc;
+}
+
+__global__ void __launch_bounds__(288, 1) bulk_stream(const uint8_t* base, long long item_bytes,
+                                                      int stage_bytes, int stages, uint32_t* out) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[64];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_st = (int)(item_bytes / stage_bytes);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[32 + s]), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  uint32_t acc = 0;
+  if (warp == 8) {
+    for (int s = 0; lane == 0 && s < n_st; ++s) {
+      const int st = s % stages;
+      mbar_wait(smem_u32(&bars[32 + st]), ((s / stages) & 1) ^ 1);
+      mbar_arrive_expect_tx(smem_u32(&bars[st]), stage_bytes);
+      bulk_load_1d(smem_u32(smem + st * stage_bytes),
+                   base + blockIdx.x * item_bytes + (long long)s * stage_bytes, stage_bytes,
+                   smem_u32(&bars[st]));
+    }
+  } else {
+    for (int s = 0; s < n_st; ++s) {
+      const int st = s % stages;
+      mbar_wait(smem_u32(&bars[st]), (s / stages) & 1);
+      for (int o = tid * 16; o < stage_bytes; o += 256 * 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(smem + st * stage_bytes + o);
+        acc ^= v.x ^ v.y ^ v.z ^ v.w;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&bars[32 + st]));
+    }
+  }
+  if (acc == 0x12345678u) out[0] = acc;
+}
+
+extern "C" int run_ldg(const void* p, long long n16, int blocks, void* out, void* stream) {
+  ldg_stream<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>((const uint4*)p, n16,
+                                                                     (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int run_bulk(const void* p, int items, long long item_bytes, int stage_bytes,
+                        int stages, void* out, void* stream) {
+  const int smem = stages * stage_bytes;
+  cudaError_t e =
+      cudaFuncSetAttribute(bulk_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return (int)e;
+  bulk_stream<<<items, 288, smem, static_cast<cudaStream_t>(stream)>>>(
+      (const uint8_t*)p, item_bytes, stage_bytes, stages, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+__global__ void empty_kernel(int x, uint32_t* out) { if (x == 12345) out[0] = 1; }
+extern "C" int run_empty(int blocks, void* out, void* stream) {
+  empty_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(0, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _nvcc_shared(tag, sources, csrc):
+    """Build `sources` ({file name: text}) beside the tree's headers into a
+    shared library under the build directory; returns its path or None."""
+    import shutil
+    import subprocess
+
+    from teochat_torch.ops import _build
+
+    out = _build.BUILD_DIR / "probe" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    for name, text in sources.items():
+        (out / name).write_text(text)
+    so = out / "lib.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+                           *(str(out / name) for name in sources)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        print(f"[s1-ring] {tag}: build failed\n{(proc.stdout + proc.stderr)[-2000:]}", flush=True)
+        return None
+    return so
+
+
+class _BenchLibrary:
+    """The S1 entries of one build of bench_int4_kernel.cu, as `_build`'s library."""
+
+    def __init__(self, path):
+        import ctypes
+
+        from teochat_torch.ops import _build
+
+        self.lib = ctypes.CDLL(str(path))
+        for name, argtypes in _build._SIGNATURES.items():
+            if name.startswith("teochat_bench_int4_"):
+                fn = getattr(self.lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+    def call(self, name, *args):
+        err = getattr(self.lib, name)(*args)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# Edits of the ring body for the variants (text of bench_int4_kernel.cu as of
+# its first ring design; a variant whose text is gone is skipped)
+_RING_FMA_START = "        const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};"
+_RING_FMA_END = "    __syncwarp();\n    if (lane == 0) mbar_arrive(smem_u32(&sh.bars[RING_STAGES + st]));"
+_RING_NULL = ("        acc[0][0] += __uint_as_float((wv.x ^ wv.y ^ wv.z ^ wv.w) & 0x3F7FFFFFu)"
+              " + fa[0];\n      }\n    }\n")
+_RING_MERGE = "  if (!split) return;\n"
+_RING_STAGES = "constexpr int RING_STAGES = 4;"
+_RING_M1 = "    const int m_tile_ = p.M <= 1 ? 1 : RING_M_TILE;"
+
+
+def _ring_variants(source):
+    """(name, edited source) of the ring body's variants that apply to `source`."""
+    out = []
+    if _RING_FMA_START in source and _RING_FMA_END in source:
+        a = source.index(_RING_FMA_START)
+        null = source[:a] + _RING_NULL + source[source.index(_RING_FMA_END, a):]
+        out.append(("consumers do one load and an xor a row", null))
+        if _RING_MERGE in null:
+            out.append(("consumers do one load and an xor a row, no merge",
+                        null.replace(_RING_MERGE, "  return;\n")))
+    if _RING_MERGE in source:
+        out.append(("no merge (partials written, the launch ends)",
+                    source.replace(_RING_MERGE, "  return;\n")))
+    if _RING_M1 in source:
+        out.append(("M 1 on the M > 1 kernels (v4 on mma.sync), 8 warps",
+                    source.replace(_RING_M1, "    const int m_tile_ = RING_M_TILE;")))
+    if _RING_STAGES in source:
+        out += [(f"ring of {n} stages", source.replace(_RING_STAGES,
+                                                       f"constexpr int RING_STAGES = {n};"))
+                for n in (2, 3, 6, 8)]
+    return out
+
+
+def cmd_s1_ring(smoke, args):
+    import ctypes
+
+    from teochat_torch.bench import _timing
+    from teochat_torch.bench import int4_kernel as bench_int4
+    from teochat_torch.ops import _build
+
+    csrc = Path(_build.CSRC)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    k, n = bench_int4.K, bench_int4.N
+    w_q = torch.randint(-8, 8, (k, n), generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    i8, i4 = bench_int4.pack_int4_i8(w_q), bench_int4.pack_int4_native(w_q)
+    x = smoke._randn((1, k), gen)
+    ops = bench_int4.byte_reuse_operands(x, k // 2)
+    # the same bytes as 132 tiles of 344 rows: one item a tile, nothing to merge
+    w_flat = torch.randint(-8, 8, (688, 132 * 512), generator=gen, device="cuda").to(torch.int8)
+    i8f, i4f = bench_int4.pack_int4_i8(w_flat), bench_int4.pack_int4_native(w_flat)
+    scf = torch.rand((132 * 512,), generator=gen, device="cuda") * 0.01
+    xf = smoke._randn((1, 688), gen)
+    opsf = bench_int4.byte_reuse_operands(xf, 344)
+    nbytes = i8.numel()
+
+    def time_rows(label):
+        cases = [("v3", i8, lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, operands=ops)),
+                 ("v4", i4, lambda t: bench_int4.v4_matmul(x, t, scale, n_out=n)),
+                 ("v3, 132 tiles of 344 rows, one slice", i8f,
+                  lambda t: bench_int4.v3_matmul(xf, t, scf, n_out=132 * 512, operands=opsf)),
+                 ("v4, 132 tiles of 344 rows, one slice", i4f,
+                  lambda t: bench_int4.v4_matmul(xf, t, scf, n_out=132 * 512))]
+        for name, t0, fn in cases:
+            nxt = _timing.rotation(t0)
+            print(f"[s1-ring] root={args.root} {label}: {name} M=1: "
+                  f"{smoke.time_ms(lambda: fn(nxt())):.4f} ms", flush=True)
+
+    # the streams: the floor of one launch that reads the bytes
+    so = _nvcc_shared("streams", {"streams.cu": _STREAM_SRC}, csrc)
+    if so is not None:
+        lib = ctypes.CDLL(str(so))
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.run_ldg.argtypes = [P, LL, I, P, P]
+        lib.run_bulk.argtypes = [P, I, LL, I, I, P, P]
+        lib.run_empty.argtypes = [I, P, P]
+        out = torch.zeros(4, dtype=torch.int32, device="cuda")
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+        nxt = _timing.rotation(i8.view(-1))
+        ms = smoke.time_ms(lambda: lib.run_ldg(nxt().data_ptr(), nbytes // 16, 132 * 4,
+                                               out.data_ptr(), stream()))
+        print(f"[s1-ring] stream, 16-byte loads, {nbytes} bytes: {ms:.4f} ms", flush=True)
+        for stages in (2, 4, 8):
+            item = nbytes // 132 // 16384 * 16384  # whole 16 KB stages, 132 items
+            ms = smoke.time_ms(lambda: lib.run_bulk(nxt().data_ptr(), 132, item, 16384, stages,
+                                                    out.data_ptr(), stream()))
+            print(f"[s1-ring] stream, bulk copies into {stages} x 16 KB, {132 * item} bytes: "
+                  f"{ms:.4f} ms", flush=True)
+        ms = smoke.time_ms(lambda: lib.run_empty(132, out.data_ptr(), stream()))
+        print(f"[s1-ring] an empty launch: {ms:.4f} ms", flush=True)
+
+    # the ring body as built, then each variant built from an edited copy
+    time_rows("as built")
+    tree = _build.library()
+    variants = _ring_variants((csrc / "bench_int4_kernel.cu").read_text())
+    for i, (label, source) in enumerate(variants):
+        # a directory of its own: ctypes loads a path once a process
+        so = _nvcc_shared(f"ring_{i}", {"bench_int4_kernel.cu": source}, csrc)
+        if so is None:
+            continue
+        _build._library = _BenchLibrary(so)
+        try:
+            time_rows(label)
+        finally:
+            _build._library = tree
 
 
 # ------------------------------------------------------------------ profile-train
@@ -928,7 +1223,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k3",
-                 "k5k2", "s1s2", "profile-train", "train-step", "int8-proj"):
+                 "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
@@ -964,7 +1259,7 @@ def main():
     {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
      "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
      "k5k2": cmd_k5k2,
-     "s1s2": cmd_s1s2,
+     "s1s2": cmd_s1s2, "s1-ring": cmd_s1_ring,
      "profile-train": cmd_profile_train, "train-step": cmd_train_step,
      "int8-proj": cmd_int8_proj}[args.cmd](smoke, args)
 

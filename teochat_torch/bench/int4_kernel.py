@@ -9,18 +9,22 @@ representative decode projection (gate: [1, 4096] x [4096, 11008]):
             xb = x_hi / 16, xa = x_lo - xb; the high nibble is never extracted
   v3_i8     the same on int8 bytes b = (L + 8) + 16 H (mask at 32 or 16 bits)
   v5_words  v3 with the low nibbles of four bytes masked by one word mask
-  v4_native two signed nibbles of consecutive K rows a byte: sign-extend,
-            convert, multiply
+  v4_native two signed nibbles of consecutive K rows a byte, decoded under
+            the magic exponent 2^23 (no int-to-float conversion)
   vpu_only  unpack only, no product
   dma_only  no unpack, one product against the raw bytes
 
 Each variant is a CUDA kernel of csrc/bench_int4_kernel.cu with its plain
 PyTorch version beside it (`*_plain`, taken by CPU tensors) and its launch
 counter. A timed launch finds its tiles out of the L2 (copies are rotated).
-The JAX script's `block_k2` is a Pallas grid parameter; the sweep here walks
-the tile width (the data's format) and, for v3, the CUDA kernel's own split of
-a block between columns and K (`band` = 32, 64 or 128 columns a block, i.e.
-32, 16 or 8 row groups across K).
+v3 and v4 run on the ring body: items of (tile, K slice), each slice streamed
+by bulk copies into a shared-memory ring, fp32 FMAs at M = 1 (v4 at M > 1 on
+mma.sync), the slices' fp32 partials merged in the launch by the tile's last
+block; `ring_k_slices` picks the slice count from the card's SM count and
+`ring_schedule` is the walk in plain PyTorch, for the CPU tests. The JAX
+script's `block_k2` is a Pallas grid parameter; the sweep here walks the tile
+width (the data's format) and, for v3, the ring's `k_slices` (the K slices of
+a tile: items = tiles x k_slices).
 
 Run: python3 -m teochat_torch.bench.int4_kernel [--quick | --stage2 | --sass]
 """
@@ -41,7 +45,7 @@ import torch
 from teochat_torch.bench import _timing
 from teochat_torch.ops import _build
 from teochat_torch.ops import int4_matmul as int4_mod
-from teochat_torch.ops.int4_matmul import TILE_BN, untile
+from teochat_torch.ops.int4_matmul import H100_SXM_SMS, TILE_BN, untile
 from teochat_torch.ops.quant import quantized_proj
 from teochat_torch.utils import resolve_device
 
@@ -53,6 +57,18 @@ M = 1
 # the low half: ~1e-3 relative L2, a few times that at the worst element)
 EXACT_REL_MAX = 4e-3
 BYTE_REUSE_REL_MAX = 1e-2
+
+# The ring body of S1-v3 and S1-v4 (csrc/bench_int4_kernel.cu: RING_*)
+RING_STAGES = 4  # stages of the shared-memory ring
+RING_STAGE_BYTES = 16384  # a stage: the whole groups of RING_ALIGN rows it holds (32 at tw 512)
+RING_WARPS = 8  # consumer warps at M > 1; one more warp issues the bulk copies
+RING_WARPS_M1 = 16  # consumer warps at M = 1
+RING_ALIGN = 8  # a K slice's byte rows are whole groups of this
+RING_X_BYTES = 80 * 1024  # the most shared memory an item's slice of x takes
+RING_M_TILE = 8  # rows of x an item takes where M > 1
+RING_MAX_TW = 2048  # widest tile the ring takes
+# the longest slice whose x fits at RING_M_TILE rows (4 bytes of x a byte row a row)
+RING_MAX_SLICE_ROWS = RING_X_BYTES // (4 * RING_M_TILE)
 
 LAUNCHES_V2 = _build.LaunchCounter("bench_int4_v2")
 LAUNCHES_V3 = _build.LaunchCounter("bench_int4_v3")
@@ -142,6 +158,117 @@ def dma_only_matmul_plain(x, packed_tiles, *, n_out):
     return (x[:, : p.shape[0]].float() @ p)[:, :n_out].to(x.dtype)
 
 
+# ----------------------------------------------------------- the ring body
+
+def ring_stage_rows(tw: int) -> int:
+    """The byte rows of a stage of a tile `tw` bytes wide: the whole groups
+    of RING_ALIGN rows that RING_STAGE_BYTES holds."""
+    return RING_STAGE_BYTES // tw // RING_ALIGN * RING_ALIGN
+
+
+def ring_slice_rows(k2: int, k_slices: int) -> int:
+    """The byte rows of each K slice but the last, as the ring kernels cut
+    them: k2 / k_slices rounded up to whole groups of RING_ALIGN."""
+    per_slice = -(-k2 // k_slices)
+    return -(-per_slice // RING_ALIGN) * RING_ALIGN
+
+
+def _exact_k_slices(k2: int, k_slices: int) -> int:
+    """The largest count at most `k_slices` that the kernels' cut gives
+    exactly (no slice left without rows)."""
+    while -(-k2 // ring_slice_rows(k2, k_slices)) != k_slices:
+        k_slices -= 1
+    return k_slices
+
+
+def ring_k_slices(n_tiles: int, k2: int, sms: int) -> int:
+    """How many K slices the ring kernels cut each tile's k2 byte rows into,
+    on a card of `sms` SMs: as many as fill whole waves of one item an SM
+    (22 tiles x 6 = 132 at tw 512, 11 x 12 at tw 1024, 6 x 22 at tw 2048),
+    one where the tiles alone fill the card; at least enough that a slice of
+    x fits beside the ring (RING_MAX_SLICE_ROWS), slices of RING_ALIGN rows
+    at most; then the largest count at most that which the cut gives exactly.
+    M does not enter: rows of x past RING_M_TILE are more items."""
+    k_slices = max(1, min(sms // n_tiles, k2 // RING_ALIGN))
+    k_slices = max(k_slices, -(-k2 // RING_MAX_SLICE_ROWS))
+    return _exact_k_slices(k2, k_slices)
+
+
+def _ring_m_tile(m: int) -> int:
+    return 1 if m == 1 else RING_M_TILE
+
+
+def _check_k_slices(name: str, k2: int, k_slices: int, m: int) -> None:
+    """Raise unless the ring kernels take `k_slices` for k2 byte rows at M = m."""
+    rows = ring_slice_rows(k2, k_slices) if k_slices >= 1 else 0
+    if (k_slices < 1 or -(-k2 // rows) != k_slices
+            or 4 * rows * _ring_m_tile(m) > RING_X_BYTES):
+        raise ValueError(f"{name}: k_slices {k_slices} does not cut {k2} byte rows into "
+                         f"slices that all have rows and whose x fits at M {m}")
+
+
+def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, n_out: int,
+                  native: bool = False, k_slices: int | None = None, sms: int = H100_SXM_SMS,
+                  operands=None) -> torch.Tensor:
+    """The ring kernels' walk, in plain PyTorch: S1-v3 on int8 tiles (the
+    byte-reuse identity on `operands` = (xa, xb), made from x unless given)
+    or, with `native`, S1-v4 on pack_int4_native's bytes.
+
+    Items of (tile, K slice) for each chunk of RING_M_TILE rows of x (one
+    row at M = 1): K cut into `k_slices` slices of `ring_slice_rows` byte
+    rows (the last one ragged), `ring_k_slices`' count for a card of `sms`
+    SMs unless given; a slice walked in stages of `ring_stage_rows` rows (a
+    ragged last stage). v4 decodes L and 16 H and takes x's odd K row / 16
+    (at M > 1 the kernel decodes L and H to bf16 for mma.sync, which sums
+    the same exact products); v3 takes (b & 15) against xa and b against
+    xb. Each item sums into an fp32 partial (v3: and sums its slice of
+    xa + xb); a tile's partials are summed in slice order, then v3's
+    correction, 8 times the items' sums in slice order, is taken once, the
+    scale applied and the result rounded once to x's dtype. Used by tests
+    only."""
+    n_tiles, k2, tw = tiles.shape
+    m = x.shape[0]
+    k_slices = ring_k_slices(n_tiles, k2, sms) if k_slices is None else k_slices
+    _check_k_slices("ring_schedule", k2, k_slices, m)
+    rows, stage_rows = ring_slice_rows(k2, k_slices), ring_stage_rows(tw)
+    if native:
+        xf = x.float()
+        a, b = xf[:, 0::2], xf[:, 1::2] / 16.0  # the odd rows meet 16 H
+        s = tiles.view(torch.uint8).to(torch.int32) ^ 0x88  # every nibble + 8
+        wa, wb = ((s & 0xF) - 8).float(), ((s & 0xF0) - 128).float()
+        corr = torch.zeros(m, device=x.device)
+    else:
+        xa, xb = operands or byte_reuse_operands(x, k2)
+        a, b = xa.float(), xb.float()
+        byte = tiles.view(torch.int8).to(torch.int32)
+        wa, wb = (byte & 0xF).float(), byte.float()
+        corr = torch.zeros(m, device=x.device)
+        for r0 in range(0, k2, rows):  # each item's sum of xa + xb, in slice order
+            corr = corr + (a[:, r0:r0 + rows] + b[:, r0:r0 + rows]).sum(1)
+        corr = 8.0 * corr
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    m_tile = _ring_m_tile(m)
+    for m0 in range(0, m, m_tile):
+        rm = slice(m0, m0 + m_tile)
+        for t in range(n_tiles):
+            n0, n1 = t * tw, min(n_out, (t + 1) * tw)
+            if n0 >= n_out:
+                break
+            partials = []
+            for r0 in range(0, k2, rows):  # an item
+                acc = torch.zeros((a[rm].shape[0], tw), dtype=torch.float32, device=x.device)
+                for s0 in range(r0, min(k2, r0 + rows), stage_rows):  # its stages
+                    rs = slice(s0, min(k2, r0 + rows, s0 + stage_rows))
+                    acc = acc + a[rm, rs] @ wa[t, rs] + b[rm, rs] @ wb[t, rs]
+                partials.append(acc)
+            total = partials[0]
+            for part in partials[1:]:  # slice order
+                total = total + part
+            y = (total[:, : n1 - n0] - corr[rm, None]) * scale[n0:n1].float()
+            out[rm, n0:n1] = y.to(x.dtype)
+    return out
+
+
 # ------------------------------------------------------------ the wrappers
 
 def _on_card(name: str, x: torch.Tensor) -> bool:
@@ -152,14 +279,14 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def _check_tiles(name, tiles, dtype, band=0):
+def _check_tiles(name, tiles, dtype):
     if tiles.dtype != dtype or tiles.ndim != 3 or not tiles.is_contiguous():
         raise ValueError(f"{name}: tiles must be contiguous [n_tiles, K/2, bn] {dtype}, got "
                          f"{tuple(tiles.shape)} {tiles.dtype}")
     n_tiles, k2, bn = tiles.shape
-    if bn % 128 or k2 % 8 or band not in (0, 32, 64, 128):
-        raise ValueError(f"{name}: tile width {bn} (need a multiple of 128), {k2} byte rows "
-                         f"(a multiple of 8) or band {band} not supported")
+    if bn % 128 or k2 % 8:
+        raise ValueError(f"{name}: tile width {bn} (need a multiple of 128) or {k2} byte rows "
+                         "(a multiple of 8) not supported")
     return n_tiles, k2, bn
 
 
@@ -175,19 +302,47 @@ def _check_product(name, x, tiles, scale, n_out):
         raise ValueError(f"{name}: x, tiles and scale on different devices")
 
 
-def _byte_reuse_cuda(entry, counter, x, tiles, dtype, scale, n_out, band, operands, extra=()):
-    n_tiles, k2, bn = _check_tiles(entry, tiles, dtype, band)
-    _check_product(entry, x, tiles, scale, n_out)
+def _byte_reuse_operands_cuda(entry, x, k2, operands):
     xa, xb = operands or byte_reuse_operands(x, k2)
     for name, t in (("xa", xa), ("xb", xb)):
         _build.check_bf16_operand(name, t, 2)
         if t.shape != (x.shape[0], k2) or not t.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous [M, K/2]")
+    return xa, xb
+
+
+def _byte_reuse_cuda(entry, counter, x, tiles, dtype, scale, n_out, operands):
+    """v2 and v5 on the first body, the band left to the kernel."""
+    n_tiles, k2, bn = _check_tiles(entry, tiles, dtype)
+    _check_product(entry, x, tiles, scale, n_out)
+    xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
     _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), tiles.data_ptr(), scale.data_ptr(),
-                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, band, *extra)
+                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, 0)
     counter.count += 1
     return out
+
+
+def _ring_split(entry, x, tiles, k_slices):
+    """The ring entries' last arguments: the K slices (0: `ring_k_slices` for
+    the card x lies on), the items' fp32 partials (a fresh buffer each call,
+    of a size fixed by the shape) and the tiles' zero tickets (a kept
+    buffer); (1, 0, 0) where K is not split. Also returns the partials'
+    tensor, which the caller holds until the launch is enqueued."""
+    n_tiles, k2, bn = tiles.shape
+    m = x.shape[0]
+    if bn > RING_MAX_TW or tiles.data_ptr() % 16:
+        raise ValueError(f"{entry}: tiles {bn} wide (at most {RING_MAX_TW}) or not 16-byte "
+                         "aligned")
+    if k_slices == 0:
+        k_slices = ring_k_slices(n_tiles, k2, _build.sm_count(x.device))
+    _check_k_slices(entry, k2, k_slices, m)
+    if k_slices == 1:
+        return (1, 0, 0), None
+    # the items' partials [n_tiles, k_slices, M, bn], then v3's row sums [n_tiles, k_slices, M]
+    part = torch.empty(n_tiles * k_slices * m * (bn + 1), dtype=torch.float32, device=x.device)
+    tickets = _build.tickets_for(x.device, -(-m // _ring_m_tile(m)) * n_tiles)
+    return (k_slices, part.data_ptr(), tickets.data_ptr()), part
 
 
 def v2_matmul(x, packed_tiles, scale, *, n_out, operands=None):
@@ -197,19 +352,29 @@ def v2_matmul(x, packed_tiles, scale, *, n_out, operands=None):
     if not _on_card("v2_matmul", x):
         return v2_matmul_plain(x, packed_tiles, scale, n_out=n_out, operands=operands)
     return _byte_reuse_cuda("teochat_bench_int4_v2", LAUNCHES_V2, x, packed_tiles, torch.uint8,
-                            scale, n_out, 0, operands)
+                            scale, n_out, operands)
 
 
-def v3_matmul(x, packed_i8, scale, *, n_out, band=0, mask_dtype=torch.int32, operands=None):
-    """S1-v3: the same identity on int8 bytes; mask_dtype int32 or int16. `band`
-    (the tile sweep) fixes the columns a block owns: 0 lets the kernel choose."""
+def v3_matmul(x, packed_i8, scale, *, n_out, k_slices=0, mask_dtype=torch.int32, operands=None):
+    """S1-v3: the same identity on int8 bytes, on the ring body; mask_dtype int32
+    or int16. `k_slices` (the sweep) fixes the K slices of a tile: 0 takes
+    `ring_k_slices` for the card."""
     if mask_dtype not in (torch.int32, torch.int16):
         raise ValueError(f"v3_matmul: mask_dtype {mask_dtype}")
     if not _on_card("v3_matmul", x):
         return v3_matmul_plain(x, packed_i8, scale, n_out=n_out, mask_dtype=mask_dtype,
                                operands=operands)
-    return _byte_reuse_cuda("teochat_bench_int4_v3", LAUNCHES_V3, x, packed_i8, torch.int8,
-                            scale, n_out, band, operands, (int(mask_dtype == torch.int16),))
+    entry = "teochat_bench_int4_v3"
+    n_tiles, k2, bn = _check_tiles(entry, packed_i8, torch.int8)
+    _check_product(entry, x, packed_i8, scale, n_out)
+    xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
+    split, _part = _ring_split(entry, x, packed_i8, k_slices)
+    out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), packed_i8.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, split[0],
+                  int(mask_dtype == torch.int16), *split[1:])
+    LAUNCHES_V3.count += 1
+    return out
 
 
 def v5_matmul(x, packed_i8, scale, *, n_out, operands=None):
@@ -217,20 +382,23 @@ def v5_matmul(x, packed_i8, scale, *, n_out, operands=None):
     if not _on_card("v5_matmul", x):
         return v5_matmul_plain(x, packed_i8, scale, n_out=n_out, operands=operands)
     return _byte_reuse_cuda("teochat_bench_int4_v5", LAUNCHES_V5, x, packed_i8, torch.int8,
-                            scale, n_out, 0, operands)
+                            scale, n_out, operands)
 
 
-def v4_matmul(x, packed_i4, scale, *, n_out):
-    """S1-v4: natively stored signed nibbles (pack_int4_native), no byte trick."""
+def v4_matmul(x, packed_i4, scale, *, n_out, k_slices=0):
+    """S1-v4: natively stored signed nibbles (pack_int4_native), no byte trick, on
+    the ring body; `k_slices` as for v3_matmul."""
     if not _on_card("v4_matmul", x):
         return v4_matmul_plain(x, packed_i4, scale, n_out=n_out)
-    n_tiles, k2, bn = _check_tiles("v4_matmul", packed_i4, torch.uint8)
-    _check_product("v4_matmul", x, packed_i4, scale, n_out)
+    entry = "teochat_bench_int4_v4"
+    n_tiles, k2, bn = _check_tiles(entry, packed_i4, torch.uint8)
+    _check_product(entry, x, packed_i4, scale, n_out)
     if not x.is_contiguous():
         raise ValueError("v4_matmul: x must be contiguous")
+    split, _part = _ring_split(entry, x, packed_i4, k_slices)
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
-    _build.launch("teochat_bench_int4_v4", x, x.data_ptr(), packed_i4.data_ptr(),
-                  scale.data_ptr(), out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, 0)
+    _build.launch(entry, x, x.data_ptr(), packed_i4.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, *split)
     LAUNCHES_V4.count += 1
     return out
 
@@ -408,7 +576,8 @@ def main(quick: bool = False, device=None):
     if quick:
         return _finish("int4_kernel quick", smi, rows)
 
-    # tile sweep: fewer, wider tiles; for v3 also the block's own column / K split
+    # tile sweep: fewer, wider tiles; for v3 also the K slices of a tile (one,
+    # the rule's, twice the rule's: items = tiles x k_slices)
     ops = byte_reuse_operands(x, K // 2)
     for bn_tile in (512, 1024, 2048):
         tiles_b = int4_mod.pack_int4_tiled(w_q, bn_tile)
@@ -416,25 +585,31 @@ def main(quick: bool = False, device=None):
         sp = _pad_scale(scale_full, tiles_b.shape[0] * bn_tile)
         time_variant(rows, f"v0 bn={bn_tile}",
                      lambda t: int4_mod.int4_matmul_tiled(x, t, sp, n_out=N), tiles_b)
-        for band in (32, 64, 128):
-            cells = tiles_b.shape[0] * bn_tile // band
-            time_variant(rows, f"v3 bn={bn_tile} band={band} cells={cells}",
-                         lambda t: v3_matmul(x, t, sp, n_out=N, band=band, operands=ops),
+        n_tiles = tiles_b.shape[0]
+        rule = ring_k_slices(n_tiles, K // 2, _build.sm_count(device))
+        for k_slices in sorted({_exact_k_slices(K // 2, c) for c in (1, rule, 2 * rule)}):
+            time_variant(rows, f"v3 bn={bn_tile} k_slices={k_slices} items={n_tiles * k_slices}",
+                         lambda t: v3_matmul(x, t, sp, n_out=N, k_slices=k_slices, operands=ops),
                          tiles_i8_b)
     return _finish("int4_kernel", smi, rows)
 
 
 # ------------------------------------------------------------- what was compiled
 
+# a kernel's mangled name: the first body's <BN = 32, MT = 1>, the ring body's <MT = 1>
+SASS_KERNEL = re.compile(r"\S*bench_int4_(\w+?)_kernelILi(?:32ELi)?1E")
+
+
 def sass_counts():
-    """Instruction counts by opcode of each S1 kernel's BN = 32, MT = 1
-    instantiation, from `cuobjdump -sass` of the built library."""
+    """Instruction counts by opcode of each S1 kernel's M = 1 instantiation
+    (the first body's at BN = 32, keyed `v2` ..; the ring body's keyed
+    `v3_ring`, `v4_ring`), from `cuobjdump -sass` of the built library."""
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
     text = subprocess.run([tool, "-sass", str(_build.library().path)], capture_output=True,
                           text=True, check=True).stdout
     out = {}
     for block in text.split("Function : ")[1:]:
-        found = re.match(r"\S*bench_int4_(\w+?)_kernelILi32ELi1E", block)
+        found = SASS_KERNEL.match(block)
         if found:
             ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", block)
             out[found.group(1)] = dict(Counter(ops).most_common())

@@ -731,20 +731,25 @@ BENCH_INT4_CASES = {  # name -> (packer, kernel, plain, takes xa / xb)
 
 
 @pytest.mark.parametrize("name", list(BENCH_INT4_CASES))
-@pytest.mark.parametrize("k,n,m,bn,band", [
+@pytest.mark.parametrize("k,n,m,bn,k_slices", [
     (4096, 11008, 1, 512, 0),  # the bench's projection
     (4096, 11008, 8, 512, 0),
-    (256, 700, 3, 512, 128),  # ragged N; v3: a wide band
-    (512, 2048, 19, 1024, 64),  # three row chunks of 8, a wider tile
+    (256, 700, 3, 512, 3),  # ragged N; v3, v4: slices of 48, 48, 32 rows
+    (512, 2048, 19, 1024, 5),  # three row chunks of 8, a wider tile; 56 x 4 and 32 rows
+    (512, 700, 1, 128, 0),  # the narrowest tile: stages of 128 rows
+    (2048, 3000, 8, 1024, 0),  # stages of 16 rows
+    (1024, 5000, 2, 2048, 0),  # the widest tile: stages of 8 rows
+    (1040, 600, 19, 512, 7),  # k2 520: slices of 80 rows, the last 40; M 19
 ])
-def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, band):
+def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, k_slices):
     pack, kernel, plain, split = BENCH_INT4_CASES[name]
     w_q, scale, x = _bench_int4_inputs(gen, k, n, m)
     tiles = pack(w_q, bn)
     # xa and xb are rounded to bf16 once, for both sides
     kw = {"operands": bench_int4.byte_reuse_operands(x, k // 2)} if split else {}
-    band_kw = {"band": band} if name == "v3" else {}  # only the sweep's variant takes one
-    kw_kernel = {**kw, **band_kw}
+    ring = name in ("v3", "v4")  # the ring body takes the K slices of a tile
+    slices_kw = {"k_slices": k_slices} if ring else {}
+    kw_kernel = {**kw, **slices_kw}
     counter = bench_int4.COUNTERS[f"S1-{name}"]
     before = counter.count
     got = kernel(x, tiles, scale, n_out=n, **kw_kernel)
@@ -752,7 +757,12 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, band):
     assert counter.count == before + 1
     _assert_int4_close(got, plain(x.float(), tiles, scale, n_out=n, **kw))
     if split:  # and the wrapper's own split gives the same bytes
-        assert torch.equal(kernel(x, tiles, scale, n_out=n, **band_kw), got)
+        assert torch.equal(kernel(x, tiles, scale, n_out=n, **slices_kw), got)
+    if ring:  # and the walk on the same inputs (v3: the same rounded xa, xb)
+        walk = bench_int4.ring_schedule(
+            x.float(), tiles, scale, n_out=n, native=name == "v4", operands=kw.get("operands"),
+            k_slices=k_slices or None, sms=_build.sm_count(x.device))
+        _assert_int4_close(got, walk.float())
     if name == "v3":
         m16 = kernel(x, tiles, scale, n_out=n, mask_dtype=torch.int16, **kw_kernel)
         assert torch.equal(m16, got)  # the mask's width changes the code, not the result
@@ -760,6 +770,26 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, band):
     exact = x.float() @ w_q.float() * scale
     bound = bench_int4.BYTE_REUSE_REL_MAX if split else bench_int4.EXACT_REL_MAX
     assert (got.float() - exact).abs().max().item() <= bound * exact.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["v3", "v4"])
+@pytest.mark.parametrize("m", [1, 8])
+def test_bench_int4_ring_is_bit_equal_and_resets_its_tickets(gen, name, m):
+    """200 back-to-back launches at the bench's shape give the same bits, and
+    the tickets the tiles' last blocks take are zero again after them."""
+    k, n = bench_int4.K, bench_int4.N
+    pack, kernel, _, split = BENCH_INT4_CASES[name]
+    w_q, scale, x = _bench_int4_inputs(gen, k, n, m)
+    tiles = pack(w_q, 512)
+    kw = {"operands": bench_int4.byte_reuse_operands(x, k // 2)} if split else {}
+    first = kernel(x, tiles, scale, n_out=n, **kw)
+    outs = [kernel(x, tiles, scale, n_out=n, **kw) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    k_slices = bench_int4.ring_k_slices(tiles.shape[0], k // 2, _build.sm_count(x.device))
+    assert k_slices > 1
+    tickets = _build.tickets_for(x.device, -(-m // (1 if m == 1 else 8)) * tiles.shape[0])
+    assert int(tickets.abs().sum().item()) == 0
 
 
 @pytest.mark.parametrize("k,n,m", [(4096, 11008, 1), (4096, 11008, 8), (256, 700, 11)])
@@ -789,8 +819,8 @@ def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
         bench_int4.v5_matmul(x, i8, scale, n_out=2048)
     with pytest.raises(ValueError):  # x narrower than the weight's fan-in
         bench_int4.v4_matmul(x[:, :128], u8, scale, n_out=700)
-    with pytest.raises(ValueError):  # a band the kernel has no instance for
-        bench_int4.v3_matmul(x, i8, scale, n_out=700, band=16)
+    with pytest.raises(ValueError):  # K slices that leave slices without rows
+        bench_int4.v3_matmul(x, i8, scale, n_out=700, k_slices=15)
     with pytest.raises(ValueError):  # a tile width that is no multiple of 128
         bench_int4.vpu_only(int4_mod.pack_int4_tiled(w_q, 64))
 
