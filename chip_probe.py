@@ -118,15 +118,17 @@ another checkout, so two trees can be timed in one session on one card.
   the int4 bench's S1 at K 4096, N 11008, M 1 and 8 (v3 with both masks,
   v4, v2, v5, dma, vpu at M 1, K3 as the bench's v0 row, and
   `torch._weight_int4pack_mm` on the same weights, beside the bound; tiles
-  rotated out of the L2), then the smoke's phases for the kernel benches' eight variants (the int4
-  ones and the attention ones against their plain versions); exits nonzero
+  rotated out of the L2), the S1 kernels' SASS counts (`UBLKCP`, `HMMA`,
+  `I2F`, `I2FP`, `F2F`, ...; the ring kernels at M 1 and M 8), then the
+  smoke's phases for the kernel benches' eight variants (the int4 ones and
+  the attention ones against their plain versions); exits nonzero
   where one fails, after running both. With `--root` on a parent checkout
   and once without, both trees are read in one call on one card.
-- s1-ring: what sets the pace of the int4 bench's ring body (S1-v3, S1-v4)
+- s1-ring: what sets the pace of the int4 bench's ring body (S1-v3, v5, v4)
   at K 4096, N 11008, M 1, tiles rotated out of the L2: two reference
   streams over the same bytes in one launch (16-byte loads; one thread's
   bulk copies into rings of 2, 4 and 8 stages of 16 KB, 132 items) and an
-  empty launch; then v3 and v4 as built and rebuilt from edited copies of
+  empty launch; then v3, v5 and v4 as built and rebuilt from edited copies of
   `bench_int4_kernel.cu` (consumers that only load, no merge, both, ring
   depths 2, 3, 6, 8, M 1 on the M > 1 kernels), each also on the same
   bytes cut as 132 tiles of 344 rows (one slice a tile, nothing to merge).
@@ -782,7 +784,25 @@ def cmd_s1s2(smoke, args):
             print(f"[s1s2] root={args.root} [{b},{s},{h},{d}] {label}: {ms:.4f} ms "
                   f"({ms / bound:.2f}x the bound, {bound:.4f} ms, {by})", flush=True)
     _s1_times(smoke, args)
+    _s1_sass(args)
     _run_phases(smoke, (("s2", smoke.phase_bench_vit), ("s1", smoke.phase_bench_int4)))
+
+
+# what shows an S1 kernel's design in its SASS: the bulk copies, the tensor-core
+# products, the integer-to-float conversions, the decode's integer and float work
+S1_SASS_OPCODES = ("UBLKCP", "HMMA", "I2F", "I2FP", "F2F", "PRMT", "LOP3", "HADD2", "FADD",
+                   "FFMA", "LDS")
+
+
+def _s1_sass(args):
+    """Opcode counts of each S1 kernel the tree builds (`sass_counts`: the M 1
+    instantiations, and the ring body's M 8 ones where the tree keys them)."""
+    from teochat_torch.bench import int4_kernel as bench_int4
+
+    for name, ops in sorted(bench_int4.sass_counts().items()):
+        counts = ", ".join(f"{op} {ops.get(op, 0)}" for op in S1_SASS_OPCODES)
+        print(f"[s1s2] root={args.root} sass {name}: {sum(ops.values())} instructions: {counts}",
+              flush=True)
 
 
 # ------------------------------------------------------------------ s1-ring
@@ -942,7 +962,7 @@ def _ring_variants(source):
         out.append(("no merge (partials written, the launch ends)",
                     source.replace(_RING_MERGE, "  return;\n")))
     if _RING_M1 in source:
-        out.append(("M 1 on the M > 1 kernels (v4 on mma.sync), 8 warps",
+        out.append(("M 1 on the M > 1 kernels (v4, v5 on mma.sync), 8 warps",
                     source.replace(_RING_M1, "    const int m_tile_ = RING_M_TILE;")))
     if _RING_STAGES in source:
         out += [(f"ring of {n} stages", source.replace(_RING_STAGES,
@@ -976,9 +996,12 @@ def cmd_s1_ring(smoke, args):
 
     def time_rows(label):
         cases = [("v3", i8, lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, operands=ops)),
+                 ("v5", i8, lambda t: bench_int4.v5_matmul(x, t, scale, n_out=n, operands=ops)),
                  ("v4", i4, lambda t: bench_int4.v4_matmul(x, t, scale, n_out=n)),
                  ("v3, 132 tiles of 344 rows, one slice", i8f,
                   lambda t: bench_int4.v3_matmul(xf, t, scf, n_out=132 * 512, operands=opsf)),
+                 ("v5, 132 tiles of 344 rows, one slice", i8f,
+                  lambda t: bench_int4.v5_matmul(xf, t, scf, n_out=132 * 512, operands=opsf)),
                  ("v4, 132 tiles of 344 rows, one slice", i4f,
                   lambda t: bench_int4.v4_matmul(xf, t, scf, n_out=132 * 512))]
         for name, t0, fn in cases:

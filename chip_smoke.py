@@ -53,9 +53,10 @@ them. Phases, each printing its lines before the last:
 15. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
-    512, with `torch._weight_int4pack_mm` on the same weights beside v2-v5
-    at M 1; the attention ones at [32, 257, 16, 64] and [2, 257, 16, 64],
-    at S 9 and 100, and at S 300 and 832 (two sweeps);
+    512, with `torch._weight_int4pack_mm` on the same weights beside v4 at
+    M 1 and beside v2 and v5 at M 1 and 8; the attention ones at
+    [32, 257, 16, 64] and [2, 257, 16, 64], at S 9 and 100, and at S 300
+    and 832 (two sweeps);
 16. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
@@ -1117,8 +1118,9 @@ def phase_bench_int4(gen):
         for key, t0, kernel, plain in cases:
             nxt = _timing.rotation(t0)
             dma = key == "S1-dma"  # half of x, no scale
-            # v4's plain version is the exact product, which the library is held to
-            lib = library if (key, m) == ("S1-v4", 1) else None
+            # the library beside v4 (its plain version is the exact product) at M 1, and
+            # beside v2 and v5 at both M; it is held to each variant's plain version
+            lib = library if key in ("S1-v2", "S1-v5") or (key, m) == ("S1-v4", 1) else None
             out = _int4_case(key, k // 2 if dma else k, n, m, t0, lambda: kernel(nxt()), plain,
                              tag="S1 int4 bench", scaled=not dma, x=x, library=lib)
             key = key.split()[0]  # the mask16 case counts toward S1-v3's error
@@ -1143,8 +1145,8 @@ def phase_bench_int4(gen):
         f"{rows['S1-vpu']['bound_ms']:.4f} ms ({rows['S1-vpu']['bound_by']})")
     for key in worst:
         rows[key]["max_abs_err"] = worst[key]
-    for key in ("S1-v2", "S1-v3", "S1-v5"):  # the same function on the same x and weights
-        rows[key]["library_ms"] = rows["S1-v4"]["library_ms"]
+    # v3 computes the same function on the same x and weights
+    rows["S1-v3"]["library_ms"] = rows["S1-v4"]["library_ms"]
     return rows
 
 

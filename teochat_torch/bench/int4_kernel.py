@@ -17,11 +17,12 @@ representative decode projection (gate: [1, 4096] x [4096, 11008]):
 Each variant is a CUDA kernel of csrc/bench_int4_kernel.cu with its plain
 PyTorch version beside it (`*_plain`, taken by CPU tensors) and its launch
 counter. A timed launch finds its tiles out of the L2 (copies are rotated).
-v3 and v4 run on the ring body: items of (tile, K slice), each slice streamed
-by bulk copies into a shared-memory ring, fp32 FMAs at M = 1 (v4 at M > 1 on
-mma.sync), the slices' fp32 partials merged in the launch by the tile's last
-block; `ring_k_slices` picks the slice count from the card's SM count and
-`ring_schedule` is the walk in plain PyTorch, for the CPU tests. The JAX
+v2, v3, v4 and v5 run on the ring body: items of (tile, K slice), each slice
+streamed by bulk copies into a shared-memory ring, fp32 FMAs at M = 1 (v3 at
+every M; v2, v4 and v5 at M > 1 on mma.sync), the slices' fp32 partials
+merged in the launch by the tile's last block; `ring_k_slices` picks the
+slice count from the card's SM count and `ring_schedule` is the walk in
+plain PyTorch, for the CPU tests; dma and vpu keep the first body. The JAX
 script's `block_k2` is a Pallas grid parameter; the sweep here walks the tile
 width (the data's format) and, for v3, the ring's `k_slices` (the K slices of
 a tile: items = tiles x k_slices).
@@ -58,7 +59,7 @@ M = 1
 EXACT_REL_MAX = 4e-3
 BYTE_REUSE_REL_MAX = 1e-2
 
-# The ring body of S1-v3 and S1-v4 (csrc/bench_int4_kernel.cu: RING_*)
+# The ring body of S1-v2, v3, v4 and v5 (csrc/bench_int4_kernel.cu: RING_*)
 RING_STAGES = 4  # stages of the shared-memory ring
 RING_STAGE_BYTES = 16384  # a stage: the whole groups of RING_ALIGN rows it holds (32 at tw 512)
 RING_WARPS = 8  # consumer warps at M > 1; one more warp issues the bulk copies
@@ -78,6 +79,11 @@ LAUNCHES_VPU = _build.LaunchCounter("bench_int4_vpu")
 LAUNCHES_DMA = _build.LaunchCounter("bench_int4_dma")
 
 pack_int4_i8 = int4_mod.pack_int4_tiled_i8  # [K, N] -> [n_tiles, K/2, bn] int8, b = (L+8) + 16 H
+
+# The byte-reuse variants on the ring: (tile dtype, the correction's coefficient
+# on sum xb: 8 (sum xa + c sum xb); v2's high nibble is stored + 8 as well)
+BYTE_REUSE = {"v2": (torch.uint8, 17.0), "v3": (torch.int8, 1.0), "v5": (torch.int8, 1.0)}
+RING_VARIANTS = (*BYTE_REUSE, "v4")
 
 
 def pack_int4_native(w_q: torch.Tensor, bn: int = TILE_BN) -> torch.Tensor:
@@ -207,12 +213,31 @@ def _check_k_slices(name: str, k2: int, k_slices: int, m: int) -> None:
                          f"slices that all have rows and whose x fits at M {m}")
 
 
+def _ring_decode(variant: str, tiles: torch.Tensor):
+    """The multiplicands the ring kernels take from each byte, as fp32
+    [n_tiles, k2, tw] pairs (wa, wb): v2 (p & 15, p) on u8 bytes; v3
+    (b & 15, b) on int8 bytes; v5 the same with the low nibbles masked a
+    32-bit word at a time; v4 (L, 16 H) of the native nibbles."""
+    if variant == "v4":
+        s = tiles.view(torch.uint8).to(torch.int32) ^ 0x88  # every nibble + 8
+        return ((s & 0xF) - 8).float(), ((s & 0xF0) - 128).float()
+    if variant == "v2":
+        byte = tiles.view(torch.uint8).to(torch.int32)
+        return (byte & 0xF).float(), byte.float()
+    byte = tiles.view(torch.int8)
+    if variant == "v5":
+        lo = (byte.contiguous().view(torch.int32) & 0x0F0F0F0F).view(torch.int8)
+    else:
+        lo = byte.to(torch.int32) & 0xF
+    return lo.float(), byte.float()
+
+
 def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, n_out: int,
-                  native: bool = False, k_slices: int | None = None, sms: int = H100_SXM_SMS,
+                  variant: str, k_slices: int | None = None, sms: int = H100_SXM_SMS,
                   operands=None) -> torch.Tensor:
-    """The ring kernels' walk, in plain PyTorch: S1-v3 on int8 tiles (the
-    byte-reuse identity on `operands` = (xa, xb), made from x unless given)
-    or, with `native`, S1-v4 on pack_int4_native's bytes.
+    """The ring kernels' walk, in plain PyTorch: S1-v2 on u8 tiles, S1-v3 or
+    S1-v5 on int8 tiles (the byte-reuse identity on `operands` = (xa, xb),
+    made from x unless given), or S1-v4 on pack_int4_native's bytes.
 
     Items of (tile, K slice) for each chunk of RING_M_TILE rows of x (one
     row at M = 1): K cut into `k_slices` slices of `ring_slice_rows` byte
@@ -220,31 +245,32 @@ def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, 
     SMs unless given; a slice walked in stages of `ring_stage_rows` rows (a
     ragged last stage). v4 decodes L and 16 H and takes x's odd K row / 16
     (at M > 1 the kernel decodes L and H to bf16 for mma.sync, which sums
-    the same exact products); v3 takes (b & 15) against xa and b against
-    xb. Each item sums into an fp32 partial (v3: and sums its slice of
-    xa + xb); a tile's partials are summed in slice order, then v3's
-    correction, 8 times the items' sums in slice order, is taken once, the
-    scale applied and the result rounded once to x's dtype. Used by tests
-    only."""
+    the same exact products); the byte reuse takes `_ring_decode`'s low
+    nibble against xa and the byte against xb (at M > 1 on mma.sync as the
+    bf16 pair (low nibble, byte): the same exact products). Each item sums
+    into an fp32 partial (the byte reuse: and sums its slice of xa + c xb,
+    c = 17 for v2, 1 for v3 and v5); a tile's partials are summed in slice
+    order, then the correction, 8 times the items' sums in slice order, is
+    taken once, the scale applied and the result rounded once to x's dtype.
+    Used by tests only."""
+    if variant not in RING_VARIANTS:
+        raise ValueError(f"ring_schedule: variant {variant!r} not one of {RING_VARIANTS}")
     n_tiles, k2, tw = tiles.shape
     m = x.shape[0]
     k_slices = ring_k_slices(n_tiles, k2, sms) if k_slices is None else k_slices
     _check_k_slices("ring_schedule", k2, k_slices, m)
     rows, stage_rows = ring_slice_rows(k2, k_slices), ring_stage_rows(tw)
-    if native:
+    wa, wb = _ring_decode(variant, tiles)
+    corr = torch.zeros(m, device=x.device)
+    if variant == "v4":
         xf = x.float()
         a, b = xf[:, 0::2], xf[:, 1::2] / 16.0  # the odd rows meet 16 H
-        s = tiles.view(torch.uint8).to(torch.int32) ^ 0x88  # every nibble + 8
-        wa, wb = ((s & 0xF) - 8).float(), ((s & 0xF0) - 128).float()
-        corr = torch.zeros(m, device=x.device)
     else:
         xa, xb = operands or byte_reuse_operands(x, k2)
         a, b = xa.float(), xb.float()
-        byte = tiles.view(torch.int8).to(torch.int32)
-        wa, wb = (byte & 0xF).float(), byte.float()
-        corr = torch.zeros(m, device=x.device)
-        for r0 in range(0, k2, rows):  # each item's sum of xa + xb, in slice order
-            corr = corr + (a[:, r0:r0 + rows] + b[:, r0:r0 + rows]).sum(1)
+        c = BYTE_REUSE[variant][1]
+        for r0 in range(0, k2, rows):  # each item's sum of xa + c xb, in slice order
+            corr = corr + (a[:, r0:r0 + rows] + c * b[:, r0:r0 + rows]).sum(1)
         corr = 8.0 * corr
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     m_tile = _ring_m_tile(m)
@@ -267,6 +293,32 @@ def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, 
             y = (total[:, : n1 - n0] - corr[rm, None]) * scale[n0:n1].float()
             out[rm, n0:n1] = y.to(x.dtype)
     return out
+
+
+# The M > 1 consumer's A operand for v2 and v5 (csrc/bench_int4_kernel.cu::
+# byte_pair_bf16x2): the byte at bits 0 and 16, its sign over bits 24-31,
+# (lo, byte & 127) kept under bf16 128, then the subtrahend taken away.
+PAIR_KEEP = 0x007F000F
+PAIR_MAGIC = 0x43004300
+PAIR_SIGN_U8 = 0xFF000000  # u8: 128 comes off the byte's half only below 128
+PAIR_TOP_I8 = 0x00800000  # int8: 256 comes off it where the byte is negative
+
+
+def byte_pair_bf16x2(byte: torch.Tensor, signed: bool) -> torch.Tensor:
+    """The kernel's bf16 pair (low nibble, byte) of each byte (uint8 bits), in
+    plain torch with the `.cu`'s constants: [..., 2] bf16 (low half first, as
+    mma.sync reads it). The prmt, the two lop3 and the hsub2, written out."""
+    b = byte.to(torch.int64) & 0xFF
+    h = b | (b << 16) | (b >= 128).to(torch.int64) * 0xFF000000  # sign: selector nibble 8 + P
+    v = (h & PAIR_KEEP) | PAIR_MAGIC
+    sub = (PAIR_MAGIC | (h & PAIR_TOP_I8)) if signed else (PAIR_MAGIC & ~(h & PAIR_SIGN_U8))
+
+    def halves(word):
+        bits = torch.stack([word & 0xFFFF, word >> 16], dim=-1)
+        return (bits - (bits >= 0x8000).to(torch.int64) * 0x10000).to(torch.int16).view(
+            torch.bfloat16)
+
+    return halves(v) - halves(sub)  # bf16 - bf16 of small integers: exact
 
 
 # ------------------------------------------------------------ the wrappers
@@ -311,18 +363,6 @@ def _byte_reuse_operands_cuda(entry, x, k2, operands):
     return xa, xb
 
 
-def _byte_reuse_cuda(entry, counter, x, tiles, dtype, scale, n_out, operands):
-    """v2 and v5 on the first body, the band left to the kernel."""
-    n_tiles, k2, bn = _check_tiles(entry, tiles, dtype)
-    _check_product(entry, x, tiles, scale, n_out)
-    xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
-    out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
-    _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), tiles.data_ptr(), scale.data_ptr(),
-                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, 0)
-    counter.count += 1
-    return out
-
-
 def _ring_split(entry, x, tiles, k_slices):
     """The ring entries' last arguments: the K slices (0: `ring_k_slices` for
     the card x lies on), the items' fp32 partials (a fresh buffer each call,
@@ -339,55 +379,62 @@ def _ring_split(entry, x, tiles, k_slices):
     _check_k_slices(entry, k2, k_slices, m)
     if k_slices == 1:
         return (1, 0, 0), None
-    # the items' partials [n_tiles, k_slices, M, bn], then v3's row sums [n_tiles, k_slices, M]
+    # the items' partials [n_tiles, k_slices, M, bn], then the byte reuse's row sums
+    # [n_tiles, k_slices, M]
     part = torch.empty(n_tiles * k_slices * m * (bn + 1), dtype=torch.float32, device=x.device)
     tickets = _build.tickets_for(x.device, -(-m // _ring_m_tile(m)) * n_tiles)
     return (k_slices, part.data_ptr(), tickets.data_ptr()), part
 
 
-def v2_matmul(x, packed_tiles, scale, *, n_out, operands=None):
-    """S1-v2: byte reuse on u8 tiles. x [M, K]; packed_tiles uint8 [n_tiles, K/2, bn];
-    scale fp32 with at least n_out entries. `operands` = byte_reuse_operands(x, K/2),
-    where the caller has them already."""
+def _byte_reuse_ring(variant, x, tiles, scale, n_out, k_slices, operands, *flags):
+    """Launch S1-v2, v3 or v5 on the ring body; `flags` (v3's mask width) go
+    between the K slices and the workspace."""
+    entry = f"teochat_bench_int4_{variant}"
+    n_tiles, k2, bn = _check_tiles(entry, tiles, BYTE_REUSE[variant][0])
+    _check_product(entry, x, tiles, scale, n_out)
+    xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
+    split, _part = _ring_split(entry, x, tiles, k_slices)
+    out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), tiles.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, split[0], *flags,
+                  *split[1:])
+    COUNTERS[f"S1-{variant}"].count += 1
+    return out
+
+
+def v2_matmul(x, packed_tiles, scale, *, n_out, k_slices=0, operands=None):
+    """S1-v2: byte reuse on u8 tiles, on the ring body. x [M, K]; packed_tiles
+    uint8 [n_tiles, K/2, bn]; scale fp32 with at least n_out entries.
+    `operands` = byte_reuse_operands(x, K/2), where the caller has them
+    already. `k_slices` (the sweep) fixes the K slices of a tile: 0 takes
+    `ring_k_slices` for the card."""
     if not _on_card("v2_matmul", x):
         return v2_matmul_plain(x, packed_tiles, scale, n_out=n_out, operands=operands)
-    return _byte_reuse_cuda("teochat_bench_int4_v2", LAUNCHES_V2, x, packed_tiles, torch.uint8,
-                            scale, n_out, operands)
+    return _byte_reuse_ring("v2", x, packed_tiles, scale, n_out, k_slices, operands)
 
 
 def v3_matmul(x, packed_i8, scale, *, n_out, k_slices=0, mask_dtype=torch.int32, operands=None):
     """S1-v3: the same identity on int8 bytes, on the ring body; mask_dtype int32
-    or int16. `k_slices` (the sweep) fixes the K slices of a tile: 0 takes
-    `ring_k_slices` for the card."""
+    or int16; `k_slices` as for v2_matmul."""
     if mask_dtype not in (torch.int32, torch.int16):
         raise ValueError(f"v3_matmul: mask_dtype {mask_dtype}")
     if not _on_card("v3_matmul", x):
         return v3_matmul_plain(x, packed_i8, scale, n_out=n_out, mask_dtype=mask_dtype,
                                operands=operands)
-    entry = "teochat_bench_int4_v3"
-    n_tiles, k2, bn = _check_tiles(entry, packed_i8, torch.int8)
-    _check_product(entry, x, packed_i8, scale, n_out)
-    xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
-    split, _part = _ring_split(entry, x, packed_i8, k_slices)
-    out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
-    _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), packed_i8.data_ptr(), scale.data_ptr(),
-                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, split[0],
-                  int(mask_dtype == torch.int16), *split[1:])
-    LAUNCHES_V3.count += 1
-    return out
+    return _byte_reuse_ring("v3", x, packed_i8, scale, n_out, k_slices, operands,
+                            int(mask_dtype == torch.int16))
 
 
-def v5_matmul(x, packed_i8, scale, *, n_out, operands=None):
-    """S1-v5: v3 with the low nibbles masked a word at a time."""
+def v5_matmul(x, packed_i8, scale, *, n_out, k_slices=0, operands=None):
+    """S1-v5: v3 with the low nibbles masked a word at a time, on the ring body."""
     if not _on_card("v5_matmul", x):
         return v5_matmul_plain(x, packed_i8, scale, n_out=n_out, operands=operands)
-    return _byte_reuse_cuda("teochat_bench_int4_v5", LAUNCHES_V5, x, packed_i8, torch.int8,
-                            scale, n_out, operands)
+    return _byte_reuse_ring("v5", x, packed_i8, scale, n_out, k_slices, operands)
 
 
 def v4_matmul(x, packed_i4, scale, *, n_out, k_slices=0):
     """S1-v4: natively stored signed nibbles (pack_int4_native), no byte trick, on
-    the ring body; `k_slices` as for v3_matmul."""
+    the ring body; `k_slices` as for v2_matmul."""
     if not _on_card("v4_matmul", x):
         return v4_matmul_plain(x, packed_i4, scale, n_out=n_out)
     entry = "teochat_bench_int4_v4"
@@ -596,23 +643,32 @@ def main(quick: bool = False, device=None):
 
 # ------------------------------------------------------------- what was compiled
 
-# a kernel's mangled name: the first body's <BN = 32, MT = 1>, the ring body's <MT = 1>
-SASS_KERNEL = re.compile(r"\S*bench_int4_(\w+?)_kernelILi(?:32ELi)?1E")
+# a kernel's mangled name: the first body's <BN = 32, MT = 1>, the ring body's <MT = 1 or 8>
+SASS_KERNEL = re.compile(r"\S*bench_int4_(\w+?)_kernelILi(?:32ELi1|(1|8))E")
+
+
+def sass_key(name: str) -> str | None:
+    """The key `sass_counts` files the kernel of mangled name `name` under:
+    `dma`, `vpu`, `v2_ring` .. at M = 1, `v2_ring m8` .. at M > 1; None for
+    the instantiations it leaves out."""
+    found = SASS_KERNEL.match(name)
+    return found and found.group(1) + (" m8" if found.group(2) == "8" else "")
 
 
 def sass_counts():
     """Instruction counts by opcode of each S1 kernel's M = 1 instantiation
-    (the first body's at BN = 32, keyed `v2` ..; the ring body's keyed
-    `v3_ring`, `v4_ring`), from `cuobjdump -sass` of the built library."""
+    (the first body's at BN = 32, keyed `dma`, `vpu`; the ring body's keyed
+    `v2_ring` .. `v5_ring`) and of the ring body's M > 1 one (keyed
+    `v2_ring m8` ..), from `cuobjdump -sass` of the built library."""
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
     text = subprocess.run([tool, "-sass", str(_build.library().path)], capture_output=True,
                           text=True, check=True).stdout
     out = {}
     for block in text.split("Function : ")[1:]:
-        found = SASS_KERNEL.match(block)
-        if found:
+        key = sass_key(block)
+        if key:
             ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", block)
-            out[found.group(1)] = dict(Counter(ops).most_common())
+            out[key] = dict(Counter(ops).most_common())
     return out
 
 

@@ -18,6 +18,10 @@
 //        halves before the widening.
 //   v5   v3 with the low nibbles of four bytes masked by one & 0x0F0F0F0F on
 //        the word, then widened by a prmt each.
+//        At M > 1, v2 and v5 take a byte as the bf16 pair (low nibble, byte)
+//        against (xa, xb) on mma.sync (byte_pair_bf16x2: no int-to-float
+//        conversion); the word mask buys nothing there, as one lop3 masks
+//        both halves of the pair.
 //   v4   native 4-bit storage: a byte holds the signed values of K rows 2i
 //        (low nibble) and 2i + 1 (high). No int-to-float conversion: one xor
 //        a word biases every nibble by 8, one prmt puts a byte under 2^23,
@@ -35,7 +39,7 @@
 // launch that reads them (a plain 16-byte-load stream: 11.6-12.8 us, ~3 us
 // of it the launch), before any decode. Two bodies:
 //
-//   ring_body (v3, v4). A work item is (tile, K slice); the slice count
+//   ring_body (v2, v3, v4, v5). A work item is (tile, K slice); the slice count
 //   (bench/int4_kernel.py::ring_k_slices, from the card's SM count) makes
 //   n_tiles x k_slices fill whole waves of one block an SM (22 x 6 = 132 at
 //   tw 512). A K slice of a tile is one contiguous range of bytes, so one
@@ -46,23 +50,25 @@
 //   once beside it. At M = 1, 16 consumer warps read a stage's rows with
 //   16-byte loads (a 512-byte row is one warp) and FMA into 16 columns of
 //   fp32 a thread; at M > 1, 8 warps take 8 rows of x at once: v3 by FMAs,
-//   v4 on mma.sync m16n8k16 with x's rows as n (the nibbles decoded to bf16
-//   under 0x4300). The producer warp, idle once its copies are issued,
-//   loads the tile's scales and sums v3's slice of xa + xb from shared
-//   memory. Each item writes its fp32 partial [M, tw] to a workspace and
-//   takes a ticket; the tile's last block sums the partials in slice order,
-//   takes v3's correction once, scales, rounds once to bf16 and resets the
-//   ticket, so the same inputs give the same bits on every launch. Beyond
+//   v2, v4 and v5 on mma.sync m16n8k16 with x's rows as n (v4's nibbles
+//   decoded to bf16 under 0x4300; v2's and v5's bytes as the bf16 pair
+//   (low nibble, byte) against (xa, xb)). The producer warp, idle once its
+//   copies are issued, loads the tile's scales and sums the byte-reuse
+//   slice of xa + c xb from shared memory. Each item writes its fp32 partial
+//   [M, tw] to a workspace and takes a ticket; the tile's last block sums the
+//   partials in slice order, takes the byte-reuse correction once, scales,
+//   rounds once to bf16 and resets the ticket, so the same inputs give the
+//   same bits on every launch. Beyond
 //   the stream, what sets its pace (measured): the merge, ~2 us (three
 //   round trips through the L2: partial, ticket, partials), and the
 //   consumers, ~7 instructions a byte at M = 1 (two FADD and two FFMA
 //   among them): some 60 % of an SM's issue slots over the stream's ~10 us,
 //   and the last stages expose ~1.3 us of it.
-//   stream_body (v2, v5, dma, vpu): the first design, a block owns a band of
+//   stream_body (dma, vpu): the first design, a block owns a band of
 //   columns and all byte rows; a lane reads 4-byte words of 8 consecutive
 //   rows and the matching activations with 16-byte loads, the next step's
-//   words a step ahead; fp32 accumulators in registers; one reduction and
-//   the row-sum correction at the end.
+//   words a step ahead; fp32 accumulators in registers; one reduction at
+//   the end.
 // Both run M > 8 as row chunks of 8 in the grid.
 
 #include <cuda_bf16.h>
@@ -85,13 +91,11 @@ constexpr float TWO23 = 8388608.f;
 enum Variant { V2, V3, V3_M16, V5, V4, DMA, VPU };
 
 struct Args {  // stream_body's
-  const uint16_t* a;     // xa [M, k2] (v2, v5); x_lo (dma); unused (vpu)
-  const uint16_t* b;     // xb [M, k2] (v2, v5); unused otherwise
+  const uint16_t* a;     // x_lo (dma); unused (vpu)
   const uint8_t* tiles;  // [n_tiles, k2, tw] bytes
-  const float* scale;    // fp32, at least n_out entries (v2, v5)
   void* out;             // bf16 [M, n_out]; fp32 [n_tiles * tw] column sums (vpu)
   int M, k2, tw, n_total, n_out;
-  long long a_rs, b_rs;  // row strides of a and b, in elements
+  long long a_rs;        // row stride of a, in elements
 };
 
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -166,15 +170,13 @@ __device__ __forceinline__ void decode(uint32_t w, float (&wa)[4], float (&wb)[4
 // step, 8 consecutive byte rows; the 8 weight words of a step are in flight
 // together and nothing synchronizes until the final sum over row groups and
 // warps. Block (x, y): columns [x BN, x BN + BN), rows [y MT, y MT + MT) of x.
-// red and corr_s are the block's shared scratch (SCRATCH below).
+// red is the block's shared scratch (SCRATCH below).
 template <int V, int MT, int BN>
-__device__ __forceinline__ void stream_body(const Args& p, float* red, float* corr_s) {
+__device__ __forceinline__ void stream_body(const Args& p, float* red) {
   constexpr int LPR = BN / 4;   // lanes across one row of the band
   constexpr int RG = 32 / LPR;  // row groups of a warp
   constexpr int STEP = 8 * RG * ROWS;  // byte rows the block takes in one step
   constexpr bool HAS_A = V != VPU;
-  constexpr bool HAS_B = V == V2 || V == V5;
-  constexpr bool CORR = V == V2 || V == V5;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane / LPR, cg = lane % LPR;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * MT;
@@ -206,14 +208,12 @@ __device__ __forceinline__ void stream_body(const Args& p, float* red, float* co
         ahead[u] = *reinterpret_cast<const uint32_t*>(
             wbytes + static_cast<long long>(r + STEP + u) * p.tw);
     }
-    uint4 xa[MT], xb[MT];
+    uint4 xa[MT];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      xa[m] = xb[m] = make_uint4(0, 0, 0, 0);
-      if (HAS_A && m0 + m < p.M) {
+      xa[m] = make_uint4(0, 0, 0, 0);
+      if (HAS_A && m0 + m < p.M)
         xa[m] = __ldg(reinterpret_cast<const uint4*>(p.a + (m0 + m) * p.a_rs + r));
-        if (HAS_B) xb[m] = __ldg(reinterpret_cast<const uint4*>(p.b + (m0 + m) * p.b_rs + r));
-      }
     }
     float wa[ROWS][4], wb[ROWS][4];
 #pragma unroll
@@ -226,16 +226,12 @@ __device__ __forceinline__ void stream_body(const Args& p, float* red, float* co
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[m][j] += wa[u][j] + wb[u][j];
       } else {
-        float fa[ROWS], fb[ROWS];
+        float fa[ROWS];
         unpack8(xa[m], fa);
-        unpack8(xb[m], fb);
 #pragma unroll
         for (int u = 0; u < ROWS; ++u)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[m][j] = fmaf(fa[u], wa[u][j], acc[m][j]);
-            if (HAS_B) acc[m][j] = fmaf(fb[u], wb[u][j], acc[m][j]);
-          }
+          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(fa[u], wa[u][j], acc[m][j]);
       }
     }
   }
@@ -254,27 +250,6 @@ __device__ __forceinline__ void stream_body(const Args& p, float* red, float* co
 #pragma unroll
       for (int j = 0; j < 4; ++j) red[(warp * MT + m) * BN + cg * 4 + j] = acc[m][j];
   }
-
-  // the correction, once a block: sum over k2 of xa + c xb, c = 17 (v2) or 1
-  if (CORR) {
-    constexpr float C = V == V2 ? 17.f : 1.f;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float s = 0.f;
-      if (m0 + m < p.M) {
-        for (int i = tid * 8; i < k2; i += THREADS * 8) {
-          float fa[8], fb[8];
-          unpack8(__ldg(reinterpret_cast<const uint4*>(p.a + (m0 + m) * p.a_rs + i)), fa);
-          unpack8(__ldg(reinterpret_cast<const uint4*>(p.b + (m0 + m) * p.b_rs + i)), fb);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) s += fa[u] + C * fb[u];
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) corr_s[warp * MT + m] = s;
-    }
-  }
   __syncthreads();
 
   for (int idx = tid; idx < MT * BN; idx += THREADS) {
@@ -287,47 +262,26 @@ __device__ __forceinline__ void stream_body(const Args& p, float* red, float* co
       continue;
     }
     if (m0 + m >= p.M || n >= p.n_out) continue;
-    if (CORR) {
-      float c = 0.f;
-#pragma unroll
-      for (int wq = 0; wq < 8; ++wq) c += corr_s[wq * MT + m];
-      sum -= 8.f * c;
-    }
-    if (V != DMA) sum *= p.scale[n];
     static_cast<uint16_t*>(p.out)[static_cast<long long>(m0 + m) * p.n_out + n] =
         __bfloat16_as_ushort(__float2bfloat16_rn(sum));
   }
 }
 
-#define SCRATCH                          \
-  __shared__ float red[8 * MT * BN];     \
-  __shared__ float corr_s[8 * MT]
-
-template <int BN, int MT>
-__global__ void __launch_bounds__(THREADS) bench_int4_v2_kernel(Args p) {
-  SCRATCH;
-  stream_body<V2, MT, BN>(p, red, corr_s);
-}
-
-template <int BN, int MT>
-__global__ void __launch_bounds__(THREADS) bench_int4_v5_kernel(Args p) {
-  SCRATCH;
-  stream_body<V5, MT, BN>(p, red, corr_s);
-}
+#define SCRATCH __shared__ float red[8 * MT * BN]
 
 template <int BN, int MT>
 __global__ void __launch_bounds__(THREADS) bench_int4_vpu_kernel(Args p) {
   SCRATCH;
-  stream_body<VPU, MT, BN>(p, red, corr_s);
+  stream_body<VPU, MT, BN>(p, red);
 }
 
 template <int BN, int MT>
 __global__ void __launch_bounds__(THREADS) bench_int4_dma_kernel(Args p) {
   SCRATCH;
-  stream_body<DMA, MT, BN>(p, red, corr_s);
+  stream_body<DMA, MT, BN>(p, red);
 }
 
-// ------------------------------------------------------ the ring body (v3, v4)
+// ------------------------------------------------ the ring body (v2, v3, v4, v5)
 
 // The walk, written out in plain PyTorch as
 // teochat_torch/bench/int4_kernel.py::ring_schedule, whose constants a test
@@ -358,8 +312,8 @@ static_assert(RING_STAGE_BYTES % RING_MAX_TW == 0 && RING_STAGE_BYTES / RING_MAX
               "whole rows a stage at every tile width");
 
 struct RingArgs {
-  const uint16_t* a;     // v3: xa [M, k2]; v4: x [M, 2 k2] (K rows 2i, 2i + 1 meet byte row i)
-  const uint16_t* b;     // v3: xb [M, k2]; v4: unused
+  const uint16_t* a;     // v2, v3, v5: xa [M, k2]; v4: x [M, 2 k2] (K rows 2i, 2i + 1: byte row i)
+  const uint16_t* b;     // v2, v3, v5: xb [M, k2]; v4: unused
   const uint8_t* tiles;  // [n_tiles, k2, tw] bytes
   const float* scale;    // fp32, at least n_out entries
   uint16_t* out;         // bf16 [M, n_out]
@@ -372,7 +326,7 @@ struct RingArgs {
 struct RingShared {
   uint64_t bars[2 * RING_STAGES + 1];  // full, empty, then x's
   float scale[RING_MAX_TW];            // the tile's scales, zero past n_out
-  float corr[RING_M_TILE];  // v3: the item's sums of xa + xb, a row of x each
+  float corr[RING_M_TILE];  // byte reuse: the item's sums of xa + c xb, a row of x each
   int last;
 };
 static_assert(sizeof(RingShared) <= 10 * 1024 - 1024, "static shared memory");
@@ -394,13 +348,43 @@ __device__ __forceinline__ uint32_t byte_to_bf16x2(uint32_t s, uint32_t s4) {
   return minus_136((h & 0x000F000Fu) | 0x43004300u);
 }
 
+// Byte P of w (v2: u8 p; v5: int8 b) as the bf16 pair (low nibble, byte), the
+// k slots of one byte row against (xa, xb). bf16 holds 7 bits under 0x4300
+// (128), so the byte's top bit picks what comes off. One prmt puts the byte at
+// bits 0 and 16 and its sign over bits 24-31 (selector nibble 8 + P: replicate
+// the byte's top bit), one lop3 keeps (lo, byte & 127) under 128, one lop3
+// makes the subtrahend, one hsub2 takes it away: lo = (128 + lo) - 128;
+// u8: p = (128 + (p & 127)) - (128, or 0 where p >= 128);
+// int8: b = (128 + (b & 127)) - (128, or 256 where b < 0). All exact.
+template <int V, int P>
+__device__ __forceinline__ uint32_t byte_pair_bf16x2(uint32_t w) {
+  uint32_t h;
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(h)
+      : "r"(w), "r"(0u), "r"(P | (P << 8) | ((8 | P) << 12)));
+  const uint32_t v = (h & 0x007F000Fu) | 0x43004300u;
+  const uint32_t sub = V == V2 ? 0x43004300u & ~(h & 0xFF000000u)   // u8
+                               : 0x43004300u | (h & 0x00800000u);  // int8
+  __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<uint32_t*>(&d);
+}
+
 __device__ __forceinline__ float bf16_bits(uint32_t h) { return __uint_as_float(h << 16); }
 
+// The correction's coefficient on sum xb: 8 (sum xa + c sum xb), c = 17 for
+// v2's u8 byte (its high nibble stored + 8 as well), 1 for v3's and v5's int8.
+template <int V>
+__host__ __device__ constexpr float ring_xb_coeff() {
+  return V == V2 ? 17.f : 1.f;
+}
+
 // The producer warp, once its last copy is issued: the tile's scales (zero
-// past n_out) into sh.scale and, for v3, the item's share of the correction,
-// the sum over its slice of xa + xb for each row of x, into sh.corr (from the
-// slice of x in shared memory; lanes stride the rows, then a shuffle).
-template <bool NATIVE, int MT>
+// past n_out) into sh.scale and, for the byte reuse, the item's share of the
+// correction, the sum over its slice of xa + c xb for each row of x, into
+// sh.corr (from the slice of x in shared memory; lanes stride the rows, then
+// a shuffle).
+template <int V, int MT>
 __device__ __forceinline__ void ring_producer_tail(const RingArgs& p, const uint8_t* xs,
                                                    int x_row_bytes, int rows, int tile,
                                                    int m_live, RingShared& sh) {
@@ -409,14 +393,15 @@ __device__ __forceinline__ void ring_producer_tail(const RingArgs& p, const uint
     const int n = tile * p.tw + col;
     sh.scale[col] = n < p.n_out ? __ldg(p.scale + n) : 0.f;
   }
-  if (NATIVE) return;
+  if (V == V4) return;
+  constexpr float C = ring_xb_coeff<V>();
   mbar_wait(smem_u32(&sh.bars[2 * RING_STAGES]), 0);  // x's slice has landed
 #pragma unroll 1
   for (int m = 0; m < m_live; ++m) {
     const uint16_t* xa = reinterpret_cast<const uint16_t*>(xs + m * x_row_bytes);
     const uint16_t* xb = reinterpret_cast<const uint16_t*>(xs + (MT + m) * x_row_bytes);
     float s = 0.f;
-    for (int r = lane; r < rows; r += 32) s += bf16_bits(xa[r]) + bf16_bits(xb[r]);
+    for (int r = lane; r < rows; r += 32) s += bf16_bits(xa[r]) + C * bf16_bits(xb[r]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) sh.corr[m] = s;
@@ -424,7 +409,7 @@ __device__ __forceinline__ void ring_producer_tail(const RingArgs& p, const uint
 }
 
 // The stage rows of a tile `tw` bytes wide: whole groups of RING_ALIGN rows
-// (one m16n8k16 step's 16 k of v4) in RING_STAGE_BYTES.
+// (one m16n8k16 step's 16 k of the mma.sync consumer) in RING_STAGE_BYTES.
 __device__ __forceinline__ int ring_stage_rows(int tw) {
   return RING_STAGE_BYTES / tw / RING_ALIGN * RING_ALIGN;
 }
@@ -502,19 +487,23 @@ __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t
   return groups;
 }
 
-// The mma.sync consumer (v4 at M > 1, x's 8 rows as n). A warp owns 128-column
-// blocks cb (cb = warp % (tw / 128) and the warps that share it take turns
-// over a stage's 8-row groups, or cb = warp, warp + 8 where a tile has 8 or
-// more). Lane (g, t) reads 16 bytes, columns [16 g, 16 g + 16) of the block,
-// of byte rows t and t + 4 of a group: the A operands of 8 m16n8k16 products,
-// product j's rows g and g + 8 being columns 16 g + 2 j and 16 g + 2 j + 1,
-// its k slots 2t, 2t + 1 and 2t + 8, 2t + 9 the two nibbles of those rows'
-// bytes (K rows 2 r, 2 r + 1); x's row g at those K rows is the B operand.
-// Its sums go to red[slot][8][tw], slot = the warp's turn among its block's.
-template <int W>
+// The mma.sync consumer (v2, v4, v5 at M > 1, x's 8 rows as n). A warp owns
+// 128-column blocks cb (cb = warp % (tw / 128) and the warps that share it
+// take turns over a stage's 8-row groups, or cb = warp, warp + 8 where a tile
+// has 8 or more). Lane (g, t) reads 16 bytes, columns [16 g, 16 g + 16) of
+// the block, of byte rows t and t + 4 of a group: the A operands of 8
+// m16n8k16 products, product j's rows g and g + 8 being columns 16 g + 2 j
+// and 16 g + 2 j + 1, its k slots 2t, 2t + 1 and 2t + 8, 2t + 9 a bf16 pair
+// of those rows' bytes: v4 the two nibbles (K rows 2 r, 2 r + 1), v2 and v5
+// (low nibble, byte). The B operand is x's row g at the same slots: v4 K rows
+// 2 r, 2 r + 1 (one 32-bit load), v2 and v5 (xa[r], xb[r]) (two 16-bit loads
+// and a prmt). Its sums go to red[slot][8][tw], slot = the warp's turn among
+// its block's.
+template <int V, int MT, int W>
 __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_t* smem,
                                                  const uint8_t* xs, int x_row_bytes, int rows,
                                                  RingShared& sh, float* red) {
+  constexpr bool NATIVE = V == V4;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tw = p.tw;
   const int gq = lane >> 2, t = lane & 3;
   const int n_cb = tw / 128, wide = n_cb >= W;
@@ -522,6 +511,8 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
   const int n_slot = wide ? 1 : (W - 1 - cb0) / n_cb + 1;
   const int n_blocks = wide && warp + W < n_cb ? 2 : 1;
   const int stage_rows = ring_stage_rows(tw);
+  const uint16_t* xa = reinterpret_cast<const uint16_t*>(xs + gq * x_row_bytes);
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(xs + (MT + gq) * x_row_bytes);
   float acc[2][8][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -538,30 +529,45 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
       if (h >= n_blocks) break;
       const uint8_t* col = stage + (cb0 + h * W) * 128;
       for (int rg = slot; rg < n_groups; rg += n_slot) {
-        const int r0 = rg * RING_ALIGN;
+        const int r0 = rg * RING_ALIGN, r = r_stage + r0 + t;  // r: the row within the slice
         const uint4 w0 = *reinterpret_cast<const uint4*>(col + (r0 + t) * tw);
         const uint4 w1 = *reinterpret_cast<const uint4*>(col + (r0 + t + 4) * tw);
-        const uint8_t* xr = xs + gq * x_row_bytes + 4 * (r_stage + r0 + t);
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
-        const uint32_t s0[4] = {w0.x ^ 0x88888888u, w0.y ^ 0x88888888u, w0.z ^ 0x88888888u,
-                                w0.w ^ 0x88888888u};
-        const uint32_t s1[4] = {w1.x ^ 0x88888888u, w1.y ^ 0x88888888u, w1.z ^ 0x88888888u,
-                                w1.w ^ 0x88888888u};
+        uint32_t b0, b1;
+        if (NATIVE) {
+          const uint8_t* xr = xs + gq * x_row_bytes + 4 * r;
+          b0 = *reinterpret_cast<const uint32_t*>(xr);
+          b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+        } else {
+          b0 = __byte_perm(xa[r], xb[r], 0x5410);
+          b1 = __byte_perm(xa[r + 4], xb[r + 4], 0x5410);
+        }
+        const uint32_t u0[4] = {w0.x, w0.y, w0.z, w0.w}, u1[4] = {w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const uint32_t s04 = s0[q] >> 4, s14 = s1[q] >> 4;
-          uint32_t a[4];
-          a[0] = byte_to_bf16x2<0>(s0[q], s04);
-          a[1] = byte_to_bf16x2<1>(s0[q], s04);
-          a[2] = byte_to_bf16x2<0>(s1[q], s14);
-          a[3] = byte_to_bf16x2<1>(s1[q], s14);
-          mma_16816(acc[h][2 * q], a, b0, b1);
-          a[0] = byte_to_bf16x2<2>(s0[q], s04);
-          a[1] = byte_to_bf16x2<3>(s0[q], s04);
-          a[2] = byte_to_bf16x2<2>(s1[q], s14);
-          a[3] = byte_to_bf16x2<3>(s1[q], s14);
-          mma_16816(acc[h][2 * q + 1], a, b0, b1);
+          uint32_t a[2][4];
+          if (NATIVE) {
+            const uint32_t s0 = u0[q] ^ 0x88888888u, s1 = u1[q] ^ 0x88888888u;
+            const uint32_t s04 = s0 >> 4, s14 = s1 >> 4;
+            a[0][0] = byte_to_bf16x2<0>(s0, s04);
+            a[0][1] = byte_to_bf16x2<1>(s0, s04);
+            a[0][2] = byte_to_bf16x2<0>(s1, s14);
+            a[0][3] = byte_to_bf16x2<1>(s1, s14);
+            a[1][0] = byte_to_bf16x2<2>(s0, s04);
+            a[1][1] = byte_to_bf16x2<3>(s0, s04);
+            a[1][2] = byte_to_bf16x2<2>(s1, s14);
+            a[1][3] = byte_to_bf16x2<3>(s1, s14);
+          } else {
+            a[0][0] = byte_pair_bf16x2<V, 0>(u0[q]);
+            a[0][1] = byte_pair_bf16x2<V, 1>(u0[q]);
+            a[0][2] = byte_pair_bf16x2<V, 0>(u1[q]);
+            a[0][3] = byte_pair_bf16x2<V, 1>(u1[q]);
+            a[1][0] = byte_pair_bf16x2<V, 2>(u0[q]);
+            a[1][1] = byte_pair_bf16x2<V, 3>(u0[q]);
+            a[1][2] = byte_pair_bf16x2<V, 2>(u1[q]);
+            a[1][3] = byte_pair_bf16x2<V, 3>(u1[q]);
+          }
+          mma_16816(acc[h][2 * q], a[0], b0, b1);
+          mma_16816(acc[h][2 * q + 1], a[1], b0, b1);
         }
       }
     }
@@ -587,23 +593,23 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
 // Block (slice, tile, chunk): byte rows [slice * slice_rows, + slice_rows) of
 // tile `tile` (the last slice ragged), x rows [chunk MT, chunk MT + MT).
 // Warp W's lane 0 bulk-copies the item's slice of x (v4: x's K rows
-// 2 r .. of each row; v3: xa and xb at r ..) after the ring, then the slice's
-// stages of ring_stage_rows(tw) rows into the ring (a ragged last stage
-// copies what is left), waiting on a slot's `empty` barrier before reusing
-// it. The consumers first load the tile's scales (and v3's row sums) while
-// the ring fills, then take the stages; the sums of the warps meet in the
-// ring's memory, in order.
+// 2 r .. of each row; the byte reuse: xa and xb at r ..) after the ring,
+// then the slice's stages of ring_stage_rows(tw) rows into the ring (a
+// ragged last stage copies what is left), waiting on a slot's `empty`
+// barrier before reusing it; the warp then loads the tile's scales (and the
+// byte reuse's row sums) while the consumers take the stages; the sums of
+// the warps meet in the ring's memory, in order.
 template <int V, int MT, int W>
 __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, RingShared& sh) {
   constexpr bool NATIVE = V == V4;
-  constexpr bool MMA = NATIVE && MT > 1;
+  constexpr bool MMA = MT > 1 && V != V3 && V != V3_M16;  // v3 keeps its FMAs at every M
   constexpr int C = W * 32;  // consumer threads
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int slice = blockIdx.x, tile = blockIdx.y, chunk = blockIdx.z;
   const int m0 = chunk * MT, m_live = min(MT, p.M - m0);
   const int tw = p.tw, k2 = p.k2, slice_rows = p.slice_rows;
   const int r_begin = slice * slice_rows, rows = min(k2 - r_begin, slice_rows);
-  // x's slice after the ring: v4 [MT][2 slice_rows] bf16; v3 xa [MT][slice_rows], then xb
+  // x's slice after the ring: v4 [MT][2 slice_rows] bf16; else xa [MT][slice_rows], then xb
   uint8_t* xs = smem + RING_BYTES;
   const int x_row_bytes = (NATIVE ? 4 : 2) * slice_rows;
 
@@ -649,13 +655,13 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
       }
     }
     __syncwarp();
-    ring_producer_tail<NATIVE, MT>(p, xs, x_row_bytes, rows, tile, m_live, sh);
+    ring_producer_tail<V, MT>(p, xs, x_row_bytes, rows, tile, m_live, sh);
     __syncthreads();
   } else {
     // ----------------------------------------------------------- consumers
     mbar_wait(smem_u32(&sh.bars[2 * RING_STAGES]), 0);
-    if (MMA)
-      ring_consume_mma<W>(p, smem, xs, x_row_bytes, rows, sh, red);
+    if constexpr (MMA)
+      ring_consume_mma<V, MT, W>(p, smem, xs, x_row_bytes, rows, sh, red);
     else
       slots = ring_consume_fma<V, MT, W>(p, smem, xs, x_row_bytes, rows, sh, red);
   }
@@ -687,7 +693,8 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
     return reinterpret_cast<float4*>(
         p.part + ((static_cast<long long>(tile) * p.k_slices + sl) * p.M + m0 + m) * tw + col);
   };
-  // v3: the items' sums of xa + xb, [n_tiles, k_slices, M] after the partials
+  // the byte reuse: the items' sums of xa + c xb (the coefficient taken in
+  // ring_producer_tail), [n_tiles, k_slices, M] after the partials
   float* part_sums = p.part + static_cast<long long>(p.n_tiles) * p.k_slices * p.M * tw;
   auto sum_at = [&](int sl, int m) {
     return part_sums + (static_cast<long long>(tile) * p.k_slices + sl) * p.M + m0 + m;
@@ -756,6 +763,22 @@ __global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
   ring_body<V4, MT, ring_warps(MT)>(p, smem, sh);
 }
 
+template <int MT>
+__global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
+    bench_int4_v5_ring_kernel(RingArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ RingShared sh;
+  ring_body<V5, MT, ring_warps(MT)>(p, smem, sh);
+}
+
+template <int MT>
+__global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
+    bench_int4_v2_ring_kernel(RingArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ RingShared sh;
+  ring_body<V2, MT, ring_warps(MT)>(p, smem, sh);
+}
+
 // byte rows of each K slice but the last: k2 / k_slices rounded up to whole groups
 int ring_slice_rows(int k2, int k_slices) {
   const int per = (k2 + k_slices - 1) / k_slices;
@@ -815,7 +838,7 @@ int check(const Args& p, int band) {
 
 int check_product(const Args& p, int band) {
   if (check(p, band) || p.M <= 0 || p.n_out <= 0 || p.n_out > p.n_total) return 1;
-  if (p.a_rs % 8 || p.b_rs % 8) return 1;  // 16-byte activation loads
+  if (p.a_rs % 8) return 1;  // 16-byte activation loads
   return 0;
 }
 
@@ -840,60 +863,64 @@ int check_product(const Args& p, int band) {
       LAUNCH_BAND(KERNEL, (p.M + 7) / 8, 8);                                          \
   } while (0)
 
-Args product_args(const void* a, const void* b, const void* tiles, const void* scale, void* out,
-                  int M, int k2, int n_tiles, int bn, int n_out, long long a_rs, long long b_rs) {
-  return Args{static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
-              static_cast<const uint8_t*>(tiles), static_cast<const float*>(scale), out,
-              M, k2, bn, n_tiles * bn, n_out, a_rs, b_rs};
+Args product_args(const void* a, const void* tiles, void* out, int M, int k2, int n_tiles,
+                  int bn, int n_out, long long a_rs) {
+  return Args{static_cast<const uint16_t*>(a), static_cast<const uint8_t*>(tiles), out,
+              M, k2, bn, n_tiles * bn, n_out, a_rs};
+}
+
+// The byte-reuse entries' arguments (v2, v3, v5).
+RingArgs byte_reuse_args(const void* xa, const void* xb, const void* tiles, const void* scale,
+                         void* out, int M, int k2, int n_tiles, int bn, int n_out, int k_slices,
+                         int mask16, void* part, void* tickets) {
+  return RingArgs{static_cast<const uint16_t*>(xa), static_cast<const uint16_t*>(xb),
+                  static_cast<const uint8_t*>(tiles), static_cast<const float*>(scale),
+                  static_cast<uint16_t*>(out), static_cast<float*>(part),
+                  static_cast<int*>(tickets), M, k2, bn, n_tiles, n_out, k_slices,
+                  k_slices > 0 ? ring_slice_rows(k2, k_slices) : 0, mask16};
 }
 
 }  // namespace
 
-// S1-v2. xa, xb bf16 [M, k2] contiguous; tiles u8 [n_tiles, k2, bn]; scale fp32
-// with at least n_out entries; out bf16 [M, n_out] contiguous. band: 0 (auto),
-// 32, 64 or 128 columns a block. Each entry returns cudaGetLastError().
+// S1-v2. xa, xb bf16 [M, k2] contiguous; tiles u8 [n_tiles, k2, bn] (bn a
+// multiple of 128, at most 2048); scale fp32 with at least n_out entries; out
+// bf16 [M, n_out] contiguous. k_slices: the K slices (an exact cut of k2,
+// bench/int4_kernel.py::ring_k_slices); where k_slices > 1, part fp32
+// [n_tiles * k_slices * M * (bn + 1)] (the items' partials, then their sums
+// of xa + c xb; contents ignored) and tickets int32 [ceil(M / 8) * n_tiles],
+// zero, and zero again when the launch has run. Each entry returns
+// cudaGetLastError().
 extern "C" int teochat_bench_int4_v2(const void* xa, const void* xb, const void* tiles,
                                      const void* scale, void* out, int M, int k2, int n_tiles,
-                                     int bn, int n_out, int band, void* stream) {
-  const Args p = product_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out, k2, k2);
-  if (check_product(p, band)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  LAUNCH_PRODUCT(bench_int4_v2_kernel);
-  return static_cast<int>(cudaGetLastError());
+                                     int bn, int n_out, int k_slices, void* part, void* tickets,
+                                     void* stream) {
+  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
+                                     k_slices, 0, part, tickets);
+  RING_LAUNCH(bench_int4_v2_ring_kernel);
 }
 
-// S1-v3. xa, xb bf16 [M, k2] contiguous; tiles int8 [n_tiles, k2, bn] (bn a
-// multiple of 128, at most 2048); scale fp32 with at least n_out entries; out
-// bf16 [M, n_out] contiguous; mask16 != 0 masks on 16-bit halves. k_slices:
-// the K slices (an exact cut of k2, bench/int4_kernel.py::ring_k_slices);
-// where k_slices > 1, part fp32 [n_tiles * k_slices * M * (bn + 1)] (the
-// items' partials, then their sums of xa + xb; contents ignored) and tickets
-// int32 [ceil(M / 8) * n_tiles], zero, and zero again when the launch has run.
+// S1-v3. As v2, on int8 tiles; mask16 != 0 masks on 16-bit halves.
 extern "C" int teochat_bench_int4_v3(const void* xa, const void* xb, const void* tiles,
                                      const void* scale, void* out, int M, int k2, int n_tiles,
                                      int bn, int n_out, int k_slices, int mask16, void* part,
                                      void* tickets, void* stream) {
-  const RingArgs p{static_cast<const uint16_t*>(xa), static_cast<const uint16_t*>(xb),
-                   static_cast<const uint8_t*>(tiles), static_cast<const float*>(scale),
-                   static_cast<uint16_t*>(out), static_cast<float*>(part),
-                   static_cast<int*>(tickets), M, k2, bn, n_tiles, n_out, k_slices,
-                   k_slices > 0 ? ring_slice_rows(k2, k_slices) : 0, mask16};
+  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
+                                     k_slices, mask16, part, tickets);
   RING_LAUNCH(bench_int4_v3_ring_kernel);
 }
 
-// S1-v5. As v3 (int8 tiles), the low nibbles masked a word at a time.
+// S1-v5. As v3, the low nibbles masked a word at a time.
 extern "C" int teochat_bench_int4_v5(const void* xa, const void* xb, const void* tiles,
                                      const void* scale, void* out, int M, int k2, int n_tiles,
-                                     int bn, int n_out, int band, void* stream) {
-  const Args p = product_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out, k2, k2);
-  if (check_product(p, band)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  LAUNCH_PRODUCT(bench_int4_v5_kernel);
-  return static_cast<int>(cudaGetLastError());
+                                     int bn, int n_out, int k_slices, void* part, void* tickets,
+                                     void* stream) {
+  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
+                                     k_slices, 0, part, tickets);
+  RING_LAUNCH(bench_int4_v5_ring_kernel);
 }
 
 // S1-v4. x bf16 [M, 2 k2] contiguous; tiles [n_tiles, k2, bn] bytes of two
-// signed nibbles, K rows 2i (low) and 2i + 1 (high); the rest as v3.
+// signed nibbles, K rows 2i (low) and 2i + 1 (high); the rest as v2.
 extern "C" int teochat_bench_int4_v4(const void* x, const void* tiles, const void* scale,
                                      void* out, int M, int k2, int n_tiles, int bn, int n_out,
                                      int k_slices, void* part, void* tickets, void* stream) {
@@ -909,8 +936,7 @@ extern "C" int teochat_bench_int4_v4(const void* x, const void* tiles, const voi
 extern "C" int teochat_bench_int4_dma(const void* x, long long x_rs, const void* tiles,
                                       void* out, int M, int k2, int n_tiles, int bn, int n_out,
                                       int band, void* stream) {
-  const Args p = product_args(x, nullptr, tiles, nullptr, out, M, k2, n_tiles, bn, n_out,
-                              x_rs, 0);
+  const Args p = product_args(x, tiles, out, M, k2, n_tiles, bn, n_out, x_rs);
   if (check_product(p, band)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   LAUNCH_PRODUCT(bench_int4_dma_kernel);
@@ -921,8 +947,7 @@ extern "C" int teochat_bench_int4_dma(const void* x, long long x_rs, const void*
 // rows of (lo - 8) + (hi - 8).
 extern "C" int teochat_bench_int4_vpu(const void* tiles, void* colsum, int k2, int n_tiles,
                                       int bn, int band, void* stream) {
-  const Args p = product_args(nullptr, nullptr, tiles, nullptr, colsum, 1, k2, n_tiles, bn,
-                              n_tiles * bn, 0, 0);
+  const Args p = product_args(nullptr, tiles, colsum, 1, k2, n_tiles, bn, n_tiles * bn, 0);
   if (check(p, band)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   LAUNCH_BAND(bench_int4_vpu_kernel, 1, 1);

@@ -51,9 +51,9 @@ _SIGNATURES = {
     ),
     "teochat_vit_attention": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_F, _P],
     # the kernel benches' variants (csrc/bench_int4_kernel.cu, bench_vit_attention.cu)
-    "teochat_bench_int4_v2": [_P] * 5 + [_I] * 6 + [_P],
+    "teochat_bench_int4_v2": [_P] * 5 + [_I] * 6 + [_P] * 3,
     "teochat_bench_int4_v3": [_P] * 5 + [_I] * 7 + [_P] * 3,
-    "teochat_bench_int4_v5": [_P] * 5 + [_I] * 6 + [_P],
+    "teochat_bench_int4_v5": [_P] * 5 + [_I] * 6 + [_P] * 3,
     "teochat_bench_int4_v4": [_P] * 4 + [_I] * 6 + [_P] * 3,
     "teochat_bench_int4_dma": [_P, _LL, _P, _P] + [_I] * 6 + [_P],
     "teochat_bench_int4_vpu": [_P, _P] + [_I] * 4 + [_P],

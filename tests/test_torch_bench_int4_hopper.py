@@ -1,4 +1,4 @@
-"""The int4 bench's ring body (S1-v3, S1-v4) against the script's Pallas kernels.
+"""The int4 bench's ring body (S1-v2 .. v5) against the script's Pallas kernels.
 
 The ring kernels of teochat_torch/csrc/bench_int4_kernel.cu run only on a
 card. Their walk is written out in plain PyTorch as
@@ -6,12 +6,13 @@ card. Their walk is written out in plain PyTorch as
 chunk of 8 rows of x, K cut into the slices that `ring_k_slices` picks for
 an H100 SXM's 132 SMs (or a given count), each slice walked in stages of
 RING_STAGE_BYTES // tw byte rows, an fp32 partial an item, a tile's partials
-summed in slice order, then v3's correction, the scale and one rounding.
-Here that walk is held against scripts/bench_int4_kernel.py's `v3_matmul`
-(mask at 32 and 16 bits) and `v4_matmul`, their Pallas kernels in interpret
-mode (the script passes no `interpret` flag, so for this file alone
-`pallas_call` is wrapped to add it), against the port's plain versions at
-more shapes, and the split rule and the module's sizes against the `.cu`.
+summed in slice order, then the byte reuse's correction, the scale and one
+rounding. Here that walk is held against scripts/bench_int4_kernel.py's
+`v2_matmul`, `v3_matmul` (mask at 32 and 16 bits), `v5_matmul` and
+`v4_matmul`, their Pallas kernels in interpret mode (the script passes no
+`interpret` flag, so for this file alone `pallas_call` is wrapped to add
+it), against the port's plain versions at more shapes; the split rule, the
+M > 1 consumer's byte decode and the module's sizes against the `.cu`.
 
 Same seeded numpy inputs on both sides, fp32. Tolerance: 1e-4 of the
 largest |reference|, as in tests/test_torch_bench_kernels.py (both sides sum
@@ -32,6 +33,7 @@ from jax.experimental import pallas as pl
 
 from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.ops import _build
+from teochat_torch.ops import int4_matmul as int4_mod
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 REL = 1e-4
@@ -70,11 +72,16 @@ def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
+PACKERS = {"v2": int4_mod.pack_int4_tiled, "v3": bench_int4.pack_int4_i8,
+           "v5": bench_int4.pack_int4_i8, "v4": bench_int4.pack_int4_native}
+PLAIN = {"v2": bench_int4.v2_matmul_plain, "v3": bench_int4.v3_matmul_plain,
+         "v5": bench_int4.v5_matmul_plain, "v4": bench_int4.v4_matmul_plain}
+
+
 def _walk(variant, x, w_q, scale, n, tw, k_slices, sms=bench_int4.H100_SXM_SMS):
-    pack = bench_int4.pack_int4_native if variant == "v4" else bench_int4.pack_int4_i8
-    tiles = pack(torch.from_numpy(w_q), tw)
+    tiles = PACKERS[variant](torch.from_numpy(w_q), tw)
     return bench_int4.ring_schedule(
-        torch.from_numpy(x), tiles, torch.from_numpy(scale), n_out=n, native=variant == "v4",
+        torch.from_numpy(x), tiles, torch.from_numpy(scale), n_out=n, variant=variant,
         k_slices=k_slices, sms=sms)
 
 
@@ -90,6 +97,11 @@ JAX_CASES = [
     ("v4", 272, 700, 11, 512, None),
     # tiles of 128, M 1, slices 56 x 4 and 32
     ("v4", 512, 300, 1, 128, 5),
+    # v2 and v5 at v3's and v4's shapes: ragged slices and stages, n_out < tiles
+    ("v2", 400, 700, 3, 512, 3),
+    ("v5", 256, 300, 1, 128, None),
+    ("v5", 400, 700, 8, 1024, 3),
+    ("v2", 272, 700, 11, 512, None),
 ]
 
 
@@ -101,6 +113,11 @@ def test_walk_matches_the_script(script, variant, k, n, m, tw, k_slices):
     if variant == "v4":
         want = script.v4_matmul(jnp.asarray(x), script.pack_int4_native(w_q, tw), scale_pad,
                                 n_out=n)
+    elif variant == "v2":
+        want = script.v2_matmul(jnp.asarray(x), script.pack_int4_tiled(jnp.asarray(w_q), tw),
+                                scale_pad, n_out=n)
+    elif variant == "v5":
+        want = script.v5_matmul(jnp.asarray(x), script.pack_int4_i8(w_q, tw), scale_pad, n_out=n)
     else:
         mask = jnp.int16 if variant == "v3_m16" else jnp.int32
         want = script.v3_matmul(jnp.asarray(x), script.pack_int4_i8(w_q, tw), scale_pad,
@@ -111,7 +128,7 @@ def test_walk_matches_the_script(script, variant, k, n, m, tw, k_slices):
     assert _rel(got.numpy(), exact) <= REL
 
 
-@pytest.mark.parametrize("variant", ["v3", "v4"])
+@pytest.mark.parametrize("variant", bench_int4.RING_VARIANTS)
 @pytest.mark.parametrize("k,n,m,tw,k_slices", [
     (4096, 11008, 1, 512, None),  # the bench's projection: 22 tiles x 6 slices
     (4096, 11008, 8, 1024, None),  # 11 x 12
@@ -122,10 +139,8 @@ def test_walk_matches_the_script(script, variant, k, n, m, tw, k_slices):
 def test_walk_matches_the_plain_versions(variant, k, n, m, tw, k_slices):
     w_q, scale, x = _inputs(k, n, m, seed=1)
     got = _walk(variant, x, w_q, scale, n, tw, k_slices)
-    pack, plain = ((bench_int4.pack_int4_native, bench_int4.v4_matmul_plain) if variant == "v4"
-                   else (bench_int4.pack_int4_i8, bench_int4.v3_matmul_plain))
-    want = plain(torch.from_numpy(x), pack(torch.from_numpy(w_q), tw),
-                 torch.from_numpy(scale), n_out=n)
+    want = PLAIN[variant](torch.from_numpy(x), PACKERS[variant](torch.from_numpy(w_q), tw),
+                          torch.from_numpy(scale), n_out=n)
     assert _rel(got.numpy(), want.numpy()) <= REL
 
 
@@ -135,7 +150,7 @@ def test_walk_rounds_once_in_bf16():
     w_q, scale, x = _inputs(512, 700, 3, seed=2)
     xb = torch.from_numpy(x).to(torch.bfloat16)
     tiles = bench_int4.pack_int4_native(torch.from_numpy(w_q))
-    got = bench_int4.ring_schedule(xb, tiles, torch.from_numpy(scale), n_out=700, native=True)
+    got = bench_int4.ring_schedule(xb, tiles, torch.from_numpy(scale), n_out=700, variant="v4")
     want = bench_int4.v4_matmul_plain(xb, tiles, torch.from_numpy(scale), n_out=700)
     assert got.dtype == torch.bfloat16
     step = want.float().abs() * 2.0 ** -7
@@ -173,6 +188,35 @@ def test_walk_refuses_a_cut_the_kernels_refuse():
         _walk("v4", x, w_q, scale, 128, 128, 1)
     got = _walk("v4", x[:1], w_q, scale, 128, 128, 1)  # at M 1 it fits
     assert _rel(got.numpy(), x[:1].astype(np.float64) @ w_q * scale) <= REL
+    with pytest.raises(ValueError, match="variant"):
+        bench_int4.ring_schedule(torch.from_numpy(x[:1]), bench_int4.pack_int4_i8(
+            torch.from_numpy(w_q)), torch.from_numpy(scale), n_out=128, variant="v3_m16")
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_mma_byte_pair_is_exact(signed):
+    """The M > 1 consumer's A operand for v2 (u8) and v5 (int8): every byte
+    becomes the bf16 pair (low nibble, byte) exactly, by the `.cu`'s prmt,
+    lop3 and hsub2 (written out with its constants, which are the source's)."""
+    source = (pathlib.Path(_build.CSRC) / "bench_int4_kernel.cu").read_text()
+    body = source[source.index("uint32_t byte_pair_bf16x2("):]
+    body = body[:body.index("\n}\n")]
+    assert '"prmt.b32 %0, %1, %2, %3;"' in body and "(P | (P << 8) | ((8 | P) << 12))" in body
+    assert f"(h & 0x{bench_int4.PAIR_KEEP:08X}u) | 0x{bench_int4.PAIR_MAGIC:08X}u" in body
+    assert (f"V == V2 ? 0x{bench_int4.PAIR_MAGIC:08X}u & ~(h & 0x{bench_int4.PAIR_SIGN_U8:08X}u)"
+            in body)
+    assert f": 0x{bench_int4.PAIR_MAGIC:08X}u | (h & 0x{bench_int4.PAIR_TOP_I8:08X}u)" in body
+    assert "__hsub2(" in body and "I2F" not in body and "__int2" not in body
+    raw = torch.arange(256, dtype=torch.int64)
+    pair = bench_int4.byte_pair_bf16x2(raw, signed).float()
+    byte = raw - 256 * (raw >= 128).long() if signed else raw
+    assert torch.equal(pair[:, 0], (raw & 15).float())  # the low nibble, whatever the sign
+    assert torch.equal(pair[:, 1], byte.float())
+    # the walk's multiplicands are the same values
+    variant = "v5" if signed else "v2"
+    tiles = raw.to(torch.int8 if signed else torch.uint8).reshape(1, 2, 128)
+    wa, wb = bench_int4._ring_decode(variant, tiles)
+    assert torch.equal(wa.reshape(-1), pair[:, 0]) and torch.equal(wb.reshape(-1), pair[:, 1])
 
 
 def test_module_sizes_are_the_kernels():
@@ -189,18 +233,24 @@ def test_module_sizes_are_the_kernels():
     assert "RING_BYTES + RING_X_BYTES + 10 * 1024 <= 227 * 1024" in source
     assert bench_int4.RING_STAGES * bench_int4.RING_STAGE_BYTES >= 64 * 1024  # in flight
     assert "#ifndef" not in source and "getenv" not in source
-    # v3 and v4 launch the ring kernels, streamed by bulk copies; v4 converts no integer
-    # and takes M > 1 on mma.sync
+    # v2 .. v5 launch the ring kernels, streamed by bulk copies; v2, v4 and v5 take M > 1
+    # on mma.sync, v3 keeps its FMAs; the first body runs only the two probes
     body = source[source.index("void ring_body("):source.index("int ring_slice_rows(")]
-    assert "MMA = NATIVE && MT > 1" in body and "ring_consume_mma<W>(" in body
+    assert "MMA = MT > 1 && V != V3 && V != V3_M16;" in body
+    assert "ring_consume_mma<V, MT, W>(" in body
+    assert sorted(re.findall(r"stream_body<(\w+), MT, BN>", source)) == ["DMA", "VPU"]
+    # the byte reuse's correction: 17 sum xb for v2's u8 byte, sum xb for v3's and v5's
+    assert "return V == V2 ? 17.f : 1.f;" in source
+    assert "s += bf16_bits(xa[r]) + C * bf16_bits(xb[r]);" in source
+    assert {v: c for v, (_, c) in bench_int4.BYTE_REUSE.items()} == {"v2": 17, "v3": 1, "v5": 1}
     assert [n // 8 * 8 for n in (42, 32, 16, 8)] == [
         bench_int4.ring_stage_rows(tw) for tw in (384, 512, 1024, 2048)]
     # one integer ticket a block, no float atomics
     assert "bulk_load_1d" in body and body.count("atom.acq_rel.gpu.global.add.s32") == 1
     assert "atomicAdd(" not in body and "red." not in body
     assert "__int2float" not in source and "bfe" not in source
-    for entry, kernel in (("teochat_bench_int4_v3", "bench_int4_v3_ring_kernel"),
-                          ("teochat_bench_int4_v4", "bench_int4_v4_ring_kernel")):
+    for variant in bench_int4.RING_VARIANTS:
+        entry, kernel = f"teochat_bench_int4_{variant}", f"bench_int4_{variant}_ring_kernel"
         launch = source[source.index(f'"C" int {entry}('):]
         assert f"RING_LAUNCH({kernel})" in launch[:launch.index("\n}\n")]
     header = (pathlib.Path(_build.CSRC) / "hopper_async.cuh").read_text()
@@ -209,31 +259,34 @@ def test_module_sizes_are_the_kernels():
 
 
 def test_sass_names_are_found():
-    """`sass_counts` keys each kernel's M = 1 instantiation by its variant."""
+    """`sass_counts` keys each kernel's M = 1 instantiation by its variant, and
+    the ring kernels' M = 8 one."""
     names = {
         "_ZN12_GLOBAL__N_120bench_int4_v2_kernelILi32ELi1EEEvNS_4ArgsE": "v2",
         "_ZN12_GLOBAL__N_125bench_int4_v3_ring_kernelILi1EEEvNS_8RingArgsE": "v3_ring",
         "_ZN12_GLOBAL__N_125bench_int4_v4_ring_kernelILi1EEEvNS_8RingArgsE": "v4_ring",
-        "_ZN12_GLOBAL__N_125bench_int4_v4_ring_kernelILi8EEEvNS_8RingArgsE": None,
+        "_ZN12_GLOBAL__N_125bench_int4_v4_ring_kernelILi8EEEvNS_8RingArgsE": "v4_ring m8",
+        "_ZN12_GLOBAL__N_125bench_int4_v5_ring_kernelILi1EEEvNS_8RingArgsE": "v5_ring",
+        "_ZN12_GLOBAL__N_125bench_int4_v2_ring_kernelILi8EEEvNS_8RingArgsE": "v2_ring m8",
         "_ZN12_GLOBAL__N_121bench_int4_dma_kernelILi128ELi1EEEvNS_4ArgsE": None,
+        "_ZN12_GLOBAL__N_121bench_int4_dma_kernelILi32ELi8EEEvNS_4ArgsE": None,
     }
     for name, key in names.items():
-        found = bench_int4.SASS_KERNEL.match(name)
-        assert (found.group(1) if found else None) == key
+        assert bench_int4.sass_key(name) == key
 
 
 def test_cpu_wrappers_take_the_plain_versions():
     """On the CPU the wrappers take the plain versions, whatever the split."""
     w_q, scale, x = _inputs(256, 700, 3)
     xt, sc = torch.from_numpy(x), torch.from_numpy(scale)
-    i8, i4 = (bench_int4.pack_int4_i8(torch.from_numpy(w_q)),
-              bench_int4.pack_int4_native(torch.from_numpy(w_q)))
-    before = bench_int4.LAUNCHES_V3.count, bench_int4.LAUNCHES_V4.count
-    assert torch.equal(bench_int4.v3_matmul(xt, i8, sc, n_out=700, k_slices=3),
-                       bench_int4.v3_matmul_plain(xt, i8, sc, n_out=700))
-    assert torch.equal(bench_int4.v4_matmul(xt, i4, sc, n_out=700, k_slices=3),
-                       bench_int4.v4_matmul_plain(xt, i4, sc, n_out=700))
-    assert (bench_int4.LAUNCHES_V3.count, bench_int4.LAUNCHES_V4.count) == before
+    wrappers = {"v2": bench_int4.v2_matmul, "v3": bench_int4.v3_matmul,
+                "v5": bench_int4.v5_matmul, "v4": bench_int4.v4_matmul}
+    before = {v: bench_int4.COUNTERS[f"S1-{v}"].count for v in wrappers}
+    for variant, wrapper in wrappers.items():
+        tiles = PACKERS[variant](torch.from_numpy(w_q))
+        assert torch.equal(wrapper(xt, tiles, sc, n_out=700, k_slices=3),
+                           PLAIN[variant](xt, tiles, sc, n_out=700))
+    assert {v: bench_int4.COUNTERS[f"S1-{v}"].count for v in wrappers} == before
 
 
 def test_entries_match_their_signatures():

@@ -734,7 +734,7 @@ BENCH_INT4_CASES = {  # name -> (packer, kernel, plain, takes xa / xb)
 @pytest.mark.parametrize("k,n,m,bn,k_slices", [
     (4096, 11008, 1, 512, 0),  # the bench's projection
     (4096, 11008, 8, 512, 0),
-    (256, 700, 3, 512, 3),  # ragged N; v3, v4: slices of 48, 48, 32 rows
+    (256, 700, 3, 512, 3),  # ragged N; slices of 48, 48, 32 rows
     (512, 2048, 19, 1024, 5),  # three row chunks of 8, a wider tile; 56 x 4 and 32 rows
     (512, 700, 1, 128, 0),  # the narrowest tile: stages of 128 rows
     (2048, 3000, 8, 1024, 0),  # stages of 16 rows
@@ -747,8 +747,7 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, k_slices):
     tiles = pack(w_q, bn)
     # xa and xb are rounded to bf16 once, for both sides
     kw = {"operands": bench_int4.byte_reuse_operands(x, k // 2)} if split else {}
-    ring = name in ("v3", "v4")  # the ring body takes the K slices of a tile
-    slices_kw = {"k_slices": k_slices} if ring else {}
+    slices_kw = {"k_slices": k_slices}  # the ring body takes the K slices of a tile
     kw_kernel = {**kw, **slices_kw}
     counter = bench_int4.COUNTERS[f"S1-{name}"]
     before = counter.count
@@ -758,11 +757,11 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, k_slices):
     _assert_int4_close(got, plain(x.float(), tiles, scale, n_out=n, **kw))
     if split:  # and the wrapper's own split gives the same bytes
         assert torch.equal(kernel(x, tiles, scale, n_out=n, **slices_kw), got)
-    if ring:  # and the walk on the same inputs (v3: the same rounded xa, xb)
-        walk = bench_int4.ring_schedule(
-            x.float(), tiles, scale, n_out=n, native=name == "v4", operands=kw.get("operands"),
-            k_slices=k_slices or None, sms=_build.sm_count(x.device))
-        _assert_int4_close(got, walk.float())
+    # and the walk on the same inputs (the byte reuse: the same rounded xa, xb)
+    walk = bench_int4.ring_schedule(
+        x.float(), tiles, scale, n_out=n, variant=name, operands=kw.get("operands"),
+        k_slices=k_slices or None, sms=_build.sm_count(x.device))
+    _assert_int4_close(got, walk.float())
     if name == "v3":
         m16 = kernel(x, tiles, scale, n_out=n, mask_dtype=torch.int16, **kw_kernel)
         assert torch.equal(m16, got)  # the mask's width changes the code, not the result
@@ -772,7 +771,7 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, k_slices):
     assert (got.float() - exact).abs().max().item() <= bound * exact.abs().max().item()
 
 
-@pytest.mark.parametrize("name", ["v3", "v4"])
+@pytest.mark.parametrize("name", list(BENCH_INT4_CASES))
 @pytest.mark.parametrize("m", [1, 8])
 def test_bench_int4_ring_is_bit_equal_and_resets_its_tickets(gen, name, m):
     """200 back-to-back launches at the bench's shape give the same bits, and
@@ -821,6 +820,8 @@ def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
         bench_int4.v4_matmul(x[:, :128], u8, scale, n_out=700)
     with pytest.raises(ValueError):  # K slices that leave slices without rows
         bench_int4.v3_matmul(x, i8, scale, n_out=700, k_slices=15)
+    with pytest.raises(ValueError):
+        bench_int4.v2_matmul(x, u8, scale, n_out=700, k_slices=15)
     with pytest.raises(ValueError):  # a tile width that is no multiple of 128
         bench_int4.vpu_only(int4_mod.pack_int4_tiled(w_q, 64))
 
