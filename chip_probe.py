@@ -116,22 +116,23 @@ another checkout, so two trees can be timed in one session on one card.
   `scaled_dot_product_attention` on the same inputs, beside the bound), the
   same at [32, 300, 16, 64] and [8, 832, 16, 64] (two sweeps; S2-b at bh 8),
   the int4 bench's S1 at K 4096, N 11008, M 1 and 8 (v3 with both masks,
-  v4, v2, v5, dma, vpu at M 1, K3 as the bench's v0 row, and
-  `torch._weight_int4pack_mm` on the same weights, beside the bound; tiles
-  rotated out of the L2), the S1 kernels' SASS counts (`UBLKCP`, `HMMA`,
-  `I2F`, `I2FP`, `F2F`, ...; the ring kernels at M 1 and M 8), then the
-  smoke's phases for the kernel benches' eight variants (the int4 ones and
-  the attention ones against their plain versions); exits nonzero
-  where one fails, after running both. With `--root` on a parent checkout
+  v4, v2, v5, dma, vpu at M 1 with and without its total, K3 as the
+  bench's v0 row, and `torch._weight_int4pack_mm` on the same weights,
+  beside the bound; tiles rotated out of the L2), the S1 kernels' SASS
+  counts (`UBLKCP`, `HMMA`, `I2F`, `I2FP`, `F2F`, ...; the ring kernels at
+  M 1 and M 8), then the smoke's phases for the kernel benches' eight
+  variants (the int4 ones and the attention ones against their plain
+  versions); exits nonzero where one fails, after running both. With `--root` on a parent checkout
   and once without, both trees are read in one call on one card.
-- s1-ring: what sets the pace of the int4 bench's ring body (S1-v3, v5, v4)
-  at K 4096, N 11008, M 1, tiles rotated out of the L2: two reference
-  streams over the same bytes in one launch (16-byte loads; one thread's
-  bulk copies into rings of 2, 4 and 8 stages of 16 KB, 132 items) and an
-  empty launch; then v3, v5 and v4 as built and rebuilt from edited copies of
-  `bench_int4_kernel.cu` (consumers that only load, no merge, both, ring
-  depths 2, 3, 6, 8, M 1 on the M > 1 kernels), each also on the same
-  bytes cut as 132 tiles of 344 rows (one slice a tile, nothing to merge).
+- s1-ring: what sets the pace of the int4 bench's ring body (S1-v3, v5, v4,
+  dma, vpu) at K 4096, N 11008, M 1, tiles rotated out of the L2: two
+  reference streams over the same bytes in one launch (16-byte loads; one
+  thread's bulk copies into rings of 2, 4 and 8 stages of 16 KB, 132 items)
+  and an empty launch; then v3, v5, v4, dma and vpu as built and rebuilt
+  from edited copies of `bench_int4_kernel.cu` (consumers that only load, no
+  merge, both, ring depths 2, 3, 6, 8, M 1 on the M > 1 kernels but vpu's),
+  each also on the same bytes cut as 132 tiles of 344 rows (one slice a
+  tile, nothing to merge).
 - profile-train: `torch.profiler` over the second optimizer step of the
   smoke's `train()` run (two micro-steps); device time by kernel class and
   the kernels that take the most.
@@ -753,6 +754,8 @@ def _s1_times(smoke, args):
         ]
         if m == 1:
             rows.append(("S1-vpu", tiles, lambda t: bench_int4.vpu_only(t)[0]))
+            if hasattr(bench_int4, "vpu_column_sums"):  # without the total's torch sum
+                rows.append(("S1-vpu kernel alone", tiles, bench_int4.vpu_column_sums))
         xp = prepare(x)
         rows.append(("torch._weight_int4pack_mm", None, lambda _: library(xp)))
         for label, t0, fn in rows:
@@ -946,6 +949,7 @@ _RING_NULL = ("        acc[0][0] += __uint_as_float((wv.x ^ wv.y ^ wv.z ^ wv.w) 
 _RING_MERGE = "  if (!split) return;\n"
 _RING_STAGES = "constexpr int RING_STAGES = 4;"
 _RING_M1 = "    const int m_tile_ = p.M <= 1 ? 1 : RING_M_TILE;"
+_RING_M1_LABEL = "M 1 on the M > 1 kernels"
 
 
 def _ring_variants(source):
@@ -962,7 +966,7 @@ def _ring_variants(source):
         out.append(("no merge (partials written, the launch ends)",
                     source.replace(_RING_MERGE, "  return;\n")))
     if _RING_M1 in source:
-        out.append(("M 1 on the M > 1 kernels (v4, v5 on mma.sync), 8 warps",
+        out.append((_RING_M1_LABEL + " (v4, v5, dma on mma.sync), 8 warps",
                     source.replace(_RING_M1, "    const int m_tile_ = RING_M_TILE;")))
     if _RING_STAGES in source:
         out += [(f"ring of {n} stages", source.replace(_RING_STAGES,
@@ -977,6 +981,7 @@ def cmd_s1_ring(smoke, args):
     from teochat_torch.bench import _timing
     from teochat_torch.bench import int4_kernel as bench_int4
     from teochat_torch.ops import _build
+    from teochat_torch.ops import int4_matmul as int4_mod
 
     csrc = Path(_build.CSRC)
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
@@ -984,11 +989,13 @@ def cmd_s1_ring(smoke, args):
     w_q = torch.randint(-8, 8, (k, n), generator=gen, device="cuda").to(torch.int8)
     scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
     i8, i4 = bench_int4.pack_int4_i8(w_q), bench_int4.pack_int4_native(w_q)
+    u8 = int4_mod.pack_int4_tiled(w_q)
     x = smoke._randn((1, k), gen)
     ops = bench_int4.byte_reuse_operands(x, k // 2)
     # the same bytes as 132 tiles of 344 rows: one item a tile, nothing to merge
     w_flat = torch.randint(-8, 8, (688, 132 * 512), generator=gen, device="cuda").to(torch.int8)
     i8f, i4f = bench_int4.pack_int4_i8(w_flat), bench_int4.pack_int4_native(w_flat)
+    u8f = int4_mod.pack_int4_tiled(w_flat)
     scf = torch.rand((132 * 512,), generator=gen, device="cuda") * 0.01
     xf = smoke._randn((1, 688), gen)
     opsf = bench_int4.byte_reuse_operands(xf, 344)
@@ -998,13 +1005,21 @@ def cmd_s1_ring(smoke, args):
         cases = [("v3", i8, lambda t: bench_int4.v3_matmul(x, t, scale, n_out=n, operands=ops)),
                  ("v5", i8, lambda t: bench_int4.v5_matmul(x, t, scale, n_out=n, operands=ops)),
                  ("v4", i4, lambda t: bench_int4.v4_matmul(x, t, scale, n_out=n)),
+                 ("dma", u8, lambda t: bench_int4.dma_only_matmul(x, t, n_out=n)),
+                 ("vpu", u8, bench_int4.vpu_column_sums),
                  ("v3, 132 tiles of 344 rows, one slice", i8f,
                   lambda t: bench_int4.v3_matmul(xf, t, scf, n_out=132 * 512, operands=opsf)),
                  ("v5, 132 tiles of 344 rows, one slice", i8f,
                   lambda t: bench_int4.v5_matmul(xf, t, scf, n_out=132 * 512, operands=opsf)),
                  ("v4, 132 tiles of 344 rows, one slice", i4f,
-                  lambda t: bench_int4.v4_matmul(xf, t, scf, n_out=132 * 512))]
+                  lambda t: bench_int4.v4_matmul(xf, t, scf, n_out=132 * 512)),
+                 ("dma, 132 tiles of 344 rows, one slice", u8f,
+                  lambda t: bench_int4.dma_only_matmul(xf, t, n_out=132 * 512)),
+                 ("vpu, 132 tiles of 344 rows, one slice", u8f,
+                  bench_int4.vpu_column_sums)]
         for name, t0, fn in cases:
+            if name.startswith("vpu") and label.startswith(_RING_M1_LABEL):
+                continue  # vpu has no M > 1 kernel
             nxt = _timing.rotation(t0)
             print(f"[s1-ring] root={args.root} {label}: {name} M=1: "
                   f"{smoke.time_ms(lambda: fn(nxt())):.4f} ms", flush=True)

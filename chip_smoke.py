@@ -1140,8 +1140,12 @@ def phase_bench_int4(gen):
     plain_ms = time_ms(lambda: bench_int4.vpu_only_plain(tiles)[0], n=3, inner=1)
     nbytes = tiles.numel() + 4 * cols.numel()
     rows["S1-vpu"] = kernel_row(err, ms, plain_ms, nbytes, 2 * 2 * tiles.numel())
+    # the call is the kernel then the torch total, as the plain version's; beside it the kernel
+    alone_ms = rows["S1-vpu"]["kernel_alone_ms"] = time_ms(
+        lambda: bench_int4.vpu_column_sums(nxt()))
     log(f"[S1 int4 bench] S1-vpu: column sums equal, total {total.item():.0f}; kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s) plain {plain_ms:.4f} ms bound "
+        f"(kernel alone {alone_ms:.4f} ms, {nbytes / alone_ms / 1e6:.1f} GB/s) plain "
+        f"{plain_ms:.4f} ms bound "
         f"{rows['S1-vpu']['bound_ms']:.4f} ms ({rows['S1-vpu']['bound_by']})")
     for key in worst:
         rows[key]["max_abs_err"] = worst[key]

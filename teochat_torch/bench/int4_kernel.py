@@ -17,12 +17,12 @@ representative decode projection (gate: [1, 4096] x [4096, 11008]):
 Each variant is a CUDA kernel of csrc/bench_int4_kernel.cu with its plain
 PyTorch version beside it (`*_plain`, taken by CPU tensors) and its launch
 counter. A timed launch finds its tiles out of the L2 (copies are rotated).
-v2, v3, v4 and v5 run on the ring body: items of (tile, K slice), each slice
+All six run on one body, the ring: items of (tile, K slice), each slice
 streamed by bulk copies into a shared-memory ring, fp32 FMAs at M = 1 (v3 at
-every M; v2, v4 and v5 at M > 1 on mma.sync), the slices' fp32 partials
-merged in the launch by the tile's last block; `ring_k_slices` picks the
-slice count from the card's SM count and `ring_schedule` is the walk in
-plain PyTorch, for the CPU tests; dma and vpu keep the first body. The JAX
+every M; v2, v4, v5 and dma at M > 1 on mma.sync; vpu takes no x, so M is
+1), the slices' fp32 partials merged in the launch by the tile's last block;
+`ring_k_slices` picks the slice count from the card's SM count and
+`ring_schedule` is the walk in plain PyTorch, for the CPU tests. The JAX
 script's `block_k2` is a Pallas grid parameter; the sweep here walks the tile
 width (the data's format) and, for v3, the ring's `k_slices` (the K slices of
 a tile: items = tiles x k_slices).
@@ -59,7 +59,7 @@ M = 1
 EXACT_REL_MAX = 4e-3
 BYTE_REUSE_REL_MAX = 1e-2
 
-# The ring body of S1-v2, v3, v4 and v5 (csrc/bench_int4_kernel.cu: RING_*)
+# The ring body of all six S1 kernels (csrc/bench_int4_kernel.cu: RING_*)
 RING_STAGES = 4  # stages of the shared-memory ring
 RING_STAGE_BYTES = 16384  # a stage: the whole groups of RING_ALIGN rows it holds (32 at tw 512)
 RING_WARPS = 8  # consumer warps at M > 1; one more warp issues the bulk copies
@@ -83,7 +83,7 @@ pack_int4_i8 = int4_mod.pack_int4_tiled_i8  # [K, N] -> [n_tiles, K/2, bn] int8,
 # The byte-reuse variants on the ring: (tile dtype, the correction's coefficient
 # on sum xb: 8 (sum xa + c sum xb); v2's high nibble is stored + 8 as well)
 BYTE_REUSE = {"v2": (torch.uint8, 17.0), "v3": (torch.int8, 1.0), "v5": (torch.int8, 1.0)}
-RING_VARIANTS = (*BYTE_REUSE, "v4")
+RING_VARIANTS = (*BYTE_REUSE, "v4", "dma", "vpu")
 
 
 def pack_int4_native(w_q: torch.Tensor, bn: int = TILE_BN) -> torch.Tensor:
@@ -217,7 +217,13 @@ def _ring_decode(variant: str, tiles: torch.Tensor):
     """The multiplicands the ring kernels take from each byte, as fp32
     [n_tiles, k2, tw] pairs (wa, wb): v2 (p & 15, p) on u8 bytes; v3
     (b & 15, b) on int8 bytes; v5 the same with the low nibbles masked a
-    32-bit word at a time; v4 (L, 16 H) of the native nibbles."""
+    32-bit word at a time; v4 (L, 16 H) of the native nibbles; dma (p, None);
+    vpu the u8 format's (lo - 8, hi - 8), which it adds."""
+    if variant in ("dma", "vpu"):
+        p = tiles.view(torch.uint8).to(torch.int32)
+        if variant == "dma":
+            return p.float(), None
+        return ((p & 0xF) - 8).float(), ((p >> 4) - 8).float()
     if variant == "v4":
         s = tiles.view(torch.uint8).to(torch.int32) ^ 0x88  # every nibble + 8
         return ((s & 0xF) - 8).float(), ((s & 0xF0) - 128).float()
@@ -232,12 +238,15 @@ def _ring_decode(variant: str, tiles: torch.Tensor):
     return lo.float(), byte.float()
 
 
-def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, n_out: int,
-                  variant: str, k_slices: int | None = None, sms: int = H100_SXM_SMS,
-                  operands=None) -> torch.Tensor:
+def ring_schedule(x: torch.Tensor | None, tiles: torch.Tensor, scale: torch.Tensor | None, *,
+                  n_out: int, variant: str, k_slices: int | None = None,
+                  sms: int = H100_SXM_SMS, operands=None) -> torch.Tensor:
     """The ring kernels' walk, in plain PyTorch: S1-v2 on u8 tiles, S1-v3 or
     S1-v5 on int8 tiles (the byte-reuse identity on `operands` = (xa, xb),
-    made from x unless given), or S1-v4 on pack_int4_native's bytes.
+    made from x unless given), S1-v4 on pack_int4_native's bytes, or the
+    probes on u8 tiles: S1-dma (x's first K/2 columns against the byte, no
+    scale, no correction) and S1-vpu (no x: x, scale and n_out are unused;
+    returns the fp32 column sums [n_tiles, tw] of every column).
 
     Items of (tile, K slice) for each chunk of RING_M_TILE rows of x (one
     row at M = 1): K cut into `k_slices` slices of `ring_slice_rows` byte
@@ -247,32 +256,41 @@ def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, 
     (at M > 1 the kernel decodes L and H to bf16 for mma.sync, which sums
     the same exact products); the byte reuse takes `_ring_decode`'s low
     nibble against xa and the byte against xb (at M > 1 on mma.sync as the
-    bf16 pair (low nibble, byte): the same exact products). Each item sums
-    into an fp32 partial (the byte reuse: and sums its slice of xa + c xb,
-    c = 17 for v2, 1 for v3 and v5); a tile's partials are summed in slice
-    order, then the correction, 8 times the items' sums in slice order, is
-    taken once, the scale applied and the result rounded once to x's dtype.
-    Used by tests only."""
+    bf16 pair (low nibble, byte): the same exact products); dma one product
+    a byte (at M > 1 two byte rows a bf16 pair on mma.sync m16n8k8). Each
+    item sums into an fp32 partial (the byte reuse: and sums its slice of
+    xa + c xb, c = 17 for v2, 1 for v3 and v5); a tile's partials are summed
+    in slice order, then the correction, 8 times the items' sums in slice
+    order, is taken once, the scale applied and the result rounded once to
+    x's dtype (vpu: none of these). Used by tests only."""
     if variant not in RING_VARIANTS:
         raise ValueError(f"ring_schedule: variant {variant!r} not one of {RING_VARIANTS}")
     n_tiles, k2, tw = tiles.shape
-    m = x.shape[0]
+    vpu = variant == "vpu"
+    m = 1 if vpu else x.shape[0]
     k_slices = ring_k_slices(n_tiles, k2, sms) if k_slices is None else k_slices
     _check_k_slices("ring_schedule", k2, k_slices, m)
     rows, stage_rows = ring_slice_rows(k2, k_slices), ring_stage_rows(tw)
     wa, wb = _ring_decode(variant, tiles)
-    corr = torch.zeros(m, device=x.device)
+    corr = torch.zeros(m, device=tiles.device)
+    a = b = None
     if variant == "v4":
         xf = x.float()
         a, b = xf[:, 0::2], xf[:, 1::2] / 16.0  # the odd rows meet 16 H
-    else:
+    elif variant == "dma":
+        a = x[:, :k2].float()
+    elif not vpu:
         xa, xb = operands or byte_reuse_operands(x, k2)
         a, b = xa.float(), xb.float()
         c = BYTE_REUSE[variant][1]
         for r0 in range(0, k2, rows):  # each item's sum of xa + c xb, in slice order
             corr = corr + (a[:, r0:r0 + rows] + c * b[:, r0:r0 + rows]).sum(1)
         corr = 8.0 * corr
-    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if vpu:
+        n_out = n_tiles * tw
+        out = torch.empty((n_tiles, tw), dtype=torch.float32, device=tiles.device)
+    else:
+        out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     m_tile = _ring_m_tile(m)
     for m0 in range(0, m, m_tile):
         rm = slice(m0, m0 + m_tile)
@@ -282,15 +300,26 @@ def ring_schedule(x: torch.Tensor, tiles: torch.Tensor, scale: torch.Tensor, *, 
                 break
             partials = []
             for r0 in range(0, k2, rows):  # an item
-                acc = torch.zeros((a[rm].shape[0], tw), dtype=torch.float32, device=x.device)
+                acc = torch.zeros((min(m, m0 + m_tile) - m0, tw), dtype=torch.float32,
+                                  device=tiles.device)
                 for s0 in range(r0, min(k2, r0 + rows), stage_rows):  # its stages
                     rs = slice(s0, min(k2, r0 + rows, s0 + stage_rows))
-                    acc = acc + a[rm, rs] @ wa[t, rs] + b[rm, rs] @ wb[t, rs]
+                    if vpu:  # the decoded values, added
+                        acc = acc + (wa[t, rs] + wb[t, rs]).sum(0)
+                    else:
+                        acc = acc + a[rm, rs] @ wa[t, rs]
+                        if b is not None:
+                            acc = acc + b[rm, rs] @ wb[t, rs]
                 partials.append(acc)
             total = partials[0]
             for part in partials[1:]:  # slice order
                 total = total + part
-            y = (total[:, : n1 - n0] - corr[rm, None]) * scale[n0:n1].float()
+            if vpu:
+                out[t] = total[0]
+                continue
+            y = total[:, : n1 - n0]
+            if variant != "dma":
+                y = (y - corr[rm, None]) * scale[n0:n1].float()
             out[rm, n0:n1] = y.to(x.dtype)
     return out
 
@@ -312,13 +341,31 @@ def byte_pair_bf16x2(byte: torch.Tensor, signed: bool) -> torch.Tensor:
     h = b | (b << 16) | (b >= 128).to(torch.int64) * 0xFF000000  # sign: selector nibble 8 + P
     v = (h & PAIR_KEEP) | PAIR_MAGIC
     sub = (PAIR_MAGIC | (h & PAIR_TOP_I8)) if signed else (PAIR_MAGIC & ~(h & PAIR_SIGN_U8))
+    return _bf16_halves(v) - _bf16_halves(sub)  # bf16 - bf16 of small integers: exact
 
-    def halves(word):
-        bits = torch.stack([word & 0xFFFF, word >> 16], dim=-1)
-        return (bits - (bits >= 0x8000).to(torch.int64) * 0x10000).to(torch.int16).view(
-            torch.bfloat16)
 
-    return halves(v) - halves(sub)  # bf16 - bf16 of small integers: exact
+def _bf16_halves(word: torch.Tensor) -> torch.Tensor:
+    """32-bit words (int64) -> [..., 2] bf16, the low half first."""
+    bits = torch.stack([word & 0xFFFF, word >> 16], dim=-1)
+    return (bits - (bits >= 0x8000).to(torch.int64) * 0x10000).to(torch.int16).view(
+        torch.bfloat16)
+
+
+# dma's M > 1 A operand (csrc/bench_int4_kernel.cu::byte_rows_bf16x2): a byte
+# of each of two byte rows, each with its sign above it
+ROWS_KEEP = 0x007F007F
+
+
+def byte_rows_bf16x2(byte0: torch.Tensor, byte1: torch.Tensor) -> torch.Tensor:
+    """The kernel's bf16 pair (byte0, byte1) of two u8 bytes, in plain torch
+    with the `.cu`'s constants: [..., 2] bf16. The prmt, the two lop3 and the
+    hsub2, written out."""
+    b0, b1 = byte0.to(torch.int64) & 0xFF, byte1.to(torch.int64) & 0xFF
+    # selector nibbles P, 8 + P, 4 + P, 12 + P: each byte, then its sign replicated
+    h = b0 | (b0 >= 128).long() * 0xFF00 | b1 << 16 | (b1 >= 128).long() * 0xFF000000
+    v = (h & ROWS_KEEP) | PAIR_MAGIC
+    sub = PAIR_MAGIC & ~h
+    return _bf16_halves(v) - _bf16_halves(sub)  # bf16 - bf16 of small integers: exact
 
 
 # ------------------------------------------------------------ the wrappers
@@ -363,26 +410,25 @@ def _byte_reuse_operands_cuda(entry, x, k2, operands):
     return xa, xb
 
 
-def _ring_split(entry, x, tiles, k_slices):
-    """The ring entries' last arguments: the K slices (0: `ring_k_slices` for
-    the card x lies on), the items' fp32 partials (a fresh buffer each call,
-    of a size fixed by the shape) and the tiles' zero tickets (a kept
-    buffer); (1, 0, 0) where K is not split. Also returns the partials'
-    tensor, which the caller holds until the launch is enqueued."""
+def _ring_split(entry, m, device, tiles, k_slices):
+    """The ring entries' last arguments for M = m rows of x on `device`: the
+    K slices (0: `ring_k_slices` for that card), the items' fp32 partials (a
+    fresh buffer each call, of a size fixed by the shape) and the tiles' zero
+    tickets (a kept buffer); (1, 0, 0) where K is not split. Also returns the
+    partials' tensor, which the caller holds until the launch is enqueued."""
     n_tiles, k2, bn = tiles.shape
-    m = x.shape[0]
     if bn > RING_MAX_TW or tiles.data_ptr() % 16:
         raise ValueError(f"{entry}: tiles {bn} wide (at most {RING_MAX_TW}) or not 16-byte "
                          "aligned")
     if k_slices == 0:
-        k_slices = ring_k_slices(n_tiles, k2, _build.sm_count(x.device))
+        k_slices = ring_k_slices(n_tiles, k2, _build.sm_count(device))
     _check_k_slices(entry, k2, k_slices, m)
     if k_slices == 1:
         return (1, 0, 0), None
     # the items' partials [n_tiles, k_slices, M, bn], then the byte reuse's row sums
     # [n_tiles, k_slices, M]
-    part = torch.empty(n_tiles * k_slices * m * (bn + 1), dtype=torch.float32, device=x.device)
-    tickets = _build.tickets_for(x.device, -(-m // _ring_m_tile(m)) * n_tiles)
+    part = torch.empty(n_tiles * k_slices * m * (bn + 1), dtype=torch.float32, device=device)
+    tickets = _build.tickets_for(device, -(-m // _ring_m_tile(m)) * n_tiles)
     return (k_slices, part.data_ptr(), tickets.data_ptr()), part
 
 
@@ -393,7 +439,7 @@ def _byte_reuse_ring(variant, x, tiles, scale, n_out, k_slices, operands, *flags
     n_tiles, k2, bn = _check_tiles(entry, tiles, BYTE_REUSE[variant][0])
     _check_product(entry, x, tiles, scale, n_out)
     xa, xb = _byte_reuse_operands_cuda(entry, x, k2, operands)
-    split, _part = _ring_split(entry, x, tiles, k_slices)
+    split, _part = _ring_split(entry, x.shape[0], x.device, tiles, k_slices)
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
     _build.launch(entry, x, xa.data_ptr(), xb.data_ptr(), tiles.data_ptr(), scale.data_ptr(),
                   out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, split[0], *flags,
@@ -442,7 +488,7 @@ def v4_matmul(x, packed_i4, scale, *, n_out, k_slices=0):
     _check_product(entry, x, packed_i4, scale, n_out)
     if not x.is_contiguous():
         raise ValueError("v4_matmul: x must be contiguous")
-    split, _part = _ring_split(entry, x, packed_i4, k_slices)
+    split, _part = _ring_split(entry, x.shape[0], x.device, packed_i4, k_slices)
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
     _build.launch(entry, x, x.data_ptr(), packed_i4.data_ptr(), scale.data_ptr(),
                   out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, *split)
@@ -450,27 +496,44 @@ def v4_matmul(x, packed_i4, scale, *, n_out, k_slices=0):
     return out
 
 
-def vpu_only(packed_tiles):
-    """S1-vpu: the unpack alone. Returns ([n_tiles, bn] fp32 column sums, their total)."""
+def vpu_column_sums(packed_tiles, *, k_slices=0):
+    """S1-vpu's kernel, on the ring body (no x: M is 1): the [n_tiles, bn]
+    fp32 column sums of (lo - 8) + (hi - 8); `k_slices` as for v2_matmul."""
+    if not _on_card("vpu_column_sums", packed_tiles):
+        return vpu_only_plain(packed_tiles)[0]
+    entry = "teochat_bench_int4_vpu"
+    n_tiles, k2, bn = _check_tiles(entry, packed_tiles, torch.uint8)
+    split, _part = _ring_split(entry, 1, packed_tiles.device, packed_tiles, k_slices)
+    cols = torch.empty((n_tiles, bn), dtype=torch.float32, device=packed_tiles.device)
+    _build.launch(entry, packed_tiles, packed_tiles.data_ptr(), cols.data_ptr(), k2, n_tiles, bn,
+                  *split)
+    LAUNCHES_VPU.count += 1
+    return cols
+
+
+def vpu_only(packed_tiles, *, k_slices=0):
+    """S1-vpu: the unpack alone. Returns ([n_tiles, bn] fp32 column sums,
+    their total): the kernel, then one torch sum, as the script sums its
+    kernel's output."""
     if not _on_card("vpu_only", packed_tiles):
         return vpu_only_plain(packed_tiles)
-    n_tiles, k2, bn = _check_tiles("vpu_only", packed_tiles, torch.uint8)
-    cols = torch.empty((n_tiles, bn), dtype=torch.float32, device=packed_tiles.device)
-    _build.launch("teochat_bench_int4_vpu", packed_tiles, packed_tiles.data_ptr(),
-                  cols.data_ptr(), k2, n_tiles, bn, 0)
-    LAUNCHES_VPU.count += 1
+    cols = vpu_column_sums(packed_tiles, k_slices=k_slices)
     return cols, cols.sum()
 
 
-def dma_only_matmul(x, packed_tiles, *, n_out):
-    """S1-dma: x_lo @ float(byte), unscaled: the floor set by the bytes and one product."""
+def dma_only_matmul(x, packed_tiles, *, n_out, k_slices=0):
+    """S1-dma: x_lo @ float(byte), unscaled: the floor set by the bytes and one
+    product, on the ring body. x [M, K] is read in place (its first K/2
+    columns, at its row stride); `k_slices` as for v2_matmul."""
     if not _on_card("dma_only_matmul", x):
         return dma_only_matmul_plain(x, packed_tiles, n_out=n_out)
-    n_tiles, k2, bn = _check_tiles("dma_only_matmul", packed_tiles, torch.uint8)
-    _check_product("dma_only_matmul", x, packed_tiles, None, n_out)
+    entry = "teochat_bench_int4_dma"
+    n_tiles, k2, bn = _check_tiles(entry, packed_tiles, torch.uint8)
+    _check_product(entry, x, packed_tiles, None, n_out)
+    split, _part = _ring_split(entry, x.shape[0], x.device, packed_tiles, k_slices)
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
-    _build.launch("teochat_bench_int4_dma", x, x.data_ptr(), x.stride(0), packed_tiles.data_ptr(),
-                  out.data_ptr(), x.shape[0], k2, n_tiles, bn, n_out, 0)
+    _build.launch(entry, x, x.data_ptr(), x.stride(0), packed_tiles.data_ptr(), out.data_ptr(),
+                  x.shape[0], k2, n_tiles, bn, n_out, *split)
     LAUNCHES_DMA.count += 1
     return out
 
@@ -643,23 +706,26 @@ def main(quick: bool = False, device=None):
 
 # ------------------------------------------------------------- what was compiled
 
-# a kernel's mangled name: the first body's <BN = 32, MT = 1>, the ring body's <MT = 1 or 8>
-SASS_KERNEL = re.compile(r"\S*bench_int4_(\w+?)_kernelILi(?:32ELi1|(1|8))E")
+# a kernel's mangled name: the ring body's <MT = 1 or 8>
+SASS_KERNEL = re.compile(r"\S*bench_int4_(\w+?)_kernelILi(1|8)E")
 
 
 def sass_key(name: str) -> str | None:
     """The key `sass_counts` files the kernel of mangled name `name` under:
-    `dma`, `vpu`, `v2_ring` .. at M = 1, `v2_ring m8` .. at M > 1; None for
-    the instantiations it leaves out."""
+    `v2_ring` .. `v5_ring`, `dma_ring`, `vpu_ring` at M = 1, `v2_ring m8` ..
+    at M > 1; None for a name that is no S1 kernel, and for vpu's M > 1
+    instance (built because `RING_LAUNCH` names it, empty, never launched)."""
     found = SASS_KERNEL.match(name)
-    return found and found.group(1) + (" m8" if found.group(2) == "8" else "")
+    if not found or found.group(2) == "8" and found.group(1) == "vpu_ring":
+        return None
+    return found.group(1) + (" m8" if found.group(2) == "8" else "")
 
 
 def sass_counts():
     """Instruction counts by opcode of each S1 kernel's M = 1 instantiation
-    (the first body's at BN = 32, keyed `dma`, `vpu`; the ring body's keyed
-    `v2_ring` .. `v5_ring`) and of the ring body's M > 1 one (keyed
-    `v2_ring m8` ..), from `cuobjdump -sass` of the built library."""
+    (keyed `v2_ring` .. `v5_ring`, `dma_ring`, `vpu_ring`) and of its M > 1
+    one (keyed `v2_ring m8` ..; vpu has none), from `cuobjdump -sass` of
+    the built library."""
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
     text = subprocess.run([tool, "-sass", str(_build.library().path)], capture_output=True,
                           text=True, check=True).stdout

@@ -29,47 +29,43 @@
 //        nibble in place (2^23 + 16 (H + 8)), two subtractions; x's odd K
 //        row is taken / 16 (exact) against the high value 16 H.
 //   vpu  unpack only: per column the sum over byte rows of (lo - 8) + (hi - 8)
-//        of the u8 format, padded columns included.
-//   dma  no unpack: x_lo . float(byte), no scale: what the bytes and one
-//        multiply-add a byte cost.
+//        of the u8 format, padded columns included; no x, no product.
+//   dma  no unpack: x_lo . float(byte), no scale: what the ring body costs
+//        with one multiply-add a byte, its merge of K slices included (so the
+//        floor of this body, not of the bytes alone: PERF.md, sections 6 and
+//        7). At M > 1 a byte is one k slot of mma.sync m16n8k8: two byte rows
+//        make the bf16 pair (byte_rows_bf16x2).
 //
 // What bounds them on an H100: at M <= 8 the packed bytes (23 MB for the
 // 4096 x 11008 projection, each read once: 6.9 us at 3.35 TB/s), and, as
 // measured on the card (PERF.md, section 6, PR 12), ~12 us for any single
 // launch that reads them (a plain 16-byte-load stream: 11.6-12.8 us, ~3 us
-// of it the launch), before any decode. Two bodies:
-//
-//   ring_body (v2, v3, v4, v5). A work item is (tile, K slice); the slice count
-//   (bench/int4_kernel.py::ring_k_slices, from the card's SM count) makes
-//   n_tiles x k_slices fill whole waves of one block an SM (22 x 6 = 132 at
-//   tw 512). A K slice of a tile is one contiguous range of bytes, so one
-//   thread streams it with 1-D bulk copies of whole stages
-//   (RING_STAGE_BYTES: 32 rows at tw 512) into a ring of RING_STAGES, 64 KB
-//   an SM in flight (4 stages measured as fast as 3, faster than 2, 6, 8); no tensor
-//   map, nothing encoded on the host. The item's slice of x is bulk-copied
-//   once beside it. At M = 1, 16 consumer warps read a stage's rows with
-//   16-byte loads (a 512-byte row is one warp) and FMA into 16 columns of
-//   fp32 a thread; at M > 1, 8 warps take 8 rows of x at once: v3 by FMAs,
-//   v2, v4 and v5 on mma.sync m16n8k16 with x's rows as n (v4's nibbles
-//   decoded to bf16 under 0x4300; v2's and v5's bytes as the bf16 pair
-//   (low nibble, byte) against (xa, xb)). The producer warp, idle once its
-//   copies are issued, loads the tile's scales and sums the byte-reuse
-//   slice of xa + c xb from shared memory. Each item writes its fp32 partial
-//   [M, tw] to a workspace and takes a ticket; the tile's last block sums the
-//   partials in slice order, takes the byte-reuse correction once, scales,
-//   rounds once to bf16 and resets the ticket, so the same inputs give the
-//   same bits on every launch. Beyond
-//   the stream, what sets its pace (measured): the merge, ~2 us (three
-//   round trips through the L2: partial, ticket, partials), and the
-//   consumers, ~7 instructions a byte at M = 1 (two FADD and two FFMA
-//   among them): some 60 % of an SM's issue slots over the stream's ~10 us,
-//   and the last stages expose ~1.3 us of it.
-//   stream_body (dma, vpu): the first design, a block owns a band of
-//   columns and all byte rows; a lane reads 4-byte words of 8 consecutive
-//   rows and the matching activations with 16-byte loads, the next step's
-//   words a step ahead; fp32 accumulators in registers; one reduction at
-//   the end.
-// Both run M > 8 as row chunks of 8 in the grid.
+// of it the launch), before any decode. One body, ring_body, runs all six.
+// A work item is (tile, K slice); the slice count
+// (bench/int4_kernel.py::ring_k_slices, from the card's SM count) makes
+// n_tiles x k_slices fill whole waves of one block an SM (22 x 6 = 132 at tw
+// 512). A K slice of a tile is one contiguous range of bytes, so one thread
+// streams it with 1-D bulk copies of whole stages (RING_STAGE_BYTES: 32 rows
+// at tw 512) into a ring of RING_STAGES, 64 KB an SM in flight (4 stages
+// measured as fast as 3, faster than 2, 6, 8); no tensor map, nothing encoded
+// on the host. The item's slice of x (vpu has none) is bulk-copied once
+// beside it. At M = 1, 16 consumer warps read a stage's rows with 16-byte
+// loads (a 512-byte row is one warp) and FMA into 16 columns of fp32 a thread
+// (vpu adds the decoded values); at M > 1, 8 warps take 8 rows of x at once:
+// v3 by FMAs, v2, v4, v5 and dma on mma.sync with x's rows as n (v4's nibbles
+// decoded to bf16 under 0x4300; v2's and v5's bytes as the bf16 pair (low
+// nibble, byte) against (xa, xb); dma's bytes of two rows as one pair against
+// x's two rows). The producer warp, idle once its copies are issued, loads
+// the tile's scales and sums the byte-reuse slice of xa + c xb from shared
+// memory. Each item writes its fp32 partial [M, tw] to a workspace and takes
+// a ticket; the tile's last block sums the partials in slice order, takes the
+// byte-reuse correction once, scales, rounds once to bf16 (vpu: stores the
+// fp32 sums) and resets the ticket, so the same inputs give the same bits on
+// every launch. Beyond the stream, what sets its pace (measured): the merge,
+// ~2 us (three round trips through the L2: partial, ticket, partials), and
+// the consumers, ~7 instructions a byte at M = 1 (two FADD and two FFMA among
+// them): some 60 % of an SM's issue slots over the stream's ~10 us, and the
+// last stages expose ~1.3 us of it. M > 8 runs as row chunks of 8 in the grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,29 +79,10 @@ namespace {
 
 using namespace teochat;
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int ROWS = 8;       // consecutive byte rows a thread takes at a time
 constexpr uint32_t MAGIC = 0x4B000000u;  // the float 2^23: an integer < 2^23 or-ed in adds to it
 constexpr float TWO23 = 8388608.f;
 
 enum Variant { V2, V3, V3_M16, V5, V4, DMA, VPU };
-
-struct Args {  // stream_body's
-  const uint16_t* a;     // x_lo (dma); unused (vpu)
-  const uint8_t* tiles;  // [n_tiles, k2, tw] bytes
-  void* out;             // bf16 [M, n_out]; fp32 [n_tiles * tw] column sums (vpu)
-  int M, k2, tw, n_total, n_out;
-  long long a_rs;        // row stride of a, in elements
-};
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 // byte j of w as the low mantissa bits of 2^23: widen and convert in one prmt
 __device__ __forceinline__ uint32_t under_magic(uint32_t w, int j) {
@@ -166,122 +143,7 @@ __device__ __forceinline__ void decode(uint32_t w, float (&wa)[4], float (&wb)[4
   }
 }
 
-// Lane (rg, cg) of a warp owns 4 columns (one 4-byte word a row) and, in each
-// step, 8 consecutive byte rows; the 8 weight words of a step are in flight
-// together and nothing synchronizes until the final sum over row groups and
-// warps. Block (x, y): columns [x BN, x BN + BN), rows [y MT, y MT + MT) of x.
-// red is the block's shared scratch (SCRATCH below).
-template <int V, int MT, int BN>
-__device__ __forceinline__ void stream_body(const Args& p, float* red) {
-  constexpr int LPR = BN / 4;   // lanes across one row of the band
-  constexpr int RG = 32 / LPR;  // row groups of a warp
-  constexpr int STEP = 8 * RG * ROWS;  // byte rows the block takes in one step
-  constexpr bool HAS_A = V != VPU;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = lane / LPR, cg = lane % LPR;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * MT;
-  const int k2 = p.k2;
-  // tw is a multiple of 128 >= BN: a band never straddles two tiles
-  const uint8_t* wbytes =
-      p.tiles + static_cast<long long>(n0 / p.tw) * k2 * p.tw + (n0 % p.tw) + cg * 4;
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
-
-  // k2 is a multiple of 8: a thread's 8 rows are all inside or all outside.
-  // The next step's words are loaded before this step's are decoded, so 8
-  // loads a thread stay in flight whatever order the compiler gives the rest.
-  uint32_t words[ROWS], ahead[ROWS];
-  const int r_first = (warp * RG + rg) * ROWS;
-#pragma unroll
-  for (int u = 0; u < ROWS; ++u)
-    ahead[u] = r_first < k2 ? *reinterpret_cast<const uint32_t*>(
-                                  wbytes + static_cast<long long>(r_first + u) * p.tw)
-                            : 0u;
-#pragma unroll(MT <= 2 ? 2 : 1)
-  for (int r = r_first; r < k2; r += STEP) {
-#pragma unroll
-    for (int u = 0; u < ROWS; ++u) {
-      words[u] = ahead[u];
-      if (r + STEP < k2)
-        ahead[u] = *reinterpret_cast<const uint32_t*>(
-            wbytes + static_cast<long long>(r + STEP + u) * p.tw);
-    }
-    uint4 xa[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      xa[m] = make_uint4(0, 0, 0, 0);
-      if (HAS_A && m0 + m < p.M)
-        xa[m] = __ldg(reinterpret_cast<const uint4*>(p.a + (m0 + m) * p.a_rs + r));
-    }
-    float wa[ROWS][4], wb[ROWS][4];
-#pragma unroll
-    for (int u = 0; u < ROWS; ++u) decode<V>(words[u], wa[u], wb[u]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (V == VPU) {  // no product: the decoded values are summed as they are
-#pragma unroll
-        for (int u = 0; u < ROWS; ++u)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] += wa[u][j] + wb[u][j];
-      } else {
-        float fa[ROWS];
-        unpack8(xa[m], fa);
-#pragma unroll
-        for (int u = 0; u < ROWS; ++u)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(fa[u], wa[u][j], acc[m][j]);
-      }
-    }
-  }
-
-  // sum the row groups of a warp, then the 8 warps through shared memory
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int off = LPR; off < 32; off <<= 1)
-        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], off);
-  if (rg == 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[(warp * MT + m) * BN + cg * 4 + j] = acc[m][j];
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < MT * BN; idx += THREADS) {
-    const int m = idx / BN, n = n0 + idx % BN;
-    float sum = 0.f;
-#pragma unroll
-    for (int wq = 0; wq < 8; ++wq) sum += red[wq * MT * BN + idx];
-    if (V == VPU) {
-      static_cast<float*>(p.out)[n] = sum;  // every column that has bytes, padding included
-      continue;
-    }
-    if (m0 + m >= p.M || n >= p.n_out) continue;
-    static_cast<uint16_t*>(p.out)[static_cast<long long>(m0 + m) * p.n_out + n] =
-        __bfloat16_as_ushort(__float2bfloat16_rn(sum));
-  }
-}
-
-#define SCRATCH __shared__ float red[8 * MT * BN]
-
-template <int BN, int MT>
-__global__ void __launch_bounds__(THREADS) bench_int4_vpu_kernel(Args p) {
-  SCRATCH;
-  stream_body<VPU, MT, BN>(p, red);
-}
-
-template <int BN, int MT>
-__global__ void __launch_bounds__(THREADS) bench_int4_dma_kernel(Args p) {
-  SCRATCH;
-  stream_body<DMA, MT, BN>(p, red);
-}
-
-// ------------------------------------------------ the ring body (v2, v3, v4, v5)
+// ------------------------------------------------------------ the ring body
 
 // The walk, written out in plain PyTorch as
 // teochat_torch/bench/int4_kernel.py::ring_schedule, whose constants a test
@@ -312,11 +174,15 @@ static_assert(RING_STAGE_BYTES % RING_MAX_TW == 0 && RING_STAGE_BYTES / RING_MAX
               "whole rows a stage at every tile width");
 
 struct RingArgs {
-  const uint16_t* a;     // v2, v3, v5: xa [M, k2]; v4: x [M, 2 k2] (K rows 2i, 2i + 1: byte row i)
-  const uint16_t* b;     // v2, v3, v5: xb [M, k2]; v4: unused
+  // v2, v3, v5: xa [M, k2]; v4: x [M, 2 k2] (K rows 2i, 2i + 1: byte row i); dma: x, its
+  // first k2 columns; vpu: unused. Row stride a_rs elements, 16-byte rows.
+  const uint16_t* a;
+  long long a_rs;
+  const uint16_t* b;     // v2, v3, v5: xb [M, k2]; else unused
   const uint8_t* tiles;  // [n_tiles, k2, tw] bytes
-  const float* scale;    // fp32, at least n_out entries
-  uint16_t* out;         // bf16 [M, n_out]
+  const float* scale;    // v2-v5: fp32, at least n_out entries
+  uint16_t* out;         // bf16 [M, n_out] (all but vpu)
+  float* sums;           // vpu: fp32 [n_tiles * tw], every column
   float* part;           // fp32 [n_tiles, k_slices, M, tw], then [n_tiles, k_slices, M]
   int* tickets;          // int32 [m_chunks, n_tiles], zero before and after (k_slices > 1)
   int M, k2, tw, n_tiles, n_out, k_slices, slice_rows;
@@ -370,6 +236,25 @@ __device__ __forceinline__ uint32_t byte_pair_bf16x2(uint32_t w) {
   return *reinterpret_cast<uint32_t*>(&d);
 }
 
+// Byte P of w0 and byte P of w1 (dma: u8 bytes of two byte rows) as a bf16
+// pair, the two k slots of an m16n8k8 A operand. As byte_pair_bf16x2, with a
+// byte in each half: one prmt puts w0's byte at bit 0 and w1's at bit 16, each
+// with its sign over the next 8 bits (selector nibbles 8 + P, 12 + P), one lop3
+// keeps both under 128 (bf16 0x4300), one lop3 makes each half's subtrahend
+// (128, or 0 where the byte is >= 128), one hsub2 takes them away. Exact.
+template <int P>
+__device__ __forceinline__ uint32_t byte_rows_bf16x2(uint32_t w0, uint32_t w1) {
+  uint32_t h;
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(h)
+      : "r"(w0), "r"(w1), "r"(P | ((8 | P) << 4) | ((4 + P) << 8) | ((12 + P) << 12)));
+  const uint32_t v = (h & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sub = 0x43004300u & ~h;
+  __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<uint32_t*>(&d);
+}
+
 __device__ __forceinline__ float bf16_bits(uint32_t h) { return __uint_as_float(h << 16); }
 
 // The correction's coefficient on sum xb: 8 (sum xa + c sum xb), c = 17 for
@@ -383,11 +268,12 @@ __host__ __device__ constexpr float ring_xb_coeff() {
 // past n_out) into sh.scale and, for the byte reuse, the item's share of the
 // correction, the sum over its slice of xa + c xb for each row of x, into
 // sh.corr (from the slice of x in shared memory; lanes stride the rows, then
-// a shuffle).
+// a shuffle). The probes (dma, vpu) have neither.
 template <int V, int MT>
 __device__ __forceinline__ void ring_producer_tail(const RingArgs& p, const uint8_t* xs,
                                                    int x_row_bytes, int rows, int tile,
                                                    int m_live, RingShared& sh) {
+  if (V == DMA || V == VPU) return;
   const int lane = threadIdx.x & 31;
   for (int col = lane; col < p.tw; col += 32) {
     const int n = tile * p.tw + col;
@@ -409,7 +295,7 @@ __device__ __forceinline__ void ring_producer_tail(const RingArgs& p, const uint
 }
 
 // The stage rows of a tile `tw` bytes wide: whole groups of RING_ALIGN rows
-// (one m16n8k16 step's 16 k of the mma.sync consumer) in RING_STAGE_BYTES.
+// (one k step of the mma.sync consumer) in RING_STAGE_BYTES.
 __device__ __forceinline__ int ring_stage_rows(int tw) {
   return RING_STAGE_BYTES / tw / RING_ALIGN * RING_ALIGN;
 }
@@ -417,7 +303,8 @@ __device__ __forceinline__ int ring_stage_rows(int tw) {
 // The FMA consumer (M = 1, and v3 at every M). Thread (g, c) = (tid / (tw /
 // 16), tid % (tw / 16)) owns bytes [16 c, 16 c + 16) of rows g, g + groups,
 // ... of each stage: 16 columns, all MT rows of x, fp32 accumulators in
-// registers. Its sums go to red[g][MT][tw]; returns the row groups.
+// registers (dma: one FMA a byte; vpu: no x, the decoded values added). Its
+// sums go to red[g][MT][tw]; returns the row groups.
 template <int V, int MT, int W>
 __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t* smem,
                                                 const uint8_t* xs, int x_row_bytes, int rows,
@@ -451,10 +338,13 @@ __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t
                 *reinterpret_cast<const uint32_t*>(xs + m * x_row_bytes + 4 * rr);
             fa[m] = bf16_bits(pair & 0xffffu);
             fb[m] = __uint_as_float(pair & 0xffff0000u) * 0.0625f;
+          } else if (V == VPU) {  // no x
+            fa[m] = fb[m] = 0.f;
           } else {
             fa[m] = bf16_bits(*reinterpret_cast<const uint16_t*>(xs + m * x_row_bytes + 2 * rr));
-            fb[m] = bf16_bits(
-                *reinterpret_cast<const uint16_t*>(xs + (MT + m) * x_row_bytes + 2 * rr));
+            fb[m] = V == DMA ? 0.f
+                             : bf16_bits(*reinterpret_cast<const uint16_t*>(
+                                   xs + (MT + m) * x_row_bytes + 2 * rr));
           }
         }
         const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
@@ -466,8 +356,12 @@ __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t
           for (int m = 0; m < MT; ++m)
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
+              if (V == VPU) {  // the unpack alone: no product
+                acc[m][4 * q + j] += wa[j] + wb[j];
+                continue;
+              }
               acc[m][4 * q + j] = fmaf(fa[m], wa[j], acc[m][4 * q + j]);
-              acc[m][4 * q + j] = fmaf(fb[m], wb[j], acc[m][4 * q + j]);
+              if (V != DMA) acc[m][4 * q + j] = fmaf(fb[m], wb[j], acc[m][4 * q + j]);
             }
         }
       }
@@ -487,7 +381,7 @@ __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t
   return groups;
 }
 
-// The mma.sync consumer (v2, v4, v5 at M > 1, x's 8 rows as n). A warp owns
+// The mma.sync consumer (v2, v4, v5, dma at M > 1, x's 8 rows as n). A warp owns
 // 128-column blocks cb (cb = warp % (tw / 128) and the warps that share it
 // take turns over a stage's 8-row groups, or cb = warp, warp + 8 where a tile
 // has 8 or more). Lane (g, t) reads 16 bytes, columns [16 g, 16 g + 16) of
@@ -497,15 +391,20 @@ __device__ __forceinline__ int ring_consume_fma(const RingArgs& p, const uint8_t
 // of those rows' bytes: v4 the two nibbles (K rows 2 r, 2 r + 1), v2 and v5
 // (low nibble, byte). The B operand is x's row g at the same slots: v4 K rows
 // 2 r, 2 r + 1 (one 32-bit load), v2 and v5 (xa[r], xb[r]) (two 16-bit loads
-// and a prmt). Its sums go to red[slot][8][tw], slot = the warp's turn among
-// its block's.
+// and a prmt). dma's byte is one k slot: lane (g, t) reads byte rows 2t and
+// 2t + 1 instead, 8 m16n8k8 products take a group, each A register the pair
+// of those rows' bytes of one column (byte_rows_bf16x2), and B = (x[r],
+// x[r + 1]) is one 32-bit load. Its sums go to red[slot][8][tw], slot = the
+// warp's turn among its block's.
 template <int V, int MT, int W>
 __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_t* smem,
                                                  const uint8_t* xs, int x_row_bytes, int rows,
                                                  RingShared& sh, float* red) {
   constexpr bool NATIVE = V == V4;
+  constexpr bool K8 = V == DMA;  // a byte is one k slot: m16n8k8
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tw = p.tw;
   const int gq = lane >> 2, t = lane & 3;
+  const int ra = K8 ? 2 * t : t, rb = K8 ? 2 * t + 1 : t + 4;  // the lane's rows of a group
   const int n_cb = tw / 128, wide = n_cb >= W;
   const int cb0 = wide ? warp : warp % n_cb, slot = wide ? 0 : warp / n_cb;
   const int n_slot = wide ? 1 : (W - 1 - cb0) / n_cb + 1;
@@ -529,11 +428,14 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
       if (h >= n_blocks) break;
       const uint8_t* col = stage + (cb0 + h * W) * 128;
       for (int rg = slot; rg < n_groups; rg += n_slot) {
-        const int r0 = rg * RING_ALIGN, r = r_stage + r0 + t;  // r: the row within the slice
-        const uint4 w0 = *reinterpret_cast<const uint4*>(col + (r0 + t) * tw);
-        const uint4 w1 = *reinterpret_cast<const uint4*>(col + (r0 + t + 4) * tw);
+        const int r0 = rg * RING_ALIGN, r = r_stage + r0 + ra;  // r: the row within the slice
+        const uint4 w0 = *reinterpret_cast<const uint4*>(col + (r0 + ra) * tw);
+        const uint4 w1 = *reinterpret_cast<const uint4*>(col + (r0 + rb) * tw);
         uint32_t b0, b1;
-        if (NATIVE) {
+        if (K8) {
+          b0 = *reinterpret_cast<const uint32_t*>(xa + r);
+          b1 = 0;
+        } else if (NATIVE) {
           const uint8_t* xr = xs + gq * x_row_bytes + 4 * r;
           b0 = *reinterpret_cast<const uint32_t*>(xr);
           b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
@@ -544,6 +446,13 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
         const uint32_t u0[4] = {w0.x, w0.y, w0.z, w0.w}, u1[4] = {w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
+          if (K8) {  // columns 4q, 4q + 1, then 4q + 2, 4q + 3 of the lane's 16
+            mma_1688(acc[h][2 * q], byte_rows_bf16x2<0>(u0[q], u1[q]),
+                     byte_rows_bf16x2<1>(u0[q], u1[q]), b0);
+            mma_1688(acc[h][2 * q + 1], byte_rows_bf16x2<2>(u0[q], u1[q]),
+                     byte_rows_bf16x2<3>(u0[q], u1[q]), b0);
+            continue;
+          }
           uint32_t a[2][4];
           if (NATIVE) {
             const uint32_t s0 = u0[q] ^ 0x88888888u, s1 = u1[q] ^ 0x88888888u;
@@ -593,7 +502,8 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
 // Block (slice, tile, chunk): byte rows [slice * slice_rows, + slice_rows) of
 // tile `tile` (the last slice ragged), x rows [chunk MT, chunk MT + MT).
 // Warp W's lane 0 bulk-copies the item's slice of x (v4: x's K rows
-// 2 r .. of each row; the byte reuse: xa and xb at r ..) after the ring,
+// 2 r .. of each row; the byte reuse: xa and xb at r ..; dma: x at r ..;
+// vpu: nothing) after the ring,
 // then the slice's stages of ring_stage_rows(tw) rows into the ring (a
 // ragged last stage copies what is left), waiting on a slot's `empty`
 // barrier before reusing it; the warp then loads the tile's scales (and the
@@ -602,6 +512,8 @@ __device__ __forceinline__ void ring_consume_mma(const RingArgs& p, const uint8_
 template <int V, int MT, int W>
 __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, RingShared& sh) {
   constexpr bool NATIVE = V == V4;
+  constexpr bool BYTE_REUSE = V == V2 || V == V3 || V == V3_M16 || V == V5;  // xa, xb, a correction
+  constexpr int X_COPIES = V == VPU ? 0 : BYTE_REUSE ? 2 : 1;  // copies of x's slice, a row of x
   constexpr bool MMA = MT > 1 && V != V3 && V != V3_M16;  // v3 keeps its FMAs at every M
   constexpr int C = W * 32;  // consumer threads
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -609,7 +521,8 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
   const int m0 = chunk * MT, m_live = min(MT, p.M - m0);
   const int tw = p.tw, k2 = p.k2, slice_rows = p.slice_rows;
   const int r_begin = slice * slice_rows, rows = min(k2 - r_begin, slice_rows);
-  // x's slice after the ring: v4 [MT][2 slice_rows] bf16; else xa [MT][slice_rows], then xb
+  // x's slice after the ring: v4 [MT][2 slice_rows] bf16; else xa (dma: x) [MT][slice_rows],
+  // then xb
   uint8_t* xs = smem + RING_BYTES;
   const int x_row_bytes = (NATIVE ? 4 : 2) * slice_rows;
 
@@ -630,17 +543,13 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
     if (lane == 0) {
       const uint32_t x_bar = smem_u32(&sh.bars[2 * RING_STAGES]);
       const int x_bytes = (NATIVE ? 4 : 2) * rows;  // one row of x's slice (of xa, of xb)
-      mbar_arrive_expect_tx(x_bar, m_live * x_bytes * (NATIVE ? 1 : 2));
-      for (int m = 0; m < m_live; ++m) {
-        if (NATIVE) {
-          bulk_load_1d(smem_u32(xs + m * x_row_bytes),
-                       p.a + (m0 + m) * 2LL * k2 + 2LL * r_begin, x_bytes, x_bar);
-        } else {
-          bulk_load_1d(smem_u32(xs + m * x_row_bytes), p.a + (m0 + m) * (long long)k2 + r_begin,
-                       x_bytes, x_bar);
+      if (X_COPIES) mbar_arrive_expect_tx(x_bar, m_live * x_bytes * X_COPIES);
+      for (int m = 0; X_COPIES && m < m_live; ++m) {
+        bulk_load_1d(smem_u32(xs + m * x_row_bytes),
+                     p.a + (m0 + m) * p.a_rs + (NATIVE ? 2LL : 1LL) * r_begin, x_bytes, x_bar);
+        if (X_COPIES == 2)
           bulk_load_1d(smem_u32(xs + (MT + m) * x_row_bytes),
                        p.b + (m0 + m) * (long long)k2 + r_begin, x_bytes, x_bar);
-        }
       }
       const uint8_t* src = p.tiles + (static_cast<long long>(tile) * k2 + r_begin) * tw;
       const int stage_rows = ring_stage_rows(tw);
@@ -659,7 +568,7 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
     __syncthreads();
   } else {
     // ----------------------------------------------------------- consumers
-    mbar_wait(smem_u32(&sh.bars[2 * RING_STAGES]), 0);
+    if (X_COPIES) mbar_wait(smem_u32(&sh.bars[2 * RING_STAGES]), 0);
     if constexpr (MMA)
       ring_consume_mma<V, MT, W>(p, smem, xs, x_row_bytes, rows, sh, red);
     else
@@ -680,13 +589,15 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
   };
   auto finish4 = [&](int m, int col, float4 v, float row_sum) {  // correction, scale, rounding
     const float vals[4] = {v.x, v.y, v.z, v.w};
-    const float corr = NATIVE ? 0.f : 8.f * row_sum;
+    const float corr = BYTE_REUSE ? 8.f * row_sum : 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = tile * tw + col + j;
-      if (n < p.n_out)
-        p.out[static_cast<long long>(m0 + m) * p.n_out + n] =
-            __bfloat16_as_ushort(__float2bfloat16_rn((vals[j] - corr) * sh.scale[col + j]));
+      if (V == VPU)  // every column, padding included, unrounded
+        p.sums[n] = vals[j];
+      else if (n < p.n_out)
+        p.out[static_cast<long long>(m0 + m) * p.n_out + n] = __bfloat16_as_ushort(
+            __float2bfloat16_rn(V == DMA ? vals[j] : (vals[j] - corr) * sh.scale[col + j]));
     }
   };
   auto part_at = [&](int sl, int m, int col) {
@@ -709,7 +620,7 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
         else
           finish4(m, col, v, sh.corr[m]);
       }
-    if (!NATIVE && split && tid < m_live) __stcg(sum_at(slice, tid), sh.corr[tid]);
+    if (BYTE_REUSE && split && tid < m_live) __stcg(sum_at(slice, tid), sh.corr[tid]);
   }
   if (!split) return;
 
@@ -737,7 +648,7 @@ __device__ __forceinline__ void ring_body(const RingArgs& p, uint8_t* smem, Ring
       for (int sl = 0; sl < p.k_slices; ++sl) {  // slice order: the same sum on every launch
         const float4 q = __ldcg(part_at(sl, m, col));
         v.x += q.x, v.y += q.y, v.z += q.z, v.w += q.w;
-        if (!NATIVE) row_sum += __ldcg(sum_at(sl, m));
+        if (BYTE_REUSE) row_sum += __ldcg(sum_at(sl, m));
       }
       finish4(m, col, v, row_sum);
     }
@@ -779,6 +690,25 @@ __global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
   ring_body<V2, MT, ring_warps(MT)>(p, smem, sh);
 }
 
+template <int MT>
+__global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
+    bench_int4_dma_ring_kernel(RingArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ RingShared sh;
+  ring_body<DMA, MT, ring_warps(MT)>(p, smem, sh);
+}
+
+// vpu has no x: its entry launches M = 1 alone. RING_LAUNCH names an M > 1
+// instance of every kernel, so vpu's is built on purpose, empty and never
+// launched (bench/int4_kernel.py::sass_key leaves it out)
+template <int MT>
+__global__ void __launch_bounds__((ring_warps(MT) + 1) * 32, 1)
+    bench_int4_vpu_ring_kernel(RingArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ RingShared sh;
+  if constexpr (MT == 1) ring_body<VPU, MT, ring_warps(MT)>(p, smem, sh);
+}
+
 // byte rows of each K slice but the last: k2 / k_slices rounded up to whole groups
 int ring_slice_rows(int k2, int k_slices) {
   const int per = (k2 + k_slices - 1) / k_slices;
@@ -793,7 +723,8 @@ int ring_check(const RingArgs& p, int m_tile) {
   if ((p.k2 + p.slice_rows - 1) / p.slice_rows != p.k_slices) return 1;
   if (4 * p.slice_rows * m_tile > RING_X_BYTES) return 1;
   if (p.k_slices > 1 && (!p.part || !p.tickets)) return 1;
-  // 16-byte aligned bases for the bulk copies (rows and slices keep it)
+  // 16-byte aligned bases and rows of x for the bulk copies (slices keep it)
+  if (p.a_rs % 8) return 1;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.b) |
                           reinterpret_cast<uintptr_t>(p.tiles);
   return bases % 16 ? 1 : 0;
@@ -820,64 +751,15 @@ int ring_launch(void (*kernel)(RingArgs), const RingArgs& p, cudaStream_t st) {
                         : ring_launch<RING_M_TILE>(KERNEL<RING_M_TILE>, p, st_);      \
   } while (0)
 
-// The band of columns a block owns: 32 columns give the most blocks (N / 32)
-// and 32 row groups across K; wider bands (fewer row groups) only once every
-// SM would still hold several blocks. `band` != 0 picks it.
-int pick_band(int n_total, int band) {
-  if (band) return band;
-  int bn = 128;
-  while (bn > 32 && (n_total + bn - 1) / bn < 4 * 132) bn /= 2;
-  return bn;
-}
-
-int check(const Args& p, int band) {
-  if (p.k2 <= 0 || p.k2 % 8 || p.tw % 128 || p.n_total <= 0) return 1;
-  if (band != 0 && band != 32 && band != 64 && band != 128) return 1;
-  return 0;
-}
-
-int check_product(const Args& p, int band) {
-  if (check(p, band) || p.M <= 0 || p.n_out <= 0 || p.n_out > p.n_total) return 1;
-  if (p.a_rs % 8) return 1;  // 16-byte activation loads
-  return 0;
-}
-
-#define LAUNCH_BAND(KERNEL, GRID_Y, ...)                                              \
-  do {                                                                                \
-    const int bn_ = pick_band(p.n_total, band);                                       \
-    const dim3 grid((p.n_total + bn_ - 1) / bn_, GRID_Y);                             \
-    if (bn_ == 128)                                                                   \
-      KERNEL<128, __VA_ARGS__><<<grid, THREADS, 0, st>>>(p);                          \
-    else if (bn_ == 64)                                                               \
-      KERNEL<64, __VA_ARGS__><<<grid, THREADS, 0, st>>>(p);                           \
-    else                                                                              \
-      KERNEL<32, __VA_ARGS__><<<grid, THREADS, 0, st>>>(p);                           \
-  } while (0)
-
-// one row of x: MT = 1; more: chunks of 8 rows in grid.y
-#define LAUNCH_PRODUCT(KERNEL)                                                        \
-  do {                                                                                \
-    if (p.M <= 1)                                                                     \
-      LAUNCH_BAND(KERNEL, 1, 1);                                                      \
-    else                                                                              \
-      LAUNCH_BAND(KERNEL, (p.M + 7) / 8, 8);                                          \
-  } while (0)
-
-Args product_args(const void* a, const void* tiles, void* out, int M, int k2, int n_tiles,
-                  int bn, int n_out, long long a_rs) {
-  return Args{static_cast<const uint16_t*>(a), static_cast<const uint8_t*>(tiles), out,
-              M, k2, bn, n_tiles * bn, n_out, a_rs};
-}
-
-// The byte-reuse entries' arguments (v2, v3, v5).
-RingArgs byte_reuse_args(const void* xa, const void* xb, const void* tiles, const void* scale,
-                         void* out, int M, int k2, int n_tiles, int bn, int n_out, int k_slices,
-                         int mask16, void* part, void* tickets) {
-  return RingArgs{static_cast<const uint16_t*>(xa), static_cast<const uint16_t*>(xb),
+// The entries' arguments (a slice count below 1 leaves slice_rows 0: refused).
+RingArgs ring_args(const void* a, long long a_rs, const void* b, const void* tiles,
+                   const void* scale, void* out, void* sums, int M, int k2, int n_tiles, int bn,
+                   int n_out, int k_slices, int mask16, void* part, void* tickets) {
+  return RingArgs{static_cast<const uint16_t*>(a), a_rs, static_cast<const uint16_t*>(b),
                   static_cast<const uint8_t*>(tiles), static_cast<const float*>(scale),
-                  static_cast<uint16_t*>(out), static_cast<float*>(part),
-                  static_cast<int*>(tickets), M, k2, bn, n_tiles, n_out, k_slices,
-                  k_slices > 0 ? ring_slice_rows(k2, k_slices) : 0, mask16};
+                  static_cast<uint16_t*>(out), static_cast<float*>(sums),
+                  static_cast<float*>(part), static_cast<int*>(tickets), M, k2, bn, n_tiles,
+                  n_out, k_slices, k_slices > 0 ? ring_slice_rows(k2, k_slices) : 0, mask16};
 }
 
 }  // namespace
@@ -894,8 +776,8 @@ extern "C" int teochat_bench_int4_v2(const void* xa, const void* xb, const void*
                                      const void* scale, void* out, int M, int k2, int n_tiles,
                                      int bn, int n_out, int k_slices, void* part, void* tickets,
                                      void* stream) {
-  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
-                                     k_slices, 0, part, tickets);
+  const RingArgs p = ring_args(xa, k2, xb, tiles, scale, out, nullptr, M, k2, n_tiles, bn, n_out,
+                               k_slices, 0, part, tickets);
   RING_LAUNCH(bench_int4_v2_ring_kernel);
 }
 
@@ -904,8 +786,8 @@ extern "C" int teochat_bench_int4_v3(const void* xa, const void* xb, const void*
                                      const void* scale, void* out, int M, int k2, int n_tiles,
                                      int bn, int n_out, int k_slices, int mask16, void* part,
                                      void* tickets, void* stream) {
-  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
-                                     k_slices, mask16, part, tickets);
+  const RingArgs p = ring_args(xa, k2, xb, tiles, scale, out, nullptr, M, k2, n_tiles, bn, n_out,
+                               k_slices, mask16, part, tickets);
   RING_LAUNCH(bench_int4_v3_ring_kernel);
 }
 
@@ -914,8 +796,8 @@ extern "C" int teochat_bench_int4_v5(const void* xa, const void* xb, const void*
                                      const void* scale, void* out, int M, int k2, int n_tiles,
                                      int bn, int n_out, int k_slices, void* part, void* tickets,
                                      void* stream) {
-  const RingArgs p = byte_reuse_args(xa, xb, tiles, scale, out, M, k2, n_tiles, bn, n_out,
-                                     k_slices, 0, part, tickets);
+  const RingArgs p = ring_args(xa, k2, xb, tiles, scale, out, nullptr, M, k2, n_tiles, bn, n_out,
+                               k_slices, 0, part, tickets);
   RING_LAUNCH(bench_int4_v5_ring_kernel);
 }
 
@@ -924,32 +806,28 @@ extern "C" int teochat_bench_int4_v5(const void* xa, const void* xb, const void*
 extern "C" int teochat_bench_int4_v4(const void* x, const void* tiles, const void* scale,
                                      void* out, int M, int k2, int n_tiles, int bn, int n_out,
                                      int k_slices, void* part, void* tickets, void* stream) {
-  const RingArgs p{static_cast<const uint16_t*>(x), nullptr, static_cast<const uint8_t*>(tiles),
-                   static_cast<const float*>(scale), static_cast<uint16_t*>(out),
-                   static_cast<float*>(part), static_cast<int*>(tickets), M, k2, bn, n_tiles,
-                   n_out, k_slices, k_slices > 0 ? ring_slice_rows(k2, k_slices) : 0, 0};
+  const RingArgs p = ring_args(x, 2LL * k2, nullptr, tiles, scale, out, nullptr, M, k2, n_tiles,
+                               bn, n_out, k_slices, 0, part, tickets);
   RING_LAUNCH(bench_int4_v4_ring_kernel);
 }
 
-// S1-dma. x bf16 with row stride x_rs, its first k2 columns are read; tiles u8;
-// out bf16 [M, n_out] = x_lo . float(byte), unscaled.
+// S1-dma. x bf16 with row stride x_rs (a multiple of 8), its first k2 columns
+// read; tiles u8; out bf16 [M, n_out] = x_lo . float(byte), unscaled, rounded
+// once; k_slices, part and tickets as v2's.
 extern "C" int teochat_bench_int4_dma(const void* x, long long x_rs, const void* tiles,
                                       void* out, int M, int k2, int n_tiles, int bn, int n_out,
-                                      int band, void* stream) {
-  const Args p = product_args(x, tiles, out, M, k2, n_tiles, bn, n_out, x_rs);
-  if (check_product(p, band)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  LAUNCH_PRODUCT(bench_int4_dma_kernel);
-  return static_cast<int>(cudaGetLastError());
+                                      int k_slices, void* part, void* tickets, void* stream) {
+  const RingArgs p = ring_args(x, x_rs, nullptr, tiles, nullptr, out, nullptr, M, k2, n_tiles,
+                               bn, n_out, k_slices, 0, part, tickets);
+  RING_LAUNCH(bench_int4_dma_ring_kernel);
 }
 
 // S1-vpu. tiles u8; colsum fp32 [n_tiles * bn]: per column the sum over byte
-// rows of (lo - 8) + (hi - 8).
+// rows of (lo - 8) + (hi - 8); k_slices, part and tickets as v2's at M = 1.
 extern "C" int teochat_bench_int4_vpu(const void* tiles, void* colsum, int k2, int n_tiles,
-                                      int bn, int band, void* stream) {
-  const Args p = product_args(nullptr, tiles, colsum, 1, k2, n_tiles, bn, n_tiles * bn, 0);
-  if (check(p, band)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  LAUNCH_BAND(bench_int4_vpu_kernel, 1, 1);
-  return static_cast<int>(cudaGetLastError());
+                                      int bn, int k_slices, void* part, void* tickets,
+                                      void* stream) {
+  const RingArgs p = ring_args(nullptr, 0, nullptr, tiles, nullptr, nullptr, colsum, 1, k2,
+                               n_tiles, bn, n_tiles * bn, k_slices, 0, part, tickets);
+  RING_LAUNCH(bench_int4_vpu_ring_kernel);
 }

@@ -33,6 +33,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma.sync m16n8k8: A (16 x 8) a0 (gid, 2tig..+1) a1 (gid+8, 2tig..+1), B (8 x 8)
+// b0 (k = 2tig..+1, n = gid), C as m16n8k16's.
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
 // Two floats -> one register of two bf16; `lo` sits in the low half, which
 // the mma fragment reads as the lower column index.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

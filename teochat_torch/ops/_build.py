@@ -55,8 +55,8 @@ _SIGNATURES = {
     "teochat_bench_int4_v3": [_P] * 5 + [_I] * 7 + [_P] * 3,
     "teochat_bench_int4_v5": [_P] * 5 + [_I] * 6 + [_P] * 3,
     "teochat_bench_int4_v4": [_P] * 4 + [_I] * 6 + [_P] * 3,
-    "teochat_bench_int4_dma": [_P, _LL, _P, _P] + [_I] * 6 + [_P],
-    "teochat_bench_int4_vpu": [_P, _P] + [_I] * 4 + [_P],
+    "teochat_bench_int4_dma": [_P, _LL, _P, _P] + [_I] * 6 + [_P] * 3,
+    "teochat_bench_int4_vpu": [_P, _P] + [_I] * 4 + [_P] * 3,
     "teochat_bench_vit_attention_b": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_F, _P],
     "teochat_bench_vit_attention_c": [_P] * 4 + [_I] * 3 + [_F, _P],
 }

@@ -1,4 +1,4 @@
-"""The int4 bench's ring body (S1-v2 .. v5) against the script's Pallas kernels.
+"""The int4 bench's ring body (all six S1 kernels) against the script's Pallas kernels.
 
 The ring kernels of teochat_torch/csrc/bench_int4_kernel.cu run only on a
 card. Their walk is written out in plain PyTorch as
@@ -8,16 +8,19 @@ an H100 SXM's 132 SMs (or a given count), each slice walked in stages of
 RING_STAGE_BYTES // tw byte rows, an fp32 partial an item, a tile's partials
 summed in slice order, then the byte reuse's correction, the scale and one
 rounding. Here that walk is held against scripts/bench_int4_kernel.py's
-`v2_matmul`, `v3_matmul` (mask at 32 and 16 bits), `v5_matmul` and
-`v4_matmul`, their Pallas kernels in interpret mode (the script passes no
-`interpret` flag, so for this file alone `pallas_call` is wrapped to add
-it), against the port's plain versions at more shapes; the split rule, the
-M > 1 consumer's byte decode and the module's sizes against the `.cu`.
+`v2_matmul`, `v3_matmul` (mask at 32 and 16 bits), `v5_matmul`,
+`v4_matmul`, `dma_only_matmul` and `vpu_only`, their Pallas kernels in
+interpret mode (the script passes no `interpret` flag, so for this file
+alone `pallas_call` is wrapped to add it), against the port's plain versions
+at more shapes; the split rule, the M > 1 consumer's byte decodes and the
+module's sizes against the `.cu`.
 
 Same seeded numpy inputs on both sides, fp32. Tolerance: 1e-4 of the
 largest |reference|, as in tests/test_torch_bench_kernels.py (both sides sum
 the same exact products in fp32, in other orders; v3's terms reach 16 times
-the result before the correction cancels them). Each JAX shape is one more
+the result before the correction cancels them). vpu's column sums are small
+integers, so they are held equal (the script returns 8 times their total,
+as it repeats each sum over 8 sublanes). Each JAX shape is one more
 XLA compilation in the worker's process, so the JAX cases are few.
 """
 
@@ -73,9 +76,12 @@ def _rel(got, want):
 
 
 PACKERS = {"v2": int4_mod.pack_int4_tiled, "v3": bench_int4.pack_int4_i8,
-           "v5": bench_int4.pack_int4_i8, "v4": bench_int4.pack_int4_native}
+           "v5": bench_int4.pack_int4_i8, "v4": bench_int4.pack_int4_native,
+           "dma": int4_mod.pack_int4_tiled, "vpu": int4_mod.pack_int4_tiled}
 PLAIN = {"v2": bench_int4.v2_matmul_plain, "v3": bench_int4.v3_matmul_plain,
-         "v5": bench_int4.v5_matmul_plain, "v4": bench_int4.v4_matmul_plain}
+         "v5": bench_int4.v5_matmul_plain, "v4": bench_int4.v4_matmul_plain,
+         "dma": lambda x, tiles, _, n_out: bench_int4.dma_only_matmul_plain(x, tiles, n_out=n_out),
+         "vpu": lambda x, tiles, _, n_out: bench_int4.vpu_only_plain(tiles)[0]}
 
 
 def _walk(variant, x, w_q, scale, n, tw, k_slices, sms=bench_int4.H100_SXM_SMS):
@@ -102,6 +108,13 @@ JAX_CASES = [
     ("v5", 256, 300, 1, 128, None),
     ("v5", 400, 700, 8, 1024, 3),
     ("v2", 272, 700, 11, 512, None),
+    # the probes at the same shapes; dma's M 11 reads x at a row stride of K + 64
+    ("dma", 400, 700, 3, 512, 3),
+    ("dma", 256, 300, 1, 128, None),
+    ("dma", 400, 700, 8, 1024, 3),
+    ("dma_strided", 272, 700, 11, 512, None),
+    ("vpu", 400, 700, 1, 512, 3),
+    ("vpu", 256, 300, 1, 128, None),
 ]
 
 
@@ -110,6 +123,22 @@ def test_walk_matches_the_script(script, variant, k, n, m, tw, k_slices):
     w_q, scale, x = _inputs(k, n, m)
     n_pad = -(-n // tw) * tw
     scale_pad = jnp.asarray(np.pad(scale, (0, n_pad - n)))
+    if variant in ("dma", "dma_strided", "vpu"):
+        tiles = script.pack_int4_tiled(jnp.asarray(w_q), tw)
+        if variant == "vpu":  # 8 times the total of every column's sum, padding included
+            got = _walk("vpu", x, w_q, scale, n, tw, k_slices)
+            assert got.dtype == torch.float32 and got.shape == (n_pad // tw, tw)
+            assert 8 * got.sum().item() == float(script.vpu_only(tiles))
+            # the values, unpacked and added; a padded column's zero bytes give -16 a byte row
+            assert got.sum().item() == w_q.astype(np.int64).sum() - 16 * (k // 2) * (n_pad - n)
+            return
+        want = script.dma_only_matmul(jnp.asarray(x), tiles, n_out=n)
+        xt = torch.from_numpy(np.pad(x, ((0, 0), (0, 64))))[:, :k] if variant == "dma_strided" \
+            else torch.from_numpy(x)
+        got = bench_int4.ring_schedule(xt, int4_mod.pack_int4_tiled(torch.from_numpy(w_q), tw),
+                                       None, n_out=n, variant="dma", k_slices=k_slices)
+        assert got.dtype == torch.float32 and _rel(got.numpy(), want) <= REL
+        return
     if variant == "v4":
         want = script.v4_matmul(jnp.asarray(x), script.pack_int4_native(w_q, tw), scale_pad,
                                 n_out=n)
@@ -141,6 +170,8 @@ def test_walk_matches_the_plain_versions(variant, k, n, m, tw, k_slices):
     got = _walk(variant, x, w_q, scale, n, tw, k_slices)
     want = PLAIN[variant](torch.from_numpy(x), PACKERS[variant](torch.from_numpy(w_q), tw),
                           torch.from_numpy(scale), n_out=n)
+    if variant == "vpu":  # sums of small integers: exact
+        assert torch.equal(got, want)
     assert _rel(got.numpy(), want.numpy()) <= REL
 
 
@@ -219,6 +250,30 @@ def test_mma_byte_pair_is_exact(signed):
     assert torch.equal(wa.reshape(-1), pair[:, 0]) and torch.equal(wb.reshape(-1), pair[:, 1])
 
 
+def test_mma_byte_rows_pair_is_exact():
+    """dma's M > 1 A operand: every pair of u8 bytes of two byte rows becomes
+    the bf16 pair (byte0, byte1) exactly, by the `.cu`'s prmt (each byte with
+    its sign replicated above it), two lop3 and hsub2, with its constants."""
+    source = (pathlib.Path(_build.CSRC) / "bench_int4_kernel.cu").read_text()
+    body = source[source.index("uint32_t byte_rows_bf16x2("):]
+    body = body[:body.index("\n}\n")]
+    assert '"prmt.b32 %0, %1, %2, %3;"' in body
+    assert "(P | ((8 | P) << 4) | ((4 + P) << 8) | ((12 + P) << 12))" in body
+    assert f"(h & 0x{bench_int4.ROWS_KEEP:08X}u) | 0x{bench_int4.PAIR_MAGIC:08X}u" in body
+    assert f"sub = 0x{bench_int4.PAIR_MAGIC:08X}u & ~h;" in body
+    assert "__hsub2(" in body and "I2F" not in body and "__int2" not in body
+    assert "mma_1688(acc[h][2 * q], byte_rows_bf16x2<0>(u0[q], u1[q])" in source
+    raw = torch.arange(256, dtype=torch.int64)
+    byte0, byte1 = raw.repeat_interleave(256), raw.repeat(256)  # all 65,536 pairs
+    pair = bench_int4.byte_rows_bf16x2(byte0, byte1)
+    assert pair.dtype == torch.bfloat16
+    assert torch.equal(pair[:, 0].float(), byte0.float())
+    assert torch.equal(pair[:, 1].float(), byte1.float())
+    # the walk's multiplicand is the same value
+    wa, wb = bench_int4._ring_decode("dma", raw.to(torch.uint8).reshape(1, 2, 128))
+    assert wb is None and torch.equal(wa.reshape(-1), raw.float())
+
+
 def test_module_sizes_are_the_kernels():
     source = (pathlib.Path(_build.CSRC) / "bench_int4_kernel.cu").read_text()
     sizes = {name: eval(value, {}) for name, value in  # noqa: S307 (integer products)
@@ -233,12 +288,14 @@ def test_module_sizes_are_the_kernels():
     assert "RING_BYTES + RING_X_BYTES + 10 * 1024 <= 227 * 1024" in source
     assert bench_int4.RING_STAGES * bench_int4.RING_STAGE_BYTES >= 64 * 1024  # in flight
     assert "#ifndef" not in source and "getenv" not in source
-    # v2 .. v5 launch the ring kernels, streamed by bulk copies; v2, v4 and v5 take M > 1
-    # on mma.sync, v3 keeps its FMAs; the first body runs only the two probes
+    # all six launch the ring kernels, streamed by bulk copies; v2, v4, v5 and dma take
+    # M > 1 on mma.sync, v3 keeps its FMAs; the first body and its bands are gone
     body = source[source.index("void ring_body("):source.index("int ring_slice_rows(")]
     assert "MMA = MT > 1 && V != V3 && V != V3_M16;" in body
     assert "ring_consume_mma<V, MT, W>(" in body
-    assert sorted(re.findall(r"stream_body<(\w+), MT, BN>", source)) == ["DMA", "VPU"]
+    for gone in ("stream_body", "pick_band", "LAUNCH_BAND", "LAUNCH_PRODUCT", "band"):
+        assert gone not in source, gone
+    assert "X_COPIES = V == VPU ? 0 : BYTE_REUSE ? 2 : 1;" in body  # vpu copies no x
     # the byte reuse's correction: 17 sum xb for v2's u8 byte, sum xb for v3's and v5's
     assert "return V == V2 ? 17.f : 1.f;" in source
     assert "s += bf16_bits(xa[r]) + C * bf16_bits(xb[r]);" in source
@@ -259,15 +316,20 @@ def test_module_sizes_are_the_kernels():
 
 
 def test_sass_names_are_found():
-    """`sass_counts` keys each kernel's M = 1 instantiation by its variant, and
-    the ring kernels' M = 8 one."""
+    """`sass_counts` keys each ring kernel's M = 1 instantiation by its
+    variant, and its M = 8 one (vpu's, never launched, is not keyed); the
+    first body's names are no longer keyed."""
     names = {
-        "_ZN12_GLOBAL__N_120bench_int4_v2_kernelILi32ELi1EEEvNS_4ArgsE": "v2",
+        "_ZN12_GLOBAL__N_120bench_int4_v2_kernelILi32ELi1EEEvNS_4ArgsE": None,
         "_ZN12_GLOBAL__N_125bench_int4_v3_ring_kernelILi1EEEvNS_8RingArgsE": "v3_ring",
         "_ZN12_GLOBAL__N_125bench_int4_v4_ring_kernelILi1EEEvNS_8RingArgsE": "v4_ring",
         "_ZN12_GLOBAL__N_125bench_int4_v4_ring_kernelILi8EEEvNS_8RingArgsE": "v4_ring m8",
         "_ZN12_GLOBAL__N_125bench_int4_v5_ring_kernelILi1EEEvNS_8RingArgsE": "v5_ring",
         "_ZN12_GLOBAL__N_125bench_int4_v2_ring_kernelILi8EEEvNS_8RingArgsE": "v2_ring m8",
+        "_ZN12_GLOBAL__N_126bench_int4_dma_ring_kernelILi1EEEvNS_8RingArgsE": "dma_ring",
+        "_ZN12_GLOBAL__N_126bench_int4_dma_ring_kernelILi8EEEvNS_8RingArgsE": "dma_ring m8",
+        "_ZN12_GLOBAL__N_126bench_int4_vpu_ring_kernelILi1EEEvNS_8RingArgsE": "vpu_ring",
+        "_ZN12_GLOBAL__N_126bench_int4_vpu_ring_kernelILi8EEEvNS_8RingArgsE": None,
         "_ZN12_GLOBAL__N_121bench_int4_dma_kernelILi128ELi1EEEvNS_4ArgsE": None,
         "_ZN12_GLOBAL__N_121bench_int4_dma_kernelILi32ELi8EEEvNS_4ArgsE": None,
     }
@@ -286,7 +348,16 @@ def test_cpu_wrappers_take_the_plain_versions():
         tiles = PACKERS[variant](torch.from_numpy(w_q))
         assert torch.equal(wrapper(xt, tiles, sc, n_out=700, k_slices=3),
                            PLAIN[variant](xt, tiles, sc, n_out=700))
+    probes = {"S1-dma": bench_int4.LAUNCHES_DMA.count, "S1-vpu": bench_int4.LAUNCHES_VPU.count}
+    tiles = int4_mod.pack_int4_tiled(torch.from_numpy(w_q))
+    assert torch.equal(bench_int4.dma_only_matmul(xt, tiles, n_out=700, k_slices=3),
+                       bench_int4.dma_only_matmul_plain(xt, tiles, n_out=700))
+    cols, total = bench_int4.vpu_only(tiles, k_slices=3)
+    want_cols, want_total = bench_int4.vpu_only_plain(tiles)
+    assert torch.equal(cols, want_cols) and total.item() == want_total.item()
+    assert torch.equal(bench_int4.vpu_column_sums(tiles, k_slices=3), want_cols)
     assert {v: bench_int4.COUNTERS[f"S1-{v}"].count for v in wrappers} == before
+    assert {k: bench_int4.COUNTERS[k].count for k in probes} == probes
 
 
 def test_entries_match_their_signatures():

@@ -771,18 +771,28 @@ def test_bench_int4_variant_matches_plain(gen, name, k, n, m, bn, k_slices):
     assert (got.float() - exact).abs().max().item() <= bound * exact.abs().max().item()
 
 
-@pytest.mark.parametrize("name", list(BENCH_INT4_CASES))
-@pytest.mark.parametrize("m", [1, 8])
+def _bench_int4_ring_call(name, x, tiles, scale, n, kw):
+    if name == "dma":
+        return bench_int4.dma_only_matmul(x, tiles, n_out=n)
+    if name == "vpu":
+        return bench_int4.vpu_only(tiles)[0]
+    return BENCH_INT4_CASES[name][1](x, tiles, scale, n_out=n, **kw)
+
+
+@pytest.mark.parametrize("name,m", [(name, m) for name in BENCH_INT4_CASES for m in (1, 8)]
+                         + [("dma", 1), ("dma", 8), ("vpu", 1)])
 def test_bench_int4_ring_is_bit_equal_and_resets_its_tickets(gen, name, m):
     """200 back-to-back launches at the bench's shape give the same bits, and
-    the tickets the tiles' last blocks take are zero again after them."""
+    the tickets the tiles' last blocks take are zero again after them (the
+    probes on u8 tiles; vpu takes no x, so M is 1)."""
     k, n = bench_int4.K, bench_int4.N
-    pack, kernel, _, split = BENCH_INT4_CASES[name]
+    pack, split = (int4_mod.pack_int4_tiled, False) if name in ("dma", "vpu") else (
+        BENCH_INT4_CASES[name][0], BENCH_INT4_CASES[name][3])
     w_q, scale, x = _bench_int4_inputs(gen, k, n, m)
     tiles = pack(w_q, 512)
     kw = {"operands": bench_int4.byte_reuse_operands(x, k // 2)} if split else {}
-    first = kernel(x, tiles, scale, n_out=n, **kw)
-    outs = [kernel(x, tiles, scale, n_out=n, **kw) for _ in range(200)]
+    first = _bench_int4_ring_call(name, x, tiles, scale, n, kw)
+    outs = [_bench_int4_ring_call(name, x, tiles, scale, n, kw) for _ in range(200)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, first) for o in outs)
     k_slices = bench_int4.ring_k_slices(tiles.shape[0], k // 2, _build.sm_count(x.device))
@@ -791,20 +801,49 @@ def test_bench_int4_ring_is_bit_equal_and_resets_its_tickets(gen, name, m):
     assert int(tickets.abs().sum().item()) == 0
 
 
-@pytest.mark.parametrize("k,n,m", [(4096, 11008, 1), (4096, 11008, 8), (256, 700, 11)])
-def test_bench_int4_probes_match_plain(gen, k, n, m):
+@pytest.mark.parametrize("k,n,m,bn,k_slices", [
+    (4096, 11008, 1, 512, 0), (4096, 11008, 8, 512, 0), (256, 700, 11, 512, 0),
+    (256, 700, 3, 512, 3),  # ragged N; slices of 48, 48, 32 rows
+    (512, 2048, 19, 1024, 5),  # three row chunks of 8, a wider tile; 56 x 4 and 32 rows
+    (512, 700, 1, 128, 0),  # the narrowest tile: stages of 128 rows
+    (1024, 5000, 2, 2048, 0),  # the widest tile: stages of 8 rows
+    (1040, 600, 19, 512, 7),  # k2 520: slices of 80 rows, the last 40; M 19
+])
+def test_bench_int4_probes_match_plain(gen, k, n, m, bn, k_slices):
+    """dma and vpu on the ring body against their plain versions and the
+    walk; dma also on x read at a row stride of K + 64."""
     w_q, _, x = _bench_int4_inputs(gen, k, n, m)
-    tiles = int4_mod.pack_int4_tiled(w_q)
+    tiles = int4_mod.pack_int4_tiled(w_q, bn)
     before = bench_int4.LAUNCHES_DMA.count, bench_int4.LAUNCHES_VPU.count
-    got = bench_int4.dma_only_matmul(x, tiles, n_out=n)
-    cols, total = bench_int4.vpu_only(tiles)
+    got = bench_int4.dma_only_matmul(x, tiles, n_out=n, k_slices=k_slices)
+    cols, total = bench_int4.vpu_only(tiles, k_slices=k_slices)
     torch.cuda.synchronize()
     assert (bench_int4.LAUNCHES_DMA.count, bench_int4.LAUNCHES_VPU.count) == (
         before[0] + 1, before[1] + 1)
     _assert_int4_close(got, bench_int4.dma_only_matmul_plain(x.float(), tiles, n_out=n))
+    sms = _build.sm_count(x.device)
+    walk = bench_int4.ring_schedule(x.float(), tiles, None, n_out=n, variant="dma",
+                                    k_slices=k_slices or None, sms=sms)
+    _assert_int4_close(got, walk)
+    wide = torch.zeros((m, k + 64), dtype=x.dtype, device=x.device)
+    wide[:, :k] = x
+    assert torch.equal(bench_int4.dma_only_matmul(wide[:, :k], tiles, n_out=n,
+                                                  k_slices=k_slices), got)
     want_cols, want_total = bench_int4.vpu_only_plain(tiles)
     assert torch.equal(cols, want_cols)  # sums of small integers: exact
+    assert torch.equal(cols, bench_int4.ring_schedule(None, tiles, None, n_out=0, variant="vpu",
+                                                      k_slices=k_slices or None, sms=sms))
     assert abs(total.item() - want_total.item()) <= 1e-6 * abs(want_total.item())
+
+
+def test_bench_int4_sass_shows_the_ring(gen):
+    """The probes' kernels stream by bulk copies, and dma's M > 1 kernel
+    takes its bytes to mma.sync without an int-to-float conversion."""
+    sass = bench_int4.sass_counts()
+    for key in ("dma_ring", "vpu_ring", "dma_ring m8"):
+        assert sass[key].get("UBLKCP", 0) >= 1, key
+    m8 = sass["dma_ring m8"]
+    assert m8.get("HMMA", 0) >= 8 and not m8.get("I2FP", 0) and not m8.get("F2F", 0)
 
 
 def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
@@ -822,6 +861,13 @@ def test_bench_int4_cuda_tensors_the_kernels_do_not_take_raise(gen):
         bench_int4.v3_matmul(x, i8, scale, n_out=700, k_slices=15)
     with pytest.raises(ValueError):
         bench_int4.v2_matmul(x, u8, scale, n_out=700, k_slices=15)
+    with pytest.raises(ValueError):
+        bench_int4.dma_only_matmul(x, u8, n_out=700, k_slices=15)
+    with pytest.raises(ValueError):
+        bench_int4.vpu_only(u8, k_slices=15)
+    with pytest.raises(ValueError):  # a row stride the bulk copies cannot take (not 16 bytes)
+        wide = torch.zeros((2, 260), dtype=x.dtype, device=x.device)
+        bench_int4.dma_only_matmul(wide[:, :256], u8, n_out=700)
     with pytest.raises(ValueError):  # a tile width that is no multiple of 128
         bench_int4.vpu_only(int4_mod.pack_int4_tiled(w_q, 64))
 
