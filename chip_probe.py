@@ -1,6 +1,8 @@
 """Measurements of the PyTorch / CUDA port on one NVIDIA card, beside the smoke.
 
-    python3 chip_probe.py decode [--root DIR] [--quant int8 int4] [--batches 1 8]
+    python3 chip_probe.py decode [--root DIR] [--quant int8 int4] [--batches 1 8] [--profile]
+                                 [--chunks 1 2 4 8]
+    python3 chip_probe.py decode-ttft [--root DIR] [--quant int8 int4] [--reps 9]
     python3 chip_probe.py decode-paths [--turns 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k1
@@ -26,8 +28,28 @@ another checkout, so two trees can be timed in one session on one card.
   of --batches, for each weight format of --quant in turn (int4 is the
   fused packed decoder with its int4 lm_head): prefill + first token and ms
   per decode step, from the median wall time of `generate_tokens` with 1
-  and with 33 new tokens over --reps runs. One process, one card: int8 and
-  int4 are read side by side. `--root` needs a tree that has the bench.
+  and with 33 new tokens over --reps runs, and the peak memory. A tree
+  whose decode steps replay a CUDA graph also prints the capture's time
+  (once a key: the warm-up makes it) and the replays the timed generates
+  ran; an older tree says "eager loop". Also the allocator's segments made
+  in the timed generates (cudaMalloc calls) and which 1-token requests
+  made them, and prefill + first token also timed back to back before the
+  first 33-token generate and after the timed ones. `--profile` adds `torch.profiler`
+  over one generate of 1 and one of 33 tokens: the device's kernel time a
+  decode step (their difference over the 32 steps) by kernel class, and its
+  share of the same profiled generates' wall time; the 1-token request's
+  kernel time, kernels, wall and its host time by op. `--chunks 1 2 4 8` (a tree with the
+  graph, batch 1) times the decode loop at each chunk size (iterations
+  between two host reads of `done`), never stopping and stopping at an
+  EOS near the 18th token. One process, one card: int8 and int4 are read
+  side by side. `--root` needs a tree that has the bench.
+- decode-ttft: prefill + first token (1-token requests, batch 1) in phases
+  of one process: before any 33-token generate, after `empty_cache`, after
+  cuBLAS's workspaces are cleared, after a 33-token generate, after the
+  decode graphs are dropped (a tree with them), after a second; each
+  phase's wall times, allocator segments made, one request's kernel time
+  under the profiler (CUDA activity only), and the card's SM clock and
+  power from `nvidia-smi` sampled every 100 ms.
 - decode-paths: one int8 model, one process: ms per decode step of the
   smoke's 2-frame request through `TEOChat.generate` and of the bench's
   decode set-up, in turns, so that the two can be told from the host's
@@ -150,6 +172,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -162,31 +185,282 @@ def _import_tree(root: Path):
 # ------------------------------------------------------------------ decode
 
 
+def _segments() -> int:
+    """The caching allocator's segments made so far (its cudaMalloc calls)."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
 def cmd_decode(smoke, args):
     from teochat_torch.bench import main as bench_main
+    from teochat_torch.models import generation as gen_mod
 
+    graphs = getattr(gen_mod, "decode_graphs", None)  # None: a tree whose decode loop is eager
     n_new = 33
     settings = bench_main.Settings(seed=smoke.SEED, decode_new=n_new)
     for quant in args.quant:
         for bs in args.batches:
+            torch.cuda.reset_peak_memory_stats()
             with torch.no_grad():
                 run_generate, _, prompt_len = bench_main.build_decode_setup(settings, bs, quant)
                 run_generate(1)
-                run_generate(n_new)  # warm-up
-                t1, tn = [], []
+                first = [smoke.wall(lambda: run_generate(1))[1] for _ in range(args.reps)]
+                run_generate(n_new)  # warm-up; a tree with the graph captures it here
+                how = "eager loop"
+                if graphs is not None:  # (no entry kept here: it must die with the set-up)
+                    replays = sum(e.replays for e in graphs())
+                    how = ("graph captured in " + ", ".join(
+                        f"{e.capture_seconds * 1e3:.1f}" for e in graphs()
+                        if e.graph is not None) + " ms")
+                segments = _segments()
+                t1, tn, made = [], [], []  # made: 1-token requests that made a segment
                 for _ in range(args.reps):
+                    before = _segments()
                     t1.append(smoke.wall(lambda: run_generate(1))[1])
+                    if _segments() > before:
+                        made.append(t1[-1])
                     tn.append(smoke.wall(lambda: run_generate(n_new))[1])
+                segments = _segments() - segments
+                alone = [smoke.wall(lambda: run_generate(1))[1] for _ in range(args.reps)]
+                if graphs is not None:
+                    how += (f", {sum(e.replays for e in graphs()) - replays} replays in the "
+                            f"timed generates")
             steps = n_new - 1
             ttft, full = statistics.median(t1), statistics.median(tn)
             ms_step = (full - ttft) / steps * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"[decode] root={args.root} {quant} bs {bs}: prefill of {prompt_len} tokens + "
                   f"first token {ttft * 1e3:.2f} ms (median of {args.reps}, "
                   f"{min(t1) * 1e3:.2f}-{max(t1) * 1e3:.2f}); {steps} decode steps "
                   f"{ms_step:.3f} ms/step, {bs * 1e3 / ms_step:.2f} tok/s (generate of "
                   f"{n_new} tokens: median {full * 1e3:.2f} ms, {min(tn) * 1e3:.2f}-"
-                  f"{max(tn) * 1e3:.2f})", flush=True)
+                  f"{max(tn) * 1e3:.2f}); {how}; peak allocated {peak:.3f} GiB", flush=True)
+            print(f"[decode] root={args.root} {quant} bs {bs}: prefill + first token back to "
+                  f"back before the first {n_new}-token generate {_spread(first)}, interleaved "
+                  f"with them {_spread(t1)}, back to back after them {_spread(alone)}; "
+                  f"{segments} allocator segments made in the timed generates, by "
+                  f"{len(made)} of the {len(t1)} interleaved 1-token requests"
+                  + (f" ({_spread(made)})" if made else ""), flush=True)
+            if args.profile:
+                _profile_decode(run_generate, n_new, ms_step, f"{quant} bs {bs}")
+            if args.chunks and graphs is not None and bs == 1:
+                _chunk_sweep(smoke, gen_mod, run_generate, n_new, ttft, args, f"{quant} bs {bs}")
             del run_generate
+            torch.cuda.empty_cache()
+            if graphs is not None:
+                live = len(graphs())
+                print(f"[decode] the set-up deleted: {live} decode graphs live, allocated "
+                      f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+
+def _spread(seconds) -> str:
+    return (f"median {statistics.median(seconds) * 1e3:.2f} ms ({min(seconds) * 1e3:.2f}-"
+            f"{max(seconds) * 1e3:.2f})")
+
+
+def _chunk_sweep(smoke, gen_mod, run_generate, n_new, ttft, args, tag):
+    """Each chunk size of --chunks (iterations between two host reads of
+    `done`) set in turn, the sizes interleaved over --reps rounds: the
+    generate of n_new tokens that never stops (ms/step against the
+    prefill's `ttft`), and one that stops at an EOS: the token of row 0
+    whose first place in the never-stopping run lies nearest its 18th, so
+    the steps past the stop show (a chunk runs to its end)."""
+    with torch.no_grad():
+        row = run_generate(n_new)[0].tolist()
+    first = {}
+    for i, t in enumerate(row):
+        first.setdefault(t, i)
+    j = min(first.values(), key=lambda i: (abs(i - 17), i))
+    stop = gen_mod.StopSpec(keyword_ids=np.zeros((1, 1), np.int32),
+                            keyword_lens=np.zeros((1,), np.int32), eos_id=row[j])
+    saved = gen_mod.DECODE_CHUNK
+    full, early, replays = defaultdict(list), defaultdict(list), {}
+    try:
+        with torch.no_grad():
+            for _ in range(args.reps):
+                for k in args.chunks:
+                    gen_mod.DECODE_CHUNK = k
+                    full[k].append(smoke.wall(lambda: run_generate(n_new))[1])
+                    before = sum(e.replays for e in gen_mod.decode_graphs())
+                    out, sec = smoke.wall(lambda: run_generate(n_new, stop))
+                    early[k].append(sec)
+                    replays[k] = sum(e.replays for e in gen_mod.decode_graphs()) - before
+                    if out[0, :j + 1].tolist() != row[:j + 1] or out[0, j + 1:].any():
+                        sys.exit(f"[decode] {tag} chunk {k}: the request did not stop at "
+                                 f"token {j + 1}")
+    finally:
+        gen_mod.DECODE_CHUNK = saved
+    for k in args.chunks:
+        ms_step = (statistics.median(full[k]) - ttft) / (n_new - 1) * 1e3
+        print(f"[decode] {tag} chunk {k}: never stopping {ms_step:.3f} ms/step (generate of "
+              f"{n_new}: median {statistics.median(full[k]) * 1e3:.2f} ms, "
+              f"{min(full[k]) * 1e3:.2f}-{max(full[k]) * 1e3:.2f}); stopping at token {j + 1} "
+              f"of {n_new}: median {statistics.median(early[k]) * 1e3:.2f} ms "
+              f"({min(early[k]) * 1e3:.2f}-{max(early[k]) * 1e3:.2f}), {replays[k]} replays "
+              f"(medians of {args.reps})", flush=True)
+
+
+DECODE_CLASSES = (  # (class, substrings of the kernel's name); the first match wins
+    ("K3 int4 decode", ("int4_decode",)), ("K3 int4 M > 8", ("int4_large_m",)),
+    ("K2 decode attention", ("decode_split",)), ("K1 flash", ("flash_fwd",)),
+    ("K5 ViT attention", ("vit_attention",)), ("GEMM", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("copies and dtype converts", ("copy",)), ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def _classes(names):
+    classes = defaultdict(float)
+    for name, ms in names.items():
+        label = next((c for c, keys in DECODE_CLASSES if any(k in name for k in keys)), "other")
+        classes[label] += ms
+    return classes
+
+
+def _profile_decode(run_generate, n_new, ms_step, tag):
+    """Device kernel time of a decode step, from `torch.profiler` over one
+    generate of 1 and one of n_new tokens (their difference over the steps),
+    beside the same two generates' wall time under the profiler: the
+    device's busy share within the profiled run. Also the unprofiled step
+    (the profiler's overhead) and the 1-token request alone: its kernel
+    time, kernels and wall. The pair runs twice; the second is read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # the first pays the profiler's own set-up
+        by_name, walls, launches = {}, {}, {}
+        for n in (1, n_new):
+            with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_generate(n)
+                torch.cuda.synchronize()
+                walls[n] = (time.perf_counter() - t0) * 1e3
+            if n == 1:
+                top = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
+            names = defaultdict(float)
+            launches[n] = 0
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    names[e.name] += e.time_range.elapsed_us() / 1e3
+                    launches[n] += 1
+            by_name[n] = names
+    steps = n_new - 1
+    step_ms = (sum(by_name[n_new].values()) - sum(by_name[1].values())) / steps
+    if step_ms <= 0:
+        sys.exit("[decode] the profiler recorded no decode kernels")
+    step_wall = (walls[n_new] - walls[1]) / steps
+    print(f"[decode] {tag} profile: {step_ms:.3f} ms of device kernel time a step against "
+          f"{step_wall:.3f} ms a step of the profiled run's wall time: busy "
+          f"{100 * step_ms / step_wall:.1f} % (unprofiled {ms_step:.3f} ms a step)", flush=True)
+    one = sum(by_name[1].values())
+    print(f"[decode] {tag} profile: the 1-token request: {one:.3f} ms of device kernel time in "
+          f"{launches[1]} kernels against {walls[1]:.3f} ms of wall time; " + ", ".join(
+              f"{label} {ms:.3f}" for label, ms in sorted(_classes(by_name[1]).items(),
+                                                          key=lambda kv: -kv[1])), flush=True)
+    print(f"[decode] {tag} profile: the 1-token request's host time by op (self, ms x calls): "
+          + ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.3f} x{a.count}" for a in top),
+          flush=True)
+    diff = {name: ms - by_name[1].get(name, 0.0) for name, ms in by_name[n_new].items()}
+    for label, ms in sorted(_classes(diff).items(), key=lambda kv: -kv[1]):
+        print(f"[decode] {tag} profile:   {label}: {ms / steps:.3f} ms a step "
+              f"({100 * ms / steps / step_ms:.1f} %)", flush=True)
+
+
+class _CardSampler:
+    """`nvidia-smi` sampling the card's SM clock (MHz) and power (W) every
+    100 ms in a reader thread; `between(t0, t1)` gives the samples taken
+    then. A context manager: the process is stopped on exit."""
+
+    def __enter__(self):
+        import subprocess
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "100", "-i", "0"], stdout=subprocess.PIPE, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    clock, power = (float(v) for v in line.split(","))
+                except ValueError:
+                    continue
+                self.samples.append((time.time(), clock, power))
+
+        self.thread = threading.Thread(target=read, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=10)
+        self.thread.join(timeout=10)
+
+    def between(self, t0, t1) -> str:
+        got = [(c, w) for t, c, w in self.samples if t0 <= t <= t1]
+        if not got:
+            return "no nvidia-smi sample"
+        clocks, watts = [c for c, _ in got], [w for _, w in got]
+        return (f"SM clock median {statistics.median(clocks):.0f} MHz ({min(clocks):.0f}-"
+                f"{max(clocks):.0f}), power median {statistics.median(watts):.1f} W "
+                f"({len(got)} samples)")
+
+
+def cmd_decode_ttft(smoke, args):
+    """Prefill + first token (1-token requests, batch 1) of the bench's
+    decode set-up for each --quant, in phases of one process: before any
+    33-token generate; after `torch.cuda.empty_cache()`; after cuBLAS's
+    workspaces are cleared (each of which a capture may do); after a
+    33-token generate (a tree with the graph captures there); after
+    `clear_decode_graphs()` and `empty_cache()` (a tree with the graph);
+    after a second 33-token generate. Each phase: --reps requests
+    back to back (wall, the allocator segments they made), then one more
+    under `torch.profiler` with CUDA activity only (its kernel time and
+    kernels), and the card's SM clock and power sampled meanwhile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from teochat_torch.bench import main as bench_main
+    from teochat_torch.models import generation as gen_mod
+
+    clear = getattr(gen_mod, "clear_decode_graphs", None)
+    settings = bench_main.Settings(seed=smoke.SEED, decode_new=33)
+    with _CardSampler() as card:
+        for quant in args.quant:
+            with torch.no_grad():
+                run_generate, _, _ = bench_main.build_decode_setup(settings, 1, quant)
+                run_generate(1)
+                phases = [("before any 33-token generate", None),
+                          ("after torch.cuda.empty_cache", torch.cuda.empty_cache),
+                          ("after cuBLAS's workspaces are cleared",
+                           torch._C._cuda_clearCublasWorkspaces),
+                          ("after a 33-token generate", lambda: run_generate(33))]
+                if clear is not None:
+                    phases.append(("after clear_decode_graphs + empty_cache",
+                                   lambda: (clear(), torch.cuda.empty_cache())))
+                phases.append(("after a second 33-token generate", lambda: run_generate(33)))
+                for name, before in phases:
+                    if before is not None:
+                        before()
+                        torch.cuda.synchronize()
+                    t0, segments = time.time(), _segments()
+                    walls = [smoke.wall(lambda: run_generate(1))[1] for _ in range(args.reps)]
+                    segments = _segments() - segments
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        run_generate(1)
+                        torch.cuda.synchronize()
+                    kernels = [e for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA]
+                    kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                    live = len(gen_mod.decode_graphs()) if clear is not None else "no"
+                    print(f"[decode-ttft] root={args.root} {quant} bs 1, {name}: "
+                          f"{_spread(walls)} over {args.reps}; {segments} allocator segments "
+                          f"made; profiled request {kernel_ms:.3f} ms of kernels in "
+                          f"{len(kernels)}; {live} graphs live; "
+                          f"{card.between(t0, time.time())}", flush=True)
+            del run_generate
+            if clear is not None:
+                clear()
             torch.cuda.empty_cache()
 
 
@@ -1260,7 +1534,7 @@ def cmd_int8_proj(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k3",
+    for name in ("decode", "decode-ttft", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k3",
                  "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
@@ -1268,6 +1542,10 @@ def main():
             p.add_argument("--reps", type=int, default=5)
             p.add_argument("--quant", nargs="+", default=["int8"], choices=["int8", "int4"])
             p.add_argument("--batches", type=int, nargs="+", default=[1, 8])
+            p.add_argument("--profile", action="store_true",
+                           help="also the device's kernel time a step, by kernel class")
+            p.add_argument("--chunks", type=int, nargs="*", default=[],
+                           help="at batch 1, also time these chunk sizes (DECODE_CHUNK)")
         if name == "k1k4a":
             p.add_argument("--tiles", nargs="+", default=["64x64", "64x128", "128x64", "128x128"])
             p.add_argument("--long", action="store_true",
@@ -1284,6 +1562,10 @@ def main():
         if name == "k5k2":
             p.add_argument("--chunks", type=int, nargs="+", default=[32, 128],
                            help="K2 slot chunks to build the source with")
+        if name == "decode-ttft":
+            p.add_argument("--reps", type=int, default=9)
+            p.add_argument("--quant", nargs="+", default=["int8", "int4"],
+                           choices=["int8", "int4"])
         if name == "decode-paths":
             p.add_argument("--turns", type=int, default=3)
         if name == "parity":
@@ -1294,7 +1576,7 @@ def main():
     smoke = _import_tree(args.root)
     smoke.phase_device()
     smoke.phase_build()
-    {"decode": cmd_decode, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
+    {"decode": cmd_decode, "decode-ttft": cmd_decode_ttft, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
      "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
      "k5k2": cmd_k5k2,
      "s1s2": cmd_s1s2, "s1-ring": cmd_s1_ring,

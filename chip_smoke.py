@@ -26,13 +26,19 @@ them. Phases, each printing its lines before the last:
    mlp2x_gelu, LLaMA-7B with fused packed-int4 projections and an int4
    lm_head, bf16 activations, random weights from a seed): three requests
    through `run_inference_single` and one batched generate of four ragged
-   rows; the launch counts of K1, K2, K3b, K3c and K5 must rise;
+   rows; the launch counts of K1, K2, K3b, K3c and K5 must rise; then the
+   decode steps as a replayed CUDA graph against the eager loop (the
+   2-frame greedy request and the batch of four: the same tokens and
+   launch counts; the largest difference of the last logits; ms/step both
+   ways, the captures' seconds, the replays, the peak memory), and a
+   capture that fails (a host read planted in the step) must raise;
 8. the prefill logits of that model with the int4 kernels against the same
    forward on the plain `int4_proj`;
 9. one request through a 4-layer decoder at 7B width with 2 kv heads and
    unfused int4 projections, whose k and v are flat leaves: K3a must launch;
 10. the int8 path at TEOChat-7B width (LLaMA-7B with int8 weights): the same
-    requests; K1, K2 and K5 must launch;
+    requests; K1, K2 and K5 must launch; the graph against the eager loop as
+    in 7; after each model is deleted, no decode graph may be left;
 11. the last-position prefill logits of the 2-frame request with the kernels
     against the same forward on the plain attention;
 12. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
@@ -81,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import statistics
@@ -104,6 +111,7 @@ from teochat_torch.mm_utils import tokenizer_image_token
 from teochat_torch.checkpoint.bridge import init_teochat
 from teochat_torch.data.dataset import DataArguments, make_supervised_data_module
 from teochat_torch.models import fusion as fusion_mod
+from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
 from teochat_torch.ops import _build
@@ -608,6 +616,23 @@ def counted(tag, fn):
     return out, counts
 
 
+G16 = GenerationConfig(max_new_tokens=16, temperature=0.0, do_sample=False)
+
+
+def ragged_batch(tokenizer, processor):
+    """The ids and frames of one batch of four ragged rows (2, 1, 4 and 0 frames)."""
+    rows = [
+        (PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"), 2),
+        ("Describe the land use in this image: <image>", 1),
+        (PROMPT_4.replace("<video>", " ".join(f"Image {i + 1}: <image>" for i in range(4))), 4),
+        ("What is a satellite image?", 0),
+    ]
+    batch_ids = [tokenizer_image_token(p, tokenizer, IMAGE_TOKEN_INDEX) for p, _ in rows]
+    batch_frames = np.concatenate(
+        [processor.preprocess(["x"] * n)["pixel_values"] for _, n in rows if n], axis=0)
+    return batch_ids, batch_frames
+
+
 def phase_main_path(model, tokenizer, processor, tag="main"):
     cfg = model.cfg
     requests = [
@@ -649,23 +674,114 @@ def phase_main_path(model, tokenizer, processor, tag="main"):
         f"TTFT and decode from the medians of 3 generates of 1 and of 32 tokens "
         f"(32 tokens: {min(fulls):.3f}-{max(fulls):.3f} s)")
 
-    # one batched generate of four ragged rows (2, 1, 4 and 0 frames)
-    rows = [
-        (PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"), 2),
-        ("Describe the land use in this image: <image>", 1),
-        (PROMPT_4.replace("<video>", " ".join(f"Image {i + 1}: <image>" for i in range(4))), 4),
-        ("What is a satellite image?", 0),
-    ]
-    batch_ids = [tokenizer_image_token(p, tokenizer, IMAGE_TOKEN_INDEX) for p, _ in rows]
-    batch_frames = np.concatenate(
-        [processor.preprocess(["x"] * n)["pixel_values"] for _, n in rows if n], axis=0)
-    g16 = GenerationConfig(max_new_tokens=16, temperature=0.0, do_sample=False)
-    outs, sec = wall(lambda: model.generate(batch_ids, batch_frames, g16, rng=SEED))
+    batch_ids, batch_frames = ragged_batch(tokenizer, processor)
+    outs, sec = wall(lambda: model.generate(batch_ids, batch_frames, G16, rng=SEED))
     check(len(outs) == 4 and all(0 < len(r) <= 16 for r in outs), "batched lengths")
     check(all(0 <= t < cfg.llm.vocab_size for r in outs for t in r), "batched token ids")
     log(f"[{tag}] batched generate of 4 ragged rows (prompt lengths "
         f"{[len(r) for r in batch_ids]}): {sec:.3f} s, tokens per row {[len(r) for r in outs]}")
     return ids, frames
+
+
+@contextlib.contextmanager
+def decode_loop(graphed):
+    """Route generate's decode steps to the replayed CUDA graph (True) or to
+    the eager loop on the card (False), through the module's private helper;
+    yields a dict holding the last call's last logits."""
+    saved, last = gen_mod.generate_tokens, {}
+
+    def run(*args, **kwargs):
+        tokens, n_gen, state = gen_mod._generate_tokens(*args, **kwargs, graphed=graphed)
+        last["logits"] = state.logits.clone()
+        return tokens, n_gen
+
+    gen_mod.generate_tokens = run
+    try:
+        yield last
+    finally:
+        gen_mod.generate_tokens = saved
+
+
+def phase_decode_graph(model, tokenizer, processor, ids, frames, tag):
+    """The decode steps as a replayed CUDA graph against the eager loop, on
+    this card: the 2-frame greedy request (32 tokens), the 4-row ragged
+    batch of the main path and that batch four times over (16 rows: the
+    int4 step runs K3's M > 8 kernel in the graph) give the same tokens and
+    the same kernel counts both ways; ms/step both ways (medians of 3 generates of 1 and of 32
+    tokens), the captures' seconds, the replays and the peak memory."""
+    batch_ids, batch_frames = ragged_batch(tokenizer, processor)
+    ids16, frames16 = batch_ids * 4, np.concatenate([batch_frames] * 4, axis=0)
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
+    gen_mod.clear_decode_graphs()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for graphed in (False, True):
+        with decode_loop(graphed) as last:
+            got = {}
+            for name, fn in (("2-frame", lambda: model.generate([ids], frames, g32)),
+                             ("batch", lambda: model.generate(batch_ids, batch_frames, G16,
+                                                              rng=SEED)),
+                             ("batch 16", lambda: model.generate(ids16, frames16, G16,
+                                                                 rng=SEED))):
+                for counter in INFERENCE_COUNTERS.values():
+                    counter.reset()
+                out = fn()
+                got[name] = (out, {k: c.count for k, c in INFERENCE_COUNTERS.items()},
+                             last["logits"])
+            ttfts, fulls = [], []
+            for _ in range(3):
+                ttfts.append(wall(lambda: model.generate([ids], frames, g1))[1])
+                fulls.append(wall(lambda: model.generate([ids], frames, g32))[1])
+            got["ms_step"] = (statistics.median(fulls) - statistics.median(ttfts)) / 31 * 1e3
+        runs[graphed] = got
+    entries = gen_mod.decode_graphs()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("2-frame", "batch", "batch 16"):
+        (want, want_counts, want_logits), (out, counts, logits) = runs[False][name], runs[True][name]
+        diff = (logits - want_logits).abs().max().item()
+        log(f"[{tag} graph] {name}: graph tokens {'equal' if out == want else 'DIFFER from'} "
+            f"the eager loop's ({[len(r) for r in out]} tokens a row); largest difference of "
+            f"the last logits {diff:.3e}; launches graph {counts} eager {want_counts}")
+        check(out == want, f"{tag} {name}: the graph's tokens differ from the eager loop's")
+        check(counts == want_counts, f"{tag} {name}: the graph's launch counts {counts} are "
+              f"not the eager loop's {want_counts}")
+        check(counts["K2"] > 0, f"{tag} {name}: no decode step ran {counts}")
+    log(f"[{tag} graph] 2-frame bs1 decode: graph {runs[True]['ms_step']:.3f} ms/step, eager "
+        f"{runs[False]['ms_step']:.3f} ms/step (medians of 3 generates of 1 and of 32 tokens); "
+        f"{len(entries)} graphs, captured in "
+        f"{', '.join(f'{e.capture_seconds:.3f}' for e in entries if e.graph is not None)} s, "
+        f"{sum(e.replays for e in entries)} replays; peak allocated {peak:.3f} GiB")
+    check(entries and all(e.graph is not None and e.replays > 0 for e in entries),
+          f"{tag}: every decode graph was captured and replayed")
+    gen_mod.clear_decode_graphs()
+
+
+def phase_failed_capture(model, ids, frames):
+    """A host read inside the captured iteration fails the capture: generate
+    raises, with no eager fallback."""
+    hit = gen_mod._keyword_hit
+
+    def reads_back(window, keyword_ids, keyword_lens):
+        out = hit(window, keyword_ids, keyword_lens)
+        out.any().item()
+        return out
+
+    gen_mod.clear_decode_graphs()
+    gen_mod._keyword_hit = reads_back
+    try:
+        model.generate([ids], frames, GenerationConfig(max_new_tokens=6, temperature=0.0,
+                                                       do_sample=False, stop_strings=()))
+    except RuntimeError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+    else:
+        raised = None
+    finally:
+        gen_mod._keyword_hit = hit
+    log(f"[graph] a capture with a host read in the step: {raised or 'did NOT raise'}")
+    check(raised is not None, "a failed capture did not raise")
+    check(gen_mod.decode_graphs()[0].graph is None, "a failed capture left a graph")
+    gen_mod.clear_decode_graphs()
 
 
 @contextlib.contextmanager
@@ -1067,6 +1183,8 @@ def phase_int4_path(gen, tokenizer):
     n_layers, vit_layers = cfg.llm.num_layers, cfg.vision.num_layers - 1
     check(counts["K3c"] == 4 * n_layers * counts["K3b"], f"K3c per forward {counts}")
     check(counts["K5"] % vit_layers == 0, f"K5 per encode {counts}")
+    phase_decode_graph(model, tokenizer, processor, ids, frames, "int4")
+    phase_failed_capture(model, ids, frames)
     phase_logits(model, ids, frames, compare="int4")
     k3a_counts = phase_k3a_path(cfg, gen, tokenizer, processor)
     return counts, k3a_counts
@@ -1230,7 +1348,11 @@ def main():
     tokenizer = WordTokenizer()
 
     int4_counts, k3a_counts = phase_int4_path(gen, tokenizer)
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[int4] after the model is deleted: {len(gen_mod.decode_graphs())} decode graphs "
+        f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    check(not gen_mod.decode_graphs(), "decode graphs outlived their params")
 
     cfg = TEOChatConfig(quant="int8")
     torch.cuda.reset_peak_memory_stats()
@@ -1244,13 +1366,19 @@ def main():
         "main", lambda: phase_main_path(model, tokenizer, processor))
     check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
           f"int8 path launches {int8_counts}")
+    phase_decode_graph(model, tokenizer, processor, ids, frames, "main")
     phase_logits(model, ids, frames)
+    gen_mod.clear_decode_graphs()  # training starts from the model's own memory
+    torch.cuda.empty_cache()
 
     k4_rows = phase_flash_backward(gen)
     train_launches = phase_train(cfg, params, tokenizer, processor)
     phase_train_parity(cfg, params, tokenizer, processor, gen)
     del model, params
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[main] after the model is deleted: {len(gen_mod.decode_graphs())} decode graphs "
+        f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     s_rows = {**phase_bench_int4(gen), **phase_bench_vit(gen)}
     bench_counts = phase_bench_run()

@@ -185,7 +185,8 @@ def _train_mfu(cfg, tok_s: float, seq: int, peak_tflops: float, full_finetune: b
 def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8"):
     """(run_generate, max_new, prompt_len): `run_generate(n_new)` prefills the
     2-frame prompt of `batch` rows on stand-in fused embeddings and decodes
-    greedily without ever stopping; it carries `weight_bytes` (every leaf of
+    greedily without ever stopping (or at the stops of `stops`, a StopSpec,
+    where one is given); it carries `weight_bytes` (every leaf of
     the decoder) and `kv_bytes` (the live KV bytes a decode step reads, mean
     over the steps: the decode kernel reads each row up to its length)."""
     cfg, dev = st.cfg, st.dev
@@ -201,9 +202,9 @@ def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8"):
                            for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
     stop, gen = _never_stop(), st.generator()
 
-    def run_generate(n_new: int):
+    def run_generate(n_new: int, stops: Optional[gen_mod.StopSpec] = None):
         return gen_mod.generate_tokens(
-            llm, cfg.llm, embeds, seq_lens, mask, pos, stop, gen,
+            llm, cfg.llm, embeds, seq_lens, mask, pos, stops or stop, gen,
             max_new_tokens=n_new, temperature=0.0, do_sample=False, cache_len=t_max)[0]
 
     run_generate.weight_bytes = _tree_bytes(llm)

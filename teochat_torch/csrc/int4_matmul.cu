@@ -451,6 +451,7 @@ constexpr int LG_THREADS = LG_NWG * 128 + LG_DQ_THREADS;
 // stages of x and weight tiles in flight, 64 KB each: 192 of the 227 KB
 // (3 beat 2 at every 7B projection, PERF.md section 6)
 constexpr int LG_STAGES = 3;
+constexpr int LG_MAX_DEVICES = 64;  // devices whose shared-memory attribute is tracked
 constexpr uint32_t LG_X_BYTES = LG_BM * SWIZZLE_ROW_BYTES;      // one half's x tile
 constexpr uint32_t LG_BOX_BYTES = LG_STEP * SWIZZLE_ROW_BYTES;  // 64 k rows x 64 columns
 constexpr uint32_t LG_W_BYTES = (LG_BN / 64) * LG_BOX_BYTES;    // one half's weight tile
@@ -624,10 +625,21 @@ int launch_large_m(const uint16_t* x, const Weights& w, const float* scale, uint
   if (err) return err;
   if (!rows_first) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB shared memory is dynamic and has to be asked for; the
-  // attribute belongs to the device the launch goes to, so it is set each time
-  const cudaError_t cerr = cudaFuncSetAttribute(
-      int4_large_m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(LG_SMEM));
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  // attribute belongs to the device the launch goes to, so it is set once a
+  // device, at the first launch there: a launch captured into a CUDA graph
+  // (a decode step at M > 8) then calls nothing but the launch itself
+  static bool smem_set[LG_MAX_DEVICES] = {};
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  if (dev < 0 || dev >= LG_MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t cerr = cudaFuncSetAttribute(
+        int4_large_m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(LG_SMEM));
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    smem_set[dev] = true;
+  }
   const dim3 grid((M + LG_BM - 1) / LG_BM, (n_out + LG_BN - 1) / LG_BN);
   int4_large_m_kernel<<<grid, LG_THREADS, LG_SMEM, st>>>(x_map, w, scale, out, M, n_out);
   return 0;

@@ -4,21 +4,49 @@ Port of teochat_tpu/models/generation.py (`StopSpec`, `make_stop_spec`,
 `_keyword_hit`, `sample_token`, `_filtered_logits`, `generate_tokens`,
 `_run_decode_loop`). The semantics are the JAX package's: tokens after a row
 stops are `pad_id`, `n_gen` counts up to and including the stop token, and
-the loop ends when every row is done. This eager loop reads the done flags
-back to the host once per step (the JAX loop stays on the device); removing
-that sync is later work.
+the loop ends when every row is done.
+
+The JAX loop is one `lax.while_loop` on the device, with no host round trip
+a token. Here the loop's state is a set of fixed-shape device tensors
+(`DecodeState`, the KV cache among them), and one iteration
+(`_decode_iteration`: embed the last token, the decoder and the lm_head at
+the device step's position, sample, record the token, shift the keyword
+window, update n_gen and done) reads nothing back to the host. The host
+runs the iterations in chunks of DECODE_CHUNK and reads `done.all()` once a
+chunk; an iteration that runs after every row is done records `pad_id` and
+adds nothing to n_gen, so the tokens are the while_loop's. The first token
+is sampled from the prefill's logits before the chunks, and the last one's
+forward, whose logits nothing reads, is not run.
+
+On the card the iteration is captured once in a CUDA graph (`DecodeGraph`,
+kept per key as `jax.jit` keeps a program) and replayed; on the CPU it runs
+eagerly, in the same chunks: that is the plain version the tests hold
+against the JAX function.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import List, Sequence, Tuple
+import time
+import weakref
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from teochat_torch.config import LlamaConfig
 from teochat_torch.models import llama as llama_mod
+from teochat_torch.ops import _build
+from teochat_torch.utils import tree_leaves_with_path
+
+# Iterations between two host reads of `done`. One read drains the queue of
+# replays (the card idles until the host enqueues the next chunk), and a
+# batch whose rows are all done runs on to the chunk's end. For a request
+# of n tokens the sum is least near k = sqrt(2 n drain / step): measured on
+# the card, 2 for answers of ~32 tokens (PERF.md, Findings).
+DECODE_CHUNK = 2
+MAX_DECODE_GRAPHS = 4  # live DecodeGraph entries; the least recently used goes first
 
 
 @dataclasses.dataclass
@@ -105,56 +133,276 @@ def generate_tokens(
 
     Generated tokens include the stop keyword; callers strip it. The cache
     holds `cache_len` slots; the last one is the trash slot where padded
-    prompt positions point (never attended).
-    """
-    b, s, _ = inputs_embeds.shape
-    cache = llama_mod.init_cache(cfg, b, cache_len, dtype=inputs_embeds.dtype,
-                                 device=inputs_embeds.device)
-    trash = cache.max_len - 1
+    prompt positions point (never attended). On the card the decode steps
+    replay a CUDA graph of one iteration (`DecodeGraph`); a request of one
+    token feeds nothing back, so it takes no graph (and no entry's cache).
+    No autograd graph is recorded."""
+    tokens, n_gen, _ = _generate_tokens(
+        params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, stop, generator,
+        max_new_tokens=max_new_tokens, cache_len=cache_len, temperature=temperature,
+        do_sample=do_sample, top_p=top_p, pad_id=pad_id, graphed=inputs_embeds.is_cuda)
+    return tokens, n_gen
+
+
+@torch.no_grad()
+def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids,
+                     stop: StopSpec, generator, *, max_new_tokens, cache_len, temperature,
+                     do_sample, top_p, pad_id, graphed: bool):
+    """`generate_tokens`, with the decode steps replayed from a CUDA graph
+    (`graphed`) or run eagerly (the CPU's path; on the card, the reference
+    the graph is held to). Returns (tokens, n_gen, the loop's state)."""
+    b, _, _ = inputs_embeds.shape
+    dev, dtype = inputs_embeds.device, inputs_embeds.dtype
+    graphed = graphed and max_new_tokens > 1  # one token feeds nothing back
+    step_kw = dict(temperature=temperature, do_sample=do_sample, top_p=top_p,
+                   pad_id=pad_id, emb_dtype=dtype)
+    if graphed:
+        entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens,
+                              tuple(np.shape(stop.keyword_ids)), dev, step_kw)
+        state = entry.state
+        state.cache.k.zero_()  # as JAX's init_cache: a zeroed cache each request
+        state.cache.v.zero_()
+    else:
+        entry = None
+        state = DecodeState.new(llama_mod.init_cache(cfg, b, cache_len, dtype=dtype, device=dev),
+                                cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)))
+    trash = cache_len - 1
     slots = torch.where(attention_mask, position_ids, trash)
     logits = llama_mod.llama_forward(
-        params, cfg, inputs_embeds, position_ids=position_ids, cache=cache,
+        params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
         write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
     )
-    return _run_decode_loop(
-        params, cfg, cache, logits[:, -1], seq_lens, stop, generator,
-        max_new_tokens=max_new_tokens, temperature=temperature,
-        do_sample=do_sample, top_p=top_p, pad_id=pad_id,
-        emb_dtype=inputs_embeds.dtype,
-    )
+    state.reset(seq_lens, stop, pad_id)
+    tokens, n_gen = _run_decode_loop(params, cfg, state, logits[:, -1], generator, entry,
+                                     max_new_tokens=max_new_tokens, **step_kw)
+    if entry is not None:  # the entry's buffers serve its next request
+        tokens, n_gen = tokens.clone(), n_gen.clone()
+    return tokens, n_gen, state
 
 
-def _run_decode_loop(params, cfg, cache, logits0, start_pos, stop: StopSpec, generator, *,
-                     max_new_tokens, temperature, do_sample, top_p, pad_id, emb_dtype):
-    """Sample from logits0, feed the token, repeat.
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's state: fixed-shape device tensors, updated in place
+    (a CUDA graph of the iteration reads and writes them where they lie)."""
 
-    start_pos [B]: cache slot of each row's first generated token. Returns
-    (tokens [B, max_new_tokens], n_gen [B])."""
-    dev = logits0.device
-    b = start_pos.shape[0]
-    keyword_ids = torch.as_tensor(stop.keyword_ids, device=dev)
-    keyword_lens = torch.as_tensor(stop.keyword_lens, device=dev)
-    tokens = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
-    window = torch.full((b, keyword_ids.shape[1]), -1, dtype=torch.int32, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    n_gen = torch.zeros(b, dtype=torch.int32, device=dev)
-    logits = logits0
-    for step in range(max_new_tokens):
-        tok = sample_token(logits, generator, temperature=temperature,
-                           do_sample=do_sample, top_p=top_p).to(torch.int32)
-        tok = torch.where(done, pad_id, tok)
-        tokens[:, step] = tok
-        window = torch.cat([window[:, 1:], tok[:, None]], dim=1)
-        n_gen += (~done).to(torch.int32)
-        done = done | (tok == stop.eos_id) | _keyword_hit(window, keyword_ids, keyword_lens)
-        # the one host read per step; the JAX loop would also run this
-        # step's forward, whose result nothing reads
-        if step + 1 == max_new_tokens or bool(done.all()):
+    cache: llama_mod.KVCache  # [L, B, T, Hkv, D] K and V
+    step: torch.Tensor  # [1] int64: the index of the token last recorded
+    start_pos: torch.Tensor  # [B] int64: each row's cache slot for its first generated token
+    tok: torch.Tensor  # [B] int32: the token last recorded (pad_id in a done row)
+    tokens: torch.Tensor  # [B, max_new_tokens] int32
+    window: torch.Tensor  # [B, M] int32: the last M tokens, right-aligned
+    done: torch.Tensor  # [B] bool
+    n_gen: torch.Tensor  # [B] int32
+    logits: torch.Tensor  # [B, V] fp32: the logits the token last recorded was drawn from
+    keyword_ids: torch.Tensor  # [K, M] int32
+    keyword_lens: torch.Tensor  # [K] int32
+    eos_id: torch.Tensor  # [] int32
+
+    @classmethod
+    def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape) -> "DecodeState":
+        b, dev = cache.k.shape[1], cache.k.device
+
+        def buf(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return cls(cache=cache, step=buf(1, torch.int64), start_pos=buf(b, torch.int64),
+                   tok=buf(b), tokens=buf((b, max_new_tokens)), window=buf((b, keyword_shape[1])),
+                   done=buf(b, torch.bool), n_gen=buf(b),
+                   logits=buf((b, vocab_size), torch.float32), keyword_ids=buf(keyword_shape),
+                   keyword_lens=buf(keyword_shape[:1]), eos_id=buf(()))
+
+    def reset(self, start_pos: torch.Tensor, stop: StopSpec, pad_id: int) -> None:
+        """The state before the first token, for a prompt whose rows'
+        generated tokens start at cache slot `start_pos` [B]."""
+        self.step.zero_()
+        self.start_pos.copy_(start_pos)
+        self.tokens.fill_(pad_id)
+        self.window.fill_(-1)
+        self.done.zero_()
+        self.n_gen.zero_()
+        self.keyword_ids.copy_(torch.as_tensor(np.asarray(stop.keyword_ids)))
+        self.keyword_lens.copy_(torch.as_tensor(np.asarray(stop.keyword_lens)))
+        self.eos_id.fill_(int(stop.eos_id))
+
+
+def _record(st: DecodeState, logits: torch.Tensor, generator, *, temperature, do_sample,
+            top_p, pad_id, **_) -> None:
+    """Sample the token of step `st.step` from `logits` [B, V] and record it."""
+    tok = sample_token(logits, generator, temperature=temperature,
+                       do_sample=do_sample, top_p=top_p).to(torch.int32)
+    tok = torch.where(st.done, pad_id, tok)
+    st.tok.copy_(tok)
+    st.logits.copy_(logits)
+    st.tokens.index_copy_(1, st.step, tok[:, None])
+    st.window.copy_(torch.cat([st.window[:, 1:], tok[:, None]], dim=1))
+    st.n_gen.add_((~st.done).to(torch.int32))
+    st.done.logical_or_((tok == st.eos_id) | _keyword_hit(st.window, st.keyword_ids,
+                                                          st.keyword_lens))
+
+
+def _decode_iteration(params, cfg, st: DecodeState, generator, *, emb_dtype, **step_kw) -> None:
+    """Feed the last token at its row's slot, then sample and record the next.
+
+    JAX's `step_fn` with its forward moved to the front: the token of step
+    s was fed at slot start_pos + s. Reads nothing back to the host."""
+    pos = (st.start_pos + st.step)[:, None]  # [B, 1]
+    emb = llama_mod.embed_tokens(params, st.tok[:, None].long(), dtype=emb_dtype)
+    logits = llama_mod.llama_forward(params, cfg, emb, position_ids=pos, cache=st.cache,
+                                     write_slots=pos, logits_mode="last")
+    st.step.add_(1)
+    _record(st, logits[:, -1], generator, **step_kw)
+
+
+def _run_decode_loop(params, cfg, st: DecodeState, logits0, generator,
+                     graph: Optional["DecodeGraph"], *, max_new_tokens, **step_kw):
+    """Sample from logits0, then feed, sample, repeat: chunks of DECODE_CHUNK
+    tokens, `done` read once a chunk. `graph` replays the iterations on the
+    card; None runs them eagerly. Returns (tokens [B, max_new_tokens], n_gen [B])."""
+    n_done = 0
+    while n_done < max_new_tokens:
+        n = min(DECODE_CHUNK, max_new_tokens - n_done)
+        iterations = n
+        if n_done == 0:
+            _record(st, logits0, generator, **step_kw)
+            iterations -= 1
+        if graph is not None:
+            graph.run(iterations, params, cfg, generator)
+        else:
+            for _ in range(iterations):
+                _decode_iteration(params, cfg, st, generator, **step_kw)
+        n_done += n
+        if bool(st.done.all()):  # the loop's one host read, once a chunk
             break
-        pos = start_pos + step
-        emb = llama_mod.embed_tokens(params, tok[:, None].long(), dtype=emb_dtype)
-        logits = llama_mod.llama_forward(
-            params, cfg, emb, position_ids=pos[:, None], cache=cache,
-            write_slots=pos[:, None], logits_mode="last",
-        )[:, -1]
-    return tokens, n_gen
+    return st.tokens, st.n_gen
+
+
+# ------------------------------------------------------------ the CUDA graph
+
+_graphs: "collections.OrderedDict[tuple, DecodeGraph]" = collections.OrderedDict()
+_capture_streams = {}  # device -> the side stream every capture on it runs on
+
+
+class DecodeGraph:
+    """One decode iteration captured in a CUDA graph, with all it touches.
+
+    It owns the loop's state and KV cache (the static buffers the graph
+    reads and writes), the keyword tensors, a generator of its own for
+    sampled runs, the captured graph and its memory pool. The graph bakes
+    in the addresses of the params, of those buffers and of the
+    workspaces the kernels' wrappers took during the capture (their
+    `torch.empty` comes from the graph's pool; K3's host-encoded TMA map of
+    x holds x's captured address), so a replay is valid only with the
+    params it was captured with: the key holds every leaf's address, and a
+    weak reference to one leaf drops the entry when the params are freed."""
+
+    def __init__(self, state: DecodeState, anchor: torch.Tensor, step_kw: dict):
+        self.state = state
+        self.step_kw = step_kw
+        sampled = step_kw["do_sample"] and step_kw["temperature"] > 0.0
+        self.generator = torch.Generator(device=state.tok.device) if sampled else None
+        self.graph = None  # captured when a first iteration is asked for
+        self.launches = {}  # LaunchCounter -> the launches one replay makes
+        self.capture_seconds = None
+        self.replays = 0
+        self._anchor = weakref.ref(anchor, _drop_dead_graphs)
+
+    def run(self, n: int, params, cfg, generator) -> None:
+        """Run `n` iterations from the state as it stands. The first on a
+        new entry runs eagerly, as the real iteration and the warm-up (the
+        kernels' builds and set-up, cuBLAS's handles); then the capture; the
+        rest replay. A sampled run draws from the caller's generator: its
+        state goes into the entry's generator, which the graph reads, and
+        comes back advanced."""
+        if n <= 0:
+            return
+        gen = generator
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
+            gen = self.generator
+        if self.graph is None:
+            self._warm_up_and_capture(params, cfg, gen)
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+        _build.add_counts(self.launches, n)
+        self.replays += n
+        if self.generator is not None:
+            generator.set_state(self.generator.get_state())
+
+    def _warm_up_and_capture(self, params, cfg, generator) -> None:
+        dev = self.state.tok.device
+        if dev not in _capture_streams:
+            _capture_streams[dev] = torch.cuda.Stream(dev)
+        stream = _capture_streams[dev]
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            _decode_iteration(params, cfg, self.state, generator, **self.step_kw)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # cuBLAS keeps a workspace a stream for the life of the process. Cleared
+        # before and after the capture (as torch's own graph trees do), the
+        # graph's comes from its pool and goes with it, and the warm-up's on
+        # the side stream is given back. The capture is begun and ended here,
+        # not through `torch.cuda.graph`, whose entry empties the caching
+        # allocator: the eager prefills after it would make their segments
+        # anew (PERF.md, Findings). A capture that fails raises: there
+        # is no eager fallback.
+        torch._C._cuda_clearCublasWorkspaces()
+        try:
+            with _build.capture_counts() as seen, torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    _decode_iteration(params, cfg, self.state, generator, **self.step_kw)
+                finally:
+                    graph.capture_end()
+        finally:
+            torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        self.graph, self.launches = graph, seen
+
+
+def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
+                  keyword_shape, device, step_kw: dict) -> DecodeGraph:
+    """The entry for this call's key, made (with a zeroed cache) if there is
+    none. The key is what `jax.jit` keys `generate_tokens` on (the params
+    tree's structure, shapes and dtypes, the config, the batch, cache_len,
+    max_new_tokens, the keyword shape, the dtype, temperature, do_sample,
+    top_p, pad_id), with each leaf's address and strides: the graph reads
+    the params where they lay at its capture."""
+    leaves = tree_leaves_with_path(params)
+    key = (tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for path, t in leaves),
+           cfg, batch, cache_len, max_new_tokens, keyword_shape, str(device),
+           tuple(sorted(step_kw.items())))
+    entry = _graphs.get(key)
+    if entry is not None and entry._anchor() is not None:
+        _graphs.move_to_end(key)
+        return entry
+    cache = llama_mod.init_cache(cfg, batch, cache_len, dtype=step_kw["emb_dtype"], device=device)
+    state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
+    entry = DecodeGraph(state, leaves[0][1], step_kw)
+    _graphs[key] = entry
+    while len(_graphs) > MAX_DECODE_GRAPHS:
+        _graphs.popitem(last=False)
+    return entry
+
+
+def _drop_dead_graphs(_ref=None) -> None:
+    """Drop every entry whose params are gone (a weak reference's callback)."""
+    for key in [k for k, e in list(_graphs.items()) if e._anchor() is None]:
+        _graphs.pop(key, None)
+
+
+def decode_graphs() -> List[DecodeGraph]:
+    """The live entries, least recently used first."""
+    return list(_graphs.values())
+
+
+def clear_decode_graphs() -> None:
+    """Drop every entry: its graph, memory pool, cache and buffers (the
+    memory goes back to the caching allocator; `torch.cuda.empty_cache`
+    returns it to the card)."""
+    _graphs.clear()

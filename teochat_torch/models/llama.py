@@ -23,6 +23,11 @@ the flash kernel (right-padded causal prompts need no mask); decode attends
 the layer's cache slab in place through the decode kernel with
 `lengths = q_slot + 1`, which on the plain generate path equals the JAX mask
 `slot <= q_slot & kv_mask` because each row's slots are contiguous.
+
+A decode step reads nothing back to the host: `write_slots`, `lengths`, the
+rows' cache indices and the RoPE positions stay device tensors, no shape or
+allocation depends on their values, and the int4 layer index is the Python
+loop's. So generation.py can capture the step in a CUDA graph.
 """
 
 from __future__ import annotations

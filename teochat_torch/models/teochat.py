@@ -134,6 +134,7 @@ class TEOChat:
             return rng
         return torch.Generator(device=self.device).manual_seed(0 if rng is None else int(rng))
 
+    @torch.no_grad()
     def generate(
         self,
         input_ids: Sequence[Sequence[int]],

@@ -11,6 +11,7 @@ source compiles in its own ``nvcc``, all started together, then one link.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -181,12 +182,19 @@ def tickets_for(device, count: int):
     """A buffer of `count` zero tickets on `device` for the kernels that merge
     their blocks' partials in the launch (the last block to take a ticket
     resets it, so the buffer is zero again after every launch). Kept for the
-    next call and never freed, so a captured launch keeps its pointer; calls
-    that share it run on one stream."""
+    next call and never freed, so a captured launch keeps its pointer.
+
+    K2 and K3's decode kernel may share one buffer, also inside a CUDA graph
+    of the decode step (models/generation.py): that is safe because their
+    launches, eager or replayed, run one after another on one stream. A
+    buffer must exist before a capture (a captured fill runs nothing), which
+    the step's eager first run sees to; making one in a capture raises."""
     import torch
 
     key = (device, count)
     if key not in _tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tickets_for: a new ticket buffer inside a CUDA graph capture")
         _tickets[key] = torch.zeros(count, dtype=torch.int32, device=device)
     return _tickets[key]
 
@@ -203,12 +211,43 @@ def sm_count(device) -> int:
     return _sm_counts[device]
 
 
+_counters = []  # every LaunchCounter made, in order
+
+
 class LaunchCounter:
-    """Counts the launches of one kernel (reset it before a run to read)."""
+    """Counts the launches of one kernel (reset it before a run to read).
+
+    A wrapper adds one where it enqueues its kernel. A launch captured into
+    a CUDA graph runs nothing then: `capture_counts` takes it back off and
+    records it, and the graph's owner adds it at each replay
+    (`add_counts`), so a count is what the device ran."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        _counters.append(self)
 
     def reset(self) -> None:
         self.count = 0
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Around a CUDA graph's capture: yields a dict that holds, on exit, the
+    launches each counter saw in the block (only the counters that moved),
+    and sets every counter back to what it read before the block."""
+    before = [c.count for c in _counters]
+    seen = {}
+    try:
+        yield seen
+    finally:
+        for c, n in zip(_counters, before):
+            if c.count != n:
+                seen[c] = c.count - n
+                c.count = n
+
+
+def add_counts(seen, times: int) -> None:
+    """Count `times` replays of a graph whose capture saw `seen`."""
+    for c, n in seen.items():
+        c.count += n * times

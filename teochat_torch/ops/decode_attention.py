@@ -106,6 +106,8 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError("decode_attention: q and the cache on different devices")
     lengths = lengths.contiguous()
+    # in the decode step's CUDA graph, out and the partials come from the
+    # graph's pool and keep their addresses in every replay
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

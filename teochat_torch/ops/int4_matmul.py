@@ -320,7 +320,13 @@ def _split_args(x: torch.Tensor, m: int, n_out: int, k2: int):
     fp32 partials (a fresh buffer each call, of a size fixed by the shape)
     and the bands' zero tickets (a kept buffer); (1, 0, 0) where nothing is
     split, and for M > 8. Also returns the partials' tensor, which the caller
-    holds until the launch is enqueued."""
+    holds until the launch is enqueued.
+
+    In a CUDA graph's capture (the decode step's, models/generation.py) the
+    partials come from the graph's pool and keep their address in every
+    replay, as do x and `out`, which the step's capture makes too: the TMA
+    map of x that the entry encodes on the host holds x's captured address.
+    The entries the graph captures call no `cudaFuncSetAttribute`."""
     k_slices = decode_k_slices(n_out, k2, _build.sm_count(x.device)) if m <= SMALL_M else 1
     if k_slices == 1:
         return (1, 0, 0), None

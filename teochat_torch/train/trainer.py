@@ -33,6 +33,7 @@ import torch
 from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.utils import tree_leaves_with_path
 
 Schedule = Callable[[int], float]
 
@@ -41,20 +42,6 @@ class TrainState(NamedTuple):
     params: Dict
     opt_state: Any
     step: int  # train_step calls (micro-batches under accumulation)
-
-
-def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs in the tree's order; None leaves are skipped."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return [] if tree is None else [(prefix, tree)]
-    out = []
-    for key, sub in items:
-        out += tree_leaves_with_path(sub, f"{prefix}/{key}" if prefix else str(key))
-    return out
 
 
 def _tree_map_with_path(fn, tree, prefix: str = ""):

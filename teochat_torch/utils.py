@@ -2,12 +2,13 @@
 
 The port's own copy of what it needs of teochat_tpu/utils.py: `order_pick_k`
 (random order-preserving subsample, reference utils.py:18-29).
-`resolve_device` is the port's own: the default device of its entry points.
+`resolve_device` (the default device of its entry points) and
+`tree_leaves_with_path` (a params tree's leaves by path) are the port's own.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,3 +40,17 @@ def resolve_device(device=None):
             )
         device = "cuda"
     return torch.device(device)
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in the tree's order; None leaves are skipped."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [] if tree is None else [(prefix, tree)]
+    out = []
+    for key, sub in items:
+        out += tree_leaves_with_path(sub, f"{prefix}/{key}" if prefix else str(key))
+    return out

@@ -23,11 +23,18 @@ versions, with xa and xb rounded to bf16 once for both sides, and their
 attention variants (S2) to TOL.
 """
 
+import dataclasses
+import gc
+
+import numpy as np
 import pytest
 import torch
 
 from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.bench import vit_attention as bench_vit
+from teochat_torch.checkpoint import bridge
+from teochat_torch.config import TEOChatConfig
+from teochat_torch.models import generation as gen_mod
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
@@ -916,3 +923,219 @@ def test_bench_vit_reads_strided_inputs_and_refuses_the_rest(gen):
             fn(x, x, x)
     with pytest.raises(ValueError):  # bh must divide H
         bench_vit.call_b(q, k, v, bh=3)
+
+
+# ---------------------------------------------- the decode step's CUDA graph
+#
+# generate_tokens on the card replays one decode iteration from a CUDA graph
+# (models/generation.py::DecodeGraph). These run a 2-layer decoder at
+# LLaMA-7B width (int8: cuBLAS products; int4: K3's decode kernel, its int4
+# lm_head) against the eager loop on the same card.
+
+GRAPH_CFG = dataclasses.replace(TEOChatConfig().llm, num_layers=2)
+GRAPH_S = 48
+
+
+@pytest.fixture(scope="module")
+def decoders():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {quant: bridge.init_llama(GRAPH_CFG, gen, "cuda", torch.bfloat16, quant=quant)
+            for quant in ("int8", "int4")}
+
+
+def _graph_prompt(b, seed=3):
+    """[B, S, D] stand-in embeddings of ragged prompts, right-padded."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cut = [0, 5, 17, 1, 9, 30, 2, 12, 0, 21, 7, 3, 40, 15, 11, 26][:b]
+    lens = GRAPH_S - torch.tensor(cut, device="cuda")
+    embeds = (torch.randn(b, GRAPH_S, GRAPH_CFG.hidden_size, generator=gen, device="cuda")
+              * 0.02).to(torch.bfloat16)
+    slot = torch.arange(GRAPH_S, device="cuda")
+    mask = slot[None, :] < lens[:, None]
+    return embeds, lens.to(torch.int32), mask, torch.where(mask, slot, 0).to(torch.int32)
+
+
+def _never_stop(eos=-1, m=1):
+    return gen_mod.StopSpec(keyword_ids=np.zeros((1, m), np.int32),
+                            keyword_lens=np.zeros((1,), np.int32), eos_id=eos)
+
+
+def _decode(params, prompt, graphed, *, max_new=11, stop=None, generator=None,
+            temperature=0.0, do_sample=False):
+    embeds, lens, mask, pos = prompt
+    if generator is None:
+        generator = torch.Generator(device="cuda").manual_seed(0)
+    tokens, n_gen, state = gen_mod._generate_tokens(
+        params, GRAPH_CFG, embeds, lens, mask, pos, stop or _never_stop(), generator,
+        max_new_tokens=max_new, cache_len=GRAPH_S + max_new + 1, temperature=temperature,
+        do_sample=do_sample, top_p=1.0, pad_id=0, graphed=graphed)
+    return tokens, n_gen, state.logits.clone()
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_decode_graph_tokens_equal_the_eager_loop(decoders, quant, b):
+    """Greedy tokens and n_gen of the replayed graph (its first call: the
+    warm-up iteration, the capture, replays; its second: replays only) are
+    the eager loop's, without a stop and with EOS inside a chunk. At 16 rows
+    the int4 step runs K3's M > 8 kernel (its TMA map of x encoded at the
+    capture)."""
+    params, prompt = decoders[quant], _graph_prompt(b)
+    gen_mod.clear_decode_graphs()
+    want = _decode(params, prompt, False)
+    for _ in range(2):
+        got = _decode(params, prompt, True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    eos = int(want[0][0, 4])  # row 0 stops by its fifth token, inside a chunk of 2
+    stop = _never_stop(eos, m=2)
+    want = _decode(params, prompt, False, stop=stop)
+    got = _decode(params, prompt, True, stop=stop)
+    assert int(want[1][0]) <= 5
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    gen_mod.clear_decode_graphs()
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_decode_graph_replays_are_bit_equal(decoders, b):
+    """Two requests of 51 tokens on one entry (49 replays, then 50): the
+    same tokens, last logits and KV cache bits, and the eager loop's
+    tokens and n_gen. The graph's workspaces, x and outputs are its
+    capture's own: K3's decode kernel at 1 row, its M > 8 kernel at 16."""
+    params, prompt = decoders["int4"], _graph_prompt(b)
+    gen_mod.clear_decode_graphs()
+    first = _decode(params, prompt, True, max_new=51)
+    (entry,) = gen_mod.decode_graphs()
+    large_m = (entry.launches.get(int4_mod.LAUNCHES_STACKED, 0)
+               - entry.launches.get(int4_mod.LAUNCHES_STACKED_SMALL_M, 0))
+    assert large_m == (4 * GRAPH_CFG.num_layers if b > 8 else 0)  # a step's M > 8 launches
+    cache = entry.state.cache.k.clone(), entry.state.cache.v.clone()
+    second = _decode(params, prompt, True, max_new=51)
+    assert entry.replays == 49 + 50
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(cache[0], entry.state.cache.k) and torch.equal(cache[1], entry.state.cache.v)
+    eager = _decode(params, prompt, False, max_new=51)
+    assert torch.equal(eager[0], second[0]) and torch.equal(eager[1], second[1])
+    gen_mod.clear_decode_graphs()
+
+
+def test_decode_graph_is_captured_once_a_key(decoders):
+    """A second request with the same key (another prompt of the same
+    length) replays the graph of the first: no new entry, no new capture.
+    A request of one token makes no entry."""
+    params = decoders["int8"]
+    gen_mod.clear_decode_graphs()
+    _decode(params, _graph_prompt(4), True)
+    (entry,) = gen_mod.decode_graphs()
+    graph, seconds, replays = entry.graph, entry.capture_seconds, entry.replays
+    assert graph is not None and seconds > 0
+    _decode(params, _graph_prompt(4, seed=4), True)
+    assert gen_mod.decode_graphs() == [entry]
+    assert entry.graph is graph and entry.capture_seconds == seconds
+    assert entry.replays == replays + 10
+    embeds, lens, mask, pos = _graph_prompt(4)
+    tokens, _ = gen_mod.generate_tokens(  # one token feeds nothing back: no entry
+        params, GRAPH_CFG, embeds, lens, mask, pos, _never_stop(),
+        torch.Generator(device="cuda"), max_new_tokens=1, cache_len=GRAPH_S + 2)
+    assert tokens.shape == (4, 1) and gen_mod.decode_graphs() == [entry]
+    gen_mod.clear_decode_graphs()
+
+
+def test_decode_graph_counts_its_replayed_launches(decoders):
+    """The launch counts of a graphed request (first call and a replayed
+    one) are those of the eager loop: what the device ran."""
+    params, prompt = decoders["int4"], _graph_prompt(1)
+    counters = {"K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES,
+                "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED,
+                "K3c M<=8": int4_mod.LAUNCHES_STACKED_SMALL_M}
+    gen_mod.clear_decode_graphs()
+
+    def counts(graphed):
+        for c in counters.values():
+            c.reset()
+        _decode(params, prompt, graphed)
+        return {name: c.count for name, c in counters.items()}
+
+    eager, first, again = counts(False), counts(True), counts(True)
+    assert eager == first == again
+    layers, steps = GRAPH_CFG.num_layers, 10  # 11 tokens: 10 fed back
+    assert eager["K2"] == layers * steps and eager["K3c M<=8"] == 4 * layers * steps
+    assert eager["K3b"] == 1 + steps and eager["K1"] == layers
+    gen_mod.clear_decode_graphs()
+
+
+def test_decode_graph_samples_follow_the_seed(decoders):
+    """A sampled run: the same seed gives the same tokens, another seed
+    other tokens, and the caller's generator advances."""
+    params, prompt = decoders["int4"], _graph_prompt(4)
+    gen_mod.clear_decode_graphs()
+
+    def sample(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        before = gen.get_state().clone()
+        tokens = _decode(params, prompt, True, generator=gen, temperature=1.0,
+                         do_sample=True)[0]
+        return tokens, before, gen.get_state()
+
+    a, b, c = sample(1), sample(1), sample(2)
+    assert gen_mod.decode_graphs()[0].generator is not None
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[0], c[0])
+    assert not torch.equal(a[1], a[2])
+    gen_mod.clear_decode_graphs()
+
+
+def test_a_failed_capture_raises(decoders, monkeypatch):
+    """A host read inside the captured iteration fails the capture, and the
+    call raises (there is no eager fallback); then the same request captures
+    and replays as it should."""
+    params, prompt = decoders["int4"], _graph_prompt(1)
+    gen_mod.clear_decode_graphs()
+    hit = gen_mod._keyword_hit
+
+    def reads_back(window, keyword_ids, keyword_lens):
+        out = hit(window, keyword_ids, keyword_lens)
+        out.any().item()
+        return out
+
+    monkeypatch.setattr(gen_mod, "_keyword_hit", reads_back)
+    before = dec_mod.LAUNCHES.count
+    with pytest.raises(RuntimeError):
+        _decode(params, prompt, True)
+    monkeypatch.undo()
+    assert gen_mod.decode_graphs()[0].graph is None
+    assert dec_mod.LAUNCHES.count == before + GRAPH_CFG.num_layers  # the eager warm-up's
+    gen_mod.clear_decode_graphs()
+    want = _decode(params, prompt, False)
+    got = _decode(params, prompt, True)
+    assert torch.equal(got[0], want[0])
+    gen_mod.clear_decode_graphs()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_decode_graph_dies_with_its_params(decoders, quant):
+    """An entry holds its params weakly: once they are deleted it is gone,
+    and empty_cache returns its cache, buffers and pool to the card (int8's
+    cuBLAS workspace too: the capture's lives in the graph's pool)."""
+    prompt = _graph_prompt(1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen_mod.clear_decode_graphs()
+
+    def run_once():
+        params = bridge.init_llama(GRAPH_CFG, gen, "cuda", torch.bfloat16, quant=quant)
+        _decode(params, prompt, True)
+        assert len(gen_mod.decode_graphs()) == 1
+        del params
+        gc.collect()
+        assert gen_mod.decode_graphs() == []
+
+    run_once()  # whatever a first capture leaves for the process (handles) stays
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    run_once()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == allocated
+    assert torch.cuda.memory_reserved() <= reserved
