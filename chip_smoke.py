@@ -36,12 +36,35 @@ them. Phases, each printing its lines before the last:
    forward on the plain `int4_proj`;
 9. one request through a 4-layer decoder at 7B width with 2 kv heads and
    unfused int4 projections, whose k and v are flat leaves: K3a must launch;
-10. the int8 path at TEOChat-7B width (LLaMA-7B with int8 weights): the same
-    requests; K1, K2 and K5 must launch; the graph against the eager loop as
-    in 7; after each model is deleted, no decode graph may be left;
-11. the last-position prefill logits of the 2-frame request with the kernels
+10. the checkpoint path at TEOChat-7B width and depth: a merged TEOChat
+    checkpoint is written under `results/` (config.json, fp16
+    `pytorch_model-0000k-of-0000n.bin` shards of 4 decoder layers, the
+    ViT-L/14 tower embedded under its `vision_model` names, the mlp2x
+    projector, a word-level tokenizer.json of 32000 tokens; random weights
+    from the seed, drawn on the card and saved from the host: bytes and
+    seconds); `teochat_torch.eval.eval.load_model(path, load_8bit=True)`
+    loads it through the port's builder and `transformers`' tokenizer
+    (seconds, the host's peak RSS, the card's peak during the load, which
+    must stay below the loaded tree's bytes + 3 GiB: the 16-bit decoder is
+    never on the card whole), and three sampled int8 projections,
+    dequantized, must lie within half a quantization step of the
+    checkpoint's fp16 weights; `eval("fmow_high_res", ...)` then runs 4
+    examples of 2-4 uint8 frames of non-square sizes through the native
+    `ImageProcessor` (which must have built: ms a frame), greedy, 32 new
+    tokens (K1, K2 and K5 must launch; seconds an example, decode steps);
+    the first example's truth is its greedy answer, taken by
+    `run_inference` beforehand, so that the metrics are not empty and
+    `eval()` must give that answer again; a second `eval()` with no model
+    and no dataset must read its JSON and return the same metrics;
+11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
+    must launch; the graph against the eager loop as in 7; then the
+    last-position prefill logits of the 2-frame request with the kernels
     against the same forward on the plain attention;
-12. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
+12. `load_pretrained_model(path, load_int4=True)` from the same directory:
+    one 2-frame request of uint8 frames (K3b and K3c must launch); the
+    directory is then removed, and after each model is deleted no decode
+    graph may be left;
+13. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
     K4c dQ) against autograd through its plain twin at training shapes, at
     head_dim 64, on non-causal calls with S != T, on ragged lengths that
     leave the last tiles part-filled and on strided slices of a fused q|k|v;
@@ -50,23 +73,23 @@ them. Phases, each printing its lines before the last:
     (`flash_backward_dkv_schedule`, `_dq_schedule`) on the same bf16 inputs;
     and each kernel's time beside the plain forward's and backward's and the
     library's one backward call;
-13. the training path at TEOChat-7B width: the port's `train()` takes three
+14. the training path at TEOChat-7B width: the port's `train()` takes three
     optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
     2-frame conversations; the three K4 launch counts must rise;
-14. one micro-step's loss and trainable gradients with the kernels against
+15. one micro-step's loss and trainable gradients with the kernels against
     the same step on the plain attention;
-15. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
+16. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
     512, with `torch._weight_int4pack_mm` on the same weights beside v4 at
     M 1 and beside v2 and v5 at M 1 and 8; the attention ones at
     [32, 257, 16, 64] and [2, 257, 16, 64], at S 9 and 100, and at S 300
     and 832 (two sweeps);
-16. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
+17. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
-17. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
+18. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -90,8 +113,11 @@ import functools
 import gc
 import itertools
 import json
+import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 import types
 
@@ -106,14 +132,16 @@ from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.bench._timing import bound_ms, kernel_row, sync, time_ms, wall
 from teochat_torch.config import GenerationConfig, TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
-from teochat_torch.eval.inference import run_inference_single
+from teochat_torch.eval.classification import classification_metrics
+from teochat_torch.eval.inference import run_inference, run_inference_single
 from teochat_torch.mm_utils import tokenizer_image_token
-from teochat_torch.checkpoint.bridge import init_teochat
+from teochat_torch.checkpoint.bridge import init_encoder, init_teochat
 from teochat_torch.data.dataset import DataArguments, make_supervised_data_module
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.models.vit import layer_index
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
@@ -1190,6 +1218,295 @@ def phase_int4_path(gen, tokenizer):
     return counts, k3a_counts
 
 
+# --------------------------------------------------- checkpoint -> eval path
+
+CKPT_LAYERS_PER_SHARD = 4
+CKPT_TOWER_PREFIX = "model.image_tower.image_tower.vision_model."
+# the loader's peak on the card during an 8-bit load, above what it leaves
+# allocated, must stay below this: one chunk of 8 layers of gate or up,
+# fp16 in, its fp32 working copy and its int8 result, is ~2.5 GB
+CKPT_LOAD_HEADROOM = 3 * 2**30
+EVAL_QUESTION = ("This is a sequence of satellite images taken at different times: <video> "
+                 "Which class does this sequence of images belong to? Answer with one of "
+                 "airport, crop field, dam, factory or power station.")
+EVAL_FRAME_SIZES = ((300, 400), (256, 320), (400, 300), (333, 250))
+
+
+def checkpoint_tokenizer(path, vocab_size):
+    """A word-level tokenizer.json of `vocab_size` tokens: the specials, the
+    words of the smoke's prompts, then filler words."""
+    import re
+
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    text = " ".join((PROMPT_2, PROMPT_4, EVAL_QUESTION, "Image 1 2 3 4"))
+    words = sorted(set(re.findall(r"\w+|[^\w\s]+", text)) - {"<", ">"})
+    vocab = {w: i for i, w in enumerate(["<unk>", "<s>", "</s>"] + words)}
+    for i in range(len(vocab), vocab_size):
+        vocab[f"w{i}"] = i
+    tok = Tokenizer(WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>"}, f)
+
+
+def _hf_encoder(cfg, gen):
+    """The tower and projector of `init_encoder`'s draw, in fp16, under the
+    names a merged TEOChat checkpoint gives them, on the host."""
+    enc = init_encoder(cfg, gen, "cuda", torch.float16)
+    v, p, d, ps = enc["vision"], CKPT_TOWER_PREFIX, cfg.vision.hidden_size, cfg.vision.patch_size
+    sd = {
+        p + "embeddings.patch_embedding.weight": v["patch_embedding"]["kernel"].t().reshape(d, 3, ps, ps),
+        p + "embeddings.class_embedding": v["class_embedding"],
+        p + "embeddings.position_embedding.weight": v["position_embedding"],
+    }
+    for ours, hf in (("pre_layernorm", "pre_layrnorm"), ("post_layernorm", "post_layernorm")):
+        sd[p + hf + ".weight"], sd[p + hf + ".bias"] = v[ours]["scale"], v[ours]["bias"]
+    dense = {("attn", "q"): "self_attn.q_proj", ("attn", "k"): "self_attn.k_proj",
+             ("attn", "v"): "self_attn.v_proj", ("attn", "out"): "self_attn.out_proj",
+             ("mlp", "fc1"): "mlp.fc1", ("mlp", "fc2"): "mlp.fc2"}
+    for i in range(cfg.vision.num_layers):
+        e = p + f"encoder.layers.{i}."
+        for (group, name), hf in dense.items():
+            leaf = v["layers"][group][name]
+            sd[e + hf + ".weight"], sd[e + hf + ".bias"] = leaf["kernel"][i].t(), leaf["bias"][i]
+        for ours, hf in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            sd[e + hf + ".weight"] = v["layers"][ours]["scale"][i]
+            sd[e + hf + ".bias"] = v["layers"][ours]["bias"][i]
+    for j, layer in enumerate(enc["projector"]["layers"]):
+        sd[f"model.mm_projector.{2 * j}.weight"] = layer["kernel"].t()
+        sd[f"model.mm_projector.{2 * j}.bias"] = layer["bias"]
+    return {k: t.to(torch.float16).contiguous().cpu() for k, t in sd.items()}
+
+
+def write_teochat_checkpoint(path, cfg, gen):
+    """A TEOChat checkpoint in the published merged layout at `path`:
+    config.json, fp16 `pytorch_model-0000k-of-0000n.bin` shards of
+    CKPT_LAYERS_PER_SHARD decoder layers each (the embedding in the first,
+    the final norm and lm_head in the last), the tower and projector in a
+    shard of their own, and a word-level tokenizer. Weights are drawn on
+    the card from `gen` (the decoder's N(0, 0.02), norms 1; the encoder as
+    `init_encoder` draws it) and saved from the host one shard at a time.
+    Returns (bytes written, {sample name: its fp16 HF weight on the host})."""
+    llm = cfg.llm
+    d, inter, L, kv = llm.hidden_size, llm.intermediate_size, llm.num_layers, llm.num_kv_heads * llm.head_dim
+    os.makedirs(path, exist_ok=True)
+    hf = {
+        "architectures": ["LlavaLlamaForCausalLM"], "model_type": "llava", "torch_dtype": "float16",
+        "vocab_size": llm.vocab_size, "hidden_size": d, "intermediate_size": inter,
+        "num_hidden_layers": L, "num_attention_heads": llm.num_heads,
+        "num_key_value_heads": llm.num_kv_heads, "rms_norm_eps": llm.rms_norm_eps,
+        "max_position_embeddings": llm.max_position_embeddings, "rope_theta": llm.rope_theta,
+        "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 0,
+        "mm_image_tower": "LanguageBind/LanguageBind_Image", "mm_projector_type": "mlp2x_gelu",
+        "mm_hidden_size": cfg.vision.hidden_size, "mm_vision_select_layer": -2,
+        "mm_vision_select_feature": "patch", "mm_use_im_patch_token": False,
+        "mm_use_im_start_end": False, "image_aspect_ratio": "pad",
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    checkpoint_tokenizer(path, llm.vocab_size)
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(torch.float16).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.float16)
+
+    starts = list(range(0, L, CKPT_LAYERS_PER_SHARD))
+    n_shards, nbytes, samples = len(starts) + 1, 0, {}
+
+    def save(k, shard):
+        nonlocal nbytes
+        name = os.path.join(path, f"pytorch_model-{k:05d}-of-{n_shards:05d}.bin")
+        torch.save(shard, name)
+        nbytes += os.path.getsize(name)
+
+    for k, start in enumerate(starts, 1):
+        shard = {"model.embed_tokens.weight": normal(llm.vocab_size, d)} if start == 0 else {}
+        for i in range(start, min(start + CKPT_LAYERS_PER_SHARD, L)):
+            p = f"model.layers.{i}."
+            for name, shape in (("self_attn.q_proj", (d, d)), ("self_attn.k_proj", (kv, d)),
+                                ("self_attn.v_proj", (kv, d)), ("self_attn.o_proj", (d, d)),
+                                ("mlp.gate_proj", (inter, d)), ("mlp.up_proj", (inter, d)),
+                                ("mlp.down_proj", (d, inter))):
+                shard[p + name + ".weight"] = normal(*shape)
+            shard[p + "input_layernorm.weight"] = ones(d)
+            shard[p + "post_attention_layernorm.weight"] = ones(d)
+        if start + CKPT_LAYERS_PER_SHARD >= L:
+            shard["model.norm.weight"], shard["lm_head.weight"] = ones(d), normal(llm.vocab_size, d)
+        for key in ("model.layers.0.self_attn.q_proj.weight",
+                    f"model.layers.{L - 1}.mlp.down_proj.weight", "lm_head.weight"):
+            if key in shard:
+                samples[key] = shard[key]
+        save(k, shard)
+        del shard
+    save(n_shards, _hf_encoder(cfg, gen))
+    return nbytes, samples
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves_with_path(tree))
+
+
+def _peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+
+
+def check_int8_samples(model, samples):
+    """Sampled int8 projections, dequantized, against the checkpoint's fp16
+    weights: each within half a quantization step of its column (and the
+    fp32 rounding of q * scale)."""
+    llm, last = model.params["llm"], model.cfg.llm.num_layers - 1
+    leaves = {
+        "model.layers.0.self_attn.q_proj.weight": layer_index(llm["layers"]["attn"]["q"], 0),
+        f"model.layers.{last}.mlp.down_proj.weight": layer_index(llm["layers"]["mlp"]["down"], last),
+        "lm_head.weight": llm["lm_head"],
+    }
+    worst = 0.0
+    for key, leaf in leaves.items():
+        want = samples[key].to(leaf["scale"].device).float().t()
+        err = (quant_mod.dequantize_kernel(leaf) - want).abs() / (leaf["scale"][None, :] / 2)
+        worst = max(worst, err.max().item())
+    log(f"[checkpoint] {len(leaves)} sampled int8 projections dequantized against the "
+        f"checkpoint's fp16 weights: largest error {worst:.6f} of half a quantization step")
+    check(worst <= 1 + 1e-3, f"int8 projections off the checkpoint's weights ({worst})")
+
+
+def eval_dataset(seed):
+    """4 TEOChatlas-style classification examples of 2-4 seeded uint8 frames
+    of non-square sizes (so that the resize and the crop both work)."""
+    rs = np.random.RandomState(seed)
+    truths = ("airport", "crop field", "dam", "power station")
+    out = []
+    for i, (n_frames, truth) in enumerate(zip((2, 3, 4, 2), truths)):
+        frames = [rs.randint(0, 256, (*EVAL_FRAME_SIZES[(i + j) % 4], 3), dtype=np.uint8)
+                  for j in range(n_frames)]
+        out.append({
+            "conversations": [{"from": "human", "value": EVAL_QUESTION},
+                              {"from": "gpt", "value": truth}],
+            "video": frames,
+            "timestamp": [f"201{j + 5}-0{i + 1}-1{j}" for j in range(n_frames)][::-1],
+            "task": "classification",
+        })
+    return out
+
+
+def phase_checkpoint_eval(gen, root):
+    """Write a TEOChat-7B checkpoint, load it with load_8bit through the eval
+    driver's own entry, and evaluate 4 examples through `eval()`. Returns
+    (the loaded model, its tokenizer, the eval's launch counts)."""
+    from teochat_torch import native
+    from teochat_torch.eval import eval as eval_mod
+
+    cfg = TEOChatConfig()
+    path = os.path.join(root, "TEOChat-7B")
+    (nbytes, samples), sec = wall(lambda: write_teochat_checkpoint(path, cfg, gen))
+    log(f"[checkpoint] wrote a TEOChat-7B checkpoint ({cfg.llm.num_layers} decoder layers at "
+        f"width {cfg.llm.hidden_size}, the ViT-L/14 tower and the projector; fp16 .bin shards of "
+        f"{CKPT_LAYERS_PER_SHARD} layers; random, seed {SEED}): {nbytes} bytes in {sec:.2f} s "
+        f"({nbytes / sec / 1e9:.3f} GB/s)")
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _peak_rss_gib()
+    (tokenizer, model, processor), sec = wall(lambda: eval_mod.load_model(path, load_8bit=True))
+    tree = _tree_bytes(model.params)
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"[checkpoint] eval.load_model(load_8bit=True): {sec:.2f} s; the process's peak RSS "
+        f"{_peak_rss_gib():.3f} GiB ({rss_before:.3f} GiB before the load); card: loaded tree {tree} bytes "
+        f"({tree / 2**30:.3f} GiB), peak during the load {peak / 2**30:.3f} GiB above the "
+        f"{before / 2**30:.3f} GiB held before; tokenizer {type(tokenizer).__name__} of "
+        f"{len(tokenizer)} tokens")
+    check(peak < tree + CKPT_LOAD_HEADROOM,
+          f"the load's peak {peak} is not below the tree {tree} + 3 GiB")
+    check(model.params["llm"]["layers"]["attn"]["q"]["kernel"].dtype == torch.int8, "int8 decoder")
+    check_int8_samples(model, samples)
+    del samples
+
+    check(native.available(), "the native preprocessing library did not build or load")
+    dataset = eval_dataset(SEED)
+    frames = dataset[2]["video"]
+    pixels = processor.preprocess(frames)["pixel_values"]
+    check(pixels.shape == (len(frames), 3, cfg.vision.image_size, cfg.vision.image_size)
+          and np.isfinite(pixels).all(), "preprocessed frames")
+    times = [wall(lambda: processor.preprocess(frames), "cpu")[1] for _ in range(5)]
+    log(f"[checkpoint] native ImageProcessor: {statistics.median(times) / len(frames) * 1e3:.3f} "
+        f"ms a frame ({len(frames)} uint8 frames of {[f.shape[:2] for f in frames]}, median of 5)")
+
+    # random weights answer no class name, so the metrics would be {}: the
+    # first example's truth is set to its greedy answer (run_inference, as
+    # eval() runs it), so that it alone is known to hit and the metrics,
+    # first and cached, are {"<task>_accuracy": 0.25} unless another hits too
+    first = run_inference(dataset[:1], model, tokenizer, processor, "interleave", True, "v1",
+                          0.0, 32, dataset_name="fmow_high_res", progress=False)[0]
+    dataset[0]["conversations"][1]["value"] = first["response"]
+    out_dir = os.path.join(root, "eval")
+    kwargs = dict(model_path=path, out_dir=out_dir, temperature=0.0, max_new_tokens=32)
+    metrics, counts = counted("checkpoint eval", lambda: wall(lambda: eval_mod.eval(
+        "fmow_high_res", dataset=dataset, model_bundle=(tokenizer, model, processor), **kwargs)))
+    metrics, sec = metrics
+    with open(os.path.join(out_dir, "fmow_high_res",
+                           "TEOChat-7B_prompt_strategy_interleave_chronological_prefix_True.json")) as f:
+        outputs = json.load(f)
+    steps = counts["K2"] // cfg.llm.num_layers
+    log(f"[checkpoint] eval('fmow_high_res') on {len(dataset)} examples of 2-4 frames: "
+        f"{sec:.3f} s, {sec / len(dataset):.3f} s an example; {steps + len(dataset)} tokens "
+        f"generated ({len(dataset)} prefills, then {steps} decode steps: K2 launches / layers); "
+        f"metrics {metrics}; responses {[o['response'][:40] for o in outputs]}")
+    check(len(outputs) == len(dataset) and all(isinstance(o["response"], str) for o in outputs),
+          "eval outputs")
+    check(outputs[0]["response"] == first["response"],
+          "eval()'s first answer is not the greedy answer run before it")
+    want = classification_metrics(outputs, dataset_name="fmow_high_res")
+    check(metrics == want and len(metrics) == 1
+          and next(iter(metrics.values())) >= 1 / len(dataset), f"eval metrics {metrics}")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K5")), f"eval launches {counts}")
+    check(counts["K5"] % (cfg.vision.num_layers - 1) == 0, f"K5 per encode {counts}")
+
+    (again, sec), cached = counted("checkpoint eval cached", lambda: wall(lambda: eval_mod.eval(
+        "fmow_high_res", dataset=None, model_bundle=None, **kwargs)))
+    log(f"[checkpoint] the second eval() on the same out_dir, with no model: {sec:.3f} s, "
+        f"metrics {again}")
+    check(again == metrics and not any(cached.values()), "the cached eval")
+    return model, tokenizer, counts
+
+
+def phase_checkpoint_int4(root):
+    """The same checkpoint loaded with load_int4: one 2-frame request of uint8 frames."""
+    from teochat_torch.builder import load_pretrained_model
+
+    path = os.path.join(root, "TEOChat-7B")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (tokenizer, model, processor, _), sec = wall(lambda: load_pretrained_model(path, load_int4=True))
+    tree = _tree_bytes(model.params)
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"[checkpoint int4] load_pretrained_model(load_int4=True): {sec:.2f} s; loaded tree "
+        f"{tree / 2**30:.3f} GiB, peak during the load {peak / 2**30:.3f} GiB above what was held")
+    check("qkv" in model.params["llm"]["layers"]["attn"], "fused int4 q|k|v")
+    frames = eval_dataset(SEED + 1)[0]["video"]
+
+    def request():
+        return wall(lambda: run_inference_single(
+            model, processor["image"], tokenizer, PROMPT_2, frames,
+            timestamps=["2019-03-15", "2019-01-15"], temperature=0.0, max_new_tokens=32))
+
+    (answer, sec), counts = counted("checkpoint int4", request)
+    log(f"[checkpoint int4] 2-frame request: {sec:.3f} s answer={answer[:120]!r}")
+    check(isinstance(answer, str) and answer, "checkpoint int4: empty answer")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c M<=8", "K5"))
+          and counts["K3c"] > counts["K3c M<=8"], f"checkpoint int4 launches {counts}")
+    return counts
+
+
 def phase_bench_int4(gen):
     """S1: the six kernels of the int4 kernel bench at the gate projection
     (K 4096, N 11008, tiles of 512), M = 1 and 8, held as tight as K3 (both
@@ -1354,21 +1671,26 @@ def main():
         f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     check(not gen_mod.decode_graphs(), "decode graphs outlived their params")
 
-    cfg = TEOChatConfig(quant="int8")
-    torch.cuda.reset_peak_memory_stats()
-    params, init_s = wall(lambda: init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int8"))
-    log(f"[main] init TEOChat-7B int8 (random, seed {SEED}): {init_s:.2f} s, "
-        f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    model = teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
-    processor = FrameProcessor(cfg.vision.image_size, SEED)
-    (ids, frames), int8_counts = counted(
-        "main", lambda: phase_main_path(model, tokenizer, processor))
-    check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
-          f"int8 path launches {int8_counts}")
-    phase_decode_graph(model, tokenizer, processor, ids, frames, "main")
-    phase_logits(model, ids, frames)
+    # the int8 model of the phases below is a checkpoint written here and
+    # loaded through the eval driver; the directory is removed at the end
+    os.makedirs("results", exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="results")
+    try:
+        model, hf_tokenizer, _ = phase_checkpoint_eval(gen, ckpt_root)
+        cfg, params = model.cfg, model.params
+        processor = FrameProcessor(cfg.vision.image_size, SEED)
+        (ids, frames), int8_counts = counted(
+            "main", lambda: phase_main_path(model, hf_tokenizer, processor))
+        check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
+              f"int8 path launches {int8_counts}")
+        phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main")
+        phase_logits(model, ids, frames)
+        gen_mod.clear_decode_graphs()
+        phase_checkpoint_int4(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     gen_mod.clear_decode_graphs()  # training starts from the model's own memory
+    gc.collect()
     torch.cuda.empty_cache()
 
     k4_rows = phase_flash_backward(gen)

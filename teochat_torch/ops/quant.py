@@ -31,27 +31,51 @@ dequantize-matmul: the hand-written kernels on a CUDA tensor, the plain
 unpack -> matmul -> scale on a CPU tensor. Forward only, as in the JAX
 package (int4 is a serving format). The JAX module's search for a block
 size that fits the TPU's vector memory has no counterpart here.
+
+`quantize_kernel_host` and `quantize_llama_params_host` take a decoder
+tree that lies on the host (the checkpoint loader's) and quantize it on the
+card a few layers at a time, so the 16-bit decoder (13.5 GB at 7B) is never
+on the card whole. `quantize_mpt_params_host` is not ported yet (ROADMAP
+item 14).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from teochat_torch.ops import int4_matmul as int4_mod
+from teochat_torch.utils import resolve_device, tree_map
 
 INT4_TILE_BN = int4_mod.TILE_BN
 _QUANT_TARGETS = ("attn", "mlp")  # groups inside llm/layers whose kernels quantize
 
 
+def _quantize_symmetric(kernel: torch.Tensor, qmin: int, qmax: int, reciprocal_scale: bool):
+    """(round(kernel / scale) clipped to [qmin, qmax] as fp32, scale), with a
+    per-output-channel scale amax / qmax (1 where amax is 0).
+
+    The work is done in place on one fp32 copy of the weight, the only
+    full-size buffer allocated: the checkpoint loader quantizes a chunk of
+    7B layers at a time on the card. `reciprocal_scale` takes the scale as
+    amax * fp32(1 / qmax), as XLA compiles the JAX quantizers under `jit`;
+    only quantize_kernel_host asks for it (see there)."""
+    k32 = kernel.to(torch.float32, copy=True)
+    amax = torch.maximum(k32.amax(dim=-2), -k32.amin(dim=-2))
+    step = amax * float(np.float32(1.0) / np.float32(qmax)) if reciprocal_scale else amax / qmax
+    scale = torch.where(amax == 0, torch.ones_like(amax), step)
+    return k32.div_(scale[..., None, :]).round_().clamp_(qmin, qmax), scale
+
+
+def _int8_leaf(q: torch.Tensor, scale: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"kernel": q.to(torch.int8), "scale": scale}
+
+
 def quantize_kernel(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., in, out] float -> {'kernel': int8, 'scale': fp32 [..., out]}."""
-    k32 = kernel.float()
-    amax = k32.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
-    q = torch.round(k32 / scale[..., None, :]).clamp(-127, 127).to(torch.int8)
-    return {"kernel": q, "scale": scale}
+    return _int8_leaf(*_quantize_symmetric(kernel, -127, 127, reciprocal_scale=False))
 
 
 def dequantize_kernel(p: Dict[str, torch.Tensor], dtype=torch.float32) -> torch.Tensor:
@@ -189,13 +213,19 @@ def quantize_kernel_int4(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., in, out] float -> {'packed_tiles': int8 [..., ceil(out/bn), in/2, bn],
     'scale': fp32 [..., out]}, or {'packed': uint8 [..., in/2, out], 'scale'}
     for an output narrower than one tile."""
-    k32 = kernel.float()
-    fan_in = k32.shape[-2]
-    if fan_in % 2:
-        raise ValueError(f"int4 packing needs an even fan-in, got {fan_in}")
-    amax = k32.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 7.0)
-    q = torch.round(k32 / scale[..., None, :]).clamp(-8, 7).to(torch.int32)
+    _check_int4_fan_in(kernel)
+    return _int4_leaf(*_quantize_symmetric(kernel, -8, 7, reciprocal_scale=False))
+
+
+def _check_int4_fan_in(kernel: torch.Tensor) -> None:
+    if kernel.shape[-2] % 2:
+        raise ValueError(f"int4 packing needs an even fan-in, got {kernel.shape[-2]}")
+
+
+def _int4_leaf(q: torch.Tensor, scale: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Pack quantized int4 values (fp32 [..., in, out]) into quantize_kernel_int4's layout."""
+    fan_in = q.shape[-2]
+    q = q.to(torch.int32)
     if q.shape[-1] < INT4_TILE_BN:
         return {"packed": int4_mod.pack_int4(q), "scale": scale}
     # zero-pad the fan-in (the zero rows contribute nothing: int4_proj reads
@@ -290,3 +320,80 @@ def quantize_llama_params_int4(params: Dict, quantize_lm_head: bool = True,
     if quantize_lm_head and "lm_head" in params:
         out["lm_head"] = quantize_kernel_int4(params["lm_head"]["kernel"])
     return out
+
+
+# ------------------------------------------------- host trees (the loader's)
+
+def quantize_kernel_host(kernel: torch.Tensor, int4: bool = False, layer_chunk: int = 8,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """Quantize a HOST stacked kernel [L, in, out] on `device` (None = the
+    card) with bounded device memory.
+
+    `layer_chunk` layers are uploaded at a time, quantized there and written
+    into the preallocated stacked result, so the device holds the quantized
+    leaf plus one chunk's working set (its 16-bit upload, one fp32 copy and
+    the result), never the whole 16-bit kernel. Un-stacked 2-D kernels
+    (lm_head) are small and quantize whole.
+
+    The scale is amax * fp32(1 / qmax), not amax / qmax as in
+    quantize_kernel: the JAX package's host quantizer runs under `jit`,
+    where XLA rewrites the division so, and this path holds the same bytes
+    as that one (ROADMAP queue 3, differences)."""
+    device = resolve_device(device)
+    if int4:
+        _check_int4_fan_in(kernel)
+
+    def fn(k):
+        if int4:
+            return _int4_leaf(*_quantize_symmetric(k, -8, 7, reciprocal_scale=True))
+        return _int8_leaf(*_quantize_symmetric(k, -127, 127, reciprocal_scale=True))
+
+    if kernel.ndim < 3:
+        return fn(kernel.to(device))
+    n_layers = kernel.shape[0]
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(0, n_layers, layer_chunk):
+        q = fn(kernel[i : i + layer_chunk].to(device))
+        for name, leaf in q.items():
+            if name not in out:
+                out[name] = torch.empty((n_layers, *leaf.shape[1:]), dtype=leaf.dtype,
+                                        device=device)
+            out[name][i : i + leaf.shape[0]] = leaf
+        del q
+    return out
+
+
+def quantize_llama_params_host(params: Dict, int4: bool = False, layer_chunk: int = 8,
+                               device=None) -> Dict:
+    """quantize_llama_params / _int4 for a HOST tree (CPU tensors, the output
+    of convert_hf.convert_llama): the checkpoint loader's path
+    (builder.load_pretrained_model).
+
+    The output layout is the device-tree versions' at their defaults: int8
+    q, k, v unfused; int4 q|k|v and gate|up fused (concatenated on the
+    host); the lm_head quantized. The difference is memory: projections
+    stream to `device` in layer chunks (quantize_kernel_host). The other
+    leaves (norm scales, embeddings) are moved to `device` as they are."""
+    device = resolve_device(device)
+    layers = dict(params["layers"])
+
+    def quantize(kernel):
+        return quantize_kernel_host(kernel, int4=int4, layer_chunk=layer_chunk, device=device)
+
+    if int4:
+        attn, mlp = layers["attn"], layers["mlp"]
+        qkv = torch.cat([attn[n]["kernel"] for n in ("q", "k", "v")], dim=-1)
+        layers["attn"] = {"qkv": quantize(qkv), "out": quantize(attn["out"]["kernel"])}
+        del qkv
+        gateup = torch.cat([mlp[n]["kernel"] for n in ("gate", "up")], dim=-1)
+        layers["mlp"] = {"gateup": quantize(gateup), "down": quantize(mlp["down"]["kernel"])}
+        del gateup
+    else:
+        for group in _QUANT_TARGETS:
+            layers[group] = {
+                name: quantize(proj["kernel"]) for name, proj in layers[group].items()
+            }
+    out = dict(params)
+    out["layers"] = layers
+    out["lm_head"] = quantize_kernel_host(params["lm_head"]["kernel"], int4=int4, device=device)
+    return tree_map(lambda t: t.to(device), out)

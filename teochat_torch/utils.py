@@ -2,8 +2,9 @@
 
 The port's own copy of what it needs of teochat_tpu/utils.py: `order_pick_k`
 (random order-preserving subsample, reference utils.py:18-29).
-`resolve_device` (the default device of its entry points) and
-`tree_leaves_with_path` (a params tree's leaves by path) are the port's own.
+`resolve_device` (the default device of its entry points),
+`tree_leaves_with_path` (a params tree's leaves by path) and `tree_map`
+are the port's own.
 """
 
 from __future__ import annotations
@@ -54,3 +55,12 @@ def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     for key, sub in items:
         out += tree_leaves_with_path(sub, f"{prefix}/{key}" if prefix else str(key))
     return out
+
+
+def tree_map(fn, tree):
+    """A params tree (nested dicts and lists) with `fn` applied to each leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)

@@ -1,11 +1,14 @@
 """The port's own copies of the JAX package's host modules (config,
 constants, conversation, mm_utils, utils, data.sampler, data.processing,
-eval.inference) behave as their originals, the port imports nothing of JAX
-or of the JAX package, and its entry points default to the card."""
+eval.inference, eval.classification, eval.detection, eval.geometry) behave
+as their originals, the port imports nothing of JAX or of the JAX package,
+and its entry points default to the card."""
 
 import dataclasses
 import pathlib
 import re
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -18,6 +21,9 @@ from teochat_tpu import conversation as jax_conv
 from teochat_tpu import mm_utils as jax_mm
 from teochat_tpu import utils as jax_utils
 from teochat_tpu.data import sampler as jax_sampler
+from teochat_tpu.eval import classification as jax_classification
+from teochat_tpu.eval import detection as jax_detection
+from teochat_tpu.eval import geometry as jax_geometry
 from teochat_tpu.eval import inference as jax_inference
 from teochat_torch import config as torch_config
 from teochat_torch import constants as torch_constants
@@ -27,6 +33,9 @@ from teochat_torch import utils as torch_utils
 from teochat_torch.checkpoint import bridge
 from teochat_torch.data import processing as torch_processing
 from teochat_torch.data import sampler as torch_sampler
+from teochat_torch.eval import classification as torch_classification
+from teochat_torch.eval import detection as torch_detection
+from teochat_torch.eval import geometry as torch_geometry
 from teochat_torch.eval import inference as torch_inference
 from teochat_torch.models import llama as torch_llama
 
@@ -230,6 +239,10 @@ def test_port_has_no_import_of_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"teochat_torch/bench/{m}.py" for m in ("_timing", "int4_kernel", "vit_attention",
                                                      "main")} <= names
+    assert {f"teochat_torch/{m}.py" for m in (
+        "builder", "checkpoint/convert_hf", "native/__init__", "models/towers", "eval/eval",
+        "eval/classification", "eval/detection", "eval/geometry", "data/processing",
+        "ops/quant")} <= names
     bad = [(str(f.relative_to(REPO)), m.group(0).strip())
            for f in files for m in IMPORT_RE.finditer(f.read_text())]
     assert not bad, bad
@@ -248,3 +261,99 @@ def test_entry_points_default_to_the_card_and_take_the_cpu_on_request():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_llama.init_cache(cfg.llm, 1, 4)
     assert bridge.to_torch({"w": np.zeros(2, np.float32)}, "cpu")["w"].device.type == "cpu"
+
+
+CLS_OUTPUTS = [
+    {"response": "Residential!", "ground_truth": "residential", "task": "cls"},
+    {"response": "commercial", "ground_truth": "residential", "task": "cls"},
+    {"response": "Yes, it is", "ground_truth": "yes", "task": "qa"},
+    {"response": "no", "ground_truth": "no", "task": "qa"},
+]
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"keywords": ["yes", "no"]}, {"ignore_casing": False},
+                                    {"ignore_punctuation": False, "keywords": ["residential"]}])
+def test_classification_metrics_equal(kwargs):
+    want = jax_classification.classification_metrics(CLS_OUTPUTS, **kwargs)
+    assert torch_classification.classification_metrics(CLS_OUTPUTS, **kwargs) == want
+
+
+WKTS = [
+    "POLYGON ((1 1, 20 1, 20 15, 1 15, 1 1))",
+    "POLYGON ((0 0, 30 0, 30 30, 0 30, 0 0), (5 5, 9 5, 9 9, 5 9, 5 5))",
+    "MULTIPOLYGON (((2 2, 6 2, 6 6, 2 2)), ((10 10, 14 10, 14 18, 10 10)))",
+    "GEOMETRYCOLLECTION (POLYGON ((3 3, 8 3, 8 8, 3 3)), POINT (1 1))",
+    "POLYGON EMPTY",
+]
+
+
+@pytest.mark.parametrize("wkt", WKTS + [WKTS[:2]])
+def test_geometry_equal(wkt):
+    assert torch_geometry.wkt_exteriors(wkt) == jax_geometry.wkt_exteriors(wkt)
+    for size in ((32, 32), (24, 40)):
+        np.testing.assert_array_equal(torch_geometry.create_mask(wkt, size),
+                                      jax_geometry.create_mask(wkt, size))
+    boxes = [[1.5, 2.0, 10.0, 12.25], [0, 0, 3, 4]]
+    assert torch_geometry.boxes_to_wkt(boxes) == jax_geometry.boxes_to_wkt(boxes)
+    with pytest.raises(ValueError):
+        torch_geometry.wkt_exteriors("CIRCLE (1 1)")
+
+
+def _det_outputs():
+    poly = "POLYGON ((10 10, 120 10, 120 100, 10 100, 10 10))"
+    return {
+        "xbd_loc": [
+            {"task": "change_detection_localization", "polygon": [poly],
+             "ground_truth": "[4, 4, 47, 39]", "response": "[5, 5, 45, 40], [60, 60, 70, 80]"},
+            {"task": "change_detection_localization", "polygon": [poly],
+             "ground_truth": "[4, 4, 47, 39]", "response": "no buildings"},
+        ],
+        "xbd_dmg_cls": [
+            {"task": "change_detection_classification", "ground_truth": "major damage",
+             "response": "Major damage.", "polygon": [poly]},
+            {"task": "change_detection_classification", "ground_truth": "destroyed",
+             "response": "minor damage", "polygon": [poly]},
+            {"task": "change_detection_classification", "ground_truth": "no damage",
+             "response": "no damage", "polygon": [poly]},
+        ],
+        "qfabric_rqa5_rtqa5": [
+            {"task": "region_based_temporal_question_answering", "ground_truth": "prior construction",
+             "response": "prior construction", "polygon": [poly]},
+            {"task": "region_based_temporal_question_answering", "ground_truth": "construction done",
+             "response": "greenland", "polygon": [poly]},
+        ],
+        "s2_rqa": [
+            {"task": "region_based_question_answering", "ground_truth": "Yes", "response": "yes"},
+        ],
+    }
+
+
+@pytest.mark.parametrize("dataset", sorted(_det_outputs()))
+def test_detection_metrics_equal(dataset):
+    outputs = _det_outputs()[dataset]
+    want = jax_detection.detection_metrics(outputs, dataset_name=dataset)
+    got = torch_detection.detection_metrics(outputs, dataset_name=dataset)
+    assert sorted(got) == sorted(want) and got
+    np.testing.assert_array_equal([got[k] for k in sorted(got)], [want[k] for k in sorted(want)])
+    with pytest.raises(ValueError):
+        torch_detection.detection_metrics(outputs, dataset_name="unknown")
+
+
+def test_eval_modules_import_without_pillow():
+    """The eval driver and the classification metrics import where Pillow is
+    missing; geometry reaches for it only when it draws."""
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "import teochat_torch.eval.eval, teochat_torch.eval.detection, teochat_torch.builder\n"
+        "from teochat_torch.eval import geometry\n"
+        "assert geometry.wkt_exteriors('POLYGON ((0 0, 1 0, 1 1, 0 0))')\n"
+        "try:\n"
+        "    geometry.create_mask('POLYGON ((0 0, 1 0, 1 1, 0 0))', (4, 4))\n"
+        "except ImportError:\n"
+        "    print('drawing needs PIL')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "drawing needs PIL" in res.stdout
