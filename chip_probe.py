@@ -6,6 +6,7 @@
     python3 chip_probe.py decode-paths [--turns 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k1
+    python3 chip_probe.py k2m
     python3 chip_probe.py k4
     python3 chip_probe.py k1k4a [--root DIR] [--tiles 64x64 128x128 ...] [--long]
     python3 chip_probe.py k4bc [--root DIR] [--variants dqbk=128,stages=2 stages=4 ...] [--long]
@@ -102,6 +103,10 @@ another checkout, so two trees can be timed in one session on one card.
   product, then an fp32 add of the two halves): ms a product, ms an
   optimizer step of the recipe (32 layers, 2 micro-steps), and for each how
   many of 256 dx values lie a bf16 step from the exact sum's rounding.
+- k2m: the smoke's K2m phase alone (decode attention's multi-query form
+  against its plain version on a session's suffix over a 4,096-slot cache,
+  beside SDPA with a boolean mask and the bound); the check after editing
+  `decode_multi_kernel` in `decode_attention.cu`.
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
@@ -784,6 +789,10 @@ def _run_phases(smoke, phases):
 
 def cmd_k1(smoke, args):
     _run_phases(smoke, (("k1", smoke.phase_flash),))
+
+
+def cmd_k2m(smoke, args):
+    _run_phases(smoke, (("k2m", smoke.phase_decode_multi),))
 
 
 def cmd_k3k5(smoke, args):
@@ -1534,7 +1543,8 @@ def cmd_int8_proj(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-ttft", "decode-paths", "parity", "k1", "k4", "k1k4a", "k4bc", "k3k5", "k3",
+    for name in ("decode", "decode-ttft", "decode-paths", "parity", "k1", "k2m", "k4", "k1k4a",
+                 "k4bc", "k3k5", "k3",
                  "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
@@ -1577,7 +1587,7 @@ def main():
     smoke.phase_device()
     smoke.phase_build()
     {"decode": cmd_decode, "decode-ttft": cmd_decode_ttft, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
-     "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
+     "k2m": cmd_k2m, "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
      "k5k2": cmd_k5k2,
      "s1s2": cmd_s1s2, "s1-ring": cmd_s1_ring,
      "profile-train": cmd_profile_train, "train-step": cmd_train_step,

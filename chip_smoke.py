@@ -14,7 +14,13 @@ them. Phases, each printing its lines before the last:
 4. the decode-attention kernel (K2) against its plain twin at decode shapes,
    at the edges of its slot chunks (1, CHUNK - 1, CHUNK, CHUNK + 1 and T
    live slots), in a ragged batch and with rows of no live slot (written as
-   0); each case twice, bit-equal;
+   0); each case twice, bit-equal; then its multi-query form (K2m) against
+   its plain version on a session's suffix over a 4,096-slot cache at 7B
+   shapes (S 1, 9, 128, 512), starts 0, 1, 31, 32, 33, 63, 64, 65 and 700
+   (the edges of its 32-slot chunk and of K2's 64), padded
+   queries at the trash slot, a row with no live slot, head_dim 64 with
+   group 4 and group 16, each twice, bit-equal, beside one
+   `scaled_dot_product_attention` call with a boolean mask;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4 (the
    split-K `mma.sync` decode kernel), 16 and 768 (the M > 8 `wgmma`
@@ -60,11 +66,25 @@ them. Phases, each printing its lines before the last:
     must launch; the graph against the eager loop as in 7; then the
     last-position prefill logits of the 2-frame request with the kernels
     against the same forward on the plain attention;
-12. `load_pretrained_model(path, load_int4=True)` from the same directory:
+12. the chat server on that loaded model: the port's `ChatServer` on
+    127.0.0.1 and an ephemeral port, in the background; over HTTP session
+    "a" takes three greedy turns of 32 tokens (two base64 PNG frames of
+    non-square sizes with timestamps; text only; a frame whose timestamp
+    sorts before the others, so the committed prefix changes from the first
+    frame on), session "b" one turn between a's first two; then /reset of
+    "a" and /stats. Each turn's last-position prefill logits in the session
+    against a stateless prefill of the same conversation (relative L2 <=
+    5e-2), its tokens against a stateless generate's (printed: random 7B
+    weights have near-ties); K1 and K5 must launch on a first turn, K2m on
+    a's second and third, K2 on every turn; the session caches' GiB, the
+    decode graph captures (one a session) and the peak; then, from fresh
+    sessions, turn 2's time to first token beside a stateless re-prefill of
+    the whole conversation and the session's decode ms/step;
+13. `load_pretrained_model(path, load_int4=True)` from the same directory:
     one 2-frame request of uint8 frames (K3b and K3c must launch); the
     directory is then removed, and after each model is deleted no decode
     graph may be left;
-13. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
+14. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
     K4c dQ) against autograd through its plain twin at training shapes, at
     head_dim 64, on non-causal calls with S != T, on ragged lengths that
     leave the last tiles part-filled and on strided slices of a fused q|k|v;
@@ -73,23 +93,23 @@ them. Phases, each printing its lines before the last:
     (`flash_backward_dkv_schedule`, `_dq_schedule`) on the same bf16 inputs;
     and each kernel's time beside the plain forward's and backward's and the
     library's one backward call;
-14. the training path at TEOChat-7B width: the port's `train()` takes three
+15. the training path at TEOChat-7B width: the port's `train()` takes three
     optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
     2-frame conversations; the three K4 launch counts must rise;
-15. one micro-step's loss and trainable gradients with the kernels against
+16. one micro-step's loss and trainable gradients with the kernels against
     the same step on the plain attention;
-16. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
+17. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
     512, with `torch._weight_int4pack_mm` on the same weights beside v4 at
     M 1 and beside v2 and v5 at M 1 and 8; the attention ones at
     [32, 257, 16, 64] and [2, 257, 16, 64], at S 9 and 100, and at S 300
     and 832 (two sweeps);
-17. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
+18. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
-18. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
+19. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -99,10 +119,11 @@ least time the card could take:
 the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
-The line before the last is a JSON object with each of the eighteen
+The line before the last is a JSON object with each of the nineteen
 kernel rows' launches, error, times and bound (K3c has two: its wrapper runs
-the M > 8 kernel at prefill and the split-K one at decode); the
-last line is {"ok": true, "device": {...}}.
+the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
+are the chat server's four turns); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -429,6 +450,82 @@ def phase_decode(gen):
     return main
 
 
+def _suffix_case(b, s, t, starts, live):
+    """q_slots [B, S] and kv_mask [B, T] of a session's suffix prefill: row b's
+    live queries at slots starts[b], starts[b] + 1, ..., its padded ones at
+    the trash slot t - 1, kv_mask the prefix starts[b] + live[b]."""
+    starts = torch.tensor(starts, device="cuda")[:, None]
+    live = torch.tensor(live, device="cuda")[:, None]
+    pos = torch.arange(s, device="cuda")[None, :]
+    q_slots = torch.where(pos < live, starts + pos, t - 1)
+    kv_mask = torch.arange(t, device="cuda")[None, :] < starts + live
+    return q_slots, kv_mask
+
+
+def phase_decode_multi(gen):
+    """K2m, decode attention's multi-query form, against its plain version:
+    queries of a session's suffix over a 4,096-slot cache at 7B shapes
+    (S 1, 9, 128, 512; S 9 also at the cache's end), starts 0, 1, 31, 32,
+    33, 63, 64, 65 and 700, padded
+    queries at the trash slot, a row with no live slot (written as 0),
+    head_dim 64 with group 4 and group 16; each case twice, bit-equal;
+    beside one scaled_dot_product_attention call with a boolean mask."""
+    c = dec_mod.MULTI_CHUNK
+    cases = [  # (B, S, H, Hkv, T, D, starts, live); the one the JSON line reports is marked
+        (1, 1, 32, 32, 4096, 128, [700], [1]),
+        (1, 9, 32, 32, 4096, 128, [700], [9]),
+        (1, 9, 32, 32, 4096, 128, [4080], [9]),  # a full cache: 32 blocks, each over 4,089 slots
+        (1, 128, 32, 32, 4096, 128, [700], [100]),  # a text turn's suffix: the reported case
+        (1, 512, 32, 32, 4096, 128, [700], [512]),
+        # starts at the edges of K2m's chunk (c) and of K2's (64)
+        (9, 9, 32, 32, 4096, 128, [0, 1, c - 1, c, c + 1, 63, 64, 65, 700],
+         [9, 9, 9, 9, 5, 9, 9, 9, 9]),
+        (2, 128, 32, 32, 4096, 128, [63, 0], [128, 0]),  # row 1 has no live slot
+        (2, 33, 16, 4, 1024, 64, [64, 65], [33, 20]),  # head_dim 64, group 4
+        (1, 17, 32, 2, 600, 128, [65], [17]),  # group 16: two blocks of 8 heads
+    ]
+    worst, main = 0.0, None
+    for b, s, h, hkv, t, d, starts, live in cases:
+        # a layer slab of the [L, B, T, Hkv, D] cache, read in place as [B, Hkv, T, D]
+        k_slab, v_slab = _randn((b, t, hkv, d), gen), _randn((b, t, hkv, d), gen)
+        k, v = k_slab.transpose(1, 2), v_slab.transpose(1, 2)
+        q = _randn((b, s, h, d), gen)
+        q_slots, kv_mask = _suffix_case(b, s, t, starts, live)
+        lens = dec_mod.query_lengths(q_slots, kv_mask)
+        got = dec_mod.decode_attention_multi(q, k, v, lens)
+        again = dec_mod.decode_attention_multi(q, k, v, lens)
+        sync()
+        check(torch.equal(got, again), "K2m: the same bits on a second call")
+        want = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
+        alive = lens > 0  # the plain version gives the mean of V where the kernel gives 0
+        check(got[~alive].abs().sum().item() == 0.0, "K2m: a query without live slots is 0")
+        check(torch.isfinite(got).all().item(), "K2m output finite")
+        err = (got.float() - want)[alive].abs().max().item()
+        ms = time_ms(lambda: dec_mod.decode_attention_multi(q, k, v, lens))
+        plain_ms = time_ms(lambda: dec_mod.decode_attention_multi_plain(q, k, v, lens))
+        lib_ms = None
+        if alive.all():
+            mask = torch.arange(t, device="cuda")[None, None, :] < lens[..., None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                _bhsd(q), k, v, attn_mask=mask[:, None], enable_gqa=hkv != h))
+        # bytes: q and o once, each row's K and V up to its longest query once;
+        # operations: QK and PV over each query's live slots
+        kv_read = int(lens.amax(-1).sum().item()) * hkv * d * 2 * 2
+        row = kernel_row(err, ms, plain_ms, kv_read + 2 * 2 * b * s * h * d,
+                         4 * int(lens.sum().item()) * h * d, lib_ms)
+        lib_text = "n/a (a query without live slots)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[K2m decode multi] B={b} S={s} H={h} Hkv={hkv} D={d} T={t} starts={starts} "
+            f"live={live}: max_abs_err={err:.3e} (tol {DECODE_TOL}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms scaled_dot_product_attention with the mask {lib_text} bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        check(err <= DECODE_TOL, f"K2m error {err} > {DECODE_TOL}")
+        worst = max(worst, err)
+        if (b, s, starts) == (1, 128, [700]):
+            main = row
+    main["max_abs_err"] = worst
+    return main
+
+
 def int4pack_library(packed, scale, n_out, copies=1):
     """`torch._weight_int4pack_mm` set up to compute what K3 computes on one
     weight's bytes (`packed`: flat [k2, N] or tiles [n_tiles, k2, TW]): the
@@ -628,6 +725,7 @@ INFERENCE_COUNTERS = {  # the kernels an inference path may launch
     "K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
     "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED,
     "K3c M<=8": int4_mod.LAUNCHES_STACKED_SMALL_M, "K5": vit_mod.LAUNCHES,
+    "K2m": dec_mod.LAUNCHES_MULTI,
 }
 
 
@@ -1401,7 +1499,8 @@ def eval_dataset(seed):
 def phase_checkpoint_eval(gen, root):
     """Write a TEOChat-7B checkpoint, load it with load_8bit through the eval
     driver's own entry, and evaluate 4 examples through `eval()`. Returns
-    (the loaded model, its tokenizer, the eval's launch counts)."""
+    (the loaded model, its tokenizer, its image processor, the eval's launch
+    counts)."""
     from teochat_torch import native
     from teochat_torch.eval import eval as eval_mod
 
@@ -1476,7 +1575,193 @@ def phase_checkpoint_eval(gen, root):
     log(f"[checkpoint] the second eval() on the same out_dir, with no model: {sec:.3f} s, "
         f"metrics {again}")
     check(again == metrics and not any(cached.values()), "the cached eval")
-    return model, tokenizer, counts
+    return model, tokenizer, processor, counts
+
+
+SERVE_FRAME_SIZES = ((300, 400), (256, 320), (333, 250), (400, 300))
+
+
+def _png_b64(rs, size):
+    """A seeded uint8 frame of `size` (rows, columns) as a base64 PNG."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rs.randint(0, 256, (*size, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _http(port, path, payload=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def _stateless_prefill_logits(model, ids, frames):
+    """The last-position prefill logits of a stateless TEOChat.generate of the
+    same conversation: a 1-token generate on the eager loop samples its one
+    token from them."""
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    with decode_loop(False) as last:
+        model.generate([ids], frames, g1)
+    return last["logits"][0]
+
+
+def phase_server(model, tokenizer, image_processor):
+    """The port's chat server on the loaded int8 model: `ChatServer` on
+    127.0.0.1, an ephemeral port, in the background; over HTTP session "a"
+    takes three greedy turns of 32 tokens (two base64 PNG frames of
+    non-square sizes with timestamps; text only; a frame whose timestamp
+    sorts before the others, which changes the committed prefix from the
+    first frame on), session "b" one turn between a's first and second;
+    then /reset of "a" and /stats. Each turn's last-position prefill logits
+    in the session against a stateless prefill of the same conversation
+    (relative L2 <= LOGITS_REL_L2_BOUND) and its 32 tokens against a
+    stateless generate's; K1 and K5 must launch on a first turn, K2m on a's
+    second and third, K2 on every turn. Then, from fresh sessions, turn 2's
+    time to first token beside a stateless re-prefill of the whole
+    conversation and the session's decode ms/step. Returns K2m's launches
+    over the four HTTP turns."""
+    from teochat_torch.serve import session as session_mod
+    from teochat_torch.serve.chat import Chat
+    from teochat_torch.serve.server import ChatServer
+
+    gen_mod.clear_decode_graphs()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rs = np.random.RandomState(SEED + 2)
+    turns = [  # (session, prompt, frames as (size, timestamp))
+        ("a", "What changed between these images?",
+         [(SERVE_FRAME_SIZES[0], "2019-05-01"), (SERVE_FRAME_SIZES[1], "2019-09-01")]),
+        ("b", "Describe the land use in this image.", [(SERVE_FRAME_SIZES[3], "2020-01-01")]),
+        ("a", "Where are the damaged buildings? Answer with bounding boxes.", []),
+        ("a", "And compared with this earlier image?", [(SERVE_FRAME_SIZES[2], "2018-12-01")]),
+    ]
+    seen, captures = [], [0]
+    generate, prefill_full, prefill_suffix = (session_mod.ChatSession.generate,
+                                              gen_mod.prefill_full, gen_mod.prefill_suffix)
+    capture = gen_mod.DecodeGraph._warm_up_and_capture
+
+    def recorded(self, input_ids, pixel_values, gen=None, rng=None):
+        seen.append({"ids": list(input_ids), "gen": gen, "session": self,
+                     "frames": None if pixel_values is None else np.array(pixel_values)})
+        seen[-1]["out"] = generate(self, input_ids, pixel_values, gen, rng)
+        return seen[-1]["out"]
+
+    def prefill(fn, kind):
+        def run(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            seen[-1].update(logits=logits[0].clone(), prefill=kind)
+            return logits, cache
+        return run
+
+    def counted_capture(self, *args):
+        captures[0] += 1
+        return capture(self, *args)
+
+    session_mod.ChatSession.generate = recorded
+    gen_mod.prefill_full = prefill(prefill_full, "full")
+    gen_mod.prefill_suffix = prefill(prefill_suffix, "suffix")
+    gen_mod.DecodeGraph._warm_up_and_capture = counted_capture
+    server = ChatServer(Chat(model_bundle=(tokenizer, model, image_processor)),
+                        host="127.0.0.1", port=0).start_background()
+    port = server._httpd.server_address[1]
+    k2m = http_captures = 0
+    try:
+        for i, (sid, prompt, frames) in enumerate(turns):
+            payload = {"prompt": prompt, "images": [_png_b64(rs, size) for size, _ in frames],
+                       "timestamps": [ts for _, ts in frames], "temperature": 0.0,
+                       "max_new_tokens": 32, "session_id": sid}
+            for counter in INFERENCE_COUNTERS.values():
+                counter.reset()
+            before = captures[0]
+            (code, answer), sec = wall(lambda: _http(port, "/generate", payload))
+            counts = {name: c.count for name, c in INFERENCE_COUNTERS.items()}
+            http_captures += captures[0] - before
+            turn = seen[-1]
+            check(code == 200 and isinstance(answer["response"], str),
+                  f"turn {i}: HTTP {code} {answer}")
+            stateless = _stateless_prefill_logits(model, turn["ids"], turn["frames"])
+            got = turn["logits"]
+            rel = ((got - stateless).norm() / stateless.norm()).item()
+            with decode_loop(False):  # the eager loop: no graph entry of its own
+                want = model.generate([turn["ids"]], turn["frames"], turn["gen"])[0]
+            agree = sum(a == b for a, b in zip(turn["out"], want))
+            stats = dict(turn["session"].stats)
+            log(f"[serve] turn {i} session {sid!r} ({len(frames)} new frames): HTTP {code} in "
+                f"{sec:.3f} s; prefill {turn['prefill']} of {len(turn['ids'])} tokens (session "
+                f"{stats}); logits vs a stateless prefill: rel L2 {rel:.3e} (bound "
+                f"{LOGITS_REL_L2_BOUND}), argmax {int(got.argmax())} vs {int(stateless.argmax())}; "
+                f"{agree} of {len(want)} tokens agree with a stateless generate "
+                f"({len(turn['out'])} from the session); launches {counts}; "
+                f"answer={answer['response'][:80]!r}")
+            check(rel <= LOGITS_REL_L2_BOUND, f"turn {i}: session logits rel L2 {rel}")
+            check(counts["K2"] > 0, f"turn {i}: no decode step ran {counts}")
+            if turn["prefill"] == "full":
+                check(i in (0, 1) and counts["K1"] > 0 and counts["K5"] > 0,
+                      f"turn {i}: a first turn without K1 and K5 {counts}")
+            else:
+                check(i in (2, 3) and counts["K2m"] > 0,
+                      f"turn {i}: a later turn without K2m {counts}")
+                check((counts["K5"] > 0) == (i == 3), f"turn {i}: frames encoded {counts}")
+            k2m += counts["K2m"]
+        caches = {sid: c._session.cache for sid, c in server._sessions.items()
+                  if c._session.cache is not None}
+        sizes = {sid: (c.k.numel() * c.k.element_size() * 2) / 2**30 for sid, c in caches.items()}
+        live = len(gen_mod.decode_graphs())
+        del caches
+        log(f"[serve] session caches {', '.join(f'{k}: {v:.3f} GiB' for k, v in sizes.items())}; "
+            f"{http_captures} decode graph captures over the four turns, {live} graphs live; "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before the phase)")
+        check(set(sizes) == {"a", "b"} and http_captures == 2 and live == 2,
+              f"sessions {sorted(sizes)}, captures {http_captures}, graphs {live}")
+        check(_http(port, "/reset", {"session_id": "a"}) == (200, {"status": "reset"}), "reset")
+        code, stats = _http(port, "/stats")
+        log(f"[serve] after /reset of 'a': {len(gen_mod.decode_graphs())} graphs live; "
+            f"/stats {stats}")
+        check(server._sessions["a"]._session.cache is None and
+              len(gen_mod.decode_graphs()) == live - 1, "reset dropped a's cache and its graph")
+        check(code == 200 and stats["sessions"]["b"]["turns"] == 1
+              and stats["sessions"]["a"]["turns"] == 3, f"/stats {stats}")
+    finally:
+        server.shutdown()
+        session_mod.ChatSession.generate = generate
+        gen_mod.prefill_full, gen_mod.prefill_suffix = prefill_full, prefill_suffix
+        gen_mod.DecodeGraph._warm_up_and_capture = capture
+    check(not server._worker_thread.is_alive() and not server._serve_thread.is_alive(),
+          "the server's threads stopped")
+
+    # turn 2 from fresh sessions: TTFT (1 token) and the decode ms/step (32
+    # tokens less 1) after the same turn 1, beside a stateless re-prefill
+    first, second = seen[0], seen[2]
+    g1 = dataclasses.replace(second["gen"], max_new_tokens=1)
+    ttft, full, stateless, steps = [], [], [], 0
+    for _ in range(3):
+        for gen, times in ((g1, ttft), (second["gen"], full)):
+            session = session_mod.ChatSession(model)
+            session.generate(first["ids"], first["frames"], first["gen"])
+            out, sec = wall(lambda: session.generate(second["ids"], second["frames"], gen))
+            times.append(sec)
+            steps = max(len(out) - 1, 1) if gen is not g1 else steps
+            del session
+        stateless.append(wall(lambda: model.generate([second["ids"]], second["frames"], g1))[1])
+    t1, t32, ts = statistics.median(ttft), statistics.median(full), statistics.median(stateless)
+    log(f"[serve] turn 2 ({len(second['ids'])} tokens, {len(second['ids']) - len(first['ids'])} "
+        f"more than turn 1): time to first token through the session {t1 * 1e3:.2f} ms, a "
+        f"stateless re-prefill of the whole conversation {ts * 1e3:.2f} ms (x{ts / t1:.2f}); "
+        f"session decode {(t32 - t1) / steps * 1e3:.2f} ms/step over {steps} graphed steps "
+        f"(medians of 3 fresh sessions; TTFT {min(ttft) * 1e3:.2f}-{max(ttft) * 1e3:.2f} ms)")
+    gen_mod.clear_decode_graphs()
+    return k2m
 
 
 def phase_checkpoint_int4(root):
@@ -1657,7 +1942,7 @@ def main():
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {"K1": phase_flash(gen), "K2": phase_decode(gen)}
+    rows = {"K1": phase_flash(gen), "K2": phase_decode(gen), "K2m": phase_decode_multi(gen)}
     k3 = phase_int4(gen)
     rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"],
                  "K3c M<=8": k3["k3c_decode"]})
@@ -1676,7 +1961,7 @@ def main():
     os.makedirs("results", exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="results")
     try:
-        model, hf_tokenizer, _ = phase_checkpoint_eval(gen, ckpt_root)
+        model, hf_tokenizer, image_processor, _ = phase_checkpoint_eval(gen, ckpt_root)
         cfg, params = model.cfg, model.params
         processor = FrameProcessor(cfg.vision.image_size, SEED)
         (ids, frames), int8_counts = counted(
@@ -1685,6 +1970,7 @@ def main():
               f"int8 path launches {int8_counts}")
         phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main")
         phase_logits(model, ids, frames)
+        serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         gen_mod.clear_decode_graphs()
         phase_checkpoint_int4(ckpt_root)
     finally:
@@ -1722,6 +2008,9 @@ def main():
             int4_counts["K1"], rows["K1"]),
         row("decode_attention", "decode_attention.cu", "decode_attention.py:44",
             int4_counts["K2"], rows["K2"]),
+        # no Pallas kernel: XLA's masked attention in the JAX cached path
+        row("decode_attention_multi", "decode_attention.cu", "models/llama.py:316",
+            serve_k2m, rows["K2m"], where="teochat_tpu/"),
         row("flash_attention_fwd_res", "flash_attention.cu", "flash_attention.py:243",
             train_launches["fwd"], k4_rows["fwd"]),
         row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:348",

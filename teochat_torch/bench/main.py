@@ -355,7 +355,7 @@ UNPORTED = {
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
     "decode_spec": "speculative decoding, item 8",
-    "ttft_turn2": "multi-turn chat, item 8",
+    "ttft_turn2": "the turn-2 phase over a ChatSession (the sessions are ported), item 8",
     "serve": "the serving engine, item 9",
     "ttft_prefix": "the serving engine's prefix cache, item 9",
     "ttft_prefix_curve": "the serving engine's prefix cache, item 9",

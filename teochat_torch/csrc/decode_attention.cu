@@ -252,7 +252,259 @@ int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K2m
+//
+// The multi-query form of this kernel: S queries a row against the cache,
+// query (b, s) over the slots t < lengths[b, s]. It computes what the JAX
+// package's cached path computes with XLA's masked attention when S > 1
+// (teochat_tpu/models/llama.py:316-336, the mask `slot <= q_slot & kv_mask`
+// with a kv_mask that is a prefix of each row; the wrapper turns both into
+// `lengths`): a session's suffix prefill over its committed conversation.
+// There is no Pallas kernel for it on the TPU.
+//
+// What bounds it: at the suffix's sizes each K and V row of the cache is
+// used by every query of the suffix, so a block that holds many queries
+// reads each row once for all of them. A block takes one (row, tile of
+// queries, group of query heads sharing one kv head): MQ_PAIRS (query,
+// head) pairs, MQ_PAIRS / G queries of G heads. It walks the row's slots
+// in chunks of MQ_SLOTS up to the tile's largest length, with an online
+// softmax in fp32: each chunk of K and V is loaded once into shared memory
+// for the whole tile. Each warp holds MQ_WARP_PAIRS pairs: a lane scores
+// one slot of the chunk against each of them (q in fp32 in shared memory,
+// read as broadcasts; K rows padded by 16 bytes so a quarter warp's 16-byte
+// reads fall in distinct banks), then owns D / 32 elements of each pair's
+// accumulator for P V. No workspace and no tickets: the work of a pair
+// never leaves its block. FMAs, not tensor cores: a simple kernel first.
+// A query of length 0 is written as 0.
+
+constexpr int MQ_SLOTS = 32;       // slots a chunk: one a lane
+constexpr int MQ_WARP_PAIRS = 8;   // (query, head) pairs a warp
+constexpr int MQ_PAIRS = NWARPS * MQ_WARP_PAIRS;  // pairs a block
+
+template <int D, int G>
+__global__ void __launch_bounds__(NTHREADS)
+decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const int* __restrict__ lengths,
+                    uint16_t* __restrict__ o, int S, int T, int H, int Hkv,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_sh, long long k_st,
+                    long long v_sb, long long v_sh, long long v_st, float scale) {
+  constexpr int QT = MQ_PAIRS / G;  // queries a block
+  constexpr int DE = D / 32;        // accumulator elements a lane
+  constexpr int KP = D + 8;         // a K row in shared memory, padded
+  static_assert(MQ_PAIRS % G == 0 && D % 64 == 0, "whole queries a block, D 64 or 128");
+  __shared__ __align__(16) uint16_t sk[MQ_SLOTS][KP];
+  __shared__ __align__(16) uint16_t sv[MQ_SLOTS][D];
+  __shared__ __align__(16) float sq[MQ_PAIRS][D];
+  __shared__ __align__(16) float sp[NWARPS][MQ_WARP_PAIRS][MQ_SLOTS];
+  __shared__ int slen[MQ_PAIRS];
+  __shared__ int smax;
+
+  const int b = blockIdx.z, s0 = blockIdx.x * QT, hq0 = blockIdx.y * G;
+  const int hk = hq0 / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the tile's queries in fp32 and their lengths (pair p: query p / G, head p % G)
+  for (int idx = tid; idx < MQ_PAIRS * (D / 8); idx += NTHREADS) {
+    const int p = idx / (D / 8), c = idx % (D / 8), s = s0 + p / G;
+    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (s < S)
+      unpack8(*reinterpret_cast<const uint4*>(q + b * q_sb + s * q_ss + (hq0 + p % G) * q_sh +
+                                              c * 8), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sq[p][c * 8 + e] = f[e];
+  }
+  if (tid < MQ_PAIRS) {
+    const int s = s0 + tid / G;
+    slen[tid] = s < S ? min(max(lengths[static_cast<long long>(b) * S + s], 0), T) : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int mx = slen[lane];  // MQ_PAIRS == 32
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) smax = mx;
+  }
+  __syncthreads();
+  const int max_len = smax;
+
+  float m[MQ_WARP_PAIRS], l[MQ_WARP_PAIRS], acc[MQ_WARP_PAIRS][DE];
+  int len[MQ_WARP_PAIRS];
+#pragma unroll
+  for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
+    m[pr] = -INFINITY;
+    l[pr] = 0.f;
+    len[pr] = slen[warp * MQ_WARP_PAIRS + pr];
+#pragma unroll
+    for (int e = 0; e < DE; ++e) acc[pr][e] = 0.f;
+  }
+
+  const uint16_t* kb = k + b * k_sb + hk * k_sh;
+  const uint16_t* vb = v + b * v_sb + hk * v_sh;
+  for (int c0 = 0; c0 < max_len; c0 += MQ_SLOTS) {
+    // the chunk's K and V, zeros past the tile's largest length
+    for (int idx = tid; idx < MQ_SLOTS * (D / 8); idx += NTHREADS) {
+      const int j = idx / (D / 8), c = idx % (D / 8), t = c0 + j;
+      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+      if (t < max_len) {
+        kr = *reinterpret_cast<const uint4*>(kb + t * k_st + c * 8);
+        vr = *reinterpret_cast<const uint4*>(vb + t * v_st + c * 8);
+      }
+      *reinterpret_cast<uint4*>(&sk[j][c * 8]) = kr;
+      *reinterpret_cast<uint4*>(&sv[j][c * 8]) = vr;
+    }
+    __syncthreads();
+
+    // scores: this lane's slot against each of the warp's pairs
+    float sc[MQ_WARP_PAIRS];
+#pragma unroll
+    for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) sc[pr] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D / 8; ++c) {
+      float kf[8];
+      unpack8(*reinterpret_cast<const uint4*>(&sk[lane][c * 8]), kf);
+#pragma unroll
+      for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
+        const float4 qa = *reinterpret_cast<const float4*>(&sq[warp * MQ_WARP_PAIRS + pr][c * 8]);
+        const float4 qb = *reinterpret_cast<const float4*>(&sq[warp * MQ_WARP_PAIRS + pr][c * 8 + 4]);
+        float d = sc[pr];
+        d = fmaf(qa.x, kf[0], d);
+        d = fmaf(qa.y, kf[1], d);
+        d = fmaf(qa.z, kf[2], d);
+        d = fmaf(qa.w, kf[3], d);
+        d = fmaf(qb.x, kf[4], d);
+        d = fmaf(qb.y, kf[5], d);
+        d = fmaf(qb.z, kf[6], d);
+        d = fmaf(qb.w, kf[7], d);
+        sc[pr] = d;
+      }
+    }
+
+    // the online softmax: each pair's maximum over the warp, this lane's p
+    const int t = c0 + lane;
+#pragma unroll
+    for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
+      const float s = t < len[pr] ? sc[pr] * scale : -INFINITY;
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float m_new, alpha, unused;
+      merge_factors(m[pr], mx, m_new, alpha, unused);  // alpha 0 while nothing is live
+      const float p = s == -INFINITY ? 0.f : __expf(s - m_new);
+      l[pr] = l[pr] * alpha + p;
+#pragma unroll
+      for (int e = 0; e < DE; ++e) acc[pr][e] *= alpha;
+      m[pr] = m_new;
+      sp[warp][pr][lane] = p;
+    }
+    __syncwarp();
+
+    // P V: this lane's D / 32 elements of each pair's accumulator
+#pragma unroll 2
+    for (int j = 0; j < MQ_SLOTS; j += 4) {
+      float vf[4][DE];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if constexpr (DE == 4) {
+          const uint2 u = *reinterpret_cast<const uint2*>(&sv[j + jj][lane * 4]);
+          vf[jj][0] = __uint_as_float(u.x << 16);
+          vf[jj][1] = __uint_as_float(u.x & 0xffff0000u);
+          vf[jj][2] = __uint_as_float(u.y << 16);
+          vf[jj][3] = __uint_as_float(u.y & 0xffff0000u);
+        } else {
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(&sv[j + jj][lane * 2]);
+          vf[jj][0] = __uint_as_float(u << 16);
+          vf[jj][1] = __uint_as_float(u & 0xffff0000u);
+        }
+      }
+#pragma unroll
+      for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
+        const float4 p4 = *reinterpret_cast<const float4*>(&sp[warp][pr][j]);
+#pragma unroll
+        for (int e = 0; e < DE; ++e) {
+          float a = acc[pr][e];
+          a = fmaf(p4.x, vf[0][e], a);
+          a = fmaf(p4.y, vf[1][e], a);
+          a = fmaf(p4.z, vf[2][e], a);
+          a = fmaf(p4.w, vf[3][e], a);
+          acc[pr][e] = a;
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites sk, sv and sp
+  }
+
+  // each pair's sum over the warp, then o = acc / l (0 where no slot is live)
+#pragma unroll
+  for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
+    float lsum = l[pr];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    const int p = warp * MQ_WARP_PAIRS + pr, s = s0 + p / G;
+    if (s >= S) continue;
+    uint16_t* op = o + ((static_cast<long long>(b) * S + s) * H + hq0 + p % G) * D + lane * DE;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) {
+      const float out = lsum == 0.f ? 0.f : acc[pr][e] / lsum;
+      const __nv_bfloat16 ob = __float2bfloat16_rn(out);
+      op[e] = *reinterpret_cast<const uint16_t*>(&ob);
+    }
+  }
+}
+
+template <int D>
+int launch_multi_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
+                   const uint16_t* v, const int* lens, uint16_t* o, int S, int T, int H,
+                   int Hkv, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                   long long k_sh, long long k_st, long long v_sb, long long v_sh,
+                   long long v_st, float scale) {
+#define TEOCHAT_MULTI_LAUNCH(GV)                                                              \
+  decode_multi_kernel<D, GV><<<grid, NTHREADS, 0, st>>>(q, k, v, lens, o, S, T, H, Hkv, q_sb, \
+                                                        q_ss, q_sh, k_sb, k_sh, k_st, v_sb,    \
+                                                        v_sh, v_st, scale)
+  switch (G) {
+    case 1: TEOCHAT_MULTI_LAUNCH(1); break;
+    case 2: TEOCHAT_MULTI_LAUNCH(2); break;
+    case 4: TEOCHAT_MULTI_LAUNCH(4); break;
+    case 8: TEOCHAT_MULTI_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TEOCHAT_MULTI_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K2m. q: [B, S, H, D] (strides q_sb, q_ss, q_sh); k, v: [B, Hkv, T, D]
+// views through strides; lengths: [B, S] int32, contiguous, on the device;
+// o: contiguous [B, S, H, D]. Returns cudaGetLastError() after the launch.
+extern "C" int teochat_decode_attention_multi(
+    const void* q, const void* k, const void* v, const void* lengths, void* o,
+    int B, int S, int H, int Hkv, int T, int D,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st,
+    float scale, void* stream) {
+  if (Hkv <= 0 || H % Hkv || T <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = H / Hkv;
+  const int G = group > MAX_G ? MAX_G : group;  // heads a block
+  if (group % G) return static_cast<int>(cudaErrorInvalidValue);
+  const int qt = MQ_PAIRS / G;
+  const dim3 grid((S + qt - 1) / qt, H / G, B);
+  const auto* qp = static_cast<const uint16_t*>(q);
+  const auto* kp = static_cast<const uint16_t*>(k);
+  const auto* vp = static_cast<const uint16_t*>(v);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<uint16_t*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_multi_d<128>(G, grid, st, qp, kp, vp, lp, op, S, T, H, Hkv, q_sb, q_ss, q_sh,
+                               k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+  if (D == 64)
+    return launch_multi_d<64>(G, grid, st, qp, kp, vp, lp, op, S, T, H, Hkv, q_sb, q_ss, q_sh,
+                              k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // q: [B, H, D] (strides q_sb, q_sh); k, v: [B, Hkv, T, D] views through
 // strides; lengths: [B] int32 on the device; o: contiguous [B, H, D];

@@ -2,7 +2,8 @@
 
 Port of teochat_tpu/models/generation.py (`StopSpec`, `make_stop_spec`,
 `_keyword_hit`, `sample_token`, `_filtered_logits`, `generate_tokens`,
-`_run_decode_loop`). The semantics are the JAX package's: tokens after a row
+`_run_decode_loop`, and the session API `prefill_full`, `prefill_suffix`,
+`decode_with_cache`). The semantics are the JAX package's: tokens after a row
 stops are `pad_id`, `n_gen` counts up to and including the stop token, and
 the loop ends when every row is done.
 
@@ -22,6 +23,14 @@ On the card the iteration is captured once in a CUDA graph (`DecodeGraph`,
 kept per key as `jax.jit` keeps a program) and replayed; on the CPU it runs
 eagerly, in the same chunks: that is the plain version the tests hold
 against the JAX function.
+
+The session API (serve/session.py) keeps one KV cache across a chat's
+turns: `prefill_full` prefills a fresh conversation, `prefill_suffix` only
+what follows the committed prefix (spec_verify writes and K2m over the
+cache), `decode_with_cache` runs the same chunked loop over the caller's
+cache. Its graph entry is keyed by that cache's address and holds it only
+weakly: the entry goes when the session drops its cache, and dropping an
+entry never frees a session's cache.
 """
 
 from __future__ import annotations
@@ -276,6 +285,88 @@ def _run_decode_loop(params, cfg, st: DecodeState, logits0, generator,
     return st.tokens, st.n_gen
 
 
+# ------------------------------------------------ incremental (session) API
+
+
+@torch.no_grad()
+def prefill_full(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: torch.Tensor,
+                 seq_lens: torch.Tensor, attention_mask: torch.Tensor,
+                 position_ids: torch.Tensor):
+    """Prefill a fresh conversation into a session cache, from slot 0.
+
+    Returns (last-token logits [B, V] fp32, cache); the cache is written in
+    place. Contiguous panel writes and the flash kernel, as generate_tokens'
+    prefill; padded positions write to the trash slot T_max - 1."""
+    trash = cache.max_len - 1
+    slots = torch.where(attention_mask.bool(), position_ids, trash)
+    logits = llama_mod.llama_forward(
+        params, cfg, embeds, position_ids=position_ids, cache=cache, write_slots=slots,
+        logits_mode="last", last_index=seq_lens - 1,
+    )
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: torch.Tensor,
+                   start: torch.Tensor, seq_lens: torch.Tensor, attention_mask: torch.Tensor,
+                   position_ids: torch.Tensor):
+    """Prefill a conversation's suffix against the committed cache.
+
+    embeds / position_ids / attention_mask / seq_lens describe the
+    right-padded suffix alone (positions from 0 within it); `start` [B] is
+    the cache slot where it begins. Runs the spec_verify mode: writes at
+    each token's slot, then every suffix query attends the cache up to its
+    own slot (K2m), so it sees the committed conversation. Returns
+    (last-token logits [B, V] fp32, cache)."""
+    t_max = cache.max_len
+    abs_pos = start[:, None] + position_ids
+    slots = torch.where(attention_mask.bool(), abs_pos, t_max - 1)
+    kv_mask = (torch.arange(t_max, device=embeds.device)[None, :]
+               < (start + seq_lens)[:, None])
+    logits = llama_mod.llama_forward(
+        params, cfg, embeds, position_ids=abs_pos, cache=cache, write_slots=slots,
+        kv_mask=kv_mask, logits_mode="last", last_index=seq_lens - 1, spec_verify=True,
+    )
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
+                      logits0: torch.Tensor, start_pos: torch.Tensor, stop: StopSpec,
+                      generator: torch.Generator, *, max_new_tokens: int,
+                      temperature: float = 0.0, do_sample: bool = False, top_p: float = 1.0,
+                      pad_id: int = 0):
+    """Decode on from prefilled logits over the caller's cache, in place.
+
+    `start_pos` [B]: the slot of each row's first generated token. Returns
+    (tokens [B, max_new_tokens], n_gen [B], cache): the cache keeps every
+    generated token's K/V but the last one's, for the session's next turn.
+    On the card the steps replay a CUDA graph captured over this cache
+    (`DecodeGraph`, keyed by its address); the cache is never zeroed."""
+    b = logits0.shape[0]
+    dev = logits0.device
+    step_kw = dict(temperature=temperature, do_sample=do_sample, top_p=top_p, pad_id=pad_id,
+                   emb_dtype=cache.dtype)
+    keyword_shape = tuple(np.shape(stop.keyword_ids))
+    entry = None
+    if logits0.is_cuda and max_new_tokens > 1:  # one token feeds nothing back
+        entry = _decode_graph(params, cfg, b, cache.max_len, max_new_tokens, keyword_shape,
+                              dev, step_kw, cache=cache)
+        state = entry.state
+    else:
+        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
+    state.reset(start_pos, stop, pad_id)
+    try:
+        tokens, n_gen = _run_decode_loop(params, cfg, state, logits0, generator, entry,
+                                         max_new_tokens=max_new_tokens, **step_kw)
+        if entry is not None:  # the entry's buffers serve its next call
+            tokens, n_gen = tokens.clone(), n_gen.clone()
+    finally:
+        if entry is not None:
+            state.cache = None  # the entry holds the caller's cache only weakly
+    return tokens, n_gen, cache
+
+
 # ------------------------------------------------------------ the CUDA graph
 
 _graphs: "collections.OrderedDict[tuple, DecodeGraph]" = collections.OrderedDict()
@@ -285,17 +376,21 @@ _capture_streams = {}  # device -> the side stream every capture on it runs on
 class DecodeGraph:
     """One decode iteration captured in a CUDA graph, with all it touches.
 
-    It owns the loop's state and KV cache (the static buffers the graph
-    reads and writes), the keyword tensors, a generator of its own for
-    sampled runs, the captured graph and its memory pool. The graph bakes
-    in the addresses of the params, of those buffers and of the
-    workspaces the kernels' wrappers took during the capture (their
-    `torch.empty` comes from the graph's pool; K3's host-encoded TMA map of
-    x holds x's captured address), so a replay is valid only with the
+    It owns the loop's state and, for generate_tokens, its KV cache (the
+    static buffers the graph reads and writes), the keyword tensors, a
+    generator of its own for sampled runs, the captured graph and its memory
+    pool. The graph bakes in the addresses of the params, of those buffers
+    and of the workspaces the kernels' wrappers took during the capture
+    (their `torch.empty` comes from the graph's pool; K3's host-encoded TMA
+    map of x holds x's captured address), so a replay is valid only with the
     params it was captured with: the key holds every leaf's address, and a
-    weak reference to one leaf drops the entry when the params are freed."""
+    weak reference to one leaf drops the entry when the params are freed.
+    An entry over a caller's cache (decode_with_cache) is keyed by the
+    cache's address too and holds it by a weak reference alike: the state's
+    cache is set for a call and cleared after it."""
 
-    def __init__(self, state: DecodeState, anchor: torch.Tensor, step_kw: dict):
+    def __init__(self, state: DecodeState, anchor: torch.Tensor, step_kw: dict,
+                 cache_anchor: Optional[torch.Tensor] = None):
         self.state = state
         self.step_kw = step_kw
         sampled = step_kw["do_sample"] and step_kw["temperature"] > 0.0
@@ -305,6 +400,13 @@ class DecodeGraph:
         self.capture_seconds = None
         self.replays = 0
         self._anchor = weakref.ref(anchor, _drop_dead_graphs)
+        self._cache_anchor = (None if cache_anchor is None
+                              else weakref.ref(cache_anchor, _drop_dead_graphs))
+
+    def alive(self) -> bool:
+        """Whether the params (and the caller's cache) it was made for live."""
+        return self._anchor() is not None and (
+            self._cache_anchor is None or self._cache_anchor() is not None)
 
     def run(self, n: int, params, cfg, generator) -> None:
         """Run `n` iterations from the state as it stands. The first on a
@@ -366,24 +468,34 @@ class DecodeGraph:
 
 
 def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
-                  keyword_shape, device, step_kw: dict) -> DecodeGraph:
-    """The entry for this call's key, made (with a zeroed cache) if there is
-    none. The key is what `jax.jit` keys `generate_tokens` on (the params
-    tree's structure, shapes and dtypes, the config, the batch, cache_len,
-    max_new_tokens, the keyword shape, the dtype, temperature, do_sample,
-    top_p, pad_id), with each leaf's address and strides: the graph reads
-    the params where they lay at its capture."""
+                  keyword_shape, device, step_kw: dict,
+                  cache: Optional[llama_mod.KVCache] = None) -> DecodeGraph:
+    """The entry for this call's key, made if there is none: with a zeroed
+    cache of its own, or over the caller's `cache` (set as its state's
+    cache for this call). The key is what `jax.jit` keys `generate_tokens`
+    on (the params tree's structure, shapes and dtypes, the config, the
+    batch, cache_len, max_new_tokens, the keyword shape, the dtype,
+    temperature, do_sample, top_p, pad_id), with each leaf's address and
+    strides: the graph reads the params where they lay at its capture; and
+    the caller's cache's addresses and strides, where it lies."""
     leaves = tree_leaves_with_path(params)
+    cache_key = None if cache is None else tuple(
+        (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in (cache.k, cache.v))
     key = (tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for path, t in leaves),
            cfg, batch, cache_len, max_new_tokens, keyword_shape, str(device),
-           tuple(sorted(step_kw.items())))
+           tuple(sorted(step_kw.items())), cache_key)
     entry = _graphs.get(key)
-    if entry is not None and entry._anchor() is not None:
+    if entry is not None and entry.alive():
         _graphs.move_to_end(key)
+        if cache is not None:
+            entry.state.cache = cache
         return entry
-    cache = llama_mod.init_cache(cfg, batch, cache_len, dtype=step_kw["emb_dtype"], device=device)
-    state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
-    entry = DecodeGraph(state, leaves[0][1], step_kw)
+    state = DecodeState.new(
+        cache if cache is not None else llama_mod.init_cache(
+            cfg, batch, cache_len, dtype=step_kw["emb_dtype"], device=device),
+        cfg.vocab_size, max_new_tokens, keyword_shape)
+    entry = DecodeGraph(state, leaves[0][1], step_kw,
+                        cache_anchor=None if cache is None else cache.k)
     _graphs[key] = entry
     while len(_graphs) > MAX_DECODE_GRAPHS:
         _graphs.popitem(last=False)
@@ -391,8 +503,9 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
 
 
 def _drop_dead_graphs(_ref=None) -> None:
-    """Drop every entry whose params are gone (a weak reference's callback)."""
-    for key in [k for k, e in list(_graphs.items()) if e._anchor() is None]:
+    """Drop every entry whose params or caller's cache are gone (a weak
+    reference's callback)."""
+    for key in [k for k, e in list(_graphs.items()) if not e.alive()]:
         _graphs.pop(key, None)
 
 
@@ -405,4 +518,8 @@ def clear_decode_graphs() -> None:
     """Drop every entry: its graph, memory pool, cache and buffers (the
     memory goes back to the caching allocator; `torch.cuda.empty_cache`
     returns it to the card)."""
+    entries = list(_graphs.values())
     _graphs.clear()
+    # freed after the table is consistent again: a cache an entry frees may
+    # call _drop_dead_graphs, which reads the table
+    del entries

@@ -20,9 +20,14 @@ loops, this port UPDATES THE BUFFERS IN PLACE: a prefill writes its
 contiguous [B, S] panel at slot `prefill_start`, a decode step writes one
 slot per row at `write_slots`. Prefill attends over the fresh K/V through
 the flash kernel (right-padded causal prompts need no mask); decode attends
-the layer's cache slab in place through the decode kernel with
-`lengths = q_slot + 1`, which on the plain generate path equals the JAX mask
-`slot <= q_slot & kv_mask` because each row's slots are contiguous.
+the layer's cache slab in place through the decode kernel (K2) with
+`lengths = min(q_slot + 1, kv_len)`, which equals the JAX mask
+`slot <= q_slot & kv_mask` because each row's slots are contiguous and
+kv_mask is a prefix of each row (`ops/decode_attention.py::query_lengths`).
+`spec_verify` treats an S > 1 block as S decode steps: each row scatters its
+writes at `write_slots`, then the block's queries attend the cache slab
+through K2m, the decode kernel's multi-query form. A session's suffix
+prefill runs this way over its committed conversation.
 
 A decode step reads nothing back to the host: `write_slots`, `lengths`, the
 rows' cache indices and the RoPE positions stay device tensors, no shape or
@@ -41,7 +46,11 @@ from torch.utils.checkpoint import checkpoint
 
 from teochat_torch.config import LlamaConfig
 from teochat_torch.ops.attention import dot_product_attention
-from teochat_torch.ops.decode_attention import decode_attention
+from teochat_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_multi,
+    query_lengths,
+)
 from teochat_torch.ops.quant import int4_proj, matmul_fp32, quantized_proj
 from teochat_torch.utils import resolve_device
 
@@ -136,7 +145,8 @@ def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None) -> torch.Tens
 
 def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache],
                      layer: int, write_slots, prefill_start: int, attn_impl: str,
-                     attention_mask=None, right_padded: bool = False) -> torch.Tensor:
+                     attention_mask=None, right_padded: bool = False, lengths=None,
+                     spec_verify: bool = False) -> torch.Tensor:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:
@@ -158,30 +168,42 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
                                     impl=attn_impl, right_padded=right_padded)
         return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
     k_slab, v_slab = cache.k[layer], cache.v[layer]  # [B, T, Hkv, D] views
-    if s > 1:
+    if s > 1 and not spec_verify:
         # prefill: one contiguous panel; causal attention over the fresh K/V
         # equals attention over the cache, since the prompt starts at slot 0
         k_slab[:, prefill_start:prefill_start + s] = k.to(cache.dtype)
         v_slab[:, prefill_start:prefill_start + s] = v.to(cache.dtype)
         out = dot_product_attention(q, k, v, causal=True, impl=attn_impl)
-    else:
+    elif s == 1:
         rows = torch.arange(b, device=x.device)
         slots = write_slots[:, 0].long()
         k_slab[rows, slots] = k[:, 0].to(cache.dtype)
         v_slab[rows, slots] = v[:, 0].to(cache.dtype)
-        lengths = (write_slots[:, 0] + 1).to(torch.int32)
         out = decode_attention(
             q[:, 0], k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
-            lengths, impl=attn_impl,
+            lengths[:, 0], impl=attn_impl,
         )[:, None]
+    else:
+        # spec_verify: each row's writes at its slots (padded queries all at
+        # the trash slot, never attended), then every query over the slab
+        rows = torch.arange(b, device=x.device)[:, None]
+        slots = write_slots.long()
+        k_slab[rows, slots] = k.to(cache.dtype)
+        v_slab[rows, slots] = v.to(cache.dtype)
+        out = decode_attention_multi(
+            q, k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
+            lengths, impl=attn_impl,
+        )
     return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
 
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
-                   prefill_start, attn_impl, attention_mask, right_padded) -> torch.Tensor:
+                   prefill_start, attn_impl, attention_mask, right_padded, lengths=None,
+                   spec_verify=False) -> torch.Tensor:
     y = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
-                             prefill_start, attn_impl, attention_mask, right_padded)
+                             prefill_start, attn_impl, attention_mask, right_padded,
+                             lengths, spec_verify)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
     return x + _mlp(y, lp["mlp"], layer)
 
@@ -212,9 +234,8 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=None) -> torch.T
 
 
 def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
-                     spec_verify: bool, attend_cache: bool) -> None:
+                     attend_cache: bool) -> None:
     unsupported = {
-        "spec_verify": spec_verify,
         "attend_cache": attend_cache,
         "a cache wider than the batch": cache is not None and cache.k.shape[1] != b,
         "int8_prefill_activations (w8a8)": cfg.int8_prefill_activations,
@@ -236,6 +257,7 @@ def llama_forward(
     attention_mask: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     write_slots: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
     logits_mode: str = "all",  # all | last
     last_index: Optional[torch.Tensor] = None,
     remat: bool = False,
@@ -250,6 +272,10 @@ def llama_forward(
     inputs_embeds [B, S, D]; position_ids [B, S] RoPE positions.
     Cached path: write_slots [B, S] is the cache slot of each token (the slot
     a decode query attends up to); S > 1 is a prefill, S == 1 a decode step.
+    kv_mask [B, T_max], a prefix of each row, bounds what a decode or
+    spec_verify query attends (`slot <= q_slot & kv_mask`); the prefill
+    ignores it, as in the JAX package. `spec_verify` runs an S > 1 block as
+    S decode steps: writes at `write_slots`, attention over the cache (K2m).
     Cache-free path (`cache=None`, training): `attention_mask` [B, S] marks
     the valid tokens, `right_padded` says the padding is all on the right,
     `remat` recomputes each layer in the backward. `last_index` [B] picks
@@ -258,12 +284,15 @@ def llama_forward(
     """
     x = inputs_embeds
     b, s, _ = x.shape
-    _check_supported(cfg, cache, b, spec_verify, attend_cache)
+    _check_supported(cfg, cache, b, attend_cache)
     cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
     mask = None if attention_mask is None else attention_mask.bool()
+    # the live length of each decode / spec_verify query, once for all layers
+    lengths = (query_lengths(write_slots, kv_mask)
+               if cache is not None and (s == 1 or spec_verify) else None)
     for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
-                attn_impl, mask, right_padded)
+                attn_impl, mask, right_padded, lengths, spec_verify)
         if remat and cache is None:
             x = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:

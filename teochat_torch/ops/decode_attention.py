@@ -14,6 +14,17 @@ chunk order. `decode_attention_split_schedule` is that walk in plain
 PyTorch. The tickets that tell a block it is the last stay zero between
 calls (the kernel resets them); one buffer of them is kept per device and
 size, so calls that share it run on one stream, as the decode loop's do.
+
+K2m, the kernel's multi-query form (`decode_attention_multi`, the same
+.cu), takes S queries a row: query (b, s) attends the slots
+t < lengths[b, s]. A session's suffix prefill runs it over the committed
+cache (models/llama.py, `spec_verify`); on the TPU this was XLA's masked
+attention under `slot <= q_slot & kv_mask`, and `query_lengths` turns that
+mask into `lengths` where kv_mask is a prefix of each row. One block takes
+a tile of queries and walks the row's slots in chunks of MULTI_CHUNK up to
+the tile's largest length, with an online softmax:
+`decode_attention_multi_schedule` is that walk in plain PyTorch. It needs
+no workspace and no tickets.
 """
 
 from __future__ import annotations
@@ -23,13 +34,16 @@ from typing import Optional
 import torch
 
 from teochat_torch.ops import _build
-from teochat_torch.ops.attention import NEG_INF
+from teochat_torch.ops.attention import NEG_INF, plain_attention
 
 LAUNCHES = _build.LaunchCounter("decode_attention")
+LAUNCHES_MULTI = _build.LaunchCounter("decode_attention_multi")
 HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
 CHUNK = 64  # cache slots a block of the kernel takes
 MAX_HEADS_A_BLOCK = 8
+MULTI_CHUNK = 32  # K2m: cache slots a chunk of its walk (MQ_SLOTS in the .cu)
+MULTI_PAIRS = 32  # K2m: (query, head) pairs a block (MQ_PAIRS in the .cu)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
@@ -160,3 +174,153 @@ def decode_attention(
     if impl != "plain":
         raise ValueError(f"unknown decode attention impl {impl!r}")
     return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)
+
+
+# ------------------------------------------------------------------ K2m
+
+
+def query_lengths(q_slots: torch.Tensor, kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, S] int32 live lengths for queries at cache slots `q_slots` [B, S]:
+    the mask `slot <= q_slot & kv_mask` of the JAX cached path as a length,
+    min(q_slot + 1, kv_len). `kv_mask` [B, T] must be a prefix of each row
+    (its first kv_len slots); a mask that is not raises. Without one no host
+    read is made, so a decode step can run in a CUDA graph; with one the
+    prefix is checked on the host."""
+    lengths = (q_slots + 1).to(torch.int32)
+    if kv_mask is None:
+        return lengths
+    kv_mask = kv_mask.bool()
+    kv_len = kv_mask.sum(-1)
+    prefix = torch.arange(kv_mask.shape[-1], device=kv_mask.device)[None, :] < kv_len[:, None]
+    if not torch.equal(kv_mask, prefix):
+        raise NotImplementedError(
+            "query_lengths: a kv_mask that is not a prefix of each row is not ported "
+            "(ROADMAP queue 1 item 8)")
+    return torch.minimum(lengths, kv_len[:, None].to(torch.int32))
+
+
+def _multi_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, S] lengths -> the boolean [B, S, T] mask slot < length."""
+    return torch.arange(t, device=lengths.device)[None, None, :] < lengths.long()[..., None]
+
+
+def decode_attention_multi_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
+    """What K2m computes, as the plain attention under the mask built from
+    `lengths` (fp32 logits and softmax). q [B, S, H, D]; k_cache, v_cache
+    [B, Hkv, T, D]; lengths [B, S]. A query of length 0 gets the mean of V
+    here (every logit masked alike) and 0 from the kernel; the model never
+    asks for one."""
+    mask = _multi_mask(lengths.to(q.device), k_cache.shape[2])
+    return plain_attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), mask=mask,
+                           scale=scale)
+
+
+def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, scale=None,
+                                    chunk: int = MULTI_CHUNK,
+                                    pairs: int = MULTI_PAIRS) -> torch.Tensor:
+    """K2m's walk in plain PyTorch, fp32 statistics.
+
+    As in csrc/decode_attention.cu: a block takes `pairs` (query, head)
+    pairs, `pairs / G` queries of a group of G = min(H / Hkv, 8) heads, and
+    walks the slots in chunks of `chunk` up to the tile's largest length;
+    each chunk rescales the running (m, l, acc) of every pair to the new
+    maximum and adds the chunk's live slots; o = acc / l, and 0 where l is 0
+    (a query of length 0). q [B, S, H, D]; k_cache, v_cache [B, Hkv, T, D];
+    lengths [B, S]."""
+    b, s, h, d = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    g = min(h // hkv, MAX_HEADS_A_BLOCK)
+    qt = pairs // g
+    kf = k_cache.float().repeat_interleave(h // hkv, dim=1)  # [B, H, T, D]
+    vf = v_cache.float().repeat_interleave(h // hkv, dim=1)
+    lens = lengths.to(q.device).long().clamp(0, t)
+    out = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+    for s0 in range(0, s, qt):
+        qs = q[:, s0:s0 + qt].float()  # [B, Q, H, D]
+        ls = lens[:, s0:s0 + qt]  # [B, Q]
+        m = torch.full(qs.shape[:3], float("-inf"), device=q.device)  # [B, Q, H]
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qs)
+        for c0 in range(0, int(ls.max()), chunk):
+            slot = torch.arange(c0, min(c0 + chunk, t), device=q.device)
+            sc = torch.einsum("bqhd,bhtd->bqht", qs, kf[:, :, c0:c0 + chunk]) * scale
+            live = (slot[None, None, :] < ls[..., None])[:, :, None, :]  # [B, Q, 1, C]
+            sc = torch.where(live, sc, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.where(m_new.isinf(), 1.0, torch.exp(m - m_new))
+            p = torch.where(live, torch.exp(sc - torch.where(m_new.isinf(), 0.0, m_new)[..., None]),
+                            0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqht,bhtd->bqhd", p,
+                                                        vf[:, :, c0:c0 + chunk])
+            m = m_new
+        out[:, s0:s0 + qt] = torch.where(l[..., None] == 0, 0.0,
+                                         acc / torch.where(l == 0, 1.0, l)[..., None])
+    return out.to(q.dtype)
+
+
+def _multi_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
+    _build.check_bf16_operand("q", q, 4)
+    _build.check_bf16_operand("k_cache", k_cache, 4)
+    _build.check_bf16_operand("v_cache", v_cache, 4)
+    b, s, h, d = q.shape
+    _, hkv, t, _ = k_cache.shape
+    if d not in HEAD_DIMS or h % hkv or h // hkv not in GROUP_SIZES:
+        raise ValueError(
+            f"decode_attention_multi: head_dim {d} (need {HEAD_DIMS}) or group "
+            f"{h}/{hkv} (need {GROUP_SIZES}) not supported"
+        )
+    if k_cache.shape != (b, hkv, t, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"decode_attention_multi: shapes q {q.shape} k {k_cache.shape} v {v_cache.shape}")
+    if lengths.shape != (b, s) or lengths.device != q.device or lengths.dtype != torch.int32:
+        raise ValueError("decode_attention_multi: lengths must be int32 [B, S] on q's device")
+    if not (q.device == k_cache.device == v_cache.device):
+        raise ValueError("decode_attention_multi: q and the cache on different devices")
+    lengths = lengths.contiguous()
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    _build.launch(
+        "teochat_decode_attention_multi", q,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, s, h, hkv, t, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        float(scale),
+    )
+    LAUNCHES_MULTI.count += 1
+    return out
+
+
+def decode_attention_multi(
+    q: torch.Tensor,  # [B, S, H, D]
+    k_cache: torch.Tensor,  # [B, Hkv, T, D], any strides with D contiguous
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [B, S] live length of each query
+    *,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """K2m: S queries a row against the cache; returns [B, S, H, D].
+
+    impl: auto | plain | kernel, as `decode_attention`: "auto" launches the
+    kernel for a CUDA tensor and takes the plain version for a CPU tensor.
+    The cache is read in place (the layer slab transposed to [B, Hkv, T, D])."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl == "auto":
+        if q.is_cuda:
+            impl = "kernel"
+        elif q.device.type == "cpu":
+            impl = "plain"
+        else:
+            raise ValueError(f"decode_attention_multi: no kernel for device {q.device}")
+    if impl == "kernel":
+        return _multi_cuda(q, k_cache, v_cache, lengths, scale)
+    if impl != "plain":
+        raise ValueError(f"unknown decode attention impl {impl!r}")
+    return decode_attention_multi_plain(q, k_cache, v_cache, lengths, scale=scale)

@@ -1,0 +1,265 @@
+"""Dependency-free HTTP serving endpoint (port of teochat_tpu/serve/server.py).
+
+A stdlib ThreadingHTTPServer speaking JSON:
+
+    POST /generate {"prompt": str, "images": [base64 PNG/JPEG, ...],
+                    "timestamps": [...], "bbox": [x1,y1,x2,y2] | null,
+                    "temperature": float, "max_new_tokens": int,
+                    "session_id": str | null}
+      -> {"response": str, "bboxes": [[x1,y1,x2,y2], ...]}
+    POST /reset {"session_id": str | null} -> {"status": "reset"}
+    GET /health -> {"status": "ok"}
+    GET /stats -> {"mode": "session", "sessions": {session_id: the session's counters}}
+
+`session_id` gives each conversation its own multi-turn state (history,
+frames, incremental KV session); an omitted or null one uses the default
+session, as the reference demo's single session. Sessions beyond
+`max_sessions` are evicted least recently used first (the default one
+never); resetting an unknown session does nothing.
+
+Requests go through one worker thread over stateful `Chat` sessions: every
+model call runs on that thread, so on one CUDA stream. The decode graphs
+and the kernels' shared ticket buffers (ops/_build.py::tickets_for) are
+safe on one stream only. Not ported: the continuous-batching engine and
+with it streaming (server-sent events) of stateless requests (ROADMAP queue
+1 item 9); a streamed request is answered 400.
+"""
+
+from __future__ import annotations
+
+import base64
+import io
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+
+
+def _decode_images(b64_list):
+    from PIL import Image
+
+    images = []
+    for b in b64_list:
+        raw = base64.b64decode(b)
+        images.append(np.asarray(Image.open(io.BytesIO(raw)).convert("RGB")))
+    return images
+
+
+class ChatServer:
+    """Serves serve.chat.Chat sessions (or compatible objects) over HTTP."""
+
+    def __init__(self, chat, host: str = "127.0.0.1", port: int = 7860,
+                 max_sessions: int = 4, session_factory=None):
+        self.chat = chat  # the default session ("")
+        self.host = host
+        self.port = port
+        # a session's KV cache is allocated by its first turn (2 GiB at 7B
+        # width and 4,096 slots in bf16), so max_sessions bounds the caches'
+        # device memory at max_sessions times that; idle sessions hold none
+        self.max_sessions = max_sessions
+        self._session_factory = session_factory or self._clone_default_chat
+        # per-conversation Chats by session_id; insertion order is LRU order
+        self._sessions = {"": chat}
+        self._jobs: "queue.Queue" = queue.Queue()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._worker_thread: Optional[threading.Thread] = None
+        self._serve_thread: Optional[threading.Thread] = None
+
+    def _clone_default_chat(self):
+        """A new Chat with the default one's model and settings (incremental
+        mode and session max_len included). A server over a Chat subclass
+        with another __init__ passes `session_factory`."""
+        kw = dict(
+            model_bundle=(self.chat.tokenizer, self.chat.model, self.chat.processor),
+            conv_mode=self.chat.conv_mode,
+            incremental=self.chat._session is not None,
+        )
+        if self.chat._session is not None:
+            kw["session_max_len"] = self.chat._session.max_len
+        return type(self.chat)(**kw)
+
+    def _session_for(self, session_id: str):
+        """The Chat of a session id, made if new (worker thread only)."""
+        chat = self._sessions.pop(session_id, None)
+        if chat is None:
+            chat = self._session_factory()
+            while len(self._sessions) >= self.max_sessions:
+                it = iter(self._sessions)
+                evicted = next(it)
+                if evicted == "":  # never evict the default session
+                    evicted = next(it, None)
+                    if evicted is None:
+                        break
+                self._sessions.pop(evicted)
+        self._sessions[session_id] = chat  # (re)inserted at the LRU tail
+        return chat
+
+    def _stats(self) -> dict:
+        """The counters of every live session (worker thread only)."""
+        sessions = {sid: dict(c._session.stats) for sid, c in self._sessions.items()
+                    if getattr(c, "_session", None) is not None}
+        return {"mode": "session", "sessions": sessions}
+
+    def _worker(self):
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            payload, done = job
+            try:
+                if payload.get("_stats"):
+                    done["result"] = self._stats()
+                    continue
+                sid = str(payload.get("session_id") or "")
+                if payload.get("_reset"):
+                    # an unknown or evicted session: nothing to reset, and no
+                    # session is made (or evicted) for it
+                    existing = self._sessions.get(sid)
+                    if existing is not None:
+                        existing.reset()
+                    done["result"] = {"status": "reset"}
+                    continue
+                chat = self._session_for(sid)
+                images = _decode_images(payload.get("images", []))
+                done["result"] = chat.generate(
+                    payload["prompt"],
+                    images,
+                    timestamps=payload.get("timestamps", []),
+                    bbox=payload.get("bbox"),
+                    temperature=float(payload.get("temperature", 0.2)),
+                    max_new_tokens=int(payload.get("max_new_tokens", 256)),
+                    speculative_k=int(payload.get("speculative_k", 0)),
+                )
+            except Exception as e:  # noqa: BLE001 — the request's HTTP 400
+                done["error"] = f"{type(e).__name__}: {e}"
+            finally:
+                done["event"].set()
+
+    def _run(self, payload) -> dict:
+        """Hand a job to the worker thread and wait for its answer."""
+        done = {"event": threading.Event()}
+        self._jobs.put((payload, done))
+        done["event"].wait()
+        return done
+
+    def make_handler(server):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _send(self, code, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/health":
+                    self._send(200, {"status": "ok"})
+                elif self.path == "/stats":
+                    self._send(200, server._run({"_stats": True})["result"])
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path not in ("/generate", "/reset"):
+                    return self._send(404, {"error": "not found"})
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    payload = json.loads(self.rfile.read(length) or b"{}")
+                    if not isinstance(payload, dict):
+                        return self._send(400, {"error": "bad request: not a JSON object"})
+                    if self.path == "/generate" and "prompt" not in payload:
+                        return self._send(400, {"error": "missing 'prompt'"})
+                except (ValueError, json.JSONDecodeError) as e:
+                    return self._send(400, {"error": f"bad request: {e}"})
+                if payload.get("stream"):
+                    return self._send(400, {
+                        "error": "streaming needs the continuous-batching engine, which is "
+                                 "not ported yet (ROADMAP queue 1 item 9)"
+                    })
+                if self.path == "/reset":
+                    payload["_reset"] = True
+                done = server._run(payload)
+                if "error" in done:
+                    return self._send(400, {"error": done["error"]})
+                return self._send(200, done["result"])
+
+        return Handler
+
+    def serve_forever(self):
+        self._worker_thread = threading.Thread(target=self._worker, daemon=True)
+        self._worker_thread.start()
+        self._httpd = ThreadingHTTPServer((self.host, self.port), self.make_handler())
+        self._httpd.serve_forever()
+
+    def start_background(self):
+        """Serve from a background thread; returns once the socket is bound
+        (`_httpd.server_address` then holds the port)."""
+        self._serve_thread = threading.Thread(target=self.serve_forever, daemon=True)
+        self._serve_thread.start()
+        deadline = time.monotonic() + 10.0
+        while self._httpd is None:
+            if time.monotonic() > deadline or not self._serve_thread.is_alive():
+                raise RuntimeError("ChatServer: the server did not start")
+            time.sleep(0.01)
+        return self
+
+    def shutdown(self):
+        """Stop serving, let the worker finish its job, and join both threads."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        self._jobs.put(None)
+        for t in (self._serve_thread, self._worker_thread):
+            if t is not None:
+                t.join(60.0)
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="TEOChat JSON serving endpoint (PyTorch, one CUDA card)")
+    p.add_argument("--model_path", required=True)
+    p.add_argument("--vision_path", default=None)
+    p.add_argument("--load_8bit", action="store_true", default=True)
+    p.add_argument("--quantize_vision", action="store_true",
+                   help="w8a8 int8 vision tower (not ported yet)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7860)
+    p.add_argument("--continuous_batching", action="store_true",
+                   help="multiplex concurrent requests over per-request KV slots (not ported yet)")
+    p.add_argument("--lora_paths", default=None,
+                   help="comma-separated peft adapter dirs for multi-LoRA serving (not ported yet)")
+    args = p.parse_args(argv)
+
+    unported = [
+        (args.continuous_batching, "--continuous_batching (the serving engine) is not ported "
+                                   "yet (ROADMAP queue 1 item 9)"),
+        (args.lora_paths, "--lora_paths (multi-LoRA serving) is not ported yet "
+                          "(ROADMAP queue 1 item 12)"),
+        (args.quantize_vision, "--quantize_vision (the w8a8 tower) is not ported yet "
+                               "(ROADMAP queue 1 item 15)"),
+    ]
+    for on, what in unported:
+        if on:
+            raise NotImplementedError(what)
+
+    from teochat_torch.serve.chat import Chat
+    from teochat_torch.utils import resolve_device
+
+    device = resolve_device(None)  # the card; raises without one
+    chat = Chat(args.model_path, load_8bit=args.load_8bit, vision_path=args.vision_path,
+                device=device)
+    print(f"serving on {args.host}:{args.port}")
+    ChatServer(chat, args.host, args.port).serve_forever()
+
+
+if __name__ == "__main__":
+    main()

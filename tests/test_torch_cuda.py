@@ -35,6 +35,7 @@ from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.checkpoint import bridge
 from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import generation as gen_mod
+from teochat_torch.models import llama as llama_mod
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
@@ -224,6 +225,49 @@ def test_decode_kernel_is_the_same_on_every_run(gen):
     assert (first.float() - want).abs().max().item() <= TOL
 
 
+def _suffix_lengths(b, s, t, starts, live):
+    """K2m's lengths for a session's suffix: row b's live queries at slots
+    starts[b] + i, its padded ones at the trash slot t - 1, kv_mask the
+    prefix starts[b] + live[b]."""
+    starts = torch.tensor(starts, device="cuda")[:, None]
+    live = torch.tensor(live, device="cuda")[:, None]
+    pos = torch.arange(s, device="cuda")[None, :]
+    q_slots = torch.where(pos < live, starts + pos, t - 1)
+    return dec_mod.query_lengths(q_slots, torch.arange(t, device="cuda")[None, :] < starts + live)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,t,d,starts,live",
+    [
+        (1, 9, 32, 32, 801, 128, [700], [9]),
+        (1, 128, 32, 32, 1025, 128, [700], [100]),  # padded queries at the trash slot
+        (6, 9, 32, 32, 300, 128, [0, 1, 31, 32, 33, 200], [9, 9, 9, 9, 5, 9]),  # chunk edges
+        (2, 40, 32, 8, 200, 128, [63, 0], [40, 0]),  # GQA 4:1; row 1 has no live slot
+        (2, 33, 16, 4, 257, 64, [64, 65], [33, 20]),  # head_dim 64
+        (1, 17, 32, 2, 129, 128, [65], [17]),  # GQA 16:1: two blocks of 8 heads
+    ],
+)
+def test_decode_multi_kernel_matches_plain_and_its_walk(gen, b, s, h, hkv, t, d, starts, live):
+    """K2m against its plain version and its walk (`decode_attention_multi_schedule`)
+    on the layer slab of a [L, B, T, Hkv, D] cache; a query without a live slot is 0,
+    and a second call gives the same bits."""
+    k = _randn((2, b, t, hkv, d), gen)[1].transpose(1, 2)
+    v = _randn((2, b, t, hkv, d), gen)[1].transpose(1, 2)
+    q = _randn((b, s, h, d), gen)
+    lens = _suffix_lengths(b, s, t, starts, live)
+    before = dec_mod.LAUNCHES_MULTI.count
+    got = dec_mod.decode_attention_multi(q, k, v, lens)
+    again = dec_mod.decode_attention_multi(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert dec_mod.LAUNCHES_MULTI.count == before + 2 and torch.equal(got, again)
+    alive = lens > 0
+    want = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
+    walk = dec_mod.decode_attention_multi_schedule(q.float(), k.float(), v.float(), lens)
+    assert (got.float() - want)[alive].abs().max().item() <= TOL
+    assert (got.float() - walk).abs().max().item() <= TOL
+    assert got[~alive].abs().sum().item() == 0.0
+
+
 def test_cuda_tensors_the_kernels_do_not_take_raise(gen):
     q = torch.randn(1, 64, 2, 128, device="cuda")  # fp32
     with pytest.raises(ValueError):
@@ -234,6 +278,9 @@ def test_cuda_tensors_the_kernels_do_not_take_raise(gen):
     with pytest.raises(ValueError):
         dec_mod.decode_attention(qb[:, 0], qb.transpose(1, 2), qb.transpose(1, 2),
                                  torch.tensor([3], device="cuda"))  # int64 lengths
+    with pytest.raises(ValueError):
+        dec_mod.decode_attention_multi(qb, qb.transpose(1, 2), qb.transpose(1, 2),
+                                       torch.tensor([[3] * 64], device="cuda"))  # int64 lengths
 
 
 def _trainable_case(gen, b, s, h, hkv, d):
@@ -1139,3 +1186,45 @@ def test_decode_graph_dies_with_its_params(decoders, quant):
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() == allocated
     assert torch.cuda.memory_reserved() <= reserved
+
+
+def test_session_decode_graph_keeps_its_cache_and_dies_with_it(decoders):
+    """decode_with_cache over a caller's cache on the card: its tokens equal
+    the eager loop's from the same cache, a second call on the same cache
+    replays the same graph (no capture), the cache is never zeroed, and the
+    entry (with its pool) goes when the cache is dropped."""
+    params = decoders["int8"]
+    embeds, lens, mask, pos = _graph_prompt(1)
+    gen_mod.clear_decode_graphs()
+
+    def turn(graphed, cache=None):
+        cache = cache or llama_mod.init_cache(GRAPH_CFG, 1, 512, device="cuda")
+        logits, cache = gen_mod.prefill_full(params, GRAPH_CFG, cache, embeds, lens, mask, pos)
+        if graphed:
+            out = gen_mod.decode_with_cache(params, GRAPH_CFG, cache, logits, lens, _never_stop(),
+                                            torch.Generator(device="cuda"), max_new_tokens=11)
+        else:
+            state = gen_mod.DecodeState.new(cache, GRAPH_CFG.vocab_size, 11, (1, 1))
+            state.reset(lens, _never_stop(), 0)
+            out = (*gen_mod._run_decode_loop(params, GRAPH_CFG, state, logits,
+                                             torch.Generator(device="cuda"), None,
+                                             max_new_tokens=11, temperature=0.0, do_sample=False,
+                                             top_p=1.0, pad_id=0, emb_dtype=torch.bfloat16),
+                   cache)
+        return out
+
+    want = turn(False)
+    tokens, n_gen, cache = turn(True)
+    assert torch.equal(tokens, want[0]) and torch.equal(n_gen, want[1])
+    assert torch.equal(cache.k[:, :, :GRAPH_S + 10], want[2].k[:, :, :GRAPH_S + 10])
+    entry, = gen_mod.decode_graphs()
+    assert entry.graph is not None and entry.state.cache is None
+    replays = entry.replays
+    again = turn(True, cache)
+    assert torch.equal(again[0], tokens) and gen_mod.decode_graphs() == [entry]
+    assert entry.replays > replays and cache.k[:, :, :GRAPH_S].abs().sum() > 0
+    held = torch.cuda.memory_allocated()
+    del cache, again
+    gc.collect()
+    assert gen_mod.decode_graphs() == []
+    assert torch.cuda.memory_allocated() < held - 2 * GRAPH_CFG.num_layers * 512 * 32 * 128 * 2

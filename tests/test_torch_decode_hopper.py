@@ -98,4 +98,22 @@ def test_module_chunk_is_the_kernels():
         dec_mod.MAX_HEADS_A_BLOCK
     # the grid is sized from T (lengths stay on the device) and the merge is in the same launch
     assert re.search(r"const dim3 grid\(\(T \+ CHUNK - 1\) / CHUNK", source)
-    assert source.count("<<<") == 1 and "atomicAdd(ticket, 1)" in source
+    # one launch of K2 a call (its multi-query form, K2m, is the file's other launch)
+    assert source.count("<<<") == 2 and source.count("decode_split_kernel<D, GV><<<") == 1
+    assert "atomicAdd(ticket, 1)" in source
+
+
+def test_multi_query_walk_sizes_are_the_kernels():
+    """K2m's walk (`decode_attention_multi_schedule`) takes the kernel's
+    chunk of slots and pairs a block, and the kernel needs no workspace or
+    tickets: its C entry takes q, k, v, lengths and o alone."""
+    source = (Path(dec_mod._build.CSRC) / "decode_attention.cu").read_text()
+    assert int(re.search(r"constexpr int MQ_SLOTS = (\d+);", source).group(1)) == dec_mod.MULTI_CHUNK
+    nwarps = int(re.search(r"constexpr int NWARPS = (\d+);", source).group(1))
+    per_warp = int(re.search(r"constexpr int MQ_WARP_PAIRS = (\d+);", source).group(1))
+    assert nwarps * per_warp == dec_mod.MULTI_PAIRS == 32  # one pair's length a lane of warp 0
+    entry = source[source.index('extern "C" int teochat_decode_attention_multi('):]
+    entry = entry[:entry.index(")")]
+    assert "tickets" not in entry and "part_" not in entry
+    assert len(dec_mod._build._SIGNATURES["teochat_decode_attention_multi"]) == \
+        entry.count(",") + 1

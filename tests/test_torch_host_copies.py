@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host modules (config,
 constants, conversation, mm_utils, utils, data.sampler, data.processing,
-eval.inference, eval.classification, eval.detection, eval.geometry) behave
-as their originals, the port imports nothing of JAX or of the JAX package,
-and its entry points default to the card."""
+eval.inference, eval.classification, eval.detection, eval.geometry,
+serve.maptiles, and serve.chat's host helpers) behave as their originals,
+the port imports nothing of JAX or of the JAX package, and its entry points
+default to the card."""
 
 import dataclasses
 import pathlib
@@ -25,6 +26,8 @@ from teochat_tpu.eval import classification as jax_classification
 from teochat_tpu.eval import detection as jax_detection
 from teochat_tpu.eval import geometry as jax_geometry
 from teochat_tpu.eval import inference as jax_inference
+from teochat_tpu.serve import chat as jax_chat
+from teochat_tpu.serve import maptiles as jax_maptiles
 from teochat_torch import config as torch_config
 from teochat_torch import constants as torch_constants
 from teochat_torch import conversation as torch_conv
@@ -38,6 +41,8 @@ from teochat_torch.eval import detection as torch_detection
 from teochat_torch.eval import geometry as torch_geometry
 from teochat_torch.eval import inference as torch_inference
 from teochat_torch.models import llama as torch_llama
+from teochat_torch.serve import chat as torch_chat
+from teochat_torch.serve import maptiles as torch_maptiles
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONFIG_CLASSES = ["VisionConfig", "ProjectorConfig", "LlamaConfig", "MptConfig",
@@ -242,7 +247,8 @@ def test_port_has_no_import_of_jax_or_the_jax_package():
     assert {f"teochat_torch/{m}.py" for m in (
         "builder", "checkpoint/convert_hf", "native/__init__", "models/towers", "eval/eval",
         "eval/classification", "eval/detection", "eval/geometry", "data/processing",
-        "ops/quant")} <= names
+        "ops/quant", "serve/__init__", "serve/session", "serve/chat", "serve/server",
+        "serve/demo", "serve/maptiles")} <= names
     bad = [(str(f.relative_to(REPO)), m.group(0).strip())
            for f in files for m in IMPORT_RE.finditer(f.read_text())]
     assert not bad, bad
@@ -357,3 +363,49 @@ def test_eval_modules_import_without_pillow():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert "drawing needs PIL" in res.stdout
+
+
+def _module_body(mod):
+    """The source after the module docstring."""
+    text = pathlib.Path(mod.__file__).read_text()
+    return text[text.index('"""', 3) + 3:]
+
+
+def test_maptiles_is_the_original():
+    """serve/maptiles.py is the JAX package's module, its docstring aside,
+    and renders the same views from the same canned tiles."""
+    assert _module_body(torch_maptiles) == _module_body(jax_maptiles)
+    assert torch_maptiles.BASEMAP_SOURCES == jax_maptiles.BASEMAP_SOURCES
+    assert torch_maptiles.TEMPORAL_BASEMAPS == jax_maptiles.TEMPORAL_BASEMAPS
+
+    def fetcher(url):
+        seed = sum(map(ord, url)) % 2**31
+        return np.random.RandomState(seed).randint(0, 255, (256, 256, 3), np.uint8)
+
+    for lat, lon, zoom in ((37.77, -122.42, 15), (-33.9, 151.2, 3), (85.0, 179.9, 2)):
+        np.testing.assert_array_equal(
+            torch_maptiles.render_map_view(lat, lon, zoom, "Google Maps", fetcher=fetcher),
+            jax_maptiles.render_map_view(lat, lon, zoom, "Google Maps", fetcher=fetcher))
+        got = torch_maptiles.get_temporal_map_images(lat, lon, zoom, fetcher=fetcher,
+                                                     planet_api_key="K")
+        want = jax_maptiles.get_temporal_map_images(lat, lon, zoom, fetcher=fetcher,
+                                                    planet_api_key="K")
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_chat_host_helpers_equal_the_originals():
+    """serve/chat.py's helpers that hold no model call: the system prefix,
+    mask2bbox (a brush mask, its RGBA layer, an empty one) and draw_bboxes."""
+    assert torch_chat.SYSTEM_PREFIX == jax_chat.SYSTEM_PREFIX
+    mask = np.zeros((32, 48), np.uint8)
+    mask[4:12, 8:20] = 255
+    rgba = np.zeros((32, 48, 4), np.uint8)
+    rgba[..., -1] = mask
+    for m in (mask, rgba, np.zeros((4, 4)), None):
+        assert torch_chat.mask2bbox(m) == jax_chat.mask2bbox(m)
+    img = np.random.RandomState(3).randint(0, 255, (40, 56, 3), np.uint8)
+    for boxes, thickness in (([[10, 20, 50, 60]], 2), ([[0, 0, 100, 100], [5, 5, 6, 90]], 3)):
+        np.testing.assert_array_equal(torch_chat.draw_bboxes(img.copy(), boxes, thickness=thickness),
+                                      jax_chat.draw_bboxes(img.copy(), boxes, thickness=thickness))

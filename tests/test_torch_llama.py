@@ -147,7 +147,7 @@ def test_unported_options_raise(plain_params):
     one = torch.zeros(1, 1, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="wider than the batch"):
         torch_llama.llama_forward(tparams, cfg, x, position_ids=one, cache=cache, write_slots=one)
-    with pytest.raises(NotImplementedError, match="spec_verify"):
+    with pytest.raises(NotImplementedError, match="attend_cache"):
         torch_llama.llama_forward(tparams, cfg, torch.zeros(2, 1, cfg.hidden_size),
                                   position_ids=one.expand(2, 1), cache=cache,
-                                  write_slots=one.expand(2, 1), spec_verify=True)
+                                  write_slots=one.expand(2, 1), attend_cache=True)
