@@ -6,7 +6,7 @@
     python3 chip_probe.py decode-paths [--turns 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k1
-    python3 chip_probe.py k2m
+    python3 chip_probe.py k2m [--root DIR] [--sweep]
     python3 chip_probe.py k4
     python3 chip_probe.py k1k4a [--root DIR] [--tiles 64x64 128x128 ...] [--long]
     python3 chip_probe.py k4bc [--root DIR] [--variants dqbk=128,stages=2 stages=4 ...] [--long]
@@ -103,10 +103,22 @@ another checkout, so two trees can be timed in one session on one card.
   product, then an fp32 add of the two halves): ms a product, ms an
   optimizer step of the recipe (32 layers, 2 micro-steps), and for each how
   many of 256 dx values lie a bf16 step from the exact sum's rounding.
-- k2m: the smoke's K2m phase alone (decode attention's multi-query form
-  against its plain version on a session's suffix over a 4,096-slot cache,
-  beside SDPA with a boolean mask and the bound); the check after editing
-  `decode_multi_kernel` in `decode_attention.cu`.
+- k2m: decode attention's multi-query form (K2m) on the smoke's K2M_CASES,
+  read from this checkout's `chip_smoke.py` (a session's suffix over a
+  4,096-slot cache, verify blocks of S 2 and 5 over a full one): SASS
+  counts and ptxas's report of `decode_multi_kernel`, then for each case the
+  kernel as the wrapper launches it (ms, its error against the plain
+  version, a second call bit-equal, 0 where no slot is live; where the
+  tree's smoke has `k2m_errors`, each (query, head) row's error over its
+  largest |o| against the plain version and the walk, held to the smoke's
+  bounds), its row tile and slot splits, SDPA with a boolean mask and the
+  bound; exits nonzero where a case fails. With `--root` on a parent
+  checkout and once without, both kernels are timed on the same cases in
+  one call on one card; with `--root` on a copy whose kernel has a planted
+  fault, it shows which bound catches it. `--sweep` adds, for each case at
+  batch 1, the wrapper on the cache slab beside the same on a contiguous
+  [B, Hkv, T, D] copy (the layout's cost), and every row-group and split
+  count through the C entry (the plan `multi_plan` picks is starred).
 - k3k5: the smoke's K3 and K5 phases (the int4 products and the ViT attention
   against their plain versions at the 7B shapes); exits nonzero where one
   fails, after running both.
@@ -620,8 +632,8 @@ def _flash_tile_builds(build, tiles):
                          ("teochat_flash_attention_fwd", "teochat_flash_attention_fwd_res"))
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDG", "LDG.128", "STG", "SYNCS",
-                "MUFU", "SHFL", "PRMT", "BAR", "WARPGROUP")
+SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDS", "STS", "LDG", "LDG.128", "LDGSTS",
+                "STG", "SYNCS", "MUFU", "FFMA", "SHFL", "PRMT", "BAR", "WARPGROUP")
 
 
 def _kernel_sass(tag, build, kernels, path=None):
@@ -791,8 +803,122 @@ def cmd_k1(smoke, args):
     _run_phases(smoke, (("k1", smoke.phase_flash),))
 
 
+def _k2m_cases():
+    """K2M_CASES as this checkout's chip_smoke.py writes them (literals, read
+    without importing it), so that a --root tree is timed on the same cases."""
+    import ast
+
+    tree = ast.parse((Path(__file__).parent / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(target, "id", None) == "K2M_CASES" for target in node.targets):
+            return ast.literal_eval(node.value)
+    raise RuntimeError("chip_smoke.py has no K2M_CASES")
+
+
 def cmd_k2m(smoke, args):
-    _run_phases(smoke, (("k2m", smoke.phase_decode_multi),))
+    import torch.nn.functional as F
+
+    from teochat_torch.bench._timing import bound_ms
+    from teochat_torch.ops import _build as build
+    from teochat_torch.ops import decode_attention as dec_mod
+
+    _kernel_sass("k2m", build, "decode_multi_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    failed = False
+    for b, s, h, hkv, t, d, starts, live in _k2m_cases():
+        k = smoke._randn((b, t, hkv, d), gen).transpose(1, 2)
+        v = smoke._randn((b, t, hkv, d), gen).transpose(1, 2)
+        q = smoke._randn((b, s, h, d), gen)
+        lens = dec_mod.query_lengths(*smoke._suffix_case(b, s, t, starts, live))
+        got = dec_mod.decode_attention_multi(q, k, v, lens)
+        again = dec_mod.decode_attention_multi(q, k, v, lens)
+        alive = lens > 0
+        same = torch.equal(got, again) and got[~alive].abs().sum().item() == 0.0
+        if hasattr(smoke, "k2m_errors"):
+            err, rel, walk_rel = smoke.k2m_errors(q, k, v, lens, got)
+            rels = (f", of a row's largest |o| {rel:.3e} (bound {smoke.K2M_REL_MAX}), against "
+                    f"the walk {walk_rel:.3e} (bound {smoke.K2M_WALK_REL_MAX})")
+            failed |= rel > smoke.K2M_REL_MAX or walk_rel > smoke.K2M_WALK_REL_MAX
+        else:  # a tree before the row-scaled bounds
+            want = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
+            err, rels = (got.float() - want)[alive].abs().max().item(), ""
+        failed |= not same or err > smoke.DECODE_TOL
+        ms = smoke.time_ms(lambda: dec_mod.decode_attention_multi(q, k, v, lens))
+        lib = "n/a (a query without live slots)"
+        if alive.all():
+            mask = torch.arange(t, device="cuda")[None, None, :] < lens[..., None]
+            lib_ms = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                smoke._bhsd(q), k, v, attn_mask=mask[:, None], enable_gqa=hkv != h))
+            lib = f"{lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x)"
+        plan = "a block a (row, 32 / G queries, G heads), no split"  # the tree before multi_plan
+        if hasattr(dec_mod, "multi_plan"):
+            rw, splits, _ = dec_mod.multi_plan(b, s, h, hkv, t, build.sm_count(q.device))
+            plan = f"rows a block {16 * rw}, splits {splits}"
+        kv_read = int(lens.amax(-1).sum().item()) * hkv * d * 2 * 2
+        bound, by = bound_ms(kv_read + 2 * 2 * b * s * h * d, 4 * int(lens.sum().item()) * h * d)
+        print(f"[k2m] root={args.root} B={b} S={s} H={h} Hkv={hkv} D={d} T={t} starts={starts} "
+              f"live={live} ({plan}): kernel {ms:.4f} ms, max_abs_err {err:.3e}{rels}, bit-equal "
+              f"and 0 where no slot is live: {same}; scaled_dot_product_attention {lib}; bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+    if args.sweep:
+        _k2m_sweep(smoke, build, dec_mod)
+    print(f"[k2m] root={args.root} {'FAILED' if failed else 'passed'}", flush=True)
+    sys.exit(1 if failed else 0)
+
+
+def _k2m_sweep(smoke, build, dec_mod):
+    """K2m's launch plans side by side: for each 7B case of K2M_CASES (B 1),
+    the C entry called with each row-group count and each split count that
+    keeps the blocks within two an SM (its own workspace and tickets), held
+    to the wrapper's output."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    lib = build.library().lib
+    sms = build.sm_count(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    for b, s, h, hkv, t, d, starts, live in _k2m_cases():
+        if b != 1 or d != 128 or h != hkv:
+            continue
+        k = smoke._randn((b, t, hkv, d), gen).transpose(1, 2)
+        v = smoke._randn((b, t, hkv, d), gen).transpose(1, 2)
+        q = smoke._randn((b, s, h, d), gen)
+        lens = dec_mod.query_lengths(*smoke._suffix_case(b, s, t, starts, live))
+        ref = dec_mod.decode_attention_multi(q, k, v, lens)
+        kc, vc = k.contiguous(), v.contiguous()  # [B, Hkv, T, D]: a kv head's slots adjacent
+        print(f"[k2m] sweep S={s} starts={starts} live={live}: the wrapper on the cache slab "
+              f"{smoke.time_ms(lambda: dec_mod.decode_attention_multi(q, k, v, lens)):.4f} ms, "
+              f"on a contiguous [B, Hkv, T, D] copy "
+              f"{smoke.time_ms(lambda: dec_mod.decode_attention_multi(q, kc, vc, lens)):.4f} ms",
+              flush=True)
+        del kc, vc
+        picked = dec_mod.multi_plan(b, s, h, hkv, t, sms)
+        n_chunks = -(-t // dec_mod.MULTI_CHUNK)
+        out = torch.empty_like(ref)
+        part_ml = torch.empty(2 * sms * 64 * 2, device="cuda")
+        part_acc = torch.empty(2 * sms * 64 * d, device="cuda")
+        tickets = torch.zeros(2 * sms, dtype=torch.int32, device="cuda")
+        row = []
+        for rw in dec_mod.MULTI_ROW_WARPS:
+            tiles = b * hkv * -(-s // (16 * rw))
+            for splits in (1, 2, 4, 8, 16):
+                split_chunks = -(-n_chunks // splits)
+                if -(-n_chunks // split_chunks) != splits or (
+                        splits > 1 and tiles * splits > 2 * sms):
+                    continue
+                run = lambda: lib.teochat_decode_attention_multi(  # noqa: E731
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                    out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                    tickets.data_ptr(), b, s, h, hkv, t, d, rw, splits, split_chunks,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], d ** -0.5,
+                    stream())
+                out.zero_()
+                rc = run()
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs().max().item()
+                mark = "*" if (rw, splits) == picked[:2] else ""
+                row.append(f"rw{rw}/s{splits}{mark} {smoke.time_ms(run):.4f}"
+                           + ("" if rc == 0 and diff <= 2e-2 else f" (rc {rc}, diff {diff:.1e})"))
+        print(f"[k2m] sweep S={s} starts={starts} live={live}: " + ", ".join(row), flush=True)
 
 
 def cmd_k3k5(smoke, args):
@@ -1569,6 +1695,9 @@ def main():
             p.add_argument("--ms", type=int, nargs="+", default=[1, 2, 4, 8, 16, 768])
             p.add_argument("--ttft", action="store_true",
                            help="also int4 and int8 prefill + first token at batch 1")
+        if name == "k2m":
+            p.add_argument("--sweep", action="store_true",
+                           help="also each row-group and split count through the C entry")
         if name == "k5k2":
             p.add_argument("--chunks", type=int, nargs="+", default=[32, 128],
                            help="K2 slot chunks to build the source with")

@@ -16,11 +16,13 @@ them. Phases, each printing its lines before the last:
    live slots), in a ragged batch and with rows of no live slot (written as
    0); each case twice, bit-equal; then its multi-query form (K2m) against
    its plain version on a session's suffix over a 4,096-slot cache at 7B
-   shapes (S 1, 9, 128, 512), starts 0, 1, 31, 32, 33, 63, 64, 65 and 700
-   (the edges of its 32-slot chunk and of K2's 64), padded
+   shapes (S 1, 2, 5, 9, 128, 512, 1024; S 2, 5, 9 over a full cache, where
+   the slots are split across blocks), starts 0, 1, 31, 32, 33, 63, 64, 65
+   and 700 (the edges of 32- and 64-slot chunks), padded
    queries at the trash slot, a row with no live slot, head_dim 64 with
    group 4 and group 16, each twice, bit-equal, beside one
-   `scaled_dot_product_attention` call with a boolean mask;
+   `scaled_dot_product_attention` call with a boolean mask and the
+   launch's row tile and slot splits;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4 (the
    split-K `mma.sync` decode kernel), 16 and 768 (the M > 8 `wgmma`
@@ -179,6 +181,21 @@ SEED = 0
 # 2^-8 * 4 = 1.6e-2; P is rounded to bf16 before PV, as on the TPU
 FLASH_TOL = 2e-2
 DECODE_TOL = 2e-2
+# K2m, each live (query, head) row's largest error over its largest |o|. A
+# query over ~4,000 slots averages them to |o| ~ 0.07, so DECODE_TOL alone
+# would pass a slot split that drops a chunk or weighs one split wrong;
+# these bounds scale with the row. Against the plain version (fp32 P) the
+# kernel's bf16 P and bf16 output differ; against its walk on the same bf16
+# K / V (P rounded to bf16 as the kernel rounds it, o left in fp32) only the
+# output's rounding, up to 2^-8 of the row's largest |o|, and the order of
+# fp32 sums are left. Read on an H100 over K2M_CASES (chip_probe.py k2m and
+# this phase, two draws): 3.4e-3 to 5.7e-3 against the plain version, 3.1e-3
+# to 4.1e-3 against the walk. Planted in copies of decode_attention.cu: split 1's first chunk
+# dropped reads 0.21 to 0.35 against both, split 0 counting it again 0.20
+# to 0.33, split 1's merge factor 5 % high 3.8e-2 to 5.0e-2 and 1 % high
+# 8.6e-3 to 1.2e-2 against the walk, where DECODE_TOL passes the last two
+K2M_REL_MAX = 1e-2
+K2M_WALK_REL_MAX = 5e-3
 # ||logits(kernels) - logits(plain)|| / ||logits(plain)|| after 32 bf16 layers
 LOGITS_REL_L2_BOUND = 5e-2
 # The flash backward rounds P and dS to bf16 before its products and writes
@@ -462,28 +479,55 @@ def _suffix_case(b, s, t, starts, live):
     return q_slots, kv_mask
 
 
+# K2m's cases, (B, S, H, Hkv, T, D, starts, live): a session's suffix over a
+# 4,096-slot cache at 7B shapes. Literals, so that `chip_probe.py k2m` can
+# read them from this file and time another checkout's kernel on them.
+K2M_CASES = [
+    (1, 1, 32, 32, 4096, 128, [700], [1]),
+    (1, 2, 32, 32, 4096, 128, [4094], [2]),  # speculative verify at k = 1, a full cache
+    (1, 5, 32, 32, 4096, 128, [4091], [5]),  # k = 4
+    (1, 9, 32, 32, 4096, 128, [700], [9]),
+    (1, 9, 32, 32, 4096, 128, [4080], [9]),  # a full cache: each query over ~4,089 slots
+    (1, 128, 32, 32, 4096, 128, [700], [100]),  # a text turn's suffix: the reported case
+    (1, 512, 32, 32, 4096, 128, [700], [512]),
+    (1, 1024, 32, 32, 4096, 128, [100], [874]),  # a turn that re-prefills three frames
+    # starts at the edges of 32- and 64-slot chunks
+    (9, 9, 32, 32, 4096, 128, [0, 1, 31, 32, 33, 63, 64, 65, 700], [9, 9, 9, 9, 5, 9, 9, 9, 9]),
+    (2, 128, 32, 32, 4096, 128, [63, 0], [128, 0]),  # row 1 has no live slot
+    (2, 33, 16, 4, 1024, 64, [64, 65], [33, 20]),  # head_dim 64, group 4
+    (1, 17, 32, 2, 600, 128, [65], [17]),  # group 16
+    (1, 3, 16, 4, 2048, 64, [2040], [3]),  # head_dim 64, group 4, slots split across blocks
+]
+
+
+def k2m_errors(q, k, v, lens, got):
+    """K2m's output `got` for q, k, v, lens against its plain version and
+    its walk for this card's SMs: (the largest absolute error of a live
+    query, the largest of each live (query, head) row's error over the row's
+    largest |o| against the plain version, the same against the walk)."""
+    alive = lens > 0
+    want = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
+    walk = dec_mod.decode_attention_multi_schedule(q.float(), k, v, lens,
+                                                   sms=_build.sm_count(q.device))
+
+    def row_rel(ref):
+        return ((got.float() - ref).abs().amax(-1)[alive] / ref.abs().amax(-1)[alive]).max().item()
+
+    return (got.float() - want)[alive].abs().max().item(), row_rel(want), row_rel(walk)
+
+
 def phase_decode_multi(gen):
-    """K2m, decode attention's multi-query form, against its plain version:
-    queries of a session's suffix over a 4,096-slot cache at 7B shapes
-    (S 1, 9, 128, 512; S 9 also at the cache's end), starts 0, 1, 31, 32,
-    33, 63, 64, 65 and 700, padded
+    """K2m, decode attention's multi-query form, against its plain version
+    on K2M_CASES: queries of a session's suffix over a 4,096-slot cache at
+    7B shapes (S 1, 2, 5, 9, 128, 512, 1024; S 2, 5 and 9 also at the
+    cache's end), starts 0, 1, 31, 32, 33, 63, 64, 65 and 700, padded
     queries at the trash slot, a row with no live slot (written as 0),
-    head_dim 64 with group 4 and group 16; each case twice, bit-equal;
-    beside one scaled_dot_product_attention call with a boolean mask."""
-    c = dec_mod.MULTI_CHUNK
-    cases = [  # (B, S, H, Hkv, T, D, starts, live); the one the JSON line reports is marked
-        (1, 1, 32, 32, 4096, 128, [700], [1]),
-        (1, 9, 32, 32, 4096, 128, [700], [9]),
-        (1, 9, 32, 32, 4096, 128, [4080], [9]),  # a full cache: 32 blocks, each over 4,089 slots
-        (1, 128, 32, 32, 4096, 128, [700], [100]),  # a text turn's suffix: the reported case
-        (1, 512, 32, 32, 4096, 128, [700], [512]),
-        # starts at the edges of K2m's chunk (c) and of K2's (64)
-        (9, 9, 32, 32, 4096, 128, [0, 1, c - 1, c, c + 1, 63, 64, 65, 700],
-         [9, 9, 9, 9, 5, 9, 9, 9, 9]),
-        (2, 128, 32, 32, 4096, 128, [63, 0], [128, 0]),  # row 1 has no live slot
-        (2, 33, 16, 4, 1024, 64, [64, 65], [33, 20]),  # head_dim 64, group 4
-        (1, 17, 32, 2, 600, 128, [65], [17]),  # group 16: two blocks of 8 heads
-    ]
+    head_dim 64 with group 4 and group 16; each case twice, bit-equal, and
+    each (query, head) row held to its own size against the plain version
+    and the walk (`k2m_errors`); beside one scaled_dot_product_attention
+    call with a boolean mask, with the launch `multi_plan` picks (row
+    groups, slot splits)."""
+    cases = K2M_CASES
     worst, main = 0.0, None
     for b, s, h, hkv, t, d, starts, live in cases:
         # a layer slab of the [L, B, T, Hkv, D] cache, read in place as [B, Hkv, T, D]
@@ -496,11 +540,10 @@ def phase_decode_multi(gen):
         again = dec_mod.decode_attention_multi(q, k, v, lens)
         sync()
         check(torch.equal(got, again), "K2m: the same bits on a second call")
-        want = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
         alive = lens > 0  # the plain version gives the mean of V where the kernel gives 0
         check(got[~alive].abs().sum().item() == 0.0, "K2m: a query without live slots is 0")
         check(torch.isfinite(got).all().item(), "K2m output finite")
-        err = (got.float() - want)[alive].abs().max().item()
+        err, rel, walk_rel = k2m_errors(q, k, v, lens, got)
         ms = time_ms(lambda: dec_mod.decode_attention_multi(q, k, v, lens))
         plain_ms = time_ms(lambda: dec_mod.decode_attention_multi_plain(q, k, v, lens))
         lib_ms = None
@@ -514,11 +557,17 @@ def phase_decode_multi(gen):
         row = kernel_row(err, ms, plain_ms, kv_read + 2 * 2 * b * s * h * d,
                          4 * int(lens.sum().item()) * h * d, lib_ms)
         lib_text = "n/a (a query without live slots)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        rw, splits, _ = dec_mod.multi_plan(b, s, h, hkv, t, _build.sm_count(q.device))
         log(f"[K2m decode multi] B={b} S={s} H={h} Hkv={hkv} D={d} T={t} starts={starts} "
-            f"live={live}: max_abs_err={err:.3e} (tol {DECODE_TOL}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms scaled_dot_product_attention with the mask {lib_text} bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"live={live} rows a block {16 * rw} splits {splits}: max_abs_err={err:.3e} "
+            f"(tol {DECODE_TOL}), of a row's largest |o| {rel:.3e} (bound {K2M_REL_MAX}), "
+            f"against the walk {walk_rel:.3e} (bound {K2M_WALK_REL_MAX}); kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms scaled_dot_product_attention with the mask {lib_text} "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         check(err <= DECODE_TOL, f"K2m error {err} > {DECODE_TOL}")
+        check(rel <= K2M_REL_MAX, f"K2m error {rel} of a row's largest |o| > {K2M_REL_MAX}")
+        check(walk_rel <= K2M_WALK_REL_MAX,
+              f"K2m against its walk: {walk_rel} of a row's largest |o| > {K2M_WALK_REL_MAX}")
         worst = max(worst, err)
         if (b, s, starts) == (1, 128, [700]):
             main = row

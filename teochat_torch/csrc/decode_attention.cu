@@ -38,6 +38,9 @@
 #include <cmath>
 #include <cstdint>
 
+#include "hopper_async.cuh"
+#include "mma_bf16.cuh"
+
 // Slots a block; chip_probe.py builds this file with other values to time them.
 #ifndef TEOCHAT_DECODE_CHUNK
 #define TEOCHAT_DECODE_CHUNK 64
@@ -259,250 +262,508 @@ int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_
 // package's cached path computes with XLA's masked attention when S > 1
 // (teochat_tpu/models/llama.py:316-336, the mask `slot <= q_slot & kv_mask`
 // with a kv_mask that is a prefix of each row; the wrapper turns both into
-// `lengths`): a session's suffix prefill over its committed conversation.
-// There is no Pallas kernel for it on the TPU.
+// `lengths`): a session's suffix prefill over its committed conversation,
+// or a speculative verify block of S = k + 1 queries. There is no Pallas
+// kernel for it on the TPU.
 //
-// What bounds it: at the suffix's sizes each K and V row of the cache is
-// used by every query of the suffix, so a block that holds many queries
-// reads each row once for all of them. A block takes one (row, tile of
-// queries, group of query heads sharing one kv head): MQ_PAIRS (query,
-// head) pairs, MQ_PAIRS / G queries of G heads. It walks the row's slots
-// in chunks of MQ_SLOTS up to the tile's largest length, with an online
-// softmax in fp32: each chunk of K and V is loaded once into shared memory
-// for the whole tile. Each warp holds MQ_WARP_PAIRS pairs: a lane scores
-// one slot of the chunk against each of them (q in fp32 in shared memory,
-// read as broadcasts; K rows padded by 16 bytes so a quarter warp's 16-byte
-// reads fall in distinct banks), then owns D / 32 elements of each pair's
-// accumulator for P V. No workspace and no tickets: the work of a pair
-// never leaves its block. FMAs, not tensor cores: a simple kernel first.
+// What bounds it: at a verify block's few queries, the bytes of the cache
+// (each K and V row is read for S * G (query, head) rows only); at a long
+// suffix (S 512 and up), the products Q K^T and P V. What the design does:
+// - rows are (query, head) pairs: the G query heads of one kv head times
+//   the queries, so every K and V byte is shared across the group. A warp
+//   owns 16 rows of an `mma.sync` m16n8k16 tile (bf16 in, fp32
+//   accumulation); a block of four warps takes RW row groups of 16 rows,
+//   and the 4 / RW warps of a row group each take their share of every
+//   chunk's slots, so that a tile of 16 rows (S * G <= 16, a verify block)
+//   keeps all four warps' tensor cores busy. The scores stay in registers:
+//   the row maximum by quad shuffles, the scale folded into the exponent
+//   (base 2), P packed to bf16 as the A operand of P V in place. A warp
+//   that holds its rows whole writes o from its registers; the warps of a
+//   shared row group merge through shared memory, four elements a thread;
+// - each block walks its slots in chunks of MQ_CHUNK through a ring of
+//   MQ_STAGES stages in shared memory filled by `cp.async` (16 bytes a
+//   thread, rows padded by 16 bytes, so `ldmatrix` reads them without bank
+//   conflicts): the next chunks' bytes are in flight while this chunk's
+//   products run. Slots at or past the tile's longest length are never
+//   read (zeros land in their place), and the per-slot mask is applied only
+//   on chunks that reach past the tile's shortest length;
+// - when the row tiles alone leave the card idle (few queries), the slots
+//   are split across blocks as K2 splits them: the count comes from the
+//   shapes (ops/decode_attention.py::multi_plan, from B, S, H, Hkv, T and
+//   the SM count), never from `lengths`, which stay on the device. A block
+//   whose slots start at or past its tile's longest length leaves at once;
+//   each other block writes its (m, l, acc) partials to an fp32 workspace,
+//   and the last of the tile's blocks to take a ticket merges them in split
+//   order, in the same launch, and resets the ticket: one launch a call and
+//   the same bits on every call. Where only the first split has a live slot,
+//   its block writes o itself. Splits are taken only while the tiles are
+//   fewer than the SMs (about one block an SM), so the workspace stays
+//   below SMs tiles of partials whatever S and T are.
 // A query of length 0 is written as 0.
 
-constexpr int MQ_SLOTS = 32;       // slots a chunk: one a lane
-constexpr int MQ_WARP_PAIRS = 8;   // (query, head) pairs a warp
-constexpr int MQ_PAIRS = NWARPS * MQ_WARP_PAIRS;  // pairs a block
+constexpr int MQ_CHUNK = 64;   // cache slots a chunk of the ring
+constexpr int MQ_STAGES = 3;   // chunks a block has in flight or in use
+constexpr int MQ_WARPS = NWARPS;  // RW row groups of 16 rows x MQ_WARPS / RW slot shares
+constexpr int MQ_MAX_SPLITS = 16;  // slot splits a tile, at most
 
-template <int D, int G>
-__global__ void __launch_bounds__(NTHREADS)
-decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const int* __restrict__ lengths,
-                    uint16_t* __restrict__ o, int S, int T, int H, int Hkv,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_sh, long long k_st,
-                    long long v_sb, long long v_sh, long long v_st, float scale) {
-  constexpr int QT = MQ_PAIRS / G;  // queries a block
-  constexpr int DE = D / 32;        // accumulator elements a lane
-  constexpr int KP = D + 8;         // a K row in shared memory, padded
-  static_assert(MQ_PAIRS % G == 0 && D % 64 == 0, "whole queries a block, D 64 or 128");
-  __shared__ __align__(16) uint16_t sk[MQ_SLOTS][KP];
-  __shared__ __align__(16) uint16_t sv[MQ_SLOTS][D];
-  __shared__ __align__(16) float sq[MQ_PAIRS][D];
-  __shared__ __align__(16) float sp[NWARPS][MQ_WARP_PAIRS][MQ_SLOTS];
-  __shared__ int slen[MQ_PAIRS];
-  __shared__ int smax;
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 0 at -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int b = blockIdx.z, s0 = blockIdx.x * QT, hq0 = blockIdx.y * G;
-  const int hk = hq0 / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// 16 bytes from global `src` to shared `dst`; only `src_bytes` (16 or 0) are
+// read, the rest of the 16 written as zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 
-  // the tile's queries in fp32 and their lengths (pair p: query p / G, head p % G)
-  for (int idx = tid; idx < MQ_PAIRS * (D / 8); idx += NTHREADS) {
-    const int p = idx / (D / 8), c = idx % (D / 8), s = s0 + p / G;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (s < S)
-      unpack8(*reinterpret_cast<const uint4*>(q + b * q_sb + s * q_ss + (hq0 + p % G) * q_sh +
-                                              c * 8), f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sq[p][c * 8 + e] = f[e];
-  }
-  if (tid < MQ_PAIRS) {
-    const int s = s0 + tid / G;
-    slen[tid] = s < S ? min(max(lengths[static_cast<long long>(b) * S + s], 0), T) : 0;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int mx = slen[lane];  // MQ_PAIRS == 32
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) smax = mx;
-  }
-  __syncthreads();
-  const int max_len = smax;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float m[MQ_WARP_PAIRS], l[MQ_WARP_PAIRS], acc[MQ_WARP_PAIRS][DE];
-  int len[MQ_WARP_PAIRS];
-#pragma unroll
-  for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
-    m[pr] = -INFINITY;
-    l[pr] = 0.f;
-    len[pr] = slen[warp * MQ_WARP_PAIRS + pr];
-#pragma unroll
-    for (int e = 0; e < DE; ++e) acc[pr][e] = 0.f;
-  }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const uint16_t* kb = k + b * k_sb + hk * k_sh;
-  const uint16_t* vb = v + b * v_sb + hk * v_sh;
-  for (int c0 = 0; c0 < max_len; c0 += MQ_SLOTS) {
-    // the chunk's K and V, zeros past the tile's largest length
-    for (int idx = tid; idx < MQ_SLOTS * (D / 8); idx += NTHREADS) {
-      const int j = idx / (D / 8), c = idx % (D / 8), t = c0 + j;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (t < max_len) {
-        kr = *reinterpret_cast<const uint4*>(kb + t * k_st + c * 8);
-        vr = *reinterpret_cast<const uint4*>(vb + t * v_st + c * 8);
-      }
-      *reinterpret_cast<uint4*>(&sk[j][c * 8]) = kr;
-      *reinterpret_cast<uint4*>(&sv[j][c * 8]) = vr;
-    }
-    __syncthreads();
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i holds its fragment (row lane / 4,
+// columns 2 (lane % 4), +1; `_t`: transposed, rows 2 (lane % 4), +1 of
+// column lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-    // scores: this lane's slot against each of the warp's pairs
-    float sc[MQ_WARP_PAIRS];
-#pragma unroll
-    for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) sc[pr] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D / 8; ++c) {
-      float kf[8];
-      unpack8(*reinterpret_cast<const uint4*>(&sk[lane][c * 8]), kf);
-#pragma unroll
-      for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
-        const float4 qa = *reinterpret_cast<const float4*>(&sq[warp * MQ_WARP_PAIRS + pr][c * 8]);
-        const float4 qb = *reinterpret_cast<const float4*>(&sq[warp * MQ_WARP_PAIRS + pr][c * 8 + 4]);
-        float d = sc[pr];
-        d = fmaf(qa.x, kf[0], d);
-        d = fmaf(qa.y, kf[1], d);
-        d = fmaf(qa.z, kf[2], d);
-        d = fmaf(qa.w, kf[3], d);
-        d = fmaf(qb.x, kf[4], d);
-        d = fmaf(qb.y, kf[5], d);
-        d = fmaf(qb.z, kf[6], d);
-        d = fmaf(qb.w, kf[7], d);
-        sc[pr] = d;
-      }
-    }
-
-    // the online softmax: each pair's maximum over the warp, this lane's p
-    const int t = c0 + lane;
-#pragma unroll
-    for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
-      const float s = t < len[pr] ? sc[pr] * scale : -INFINITY;
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float m_new, alpha, unused;
-      merge_factors(m[pr], mx, m_new, alpha, unused);  // alpha 0 while nothing is live
-      const float p = s == -INFINITY ? 0.f : __expf(s - m_new);
-      l[pr] = l[pr] * alpha + p;
-#pragma unroll
-      for (int e = 0; e < DE; ++e) acc[pr][e] *= alpha;
-      m[pr] = m_new;
-      sp[warp][pr][lane] = p;
-    }
-    __syncwarp();
-
-    // P V: this lane's D / 32 elements of each pair's accumulator
-#pragma unroll 2
-    for (int j = 0; j < MQ_SLOTS; j += 4) {
-      float vf[4][DE];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if constexpr (DE == 4) {
-          const uint2 u = *reinterpret_cast<const uint2*>(&sv[j + jj][lane * 4]);
-          vf[jj][0] = __uint_as_float(u.x << 16);
-          vf[jj][1] = __uint_as_float(u.x & 0xffff0000u);
-          vf[jj][2] = __uint_as_float(u.y << 16);
-          vf[jj][3] = __uint_as_float(u.y & 0xffff0000u);
-        } else {
-          const uint32_t u = *reinterpret_cast<const uint32_t*>(&sv[j + jj][lane * 2]);
-          vf[jj][0] = __uint_as_float(u << 16);
-          vf[jj][1] = __uint_as_float(u & 0xffff0000u);
-        }
-      }
-#pragma unroll
-      for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&sp[warp][pr][j]);
-#pragma unroll
-        for (int e = 0; e < DE; ++e) {
-          float a = acc[pr][e];
-          a = fmaf(p4.x, vf[0][e], a);
-          a = fmaf(p4.y, vf[1][e], a);
-          a = fmaf(p4.z, vf[2][e], a);
-          a = fmaf(p4.w, vf[3][e], a);
-          acc[pr][e] = a;
-        }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites sk, sv and sp
-  }
-
-  // each pair's sum over the warp, then o = acc / l (0 where no slot is live)
-#pragma unroll
-  for (int pr = 0; pr < MQ_WARP_PAIRS; ++pr) {
-    float lsum = l[pr];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-    const int p = warp * MQ_WARP_PAIRS + pr, s = s0 + p / G;
-    if (s >= S) continue;
-    uint16_t* op = o + ((static_cast<long long>(b) * S + s) * H + hq0 + p % G) * D + lane * DE;
-#pragma unroll
-    for (int e = 0; e < DE; ++e) {
-      const float out = lsum == 0.f ? 0.f : acc[pr][e] / lsum;
-      const __nv_bfloat16 ob = __float2bfloat16_rn(out);
-      op[e] = *reinterpret_cast<const uint16_t*>(&ob);
-    }
-  }
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 template <int D>
-int launch_multi_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
-                   const uint16_t* v, const int* lens, uint16_t* o, int S, int T, int H,
-                   int Hkv, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                   long long k_sh, long long k_st, long long v_sb, long long v_sh,
-                   long long v_st, float scale) {
-#define TEOCHAT_MULTI_LAUNCH(GV)                                                              \
-  decode_multi_kernel<D, GV><<<grid, NTHREADS, 0, st>>>(q, k, v, lens, o, S, T, H, Hkv, q_sb, \
-                                                        q_ss, q_sh, k_sb, k_sh, k_st, v_sb,    \
-                                                        v_sh, v_st, scale)
-  switch (G) {
-    case 1: TEOCHAT_MULTI_LAUNCH(1); break;
-    case 2: TEOCHAT_MULTI_LAUNCH(2); break;
-    case 4: TEOCHAT_MULTI_LAUNCH(4); break;
-    case 8: TEOCHAT_MULTI_LAUNCH(8); break;
+__host__ __device__ constexpr int multi_smem_bytes() {
+  return MQ_STAGES * 2 * MQ_CHUNK * (D + 8) * 2;  // K then V a stage, rows padded
+}
+
+// Row r of a kv head's rows is query r / group, head hk * group + r % group.
+// part_ml [tiles, splits, ROWS, 2] (m, l) and part_acc [tiles, splits, ROWS,
+// D], tickets [tiles]: used only where two or more of a tile's splits have a
+// live slot. A tile is (b, hk, tile of
+// ROWS rows), numbered (b * Hkv + hk) * row_tiles + tile.
+template <int D, int RW>
+__global__ void __launch_bounds__(NTHREADS)
+decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const int* __restrict__ lengths,
+                    uint16_t* __restrict__ o, float* __restrict__ part_ml,
+                    float* __restrict__ part_acc, int* __restrict__ tickets,
+                    int S, int T, int H, int Hkv, int splits, int split_chunks,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_sh, long long k_st,
+                    long long v_sb, long long v_sh, long long v_st, float scale_log2) {
+  using namespace teochat;
+  constexpr int SW = MQ_WARPS / RW;    // warps that share a row group
+  constexpr int ROWS = 16 * RW;        // (query, head) rows a block
+  constexpr int NS = MQ_CHUNK / SW;    // slots a warp takes of each chunk
+  constexpr int NT = NS / 8;           // n-tiles of Q K^T
+  constexpr int LD = D + 8;            // a K or V row in shared memory, padded
+  constexpr int RD = D + 8;            // a row of fp32 partials in the epilogue
+  constexpr int STAGE = 2 * MQ_CHUNK * LD;  // elements of a stage: K, then V
+  static_assert(NS % 16 == 0 && D % 64 == 0, "whole k-steps of P V; D 64 or 128");
+  static_assert(SW * ROWS * RD * 4 <= multi_smem_bytes<D>(), "the epilogue fits in the ring");
+  extern __shared__ __align__(16) uint16_t ring[];
+  __shared__ float red_m[SW * ROWS], red_l[SW * ROWS];
+  __shared__ float s_f[MQ_MAX_SPLITS][ROWS], s_l[ROWS];  // the split merge's factors and sums
+  __shared__ int s_max, s_min, s_last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3, mi = lane >> 3;
+  const int wr = warp / SW, ws = warp % SW;  // the warp's row group and slot share
+  const int row_tiles = gridDim.x / splits;
+  const int split = blockIdx.x / row_tiles, tile = blockIdx.x % row_tiles;  // split-major
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = H / Hkv, n_rows = S * group, r0 = tile * ROWS;
+  const long long tile_id = (static_cast<long long>(b) * Hkv + hk) * row_tiles + tile;
+  const int* blen = lengths + static_cast<long long>(b) * S;
+
+  // the tile's longest and shortest length
+  if (tid == 0) {
+    s_max = 0;
+    s_min = T;
+  }
+  __syncthreads();
+  if (tid < ROWS && r0 + tid < n_rows) {
+    const int len = min(max(blen[(r0 + tid) / group], 0), T);
+    atomicMax(&s_max, len);
+    atomicMin(&s_min, len);
+  }
+  __syncthreads();
+  const int max_len = s_max, min_len = s_min;
+  const int split_slots = split_chunks * MQ_CHUNK;
+  // splits with a slot below the longest length; split 0 takes part even at
+  // length 0, so that the tile is written (as 0)
+  const int n_live = max((max_len + split_slots - 1) / split_slots, 1);
+  if (split >= n_live) return;
+  const int c_begin = split * split_chunks;
+  const int n = min(split_chunks, (max_len + MQ_CHUNK - 1) / MQ_CHUNK - c_begin);
+
+  // this thread's rows (gid and gid + 8 of the warp's 16): lengths, q fragments
+  int len[2];
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + wr * 16 + gid + 8 * i;
+    const bool ok = r < n_rows;
+    len[i] = ok ? min(max(blen[r / group], 0), T) : 0;
+    const uint16_t* qr = q + b * q_sb + (r / group) * q_ss + (hk * group + r % group) * q_sh;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][i] = ok ? ld32(qr + kk * 16 + 2 * tig) : 0u;
+      qa[kk][2 + i] = ok ? ld32(qr + kk * 16 + 8 + 2 * tig) : 0u;
+    }
+  }
+
+  // this thread's share of every chunk: 16-byte piece c8 of slots j0, j0 + PASS_ROWS, ...
+  constexpr int PASS_ROWS = NTHREADS / (D / 8);  // slots the block copies a pass
+  const int j0 = tid / (D / 8), c8 = tid % (D / 8);
+  const uint16_t* kb = k + b * k_sb + hk * k_sh + c8 * 8;
+  const uint16_t* vb = v + b * v_sb + hk * v_sh + c8 * 8;
+  const uint32_t ring_u32 = smem_u32(ring), s_off = (j0 * LD + c8 * 8) * 2;
+  auto load_chunk = [&](int c, int stage) {  // slots past the longest length as zeros
+    const uint32_t sk = ring_u32 + stage * STAGE * 2 + s_off, sv = sk + MQ_CHUNK * LD * 2;
+    const int t0 = c * MQ_CHUNK + j0;
+    const uint16_t* kc = kb + t0 * k_st;
+    const uint16_t* vc = vb + t0 * v_st;
+#pragma unroll
+    for (int pass = 0; pass < MQ_CHUNK / PASS_ROWS; ++pass) {
+      const bool live = t0 + pass * PASS_ROWS < max_len;
+      const uint32_t off = pass * PASS_ROWS * LD * 2;
+      cp_async16(sk + off, live ? kc + pass * PASS_ROWS * k_st : kb, live ? 16u : 0u);
+      cp_async16(sv + off, live ? vc + pass * PASS_ROWS * v_st : vb, live ? 16u : 0u);
+    }
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int i = 0; i < MQ_STAGES - 1; ++i) {
+    if (i < n) load_chunk(c_begin + i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<MQ_STAGES - 2>();  // chunk i has landed (this thread's part of it) ...
+    __syncthreads();                 // ... everyone's, and chunk i - 1's stage is free
+    if (i + MQ_STAGES - 1 < n) load_chunk(c_begin + i + MQ_STAGES - 1, (i + MQ_STAGES - 1) % MQ_STAGES);
+    cp_async_commit();
+    const int c = c_begin + i;
+    const uint32_t sk = ring_u32 + ((i % MQ_STAGES) * STAGE + ws * NS * LD) * 2;  // this warp's slots
+    const uint32_t sv = sk + MQ_CHUNK * LD * 2;
+
+    // S = Q K^T: two n-tiles of 8 slots a `ldmatrix` x4
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t bk[4];  // matrix mi: slots nt * 8 + (mi / 2) * 8 + ..., columns kk * 16 + (mi % 2) * 8
+        ldsm_x4(bk, sk + ((nt * 8 + (mi >> 1) * 8 + (lane & 7)) * LD + kk * 16 + (mi & 1) * 8) * 2);
+        mma_16816(sc[nt], qa[kk], bk[0], bk[1]);
+        mma_16816(sc[nt + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+
+    // the online softmax in base 2, the mask only where a length ends in the chunk
+    const int t0 = c * MQ_CHUNK + ws * NS;
+    const bool masked = c * MQ_CHUNK + MQ_CHUNK > min_len;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[nt][e] * scale_log2;
+        if (masked && t0 + nt * 8 + 2 * tig + (e & 1) >= len[e >> 1]) x = -INFINITY;
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+      const float m_new = fmaxf(m[i2], mx[i2]);
+      alpha[i2] = m_new == -INFINITY ? 1.f : ex2(m[i2] - m_new);  // 0 while nothing was live
+      mu[i2] = m_new == -INFINITY ? 0.f : m_new;
+      m[i2] = m_new;
+      l[i2] *= alpha[i2];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(sc[nt][e] - mu[e >> 1]);
+        sc[nt][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+
+    // acc += P V: P from the score registers, V by `ldmatrix` x4 transposed
+#pragma unroll
+    for (int ks = 0; ks < NS / 16; ++ks) {
+      uint32_t pa[4];
+      c_to_a(pa, sc[2 * ks], sc[2 * ks + 1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t bv[4];  // matrix mi: slots ks * 16 + (mi % 2) * 8 + ..., columns nd * 8 + (mi / 2) * 8
+        ldsm_x4_t(bv, sv + ((ks * 16 + (mi & 1) * 8 + (lane & 7)) * LD + nd * 8 + (mi >> 1) * 8) * 2);
+        mma_16816(acc[nd], pa, bv[0], bv[1]);
+        mma_16816(acc[nd + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (SW == 1 && n_live == 1) {  // a warp has its rows whole: o from the registers
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + wr * 16 + gid + 8 * i;
+      if (r >= n_rows) continue;
+      uint16_t* orow =
+          o + ((static_cast<long long>(b) * S + r / group) * H + hk * group + r % group) * D;
+      const bool none = l[i] == 0.f;  // a row without a live slot is 0
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * tig) =
+            pack_bf16(none ? 0.f : acc[nd][2 * i] / l[i], none ? 0.f : acc[nd][2 * i + 1] / l[i]);
+    }
+    return;
+  }
+
+  // the warps of a row group merged in order, through the ring's memory
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = ws * ROWS + wr * 16 + gid + 8 * i;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(red + row * RD + nd * 8 + 2 * tig) =
+          make_float2(acc[nd][2 * i], acc[nd][2 * i + 1]);
+    if (tig == 0) {
+      red_m[row] = m[i];
+      red_l[row] = l[i];
+    }
+  }
+  __syncthreads();
+
+  // o, or this split's partials, four elements of a row an item
+  const int live_rows = min(ROWS, n_rows - r0);
+  auto write_o4 = [&](int row, int d, const float4& a, float lsum) {
+    const int r = r0 + row;
+    const bool none = lsum == 0.f;  // a row without a live slot is 0
+    const uint2 ob = make_uint2(pack_bf16(none ? 0.f : a.x / lsum, none ? 0.f : a.y / lsum),
+                                pack_bf16(none ? 0.f : a.z / lsum, none ? 0.f : a.w / lsum));
+    *reinterpret_cast<uint2*>(
+        o + ((static_cast<long long>(b) * S + r / group) * H + hk * group + r % group) * D + d) = ob;
+  };
+  for (int it = tid; it < live_rows * (D / 4); it += NTHREADS) {
+    const int row = it / (D / 4), d = (it % (D / 4)) * 4;
+    float mxw = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) mxw = fmaxf(mxw, red_m[w * ROWS + row]);
+    float lsum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mxw != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < SW; ++w) {
+        const float f = ex2(red_m[w * ROWS + row] - mxw);
+        const float4 x = *reinterpret_cast<const float4*>(red + (w * ROWS + row) * RD + d);
+        lsum += red_l[w * ROWS + row] * f;
+        a.x += x.x * f;
+        a.y += x.y * f;
+        a.z += x.z * f;
+        a.w += x.w * f;
+      }
+    }
+    if (n_live == 1) {  // the tile's only live split: o directly
+      write_o4(row, d, a, lsum);
+    } else {
+      const long long pr = (tile_id * splits + split) * ROWS + row;
+      *reinterpret_cast<float4*>(part_acc + pr * D + d) = a;
+      if (d == 0) {
+        part_ml[2 * pr] = mxw;
+        part_ml[2 * pr + 1] = lsum;
+      }
+    }
+  }
+  if (n_live == 1) return;
+
+  // the last of the tile's live splits to get here merges them all, in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int taken = atomicAdd(tickets + tile_id, 1);
+    s_last = taken == n_live - 1;
+    if (s_last) tickets[tile_id] = 0;  // ready for the next call
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const long long p0 = tile_id * splits * ROWS;
+  if (tid < live_rows) {  // each row's factors, once
+    float ms[MQ_MAX_SPLITS], mxs = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MQ_MAX_SPLITS; ++j) {
+      ms[j] = j < n_live ? __ldcg(part_ml + 2 * (p0 + j * ROWS + tid)) : -INFINITY;
+      mxs = fmaxf(mxs, ms[j]);
+    }
+    float lsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < MQ_MAX_SPLITS; ++j) {
+      const float f = mxs == -INFINITY ? 0.f : ex2(ms[j] - mxs);
+      if (j < n_live) lsum += __ldcg(part_ml + 2 * (p0 + j * ROWS + tid) + 1) * f;
+      s_f[j][tid] = f;
+    }
+    s_l[tid] = lsum;
+  }
+  __syncthreads();
+  for (int it = tid; it < live_rows * (D / 4); it += NTHREADS) {
+    const int row = it / (D / 4), d = (it % (D / 4)) * 4;
+    float4 part[MQ_MAX_SPLITS];  // every split's load in flight at once, then summed in order
+#pragma unroll
+    for (int j = 0; j < MQ_MAX_SPLITS; ++j)
+      part[j] = j < n_live ? __ldcg(reinterpret_cast<const float4*>(
+                                 part_acc + (p0 + j * ROWS + row) * D + d))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < MQ_MAX_SPLITS; ++j) {
+      const float f = s_f[j][row];
+      a.x += part[j].x * f;
+      a.y += part[j].y * f;
+      a.z += part[j].z * f;
+      a.w += part[j].w * f;
+    }
+    write_o4(row, d, a, s_l[row]);
+  }
+}
+
+template <int D, int RW>
+int launch_multi(dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
+                 const uint16_t* v, const int* lens, uint16_t* o, float* part_ml,
+                 float* part_acc, int* tickets, int S, int T, int H, int Hkv, int splits,
+                 int split_chunks, long long q_sb, long long q_ss, long long q_sh,
+                 long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
+                 long long v_st, float scale_log2) {
+  // above 48 KB shared memory is dynamic and has to be asked for; the
+  // attribute belongs to the device the launch goes to, so it is set each time
+  const cudaError_t err = cudaFuncSetAttribute(decode_multi_kernel<D, RW>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               multi_smem_bytes<D>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_multi_kernel<D, RW><<<grid, NTHREADS, multi_smem_bytes<D>(), st>>>(
+      q, k, v, lens, o, part_ml, part_acc, tickets, S, T, H, Hkv, splits, split_chunks, q_sb,
+      q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_multi_d(int row_warps, dim3 grid, cudaStream_t st, const uint16_t* q,
+                   const uint16_t* k, const uint16_t* v, const int* lens, uint16_t* o,
+                   float* part_ml, float* part_acc, int* tickets, int S, int T, int H, int Hkv,
+                   int splits, int split_chunks, long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                   long long v_sh, long long v_st, float scale_log2) {
+#define TEOCHAT_MULTI_LAUNCH(RWV)                                                              \
+  return launch_multi<D, RWV>(grid, st, q, k, v, lens, o, part_ml, part_acc, tickets, S, T, H, \
+                              Hkv, splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st,   \
+                              v_sb, v_sh, v_st, scale_log2)
+  switch (row_warps) {
+    case 1: TEOCHAT_MULTI_LAUNCH(1);
+    case 2: TEOCHAT_MULTI_LAUNCH(2);
+    case 4: TEOCHAT_MULTI_LAUNCH(4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TEOCHAT_MULTI_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K2m. q: [B, S, H, D] (strides q_sb, q_ss, q_sh); k, v: [B, Hkv, T, D]
 // views through strides; lengths: [B, S] int32, contiguous, on the device;
-// o: contiguous [B, S, H, D]. Returns cudaGetLastError() after the launch.
+// o: contiguous [B, S, H, D]. A block takes 16 * row_warps (query, head)
+// rows of one kv head and split_chunks chunks of MQ_CHUNK slots (split s:
+// chunks s * split_chunks ...); the grid is (splits * row tiles, Hkv, B),
+// split-major, so that the first split's blocks, which hold the most live
+// slots, spread over the SMs; row tiles = ceil(S * H / Hkv / (16 *
+// row_warps)). Where splits > 1:
+// part_ml fp32 [B * Hkv * row tiles, splits, 16 * row_warps, 2], part_acc
+// fp32 [..., D], contents ignored; tickets int32 [B * Hkv * row tiles],
+// zero, and zero again when the launch has run (unread where splits is 1).
+// Returns cudaGetLastError() after the launch.
 extern "C" int teochat_decode_attention_multi(
     const void* q, const void* k, const void* v, const void* lengths, void* o,
-    int B, int S, int H, int Hkv, int T, int D,
+    void* part_ml, void* part_acc, void* tickets,
+    int B, int S, int H, int Hkv, int T, int D, int row_warps, int splits, int split_chunks,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv || T <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int group = H / Hkv;
-  const int G = group > MAX_G ? MAX_G : group;  // heads a block
-  if (group % G) return static_cast<int>(cudaErrorInvalidValue);
-  const int qt = MQ_PAIRS / G;
-  const dim3 grid((S + qt - 1) / qt, H / G, B);
+  if (Hkv <= 0 || H % Hkv || T <= 0 || S <= 0 || B <= 0 ||
+      (row_warps != 1 && row_warps != 2 && row_warps != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (T + MQ_CHUNK - 1) / MQ_CHUNK;
+  // the splits cover every chunk, and each split has one
+  if (splits < 1 || splits > MQ_MAX_SPLITS || split_chunks < 1 ||
+      static_cast<long long>(splits) * split_chunks < n_chunks ||
+      (splits - 1) * split_chunks >= n_chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 1 && (part_ml == nullptr || part_acc == nullptr || tickets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(S) * (H / Hkv), tile_rows = 16LL * row_warps;
+  const long long blocks_x = (rows + tile_rows - 1) / tile_rows * splits;
+  if (blocks_x > 0x7fffffffLL || Hkv > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks_x), Hkv, B);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const uint16_t*>(k);
   const auto* vp = static_cast<const uint16_t*>(v);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<uint16_t*>(o);
+  auto* ml = static_cast<float*>(part_ml);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* tk = static_cast<int*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
   if (D == 128)
-    return launch_multi_d<128>(G, grid, st, qp, kp, vp, lp, op, S, T, H, Hkv, q_sb, q_ss, q_sh,
-                               k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+    return launch_multi_d<128>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T, H, Hkv,
+                               splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
+                               v_sh, v_st, scale_log2);
   if (D == 64)
-    return launch_multi_d<64>(G, grid, st, qp, kp, vp, lp, op, S, T, H, Hkv, q_sb, q_ss, q_sh,
-                              k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+    return launch_multi_d<64>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T, H, Hkv,
+                              splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
+                              v_sh, v_st, scale_log2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -46,7 +46,7 @@ _SIGNATURES = {
         [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _P]
     ),
     "teochat_decode_attention_multi": (
-        [_P] * 5 + [_I] * 6 + [_LL] * 9 + [_F, _P]
+        [_P] * 8 + [_I] * 9 + [_LL] * 9 + [_F, _P]
     ),
     "teochat_int4_matmul": [_P] * 4 + [_I] * 4 + [_LL, _I, _P, _P, _P],
     "teochat_int4_matmul_tiled": [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _P, _P, _P],

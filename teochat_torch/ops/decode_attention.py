@@ -20,11 +20,14 @@ K2m, the kernel's multi-query form (`decode_attention_multi`, the same
 t < lengths[b, s]. A session's suffix prefill runs it over the committed
 cache (models/llama.py, `spec_verify`); on the TPU this was XLA's masked
 attention under `slot <= q_slot & kv_mask`, and `query_lengths` turns that
-mask into `lengths` where kv_mask is a prefix of each row. One block takes
-a tile of queries and walks the row's slots in chunks of MULTI_CHUNK up to
-the tile's largest length, with an online softmax:
-`decode_attention_multi_schedule` is that walk in plain PyTorch. It needs
-no workspace and no tickets.
+mask into `lengths` where kv_mask is a prefix of each row. Its rows are
+(query, head) pairs of one kv head, 16 a warp on `mma.sync`; a block takes
+16 * row_warps rows and walks the slots in chunks of MULTI_CHUNK, the
+4 / row_warps warps of a row group each taking its share of a chunk. When
+the row tiles are few, the slots are also split across blocks, merged in
+split order by the tile's last block (a workspace and tickets, as K2's).
+`multi_plan` picks row_warps and the splits from the shapes alone, and
+`decode_attention_multi_schedule` is the walk in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -42,8 +45,12 @@ HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
 CHUNK = 64  # cache slots a block of the kernel takes
 MAX_HEADS_A_BLOCK = 8
-MULTI_CHUNK = 32  # K2m: cache slots a chunk of its walk (MQ_SLOTS in the .cu)
-MULTI_PAIRS = 32  # K2m: (query, head) pairs a block (MQ_PAIRS in the .cu)
+MULTI_CHUNK = 64  # K2m: cache slots a chunk of its ring (MQ_CHUNK in the .cu)
+MULTI_WARPS = 4  # K2m: warps a block (MQ_WARPS); 16 (query, head) rows a row group
+MULTI_ROW_WARPS = (1, 2, 4)  # row groups a block, the kernel's instantiations
+MULTI_MIN_SPLIT_CHUNKS = 4  # K2m: no split of the slots is shorter than this many chunks
+MULTI_MAX_SPLITS = 16  # nor are there more splits than this (MQ_MAX_SPLITS)
+LOG2E = 1.4426950408889634
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
@@ -215,49 +222,99 @@ def decode_attention_multi_plain(q, k_cache, v_cache, lengths, *, scale=None) ->
                            scale=scale)
 
 
-def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, scale=None,
-                                    chunk: int = MULTI_CHUNK,
-                                    pairs: int = MULTI_PAIRS) -> torch.Tensor:
+def multi_plan(b: int, s: int, h: int, hkv: int, t: int, sms: int):
+    """K2m's launch from the shapes alone (never the lengths, which stay on
+    the device): (row_warps, splits, split_chunks).
+
+    A block takes 16 * row_warps (query, head) rows of one kv head: the
+    fewest row groups that hold a kv head's S * G rows, at most 4, then
+    fewer while the tiles (B * Hkv * row tiles) are fewer than half the SMs
+    (on an H100 at S 128, 128 tiles of 32 rows beat 256 of 16 and 64 of 64).
+    While even the smallest tiles leave the SMs idle, the T / MULTI_CHUNK
+    chunks are split across blocks until there is about one block an SM
+    (on an H100 one beat two), each split at least MULTI_MIN_SPLIT_CHUNKS chunks long,
+    at most MULTI_MAX_SPLITS of them; split j takes chunks
+    [j * split_chunks, (j + 1) * split_chunks)."""
+    rows = s * (h // hkv)
+    rw = 4 if rows > 32 else 2 if rows > 16 else 1
+    while rw > 1 and 2 * b * hkv * -(-rows // (16 * rw)) < sms:
+        rw //= 2
+    tiles = b * hkv * -(-rows // (16 * rw))
+    n_chunks = -(-t // MULTI_CHUNK)
+    splits = max(1, min(sms // tiles, n_chunks // MULTI_MIN_SPLIT_CHUNKS, MULTI_MAX_SPLITS))
+    split_chunks = -(-n_chunks // splits)
+    return rw, -(-n_chunks // split_chunks), split_chunks
+
+
+def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, sms: int,
+                                    scale=None) -> torch.Tensor:
     """K2m's walk in plain PyTorch, fp32 statistics.
 
-    As in csrc/decode_attention.cu: a block takes `pairs` (query, head)
-    pairs, `pairs / G` queries of a group of G = min(H / Hkv, 8) heads, and
-    walks the slots in chunks of `chunk` up to the tile's largest length;
-    each chunk rescales the running (m, l, acc) of every pair to the new
-    maximum and adds the chunk's live slots; o = acc / l, and 0 where l is 0
-    (a query of length 0). q [B, S, H, D]; k_cache, v_cache [B, Hkv, T, D];
-    lengths [B, S]."""
+    As in csrc/decode_attention.cu, with `multi_plan`'s launch for `sms`
+    SMs: the rows of kv head hk are (query r // G, head hk * G + r % G); a
+    tile of 16 * row_warps rows walks the chunks of MULTI_CHUNK slots of
+    each split up to the tile's longest length, and each of the
+    MULTI_WARPS / row_warps warps of a row group keeps its own running
+    (m, l, acc) over its share of every chunk. Scores are in base-2 units,
+    a slot at or past a row's length is masked, P is rounded to v's dtype
+    before P V (bf16 on the card; fp32 inputs stay exact). The warps'
+    partials are merged in warp order, then the splits' in split order; o =
+    acc / l, and 0 where l is 0 (a query of length 0). q [B, S, H, D];
+    k_cache, v_cache [B, Hkv, T, D]; lengths [B, S]."""
     b, s, h, d = q.shape
     hkv, t = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
     if scale is None:
         scale = d ** -0.5
-    g = min(h // hkv, MAX_HEADS_A_BLOCK)
-    qt = pairs // g
-    kf = k_cache.float().repeat_interleave(h // hkv, dim=1)  # [B, H, T, D]
-    vf = v_cache.float().repeat_interleave(h // hkv, dim=1)
-    lens = lengths.to(q.device).long().clamp(0, t)
-    out = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
-    for s0 in range(0, s, qt):
-        qs = q[:, s0:s0 + qt].float()  # [B, Q, H, D]
-        ls = lens[:, s0:s0 + qt]  # [B, Q]
-        m = torch.full(qs.shape[:3], float("-inf"), device=q.device)  # [B, Q, H]
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(qs)
-        for c0 in range(0, int(ls.max()), chunk):
-            slot = torch.arange(c0, min(c0 + chunk, t), device=q.device)
-            sc = torch.einsum("bqhd,bhtd->bqht", qs, kf[:, :, c0:c0 + chunk]) * scale
-            live = (slot[None, None, :] < ls[..., None])[:, :, None, :]  # [B, Q, 1, C]
-            sc = torch.where(live, sc, float("-inf"))
-            m_new = torch.maximum(m, sc.amax(-1))
-            alpha = torch.where(m_new.isinf(), 1.0, torch.exp(m - m_new))
-            p = torch.where(live, torch.exp(sc - torch.where(m_new.isinf(), 0.0, m_new)[..., None]),
-                            0.0)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bqht,bhtd->bqhd", p,
-                                                        vf[:, :, c0:c0 + chunk])
-            m = m_new
-        out[:, s0:s0 + qt] = torch.where(l[..., None] == 0, 0.0,
-                                         acc / torch.where(l == 0, 1.0, l)[..., None])
+    c2 = scale * LOG2E
+    rw, splits, split_chunks = multi_plan(b, s, h, hkv, t, sms)
+    rows_t, sw = 16 * rw, MULTI_WARPS // rw
+    ns = MULTI_CHUNK // sw
+    n_rows = s * g
+    tiles = -(-n_rows // rows_t)
+    pad = tiles * rows_t - n_rows
+    # [B, Hkv, tiles, rows_t, D]: row r of kv head hk is query r // G, head hk * G + r % G
+    qr = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(b, hkv, n_rows, d)
+    qr = torch.nn.functional.pad(qr, (0, 0, 0, pad)).reshape(b, hkv, tiles, rows_t, d)
+    lens = lengths.to(q.device).long().clamp(0, t).repeat_interleave(g, dim=1)  # [B, n_rows]
+    tile_max = torch.nn.functional.pad(lens, (0, pad)).reshape(b, tiles, rows_t).amax(-1)
+    lens = torch.nn.functional.pad(lens, (0, pad)).reshape(b, 1, tiles, rows_t, 1)
+    c_end = -(-tile_max // MULTI_CHUNK)  # [B, tiles] chunks a tile walks
+    kf, vf = k_cache.float(), v_cache.float()
+    m = torch.full((b, hkv, tiles, splits, sw, rows_t), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*m.shape, d), device=q.device)
+    for c in range(int(c_end.max()) if c_end.numel() else 0):
+        j = c // split_chunks
+        taken = (c < c_end)[:, None, :, None]  # [B, 1, tiles, 1]
+        for w in range(sw):
+            t0 = c * MULTI_CHUNK + w * ns
+            if t0 >= t:
+                break
+            t1 = min(t0 + ns, t)
+            sc = torch.einsum("bktrd,bkjd->bktrj", qr, kf[:, :, t0:t1]) * c2
+            sc = torch.where(torch.arange(t0, t1, device=q.device) < lens, sc, float("-inf"))
+            m_old = m[:, :, :, j, w]
+            m_new = torch.maximum(m_old, sc.amax(-1))
+            alpha = torch.where(m_new.isinf(), 1.0, torch.exp2(m_old - m_new))
+            p = torch.exp2(sc - torch.where(m_new.isinf(), 0.0, m_new)[..., None])
+            l_new = l[:, :, :, j, w] * alpha + p.sum(-1)
+            acc_new = acc[:, :, :, j, w] * alpha[..., None] + torch.einsum(
+                "bktrj,bkjd->bktrd", p.to(v_cache.dtype).float(), vf[:, :, t0:t1])
+            m[:, :, :, j, w] = torch.where(taken, m_new, m_old)
+            l[:, :, :, j, w] = torch.where(taken, l_new, l[:, :, :, j, w])
+            acc[:, :, :, j, w] = torch.where(taken[..., None], acc_new, acc[:, :, :, j, w])
+
+    def merge(m, l, acc, dim):  # partials along `dim`, in order, against their largest m
+        mx = m.amax(dim, keepdim=True)
+        f = torch.where(m.isinf(), 0.0, torch.exp2(m - torch.where(mx.isinf(), 0.0, mx)))
+        return mx.squeeze(dim), (l * f).sum(dim), (acc * f[..., None]).sum(dim)
+
+    m, l, acc = merge(m, l, acc, 4)  # the warps of a row group
+    m, l, acc = merge(m, l, acc, 3)  # the splits
+    out = torch.where(l[..., None] == 0, 0.0, acc / torch.where(l == 0, 1.0, l)[..., None])
+    out = out.reshape(b, hkv, tiles * rows_t, d)[:, :, :n_rows]
+    out = out.reshape(b, hkv, s, g, d).permute(0, 2, 1, 3, 4).reshape(b, s, h, d)
     return out.to(q.dtype)
 
 
@@ -283,10 +340,18 @@ def _multi_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    rw, splits, split_chunks = multi_plan(b, s, h, hkv, t, _build.sm_count(q.device))
+    part_ml = part_acc = tickets = None
+    if splits > 1:
+        tiles = b * hkv * -(-s * (h // hkv) // (16 * rw))
+        part_ml = torch.empty((tiles, splits, 16 * rw, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((tiles, splits, 16 * rw, d), dtype=torch.float32, device=q.device)
+        tickets = _build.tickets_for(q.device, tiles)
     _build.launch(
         "teochat_decode_attention_multi", q,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, t, d,
+        *(x.data_ptr() if x is not None else None for x in (part_ml, part_acc, tickets)),
+        b, s, h, hkv, t, d, rw, splits, split_chunks,
         q.stride(0), q.stride(1), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

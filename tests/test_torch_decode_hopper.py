@@ -104,16 +104,63 @@ def test_module_chunk_is_the_kernels():
 
 
 def test_multi_query_walk_sizes_are_the_kernels():
-    """K2m's walk (`decode_attention_multi_schedule`) takes the kernel's
-    chunk of slots and pairs a block, and the kernel needs no workspace or
-    tickets: its C entry takes q, k, v, lengths and o alone."""
+    """K2m's walk (`decode_attention_multi_schedule`) and plan (`multi_plan`)
+    take the kernel's chunk, warps and row-group counts; the kernel reads
+    its slots through a `cp.async` ring into `mma.sync` tiles, launches once
+    a call, and its C entry takes the plan, the workspace and the tickets as
+    `_build._SIGNATURES` declares them."""
     source = (Path(dec_mod._build.CSRC) / "decode_attention.cu").read_text()
-    assert int(re.search(r"constexpr int MQ_SLOTS = (\d+);", source).group(1)) == dec_mod.MULTI_CHUNK
-    nwarps = int(re.search(r"constexpr int NWARPS = (\d+);", source).group(1))
-    per_warp = int(re.search(r"constexpr int MQ_WARP_PAIRS = (\d+);", source).group(1))
-    assert nwarps * per_warp == dec_mod.MULTI_PAIRS == 32  # one pair's length a lane of warp 0
+    k2m = source[source.index("// ---------------------------------------------------------------- K2m"):]
+    assert int(re.search(r"constexpr int MQ_CHUNK = (\d+);", k2m).group(1)) == dec_mod.MULTI_CHUNK
+    assert re.search(r"constexpr int MQ_WARPS = NWARPS;", k2m)
+    assert int(re.search(r"constexpr int MQ_MAX_SPLITS = (\d+);", k2m).group(1)) == \
+        dec_mod.MULTI_MAX_SPLITS
+    assert int(re.search(r"constexpr int NWARPS = (\d+);", source).group(1)) == dec_mod.MULTI_WARPS
+    assert int(re.search(r"constexpr int MQ_STAGES = (\d+);", k2m).group(1)) >= 2  # a ring
+    cases = re.findall(r"case (\d+): TEOCHAT_MULTI_LAUNCH\((\d+)\);", k2m)
+    assert [(int(a), int(b)) for a, b in cases] == [(r, r) for r in dec_mod.MULTI_ROW_WARPS]
+    kernel = k2m[k2m.index("decode_multi_kernel("):k2m.index("template <int D, int RW>\nint launch_multi(")]
+    assert "mma_16816(" in kernel and "ldsm_x4_t(" in kernel
+    assert "cp_async16(" in kernel and "cp_async_wait<MQ_STAGES - 2>()" in kernel
+    assert "fmaf(" not in kernel  # no FMA products left
+    assert "atomicAdd(tickets + tile_id, 1)" in kernel  # the splits merged in the launch
+    assert k2m.count("<<<") == 1
     entry = source[source.index('extern "C" int teochat_decode_attention_multi('):]
     entry = entry[:entry.index(")")]
-    assert "tickets" not in entry and "part_" not in entry
+    assert "tickets" in entry and "part_ml" in entry and "split_chunks" in entry
     assert len(dec_mod._build._SIGNATURES["teochat_decode_attention_multi"]) == \
         entry.count(",") + 1
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_multi_plan_is_bounded_and_covers_every_slot(sms):
+    """`multi_plan` over verify blocks, suffixes and GQA shapes: splits
+    cover every chunk of T, none shorter than MULTI_MIN_SPLIT_CHUNKS (but
+    where T has fewer chunks than that), taken only while the tiles are no
+    more than the SMs, so the workspace holds at most one tile of partials
+    an SM; a tile's rows never exceed 16 per warp of a row group."""
+    for b in (1, 3, 8):
+        for s in (1, 2, 5, 9, 17, 100, 128, 512, 1024, 4096):
+            for h, hkv in ((32, 32), (32, 8), (32, 2)):
+                for t in (1, 63, 64, 700, 4096):
+                    rw, splits, split_chunks = dec_mod.multi_plan(b, s, h, hkv, t, sms)
+                    assert rw in dec_mod.MULTI_ROW_WARPS
+                    tiles = b * hkv * -(-s * (h // hkv) // (16 * rw))
+                    n_chunks = -(-t // dec_mod.MULTI_CHUNK)
+                    assert (splits - 1) * split_chunks < n_chunks <= splits * split_chunks
+                    assert splits <= dec_mod.MULTI_MAX_SPLITS
+                    if splits > 1:
+                        assert tiles <= sms and split_chunks >= dec_mod.MULTI_MIN_SPLIT_CHUNKS
+                        assert tiles * splits <= sms
+                    if rw > 1:
+                        assert 2 * tiles >= sms and s * (h // hkv) > 16 * rw // 2
+
+
+def test_multi_plan_at_the_7b_shapes():
+    """The picks on an H100 (132 SMs), batch 1, 32 heads, T 4096: a verify
+    block or a short suffix splits the slots 4 ways (32 tiles of 16 rows),
+    a text turn's S 128 takes 32-row tiles (128 of them) and no split, S
+    512 and up 64-row tiles and no split."""
+    plan = {s: dec_mod.multi_plan(1, s, 32, 32, 4096, 132) for s in (1, 2, 5, 9, 128, 512, 1024)}
+    assert plan == {1: (1, 4, 16), 2: (1, 4, 16), 5: (1, 4, 16), 9: (1, 4, 16),
+                    128: (2, 1, 64), 512: (4, 1, 64), 1024: (4, 1, 64)}

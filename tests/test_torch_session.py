@@ -66,18 +66,12 @@ def _jax_cached_attention(q, k, v, q_slots, kv_mask):
                                     mask=jnp.asarray(mask)))
 
 
-@pytest.mark.parametrize("h,hkv,d,t,start", [
-    (4, 4, 64, 80, 0),  # a start of 0: the suffix is the whole conversation
-    (4, 2, 64, 100, 31),  # group 2; the suffix straddles the first chunk's end
-    (8, 2, 128, 130, 64),  # group 4, D 128; the suffix starts on a chunk's edge
-    (16, 1, 64, 90, 33),  # group 16: two blocks of 8 heads
-])
-def test_multi_query_attention_matches_jax(h, hkv, d, t, start):
-    """K2m's plain version and its walk against the JAX masked attention on a
-    session's suffix: S queries at slots start, start + 1, ... with the last
-    ones padded to the trash slot t - 1, kv_mask the prefix start + live."""
-    rs = np.random.RandomState(h * 100 + start)
-    b, s, live = 2, 37, np.array([37, 30])
+def _suffix_against_jax(b, s, h, hkv, d, t, start, live, seed, sms=132):
+    """K2m's plain version and walk (for `sms` SMs) against the JAX masked
+    attention on a session's suffix: S queries at slots start, start + 1,
+    ... with the last ones padded to the trash slot t - 1, kv_mask the
+    prefix start + live."""
+    rs = np.random.RandomState(seed)
     q = rs.randn(b, s, h, d).astype(np.float32)
     k = rs.randn(b, t, hkv, d).astype(np.float32)
     v = rs.randn(b, t, hkv, d).astype(np.float32)
@@ -92,9 +86,41 @@ def test_multi_query_attention_matches_jax(h, hkv, d, t, start):
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     plain = dec_mod.decode_attention_multi(tq, tk.transpose(1, 2), tv.transpose(1, 2), lengths)
     walk = dec_mod.decode_attention_multi_schedule(tq, tk.transpose(1, 2), tv.transpose(1, 2),
-                                                   lengths)
+                                                   lengths, sms=sms)
     np.testing.assert_allclose(plain.numpy(), want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(walk.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("h,hkv,d,t,start", [
+    (4, 4, 64, 80, 0),  # a start of 0: the suffix is the whole conversation
+    (4, 2, 64, 100, 31),  # group 2; the suffix straddles the first chunk's end
+    (8, 2, 128, 130, 64),  # group 4, D 128; the suffix starts on a chunk's edge
+    (16, 1, 64, 90, 33),  # group 16: a row tile of one query's 16 heads
+])
+def test_multi_query_attention_matches_jax(h, hkv, d, t, start):
+    """K2m's plain version and its walk against the JAX masked attention on a
+    session's suffix: S queries at slots start, start + 1, ... with the last
+    ones padded to the trash slot t - 1, kv_mask the prefix start + live."""
+    _suffix_against_jax(2, 37, h, hkv, d, t, start, np.array([37, 30]), h * 100 + start)
+
+
+@pytest.mark.parametrize("s,h,hkv,d,t,start,sms,plan", [
+    (2, 4, 4, 64, 1100, 1000, 132, (1, 4, 5)),  # a verify block (k = 1) over a long cache
+    (9, 8, 2, 128, 900, 880, 132, (1, 3, 5)),  # k = 8, group 4
+    (9, 4, 2, 64, 700, "edge", 132, (1, 2, 6)),  # lengths ragged across the split's edge
+    (37, 4, 4, 64, 600, 500, 16, (4, 2, 5)),  # 64-row tiles, two splits (a card of 16 SMs)
+    (20, 4, 4, 64, 600, 300, 16, (2, 2, 5)),  # 32-row tiles; the suffix across the split's edge
+])
+def test_multi_query_walk_splits_match_jax(s, h, hkv, d, t, start, sms, plan):
+    """K2m's walk where it splits the slots across blocks (`multi_plan`'s
+    pick for these shapes and `sms` SMs: row_warps, splits, split_chunks),
+    merging the splits' partials in split order, against the JAX masked
+    attention; row 1 of the batch has fewer live queries."""
+    b = 2
+    assert dec_mod.multi_plan(b, s, h, hkv, t, sms) == plan
+    if start == "edge":  # the first live lengths below the second split's first slot, the rest past it
+        start = plan[2] * dec_mod.MULTI_CHUNK - 4
+    _suffix_against_jax(b, s, h, hkv, d, t, start, np.array([s, s // 2]), s * 10 + h, sms)
 
 
 def test_multi_query_walk_writes_a_query_of_length_zero_as_zero():
@@ -102,7 +128,7 @@ def test_multi_query_walk_writes_a_query_of_length_zero_as_zero():
     q, k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32))
                for shape in ((1, 3, 4, 64), (1, 4, 40, 64), (1, 4, 40, 64)))
     lengths = torch.tensor([[0, 1, 40]], dtype=torch.int32)
-    walk = dec_mod.decode_attention_multi_schedule(q, k, v, lengths)
+    walk = dec_mod.decode_attention_multi_schedule(q, k, v, lengths, sms=132)
     plain = dec_mod.decode_attention_multi_plain(q, k, v, lengths)
     assert walk[0, 0].abs().sum() == 0
     torch.testing.assert_close(walk[0, 1:], plain[0, 1:], rtol=RTOL, atol=ATOL)
