@@ -4,6 +4,8 @@
                                  [--chunks 1 2 4 8]
     python3 chip_probe.py decode-ttft [--root DIR] [--quant int8 int4] [--reps 9]
     python3 chip_probe.py decode-paths [--turns 3]
+    python3 chip_probe.py spec [--quant int8 int4] [--batches 1 4] [--ks 1 2 ... 8]
+                               [--rates 0.75 0.5 0.25] [--chunks 1 2 4] [--reps 3]
     python3 chip_probe.py parity [--seeds 0 1] [--layers 32 4] [--pairs auto:plain ...]
     python3 chip_probe.py k1
     python3 chip_probe.py k2m [--root DIR] [--sweep]
@@ -55,6 +57,20 @@ another checkout, so two trees can be timed in one session on one card.
   smoke's 2-frame request through `TEOChat.generate` and of the bench's
   decode set-up, in turns, so that the two can be told from the host's
   spread.
+- spec: prompt-lookup speculative decoding on the bench's decode set-up (the
+  2-frame prompt of 640 fused tokens on stand-in embeddings, a random
+  LLaMA-7B decoder from seed 0, greedy, never stopping), its text a cycle
+  of five ids, for each weight format of --quant, batch of --batches and k
+  of --ks: ms per verify iteration (the graphed loop's generates of 33 and
+  17 tokens, their difference over their difference in iterations;
+  medians of --reps) beside the plain graphed step measured the same way,
+  and tokens an iteration for the model's own greedy targets, for an
+  oracle that continues the cycle (every verbatim draft accepted) and for
+  that oracle with drafts corrupted to each keep rate of --rates; the peak
+  memory. `--chunks` then times, at batch 1 and k 4 on the first format,
+  each SPEC_CHUNK (iterations between two host reads of `done`): a
+  generate of 33 tokens that never stops and one whose oracle lets it end
+  after 7 iterations.
 - parity: one 7B-width training micro-step (the smoke's parity batch) under
   each attention of a pair, for each seed and decoder depth: the loss
   difference and the gradients' relative L2, overall and for the worst
@@ -267,6 +283,118 @@ def cmd_decode(smoke, args):
                 live = len(graphs())
                 print(f"[decode] the set-up deleted: {live} decode graphs live, allocated "
                       f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+
+def cmd_spec(smoke, args):
+    from teochat_torch.bench import main as bench_main
+    from teochat_torch.checkpoint import bridge
+    from teochat_torch.constants import IMAGE_TOKEN_INDEX
+    from teochat_torch.models import fusion as fusion_mod
+    from teochat_torch.models import generation as gen_mod
+
+    st = bench_main.Settings(seed=smoke.SEED)
+    cfg, dev, n_new, n_half = st.cfg, st.dev, 33, 17
+    cycle = [100, 101, 102, 103, 104]
+    text = (cycle * st.text_tokens)[:st.text_tokens]
+    ids = [1] + [IMAGE_TOKEN_INDEX, 7] * 2 + text
+    stop = gen_mod.StopSpec(keyword_ids=np.zeros((1, 1), np.int32),
+                            keyword_lens=np.zeros((1,), np.int32), eos_id=-1)
+
+    def median_wall(fn, reps):
+        return statistics.median(smoke.wall(fn)[1] for _ in range(reps))
+
+    for quant in args.quant:
+        torch.cuda.reset_peak_memory_stats()
+        llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant=quant)
+        for b in args.batches:
+            plan = fusion_mod.build_fusion_plan([ids] * b, tokens_per_frame=st.tokens_per_frame,
+                                                pad_to=st.prompt_len)
+            embeds = torch.from_numpy(
+                (np.random.RandomState(1).randn(b, st.prompt_len, cfg.llm.hidden_size) * 0.02)
+                .astype(np.float32)).to(dev, st.dtype)
+            lens, mask, pos = (torch.as_tensor(a, device=dev)
+                               for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
+            pids, plens = np.asarray([ids] * b, np.int32), np.full(b, len(ids), np.int32)
+            first = len(text) % len(cycle)  # the oracle continues the history's cycle
+            oracle = np.asarray([[cycle[(first + i) % len(cycle)] for i in range(n_new)]] * b,
+                                np.int32)
+
+            def spec(k, n, **kw):
+                if "oracle_ids" in kw:
+                    kw["oracle_ids"] = kw["oracle_ids"][:, :n]
+                return gen_mod.generate_tokens_spec(
+                    llm, cfg.llm, embeds, lens, mask, pos, pids, plens, stop,
+                    torch.Generator(device=dev).manual_seed(0), max_new_tokens=n,
+                    cache_len=st.prompt_len + n + k + 1, spec_k=k, **kw)
+
+            def plain(n):
+                return gen_mod.generate_tokens(
+                    llm, cfg.llm, embeds, lens, mask, pos, stop, st.generator(),
+                    max_new_tokens=n, temperature=0.0, do_sample=False,
+                    cache_len=st.prompt_len + n + 1)
+
+            with torch.no_grad():
+                for n in (n_half, n_new):
+                    plain(n)
+                t_half, t_full = (median_wall(lambda: plain(n), args.reps) for n in (n_half, n_new))
+                print(f"[spec] {quant} bs {b}: plain graphed step "
+                      f"{(t_full - t_half) / (n_new - n_half) * 1e3:.3f} ms (generates of "
+                      f"{n_new} and {n_half} tokens: medians {t_full * 1e3:.2f} / "
+                      f"{t_half * 1e3:.2f} ms of {args.reps})", flush=True)
+                gen_mod.clear_decode_graphs()
+                for k in args.ks:
+                    for n in (n_half, n_new):
+                        spec(k, n)  # the captures
+                    t_half, t_full = (median_wall(lambda: spec(k, n), args.reps)
+                                      for n in (n_half, n_new))
+                    s_half, s_full = (int(spec(k, n)[2]) for n in (n_half, n_new))
+                    ms = (t_full - t_half) / max(s_full - s_half, 1) * 1e3
+                    line = (f"[spec] {quant} bs {b} k {k}: {ms:.3f} ms a verify iteration "
+                            f"({s_full} and {s_half} iterations in generates of {t_full * 1e3:.2f} "
+                            f"/ {t_half * 1e3:.2f} ms); tokens an iteration: own targets "
+                            f"{n_new / s_full:.3f}")
+                    knobs = [("oracle", dict(oracle_ids=oracle))] + [
+                        (f"keep {p}", dict(oracle_ids=oracle, draft_keep_prob=p))
+                        for p in args.rates]
+                    for name, kw in knobs:
+                        tokens, _, steps, accepted = spec(k, n_new, **kw)
+                        if not np.array_equal(tokens.cpu().numpy(), oracle):
+                            sys.exit(f"[spec] {quant} bs {b} k {k} {name}: not the oracle's tokens")
+                        line += (f", {name} {n_new / int(steps):.3f} (acceptance "
+                                 f"{int(accepted) / (b * int(steps) * k):.3f})")
+                    print(line, flush=True)
+                    gen_mod.clear_decode_graphs()
+            if args.chunks and b == 1 and quant == args.quant[0]:
+                _spec_chunk_sweep(smoke, gen_mod, spec, oracle, n_new, args, quant)
+        print(f"[spec] {quant}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB", flush=True)
+        del llm
+        gen_mod.clear_decode_graphs()
+        torch.cuda.empty_cache()
+
+
+def _spec_chunk_sweep(smoke, gen_mod, spec, oracle, n_new, args, quant):
+    """SPEC_CHUNK of --chunks in turn, interleaved over --reps rounds, at k 4
+    on the batch-1 set-up: a generate of n_new tokens that never stops
+    (the model's own targets: n_new iterations) and one that ends after
+    ceil(n_new / 5) iterations (the oracle, every draft accepted)."""
+    saved, never, early = gen_mod.SPEC_CHUNK, defaultdict(list), defaultdict(list)
+    try:
+        with torch.no_grad():
+            spec(4, n_new)
+            spec(4, n_new, oracle_ids=oracle)
+            for _ in range(args.reps):
+                for c in args.chunks:
+                    gen_mod.SPEC_CHUNK = c
+                    never[c].append(smoke.wall(lambda: spec(4, n_new))[1])
+                    early[c].append(smoke.wall(lambda: spec(4, n_new, oracle_ids=oracle))[1])
+    finally:
+        gen_mod.SPEC_CHUNK = saved
+    for c in args.chunks:
+        print(f"[spec] {quant} k 4 SPEC_CHUNK {c}: never stopping {_spread(never[c])}, ending "
+              f"after {-(-n_new // 5)} iterations {_spread(early[c])} (of {args.reps})",
+              flush=True)
+    gen_mod.clear_decode_graphs()
 
 
 def _spread(seconds) -> str:
@@ -1669,7 +1797,8 @@ def cmd_int8_proj(smoke, args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("decode", "decode-ttft", "decode-paths", "parity", "k1", "k2m", "k4", "k1k4a",
+    for name in ("decode", "decode-ttft", "decode-paths", "spec", "parity", "k1", "k2m", "k4",
+                 "k1k4a",
                  "k4bc", "k3k5", "k3",
                  "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj"):
         p = sub.add_parser(name)
@@ -1707,6 +1836,14 @@ def main():
                            choices=["int8", "int4"])
         if name == "decode-paths":
             p.add_argument("--turns", type=int, default=3)
+        if name == "spec":
+            p.add_argument("--quant", nargs="+", default=["int8", "int4"],
+                           choices=["int8", "int4"])
+            p.add_argument("--batches", type=int, nargs="+", default=[1, 4])
+            p.add_argument("--ks", type=int, nargs="+", default=list(range(1, 9)))
+            p.add_argument("--rates", type=float, nargs="*", default=[0.75, 0.5, 0.25])
+            p.add_argument("--chunks", type=int, nargs="*", default=[])
+            p.add_argument("--reps", type=int, default=3)
         if name == "parity":
             p.add_argument("--seeds", type=int, nargs="+", default=[0])
             p.add_argument("--layers", type=int, nargs="+", default=[32])
@@ -1715,7 +1852,8 @@ def main():
     smoke = _import_tree(args.root)
     smoke.phase_device()
     smoke.phase_build()
-    {"decode": cmd_decode, "decode-ttft": cmd_decode_ttft, "decode-paths": cmd_decode_paths, "parity": cmd_parity, "k1": cmd_k1,
+    {"decode": cmd_decode, "decode-ttft": cmd_decode_ttft, "decode-paths": cmd_decode_paths,
+     "spec": cmd_spec, "parity": cmd_parity, "k1": cmd_k1,
      "k2m": cmd_k2m, "k4": cmd_k4, "k1k4a": cmd_k1k4a, "k4bc": cmd_k4bc, "k3k5": cmd_k3k5, "k3": cmd_k3,
      "k5k2": cmd_k5k2,
      "s1s2": cmd_s1s2, "s1-ring": cmd_s1_ring,

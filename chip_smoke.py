@@ -39,7 +39,20 @@ them. Phases, each printing its lines before the last:
    2-frame greedy request and the batch of four: the same tokens and
    launch counts; the largest difference of the last logits; ms/step both
    ways, the captures' seconds, the replays, the peak memory), and a
-   capture that fails (a host read planted in the step) must raise;
+   capture that fails (a host read planted in the step) must raise; then
+   prompt-lookup speculative decoding (`phase_spec`): greedy at k = 4 and 8
+   on the 2-frame request and the batch of four through TEOChat.generate,
+   the replayed verify graph against the eager loop (the same tokens,
+   steps, accepted and launches; K2m num_layers times a verify iteration, K2
+   never), a planted host read in the verify iteration failing its capture,
+   each greedy token within SPEC_GAP_TOL of its position's largest logit in
+   a teacher-forced prefill of the prompt and the emitted tokens (and where
+   the spec tokens first leave the plain greedy ones), `generate_tokens_spec`
+   with the bench's oracle on the `detection` and `regionqa` workloads (the
+   oracle's 64 tokens exactly; tokens an iteration, acceptance, tok/s), a
+   sampled run (t 0.8) giving the eager loop's tokens from the same seed,
+   and ms a verify iteration at k = 1, 4, 7, 8 beside the plain graphed
+   step, tok/s, captures and the peak memory;
 8. the prefill logits of that model with the int4 kernels against the same
    forward on the plain `int4_proj`;
 9. one request through a 4-layer decoder at 7B width with 2 kv heads and
@@ -65,23 +78,26 @@ them. Phases, each printing its lines before the last:
     `eval()` must give that answer again; a second `eval()` with no model
     and no dataset must read its JSON and return the same metrics;
 11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
-    must launch; the graph against the eager loop as in 7; then the
-    last-position prefill logits of the 2-frame request with the kernels
-    against the same forward on the plain attention;
+    must launch; the graph against the eager loop and speculative decoding
+    as in 7; then the last-position prefill logits of the 2-frame request
+    with the kernels against the same forward on the plain attention;
 12. the chat server on that loaded model: the port's `ChatServer` on
     127.0.0.1 and an ephemeral port, in the background; over HTTP session
-    "a" takes three greedy turns of 32 tokens (two base64 PNG frames of
+    "a" takes four greedy turns of 32 tokens (two base64 PNG frames of
     non-square sizes with timestamps; text only; a frame whose timestamp
     sorts before the others, so the committed prefix changes from the first
-    frame on), session "b" one turn between a's first two; then /reset of
-    "a" and /stats. Each turn's last-position prefill logits in the session
-    against a stateless prefill of the same conversation (relative L2 <=
-    5e-2), its tokens against a stateless generate's (printed: random 7B
-    weights have near-ties); K1 and K5 must launch on a first turn, K2m on
-    a's second and third, K2 on every turn; the session caches' GiB, the
-    decode graph captures (one a session) and the peak; then, from fresh
-    sessions, turn 2's time to first token beside a stateless re-prefill of
-    the whole conversation and the session's decode ms/step;
+    frame on; text with `"speculative_k": 4`, its tokens held to a
+    teacher-forced prefill as in 7), session "b" one turn between a's first
+    two; then /reset of "a" and /stats (a's spec_steps and spec_accepted).
+    Each turn's last-position prefill logits in the session against a
+    stateless prefill of the same conversation (relative L2 <= 5e-2), its
+    tokens against a stateless generate's (printed: random 7B weights have
+    near-ties); K1 and K5 must launch on a first turn, K2m on a's later
+    turns, K2 on every turn but the spec turn (K2m alone); the session
+    caches' GiB, the decode graph captures (one a session, and a's spec
+    graph) and the peak; then, from fresh sessions, turn 2's time to first
+    token beside a stateless re-prefill of the whole conversation and the
+    session's decode ms/step;
 13. `load_pretrained_model(path, load_int4=True)` from the same directory:
     one 2-frame request of uint8 frames (K3b and K3c must launch); the
     directory is then removed, and after each model is deleted no decode
@@ -124,7 +140,8 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 The line before the last is a JSON object with each of the nineteen
 kernel rows' launches, error, times and bound (K3c has two: its wrapper runs
 the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
-are the chat server's four turns); the last line is
+are the chat server's five turns, the spec turn's verify blocks among
+them); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -198,6 +215,15 @@ K2M_REL_MAX = 1e-2
 K2M_WALK_REL_MAX = 5e-3
 # ||logits(kernels) - logits(plain)|| / ||logits(plain)|| after 32 bf16 layers
 LOGITS_REL_L2_BOUND = 5e-2
+# A greedy token of the speculative path against one teacher-forced prefill
+# of the prompt and the emitted tokens: its distance from its position's
+# largest logit, in rms units of that position's logits. Two correct bf16
+# paths differ by up to LOGITS_REL_L2_BOUND of the logits' norm, ~5e-2 rms
+# an element; the largest of 32,000 such differences is ~4.5 of that, and a
+# token the other path picks can sit below the maximum by two of them (read
+# on an H100: up to 7.2e-2 at int4, 5.2e-2 at int8), while the largest of
+# 32,000 normal logits stands ~4 above a typical one
+SPEC_GAP_TOL = 0.5
 # The flash backward rounds P and dS to bf16 before its products and writes
 # bf16 gradients (8 bits: 2^-9 relative rounding on each of many terms):
 # each gradient is held to GRAD_REL_L2 of its norm and its largest error to
@@ -959,6 +985,218 @@ def phase_failed_capture(model, ids, frames):
     gen_mod.clear_decode_graphs()
 
 
+# ------------------------------------------------------ speculative decoding
+
+@contextlib.contextmanager
+def spec_loop(graphed):
+    """Route TEOChat.generate's speculative decode to the replayed CUDA graph
+    (True) or to the eager loop on the card (False), through the module's
+    private helper."""
+    saved = gen_mod.generate_tokens_spec
+
+    def run(*args, **kwargs):
+        return gen_mod._generate_tokens_spec(*args, **kwargs, graphed=graphed)[:4]
+
+    gen_mod.generate_tokens_spec = run
+    try:
+        yield
+    finally:
+        gen_mod.generate_tokens_spec = saved
+
+
+def teacher_forced_gaps(model, ids, frames, out):
+    """Each emitted token's distance from its position's largest logit, in
+    rms units of that position's logits, in one plain prefill of the prompt
+    and the emitted tokens (as the stateless path runs it: K1). Greedy
+    tokens of a correct path sit at 0 up to the noise between two bf16
+    paths (SPEC_GAP_TOL)."""
+    cfg = model.cfg
+    full = list(ids) + list(out)
+    tpf = model.tokens_per_frame
+    fused = len(full) + sum(t == IMAGE_TOKEN_INDEX for t in full) * (tpf - 1)
+    pad_to = teochat_mod.round_to_bucket(fused, teochat_mod.SEQ_BUCKETS)
+    plan = fusion_mod.build_fusion_plan([full], tokens_per_frame=tpf, pad_to=pad_to,
+                                        max_length=cfg.tokenizer_model_max_length)
+    vision = model.encode(frames)
+    embeds = teochat_mod.multimodal_embeds(model.params, cfg, plan, vision)
+    pos = torch.as_tensor(plan.position_ids, device="cuda")
+    mask = torch.as_tensor(plan.attention_mask, device="cuda")
+    cache = llama_mod.init_cache(cfg.llm, 1, pad_to + 1, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        logits = llama_mod.llama_forward(model.params["llm"], cfg.llm, embeds, position_ids=pos,
+                                         cache=cache, write_slots=torch.where(mask, pos, pad_to),
+                                         logits_mode="all")[0]
+    n, end = len(out), int(plan.seq_lens[0]) - 1
+    rows = logits[end - n:end]  # the positions that predict each emitted token
+    tok = torch.as_tensor(out, device="cuda")[:, None]
+    gaps = (rows.max(-1).values - rows.gather(1, tok)[:, 0]) / rows.std(-1)
+    return gaps.tolist(), rows.argmax(-1).tolist()
+
+
+def _first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_spec(model, tokenizer, processor, ids, frames, tag):
+    """Prompt-lookup speculative decoding on this model, through
+    TEOChat.generate and generate_tokens_spec: the replayed graph against
+    the eager loop, a capture with a planted host read, greedy correctness
+    against a teacher-forced prefill, the oracle workloads, a sampled run,
+    and the times (see the module's docstring, phase 7 and 11)."""
+    cfg = model.cfg
+    n_layers = cfg.llm.num_layers
+    batch_ids, batch_frames = ragged_batch(tokenizer, processor)
+    gen_mod.clear_decode_graphs()
+    torch.cuda.reset_peak_memory_stats()
+
+    def greedy(k, n=16, stops=("</s>",)):
+        return GenerationConfig(max_new_tokens=n, temperature=0.0, do_sample=False,
+                                stop_strings=stops, speculative_k=k)
+
+    # the replayed graph against the eager loop: tokens, counters, launches
+    for k in (4, 8):
+        for name, args in (("2-frame", ([ids], frames)), ("batch", (batch_ids, batch_frames))):
+            runs = {}
+            for graphed in (False, True):
+                with spec_loop(graphed):
+                    out, counts = counted(f"{tag} spec k {k} {name} graphed={graphed}",
+                                          lambda: model.generate(*args, greedy(k)))
+                runs[graphed] = (out, dict(model.last_spec_stats), counts)
+            (want, want_stats, want_counts), (out, stats, counts) = runs[False], runs[True]
+            iterations = counts["K2m"] / n_layers
+            log(f"[{tag} spec] k {k} {name}: graph tokens "
+                f"{'equal' if out == want else 'DIFFER from'} the eager loop's "
+                f"({[len(r) for r in out]} a row); stats graph {stats} eager {want_stats}; "
+                f"{iterations:g} verify iterations run")
+            check(out == want and stats == want_stats,
+                  f"{tag} spec k {k} {name}: the graph's tokens or counters differ")
+            check(counts == want_counts, f"{tag} spec k {k} {name}: launches {counts} against "
+                  f"the eager loop's {want_counts}")
+            check(counts["K2m"] % n_layers == 0 and
+                  stats["steps"] <= iterations < stats["steps"] + gen_mod.SPEC_CHUNK,
+                  f"{tag} spec k {k} {name}: K2m {counts['K2m']} is not {n_layers} a verify "
+                  f"iteration over {stats['steps']} steps")
+            check(counts["K2"] == 0, f"{tag} spec k {k} {name}: a single-query step ran {counts}")
+
+    # a capture with a host read planted in the iteration raises
+    hit = gen_mod._keyword_hit
+
+    def reads_back(window, keyword_ids, keyword_lens):
+        out = hit(window, keyword_ids, keyword_lens)
+        out.any().item()
+        return out
+
+    gen_mod.clear_decode_graphs()
+    gen_mod._keyword_hit = reads_back
+    try:
+        model.generate([ids], frames, greedy(4, 6))
+    except RuntimeError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+    else:
+        raised = None
+    finally:
+        gen_mod._keyword_hit = hit
+    log(f"[{tag} spec] a capture with a host read in the verify iteration: "
+        f"{raised or 'did NOT raise'}")
+    check(raised is not None and gen_mod.decode_graphs()[0].graph is None,
+          f"{tag} spec: a failed capture did not raise, or left a graph")
+    gen_mod.clear_decode_graphs()
+
+    # greedy correctness at 7B: each emitted token against a teacher-forced prefill
+    plain = model.generate([ids], frames, greedy(0, 32, ()))[0]
+    for k in (4, 8):
+        out = model.generate([ids], frames, greedy(k, 32, ()))[0]
+        gaps, argmax = teacher_forced_gaps(model, ids, frames, out)
+        worst = max(gaps)
+        log(f"[{tag} spec] k {k} greedy, 32 tokens: {model.last_spec_stats}; each token's gap "
+            f"to its position's largest logit in a teacher-forced prefill, in rms units of the "
+            f"logits: largest {worst:.3e} (bound {SPEC_GAP_TOL}), {sum(g > 0 for g in gaps)} "
+            f"of {len(gaps)} not the prefill's argmax; the spec tokens first leave the plain "
+            f"greedy tokens at {_first_difference(out, plain)}")
+        check(worst <= SPEC_GAP_TOL, f"{tag} spec k {k}: a token {worst} rms below its "
+              f"position's largest logit")
+
+    # the oracle workloads: the emitted tokens are the oracle's, and the times
+    vision = model.encode(frames)
+    table, rows = {}, {}
+    for wname, (ptext, rtext) in bench_main._SPEC_WORKLOADS.items():
+        wids = [1] + [IMAGE_TOKEN_INDEX, 7] * 2 + bench_main._eo_tokenize(ptext, table)[:123]
+        rtoks = bench_main._eo_tokenize(rtext, table)[:64]
+        rows[wname] = (wids, np.asarray([rtoks], np.int32))
+    stop = gen_mod.StopSpec(keyword_ids=np.zeros((1, 1), np.int32),
+                            keyword_lens=np.zeros((1,), np.int32), eos_id=-1)
+    spec_k, results = 8, {}
+
+    def oracle_run(wids, oracle, n_new):
+        plan = fusion_mod.build_fusion_plan([wids], tokens_per_frame=model.tokens_per_frame,
+                                            pad_to=640)
+        emb = teochat_mod.multimodal_embeds(model.params, cfg, plan, vision)
+        lens, mask, pos = (torch.as_tensor(a, device="cuda")
+                           for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
+        return gen_mod.generate_tokens_spec(
+            model.params["llm"], cfg.llm, emb, lens, mask, pos, np.asarray([wids], np.int32),
+            np.asarray([len(wids)], np.int32), stop, torch.Generator(device="cuda"),
+            max_new_tokens=n_new, cache_len=640 + n_new + spec_k + 1, spec_k=spec_k,
+            oracle_ids=oracle[:, :n_new])
+
+    for wname, (wids, oracle) in rows.items():
+        tokens, n_gen, steps, accepted = oracle_run(wids, oracle, 64)
+        steps, accepted = int(steps), int(accepted)
+        check(tokens.tolist() == oracle.tolist() and int(n_gen[0]) == 64,
+              f"{tag} spec {wname}: the emitted tokens are not the oracle's")
+        t_one = statistics.median(wall(lambda: oracle_run(wids, oracle, 1))[1] for _ in range(3))
+        t_w = statistics.median(wall(lambda: oracle_run(wids, oracle, 64))[1] for _ in range(3))
+        results[wname] = (64 / steps, accepted / (steps * spec_k), 63 / (t_w - t_one))
+        log(f"[{tag} spec] oracle {wname} (k {spec_k}, 64 tokens): the oracle's tokens exactly; "
+            f"{steps} verify iterations, {accepted} drafts accepted: {64 / steps:.3f} tokens an "
+            f"iteration, acceptance {accepted / (steps * spec_k):.3f}; "
+            f"{63 / (t_w - t_one):.2f} tok/s (generate of 64 tokens {t_w * 1e3:.2f} ms, of 1 "
+            f"{t_one * 1e3:.2f} ms; medians of 3)")
+
+    # a sampled run: the graph and the eager loop draw the same tokens from one seed
+    sampled = GenerationConfig(max_new_tokens=16, temperature=0.8, do_sample=True,
+                               stop_strings=(), speculative_k=4)
+    runs = {}
+    for graphed in (False, True):
+        with spec_loop(graphed):
+            runs[graphed] = (model.generate(batch_ids, batch_frames, sampled, rng=SEED + 5),
+                             dict(model.last_spec_stats))
+    log(f"[{tag} spec] sampled (t 0.8, k 4, batch of 4): graph "
+        f"{'equals' if runs[True] == runs[False] else 'DIFFERS from'} the eager loop "
+        f"({runs[True][1]}, {[len(r) for r in runs[True][0]]} tokens a row)")
+    check(runs[True] == runs[False], f"{tag} spec: sampled graph and eager loop differ")
+
+    # ms per verify iteration by k beside the plain graphed step (2-frame, bs 1)
+    times = {}
+    for k in (0, 1, 4, 7, 8):
+        g1, g33 = greedy(k, 1, ()), greedy(k, 33, ())
+        model.generate([ids], frames, g33)  # the capture
+        t1, tn = [], []
+        for _ in range(3):
+            t1.append(wall(lambda: model.generate([ids], frames, g1))[1])
+            out, sec = wall(lambda: model.generate([ids], frames, g33))
+            tn.append(sec)
+        steps = model.last_spec_stats["steps"] if k else len(out[0])
+        dt = statistics.median(tn) - statistics.median(t1)
+        times[k] = (dt / max(steps - 1, 1) * 1e3, (len(out[0]) - 1) / dt, len(out[0]) / steps)
+    entries = gen_mod.decode_graphs()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag} spec] 2-frame bs1, 33 tokens (medians of 3 generates of 1 and 33): ms a "
+        f"verify iteration, tok/s, tokens an iteration: "
+        + "; ".join(f"{'plain step' if k == 0 else f'k {k}'} {ms:.3f} ms, {tok_s:.2f} tok/s, "
+                    f"{per:.3f}" for k, (ms, tok_s, per) in times.items())
+        + f"; oracle workloads at k {spec_k}: "
+        + ", ".join(f"{w} {tok_s:.2f} tok/s ({per:.3f} tokens an iteration, acceptance "
+                    f"{acc:.3f}) against plain {times[0][1]:.2f}"
+                    for w, (per, acc, tok_s) in results.items())
+        + f"; {len(entries)} graphs live, captured in "
+        f"{', '.join(f'{e.capture_seconds:.3f}' for e in entries if e.graph is not None)} s; "
+        f"peak allocated {peak:.3f} GiB")
+    gen_mod.clear_decode_graphs()
+    return times, results
+
+
 @contextlib.contextmanager
 def plain_int4():
     """Route every int4 product to its plain version, also on the card."""
@@ -1360,6 +1598,7 @@ def phase_int4_path(gen, tokenizer):
     check(counts["K5"] % vit_layers == 0, f"K5 per encode {counts}")
     phase_decode_graph(model, tokenizer, processor, ids, frames, "int4")
     phase_failed_capture(model, ids, frames)
+    phase_spec(model, tokenizer, processor, ids, frames, "int4")
     phase_logits(model, ids, frames, compare="int4")
     k3a_counts = phase_k3a_path(cfg, gen, tokenizer, processor)
     return counts, k3a_counts
@@ -1670,14 +1909,19 @@ def phase_server(model, tokenizer, image_processor):
     non-square sizes with timestamps; text only; a frame whose timestamp
     sorts before the others, which changes the committed prefix from the
     first frame on), session "b" one turn between a's first and second;
-    then /reset of "a" and /stats. Each turn's last-position prefill logits
-    in the session against a stateless prefill of the same conversation
-    (relative L2 <= LOGITS_REL_L2_BOUND) and its 32 tokens against a
-    stateless generate's; K1 and K5 must launch on a first turn, K2m on a's
-    second and third, K2 on every turn. Then, from fresh sessions, turn 2's
-    time to first token beside a stateless re-prefill of the whole
-    conversation and the session's decode ms/step. Returns K2m's launches
-    over the four HTTP turns."""
+    then a fourth turn of "a" with `"speculative_k": 4`; then /reset of "a"
+    and /stats. Each turn's last-position prefill logits in the session
+    against a stateless prefill of the same conversation (relative L2 <=
+    LOGITS_REL_L2_BOUND) and its 32 tokens against a stateless generate's
+    (the spec turn's: each token within SPEC_GAP_TOL of its position's
+    largest logit in a teacher-forced prefill, and beside a stateless
+    generate with speculative_k 4); K1 and K5 must launch on a first turn,
+    K2m on a's later turns, K2 on every turn but the spec turn, whose
+    verify iterations run K2m alone; /stats must count a's spec_steps and
+    spec_accepted. Then, from fresh sessions, turn 2's time to first token
+    beside a stateless re-prefill of the whole conversation and the
+    session's decode ms/step. Returns K2m's launches over the five HTTP
+    turns."""
     from teochat_torch.serve import session as session_mod
     from teochat_torch.serve.chat import Chat
     from teochat_torch.serve.server import ChatServer
@@ -1687,12 +1931,14 @@ def phase_server(model, tokenizer, image_processor):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     rs = np.random.RandomState(SEED + 2)
-    turns = [  # (session, prompt, frames as (size, timestamp))
+    turns = [  # (session, prompt, frames as (size, timestamp), speculative_k)
         ("a", "What changed between these images?",
-         [(SERVE_FRAME_SIZES[0], "2019-05-01"), (SERVE_FRAME_SIZES[1], "2019-09-01")]),
-        ("b", "Describe the land use in this image.", [(SERVE_FRAME_SIZES[3], "2020-01-01")]),
-        ("a", "Where are the damaged buildings? Answer with bounding boxes.", []),
-        ("a", "And compared with this earlier image?", [(SERVE_FRAME_SIZES[2], "2018-12-01")]),
+         [(SERVE_FRAME_SIZES[0], "2019-05-01"), (SERVE_FRAME_SIZES[1], "2019-09-01")], 0),
+        ("b", "Describe the land use in this image.", [(SERVE_FRAME_SIZES[3], "2020-01-01")], 0),
+        ("a", "Where are the damaged buildings? Answer with bounding boxes.", [], 0),
+        ("a", "And compared with this earlier image?", [(SERVE_FRAME_SIZES[2], "2018-12-01")],
+         0),
+        ("a", "Repeat the bounding boxes of the damaged buildings.", [], 4),
     ]
     seen, captures = [], [0]
     generate, prefill_full, prefill_suffix = (session_mod.ChatSession.generate,
@@ -1725,10 +1971,10 @@ def phase_server(model, tokenizer, image_processor):
     port = server._httpd.server_address[1]
     k2m = http_captures = 0
     try:
-        for i, (sid, prompt, frames) in enumerate(turns):
+        for i, (sid, prompt, frames, spec_k) in enumerate(turns):
             payload = {"prompt": prompt, "images": [_png_b64(rs, size) for size, _ in frames],
                        "timestamps": [ts for _, ts in frames], "temperature": 0.0,
-                       "max_new_tokens": 32, "session_id": sid}
+                       "max_new_tokens": 32, "session_id": sid, "speculative_k": spec_k}
             for counter in INFERENCE_COUNTERS.values():
                 counter.reset()
             before = captures[0]
@@ -1741,10 +1987,21 @@ def phase_server(model, tokenizer, image_processor):
             stateless = _stateless_prefill_logits(model, turn["ids"], turn["frames"])
             got = turn["logits"]
             rel = ((got - stateless).norm() / stateless.norm()).item()
-            with decode_loop(False):  # the eager loop: no graph entry of its own
+            with decode_loop(False), spec_loop(False):  # eager: no graph entry of its own
                 want = model.generate([turn["ids"]], turn["frames"], turn["gen"])[0]
             agree = sum(a == b for a, b in zip(turn["out"], want))
             stats = dict(turn["session"].stats)
+            if spec_k:
+                gaps, _ = teacher_forced_gaps(model, turn["ids"], turn["frames"], turn["out"])
+                log(f"[serve] turn {i} (speculative_k {spec_k}): each token's gap to its "
+                    f"position's largest logit in a teacher-forced prefill: largest "
+                    f"{max(gaps):.3e} rms (bound {SPEC_GAP_TOL}); the session's tokens first "
+                    f"leave a stateless generate's (speculative_k {spec_k}) at "
+                    f"{_first_difference(turn['out'], want)}")
+                check(max(gaps) <= SPEC_GAP_TOL, f"turn {i}: a spec token {max(gaps)} rms "
+                      f"below its position's largest logit")
+                check(stats.get("spec_steps", 0) >= 1 and "spec_accepted" in stats,
+                      f"turn {i}: the session counted no verify iteration {stats}")
             log(f"[serve] turn {i} session {sid!r} ({len(frames)} new frames): HTTP {code} in "
                 f"{sec:.3f} s; prefill {turn['prefill']} of {len(turn['ids'])} tokens (session "
                 f"{stats}); logits vs a stateless prefill: rel L2 {rel:.3e} (bound "
@@ -1753,12 +2010,16 @@ def phase_server(model, tokenizer, image_processor):
                 f"({len(turn['out'])} from the session); launches {counts}; "
                 f"answer={answer['response'][:80]!r}")
             check(rel <= LOGITS_REL_L2_BOUND, f"turn {i}: session logits rel L2 {rel}")
-            check(counts["K2"] > 0, f"turn {i}: no decode step ran {counts}")
+            if spec_k:  # the suffix prefill's K2m a layer, then the verify iterations'
+                check(counts["K2"] == 0 and counts["K2m"] >= 2 * model.cfg.llm.num_layers,
+                      f"turn {i}: no verify iteration ran {counts}")
+            else:
+                check(counts["K2"] > 0, f"turn {i}: no decode step ran {counts}")
             if turn["prefill"] == "full":
                 check(i in (0, 1) and counts["K1"] > 0 and counts["K5"] > 0,
                       f"turn {i}: a first turn without K1 and K5 {counts}")
             else:
-                check(i in (2, 3) and counts["K2m"] > 0,
+                check(i in (2, 3, 4) and counts["K2m"] > 0,
                       f"turn {i}: a later turn without K2m {counts}")
                 check((counts["K5"] > 0) == (i == 3), f"turn {i}: frames encoded {counts}")
             k2m += counts["K2m"]
@@ -1768,19 +2029,22 @@ def phase_server(model, tokenizer, image_processor):
         live = len(gen_mod.decode_graphs())
         del caches
         log(f"[serve] session caches {', '.join(f'{k}: {v:.3f} GiB' for k, v in sizes.items())}; "
-            f"{http_captures} decode graph captures over the four turns, {live} graphs live; "
+            f"{http_captures} decode graph captures over the five turns, {live} graphs live; "
             f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
             f"({held / 2**30:.3f} GiB held before the phase)")
-        check(set(sizes) == {"a", "b"} and http_captures == 2 and live == 2,
+        # a plain graph for a and b, a spec graph for a: each over its session's cache
+        check(set(sizes) == {"a", "b"} and http_captures == 3 and live == 3,
               f"sessions {sorted(sizes)}, captures {http_captures}, graphs {live}")
         check(_http(port, "/reset", {"session_id": "a"}) == (200, {"status": "reset"}), "reset")
         code, stats = _http(port, "/stats")
         log(f"[serve] after /reset of 'a': {len(gen_mod.decode_graphs())} graphs live; "
             f"/stats {stats}")
         check(server._sessions["a"]._session.cache is None and
-              len(gen_mod.decode_graphs()) == live - 1, "reset dropped a's cache and its graph")
-        check(code == 200 and stats["sessions"]["b"]["turns"] == 1
-              and stats["sessions"]["a"]["turns"] == 3, f"/stats {stats}")
+              len(gen_mod.decode_graphs()) == live - 2, "reset dropped a's cache and its graphs")
+        a_stats = stats["sessions"]["a"]
+        check(code == 200 and stats["sessions"]["b"]["turns"] == 1 and a_stats["turns"] == 4
+              and a_stats["spec_steps"] >= 1 and a_stats["spec_accepted"] >= 0
+              and "spec_steps" not in stats["sessions"]["b"], f"/stats {stats}")
     finally:
         server.shutdown()
         session_mod.ChatSession.generate = generate
@@ -2018,6 +2282,7 @@ def main():
         check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
               f"int8 path launches {int8_counts}")
         phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main")
+        phase_spec(model, hf_tokenizer, processor, ids, frames, "main")
         phase_logits(model, ids, frames)
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         gen_mod.clear_decode_graphs()

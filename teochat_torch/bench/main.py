@@ -12,6 +12,15 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
   roofline keys `decode_effective_hbm_gbps`, `decode_pct_of_hbm_peak`;
 - decode_bs8 / decode_bs16: `decode_tokens_per_sec_bs8` / `_bs16`;
 - decode_int4: `decode_tokens_per_sec_int4` and its `_int4` roofline keys;
+- decode_spec: greedy decode with prompt-lookup speculation (k = 8) at batch
+  1: `decode_tokens_per_sec_spec_bs1`, `spec_iteration_s`, steps and tokens
+  a step; on the `_SPEC_WORKLOADS` (an oracle forces the target to a real
+  TEOChat answer) `decode_tokens_per_sec_spec_{w}`, `spec_acceptance_{w}`,
+  `spec_tokens_per_step_{w}`; with drafts corrupted to keep rates 0.75 /
+  0.5 / 0.25 `decode_tokens_per_sec_spec_bs1_acc{pct}` and
+  `spec_tokens_per_step_acc{pct}`;
+- ttft_turn2: `ttft_s_turn2_suffix64_over640` (a 64-token suffix prefilled
+  over a session cache holding 640 committed tokens, K2m over the cache);
 - e2e: `xbd_2frame_e2e_latency_s_32newtok` (encode 2 frames + prefill 640
   fused tokens + 32 new tokens);
 - train: `train_tokens_per_sec`, `train_mfu` (LoRA r128 over the int8
@@ -33,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -44,6 +54,7 @@ from teochat_torch.config import TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
+from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
 from teochat_torch.train import lora as lora_mod
 from teochat_torch.train import trainer as trainer_mod
@@ -60,6 +71,10 @@ class Settings:
     prompt_len: int = 640  # fused prompt: 2 frames and `text_tokens` + 3 text tokens, padded
     text_tokens: int = 123
     decode_new: int = 64
+    spec_k: int = 8
+    turn2_suffix: int = 64  # ttft_turn2: text tokens after the committed prompt_len
+    turn2_pad: int = 128
+    turn2_max_len: int = 1024
     e2e_new: int = 32
     enc_batch: int = 32
     enc_iters: int = 20
@@ -277,6 +292,165 @@ def phase_decode_int4(st: Settings) -> dict:
     }
 
 
+def _eo_tokenize(text, table):
+    """Deterministic LLaMA-like tokenization for the bench's workloads
+    (bench.py's): digits one token each, punctuation single, words whole
+    pieces with their leading space. Prompt-lookup acceptance depends only
+    on the sequence's n-gram self-similarity, which this keeps; `table` maps
+    piece -> id across calls, so prompt and answer share ids."""
+    ids = []
+    for piece in re.findall(r" ?[A-Za-z_-]+| ?\d| ?[^A-Za-z\d ]", text):
+        if piece not in table:
+            table[piece] = 100 + len(table)
+        ids.append(table[piece])
+    return ids
+
+
+# bench.py's TEOChat answer workloads, (prompt, answer): change detection's
+# bbox list (fresh coordinates, structure repeats: low acceptance) and
+# region QA, whose answer echoes the prompt's boxes and class names (high
+# acceptance). An oracle forces the greedy target to the answer.
+_SPEC_WORKLOADS = {
+    "detection": (
+        "This is a sequence of two satellite images. Identify all buildings"
+        " that were constructed between image 1 and image 2. Output the"
+        " bounding box of each new building.",
+        "[[306, 283, 338, 308], [312, 290, 341, 315], [118, 206, 141, 227],"
+        " [123, 212, 147, 231], [305, 117, 331, 139]]",
+    ),
+    "regionqa": (
+        "Here are two satellite images. What is the damage level of the"
+        " building at [306, 283, 338, 308] and of the building at"
+        " [118, 206, 141, 227]? Choose from: no-damage, minor-damage,"
+        " major-damage, destroyed. Answer with each bounding box followed"
+        " by its damage level.",
+        "The building at [306, 283, 338, 308] is classified as minor-damage."
+        " The building at [118, 206, 141, 227] is classified as no-damage."
+        " Overall, the area around [306, 283, 338, 308] shows minor-damage"
+        " to several structures.",
+    ),
+}
+
+
+def build_spec_setup(st: Settings):
+    """`run(n_new, keep_prob=None, workload=None)`: bench.py's decode_spec
+    request at batch 1 (the 2-frame prompt of `prompt_len` fused tokens on
+    stand-in embeddings, `spec_k` drafts, greedy, never stopping) through
+    `generate_tokens_spec`; `workload` names one of `_SPEC_WORKLOADS`, whose
+    prompt ids seed the history and whose answer is the oracle. Each call
+    draws from a generator seeded alike (the corruption of a keep rate is
+    the same every call). Returns (tokens, steps, accepted)."""
+    cfg, dev = st.cfg, st.dev
+    llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant="int8")
+    prompt_len, max_new, spec_k = st.prompt_len, st.decode_new, st.spec_k
+    embeds = torch.from_numpy(
+        (np.random.RandomState(1).randn(1, prompt_len, cfg.llm.hidden_size) * 0.02)
+        .astype(np.float32)).to(dev, st.dtype)
+    stop = _never_stop()
+    (base,) = st.prompt_ids(1)
+    width = len(base)
+
+    def row(ids, oracle=None):
+        plan = fusion_mod.build_fusion_plan([ids], tokens_per_frame=st.tokens_per_frame,
+                                            pad_to=prompt_len)
+        pids = np.full((1, width), -1, np.int32)
+        pids[0, :len(ids)] = ids
+        return (tuple(torch.as_tensor(a, device=dev)
+                      for a in (plan.seq_lens, plan.attention_mask, plan.position_ids)),
+                pids, np.asarray([len(ids)], np.int32), oracle)
+
+    rows, table = {None: row(base)}, {}
+    for name, (ptext, rtext) in _SPEC_WORKLOADS.items():
+        ptoks = _eo_tokenize(ptext, table)[:st.text_tokens]
+        rtoks = _eo_tokenize(rtext, table)
+        assert len(rtoks) >= max_new, (name, len(rtoks))
+        rows[name] = row([1] + [IMAGE_TOKEN_INDEX, 7] * 2 + ptoks,
+                         np.asarray([rtoks[:max_new]], np.int32))
+
+    def run(n_new: int, keep_prob=None, workload=None):
+        (seq_lens, mask, pos), pids, plen, oracle = rows[workload]
+        return gen_mod.generate_tokens_spec(
+            llm, cfg.llm, embeds, seq_lens, mask, pos, pids, plen, stop, st.generator(),
+            max_new_tokens=n_new, cache_len=prompt_len + n_new + spec_k + 1, spec_k=spec_k,
+            draft_keep_prob=keep_prob, oracle_ids=None if oracle is None else oracle[:, :n_new])
+
+    return run
+
+
+def phase_decode_spec(st: Settings) -> dict:
+    """Batch-1 greedy decode with prompt-lookup speculation (spec_k drafts a
+    verify iteration). Decode streams the weights, so a (k + 1)-token verify
+    iteration costs about one plain step, and tokens/s multiply by the
+    tokens an iteration records. The workloads' numbers (an oracle forces a
+    real answer's shape, the acceptance is measured) come first; the
+    synthetic run and the forced-acceptance curve are kept as references."""
+    max_new, spec_k = st.decode_new, st.spec_k
+    with torch.no_grad():
+        run = build_spec_setup(st)
+        last = {}
+
+        def timed(**kw):
+            def fn():
+                tokens, _, steps, accepted = run(max_new, **kw)
+                last["stats"] = (steps, accepted)
+                return tokens
+            t = _timing.timeit(fn, st.iters, st.dev)
+            return t, *(int(x) for x in last["stats"])
+
+        t_full, steps, _ = timed()
+        t_one = _timing.timeit(lambda: run(1)[0], st.iters, st.dev)
+        results = {
+            "decode_tokens_per_sec_spec_bs1": (max_new - 1) / (t_full - t_one),
+            "spec_iteration_s": (t_full - t_one) / max(steps - 1, 1),
+            f"spec_steps_for_{max_new}_tokens": steps,
+            "spec_mean_tokens_per_step": max_new / max(steps, 1),
+        }
+        # the workloads: one prefill + first token costs the same for all, so
+        # t_one is their baseline
+        for name in _SPEC_WORKLOADS:
+            t_w, steps_w, acc_w = timed(workload=name)
+            results[f"decode_tokens_per_sec_spec_{name}"] = (max_new - 1) / (t_w - t_one)
+            results[f"spec_acceptance_{name}"] = acc_w / max(steps_w * spec_k, 1)
+            results[f"spec_tokens_per_step_{name}"] = max_new / max(steps_w, 1)
+        # tok/s against a forced acceptance rate: the keep probability is a
+        # device scalar of the loop's state, so the three rates share one graph
+        for rate in (0.75, 0.5, 0.25):
+            t_r, steps_r, _ = timed(keep_prob=rate)
+            pct = int(rate * 100)
+            results[f"decode_tokens_per_sec_spec_bs1_acc{pct}"] = (max_new - 1) / (t_r - t_one)
+            results[f"spec_tokens_per_step_acc{pct}"] = max_new / max(steps_r, 1)
+    return results
+
+
+def phase_ttft_turn2(st: Settings) -> dict:
+    """Multi-turn TTFT: with `prompt_len` tokens committed in a session cache,
+    the next turn prefills only its `turn2_suffix` tokens (padded to
+    `turn2_pad`; K2m over the committed cache) instead of the whole
+    conversation: the suffix prefill + its last logits."""
+    cfg, dev = st.cfg, st.dev
+    committed, suffix, pad = st.prompt_len, st.turn2_suffix, st.turn2_pad
+    hidden = cfg.llm.hidden_size
+    with torch.no_grad():
+        llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant="int8")
+        cache = llama_mod.init_cache(cfg.llm, 1, st.turn2_max_len, dtype=st.dtype, device=dev)
+        emb1 = torch.from_numpy((np.random.RandomState(0).randn(1, committed, hidden) * 0.02)
+                                .astype(np.float32)).to(dev, st.dtype)
+        ar = torch.arange(committed, device=dev)[None]
+        gen_mod.prefill_full(llm, cfg.llm, cache, emb1, torch.full((1,), committed, device=dev),
+                             torch.ones((1, committed), dtype=torch.bool, device=dev), ar)
+        plan = fusion_mod.build_fusion_plan([list(range(10, 10 + suffix))],
+                                            tokens_per_frame=st.tokens_per_frame, pad_to=pad)
+        emb2 = torch.from_numpy((np.random.RandomState(1).randn(1, pad, hidden) * 0.02)
+                                .astype(np.float32)).to(dev, st.dtype)
+        start = torch.full((1,), committed, device=dev)
+        seq_lens, mask, pos = (torch.as_tensor(a, device=dev)
+                               for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
+        dt = _timing.timeit(lambda: gen_mod.prefill_suffix(llm, cfg.llm, cache, emb2, start,
+                                                           seq_lens, mask, pos)[0],
+                            5, dev)
+    return {f"ttft_s_turn2_suffix{suffix}_over{committed}": dt}
+
+
 def phase_e2e(st: Settings) -> dict:
     """2-frame encode + prefill + 32 new tokens, one process: end-to-end latency."""
     cfg, dev = st.cfg, st.dev
@@ -344,6 +518,8 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "decode_bs8": phase_decode_bs8,
     "decode_bs16": phase_decode_bs16,
     "decode_int4": phase_decode_int4,
+    "decode_spec": phase_decode_spec,
+    "ttft_turn2": phase_ttft_turn2,
     "e2e": phase_e2e,
     "train": phase_train,
 }
@@ -354,8 +530,6 @@ UNPORTED = {
     "decode_int4_fp8kv": "the fp8 KV cache, item 11",
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
-    "decode_spec": "speculative decoding, item 8",
-    "ttft_turn2": "the turn-2 phase over a ChatSession (the sessions are ported), item 8",
     "serve": "the serving engine, item 9",
     "ttft_prefix": "the serving engine's prefix cache, item 9",
     "ttft_prefix_curve": "the serving engine's prefix cache, item 9",

@@ -9,8 +9,8 @@ built), and the CLI (:180-199) with the reference's defaults (temperature
 0.2, max_new_tokens 256, conv v1, interleave strategy).
 
 Not ported yet: reading a split with `datasets.load_dataset` (pass the
-examples as `dataset=`) and `batch_size > 1` (ROADMAP item 10), speculative
-decoding (item 8); each raises where it is asked for.
+examples as `dataset=`) and `batch_size > 1` (ROADMAP item 10); each raises
+where it is asked for.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ def main(argv=None):
     parser.add_argument("--temperature", type=float, default=0.2)
     parser.add_argument("--max_new_tokens", type=int, default=256)
     parser.add_argument("--batch_size", type=int, default=1)
-    # prompt-lookup speculative decoding (not ported yet)
+    # prompt-lookup speculative decoding
     parser.add_argument("--speculative_k", type=int, default=0)
     parser.add_argument("--vision_path", type=str, default=None)
     args = parser.parse_args(argv)

@@ -5,8 +5,8 @@ rebuild of reference videollava/eval/inference.py): `replace_video_token`
 (:11-20), `run_inference_single` (:23-77), `extract_bboxes` (:80-85),
 `run_inference` (:88-137). `model` is a `teochat_torch.models.teochat.TEOChat`;
 `rng` is a torch.Generator on its device or an int seed. Not ported yet:
-`run_inference_batched` (batch_size > 1), speculative decoding and the
-`mm_use_im_start_end` wrap; each raises where it is asked for.
+`run_inference_batched` (batch_size > 1) and the `mm_use_im_start_end`
+wrap; each raises where it is asked for.
 """
 
 from __future__ import annotations

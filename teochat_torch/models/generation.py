@@ -2,10 +2,12 @@
 
 Port of teochat_tpu/models/generation.py (`StopSpec`, `make_stop_spec`,
 `_keyword_hit`, `sample_token`, `_filtered_logits`, `generate_tokens`,
-`_run_decode_loop`, and the session API `prefill_full`, `prefill_suffix`,
-`decode_with_cache`). The semantics are the JAX package's: tokens after a row
-stops are `pad_id`, `n_gen` counts up to and including the stop token, and
-the loop ends when every row is done.
+`_run_decode_loop`, the session API `prefill_full`, `prefill_suffix`,
+`decode_with_cache`, and prompt-lookup speculation `_ngram_match_start`,
+`_draft_lookup`, `_sample_excluding`, `generate_tokens_spec`,
+`_run_spec_decode_loop`, `decode_with_cache_spec`). The semantics are the
+JAX package's: tokens after a row stops are `pad_id`, `n_gen` counts up to
+and including the stop token, and the loop ends when every row is done.
 
 The JAX loop is one `lax.while_loop` on the device, with no host round trip
 a token. Here the loop's state is a set of fixed-shape device tensors
@@ -31,6 +33,18 @@ cache), `decode_with_cache` runs the same chunked loop over the caller's
 cache. Its graph entry is keyed by that cache's address and holds it only
 weakly: the entry goes when the session drops its cache, and dropping an
 entry never frees a session's cache.
+
+Speculation runs the same way. Its state (`SpecState`: the draft history,
+the carried logits, the rejected draft, device counters of iterations and
+accepted drafts, the bench's keep probability and oracle) is again a set of
+fixed-shape device tensors, and one iteration (`_spec_iteration`: JAX's
+`step_fn`) drafts k tokens by prompt lookup, verifies the block of k + 1 in
+one spec_verify forward (K2m over the cache) and records what it accepts,
+reading nothing back. The host reads `done.all()` once every SPEC_CHUNK
+iterations; an iteration after every row is done changes no token, n_gen,
+history or counter, so the chunks give the while_loop's counts. On the card
+the iteration replays from a CUDA graph (`DecodeGraph` is generic over the
+iteration it captures); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -55,6 +69,13 @@ from teochat_torch.utils import tree_leaves_with_path
 # of n tokens the sum is least near k = sqrt(2 n drain / step): measured on
 # the card, 2 for answers of ~32 tokens (PERF.md, Findings).
 DECODE_CHUNK = 2
+# Verify iterations between two host reads of `done` in the speculative loop.
+# The same trade as DECODE_CHUNK, but an iteration past the stop costs a
+# whole verify block: measured on an H100 at int8 bs 1, k 4, a request
+# that ends after 7 iterations took 244 ms at 1, 271 at 2, 276 at 4, and
+# one of 33 iterations 986 / 951 / 951 ms (`chip_probe.py spec --chunks`;
+# PERF.md, Findings).
+SPEC_CHUNK = 1
 MAX_DECODE_GRAPHS = 4  # live DecodeGraph entries; the least recently used goes first
 
 
@@ -367,6 +388,370 @@ def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
     return tokens, n_gen, cache
 
 
+# ----------------------------------------------- prompt-lookup speculation
+#
+# Greedy runs give the plain loop's tokens (drafts are accepted only where
+# they equal the model's own argmax), up to argmax ties between the
+# (k + 1)-token verify block and the 1-token step, which reduce in another
+# order. Sampled runs are exact speculative sampling against the point-mass
+# draft: the same distribution as plain sampling, other draws.
+
+
+def _ngram_match_start(hist: torch.Tensor, hist_len: torch.Tensor, n: int) -> torch.Tensor:
+    """The most recent earlier occurrence of each row's last n tokens.
+
+    hist [B, H] int32, hist_len [B]. Returns [B] int32: the index where the
+    continuation starts (match start + n), or -1 where the row has none."""
+    b, h = hist.shape
+    dev = hist.device
+    if h <= n:  # no room for a query and an earlier occurrence
+        return torch.full((b,), -1, dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+    idx = torch.arange(h - n + 1, device=dev)
+    m = torch.ones((b, h - n + 1), dtype=torch.bool, device=dev)
+    for j in range(n):
+        qj = hist[rows, (hist_len.long() - n + j).clamp(0, h - 1)]
+        m &= hist[:, j:h - n + 1 + j] == qj[:, None]
+    # not the query window itself, nor anything overlapping its end
+    m &= idx[None, :] <= (hist_len - n - 1)[:, None]
+    m &= (hist_len >= n + 1)[:, None]
+    best = torch.where(m, idx, -1).amax(dim=1)
+    return torch.where(best >= 0, best + n, -1).to(torch.int32)
+
+
+def _draft_lookup(hist: torch.Tensor, hist_len: torch.Tensor, k: int) -> torch.Tensor:
+    """Prompt-lookup drafts: the k tokens after the most recent earlier
+    occurrence of the last 3 tokens, else of the last 2. hist [B, H] holds
+    the prompt's text ids then the generated ids; pads and image sentinels
+    are negative and never match. A row with no match, or a draft past the
+    history's end, drafts 0 (a valid embedding index that verification
+    rejects or accepts on its merits). Returns [B, k] int32."""
+    h = hist.shape[1]
+    start3 = _ngram_match_start(hist, hist_len, 3)
+    start2 = _ngram_match_start(hist, hist_len, 2)
+    start = torch.where(start3 >= 0, start3, start2)
+    gidx = (start[:, None] + torch.arange(k, device=hist.device)[None, :]).clamp(0, h - 1)
+    d = torch.gather(hist, 1, gidx.long())
+    usable = (start >= 0)[:, None] & (gidx <= (hist_len - 1)[:, None]) & (d >= 0)
+    return torch.where(usable, d, 0).to(torch.int32)
+
+
+def _sample_excluding(logits: torch.Tensor, generator: torch.Generator, temperature: float,
+                      top_p: float, excluded: torch.Tensor) -> torch.Tensor:
+    """Sample from the temperature / top-p filtered distribution with the
+    mass of `excluded` [B] (-1: none) removed and the rest renormalized: the
+    residual of speculative rejection sampling against a point-mass draft.
+    logits [B, V] fp32 -> [B] int32."""
+    lf = _filtered_logits(logits, temperature, top_p)
+    vocab = torch.arange(lf.shape[-1], device=lf.device)
+    excl = (vocab[None, :] == excluded[:, None]) & (excluded >= 0)[:, None]
+    probs = torch.softmax(torch.where(excl, float("-inf"), lf), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+@dataclasses.dataclass
+class SpecState:
+    """The speculative loop's state: fixed-shape device tensors, updated in
+    place. `logits` are those after the last recorded token (the prefill's
+    before the first iteration), `rejected` the draft the last iteration's
+    chain stopped on by a sampled rejection (-1: none), `steps` the
+    iterations that found a row not done, `accepted` the drafts recorded."""
+
+    cache: llama_mod.KVCache
+    start_pos: torch.Tensor  # [B] int64: each row's cache slot for its first generated token
+    tokens: torch.Tensor  # [B, max_new_tokens] int32
+    n_gen: torch.Tensor  # [B] int32
+    hist: torch.Tensor  # [B, S_text + max_new_tokens] int32: the draft history
+    hist_len: torch.Tensor  # [B] int32
+    window: torch.Tensor  # [B, M] int32: the last M tokens, right-aligned
+    done: torch.Tensor  # [B] bool
+    logits: torch.Tensor  # [B, V] fp32
+    rejected: torch.Tensor  # [B] int32
+    steps: torch.Tensor  # [] int32
+    accepted: torch.Tensor  # [] int32
+    keyword_ids: torch.Tensor  # [K, M] int32
+    keyword_lens: torch.Tensor  # [K] int32
+    eos_id: torch.Tensor  # [] int32
+    keep_prob: Optional[torch.Tensor] = None  # [] fp32: the bench's draft corruption
+    oracle_ids: Optional[torch.Tensor] = None  # [B, max_new_tokens] int32: the bench's targets
+
+    @classmethod
+    def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape, hist_width: int,
+            *, draft_keep: bool = False, oracle: bool = False) -> "SpecState":
+        b, dev = cache.k.shape[1], cache.k.device
+
+        def buf(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return cls(cache=cache, start_pos=buf(b, torch.int64), tokens=buf((b, max_new_tokens)),
+                   n_gen=buf(b), hist=buf((b, hist_width)), hist_len=buf(b),
+                   window=buf((b, keyword_shape[1])), done=buf(b, torch.bool),
+                   logits=buf((b, vocab_size), torch.float32), rejected=buf(b), steps=buf(()),
+                   accepted=buf(()), keyword_ids=buf(keyword_shape),
+                   keyword_lens=buf(keyword_shape[:1]), eos_id=buf(()),
+                   keep_prob=buf((), torch.float32) if draft_keep else None,
+                   oracle_ids=buf((b, max_new_tokens)) if oracle else None)
+
+    def reset(self, start_pos, logits0, prompt_ids, prompt_id_lens, stop: StopSpec, pad_id: int,
+              keep_prob=None, oracle_ids=None) -> None:
+        """The state before the first iteration: generated tokens from slot
+        `start_pos` [B], `logits0` [B, V] the prompt's last logits, the
+        history seeded with `prompt_ids` [B, S_text] (negative past each
+        row's `prompt_id_lens`)."""
+        prompt_ids = torch.as_tensor(prompt_ids)
+        self.start_pos.copy_(torch.as_tensor(start_pos))
+        self.tokens.fill_(pad_id)
+        self.n_gen.zero_()
+        self.hist.fill_(-1)
+        self.hist[:, :prompt_ids.shape[1]].copy_(prompt_ids)
+        self.hist_len.copy_(torch.as_tensor(prompt_id_lens))
+        self.window.fill_(-1)
+        self.done.zero_()
+        self.logits.copy_(logits0)
+        self.rejected.fill_(-1)
+        self.steps.zero_()
+        self.accepted.zero_()
+        self.keyword_ids.copy_(torch.as_tensor(np.asarray(stop.keyword_ids)))
+        self.keyword_lens.copy_(torch.as_tensor(np.asarray(stop.keyword_lens)))
+        self.eos_id.fill_(int(stop.eos_id))
+        for name, value in (("keep_prob", keep_prob), ("oracle_ids", oracle_ids)):
+            held = getattr(self, name)
+            if (held is None) != (value is None):
+                raise ValueError(f"SpecState.reset: {name} given to a state made "
+                                 f"{'without' if held is None else 'with'} it")
+            if held is not None:
+                held.copy_(torch.as_tensor(value))
+
+
+def _spec_record(st: SpecState, tok: torch.Tensor, valid: torch.Tensor) -> None:
+    """Append `tok` [B] to the rows where `valid` [B] (JAX's `record`)."""
+    n_max, h_max = st.tokens.shape[1], st.hist.shape[1]
+    rows = torch.arange(tok.shape[0], device=tok.device)
+    t_idx = st.n_gen.clamp(max=n_max - 1).long()
+    st.tokens[rows, t_idx] = torch.where(valid, tok, st.tokens[rows, t_idx])
+    h_idx = st.hist_len.clamp(max=h_max - 1).long()
+    st.hist[rows, h_idx] = torch.where(valid, tok, st.hist[rows, h_idx])
+    shifted = torch.cat([st.window[:, 1:], tok[:, None]], dim=1)
+    st.window.copy_(torch.where(valid[:, None], shifted, st.window))
+    hit = (tok == st.eos_id) | _keyword_hit(st.window, st.keyword_ids, st.keyword_lens)
+    st.done.logical_or_(valid & hit)
+    st.n_gen.add_(valid.to(torch.int32))
+    st.hist_len.add_(valid.to(torch.int32))
+    st.done.logical_or_(st.n_gen >= n_max)
+
+
+def _spec_iteration(params, cfg, st: SpecState, generator, *, spec_k: int, temperature,
+                    do_sample, top_p, pad_id, emb_dtype, draft_keep: bool = False,
+                    oracle: bool = False) -> None:
+    """One verify iteration (JAX's `step_fn`), in place; reads nothing back.
+
+    tok0 comes from the carried logits (argmax; or sampled from the residual
+    past `rejected`), then k drafts by prompt lookup; the block [tok0,
+    drafts] is written at slots pos0 + j (clipped below the trash slot) and
+    verified in one spec_verify forward. Its queries attend `slot <= q_slot`:
+    JAX's mask also has `slot <= pos0 + k`, which every q_slot already meets,
+    so the forward takes no kv_mask and K2m's lengths are q_slot + 1 with no
+    host read. Draft j is accepted where every draft before it was and it
+    equals the target's argmax (greedy) or u < P(d_j) (sampled); the next
+    logits are the block's after the last recorded token."""
+    k = spec_k
+    b, n_max = st.tokens.shape
+    t_max = st.cache.max_len
+    dev = st.done.device
+    rows = torch.arange(b, device=dev)
+    sampling = do_sample and temperature > 0.0
+    st.steps.add_((~st.done).any().to(torch.int32))
+    if sampling:
+        tok0 = _sample_excluding(st.logits, generator, temperature, top_p, st.rejected)
+    else:
+        tok0 = torch.argmax(st.logits, dim=-1).to(torch.int32)
+        if oracle:  # the bench's target sequence where it has a token
+            o0 = st.oracle_ids[rows, st.n_gen.clamp(max=n_max - 1).long()]
+            tok0 = torch.where(o0 >= 0, o0, tok0)
+    tok0 = torch.where(st.done, pad_id, tok0)
+    pos0 = st.start_pos + st.n_gen  # the cache slot of tok0
+    _spec_record(st, tok0, ~st.done)
+    drafts = _draft_lookup(st.hist, st.hist_len, k)
+    if draft_keep:  # the bench's acceptance knob: a draft + 1 never equals its target
+        u = torch.rand(drafts.shape, generator=generator, device=dev)
+        drafts = torch.where(u < st.keep_prob, drafts, (drafts + 1) % cfg.vocab_size)
+
+    blk = torch.cat([tok0[:, None], drafts], dim=1)  # [B, k + 1]
+    blk_pos = (pos0[:, None] + torch.arange(k + 1, device=dev)[None, :]).clamp(max=t_max - 2)
+    emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
+    blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
+                                         write_slots=blk_pos, logits_mode="all",
+                                         spec_verify=True)  # [B, k + 1, V]
+    if sampling:
+        p = torch.softmax(_filtered_logits(blk_logits[:, :k], temperature, top_p), dim=-1)
+        pd = torch.gather(p, -1, drafts.long()[..., None])[..., 0]
+        match = torch.rand((b, k), generator=generator, device=dev) < pd
+    else:
+        targets = torch.argmax(blk_logits[:, :k], dim=-1).to(torch.int32)
+        if oracle:  # draft j's target is the oracle's token n_gen + j (tok0 counted)
+            oidx = (st.n_gen[:, None] + torch.arange(k, device=dev)[None, :]).clamp(0, n_max - 1)
+            otgt = torch.gather(st.oracle_ids, 1, oidx.long())
+            targets = torch.where(otgt >= 0, otgt, targets)
+        match = drafts == targets
+    acc = torch.cumprod(match.to(torch.int32), dim=1).bool()
+    rec = torch.zeros(b, dtype=torch.int32, device=dev)  # drafts recorded
+    for j in range(k):
+        valid = acc[:, j] & ~st.done
+        _spec_record(st, drafts[:, j], valid)
+        rec = rec + valid.to(torch.int32)
+    st.accepted.add_(rec.sum().to(torch.int32))
+    st.logits.copy_(blk_logits[rows, rec.long()])
+    if sampling:  # a chain stopped by a sampled rejection excludes that draft next
+        at = rec.clamp(max=k - 1).long()
+        was_rejected = (rec < k) & ~match[rows, at]
+        st.rejected.copy_(torch.where(was_rejected, drafts[rows, at], -1))
+
+
+def _run_spec_decode_loop(params, cfg, st: SpecState, generator,
+                          graph: Optional["DecodeGraph"], *, max_new_tokens, **step_kw):
+    """Verify iterations in chunks of SPEC_CHUNK, `done` read once a chunk.
+    Every iteration records a token in each row not done, so max_new_tokens
+    iterations end every row. `graph` replays them on the card; None runs
+    them eagerly. Returns (tokens, n_gen, steps, accepted)."""
+    n_run = 0
+    while n_run < max_new_tokens:
+        n = min(SPEC_CHUNK, max_new_tokens - n_run)
+        if graph is not None:
+            graph.run(n, params, cfg, generator)
+        else:
+            for _ in range(n):
+                _spec_iteration(params, cfg, st, generator, **step_kw)
+        n_run += n
+        if bool(st.done.all()):  # the loop's one host read, once a chunk
+            break
+    return st.tokens, st.n_gen, st.steps, st.accepted
+
+
+def _spec_kw(spec_k: int, temperature, do_sample, top_p, pad_id, emb_dtype,
+             draft_keep_prob=None, oracle_ids=None) -> dict:
+    if spec_k < 1:
+        raise ValueError(f"speculation needs spec_k >= 1, got {spec_k}")
+    return dict(spec_k=int(spec_k), temperature=temperature, do_sample=do_sample, top_p=top_p,
+                pad_id=pad_id, emb_dtype=emb_dtype, draft_keep=draft_keep_prob is not None,
+                oracle=oracle_ids is not None)
+
+
+def generate_tokens_spec(
+    params,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,  # [B, S, D] fused prompt embeddings
+    seq_lens: torch.Tensor,  # [B] true prompt lengths
+    attention_mask: torch.Tensor,  # [B, S] prompt validity
+    position_ids: torch.Tensor,  # [B, S]
+    prompt_ids,  # [B, S_text] text token ids (pads and sentinels negative)
+    prompt_id_lens,  # [B] valid text ids a row
+    stop: StopSpec,
+    generator: torch.Generator,
+    *,
+    max_new_tokens: int,
+    cache_len: int,
+    spec_k: int = 4,
+    temperature: float = 0.0,
+    do_sample: bool = False,
+    top_p: float = 1.0,
+    pad_id: int = 0,
+    draft_keep_prob=None,
+    oracle_ids=None,
+):
+    """Decode with prompt-lookup speculation (greedy or sampled).
+
+    Returns (tokens [B, max_new_tokens], n_gen [B], steps, accepted): `steps`
+    the verify iterations run, `accepted` the drafts recorded (0-d int32).
+    The cache needs spec_k slots past prompt + max_new_tokens, and the trash
+    slot. Bench knobs, as the JAX function's: `draft_keep_prob` (a float or
+    a 0-d tensor) corrupts each draft with probability 1 - p, drawing from
+    `generator` also on a greedy run; `oracle_ids` [B, max_new_tokens] makes
+    the greedy target the oracle's token where it is >= 0. On the card the
+    iterations replay a CUDA graph (`DecodeGraph`, one a key)."""
+    return _generate_tokens_spec(
+        params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, prompt_ids,
+        prompt_id_lens, stop, generator, max_new_tokens=max_new_tokens, cache_len=cache_len,
+        spec_k=spec_k, temperature=temperature, do_sample=do_sample, top_p=top_p, pad_id=pad_id,
+        draft_keep_prob=draft_keep_prob, oracle_ids=oracle_ids,
+        graphed=inputs_embeds.is_cuda)[:4]
+
+
+@torch.no_grad()
+def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids,
+                          prompt_ids, prompt_id_lens, stop: StopSpec, generator, *,
+                          max_new_tokens, cache_len, graphed: bool, spec_k=4, temperature=0.0,
+                          do_sample=False, top_p=1.0, pad_id=0, draft_keep_prob=None,
+                          oracle_ids=None):
+    """`generate_tokens_spec`, the iterations replayed from a CUDA graph
+    (`graphed`) or run eagerly (the CPU's path; on the card, the reference
+    the graph is held to). Returns (tokens, n_gen, steps, accepted, state)."""
+    b = inputs_embeds.shape[0]
+    dev, dtype = inputs_embeds.device, inputs_embeds.dtype
+    step_kw = _spec_kw(spec_k, temperature, do_sample, top_p, pad_id, dtype, draft_keep_prob,
+                       oracle_ids)
+    hist_width = np.shape(prompt_ids)[1] + max_new_tokens
+    keyword_shape = tuple(np.shape(stop.keyword_ids))
+    if graphed and max_new_tokens > 1:  # one token: one iteration, nothing to replay
+        entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens, keyword_shape, dev,
+                              step_kw, hist_width=hist_width)
+        state = entry.state
+        state.cache.k.zero_()
+        state.cache.v.zero_()
+    else:
+        entry = None
+        state = SpecState.new(llama_mod.init_cache(cfg, b, cache_len, dtype=dtype, device=dev),
+                              cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
+                              draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
+    slots = torch.where(attention_mask, position_ids, cache_len - 1)
+    logits = llama_mod.llama_forward(
+        params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
+        write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
+    )
+    state.reset(seq_lens, logits[:, -1], prompt_ids, prompt_id_lens, stop, pad_id,
+                draft_keep_prob, oracle_ids)
+    out = _run_spec_decode_loop(params, cfg, state, generator, entry,
+                                max_new_tokens=max_new_tokens, **step_kw)
+    if entry is not None:  # the entry's buffers serve its next request
+        out = tuple(t.clone() for t in out)
+    return (*out, state)
+
+
+@torch.no_grad()
+def decode_with_cache_spec(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
+                           logits0: torch.Tensor, start_pos: torch.Tensor, prompt_ids,
+                           prompt_id_lens, stop: StopSpec, generator: torch.Generator, *,
+                           max_new_tokens: int, spec_k: int = 4, temperature: float = 0.0,
+                           do_sample: bool = False, top_p: float = 1.0, pad_id: int = 0):
+    """Speculative decode over the caller's cache, in place: the contract of
+    decode_with_cache, the history seeded with `prompt_ids` (a session's
+    whole conversation). The cache needs spec_k slots past start_pos +
+    max_new_tokens, and the trash slot. Returns (tokens, n_gen, steps,
+    accepted, cache). On the card the iterations replay a CUDA graph keyed
+    by the cache's address, which the entry holds weakly, as
+    decode_with_cache's."""
+    b = logits0.shape[0]
+    step_kw = _spec_kw(spec_k, temperature, do_sample, top_p, pad_id, cache.dtype)
+    hist_width = np.shape(prompt_ids)[1] + max_new_tokens
+    keyword_shape = tuple(np.shape(stop.keyword_ids))
+    entry = None
+    if logits0.is_cuda and max_new_tokens > 1:
+        entry = _decode_graph(params, cfg, b, cache.max_len, max_new_tokens, keyword_shape,
+                              logits0.device, step_kw, cache=cache, hist_width=hist_width)
+        state = entry.state
+    else:
+        state = SpecState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, hist_width)
+    state.reset(start_pos, logits0, prompt_ids, prompt_id_lens, stop, pad_id)
+    try:
+        out = _run_spec_decode_loop(params, cfg, state, generator, entry,
+                                    max_new_tokens=max_new_tokens, **step_kw)
+        if entry is not None:  # the entry's buffers serve its next call
+            out = tuple(t.clone() for t in out)
+    finally:
+        if entry is not None:
+            state.cache = None  # the entry holds the caller's cache only weakly
+    return (*out, cache)
+
+
 # ------------------------------------------------------------ the CUDA graph
 
 _graphs: "collections.OrderedDict[tuple, DecodeGraph]" = collections.OrderedDict()
@@ -374,27 +759,31 @@ _capture_streams = {}  # device -> the side stream every capture on it runs on
 
 
 class DecodeGraph:
-    """One decode iteration captured in a CUDA graph, with all it touches.
+    """One loop iteration captured in a CUDA graph, with all it touches: a
+    decode step (`_decode_iteration` over a `DecodeState`) or a speculative
+    verify iteration (`_spec_iteration` over a `SpecState`).
 
-    It owns the loop's state and, for generate_tokens, its KV cache (the
-    static buffers the graph reads and writes), the keyword tensors, a
-    generator of its own for sampled runs, the captured graph and its memory
-    pool. The graph bakes in the addresses of the params, of those buffers
-    and of the workspaces the kernels' wrappers took during the capture
-    (their `torch.empty` comes from the graph's pool; K3's host-encoded TMA
-    map of x holds x's captured address), so a replay is valid only with the
-    params it was captured with: the key holds every leaf's address, and a
-    weak reference to one leaf drops the entry when the params are freed.
-    An entry over a caller's cache (decode_with_cache) is keyed by the
-    cache's address too and holds it by a weak reference alike: the state's
-    cache is set for a call and cleared after it."""
+    It owns the loop's state and, for generate_tokens(_spec), its KV cache
+    (the static buffers the graph reads and writes), the keyword tensors, a
+    generator of its own for runs that draw (sampled, or drafts corrupted),
+    the captured graph and its memory pool. The graph bakes in the
+    addresses of the params, of those buffers and of the workspaces the
+    kernels' wrappers took during the capture (their `torch.empty` comes
+    from the graph's pool; K3's host-encoded TMA map of x holds x's
+    captured address), so a replay is valid only with the params it was
+    captured with: the key holds every leaf's address, and a weak reference
+    to one leaf drops the entry when the params are freed. An entry over a
+    caller's cache (decode_with_cache(_spec)) is keyed by the cache's
+    address too and holds it by a weak reference alike: the state's cache
+    is set for a call and cleared after it."""
 
-    def __init__(self, state: DecodeState, anchor: torch.Tensor, step_kw: dict,
+    def __init__(self, state, iteration, anchor: torch.Tensor, step_kw: dict,
                  cache_anchor: Optional[torch.Tensor] = None):
         self.state = state
+        self.iteration = iteration
         self.step_kw = step_kw
-        sampled = step_kw["do_sample"] and step_kw["temperature"] > 0.0
-        self.generator = torch.Generator(device=state.tok.device) if sampled else None
+        draws = (step_kw["do_sample"] and step_kw["temperature"] > 0.0) or step_kw.get("draft_keep")
+        self.generator = torch.Generator(device=state.done.device) if draws else None
         self.graph = None  # captured when a first iteration is asked for
         self.launches = {}  # LaunchCounter -> the launches one replay makes
         self.capture_seconds = None
@@ -414,7 +803,7 @@ class DecodeGraph:
         kernels' builds and set-up, cuBLAS's handles); then the capture; the
         rest replay. A sampled run draws from the caller's generator: its
         state goes into the entry's generator, which the graph reads, and
-        comes back advanced."""
+        comes back advanced (a run that corrupts drafts likewise)."""
         if n <= 0:
             return
         gen = generator
@@ -432,13 +821,13 @@ class DecodeGraph:
             generator.set_state(self.generator.get_state())
 
     def _warm_up_and_capture(self, params, cfg, generator) -> None:
-        dev = self.state.tok.device
+        dev = self.state.done.device
         if dev not in _capture_streams:
             _capture_streams[dev] = torch.cuda.Stream(dev)
         stream = _capture_streams[dev]
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            _decode_iteration(params, cfg, self.state, generator, **self.step_kw)
+            self.iteration(params, cfg, self.state, generator, **self.step_kw)
         torch.cuda.current_stream(dev).wait_stream(stream)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -457,7 +846,7 @@ class DecodeGraph:
             with _build.capture_counts() as seen, torch.cuda.stream(stream):
                 graph.capture_begin()
                 try:
-                    _decode_iteration(params, cfg, self.state, generator, **self.step_kw)
+                    self.iteration(params, cfg, self.state, generator, **self.step_kw)
                 finally:
                     graph.capture_end()
         finally:
@@ -469,13 +858,17 @@ class DecodeGraph:
 
 def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
                   keyword_shape, device, step_kw: dict,
-                  cache: Optional[llama_mod.KVCache] = None) -> DecodeGraph:
+                  cache: Optional[llama_mod.KVCache] = None,
+                  hist_width: Optional[int] = None) -> DecodeGraph:
     """The entry for this call's key, made if there is none: with a zeroed
     cache of its own, or over the caller's `cache` (set as its state's
-    cache for this call). The key is what `jax.jit` keys `generate_tokens`
-    on (the params tree's structure, shapes and dtypes, the config, the
-    batch, cache_len, max_new_tokens, the keyword shape, the dtype,
-    temperature, do_sample, top_p, pad_id), with each leaf's address and
+    cache for this call); a decode step's, or with `hist_width` (the draft
+    history's width) a speculative iteration's. The key is what `jax.jit`
+    keys `generate_tokens(_spec)` on (the params tree's structure, shapes and
+    dtypes, the config, the batch, cache_len, max_new_tokens, the keyword
+    shape, the dtype, temperature, do_sample, top_p, pad_id; spec_k, the
+    history's width and whether the keep probability and the oracle are
+    in use, all in `step_kw` but the width), with each leaf's address and
     strides: the graph reads the params where they lay at its capture; and
     the caller's cache's addresses and strides, where it lies."""
     leaves = tree_leaves_with_path(params)
@@ -483,19 +876,27 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
         (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in (cache.k, cache.v))
     key = (tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for path, t in leaves),
            cfg, batch, cache_len, max_new_tokens, keyword_shape, str(device),
-           tuple(sorted(step_kw.items())), cache_key)
+           tuple(sorted(step_kw.items())), hist_width, cache_key)
     entry = _graphs.get(key)
     if entry is not None and entry.alive():
         _graphs.move_to_end(key)
         if cache is not None:
             entry.state.cache = cache
         return entry
-    state = DecodeState.new(
-        cache if cache is not None else llama_mod.init_cache(
-            cfg, batch, cache_len, dtype=step_kw["emb_dtype"], device=device),
-        cfg.vocab_size, max_new_tokens, keyword_shape)
-    entry = DecodeGraph(state, leaves[0][1], step_kw,
-                        cache_anchor=None if cache is None else cache.k)
+    if cache is None:
+        cache = owned = llama_mod.init_cache(cfg, batch, cache_len, dtype=step_kw["emb_dtype"],
+                                             device=device)
+    else:
+        owned = None
+    if hist_width is None:
+        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
+        iteration = _decode_iteration
+    else:
+        state = SpecState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
+                              draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
+        iteration = _spec_iteration
+    entry = DecodeGraph(state, iteration, leaves[0][1], step_kw,
+                        cache_anchor=None if owned is not None else cache.k)
     _graphs[key] = entry
     while len(_graphs) > MAX_DECODE_GRAPHS:
         _graphs.popitem(last=False)

@@ -27,7 +27,10 @@ kv_mask is a prefix of each row (`ops/decode_attention.py::query_lengths`).
 `spec_verify` treats an S > 1 block as S decode steps: each row scatters its
 writes at `write_slots`, then the block's queries attend the cache slab
 through K2m, the decode kernel's multi-query form. A session's suffix
-prefill runs this way over its committed conversation.
+prefill runs this way over its committed conversation, and so does each
+verify block of the speculative loop (generation.py::_spec_iteration),
+with no kv_mask: JAX's `slot <= pos0 + k` there holds for every query's
+slot already, so K2m's lengths are q_slot + 1 and nothing is read back.
 
 A decode step reads nothing back to the host: `write_slots`, `lengths`, the
 rows' cache indices and the RoPE positions stay device tensors, no shape or
@@ -274,8 +277,10 @@ def llama_forward(
     a decode query attends up to); S > 1 is a prefill, S == 1 a decode step.
     kv_mask [B, T_max], a prefix of each row, bounds what a decode or
     spec_verify query attends (`slot <= q_slot & kv_mask`); the prefill
-    ignores it, as in the JAX package. `spec_verify` runs an S > 1 block as
-    S decode steps: writes at `write_slots`, attention over the cache (K2m).
+    ignores it, as in the JAX package. Without one a query attends `slot <=
+    q_slot` and no host read is made (a CUDA graph can hold the forward).
+    `spec_verify` runs an S > 1 block as S decode steps: writes at
+    `write_slots`, attention over the cache (K2m).
     Cache-free path (`cache=None`, training): `attention_mask` [B, S] marks
     the valid tokens, `right_padded` says the padding is all on the right,
     `remat` recomputes each layer in the backward. `last_index` [B] picks

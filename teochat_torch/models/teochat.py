@@ -146,12 +146,14 @@ class TEOChat:
     ) -> List[List[int]]:
         """Batched generate; returns the generated ids per row (stop included).
 
-        `rng` is a torch.Generator on the model's device or an int seed."""
+        `rng` is a torch.Generator on the model's device or an int seed.
+        `gen.speculative_k` > 0 decodes with prompt-lookup speculation
+        (greedy: the plain path's tokens; sampled: its distribution, other
+        draws) and leaves `last_spec_stats` {"steps", "drafts_accepted",
+        "tokens"}."""
         gen = gen or GenerationConfig()
         if adapters is not None:
             raise NotImplementedError("multi-LoRA adapters are not ported yet")
-        if gen.speculative_k > 0:
-            raise NotImplementedError("speculative decoding is not ported yet")
         cfg = self.cfg
         n_frames = fusion_mod.count_frames(input_ids)
         if n_frames:
@@ -189,6 +191,33 @@ class TEOChat:
 
         def dev(a):
             return torch.as_tensor(a, device=self.device)
+
+        if gen.speculative_k > 0:
+            k = gen.speculative_k
+            # the history's width is a shape of the loop's graph: bucketed as
+            # the fused prompt is, so that a sweep reuses its entries
+            s_text = round_to_bucket(max(len(r) for r in input_ids), SEQ_BUCKETS)
+            prompt_ids = np.full((len(input_ids), s_text), -1, np.int32)
+            for i, r in enumerate(input_ids):
+                prompt_ids[i, : len(r)] = r
+            tokens, n_gen, steps, accepted = gen_mod.generate_tokens_spec(
+                self.params["llm"], cfg.llm, embeds,
+                dev(plan.seq_lens), dev(plan.attention_mask), dev(plan.position_ids),
+                prompt_ids, np.asarray([len(r) for r in input_ids], np.int32),
+                stop_spec, self._generator(rng),
+                max_new_tokens=gen.max_new_tokens,
+                cache_len=pad_to + gen.max_new_tokens + k + 1,
+                spec_k=k,
+                temperature=gen.temperature,
+                do_sample=gen.do_sample,
+                top_p=gen.top_p,
+                pad_id=cfg.llm.pad_token_id,
+                draft_keep_prob=gen.speculative_draft_keep_prob,
+            )
+            tokens, n_gen = tokens.cpu().numpy(), n_gen.cpu().numpy()
+            self.last_spec_stats = {"steps": int(steps), "drafts_accepted": int(accepted),
+                                    "tokens": int(n_gen.sum())}
+            return [tokens[i, : n_gen[i]].tolist() for i in range(len(input_ids))]
 
         tokens, n_gen = gen_mod.generate_tokens(
             self.params["llm"], cfg.llm, embeds,

@@ -202,7 +202,7 @@ def query_lengths(q_slots: torch.Tensor, kv_mask: Optional[torch.Tensor] = None)
     if not torch.equal(kv_mask, prefix):
         raise NotImplementedError(
             "query_lengths: a kv_mask that is not a prefix of each row is not ported "
-            "(ROADMAP queue 1 item 8)")
+            "(ROADMAP queue 1 item 9)")
     return torch.minimum(lengths, kv_len[:, None].to(torch.int32))
 
 

@@ -19,7 +19,10 @@ changed. Elsewhere it reuses what the JAX session reuses.
 
 A turn gives the tokens of a stateless `TEOChat.generate` on the whole
 conversation, up to floating-point argmax ties between the suffix-prefill
-and full-prefill shapes.
+and full-prefill shapes. A turn with `speculative_k` > 0 decodes with
+prompt-lookup speculation (`generation.decode_with_cache_spec`) whose
+history is the whole conversation's ids; the cache then keeps spec_k draft
+slots free, and `stats` counts `spec_steps` and `spec_accepted`.
 """
 
 from __future__ import annotations
@@ -102,9 +105,6 @@ class ChatSession:
         the model's device or an int seed (sampled turns)."""
         model, cfg = self.model, self.model.cfg
         gen = gen or GenerationConfig()
-        if gen.speculative_k > 0:
-            raise NotImplementedError(
-                "speculative decoding in a session is not ported yet (ROADMAP queue 1 item 8)")
         input_ids = list(input_ids)
 
         n_sent = _count_sentinels(input_ids)
@@ -128,10 +128,12 @@ class ChatSession:
                                  dtype=model.dtype, device=model.device)
 
         fused_delta = len(delta) + _count_sentinels(delta) * (model.tokens_per_frame - 1)
-        if start_tok + fused_delta + gen.max_new_tokens + 1 > self.max_len:
+        spec_k = gen.speculative_k
+        if start_tok + fused_delta + gen.max_new_tokens + spec_k + 1 > self.max_len:
             raise ValueError(
                 f"session cache full: {start_tok} committed + {fused_delta} new "
-                f"+ {gen.max_new_tokens} generated + 1 spare exceeds max_len {self.max_len}"
+                f"+ {gen.max_new_tokens} generated + {spec_k} draft slots + 1 spare "
+                f"exceeds max_len {self.max_len}"
             )
         self._ensure_cache()
         pad_to = min(teochat_mod.round_to_bucket(fused_delta, teochat_mod.SEQ_BUCKETS),
@@ -166,12 +168,27 @@ class ChatSession:
             stop = gen_mod.StopSpec(keyword_ids=np.zeros((1, 1), np.int32),
                                     keyword_lens=np.zeros((1,), np.int32),
                                     eos_id=cfg.llm.eos_token_id)
-        tokens, n_gen, self.cache = gen_mod.decode_with_cache(
-            llm, cfg.llm, self.cache, logits, start + seq_lens, stop, model._generator(rng),
-            max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
-            do_sample=gen.do_sample and gen.temperature > 0.0, top_p=gen.top_p,
-            pad_id=cfg.llm.pad_token_id,
-        )
+        if spec_k > 0:
+            # the draft history is the whole conversation: earlier turns are
+            # the best draft material (a chat echoes itself)
+            width = teochat_mod.round_to_bucket(len(input_ids), teochat_mod.SEQ_BUCKETS)
+            hist_ids = np.full((1, width), -1, np.int32)
+            hist_ids[0, : len(input_ids)] = input_ids
+            tokens, n_gen, steps, accepted, self.cache = gen_mod.decode_with_cache_spec(
+                llm, cfg.llm, self.cache, logits, start + seq_lens, hist_ids,
+                np.asarray([len(input_ids)], np.int32), stop, model._generator(rng),
+                max_new_tokens=gen.max_new_tokens, spec_k=spec_k, temperature=gen.temperature,
+                do_sample=gen.do_sample, top_p=gen.top_p, pad_id=cfg.llm.pad_token_id,
+            )
+            self.stats["spec_steps"] = self.stats.get("spec_steps", 0) + int(steps)
+            self.stats["spec_accepted"] = self.stats.get("spec_accepted", 0) + int(accepted)
+        else:
+            tokens, n_gen, self.cache = gen_mod.decode_with_cache(
+                llm, cfg.llm, self.cache, logits, start + seq_lens, stop, model._generator(rng),
+                max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
+                do_sample=gen.do_sample and gen.temperature > 0.0, top_p=gen.top_p,
+                pad_id=cfg.llm.pad_token_id,
+            )
         out = tokens[0, : int(n_gen[0])].tolist()
 
         self.tokens = input_ids + out

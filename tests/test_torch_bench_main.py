@@ -1,10 +1,11 @@
 """The port's main bench (teochat_torch/bench/main.py) on the CPU.
 
 Its arithmetic (`_roofline_keys`, `_train_mfu`) is held against bench.py's on
-the same numbers, exactly; each ported phase runs at a tiny configuration on
-"cpu" and returns the keys its JAX twin returns (the times are the host's
-here and say nothing of a card); an unported phase raises and names its
-ROADMAP item; the shared timing helper's bound arithmetic is checked.
+the same numbers, exactly, and so are the speculative phase's workloads and
+tokenizer; each ported phase runs at a tiny configuration on "cpu" and
+returns the keys its JAX twin returns (the times are the host's here and say
+nothing of a card); an unported phase raises and names its ROADMAP item; the
+shared timing helper's bound arithmetic is checked.
 """
 
 import dataclasses
@@ -47,6 +48,17 @@ def tiny():
         cfg=cfg, device="cpu", prompt_len=32, text_tokens=20, decode_new=4, e2e_new=3,
         enc_batch=2, enc_iters=1, train_batch=2, iters=1, stream_side=64, stream_panels=2,
         stream_reps=2, matmul_side=32)
+
+
+@pytest.fixture(scope="module")
+def tiny_spec():
+    """The tiny model with a vocabulary that holds the workloads' ids (up to
+    171), 16 new tokens, 2 drafts; ttft_turn2's suffix of 8 over the
+    32-token prompt, padded to 16, in a 64-slot cache."""
+    cfg = dataclasses.replace(tiny_test_config(vocab_size=256), dtype="float32")
+    return bench_main.Settings(
+        cfg=cfg, device="cpu", prompt_len=32, text_tokens=20, decode_new=16, spec_k=2,
+        turn2_suffix=8, turn2_pad=16, turn2_max_len=64, iters=1)
 
 
 @pytest.mark.parametrize("args", [
@@ -93,9 +105,53 @@ def test_phase_returns_its_keys_at_a_tiny_config(tiny, name):
             <= out["decode_tokens_per_sec_max"]
 
 
+SPEC_PHASE_KEYS = {
+    "decode_spec": {
+        "decode_tokens_per_sec_spec_bs1", "spec_iteration_s", "spec_steps_for_16_tokens",
+        "spec_mean_tokens_per_step",
+        *(f"{key}_{w}" for w in ("detection", "regionqa") for key in (
+            "decode_tokens_per_sec_spec", "spec_acceptance", "spec_tokens_per_step")),
+        *(f"{key}{pct}" for pct in (75, 50, 25) for key in (
+            "decode_tokens_per_sec_spec_bs1_acc", "spec_tokens_per_step_acc"))},
+    "ttft_turn2": {"ttft_s_turn2_suffix8_over32"},
+}
+
+
+@pytest.mark.parametrize("name", list(SPEC_PHASE_KEYS))
+def test_spec_phases_return_their_keys_at_a_tiny_config(tiny_spec, name):
+    """decode_spec and ttft_turn2 under bench.py's keys (the step count's and
+    the turn's key carry this configuration's sizes, as bench.py's carry
+    its own: `spec_steps_for_64_tokens`, `ttft_s_turn2_suffix64_over640`)."""
+    out = bench_main.run_phase(name, tiny_spec)
+    assert set(out) == SPEC_PHASE_KEYS[name]
+    assert all(isinstance(v, (int, float)) and math.isfinite(v) and v >= 0
+               for v in out.values())
+    if name == "decode_spec":  # the acceptances are rates; at random weights they may be 0
+        assert all(0 <= out[f"spec_acceptance_{w}"] <= 1 for w in ("detection", "regionqa"))
+        assert 1 <= out["spec_tokens_per_step_regionqa"] <= 1 + tiny_spec.spec_k
+        assert out["spec_steps_for_16_tokens"] <= 16
+    assert all(v > 0 for key, v in out.items() if "per_sec" in key or key.startswith("ttft"))
+
+
+def test_spec_workloads_and_tokenizer_are_bench_pys(jax_bench):
+    assert bench_main._SPEC_WORKLOADS == jax_bench._SPEC_WORKLOADS
+    ours, theirs = {}, {}
+    for prompt, answer in bench_main._SPEC_WORKLOADS.values():
+        for text in (prompt, answer):
+            assert bench_main._eo_tokenize(text, ours) == jax_bench._eo_tokenize(text, theirs)
+    assert ours == theirs and max(ours.values()) < 256
+
+
+def test_default_settings_give_bench_pys_keys():
+    st = bench_main.Settings(device="cpu")
+    assert (st.decode_new, st.spec_k, st.prompt_len, st.turn2_suffix) == (64, 8, 640, 64)
+    assert (st.turn2_pad, st.turn2_max_len, st.text_tokens) == (128, 1024, 123)
+
+
 def test_every_ported_phase_is_listed():
-    assert set(PHASE_KEYS) == set(bench_main.PHASES)
+    assert set(PHASE_KEYS) | set(SPEC_PHASE_KEYS) == set(bench_main.PHASES)
     assert not set(bench_main.PHASES) & set(bench_main.UNPORTED)
+    assert not any("item 8" in item for item in bench_main.UNPORTED.values())
 
 
 @pytest.mark.parametrize("name", sorted(bench_main.UNPORTED))

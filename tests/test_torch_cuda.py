@@ -1248,3 +1248,162 @@ def test_session_decode_graph_keeps_its_cache_and_dies_with_it(decoders):
     gc.collect()
     assert gen_mod.decode_graphs() == []
     assert torch.cuda.memory_allocated() < held - 2 * GRAPH_CFG.num_layers * 512 * 32 * 128 * 2
+
+
+# ------------------------------------------- the speculative loop's CUDA graph
+#
+# generate_tokens_spec on the card replays one verify iteration (prompt
+# lookup, a block of k + 1 queries through K2m, acceptance) from a CUDA
+# graph; the same 2-layer decoders at LLaMA-7B width against the eager loop.
+
+
+def _spec(params, prompt, graphed, *, k, max_new=11, oracle=None, keep=None, generator=None,
+          temperature=0.0, do_sample=False, stop=None):
+    """(tokens, n_gen, steps, accepted, the last carried logits) of a
+    speculative request; the history repeats 4 ids, and `oracle` (True)
+    makes the target echo them, so drafts are accepted."""
+    embeds, lens, mask, pos = prompt
+    b = embeds.shape[0]
+    cycle = np.array([11, 12, 13, 14], np.int32)
+    pids = np.tile(cycle, (b, GRAPH_S // 4))
+    if oracle:
+        oracle = np.tile(cycle, (b, -(-max_new // 4)))[:, :max_new]
+    out = gen_mod._generate_tokens_spec(
+        params, GRAPH_CFG, embeds, lens, mask, pos, pids, lens.cpu().numpy(),
+        stop or _never_stop(), generator or torch.Generator(device="cuda").manual_seed(0),
+        max_new_tokens=max_new, cache_len=GRAPH_S + max_new + k + 1, spec_k=k,
+        temperature=temperature, do_sample=do_sample, top_p=1.0, pad_id=0,
+        draft_keep_prob=keep, oracle_ids=oracle if oracle is not None else None,
+        graphed=graphed)
+    return (*out[:4], out[4].logits.clone())
+
+
+@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("b", [1, 4])
+def test_spec_graph_equals_the_eager_loop(decoders, b, k):
+    """Greedy, with and without the oracle (drafts accepted), on int8 and
+    int4: the graph's tokens, n_gen, steps and accepted are the eager
+    loop's; a second request replays the first's graph bit for bit (tokens,
+    counters, the carried logits); K2m runs in the graph, once a layer
+    (int4 at M = B (k + 1) > 8 runs K3's M > 8 kernel there too)."""
+    for quant in ("int8", "int4"):
+        params, prompt = decoders[quant], _graph_prompt(b)
+        for oracle in (False, True):
+            gen_mod.clear_decode_graphs()
+            want = _spec(params, prompt, False, k=k, oracle=oracle)
+            first = _spec(params, prompt, True, k=k, oracle=oracle)
+            (entry,) = gen_mod.decode_graphs()
+            again = _spec(params, prompt, True, k=k, oracle=oracle)
+            for w, g in zip(want[:4], first[:4]):
+                assert torch.equal(w, g), (quant, oracle)
+            for f, a in zip(first, again):
+                assert torch.equal(f, a), (quant, oracle)
+            assert entry.launches[dec_mod.LAUNCHES_MULTI] == GRAPH_CFG.num_layers
+            assert dec_mod.LAUNCHES not in entry.launches  # no single-query step in it
+            if oracle:
+                assert int(want[3]) > 0 and int(want[2]) < 11
+            if quant == "int4" and b * (k + 1) > int4_mod.SMALL_M:
+                assert entry.launches[int4_mod.LAUNCHES_STACKED] > \
+                    entry.launches.get(int4_mod.LAUNCHES_STACKED_SMALL_M, 0)
+    gen_mod.clear_decode_graphs()
+
+
+def test_spec_graph_counts_k2m_per_iteration(decoders):
+    """K2m's count over a graphed request is num_layers a verify iteration
+    run (warm-up and replays), as the eager loop's over the same iterations."""
+    params, prompt = decoders["int8"], _graph_prompt(1)
+    gen_mod.clear_decode_graphs()
+    counts = []
+    for graphed in (False, True):
+        dec_mod.LAUNCHES_MULTI.reset()
+        out = _spec(params, prompt, graphed, k=4)
+        counts.append(dec_mod.LAUNCHES_MULTI.count)
+    (entry,) = gen_mod.decode_graphs()
+    iterations = entry.replays + 1  # the warm-up ran the first
+    assert counts[0] == counts[1] == GRAPH_CFG.num_layers * iterations
+    assert int(out[2]) <= iterations < int(out[2]) + gen_mod.SPEC_CHUNK
+    gen_mod.clear_decode_graphs()
+
+
+def test_spec_graph_samples_and_corruption_follow_the_generator(decoders):
+    """A sampled request (temperature 0.8) and a greedy one with drafts
+    corrupted (keep 0.5): from the same generator state the graph gives the
+    eager loop's tokens and counters; another seed other samples; the keep
+    rate is the state's scalar, so 0.5 and 0.25 share one graph."""
+    params, prompt = decoders["int4"], _graph_prompt(4)
+    gen_mod.clear_decode_graphs()
+
+    def run(graphed, seed, **kw):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return _spec(params, prompt, graphed, k=4, generator=gen, **kw)
+
+    sampled = dict(temperature=0.8, do_sample=True)
+    want, got = run(False, 1, **sampled), run(True, 1, **sampled)
+    for w, g in zip(want[:4], got[:4]):
+        assert torch.equal(w, g)
+    assert not torch.equal(run(True, 2, **sampled)[0], got[0])
+    want, got = run(False, 3, keep=0.5, oracle=True), run(True, 3, keep=0.5, oracle=True)
+    for w, g in zip(want[:4], got[:4]):
+        assert torch.equal(w, g)
+    entries = len(gen_mod.decode_graphs())
+    run(True, 3, keep=0.25, oracle=True)
+    assert len(gen_mod.decode_graphs()) == entries
+    assert all(e.generator is not None for e in gen_mod.decode_graphs())
+    gen_mod.clear_decode_graphs()
+
+
+def test_a_failed_spec_capture_raises(decoders, monkeypatch):
+    params, prompt = decoders["int8"], _graph_prompt(1)
+    gen_mod.clear_decode_graphs()
+    hit = gen_mod._keyword_hit
+
+    def reads_back(window, keyword_ids, keyword_lens):
+        out = hit(window, keyword_ids, keyword_lens)
+        out.any().item()
+        return out
+
+    monkeypatch.setattr(gen_mod, "_keyword_hit", reads_back)
+    with pytest.raises(RuntimeError):
+        _spec(params, prompt, True, k=4)
+    monkeypatch.undo()
+    assert gen_mod.decode_graphs()[0].graph is None
+    gen_mod.clear_decode_graphs()
+
+
+def test_session_spec_turn_is_bit_equal_twice(decoders):
+    """decode_with_cache_spec over a caller's cache: the eager loop's
+    tokens and counters; the same turn again (a fresh prefill into the same
+    cache) replays the same graph and gives the same tokens, counters and
+    committed cache bits; the entry goes with the cache."""
+    params = decoders["int8"]
+    embeds, lens, mask, pos = _graph_prompt(1)
+    pids = np.tile(np.array([11, 12, 13, 14], np.int32), (1, GRAPH_S // 4))
+    gen_mod.clear_decode_graphs()
+    cache = llama_mod.init_cache(GRAPH_CFG, 1, 512, device="cuda")
+
+    def turn(graphed):
+        logits, _ = gen_mod.prefill_full(params, GRAPH_CFG, cache, embeds, lens, mask, pos)
+        gen = torch.Generator(device="cuda")
+        if graphed:
+            return gen_mod.decode_with_cache_spec(params, GRAPH_CFG, cache, logits, lens, pids,
+                                                  lens.cpu().numpy(), _never_stop(), gen,
+                                                  max_new_tokens=11, spec_k=4)[:4]
+        st = gen_mod.SpecState.new(cache, GRAPH_CFG.vocab_size, 11, (1, 1), GRAPH_S + 11)
+        st.reset(lens, logits, pids, lens.cpu().numpy(), _never_stop(), 0)
+        return tuple(t.clone() for t in gen_mod._run_spec_decode_loop(
+            params, GRAPH_CFG, st, gen, None, max_new_tokens=11, spec_k=4, temperature=0.0,
+            do_sample=False, top_p=1.0, pad_id=0, emb_dtype=torch.bfloat16))
+
+    want = turn(False)
+    first = turn(True)
+    n = GRAPH_S + int(first[1][0]) - 1
+    kept = cache.k[:, :, :n].clone(), cache.v[:, :, :n].clone()
+    second = turn(True)
+    (entry,) = gen_mod.decode_graphs()
+    assert entry.graph is not None and entry.state.cache is None
+    for w, f, s in zip(want, first, second):
+        assert torch.equal(w, f) and torch.equal(f, s)
+    assert torch.equal(kept[0], cache.k[:, :, :n]) and torch.equal(kept[1], cache.v[:, :, :n])
+    del cache
+    gc.collect()
+    assert gen_mod.decode_graphs() == []

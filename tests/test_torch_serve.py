@@ -7,7 +7,8 @@ frames and timestamps, the third adding a frame that sorts before the
 others; history, the bbox suffix, reset, and a failed turn that commits
 nothing; the JAX tests/test_server.py cases against the port's ChatServer
 on an ephemeral port; the demo against a stub gradio as tests/test_demo.py
-drives it; and the options that are not ported raise.
+drives it; the options that are not ported raise, and a turn with
+`speculative_k` is answered (over HTTP too, its counters in /stats).
 """
 
 import base64
@@ -151,10 +152,12 @@ def test_unported_options_raise(params):
         _torch_chat(params, quantize_vision=True)
     with pytest.raises(NotImplementedError, match="item 15"):
         build_request("q", [], MockTokenizer(), None, mm_use_im_start_end=True)
+    # speculative decoding is ported: a turn with speculative_k is answered,
+    # with the tokens of a turn without it
     chat = _torch_chat(params)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        chat.generate("q", [], temperature=0.0, max_new_tokens=2, speculative_k=2)
-    assert chat.history == []
+    out = chat.generate("q", [], temperature=0.0, max_new_tokens=2, speculative_k=2)
+    assert out == _torch_chat(params).generate("q", [], temperature=0.0, max_new_tokens=2)
+    assert len(chat.history) == 1 and chat._session.stats["spec_steps"] >= 1
 
 
 @pytest.mark.parametrize("flag,item", [
@@ -237,8 +240,11 @@ def test_generate_missing_prompt_and_bad_requests(server):
     code, out = _post(server, "/generate", {"prompt": "q", "stream": True})
     assert code == 400 and "item 9" in out["error"]
     code, out = _post(server, "/generate", {"prompt": "q", "session_id": "x",
-                                            "speculative_k": 2, "max_new_tokens": 2})
-    assert code == 400 and "item 8" in out["error"]
+                                            "speculative_k": 2, "max_new_tokens": 2,
+                                            "temperature": 0.0})
+    assert code == 200 and isinstance(out["response"], str)  # speculation is ported
+    stats = _get(server, "/stats")[1]["sessions"]["x"]
+    assert stats["turns"] == 1 and stats["spec_steps"] >= 1 and stats["spec_accepted"] >= 0
 
 
 def test_unknown_route(server):

@@ -7,10 +7,11 @@ and the cache at the written slots); `prefill_full`, `prefill_suffix` (fed
 the JAX cache carried across as numpy) and `decode_with_cache` against
 JAX's; then the port's `ChatSession` against JAX's over three turns (text
 only, with frames, and a new frame that sorts before the committed ones),
-tokens, stats and the committed cache slots. Everything is fp32, on the
-tiny model of test_torch_decode_graph.py (lm_head x40, so reduction-order
-noise cannot flip an argmax), at RTOL, ATOL = 1e-4, 1e-5 as in
-test_torch_llama.py. One JAX model serves the module, and its programs are
+tokens, stats and the committed cache slots, and again with speculative_k=3
+(tokens, stats with spec_steps and spec_accepted, committed slots).
+Everything is fp32, on the tiny model of test_torch_decode_graph.py (lm_head
+x40, so reduction-order noise cannot flip an argmax), at RTOL, ATOL = 1e-4,
+1e-5 as in test_torch_llama.py. One JAX model serves the module, and its programs are
 few (the XLA CPU compiler survives a few hundred a process).
 """
 
@@ -389,6 +390,33 @@ def test_session_divergent_history_and_reset(models):
     assert session.generate(edited, None, gen) == jmodel.generate([edited], None, gen)[0]
 
 
+def test_session_spec_matches_jax_over_three_turns(models):
+    """Turns with speculative_k=3 (text; two frames over the committed turn;
+    text again): the same tokens, stats (spec_steps and spec_accepted
+    among them) and committed slots as the JAX session, and the tokens of
+    turns without speculation."""
+    jmodel, tmodel = models
+    jsession, session = JaxChatSession(jmodel, max_len=MAX_LEN), ChatSession(tmodel,
+                                                                              max_len=MAX_LEN)
+    plain = ChatSession(tmodel, max_len=MAX_LEN)
+    gen = dataclasses.replace(_greedy(8), speculative_k=3)
+    rs = np.random.RandomState(4)
+    frames = rs.randn(2, 3, 28, 28).astype(np.float32)
+    convo = [1, 5, 9, 4, 7, 5, 9, 4]
+    for turn in range(3):
+        pixels = frames if turn else None
+        want = jsession.generate(convo, pixels, gen)
+        assert session.generate(convo, pixels, gen) == want, turn
+        assert plain.generate(convo, pixels, _greedy(8)) == want, turn
+        assert session.stats == jsession.stats, turn
+        for got, ref in zip(_committed(session, session.cache.k, session.cache.v),
+                            _committed(jsession, jsession.cache.k, jsession.cache.v)):
+            np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+        convo = convo + want + ([13, IMG, 8, IMG, 6] if turn == 0 else [11, 12, 5, 9])
+    assert session.stats["turns"] == 3 and session.stats["spec_steps"] >= 3
+    assert session.stats["spec_accepted"] > 0
+
+
 def test_session_refuses_what_it_cannot_hold_or_run(models):
     _, tmodel = models
     session = ChatSession(tmodel, max_len=32)
@@ -397,5 +425,10 @@ def test_session_refuses_what_it_cannot_hold_or_run(models):
     assert session.cache is None  # nothing allocated for a refused turn
     with pytest.raises(ValueError, match="needs 2 frames"):
         session.generate([1, IMG, 5, IMG], None, _greedy())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        session.generate([1, 5], None, dataclasses.replace(_greedy(), speculative_k=3))
+    # the cache-full check counts the spec_k draft slots: 19 + 10 + 1 fits 32,
+    # 3 draft slots more do not
+    spec = dataclasses.replace(_greedy(max_new=10), speculative_k=3)
+    with pytest.raises(ValueError, match="3 draft slots"):
+        session.generate(list(range(1, 20)), None, spec)
+    assert session.cache is None
+    assert len(session.generate(list(range(1, 20)), None, _greedy(max_new=10))) == 10
