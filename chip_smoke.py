@@ -16,7 +16,7 @@ them. Phases, each printing its lines before the last:
    live slots), in a ragged batch and with rows of no live slot (written as
    0); each case twice, bit-equal; then its multi-query form (K2m) against
    its plain version on a session's suffix over a 4,096-slot cache at 7B
-   shapes (S 1, 2, 5, 9, 128, 512, 1024; S 2, 5, 9 over a full cache, where
+   shapes (S 1, 2, 5, 9, 128, 512, 1024, 2048; S 2, 5, 9 over a full cache, where
    the slots are split across blocks), starts 0, 1, 31, 32, 33, 63, 64, 65
    and 700 (the edges of 32- and 64-slot chunks), padded
    queries at the trash slot, a row with no live slot, head_dim 64 with
@@ -98,11 +98,37 @@ them. Phases, each printing its lines before the last:
     graph) and the peak; then, from fresh sessions, turn 2's time to first
     token beside a stateless re-prefill of the whole conversation and the
     session's decode ms/step;
-13. `load_pretrained_model(path, load_int4=True)` from the same directory:
-    one 2-frame request of uint8 frames (K3b and K3c must launch); the
+13. the continuous-batching engine (`serve/engine.py`) on that loaded int8
+    model: (a) `BatchEngine(max_slots=8, max_len=2048, chunk=8,
+    prefill_chunk=256, prefix_cache_slots=2, prefix_min_tokens=256)` with
+    eight requests from threads at once (2 and 4 uint8 frames, the 4-frame
+    one ~1,200 fused tokens and so prefilled in pieces while the others
+    decode; text; max_new_tokens 1; a stop string taken from its own greedy
+    answer; sampled at t 0.8; two sharing a 321-token text prefix, the
+    second sent once the first is answered, a pool hit): each greedy
+    request's tokens beside a single-request `TEOChat.generate` (where they
+    first differ) and each within SPEC_GAP_TOL of its position's largest
+    logit in a teacher-forced prefill, the long prompt's pieces' last logits
+    against a monolithic prefill, a prefix hit, K1, K2, K2m and K5
+    launching, the graph's capture seconds and replays, the cache's GiB, the
+    peak, and the longest wait of a running stream between two chunks; the
+    engine's graph against its eager step over one chunk from the same state
+    (tokens and launch counts, twice) and a host read planted in the step
+    failing the capture; (b) `max_slots` 16, `max_len` 512: aggregate tok/s
+    at 8 and 16 text streams of 121 + 64 tokens beside the same requests one
+    at a time through `TEOChat.generate`, with the card's name and power
+    limit; (c) a 1-token request's time with a 512-token prefix pooled and
+    not (bench `ttft_prefix`); then `ChatServer` in engine mode: four
+    concurrent HTTP requests, one streamed by SSE whose token_ids equal a
+    blocking request's, a session turn sent while the engine captures its
+    graph (its prefill logits within LOGITS_REL_L2_BOUND of a stateless
+    prefill), /stats in `continuous_batching` mode;
+14. `load_pretrained_model(path, load_int4=True)` from the same directory:
+    one 2-frame request of uint8 frames (K3b and K3c must launch), then the
+    serving engine with 4 text streams (K3b and K3c must launch); the
     directory is then removed, and after each model is deleted no decode
     graph may be left;
-14. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
+15. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
     K4c dQ) against autograd through its plain twin at training shapes, at
     head_dim 64, on non-causal calls with S != T, on ragged lengths that
     leave the last tiles part-filled and on strided slices of a fused q|k|v;
@@ -111,23 +137,23 @@ them. Phases, each printing its lines before the last:
     (`flash_backward_dkv_schedule`, `_dq_schedule`) on the same bf16 inputs;
     and each kernel's time beside the plain forward's and backward's and the
     library's one backward call;
-15. the training path at TEOChat-7B width: the port's `train()` takes three
+16. the training path at TEOChat-7B width: the port's `train()` takes three
     optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
     2-frame conversations; the three K4 launch counts must rise;
-16. one micro-step's loss and trainable gradients with the kernels against
+17. one micro-step's loss and trainable gradients with the kernels against
     the same step on the plain attention;
-17. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
+18. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
     512, with `torch._weight_int4pack_mm` on the same weights beside v4 at
     M 1 and beside v2 and v5 at M 1 and 8; the attention ones at
     [32, 257, 16, 64] and [2, 257, 16, 64], at S 9 and 100, and at S 300
     and 832 (two sweeps);
-18. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
+19. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
-19. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
+20. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -138,7 +164,8 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
 The line before the last is a JSON object with each of the nineteen
-kernel rows' launches, error, times and bound (K3c has two: its wrapper runs
+kernel rows' launches, error, times and bound, and the engine phase's
+numbers under "engine" (K3c has two: its wrapper runs
 the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
 are the chat server's five turns, the spec turn's verify blocks among
 them); the last line is
@@ -158,6 +185,7 @@ import shutil
 import statistics
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -188,6 +216,7 @@ from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops import int4_matmul as int4_mod
 from teochat_torch.ops import quant as quant_mod
 from teochat_torch.ops import vit_attention as vit_mod
+from teochat_torch.serve import engine as engine_mod
 from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
 from teochat_torch.train.train import ModelArguments, TrainingArguments, train
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
@@ -517,6 +546,7 @@ K2M_CASES = [
     (1, 128, 32, 32, 4096, 128, [700], [100]),  # a text turn's suffix: the reported case
     (1, 512, 32, 32, 4096, 128, [700], [512]),
     (1, 1024, 32, 32, 4096, 128, [100], [874]),  # a turn that re-prefills three frames
+    (1, 2048, 32, 32, 4096, 128, [0], [2048]),  # the engine's suffix bucket of 2048
     # starts at the edges of 32- and 64-slot chunks
     (9, 9, 32, 32, 4096, 128, [0, 1, 31, 32, 33, 63, 64, 65, 700], [9, 9, 9, 9, 5, 9, 9, 9, 9]),
     (2, 128, 32, 32, 4096, 128, [63, 0], [128, 0]),  # row 1 has no live slot
@@ -1017,7 +1047,8 @@ def teacher_forced_gaps(model, ids, frames, out):
     pad_to = teochat_mod.round_to_bucket(fused, teochat_mod.SEQ_BUCKETS)
     plan = fusion_mod.build_fusion_plan([full], tokens_per_frame=tpf, pad_to=pad_to,
                                         max_length=cfg.tokenizer_model_max_length)
-    vision = model.encode(frames)
+    vision = (model.encode(frames) if frames is not None else
+              torch.zeros((1, tpf, cfg.llm.hidden_size), dtype=torch.bfloat16, device="cuda"))
     embeds = teochat_mod.multimodal_embeds(model.params, cfg, plan, vision)
     pos = torch.as_tensor(plan.position_ids, device="cuda")
     mask = torch.as_tensor(plan.attention_mask, device="cuda")
@@ -2077,6 +2108,430 @@ def phase_server(model, tokenizer, image_processor):
     return k2m
 
 
+# ------------------------------------------------------------ the serving engine
+
+ENGINE_PREFIX = [1] + list(range(300, 620))  # a 321-token text run two requests share
+
+
+def _engine_prompts(tokenizer, image_processor, rs):
+    """The engine phase's eight requests: (name, ids, frames, gen). Frames
+    are seeded uint8 images through the loaded ImageProcessor."""
+    def frames(n):
+        return image_processor.preprocess(
+            [rs.randint(0, 256, (*SERVE_FRAME_SIZES[i % 4], 3), dtype=np.uint8)
+             for i in range(n)])["pixel_values"]
+
+    def ids_of(text):
+        return tokenizer_image_token(text, tokenizer, IMAGE_TOKEN_INDEX)
+
+    def greedy(n, stops=()):
+        return GenerationConfig(max_new_tokens=n, temperature=0.0, do_sample=False,
+                                stop_strings=stops)
+
+    video4 = " ".join(f"Image {i + 1}: <image>" for i in range(4))
+    long_text = " ".join(f"w{1000 + i}" for i in range(160))  # ~1,200 fused tokens in all
+    return [
+        ("2-frame", ids_of(PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>")),
+         frames(2), greedy(32)),
+        ("4-frame long", ids_of(PROMPT_4.replace("<video>", video4) + " " + long_text),
+         frames(4), greedy(32)),
+        ("text", ids_of("What is a satellite image? Describe the land use."), None, greedy(32)),
+        ("one token", ids_of("Image 1 2 3 4"), None, greedy(1)),
+        ("stop string", ids_of("Has any land been cleared for construction?"), None,
+         None),  # its stop string comes from its own greedy answer
+        ("sampled t 0.8", ids_of("Identify the damaged buildings."), None,
+         GenerationConfig(max_new_tokens=32, temperature=0.8, do_sample=True, stop_strings=())),
+        ("prefix miss", ENGINE_PREFIX + [700, 701, 702], None, greedy(32)),
+        ("prefix hit", ENGINE_PREFIX + [710, 711, 712, 713], None, greedy(32)),
+    ]
+
+
+def _engine_snapshot(engine):
+    """The engine's device state and cache, and its generator's state."""
+    st = engine._state
+    names = ("last_tokens", "positions", "active", "temperature", "do_sample", "hist",
+             "hist_len", "adapter", "tokens", "col")
+    return ({n: getattr(st, n).clone() for n in names}, engine.cache.k.clone(),
+            engine.cache.v.clone(), st.generator.get_state())
+
+
+def _engine_restore(engine, snap):
+    """Write a snapshot back in place (the graph reads these addresses)."""
+    fields, k, v, gen_state = snap
+    for n, t in fields.items():
+        getattr(engine._state, n).copy_(t)
+    engine.cache.k.copy_(k)
+    engine.cache.v.copy_(v)
+    engine._state.generator.set_state(gen_state)
+
+
+def _admit_directly(engine, prompts):
+    """Prefill `prompts` [(ids, gen)] into slots 0.. of an engine that is not
+    started, through its own admission code, and read their first tokens."""
+    for slot, (ids, gen) in enumerate(prompts):
+        req = engine._make_request(ids, None, gen)
+        engine._slots[slot] = req
+        engine._prefill(req, slot)
+    engine._resolve_pending_first()
+
+
+def _engine_graph_check(model, tag):
+    """The engine's decode graph against its eager step over one chunk from
+    the same state (three rows prefilled, one left empty): the same tokens,
+    cache and launch counts, twice (the first graphed chunk holds the
+    warm-up step and the capture); then a host read planted in the step
+    must fail the capture of a fresh engine."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    g32 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [([1] + list(range(40 + 7 * r, 60 + 11 * r)), g32) for r in range(3)]
+    engine = BatchEngine(model, max_slots=4, max_len=512, chunk=8)
+    _admit_directly(engine, prompts)
+    llm, kw = model.params["llm"], engine._step_kw()
+    snap = _engine_snapshot(engine)
+    runs = []
+    for graph in (None, engine._decode_graph(), engine._decode_graph()):
+        _engine_restore(engine, snap)
+        toks, counts = counted(f"{tag} graph={graph is not None}", lambda: engine_mod._decode_chunk(
+            llm, model.cfg.llm, engine._state, chunk=engine.chunk, graph=graph, **kw).clone())
+        runs.append((toks, counts, engine.cache.k.clone(), engine.cache.v.clone()))
+    (want, want_counts, wk, wv) = runs[0]
+    for i, (toks, counts, k, v) in enumerate(runs[1:]):
+        diff = max((k.float() - wk.float()).abs().max().item(),
+                   (v.float() - wv.float()).abs().max().item())
+        log(f"[{tag}] graphed chunk {i + 1} "
+            f"({'warm-up, capture and 7 replays' if i == 0 else '8 replays'}) against the eager "
+            f"chunk: tokens {'equal' if torch.equal(toks, want) else 'DIFFER'}, the cache's "
+            f"largest difference {diff:.3e}, launches {counts} (eager {want_counts})")
+        check(torch.equal(toks, want) and counts == want_counts,
+              f"{tag}: the engine's graph against its eager step")
+    check(want_counts["K2"] == model.cfg.llm.num_layers * engine.chunk,
+          f"{tag}: K2 once a layer a step {want_counts}")
+    graph = engine._graph
+    log(f"[{tag}] the engine's graph: captured in {graph.capture_seconds:.3f} s, "
+        f"{graph.replays} replays")
+    engine.shutdown()
+    check(engine._graph is None and graph.graph is None, f"{tag}: shutdown dropped the graph")
+
+    sample = engine_mod._sample_rows
+
+    def reads_back(logits, generator, temperature, do_sample):
+        out = sample(logits, generator, temperature, do_sample)
+        out.sum().item()
+        return out
+
+    engine = BatchEngine(model, max_slots=4, max_len=512, chunk=8)
+    _admit_directly(engine, prompts[:1])
+    engine_mod._sample_rows = reads_back
+    try:
+        engine._dispatch_chunk()
+    except RuntimeError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+    else:
+        raised = None
+    finally:
+        engine_mod._sample_rows = sample
+    log(f"[{tag}] a capture with a host read in the engine's step: {raised or 'did NOT raise'}")
+    check(raised is not None and engine._graph.graph is None,
+          f"{tag}: a failed capture did not raise, or left a graph")
+    engine.shutdown()
+
+
+def _chunked_against_monolithic(model, ids, frames, prefill_chunk):
+    """The last-position logits of `ids` prefilled in pieces of
+    `prefill_chunk` (K2m over the row, as the engine's pieces) against a
+    stateless monolithic prefill (K1): relative L2."""
+    cfg, llm = model.cfg, model.params["llm"]
+    tpf = model.tokens_per_frame
+    fused = len(ids) + sum(t == IMAGE_TOKEN_INDEX for t in ids) * (tpf - 1)
+    n = -(-fused // prefill_chunk)
+    plan = fusion_mod.build_fusion_plan([ids], tokens_per_frame=tpf, pad_to=n * prefill_chunk,
+                                        max_length=2048)
+    emb = teochat_mod.fuse_embeds(llm, plan, model.encode(frames))
+    cache = llama_mod.init_cache(cfg.llm, 1, n * prefill_chunk + 1, dtype=torch.bfloat16,
+                                 device="cuda")
+    with torch.no_grad():
+        for i in range(n - 1):
+            engine_mod._prefill_chunk_write(llm, cache, cfg.llm,
+                                            emb[:, i * prefill_chunk:(i + 1) * prefill_chunk],
+                                            i * prefill_chunk, 0, -1)
+        start = (n - 1) * prefill_chunk
+        pos = torch.arange(start, start + prefill_chunk, dtype=torch.int32, device="cuda")[None]
+        got = llama_mod.llama_forward(
+            llm, cfg.llm, emb[:, start:], position_ids=pos, cache=cache, write_slots=pos,
+            logits_mode="last", last_index=torch.tensor([fused - 1 - start], device="cuda"),
+            prefill_start=start, attend_cache=True)[0, 0]
+    want = _stateless_prefill_logits(model, ids, frames)
+    return ((got - want).norm() / want.norm()).item(), n
+
+
+def phase_engine(model, tokenizer, image_processor):
+    """The continuous-batching engine (serve/engine.py) on the loaded int8
+    model: (a) eight requests at once, (b) aggregate tok/s at 8 and 16
+    streams beside one request at a time, (c) the prefix hit and miss TTFT,
+    the chat server in engine mode over HTTP, and the engine's graph
+    against its eager step. Returns the phase's entry of the JSON line."""
+    from teochat_torch.serve import session as session_mod
+    from teochat_torch.serve.chat import Chat
+    from teochat_torch.serve.engine import BatchEngine
+    from teochat_torch.serve.server import ChatServer
+
+    gen_mod.clear_decode_graphs()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rs = np.random.RandomState(SEED + 3)
+    entry = {}
+
+    # (a) eight requests at once: frames, text, one token, a stop string, a
+    # sampled one, a long prompt prefilled in pieces, a prefix miss then a hit
+    requests = _engine_prompts(tokenizer, image_processor, rs)
+    refs = {}
+    for name, ids, frames, gen in requests:
+        if name == "stop string":  # stop at the text of its own third greedy token
+            full = model.generate([ids], frames, GenerationConfig(
+                max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=()))[0]
+            stop = tokenizer.decode([full[2]])
+            gen = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False,
+                                   stop_strings=(stop,))
+            requests[[r[0] for r in requests].index(name)] = (name, ids, frames, gen)
+        if not gen.do_sample:
+            refs[name] = model.generate([ids], frames, gen)[0]
+    engine = BatchEngine(model, max_slots=8, max_len=2048, chunk=8, prefill_chunk=256,
+                         prefix_cache_slots=2, prefix_min_tokens=256)
+    fused = {name: engine._fused_len(ids) for name, ids, _, _ in requests}
+    results, done = {}, {name: threading.Event() for name, *_ in requests}
+
+    def submit(name, ids, frames, gen):
+        if name == "prefix hit":  # the pool holds the miss's prefix once it is answered
+            done["prefix miss"].wait()
+        try:
+            results[name] = wall(lambda: engine.submit(ids, frames, gen))
+        finally:
+            done[name].set()
+
+    def serve_all():
+        engine.start()
+        threads = [threading.Thread(target=submit, args=r) for r in requests]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    (_, wall_s), counts = counted("engine (a)", lambda: wall(serve_all))
+    capture_s, replays = engine._graph.capture_seconds, engine._graph.replays
+    engine.shutdown()
+    cache_gib = engine.cache.k.numel() * engine.cache.k.element_size() * 2 / 2**30
+    stats = dict(engine.stats)
+    check(set(results) == set(fused), f"engine (a): answered {sorted(results)}")
+    for name, ids, frames, gen in requests:
+        out, sec = results[name]
+        line = (f"[engine a] {name}: {fused[name]} fused tokens, {len(out)} tokens in "
+                f"{sec:.3f} s")
+        if gen.do_sample:
+            check(1 <= len(out) <= 32 and all(0 <= t < model.cfg.llm.vocab_size for t in out),
+                  f"engine (a) {name}: {out}")
+            log(line + " (sampled: ids in range)")
+            continue
+        gaps, _ = teacher_forced_gaps(model, ids, frames, out)
+        first = _first_difference(out, refs[name])
+        log(line + f"; against TEOChat.generate: first difference at {first}; largest gap to "
+            f"its position's largest logit {max(gaps):.3e} rms (bound {SPEC_GAP_TOL})")
+        check(max(gaps) <= SPEC_GAP_TOL, f"engine (a) {name}: a token {max(gaps)} rms below "
+              f"its position's largest logit")
+        if name == "one token":
+            check(len(out) == 1, f"engine (a): max_new_tokens 1 gave {out}")
+        if name == "stop string":  # it fires where the engine's tokens reach it
+            stop = gen.stop_strings[0]
+            fired = stop in tokenizer.decode(out)
+            log(f"[engine a] the stop string {stop!r} {'fired' if fired else 'did NOT fire'} "
+                f"after {len(out)} tokens")
+            check(fired or out[:3] != refs[name][:3], f"engine (a): {stop!r} did not fire")
+            check(not fired or stop not in tokenizer.decode(out[:-1]),
+                  f"engine (a): tokens after the stop string {stop!r}")
+    long_ids, long_frames = requests[1][1], requests[1][2]
+    rel, pieces = _chunked_against_monolithic(model, long_ids, long_frames, 256)
+    log(f"[engine a] the long request in {pieces} pieces of 256: its last logits against a "
+        f"monolithic prefill, rel L2 {rel:.3e} (bound {LOGITS_REL_L2_BOUND})")
+    check(rel <= LOGITS_REL_L2_BOUND, f"engine (a): pieces against monolithic {rel}")
+    check(stats["prefix_hits"] >= 1, f"engine (a): no prefix hit {stats}")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K2m", "K5")), f"engine (a) launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[engine a] 8 requests in {wall_s:.3f} s; stats {stats}; the longest wait of a running "
+        f"stream between two chunks {stats['max_chunk_gap_s'] * 1e3:.2f} ms (a chunk of 8 steps "
+        f"with admissions and pieces between); decode graph captured in "
+        f"{capture_s:.3f} s, {replays} replays; cache "
+        f"{cache_gib:.3f} GiB (8 + 2 rows of 2,048 slots); peak allocated {peak:.3f} GiB "
+        f"({held / 2**30:.3f} GiB held before); launches {counts}")
+    entry["a"] = {"wall_s": wall_s, "launches": counts, "prefix_hits": stats["prefix_hits"],
+                  "max_chunk_gap_s": stats["max_chunk_gap_s"],
+                  "capture_s": capture_s, "cache_gib": cache_gib, "peak_gib": peak}
+    del engine
+    gc.collect()
+
+    # the graph against the eager step, and a planted host read
+    _engine_graph_check(model, "engine graph")
+
+    # (b) aggregate tok/s at 8 and 16 text streams of 64 new tokens
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
+    engine = BatchEngine(model, max_slots=16, max_len=512, chunk=16).start()
+    try:
+        engine.submit(prompts[0], None, g64)  # the capture
+
+        def serve(batch):
+            threads = [threading.Thread(target=engine.submit, args=(p, None, g64))
+                       for p in batch]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        t8 = wall(lambda: serve(prompts))[1]
+        t16 = wall(lambda: serve(prompts * 2))[1]
+    finally:
+        engine.shutdown()
+    del engine
+    one_by_one = wall(lambda: [model.generate([p], None, g64) for p in prompts])[1]
+    smi = _timing.smi_line()
+    log(f"[engine b] {smi}: 8 streams of 121 + 64 tokens {t8:.3f} s, {8 * 64 / t8:.2f} tok/s; "
+        f"16 streams (the 8 prompts twice) {t16:.3f} s, {16 * 64 / t16:.2f} tok/s; the same 8 "
+        f"requests one at a time through TEOChat.generate {one_by_one:.3f} s, "
+        f"{8 * 64 / one_by_one:.2f} tok/s (16: twice that time, the same requests twice)")
+    entry["b"] = {"tok_s_8": 8 * 64 / t8, "tok_s_16": 16 * 64 / t16,
+                  "tok_s_one_at_a_time": 8 * 64 / one_by_one, "smi": smi}
+
+    # (c) the prefix hit and miss TTFT at a 512-token prefix (bench ttft_prefix)
+    miss, hit, _ = bench_main._ttft_prefix_at(bench_main.Settings(), model, 512, 1024, pool=4)
+    log(f"[engine c] a 1-token request with a 512-token text prefix: miss {miss * 1e3:.2f} ms, "
+        f"hit {hit * 1e3:.2f} ms (x{miss / hit:.2f}; medians of 3)")
+    entry["c"] = {"ttft_miss_s": miss, "ttft_hit_s": hit}
+
+    # the chat server in engine mode: four concurrent requests, one streamed;
+    # a session turn sent while the engine captures its graph
+    engine = BatchEngine(model, max_slots=4, max_len=1024, chunk=8).start()
+    server = ChatServer(Chat(model_bundle=(tokenizer, model, image_processor)),
+                        host="127.0.0.1", port=0, engine=engine).start_background()
+    port = server._httpd.server_address[1]
+    capture, prefill_full = gen_mod.DecodeGraph._warm_up_and_capture, gen_mod.prefill_full
+    turn = {"prompt": "Describe the land use in this image.",
+            "images": [_png_b64(rs, SERVE_FRAME_SIZES[3])], "timestamps": ["2020-01-01"],
+            "temperature": 0.0, "max_new_tokens": 16, "session_id": "s"}
+    session_seen, turn_thread = {}, []
+
+    def capture_with_a_turn(self, *args):
+        if self is engine._graph and not turn_thread:  # the engine's first capture
+            turn_thread.append(threading.Thread(target=lambda: session_seen.update(
+                answer=_http(port, "/generate", turn))))
+            turn_thread[0].start()
+            time.sleep(1.0)  # the turn reaches the worker, which waits for the device lock
+            session_seen["during_capture"] = "ids" not in session_seen
+        return capture(self, *args)
+
+    def recorded_prefill(*args, **kwargs):
+        logits, cache = prefill_full(*args, **kwargs)
+        session_seen["logits"] = logits[0].clone()
+        return logits, cache
+
+    generate = session_mod.ChatSession.generate
+
+    def recorded_generate(self, input_ids, pixel_values, gen=None, rng=None):
+        session_seen.update(ids=list(input_ids), frames=np.array(pixel_values))
+        return generate(self, input_ids, pixel_values, gen, rng)
+
+    gen_mod.DecodeGraph._warm_up_and_capture = capture_with_a_turn
+    gen_mod.prefill_full = recorded_prefill
+    session_mod.ChatSession.generate = recorded_generate
+    payloads = [{"prompt": f"What changed in scene {i}?", "images": [], "temperature": 0.0,
+                 "max_new_tokens": 16} for i in range(4)]
+    http = {}
+    try:
+        def post(i):
+            if i == 3:  # streamed by server-sent events
+                import urllib.request
+
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/generate", method="POST",
+                    data=json.dumps({**payloads[i], "stream": True}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    http[i] = [line.decode().strip() for line in r]
+            else:
+                http[i] = _http(port, "/generate", payloads[i])
+
+        def post_all():
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        (_, sec), counts = counted("engine http", lambda: wall(post_all))
+        if turn_thread:
+            turn_thread[0].join(300)
+        events = [line[len("data: "):] for line in http[3] if line.startswith("data: ")]
+        streamed = [t for e in events[:-1] for t in json.loads(e)["token_ids"]]
+        blocking = engine.submit(*server._engine_request(payloads[3]))
+        code, stats = _http(port, "/stats")
+    finally:
+        gen_mod.DecodeGraph._warm_up_and_capture = capture
+        gen_mod.prefill_full = prefill_full
+        session_mod.ChatSession.generate = generate
+        server.shutdown()
+        engine.shutdown()
+    check(all(http[i][0] == 200 for i in range(3)) and events[-1] == "[DONE]",
+          f"engine http: {http}")
+    log(f"[engine http] 4 concurrent requests in {sec:.3f} s (one by SSE, {len(events) - 1} "
+        f"events); the streamed token_ids {'equal' if streamed == blocking else 'DIFFER from'} "
+        f"a blocking request's ({len(streamed)} tokens); launches {counts}; /stats {stats}")
+    check(streamed == blocking and streamed, "engine http: the SSE tokens against a blocking "
+          "request's")
+    check(code == 200 and stats["mode"] == "continuous_batching" and stats["requests"] >= 5,
+          f"engine http: /stats {stats}")
+    code, answer = session_seen.get("answer", (None, None))
+    stateless = _stateless_prefill_logits(model, session_seen["ids"], session_seen["frames"])
+    rel = ((session_seen["logits"] - stateless).norm() / stateless.norm()).item()
+    log(f"[engine http] a session turn sent during the engine's first capture "
+        f"({'sent then' if session_seen.get('during_capture') else 'NOT sent then'}): HTTP "
+        f"{code}, its prefill logits against a stateless prefill rel L2 {rel:.3e} (bound "
+        f"{LOGITS_REL_L2_BOUND}); answer={(answer or {}).get('response', '')[:60]!r}")
+    check(session_seen.get("during_capture") is True and code == 200
+          and rel <= LOGITS_REL_L2_BOUND,
+          "engine http: the session turn sent during the capture")
+    gen_mod.clear_decode_graphs()
+    return entry
+
+
+def phase_engine_int4(model):
+    """One 4-stream engine run on the int4 model: K3b and K3c must launch."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    gen = GenerationConfig(max_new_tokens=16, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [[1] + list(range(20 + 3 * i, 60 + 5 * i)) for i in range(4)]
+    engine = BatchEngine(model, max_slots=4, max_len=256, chunk=8).start()
+
+    def serve():
+        out = [None] * 4
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, engine.submit(prompts[i], None, gen))) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    try:
+        (out, sec), counts = counted("engine int4", lambda: wall(serve))
+    finally:
+        engine.shutdown()
+    log(f"[engine int4] 4 streams of 16 tokens in {sec:.3f} s, {[len(o) for o in out]} tokens; "
+        f"stats {engine.stats}")
+    check(all(o and len(o) <= 16 for o in out), f"engine int4: {out}")
+    check(counts["K3b"] > 0 and counts["K3c"] > 0 and counts["K3c M<=8"] > 0,
+          f"engine int4 launches {counts}")
+    return counts
+
+
 def phase_checkpoint_int4(root):
     """The same checkpoint loaded with load_int4: one 2-frame request of uint8 frames."""
     from teochat_torch.builder import load_pretrained_model
@@ -2102,6 +2557,7 @@ def phase_checkpoint_int4(root):
     check(isinstance(answer, str) and answer, "checkpoint int4: empty answer")
     check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c M<=8", "K5"))
           and counts["K3c"] > counts["K3c M<=8"], f"checkpoint int4 launches {counts}")
+    phase_engine_int4(model)
     return counts
 
 
@@ -2285,6 +2741,7 @@ def main():
         phase_spec(model, hf_tokenizer, processor, ids, frames, "main")
         phase_logits(model, ids, frames)
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
+        engine_entry = phase_engine(model, hf_tokenizer, image_processor)
         gen_mod.clear_decode_graphs()
         phase_checkpoint_int4(ckpt_root)
     finally:
@@ -2350,7 +2807,7 @@ def main():
         bench_row("S2-b", "bench_vit_attention.cu", "bench_vit_attention.py:36"),
         bench_row("S2-c", "bench_vit_attention.cu", "bench_vit_attention.py:76"),
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "engine": engine_entry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,18 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
   over a session cache holding 640 committed tokens, K2m over the cache);
 - e2e: `xbd_2frame_e2e_latency_s_32newtok` (encode 2 frames + prefill 640
   fused tokens + 32 new tokens);
+- serve: 8 concurrent greedy requests of 121 text tokens and 64 new tokens
+  through the continuous-batching engine (serve/engine.py; max_slots 8,
+  max_len 512, chunk 16), the median of 3 runs:
+  `serve_aggregate_tokens_per_sec_8streams`, `serve_8x64tok_wall_s`,
+  `serve_max_concurrent`;
+- ttft_prefix: a 1-token request's time through the engine (queue, prefill,
+  first-token read) with a 512-token text prefix pooled (a hit: row copy and
+  suffix prefill) and not (a miss): `ttft_s_prefix_miss_515tok`,
+  `ttft_s_prefix_hit_515tok`, `prefix_hit_ttft_speedup`,
+  `prefix_tokens_saved`;
+- ttft_prefix_curve: the same at prefixes of 128, 1024 and 2048 tokens:
+  `ttft_s_prefix_{miss,hit}_{plen}tok`, `prefix_hit_ttft_speedup_{plen}`;
 - train: `train_tokens_per_sec`, `train_mfu` (LoRA r128 over the int8
   backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`.
 
@@ -43,6 +55,8 @@ import argparse
 import dataclasses
 import json
 import re
+import threading
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -50,12 +64,13 @@ import torch
 
 from teochat_torch.bench import _timing
 from teochat_torch.checkpoint import bridge
-from teochat_torch.config import TEOChatConfig
+from teochat_torch.config import GenerationConfig, TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.train import lora as lora_mod
 from teochat_torch.train import trainer as trainer_mod
 from teochat_torch.utils import resolve_device
@@ -76,6 +91,15 @@ class Settings:
     turn2_pad: int = 128
     turn2_max_len: int = 1024
     e2e_new: int = 32
+    serve_requests: int = 8  # serve: concurrent requests of 1 + serve_text tokens
+    serve_text: int = 120
+    serve_new: int = 64
+    serve_max_len: int = 512
+    serve_chunk: int = 16
+    prefix_len: int = 512  # ttft_prefix: the shared run, BOS included; 3 tokens follow
+    prefix_max_len: int = 1024
+    prefix_min_tokens: int = 32
+    prefix_curve: tuple = ((128, 512), (1024, 2048), (2048, 2560))  # (prefix, max_len)
     enc_batch: int = 32
     enc_iters: int = 20
     train_batch: int = 2
@@ -512,6 +536,108 @@ def phase_train(st: Settings) -> dict:
     }
 
 
+def _engine_model(st: Settings) -> teochat_mod.TEOChat:
+    """A TEOChat of the int8 decoder alone (the engine phases send no frames)."""
+    llm = bridge.init_llama(st.cfg.llm, st.generator(), st.dev, st.dtype, quant="int8")
+    return teochat_mod.TEOChat(st.cfg, {"llm": llm})
+
+
+def _greedy(n_new: int) -> GenerationConfig:
+    return GenerationConfig(max_new_tokens=n_new, temperature=0.0, do_sample=False,
+                            stop_strings=())
+
+
+def phase_serve(st: Settings) -> dict:
+    """Continuous-batching serving throughput: `serve_requests` concurrent
+    requests through the BatchEngine (per-request prefill, decode chunks
+    replayed over all rows, host scheduling at chunk boundaries), the
+    median of 3 runs after one warm-up request (its graph capture)."""
+    n_req, max_new = st.serve_requests, st.serve_new
+    gen = _greedy(max_new)
+    prompts = [[1] + list(range(10 + i, 10 + i + st.serve_text)) for i in range(n_req)]
+    with torch.no_grad():
+        engine = BatchEngine(_engine_model(st), max_slots=n_req, max_len=st.serve_max_len,
+                             chunk=st.serve_chunk).start()
+        try:
+            engine.submit(prompts[0], None, gen)
+
+            def run_all():
+                threads = [threading.Thread(target=engine.submit, args=(p, None, gen))
+                           for p in prompts]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                return time.perf_counter() - t0
+
+            dt = sorted(run_all() for _ in range(3))[1]
+            return {
+                f"serve_aggregate_tokens_per_sec_{n_req}streams": n_req * max_new / dt,
+                f"serve_{n_req}x{max_new}tok_wall_s": dt,
+                "serve_max_concurrent": engine.stats["max_concurrent"],
+            }
+        finally:
+            engine.shutdown()
+
+
+def _ttft_prefix_at(st: Settings, model, plen: int, max_len: int, pool: int):
+    """(miss, hit) 1-token request times through the engine at one shared
+    prefix of `plen` tokens (BOS and plen - 1 ids), with 3 tokens after it;
+    the median of 3 each, after one request that pools the prefix and one
+    that hits it (the warm-up of both paths)."""
+    gen = _greedy(1)
+
+    def prompt(base, i):
+        return [1] + list(range(base, base + plen - 1)) + [2000 + i, 2100 + i, 5 + i]
+
+    engine = BatchEngine(model, max_slots=2, max_len=max_len, chunk=4, prefix_cache_slots=pool,
+                         prefix_min_tokens=st.prefix_min_tokens).start()
+    try:
+        engine.submit(prompt(100, 0), None, gen)
+        engine.submit(prompt(100, 1), None, gen)
+
+        def timed(base, i):
+            t0 = time.perf_counter()
+            engine.submit(prompt(base, i), None, gen)
+            return time.perf_counter() - t0
+
+        # hits first: with a pool of 2 the misses' stores evict the shared entry
+        hit = sorted(timed(100, i) for i in (2, 3, 4))[1]
+        miss = sorted(timed(b, 0) for b in (3000, 5000, 7000))[1]
+        return miss, hit, engine.stats["prefix_tokens_saved"]
+    finally:
+        engine.shutdown()
+
+
+def phase_ttft_prefix(st: Settings) -> dict:
+    """Automatic prefix caching: TTFT of a request whose `prefix_len`-token
+    text prefix is pooled (row copy + suffix prefill, K2m) beside one whose
+    prefix is not (a monolithic prefill, K1), through the whole admission
+    path (queue, prefill, first-token read)."""
+    n = st.prefix_len + 3
+    with torch.no_grad():
+        miss, hit, saved = _ttft_prefix_at(st, _engine_model(st), st.prefix_len,
+                                           st.prefix_max_len, pool=4)
+    return {f"ttft_s_prefix_miss_{n}tok": miss, f"ttft_s_prefix_hit_{n}tok": hit,
+            "prefix_hit_ttft_speedup": miss / hit, "prefix_tokens_saved": saved}
+
+
+def phase_ttft_prefix_curve(st: Settings) -> dict:
+    """The prefix hit / miss TTFT at each (prefix, max_len) of
+    `prefix_curve` (bench.py's 128, 1024 and 2048; the 512 point is
+    ttft_prefix), one model for all, a pool of 2 rows."""
+    out = {}
+    with torch.no_grad():
+        model = _engine_model(st)
+        for plen, max_len in st.prefix_curve:
+            miss, hit, _ = _ttft_prefix_at(st, model, plen, max_len, pool=2)
+            out[f"ttft_s_prefix_miss_{plen}tok"] = miss
+            out[f"ttft_s_prefix_hit_{plen}tok"] = hit
+            out[f"prefix_hit_ttft_speedup_{plen}"] = miss / hit
+    return out
+
+
 PHASES: Dict[str, Callable[[Settings], dict]] = {
     "encode": phase_encode,
     "decode": phase_decode,
@@ -521,6 +647,9 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "decode_spec": phase_decode_spec,
     "ttft_turn2": phase_ttft_turn2,
     "e2e": phase_e2e,
+    "serve": phase_serve,
+    "ttft_prefix": phase_ttft_prefix,
+    "ttft_prefix_curve": phase_ttft_prefix_curve,
     "train": phase_train,
 }
 
@@ -530,9 +659,6 @@ UNPORTED = {
     "decode_int4_fp8kv": "the fp8 KV cache, item 11",
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
-    "serve": "the serving engine, item 9",
-    "ttft_prefix": "the serving engine's prefix cache, item 9",
-    "ttft_prefix_curve": "the serving engine's prefix cache, item 9",
     "eval": "batched evaluation, item 10",
     "preprocess": "device preprocessing, item 10",
     "encode_pipeline": "device preprocessing, item 10",

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 import weakref
 from typing import List, Optional, Sequence, Tuple
@@ -227,6 +228,10 @@ class DecodeState:
     keyword_ids: torch.Tensor  # [K, M] int32
     keyword_lens: torch.Tensor  # [K] int32
     eos_id: torch.Tensor  # [] int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.done.device
 
     @classmethod
     def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape) -> "DecodeState":
@@ -474,6 +479,10 @@ class SpecState:
     eos_id: torch.Tensor  # [] int32
     keep_prob: Optional[torch.Tensor] = None  # [] fp32: the bench's draft corruption
     oracle_ids: Optional[torch.Tensor] = None  # [B, max_new_tokens] int32: the bench's targets
+
+    @property
+    def device(self) -> torch.device:
+        return self.done.device
 
     @classmethod
     def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape, hist_width: int,
@@ -755,13 +764,15 @@ def decode_with_cache_spec(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
 # ------------------------------------------------------------ the CUDA graph
 
 _graphs: "collections.OrderedDict[tuple, DecodeGraph]" = collections.OrderedDict()
+_owned_graphs: "weakref.WeakSet[DecodeGraph]" = weakref.WeakSet()  # entries kept by their owner
 _capture_streams = {}  # device -> the side stream every capture on it runs on
 
 
 class DecodeGraph:
     """One loop iteration captured in a CUDA graph, with all it touches: a
-    decode step (`_decode_iteration` over a `DecodeState`) or a speculative
-    verify iteration (`_spec_iteration` over a `SpecState`).
+    decode step (`_decode_iteration` over a `DecodeState`), a speculative
+    verify iteration (`_spec_iteration` over a `SpecState`) or the serving
+    engine's step (serve/engine.py::_decode_step over its `EngineState`).
 
     It owns the loop's state and, for generate_tokens(_spec), its KV cache
     (the static buffers the graph reads and writes), the keyword tensors, a
@@ -775,19 +786,29 @@ class DecodeGraph:
     to one leaf drops the entry when the params are freed. An entry over a
     caller's cache (decode_with_cache(_spec)) is keyed by the cache's
     address too and holds it by a weak reference alike: the state's cache
-    is set for a call and cleared after it."""
+    is set for a call and cleared after it.
+
+    An owner that keeps its entry out of the table (the serving engine)
+    passes the generator its iteration draws from as `generator`: the graph
+    reads that one, and `release` drops the captured graph, which
+    `clear_decode_graphs` does to every such entry."""
 
     def __init__(self, state, iteration, anchor: torch.Tensor, step_kw: dict,
-                 cache_anchor: Optional[torch.Tensor] = None):
+                 cache_anchor: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
         self.state = state
         self.iteration = iteration
         self.step_kw = step_kw
-        draws = (step_kw["do_sample"] and step_kw["temperature"] > 0.0) or step_kw.get("draft_keep")
-        self.generator = torch.Generator(device=state.done.device) if draws else None
+        draws = ((step_kw.get("do_sample") and step_kw.get("temperature", 0.0) > 0.0)
+                 or step_kw.get("draft_keep"))
+        if generator is None and draws:
+            generator = torch.Generator(device=state.device)
+        self.generator = generator
         self.graph = None  # captured when a first iteration is asked for
         self.launches = {}  # LaunchCounter -> the launches one replay makes
         self.capture_seconds = None
         self.replays = 0
+        self._lock = threading.Lock()
         self._anchor = weakref.ref(anchor, _drop_dead_graphs)
         self._cache_anchor = (None if cache_anchor is None
                               else weakref.ref(cache_anchor, _drop_dead_graphs))
@@ -807,21 +828,31 @@ class DecodeGraph:
         if n <= 0:
             return
         gen = generator
-        if self.generator is not None:
+        handed = self.generator is not None and generator is not self.generator
+        if handed:
             self.generator.set_state(generator.get_state())
             gen = self.generator
-        if self.graph is None:
-            self._warm_up_and_capture(params, cfg, gen)
-            n -= 1
-        for _ in range(n):
-            self.graph.replay()
-        _build.add_counts(self.launches, n)
-        self.replays += n
-        if self.generator is not None:
+        with self._lock:
+            if self.graph is None:
+                self._warm_up_and_capture(params, cfg, gen)
+                n -= 1
+            for _ in range(n):
+                self.graph.replay()
+            _build.add_counts(self.launches, n)
+            self.replays += n
+        if handed:
             generator.set_state(self.generator.get_state())
 
+    def release(self) -> None:
+        """Drop the captured graph and its memory pool (after the work
+        queued on the card has run); the next `run` captures anew."""
+        with self._lock:
+            if self.graph is not None and self.state.device.type == "cuda":
+                torch.cuda.synchronize(self.state.device)
+            self.graph, self.launches = None, {}
+
     def _warm_up_and_capture(self, params, cfg, generator) -> None:
-        dev = self.state.done.device
+        dev = self.state.device
         if dev not in _capture_streams:
             _capture_streams[dev] = torch.cuda.Stream(dev)
         stream = _capture_streams[dev]
@@ -915,10 +946,19 @@ def decode_graphs() -> List[DecodeGraph]:
     return list(_graphs.values())
 
 
+def own_decode_graph(entry: DecodeGraph) -> DecodeGraph:
+    """Register an entry its owner keeps out of the table (the serving
+    engine's), so that `clear_decode_graphs` releases its graph too."""
+    _owned_graphs.add(entry)
+    return entry
+
+
 def clear_decode_graphs() -> None:
     """Drop every entry: its graph, memory pool, cache and buffers (the
     memory goes back to the caching allocator; `torch.cuda.empty_cache`
-    returns it to the card)."""
+    returns it to the card); an owned entry loses its captured graph."""
+    for entry in list(_owned_graphs):
+        entry.release()
     entries = list(_graphs.values())
     _graphs.clear()
     # freed after the table is consistent again: a cache an entry frees may

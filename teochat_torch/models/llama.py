@@ -26,7 +26,14 @@ the layer's cache slab in place through the decode kernel (K2) with
 kv_mask is a prefix of each row (`ops/decode_attention.py::query_lengths`).
 `spec_verify` treats an S > 1 block as S decode steps: each row scatters its
 writes at `write_slots`, then the block's queries attend the cache slab
-through K2m, the decode kernel's multi-query form. A session's suffix
+through K2m, the decode kernel's multi-query form. `attend_cache` makes an
+S > 1 prefill write its panel at `prefill_start` and then attend the row's
+cache through K2m, each query up to its own slot (a chunked prefill's later
+pieces, a prefix-cache hit's suffix: serve/engine.py). `cache_row_offset`
+runs a B-row forward over rows [offset, offset + B) of a cache that holds
+more rows, as views of each layer's slab (never a copy), and `kv_len` [B]
+or [B, S] caps each query's live length from the device
+(`slot <= q_slot & slot < kv_len`, with no host read). A session's suffix
 prefill runs this way over its committed conversation, and so does each
 verify block of the speculative loop (generation.py::_spec_iteration),
 with no kv_mask: JAX's `slot <= pos0 + k` there holds for every query's
@@ -149,7 +156,8 @@ def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None) -> torch.Tens
 def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache],
                      layer: int, write_slots, prefill_start: int, attn_impl: str,
                      attention_mask=None, right_padded: bool = False, lengths=None,
-                     spec_verify: bool = False) -> torch.Tensor:
+                     spec_verify: bool = False, row_offset: int = 0,
+                     attend_cache: bool = False) -> torch.Tensor:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:
@@ -170,13 +178,22 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
                                     impl=attn_impl, right_padded=right_padded)
         return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
-    k_slab, v_slab = cache.k[layer], cache.v[layer]  # [B, T, Hkv, D] views
+    # this batch's rows of the layer's slab, [B, T, Hkv, D] views
+    k_slab = cache.k[layer, row_offset:row_offset + b]
+    v_slab = cache.v[layer, row_offset:row_offset + b]
     if s > 1 and not spec_verify:
-        # prefill: one contiguous panel; causal attention over the fresh K/V
-        # equals attention over the cache, since the prompt starts at slot 0
+        # prefill: one contiguous panel at prefill_start
         k_slab[:, prefill_start:prefill_start + s] = k.to(cache.dtype)
         v_slab[:, prefill_start:prefill_start + s] = v.to(cache.dtype)
-        out = dot_product_attention(q, k, v, causal=True, impl=attn_impl)
+        if attend_cache:  # each query over the row's cache up to its own slot
+            out = decode_attention_multi(
+                q, k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
+                lengths, impl=attn_impl,
+            )
+        else:
+            # causal attention over the fresh K/V equals attention over the
+            # cache, since the prompt starts at slot 0
+            out = dot_product_attention(q, k, v, causal=True, impl=attn_impl)
     elif s == 1:
         rows = torch.arange(b, device=x.device)
         slots = write_slots[:, 0].long()
@@ -202,11 +219,11 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
                    prefill_start, attn_impl, attention_mask, right_padded, lengths=None,
-                   spec_verify=False) -> torch.Tensor:
+                   spec_verify=False, row_offset=0, attend_cache=False) -> torch.Tensor:
     y = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
                              prefill_start, attn_impl, attention_mask, right_padded,
-                             lengths, spec_verify)
+                             lengths, spec_verify, row_offset, attend_cache)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
     return x + _mlp(y, lp["mlp"], layer)
 
@@ -237,10 +254,11 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=None) -> torch.T
 
 
 def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
-                     attend_cache: bool) -> None:
+                     row_offset: int) -> None:
+    if cache is not None and not 0 <= row_offset <= cache.k.shape[1] - b:
+        raise ValueError(f"llama_forward: rows [{row_offset}, {row_offset + b}) "
+                         f"outside a cache of {cache.k.shape[1]} rows")
     unsupported = {
-        "attend_cache": attend_cache,
-        "a cache wider than the batch": cache is not None and cache.k.shape[1] != b,
         "int8_prefill_activations (w8a8)": cfg.int8_prefill_activations,
         "sequence_axis (ring attention)": cfg.sequence_axis is not None,
         "cache_sequence_axis (sharded cache)": cfg.cache_sequence_axis is not None,
@@ -261,16 +279,19 @@ def llama_forward(
     cache: Optional[KVCache] = None,
     write_slots: Optional[torch.Tensor] = None,
     kv_mask: Optional[torch.Tensor] = None,
-    logits_mode: str = "all",  # all | last
+    logits_mode: str = "all",  # all | last | none
     last_index: Optional[torch.Tensor] = None,
     remat: bool = False,
     right_padded: bool = False,
+    cache_row_offset: int = 0,
     prefill_start: int = 0,
     spec_verify: bool = False,
     attend_cache: bool = False,
+    kv_len: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",  # auto | plain
 ) -> torch.Tensor:
-    """Run the decoder stack; returns fp32 logits [B, S|1, V].
+    """Run the decoder stack; returns fp32 logits [B, S|1, V], or with
+    logits_mode 'none' the final norm's output [B, S, D] (no lm_head).
 
     inputs_embeds [B, S, D]; position_ids [B, S] RoPE positions.
     Cached path: write_slots [B, S] is the cache slot of each token (the slot
@@ -280,7 +301,13 @@ def llama_forward(
     ignores it, as in the JAX package. Without one a query attends `slot <=
     q_slot` and no host read is made (a CUDA graph can hold the forward).
     `spec_verify` runs an S > 1 block as S decode steps: writes at
-    `write_slots`, attention over the cache (K2m).
+    `write_slots`, attention over the cache (K2m). `attend_cache` makes an
+    S > 1 prefill (its panel written at `prefill_start`) attend the cache
+    through K2m, query s up to its slot write_slots[:, s]. The cached path
+    runs on rows [cache_row_offset, cache_row_offset + B) of the cache.
+    `kv_len` [B] or [B, S] int32 caps each decode / spec_verify /
+    attend_cache query's live length on the device (the JAX mask
+    `slot < kv_len`).
     Cache-free path (`cache=None`, training): `attention_mask` [B, S] marks
     the valid tokens, `right_padded` says the padding is all on the right,
     `remat` recomputes each layer in the backward. `last_index` [B] picks
@@ -289,21 +316,28 @@ def llama_forward(
     """
     x = inputs_embeds
     b, s, _ = x.shape
-    _check_supported(cfg, cache, b, attend_cache)
+    _check_supported(cfg, cache, b, cache_row_offset)
     cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
     mask = None if attention_mask is None else attention_mask.bool()
-    # the live length of each decode / spec_verify query, once for all layers
-    lengths = (query_lengths(write_slots, kv_mask)
-               if cache is not None and (s == 1 or spec_verify) else None)
+    # the live length of each query that reads the cache, once for all layers
+    lengths = None
+    if cache is not None and (s == 1 or spec_verify or attend_cache):
+        lengths = query_lengths(write_slots, kv_mask)
+        if kv_len is not None:
+            cap = kv_len if kv_len.ndim == 2 else kv_len[:, None]
+            lengths = torch.minimum(lengths, cap.to(torch.int32))
     for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
-                attn_impl, mask, right_padded, lengths, spec_verify)
+                attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
+                attend_cache)
         if remat and cache is None:
             x = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:
             x = _decoder_layer(*args)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
+    if logits_mode == "none":
+        return x
     if logits_mode == "last":
         if last_index is None:
             x = x[:, -1:]

@@ -2,7 +2,8 @@
 
 Its arithmetic (`_roofline_keys`, `_train_mfu`) is held against bench.py's on
 the same numbers, exactly, and so are the speculative phase's workloads and
-tokenizer; each ported phase runs at a tiny configuration on "cpu" and
+tokenizer; each ported phase (the serving engine's among them) runs at a
+tiny configuration on "cpu" and
 returns the keys its JAX twin returns (the times are the host's here and say
 nothing of a card); an unported phase raises and names its ROADMAP item; the
 shared timing helper's bound arithmetic is checked.
@@ -51,6 +52,18 @@ def tiny():
 
 
 @pytest.fixture(scope="module")
+def tiny_serve():
+    """The serving phases at a tiny size: 4 streams of 13 text tokens and 4
+    new ones; prefixes of 16 (ttft_prefix), 12 and 20 tokens, pooled from 8,
+    in a vocabulary that holds bench.py's ids (up to 7,000 + the prefix)."""
+    cfg = dataclasses.replace(tiny_test_config(vocab_size=8192), dtype="float32")
+    return bench_main.Settings(
+        cfg=cfg, device="cpu", serve_requests=4, serve_text=12, serve_new=4, serve_max_len=64,
+        serve_chunk=2, prefix_len=16, prefix_max_len=64, prefix_min_tokens=8,
+        prefix_curve=((12, 48), (20, 64)))
+
+
+@pytest.fixture(scope="module")
 def tiny_spec():
     """The tiny model with a vocabulary that holds the workloads' ids (up to
     171), 16 new tokens, 2 drafts; ttft_turn2's suffix of 8 over the
@@ -89,16 +102,30 @@ PHASE_KEYS = {
     "decode_int4": {"decode_tokens_per_sec_int4", "decode_effective_hbm_gbps_int4",
                     "decode_pct_of_hbm_peak_int4"},
     "e2e": {"xbd_2frame_e2e_latency_s_32newtok"},
+    # bench.py's keys carry its sizes (8 streams, 64 tokens, a 512 + 3 token
+    # prompt, prefixes 128 / 1024 / 2048); these carry tiny_serve's
+    "serve": {"serve_aggregate_tokens_per_sec_4streams", "serve_4x4tok_wall_s",
+              "serve_max_concurrent"},
+    "ttft_prefix": {"ttft_s_prefix_miss_19tok", "ttft_s_prefix_hit_19tok",
+                    "prefix_hit_ttft_speedup", "prefix_tokens_saved"},
+    "ttft_prefix_curve": {f"{key}_{plen}{unit}" for plen in (12, 20) for key, unit in (
+        ("ttft_s_prefix_miss", "tok"), ("ttft_s_prefix_hit", "tok"),
+        ("prefix_hit_ttft_speedup", ""))},
     "train": {"train_step_s_bs2_seq32", "train_tokens_per_sec", "tensor_core_peak_tflops",
               "train_mfu"},
 }
 
 
 @pytest.mark.parametrize("name", list(PHASE_KEYS))
-def test_phase_returns_its_keys_at_a_tiny_config(tiny, name):
-    out = bench_main.run_phase(name, tiny)
+def test_phase_returns_its_keys_at_a_tiny_config(tiny, tiny_serve, name):
+    serving = name in ("serve", "ttft_prefix", "ttft_prefix_curve")
+    out = bench_main.run_phase(name, tiny_serve if serving else tiny)
     assert set(out) == PHASE_KEYS[name]
     assert all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in out.values())
+    if name == "serve":
+        assert out["serve_max_concurrent"] >= 2
+    if name == "ttft_prefix":  # 3 hits of the 16-token prefix after the one that warms
+        assert out["prefix_tokens_saved"] == 4 * 16
     if name == "decode":
         assert out["prefill_tokens"] == 32
         assert out["decode_tokens_per_sec_min"] <= out["decode_tokens_per_sec"] \
@@ -146,6 +173,10 @@ def test_default_settings_give_bench_pys_keys():
     st = bench_main.Settings(device="cpu")
     assert (st.decode_new, st.spec_k, st.prompt_len, st.turn2_suffix) == (64, 8, 640, 64)
     assert (st.turn2_pad, st.turn2_max_len, st.text_tokens) == (128, 1024, 123)
+    assert (st.serve_requests, st.serve_text, st.serve_new, st.serve_max_len,
+            st.serve_chunk) == (8, 120, 64, 512, 16)
+    assert (st.prefix_len, st.prefix_max_len, st.prefix_min_tokens) == (512, 1024, 32)
+    assert st.prefix_curve == ((128, 512), (1024, 2048), (2048, 2560))
 
 
 def test_every_ported_phase_is_listed():

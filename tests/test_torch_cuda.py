@@ -1407,3 +1407,104 @@ def test_session_spec_turn_is_bit_equal_twice(decoders):
     del cache
     gc.collect()
     assert gen_mod.decode_graphs() == []
+
+
+# -------------------------------------------------- the serving engine's graph
+# (serve/engine.py): one decode step over all request rows of a cache with
+# pool rows after them, replayed `chunk` times a chunk from a CUDA graph the
+# engine owns, on the 2-layer decoder at 7B width above.
+
+
+def _engine(params, max_slots, max_len=256, chunk=8):
+    from teochat_torch.models.teochat import TEOChat
+    from teochat_torch.serve.engine import BatchEngine
+
+    model = TEOChat(dataclasses.replace(TEOChatConfig(), llm=GRAPH_CFG), {"llm": params})
+    return BatchEngine(model, max_slots=max_slots, max_len=max_len, chunk=chunk,
+                       prefix_cache_slots=1)
+
+
+def _engine_state(engine):
+    st = engine._state
+    return ({n: getattr(st, n).clone() for n in ("last_tokens", "positions", "active",
+                                                 "hist", "hist_len", "tokens", "col")},
+            engine.cache.k.clone(), engine.cache.v.clone())
+
+
+def _set_engine_state(engine, saved):
+    fields, k, v = saved
+    for n, t in fields.items():
+        getattr(engine._state, n).copy_(t)
+    engine.cache.k.copy_(k)
+    engine.cache.v.copy_(v)
+
+
+@pytest.mark.parametrize("max_slots", [1, 8])
+def test_engine_graph_replays_bit_equal_its_eager_step(decoders, max_slots):
+    """From the same state (greedy rows prefilled through the engine's own
+    admission, the last row of 8 left empty), a chunk of 8 steps replayed
+    from the engine's graph (its first: the warm-up step, the capture and 7
+    replays; its second: 8 replays) gives the eager chunk's tokens, cache
+    and state bit for bit; shutdown releases the graph."""
+    from teochat_torch.config import GenerationConfig
+    from teochat_torch.serve import engine as engine_mod
+
+    engine = _engine(decoders["int8"], max_slots)
+    gen = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    for slot in range(max(1, max_slots - 1)):
+        req = engine._make_request([1] + list(range(30 + 5 * slot, 50 + 9 * slot)), None, gen)
+        engine._slots[slot] = req
+        engine._prefill(req, slot)
+    engine._resolve_pending_first()
+    before = _engine_state(engine)
+    kw = dict(chunk=engine.chunk, **engine._step_kw())
+    llm, cfg = engine.model.params["llm"], GRAPH_CFG
+    want = engine_mod._decode_chunk(llm, cfg, engine._state, **kw).clone()
+    want_state = _engine_state(engine)
+    graph = engine._decode_graph()
+    for _ in range(2):
+        _set_engine_state(engine, before)
+        got = engine_mod._decode_chunk(llm, cfg, engine._state, graph=graph, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        got_state = _engine_state(engine)
+        for n, t in want_state[0].items():
+            assert torch.equal(got_state[0][n], t), n
+        assert torch.equal(got_state[1], want_state[1]) and torch.equal(got_state[2],
+                                                                         want_state[2])
+    assert graph.graph is not None and graph.replays == 15
+    engine.shutdown()
+    assert engine._graph is None and graph.graph is None
+
+
+def test_decode_kernel_reads_a_row_slice_of_a_wider_cache(gen):
+    """K2 on rows [0, 3) of a 5-row layer slab (a view, as the engine's
+    decode step reads the request rows before the pool rows) gives the bits
+    of K2 on a contiguous copy of those rows."""
+    k_all = _randn((2, 5, 300, 8, 128), gen)
+    v_all = _randn((2, 5, 300, 8, 128), gen)
+    k, v = k_all[1, 0:3].transpose(1, 2), v_all[1, 0:3].transpose(1, 2)
+    q = _randn((3, 32, 128), gen)
+    lens = torch.tensor([1, 200, 300], dtype=torch.int32, device="cuda")
+    got = dec_mod.decode_attention(q, k, v, lens)
+    want = dec_mod.decode_attention(q, k.contiguous(), v.contiguous(), lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_decode_multi_kernel_at_a_row_offset(gen):
+    """K2m on row 1 of a 3-row cache (a 1-row view at an offset, as the
+    engine's chunked prefill reads a request's row) gives the bits of the
+    same call on that row alone."""
+    k_all = _randn((3, 1024, 32, 128), gen)
+    v_all = _randn((3, 1024, 32, 128), gen)
+    k, v = k_all[1:2].transpose(1, 2), v_all[1:2].transpose(1, 2)
+    q = _randn((1, 256, 32, 128), gen)
+    lens = (torch.arange(256, 512, device="cuda", dtype=torch.int32) + 1)[None]
+    got = dec_mod.decode_attention_multi(q, k, v, lens)
+    want = dec_mod.decode_attention_multi(q, k_all[1:2].clone().transpose(1, 2),
+                                          v_all[1:2].clone().transpose(1, 2), lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
+    assert (got.float() - ref).abs().max().item() <= TOL

@@ -140,14 +140,17 @@ def test_cached_prefill_then_decode_matches_jax(quant, kv_heads):
 
 
 def test_unported_options_raise(plain_params):
+    """A cache wider than the batch and attend_cache are ported (the serving
+    engine's modes, tests/test_torch_engine.py); what is not raises."""
     cfg, params = plain_params
     tparams = to_torch(_np_tree(params), "cpu")
     cache = torch_llama.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
     x = torch.zeros(1, 1, cfg.hidden_size)
     one = torch.zeros(1, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="wider than the batch"):
-        torch_llama.llama_forward(tparams, cfg, x, position_ids=one, cache=cache, write_slots=one)
-    with pytest.raises(NotImplementedError, match="attend_cache"):
+    with pytest.raises(NotImplementedError, match="w8a8"):
+        torch_llama.llama_forward(tparams, dataclasses.replace(cfg, int8_prefill_activations=True),
+                                  x, position_ids=one, cache=cache, write_slots=one)
+    with pytest.raises(ValueError, match="outside a cache of 2 rows"):
         torch_llama.llama_forward(tparams, cfg, torch.zeros(2, 1, cfg.hidden_size),
                                   position_ids=one.expand(2, 1), cache=cache,
-                                  write_slots=one.expand(2, 1), attend_cache=True)
+                                  write_slots=one.expand(2, 1), cache_row_offset=1)
