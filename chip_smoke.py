@@ -76,7 +76,15 @@ them. Phases, each printing its lines before the last:
     the first example's truth is its greedy answer, taken by
     `run_inference` beforehand, so that the metrics are not empty and
     `eval()` must give that answer again; a second `eval()` with no model
-    and no dataset must read its JSON and return the same metrics;
+    and no dataset must read its JSON and return the same metrics; then
+    `eval(..., batch_size=4)` of the same examples, the split read through
+    a stand-in `datasets.load_dataset` (which must be called with JAX's
+    arguments): its answers beside batch 1's (the first difference), s an
+    example both ways, K1, K2 and K5 launching; and `preprocess_frames` on
+    the card on uint8 frames of 512 x 640, 100 x 120 (upsampled), 224 x 224
+    and 300 x 200 against its CPU run (PREPROCESS_CPU_TOL) and the native
+    ImageProcessor (mean |difference| within PREPROCESS_NATIVE_MEAN_TOL),
+    ms a frame with and without the upload beside the native path's;
 11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
     must launch; the graph against the eager loop and speculative decoding
     as in 7; then the last-position prefill logits of the 2-frame request
@@ -122,12 +130,24 @@ them. Phases, each printing its lines before the last:
     concurrent HTTP requests, one streamed by SSE whose token_ids equal a
     blocking request's, a session turn sent while the engine captures its
     graph (its prefill logits within LOGITS_REL_L2_BOUND of a stateless
-    prefill), /stats in `continuous_batching` mode;
+    prefill), /stats in `continuous_batching` mode; (d) the eight requests
+    of (a) through `BatchEngine(max_slots=8, max_len=2048, chunk=8,
+    speculative_k=4, adaptive_spec=False, prefix_cache_slots=2)`: each
+    greedy token within SPEC_GAP_TOL of its teacher-forced maximum and
+    where it first leaves (a)'s, no K2 launch and K2m once a layer a verify
+    iteration and a prefix hit; the speculative graph against its eager step
+    over one chunk (tokens, counts, hist, positions, launches bit-equal,
+    twice; the cache outside the trash slot) and a host read planted in the
+    step failing the capture; ms a plain and a speculative chunk of 8 steps
+    over 8 rows, both graphs over one state; (f) 8 text streams of 121 + 64
+    tokens, eight rounds, through the adaptive speculative engine (k 4)
+    beside the plain engine: tok/s, its mode switches and probes;
 14. `load_pretrained_model(path, load_int4=True)` from the same directory:
     one 2-frame request of uint8 frames (K3b and K3c must launch), then the
-    serving engine with 4 text streams (K3b and K3c must launch); the
-    directory is then removed, and after each model is deleted no decode
-    graph may be left;
+    serving engine with 4 text streams (K3b and K3c must launch), then a
+    plain and a speculative chunk over 8 rows (ms each; the verify blocks'
+    40 rows must take K3's M > 8 kernel); the directory is then removed,
+    and after each model is deleted no decode graph may be left;
 15. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
     K4c dQ) against autograd through its plain twin at training shapes, at
     head_dim 64, on non-causal calls with S != T, on ragged lengths that
@@ -142,7 +162,14 @@ them. Phases, each printing its lines before the last:
     projector, cosine schedule, accumulation 2, remat) on 16 synthetic
     2-frame conversations; the three K4 launch counts must rise;
 17. one micro-step's loss and trainable gradients with the kernels against
-    the same step on the plain attention;
+    the same step on the plain attention; then phase 13 (e) on the loaded
+    int8 model made the echo model in place (its last use: every layer's
+    out and down projections zero, the lm_head the embedding shifted by
+    one token, so the greedy successor of t is t + 1): 8 streams of a run
+    of 80 ids and its first three again, 64 new tokens, through the
+    speculative engine (k 4) and the plain one (the run's continuation
+    from both, and from `TEOChat.generate`; tokens a verify iteration, which
+    must exceed 1; tok/s both ways; ms a chunk both ways);
 18. the kernel benches' eight variants (teochat_torch/bench/int4_kernel.py:
     v2, v3, v4, v5, vpu, dma; bench/vit_attention.py: b, c) against their
     plain versions: the int4 ones at K 4096, N 11008, M = 1 and 8, tiles of
@@ -164,8 +191,9 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
 The line before the last is a JSON object with each of the nineteen
-kernel rows' launches, error, times and bound, and the engine phase's
-numbers under "engine" (K3c has two: its wrapper runs
+kernel rows' launches, error, times and bound, the engine phase's
+numbers under "engine" and the batched eval's and preprocessing's under
+"eval" (K3c has two: its wrapper runs
 the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
 are the chat server's five turns, the spec turn's verify blocks among
 them); the last line is
@@ -1871,12 +1899,13 @@ def phase_checkpoint_eval(gen, root):
     metrics, counts = counted("checkpoint eval", lambda: wall(lambda: eval_mod.eval(
         "fmow_high_res", dataset=dataset, model_bundle=(tokenizer, model, processor), **kwargs)))
     metrics, sec = metrics
+    sec_b1 = sec / len(dataset)
     with open(os.path.join(out_dir, "fmow_high_res",
                            "TEOChat-7B_prompt_strategy_interleave_chronological_prefix_True.json")) as f:
         outputs = json.load(f)
     steps = counts["K2"] // cfg.llm.num_layers
     log(f"[checkpoint] eval('fmow_high_res') on {len(dataset)} examples of 2-4 frames: "
-        f"{sec:.3f} s, {sec / len(dataset):.3f} s an example; {steps + len(dataset)} tokens "
+        f"{sec:.3f} s, {sec_b1:.3f} s an example; {steps + len(dataset)} tokens "
         f"generated ({len(dataset)} prefills, then {steps} decode steps: K2 launches / layers); "
         f"metrics {metrics}; responses {[o['response'][:40] for o in outputs]}")
     check(len(outputs) == len(dataset) and all(isinstance(o["response"], str) for o in outputs),
@@ -1894,7 +1923,109 @@ def phase_checkpoint_eval(gen, root):
     log(f"[checkpoint] the second eval() on the same out_dir, with no model: {sec:.3f} s, "
         f"metrics {again}")
     check(again == metrics and not any(cached.values()), "the cached eval")
-    return model, tokenizer, processor, counts
+    entry = {"batched": _eval_batched(path, root, dataset, (tokenizer, model, processor),
+                                      outputs, sec_b1=sec_b1),
+             "preprocess": _device_preprocess(processor)}
+    return model, tokenizer, processor, counts, entry
+
+
+def _eval_batched(path, root, dataset, bundle, outputs_b1, sec_b1):
+    """eval() of the same examples at batch_size 4, the split read through a
+    stand-in `datasets.load_dataset` (no network: it records its arguments
+    and hands back the examples): its answers beside batch 1's, s an
+    example both ways, K1, K2 and K5 launching. (Four examples: batch 8
+    would run the same single batch.)"""
+    from teochat_torch.eval import eval as eval_mod
+
+    calls = []
+    stand_in = types.ModuleType("datasets")
+    stand_in.load_dataset = lambda *a, **k: calls.append((a, k)) or dataset
+    saved = sys.modules.get("datasets")
+    sys.modules["datasets"] = stand_in
+    out_dir = os.path.join(root, "eval_b4")
+    try:
+        (metrics, sec), counts = counted("checkpoint eval batch 4", lambda: wall(
+            lambda: eval_mod.eval("fmow_high_res", model_path=path, out_dir=out_dir,
+                                  model_bundle=bundle, batch_size=4, temperature=0.0,
+                                  max_new_tokens=32)))
+    finally:
+        if saved is None:
+            del sys.modules["datasets"]
+        else:
+            sys.modules["datasets"] = saved
+    with open(os.path.join(out_dir, "fmow_high_res",
+                           "TEOChat-7B_prompt_strategy_interleave_chronological_prefix_True.json")) as f:
+        outputs = json.load(f)
+    same = [a["response"] == b["response"] for a, b in zip(outputs, outputs_b1)]
+    first = next((i for i, eq in enumerate(same) if not eq), None)
+    where = "" if first is None else (
+        f"; example {first} first differs at character "
+        f"{_first_difference(outputs[first]['response'], outputs_b1[first]['response'])}: "
+        f"{outputs[first]['response'][:60]!r} against {outputs_b1[first]['response'][:60]!r}")
+    log(f"[checkpoint] eval('fmow_high_res', batch_size=4) through a stand-in load_dataset "
+        f"{calls}: {sec:.3f} s, {sec / len(outputs):.3f} s an example (batch 1: {sec_b1:.3f}); "
+        f"answers equal to batch 1's on {sum(same)} of {len(same)}{where}; metrics {metrics}")
+    check(calls == [(("jirvin16/TEOChatlas",), {"split": "eval_fMoW_High_Res", "cache_dir": None,
+                                                "trust_remote_code": True})],
+          f"the split's read {calls}")
+    check(len(outputs) == len(dataset) and all(o["response"] for o in outputs),
+          "batched eval outputs")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K5")), f"batched eval launches {counts}")
+    return {"s_per_example": sec / len(outputs), "s_per_example_b1": sec_b1,
+            "answers_equal": sum(same), "launches": counts}
+
+
+# preprocess_frames on the card against its CPU run (the same fp32 products,
+# summed in another order: ~1e-6) and against the native ImageProcessor on
+# the same uint8 frames. The native path is PIL's fixed-point bicubic (a
+# narrower antialias filter when it upsamples) and rounds the resized frame to
+# uint8 before normalizing: read on the CPU over uniform noise frames, the
+# mean |difference| 0.004-0.006 and the largest 0.06 (downsampling) to 0.6
+# (upsampling) of a normalized value of range ~4; 0 on a 224 x 224 frame,
+# which neither resizes
+PREPROCESS_CPU_TOL = 1e-4
+PREPROCESS_NATIVE_MEAN_TOL = 1e-2
+
+
+def _device_preprocess(processor):
+    """`ops/preprocess.py::preprocess_frames` on the card at four frame
+    shapes: against its CPU run and the native ImageProcessor, and ms a
+    frame (the upload of the uint8 frames and the card's work, and the
+    card's work alone) beside the native path's."""
+    from teochat_torch.ops.preprocess import preprocess_frames
+
+    rs = np.random.RandomState(SEED + 9)
+    size = processor.size
+    out = {}
+    for h, w in ((512, 640), (100, 120), (224, 224), (300, 200)):
+        n = 8
+        frames = rs.randint(0, 256, (n, h, w, 3), dtype=np.uint8)
+        host = torch.from_numpy(frames)
+        on_card = host.cuda()
+        got = preprocess_frames(on_card, size)
+        sync()
+        err_cpu = (got.cpu() - preprocess_frames(host, size)).abs().max().item()
+        diff = (got.cpu() - torch.from_numpy(processor.preprocess(list(frames))["pixel_values"])).abs()
+        upload_ms = statistics.median(
+            wall(lambda: preprocess_frames(host.cuda(), size))[1] for _ in range(5)) * 1e3 / n
+        card_ms = time_ms(lambda: preprocess_frames(on_card, size)) / n
+        native_ms = statistics.median(
+            wall(lambda: processor.preprocess(list(frames)), "cpu")[1] for _ in range(3)) * 1e3 / n
+        log(f"[preprocess] {n} uint8 frames of {h} x {w} -> {tuple(got.shape[1:])}: against "
+            f"the CPU run max |diff| {err_cpu:.3e} (tol {PREPROCESS_CPU_TOL}); against the native "
+            f"ImageProcessor mean |diff| {diff.mean().item():.3e} (tol "
+            f"{PREPROCESS_NATIVE_MEAN_TOL}), largest {diff.max().item():.3e}; ms a frame: "
+            f"{upload_ms:.4f} with the upload, {card_ms:.4f} on the card alone, native "
+            f"{native_ms:.4f} on the host")
+        check(got.shape == (n, 3, size, size) and torch.isfinite(got).all().item(),
+              "preprocess_frames output")
+        check(err_cpu <= PREPROCESS_CPU_TOL, f"preprocess_frames: the card against the CPU {err_cpu}")
+        check(diff.mean().item() <= PREPROCESS_NATIVE_MEAN_TOL,
+              f"preprocess_frames against the native path {diff.mean().item()}")
+        out[f"{h}x{w}"] = {"ms_per_frame_upload": upload_ms, "ms_per_frame_card": card_ms,
+                           "ms_per_frame_native": native_ms, "max_err_cpu": err_cpu,
+                           "mean_diff_native": diff.mean().item()}
+    return out
 
 
 SERVE_FRAME_SIZES = ((300, 400), (256, 320), (333, 250), (400, 300))
@@ -2146,12 +2277,36 @@ def _engine_prompts(tokenizer, image_processor, rs):
     ]
 
 
+def _serve_named(engine, requests):
+    """Start `engine` and send `requests` [(name, ids, frames, gen)] from
+    threads at once (the prefix hit once the miss is answered, so that the
+    pool holds its prefix); returns {name: (tokens, seconds)}."""
+    results, done = {}, {name: threading.Event() for name, *_ in requests}
+
+    def submit(name, ids, frames, gen):
+        if name == "prefix hit":
+            done["prefix miss"].wait()
+        try:
+            results[name] = wall(lambda: engine.submit(ids, frames, gen))
+        finally:
+            done[name].set()
+
+    engine.start()
+    threads = [threading.Thread(target=submit, args=r) for r in requests]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
 def _engine_snapshot(engine):
     """The engine's device state and cache, and its generator's state."""
     st = engine._state
     names = ("last_tokens", "positions", "active", "temperature", "do_sample", "hist",
-             "hist_len", "adapter", "tokens", "col")
-    return ({n: getattr(st, n).clone() for n in names}, engine.cache.k.clone(),
+             "hist_len", "adapter", "tokens", "col", "spec_tokens", "spec_counts")
+    return ({n: getattr(st, n).clone() for n in names if getattr(st, n) is not None},
+            engine.cache.k.clone(),
             engine.cache.v.clone(), st.generator.get_state())
 
 
@@ -2237,6 +2392,130 @@ def _engine_graph_check(model, tag):
     engine.shutdown()
 
 
+SPEC_STATE = ("spec_tokens", "spec_counts", "hist", "hist_len", "positions", "active",
+              "last_tokens")
+
+
+def _spec_graph_check(model, tag):
+    """The engine's speculative graph against its eager step over one chunk
+    from the same state (three rows prefilled, one left empty): tokens,
+    counts, hist, positions and launch counts bit-equal, twice; the cache
+    compared outside the trash slot, which an inactive row writes k + 1
+    times in one scatter (an order CUDA leaves open, and no query reads
+    it). Then a host read planted in the step must fail the capture."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [([1] + list(range(40 + 7 * r, 60 + 11 * r)), g64) for r in range(3)]
+    engine = BatchEngine(model, max_slots=4, max_len=512, chunk=8, speculative_k=4)
+    _admit_directly(engine, prompts)
+    llm, kw = model.params["llm"], engine._step_kw(spec=True)
+    snap = _engine_snapshot(engine)
+    runs = []
+    for graph in (None, engine._decode_graph(spec=True), engine._decode_graph(spec=True)):
+        _engine_restore(engine, snap)
+
+        def chunk():
+            engine_mod._decode_chunk_spec(llm, model.cfg.llm, engine._state, chunk=engine.chunk,
+                                          graph=graph, **kw)
+            return {n: getattr(engine._state, n).clone() for n in SPEC_STATE}
+
+        fields, counts = counted(f"{tag} graph={graph is not None}", chunk)
+        k, v = engine.cache.k.clone(), engine.cache.v.clone()
+        k[:, :, -1], v[:, :, -1] = 0, 0
+        runs.append((fields, counts, k, v))
+    want, want_counts, wk, wv = runs[0]
+    for i, (fields, counts, k, v) in enumerate(runs[1:]):
+        same = [n for n in SPEC_STATE if torch.equal(fields[n], want[n])]
+        cache_same = torch.equal(k, wk) and torch.equal(v, wv)
+        log(f"[{tag}] graphed spec chunk {i + 1} "
+            f"({'warm-up, capture and 7 replays' if i == 0 else '8 replays'}) against the eager "
+            f"chunk: equal {same}; the cache outside the trash slot "
+            f"{'equal' if cache_same else 'DIFFERS'}; launches {counts} (eager {want_counts})")
+        check(len(same) == len(SPEC_STATE) and cache_same and counts == want_counts,
+              f"{tag}: the speculative graph against its eager step")
+    layers = model.cfg.llm.num_layers
+    check(want_counts["K2m"] == layers * engine.chunk and want_counts["K2"] == 0,
+          f"{tag}: K2m once a layer a verify iteration and K2 never {want_counts}")
+    emitted = want["spec_counts"][:3]
+    log(f"[{tag}] the chunk's tokens an iteration on rows 0-2 (random weights): "
+        f"{emitted.tolist()}")
+    graph = engine._spec_graph
+    capture_s, replays = graph.capture_seconds, graph.replays
+    log(f"[{tag}] the engine's speculative graph: captured in {capture_s:.3f} s, "
+        f"{replays} replays")
+    engine.shutdown()
+    check(engine._spec_graph is None and graph.graph is None, f"{tag}: shutdown dropped the graph")
+
+    emissions = engine_mod._spec_emissions
+
+    def reads_back(*args):
+        out = emissions(*args)
+        out[1].sum().item()
+        return out
+
+    engine = BatchEngine(model, max_slots=4, max_len=512, chunk=8, speculative_k=4)
+    _admit_directly(engine, prompts[:1])
+    engine_mod._spec_emissions = reads_back
+    try:
+        engine._dispatch_chunk()
+    except RuntimeError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+    else:
+        raised = None
+    finally:
+        engine_mod._spec_emissions = emissions
+    log(f"[{tag}] a capture with a host read in the speculative step: "
+        f"{raised or 'did NOT raise'}")
+    check(raised is not None and engine._spec_graph.graph is None,
+          f"{tag}: a failed capture did not raise, or left a graph")
+    engine.shutdown()
+    return {"capture_s": capture_s, "replays": replays}
+
+
+def _chunk_ms(model, prompts, tag, reps=3):
+    """ms a plain chunk and a speculative chunk of 8 steps (k = 4) over the
+    same `prompts` [(ids, gen)] admitted into an engine of as many rows,
+    each replayed from its graph (both graphs over one state), the median
+    of `reps` after one that captures; with the spec chunks' launches and
+    their tokens an iteration on the live rows."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    engine = BatchEngine(model, max_slots=len(prompts), max_len=512, chunk=8, speculative_k=4)
+    _admit_directly(engine, prompts)
+    llm, cfg = model.params["llm"], model.cfg.llm
+    plain, spec = engine._decode_graph(), engine._decode_graph(spec=True)
+
+    def run_plain():
+        engine_mod._decode_chunk(llm, cfg, engine._state, chunk=8, graph=plain,
+                                 **engine._step_kw())
+
+    def run_spec():
+        engine_mod._decode_chunk_spec(llm, cfg, engine._state, chunk=8, graph=spec,
+                                      **engine._step_kw(spec=True))
+
+    out = {}
+    for name, fn in (("spec", run_spec), ("plain", run_plain)):
+        wall(fn)  # warm-up and capture
+        (times, counts) = counted(f"{tag} {name} chunks", lambda: [wall(fn)[1]
+                                                                   for _ in range(reps)])
+        out[f"{name}_chunk_ms"] = statistics.median(times) * 1e3
+        out[f"{name}_launches"] = counts
+        if name == "spec":
+            live = engine._state.spec_counts[engine._state.spec_counts > 0].float()
+            out["spec_tokens_per_iteration"] = live.mean().item() if live.numel() else 0.0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] {_timing.smi_line()}: {len(prompts)} rows, a chunk of 8 steps replayed: plain "
+        f"{out['plain_chunk_ms']:.2f} ms ({out['plain_chunk_ms'] / 8:.2f} ms a step), "
+        f"speculative k 4 {out['spec_chunk_ms']:.2f} ms ({out['spec_chunk_ms'] / 8:.2f} ms a "
+        f"verify iteration of {len(prompts) * 5} rows), x{out['spec_chunk_ms'] / out['plain_chunk_ms']:.2f}; "
+        f"the last spec chunk's tokens an iteration on live rows "
+        f"{out['spec_tokens_per_iteration']:.2f}; captures {plain.capture_seconds:.3f} / "
+        f"{spec.capture_seconds:.3f} s; peak allocated {out['peak_gib']:.3f} GiB")
+    engine.shutdown()
+    return out
+
+
 def _chunked_against_monolithic(model, ids, frames, prefill_chunk):
     """The last-position logits of `ids` prefilled in pieces of
     `prefill_chunk` (K2m over the row, as the engine's pieces) against a
@@ -2300,25 +2579,8 @@ def phase_engine(model, tokenizer, image_processor):
     engine = BatchEngine(model, max_slots=8, max_len=2048, chunk=8, prefill_chunk=256,
                          prefix_cache_slots=2, prefix_min_tokens=256)
     fused = {name: engine._fused_len(ids) for name, ids, _, _ in requests}
-    results, done = {}, {name: threading.Event() for name, *_ in requests}
-
-    def submit(name, ids, frames, gen):
-        if name == "prefix hit":  # the pool holds the miss's prefix once it is answered
-            done["prefix miss"].wait()
-        try:
-            results[name] = wall(lambda: engine.submit(ids, frames, gen))
-        finally:
-            done[name].set()
-
-    def serve_all():
-        engine.start()
-        threads = [threading.Thread(target=submit, args=r) for r in requests]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-
-    (_, wall_s), counts = counted("engine (a)", lambda: wall(serve_all))
+    (results, wall_s), counts = counted("engine (a)",
+                                        lambda: wall(lambda: _serve_named(engine, requests)))
     capture_s, replays = engine._graph.capture_seconds, engine._graph.replays
     engine.shutdown()
     cache_gib = engine.cache.k.numel() * engine.cache.k.element_size() * 2 / 2**30
@@ -2499,11 +2761,185 @@ def phase_engine(model, tokenizer, image_processor):
           and rel <= LOGITS_REL_L2_BOUND,
           "engine http: the session turn sent during the capture")
     gen_mod.clear_decode_graphs()
+
+    entry["d"] = _engine_spec_requests(model, tokenizer, requests, results)
+    entry["d"]["graph"] = _spec_graph_check(model, "engine spec graph")
+    entry["d"]["chunks"] = _chunk_ms(model, [([1] + list(range(10 + i, 130 + i)), g64)
+                                             for i in range(8)], "engine spec chunk int8")
+    entry["f"] = _engine_adaptive_cell(model)
+    gen_mod.clear_decode_graphs()
     return entry
 
 
+def _engine_spec_requests(model, tokenizer, requests, plain_results):
+    """(d) the eight requests of (a) through the engine in speculative mode
+    (k 4, not adaptive, a prefix pool of 2, no chunked prefill): each
+    greedy token within SPEC_GAP_TOL of its teacher-forced maximum and where
+    it first leaves the plain engine's; no K2 launch (every chunk is
+    speculative), and K2m once a layer a verify iteration and a prefix hit."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    engine = BatchEngine(model, max_slots=8, max_len=2048, chunk=8, speculative_k=4,
+                         adaptive_spec=False, prefix_cache_slots=2)
+    (results, wall_s), counts = counted("engine (d)",
+                                        lambda: wall(lambda: _serve_named(engine, requests)))
+    graph = engine._spec_graph
+    capture_s, replays = graph.capture_seconds, graph.replays
+    engine.shutdown()
+    stats = dict(engine.stats)
+    check(set(results) == {r[0] for r in requests}, f"engine (d): answered {sorted(results)}")
+    worst = 0.0
+    for name, ids, frames, gen in requests:
+        out, sec = results[name]
+        line = f"[engine d] {name}: {len(out)} tokens in {sec:.3f} s"
+        if gen.do_sample:
+            check(1 <= len(out) <= 32 and all(0 <= t < model.cfg.llm.vocab_size for t in out),
+                  f"engine (d) {name}: {out}")
+            log(line + " (sampled: ids in range)")
+            continue
+        gaps, _ = teacher_forced_gaps(model, ids, frames, out)
+        worst = max(worst, max(gaps))
+        log(line + f"; against the plain engine (a): first difference at "
+            f"{_first_difference(out, plain_results[name][0])}; largest gap to its position's "
+            f"largest logit {max(gaps):.3e} rms (bound {SPEC_GAP_TOL})")
+        check(max(gaps) <= SPEC_GAP_TOL, f"engine (d) {name}: a token {max(gaps)} rms below "
+              f"its position's largest logit")
+        if name == "one token":
+            check(len(out) == 1, f"engine (d): max_new_tokens 1 gave {out}")
+        if name == "stop string":
+            stop = gen.stop_strings[0]
+            check(stop not in tokenizer.decode(out[:-1]),
+                  f"engine (d): tokens after the stop string {stop!r}")
+    iterations = stats["chunks"] * engine.chunk
+    layers = model.cfg.llm.num_layers
+    want_k2m = layers * (iterations + stats["prefix_hits"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = stats["spec_tokens"] / max(stats["spec_iterations"], 1)
+    log(f"[engine d] 8 requests in {wall_s:.3f} s; stats {stats}; {rate:.3f} tokens a row's "
+        f"verify iteration; {stats['chunks']} speculative chunks of 8 iterations: K2m "
+        f"{counts['K2m']} launches (layers x (iterations + prefix hits) = {want_k2m}), K2 "
+        f"{counts['K2']}; speculative graph captured in {capture_s:.3f} s, {replays} replays; "
+        f"peak allocated {peak:.3f} GiB ({held / 2**30:.3f} GiB held before)")
+    check(counts["K2"] == 0 and counts["K2m"] == want_k2m and stats["prefix_hits"] >= 1,
+          f"engine (d) launches {counts}, stats {stats}")
+    check(all(counts[k] > 0 for k in ("K1", "K5")), f"engine (d) launches {counts}")
+    return {"wall_s": wall_s, "launches": counts, "tokens_per_iteration": rate,
+            "largest_gap": worst, "capture_s": capture_s, "peak_gib": peak}
+
+
+def _engine_streams(engine, prompts, gen, runs):
+    """Seconds of each of `runs` rounds of `prompts` sent at once, after one
+    request that captures; and the tokens of the last round."""
+    engine.submit(prompts[0], None, gen)
+    out = [None] * len(prompts)
+
+    def round_():
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, engine.submit(prompts[i], None, gen))) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    return [wall(round_)[1] for _ in range(runs)], out
+
+
+def _engine_adaptive_cell(model):
+    """(f) 8 text streams of 121 + 64 tokens on random weights (prompt
+    lookup accepts next to nothing): the adaptive speculative engine (k 4)
+    against the plain engine, eight rounds each (~5 chunks of 16 a round:
+    past the 32 chunks after which the adaptive engine fires its first
+    probe); its mode switches and the probes it fired."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
+    out = {}
+    for name, kw in (("plain", {}), ("adaptive", dict(speculative_k=4, adaptive_spec=True))):
+        engine = BatchEngine(model, max_slots=8, max_len=512, chunk=16, **kw).start()
+        try:
+            times, _ = _engine_streams(engine, prompts, g64, runs=8)
+        finally:
+            engine.shutdown()
+        out[name] = {"tok_s": [8 * 64 / t for t in times], "stats": dict(engine.stats)}
+    a = out["adaptive"]["stats"]
+    log(f"[engine f] {_timing.smi_line()}: 8 streams of 121 + 64 tokens, eight rounds: plain "
+        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; adaptive k 4 "
+        f"{', '.join(f'{x:.2f}' for x in out['adaptive']['tok_s'])} tok/s; the adaptive engine "
+        f"switched {a.get('spec_mode_switches', 0)} times and fired {a.get('spec_probes', 0)} "
+        f"probes over {a['chunks']} chunks ({a.get('spec_tokens', 0)} tokens in "
+        f"{a.get('spec_iterations', 0)} row iterations of speculative chunks)")
+    check(a.get("spec_mode_switches", 0) >= 1, f"engine (f): drafting never switched off {a}")
+    return out
+
+
+def _echo_weights(model):
+    """Make `model` the echo model, in place: every layer's out and down
+    projections zero (their int8 bytes: a zero scale would come from a zero
+    amax), the lm_head the embedding shifted by one token and quantized as
+    the lm_head is. The greedy successor of token t is then t + 1."""
+    llm = model.params["llm"]
+    llm["layers"]["attn"]["out"]["kernel"].zero_()
+    llm["layers"]["mlp"]["down"]["kernel"].zero_()
+    shifted = torch.roll(llm["embed_tokens"]["embedding"].float(), 1, dims=0).t().contiguous()
+    q = quant_mod.quantize_kernel(shifted)
+    for name in ("kernel", "scale"):
+        llm["lm_head"][name].copy_(q[name])
+
+
+def phase_engine_echo(model):
+    """(e) the echo model at full width and depth (the loaded int8 model's
+    leaves, changed in place after every other use): 8 streams, each a run
+    of 80 successive ids then its first three again, 64 new tokens through
+    the speculative engine (k 4, not adaptive) and the plain one: every
+    draft the run holds is accepted. Tokens an iteration, aggregate tok/s
+    both ways, ms a chunk both ways, and one request through
+    TEOChat.generate, whose tokens the engines' must equal."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    gen_mod.clear_decode_graphs()
+    _echo_weights(model)
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    starts = [1000 + 1000 * i for i in range(8)]
+    prompts = [[1] + list(range(a, a + 80)) + [a, a + 1, a + 2] for a in starts]
+    want = [list(range(a + 3, a + 67)) for a in starts]
+    out = {}
+    for name, kw in (("plain", {}), ("spec", dict(speculative_k=4, adaptive_spec=False))):
+        engine = BatchEngine(model, max_slots=8, max_len=512, chunk=8, **kw).start()
+        try:
+            (times, tokens), counts = counted(f"engine echo {name}", lambda: _engine_streams(
+                engine, prompts, g64, runs=2))
+        finally:
+            engine.shutdown()
+        st = engine.stats
+        out[name] = {"tok_s": [8 * 64 / t for t in times], "launches": counts,
+                     "tokens_per_iteration": st.get("spec_tokens", 0) / max(
+                         st.get("spec_iterations", 0), 1)}
+        check(tokens == want, f"engine echo {name}: {[t[:8] for t in tokens]}")
+    generated = model.generate([prompts[0]], None, g64)[0]
+    # a run of 260 ids: enough for the 4 timed speculative chunks' drafts
+    chunks = _chunk_ms(model, [([1] + list(range(a, a + 260)) + [a, a + 1, a + 2], g64)
+                               for a in starts], "engine echo chunk")
+    rate = out["spec"]["tokens_per_iteration"]
+    log(f"[engine e] {_timing.smi_line()}: the echo model, 8 streams of 84 + 64 tokens, two "
+        f"rounds: speculative {', '.join(f'{x:.2f}' for x in out['spec']['tok_s'])} tok/s at "
+        f"{rate:.3f} tokens a row's verify iteration; plain "
+        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; TEOChat.generate's "
+        f"tokens {'equal' if generated == want[0] else 'DIFFER from'} the engines'")
+    check(rate > 1.0 and generated == want[0], f"engine echo: rate {rate}, generate {generated[:8]}")
+    out["chunks"] = chunks
+    gen_mod.clear_decode_graphs()
+    return out
+
+
 def phase_engine_int4(model):
-    """One 4-stream engine run on the int4 model: K3b and K3c must launch."""
+    """One 4-stream engine run on the int4 model (K3b and K3c must launch),
+    then a plain and a speculative chunk over 8 rows (`_chunk_ms`): the
+    verify blocks' 40 rows must take K3's M > 8 kernel. Returns the chunk
+    times."""
     from teochat_torch.serve.engine import BatchEngine
 
     gen = GenerationConfig(max_new_tokens=16, temperature=0.0, do_sample=False, stop_strings=())
@@ -2529,11 +2965,20 @@ def phase_engine_int4(model):
     check(all(o and len(o) <= 16 for o in out), f"engine int4: {out}")
     check(counts["K3b"] > 0 and counts["K3c"] > 0 and counts["K3c M<=8"] > 0,
           f"engine int4 launches {counts}")
-    return counts
+    # a speculative chunk at 8 rows: verify blocks of 8 x 5 = 40 rows take K3's M > 8 kernel
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    chunks = _chunk_ms(model, [([1] + list(range(10 + i, 130 + i)), g64) for i in range(8)],
+                       "engine int4 spec chunk")
+    spec = chunks["spec_launches"]
+    check(spec["K3c"] - spec["K3c M<=8"] > 0 and spec["K2"] == 0 and spec["K2m"] > 0,
+          f"engine int4: a speculative chunk's launches {spec}")
+    return chunks
 
 
 def phase_checkpoint_int4(root):
-    """The same checkpoint loaded with load_int4: one 2-frame request of uint8 frames."""
+    """The same checkpoint loaded with load_int4: one 2-frame request of uint8
+    frames, then the engine (phase_engine_int4). Returns the request's
+    launches and the engine's chunk times."""
     from teochat_torch.builder import load_pretrained_model
 
     path = os.path.join(root, "TEOChat-7B")
@@ -2557,8 +3002,7 @@ def phase_checkpoint_int4(root):
     check(isinstance(answer, str) and answer, "checkpoint int4: empty answer")
     check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c M<=8", "K5"))
           and counts["K3c"] > counts["K3c M<=8"], f"checkpoint int4 launches {counts}")
-    phase_engine_int4(model)
-    return counts
+    return {"request_launches": counts, "engine_chunks": phase_engine_int4(model)}
 
 
 def phase_bench_int4(gen):
@@ -2730,7 +3174,7 @@ def main():
     os.makedirs("results", exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="results")
     try:
-        model, hf_tokenizer, image_processor, _ = phase_checkpoint_eval(gen, ckpt_root)
+        model, hf_tokenizer, image_processor, _, eval_entry = phase_checkpoint_eval(gen, ckpt_root)
         cfg, params = model.cfg, model.params
         processor = FrameProcessor(cfg.vision.image_size, SEED)
         (ids, frames), int8_counts = counted(
@@ -2743,7 +3187,7 @@ def main():
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         engine_entry = phase_engine(model, hf_tokenizer, image_processor)
         gen_mod.clear_decode_graphs()
-        phase_checkpoint_int4(ckpt_root)
+        engine_entry["int4"] = phase_checkpoint_int4(ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     gen_mod.clear_decode_graphs()  # training starts from the model's own memory
@@ -2753,6 +3197,7 @@ def main():
     k4_rows = phase_flash_backward(gen)
     train_launches = phase_train(cfg, params, tokenizer, processor)
     phase_train_parity(cfg, params, tokenizer, processor, gen)
+    engine_entry["e"] = phase_engine_echo(model)  # the last use: it changes the weights
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2807,7 +3252,7 @@ def main():
         bench_row("S2-b", "bench_vit_attention.cu", "bench_vit_attention.py:36"),
         bench_row("S2-c", "bench_vit_attention.cu", "bench_vit_attention.py:76"),
     ]
-    print(json.dumps({"kernels": kernels, "engine": engine_entry}))
+    print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

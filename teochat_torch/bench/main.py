@@ -36,7 +36,20 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
 - ttft_prefix_curve: the same at prefixes of 128, 1024 and 2048 tokens:
   `ttft_s_prefix_{miss,hit}_{plen}tok`, `prefix_hit_ttft_speedup_{plen}`;
 - train: `train_tokens_per_sec`, `train_mfu` (LoRA r128 over the int8
-  backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`.
+  backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`;
+- eval: 16 synthetic 2-frame xBD-style examples (512 x 640 uint8 frames, 16
+  new tokens) through `run_inference_batched` at batch 8 and at batch 1:
+  `eval_examples_per_sec_bs8`, `_bs1`, `eval_bs8_vs_bs1`;
+- preprocess (the host alone): 64 frames of 512 x 640 through the PIL path
+  and the native one: `preprocess_pil_frames_per_sec`,
+  `preprocess_native_frames_per_sec`;
+- encode_pipeline: 8 batches of 32 raw 512 x 640 frames to vision tokens on
+  the bf16 tower, host-native preprocessing on a worker thread beside the
+  device encode (`encode_sustained_fps_hostpre`) and `preprocess_frames` on
+  the card (`encode_sustained_fps_devicepre`), beside the encode of frames
+  already on the card (`encode_frames_per_sec_deviceonly`,
+  `encode_sustained_vs_deviceonly`) and the upload rate of one batch of
+  uint8 frames (`h2d_mbps`).
 
 The two peaks are measured on this card, not read from a data sheet: the
 stream peak by tall-skinny `torch.matmul`s over eight distinct 512 MB bf16
@@ -57,6 +70,8 @@ import json
 import re
 import threading
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -66,10 +81,13 @@ from teochat_torch.bench import _timing
 from teochat_torch.checkpoint import bridge
 from teochat_torch.config import GenerationConfig, TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX
+from teochat_torch.data.processing import ImageProcessor
+from teochat_torch.eval.inference import run_inference_batched
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.ops.preprocess import preprocess_frames
 from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.train import lora as lora_mod
 from teochat_torch.train import trainer as trainer_mod
@@ -102,6 +120,12 @@ class Settings:
     prefix_curve: tuple = ((128, 512), (1024, 2048), (2048, 2560))  # (prefix, max_len)
     enc_batch: int = 32
     enc_iters: int = 20
+    frame_hw: tuple = (512, 640)  # eval, preprocess, encode_pipeline: raw uint8 frames
+    eval_examples: int = 16
+    eval_batch: int = 8
+    eval_new: int = 16
+    preprocess_n: int = 64  # preprocess: frames a timed call
+    pipeline_batches: int = 8  # encode_pipeline: batches of enc_batch frames
     train_batch: int = 2
     iters: int = 3
     stream_side: int = 16384  # the stream probe's panels are [side, side] bf16
@@ -638,6 +662,138 @@ def phase_ttft_prefix_curve(st: Settings) -> dict:
     return out
 
 
+class _BenchTokenizer:
+    """bench.py's whitespace tokenizer for the eval phase (random weights:
+    ids only need to be stable and in the vocabulary)."""
+
+    bos_token_id, eos_token_id = 1, 2
+
+    def __init__(self):
+        self.vocab, self.rev = {"<s>": 1, "</s>": 2}, {1: "<s>", 2: "</s>"}
+
+    def __call__(self, text):
+        ids = [1]
+        for w in text.split():
+            if w not in self.vocab:
+                idx = 10 + len(self.vocab) % 30000
+                self.vocab[w] = idx
+                self.rev[idx] = w
+            ids.append(self.vocab[w])
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids):
+        return " ".join(self.rev.get(int(i), ".") for i in ids)
+
+    def batch_decode(self, ids_batch, skip_special_tokens=True):
+        return [self.decode(i) for i in ids_batch]
+
+
+def _raw_frames(st: Settings, n: int, rng: np.random.RandomState) -> np.ndarray:
+    return rng.randint(0, 256, (n, *st.frame_hw, 3), np.uint8)
+
+
+def phase_eval(st: Settings) -> dict:
+    """Eval throughput: `eval_examples` synthetic 2-frame xBD-style examples
+    through `run_inference_batched` (frames by the native ImageProcessor on
+    a worker thread, one generate a batch) at `eval_batch` and at 1, the
+    int8 model, greedy, `eval_new` new tokens."""
+    cfg, dev = st.cfg, st.dev
+    tok = _BenchTokenizer()
+    model = teochat_mod.TEOChat(
+        cfg, bridge.init_teochat(cfg, st.generator(), dev, st.dtype, quant="int8"),
+        tokenizer=tok)
+    processor = ImageProcessor(size=cfg.vision.image_size)
+    rng = np.random.RandomState(0)
+    dataset = [{
+        "conversations": [
+            {"value": "These are two satellite images of the same area before and after a "
+                      f"disaster. <video> Is the building at [30{i % 10}, 283, 338, 308] "
+                      "damaged?"},
+            {"value": "yes"},
+        ],
+        "video": list(_raw_frames(st, 2, rng)),
+        "timestamp": ["2020-01-01", "2020-03-01"],
+        "task": "rqa",
+    } for i in range(st.eval_examples)]
+    out = {}
+    with torch.no_grad():
+        for bs in (st.eval_batch, 1):
+            def run():
+                run_inference_batched(
+                    dataset, model, tok, processor, prompt_strategy="interleave",
+                    chronological_prefix=True, conv_mode="v1", temperature=0.0,
+                    max_new_tokens=st.eval_new, batch_size=bs, progress=False)
+
+            out[f"eval_examples_per_sec_bs{bs}"] = st.eval_examples / _timing.timeit(run, 1, dev)
+    b = st.eval_batch
+    out[f"eval_bs{b}_vs_bs1"] = out[f"eval_examples_per_sec_bs{b}"] / out["eval_examples_per_sec_bs1"]
+    return out
+
+
+def phase_preprocess(st: Settings) -> dict:
+    """The host alone: PIL against the native C++ preprocessing, frames/s."""
+    from teochat_torch import native
+
+    frames = list(_raw_frames(st, st.preprocess_n, np.random.RandomState(0)))
+    pil = ImageProcessor(size=st.cfg.vision.image_size, use_native=False)
+    out = {"preprocess_pil_frames_per_sec":
+           len(frames) / _timing.timeit(lambda: pil.preprocess(frames), 3, "cpu")}
+    if native.available():
+        t_nat = _timing.timeit(lambda: native.preprocess_batch(
+            frames, pil.size, pil.image_mean, pil.image_std), 3, "cpu")
+        out["preprocess_native_frames_per_sec"] = len(frames) / t_nat
+    return out
+
+
+def phase_encode_pipeline(st: Settings) -> dict:
+    """Sustained encode from raw uint8 frames to vision tokens on the bf16
+    tower, each path one batch deep: (A) the native host preprocessing on a
+    worker thread while the card encodes the batch before; (B)
+    `preprocess_frames` on the card (the host uploads uint8 only). Beside
+    them the encode of frames already on the card and the upload rate of
+    one batch of raw frames. Not run: bench.py's w8a8 tower
+    (`quantize_vit_params`, ROADMAP queue 1 item 15) and its path C, which
+    resizes on the host with cv2 (`encode_sustained_fps_linkopt`): the
+    card's machine has no cv2."""
+    cfg, dev = st.cfg, st.dev
+    params = bridge.init_encoder(cfg, st.generator(), dev, st.dtype)
+    nb, bs, size = st.pipeline_batches, st.enc_batch, cfg.vision.image_size
+    raw = [_raw_frames(st, bs, np.random.RandomState(i)) for i in range(nb)]
+    proc = ImageProcessor(size=size)
+
+    def prep_host(i):
+        return proc.preprocess(list(raw[i]))["pixel_values"]
+
+    def encode(x):
+        return teochat_mod.encode_frames(params, cfg, x)
+
+    def run_host_path():
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(prep_host, 0)
+            for i in range(nb):
+                px = fut.result()
+                if i + 1 < nb:
+                    fut = pool.submit(prep_host, i + 1)
+                encode(torch.from_numpy(px).to(dev, st.dtype))
+
+    def run_device_path():
+        for i in range(nb):
+            encode(preprocess_frames(torch.from_numpy(raw[i]).to(dev), size).to(st.dtype))
+
+    out = {}
+    with torch.no_grad():
+        t_up = _timing.timeit(lambda: torch.from_numpy(raw[0]).to(dev), 1, dev)
+        out["h2d_mbps"] = raw[0].nbytes / t_up / 1e6
+        out["encode_sustained_fps_hostpre"] = nb * bs / _timing.timeit(run_host_path, 1, dev)
+        out["encode_sustained_fps_devicepre"] = nb * bs / _timing.timeit(run_device_path, 1, dev)
+        staged = torch.from_numpy(prep_host(0)).to(dev, st.dtype)
+        deviceonly = bs / _timing.timeit(lambda: encode(staged), nb, dev)
+    out["encode_frames_per_sec_deviceonly"] = deviceonly
+    out["encode_sustained_vs_deviceonly"] = max(
+        out["encode_sustained_fps_hostpre"], out["encode_sustained_fps_devicepre"]) / deviceonly
+    return out
+
+
 PHASES: Dict[str, Callable[[Settings], dict]] = {
     "encode": phase_encode,
     "decode": phase_decode,
@@ -651,6 +807,9 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "ttft_prefix": phase_ttft_prefix,
     "ttft_prefix_curve": phase_ttft_prefix_curve,
     "train": phase_train,
+    "eval": phase_eval,
+    "preprocess": phase_preprocess,
+    "encode_pipeline": phase_encode_pipeline,
 }
 
 # bench.py's other phases and keys, and the ROADMAP (queue 1) item each waits for
@@ -659,9 +818,6 @@ UNPORTED = {
     "decode_int4_fp8kv": "the fp8 KV cache, item 11",
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
-    "eval": "batched evaluation, item 10",
-    "preprocess": "device preprocessing, item 10",
-    "encode_pipeline": "device preprocessing, item 10",
     "train_bf16": "full fine-tuning, item 13 (deferred)",
     "train_accum8": "the accumulation-8 row of the train phase, item 13 (deferred)",
 }

@@ -6,11 +6,9 @@ classification/detection metric dispatch (:60-88), result caching keyed on
 model + prompt args with inference skipped when the JSON exists (:111-141),
 `load_model` (:15-34, over the port's builder; no separate video tower is
 built), and the CLI (:180-199) with the reference's defaults (temperature
-0.2, max_new_tokens 256, conv v1, interleave strategy).
-
-Not ported yet: reading a split with `datasets.load_dataset` (pass the
-examples as `dataset=`) and `batch_size > 1` (ROADMAP item 10); each raises
-where it is asked for.
+0.2, max_new_tokens 256, conv v1, interleave strategy). A split is read
+with `datasets.load_dataset` unless its examples are passed as `dataset=`;
+`batch_size > 1` runs the batched loop (inference.py::run_inference_batched).
 """
 
 from __future__ import annotations
@@ -129,11 +127,6 @@ def eval(
         with open(out_path) as f:
             outputs = json.load(f)
     else:
-        if dataset is None:
-            raise NotImplementedError(
-                f"reading the split eval_{hf_split} with datasets.load_dataset is not "
-                "ported yet (ROADMAP item 10); pass its examples as dataset="
-            )
         if model_bundle is not None:
             tokenizer, model, processor = model_bundle
         else:
@@ -141,6 +134,13 @@ def eval(
                 model_path, model_base, load_8bit=load_8bit, load_4bit=load_4bit,
                 load_int4=load_int4, cache_dir=cache_dir, device=device,
                 vision_path=vision_path, quantize_vision=quantize_vision,
+            )
+        if dataset is None:
+            from datasets import load_dataset
+
+            dataset = load_dataset(
+                "jirvin16/TEOChatlas", split=f"eval_{hf_split}",
+                cache_dir=data_cache_dir, trust_remote_code=True,
             )
         outputs = run_inference(
             dataset, model, tokenizer, processor, prompt_strategy,

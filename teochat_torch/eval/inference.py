@@ -3,15 +3,16 @@
 The port's own copy of teochat_tpu/eval/inference.py (itself an API-parity
 rebuild of reference videollava/eval/inference.py): `replace_video_token`
 (:11-20), `run_inference_single` (:23-77), `extract_bboxes` (:80-85),
-`run_inference` (:88-137). `model` is a `teochat_torch.models.teochat.TEOChat`;
-`rng` is a torch.Generator on its device or an int seed. Not ported yet:
-`run_inference_batched` (batch_size > 1) and the `mm_use_im_start_end`
-wrap; each raises where it is asked for.
+`run_inference` (:88-137), and the JAX package's `run_inference_batched`.
+`model` is a `teochat_torch.models.teochat.TEOChat`; `rng` is a
+torch.Generator on its device or an int seed. Not ported yet: the
+`mm_use_im_start_end` wrap, which raises where it is asked for.
 """
 
 from __future__ import annotations
 
 import re
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from typing import Dict, List, Optional, Sequence
 
@@ -160,9 +161,15 @@ def run_inference(
     progress: bool = True,
     speculative_k: int = 0,
 ) -> List[Dict]:
-    """Dataset loop (reference inference.py:88-137), one example at a time."""
+    """Dataset loop (reference inference.py:88-137). batch_size > 1 routes to
+    the batched loop."""
     if batch_size > 1:
-        raise NotImplementedError("run_inference_batched is not ported yet")
+        return run_inference_batched(
+            dataset, model, tokenizer, processor, prompt_strategy,
+            chronological_prefix, conv_mode, temperature, max_new_tokens,
+            dataset_name=dataset_name, batch_size=batch_size, progress=progress,
+            speculative_k=speculative_k,
+        )
     iterator = dataset
     if progress:
         from tqdm import tqdm
@@ -181,3 +188,76 @@ def run_inference(
         )
         outputs.append(_collect_output(example, response, dataset_name))
     return outputs
+
+
+def run_inference_batched(
+    dataset,
+    model,
+    tokenizer,
+    processor,
+    prompt_strategy: Optional[str],
+    chronological_prefix: bool,
+    conv_mode: str,
+    temperature: float,
+    max_new_tokens: int,
+    dataset_name: Optional[str] = None,
+    batch_size: int = 8,
+    progress: bool = True,
+    speculative_k: int = 0,
+) -> List[Dict]:
+    """Batched eval: examples sorted by fused length into batches of
+    `batch_size` (fewer pad tokens a batch), each batch's rows decoded
+    together by one `generate` with the first row's stop string; the frames
+    of the next batch are preprocessed on a worker thread while the current
+    one generates. Outputs come back in dataset order."""
+    examples = list(dataset)
+    prepped = []
+    for idx, example in enumerate(examples):
+        prompt, image_paths, stop_str = _build_prompt(
+            example["conversations"][0]["value"], example["video"], conv_mode,
+            example["timestamp"], prompt_strategy, chronological_prefix,
+            mm_use_im_start_end=getattr(
+                getattr(model, "cfg", None), "mm_use_im_start_end", False
+            ),
+        )
+        ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
+        n_frames = sum(1 for t in ids if t == IMAGE_TOKEN_INDEX)
+        fused = len(ids) + n_frames * (model.tokens_per_frame - 1)
+        prepped.append((idx, ids, image_paths, stop_str, fused))
+    prepped.sort(key=lambda p: p[4])
+
+    gen_base = dict(
+        max_new_tokens=max_new_tokens,
+        temperature=temperature,
+        do_sample=temperature > 0,
+        speculative_k=speculative_k,
+    )
+    responses: Dict[int, str] = {}
+    batches = [prepped[i : i + batch_size] for i in range(0, len(prepped), batch_size)]
+
+    def _prep(batch):
+        frames = [processor.preprocess(list(b[2]))["pixel_values"] for b in batch]
+        return np.concatenate(frames, axis=0) if frames else None
+
+    iterator = range(len(batches))
+    if progress:
+        from tqdm import tqdm
+
+        iterator = tqdm(iterator)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(_prep, batches[0]) if batches else None
+        for i in iterator:
+            batch = batches[i]
+            pixel_values = fut.result()
+            if i + 1 < len(batches):
+                fut = pool.submit(_prep, batches[i + 1])
+            ids_list = [b[1] for b in batch]
+            gen = GenerationConfig(stop_strings=(batch[0][3],), **gen_base)
+            outs = model.generate(ids_list, pixel_values, gen)
+            for (idx, _, _, _, _), out_ids in zip(batch, outs):
+                responses[idx] = tokenizer.decode(out_ids).replace("</s>", "").strip()
+
+    return [
+        _collect_output(example, responses[i], dataset_name)
+        for i, example in enumerate(examples)
+    ]

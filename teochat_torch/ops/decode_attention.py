@@ -201,8 +201,8 @@ def query_lengths(q_slots: torch.Tensor, kv_mask: Optional[torch.Tensor] = None)
     prefix = torch.arange(kv_mask.shape[-1], device=kv_mask.device)[None, :] < kv_len[:, None]
     if not torch.equal(kv_mask, prefix):
         raise NotImplementedError(
-            "query_lengths: a kv_mask that is not a prefix of each row is not ported "
-            "(ROADMAP queue 1 item 9)")
+            "query_lengths: a kv_mask that is not a prefix of each row has no length form; "
+            "every caller's mask is one")
     return torch.minimum(lengths, kv_len[:, None].to(torch.int32))
 
 

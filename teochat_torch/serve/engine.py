@@ -1,9 +1,7 @@
 """Continuous-batching serving engine: per-request KV rows over one cache.
 
-Port of teochat_tpu/serve/engine.py without its speculative mode (the
-engine's `speculative_k`, `_decode_chunk_spec` and the adaptive controller
-are ROADMAP queue 1 item 9's remainder). Up to `max_slots` requests share
-ONE KV cache of `max_slots + prefix_cache_slots` rows:
+Port of teochat_tpu/serve/engine.py. Up to `max_slots` requests share ONE
+KV cache of `max_slots + prefix_cache_slots` rows:
 
 - each request prefills into its own cache row (`cache_row_offset`,
   models/llama.py) while the other rows keep decoding between chunks;
@@ -12,23 +10,36 @@ ONE KV cache of `max_slots + prefix_cache_slots` rows:
   (an inactive row at the trash slot), runs the decoder with each row's live
   length capped on the device (`kv_len`, K2 reads an inactive row's one
   slot), samples, and records the token in a [max_slots, chunk] buffer;
+- with `speculative_k` = k > 0 a chunk runs `chunk` verify iterations
+  (`_spec_step`): each row drafts k tokens by prompt lookup over its
+  history, the block [last token, drafts] goes through one spec_verify
+  forward (K2m, each query up to its own slot), and each row emits 1 to
+  k + 1 tokens into a [max_slots, chunk, k + 1] buffer with their counts.
+  Greedy rows emit the plain step's tokens; sampled rows draw by exact
+  speculative sampling against the point-mass draft (`_spec_emissions`).
+  The adaptive controller (`_update_spec_mode`) falls back to plain chunks
+  while the tokens an iteration stay below `spec_disable_below`, and
+  re-probes with one speculative chunk every `spec_probe_every` chunks;
 - admission and completion happen on the host at chunk boundaries;
 - greedy rows give the tokens of a single-request `TEOChat.generate`, up to
   floating-point argmax ties between batch shapes.
 
 The scheduler's numbers live on the device in `EngineState`, fixed-shape
-tensors written in place (never rebound): on the card the step is captured
-once an engine in a CUDA graph (models/generation.py::DecodeGraph, an entry
-the engine owns, outside the session table) and replayed `chunk` times a
-chunk, and the graph reads these tensors where they lay at its capture. On
-the CPU the same step runs eagerly. The prefills run eagerly on the same
-stream between chunks; each returns its first token as a device tensor,
-which the host reads later (`_resolve_pending_first`).
+tensors written in place (never rebound): on the card each step is captured
+once an engine in a CUDA graph (models/generation.py::DecodeGraph; the
+plain step and the speculative step each have an entry the engine owns,
+outside the session table) and replayed `chunk` times a chunk, and the
+graphs read these tensors where they lay at their capture. On the CPU the
+same steps run eagerly. The prefills run eagerly on the same stream between
+chunks; each returns its first token as a device tensor, which the host
+reads later (`_resolve_pending_first`).
 
 The host reads a chunk's tokens one chunk late (the JAX engine's depth-1
 pipeline): chunk N + 1 is replayed before chunk N is read. A replay rewrites
-the step's token buffer, so each chunk's tokens are copied into one of two
-pinned host buffers, with an event, before the next chunk is replayed.
+the step's output buffers, so each chunk's outputs are copied into one of
+two pinned host buffers of their kind (a plain chunk's tokens; a
+speculative chunk's tokens and counts), with an event, before the next
+chunk is replayed.
 
 Every device call of the engine's scheduler thread is made under
 `device_lock`; the chat server in engine mode takes it around each session
@@ -77,6 +88,9 @@ class EngineState:
     tokens: torch.Tensor  # [S, chunk] int32: the chunk's tokens, column `col` a step
     col: torch.Tensor  # [1] int64: the step's column
     generator: torch.Generator  # the engine's own: every sampled row draws from it
+    # a speculative engine's chunk outputs (None without speculative_k):
+    spec_tokens: Optional[torch.Tensor] = None  # [S, chunk, k + 1] int32, column `col` an iteration
+    spec_counts: Optional[torch.Tensor] = None  # [S, chunk] int32: tokens emitted an iteration
 
     @property
     def device(self) -> torch.device:
@@ -84,7 +98,7 @@ class EngineState:
 
 
 def _init_engine_state(cache: llama_mod.KVCache, max_slots: int, max_len: int,
-                       chunk: int) -> EngineState:
+                       chunk: int, spec_k: int = 0) -> EngineState:
     dev = cache.k.device
 
     def buf(shape, dtype=torch.int32, fill=0):
@@ -97,6 +111,8 @@ def _init_engine_state(cache: llama_mod.KVCache, max_slots: int, max_len: int,
         hist_len=buf((max_slots,)), adapter=buf((max_slots,), fill=-1),
         tokens=buf((max_slots, chunk)), col=buf((1,), torch.int64),
         generator=torch.Generator(device=dev).manual_seed(0),
+        spec_tokens=buf((max_slots, chunk, spec_k + 1)) if spec_k else None,
+        spec_counts=buf((max_slots, chunk)) if spec_k else None,
     )
 
 
@@ -117,6 +133,49 @@ def _sample_rows(logits: torch.Tensor, generator: torch.Generator, temperature: 
     probs = torch.softmax(logits / temp, dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
     return torch.where(do_sample & (temperature > 0.0), sampled, greedy)
+
+
+def _sample_rows_excluding(logits: torch.Tensor, generator: torch.Generator,
+                           temperature: torch.Tensor, excluded: torch.Tensor) -> torch.Tensor:
+    """A per-row-temperature draw with one token's mass taken out and the
+    rest renormalized: the residual draw of speculative rejection sampling
+    against a point-mass draft. logits [B, V] fp32; temperature [B];
+    excluded [B], a token id or -1 (a plain draw). Returns [B] int32."""
+    lf = logits / temperature.clamp(min=1e-6)[:, None]
+    vocab = torch.arange(lf.shape[-1], device=lf.device)
+    excl = (vocab[None, :] == excluded[:, None]) & (excluded >= 0)[:, None]
+    probs = torch.softmax(torch.where(excl, float("-inf"), lf), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def _spec_emissions(blk_logits: torch.Tensor, targets: torch.Tensor, drafts: torch.Tensor,
+                    greedy_row: torch.Tensor, temperature: torch.Tensor,
+                    generator: torch.Generator):
+    """Each row's emissions and acceptances for one speculative iteration.
+
+    blk_logits [B, k + 1, V] the targets' logits for the block [tok, d_1..d_k];
+    targets = their argmax; drafts [B, k]; greedy_row [B]. A greedy row
+    accepts draft j where it equals the target before it and emits the
+    targets. A sampled row accepts draft j with probability P_j(d_j) at its
+    temperature; an accepted slot emits the draft, the first rejected one a
+    residual draw (the draft's mass taken out), slot k a plain draw from P_k:
+    every emitted token is distributed as plain sampling's. Every row draws
+    k + 2 times (fixed shapes for the graph), all from `generator`.
+    Returns (match [B, k] bool, emissions [B, k + 1] int32)."""
+    b, k1, _ = blk_logits.shape
+    k = k1 - 1
+    p = torch.softmax(blk_logits[:, :k] / temperature.clamp(min=1e-6)[:, None, None], dim=-1)
+    pd = torch.gather(p, -1, drafts.long()[..., None])[..., 0]
+    u = torch.rand(pd.shape, generator=generator, device=blk_logits.device)
+    match = torch.where(greedy_row[:, None], drafts == targets[:, :k], u < pd)
+    no_draft = torch.full((b,), -1, dtype=torch.int32, device=blk_logits.device)
+    emits = []
+    for j in range(k + 1):
+        res = _sample_rows_excluding(blk_logits[:, j], generator, temperature,
+                                     drafts[:, j] if j < k else no_draft)
+        emit_s = torch.where(match[:, j], drafts[:, j], res) if j < k else res
+        emits.append(torch.where(greedy_row, targets[:, j], emit_s))
+    return match, torch.stack(emits, dim=1)
 
 
 def _activate_slot(state: EngineState, slot: int, tok: torch.Tensor, position: int,
@@ -291,6 +350,86 @@ def _decode_chunk(params, cfg, state: EngineState, *, chunk: int, eos_id: int, p
     return state.tokens
 
 
+def _spec_step(params, cfg, st: EngineState, generator, *, spec_k: int, eos_id: int,
+               pad_id: int, emb_dtype) -> None:
+    """One speculative iteration over all request rows, in place; reads
+    nothing back (JAX's `_decode_chunk_spec` step).
+
+    A row within k + 1 slots of the trash slot goes inactive (the capacity
+    guard). Each row drafts k tokens by prompt lookup over its history; the
+    block [last token, drafts] is written at slots pos + j (an inactive row
+    writes all of it at the trash slot) and verified in one spec_verify
+    forward. JAX's mask `slot <= pos + k` is a prefix of each row, so it is
+    passed as kv_len = pos + k + 1 (1 for an inactive row): K2m reads
+    min(q_slot + 1, kv_len) and no host read is made. The emission chain
+    runs to the first rejected draft and stops at an EOS; the row's
+    tokens, their count, history, position and last token follow it, and an
+    EOS row goes inactive. The emissions land in column `col` of the chunk's
+    buffers."""
+    k = spec_k
+    b = st.active.shape[0]
+    trash = st.cache.max_len - 1
+    dev = st.device
+    rows = torch.arange(b, device=dev)
+    h_max = st.hist.shape[1]
+    pos = st.positions
+    act = st.active & (pos + k + 1 <= trash)  # the block never reaches the trash slot
+    drafts = gen_mod._draft_lookup(st.hist, st.hist_len, k)
+    blk = torch.cat([st.last_tokens[:, None], drafts], dim=1)  # [S, k + 1]
+    blk_pos = pos[:, None] + torch.arange(k + 1, device=dev)[None, :]
+    write = torch.where(act[:, None], blk_pos.clamp(max=trash - 1), trash)
+    kv_len = torch.where(act, pos + k + 1, 1)
+    emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
+    blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
+                                         write_slots=write, kv_len=kv_len, logits_mode="all",
+                                         spec_verify=True)  # [S, k + 1, V]
+    targets = torch.argmax(blk_logits, dim=-1).to(torch.int32)
+    greedy_row = ~(st.do_sample & (st.temperature > 0.0))
+    match, emissions = _spec_emissions(blk_logits, targets, drafts, greedy_row, st.temperature,
+                                       generator)
+    acc = torch.cumprod(match.to(torch.int32), dim=1).bool()
+    counts = torch.zeros(b, dtype=torch.int32, device=dev)
+    stopped = torch.zeros(b, dtype=torch.bool, device=dev)  # an EOS inside this block
+    new_tok = st.last_tokens.clone()
+    out = []
+    for j in range(k + 1):
+        # the chain: every draft before this slot accepted, no EOS before it
+        valid = act if j == 0 else act & acc[:, j - 1] & ~stopped
+        emit = torch.where(valid, emissions[:, j], pad_id)
+        out.append(emit)
+        counts += valid.to(torch.int32)
+        new_tok = torch.where(valid, emit, new_tok)
+        h_idx = st.hist_len.clamp(max=h_max - 1).long()
+        st.hist[rows, h_idx] = torch.where(valid, emit, st.hist[rows, h_idx])
+        st.hist_len.add_(valid.to(torch.int32))
+        stopped |= valid & (emit == eos_id)
+    st.positions.add_(counts)
+    # only an EOS and the capacity guard end a row: a rejected draft ends
+    # the chain of this iteration alone
+    st.active.copy_(act & ~stopped)
+    st.last_tokens.copy_(new_tok)
+    st.spec_tokens.index_copy_(1, st.col, torch.stack(out, dim=1)[:, None])
+    st.spec_counts.index_copy_(1, st.col, counts[:, None])
+    st.col.add_(1)
+
+
+@torch.no_grad()
+def _decode_chunk_spec(params, cfg, state: EngineState, *, chunk: int, spec_k: int, eos_id: int,
+                       pad_id: int, emb_dtype, graph: Optional[gen_mod.DecodeGraph] = None):
+    """Run `chunk` speculative iterations over all rows: replayed from
+    `graph` on the card, eagerly without one. Returns the buffers (tokens
+    [max_slots, chunk, k + 1], counts [max_slots, chunk]), rewritten by the
+    next speculative chunk."""
+    state.col.zero_()
+    if graph is not None:
+        graph.run(chunk, params, cfg, state.generator)
+    else:
+        for _ in range(chunk):
+            _spec_step(params, cfg, state, state.generator, spec_k=spec_k, eos_id=eos_id,
+                       pad_id=pad_id, emb_dtype=emb_dtype)
+    return state.spec_tokens, state.spec_counts
+
+
 @dataclasses.dataclass
 class _Request:
     input_ids: List[int]
@@ -334,13 +473,12 @@ class BatchEngine:
     def __init__(self, model: teochat_mod.TEOChat, *, max_slots: int = 4,
                  max_len: int = 2048, chunk: int = 8, kv_dtype=None,
                  speculative_k: int = 0,
+                 adaptive_spec: bool = True,
+                 spec_disable_below: float = 1.3,
+                 spec_probe_every: int = 32,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_slots: int = 0,
                  prefix_min_tokens: int = 256):
-        if speculative_k > 0:
-            raise NotImplementedError(
-                "BatchEngine(speculative_k > 0): the engine's speculative and adaptive mode is "
-                "not ported yet (ROADMAP queue 1 item 9)")
         if isinstance(kv_dtype, str):
             kv_dtype = getattr(torch, kv_dtype)
         if kv_dtype is not None and kv_dtype != model.dtype:
@@ -352,6 +490,18 @@ class BatchEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.chunk = chunk
+        self.speculative_k = speculative_k
+        # adaptive speculation: prompt lookup pays only where the output
+        # echoes its context. The engine keeps an EMA of the tokens a verify
+        # iteration emits over speculative chunks; below spec_disable_below
+        # it runs plain chunks (the same greedy tokens) and re-probes with
+        # one speculative chunk every spec_probe_every chunks
+        self.adaptive_spec = adaptive_spec
+        self.spec_disable_below = spec_disable_below
+        self.spec_probe_every = spec_probe_every
+        self._spec_ema: Optional[float] = None
+        self._spec_on = True
+        self._spec_probe_in = 0
         # chunked prefill: prompts longer than this many fused tokens commit
         # their K/V in prefill_chunk pieces, one piece a scheduling
         # iteration, so a long admission stalls running decodes by at most
@@ -370,13 +520,23 @@ class BatchEngine:
         self.device = model.device
         self.cache = llama_mod.init_cache(self.cfg.llm, max_slots + prefix_cache_slots, max_len,
                                           dtype=model.dtype, device=self.device)
-        self._state = _init_engine_state(self.cache, max_slots, max_len, chunk)
-        self._graph: Optional[gen_mod.DecodeGraph] = None  # made by the first chunk on the card
-        self._host_tokens = None
-        if self.device.type == "cuda":  # two pinned buffers, one a chunk in flight
-            self._host_tokens = [torch.empty((max_slots, chunk), dtype=torch.int32,
-                                             pin_memory=True) for _ in range(2)]
-        self._flip = 0
+        self._state = _init_engine_state(self.cache, max_slots, max_len, chunk, speculative_k)
+        # the decode graph entries, made by the first chunk of their kind on the card
+        self._graph: Optional[gen_mod.DecodeGraph] = None
+        self._spec_graph: Optional[gen_mod.DecodeGraph] = None
+        # pinned host copies of a chunk's outputs, two of each kind (one a
+        # chunk in flight): plain chunks' tokens, speculative chunks' (tokens, counts)
+        self._host_out = None
+        if self.device.type == "cuda":
+            def pinned(*shape):
+                return torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+            self._host_out = {"plain": [(pinned(max_slots, chunk),) for _ in range(2)]}
+            if speculative_k:
+                self._host_out["spec"] = [
+                    (pinned(max_slots, chunk, speculative_k + 1), pinned(max_slots, chunk))
+                    for _ in range(2)]
+        self._flip = {"plain": 0, "spec": 0}
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._dead: Optional[str] = None  # the fatal scheduler error, if any
         self._slots: List[Optional[_Request]] = [None] * max_slots
@@ -442,7 +602,7 @@ class BatchEngine:
 
     def _make_request(self, input_ids, pixel_values, gen, adapter: int = -1) -> _Request:
         fused_len = self._fused_len(input_ids)
-        if fused_len + gen.max_new_tokens + 1 > self.max_len:
+        if fused_len + gen.max_new_tokens + self.speculative_k + 1 > self.max_len:
             raise ValueError(
                 f"prompt ({fused_len} fused tokens) + max_new_tokens "
                 f"({gen.max_new_tokens}) exceeds engine max_len {self.max_len}"
@@ -473,16 +633,17 @@ class BatchEngine:
         return self
 
     def shutdown(self):
-        """Stop the scheduler, join it and drop the engine's decode graph."""
+        """Stop the scheduler, join it and drop the engine's decode graphs."""
         self._stop = True
         self._queue.put(None)  # wake the loop
         t = self._thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=60.0)
         with self.device_lock:
-            if self._graph is not None:
-                self._graph.release()
-                self._graph = None
+            for graph in (self._graph, self._spec_graph):
+                if graph is not None:
+                    graph.release()
+            self._graph = self._spec_graph = None
 
     def run_forever(self):
         while not self._stop:
@@ -809,44 +970,104 @@ class BatchEngine:
             req._push_stream()
             self._finish_if_done(req, slot)
 
-    def _decode_graph(self) -> Optional[gen_mod.DecodeGraph]:
-        """The engine's decode graph entry on the card (made at the first
-        chunk), None on the CPU."""
+    def _decode_graph(self, spec: bool = False) -> Optional[gen_mod.DecodeGraph]:
+        """The engine's own graph entry for its plain or its speculative step
+        on the card (made at the first chunk of that kind), None on the CPU.
+        Both capture over the same state and cache, and draw from the
+        engine's generator."""
         if self.device.type != "cuda":
             return None
-        if self._graph is None:
+        name = "_spec_graph" if spec else "_graph"
+        if getattr(self, name) is None:
             st = self._state
             anchor = self.model.params["llm"]["embed_tokens"]["embedding"]
-            self._graph = gen_mod.own_decode_graph(gen_mod.DecodeGraph(
-                st, _decode_step, anchor, self._step_kw(), generator=st.generator))
-        return self._graph
+            setattr(self, name, gen_mod.own_decode_graph(gen_mod.DecodeGraph(
+                st, _spec_step if spec else _decode_step, anchor, self._step_kw(spec),
+                generator=st.generator)))
+        return getattr(self, name)
 
-    def _step_kw(self) -> dict:
+    def _step_kw(self, spec: bool = False) -> dict:
         llm = self.cfg.llm
-        return dict(eos_id=int(llm.eos_token_id), pad_id=int(llm.pad_token_id),
-                    emb_dtype=self.model.dtype)
+        kw = dict(eos_id=int(llm.eos_token_id), pad_id=int(llm.pad_token_id),
+                  emb_dtype=self.model.dtype)
+        return dict(kw, spec_k=self.speculative_k) if spec else kw
+
+    def _update_spec_mode(self, tokens: int, iterations: int):
+        """The adaptive controller: fold one speculative chunk's tokens an
+        iteration into the EMA and turn drafting off or on."""
+        if not (self.adaptive_spec and self.speculative_k > 0) or not iterations:
+            return
+        rate = tokens / iterations
+        if not self._spec_on:
+            # a probe chunk decides on its own rate (the stale EMA is why
+            # drafting was turned off)
+            if rate >= self.spec_disable_below:
+                self._spec_on = True
+                self._spec_ema = rate
+                self.stats["spec_mode_switches"] = self.stats.get("spec_mode_switches", 0) + 1
+            else:
+                self._spec_probe_in = self.spec_probe_every
+            return
+        self._spec_ema = rate if self._spec_ema is None else 0.7 * self._spec_ema + 0.3 * rate
+        if self._spec_ema < self.spec_disable_below:
+            self._spec_on = False
+            self._spec_probe_in = self.spec_probe_every
+            self.stats["spec_mode_switches"] = self.stats.get("spec_mode_switches", 0) + 1
+
+    def _use_spec(self) -> bool:
+        """Whether the next chunk is speculative. A probe re-arms its
+        countdown when it is dispatched: the depth-1 pipeline dispatches the
+        next chunk before the probe's verdict is applied, and a re-arm at
+        apply time alone would fire two probes a window."""
+        use_spec = self.speculative_k > 0
+        if use_spec and self.adaptive_spec and not self._spec_on:
+            self._spec_probe_in -= 1
+            use_spec = self._spec_probe_in <= 0
+            if use_spec:
+                self._spec_probe_in = self.spec_probe_every
+                self.stats["spec_probes"] = self.stats.get("spec_probes", 0) + 1
+        return use_spec
 
     def _dispatch_chunk(self):
-        """Enqueue one decode chunk over the device state; returns its
-        tokens' host copy and the event that says it is done (None on the
-        CPU, where the copy is made at once)."""
-        toks = _decode_chunk(self.model.params["llm"], self.cfg.llm, self._state,
-                             chunk=self.chunk, graph=self._decode_graph(), **self._step_kw())
-        if self._host_tokens is None:
-            return toks.clone(), None
-        buf = self._host_tokens[self._flip]
-        self._flip ^= 1
-        buf.copy_(toks, non_blocking=True)
+        """Enqueue one decode chunk over the device state: speculative or
+        plain (`_use_spec`). Returns (the outputs' host copies, the event
+        that says they are done: None on the CPU, where they are copied at
+        once); a speculative chunk's outputs are (tokens, counts), a plain
+        one's (tokens,)."""
+        llm, cfg = self.model.params["llm"], self.cfg.llm
+        if self._use_spec():
+            kind = "spec"
+            outs = _decode_chunk_spec(llm, cfg, self._state, chunk=self.chunk,
+                                      graph=self._decode_graph(spec=True), **self._step_kw(True))
+        else:
+            kind = "plain"
+            outs = (_decode_chunk(llm, cfg, self._state, chunk=self.chunk,
+                                  graph=self._decode_graph(), **self._step_kw()),)
+        if self._host_out is None:
+            return tuple(t.clone() for t in outs), None
+        bufs = self._host_out[kind][self._flip[kind]]
+        self._flip[kind] ^= 1
+        for buf, t in zip(bufs, outs):
+            buf.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return buf, done
+        return bufs, done
 
     def _apply_chunk(self, snapshot, chunk_out):
         """Read a chunk's tokens and hand them to the snapshot's requests."""
-        buf, done = chunk_out
+        bufs, done = chunk_out
         if done is not None:
             done.synchronize()
-        toks = buf.numpy().tolist()
+        if len(bufs) == 2:  # a speculative chunk: each row's emissions by their counts
+            toks3, counts = bufs[0].numpy(), bufs[1].numpy()
+            emitting = int((counts > 0).sum())
+            self.stats["spec_iterations"] = self.stats.get("spec_iterations", 0) + emitting
+            self.stats["spec_tokens"] = self.stats.get("spec_tokens", 0) + int(counts.sum())
+            self._update_spec_mode(int(counts.sum()), emitting)
+            toks = [[int(t) for c in range(self.chunk) for t in toks3[r, c, :counts[r, c]]]
+                    for r in range(self.max_slots)]
+        else:
+            toks = bufs[0].numpy().tolist()
         now = time.perf_counter()
         if self._last_apply is not None:
             self.stats["max_chunk_gap_s"] = max(self.stats["max_chunk_gap_s"],

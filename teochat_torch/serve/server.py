@@ -10,7 +10,8 @@ A stdlib ThreadingHTTPServer speaking JSON:
     POST /reset {"session_id": str | null} -> {"status": "reset"}
     GET /health -> {"status": "ok"}
     GET /stats -> {"mode": "session", "sessions": {session_id: the session's counters}},
-                  or in engine mode {"mode": "continuous_batching", the engine's counters}
+                  or in engine mode {"mode": "continuous_batching", the engine's counters,
+                  and with speculation "spec_mean_tokens_per_step"}
 
 `session_id` gives each conversation its own multi-turn state (history,
 frames, incremental KV session); an omitted or null one uses the default
@@ -253,7 +254,11 @@ class ChatServer:
                     self._send(200, {"status": "ok"})
                 elif self.path == "/stats":
                     if server.engine is not None:
-                        self._send(200, {**server.engine.stats, "mode": "continuous_batching"})
+                        stats = {**server.engine.stats, "mode": "continuous_batching"}
+                        if stats.get("spec_iterations"):
+                            stats["spec_mean_tokens_per_step"] = round(
+                                stats["spec_tokens"] / stats["spec_iterations"], 3)
+                        self._send(200, stats)
                     else:
                         self._send(200, server._run({"_stats": True})["result"])
                 else:
@@ -357,15 +362,14 @@ def main(argv=None):
     p.add_argument("--prefix_min_tokens", type=int, default=256,
                    help="only pool text prefixes of at least this many tokens")
     p.add_argument("--speculative_k", type=int, default=0,
-                   help="verify k prompt-lookup drafts a decode step (engine mode; not ported "
-                        "yet)")
+                   help="verify k prompt-lookup drafts a decode step (engine mode only; greedy "
+                        "rows give the plain tokens, sampled rows draw by exact speculative "
+                        "sampling: the same distribution, not the same draws)")
     p.add_argument("--lora_paths", default=None,
                    help="comma-separated peft adapter dirs for multi-LoRA serving (not ported yet)")
     args = p.parse_args(argv)
 
     unported = [
-        (args.speculative_k > 0, "--speculative_k (the engine's speculative mode) is not "
-                                 "ported yet (ROADMAP queue 1 item 9)"),
         (args.lora_paths, "--lora_paths (multi-LoRA serving) is not ported yet "
                           "(ROADMAP queue 1 item 12)"),
         (args.quantize_vision, "--quantize_vision (the w8a8 tower) is not ported yet "
@@ -387,7 +391,7 @@ def main(argv=None):
 
         engine = BatchEngine(
             chat.model, max_slots=args.max_slots, max_len=args.max_len, chunk=args.chunk,
-            prefill_chunk=args.prefill_chunk, prefix_cache_slots=args.prefix_cache_slots,
+            speculative_k=args.speculative_k, prefill_chunk=args.prefill_chunk, prefix_cache_slots=args.prefix_cache_slots,
             prefix_min_tokens=args.prefix_min_tokens,
         ).start()
     print(f"serving on {args.host}:{args.port}" + (" (continuous batching)" if engine else ""))

@@ -2,8 +2,9 @@
 
 Its arithmetic (`_roofline_keys`, `_train_mfu`) is held against bench.py's on
 the same numbers, exactly, and so are the speculative phase's workloads and
-tokenizer; each ported phase (the serving engine's among them) runs at a
-tiny configuration on "cpu" and
+tokenizer and the eval phase's tokenizer; each ported phase (the serving
+engine's, eval's and the preprocessing ones among them) runs at a tiny
+configuration on "cpu" and
 returns the keys its JAX twin returns (the times are the host's here and say
 nothing of a card); an unported phase raises and names its ROADMAP item; the
 shared timing helper's bound arithmetic is checked.
@@ -64,6 +65,17 @@ def tiny_serve():
 
 
 @pytest.fixture(scope="module")
+def tiny_eval():
+    """eval, preprocess and encode_pipeline at a tiny size: 4 examples of two
+    40 x 52 frames in batches of 2 and 1, 3 new tokens; 4 frames to
+    preprocess; 2 batches of 2 frames through the tower."""
+    cfg = dataclasses.replace(tiny_test_config(vocab_size=256), dtype="float32")
+    return bench_main.Settings(
+        cfg=cfg, device="cpu", frame_hw=(40, 52), eval_examples=4, eval_batch=2, eval_new=3,
+        preprocess_n=4, pipeline_batches=2, enc_batch=2)
+
+
+@pytest.fixture(scope="module")
 def tiny_spec():
     """The tiny model with a vocabulary that holds the workloads' ids (up to
     171), 16 new tokens, 2 drafts; ttft_turn2's suffix of 8 over the
@@ -113,13 +125,24 @@ PHASE_KEYS = {
         ("prefix_hit_ttft_speedup", ""))},
     "train": {"train_step_s_bs2_seq32", "train_tokens_per_sec", "tensor_core_peak_tflops",
               "train_mfu"},
+    # bench.py's eval keys carry its batch of 8; these tiny_eval's batch of 2
+    "eval": {"eval_examples_per_sec_bs2", "eval_examples_per_sec_bs1", "eval_bs2_vs_bs1"},
+    "preprocess": {"preprocess_pil_frames_per_sec", "preprocess_native_frames_per_sec"},
+    "encode_pipeline": {"h2d_mbps", "encode_sustained_fps_hostpre",
+                        "encode_sustained_fps_devicepre", "encode_frames_per_sec_deviceonly",
+                        "encode_sustained_vs_deviceonly"},
 }
 
 
 @pytest.mark.parametrize("name", list(PHASE_KEYS))
-def test_phase_returns_its_keys_at_a_tiny_config(tiny, tiny_serve, name):
-    serving = name in ("serve", "ttft_prefix", "ttft_prefix_curve")
-    out = bench_main.run_phase(name, tiny_serve if serving else tiny)
+def test_phase_returns_its_keys_at_a_tiny_config(tiny, tiny_serve, tiny_eval, name):
+    if name in ("serve", "ttft_prefix", "ttft_prefix_curve"):
+        st = tiny_serve
+    elif name in ("eval", "preprocess", "encode_pipeline"):
+        st = tiny_eval
+    else:
+        st = tiny
+    out = bench_main.run_phase(name, st)
     assert set(out) == PHASE_KEYS[name]
     assert all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in out.values())
     if name == "serve":
@@ -169,6 +192,16 @@ def test_spec_workloads_and_tokenizer_are_bench_pys(jax_bench):
     assert ours == theirs and max(ours.values()) < 256
 
 
+def test_eval_tokenizer_is_bench_pys(jax_bench):
+    ours, theirs = bench_main._BenchTokenizer(), jax_bench._BenchTokenizer()
+    text = "A chat between a curious human <image> and an assistant. [301, 283, 338, 308]?"
+    for line in (text, text.upper(), text):
+        assert ours(line).input_ids == theirs(line).input_ids
+    ids = ours(text).input_ids
+    assert ours.decode(ids) == theirs.decode(ids)
+    assert ours.batch_decode([ids, ids[:3]]) == theirs.batch_decode([ids, ids[:3]])
+
+
 def test_default_settings_give_bench_pys_keys():
     st = bench_main.Settings(device="cpu")
     assert (st.decode_new, st.spec_k, st.prompt_len, st.turn2_suffix) == (64, 8, 640, 64)
@@ -177,6 +210,8 @@ def test_default_settings_give_bench_pys_keys():
             st.serve_chunk) == (8, 120, 64, 512, 16)
     assert (st.prefix_len, st.prefix_max_len, st.prefix_min_tokens) == (512, 1024, 32)
     assert st.prefix_curve == ((128, 512), (1024, 2048), (2048, 2560))
+    assert (st.frame_hw, st.eval_examples, st.eval_batch, st.eval_new) == ((512, 640), 16, 8, 16)
+    assert (st.preprocess_n, st.pipeline_batches, st.enc_batch) == (64, 8, 32)
 
 
 def test_every_ported_phase_is_listed():

@@ -16,7 +16,8 @@ state, made from numpy seeds:
 - `BatchEngine`'s greedy tokens against JAX's `TEOChat.generate`, request
   by request.
 Then the behaviour of tests/test_engine.py and tests/test_engine_prefix.py
-(all but the speculative and adaptive cases), held to the port's own
+(all but the speculative and adaptive cases, which
+tests/test_torch_engine_spec.py holds), held to the port's own
 `TEOChat.generate`; a decode step with every host read patched to raise;
 the chat server in engine mode (concurrent HTTP requests, SSE, /stats, a
 session turn that holds the engine's device lock); what is not ported
@@ -208,7 +209,7 @@ def test_forward_raises_for_what_is_not_ported(params):
     with pytest.raises(ValueError, match="outside a cache"):
         torch_llama.llama_forward(tllm, cfg.llm, x, position_ids=one, cache=cache,
                                   write_slots=one, cache_row_offset=2)
-    with pytest.raises(NotImplementedError, match="item 9"):  # a kv_mask that is not a prefix
+    with pytest.raises(NotImplementedError, match="not a prefix"):  # a kv_mask that is not one
         torch_llama.llama_forward(tllm, cfg.llm, x, position_ids=one, cache=cache,
                                   write_slots=one, kv_mask=torch.tensor([[0, 1] * 4]).bool())
 
@@ -768,15 +769,19 @@ def test_engine_graph_entry_is_the_engines_own(model):
     assert entry.graph is None and entry.launches == {}
 
 
-def test_what_is_not_ported_raises(model):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BatchEngine(model, speculative_k=4)
+def test_what_is_not_ported_raises(model, monkeypatch):
+    # the speculative mode is ported: an engine with speculative_k is built
+    # with its chunk buffers, and the server's flag reaches the device check
+    engine = BatchEngine(model, max_slots=2, max_len=32, chunk=3, speculative_k=4)
+    assert engine._state.spec_tokens.shape == (2, 3, 5)
+    assert engine._state.spec_counts.shape == (2, 3)
     with pytest.raises(NotImplementedError, match="item 11"):
         BatchEngine(model, kv_dtype="bfloat16")
     engine = BatchEngine(model, max_slots=1, max_len=32)
     with pytest.raises(ValueError, match="item 12"):
         engine._make_request([1, 2], None, _gen(2), adapter=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         server_mod.main(["--model_path", "unused", "--continuous_batching",
                          "--speculative_k", "4"])
 

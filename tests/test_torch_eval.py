@@ -5,11 +5,14 @@ each package's `eval()` on the same 2-example dataset of uint8 frames of
 non-square sizes: each loads the checkpoint through its own `load_model`,
 preprocesses the frames (the native path), generates greedily and writes its
 result JSON. The JSON files and the metrics must be equal, a second call
-must be answered from the JSON without a model, and unknown or unported
-requests must raise.
+must be answered from the JSON without a model, and unknown requests must
+raise; a split is read through a stand-in `datasets`, and batch_size 2 runs
+(tests/test_torch_eval_batched.py holds both to JAX's).
 """
 
 import json
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -92,12 +95,21 @@ def test_eval_with_a_model_bundle_and_the_unported_requests(ckpt, tmp_path):
     with pytest.raises(ValueError, match="Unsupported dataset"):
         torch_eval.main(["--dataset_name", "not_a_dataset", "--model_path", "x",
                          "--out_dir", str(tmp_path)])
-    # a split read from the hub, before any model is loaded
-    with pytest.raises(NotImplementedError, match="item 10"):
-        torch_eval.eval("aid", model_path=ckpt, out_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_eval.eval("ucm", model_path=ckpt, out_dir=str(tmp_path), dataset=dataset,
-                        model_bundle=bundle, batch_size=2)
+    # no dataset: the split is read through `datasets` (a stand-in here)
+    seen = []
+    stand_in = types.ModuleType("datasets")
+    stand_in.load_dataset = lambda *a, **k: seen.append((a, k)) or dataset
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "datasets", stand_in)
+        torch_eval.eval("aid", model_path=ckpt, out_dir=str(tmp_path), model_bundle=bundle,
+                        temperature=0.0, max_new_tokens=3)
+    assert seen == [(("jirvin16/TEOChatlas",), {"split": "eval_AID", "cache_dir": None,
+                                                 "trust_remote_code": True})]
+    # batch_size > 1 runs the batched loop
+    torch_eval.eval("ucm", model_path=ckpt, out_dir=str(tmp_path), dataset=dataset * 3,
+                    model_bundle=bundle, batch_size=2, temperature=0.0, max_new_tokens=3)
+    with open(next((tmp_path / "ucm").glob("*.json"))) as f:
+        assert len(json.load(f)) == 3
     assert torch_eval.DATASET_NAME_TO_HF_SPLIT == jax_eval.DATASET_NAME_TO_HF_SPLIT
     assert torch_eval.CLASSIFICATION_DATASETS == jax_eval.CLASSIFICATION_DATASETS
     assert torch_eval.DETECTION_DATASETS == jax_eval.DETECTION_DATASETS

@@ -176,6 +176,7 @@ class StubModel:
     """Records what `generate` is given and answers with fixed ids."""
 
     cfg = types.SimpleNamespace(mm_use_im_start_end=False)
+    tokens_per_frame = 4
 
     def __init__(self):
         self.calls = []
@@ -228,9 +229,11 @@ def test_inference_helpers_same_results():
                               True, "v1", 0.0, 4, progress=False)
             for mod in (jax_inference, torch_inference)]
     assert outs[0] == outs[1] and outs[1][0]["response"] == "<11> <12> <13>"
-    with pytest.raises(NotImplementedError):  # the batched loop is not ported
-        torch_inference.run_inference([example], StubModel(), WordTokenizer(), StubProcessor(),
-                                      "interleave", True, "v1", 0.0, 4, batch_size=2)
+    # batch_size > 1 goes through the batched loop, the port's own as JAX's
+    outs = [mod.run_inference([example], StubModel(), WordTokenizer(), StubProcessor(),
+                              "interleave", True, "v1", 0.0, 4, batch_size=2, progress=False)
+            for mod in (jax_inference, torch_inference)]
+    assert outs[0] == outs[1] and outs[1][0]["response"] == "<11> <12> <13>"
 
 
 # the JAX package, the JAX scripts (scripts/*.py) and the JAX bench (bench.py) at the root

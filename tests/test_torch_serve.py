@@ -161,7 +161,6 @@ def test_unported_options_raise(params):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--speculative_k", "4"], "item 9"),
     (["--lora_paths", "a,b"], "item 12"),
     (["--quantize_vision"], "item 15"),
 ])
