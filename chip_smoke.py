@@ -22,7 +22,14 @@ them. Phases, each printing its lines before the last:
    queries at the trash slot, a row with no live slot, head_dim 64 with
    group 4 and group 16, each twice, bit-equal, beside one
    `scaled_dot_product_attention` call with a boolean mask and the
-   launch's row tile and slot splits;
+   launch's row tile and slot splits; then the fp8 (e4m3) KV cache's
+   kernels (`phase_fp8_kernels`): the card's bf16 -> e4m3 cast against the
+   CPU's byte for byte on a fixed draw (values past 464 included), K2 on an
+   e4m3 slab over the K2 cases (DECODE_TOL against its plain version, the
+   bf16 K2's bits on the upcast slab, the same bits over a graph's replay;
+   ms and GB/s of live KV beside the bf16 kernel's) and K2m on an e4m3 slab
+   over K2M_CASES (held as the bf16 K2m, and the bf16 K2m's bits on the
+   upcast slab), each beside SDPA on the bf16 upcast;
 5. the int4 products (K3a flat, K3b tiled, K3c tiled and layer-stacked)
    against their plain version at the 7B projections' shapes, M = 1, 4 (the
    split-K `mma.sync` decode kernel), 16 and 768 (the M > 8 `wgmma`
@@ -52,7 +59,13 @@ them. Phases, each printing its lines before the last:
    oracle's 64 tokens exactly; tokens an iteration, acceptance, tok/s), a
    sampled run (t 0.8) giving the eager loop's tokens from the same seed,
    and ms a verify iteration at k = 1, 4, 7, 8 beside the plain graphed
-   step, tok/s, captures and the peak memory;
+   step, tok/s, captures and the peak memory; then generate over an e4m3
+   KV cache (`phase_fp8_generate`) at batch 1 and 32 (rows of 2, 1 and 0
+   frames): the graph's tokens against the eager loop's, the first token
+   against the bf16 cache's, each token of three rows within SPEC_GAP_TOL
+   of its teacher-forced maximum over an e4m3 cache (and its gap on the
+   bf16 path printed), K2's e4m3 form launching and the bf16 one never; ms
+   a step beside the bf16 cache's, both caches' GiB, the peak;
 8. the prefill logits of that model with the int4 kernels against the same
    forward on the plain `int4_proj`;
 9. one request through a 4-layer decoder at 7B width with 2 kv heads and
@@ -86,8 +99,8 @@ them. Phases, each printing its lines before the last:
     ImageProcessor (mean |difference| within PREPROCESS_NATIVE_MEAN_TOL),
     ms a frame with and without the upload beside the native path's;
 11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
-    must launch; the graph against the eager loop and speculative decoding
-    as in 7; then the last-position prefill logits of the 2-frame request
+    must launch; the graph against the eager loop, speculative decoding and
+    the e4m3 cache as in 7; then the last-position prefill logits of the 2-frame request
     with the kernels against the same forward on the plain attention;
 12. the chat server on that loaded model: the port's `ChatServer` on
     127.0.0.1 and an ephemeral port, in the background; over HTTP session
@@ -141,7 +154,13 @@ them. Phases, each printing its lines before the last:
     step failing the capture; ms a plain and a speculative chunk of 8 steps
     over 8 rows, both graphs over one state; (f) 8 text streams of 121 + 64
     tokens, eight rounds, through the adaptive speculative engine (k 4)
-    beside the plain engine: tok/s, its mode switches and probes;
+    beside the plain engine: tok/s, its mode switches and probes; (g) the
+    eight requests of (a) through `BatchEngine(kv_dtype="float8_e4m3fn")`,
+    plain (chunked prefill, a prefix hit) and speculative (k 4): each
+    greedy token within SPEC_GAP_TOL of its teacher-forced maximum over an
+    e4m3 cache, the e4m3 forms of K2 and K2m launching and the bf16 ones
+    never, the cache's GiB; 8 streams of 121 + 64 tokens through an e4m3
+    and a bf16 engine, tok/s;
 14. `load_pretrained_model(path, load_int4=True)` from the same directory:
     one 2-frame request of uint8 frames (K3b and K3c must launch), then the
     serving engine with 4 text streams (K3b and K3c must launch), then a
@@ -190,8 +209,11 @@ least time the card could take:
 the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16), the H100 SXM's published rates.
 
-The line before the last is a JSON object with each of the nineteen
-kernel rows' launches, error, times and bound, the engine phase's
+The line before the last is a JSON object with each of the twenty-one
+kernel rows' launches, error, times and bound (K2 and K2m twice: on a bf16
+and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
+generate's and the e4m3 engine's), the e4m3 generate's numbers under
+"fp8_generate", the engine phase's
 numbers under "engine" and the batched eval's and preprocessing's under
 "eval" (K3c has two: its wrapper runs
 the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
@@ -659,6 +681,140 @@ def phase_decode_multi(gen):
     return main
 
 
+E4M3 = torch.float8_e4m3fn
+
+
+def _e4m3_slab(shape, gen):
+    """A layer slab of an e4m3 [L, B, T, Hkv, D] cache read in place as
+    [B, Hkv, T, D], and its exact bf16 upcast."""
+    slab = _randn((2, *shape), gen).to(E4M3)[1].transpose(1, 2)
+    return slab, slab.to(torch.bfloat16)
+
+
+def _graph_replay_bits(fn):
+    """`fn()`'s output from a CUDA graph's replay: (eager, replayed), after a
+    warm-up on a side stream (the tickets exist before the capture)."""
+    eager = fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    sync()
+    return eager, out
+
+
+def phase_fp8_kernels(gen):
+    """The fp8 (e4m3) KV cache's kernels: (a) the card's bf16 -> e4m3 cast
+    gives the CPU's bytes on a fixed draw, the values at and past 448
+    included; (b) K2 on an e4m3 slab over phase_decode's cases against its
+    plain version (DECODE_TOL), bit-equal to the bf16 K2 on the upcast slab
+    and over a CUDA graph's replay, ms and GB/s of live KV beside the bf16
+    kernel's; (c) K2m on an e4m3 slab over K2M_CASES held as phase_decode_multi
+    holds the bf16 kernel, bit-equal to the bf16 K2m on the upcast slab.
+    Returns the two kernel rows (bound at one byte a cached value; the
+    library call is SDPA on the bf16 upcast: none reads e4m3 in place)."""
+    rs = np.random.RandomState(SEED)
+    x = torch.from_numpy(np.concatenate([
+        rs.randn(200_000) * 60, [448, 464, 466, 480, 1e4, -448, -464, -466, -480, -1e4]])
+        .astype(np.float32)).to(torch.bfloat16)
+    cpu, card = x.to(E4M3).view(torch.uint8), x.cuda().to(E4M3).view(torch.uint8).cpu()
+    past = x.float().abs() > 464
+    log(f"[fp8 cast] {x.numel()} bf16 values, {int(past.sum())} past 464: the card's e4m3 bytes "
+        f"{'equal' if torch.equal(cpu, card) else 'DIFFER from'} the CPU's; "
+        f"past 464 both saturate: {sorted(set(card[past].tolist()))}")
+    check(torch.equal(cpu, card), "fp8 cast: the card's bytes differ from the CPU's")
+
+    c = dec_mod.CHUNK
+    ragged = [1025, 1, 517, 1024, 64, 300, 1000, 2]
+    cases = [  # phase_decode's; the first is reported in the JSON line
+        (1, 32, 32, 801, [580], 128), (4, 32, 32, 1553, [1100, 1080, 1120, 60], 128),
+        (8, 32, 32, 1025, ragged, 128), (8, 32, 8, 1025, ragged, 128),
+        (1, 32, 2, 300, [290], 128), (5, 32, 32, 801, [1, c - 1, c, c + 1, 801], 128),
+        (5, 16, 16, 300, [1, c - 1, c, c + 1, 300], 64), (3, 32, 32, 801, [0, 580, 0], 128),
+    ]
+    worst, k2 = 0.0, None
+    for b, h, hkv, t, lengths, d in cases:
+        k8, kb = _e4m3_slab((b, t, hkv, d), gen)
+        v8, vb = _e4m3_slab((b, t, hkv, d), gen)
+        q = _randn((b, h, d), gen)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        got, replayed = _graph_replay_bits(lambda: dec_mod.decode_attention(q, k8, v8, lens))
+        bf16 = dec_mod.decode_attention(q, kb, vb, lens)
+        sync()
+        check(torch.equal(got, bf16), "K2 e4m3: not the bf16 kernel's bits on the upcast slab")
+        check(torch.equal(got, replayed), "K2 e4m3: a graph's replay gives other bits")
+        live = lens > 0
+        want = dec_mod.decode_attention_plain(q.float(), k8, v8, lens)
+        err = (got.float() - want)[live].abs().max().item()
+        check(got[~live].abs().sum().item() == 0.0, "K2 e4m3: a row without live slots is 0")
+        ms = time_ms(lambda: dec_mod.decode_attention(q, k8, v8, lens))
+        bf16_ms = time_ms(lambda: dec_mod.decode_attention(q, kb, vb, lens))
+        plain_ms = time_ms(lambda: dec_mod.decode_attention_plain(q, k8, v8, lens))
+        n_live = int(lens.sum().item())
+        lib_ms = None
+        if live.all():
+            mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kb, vb, attn_mask=mask[:, None, None, :], enable_gqa=hkv != h))
+        kv8 = 2 * n_live * hkv * d  # bytes of live K and V, one a value
+        row = kernel_row(err, ms, plain_ms, kv8 + 2 * 2 * b * h * d, 4 * n_live * h * d, lib_ms)
+        log(f"[K2 e4m3] B={b} H={h} Hkv={hkv} D={d} T={t} lengths={lengths}: max_abs_err="
+            f"{err:.3e} (tol {DECODE_TOL}); bit-equal to the bf16 kernel on the upcast slab and "
+            f"over a graph's replay; kernel {ms:.4f} ms ({kv8 / ms / 1e6:.1f} GB/s of live KV) "
+            f"against bf16 {bf16_ms:.4f} ms ({2 * kv8 / bf16_ms / 1e6:.1f} GB/s); plain "
+            f"{plain_ms:.4f} ms; SDPA on the bf16 upcast "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        check(err <= DECODE_TOL, f"K2 e4m3 error {err} > {DECODE_TOL}")
+        worst = max(worst, err)
+        k2 = k2 or dict(row, bf16_ms=bf16_ms)
+    k2["max_abs_err"] = worst
+
+    worst, k2m = 0.0, None
+    for b, s, h, hkv, t, d, starts, live in K2M_CASES:
+        k8, kb = _e4m3_slab((b, t, hkv, d), gen)
+        v8, vb = _e4m3_slab((b, t, hkv, d), gen)
+        q = _randn((b, s, h, d), gen)
+        lens = dec_mod.query_lengths(*_suffix_case(b, s, t, starts, live))
+        got = dec_mod.decode_attention_multi(q, k8, v8, lens)
+        again = dec_mod.decode_attention_multi(q, k8, v8, lens)
+        bf16 = dec_mod.decode_attention_multi(q, kb, vb, lens)
+        sync()
+        check(torch.equal(got, again), "K2m e4m3: the same bits on a second call")
+        check(torch.equal(got, bf16), "K2m e4m3: not the bf16 kernel's bits on the upcast slab")
+        alive = lens > 0
+        check(got[~alive].abs().sum().item() == 0.0, "K2m e4m3: a query without live slots is 0")
+        err, rel, walk_rel = k2m_errors(q, k8, v8, lens, got)
+        check(err <= DECODE_TOL and rel <= K2M_REL_MAX and walk_rel <= K2M_WALK_REL_MAX,
+              f"K2m e4m3 {b, s, starts}: {err}, {rel} of a row's |o|, {walk_rel} against the walk")
+        worst = max(worst, err)
+        ms = time_ms(lambda: dec_mod.decode_attention_multi(q, k8, v8, lens))
+        bf16_ms = time_ms(lambda: dec_mod.decode_attention_multi(q, kb, vb, lens))
+        line = (f"[K2m e4m3] B={b} S={s} H={h} Hkv={hkv} D={d} T={t} starts={starts} live={live}: "
+                f"max_abs_err={err:.3e}, of a row's largest |o| {rel:.3e} (bound {K2M_REL_MAX}), "
+                f"against the walk {walk_rel:.3e} (bound {K2M_WALK_REL_MAX}); bit-equal to the "
+                f"bf16 kernel on the upcast slab; kernel {ms:.4f} ms against bf16 {bf16_ms:.4f} ms")
+        if (b, s, starts) == (1, 128, [700]):
+            plain_ms = time_ms(lambda: dec_mod.decode_attention_multi_plain(q, k8, v8, lens))
+            mask = torch.arange(t, device="cuda")[None, None, :] < lens[..., None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                _bhsd(q), kb, vb, attn_mask=mask[:, None], enable_gqa=hkv != h))
+            kv8 = int(lens.amax(-1).sum().item()) * hkv * d * 2
+            k2m = dict(kernel_row(err, ms, plain_ms, kv8 + 2 * 2 * b * s * h * d,
+                                  4 * int(lens.sum().item()) * h * d, lib_ms), bf16_ms=bf16_ms)
+            line += (f"; plain {plain_ms:.4f} ms, SDPA on the bf16 upcast {lib_ms:.4f} ms, bound "
+                     f"{k2m['bound_ms']:.4f} ms ({k2m['bound_by']})")
+        log(line)
+    k2m["max_abs_err"] = worst
+    return k2, k2m
+
+
 def int4pack_library(packed, scale, n_out, copies=1):
     """`torch._weight_int4pack_mm` set up to compute what K3 computes on one
     weight's bytes (`packed`: flat [k2, N] or tiles [n_tiles, k2, TW]): the
@@ -858,7 +1014,8 @@ INFERENCE_COUNTERS = {  # the kernels an inference path may launch
     "K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
     "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED,
     "K3c M<=8": int4_mod.LAUNCHES_STACKED_SMALL_M, "K5": vit_mod.LAUNCHES,
-    "K2m": dec_mod.LAUNCHES_MULTI,
+    "K2m": dec_mod.LAUNCHES_MULTI, "K2 e4m3": dec_mod.LAUNCHES_E4M3,
+    "K2m e4m3": dec_mod.LAUNCHES_MULTI_E4M3,
 }
 
 
@@ -1092,6 +1249,58 @@ def teacher_forced_gaps(model, ids, frames, out):
     return gaps.tolist(), rows.argmax(-1).tolist()
 
 
+def teacher_forced_gaps_e4m3(model, ids, frames, out, cached_from=None):
+    """teacher_forced_gaps over an e4m3 KV cache, read as the e4m3 decode
+    reads it: the prompt prefilled into an e4m3 cache attending its fresh K/V
+    (or, from slot `cached_from` on, attending the e4m3 cache itself, as a
+    chunked prefill's pieces and a prefix hit's suffix do), then every
+    emitted token but the last fed in one verify block (K2m over the e4m3
+    cache, each query up to its own slot). What is left between this and
+    the decode that emitted `out` is the order of the sums."""
+    cfg = model.cfg
+    llm = model.params["llm"]
+    tpf = model.tokens_per_frame
+    fused = len(ids) + sum(t == IMAGE_TOKEN_INDEX for t in ids) * (tpf - 1)
+    pad_to = teochat_mod.round_to_bucket(fused, teochat_mod.SEQ_BUCKETS)
+    plan = fusion_mod.build_fusion_plan([list(ids)], tokens_per_frame=tpf, pad_to=pad_to,
+                                        max_length=cfg.tokenizer_model_max_length)
+    vision = (model.encode(frames) if frames is not None else
+              torch.zeros((1, tpf, cfg.llm.hidden_size), dtype=torch.bfloat16, device="cuda"))
+    embeds = teochat_mod.multimodal_embeds(model.params, cfg, plan, vision)
+    seq, n = int(plan.seq_lens[0]), len(out)
+    cache = llama_mod.init_cache(cfg.llm, 1, pad_to + n + 1, dtype=E4M3, device="cuda")
+    pos = torch.as_tensor(plan.position_ids, device="cuda")
+    mask = torch.as_tensor(plan.attention_mask, device="cuda")
+    last = torch.tensor([seq - 1], device="cuda")
+    with torch.no_grad():
+        if cached_from is None:
+            logits0 = llama_mod.llama_forward(
+                llm, cfg.llm, embeds, position_ids=pos, cache=cache,
+                write_slots=torch.where(mask, pos, pad_to + n), logits_mode="last",
+                last_index=last)
+        else:
+            if cached_from:
+                head = pos[:, :cached_from]
+                llama_mod.llama_forward(llm, cfg.llm, embeds[:, :cached_from], position_ids=head,
+                                        cache=cache, write_slots=head, logits_mode="none")
+            piece = torch.arange(cached_from, pad_to, device="cuda")[None]
+            logits0 = llama_mod.llama_forward(
+                llm, cfg.llm, embeds[:, cached_from:], position_ids=piece, cache=cache,
+                write_slots=piece, logits_mode="last", last_index=last - cached_from,
+                prefill_start=cached_from, attend_cache=True)
+        rows = [logits0[0]]
+        if n > 1:
+            blk = seq + torch.arange(n - 1, device="cuda")[None]
+            emb = llama_mod.embed_tokens(llm, torch.as_tensor(out[:-1], device="cuda")[None],
+                                         dtype=torch.bfloat16)
+            rows.append(llama_mod.llama_forward(llm, cfg.llm, emb, position_ids=blk,
+                                                cache=cache, write_slots=blk, logits_mode="all",
+                                                spec_verify=True)[0])
+    rows = torch.cat(rows)
+    tok = torch.as_tensor(out, device="cuda")[:, None]
+    return ((rows.max(-1).values - rows.gather(1, tok)[:, 0]) / rows.std(-1)).tolist()
+
+
 def _first_difference(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                 None if len(a) == len(b) else min(len(a), len(b)))
@@ -1268,6 +1477,119 @@ def plain_int4():
     finally:
         for name in names:
             setattr(int4_mod, name, saved[name])
+
+
+# ------------------------------------------------------ the fp8 (e4m3) cache
+
+@contextlib.contextmanager
+def kv_cache_of(kv_dtype, graphed, caches=None):
+    """Route TEOChat.generate's decode over a KV cache in `kv_dtype` (None:
+    the model's), replayed from a CUDA graph or eager, through the module's
+    private helper; `caches` collects each call's cache GiB by dtype."""
+    saved = gen_mod.generate_tokens
+
+    def run(*args, **kwargs):
+        tokens, n_gen, state = gen_mod._generate_tokens(*args, **kwargs, graphed=graphed,
+                                                        kv_dtype=kv_dtype)
+        if caches is not None:
+            c = state.cache
+            caches[str(c.dtype)] = 2 * c.k.numel() * c.k.element_size() / 2**30
+        return tokens, n_gen
+
+    gen_mod.generate_tokens = run
+    try:
+        yield
+    finally:
+        gen_mod.generate_tokens = saved
+
+
+def fp8_batch(tokenizer, processor, n):
+    """n rows cycling a 2-frame, a 1-frame and a text prompt: (ids, each
+    row's frames or None, the batch's frames)."""
+    rows = [(PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"), 2),
+            ("Describe the land use in this image: <image>", 1), ("What is a satellite image?", 0)]
+    ids, frames = [], []
+    for i in range(n):
+        prompt, k = rows[i % 3]
+        ids.append(tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX))
+        frames.append(processor.preprocess(["x"] * k)["pixel_values"] if k else None)
+    return ids, frames, np.concatenate([f for f in frames if f is not None], axis=0)
+
+
+def phase_fp8_generate(model, tokenizer, processor, tag, batches=(1, 32)):
+    """generate over an e4m3 KV cache at 7B width and depth, at each batch
+    of `batches` (rows of 2, 1 and 0 frames), 32 greedy tokens: the graph's
+    tokens equal the eager loop's, the first token the bf16 cache's (the
+    prefill attends the fresh K/V in bf16), every token of the first three
+    rows within SPEC_GAP_TOL of its teacher-forced maximum over an e4m3
+    cache (teacher_forced_gaps_e4m3), and its gap to the bf16 path's
+    teacher-forced maximum and where it first leaves the bf16 cache's
+    tokens printed: e4m3 rounds each K and V by up to 2^-4, and random 7B
+    weights put near-ties among 32,000 logits, so that gap can pass
+    SPEC_GAP_TOL with no fault (read 0.556 on an H100); K2's e4m3 form
+    launches and the bf16 one never; ms a step both ways (medians of
+    generates of 1 and of 32 tokens: 3 of each in turns e4m3, bf16, e4m3,
+    bf16 at batch 1; 2 in turns e4m3, bf16 past it), both caches' GiB and
+    the peak. Returns {batch: numbers} and the e4m3 launches."""
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
+    out, launches = {}, 0
+    for b in batches:
+        ids, row_frames, frames = fp8_batch(tokenizer, processor, b)
+        gen_mod.clear_decode_graphs()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        caches = {}
+        with kv_cache_of(None, True, caches):
+            bf16 = model.generate(ids, frames, g32)
+        with kv_cache_of(E4M3, False, caches):
+            eager = model.generate(ids, frames, g32)
+
+        def graphed():
+            with kv_cache_of(E4M3, True, caches):
+                return model.generate(ids, frames, g32)
+
+        fp8, counts = counted(f"{tag} fp8 bs{b}", graphed)
+        launches += counts["K2 e4m3"]
+        check(fp8 == eager, f"{tag} fp8 bs{b}: the graph's tokens differ from the eager loop's")
+        check(counts["K2 e4m3"] > 0 and counts["K2"] == 0 and counts["K2m e4m3"] == 0,
+              f"{tag} fp8 bs{b}: launches {counts}")
+        check([r[0] for r in fp8] == [r[0] for r in bf16],
+              f"{tag} fp8 bs{b}: a first token differs from the bf16 cache's")
+        worst = worst_bf16 = 0.0
+        for r in range(min(b, 3)):
+            gaps = teacher_forced_gaps_e4m3(model, ids[r], row_frames[r], fp8[r])
+            gaps_bf16, _ = teacher_forced_gaps(model, ids[r], row_frames[r], fp8[r])
+            worst, worst_bf16 = max(worst, max(gaps)), max(worst_bf16, max(gaps_bf16))
+            log(f"[{tag} fp8 bs{b}] row {r}: {len(fp8[r])} tokens, the graph's equal the eager "
+                f"loop's; first difference from the bf16 cache's at "
+                f"{_first_difference(fp8[r], bf16[r])}; largest gap to its teacher-forced "
+                f"maximum over e4m3 {max(gaps):.3e} rms (bound {SPEC_GAP_TOL}), over the bf16 "
+                f"path {max(gaps_bf16):.3e} rms")
+        check(worst <= SPEC_GAP_TOL, f"{tag} fp8 bs{b}: a token {worst} rms below its maximum")
+        ms, reps = {}, 3 if b == 1 else 2
+        for kv in (E4M3, None, E4M3, None)[:4 if b == 1 else 2]:
+            with kv_cache_of(kv, True):
+                t1 = statistics.median(wall(lambda: model.generate(ids, frames, g1))[1]
+                                       for _ in range(reps))
+                t32 = statistics.median(wall(lambda: model.generate(ids, frames, g32))[1]
+                                        for _ in range(reps))
+            ms.setdefault(str(kv or torch.bfloat16), []).append((t32 - t1) / 31 * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        e4m3_ms, bf16_ms = ms[str(E4M3)], ms[str(torch.bfloat16)]
+        log(f"[{tag} fp8 bs{b}] {_timing.smi_line()}: ms a step e4m3 "
+            f"{', '.join(f'{x:.3f}' for x in e4m3_ms)} against bf16 "
+            f"{', '.join(f'{x:.3f}' for x in bf16_ms)} (in turns, e4m3 first; "
+            f"{b * 1e3 / statistics.mean(e4m3_ms):.1f} against "
+            f"{b * 1e3 / statistics.mean(bf16_ms):.1f} tok/s); caches "
+            f"{caches[str(E4M3)]:.3f} GiB e4m3, {caches[str(torch.bfloat16)]:.3f} GiB bf16; peak "
+            f"allocated {peak:.3f} GiB (the model, both graph entries' caches, the eager cache)")
+        out[b] = {"ms_step_e4m3": e4m3_ms, "ms_step_bf16": bf16_ms, "largest_gap": worst,
+                  "largest_gap_bf16_path": worst_bf16,
+                  "cache_gib_e4m3": caches[str(E4M3)],
+                  "cache_gib_bf16": caches[str(torch.bfloat16)], "peak_gib": peak}
+    gen_mod.clear_decode_graphs()
+    return out, launches
 
 
 def phase_logits(model, ids, frames, compare="attention"):
@@ -1658,9 +1980,10 @@ def phase_int4_path(gen, tokenizer):
     phase_decode_graph(model, tokenizer, processor, ids, frames, "int4")
     phase_failed_capture(model, ids, frames)
     phase_spec(model, tokenizer, processor, ids, frames, "int4")
+    fp8 = phase_fp8_generate(model, tokenizer, processor, "int4")
     phase_logits(model, ids, frames, compare="int4")
     k3a_counts = phase_k3a_path(cfg, gen, tokenizer, processor)
-    return counts, k3a_counts
+    return counts, k3a_counts, fp8
 
 
 # --------------------------------------------------- checkpoint -> eval path
@@ -2768,7 +3091,92 @@ def phase_engine(model, tokenizer, image_processor):
                                              for i in range(8)], "engine spec chunk int8")
     entry["f"] = _engine_adaptive_cell(model)
     gen_mod.clear_decode_graphs()
+    entry["fp8"] = _engine_fp8(model, requests, results)
+    gen_mod.clear_decode_graphs()
     return entry
+
+
+def _engine_fp8(model, requests, plain_results):
+    """(g) the eight requests of (a) through `BatchEngine(kv_dtype=
+    "float8_e4m3fn")`, plain (chunked prefill, a prefix hit) and with
+    speculative_k 4: each greedy token within SPEC_GAP_TOL of its
+    teacher-forced maximum over e4m3 (teacher_forced_gaps_e4m3, the prompt
+    prefilled as the engine prefilled it: in pieces over the cache past
+    prefill_chunk, a prefix hit's suffix over the pooled prefix), its gap on
+    the bf16 path and where it first leaves (a)'s printed; the e4m3 forms
+    of K2 (plain steps) and K2m (pieces, the hit, verify blocks) launch and
+    the bf16 ones never; the cache's GiB; then 8 text streams of 121 + 64
+    tokens through an e4m3 and a bf16 engine (max_slots 16, max_len 512,
+    chunk 16), three rounds each, aggregate tok/s."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    out, k2m = {}, 0
+    for name, kw in (("plain", dict(prefill_chunk=256, prefix_min_tokens=256)),
+                     ("speculative", dict(speculative_k=4, adaptive_spec=False))):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        engine = BatchEngine(model, max_slots=8, max_len=2048, chunk=8, prefix_cache_slots=2,
+                             kv_dtype="float8_e4m3fn", **kw)
+        check(engine.cache.k.dtype == E4M3, "engine fp8: the pool is not e4m3")
+        (results, wall_s), counts = counted(f"engine fp8 {name}",
+                                            lambda: wall(lambda: _serve_named(engine, requests)))
+        engine.shutdown()
+        stats = dict(engine.stats)
+        cache_gib = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 2**30
+        check(set(results) == {r[0] for r in requests}, f"engine fp8 {name}: {sorted(results)}")
+        worst, tokens = 0.0, 0
+        check(stats["prefix_hits"] == 1, f"engine fp8 {name}: one prefix hit, {stats}")
+        for rname, ids, frames, gen in requests:
+            toks, _ = results[rname]
+            tokens += len(toks)
+            if gen.do_sample:
+                check(1 <= len(toks) <= 32
+                      and all(0 <= t < model.cfg.llm.vocab_size for t in toks),
+                      f"engine fp8 {name} {rname}: {toks}")
+                continue
+            if name == "plain" and engine._fused_len(ids) > engine.prefill_chunk:
+                cached_from = 0  # in pieces, or a hit on a prefix that was
+            elif rname == "prefix hit":
+                cached_from = stats["prefix_tokens_saved"]
+            else:
+                cached_from = None
+            gaps = teacher_forced_gaps_e4m3(model, ids, frames, toks, cached_from)
+            gaps_bf16, _ = teacher_forced_gaps(model, ids, frames, toks)
+            worst = max(worst, max(gaps))
+            log(f"[engine fp8 {name}] {rname}: {len(toks)} tokens; first difference from the "
+                f"bf16 engine (a) at {_first_difference(toks, plain_results[rname][0])}; largest "
+                f"gap to its teacher-forced maximum over e4m3 {max(gaps):.3e} rms (bound "
+                f"{SPEC_GAP_TOL}; the prompt over the cache from slot {cached_from}), over the "
+                f"bf16 path {max(gaps_bf16):.3e} rms")
+        check(worst <= SPEC_GAP_TOL, f"engine fp8 {name}: a token {worst} rms below its maximum")
+        check(counts["K2"] == 0 and counts["K2m"] == 0 and counts["K2m e4m3"] > 0
+              and (counts["K2 e4m3"] > 0) == (name == "plain"),
+              f"engine fp8 {name}: launches {counts}, stats {stats}")
+        k2m += counts["K2m e4m3"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[engine fp8 {name}] 8 requests in {wall_s:.3f} s ({tokens / wall_s:.2f} tok/s; the "
+            f"bf16 engine (a) above); stats {stats}; cache {cache_gib:.3f} GiB (8 + 2 rows of "
+            f"2,048 slots, e4m3); peak allocated {peak:.3f} GiB; launches {counts}")
+        out[name] = {"wall_s": wall_s, "launches": counts, "largest_gap": worst,
+                     "cache_gib": cache_gib, "peak_gib": peak}
+        del engine
+    g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
+    rates = {}
+    for kv in ("float8_e4m3fn", "bfloat16"):
+        engine = BatchEngine(model, max_slots=16, max_len=512, chunk=16, kv_dtype=kv).start()
+        try:
+            times, _ = _engine_streams(engine, prompts, g64, 3)
+        finally:
+            engine.shutdown()
+        rates[kv] = [8 * 64 / t for t in times]
+        del engine
+    log(f"[engine fp8] {_timing.smi_line()}: 8 streams of 121 + 64 tokens, tok/s e4m3 "
+        f"{', '.join(f'{r:.2f}' for r in rates['float8_e4m3fn'])} against bf16 "
+        f"{', '.join(f'{r:.2f}' for r in rates['bfloat16'])}")
+    out["tok_s_8"] = rates
+    out["k2m_e4m3_launches"] = k2m
+    return out
 
 
 def _engine_spec_requests(model, tokenizer, requests, plain_results):
@@ -3156,13 +3564,14 @@ def main():
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"K1": phase_flash(gen), "K2": phase_decode(gen), "K2m": phase_decode_multi(gen)}
+    rows["K2 e4m3"], rows["K2m e4m3"] = phase_fp8_kernels(gen)
     k3 = phase_int4(gen)
     rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"],
                  "K3c M<=8": k3["k3c_decode"]})
     rows["K5"] = phase_vit_attention(gen)
     tokenizer = WordTokenizer()
 
-    int4_counts, k3a_counts = phase_int4_path(gen, tokenizer)
+    int4_counts, k3a_counts, (fp8_int4, fp8_launches) = phase_int4_path(gen, tokenizer)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[int4] after the model is deleted: {len(gen_mod.decode_graphs())} decode graphs "
@@ -3183,6 +3592,7 @@ def main():
               f"int8 path launches {int8_counts}")
         phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main")
         phase_spec(model, hf_tokenizer, processor, ids, frames, "main")
+        fp8_int8, _ = phase_fp8_generate(model, hf_tokenizer, processor, "main")
         phase_logits(model, ids, frames)
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         engine_entry = phase_engine(model, hf_tokenizer, image_processor)
@@ -3227,6 +3637,12 @@ def main():
         # no Pallas kernel: XLA's masked attention in the JAX cached path
         row("decode_attention_multi", "decode_attention.cu", "models/llama.py:316",
             serve_k2m, rows["K2m"], where="teochat_tpu/"),
+        # the same two over an e4m3 cache: launches of the int4 path's e4m3
+        # generate and of the e4m3 engine's two runs
+        row("decode_attention_e4m3", "decode_attention.cu", "decode_attention.py:44",
+            fp8_launches, rows["K2 e4m3"]),
+        row("decode_attention_multi_e4m3", "decode_attention.cu", "models/llama.py:316",
+            engine_entry["fp8"]["k2m_e4m3_launches"], rows["K2m e4m3"], where="teochat_tpu/"),
         row("flash_attention_fwd_res", "flash_attention.cu", "flash_attention.py:243",
             train_launches["fwd"], k4_rows["fwd"]),
         row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:348",
@@ -3252,7 +3668,8 @@ def main():
         bench_row("S2-b", "bench_vit_attention.cu", "bench_vit_attention.py:36"),
         bench_row("S2-c", "bench_vit_attention.cu", "bench_vit_attention.py:76"),
     ]
-    print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry}))
+    print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
+                      "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,10 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
   `ttft_s_prefill640_int8`, `prefill_tokens`, `hbm_stream_peak_gbps` and the
   roofline keys `decode_effective_hbm_gbps`, `decode_pct_of_hbm_peak`;
 - decode_bs8 / decode_bs16: `decode_tokens_per_sec_bs8` / `_bs16`;
-- decode_int4: `decode_tokens_per_sec_int4` and its `_int4` roofline keys;
+- decode_bs32: `decode_tokens_per_sec_bs32_fp8kv` (int8, an e4m3 KV cache:
+  bf16's would take 11.8 GB);
+- decode_int4: `decode_tokens_per_sec_int4` and its `_int4` roofline keys,
+  then `decode_tokens_per_sec_int4_fp8kv` (the same with an e4m3 cache);
 - decode_spec: greedy decode with prompt-lookup speculation (k = 8) at batch
   1: `decode_tokens_per_sec_spec_bs1`, `spec_iteration_s`, steps and tokens
   a step; on the `_SPEC_WORKLOADS` (an oracle forces the target to a real
@@ -245,12 +248,14 @@ def _train_mfu(cfg, tok_s: float, seq: int, peak_tflops: float, full_finetune: b
 
 # --------------------------------------------------------------------- phases
 
-def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8"):
+def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8",
+                       kv_dtype: Optional[str] = None):
     """(run_generate, max_new, prompt_len): `run_generate(n_new)` prefills the
     2-frame prompt of `batch` rows on stand-in fused embeddings and decodes
     greedily without ever stopping (or at the stops of `stops`, a StopSpec,
-    where one is given); it carries `weight_bytes` (every leaf of
-    the decoder) and `kv_bytes` (the live KV bytes a decode step reads, mean
+    where one is given), over a KV cache in `kv_dtype` (None: the model's);
+    it carries `weight_bytes` (every leaf of the decoder) and `kv_bytes`
+    (the live KV bytes a decode step reads at the cache's itemsize, mean
     over the steps: the decode kernel reads each row up to its length)."""
     cfg, dev = st.cfg, st.dev
     llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant=quant)
@@ -264,24 +269,28 @@ def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8"):
     seq_lens, mask, pos = (torch.as_tensor(a, device=dev)
                            for a in (plan.seq_lens, plan.attention_mask, plan.position_ids))
     stop, gen = _never_stop(), st.generator()
+    cache_dtype = llama_mod.kv_dtype_of(kv_dtype, st.dtype)
 
     def run_generate(n_new: int, stops: Optional[gen_mod.StopSpec] = None):
         return gen_mod.generate_tokens(
             llm, cfg.llm, embeds, seq_lens, mask, pos, stops or stop, gen,
-            max_new_tokens=n_new, temperature=0.0, do_sample=False, cache_len=t_max)[0]
+            max_new_tokens=n_new, temperature=0.0, do_sample=False, cache_len=t_max,
+            kv_dtype=cache_dtype)[0]
 
     run_generate.weight_bytes = _tree_bytes(llm)
     mean_live = float(plan.seq_lens.sum()) + batch * (max_new - 1) / 2
     run_generate.kv_bytes = (2 * cfg.llm.num_layers * mean_live * cfg.llm.num_kv_heads
-                             * cfg.llm.head_dim * torch.empty((), dtype=st.dtype).element_size())
+                             * cfg.llm.head_dim * cache_dtype.itemsize)
     return run_generate, max_new, prompt_len
 
 
-def _decode_times(st: Settings, batch: int, quant: str):
-    """(sorted full-loop times, prefill + 1 token time, the setup)."""
-    run_generate, max_new, prompt_len = build_decode_setup(st, batch, quant)
+def _decode_times(st: Settings, batch: int, quant: str, kv_dtype: Optional[str] = None):
+    """(sorted full-loop times, prefill + 1 token time, the setup). The
+    decode graphs are dropped after (each keeps a KV cache alive)."""
+    run_generate, max_new, prompt_len = build_decode_setup(st, batch, quant, kv_dtype)
     t_fulls = _timing.timeit_all(lambda: run_generate(max_new), st.iters, st.dev)
     t_one = _timing.timeit(lambda: run_generate(1), st.iters, st.dev)
+    gen_mod.clear_decode_graphs()
     return t_fulls, t_one, run_generate, max_new, prompt_len
 
 
@@ -312,11 +321,13 @@ def phase_decode(st: Settings) -> dict:
     }
 
 
-def _phase_decode_batched(st: Settings, batch: int) -> dict:
+def _phase_decode_batched(st: Settings, batch: int, kv_dtype: Optional[str] = None,
+                          tag: str = "") -> dict:
     """Serving throughput: `batch` concurrent sequences share each weight read."""
     with torch.no_grad():
-        t_fulls, t_one, _, max_new, _ = _decode_times(st, batch, "int8")
-    return {f"decode_tokens_per_sec_bs{batch}": batch * (max_new - 1) / (t_fulls[1] - t_one)}
+        t_fulls, t_one, _, max_new, _ = _decode_times(st, batch, "int8", kv_dtype)
+    return {f"decode_tokens_per_sec_bs{batch}{tag}":
+            batch * (max_new - 1) / (t_fulls[1] - t_one)}
 
 
 def phase_decode_bs8(st: Settings) -> dict:
@@ -327,17 +338,27 @@ def phase_decode_bs16(st: Settings) -> dict:
     return _phase_decode_batched(st, 16)
 
 
+def phase_decode_bs32(st: Settings) -> dict:
+    """Batch 32 with an e4m3 KV cache (bench.py's: a bf16 one would take
+    11.8 GB beside the 6.6 GB of int8 weights)."""
+    return _phase_decode_batched(st, 32, kv_dtype="float8_e4m3fn", tag="_fp8kv")
+
+
 def phase_decode_int4(st: Settings) -> dict:
-    """Batch-1 decode with packed int4 weights (w4a16) and a bf16 KV cache."""
-    with torch.no_grad():
-        t_fulls, t_one, run_generate, max_new, _ = _decode_times(st, 1, "int4")
-    tok_s = (max_new - 1) / (t_fulls[1] - t_one)
-    peak = measure_stream_peak_gbps(st)
-    return {
-        "decode_tokens_per_sec_int4": tok_s,
-        **_roofline_keys(tok_s, run_generate.weight_bytes, run_generate.kv_bytes, peak,
-                         tag="_int4"),
-    }
+    """Batch-1 decode with packed int4 weights (w4a16) and a bf16 KV cache,
+    then the same with an e4m3 one (the KV's share of a step's bytes grows
+    once the weights are int4)."""
+    out = {}
+    for kv_dtype, key in ((None, "decode_tokens_per_sec_int4"),
+                          ("float8_e4m3fn", "decode_tokens_per_sec_int4_fp8kv")):
+        with torch.no_grad():
+            t_fulls, t_one, run_generate, max_new, _ = _decode_times(st, 1, "int4", kv_dtype)
+        out[key] = (max_new - 1) / (t_fulls[1] - t_one)
+        if kv_dtype is None:
+            peak = measure_stream_peak_gbps(st)
+            out.update(_roofline_keys(out[key], run_generate.weight_bytes,
+                                      run_generate.kv_bytes, peak, tag="_int4"))
+    return out
 
 
 def _eo_tokenize(text, table):
@@ -799,6 +820,7 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "decode": phase_decode,
     "decode_bs8": phase_decode_bs8,
     "decode_bs16": phase_decode_bs16,
+    "decode_bs32": phase_decode_bs32,
     "decode_int4": phase_decode_int4,
     "decode_spec": phase_decode_spec,
     "ttft_turn2": phase_ttft_turn2,
@@ -814,8 +836,6 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
 
 # bench.py's other phases and keys, and the ROADMAP (queue 1) item each waits for
 UNPORTED = {
-    "decode_bs32": "the fp8 KV cache, item 11",
-    "decode_int4_fp8kv": "the fp8 KV cache, item 11",
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
     "train_bf16": "full fine-tuning, item 13 (deferred)",

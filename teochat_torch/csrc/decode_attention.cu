@@ -31,12 +31,22 @@
 // The cache is the layer slab of the [L, B, T, Hkv, D] buffer, read in place
 // through its strides. The workspace has a fixed size for (B, H, T) and the
 // tickets stay zero between calls, so a graph can capture the launch.
+//
+// The cache is bf16 or fp8 e4m3 (the JAX package's kv_dtype
+// "float8_e4m3fn", which halves its bytes; JAX upcasts the slab to the
+// query's dtype before its masked attention, teochat_tpu/models/llama.py:309).
+// Both kernels are templated on the cache's element type and read an e4m3
+// slab in place, at half the bytes: each element becomes a float by
+// cvt.rn.f16x2.e4m3x2 and cvt.f32.f16, both exact, so the products see the
+// floats of `slab.to(bfloat16)` and an e4m3 launch gives the same bits as
+// the bf16 kernel on the upcast slab.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_async.cuh"
 #include "mma_bf16.cuh"
@@ -53,6 +63,7 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_G = 8;  // query heads a block: a group of 16 runs as two blocks of 8
 
+// 8 bf16 (16 bytes) to floats
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -61,6 +72,41 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+
+// Two e4m3 (the first in the low byte) to floats, exactly: e4m3 -> f16 -> f32.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t pair) {
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(static_cast<uint16_t>(pair & 0xffffu)));
+  float lo, hi;
+  asm("cvt.f32.f16 %0, %1;\n" : "=f"(lo) : "h"(static_cast<uint16_t>(h2 & 0xffffu)));
+  asm("cvt.f32.f16 %0, %1;\n" : "=f"(hi) : "h"(static_cast<uint16_t>(h2 >> 16)));
+  return make_float2(lo, hi);
+}
+
+// 8 e4m3 (8 bytes) to floats
+__device__ __forceinline__ void unpack8(const uint2& u, float (&f)[8]) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 a = e4m3x2_to_float2(w[i]), c = e4m3x2_to_float2(w[i] >> 16);
+    f[4 * i] = a.x;
+    f[4 * i + 1] = a.y;
+    f[4 * i + 2] = c.x;
+    f[4 * i + 3] = c.y;
+  }
+}
+
+// Four e4m3 to four bf16 (two bf16x2 words), exactly: a float of at most
+// four significant bits is its bf16's upper half.
+__device__ __forceinline__ uint2 e4m3x4_to_bf16x4(uint32_t w) {
+  const float2 a = e4m3x2_to_float2(w), c = e4m3x2_to_float2(w >> 16);
+  return make_uint2((__float_as_uint(a.x) >> 16) | (__float_as_uint(a.y) & 0xffff0000u),
+                    (__float_as_uint(c.x) >> 16) | (__float_as_uint(c.y) & 0xffff0000u));
+}
+
+// The cache's element: uint16_t (bf16) or uint8_t (e4m3); a lane's 8 of them
+template <typename KV>
+using Lane8 = std::conditional_t<sizeof(KV) == 2, uint4, uint2>;
 
 // Two softmax states (m, l, acc) as one: each scaled to the larger maximum.
 // `ca`, `cb` are the factors; both 0 where neither state saw a live slot.
@@ -73,17 +119,19 @@ __device__ __forceinline__ void merge_factors(float m_a, float m_b, float& m, fl
 
 // part_ml [B, H, n_chunks, 2] (m, l) and part_acc [B, H, n_chunks, D]: each
 // chunk's partial; tickets [B, H / G]: zero before and after every launch.
-template <int D, int G>
+// KV: the cache's element, uint16_t (bf16, a lane loads 16 bytes) or uint8_t
+// (e4m3, 8 bytes); the lane layout and the arithmetic are the same.
+template <int D, int G, typename KV>
 __global__ void __launch_bounds__(NTHREADS)
-decode_split_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const int* __restrict__ lengths,
+decode_split_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const int* __restrict__ lengths,
                     uint16_t* __restrict__ o, float* __restrict__ part_ml,
                     float* __restrict__ part_acc, int* __restrict__ tickets,
                     int T, int H, int Hkv,
                     long long q_sb, long long q_sh,
                     long long k_sb, long long k_sh, long long k_st,
                     long long v_sb, long long v_sh, long long v_st, float scale) {
-  constexpr int LPK = D / 8;                      // lanes a slot, 16 bytes each
+  constexpr int LPK = D / 8;                      // lanes a slot, 8 elements each
   constexpr int SPW = 32 / LPK;                   // slots a warp at a time
   constexpr int NS = CHUNK / (NWARPS * SPW);      // slots a thread
   static_assert(NS * NWARPS * SPW == CHUNK, "a chunk is whole waves of the block's slots");
@@ -105,16 +153,17 @@ decode_split_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   const int t0 = chunk * CHUNK + warp * SPW + sub;  // this thread's slots: t0 + i NWARPS SPW
 
   // every load of the chunk first
-  uint4 kr[NS], vr[NS];
-  const uint16_t* kb = k + b * k_sb + hk * k_sh + dl * 8;
-  const uint16_t* vb = v + b * v_sb + hk * v_sh + dl * 8;
+  using Lane = Lane8<KV>;
+  Lane kr[NS], vr[NS];
+  const KV* kb = k + b * k_sb + hk * k_sh + dl * 8;
+  const KV* vb = v + b * v_sb + hk * v_sh + dl * 8;
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     const int t = t0 + i * NWARPS * SPW;
-    kr[i] = vr[i] = make_uint4(0, 0, 0, 0);
+    kr[i] = vr[i] = Lane{};
     if (t < len) {
-      kr[i] = *reinterpret_cast<const uint4*>(kb + t * k_st);
-      vr[i] = *reinterpret_cast<const uint4*>(vb + t * v_st);
+      kr[i] = *reinterpret_cast<const Lane*>(kb + t * k_st);
+      vr[i] = *reinterpret_cast<const Lane*>(vb + t * v_st);
     }
   }
 
@@ -234,14 +283,14 @@ decode_split_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   }
 }
 
-template <int D>
-int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
-             const uint16_t* v, const int* lens, uint16_t* o, float* part_ml, float* part_acc,
+template <int D, typename KV>
+int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const KV* k,
+             const KV* v, const int* lens, uint16_t* o, float* part_ml, float* part_acc,
              int* tickets, int T, int H, int Hkv, long long q_sb, long long q_sh,
              long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
              long long v_st, float scale) {
 #define TEOCHAT_DECODE_LAUNCH(GV)                                                            \
-  decode_split_kernel<D, GV><<<grid, NTHREADS, 0, st>>>(                                     \
+  decode_split_kernel<D, GV, KV><<<grid, NTHREADS, 0, st>>>(                                 \
       q, k, v, lens, o, part_ml, part_acc, tickets, T, H, Hkv, q_sb, q_sh, k_sb, k_sh, k_st, \
       v_sb, v_sh, v_st, scale)
   switch (G) {
@@ -300,11 +349,16 @@ int launch_d(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_
 //   fewer than the SMs (about one block an SM), so the workspace stays
 //   below SMs tiles of partials whatever S and T are.
 // A query of length 0 is written as 0.
+// An e4m3 cache: the ring holds the chunks as they lie (16-byte pieces of 16
+// elements, rows unpadded, half a bf16 stage's bytes); once a stage has
+// landed the block converts it into one bf16 tile in the padded layout
+// above, and the `ldmatrix` / `mma.sync` code runs on that tile unchanged.
 
 constexpr int MQ_CHUNK = 64;   // cache slots a chunk of the ring
 constexpr int MQ_STAGES = 3;   // chunks a block has in flight or in use
 constexpr int MQ_WARPS = NWARPS;  // RW row groups of 16 rows x MQ_WARPS / RW slot shares
 constexpr int MQ_MAX_SPLITS = 16;  // slot splits a tile, at most
+constexpr int MQ_MAX_DEVICES = 64;  // devices whose shared-memory attribute is tracked
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; 0 at -inf
   float y;
@@ -346,9 +400,12 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-template <int D>
+// bf16: the ring, K then V a stage, rows padded. e4m3: the ring, rows as
+// they lie, then the one bf16 tile (K then V, rows padded) converted from it
+template <int D, typename KV>
 __host__ __device__ constexpr int multi_smem_bytes() {
-  return MQ_STAGES * 2 * MQ_CHUNK * (D + 8) * 2;  // K then V a stage, rows padded
+  return sizeof(KV) == 2 ? MQ_STAGES * 2 * MQ_CHUNK * (D + 8) * 2
+                         : MQ_STAGES * 2 * MQ_CHUNK * D + 2 * MQ_CHUNK * (D + 8) * 2;
 }
 
 // Row r of a kv head's rows is query r / group, head hk * group + r % group.
@@ -356,10 +413,10 @@ __host__ __device__ constexpr int multi_smem_bytes() {
 // D], tickets [tiles]: used only where two or more of a tile's splits have a
 // live slot. A tile is (b, hk, tile of
 // ROWS rows), numbered (b * Hkv + hk) * row_tiles + tile.
-template <int D, int RW>
+template <int D, int RW, typename KV>
 __global__ void __launch_bounds__(NTHREADS)
-decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const int* __restrict__ lengths,
+decode_multi_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const int* __restrict__ lengths,
                     uint16_t* __restrict__ o, float* __restrict__ part_ml,
                     float* __restrict__ part_acc, int* __restrict__ tickets,
                     int S, int T, int H, int Hkv, int splits, int split_chunks,
@@ -371,11 +428,13 @@ decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   constexpr int ROWS = 16 * RW;        // (query, head) rows a block
   constexpr int NS = MQ_CHUNK / SW;    // slots a warp takes of each chunk
   constexpr int NT = NS / 8;           // n-tiles of Q K^T
-  constexpr int LD = D + 8;            // a K or V row in shared memory, padded
+  constexpr int LD = D + 8;            // a bf16 K or V row the products read, padded
   constexpr int RD = D + 8;            // a row of fp32 partials in the epilogue
-  constexpr int STAGE = 2 * MQ_CHUNK * LD;  // elements of a stage: K, then V
+  constexpr bool FP8 = sizeof(KV) == 1;
+  constexpr int RL = FP8 ? D : LD;     // a row of the ring, elements: e4m3 rows unpadded
+  constexpr int RSTAGE = 2 * MQ_CHUNK * RL * sizeof(KV);  // bytes of a ring stage: K, then V
   static_assert(NS % 16 == 0 && D % 64 == 0, "whole k-steps of P V; D 64 or 128");
-  static_assert(SW * ROWS * RD * 4 <= multi_smem_bytes<D>(), "the epilogue fits in the ring");
+  static_assert(SW * ROWS * RD * 4 <= multi_smem_bytes<D, KV>(), "the epilogue fits in the ring");
   extern __shared__ __align__(16) uint16_t ring[];
   __shared__ float red_m[SW * ROWS], red_l[SW * ROWS];
   __shared__ float s_f[MQ_MAX_SPLITS][ROWS], s_l[ROWS];  // the split merge's factors and sums
@@ -428,21 +487,22 @@ decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
     }
   }
 
-  // this thread's share of every chunk: 16-byte piece c8 of slots j0, j0 + PASS_ROWS, ...
-  constexpr int PASS_ROWS = NTHREADS / (D / 8);  // slots the block copies a pass
-  const int j0 = tid / (D / 8), c8 = tid % (D / 8);
-  const uint16_t* kb = k + b * k_sb + hk * k_sh + c8 * 8;
-  const uint16_t* vb = v + b * v_sb + hk * v_sh + c8 * 8;
-  const uint32_t ring_u32 = smem_u32(ring), s_off = (j0 * LD + c8 * 8) * 2;
+  // this thread's share of every chunk: 16-byte piece c16 of slots j0, j0 + PASS_ROWS, ...
+  constexpr int EPP = 16 / sizeof(KV);          // elements a 16-byte piece
+  constexpr int PASS_ROWS = NTHREADS / (D / EPP);  // slots the block copies a pass
+  const int j0 = tid / (D / EPP), c16 = tid % (D / EPP);
+  const KV* kb = k + b * k_sb + hk * k_sh + c16 * EPP;
+  const KV* vb = v + b * v_sb + hk * v_sh + c16 * EPP;
+  const uint32_t ring_u32 = smem_u32(ring), s_off = j0 * RL * sizeof(KV) + c16 * 16;
   auto load_chunk = [&](int c, int stage) {  // slots past the longest length as zeros
-    const uint32_t sk = ring_u32 + stage * STAGE * 2 + s_off, sv = sk + MQ_CHUNK * LD * 2;
+    const uint32_t sk = ring_u32 + stage * RSTAGE + s_off, sv = sk + RSTAGE / 2;
     const int t0 = c * MQ_CHUNK + j0;
-    const uint16_t* kc = kb + t0 * k_st;
-    const uint16_t* vc = vb + t0 * v_st;
+    const KV* kc = kb + t0 * k_st;
+    const KV* vc = vb + t0 * v_st;
 #pragma unroll
     for (int pass = 0; pass < MQ_CHUNK / PASS_ROWS; ++pass) {
       const bool live = t0 + pass * PASS_ROWS < max_len;
-      const uint32_t off = pass * PASS_ROWS * LD * 2;
+      const uint32_t off = pass * PASS_ROWS * RL * sizeof(KV);
       cp_async16(sk + off, live ? kc + pass * PASS_ROWS * k_st : kb, live ? 16u : 0u);
       cp_async16(sv + off, live ? vc + pass * PASS_ROWS * v_st : vb, live ? 16u : 0u);
     }
@@ -464,7 +524,23 @@ decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
     if (i + MQ_STAGES - 1 < n) load_chunk(c_begin + i + MQ_STAGES - 1, (i + MQ_STAGES - 1) % MQ_STAGES);
     cp_async_commit();
     const int c = c_begin + i;
-    const uint32_t sk = ring_u32 + ((i % MQ_STAGES) * STAGE + ws * NS * LD) * 2;  // this warp's slots
+    uint32_t tile = ring_u32 + (i % MQ_STAGES) * RSTAGE;  // K then V, bf16 rows of LD
+    if constexpr (FP8) {  // the stage into the bf16 tile after the ring; its last
+                          // readers, chunk i - 1's products, have passed the barrier
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(ring) + (i % MQ_STAGES) * RSTAGE;
+      uint16_t* dst = reinterpret_cast<uint16_t*>(reinterpret_cast<uint8_t*>(ring) + MQ_STAGES * RSTAGE);
+      for (int it = tid; it < 2 * MQ_CHUNK * (D / 16); it += NTHREADS) {
+        const int row = it / (D / 16), col = (it % (D / 16)) * 16;  // 16 elements an item
+        const uint4 u = *reinterpret_cast<const uint4*>(src + row * D + col);
+        const uint2 a = e4m3x4_to_bf16x4(u.x), b2 = e4m3x4_to_bf16x4(u.y);
+        const uint2 c2 = e4m3x4_to_bf16x4(u.z), d2 = e4m3x4_to_bf16x4(u.w);
+        *reinterpret_cast<uint4*>(dst + row * LD + col) = make_uint4(a.x, a.y, b2.x, b2.y);
+        *reinterpret_cast<uint4*>(dst + row * LD + col + 8) = make_uint4(c2.x, c2.y, d2.x, d2.y);
+      }
+      __syncthreads();
+      tile = ring_u32 + MQ_STAGES * RSTAGE;
+    }
+    const uint32_t sk = tile + ws * NS * LD * 2;  // this warp's slots
     const uint32_t sv = sk + MQ_CHUNK * LD * 2;
 
     // S = Q K^T: two n-tiles of 8 slots a `ldmatrix` x4
@@ -670,36 +746,44 @@ decode_multi_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   }
 }
 
-template <int D, int RW>
-int launch_multi(dim3 grid, cudaStream_t st, const uint16_t* q, const uint16_t* k,
-                 const uint16_t* v, const int* lens, uint16_t* o, float* part_ml,
+template <int D, int RW, typename KV>
+int launch_multi(dim3 grid, cudaStream_t st, const uint16_t* q, const KV* k,
+                 const KV* v, const int* lens, uint16_t* o, float* part_ml,
                  float* part_acc, int* tickets, int S, int T, int H, int Hkv, int splits,
                  int split_chunks, long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
                  long long v_st, float scale_log2) {
-  // above 48 KB shared memory is dynamic and has to be asked for; the
-  // attribute belongs to the device the launch goes to, so it is set each time
-  const cudaError_t err = cudaFuncSetAttribute(decode_multi_kernel<D, RW>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               multi_smem_bytes<D>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_multi_kernel<D, RW><<<grid, NTHREADS, multi_smem_bytes<D>(), st>>>(
+  // above 48 KB shared memory is dynamic and has to be asked for: once a
+  // device, since the attribute belongs to the device the launch goes to
+  static bool smem_set[MQ_MAX_DEVICES] = {};
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  if (dev < 0 || dev >= MQ_MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(decode_multi_kernel<D, RW, KV>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 multi_smem_bytes<D, KV>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  decode_multi_kernel<D, RW, KV><<<grid, NTHREADS, multi_smem_bytes<D, KV>(), st>>>(
       q, k, v, lens, o, part_ml, part_acc, tickets, S, T, H, Hkv, splits, split_chunks, q_sb,
       q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, typename KV>
 int launch_multi_d(int row_warps, dim3 grid, cudaStream_t st, const uint16_t* q,
-                   const uint16_t* k, const uint16_t* v, const int* lens, uint16_t* o,
+                   const KV* k, const KV* v, const int* lens, uint16_t* o,
                    float* part_ml, float* part_acc, int* tickets, int S, int T, int H, int Hkv,
                    int splits, int split_chunks, long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_sh, long long k_st, long long v_sb,
                    long long v_sh, long long v_st, float scale_log2) {
 #define TEOCHAT_MULTI_LAUNCH(RWV)                                                              \
-  return launch_multi<D, RWV>(grid, st, q, k, v, lens, o, part_ml, part_acc, tickets, S, T, H, \
-                              Hkv, splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st,   \
-                              v_sb, v_sh, v_st, scale_log2)
+  return launch_multi<D, RWV, KV>(grid, st, q, k, v, lens, o, part_ml, part_acc, tickets, S, \
+                                  T, H, Hkv, splits, split_chunks, q_sb, q_ss, q_sh, k_sb,   \
+                                  k_sh, k_st, v_sb, v_sh, v_st, scale_log2)
   switch (row_warps) {
     case 1: TEOCHAT_MULTI_LAUNCH(1);
     case 2: TEOCHAT_MULTI_LAUNCH(2);
@@ -709,10 +793,85 @@ int launch_multi_d(int row_warps, dim3 grid, cudaStream_t st, const uint16_t* q,
 #undef TEOCHAT_MULTI_LAUNCH
 }
 
+// K2m's launch for a cache of element KV (the C entries below).
+template <typename KV>
+int multi_entry(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                void* part_ml, void* part_acc, void* tickets,
+                int B, int S, int H, int Hkv, int T, int D, int row_warps, int splits,
+                int split_chunks, long long q_sb, long long q_ss, long long q_sh,
+                long long k_sb, long long k_sh, long long k_st,
+                long long v_sb, long long v_sh, long long v_st, float scale, void* stream) {
+  if (Hkv <= 0 || H % Hkv || T <= 0 || S <= 0 || B <= 0 ||
+      (row_warps != 1 && row_warps != 2 && row_warps != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (T + MQ_CHUNK - 1) / MQ_CHUNK;
+  // the splits cover every chunk, and each split has one
+  if (splits < 1 || splits > MQ_MAX_SPLITS || split_chunks < 1 ||
+      static_cast<long long>(splits) * split_chunks < n_chunks ||
+      (splits - 1) * split_chunks >= n_chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 1 && (part_ml == nullptr || part_acc == nullptr || tickets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(S) * (H / Hkv), tile_rows = 16LL * row_warps;
+  const long long blocks_x = (rows + tile_rows - 1) / tile_rows * splits;
+  if (blocks_x > 0x7fffffffLL || Hkv > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks_x), Hkv, B);
+  const auto* qp = static_cast<const uint16_t*>(q);
+  const auto* kp = static_cast<const KV*>(k);
+  const auto* vp = static_cast<const KV*>(v);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<uint16_t*>(o);
+  auto* ml = static_cast<float*>(part_ml);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* tk = static_cast<int*>(tickets);
+  auto st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  if (D == 128)
+    return launch_multi_d<128, KV>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T,
+                                   H, Hkv, splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh,
+                                   k_st, v_sb, v_sh, v_st, scale_log2);
+  if (D == 64)
+    return launch_multi_d<64, KV>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T, H,
+                                  Hkv, splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh,
+                                  k_st, v_sb, v_sh, v_st, scale_log2);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2's launch for a cache of element KV (the C entries below).
+template <typename KV>
+int decode_entry(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                 void* part_ml, void* part_acc, void* tickets, int B, int H, int Hkv, int T,
+                 int D, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+                 long long k_st, long long v_sb, long long v_sh, long long v_st, float scale,
+                 void* stream) {
+  if (Hkv <= 0 || H % Hkv || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = H / Hkv;
+  const int G = group > MAX_G ? MAX_G : group;  // heads a block
+  if (group % G) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + CHUNK - 1) / CHUNK, H / G, B);
+  const auto* qp = static_cast<const uint16_t*>(q);
+  const auto* kp = static_cast<const KV*>(k);
+  const auto* vp = static_cast<const KV*>(v);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<uint16_t*>(o);
+  auto* ml = static_cast<float*>(part_ml);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* tk = static_cast<int*>(tickets);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_d<128, KV>(G, grid, st, qp, kp, vp, lp, op, ml, pa, tk, T, H, Hkv, q_sb, q_sh,
+                             k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+  if (D == 64)
+    return launch_d<64, KV>(G, grid, st, qp, kp, vp, lp, op, ml, pa, tk, T, H, Hkv, q_sb, q_sh,
+                            k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// K2m. q: [B, S, H, D] (strides q_sb, q_ss, q_sh); k, v: [B, Hkv, T, D]
-// views through strides; lengths: [B, S] int32, contiguous, on the device;
+// K2m. q: [B, S, H, D] bf16 (strides q_sb, q_ss, q_sh); k, v: [B, Hkv, T, D]
+// views through strides, bf16 (`_e4m3`: e4m3); lengths: [B, S] int32,
+// contiguous, on the device;
 // o: contiguous [B, S, H, D]. A block takes 16 * row_warps (query, head)
 // rows of one kv head and split_chunks chunks of MQ_CHUNK slots (split s:
 // chunks s * split_chunks ...); the grid is (splits * row tiles, Hkv, B),
@@ -731,44 +890,27 @@ extern "C" int teochat_decode_attention_multi(
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv || T <= 0 || S <= 0 || B <= 0 ||
-      (row_warps != 1 && row_warps != 2 && row_warps != 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (T + MQ_CHUNK - 1) / MQ_CHUNK;
-  // the splits cover every chunk, and each split has one
-  if (splits < 1 || splits > MQ_MAX_SPLITS || split_chunks < 1 ||
-      static_cast<long long>(splits) * split_chunks < n_chunks ||
-      (splits - 1) * split_chunks >= n_chunks)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (splits > 1 && (part_ml == nullptr || part_acc == nullptr || tickets == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(S) * (H / Hkv), tile_rows = 16LL * row_warps;
-  const long long blocks_x = (rows + tile_rows - 1) / tile_rows * splits;
-  if (blocks_x > 0x7fffffffLL || Hkv > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks_x), Hkv, B);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* op = static_cast<uint16_t*>(o);
-  auto* ml = static_cast<float*>(part_ml);
-  auto* pa = static_cast<float*>(part_acc);
-  auto* tk = static_cast<int*>(tickets);
-  auto st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-  if (D == 128)
-    return launch_multi_d<128>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T, H, Hkv,
-                               splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
-                               v_sh, v_st, scale_log2);
-  if (D == 64)
-    return launch_multi_d<64>(row_warps, grid, st, qp, kp, vp, lp, op, ml, pa, tk, S, T, H, Hkv,
-                              splits, split_chunks, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
-                              v_sh, v_st, scale_log2);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return multi_entry<uint16_t>(q, k, v, lengths, o, part_ml, part_acc, tickets, B, S, H, Hkv,
+                               T, D, row_warps, splits, split_chunks, q_sb, q_ss, q_sh, k_sb,
+                               k_sh, k_st, v_sb, v_sh, v_st, scale, stream);
 }
 
-// q: [B, H, D] (strides q_sb, q_sh); k, v: [B, Hkv, T, D] views through
-// strides; lengths: [B] int32 on the device; o: contiguous [B, H, D];
+extern "C" int teochat_decode_attention_multi_e4m3(
+    const void* q, const void* k, const void* v, const void* lengths, void* o,
+    void* part_ml, void* part_acc, void* tickets,
+    int B, int S, int H, int Hkv, int T, int D, int row_warps, int splits, int split_chunks,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st,
+    float scale, void* stream) {
+  return multi_entry<uint8_t>(q, k, v, lengths, o, part_ml, part_acc, tickets, B, S, H, Hkv,
+                              T, D, row_warps, splits, split_chunks, q_sb, q_ss, q_sh, k_sb,
+                              k_sh, k_st, v_sb, v_sh, v_st, scale, stream);
+}
+
+// K2. q: [B, H, D] bf16 (strides q_sb, q_sh); k, v: [B, Hkv, T, D] views
+// through strides, bf16 (`_e4m3`: e4m3); lengths: [B] int32 on the device;
+// o: contiguous [B, H, D];
 // part_ml: fp32 [B, H, ceil(T / CHUNK), 2], part_acc: fp32 [B, H,
 // ceil(T / CHUNK), D], contents ignored; tickets: int32 [B, H / min(H / Hkv,
 // 8)], zero, and zero again when the launch has run. Returns
@@ -781,25 +923,20 @@ extern "C" int teochat_decode_attention(
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int group = H / Hkv;
-  const int G = group > MAX_G ? MAX_G : group;  // heads a block
-  if (group % G) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + CHUNK - 1) / CHUNK, H / G, B);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* op = static_cast<uint16_t*>(o);
-  auto* ml = static_cast<float*>(part_ml);
-  auto* pa = static_cast<float*>(part_acc);
-  auto* tk = static_cast<int*>(tickets);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_d<128>(G, grid, st, qp, kp, vp, lp, op, ml, pa, tk, T, H, Hkv, q_sb, q_sh,
-                         k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
-  if (D == 64)
-    return launch_d<64>(G, grid, st, qp, kp, vp, lp, op, ml, pa, tk, T, H, Hkv, q_sb, q_sh,
-                        k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return decode_entry<uint16_t>(q, k, v, lengths, o, part_ml, part_acc, tickets, B, H, Hkv, T,
+                                D, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale,
+                                stream);
+}
+
+extern "C" int teochat_decode_attention_e4m3(
+    const void* q, const void* k, const void* v, const void* lengths, void* o,
+    void* part_ml, void* part_acc, void* tickets,
+    int B, int H, int Hkv, int T, int D,
+    long long q_sb, long long q_sh,
+    long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st,
+    float scale, void* stream) {
+  return decode_entry<uint8_t>(q, k, v, lengths, o, part_ml, part_acc, tickets, B, H, Hkv, T,
+                               D, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale,
+                               stream);
 }

@@ -45,6 +45,11 @@ iterations; an iteration after every row is done changes no token, n_gen,
 history or counter, so the chunks give the while_loop's counts. On the card
 the iteration replays from a CUDA graph (`DecodeGraph` is generic over the
 iteration it captures); on the CPU it runs eagerly.
+
+`generate_tokens(_spec)` take `kv_dtype` as the JAX functions do (None: the
+embeddings' dtype; "float8_e4m3fn" halves the cache's bytes), and
+`decode_with_cache(_spec)` embed in bf16 over an e4m3 cache (JAX's
+`emb_dtype` rule). A graph entry is keyed by its cache's dtype too.
 """
 
 from __future__ import annotations
@@ -159,44 +164,50 @@ def generate_tokens(
     do_sample: bool = False,
     top_p: float = 1.0,
     pad_id: int = 0,
+    kv_dtype=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B, max_new_tokens] with pad_id after a stop, n_gen [B]).
 
     Generated tokens include the stop keyword; callers strip it. The cache
     holds `cache_len` slots; the last one is the trash slot where padded
-    prompt positions point (never attended). On the card the decode steps
-    replay a CUDA graph of one iteration (`DecodeGraph`); a request of one
-    token feeds nothing back, so it takes no graph (and no entry's cache).
-    No autograd graph is recorded."""
+    prompt positions point (never attended). `kv_dtype` is the cache's dtype
+    (None: the embeddings'; "float8_e4m3fn" or the torch dtype halves its
+    bytes). On the card the decode steps replay a CUDA graph of one
+    iteration (`DecodeGraph`); a request of one token feeds nothing back, so
+    it takes no graph (and no entry's cache). No autograd graph is recorded."""
     tokens, n_gen, _ = _generate_tokens(
         params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, stop, generator,
         max_new_tokens=max_new_tokens, cache_len=cache_len, temperature=temperature,
-        do_sample=do_sample, top_p=top_p, pad_id=pad_id, graphed=inputs_embeds.is_cuda)
+        do_sample=do_sample, top_p=top_p, pad_id=pad_id, kv_dtype=kv_dtype,
+        graphed=inputs_embeds.is_cuda)
     return tokens, n_gen
 
 
 @torch.no_grad()
 def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids,
                      stop: StopSpec, generator, *, max_new_tokens, cache_len, temperature,
-                     do_sample, top_p, pad_id, graphed: bool):
+                     do_sample, top_p, pad_id, graphed: bool, kv_dtype=None):
     """`generate_tokens`, with the decode steps replayed from a CUDA graph
     (`graphed`) or run eagerly (the CPU's path; on the card, the reference
     the graph is held to). Returns (tokens, n_gen, the loop's state)."""
     b, _, _ = inputs_embeds.shape
     dev, dtype = inputs_embeds.device, inputs_embeds.dtype
+    kv_dtype = llama_mod.kv_dtype_of(kv_dtype, dtype)
     graphed = graphed and max_new_tokens > 1  # one token feeds nothing back
     step_kw = dict(temperature=temperature, do_sample=do_sample, top_p=top_p,
                    pad_id=pad_id, emb_dtype=dtype)
     if graphed:
         entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens,
-                              tuple(np.shape(stop.keyword_ids)), dev, step_kw)
+                              tuple(np.shape(stop.keyword_ids)), dev, step_kw,
+                              kv_dtype=kv_dtype)
         state = entry.state
         state.cache.k.zero_()  # as JAX's init_cache: a zeroed cache each request
         state.cache.v.zero_()
     else:
         entry = None
-        state = DecodeState.new(llama_mod.init_cache(cfg, b, cache_len, dtype=dtype, device=dev),
-                                cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)))
+        state = DecodeState.new(
+            llama_mod.init_cache(cfg, b, cache_len, dtype=kv_dtype, device=dev),
+            cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)))
     trash = cache_len - 1
     slots = torch.where(attention_mask, position_ids, trash)
     logits = llama_mod.llama_forward(
@@ -368,11 +379,12 @@ def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
     (tokens [B, max_new_tokens], n_gen [B], cache): the cache keeps every
     generated token's K/V but the last one's, for the session's next turn.
     On the card the steps replay a CUDA graph captured over this cache
-    (`DecodeGraph`, keyed by its address); the cache is never zeroed."""
+    (`DecodeGraph`, keyed by its address); the cache is never zeroed. The
+    steps embed in the cache's dtype, in bf16 over an e4m3 cache."""
     b = logits0.shape[0]
     dev = logits0.device
     step_kw = dict(temperature=temperature, do_sample=do_sample, top_p=top_p, pad_id=pad_id,
-                   emb_dtype=cache.dtype)
+                   emb_dtype=_emb_dtype_over(cache))
     keyword_shape = tuple(np.shape(stop.keyword_ids))
     entry = None
     if logits0.is_cuda and max_new_tokens > 1:  # one token feeds nothing back
@@ -391,6 +403,12 @@ def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
         if entry is not None:
             state.cache = None  # the entry holds the caller's cache only weakly
     return tokens, n_gen, cache
+
+
+def _emb_dtype_over(cache: llama_mod.KVCache) -> torch.dtype:
+    """The steps' embedding dtype over a caller's cache: its own, bf16 over an
+    e4m3 one (JAX's `emb_dtype` in decode_with_cache(_spec))."""
+    return torch.bfloat16 if cache.dtype == torch.float8_e4m3fn else cache.dtype
 
 
 # ----------------------------------------------- prompt-lookup speculation
@@ -666,6 +684,7 @@ def generate_tokens_spec(
     pad_id: int = 0,
     draft_keep_prob=None,
     oracle_ids=None,
+    kv_dtype=None,
 ):
     """Decode with prompt-lookup speculation (greedy or sampled).
 
@@ -675,13 +694,14 @@ def generate_tokens_spec(
     slot. Bench knobs, as the JAX function's: `draft_keep_prob` (a float or
     a 0-d tensor) corrupts each draft with probability 1 - p, drawing from
     `generator` also on a greedy run; `oracle_ids` [B, max_new_tokens] makes
-    the greedy target the oracle's token where it is >= 0. On the card the
-    iterations replay a CUDA graph (`DecodeGraph`, one a key)."""
+    the greedy target the oracle's token where it is >= 0. `kv_dtype` as
+    generate_tokens'. On the card the iterations replay a CUDA graph
+    (`DecodeGraph`, one a key)."""
     return _generate_tokens_spec(
         params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, prompt_ids,
         prompt_id_lens, stop, generator, max_new_tokens=max_new_tokens, cache_len=cache_len,
         spec_k=spec_k, temperature=temperature, do_sample=do_sample, top_p=top_p, pad_id=pad_id,
-        draft_keep_prob=draft_keep_prob, oracle_ids=oracle_ids,
+        draft_keep_prob=draft_keep_prob, oracle_ids=oracle_ids, kv_dtype=kv_dtype,
         graphed=inputs_embeds.is_cuda)[:4]
 
 
@@ -690,27 +710,29 @@ def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, 
                           prompt_ids, prompt_id_lens, stop: StopSpec, generator, *,
                           max_new_tokens, cache_len, graphed: bool, spec_k=4, temperature=0.0,
                           do_sample=False, top_p=1.0, pad_id=0, draft_keep_prob=None,
-                          oracle_ids=None):
+                          oracle_ids=None, kv_dtype=None):
     """`generate_tokens_spec`, the iterations replayed from a CUDA graph
     (`graphed`) or run eagerly (the CPU's path; on the card, the reference
     the graph is held to). Returns (tokens, n_gen, steps, accepted, state)."""
     b = inputs_embeds.shape[0]
     dev, dtype = inputs_embeds.device, inputs_embeds.dtype
+    kv_dtype = llama_mod.kv_dtype_of(kv_dtype, dtype)
     step_kw = _spec_kw(spec_k, temperature, do_sample, top_p, pad_id, dtype, draft_keep_prob,
                        oracle_ids)
     hist_width = np.shape(prompt_ids)[1] + max_new_tokens
     keyword_shape = tuple(np.shape(stop.keyword_ids))
     if graphed and max_new_tokens > 1:  # one token: one iteration, nothing to replay
         entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens, keyword_shape, dev,
-                              step_kw, hist_width=hist_width)
+                              step_kw, hist_width=hist_width, kv_dtype=kv_dtype)
         state = entry.state
         state.cache.k.zero_()
         state.cache.v.zero_()
     else:
         entry = None
-        state = SpecState.new(llama_mod.init_cache(cfg, b, cache_len, dtype=dtype, device=dev),
-                              cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
-                              draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
+        state = SpecState.new(
+            llama_mod.init_cache(cfg, b, cache_len, dtype=kv_dtype, device=dev),
+            cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
+            draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
     slots = torch.where(attention_mask, position_ids, cache_len - 1)
     logits = llama_mod.llama_forward(
         params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
@@ -737,9 +759,9 @@ def decode_with_cache_spec(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
     max_new_tokens, and the trash slot. Returns (tokens, n_gen, steps,
     accepted, cache). On the card the iterations replay a CUDA graph keyed
     by the cache's address, which the entry holds weakly, as
-    decode_with_cache's."""
+    decode_with_cache's; the blocks embed as decode_with_cache's steps."""
     b = logits0.shape[0]
-    step_kw = _spec_kw(spec_k, temperature, do_sample, top_p, pad_id, cache.dtype)
+    step_kw = _spec_kw(spec_k, temperature, do_sample, top_p, pad_id, _emb_dtype_over(cache))
     hist_width = np.shape(prompt_ids)[1] + max_new_tokens
     keyword_shape = tuple(np.shape(stop.keyword_ids))
     entry = None
@@ -890,24 +912,31 @@ class DecodeGraph:
 def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
                   keyword_shape, device, step_kw: dict,
                   cache: Optional[llama_mod.KVCache] = None,
-                  hist_width: Optional[int] = None) -> DecodeGraph:
+                  hist_width: Optional[int] = None,
+                  kv_dtype: Optional[torch.dtype] = None) -> DecodeGraph:
     """The entry for this call's key, made if there is none: with a zeroed
-    cache of its own, or over the caller's `cache` (set as its state's
-    cache for this call); a decode step's, or with `hist_width` (the draft
-    history's width) a speculative iteration's. The key is what `jax.jit`
-    keys `generate_tokens(_spec)` on (the params tree's structure, shapes and
-    dtypes, the config, the batch, cache_len, max_new_tokens, the keyword
-    shape, the dtype, temperature, do_sample, top_p, pad_id; spec_k, the
-    history's width and whether the keep probability and the oracle are
-    in use, all in `step_kw` but the width), with each leaf's address and
-    strides: the graph reads the params where they lay at its capture; and
-    the caller's cache's addresses and strides, where it lies."""
+    cache of its own in `kv_dtype` (None: the embeddings' dtype), or over the
+    caller's `cache` (set as its state's cache for this call); a decode
+    step's, or with `hist_width` (the draft history's width) a speculative
+    iteration's. The key is what `jax.jit` keys `generate_tokens(_spec)` on
+    (the params tree's structure, shapes and dtypes, the config, the batch,
+    cache_len, max_new_tokens, the keyword shape, the dtype, the cache's
+    dtype, temperature, do_sample, top_p, pad_id; spec_k, the history's
+    width and whether the keep probability and the oracle are in use, all
+    in `step_kw` but the width and the cache's dtype), with each leaf's
+    address and strides: the graph reads the params where they lay at its
+    capture; and the caller's cache's addresses and strides, where it lies.
+    An e4m3 call never replays a bf16 entry's graph, nor the reverse."""
     leaves = tree_leaves_with_path(params)
+    if cache is not None:
+        kv_dtype = cache.dtype
+    elif kv_dtype is None:
+        kv_dtype = step_kw["emb_dtype"]
     cache_key = None if cache is None else tuple(
         (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in (cache.k, cache.v))
     key = (tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for path, t in leaves),
            cfg, batch, cache_len, max_new_tokens, keyword_shape, str(device),
-           tuple(sorted(step_kw.items())), hist_width, cache_key)
+           tuple(sorted(step_kw.items())), hist_width, kv_dtype, cache_key)
     entry = _graphs.get(key)
     if entry is not None and entry.alive():
         _graphs.move_to_end(key)
@@ -915,7 +944,7 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
             entry.state.cache = cache
         return entry
     if cache is None:
-        cache = owned = llama_mod.init_cache(cfg, batch, cache_len, dtype=step_kw["emb_dtype"],
+        cache = owned = llama_mod.init_cache(cfg, batch, cache_len, dtype=kv_dtype,
                                              device=device)
     else:
         owned = None

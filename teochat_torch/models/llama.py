@@ -39,6 +39,13 @@ verify block of the speculative loop (generation.py::_spec_iteration),
 with no kv_mask: JAX's `slot <= pos0 + k` there holds for every query's
 slot already, so K2m's lengths are q_slot + 1 and nothing is read back.
 
+The cache is in the model's dtype or in fp8 e4m3 (the JAX package's
+`kv_dtype="float8_e4m3fn"`, half the bytes). Each write casts K and V to
+the cache's dtype once, as the JAX package does (torch's cast saturates to
+±448 where JAX's gives NaN at |x| >= 464: ROADMAP F5), and K2 / K2m read an
+e4m3 slab in place, upcasting inside; the prefill over fresh K/V attends
+them in the model's dtype.
+
 A decode step reads nothing back to the host: `write_slots`, `lengths`, the
 rows' cache indices and the RoPE positions stay device tensors, no shape or
 allocation depends on their values, and the int4 layer index is the Python
@@ -67,6 +74,18 @@ from teochat_torch.utils import resolve_device
 Params = Dict
 
 
+def kv_dtype_of(kv_dtype, default: torch.dtype) -> torch.dtype:
+    """The cache's dtype from `kv_dtype`: None or `default` (the model's
+    dtype), or float8_e4m3fn, by name or as a torch dtype; any other raises."""
+    if kv_dtype is None:
+        return default
+    named = getattr(torch, kv_dtype, None) if isinstance(kv_dtype, str) else kv_dtype
+    if named not in (default, torch.float8_e4m3fn):
+        raise ValueError(f"kv_dtype {kv_dtype!r}: the cache is in the model's dtype "
+                         f"({default}) or float8_e4m3fn")
+    return named
+
+
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor  # [L, B, T_max, Hkv, D], updated in place
@@ -83,7 +102,8 @@ class KVCache:
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> KVCache:
-    """Zeroed cache buffers on `device` (None = the card, see resolve_device)."""
+    """Zeroed cache buffers on `device` (None = the card, see resolve_device),
+    in `dtype` (e.g. torch.float8_e4m3fn)."""
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(
@@ -186,10 +206,8 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         k_slab[:, prefill_start:prefill_start + s] = k.to(cache.dtype)
         v_slab[:, prefill_start:prefill_start + s] = v.to(cache.dtype)
         if attend_cache:  # each query over the row's cache up to its own slot
-            out = decode_attention_multi(
-                q, k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
-                lengths, impl=attn_impl,
-            )
+            out = decode_attention_multi(q, k_slab.transpose(1, 2), v_slab.transpose(1, 2),
+                                         lengths, impl=attn_impl)
         else:
             # causal attention over the fresh K/V equals attention over the
             # cache, since the prompt starts at slot 0
@@ -199,10 +217,8 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         slots = write_slots[:, 0].long()
         k_slab[rows, slots] = k[:, 0].to(cache.dtype)
         v_slab[rows, slots] = v[:, 0].to(cache.dtype)
-        out = decode_attention(
-            q[:, 0], k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
-            lengths[:, 0], impl=attn_impl,
-        )[:, None]
+        out = decode_attention(q[:, 0], k_slab.transpose(1, 2), v_slab.transpose(1, 2),
+                               lengths[:, 0], impl=attn_impl)[:, None]
     else:
         # spec_verify: each row's writes at its slots (padded queries all at
         # the trash slot, never attended), then every query over the slab
@@ -210,10 +226,8 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         slots = write_slots.long()
         k_slab[rows, slots] = k.to(cache.dtype)
         v_slab[rows, slots] = v.to(cache.dtype)
-        out = decode_attention_multi(
-            q, k_slab.transpose(1, 2).to(q.dtype), v_slab.transpose(1, 2).to(q.dtype),
-            lengths, impl=attn_impl,
-        )
+        out = decode_attention_multi(q, k_slab.transpose(1, 2), v_slab.transpose(1, 2),
+                                     lengths, impl=attn_impl)
     return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
 
 

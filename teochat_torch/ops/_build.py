@@ -48,6 +48,13 @@ _SIGNATURES = {
     "teochat_decode_attention_multi": (
         [_P] * 8 + [_I] * 9 + [_LL] * 9 + [_F, _P]
     ),
+    # the same two kernels over an fp8 (e4m3) cache
+    "teochat_decode_attention_e4m3": (
+        [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _P]
+    ),
+    "teochat_decode_attention_multi_e4m3": (
+        [_P] * 8 + [_I] * 9 + [_LL] * 9 + [_F, _P]
+    ),
     "teochat_int4_matmul": [_P] * 4 + [_I] * 4 + [_LL, _I, _P, _P, _P],
     "teochat_int4_matmul_tiled": [_P] * 4 + [_I] * 6 + [_LL, _I, _I, _P, _P, _P],
     "teochat_int4_matmul_tiled_stacked": (
@@ -175,6 +182,26 @@ def check_bf16_operand(name: str, t, ndim: int) -> None:
         raise ValueError(
             f"{name}: strides {t.stride()} / base alignment not supported "
             "(last dim contiguous, other strides multiples of 8 elements)"
+        )
+
+
+def check_kv_operand(name: str, t, ndim: int) -> None:
+    """Raise unless `t` is a KV cache slab the decode kernels (K2, K2m) read
+    as is: a CUDA bf16 or float8_e4m3fn tensor, last dimension contiguous,
+    other strides and the base 16-byte aligned (K2m copies rows in 16-byte
+    pieces: 8 bf16 or 16 e4m3 elements)."""
+    import torch
+
+    if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float8_e4m3fn) or t.ndim != ndim:
+        raise ValueError(
+            f"{name}: need a {ndim}-d CUDA bfloat16 or float8_e4m3fn tensor, got "
+            f"{t.ndim}-d {t.dtype} on {t.device}"
+        )
+    if (t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:-1])
+            or t.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: strides {t.stride()} / base alignment not supported "
+            "(last dim contiguous, other strides multiples of 16 bytes)"
         )
 
 

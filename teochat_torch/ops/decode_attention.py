@@ -28,6 +28,12 @@ the row tiles are few, the slots are also split across blocks, merged in
 split order by the tile's last block (a workspace and tickets, as K2's).
 `multi_plan` picks row_warps and the splits from the shapes alone, and
 `decode_attention_multi_schedule` is the walk in plain PyTorch.
+
+Both take a bf16 or an fp8 (e4m3) cache with a bf16 query (any float query
+on the CPU). The kernels read an e4m3 slab in place and convert each
+element exactly (e4m3 -> f16 -> f32), so they give the bf16 kernels' bits on
+`slab.to(bfloat16)`; the plain versions and the walks upcast it likewise.
+Each form has its own launch counter (`LAUNCHES_E4M3`, `LAUNCHES_MULTI_E4M3`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from teochat_torch.ops.attention import NEG_INF, plain_attention
 
 LAUNCHES = _build.LaunchCounter("decode_attention")
 LAUNCHES_MULTI = _build.LaunchCounter("decode_attention_multi")
+LAUNCHES_E4M3 = _build.LaunchCounter("decode_attention_e4m3")
+LAUNCHES_MULTI_E4M3 = _build.LaunchCounter("decode_attention_multi_e4m3")
 HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8, 16)  # query heads per kv head; 16 runs as two blocks of 8
 CHUNK = 64  # cache slots a block of the kernel takes
@@ -56,7 +64,8 @@ LOG2E = 1.4426950408889634
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None) -> torch.Tensor:
     """What the kernel computes, in plain PyTorch, in fp32.
 
-    q [B, H, D]; k_cache, v_cache [B, Hkv, T, D]; lengths [B]."""
+    q [B, H, D]; k_cache, v_cache [B, Hkv, T, D] (bf16, e4m3 or fp32: the
+    upcast is exact); lengths [B]."""
     b, h, d = q.shape
     hkv, t = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -109,10 +118,19 @@ def decode_attention_split_schedule(q, k_cache, v_cache, lengths, *, scale=None,
     return out.to(q.dtype)
 
 
+def _check_cache_pair(fn: str, k_cache, v_cache) -> bool:
+    """Raise unless K and V are slabs the kernels read in place, of one
+    dtype; whether they are e4m3."""
+    _build.check_kv_operand("k_cache", k_cache, 4)
+    _build.check_kv_operand("v_cache", v_cache, 4)
+    if k_cache.dtype != v_cache.dtype:
+        raise ValueError(f"{fn}: k_cache {k_cache.dtype} and v_cache {v_cache.dtype} differ")
+    return k_cache.dtype == torch.float8_e4m3fn
+
+
 def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     _build.check_bf16_operand("q", q, 3)
-    _build.check_bf16_operand("k_cache", k_cache, 4)
-    _build.check_bf16_operand("v_cache", v_cache, 4)
+    fp8 = _check_cache_pair("decode_attention", k_cache, v_cache)
     b, h, d = q.shape
     _, hkv, t, _ = k_cache.shape
     if d not in HEAD_DIMS or h % hkv or h // hkv not in GROUP_SIZES:
@@ -137,7 +155,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=q.device)
     tickets = _build.tickets_for(q.device, b * (h // min(h // hkv, MAX_HEADS_A_BLOCK)))
     _build.launch(
-        "teochat_decode_attention", q,
+        "teochat_decode_attention_e4m3" if fp8 else "teochat_decode_attention", q,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
@@ -147,7 +165,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale),
     )
-    LAUNCHES.count += 1
+    (LAUNCHES_E4M3 if fp8 else LAUNCHES).count += 1
     return out
 
 
@@ -165,7 +183,7 @@ def decode_attention(
     impl: auto | plain | kernel. "auto" launches the kernel for a CUDA tensor
     and takes the plain twin for a CPU tensor. The cache may be a strided
     view, e.g. the layer slab of the [L, B, T, Hkv, D] buffer transposed to
-    [B, Hkv, T, D]: the kernel reads it in place.
+    [B, Hkv, T, D], in bf16 or e4m3: the kernel reads it in place.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -216,8 +234,10 @@ def decode_attention_multi_plain(q, k_cache, v_cache, lengths, *, scale=None) ->
     `lengths` (fp32 logits and softmax). q [B, S, H, D]; k_cache, v_cache
     [B, Hkv, T, D]; lengths [B, S]. A query of length 0 gets the mean of V
     here (every logit masked alike) and 0 from the kernel; the model never
-    asks for one."""
+    asks for one. An e4m3 cache is upcast to q's dtype first (exactly)."""
     mask = _multi_mask(lengths.to(q.device), k_cache.shape[2])
+    if k_cache.dtype == torch.float8_e4m3fn:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     return plain_attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), mask=mask,
                            scale=scale)
 
@@ -256,8 +276,9 @@ def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, sms: int,
     each split up to the tile's longest length, and each of the
     MULTI_WARPS / row_warps warps of a row group keeps its own running
     (m, l, acc) over its share of every chunk. Scores are in base-2 units,
-    a slot at or past a row's length is masked, P is rounded to v's dtype
-    before P V (bf16 on the card; fp32 inputs stay exact). The warps'
+    a slot at or past a row's length is masked, P is rounded to bf16 before
+    P V as the kernel rounds it, whatever the cache's dtype (an fp32 V keeps
+    P in fp32: fp32 inputs stay exact). The warps'
     partials are merged in warp order, then the splits' in split order; o =
     acc / l, and 0 where l is 0 (a query of length 0). q [B, S, H, D];
     k_cache, v_cache [B, Hkv, T, D]; lengths [B, S]."""
@@ -281,6 +302,7 @@ def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, sms: int,
     lens = torch.nn.functional.pad(lens, (0, pad)).reshape(b, 1, tiles, rows_t, 1)
     c_end = -(-tile_max // MULTI_CHUNK)  # [B, tiles] chunks a tile walks
     kf, vf = k_cache.float(), v_cache.float()
+    p_dtype = torch.float32 if v_cache.dtype == torch.float32 else torch.bfloat16
     m = torch.full((b, hkv, tiles, splits, sw, rows_t), float("-inf"), device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((*m.shape, d), device=q.device)
@@ -300,7 +322,7 @@ def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, sms: int,
             p = torch.exp2(sc - torch.where(m_new.isinf(), 0.0, m_new)[..., None])
             l_new = l[:, :, :, j, w] * alpha + p.sum(-1)
             acc_new = acc[:, :, :, j, w] * alpha[..., None] + torch.einsum(
-                "bktrj,bkjd->bktrd", p.to(v_cache.dtype).float(), vf[:, :, t0:t1])
+                "bktrj,bkjd->bktrd", p.to(p_dtype).float(), vf[:, :, t0:t1])
             m[:, :, :, j, w] = torch.where(taken, m_new, m_old)
             l[:, :, :, j, w] = torch.where(taken, l_new, l[:, :, :, j, w])
             acc[:, :, :, j, w] = torch.where(taken[..., None], acc_new, acc[:, :, :, j, w])
@@ -320,8 +342,7 @@ def decode_attention_multi_schedule(q, k_cache, v_cache, lengths, *, sms: int,
 
 def _multi_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
     _build.check_bf16_operand("q", q, 4)
-    _build.check_bf16_operand("k_cache", k_cache, 4)
-    _build.check_bf16_operand("v_cache", v_cache, 4)
+    fp8 = _check_cache_pair("decode_attention_multi", k_cache, v_cache)
     b, s, h, d = q.shape
     _, hkv, t, _ = k_cache.shape
     if d not in HEAD_DIMS or h % hkv or h // hkv not in GROUP_SIZES:
@@ -348,7 +369,7 @@ def _multi_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
         part_acc = torch.empty((tiles, splits, 16 * rw, d), dtype=torch.float32, device=q.device)
         tickets = _build.tickets_for(q.device, tiles)
     _build.launch(
-        "teochat_decode_attention_multi", q,
+        "teochat_decode_attention_multi_e4m3" if fp8 else "teochat_decode_attention_multi", q,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         *(x.data_ptr() if x is not None else None for x in (part_ml, part_acc, tickets)),
         b, s, h, hkv, t, d, rw, splits, split_chunks,
@@ -357,7 +378,7 @@ def _multi_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale),
     )
-    LAUNCHES_MULTI.count += 1
+    (LAUNCHES_MULTI_E4M3 if fp8 else LAUNCHES_MULTI).count += 1
     return out
 
 
@@ -374,7 +395,8 @@ def decode_attention_multi(
 
     impl: auto | plain | kernel, as `decode_attention`: "auto" launches the
     kernel for a CUDA tensor and takes the plain version for a CPU tensor.
-    The cache is read in place (the layer slab transposed to [B, Hkv, T, D])."""
+    The cache is read in place (the layer slab transposed to [B, Hkv, T, D]),
+    in bf16 or e4m3."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "auto":

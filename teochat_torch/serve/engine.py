@@ -34,6 +34,11 @@ same steps run eagerly. The prefills run eagerly on the same stream between
 chunks; each returns its first token as a device tensor, which the host
 reads later (`_resolve_pending_first`).
 
+The cache is in `kv_dtype` (None: the model's dtype), e.g. "float8_e4m3fn",
+which halves its bytes and so doubles the rows a card holds: its writes
+cast once, K2 and K2m read it in place, and the prefix pool's row copies
+move its bytes as they lie.
+
 The host reads a chunk's tokens one chunk late (the JAX engine's depth-1
 pipeline): chunk N + 1 is replayed before chunk N is read. A replay rewrites
 the step's output buffers, so each chunk's outputs are copied into one of
@@ -479,12 +484,7 @@ class BatchEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_slots: int = 0,
                  prefix_min_tokens: int = 256):
-        if isinstance(kv_dtype, str):
-            kv_dtype = getattr(torch, kv_dtype)
-        if kv_dtype is not None and kv_dtype != model.dtype:
-            raise NotImplementedError(
-                f"BatchEngine(kv_dtype={kv_dtype}): a KV cache in another dtype than the "
-                f"model's ({model.dtype}) is not ported yet (fp8 KV, ROADMAP queue 1 item 11)")
+        kv_dtype = llama_mod.kv_dtype_of(kv_dtype, model.dtype)
         self.model = model
         self.cfg: TEOChatConfig = model.cfg
         self.max_slots = max_slots
@@ -519,7 +519,7 @@ class BatchEngine:
         self._n_adapters = 0  # multi-LoRA (stacked adapters) is ROADMAP queue 1 item 12
         self.device = model.device
         self.cache = llama_mod.init_cache(self.cfg.llm, max_slots + prefix_cache_slots, max_len,
-                                          dtype=model.dtype, device=self.device)
+                                          dtype=kv_dtype, device=self.device)
         self._state = _init_engine_state(self.cache, max_slots, max_len, chunk, speculative_k)
         # the decode graph entries, made by the first chunk of their kind on the card
         self._graph: Optional[gen_mod.DecodeGraph] = None

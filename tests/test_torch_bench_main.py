@@ -111,8 +111,9 @@ PHASE_KEYS = {
                "decode_effective_hbm_gbps", "decode_pct_of_hbm_peak"},
     "decode_bs8": {"decode_tokens_per_sec_bs8"},
     "decode_bs16": {"decode_tokens_per_sec_bs16"},
+    "decode_bs32": {"decode_tokens_per_sec_bs32_fp8kv"},
     "decode_int4": {"decode_tokens_per_sec_int4", "decode_effective_hbm_gbps_int4",
-                    "decode_pct_of_hbm_peak_int4"},
+                    "decode_pct_of_hbm_peak_int4", "decode_tokens_per_sec_int4_fp8kv"},
     "e2e": {"xbd_2frame_e2e_latency_s_32newtok"},
     # bench.py's keys carry its sizes (8 streams, 64 tokens, a 512 + 3 token
     # prompt, prefixes 128 / 1024 / 2048); these carry tiny_serve's

@@ -1030,14 +1030,16 @@ def _never_stop(eos=-1, m=1):
 
 
 def _decode(params, prompt, graphed, *, max_new=11, stop=None, generator=None,
-            temperature=0.0, do_sample=False):
+            temperature=0.0, do_sample=False, kv_dtype=None, state_out=None):
     embeds, lens, mask, pos = prompt
     if generator is None:
         generator = torch.Generator(device="cuda").manual_seed(0)
     tokens, n_gen, state = gen_mod._generate_tokens(
         params, GRAPH_CFG, embeds, lens, mask, pos, stop or _never_stop(), generator,
         max_new_tokens=max_new, cache_len=GRAPH_S + max_new + 1, temperature=temperature,
-        do_sample=do_sample, top_p=1.0, pad_id=0, graphed=graphed)
+        do_sample=do_sample, top_p=1.0, pad_id=0, graphed=graphed, kv_dtype=kv_dtype)
+    if state_out is not None:
+        state_out.append(state)
     return tokens, n_gen, state.logits.clone()
 
 
@@ -1508,3 +1510,137 @@ def test_decode_multi_kernel_at_a_row_offset(gen):
     assert torch.equal(got, want)
     ref = dec_mod.decode_attention_multi_plain(q.float(), k.float(), v.float(), lens)
     assert (got.float() - ref).abs().max().item() <= TOL
+
+
+# ------------------------------------------------------- the fp8 (e4m3) cache
+
+E4M3 = torch.float8_e4m3fn
+
+
+def _e4m3_slab(shape, gen):
+    """The layer slab of a [L, B, T, Hkv, D] e4m3 cache, read in place as
+    [B, Hkv, T, D], and its exact bf16 upcast (the same strides)."""
+    slab = (_randn((2, *shape), gen).float() * 2).to(E4M3)[1].transpose(1, 2)
+    return slab, slab.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,t,d,lengths",
+    [
+        (1, 32, 32, 801, 128, [580]),  # the 2-frame request's last step
+        (3, 8, 8, 801, 128, [801, 1, 0]),
+        (6, 32, 8, 200, 128, [1, 63, 64, 65, 200, 0]),  # the split's edges, GQA 4:1
+        (2, 32, 2, 90, 128, [90, 33]),  # GQA 16:1
+        (6, 16, 16, 256, 64, [1, 63, 64, 65, 256, 0]),  # head_dim 64
+        (8, 32, 32, 1025, 128, [1025, 1, 517, 1024, 64, 300, 1000, 2]),
+    ],
+)
+def test_decode_e4m3_kernel_is_the_bf16_kernel_on_the_upcast_slab(gen, b, h, hkv, t, d,
+                                                                   lengths):
+    """K2 on an e4m3 slab converts each element exactly and sums in the bf16
+    kernel's order: the bits of K2 on the slab upcast to bf16, within TOL of
+    the plain version, counted on its own counter."""
+    k8, kb = _e4m3_slab((b, t, hkv, d), gen)
+    v8, vb = _e4m3_slab((b, t, hkv, d), gen)
+    q = _randn((b, h, d), gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = (dec_mod.LAUNCHES_E4M3.count, dec_mod.LAUNCHES.count)
+    got = dec_mod.decode_attention(q, k8, v8, lens)
+    torch.cuda.synchronize()
+    assert (dec_mod.LAUNCHES_E4M3.count, dec_mod.LAUNCHES.count) == (before[0] + 1, before[1])
+    assert torch.equal(got, dec_mod.decode_attention(q, kb, vb, lens))
+    live = lens > 0
+    want = dec_mod.decode_attention_plain(q.float(), k8, v8, lens)
+    assert (got.float() - want)[live].abs().max().item() <= TOL
+    assert got[~live].abs().sum().item() == 0.0
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,t,d,starts,live",
+    [
+        (1, 9, 32, 32, 801, 128, [700], [9]),
+        (1, 128, 32, 32, 1025, 128, [700], [100]),
+        (6, 9, 32, 32, 300, 128, [0, 1, 31, 32, 33, 200], [9, 9, 9, 9, 5, 9]),  # chunk edges
+        (2, 40, 32, 8, 200, 128, [63, 0], [40, 0]),  # GQA 4:1; row 1 has no live slot
+        (2, 33, 16, 4, 257, 64, [64, 65], [33, 20]),  # head_dim 64
+        (1, 5, 32, 32, 4096, 128, [3995], [5]),  # a verify block: slots split across blocks
+        (1, 1024, 32, 32, 4096, 128, [100], [870]),  # 64-row tiles
+        (1, 3, 16, 4, 2048, 64, [2040], [3]),  # head_dim 64, split 8 ways
+    ],
+)
+def test_decode_multi_e4m3_kernel_is_the_bf16_kernel_on_the_upcast_slab(
+        gen, b, s, h, hkv, t, d, starts, live):
+    """K2m on an e4m3 slab (its ring holds the e4m3 chunks, each converted
+    into the bf16 tile the products read): the bits of K2m on the slab
+    upcast to bf16, each live (query, head) row within K2M_REL_MAX of its
+    largest |o| against the plain version and K2M_WALK_REL_MAX against the
+    walk, bit-equal twice, counted on its own counter."""
+    k8, kb = _e4m3_slab((b, t, hkv, d), gen)
+    v8, vb = _e4m3_slab((b, t, hkv, d), gen)
+    q = _randn((b, s, h, d), gen)
+    lens = _suffix_lengths(b, s, t, starts, live)
+    before = (dec_mod.LAUNCHES_MULTI_E4M3.count, dec_mod.LAUNCHES_MULTI.count)
+    got = dec_mod.decode_attention_multi(q, k8, v8, lens)
+    again = dec_mod.decode_attention_multi(q, k8, v8, lens)
+    torch.cuda.synchronize()
+    assert (dec_mod.LAUNCHES_MULTI_E4M3.count, dec_mod.LAUNCHES_MULTI.count) == \
+        (before[0] + 2, before[1])
+    assert torch.equal(got, again)
+    assert torch.equal(got, dec_mod.decode_attention_multi(q, kb, vb, lens))
+    alive = lens > 0
+    want = dec_mod.decode_attention_multi_plain(q.float(), k8, v8, lens)
+    walk = dec_mod.decode_attention_multi_schedule(q.float(), k8, v8, lens,
+                                                   sms=_build.sm_count(q.device))
+    assert (got.float() - want)[alive].abs().max().item() <= TOL
+    for ref, bound in ((want, K2M_REL_MAX), (walk, K2M_WALK_REL_MAX)):
+        err = (got.float() - ref).abs().amax(-1)[alive]
+        assert (err / ref.abs().amax(-1)[alive]).max().item() <= bound
+    assert got[~alive].abs().sum().item() == 0.0
+
+
+def test_decode_kernels_refuse_a_cache_they_do_not_read(gen):
+    """A float16 slab, or K and V of two dtypes, raise on the card: no
+    fallback to the plain version."""
+    q = _randn((1, 8, 128), gen)
+    kb = _randn((1, 8, 64, 128), gen)
+    lens = torch.tensor([10], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16 or float8_e4m3fn"):
+        dec_mod.decode_attention(q, kb.half(), kb.half(), lens)
+    with pytest.raises(ValueError, match="differ"):
+        dec_mod.decode_attention(q, kb, kb.to(E4M3), lens)
+    with pytest.raises(ValueError, match="differ"):
+        dec_mod.decode_attention_multi(q[:, None], kb.to(E4M3), kb, lens[:, None])
+    # e4m3 rows 136 bytes apart: K2m's 16-byte copies would be misaligned
+    rows = torch.zeros((1, 8, 64, 136), dtype=torch.uint8, device="cuda").view(E4M3)[..., 8:]
+    with pytest.raises(ValueError, match="strides"):
+        dec_mod.decode_attention(q, rows, rows, lens)
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_decode_graph_over_an_e4m3_cache_is_bit_equal(decoders, quant, b):
+    """generate_tokens(kv_dtype=e4m3) on the 2-layer 7B-width decoder: the
+    replayed graph's tokens and n_gen are the eager loop's, two requests
+    on the entry give the same tokens, logits and cache bytes, the entry's
+    cache is e4m3 (a bf16 request takes an entry of its own), and the
+    decode steps launched K2's e4m3 form only."""
+    params, prompt = decoders[quant], _graph_prompt(b)
+    gen_mod.clear_decode_graphs()
+    dec_mod.LAUNCHES.reset()
+    dec_mod.LAUNCHES_E4M3.reset()
+    want = _decode(params, prompt, False, max_new=21, kv_dtype=E4M3)
+    states = []
+    first = _decode(params, prompt, True, max_new=21, kv_dtype=E4M3, state_out=states)
+    k_bytes = states[0].cache.k.view(torch.uint8).clone()
+    second = _decode(params, prompt, True, max_new=21, kv_dtype=E4M3, state_out=states)
+    torch.cuda.synchronize()
+    assert states[1].cache.dtype == E4M3 and states[1] is states[0]
+    assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    assert torch.equal(k_bytes, states[1].cache.k.view(torch.uint8))
+    assert dec_mod.LAUNCHES.count == 0 and dec_mod.LAUNCHES_E4M3.count > 0
+    bf16 = _decode(params, prompt, True, max_new=21)
+    assert len(gen_mod.decode_graphs()) == 2
+    assert torch.equal(bf16[0][:, 0], first[0][:, 0])  # the prefill attends fresh bf16 K/V
+    gen_mod.clear_decode_graphs()

@@ -99,7 +99,7 @@ def test_module_chunk_is_the_kernels():
     # the grid is sized from T (lengths stay on the device) and the merge is in the same launch
     assert re.search(r"const dim3 grid\(\(T \+ CHUNK - 1\) / CHUNK", source)
     # one launch of K2 a call (its multi-query form, K2m, is the file's other launch)
-    assert source.count("<<<") == 2 and source.count("decode_split_kernel<D, GV><<<") == 1
+    assert source.count("<<<") == 2 and source.count("decode_split_kernel<D, GV, KV><<<") == 1
     assert "atomicAdd(ticket, 1)" in source
 
 
@@ -119,7 +119,8 @@ def test_multi_query_walk_sizes_are_the_kernels():
     assert int(re.search(r"constexpr int MQ_STAGES = (\d+);", k2m).group(1)) >= 2  # a ring
     cases = re.findall(r"case (\d+): TEOCHAT_MULTI_LAUNCH\((\d+)\);", k2m)
     assert [(int(a), int(b)) for a, b in cases] == [(r, r) for r in dec_mod.MULTI_ROW_WARPS]
-    kernel = k2m[k2m.index("decode_multi_kernel("):k2m.index("template <int D, int RW>\nint launch_multi(")]
+    kernel = k2m[k2m.index("decode_multi_kernel("):
+                 k2m.index("template <int D, int RW, typename KV>\nint launch_multi(")]
     assert "mma_16816(" in kernel and "ldsm_x4_t(" in kernel
     assert "cp_async16(" in kernel and "cp_async_wait<MQ_STAGES - 2>()" in kernel
     assert "fmaf(" not in kernel  # no FMA products left

@@ -775,8 +775,15 @@ def test_what_is_not_ported_raises(model, monkeypatch):
     engine = BatchEngine(model, max_slots=2, max_len=32, chunk=3, speculative_k=4)
     assert engine._state.spec_tokens.shape == (2, 3, 5)
     assert engine._state.spec_counts.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchEngine(model, kv_dtype="bfloat16")
+    # the fp8 KV cache is ported: an e4m3 engine pools its rows in e4m3, and
+    # a kv_dtype other than the model's or e4m3 still raises
+    engine = BatchEngine(model, max_slots=2, max_len=32, prefix_cache_slots=1,
+                         kv_dtype="float8_e4m3fn")
+    assert engine.cache.k.dtype == engine.cache.v.dtype == torch.float8_e4m3fn
+    assert engine.cache.k.shape[1] == 3  # two request rows and the prefix pool's row
+    for unsupported in ("bfloat16", "int8", torch.float16):
+        with pytest.raises(ValueError, match="kv_dtype"):
+            BatchEngine(model, kv_dtype=unsupported)
     engine = BatchEngine(model, max_slots=1, max_len=32)
     with pytest.raises(ValueError, match="item 12"):
         engine._make_request([1, 2], None, _gen(2), adapter=0)
