@@ -160,12 +160,31 @@ them. Phases, each printing its lines before the last:
     greedy token within SPEC_GAP_TOL of its teacher-forced maximum over an
     e4m3 cache, the e4m3 forms of K2 and K2m launching and the bf16 ones
     never, the cache's GiB; 8 streams of 121 + 64 tokens through an e4m3
-    and a bf16 engine, tok/s;
+    and a bf16 engine, tok/s; then multi-LoRA on that model
+    (`phase_multi_lora`): (a) two peft dirs at full width (r 128, alpha
+    256, A and B drawn from the seed) through `load_multi_lora` (the
+    adapters' GiB, the card's peak); (b) `generate` with adapters all 0,
+    all 1 and all -1 on the 2-frame request and the ragged batch of 4: the
+    prefill logits and greedy tokens bit-equal to the single-adapter
+    models' (`attach_lora_to_llama` over the same base) and the base
+    model's, graphed, and the graph's tokens the eager loop's; (c) one
+    graph entry replayed with two adapter lists in turn, each run its eager
+    run's tokens; (d) the engine with the eight requests of (a) over
+    adapters {-1, 0, 1}, plain and speculative (k 4): each greedy token
+    within SPEC_GAP_TOL of its adapter's teacher-forced maximum, a prefix
+    hit refused across adapters and taken within one; (e) ms a graphed
+    decode step with the base tree, one adapter and two stacked at bs 1
+    and 8, and the engine's tok/s at 8 streams mixed over {-1, 0, 1}
+    against the base engine; (f) branch A: a `teochat-lora` dir over the
+    checkpoint (one adapter dir's peft files, non_lora_trainables.bin with
+    a projector of its own) loaded with load_8bit (seconds, the card's peak
+    held below the tree + 3 GiB), one request;
 14. `load_pretrained_model(path, load_int4=True)` from the same directory:
     one 2-frame request of uint8 frames (K3b and K3c must launch), then the
     serving engine with 4 text streams (K3b and K3c must launch), then a
     plain and a speculative chunk over 8 rows (ms each; the verify blocks'
-    40 rows must take K3's M > 8 kernel); the directory is then removed,
+    40 rows must take K3's M > 8 kernel), then multi-LoRA's (e) at bs 8
+    over the fused int4 model; the directory is then removed,
     and after each model is deleted no decode graph may be left;
 15. the training flash attention (K4a forward, the di preamble, K4b dK/dV,
     K4c dQ) against autograd through its plain twin at training shapes, at
@@ -214,8 +233,8 @@ kernel rows' launches, error, times and bound (K2 and K2m twice: on a bf16
 and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
 "fp8_generate", the engine phase's
-numbers under "engine" and the batched eval's and preprocessing's under
-"eval" (K3c has two: its wrapper runs
+numbers under "engine", the batched eval's and preprocessing's under
+"eval" and multi-LoRA's under "multi_lora" (K3c has two: its wrapper runs
 the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
 are the chat server's five turns, the spec turn's verify blocks among
 them); the last line is
@@ -2600,17 +2619,20 @@ def _engine_prompts(tokenizer, image_processor, rs):
     ]
 
 
-def _serve_named(engine, requests):
+def _serve_named(engine, requests, adapters=None):
     """Start `engine` and send `requests` [(name, ids, frames, gen)] from
     threads at once (the prefix hit once the miss is answered, so that the
-    pool holds its prefix); returns {name: (tokens, seconds)}."""
+    pool holds its prefix), each with its adapter of `adapters` {name: id}
+    (-1 where none); returns {name: (tokens, seconds)}."""
     results, done = {}, {name: threading.Event() for name, *_ in requests}
+    adapters = adapters or {}
 
     def submit(name, ids, frames, gen):
         if name == "prefix hit":
             done["prefix miss"].wait()
         try:
-            results[name] = wall(lambda: engine.submit(ids, frames, gen))
+            results[name] = wall(lambda: engine.submit(ids, frames, gen,
+                                                       adapter=adapters.get(name, -1)))
         finally:
             done[name].set()
 
@@ -3383,10 +3405,429 @@ def phase_engine_int4(model):
     return chunks
 
 
-def phase_checkpoint_int4(root):
+# ------------------------------------------------------------- multi-LoRA
+
+LORA_RANK, LORA_ALPHA = 128, 256.0  # the published recipe's r and alpha
+LORA_STD = 0.015  # A and B: a delta of ~1/4 of the base's N(0, 0.02) weights
+
+
+def write_peft_dir(path, cfg, gen):
+    """A peft adapter dir at the model's full width: adapter_model.safetensors
+    (fp16 A [r, in] and B [out, r] on all seven projections of every layer,
+    both drawn on the card from `gen`, B nonzero) and adapter_config.json
+    (r 128, lora_alpha 256). Returns its bytes."""
+    from safetensors.torch import save_file
+
+    llm = cfg.llm
+    d, inter, kv = llm.hidden_size, llm.intermediate_size, llm.num_kv_heads * llm.head_dim
+    widths = {"self_attn.q_proj": (d, d), "self_attn.k_proj": (d, kv),
+              "self_attn.v_proj": (d, kv), "self_attn.o_proj": (d, d),
+              "mlp.gate_proj": (d, inter), "mlp.up_proj": (d, inter), "mlp.down_proj": (inter, d)}
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * LORA_STD).to(torch.float16).cpu()
+
+    sd = {}
+    for layer in range(llm.num_layers):
+        for mod, (fan_in, fan_out) in widths.items():
+            pre = f"base_model.model.model.layers.{layer}.{mod}"
+            sd[f"{pre}.lora_A.weight"] = normal(LORA_RANK, fan_in)
+            sd[f"{pre}.lora_B.weight"] = normal(fan_out, LORA_RANK)
+    os.makedirs(path, exist_ok=True)
+    save_file(sd, os.path.join(path, "adapter_model.safetensors"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA, "peft_type": "LORA",
+                   "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                                      "up_proj", "down_proj"]}, f)
+    return os.path.getsize(os.path.join(path, "adapter_model.safetensors"))
+
+
+def _lora_bytes(llm) -> int:
+    return sum(t.numel() * t.element_size() for path, t in tree_leaves_with_path(llm)
+               if path.split("/")[-1].startswith("lora_"))
+
+
+def _single_adapter_model(model, path):
+    """The model with one adapter dir attached over its backbone (no stack)."""
+    from safetensors.torch import load_file
+
+    from teochat_torch.checkpoint.convert_hf import attach_lora_to_llama
+
+    llm = attach_lora_to_llama(model.params["llm"], load_file(
+        os.path.join(path, "adapter_model.safetensors")), model.cfg.llm, rank=LORA_RANK,
+        alpha=LORA_ALPHA)
+    return teochat_mod.TEOChat(model.cfg, {**model.params, "llm": llm},
+                               tokenizer=model.tokenizer)
+
+
+def _last_prefill_logits(model, ids, frames, adapters=None):
+    """The last-position logits of one prefill of `ids`, as generate's (K1),
+    routed by `adapters` over a multi-LoRA model."""
+    from teochat_torch.train.lora import adapter_route, num_stacked_adapters
+
+    cfg, tpf = model.cfg, model.tokens_per_frame
+    fused = len(ids) + sum(t == IMAGE_TOKEN_INDEX for t in ids) * (tpf - 1)
+    pad_to = teochat_mod.round_to_bucket(fused, teochat_mod.SEQ_BUCKETS)
+    plan = fusion_mod.build_fusion_plan([ids], tokens_per_frame=tpf, pad_to=pad_to,
+                                        max_length=cfg.tokenizer_model_max_length)
+    embeds = teochat_mod.multimodal_embeds(model.params, cfg, plan, model.encode(frames))
+    route = None if adapters is None else adapter_route(
+        torch.tensor(adapters, device="cuda"), num_stacked_adapters(model.params["llm"]))
+    cache = llama_mod.init_cache(cfg.llm, 1, pad_to + 1, device="cuda")
+    logits, _ = gen_mod.prefill_full(
+        model.params["llm"], cfg.llm, cache, embeds,
+        torch.as_tensor(plan.seq_lens, device="cuda"),
+        torch.as_tensor(plan.attention_mask, device="cuda"),
+        torch.as_tensor(plan.position_ids, device="cuda"), adapter_route=route)
+    return logits
+
+
+def _decode_step_ms(model, ids, b, adapters=None, reps=2):
+    """ms a graphed decode step at batch `b` (the text prompt `ids` in every
+    row): (a 33-token generate - a 1-token one) / 32, medians of `reps`
+    after a run that captures."""
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    g33 = GenerationConfig(max_new_tokens=33, temperature=0.0, do_sample=False, stop_strings=())
+    rows, route = [ids] * b, None if adapters is None else (adapters * b)[:b]
+    model.generate(rows, None, g33, adapters=route)
+    firsts = [wall(lambda: model.generate(rows, None, g1, adapters=route))[1] for _ in range(reps)]
+    fulls = [wall(lambda: model.generate(rows, None, g33, adapters=route))[1] for _ in range(reps)]
+    return (statistics.median(fulls) - statistics.median(firsts)) / 32 * 1e3
+
+
+def _drop_graphs():
+    """Drop every decode graph and hand the cached memory back to the card:
+    each entry's pool, and what earlier phases left cached, would otherwise
+    split the card's memory into pieces a later allocation cannot use."""
+    gen_mod.clear_decode_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lora_step_costs(model, multi, singles, tag, batches):
+    """ms a graphed decode step with the base tree, one adapter (a single-
+    adapter model) and two stacked adapters routed [0, 1, ...], at each
+    batch of `batches`, in turns in one process; one graph entry live at a
+    time, with its memory beside it."""
+    ids = [1] + list(range(400, 520))
+    out = {}
+    for b in batches:
+        row, held = {}, {}
+        for name, m, adapters in (("base", model, None), ("one adapter", singles[0], None),
+                                  ("two stacked", multi, [0, 1]), ("base again", model, None)):
+            _drop_graphs()
+            row[name] = _decode_step_ms(m, ids, b, adapters=adapters)
+            held[name] = torch.cuda.memory_allocated() / 2**30
+        _drop_graphs()
+        out[f"bs{b}"] = row
+        log(f"[multi-lora {tag}] {_timing.smi_line()}: ms a graphed decode step at bs {b} "
+            f"(121-token text prompt, 32 steps, medians of 2): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row.items())
+            + "; allocated with its graph entry " + ", ".join(f"{v:.3f}" for v in held.values())
+            + " GiB")
+    return out
+
+
+def _check_adapter_rows(multi, singles, model, ids, frames, batch_ids, batch_frames, tag):
+    """(b): prefill logits and greedy tokens of `multi` with adapters all 0,
+    all 1 and all -1, bit-equal to the single-adapter models' and the base
+    model's at the same batch shapes (the 2-frame request, the ragged
+    batch of 4), graphed; and the graph's tokens the eager loop's."""
+    g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
+    refs = {0: singles[0], 1: singles[1], -1: model}
+    firsts, answers = {}, {}
+    for a, ref in refs.items():
+        got = _last_prefill_logits(multi, ids, frames, [a])
+        want = _last_prefill_logits(ref, ids, frames)
+        check(torch.equal(got, want), f"{tag}: adapter {a}'s prefill logits are not its model's")
+        firsts[a] = int(got.argmax())
+        for name, (rows, fr, gen) in {"2-frame": ([ids], frames, g32),
+                                      "batch of 4": (batch_ids, batch_frames, G16)}.items():
+            graphed = multi.generate(rows, fr, gen, adapters=[a] * len(rows))
+            check(graphed == ref.generate(rows, fr, gen),
+                  f"{tag}: adapter {a}, {name}: graphed tokens are not its model's")
+            with decode_loop(False):
+                eager = multi.generate(rows, fr, gen, adapters=[a] * len(rows))
+            check(eager == graphed, f"{tag}: adapter {a}, {name}: graph against eager")
+            answers[a, name] = graphed
+        log(f"[{tag}] adapter {a}: the 2-frame request's prefill logits and greedy tokens "
+            f"(and the batch of 4's) bit-equal to its own model's, graphed and eager; "
+            f"first token {firsts[a]}")
+    check(answers[0, "2-frame"] != answers[-1, "2-frame"] != answers[1, "2-frame"],
+          f"{tag}: the adapters do not move the tokens")
+
+
+def _one_entry_two_lists(multi, batch_ids, batch_frames, tag):
+    """(c): one graph entry replayed with two adapter lists in turn; each
+    run's tokens its eager run's."""
+    lists = ([0, 1, -1, 0], [1, -1, 0, 1])
+    with decode_loop(False):
+        eager = [multi.generate(batch_ids, batch_frames, G16, adapters=ids) for ids in lists]
+    gen_mod.clear_decode_graphs()
+    for ids, want in zip(lists * 2, eager * 2):
+        got = multi.generate(batch_ids, batch_frames, G16, adapters=ids)
+        check(got == want, f"{tag}: adapters {ids}: graph tokens are not the eager run's")
+    entries = gen_mod.decode_graphs()
+    check(len(entries) == 1, f"{tag}: {len(entries)} graph entries for one key")
+    log(f"[{tag}] one graph entry, adapter lists {lists[0]} and {lists[1]} in turn twice: "
+        f"each run's tokens its eager run's; replays {entries[0].replays}, capture "
+        f"{entries[0].capture_seconds:.3f} s; eager runs differ: {eager[0] != eager[1]}")
+
+
+def _engine_adapters(multi, refs, requests, tag, **engine_kw):
+    """(d): the engine over the stacked model with `requests` [(name, ids,
+    frames, gen, adapter)] sent at once: each greedy token within
+    SPEC_GAP_TOL of the teacher-forced maximum under its own adapter.
+    Returns (results, the engine's stats, launches)."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    engine = BatchEngine(multi, max_slots=8, max_len=2048, chunk=8, prefill_chunk=256,
+                         prefix_cache_slots=2, prefix_min_tokens=256, **engine_kw)
+    adapters = {name: a for name, *_, a in requests}
+    try:
+        (results, counts) = counted(tag, lambda: _serve_named(
+            engine, [r[:4] for r in requests], adapters=adapters))
+        stats = dict(engine.stats)
+    finally:
+        engine.shutdown()
+    del engine
+    _drop_graphs()
+    worst = {}
+    for name, ids, frames, gen, a in requests:
+        toks = results[name][0]
+        check(toks and len(toks) <= gen.max_new_tokens, f"{tag} {name}: {len(toks)} tokens")
+        if gen.do_sample:
+            continue
+        gaps, _ = teacher_forced_gaps(refs[a], ids, frames, toks)
+        worst[name] = max(gaps)
+        check(worst[name] <= SPEC_GAP_TOL,
+              f"{tag} {name} (adapter {a}): a greedy token {worst[name]:.3f} rms below its maximum")
+    log(f"[{tag}] 8 requests over adapters {sorted(set(adapters.values()))}: the largest gap "
+        f"of each greedy request to its adapter's teacher-forced maximum (rms) "
+        + ", ".join(f"{n} {g:.3f}" for n, g in worst.items()) + f"; stats {stats}")
+    return results, stats, counts
+
+
+def _engine_tok_s(model, adapters, tag, runs=2):
+    """Aggregate tok/s of 8 text streams of 121 + 64 tokens through one
+    engine, each stream routed by `adapters` (None: the plain model)."""
+    from teochat_torch.serve.engine import BatchEngine
+
+    gen = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
+    prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
+    engine = BatchEngine(model, max_slots=8, max_len=512, chunk=8).start()
+    try:
+        engine.submit(prompts[0], None, gen, adapter=-1 if adapters is None else adapters[0])
+        out = [None] * 8
+
+        def round_():
+            threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, engine.submit(
+                prompts[i], None, gen, adapter=-1 if adapters is None else adapters[i])))
+                for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        secs = [wall(round_)[1] for _ in range(runs)]
+    finally:
+        engine.shutdown()
+    del engine
+    _drop_graphs()
+    rates = [sum(len(o) for o in out) / s for s in secs]
+    log(f"[{tag}] 8 streams of 121 + 64 tokens: " + ", ".join(f"{r:.2f}" for r in rates)
+        + " tok/s")
+    return rates
+
+
+def _branch_a(root, base_path, adapter_dir, tokenizer, image_processor, single):
+    """(f): a `teochat-lora` dir over the base checkpoint (its config and
+    tokenizer, one adapter dir's peft files, non_lora_trainables.bin with a
+    projector of its own) loaded with load_8bit through branch A; the load's
+    seconds and the card's peak, one request (its tokens beside the
+    unmerged single-adapter model's, where they first differ)."""
+    from teochat_torch.builder import load_pretrained_model
+
+    path = os.path.join(root, "teochat-lora-7b")
+    os.makedirs(path)
+    for name in ("config.json", "tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(base_path, name), path)
+    for name in ("adapter_model.safetensors", "adapter_config.json"):
+        shutil.copy(os.path.join(adapter_dir, name), path)
+    cfg = single.cfg
+    g = torch.Generator().manual_seed(SEED + 7)
+    m, d = cfg.projector.mm_hidden_size, cfg.projector.hidden_size
+    nlt = {"model.mm_projector.0.weight": torch.randn(d, m, generator=g) * 0.02,
+           "model.mm_projector.0.bias": torch.zeros(d),
+           "model.mm_projector.2.weight": torch.randn(d, d, generator=g) * 0.02,
+           "model.mm_projector.2.bias": torch.zeros(d)}
+    torch.save({"base_model.model." + k: v.half() for k, v in nlt.items()},
+               os.path.join(path, "non_lora_trainables.bin"))
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _peak_rss_gib()
+    (_, merged, _, _), load_s = wall(lambda: load_pretrained_model(path, base_path,
+                                                                   load_8bit=True))
+    tree = _tree_bytes(merged.params)
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"[multi-lora branch A] load_pretrained_model(teochat-lora dir, base, load_8bit=True): "
+        f"{load_s:.2f} s; the process's peak RSS {_peak_rss_gib():.3f} GiB ({rss_before:.3f} before); "
+        f"card: loaded tree {tree / 2**30:.3f} GiB, peak during the load {peak / 2**30:.3f} GiB "
+        f"above the {before / 2**30:.3f} GiB held before")
+    check(peak < tree + CKPT_LOAD_HEADROOM,
+          f"branch A: the load's peak {peak} is not below the tree {tree} + 3 GiB")
+    check(merged.params["llm"]["layers"]["attn"]["q"]["kernel"].dtype == torch.int8,
+          "branch A: int8 decoder")
+    want_proj = nlt["model.mm_projector.0.weight"].half().T.to("cuda", torch.bfloat16)
+    check(torch.equal(merged.params["projector"]["layers"][0]["kernel"], want_proj),
+          "branch A: the projector is not non_lora_trainables.bin's")
+    frames = image_processor.preprocess(
+        [np.random.RandomState(SEED + 8).randint(0, 256, (300, 400, 3), dtype=np.uint8)
+         for _ in range(2)])["pixel_values"]
+    ids = tokenizer_image_token(PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"),
+                                tokenizer, IMAGE_TOKEN_INDEX)
+    g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
+    (out, sec), counts = counted("multi-lora branch A", lambda: wall(
+        lambda: merged.generate([ids], frames, g32)[0]))
+    check(out and all(0 <= t < cfg.llm.vocab_size for t in out), "branch A: the answer")
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K5")), f"branch A launches {counts}")
+    # the unmerged adapter over the int8 base, with the dir's projector: what
+    # differs is the int8 rounding of W + delta against that of W
+    twin = teochat_mod.TEOChat(cfg, {**single.params, "projector": merged.params["projector"]},
+                               tokenizer=single.tokenizer)
+    unmerged = twin.generate([ids], frames, g32)[0]
+    gaps, _ = teacher_forced_gaps(twin, ids, frames, out)
+    log(f"[multi-lora branch A] one 2-frame request: {sec:.3f} s, {len(out)} tokens; the "
+        f"unmerged adapter over the int8 base (the same projector) first differs at "
+        f"{_first_difference(out, unmerged)}, the merged tokens' largest gap to its "
+        f"teacher-forced maximum {max(gaps):.3f} rms (printed: the two round W + delta to "
+        f"int8 differently)")
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "peak_gib": peak / 2**30, "tree_gib": tree / 2**30,
+            "request_s": sec}
+
+
+def phase_multi_lora(model, tokenizer, image_processor, root, ids, frames, gen):
+    """Multi-LoRA and LoRA checkpoints on the loaded int8 7B model: (a) two
+    peft dirs at full width (r 128, alpha 256, A and B from the seed)
+    loaded by `load_multi_lora`; (b) adapters all 0, all 1, all -1 bit-equal
+    to their own models, graphed and eager; (c) one graph entry for two
+    adapter lists; (d) the engine, plain and speculative (k 4), with 8
+    requests over adapters {-1, 0, 1} held to their adapters' teacher-forced
+    maxima, and a prefix hit refused across adapters; (e) ms a graphed
+    decode step with the base, one adapter and two stacked (bs 1 and 8),
+    the engine's tok/s mixed against base; (f) branch A. Returns its
+    numbers and the dirs (phase 14 times int4 with them)."""
+    from teochat_torch.builder import load_multi_lora
+
+    t0 = time.perf_counter()
+    _drop_graphs()
+    cfg = model.cfg
+    dirs = [os.path.join(root, f"adapter-{i}") for i in range(2)]
+    nbytes = sum(write_peft_dir(d, cfg, gen) for d in dirs)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    multi, sec = wall(lambda: load_multi_lora(model, dirs))
+    lora_gib = _lora_bytes(multi.params["llm"]) / 2**30
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"[multi-lora] wrote 2 peft dirs (r {LORA_RANK}, alpha {LORA_ALPHA:g}, fp16, "
+        f"{nbytes} bytes); load_multi_lora: {sec:.2f} s, the stacked fp32 adapters "
+        f"{lora_gib:.3f} GiB on the card, peak {peak:.3f} GiB above the {before / 2**30:.3f} "
+        f"GiB held before; {_timing.smi_line()}")
+    check(multi.params["llm"]["layers"]["attn"]["q"]["kernel"] is
+          model.params["llm"]["layers"]["attn"]["q"]["kernel"], "the backbone is not shared")
+    singles = [_single_adapter_model(model, d) for d in dirs]
+    refs = {0: singles[0], 1: singles[1], -1: model}
+    processor = FrameProcessor(cfg.vision.image_size, SEED)
+    batch_ids, batch_frames = ragged_batch(tokenizer, processor)
+
+    marks = {"(a)": time.perf_counter()}
+
+    def paths():
+        _check_adapter_rows(multi, singles, model, ids, frames, batch_ids, batch_frames,
+                            "multi-lora")
+        _one_entry_two_lists(multi, batch_ids, batch_frames, "multi-lora")
+
+    _, path_counts = counted("multi-lora generate", paths)
+    check(all(path_counts[k] > 0 for k in ("K1", "K2", "K5")),
+          f"multi-lora generate launches {path_counts}")
+    _drop_graphs()
+
+    marks["(b), (c)"] = time.perf_counter()
+    rs = np.random.RandomState(SEED + 5)
+    requests = []
+    for i, (name, rids, rframes, rgen) in enumerate(
+            _engine_prompts(tokenizer, image_processor, rs)):
+        if rgen is None:  # the stop-string request of phase 13: greedy here
+            rgen = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False,
+                                    stop_strings=())
+        adapter = {"prefix miss": 0, "prefix hit": 1}.get(name, (-1, 0, 1)[i % 3])
+        requests.append((name, rids, rframes, rgen, adapter))
+    plain, plain_stats, plain_counts = _engine_adapters(multi, refs, requests,
+                                                        "multi-lora engine")
+    check(plain_stats["prefix_hits"] == 0, f"a prefix hit across adapters: {plain_stats}")
+    check(all(plain_counts[k] > 0 for k in ("K1", "K2", "K2m", "K5")),
+          f"multi-lora engine launches {plain_counts}")
+    same = [(n, i, f, g, 0) for n, i, f, g, _ in requests if n.startswith("prefix")]
+    _, hit_stats, _ = _engine_adapters(multi, refs, same, "multi-lora engine same adapter")
+    check(hit_stats["prefix_hits"] == 1, f"no prefix hit within one adapter: {hit_stats}")
+    spec, spec_stats, spec_counts = _engine_adapters(multi, refs, requests,
+                                                     "multi-lora engine spec", speculative_k=4,
+                                                     adaptive_spec=False)
+    check(spec_counts["K2"] == 0 and spec_counts["K2m"] > 0,
+          f"multi-lora spec engine launches {spec_counts}")
+    _drop_graphs()
+
+    marks["(d)"] = time.perf_counter()
+    costs = lora_step_costs(model, multi, singles, "int8", batches=(1, 8))
+    mixed = [(-1, 0, 1)[i % 3] for i in range(8)]
+    tok_s = {"base": _engine_tok_s(model, None, "multi-lora engine base"),
+             "mixed": _engine_tok_s(multi, mixed, f"multi-lora engine mixed {mixed}")}
+    _drop_graphs()
+    marks["(e)"] = time.perf_counter()
+    branch_a = _branch_a(root, os.path.join(root, "TEOChat-7B"), dirs[0], tokenizer,
+                         image_processor, singles[0])
+    del multi, singles, refs
+    _drop_graphs()
+    marks["(f)"] = time.perf_counter()
+    sec = time.perf_counter() - t0
+    ends = list(marks.values())
+    parts = {name: end - start for name, start, end in zip(marks, [t0] + ends, ends)}
+    log(f"[multi-lora] the phase took {sec:.1f} s: "
+        + ", ".join(f"{name} {v:.1f}" for name, v in parts.items()))
+    return {"adapters_gib": lora_gib, "load_peak_gib": peak, "step_ms": costs,
+            "engine_tok_s": tok_s, "branch_a": branch_a, "generate_launches": path_counts,
+            "engine_launches": plain_counts, "spec_engine_launches": spec_counts,
+            "phase_s": sec, "part_s": parts}, dirs
+
+
+def phase_multi_lora_int4(model, dirs):
+    """(e) at int4: ms a graphed decode step at bs 8 with the base, one
+    adapter and two stacked, over the fused int4 model (block-composed
+    adapters of rank 3r / 2r)."""
+    from teochat_torch.builder import load_multi_lora
+
+    multi = load_multi_lora(model, dirs)
+    check(multi.params["llm"]["layers"]["attn"]["qkv"]["lora_a"].shape[-1] == 3 * LORA_RANK,
+          "int4: the block-composed q|k|v adapter")
+    singles = [_single_adapter_model(model, d) for d in dirs]
+    out, counts = counted("multi-lora int4", lambda: lora_step_costs(
+        model, multi, singles, "int4", batches=(8,)))
+    check(counts["K3c M<=8"] > 0, f"multi-lora int4 launches {counts}")
+    del multi, singles
+    _drop_graphs()
+    return out
+
+
+def phase_checkpoint_int4(root, lora_dirs):
     """The same checkpoint loaded with load_int4: one 2-frame request of uint8
-    frames, then the engine (phase_engine_int4). Returns the request's
-    launches and the engine's chunk times."""
+    frames, then the engine (phase_engine_int4), then the multi-LoRA step
+    costs over it (`lora_dirs`). Returns the request's launches, the
+    engine's chunk times and the LoRA step costs."""
     from teochat_torch.builder import load_pretrained_model
 
     path = os.path.join(root, "TEOChat-7B")
@@ -3410,7 +3851,8 @@ def phase_checkpoint_int4(root):
     check(isinstance(answer, str) and answer, "checkpoint int4: empty answer")
     check(all(counts[k] > 0 for k in ("K1", "K2", "K3b", "K3c M<=8", "K5"))
           and counts["K3c"] > counts["K3c M<=8"], f"checkpoint int4 launches {counts}")
-    return {"request_launches": counts, "engine_chunks": phase_engine_int4(model)}
+    return {"request_launches": counts, "engine_chunks": phase_engine_int4(model),
+            "multi_lora_step_ms": phase_multi_lora_int4(model, lora_dirs)}
 
 
 def phase_bench_int4(gen):
@@ -3597,7 +4039,10 @@ def main():
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         engine_entry = phase_engine(model, hf_tokenizer, image_processor)
         gen_mod.clear_decode_graphs()
-        engine_entry["int4"] = phase_checkpoint_int4(ckpt_root)
+        lora_entry, lora_dirs = phase_multi_lora(model, hf_tokenizer, image_processor, ckpt_root,
+                                                 ids, frames, gen)
+        engine_entry["int4"] = phase_checkpoint_int4(ckpt_root, lora_dirs)
+        lora_entry["int4_step_ms"] = engine_entry["int4"].pop("multi_lora_step_ms")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     gen_mod.clear_decode_graphs()  # training starts from the model's own memory
@@ -3669,7 +4114,8 @@ def main():
         bench_row("S2-c", "bench_vit_attention.cu", "bench_vit_attention.py:76"),
     ]
     print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
-                      "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8}}))
+                      "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8},
+                      "multi_lora": lora_entry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,6 +2,11 @@
 
 Rebuild of videollava/model/builder.py:27-171 `load_pretrained_model`, for
 the branches the port runs:
+  A. a LoRA dir over a base (a model name holding "lora", with
+     `model_base`): the config from the LoRA dir, the projector and any
+     trained embed / lm_head rows from its `non_lora_trainables.bin`, the
+     peft adapter merged into the base decoder on the host with the dir's
+     r / lora_alpha (builder.py:37-72), all before quantization;
   B. base + projector-only dir -> load mm_projector.bin over the base
      (builder.py:73-89);
   C. merged single path (jirvin16/TEOChat layout), with `load_8bit` (int8
@@ -17,12 +22,15 @@ few layers at a time (ops/quant.py::quantize_llama_params_host), so the
 card never holds it in 16 bits. Returns (tokenizer, model, processor_dict,
 context_len) for API parity.
 
-Not ported yet, and raising where asked for: branch A, a LoRA dir merged
-over a base (ROADMAP item 12); the MPT backend (item 14); the vision-token
-machinery (`mm_use_im_patch_token`, `mm_use_im_start_end`, a tokenizer whose
-length differs from the embedding's rows), `quantize_vision` and the video
-processor (item 15); `allow_partial` with `initialize_vision_modules`
-(item 13); `load_multi_lora` (item 12).
+`load_multi_lora` attaches N peft adapter dirs UNMERGED over a loaded
+model's backbone (int8 / int4 included), stacked for per-request routing.
+
+Not ported yet, and raising where asked for: the MPT backend (ROADMAP item
+14); the vision-token machinery (`mm_use_im_patch_token`,
+`mm_use_im_start_end`, a tokenizer whose length differs from the
+embedding's rows, a LoRA dir whose vocab differs from its base's),
+`quantize_vision` and the video processor (item 15); `allow_partial` with
+`initialize_vision_modules` (item 13).
 """
 
 from __future__ import annotations
@@ -204,6 +212,58 @@ def _vision_params(sd: Mapping[str, Any], cfg: TEOChatConfig,
     )
 
 
+def _read_adapter(path: str) -> Optional[Tuple[Mapping[str, Any], Dict]]:
+    """A peft dir's (adapter state dict, adapter_config.json), or None
+    without an adapter_model.{safetensors,bin}."""
+    for fname in ("adapter_model.safetensors", "adapter_model.bin"):
+        f = os.path.join(path, fname)
+        if os.path.exists(f):
+            if fname.endswith(".safetensors"):
+                from safetensors.torch import load_file
+
+                adapter = load_file(f)
+            else:
+                adapter = _load_torch_file(f)
+            break
+    else:
+        return None
+    lora_cfg = {}
+    cfg_file = os.path.join(path, "adapter_config.json")
+    if os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            lora_cfg = json.load(f)
+    return adapter, lora_cfg
+
+
+def _apply_lora_dir(lora_path: str, llm_params: Dict, proj_keys: Dict,
+                    cfg: TEOChatConfig) -> Tuple[Dict, Dict]:
+    """Branch A on the host decoder (reference builder.py:37-72): the
+    non-LoRA trainables (projector, trained embed / lm_head rows) when the
+    dir has them, then the peft adapter merged with its r / lora_alpha.
+    Returns (decoder, projector keys)."""
+    n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
+    if cfg.llm.vocab_size != n_rows:
+        raise _unported(f"resizing the base's embeddings to the LoRA config's vocab "
+                        f"({cfg.llm.vocab_size} against {n_rows} rows; vision_tokenizer)", 15)
+    nlt_file = os.path.join(lora_path, "non_lora_trainables.bin")
+    if os.path.exists(nlt_file):
+        nlt = _strip_prefix(_load_torch_file(nlt_file))
+        proj_keys = {k: v for k, v in nlt.items() if "mm_projector" in k} or proj_keys
+        llm_params = dict(llm_params)
+        emb_w = nlt.get("model.embed_tokens.weight")
+        if emb_w is not None:  # reference train.py:196-199, keys_to_match 'embed_tokens'
+            llm_params["embed_tokens"] = {"embedding": emb_w.detach().cpu()}
+        head_w = nlt.get("lm_head.weight")
+        if head_w is not None:
+            llm_params["lm_head"] = {"kernel": head_w.detach().cpu().T.contiguous()}
+    read = _read_adapter(lora_path)
+    if read is not None:
+        adapter, lora_cfg = read
+        llm_params = convert_hf.merge_lora_into_llama(
+            llm_params, adapter, cfg.llm, rank=lora_cfg.get("r"), alpha=lora_cfg.get("lora_alpha"))
+    return llm_params, proj_keys
+
+
 def load_pretrained_model(
     model_path: str,
     model_base: Optional[str] = None,
@@ -231,8 +291,6 @@ def load_pretrained_model(
         )
     if "mpt" in model_name.lower():
         raise _unported("the MPT backend", 14)
-    if "lora" in model_name.lower() and model_base is not None:
-        raise _unported("loading a LoRA dir over a base (branch A)", 12)
     if quantize_vision:
         raise _unported("quantize_vision", 15)
     if allow_partial:
@@ -240,7 +298,8 @@ def load_pretrained_model(
     device = resolve_device(device)
 
     base_path = model_base if model_base is not None else model_path
-    cfg = load_config(base_path)
+    lora_path = model_path if "lora" in model_name.lower() and model_base is not None else None
+    cfg = load_config(lora_path or base_path)
     if cfg.mm_use_im_patch_token or cfg.mm_use_im_start_end:
         raise _unported("the vision-token machinery (mm_use_im_patch_token, "
                         "mm_use_im_start_end)", 15)
@@ -248,7 +307,9 @@ def load_pretrained_model(
 
     llm_params = convert_hf.convert_llama(sd, cfg.llm)
     proj_keys = {k: sd[k] for k in sd if "mm_projector" in k}
-    if model_base is not None:
+    if lora_path is not None:
+        llm_params, proj_keys = _apply_lora_dir(lora_path, llm_params, proj_keys, cfg)
+    elif model_base is not None:
         # branch B: projector-only checkpoint over a base LM
         proj_file = os.path.join(model_path, "mm_projector.bin")
         if os.path.exists(proj_file):
@@ -258,7 +319,7 @@ def load_pretrained_model(
     proj_params = convert_hf.convert_projector(proj_keys, cfg.projector)
     vision_params = _vision_params(sd, cfg, vision_path)
 
-    tokenizer = _load_tokenizer(base_path)
+    tokenizer = _load_tokenizer(lora_path or base_path)
     n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
     if len(tokenizer) != n_rows:
         raise _unported(f"resizing the embeddings to the tokenizer ({len(tokenizer)} "
@@ -296,3 +357,30 @@ def load_pretrained_model(
         "video": UnportedVideoProcessor(),
     }
     return tokenizer, model, processor, cfg.max_sequence_length
+
+
+def load_multi_lora(model: TEOChat, adapter_dirs) -> TEOChat:
+    """Attach N peft adapter dirs UNMERGED for multi-LoRA serving.
+
+    Each dir's adapter_model.{safetensors,bin} becomes unmerged adapter
+    leaves over the model's backbone (which may be int8 or int4: nothing is
+    merged), and the N trees are stacked along an adapter axis, routed per
+    request (BatchEngine.submit(..., adapter=i), TEOChat.generate(adapters=
+    [...]); -1 is the base model). Returns a new TEOChat that shares every
+    base tensor; only the rank-r adapter stacks are new, fp32 on the
+    model's device."""
+    from teochat_torch.train.lora import stack_lora_adapters
+
+    if not adapter_dirs:
+        raise ValueError("load_multi_lora needs at least one adapter dir")
+    trees = []
+    for d in adapter_dirs:
+        read = _read_adapter(d)
+        if read is None:
+            raise FileNotFoundError(f"no adapter_model.* in {d}")
+        adapter, lora_cfg = read
+        trees.append(convert_hf.attach_lora_to_llama(
+            model.params["llm"], adapter, model.cfg.llm,
+            rank=lora_cfg.get("r"), alpha=lora_cfg.get("lora_alpha")))
+    return TEOChat(model.cfg, {**model.params, "llm": stack_lora_adapters(trees)},
+                   tokenizer=model.tokenizer)

@@ -50,6 +50,13 @@ iteration it captures); on the CPU it runs eagerly.
 embeddings' dtype; "float8_e4m3fn" halves the cache's bytes), and
 `decode_with_cache(_spec)` embed in bf16 over an e4m3 cache (JAX's
 `emb_dtype` rule). A graph entry is keyed by its cache's dtype too.
+
+Every function takes `adapter_route` [B, A] as the JAX ones do, for params
+with adapter-stacked LoRA leaves (multi-LoRA, train/lora.py). The loops
+keep it as a tensor of their state (`DecodeState.route`,
+`SpecState.route`), written in place before the first iteration, so a
+graph replays with the route of the call at hand; an entry is keyed by the
+route's width A, and two calls with other adapter lists reuse one entry.
 """
 
 from __future__ import annotations
@@ -165,6 +172,7 @@ def generate_tokens(
     top_p: float = 1.0,
     pad_id: int = 0,
     kv_dtype=None,
+    adapter_route: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B, max_new_tokens] with pad_id after a stop, n_gen [B]).
 
@@ -174,19 +182,21 @@ def generate_tokens(
     (None: the embeddings'; "float8_e4m3fn" or the torch dtype halves its
     bytes). On the card the decode steps replay a CUDA graph of one
     iteration (`DecodeGraph`); a request of one token feeds nothing back, so
-    it takes no graph (and no entry's cache). No autograd graph is recorded."""
+    it takes no graph (and no entry's cache). `adapter_route` [B, A] routes
+    multi-LoRA params per row. No autograd graph is recorded."""
     tokens, n_gen, _ = _generate_tokens(
         params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, stop, generator,
         max_new_tokens=max_new_tokens, cache_len=cache_len, temperature=temperature,
         do_sample=do_sample, top_p=top_p, pad_id=pad_id, kv_dtype=kv_dtype,
-        graphed=inputs_embeds.is_cuda)
+        adapter_route=adapter_route, graphed=inputs_embeds.is_cuda)
     return tokens, n_gen
 
 
 @torch.no_grad()
 def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids,
                      stop: StopSpec, generator, *, max_new_tokens, cache_len, temperature,
-                     do_sample, top_p, pad_id, graphed: bool, kv_dtype=None):
+                     do_sample, top_p, pad_id, graphed: bool, kv_dtype=None,
+                     adapter_route=None):
     """`generate_tokens`, with the decode steps replayed from a CUDA graph
     (`graphed`) or run eagerly (the CPU's path; on the card, the reference
     the graph is held to). Returns (tokens, n_gen, the loop's state)."""
@@ -196,10 +206,11 @@ def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, posit
     graphed = graphed and max_new_tokens > 1  # one token feeds nothing back
     step_kw = dict(temperature=temperature, do_sample=do_sample, top_p=top_p,
                    pad_id=pad_id, emb_dtype=dtype)
+    n_adapters = _route_width(adapter_route)
     if graphed:
         entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens,
                               tuple(np.shape(stop.keyword_ids)), dev, step_kw,
-                              kv_dtype=kv_dtype)
+                              kv_dtype=kv_dtype, n_adapters=n_adapters)
         state = entry.state
         state.cache.k.zero_()  # as JAX's init_cache: a zeroed cache each request
         state.cache.v.zero_()
@@ -207,14 +218,15 @@ def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, posit
         entry = None
         state = DecodeState.new(
             llama_mod.init_cache(cfg, b, cache_len, dtype=kv_dtype, device=dev),
-            cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)))
+            cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)), n_adapters)
     trash = cache_len - 1
     slots = torch.where(attention_mask, position_ids, trash)
     logits = llama_mod.llama_forward(
         params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
         write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
+        adapter_route=adapter_route,
     )
-    state.reset(seq_lens, stop, pad_id)
+    state.reset(seq_lens, stop, pad_id, adapter_route)
     tokens, n_gen = _run_decode_loop(params, cfg, state, logits[:, -1], generator, entry,
                                      max_new_tokens=max_new_tokens, **step_kw)
     if entry is not None:  # the entry's buffers serve its next request
@@ -239,13 +251,15 @@ class DecodeState:
     keyword_ids: torch.Tensor  # [K, M] int32
     keyword_lens: torch.Tensor  # [K] int32
     eos_id: torch.Tensor  # [] int32
+    route: Optional[torch.Tensor] = None  # [B, A] fp32: the multi-LoRA route (None: no stack)
 
     @property
     def device(self) -> torch.device:
         return self.done.device
 
     @classmethod
-    def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape) -> "DecodeState":
+    def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape,
+            n_adapters: int = 0) -> "DecodeState":
         b, dev = cache.k.shape[1], cache.k.device
 
         def buf(shape, dtype=torch.int32):
@@ -255,11 +269,15 @@ class DecodeState:
                    tok=buf(b), tokens=buf((b, max_new_tokens)), window=buf((b, keyword_shape[1])),
                    done=buf(b, torch.bool), n_gen=buf(b),
                    logits=buf((b, vocab_size), torch.float32), keyword_ids=buf(keyword_shape),
-                   keyword_lens=buf(keyword_shape[:1]), eos_id=buf(()))
+                   keyword_lens=buf(keyword_shape[:1]), eos_id=buf(()),
+                   route=buf((b, n_adapters), torch.float32) if n_adapters else None)
 
-    def reset(self, start_pos: torch.Tensor, stop: StopSpec, pad_id: int) -> None:
+    def reset(self, start_pos: torch.Tensor, stop: StopSpec, pad_id: int,
+              route: Optional[torch.Tensor] = None) -> None:
         """The state before the first token, for a prompt whose rows'
-        generated tokens start at cache slot `start_pos` [B]."""
+        generated tokens start at cache slot `start_pos` [B], routed by
+        `route` [B, A] (written in place)."""
+        _set_route(self, route)
         self.step.zero_()
         self.start_pos.copy_(start_pos)
         self.tokens.fill_(pad_id)
@@ -269,6 +287,22 @@ class DecodeState:
         self.keyword_ids.copy_(torch.as_tensor(np.asarray(stop.keyword_ids)))
         self.keyword_lens.copy_(torch.as_tensor(np.asarray(stop.keyword_lens)))
         self.eos_id.fill_(int(stop.eos_id))
+
+
+def _route_width(route: Optional[torch.Tensor]) -> int:
+    """The adapter count A of a route [B, A] (0: no route)."""
+    return 0 if route is None else int(route.shape[-1])
+
+
+def _set_route(st, route: Optional[torch.Tensor]) -> None:
+    """Write a call's route into its state's buffer, in place: a replay
+    reads the buffer where it lay at the capture."""
+    if (st.route is None) != (route is None) or (
+            route is not None and st.route.shape != route.shape):
+        raise ValueError(f"adapter_route of shape {None if route is None else tuple(route.shape)} "
+                         f"for a state made for {None if st.route is None else tuple(st.route.shape)}")
+    if route is not None:
+        st.route.copy_(route)
 
 
 def _record(st: DecodeState, logits: torch.Tensor, generator, *, temperature, do_sample,
@@ -294,7 +328,8 @@ def _decode_iteration(params, cfg, st: DecodeState, generator, *, emb_dtype, **s
     pos = (st.start_pos + st.step)[:, None]  # [B, 1]
     emb = llama_mod.embed_tokens(params, st.tok[:, None].long(), dtype=emb_dtype)
     logits = llama_mod.llama_forward(params, cfg, emb, position_ids=pos, cache=st.cache,
-                                     write_slots=pos, logits_mode="last")
+                                     write_slots=pos, logits_mode="last",
+                                     adapter_route=st.route)
     st.step.add_(1)
     _record(st, logits[:, -1], generator, **step_kw)
 
@@ -328,7 +363,7 @@ def _run_decode_loop(params, cfg, st: DecodeState, logits0, generator,
 @torch.no_grad()
 def prefill_full(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: torch.Tensor,
                  seq_lens: torch.Tensor, attention_mask: torch.Tensor,
-                 position_ids: torch.Tensor):
+                 position_ids: torch.Tensor, adapter_route: Optional[torch.Tensor] = None):
     """Prefill a fresh conversation into a session cache, from slot 0.
 
     Returns (last-token logits [B, V] fp32, cache); the cache is written in
@@ -338,7 +373,7 @@ def prefill_full(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: tor
     slots = torch.where(attention_mask.bool(), position_ids, trash)
     logits = llama_mod.llama_forward(
         params, cfg, embeds, position_ids=position_ids, cache=cache, write_slots=slots,
-        logits_mode="last", last_index=seq_lens - 1,
+        logits_mode="last", last_index=seq_lens - 1, adapter_route=adapter_route,
     )
     return logits[:, -1], cache
 
@@ -346,7 +381,7 @@ def prefill_full(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: tor
 @torch.no_grad()
 def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: torch.Tensor,
                    start: torch.Tensor, seq_lens: torch.Tensor, attention_mask: torch.Tensor,
-                   position_ids: torch.Tensor):
+                   position_ids: torch.Tensor, adapter_route: Optional[torch.Tensor] = None):
     """Prefill a conversation's suffix against the committed cache.
 
     embeds / position_ids / attention_mask / seq_lens describe the
@@ -363,6 +398,7 @@ def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: t
     logits = llama_mod.llama_forward(
         params, cfg, embeds, position_ids=abs_pos, cache=cache, write_slots=slots,
         kv_mask=kv_mask, logits_mode="last", last_index=seq_lens - 1, spec_verify=True,
+        adapter_route=adapter_route,
     )
     return logits[:, -1], cache
 
@@ -372,7 +408,7 @@ def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
                       logits0: torch.Tensor, start_pos: torch.Tensor, stop: StopSpec,
                       generator: torch.Generator, *, max_new_tokens: int,
                       temperature: float = 0.0, do_sample: bool = False, top_p: float = 1.0,
-                      pad_id: int = 0):
+                      pad_id: int = 0, adapter_route: Optional[torch.Tensor] = None):
     """Decode on from prefilled logits over the caller's cache, in place.
 
     `start_pos` [B]: the slot of each row's first generated token. Returns
@@ -387,13 +423,14 @@ def decode_with_cache(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
                    emb_dtype=_emb_dtype_over(cache))
     keyword_shape = tuple(np.shape(stop.keyword_ids))
     entry = None
+    n_adapters = _route_width(adapter_route)
     if logits0.is_cuda and max_new_tokens > 1:  # one token feeds nothing back
         entry = _decode_graph(params, cfg, b, cache.max_len, max_new_tokens, keyword_shape,
-                              dev, step_kw, cache=cache)
+                              dev, step_kw, cache=cache, n_adapters=n_adapters)
         state = entry.state
     else:
-        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
-    state.reset(start_pos, stop, pad_id)
+        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, n_adapters)
+    state.reset(start_pos, stop, pad_id, adapter_route)
     try:
         tokens, n_gen = _run_decode_loop(params, cfg, state, logits0, generator, entry,
                                          max_new_tokens=max_new_tokens, **step_kw)
@@ -497,6 +534,7 @@ class SpecState:
     eos_id: torch.Tensor  # [] int32
     keep_prob: Optional[torch.Tensor] = None  # [] fp32: the bench's draft corruption
     oracle_ids: Optional[torch.Tensor] = None  # [B, max_new_tokens] int32: the bench's targets
+    route: Optional[torch.Tensor] = None  # [B, A] fp32: the multi-LoRA route (None: no stack)
 
     @property
     def device(self) -> torch.device:
@@ -504,7 +542,8 @@ class SpecState:
 
     @classmethod
     def new(cls, cache, vocab_size: int, max_new_tokens: int, keyword_shape, hist_width: int,
-            *, draft_keep: bool = False, oracle: bool = False) -> "SpecState":
+            *, draft_keep: bool = False, oracle: bool = False,
+            n_adapters: int = 0) -> "SpecState":
         b, dev = cache.k.shape[1], cache.k.device
 
         def buf(shape, dtype=torch.int32):
@@ -517,14 +556,16 @@ class SpecState:
                    accepted=buf(()), keyword_ids=buf(keyword_shape),
                    keyword_lens=buf(keyword_shape[:1]), eos_id=buf(()),
                    keep_prob=buf((), torch.float32) if draft_keep else None,
-                   oracle_ids=buf((b, max_new_tokens)) if oracle else None)
+                   oracle_ids=buf((b, max_new_tokens)) if oracle else None,
+                   route=buf((b, n_adapters), torch.float32) if n_adapters else None)
 
     def reset(self, start_pos, logits0, prompt_ids, prompt_id_lens, stop: StopSpec, pad_id: int,
-              keep_prob=None, oracle_ids=None) -> None:
+              keep_prob=None, oracle_ids=None, route=None) -> None:
         """The state before the first iteration: generated tokens from slot
         `start_pos` [B], `logits0` [B, V] the prompt's last logits, the
         history seeded with `prompt_ids` [B, S_text] (negative past each
-        row's `prompt_id_lens`)."""
+        row's `prompt_id_lens`), routed by `route` [B, A]."""
+        _set_route(self, route)
         prompt_ids = torch.as_tensor(prompt_ids)
         self.start_pos.copy_(torch.as_tensor(start_pos))
         self.tokens.fill_(pad_id)
@@ -608,7 +649,7 @@ def _spec_iteration(params, cfg, st: SpecState, generator, *, spec_k: int, tempe
     emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
     blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
                                          write_slots=blk_pos, logits_mode="all",
-                                         spec_verify=True)  # [B, k + 1, V]
+                                         spec_verify=True, adapter_route=st.route)  # [B, k + 1, V]
     if sampling:
         p = torch.softmax(_filtered_logits(blk_logits[:, :k], temperature, top_p), dim=-1)
         pd = torch.gather(p, -1, drafts.long()[..., None])[..., 0]
@@ -685,6 +726,7 @@ def generate_tokens_spec(
     draft_keep_prob=None,
     oracle_ids=None,
     kv_dtype=None,
+    adapter_route: Optional[torch.Tensor] = None,
 ):
     """Decode with prompt-lookup speculation (greedy or sampled).
 
@@ -694,15 +736,15 @@ def generate_tokens_spec(
     slot. Bench knobs, as the JAX function's: `draft_keep_prob` (a float or
     a 0-d tensor) corrupts each draft with probability 1 - p, drawing from
     `generator` also on a greedy run; `oracle_ids` [B, max_new_tokens] makes
-    the greedy target the oracle's token where it is >= 0. `kv_dtype` as
-    generate_tokens'. On the card the iterations replay a CUDA graph
-    (`DecodeGraph`, one a key)."""
+    the greedy target the oracle's token where it is >= 0. `kv_dtype` and
+    `adapter_route` as generate_tokens'. On the card the iterations replay
+    a CUDA graph (`DecodeGraph`, one a key)."""
     return _generate_tokens_spec(
         params, cfg, inputs_embeds, seq_lens, attention_mask, position_ids, prompt_ids,
         prompt_id_lens, stop, generator, max_new_tokens=max_new_tokens, cache_len=cache_len,
         spec_k=spec_k, temperature=temperature, do_sample=do_sample, top_p=top_p, pad_id=pad_id,
         draft_keep_prob=draft_keep_prob, oracle_ids=oracle_ids, kv_dtype=kv_dtype,
-        graphed=inputs_embeds.is_cuda)[:4]
+        adapter_route=adapter_route, graphed=inputs_embeds.is_cuda)[:4]
 
 
 @torch.no_grad()
@@ -710,7 +752,7 @@ def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, 
                           prompt_ids, prompt_id_lens, stop: StopSpec, generator, *,
                           max_new_tokens, cache_len, graphed: bool, spec_k=4, temperature=0.0,
                           do_sample=False, top_p=1.0, pad_id=0, draft_keep_prob=None,
-                          oracle_ids=None, kv_dtype=None):
+                          oracle_ids=None, kv_dtype=None, adapter_route=None):
     """`generate_tokens_spec`, the iterations replayed from a CUDA graph
     (`graphed`) or run eagerly (the CPU's path; on the card, the reference
     the graph is held to). Returns (tokens, n_gen, steps, accepted, state)."""
@@ -721,9 +763,11 @@ def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, 
                        oracle_ids)
     hist_width = np.shape(prompt_ids)[1] + max_new_tokens
     keyword_shape = tuple(np.shape(stop.keyword_ids))
+    n_adapters = _route_width(adapter_route)
     if graphed and max_new_tokens > 1:  # one token: one iteration, nothing to replay
         entry = _decode_graph(params, cfg, b, cache_len, max_new_tokens, keyword_shape, dev,
-                              step_kw, hist_width=hist_width, kv_dtype=kv_dtype)
+                              step_kw, hist_width=hist_width, kv_dtype=kv_dtype,
+                              n_adapters=n_adapters)
         state = entry.state
         state.cache.k.zero_()
         state.cache.v.zero_()
@@ -732,14 +776,15 @@ def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, 
         state = SpecState.new(
             llama_mod.init_cache(cfg, b, cache_len, dtype=kv_dtype, device=dev),
             cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
-            draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
+            draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"], n_adapters=n_adapters)
     slots = torch.where(attention_mask, position_ids, cache_len - 1)
     logits = llama_mod.llama_forward(
         params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
         write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
+        adapter_route=adapter_route,
     )
     state.reset(seq_lens, logits[:, -1], prompt_ids, prompt_id_lens, stop, pad_id,
-                draft_keep_prob, oracle_ids)
+                draft_keep_prob, oracle_ids, adapter_route)
     out = _run_spec_decode_loop(params, cfg, state, generator, entry,
                                 max_new_tokens=max_new_tokens, **step_kw)
     if entry is not None:  # the entry's buffers serve its next request
@@ -752,7 +797,8 @@ def decode_with_cache_spec(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
                            logits0: torch.Tensor, start_pos: torch.Tensor, prompt_ids,
                            prompt_id_lens, stop: StopSpec, generator: torch.Generator, *,
                            max_new_tokens: int, spec_k: int = 4, temperature: float = 0.0,
-                           do_sample: bool = False, top_p: float = 1.0, pad_id: int = 0):
+                           do_sample: bool = False, top_p: float = 1.0, pad_id: int = 0,
+                           adapter_route: Optional[torch.Tensor] = None):
     """Speculative decode over the caller's cache, in place: the contract of
     decode_with_cache, the history seeded with `prompt_ids` (a session's
     whole conversation). The cache needs spec_k slots past start_pos +
@@ -765,13 +811,17 @@ def decode_with_cache_spec(params, cfg: LlamaConfig, cache: llama_mod.KVCache,
     hist_width = np.shape(prompt_ids)[1] + max_new_tokens
     keyword_shape = tuple(np.shape(stop.keyword_ids))
     entry = None
+    n_adapters = _route_width(adapter_route)
     if logits0.is_cuda and max_new_tokens > 1:
         entry = _decode_graph(params, cfg, b, cache.max_len, max_new_tokens, keyword_shape,
-                              logits0.device, step_kw, cache=cache, hist_width=hist_width)
+                              logits0.device, step_kw, cache=cache, hist_width=hist_width,
+                              n_adapters=n_adapters)
         state = entry.state
     else:
-        state = SpecState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, hist_width)
-    state.reset(start_pos, logits0, prompt_ids, prompt_id_lens, stop, pad_id)
+        state = SpecState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
+                              n_adapters=n_adapters)
+    state.reset(start_pos, logits0, prompt_ids, prompt_id_lens, stop, pad_id,
+                route=adapter_route)
     try:
         out = _run_spec_decode_loop(params, cfg, state, generator, entry,
                                     max_new_tokens=max_new_tokens, **step_kw)
@@ -913,7 +963,7 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
                   keyword_shape, device, step_kw: dict,
                   cache: Optional[llama_mod.KVCache] = None,
                   hist_width: Optional[int] = None,
-                  kv_dtype: Optional[torch.dtype] = None) -> DecodeGraph:
+                  kv_dtype: Optional[torch.dtype] = None, n_adapters: int = 0) -> DecodeGraph:
     """The entry for this call's key, made if there is none: with a zeroed
     cache of its own in `kv_dtype` (None: the embeddings' dtype), or over the
     caller's `cache` (set as its state's cache for this call); a decode
@@ -926,7 +976,9 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
     in `step_kw` but the width and the cache's dtype), with each leaf's
     address and strides: the graph reads the params where they lay at its
     capture; and the caller's cache's addresses and strides, where it lies.
-    An e4m3 call never replays a bf16 entry's graph, nor the reverse."""
+    An e4m3 call never replays a bf16 entry's graph, nor the reverse. The
+    multi-LoRA route's width `n_adapters` (0: no route) is in the key; the
+    route itself is a state buffer each call writes."""
     leaves = tree_leaves_with_path(params)
     if cache is not None:
         kv_dtype = cache.dtype
@@ -936,7 +988,7 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
         (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in (cache.k, cache.v))
     key = (tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for path, t in leaves),
            cfg, batch, cache_len, max_new_tokens, keyword_shape, str(device),
-           tuple(sorted(step_kw.items())), hist_width, kv_dtype, cache_key)
+           tuple(sorted(step_kw.items())), hist_width, kv_dtype, cache_key, n_adapters)
     entry = _graphs.get(key)
     if entry is not None and entry.alive():
         _graphs.move_to_end(key)
@@ -949,11 +1001,12 @@ def _decode_graph(params, cfg, batch: int, cache_len: int, max_new_tokens: int,
     else:
         owned = None
     if hist_width is None:
-        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape)
+        state = DecodeState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, n_adapters)
         iteration = _decode_iteration
     else:
         state = SpecState.new(cache, cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
-                              draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"])
+                              draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"],
+                              n_adapters=n_adapters)
         iteration = _spec_iteration
     entry = DecodeGraph(state, iteration, leaves[0][1], step_kw,
                         cache_anchor=None if owned is not None else cache.k)

@@ -5,7 +5,12 @@ Params keep the JAX layout: stacked per-layer tensors (`[L, ...]`), kernels
 projections as {'packed_tiles' | 'packed', 'scale'} (ops/quant.py), optionally
 fused into 'qkv' and 'gateup' leaves, LoRA
 adapters as extra leaves of a projection ('lora_a' [L, in, r], 'lora_b'
-[L, r, out], 'lora_scale' [L], fp32 masters).
+[L, r, out], 'lora_scale' [L], fp32 masters), or adapter-stacked for
+multi-LoRA serving ('lora_a' [L, A, in, r], 'lora_b' [L, A, r, out],
+'lora_scale' [L, A]: train/lora.py::stack_lora_adapters), which the
+forward's `adapter_route` [B, A] mixes per batch row. An lm_head's adapter
+is added to the fp32 logits (the JAX forward reads only the head's kernel:
+ROADMAP F6).
 
 The cache-free forward (`cache=None`, training) runs causal self-attention
 over the whole sequence: a right-padded batch on CUDA goes to the
@@ -144,51 +149,75 @@ def _is_int4(p: Params) -> bool:
     return "packed" in p or "packed_tiles" in p
 
 
-def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None) -> torch.Tensor:
+def _lora_delta(x: torch.Tensor, p: Params, route: Optional[torch.Tensor]) -> torch.Tensor:
+    """The adapter's fp32 delta on x [B, S, in] (train/lora.py), scale and
+    route applied: x a rounded to x's dtype, times b as an fp32 sum, the
+    fp32 masters cast to x's dtype first, as the JAX package does.
+
+    Adapter-stacked leaves (a [A, in, r], b [A, r, out], scale [A]) are
+    mixed per row by `route` [B, A]: the adapter axis unrolls, each adapter
+    runs the single-adapter chain and is weighted per row in fp32 by route *
+    scale, and the weighted deltas are summed in fp32. A zero weight adds
+    an exact zero, so a one-hot row is BITWISE the single-adapter model and
+    an all-zero row the base model. (JAX measured a fused [B, A] contraction
+    to flip near-tie greedy tokens across batch sizes.)"""
+    a, b = p["lora_a"].to(x.dtype), p["lora_b"].to(x.dtype)
+    scale = p["lora_scale"].detach().float()
+    if a.ndim == 2:
+        return matmul_fp32(torch.matmul(x, a), b) * scale
+    if route is None:
+        raise ValueError("params carry adapter-stacked LoRA leaves (multi-LoRA) "
+                         "but no adapter_route was passed to the forward")
+    w = route.float() * scale[None, :]  # [B, A]
+    delta = None
+    for i in range(a.shape[0]):
+        d_i = matmul_fp32(torch.matmul(x, a[i]), b[i]) * w[:, i, None, None]
+        delta = d_i if delta is None else delta + d_i
+    return delta
+
+
+def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None,
+          route: Optional[torch.Tensor] = None) -> torch.Tensor:
     if _is_int4(p):  # int4 w4a16; stacked leaves stay whole and `layer` picks
         y = int4_proj(x, p, layer)
     elif "scale" in p:  # int8 weight-only
         y = quantized_proj(x, p)
     else:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
-    if "lora_a" in p:  # LoRA adapter (train/lora.py); fp32 masters cast to x's dtype
-        if p["lora_a"].ndim == 3:
-            raise NotImplementedError("multi-LoRA (adapter-stacked) leaves are not ported yet")
-        a, b = p["lora_a"].to(x.dtype), p["lora_b"].to(x.dtype)
-        # x a is rounded to x's dtype, (x a) b stays the fp32 sum until the scale
-        delta = matmul_fp32(torch.matmul(x, a), b)
-        y = y + (delta * p["lora_scale"].detach().float()).to(x.dtype)
+    if "lora_a" in p:  # LoRA adapter: the fp32 delta rounded once to x's dtype
+        y = y + _lora_delta(x, p, route).to(x.dtype)
     return y
 
 
-def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None,
+         route: Optional[torch.Tensor] = None) -> torch.Tensor:
     if "gateup" in lp:  # fused gate|up (ops/quant.py fuse_projections)
-        gu = _proj(x, lp["gateup"], layer)
+        gu = _proj(x, lp["gateup"], layer, route)
         i_sz = gu.shape[-1] // 2
         gate_in, up = gu[..., :i_sz], gu[..., i_sz:]
     else:
-        gate_in = _proj(x, lp["gate"], layer)
-        up = _proj(x, lp["up"], layer)
+        gate_in = _proj(x, lp["gate"], layer, route)
+        up = _proj(x, lp["up"], layer, route)
     gate = F.silu(gate_in.float()).to(x.dtype)
-    return _proj(gate * up, lp["down"], layer)
+    return _proj(gate * up, lp["down"], layer, route)
 
 
 def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache],
                      layer: int, write_slots, prefill_start: int, attn_impl: str,
                      attention_mask=None, right_padded: bool = False, lengths=None,
                      spec_verify: bool = False, row_offset: int = 0,
-                     attend_cache: bool = False) -> torch.Tensor:
+                     attend_cache: bool = False, route=None) -> torch.Tensor:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:
         # fused q|k|v projection (ops/quant.py fuse_projections): one weight
         # read and one launch instead of three
-        fused = _proj(x, lp["qkv"], layer)
+        fused = _proj(x, lp["qkv"], layer, route)
         q = fused[..., : h * hd]
         k = fused[..., h * hd: (h + hkv) * hd]
         v = fused[..., (h + hkv) * hd:]
     else:
-        q, k, v = (_proj(x, lp[n], layer) for n in ("q", "k", "v"))
+        q, k, v = (_proj(x, lp[n], layer, route) for n in ("q", "k", "v"))
     q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
     v = v.reshape(b, s, hkv, hd)
@@ -197,7 +226,7 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         # (which the flash kernels drop for a right-padded batch)
         out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
                                     impl=attn_impl, right_padded=right_padded)
-        return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
+        return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route)
     # this batch's rows of the layer's slab, [B, T, Hkv, D] views
     k_slab = cache.k[layer, row_offset:row_offset + b]
     v_slab = cache.v[layer, row_offset:row_offset + b]
@@ -228,18 +257,19 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         v_slab[rows, slots] = v.to(cache.dtype)
         out = decode_attention_multi(q, k_slab.transpose(1, 2), v_slab.transpose(1, 2),
                                      lengths, impl=attn_impl)
-    return _proj(out.reshape(b, s, h * hd), lp["out"], layer)
+    return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route)
 
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
                    prefill_start, attn_impl, attention_mask, right_padded, lengths=None,
-                   spec_verify=False, row_offset=0, attend_cache=False) -> torch.Tensor:
+                   spec_verify=False, row_offset=0, attend_cache=False,
+                   route=None) -> torch.Tensor:
     y = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
                              prefill_start, attn_impl, attention_mask, right_padded,
-                             lengths, spec_verify, row_offset, attend_cache)
+                             lengths, spec_verify, row_offset, attend_cache, route)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, lp["mlp"], layer)
+    return x + _mlp(y, lp["mlp"], layer, route)
 
 
 def unstack_layers(tree, n_layers: int):
@@ -302,6 +332,7 @@ def llama_forward(
     spec_verify: bool = False,
     attend_cache: bool = False,
     kv_len: Optional[torch.Tensor] = None,
+    adapter_route: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",  # auto | plain
 ) -> torch.Tensor:
     """Run the decoder stack; returns fp32 logits [B, S|1, V], or with
@@ -322,6 +353,9 @@ def llama_forward(
     `kv_len` [B] or [B, S] int32 caps each decode / spec_verify /
     attend_cache query's live length on the device (the JAX mask
     `slot < kv_len`).
+    `adapter_route` [B, A] mixes adapter-stacked LoRA leaves per row
+    (train/lora.py::adapter_route; required with such leaves, which raise
+    without it).
     Cache-free path (`cache=None`, training): `attention_mask` [B, S] marks
     the valid tokens, `right_padded` says the padding is all on the right,
     `remat` recomputes each layer in the backward. `last_index` [B] picks
@@ -343,7 +377,7 @@ def llama_forward(
     for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
                 attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
-                attend_cache)
+                attend_cache, adapter_route)
         if remat and cache is None:
             x = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:
@@ -362,10 +396,12 @@ def llama_forward(
     head = params.get("lm_head")
     if head is None:  # tied embeddings
         return matmul_fp32(x, params["embed_tokens"]["embedding"].to(x.dtype).T)
-    if "lora_a" in head:
-        raise NotImplementedError("a LoRA lm_head is not ported yet")
     if _is_int4(head):  # int4 lm_head: the product in x's dtype, fp32 logits
-        return int4_proj(x, head).float()
-    if "scale" in head:  # int8 weight-only lm_head
-        return quantized_proj(x, head, fp32_out=True)
-    return matmul_fp32(x, head["kernel"].to(x.dtype))  # the fp32 sum, not a rounded product
+        logits = int4_proj(x, head).float()
+    elif "scale" in head:  # int8 weight-only lm_head
+        logits = quantized_proj(x, head, fp32_out=True)
+    else:
+        logits = matmul_fp32(x, head["kernel"].to(x.dtype))  # the fp32 sum, not a rounded product
+    if "lora_a" in head:  # the head's adapter, on the fp32 logits (ROADMAP F6)
+        logits = logits + _lora_delta(x, head, adapter_route)
+    return logits

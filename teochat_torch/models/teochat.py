@@ -21,6 +21,7 @@ from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models.projector import projector_forward
 from teochat_torch.models.vit import select_features, vit_forward
+from teochat_torch.train import lora as lora_mod
 
 Params = dict
 
@@ -150,11 +151,18 @@ class TEOChat:
         `gen.speculative_k` > 0 decodes with prompt-lookup speculation
         (greedy: the plain path's tokens; sampled: its distribution, other
         draws) and leaves `last_spec_stats` {"steps", "drafts_accepted",
-        "tokens"}."""
+        "tokens"}. `adapters` (multi-LoRA params only: train/lora.py
+        stack_lora_adapters) is each row's adapter index, -1 the base model."""
         gen = gen or GenerationConfig()
-        if adapters is not None:
-            raise NotImplementedError("multi-LoRA adapters are not ported yet")
         cfg = self.cfg
+        adapter_route = None
+        if adapters is not None:
+            n_adapters = lora_mod.num_stacked_adapters(self.params["llm"])
+            if not n_adapters:
+                raise ValueError("adapters= given but params carry no adapter-stacked LoRA "
+                                 "leaves (use train.lora.stack_lora_adapters)")
+            adapter_route = lora_mod.adapter_route(
+                torch.as_tensor(list(adapters), device=self.device), n_adapters)
         n_frames = fusion_mod.count_frames(input_ids)
         if n_frames:
             if pixel_values is None or pixel_values.shape[0] != n_frames:
@@ -213,6 +221,7 @@ class TEOChat:
                 top_p=gen.top_p,
                 pad_id=cfg.llm.pad_token_id,
                 draft_keep_prob=gen.speculative_draft_keep_prob,
+                adapter_route=adapter_route,
             )
             tokens, n_gen = tokens.cpu().numpy(), n_gen.cpu().numpy()
             self.last_spec_stats = {"steps": int(steps), "drafts_accepted": int(accepted),
@@ -229,6 +238,7 @@ class TEOChat:
             top_p=gen.top_p,
             pad_id=cfg.llm.pad_token_id,
             cache_len=pad_to + gen.max_new_tokens + 1,
+            adapter_route=adapter_route,
         )
         tokens, n_gen = tokens.cpu().numpy(), n_gen.cpu().numpy()
         return [tokens[i, : n_gen[i]].tolist() for i in range(len(input_ids))]

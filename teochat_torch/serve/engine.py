@@ -34,6 +34,13 @@ same steps run eagerly. The prefills run eagerly on the same stream between
 chunks; each returns its first token as a device tensor, which the host
 reads later (`_resolve_pending_first`).
 
+Multi-LoRA: over params with adapter-stacked LoRA leaves
+(train/lora.py::stack_lora_adapters) each request names its adapter (-1:
+the base model). The steps route every row from `EngineState.adapter` on
+the device (`_engine_route`), so the captured graphs read each slot's
+adapter where it lies; the eager prefills route their one row; a pooled
+prefix seeds only requests of its own adapter.
+
 The cache is in `kv_dtype` (None: the model's dtype), e.g. "float8_e4m3fn",
 which halves its bytes and so doubles the rows a card holds: its writes
 cast once, K2 and K2m read it in place, and the prefix pool's row copies
@@ -70,6 +77,7 @@ from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.models import teochat as teochat_mod
+from teochat_torch.train import lora as lora_mod
 
 # Suffix-prefill panel widths (a prefix-cache hit prefills only [plen, end)):
 # smaller low buckets than teochat.SEQ_BUCKETS, since hit suffixes are often
@@ -100,6 +108,21 @@ class EngineState:
     @property
     def device(self) -> torch.device:
         return self.active.device
+
+
+def _engine_route(params, adapter_ids: torch.Tensor) -> Optional[torch.Tensor]:
+    """[rows] adapter ids on the device -> the [rows, A] route, or None for
+    params without adapter-stacked leaves (A is a property of the tree's
+    shapes, so a captured step keeps its choice)."""
+    n = lora_mod.num_stacked_adapters(params)
+    return lora_mod.adapter_route(adapter_ids, n) if n else None
+
+
+def _request_route(params, adapter: int, device) -> Optional[torch.Tensor]:
+    """One request's [1, A] route (or None), for the eager prefills."""
+    n = lora_mod.num_stacked_adapters(params)
+    ids = torch.tensor([adapter], dtype=torch.int32, device=device) if n else None
+    return lora_mod.adapter_route(ids, n) if n else None
 
 
 def _init_engine_state(cache: llama_mod.KVCache, max_slots: int, max_len: int,
@@ -223,7 +246,7 @@ def _prefill_slot(params, cache, state: EngineState, cfg, plan, vision_tokens, s
     logits = llama_mod.llama_forward(
         params, cfg, embeds, position_ids=pos, cache=cache, write_slots=pos,
         logits_mode="last", last_index=torch.as_tensor(plan.seq_lens - 1, device=dev),
-        cache_row_offset=slot,
+        cache_row_offset=slot, adapter_route=_request_route(params, adapter, dev),
     )
     tok = _sample_first(logits, state, temperature, do_sample)
     _activate_slot(state, slot, tok, int(plan.seq_lens[0]), temperature, do_sample, hist_row,
@@ -244,6 +267,7 @@ def _prefill_chunk_write(params, cache, cfg, emb, start: int, slot: int, adapter
     llama_mod.llama_forward(
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="none",
         cache_row_offset=slot, prefill_start=start, attend_cache=True,
+        adapter_route=_request_route(params, adapter, emb.device),
     )
 
 
@@ -261,6 +285,7 @@ def _prefill_slot_tail(params, cache, state: EngineState, cfg, emb, start: int, 
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="last",
         last_index=torch.tensor([last_index], device=emb.device), cache_row_offset=slot,
         prefill_start=start, attend_cache=True,
+        adapter_route=_request_route(params, adapter, emb.device),
     )
     tok = _sample_first(logits, state, temperature, do_sample)
     _activate_slot(state, slot, tok, seq_len, temperature, do_sample, hist_row, hist_n, adapter)
@@ -299,6 +324,7 @@ def _prefill_slot_from_prefix(params, cache, state: EngineState, cfg, plan, visi
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="last",
         last_index=torch.tensor([fused_len - 1 - plen], device=emb.device),
         cache_row_offset=slot, prefill_start=plen, attend_cache=True,
+        adapter_route=_request_route(params, adapter, emb.device),
     )
     tok = _sample_first(logits, state, temperature, do_sample)
     _activate_slot(state, slot, tok, fused_len, temperature, do_sample, hist_row, hist_n, adapter)
@@ -313,7 +339,7 @@ def _decode_step(params, cfg, st: EngineState, generator, *, eos_id: int, pad_id
     (max_len - 1), emits pad_id and attends its slot 0 alone (kv_len 1: its
     output is thrown away); an active row writes at its position and
     attends up to it. A row that emits EOS goes inactive. The token lands in
-    column `col` of the chunk's buffer."""
+    column `col` of the chunk's buffer. Each row runs its slot's adapter."""
     b = st.active.shape[0]
     trash = st.cache.max_len - 1
     act, pos = st.active, st.positions
@@ -323,7 +349,8 @@ def _decode_step(params, cfg, st: EngineState, generator, *, eos_id: int, pad_id
     write = torch.where(act, pos, trash).clamp(max=trash)[:, None]
     kv_len = torch.where(act, pos + 1, 1).clamp(max=trash + 1)
     logits = llama_mod.llama_forward(params, cfg, emb, position_ids=pos[:, None], cache=st.cache,
-                                     write_slots=write, kv_len=kv_len, logits_mode="last")
+                                     write_slots=write, kv_len=kv_len, logits_mode="last",
+                                     adapter_route=_engine_route(params, st.adapter))
     nxt = _sample_rows(logits[:, -1], generator, st.temperature, st.do_sample)
     nxt = torch.where(act, nxt, pad_id)
     # the draft history stays fresh in plain chunks (the engine's speculative
@@ -370,7 +397,7 @@ def _spec_step(params, cfg, st: EngineState, generator, *, spec_k: int, eos_id: 
     runs to the first rejected draft and stops at an EOS; the row's
     tokens, their count, history, position and last token follow it, and an
     EOS row goes inactive. The emissions land in column `col` of the chunk's
-    buffers."""
+    buffers. Each row runs its slot's adapter."""
     k = spec_k
     b = st.active.shape[0]
     trash = st.cache.max_len - 1
@@ -387,7 +414,8 @@ def _spec_step(params, cfg, st: EngineState, generator, *, spec_k: int, eos_id: 
     emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
     blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
                                          write_slots=write, kv_len=kv_len, logits_mode="all",
-                                         spec_verify=True)  # [S, k + 1, V]
+                                         spec_verify=True,
+                                         adapter_route=_engine_route(params, st.adapter))
     targets = torch.argmax(blk_logits, dim=-1).to(torch.int32)
     greedy_row = ~(st.do_sample & (st.temperature > 0.0))
     match, emissions = _spec_emissions(blk_logits, targets, drafts, greedy_row, st.temperature,
@@ -516,7 +544,8 @@ class BatchEngine:
         self.prefix_min_tokens = prefix_min_tokens
         self._prefix_entries: List[dict] = []  # {key, plen, row, stamp, adapter}
         self._prefix_clock = 0
-        self._n_adapters = 0  # multi-LoRA (stacked adapters) is ROADMAP queue 1 item 12
+        # multi-LoRA: the stacked adapter count (0: plain or single-LoRA params)
+        self._n_adapters = lora_mod.num_stacked_adapters(model.params["llm"])
         self.device = model.device
         self.cache = llama_mod.init_cache(self.cfg.llm, max_slots + prefix_cache_slots, max_len,
                                           dtype=kv_dtype, device=self.device)
@@ -558,7 +587,9 @@ class BatchEngine:
                pixel_values: Optional[np.ndarray] = None,
                gen: Optional[GenerationConfig] = None,
                adapter: int = -1) -> List[int]:
-        """Enqueue one request; blocks until done; returns the generated ids."""
+        """Enqueue one request; blocks until done; returns the generated ids.
+        `adapter` (multi-LoRA params only) is the request's adapter index,
+        -1 the base model: requests of different adapters share chunks."""
         gen = gen or GenerationConfig()
         req = self._make_request(input_ids, pixel_values, gen, adapter)
         self._check_started()
@@ -610,7 +641,8 @@ class BatchEngine:
         if adapter >= 0 and adapter >= self._n_adapters:
             raise ValueError(
                 f"adapter {adapter} out of range: model carries {self._n_adapters} stacked "
-                "LoRA adapters (multi-LoRA is not ported yet, ROADMAP queue 1 item 12)")
+                "LoRA adapters" + ("" if self._n_adapters else
+                                   " (stack with train.lora.stack_lora_adapters)"))
         return _Request(
             input_ids=list(input_ids), pixel_values=pixel_values, gen=gen,
             stop_strings=gen.stop_strings or (), event=threading.Event(),

@@ -366,18 +366,15 @@ def main(argv=None):
                         "rows give the plain tokens, sampled rows draw by exact speculative "
                         "sampling: the same distribution, not the same draws)")
     p.add_argument("--lora_paths", default=None,
-                   help="comma-separated peft adapter dirs for multi-LoRA serving (not ported yet)")
+                   help="comma-separated peft adapter dirs for multi-LoRA serving: adapters stay "
+                        "UNMERGED over the shared (quantized) backbone and each request picks "
+                        "one by the JSON 'adapter' field (an index into this list; -1 or absent: "
+                        "the base model)")
     args = p.parse_args(argv)
 
-    unported = [
-        (args.lora_paths, "--lora_paths (multi-LoRA serving) is not ported yet "
-                          "(ROADMAP queue 1 item 12)"),
-        (args.quantize_vision, "--quantize_vision (the w8a8 tower) is not ported yet "
-                               "(ROADMAP queue 1 item 15)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(what)
+    if args.quantize_vision:
+        raise NotImplementedError("--quantize_vision (the w8a8 tower) is not ported yet "
+                                  "(ROADMAP queue 1 item 15)")
 
     from teochat_torch.serve.chat import Chat
     from teochat_torch.utils import resolve_device
@@ -385,6 +382,14 @@ def main(argv=None):
     device = resolve_device(None)  # the card; raises without one
     chat = Chat(args.model_path, load_8bit=args.load_8bit, vision_path=args.vision_path,
                 device=device)
+    if args.lora_paths:
+        from teochat_torch.builder import load_multi_lora
+
+        chat.model = load_multi_lora(chat.model, [d for d in args.lora_paths.split(",") if d])
+        if chat._session is not None:
+            # a session turn passes no route: over the stacked params it
+            # raises, where the old model would answer as the base one
+            chat._session.model = chat.model
     engine = None
     if args.continuous_batching:
         from teochat_torch.serve.engine import BatchEngine

@@ -203,6 +203,36 @@ def ckpts(tmp_path_factory):
     return out
 
 
+def write_lora_dir(path, seed, config=None):
+    """Branch A's dir (the reference's LoRA fine-tune over a base;
+    tests/test_torch_multi_lora.py loads it):
+    config.json and the tokenizer, a peft adapter (fp16 A / B of rank 4 on
+    every projection, alpha 8), and non_lora_trainables.bin with a
+    projector and embed rows of their own, under peft's key prefix."""
+    from safetensors.torch import save_file
+
+    write_checkpoint(path, {}, n_shards=0, config=config)
+    g = torch.Generator().manual_seed(seed)
+    rank, widths = 4, {"self_attn.q_proj": (D, D), "self_attn.k_proj": (D, D),
+                       "self_attn.v_proj": (D, D), "self_attn.o_proj": (D, D),
+                       "mlp.gate_proj": (D, INTER), "mlp.up_proj": (D, INTER),
+                       "mlp.down_proj": (INTER, D)}
+    adapter = {}
+    for i in range(LAYERS):
+        for mod, (fan_in, fan_out) in widths.items():
+            pre = f"base_model.model.model.layers.{i}.{mod}"
+            adapter[f"{pre}.lora_A.weight"] = (torch.randn(rank, fan_in, generator=g) * 0.05).half()
+            adapter[f"{pre}.lora_B.weight"] = (torch.randn(fan_out, rank, generator=g) * 0.05).half()
+    save_file(adapter, os.path.join(path, "adapter_model.safetensors"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank}, f)
+    nlt = {k: v for k, v in tiny_state_dict(seed=seed, tower=False).items()
+           if "mm_projector" in k or "embed_tokens" in k}
+    torch.save({"base_model.model." + k: v for k, v in nlt.items()},
+               os.path.join(path, "non_lora_trainables.bin"))
+    return str(path)
+
+
 LOADS = {  # name: (model_path, model_base, kwargs)
     "merged": ("TEOChat-tiny", None, {}),
     "8bit": ("TEOChat-tiny", None, {"load_8bit": True}),
@@ -311,14 +341,16 @@ def test_load_variants_hold_the_checkpoint(loaded, ckpts):
     assert_trees_equal(loaded("safetensors 8bit")[1][1].params, loaded("8bit")[1][1].params)
 
 
-@pytest.mark.parametrize("case", ["lora", "mpt", "load_4bit", "quantize_vision", "vocab",
+@pytest.mark.parametrize("case", ["lora vocab", "mpt", "load_4bit", "quantize_vision", "vocab",
                                   "patch_token", "allow_partial"])
 def test_load_raises_for_what_is_not_ported(ckpts, tiny_towers, tmp_path, case):
     path = ckpts["TEOChat-tiny"]
     kwargs = dict(device="cpu")
     args = (path, None, None)
-    if case == "lora":
-        args = (path, ckpts["base"], "teochat-lora")
+    if case == "lora vocab":  # a LoRA dir that grew the vocab: vision_tokenizer's resize
+        lora = write_lora_dir(tmp_path / "teochat-lora", seed=5,
+                              config=hf_config(vocab_size=VOCAB + 2))
+        args = (lora, ckpts["base"], None)
     elif case == "mpt":
         args = (path, None, "llava-mpt-7b")
     elif case in ("load_4bit", "quantize_vision", "allow_partial"):

@@ -1030,14 +1030,15 @@ def _never_stop(eos=-1, m=1):
 
 
 def _decode(params, prompt, graphed, *, max_new=11, stop=None, generator=None,
-            temperature=0.0, do_sample=False, kv_dtype=None, state_out=None):
+            temperature=0.0, do_sample=False, kv_dtype=None, state_out=None, adapter_route=None):
     embeds, lens, mask, pos = prompt
     if generator is None:
         generator = torch.Generator(device="cuda").manual_seed(0)
     tokens, n_gen, state = gen_mod._generate_tokens(
         params, GRAPH_CFG, embeds, lens, mask, pos, stop or _never_stop(), generator,
         max_new_tokens=max_new, cache_len=GRAPH_S + max_new + 1, temperature=temperature,
-        do_sample=do_sample, top_p=1.0, pad_id=0, graphed=graphed, kv_dtype=kv_dtype)
+        do_sample=do_sample, top_p=1.0, pad_id=0, graphed=graphed, kv_dtype=kv_dtype,
+        adapter_route=adapter_route)
     if state_out is not None:
         state_out.append(state)
     return tokens, n_gen, state.logits.clone()
@@ -1260,7 +1261,7 @@ def test_session_decode_graph_keeps_its_cache_and_dies_with_it(decoders):
 
 
 def _spec(params, prompt, graphed, *, k, max_new=11, oracle=None, keep=None, generator=None,
-          temperature=0.0, do_sample=False, stop=None):
+          temperature=0.0, do_sample=False, stop=None, adapter_route=None):
     """(tokens, n_gen, steps, accepted, the last carried logits) of a
     speculative request; the history repeats 4 ids, and `oracle` (True)
     makes the target echo them, so drafts are accepted."""
@@ -1276,7 +1277,7 @@ def _spec(params, prompt, graphed, *, k, max_new=11, oracle=None, keep=None, gen
         max_new_tokens=max_new, cache_len=GRAPH_S + max_new + k + 1, spec_k=k,
         temperature=temperature, do_sample=do_sample, top_p=1.0, pad_id=0,
         draft_keep_prob=keep, oracle_ids=oracle if oracle is not None else None,
-        graphed=graphed)
+        graphed=graphed, adapter_route=adapter_route)
     return (*out[:4], out[4].logits.clone())
 
 
@@ -1643,4 +1644,120 @@ def test_decode_graph_over_an_e4m3_cache_is_bit_equal(decoders, quant, b):
     bf16 = _decode(params, prompt, True, max_new=21)
     assert len(gen_mod.decode_graphs()) == 2
     assert torch.equal(bf16[0][:, 0], first[0][:, 0])  # the prefill attends fresh bf16 K/V
+    gen_mod.clear_decode_graphs()
+
+
+# --------------------------------------------------------------- multi-LoRA
+#
+# Two rank-16 peft adapters attached over the 2-layer 7B-width decoders (the
+# int4 one's fused q|k|v and gate|up take the block-composed form) and
+# stacked: a one-hot route row must give the single-adapter model's bits and
+# a -1 row the base model's, at the same batch shape, plain, graphed and
+# speculative; one graph entry serves any adapter list of its width.
+
+LORA_RANK = 16
+
+
+def _peft_sd(seed):
+    """A peft adapter state dict at GRAPH_CFG's widths, A and B drawn from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    d, i_sz = GRAPH_CFG.hidden_size, GRAPH_CFG.intermediate_size
+    kv = GRAPH_CFG.num_kv_heads * GRAPH_CFG.head_dim
+    widths = {"self_attn.q_proj": (d, d), "self_attn.k_proj": (d, kv),
+              "self_attn.v_proj": (d, kv), "self_attn.o_proj": (d, d),
+              "mlp.gate_proj": (d, i_sz), "mlp.up_proj": (d, i_sz), "mlp.down_proj": (i_sz, d)}
+    sd = {}
+    for layer in range(GRAPH_CFG.num_layers):
+        for mod, (fan_in, fan_out) in widths.items():
+            pre = f"base_model.model.model.layers.{layer}.{mod}"
+            sd[f"{pre}.lora_A.weight"] = torch.randn(LORA_RANK, fan_in, generator=gen) * 0.02
+            sd[f"{pre}.lora_B.weight"] = torch.randn(fan_out, LORA_RANK, generator=gen) * 0.02
+    return sd
+
+
+@pytest.fixture(scope="module")
+def lora_decoders(decoders):
+    """{quant: (base, [single-adapter trees], the stacked tree)}."""
+    from teochat_torch.checkpoint.convert_hf import attach_lora_to_llama
+    from teochat_torch.train.lora import stack_lora_adapters
+
+    out = {}
+    for quant, base in decoders.items():
+        singles = [attach_lora_to_llama(base, _peft_sd(40 + i), GRAPH_CFG, alpha=32.0)
+                   for i in range(2)]
+        out[quant] = (base, singles, stack_lora_adapters(singles))
+    return out
+
+
+def _route(ids):
+    from teochat_torch.train.lora import adapter_route
+
+    return adapter_route(torch.tensor(ids, device="cuda"), 2)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_multi_lora_rows_are_bit_equal_to_their_models(lora_decoders, quant):
+    """A ragged batch of 4 routed [0, 1, -1, 1]: the prefill's last logits
+    and the eager and graphed greedy tokens of each row are BITWISE those of
+    its single-adapter model (or the base model) on the same batch; the
+    graph's tokens are the eager loop's, and the adapters move the tokens."""
+    base, singles, multi = lora_decoders[quant]
+    prompt = _graph_prompt(4)
+    ids = [0, 1, -1, 1]
+    models = {0: singles[0], 1: singles[1], -1: base}
+    gen_mod.clear_decode_graphs()
+    for graphed in (False, True):
+        got = _decode(multi, prompt, graphed, adapter_route=_route(ids))
+        for row, a in enumerate(ids):
+            want = _decode(models[a], prompt, graphed)
+            assert torch.equal(got[0][row], want[0][row]), (graphed, row, a)
+        if graphed:
+            assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
+        eager = got
+    assert not torch.equal(got[0][2], _decode(singles[0], prompt, False)[0][2])
+    embeds, lens, mask, pos = prompt
+    cache = llama_mod.init_cache(GRAPH_CFG, 4, 128, device="cuda")
+    logits, _ = gen_mod.prefill_full(multi, GRAPH_CFG, cache, embeds, lens, mask, pos,
+                                     adapter_route=_route(ids))
+    for row, a in enumerate(ids):
+        cache = llama_mod.init_cache(GRAPH_CFG, 4, 128, device="cuda")
+        want, _ = gen_mod.prefill_full(models[a], GRAPH_CFG, cache, embeds, lens, mask, pos)
+        assert torch.equal(logits[row], want[row]), (row, a)
+    gen_mod.clear_decode_graphs()
+
+
+def test_multi_lora_one_entry_serves_two_adapter_lists(lora_decoders):
+    """Two requests with other adapter lists ([0, 1, -1, 0], then
+    [1, -1, 0, 1]) replay one graph entry (the route is a state buffer
+    written before the replay): each gives its own eager run's tokens."""
+    _, _, multi = lora_decoders["int8"]
+    prompt = _graph_prompt(4)
+    gen_mod.clear_decode_graphs()
+    lists = ([0, 1, -1, 0], [1, -1, 0, 1])
+    eager = [_decode(multi, prompt, False, adapter_route=_route(ids)) for ids in lists]
+    assert not torch.equal(eager[0][0], eager[1][0])
+    for ids, want in zip(lists * 2, eager * 2):
+        got = _decode(multi, prompt, True, adapter_route=_route(ids))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ids
+    (entry,) = gen_mod.decode_graphs()
+    assert entry.replays == 9 + 3 * 10  # 10 iterations a request; the first request's first ran eagerly
+    gen_mod.clear_decode_graphs()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_multi_lora_spec_graph_equals_eager_and_the_single_models(lora_decoders, quant):
+    """Speculative (k 4, the oracle accepting drafts) over the stacked tree
+    routed [1, -1, 0, 1]: the graph's tokens, steps and accepted are the
+    eager loop's, and each row's tokens its own model's on the same batch."""
+    base, singles, multi = lora_decoders[quant]
+    prompt = _graph_prompt(4)
+    ids = [1, -1, 0, 1]
+    models = {0: singles[0], 1: singles[1], -1: base}
+    gen_mod.clear_decode_graphs()
+    want = _spec(multi, prompt, False, k=4, adapter_route=_route(ids))
+    got = _spec(multi, prompt, True, k=4, adapter_route=_route(ids))
+    for w, g in zip(want[:4], got[:4]):
+        assert torch.equal(w, g)
+    for row, a in enumerate(ids):
+        assert torch.equal(got[0][row], _spec(models[a], prompt, True, k=4)[0][row]), (row, a)
     gen_mod.clear_decode_graphs()

@@ -784,9 +784,12 @@ def test_what_is_not_ported_raises(model, monkeypatch):
     for unsupported in ("bfloat16", "int8", torch.float16):
         with pytest.raises(ValueError, match="kv_dtype"):
             BatchEngine(model, kv_dtype=unsupported)
+    # multi-LoRA is ported (tests/test_torch_multi_lora.py): over params
+    # without stacked adapters an adapter is refused, -1 is the base model
     engine = BatchEngine(model, max_slots=1, max_len=32)
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="stacked LoRA"):
         engine._make_request([1, 2], None, _gen(2), adapter=0)
+    assert engine._make_request([1, 2], None, _gen(2), adapter=-1).adapter == -1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server_mod.main(["--model_path", "unused", "--continuous_batching",

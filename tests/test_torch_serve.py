@@ -161,7 +161,6 @@ def test_unported_options_raise(params):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--lora_paths", "a,b"], "item 12"),
     (["--quantize_vision"], "item 15"),
 ])
 def test_server_main_refuses_unported_flags(flag, item):
