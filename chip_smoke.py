@@ -99,9 +99,11 @@ them. Phases, each printing its lines before the last:
     ImageProcessor (mean |difference| within PREPROCESS_NATIVE_MEAN_TOL),
     ms a frame with and without the upload beside the native path's;
 11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
-    must launch; the graph against the eager loop, speculative decoding and
-    the e4m3 cache as in 7; then the last-position prefill logits of the 2-frame request
-    with the kernels against the same forward on the plain attention;
+    must launch; the graph against the eager loop (the 2-frame request and
+    the batch of 4), speculative decoding (k 4; ms a verify iteration at k 4
+    and 8) and the e4m3 cache (batch 32) as in 7; then the last-position
+    prefill logits of the 2-frame request with the kernels against the
+    same forward on the plain attention;
 12. the chat server on that loaded model: the port's `ChatServer` on
     127.0.0.1 and an ephemeral port, in the background; over HTTP session
     "a" takes four greedy turns of 32 tokens (two base64 PNG frames of
@@ -154,7 +156,8 @@ them. Phases, each printing its lines before the last:
     step failing the capture; ms a plain and a speculative chunk of 8 steps
     over 8 rows, both graphs over one state; (f) 8 text streams of 121 + 64
     tokens, eight rounds, through the adaptive speculative engine (k 4)
-    beside the plain engine: tok/s, its mode switches and probes; (g) the
+    beside four through the plain engine: tok/s, its mode switches and
+    probes; (g) the
     eight requests of (a) through `BatchEngine(kv_dtype="float8_e4m3fn")`,
     plain (chunked prefill, a prefix hit) and speculative (k 4): each
     greedy token within SPEC_GAP_TOL of its teacher-forced maximum over an
@@ -163,19 +166,19 @@ them. Phases, each printing its lines before the last:
     and a bf16 engine, tok/s; then multi-LoRA on that model
     (`phase_multi_lora`): (a) two peft dirs at full width (r 128, alpha
     256, A and B drawn from the seed) through `load_multi_lora` (the
-    adapters' GiB, the card's peak); (b) `generate` with adapters all 0,
-    all 1 and all -1 on the 2-frame request and the ragged batch of 4: the
-    prefill logits and greedy tokens bit-equal to the single-adapter
-    models' (`attach_lora_to_llama` over the same base) and the base
-    model's, graphed, and the graph's tokens the eager loop's; (c) one
-    graph entry replayed with two adapter lists in turn, each run its eager
-    run's tokens; (d) the engine with the eight requests of (a) over
+    adapters' GiB, the card's peak); (b) adapters all 0, all 1 and all -1:
+    the 2-frame request's prefill logits and the ragged batch of 4's greedy
+    tokens bit-equal to the single-adapter models' (`attach_lora_to_llama`
+    over the same base) and the base model's, graphed, and the graph's
+    tokens the eager loop's; (c) one graph entry replayed with two adapter
+    lists in turn, each run its eager run's tokens; (d) the engine with the
+    eight requests of (a) over
     adapters {-1, 0, 1}, plain and speculative (k 4): each greedy token
     within SPEC_GAP_TOL of its adapter's teacher-forced maximum, a prefix
     hit refused across adapters and taken within one; (e) ms a graphed
-    decode step with the base tree, one adapter and two stacked at bs 1
-    and 8, and the engine's tok/s at 8 streams mixed over {-1, 0, 1}
-    against the base engine; (f) branch A: a `teochat-lora` dir over the
+    decode step with the base tree, one adapter and two stacked at bs 8,
+    and the engine's tok/s at 8 streams mixed over {-1, 0, 1} against the
+    base engine (one round each); (f) branch A: a `teochat-lora` dir over the
     checkpoint (one adapter dir's peft files, non_lora_trainables.bin with
     a projector of its own) loaded with load_8bit (seconds, the card's peak
     held below the tree + 3 GiB), one request;
@@ -195,10 +198,21 @@ them. Phases, each printing its lines before the last:
     (`flash_backward_dkv_schedule`, `_dq_schedule`) on the same bf16 inputs;
     and each kernel's time beside the plain forward's and backward's and the
     library's one backward call;
-16. the training path at TEOChat-7B width: the port's `train()` takes three
-    optimizer steps (int8 backbone, LoRA r128 on all seven projections, fp32
-    projector, cosine schedule, accumulation 2, remat) on 16 synthetic
-    2-frame conversations; the three K4 launch counts must rise;
+16. the training entry point on that checkpoint, while its directory
+    exists (`phase_train_cli`): `teochat_torch.train.cli.main` with
+    scripts/train_teochat.sh's flags (`--bits 8`, LoRA r128 / alpha 256 on
+    all seven projections, fp32 projector masters, cosine schedule, batch
+    4, accumulation 2, remat, `--save_steps 2`, `--dataloader_num_workers
+    2`) on a local dataset dir of 16 synthetic 2-frame conversations (PNG
+    frames): three optimizer steps, the three K4 launch counts at least
+    layers x micro-steps, every adapter and projector leaf moved,
+    checkpoint-2 holding the optimizer state and the final save none (F7);
+    checkpoint-2 loaded, saved and loaded again bitwise; a second
+    `cli.main` resuming from it to step 3; a 2-step projector-only run
+    (`--lora_enable False --tune_mm_mlp_adapter True`) in which nothing but
+    the projector moves; the load, s/step, tokens/s, a save's seconds and
+    GB, a load's seconds, the resume's seconds and the peak (runs after
+    phase 14, before the directory is removed);
 17. one micro-step's loss and trainable gradients with the kernels against
     the same step on the plain attention; then phase 13 (e) on the loaded
     int8 model made the echo model in place (its last use: every layer's
@@ -218,7 +232,9 @@ them. Phases, each printing its lines before the last:
 19. the two kernel benches in-process (`int4_kernel.main(quick=True)`,
     `vit_attention.main()`): the eight launch counts, and those of K3b and
     K5 (their `v0` and `current` rows), must rise;
-20. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e`.
+20. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e
+    train train_bf16`: the train phase's keys at accumulation 1 and 8, and
+    bf16 full fine-tuning of the TinyLlama-1.1B geometry.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -287,7 +303,6 @@ from teochat_torch.ops import quant as quant_mod
 from teochat_torch.ops import vit_attention as vit_mod
 from teochat_torch.serve import engine as engine_mod
 from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
-from teochat_torch.train.train import ModelArguments, TrainingArguments, train
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
 
 SEED = 0
@@ -1137,13 +1152,14 @@ def decode_loop(graphed):
         gen_mod.generate_tokens = saved
 
 
-def phase_decode_graph(model, tokenizer, processor, ids, frames, tag):
+def phase_decode_graph(model, tokenizer, processor, ids, frames, tag, batch16=True):
     """The decode steps as a replayed CUDA graph against the eager loop, on
     this card: the 2-frame greedy request (32 tokens), the 4-row ragged
-    batch of the main path and that batch four times over (16 rows: the
-    int4 step runs K3's M > 8 kernel in the graph) give the same tokens and
-    the same kernel counts both ways; ms/step both ways (medians of 3 generates of 1 and of 32
-    tokens), the captures' seconds, the replays and the peak memory."""
+    batch of the main path and, with `batch16`, that batch four times over
+    (16 rows: the int4 step runs K3's M > 8 kernel in the graph) give the
+    same tokens and the same kernel counts both ways; ms/step both ways
+    (medians of 3 generates of 1 and of 32 tokens), the captures' seconds,
+    the replays and the peak memory."""
     batch_ids, batch_frames = ragged_batch(tokenizer, processor)
     ids16, frames16 = batch_ids * 4, np.concatenate([batch_frames] * 4, axis=0)
     g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
@@ -1158,7 +1174,7 @@ def phase_decode_graph(model, tokenizer, processor, ids, frames, tag):
                              ("batch", lambda: model.generate(batch_ids, batch_frames, G16,
                                                               rng=SEED)),
                              ("batch 16", lambda: model.generate(ids16, frames16, G16,
-                                                                 rng=SEED))):
+                                                                 rng=SEED)))[:2 + batch16]:
                 for counter in INFERENCE_COUNTERS.values():
                     counter.reset()
                 out = fn()
@@ -1172,7 +1188,7 @@ def phase_decode_graph(model, tokenizer, processor, ids, frames, tag):
         runs[graphed] = got
     entries = gen_mod.decode_graphs()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for name in ("2-frame", "batch", "batch 16"):
+    for name in ("2-frame", "batch", "batch 16")[:2 + batch16]:
         (want, want_counts, want_logits), (out, counts, logits) = runs[False][name], runs[True][name]
         diff = (logits - want_logits).abs().max().item()
         log(f"[{tag} graph] {name}: graph tokens {'equal' if out == want else 'DIFFER from'} "
@@ -1325,12 +1341,14 @@ def _first_difference(a, b):
                 None if len(a) == len(b) else min(len(a), len(b)))
 
 
-def phase_spec(model, tokenizer, processor, ids, frames, tag):
+def phase_spec(model, tokenizer, processor, ids, frames, tag, ks=(4, 8),
+               sweep=(0, 1, 4, 7, 8)):
     """Prompt-lookup speculative decoding on this model, through
     TEOChat.generate and generate_tokens_spec: the replayed graph against
-    the eager loop, a capture with a planted host read, greedy correctness
-    against a teacher-forced prefill, the oracle workloads, a sampled run,
-    and the times (see the module's docstring, phase 7 and 11)."""
+    the eager loop and greedy correctness against a teacher-forced prefill
+    at each k of `ks`, a capture with a planted host read, the oracle
+    workloads, a sampled run, and ms a verify iteration at each k of
+    `sweep` (0: the plain step; see the module's docstring, phase 7 and 11)."""
     cfg = model.cfg
     n_layers = cfg.llm.num_layers
     batch_ids, batch_frames = ragged_batch(tokenizer, processor)
@@ -1342,7 +1360,7 @@ def phase_spec(model, tokenizer, processor, ids, frames, tag):
                                 stop_strings=stops, speculative_k=k)
 
     # the replayed graph against the eager loop: tokens, counters, launches
-    for k in (4, 8):
+    for k in ks:
         for name, args in (("2-frame", ([ids], frames)), ("batch", (batch_ids, batch_frames))):
             runs = {}
             for graphed in (False, True):
@@ -1392,7 +1410,7 @@ def phase_spec(model, tokenizer, processor, ids, frames, tag):
 
     # greedy correctness at 7B: each emitted token against a teacher-forced prefill
     plain = model.generate([ids], frames, greedy(0, 32, ()))[0]
-    for k in (4, 8):
+    for k in ks:
         out = model.generate([ids], frames, greedy(k, 32, ()))[0]
         gaps, argmax = teacher_forced_gaps(model, ids, frames, out)
         worst = max(gaps)
@@ -1456,7 +1474,7 @@ def phase_spec(model, tokenizer, processor, ids, frames, tag):
 
     # ms per verify iteration by k beside the plain graphed step (2-frame, bs 1)
     times = {}
-    for k in (0, 1, 4, 7, 8):
+    for k in sweep:
         g1, g33 = greedy(k, 1, ()), greedy(k, 33, ())
         model.generate([ids], frames, g33)  # the capture
         t1, tn = [], []
@@ -1839,58 +1857,260 @@ def _k4_counts():
             "dq": flash_mod.BWD_DQ_LAUNCHES.count}
 
 
-def phase_train(cfg, params, tokenizer, processor):
-    before = {p: x.float() for p, x in tree_leaves_with_path(params["projector"])}
-    targs = TrainingArguments(
-        per_device_train_batch_size=4, gradient_accumulation_steps=2, learning_rate=2e-4,
-        mm_projector_lr=2e-5, lr_scheduler_type="cosine", warmup_ratio=0.03, max_grad_norm=1.0,
-        gradient_checkpointing=True, max_steps=3, num_train_epochs=2, save_strategy="no",
-        logging_steps=1, lora_r=128, lora_alpha=256.0, bf16=True, seed=SEED,
-    )
-    history = []
-    flash_mod.FWD_RES_LAUNCHES.reset()
-    flash_mod.BWD_DKV_LAUNCHES.reset()
-    flash_mod.BWD_DQ_LAUNCHES.reset()
-    torch.cuda.reset_peak_memory_stats()
-    state, sec = wall(lambda: train(
-        ModelArguments(), DataArguments(image_processor=processor), targs, cfg=cfg,
-        params=params, tokenizer=tokenizer, dataset=train_samples(N_TRAIN_SAMPLES),
-        history=history))
-    counts = _k4_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    micro = targs.max_steps * targs.gradient_accumulation_steps
-    check(len(history) == targs.max_steps and state.step == micro, "three optimizer steps")
-    check(all(np.isfinite(h["loss"]) for h in history), "training losses finite")
+TRAIN_FRAME_HW = (300, 400)
+
+
+def train_dataset_dir(path, n: int) -> str:
+    """`train_samples(n)` as a local dataset dir that `--data_name` reads
+    through `datasets.load_dataset(dir, split="train")`: train.parquet (JSON
+    lines would have the timestamps parsed as dates), each frame a random
+    uint8 PNG file by absolute path."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from PIL import Image
+
+    os.makedirs(path)
+    rs = np.random.RandomState(SEED + 11)
+    rows = train_samples(n)
+    for row in rows:
+        row["video"] = [os.path.abspath(os.path.join(path, name)) for name in row["video"]]
+        for f in row["video"]:
+            Image.fromarray(rs.randint(0, 256, (*TRAIN_FRAME_HW, 3), dtype=np.uint8)).save(f)
+    pq.write_table(pa.Table.from_pylist(rows), os.path.join(path, "train.parquet"))
+    return path
+
+
+def recipe_argv(ckpt_path, data_dir, out_dir, cache_dir, **over):
+    """scripts/train_teochat.sh's flags over the checkpoint (`--bits 8`,
+    LoRA r 128 / alpha 256, the projector's lr 2e-5, warmup 0.03, batch 4,
+    grouped by modality) with accumulation 2, a save every 2 steps, a
+    prefetch thread 2 batches deep, every step logged; `over` replaces or
+    adds flags (`lora_enable="False"`)."""
+    flags = {
+        "model_name_or_path": ckpt_path, "version": "v1", "data_name": data_dir,
+        "data_split": "train", "data_cache_dir": cache_dir, "prompt_strategy": "interleave",
+        "chronological_prefix": "True", "bits": "8", "lora_enable": "True", "lora_r": "128",
+        "lora_alpha": "256", "mm_projector_lr": "2e-5", "learning_rate": "2e-4",
+        "warmup_ratio": "0.03", "per_device_train_batch_size": "4",
+        "gradient_accumulation_steps": "2", "num_train_epochs": "2", "save_steps": "2",
+        "save_total_limit": "10", "group_by_modality_length": "True", "output_dir": out_dir,
+        "mm_use_im_patch_token": "False", "dataloader_num_workers": "2", "logging_steps": "1",
+        "report_to": "none", "seed": str(SEED), "max_steps": "3",
+    }
+    flags.update({k: str(v) for k, v in over.items()})
+    return [a for k, v in flags.items() for a in (f"--{k}", v)]
+
+
+def _ckpt_dirs(out_dir):
+    """{checkpoint-N: whether it holds an optimizer state}."""
+    return {n: os.path.isdir(os.path.join(out_dir, n, "opt_state"))
+            for n in sorted(os.listdir(out_dir)) if n.startswith("checkpoint-")}
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def _log_history(tag, history, accum):
     for h in history:
-        log(f"[train] step {h['step']}: loss {h['loss']:.6f}, {h['seconds']:.3f} s, "
+        save = f"; its periodic save {h['save_seconds']:.2f} s" if "save_seconds" in h else ""
+        log(f"[{tag}] step {h['step']}: loss {h['loss']:.6f}, {h['seconds']:.3f} s, "
             f"{h['tokens'] / h['seconds']:.1f} tokens/s ({h['tokens']} valid of "
-            f"{h['padded_tokens']} padded tokens, {targs.gradient_accumulation_steps} micro-batches)")
+            f"{h['padded_tokens']} padded tokens, {accum} micro-batches){save}")
+
+
+def _round_trip(ckpt, copy_dir, device="cuda"):
+    """checkpoint-N loaded onto the card, saved from it and read again: every
+    leaf of the params and the optimizer state bit for bit. Returns the
+    seconds of the load, of the save and of the second read with the
+    comparison, the bytes and the leaves compared."""
+    from teochat_torch.checkpoint import orbax_io
+    from teochat_torch.utils import tree_map
+
+    def to_card(tree):
+        return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
+
+    (params, cfg, opt), load_s = wall(lambda: tuple(map(to_card, orbax_io.load_checkpoint(
+        ckpt, restore_opt=True))))
+    check(opt is not None, f"{ckpt} has no optimizer state")
+    _, save_s = wall(lambda: orbax_io.save_checkpoint(copy_dir, params, cfg, opt_state=opt))
+    nbytes = _dir_bytes(copy_dir)
+
+    def compare():
+        params2, cfg2, opt2 = orbax_io.load_checkpoint(copy_dir, restore_opt=True)
+        check(cfg2 == cfg, "round trip: the config")
+        n = 0
+        for a_tree, b_tree in ((params, params2), (opt, opt2)):
+            a, b = dict(tree_leaves_with_path(a_tree)), dict(tree_leaves_with_path(b_tree))
+            check(sorted(a) == sorted(b), "round trip: the leaves")
+            for path, x in a.items():
+                y = b[path]
+                if isinstance(x, torch.Tensor):
+                    y = y.to(device)
+                    check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+                        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)),
+                        f"round trip: {path} not bitwise")
+                else:
+                    check(x == y, f"round trip: {path} {x} != {y}")
+                n += 1
+        return n
+
+    n, load2_s = wall(compare)
+    return load_s, save_s, load2_s, nbytes, n
+
+
+def phase_train_cli(root, ckpt_path, model):
+    """The recipe through `teochat_torch.train.cli.main` over the int8
+    TEOChat-7B checkpoint: (a) 3 optimizer steps of LoRA r128 over the int8
+    backbone (accumulation 2, remat, a save every 2 steps), the K4 launches
+    counted; every adapter and projector leaf moved; checkpoint-2 holds an
+    optimizer state and the final save checkpoint-3 none (F7); (b)
+    checkpoint-2 loaded, saved and loaded again, bitwise; (c) a second run
+    resumes from checkpoint-2 (checkpoint-3 removed) to step 3; (d) 2 steps
+    of the projector alone, in which nothing else moves, whose final save
+    replaces its periodic one at step 2 without its optimizer state (F7).
+    Returns the K4 launches of (a) and the phase's numbers."""
+    from teochat_torch.train import cli as train_cli
+
+    os.environ.setdefault("HF_DATASETS_OFFLINE", "1")  # the dataset dir is local
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    smi = _timing.smi_line()
+    t0 = time.perf_counter()
+    data = train_dataset_dir(os.path.join(root, "train-data"), N_TRAIN_SAMPLES)
+    out = os.path.join(root, "train-out")
+    cache = os.path.join(root, "datasets-cache")
+    argv = recipe_argv(ckpt_path, data, out, cache)
+    layers = model.cfg.llm.num_layers
+    accum, steps = 2, 3
+
+    # (a)
+    history = []
+    for counter in (flash_mod.FWD_RES_LAUNCHES, flash_mod.BWD_DKV_LAUNCHES,
+                    flash_mod.BWD_DQ_LAUNCHES):
+        counter.reset()
+    gc.collect()
+    before_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, sec = wall(lambda: train_cli.main(argv, history=history))
+    counts = _k4_counts()
+    peak = (torch.cuda.max_memory_allocated() - before_alloc) / 2**30
+    check(len(history) == steps and state.step == steps * accum, "three optimizer steps")
+    check(all(np.isfinite(h["loss"]) and h["loss"] > 0 for h in history),
+          "training losses finite and positive (the labels are not all masked)")
+    _log_history("train cli", history, accum)
     steady = history[1:]
     s_step = sum(h["seconds"] for h in steady) / len(steady)
     tok_s = sum(h["tokens"] for h in steady) / sum(h["seconds"] for h in steady)
-    log(f"[train] TEOChat-7B int8 + LoRA r128: {sec:.2f} s for {len(history)} steps; steps 2-3: "
-        f"{s_step:.3f} s/step, {tok_s:.1f} valid tokens/s; peak allocated {peak:.3f} GiB")
-    log(f"[train] kernel launches during train(): K4a {counts['fwd']}, K4b {counts['dkv']}, "
-        f"K4c {counts['dq']} over {micro} micro-steps of {cfg.llm.num_layers} layers")
-    layers = cfg.llm.num_layers * micro
-    check(counts["fwd"] >= layers and counts["dkv"] >= layers and counts["dq"] >= layers,
-          f"K4 launches {counts} below {layers}")
-
-    # every adapter and projector leaf moved (A from its seeded draw, B from 0)
-    dev = params["llm"]["embed_tokens"]["embedding"].device
+    first_s = history[0]["seconds"]
+    load_s = sec - sum(h["seconds"] + h.get("save_seconds", 0) for h in history)
+    log(f"[train cli] cli.main (TEOChat-7B int8 checkpoint + LoRA r128, batch 4, accumulation "
+        f"{accum}): {sec:.2f} s for {steps} steps, of which the load, set-up and final save "
+        f"{load_s:.2f} s and step 1 {first_s:.3f} s; steps 2-3: {s_step:.3f} s/step, "
+        f"{tok_s:.1f} valid tokens/s; peak allocated {peak:.3f} GiB above the "
+        f"{before_alloc / 2**30:.3f} GiB held before; {smi}")
+    log(f"[train cli] kernel launches during cli.main: K4a {counts['fwd']}, K4b {counts['dkv']}, "
+        f"K4c {counts['dq']} over {steps * accum} micro-steps of {layers} layers")
+    check(min(counts.values()) >= layers * steps * accum, f"K4 launches {counts}")
+    dev = model.params["llm"]["embed_tokens"]["embedding"].device
     init_lora = add_lora_params(torch.Generator(device=dev).manual_seed(SEED),
-                                params["llm"], rank=targs.lora_r, alpha=targs.lora_alpha)
-    want = dict(tree_leaves_with_path(partition_params(
-        {"llm": init_lora}, lora_trainable_filter)[0]))
-    got = dict(tree_leaves_with_path(partition_params(
-        {"llm": state.params["llm"]}, lora_trainable_filter)[0]))
+                                model.params["llm"], rank=128, alpha=256.0)
+    want = dict(tree_leaves_with_path(partition_params({"llm": init_lora},
+                                                       lora_trainable_filter)[0]))
+    got = dict(tree_leaves_with_path(partition_params({"llm": state.params["llm"]},
+                                                      lora_trainable_filter)[0]))
     check(sorted(got) == sorted(want) and len(got) == 14, "LoRA leaves")
     for path, x in got.items():
         check(not torch.equal(x, want[path]), f"{path} did not change")
-    del init_lora, want
+    before_proj = dict(tree_leaves_with_path(model.params["projector"]))
     for path, x in tree_leaves_with_path(state.params["projector"]):
-        check(not torch.equal(x, before[path]), f"projector/{path} did not change")
-    return counts
+        check(not torch.equal(x, before_proj[path].float()), f"projector/{path} did not change")
+    del init_lora, want, got, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dirs = _ckpt_dirs(out)
+    check(dirs == {"checkpoint-2": True, "checkpoint-3": False},
+          f"checkpoints {dirs}: checkpoint-2 with its optimizer state, the final save without")
+    ckpt2 = os.path.join(out, "checkpoint-2")
+    save_gb = _dir_bytes(ckpt2) / 1e9
+    save_s = history[1]["save_seconds"]
+    log(f"[train cli] checkpoint-2 (params and optimizer state): {save_gb:.3f} GB written in "
+        f"{save_s:.2f} s ({save_gb / save_s:.3f} GB/s); the final save checkpoint-3 "
+        f"{_dir_bytes(os.path.join(out, 'checkpoint-3')) / 1e9:.3f} GB, no optimizer state (F7)")
+    shutil.rmtree(os.path.join(out, "checkpoint-3"))
+    marks = {"(a)": time.perf_counter()}
+
+    # (b)
+    copy_dir = os.path.join(root, "train-round-trip")
+    load1, save_rt, load2, nbytes, n_leaves = _round_trip(ckpt2, copy_dir)
+    shutil.rmtree(copy_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train cli] checkpoint-2 loaded onto the card, saved, read back, bitwise over "
+        f"{n_leaves} leaves: the load {load1:.2f} s ({nbytes / 1e9 / load1:.3f} GB/s, a warm "
+        f"read), the save {save_rt:.2f} s ({nbytes / 1e9:.3f} GB, {nbytes / 1e9 / save_rt:.3f} "
+        f"GB/s), the second read with the comparison {load2:.2f} s; {smi}")
+    marks["(b)"] = time.perf_counter()
+
+    # (c)
+    history2 = []
+    torch.cuda.reset_peak_memory_stats()
+    state, resume_s = wall(lambda: train_cli.main(argv, history=history2))
+    resume_peak = (torch.cuda.max_memory_allocated() - before_alloc) / 2**30
+    check([h["step"] for h in history2] == [3] and state.step == 2 + accum,
+          f"the resume from checkpoint-2 to step 3: {[h['step'] for h in history2]}")
+    check(np.isfinite(history2[0]["loss"]), "the resumed step's loss")
+    _log_history("train cli resume", history2, accum)
+    log(f"[train cli] resume (the builder's load, checkpoint-2 restored, step 3, the final "
+        f"save): {resume_s:.2f} s; peak allocated {resume_peak:.3f} GiB above the "
+        f"{before_alloc / 2**30:.3f} GiB held before; {smi}")
+    check(_ckpt_dirs(out) == {"checkpoint-2": True, "checkpoint-3": False}, "resumed checkpoints")
+    del state
+    shutil.rmtree(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["(c)"] = time.perf_counter()
+
+    # (d)
+    out_p = os.path.join(root, "train-projector")
+    history3 = []
+    state, proj_s = wall(lambda: train_cli.main(recipe_argv(
+        ckpt_path, data, out_p, cache, lora_enable="False", tune_mm_mlp_adapter="True",
+        max_steps=2), history=history3))
+    check(len(history3) == 2 and all(np.isfinite(h["loss"]) for h in history3),
+          "two projector-only steps")
+    _log_history("train cli projector", history3, accum)
+    base = dict(tree_leaves_with_path(model.params))
+    moved = []
+    for path, x in tree_leaves_with_path(state.params):
+        if path.startswith("projector/"):
+            check(x.dtype == torch.float32 and not torch.equal(x, base[path].float()),
+                  f"{path} did not move")
+            moved.append(path)
+        else:
+            check(torch.equal(x, base[path]), f"{path} moved in a projector-only run")
+    check(len(moved) == 4 and sorted(base) == sorted(p for p, _ in tree_leaves_with_path(
+        state.params)), "projector-only: the trained leaves")
+    check(_ckpt_dirs(out_p) == {"checkpoint-2": False},
+          "projector-only: the final save at step 2 replaced the periodic one without its "
+          "optimizer state (F7)")
+    log(f"[train cli] projector only (--lora_enable False --tune_mm_mlp_adapter True): "
+        f"{proj_s:.2f} s for 2 steps, only the 4 projector leaves moved; checkpoint-2 "
+        f"holds no optimizer state after the final save (F7)")
+    del state
+    shutil.rmtree(out_p)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["(d)"] = time.perf_counter()
+    phase_s = time.perf_counter() - t0
+    ends = list(marks.values())
+    parts = {name: end - start for name, start, end in zip(marks, [t0] + ends, ends)}
+    log(f"[train cli] the phase took {phase_s:.1f} s: "
+        + ", ".join(f"{name} {v:.1f}" for name, v in parts.items()))
+    return counts, {
+        "cli_s": sec, "load_and_setup_s": load_s, "step_s": s_step, "tokens_per_s": tok_s,
+        "peak_gib": peak, "save_s": save_s, "save_gb": save_gb, "load_s": load1,
+        "resume_s": resume_s, "resume_peak_gib": resume_peak, "projector_only_s": proj_s,
+        "phase_s": phase_s, "part_s": parts, "smi": smi}
 
 
 def parity_batch(cfg, params, tokenizer, processor, gen):
@@ -2028,8 +2248,17 @@ def checkpoint_tokenizer(path, vocab_size):
     from tokenizers.models import WordLevel
     from tokenizers.pre_tokenizers import Whitespace
 
-    text = " ".join((PROMPT_2, PROMPT_4, EVAL_QUESTION, "Image 1 2 3 4"))
-    words = sorted(set(re.findall(r"\w+|[^\w\s]+", text)) - {"<", ">"})
+    from teochat_torch.conversation import conv_templates
+
+    def split(*texts):
+        return set(re.findall(r"\w+|[^\w\s]+", " ".join(texts))) - {"<", ">", "</"}
+
+    words = sorted(split(PROMPT_2, PROMPT_4, EVAL_QUESTION, "Image 1 2 3 4"))
+    # then the training conversations' words and the v1 template's, so that
+    # the labels of `train_samples` are not masked for an unknown token
+    v1 = conv_templates["v1"]
+    words += sorted(split(v1.system, *v1.roles, "in chronological order",
+                          *(t for qa in TRAIN_QA for t in qa)) - set(words))
     vocab = {w: i for i, w in enumerate(["<unk>", "<s>", "</s>"] + words)}
     for i in range(len(vocab), vocab_size):
         vocab[f"w{i}"] = i
@@ -3279,25 +3508,26 @@ def _engine_streams(engine, prompts, gen, runs):
 
 def _engine_adaptive_cell(model):
     """(f) 8 text streams of 121 + 64 tokens on random weights (prompt
-    lookup accepts next to nothing): the adaptive speculative engine (k 4)
-    against the plain engine, eight rounds each (~5 chunks of 16 a round:
-    past the 32 chunks after which the adaptive engine fires its first
-    probe); its mode switches and the probes it fired."""
+    lookup accepts next to nothing): the adaptive speculative engine (k 4),
+    eight rounds (~5 chunks of 16 a round: past the 32 chunks after which
+    it fires its first probe), against the plain engine, four rounds; its
+    mode switches and the probes it fired."""
     from teochat_torch.serve.engine import BatchEngine
 
     g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
     prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
     out = {}
-    for name, kw in (("plain", {}), ("adaptive", dict(speculative_k=4, adaptive_spec=True))):
+    for name, kw, runs in (("plain", {}, 4),
+                           ("adaptive", dict(speculative_k=4, adaptive_spec=True), 8)):
         engine = BatchEngine(model, max_slots=8, max_len=512, chunk=16, **kw).start()
         try:
-            times, _ = _engine_streams(engine, prompts, g64, runs=8)
+            times, _ = _engine_streams(engine, prompts, g64, runs=runs)
         finally:
             engine.shutdown()
         out[name] = {"tok_s": [8 * 64 / t for t in times], "stats": dict(engine.stats)}
     a = out["adaptive"]["stats"]
-    log(f"[engine f] {_timing.smi_line()}: 8 streams of 121 + 64 tokens, eight rounds: plain "
-        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; adaptive k 4 "
+    log(f"[engine f] {_timing.smi_line()}: 8 streams of 121 + 64 tokens: plain (4 rounds) "
+        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; adaptive k 4 (8 rounds) "
         f"{', '.join(f'{x:.2f}' for x in out['adaptive']['tok_s'])} tok/s; the adaptive engine "
         f"switched {a.get('spec_mode_switches', 0)} times and fired {a.get('spec_probes', 0)} "
         f"probes over {a['chunks']} chunks ({a.get('spec_tokens', 0)} tokens in "
@@ -3529,11 +3759,10 @@ def lora_step_costs(model, multi, singles, tag, batches):
 
 
 def _check_adapter_rows(multi, singles, model, ids, frames, batch_ids, batch_frames, tag):
-    """(b): prefill logits and greedy tokens of `multi` with adapters all 0,
-    all 1 and all -1, bit-equal to the single-adapter models' and the base
-    model's at the same batch shapes (the 2-frame request, the ragged
-    batch of 4), graphed; and the graph's tokens the eager loop's."""
-    g32 = GenerationConfig(max_new_tokens=32, temperature=0.0, do_sample=False, stop_strings=())
+    """(b): prefill logits of `multi` on the 2-frame request and greedy
+    tokens on the ragged batch of 4 with adapters all 0, all 1 and all -1,
+    bit-equal to the single-adapter models' and the base model's at the
+    same batch shapes, graphed; and the graph's tokens the eager loop's."""
     refs = {0: singles[0], 1: singles[1], -1: model}
     firsts, answers = {}, {}
     for a, ref in refs.items():
@@ -3541,20 +3770,17 @@ def _check_adapter_rows(multi, singles, model, ids, frames, batch_ids, batch_fra
         want = _last_prefill_logits(ref, ids, frames)
         check(torch.equal(got, want), f"{tag}: adapter {a}'s prefill logits are not its model's")
         firsts[a] = int(got.argmax())
-        for name, (rows, fr, gen) in {"2-frame": ([ids], frames, g32),
-                                      "batch of 4": (batch_ids, batch_frames, G16)}.items():
-            graphed = multi.generate(rows, fr, gen, adapters=[a] * len(rows))
-            check(graphed == ref.generate(rows, fr, gen),
-                  f"{tag}: adapter {a}, {name}: graphed tokens are not its model's")
-            with decode_loop(False):
-                eager = multi.generate(rows, fr, gen, adapters=[a] * len(rows))
-            check(eager == graphed, f"{tag}: adapter {a}, {name}: graph against eager")
-            answers[a, name] = graphed
-        log(f"[{tag}] adapter {a}: the 2-frame request's prefill logits and greedy tokens "
-            f"(and the batch of 4's) bit-equal to its own model's, graphed and eager; "
-            f"first token {firsts[a]}")
-    check(answers[0, "2-frame"] != answers[-1, "2-frame"] != answers[1, "2-frame"],
-          f"{tag}: the adapters do not move the tokens")
+        graphed = multi.generate(batch_ids, batch_frames, G16, adapters=[a] * len(batch_ids))
+        check(graphed == ref.generate(batch_ids, batch_frames, G16),
+              f"{tag}: adapter {a}, batch of 4: graphed tokens are not its model's")
+        with decode_loop(False):
+            eager = multi.generate(batch_ids, batch_frames, G16, adapters=[a] * len(batch_ids))
+        check(eager == graphed, f"{tag}: adapter {a}, batch of 4: graph against eager")
+        answers[a] = graphed
+        log(f"[{tag}] adapter {a}: the 2-frame request's prefill logits and the batch of 4's "
+            f"greedy tokens bit-equal to its own model's, graphed and eager; first token "
+            f"{firsts[a]}")
+    check(answers[0] != answers[-1] != answers[1], f"{tag}: the adapters do not move the tokens")
 
 
 def _one_entry_two_lists(multi, batch_ids, batch_frames, tag):
@@ -3564,12 +3790,12 @@ def _one_entry_two_lists(multi, batch_ids, batch_frames, tag):
     with decode_loop(False):
         eager = [multi.generate(batch_ids, batch_frames, G16, adapters=ids) for ids in lists]
     gen_mod.clear_decode_graphs()
-    for ids, want in zip(lists * 2, eager * 2):
+    for ids, want in zip(lists, eager):
         got = multi.generate(batch_ids, batch_frames, G16, adapters=ids)
         check(got == want, f"{tag}: adapters {ids}: graph tokens are not the eager run's")
     entries = gen_mod.decode_graphs()
     check(len(entries) == 1, f"{tag}: {len(entries)} graph entries for one key")
-    log(f"[{tag}] one graph entry, adapter lists {lists[0]} and {lists[1]} in turn twice: "
+    log(f"[{tag}] one graph entry, adapter lists {lists[0]} and {lists[1]} in turn: "
         f"each run's tokens its eager run's; replays {entries[0].replays}, capture "
         f"{entries[0].capture_seconds:.3f} s; eager runs differ: {eager[0] != eager[1]}")
 
@@ -3718,8 +3944,8 @@ def phase_multi_lora(model, tokenizer, image_processor, root, ids, frames, gen):
     adapter lists; (d) the engine, plain and speculative (k 4), with 8
     requests over adapters {-1, 0, 1} held to their adapters' teacher-forced
     maxima, and a prefix hit refused across adapters; (e) ms a graphed
-    decode step with the base, one adapter and two stacked (bs 1 and 8),
-    the engine's tok/s mixed against base; (f) branch A. Returns its
+    decode step with the base, one adapter and two stacked (bs 8), the
+    engine's tok/s mixed against base; (f) branch A. Returns its
     numbers and the dirs (phase 14 times int4 with them)."""
     from teochat_torch.builder import load_multi_lora
 
@@ -3783,10 +4009,10 @@ def phase_multi_lora(model, tokenizer, image_processor, root, ids, frames, gen):
     _drop_graphs()
 
     marks["(d)"] = time.perf_counter()
-    costs = lora_step_costs(model, multi, singles, "int8", batches=(1, 8))
+    costs = lora_step_costs(model, multi, singles, "int8", batches=(8,))
     mixed = [(-1, 0, 1)[i % 3] for i in range(8)]
-    tok_s = {"base": _engine_tok_s(model, None, "multi-lora engine base"),
-             "mixed": _engine_tok_s(multi, mixed, f"multi-lora engine mixed {mixed}")}
+    tok_s = {"base": _engine_tok_s(model, None, "multi-lora engine base", runs=1),
+             "mixed": _engine_tok_s(multi, mixed, f"multi-lora engine mixed {mixed}", runs=1)}
     _drop_graphs()
     marks["(e)"] = time.perf_counter()
     branch_a = _branch_a(root, os.path.join(root, "TEOChat-7B"), dirs[0], tokenizer,
@@ -3993,15 +4219,30 @@ def phase_bench_run():
         + ", ".join(f"{name} {n}" for name, n in counts.items()))
     check(all(n > 0 for n in counts.values()), f"kernel bench launches {counts}")
 
-    results, main_counts = counted(
-        "bench main", lambda: bench_main.main(["--phases", "encode", "e2e"]))
-    check(all(main_counts[k] > 0 for k in ("K1", "K2", "K5")), f"bench main launches {main_counts}")
-    for key in ("encode_frames_per_sec", "xbd_2frame_e2e_latency_s_32newtok"):
+    for counter in (flash_mod.FWD_RES_LAUNCHES, flash_mod.BWD_DKV_LAUNCHES,
+                    flash_mod.BWD_DQ_LAUNCHES):
+        counter.reset()
+    results, main_counts = counted("bench main", lambda: bench_main.main(
+        ["--phases", "encode", "e2e", "train", "train_bf16"]))
+    k4 = _k4_counts()
+    check(all(main_counts[k] > 0 for k in ("K1", "K2", "K5")) and min(k4.values()) > 0,
+          f"bench main launches {main_counts}, K4 {k4}")
+    keys = ("encode_frames_per_sec", "xbd_2frame_e2e_latency_s_32newtok", "train_tokens_per_sec",
+            "train_mfu", "train_tokens_per_sec_accum8", "train_mfu_accum8",
+            "train_tokens_per_sec_bf16full_1b", "train_mfu_bf16full_1b")
+    for key in keys:
         check(np.isfinite(results[key]) and results[key] > 0, f"bench main: {key}")
-    return counts
+    train_keys = {k: results[k] for k in keys[2:]}
+    log(f"[bench] train keys: {json.dumps(train_keys)}; {results['smi']}")
+    return counts, train_keys
+
+
+def stamp(t0, what):
+    log(f"[time] {time.perf_counter() - t0:.1f} s: {what} done")
 
 
 def main():
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4011,6 +4252,7 @@ def main():
     rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"],
                  "K3c M<=8": k3["k3c_decode"]})
     rows["K5"] = phase_vit_attention(gen)
+    stamp(t0, "phases 1-6")
     tokenizer = WordTokenizer()
 
     int4_counts, k3a_counts, (fp8_int4, fp8_launches) = phase_int4_path(gen, tokenizer)
@@ -4019,6 +4261,7 @@ def main():
     log(f"[int4] after the model is deleted: {len(gen_mod.decode_graphs())} decode graphs "
         f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     check(not gen_mod.decode_graphs(), "decode graphs outlived their params")
+    stamp(t0, "phases 7-9")
 
     # the int8 model of the phases below is a checkpoint written here and
     # loaded through the eval driver; the directory is removed at the end
@@ -4026,23 +4269,36 @@ def main():
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="results")
     try:
         model, hf_tokenizer, image_processor, _, eval_entry = phase_checkpoint_eval(gen, ckpt_root)
+        stamp(t0, "phase 10")
         cfg, params = model.cfg, model.params
         processor = FrameProcessor(cfg.vision.image_size, SEED)
         (ids, frames), int8_counts = counted(
             "main", lambda: phase_main_path(model, hf_tokenizer, processor))
         check(all(int8_counts[k] > 0 for k in ("K1", "K2", "K5")),
               f"int8 path launches {int8_counts}")
-        phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main")
-        phase_spec(model, hf_tokenizer, processor, ids, frames, "main")
-        fp8_int8, _ = phase_fp8_generate(model, hf_tokenizer, processor, "main")
+        phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main", batch16=False)
+        # phase 7 ran the same checks at every k on int4; here k 4 alone
+        phase_spec(model, hf_tokenizer, processor, ids, frames, "main", ks=(4,), sweep=(0, 4, 8))
+        fp8_int8, _ = phase_fp8_generate(model, hf_tokenizer, processor, "main", batches=(32,))
         phase_logits(model, ids, frames)
+        stamp(t0, "phase 11")
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
+        stamp(t0, "phase 12")
         engine_entry = phase_engine(model, hf_tokenizer, image_processor)
+        stamp(t0, "phase 13")
         gen_mod.clear_decode_graphs()
         lora_entry, lora_dirs = phase_multi_lora(model, hf_tokenizer, image_processor, ckpt_root,
                                                  ids, frames, gen)
+        stamp(t0, "multi-LoRA")
         engine_entry["int4"] = phase_checkpoint_int4(ckpt_root, lora_dirs)
         lora_entry["int4_step_ms"] = engine_entry["int4"].pop("multi_lora_step_ms")
+        gen_mod.clear_decode_graphs()  # training starts from the model's own memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamp(t0, "phase 14")
+        train_launches, train_entry = phase_train_cli(
+            ckpt_root, os.path.join(ckpt_root, "TEOChat-7B"), model)
+        stamp(t0, "phase 16")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     gen_mod.clear_decode_graphs()  # training starts from the model's own memory
@@ -4050,7 +4306,6 @@ def main():
     torch.cuda.empty_cache()
 
     k4_rows = phase_flash_backward(gen)
-    train_launches = phase_train(cfg, params, tokenizer, processor)
     phase_train_parity(cfg, params, tokenizer, processor, gen)
     engine_entry["e"] = phase_engine_echo(model)  # the last use: it changes the weights
     del model, params
@@ -4059,8 +4314,10 @@ def main():
     log(f"[main] after the model is deleted: {len(gen_mod.decode_graphs())} decode graphs "
         f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
+    stamp(t0, "phases 15-17")
     s_rows = {**phase_bench_int4(gen), **phase_bench_vit(gen)}
-    bench_counts = phase_bench_run()
+    bench_counts, bench_train = phase_bench_run()
+    stamp(t0, "phases 18-20")
 
     def row(name, source, replaces, launches, measured, where="teochat_tpu/ops/"):
         return {"name": name, "route": "cuda", "source": f"teochat_torch/csrc/{source}",
@@ -4115,7 +4372,8 @@ def main():
     ]
     print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
                       "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8},
-                      "multi_lora": lora_entry}))
+                      "multi_lora": lora_entry,
+                      "train": {**train_entry, "bench": bench_train}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,7 +39,14 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
 - ttft_prefix_curve: the same at prefixes of 128, 1024 and 2048 tokens:
   `ttft_s_prefix_{miss,hit}_{plen}tok`, `prefix_hit_ttft_speedup_{plen}`;
 - train: `train_tokens_per_sec`, `train_mfu` (LoRA r128 over the int8
-  backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`;
+  backbone, batch 2 x 640 tokens, remat) against `tensor_core_peak_tflops`,
+  then at the recipe's accumulation of 8 micro-batches an optimizer step
+  `train_tokens_per_sec_accum8`, `train_mfu_accum8`;
+- train_bf16: full fine-tuning (every leaf but the tower's, fp32 masters)
+  of a bf16 TinyLlama-1.1B-geometry decoder (h 2048, i 5632, 22 layers, 32
+  heads, 4 kv heads) under the ViT-L/14 tower, batch 2 x 640, remat:
+  `train_tokens_per_sec_bf16full_1b`, `train_mfu_bf16full_1b` (7B full
+  fine-tuning needs ~112 GB of fp32 masters and moments);
 - eval: 16 synthetic 2-frame xBD-style examples (512 x 640 uint8 frames, 16
   new tokens) through `run_inference_batched` at batch 8 and at batch 1:
   `eval_examples_per_sec_bs8`, `_bs1`, `eval_bs8_vs_bs1`;
@@ -130,6 +137,9 @@ class Settings:
     preprocess_n: int = 64  # preprocess: frames a timed call
     pipeline_batches: int = 8  # encode_pipeline: batches of enc_batch frames
     train_batch: int = 2
+    # train_bf16's decoder geometry (TinyLlama-1.1B), over cfg.llm
+    train_bf16_llm: dict = dataclasses.field(default_factory=lambda: dict(
+        hidden_size=2048, intermediate_size=5632, num_layers=22, num_heads=32, num_kv_heads=4))
     iters: int = 3
     stream_side: int = 16384  # the stream probe's panels are [side, side] bf16
     stream_panels: int = 8
@@ -544,40 +554,93 @@ def phase_e2e(st: Settings) -> dict:
         return {"xbd_2frame_e2e_latency_s_32newtok": _timing.timeit(fn, st.iters, dev)}
 
 
+def _train_batch(st: Settings):
+    """bench.py's training batch: `train_batch` rows of the 2-frame prompt
+    padded to `prompt_len`, loss on all but the first 5 tokens, its frames."""
+    ids = st.prompt_ids(st.train_batch)
+    plan = fusion_mod.build_fusion_plan(
+        ids, tokens_per_frame=st.tokens_per_frame, pad_to=st.prompt_len,
+        labels=[[-100] * 5 + r[5:] for r in ids])
+    return plan, st.frames(2 * st.train_batch)
+
+
+def _stepper(cfg, params, optimizer, trainable_filter, micro: int = 1):
+    """A call that runs `micro` train steps on one state, and drops it."""
+    state = [trainer_mod.init_train_state(params, optimizer, trainable_filter)]
+    step = trainer_mod.make_train_step(cfg, optimizer, trainable_filter=trainable_filter,
+                                       remat=True)
+
+    def fn(plan, frames):
+        for _ in range(micro):
+            state[0], loss = step(state[0], plan, frames)
+        return loss
+
+    fn.state = state
+    return fn
+
+
 def phase_train(st: Settings) -> dict:
     """LoRA train steps at the recipe's shapes (8-bit backbone + LoRA r128 /
     alpha 256 + trainable fp32 projector, bf16 tower, remat): tokens/s and MFU
-    of a single optimizer step a call."""
+    of a single optimizer step a call, then of the recipe's accumulation of
+    8 (train_teochat.sh:26; one timed call of 8 micro-steps after a warm-up,
+    as bench.py's one)."""
     cfg, dev = st.cfg, st.dev
     params = bridge.init_teochat(cfg, st.generator(), dev, st.dtype, quant="int8")
     params["llm"] = lora_mod.add_lora_params(st.generator(1), params["llm"], rank=128,
                                              alpha=256.0)
     params = trainer_mod.fp32_masters(params, lora_mod.lora_trainable_filter)
     batch, seq = st.train_batch, st.prompt_len
-    ids = st.prompt_ids(batch)
-    plan = fusion_mod.build_fusion_plan(
-        ids, tokens_per_frame=st.tokens_per_frame, pad_to=seq,
-        labels=[[-100] * 5 + r[5:] for r in ids])
-    frames = st.frames(2 * batch)
+    plan, frames = _train_batch(st)
     optimizer = trainer_mod.make_optimizer(2e-4, projector_lr=2e-5, total_steps=100)
-    state = [trainer_mod.init_train_state(params, optimizer, lora_mod.lora_trainable_filter)]
-    step = trainer_mod.make_train_step(cfg, optimizer,
-                                       trainable_filter=lora_mod.lora_trainable_filter,
-                                       remat=True)
-
-    def fn():
-        state[0], loss = step(state[0], plan, frames)
-        return loss
-
-    dt = _timing.timeit(fn, st.iters, dev)
-    state.clear()
+    one = _stepper(cfg, params, optimizer, lora_mod.lora_trainable_filter)
+    dt = _timing.timeit(lambda: one(plan, frames), st.iters, dev)
+    params = one.state.pop().params
+    eight = _stepper(cfg, params, trainer_mod.MultiSteps(optimizer, 8),
+                     lora_mod.lora_trainable_filter, micro=8)
+    del params
+    dt8 = _timing.timeit_all(lambda: eight(plan, frames), 1, dev, batches=1)[0]
+    eight.state.clear()
     peak = measure_tensor_core_peak_tflops(st)
-    tok_s = batch * seq / dt
+    tok_s, tok_s8 = batch * seq / dt, 8 * batch * seq / dt8
     return {
         f"train_step_s_bs{batch}_seq{seq}": dt,
         "train_tokens_per_sec": tok_s,
         "tensor_core_peak_tflops": peak,
         "train_mfu": _train_mfu(cfg.llm, tok_s, seq, peak, full_finetune=False),
+        "train_tokens_per_sec_accum8": tok_s8,
+        "train_mfu_accum8": _train_mfu(cfg.llm, tok_s8, seq, peak, full_finetune=False),
+    }
+
+
+def phase_train_bf16(st: Settings) -> dict:
+    """bf16 full fine-tuning (bench.py's phase_train_bf16: every decoder and
+    projector leaf trains, the tower frozen) of the TinyLlama-1.1B geometry:
+    tokens/s and MFU of one optimizer step a call. The port trains fp32
+    masters of the bf16 leaves (a bf16 weight rounds Adam's steps away), so
+    its moments are fp32 too."""
+    cfg, dev = st.cfg, st.dev
+    llm = dataclasses.replace(cfg.llm, **st.train_bf16_llm)
+    cfg = dataclasses.replace(cfg, llm=llm,
+                              projector=dataclasses.replace(cfg.projector,
+                                                            hidden_size=llm.hidden_size))
+    params = bridge.init_teochat(cfg, st.generator(), dev, torch.bfloat16, quant=None)
+
+    def trainable(path):
+        return not path.startswith("vision")
+
+    params = trainer_mod.fp32_masters(params, trainable)
+    plan, frames = _train_batch(st)
+    frames = frames.to(torch.bfloat16)
+    step = _stepper(cfg, params, trainer_mod.make_optimizer(2e-5, total_steps=100), trainable)
+    del params
+    dt = _timing.timeit(lambda: step(plan, frames), st.iters, dev)
+    step.state.clear()
+    peak = measure_tensor_core_peak_tflops(st)
+    tok_s = st.train_batch * st.prompt_len / dt
+    return {
+        "train_tokens_per_sec_bf16full_1b": tok_s,
+        "train_mfu_bf16full_1b": _train_mfu(llm, tok_s, st.prompt_len, peak, full_finetune=True),
     }
 
 
@@ -829,6 +892,7 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "ttft_prefix": phase_ttft_prefix,
     "ttft_prefix_curve": phase_ttft_prefix_curve,
     "train": phase_train,
+    "train_bf16": phase_train_bf16,
     "eval": phase_eval,
     "preprocess": phase_preprocess,
     "encode_pipeline": phase_encode_pipeline,
@@ -838,8 +902,6 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
 UNPORTED = {
     "ttft_int8act": "w8a8 prefill, item 15",
     "encode_w8a8": "the w8a8 tower, item 15",
-    "train_bf16": "full fine-tuning, item 13 (deferred)",
-    "train_accum8": "the accumulation-8 row of the train phase, item 13 (deferred)",
 }
 
 

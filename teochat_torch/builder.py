@@ -25,12 +25,16 @@ context_len) for API parity.
 `load_multi_lora` attaches N peft adapter dirs UNMERGED over a loaded
 model's backbone (int8 / int4 included), stacked for per-request routing.
 
+The train-time flow (reference train.py:961 + llava_arch.py:51): with
+`allow_partial` a checkpoint without a projector or a tower loads anyway,
+without those subtrees, and `initialize_vision_modules` attaches them from
+`--image_tower` / `--pretrain_mm_mlp_adapter` or a fresh draw.
+
 Not ported yet, and raising where asked for: the MPT backend (ROADMAP item
 14); the vision-token machinery (`mm_use_im_patch_token`,
 `mm_use_im_start_end`, a tokenizer whose length differs from the
 embedding's rows, a LoRA dir whose vocab differs from its base's),
-`quantize_vision` and the video processor (item 15); `allow_partial` with
-`initialize_vision_modules` (item 13).
+`quantize_vision` and the video processor (item 15).
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ from teochat_torch.config import (
     VisionConfig,
     llama_config_from_hf,
     mpt_config_from_hf,
+    vision_config_from_hf,
 )
 from teochat_torch.data.processing import ImageProcessor
 from teochat_torch.models.teochat import TEOChat
-from teochat_torch.utils import resolve_device, tree_map
+from teochat_torch.utils import resolve_device, tree_leaves_with_path, tree_map, unported
 
 
 class _LazyStateDict(Mapping):
@@ -188,14 +193,11 @@ class UnportedVideoProcessor:
     preprocess = __call__ = _raise
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 def _vision_params(sd: Mapping[str, Any], cfg: TEOChatConfig,
-                   vision_path: Optional[str]) -> Dict:
+                   vision_path: Optional[str], allow_partial: bool = False) -> Optional[Dict]:
     """The tower: a separate dir (LanguageBind_Image layout) or the weights
-    embedded in the checkpoint (reference builder.py, JAX builder.py:479-497)."""
+    embedded in the checkpoint (reference builder.py, JAX builder.py:479-497);
+    None where neither has it and `allow_partial` is set."""
     if vision_path is not None:
         return convert_hf.convert_clip_vision(_load_state_dict(vision_path), cfg.vision)
     vt_names = [k for k in sd if "image_tower" in k or "vision_model" in k]
@@ -203,6 +205,8 @@ def _vision_params(sd: Mapping[str, Any], cfg: TEOChatConfig,
         (k.split("vision_model")[0] for k in vt_names if "vision_model.encoder" in k), None
     )
     if prefix is None:
+        if allow_partial:
+            return None
         raise FileNotFoundError(
             "vision tower weights not found; pass vision_path pointing at a "
             "LanguageBind_Image checkpoint dir"
@@ -243,7 +247,7 @@ def _apply_lora_dir(lora_path: str, llm_params: Dict, proj_keys: Dict,
     Returns (decoder, projector keys)."""
     n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
     if cfg.llm.vocab_size != n_rows:
-        raise _unported(f"resizing the base's embeddings to the LoRA config's vocab "
+        raise unported(f"resizing the base's embeddings to the LoRA config's vocab "
                         f"({cfg.llm.vocab_size} against {n_rows} rows; vision_tokenizer)", 15)
     nlt_file = os.path.join(lora_path, "non_lora_trainables.bin")
     if os.path.exists(nlt_file):
@@ -290,18 +294,16 @@ def load_pretrained_model(
             "load_8bit (int8 weight-only)"
         )
     if "mpt" in model_name.lower():
-        raise _unported("the MPT backend", 14)
+        raise unported("the MPT backend", 14)
     if quantize_vision:
-        raise _unported("quantize_vision", 15)
-    if allow_partial:
-        raise _unported("allow_partial (with initialize_vision_modules)", 13)
+        raise unported("quantize_vision", 15)
     device = resolve_device(device)
 
     base_path = model_base if model_base is not None else model_path
     lora_path = model_path if "lora" in model_name.lower() and model_base is not None else None
     cfg = load_config(lora_path or base_path)
     if cfg.mm_use_im_patch_token or cfg.mm_use_im_start_end:
-        raise _unported("the vision-token machinery (mm_use_im_patch_token, "
+        raise unported("the vision-token machinery (mm_use_im_patch_token, "
                         "mm_use_im_start_end)", 15)
     sd = _load_state_dict(base_path)
 
@@ -314,15 +316,15 @@ def load_pretrained_model(
         proj_file = os.path.join(model_path, "mm_projector.bin")
         if os.path.exists(proj_file):
             proj_keys = _load_torch_file(proj_file)
-    if not proj_keys:
+    if not proj_keys and not allow_partial:
         raise ValueError(f"no mm_projector weights found for {model_path}")
-    proj_params = convert_hf.convert_projector(proj_keys, cfg.projector)
-    vision_params = _vision_params(sd, cfg, vision_path)
+    proj_params = convert_hf.convert_projector(proj_keys, cfg.projector) if proj_keys else None
+    vision_params = _vision_params(sd, cfg, vision_path, allow_partial)
 
     tokenizer = _load_tokenizer(lora_path or base_path)
     n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
     if len(tokenizer) != n_rows:
-        raise _unported(f"resizing the embeddings to the tokenizer ({len(tokenizer)} "
+        raise unported(f"resizing the embeddings to the tokenizer ({len(tokenizer)} "
                         f"tokens, {n_rows} rows; vision_tokenizer)", 15)
     if cfg.llm.vocab_size != len(tokenizer):
         import dataclasses
@@ -336,7 +338,8 @@ def load_pretrained_model(
     def upload(tree):
         return tree_map(lambda t: t.to(device, dtype), tree)
 
-    params = {"vision": upload(vision_params), "projector": upload(proj_params)}
+    params = {k: upload(v) for k, v in (("vision", vision_params), ("projector", proj_params))
+              if v is not None}
     del vision_params, proj_params
     if load_8bit or load_int4:
         # projections stream host -> device in layer chunks: uploading the
@@ -357,6 +360,76 @@ def load_pretrained_model(
         "video": UnportedVideoProcessor(),
     }
     return tokenizer, model, processor, cfg.max_sequence_length
+
+
+def initialize_vision_modules(
+    model_args,
+    cfg: TEOChatConfig,
+    params: Dict[str, Any],
+    *,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[TEOChatConfig, Dict[str, Any]]:
+    """Attach the vision tower + projector to a partially-loaded model
+    (reference llava_arch.py:51-140, JAX builder.py:275-364).
+
+    Records the tower and projector choices on the config (mm_projector_type,
+    mm_vision_select_layer / feature, mm_hidden_size), loads the tower from
+    the local dir `model_args.image_tower` (or `video_tower`) with that dir's
+    own config.json, and takes the projector from
+    `model_args.pretrain_mm_mlp_adapter` or draws it from `generator`.
+    Subtrees already present are kept. The new leaves go to `device` (None:
+    the device of the params, else the card) in `dtype`."""
+    import dataclasses
+
+    if device is None:
+        device = next((x.device for _, x in tree_leaves_with_path(params)), None)
+    device = resolve_device(device)
+    tower = getattr(model_args, "image_tower", None) or getattr(model_args, "video_tower", None)
+    params = dict(params)
+    if "vision" not in params:
+        if tower is None or not os.path.isdir(tower):
+            raise FileNotFoundError(
+                f"vision tower weights not in the checkpoint and --image_tower "
+                f"({tower!r}) is not a local directory; nothing is downloaded"
+            )
+        tower_cfg_file = os.path.join(tower, "config.json")
+        if os.path.exists(tower_cfg_file):
+            with open(tower_cfg_file) as f:
+                tower_hf = json.load(f)
+            cfg = dataclasses.replace(
+                cfg, vision=vision_config_from_hf(tower_hf.get("vision_config", tower_hf)))
+        vision = convert_hf.convert_clip_vision(_load_state_dict(tower), cfg.vision)
+        params["vision"] = tree_map(lambda t: t.to(device, dtype), vision)
+
+    proj_cfg = dataclasses.replace(
+        cfg.projector,
+        projector_type=getattr(model_args, "mm_projector_type", cfg.projector.projector_type),
+        mm_hidden_size=cfg.vision.hidden_size,  # llava_arch.py:102-110
+        hidden_size=cfg.llm.hidden_size,
+    )
+    cfg = dataclasses.replace(
+        cfg,
+        projector=proj_cfg,
+        mm_vision_select_layer=model_args.mm_vision_select_layer,
+        mm_vision_select_feature=getattr(model_args, "mm_vision_select_feature", "patch"),
+    )
+    if "projector" not in params:
+        if getattr(model_args, "pretrain_mm_mlp_adapter", None):
+            pw = _load_torch_file(model_args.pretrain_mm_mlp_adapter)
+            proj = convert_hf.convert_projector(
+                {k: v for k, v in pw.items() if "mm_projector" in k}, proj_cfg)
+            params["projector"] = tree_map(lambda t: t.to(device, dtype), proj)
+        else:
+            from teochat_torch.checkpoint.bridge import init_projector
+
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params["projector"] = init_projector(proj_cfg, generator, device, dtype)
+    # the reference re-enables the projector's gradients here (llava_arch.py:
+    # 115-118); in the port that is the train driver's trainable_filter
+    return cfg, params
 
 
 def load_multi_lora(model: TEOChat, adapter_dirs) -> TEOChat:

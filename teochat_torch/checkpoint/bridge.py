@@ -209,6 +209,13 @@ def init_encoder(cfg: TEOChatConfig, generator: torch.Generator, device=None,
             "projector": _init_projector(ini, cfg.projector)}
 
 
+def init_projector(cfg, generator: torch.Generator, device=None,
+                   dtype: torch.dtype = torch.bfloat16) -> Params:
+    """A random projector alone (`cfg` is the ProjectorConfig): each kernel
+    drawn N(0, 1 / fan_in), biases zero, as JAX's `init_projector`."""
+    return _init_projector(_Init(generator, resolve_device(device), dtype), cfg)
+
+
 def init_llama(cfg, generator: torch.Generator, device=None,
                dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = "int8",
                fuse_projections: bool = True) -> Params:

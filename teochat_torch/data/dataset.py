@@ -7,8 +7,9 @@ with its v1 branch (the LLaMA recipe's template), `LazySupervisedDataset`,
 `TEOChatCollator` (which builds the port's FusionPlan) and
 `make_supervised_data_module`. The conversation templates, constants,
 `tokenizer_image_token`, `order_pick_k` and the sampler are this package's
-own copies of the JAX package's host modules. Not ported yet: the llama_2, mpt and plain
-templates and `mm_use_im_start_end` (the vision tokenizer imports jax).
+own copies of the JAX package's host modules. Every template's preprocessor
+is ported (v1, llama_2, mpt, plain); not ported yet: `mm_use_im_start_end`
+(the vision tokenizer, ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -44,12 +45,17 @@ class DataArguments:
     data_name: str = "jirvin16/TEOChatlas"
     data_split: str = "train"
     data_cache_dir: Optional[str] = None
+    # accepted for flag parity: this dataset is always lazy
+    lazy_preprocess: bool = True
     is_multimodal: bool = True
     image_aspect_ratio: Optional[str] = None
     prompt_strategy: Optional[str] = "interleave"
     chronological_prefix: bool = True
     mm_use_im_start_end: bool = False
+    video_as_image_list: bool = True
+    num_frames: int = 8
     image_processor: Any = None
+    video_processor: Any = None
 
 
 def set_default_conversation(version: str) -> None:
@@ -177,15 +183,86 @@ def preprocess_v1(sources, tokenizer, has_image: bool = False) -> Dict[str, List
     return dict(input_ids=input_ids, labels=labels)
 
 
+def preprocess_llama_2(sources, tokenizer, has_image: bool = False) -> Dict:
+    conv = default_conversation.copy()
+    conversations = _render_conversations(sources, conv)
+    assert conv.sep_style == conversation_lib.SeparatorStyle.LLAMA_2
+    input_ids = [_tokenize(c, tokenizer, has_image) for c in conversations]
+    labels = _mask_rounds_two_style(
+        conversations, input_ids, tokenizer, conv, "[/INST] ", has_image
+    )
+    return dict(input_ids=input_ids, labels=labels)
+
+
+def preprocess_mpt(sources, tokenizer) -> Dict:
+    conv = default_conversation.copy()
+    conversations = _render_conversations(sources, conv)
+    assert conv.sep_style == conversation_lib.SeparatorStyle.MPT
+    input_ids = [_tokenize(c, tokenizer, True) for c in conversations]
+    sep = conv.sep + conv.roles[1]
+    model_max = getattr(tokenizer, "model_max_length", 10 ** 9)
+    pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
+    targets = []
+    for conversation, ids in zip(conversations, input_ids):
+        target = list(ids)
+        total_len = sum(1 for t in ids if t != pad_id)
+        rounds = conversation.split(conv.sep)
+        re_rounds = [conv.sep.join(rounds[:3])]
+        for idx in range(3, len(rounds), 2):
+            re_rounds.append(conv.sep.join(rounds[idx : idx + 2]))
+        cur_len = 0
+        for rou in re_rounds:
+            if rou == "":
+                break
+            parts = rou.split(sep)
+            if len(parts) != 2:
+                break
+            parts[0] += sep
+            round_len = len(_tokenize(rou, tokenizer, True)) + len(
+                _tokenize(conv.sep, tokenizer, True)
+            )
+            instruction_len = len(_tokenize(parts[0], tokenizer, True))
+            target[cur_len : cur_len + instruction_len] = [IGNORE_INDEX] * min(
+                instruction_len, max(len(target) - cur_len, 0)
+            )
+            cur_len += round_len
+        target[cur_len:] = [IGNORE_INDEX] * max(len(target) - cur_len, 0)
+        if cur_len < model_max and cur_len != total_len:
+            target = [IGNORE_INDEX] * len(target)
+            print(f"WARNING: tokenization mismatch: {cur_len} vs. {total_len}. (ignored)")
+        targets.append(target)
+    return dict(input_ids=input_ids, labels=targets)
+
+
+def preprocess_plain(sources, tokenizer) -> Dict:
+    conversations = []
+    for source in sources:
+        assert len(source) == 2
+        assert DEFAULT_IMAGE_TOKEN in source[0]["value"]
+        source[0]["value"] = DEFAULT_IMAGE_TOKEN
+        conversations.append(
+            source[0]["value"] + source[1]["value"] + default_conversation.sep
+        )
+    input_ids = [_tokenize(c, tokenizer, True) for c in conversations]
+    targets = [list(ids) for ids in input_ids]
+    for target, source in zip(targets, sources):
+        tokenized_len = len(_tokenize(source[0]["value"], tokenizer, True))
+        target[:tokenized_len] = [IGNORE_INDEX] * tokenized_len
+    return dict(input_ids=input_ids, labels=targets)
+
+
 def preprocess(sources, tokenizer, has_image: bool = False) -> Dict:
-    """Template dispatcher; the v1 templates are ported."""
+    """Template dispatcher (reference train.py:619-664)."""
     style = default_conversation.sep_style
-    if (style not in (conversation_lib.SeparatorStyle.PLAIN,
-                      conversation_lib.SeparatorStyle.LLAMA_2)
-            and default_conversation.version.startswith("v1")):
+    if style == conversation_lib.SeparatorStyle.PLAIN:
+        return preprocess_plain(sources, tokenizer)
+    if style == conversation_lib.SeparatorStyle.LLAMA_2:
+        return preprocess_llama_2(sources, tokenizer, has_image=has_image)
+    if default_conversation.version.startswith("v1"):
         return preprocess_v1(sources, tokenizer, has_image=has_image)
-    raise NotImplementedError(
-        f"the {default_conversation.version!r} template's preprocessor is not ported yet")
+    if default_conversation.version == "mpt":
+        return preprocess_mpt(sources, tokenizer)
+    raise ValueError(f"no preprocessor for template {default_conversation.version}")
 
 
 class LazySupervisedDataset:

@@ -22,6 +22,7 @@ from teochat_torch.models import llama as llama_mod
 from teochat_torch.models.projector import projector_forward
 from teochat_torch.models.vit import select_features, vit_forward
 from teochat_torch.train import lora as lora_mod
+from teochat_torch.utils import tree_leaves_with_path
 
 Params = dict
 
@@ -77,15 +78,18 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
                   attn_impl: str = "auto") -> torch.Tensor:
     """Mean next-token cross-entropy over the valid labels of a fused batch.
 
-    The tower is frozen, so it runs without a graph; the projector, the
-    fusion and the decoder carry gradients. The decoder runs cache-free on
-    the right-padded plan (`right_padded=True`: the flash kernels on CUDA).
+    The tower runs without a graph unless one of its leaves requires a
+    gradient (full fine-tuning, the CPU only: K5 has no backward); the
+    projector, the fusion and the decoder carry gradients. The decoder runs
+    cache-free on the right-padded plan (`right_padded=True`: the flash
+    kernels on CUDA).
     `remat` recomputes decoder layers in the backward (HF gradient
     checkpointing); `attn_impl='plain'` runs the plain attention instead.
     """
     _require_llama(cfg)
     dev = pixel_values.device
-    with torch.no_grad():
+    tower_trains = any(x.requires_grad for _, x in tree_leaves_with_path(params["vision"]))
+    with torch.set_grad_enabled(torch.is_grad_enabled() and tower_trains):
         hidden = vit_forward(params["vision"], cfg.vision, pixel_values,
                              select_layer=cfg.mm_vision_select_layer)
         feats = select_features(hidden, cfg.mm_vision_select_feature)

@@ -92,6 +92,12 @@ def vit_attention_schedule(q, k, v, *, scale: Optional[float] = None,
 
 
 def _vit_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # as JAX's Pallas kernel, which has no VJP: the tower trains only
+        # where it takes the plain attention (the CPU)
+        raise NotImplementedError(
+            "vit_attention: the kernel has no backward; training the tower on the card "
+            "is not ported (freeze it: --freeze_backbone True or LoRA)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_bf16_operand(name, t, 4)
     b, s, h, d = q.shape

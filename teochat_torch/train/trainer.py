@@ -225,14 +225,19 @@ def _trainable_leaves(params: Dict, trainable_filter) -> Dict[str, torch.Tensor]
 
 
 def fp32_masters(params: Dict, trainable_filter) -> Dict:
-    """The params tree with each trainable leaf replaced by an fp32 copy (the
-    master weights the optimizer updates in place; the forward casts them to
-    the activation dtype). A bf16 master would round Adam's small steps away.
-    The frozen leaves are shared, and the caller's trainable leaves are
-    never written."""
-    return _tree_map_with_path(
-        lambda p, x: x.detach().to(torch.float32, copy=True) if trainable_filter(p) else x,
-        params)
+    """The params tree with each trainable floating leaf (every one without a
+    filter) replaced by an fp32 copy (the master weights the optimizer
+    updates in place; the forward casts them to the activation dtype). A
+    bf16 master would round Adam's small steps away. The frozen leaves are
+    shared, and the caller's trainable leaves are never written. An integer
+    leaf the filter selects is left as it is: the train step refuses it."""
+
+    def master(p, x):
+        if (trainable_filter is None or trainable_filter(p)) and x.is_floating_point():
+            return x.detach().to(torch.float32, copy=True)
+        return x
+
+    return _tree_map_with_path(master, params)
 
 
 def init_train_state(params: Dict, optimizer, trainable_filter=None) -> TrainState:

@@ -1,8 +1,10 @@
 """Misc host utilities (reference videollava/utils.py).
 
 The port's own copy of what it needs of teochat_tpu/utils.py: `order_pick_k`
-(random order-preserving subsample, reference utils.py:18-29).
-`resolve_device` (the default device of its entry points),
+(random order-preserving subsample, reference utils.py:18-29), `rank0_print`
+and `profile_trace` (a `torch.profiler` trace in place of JAX's).
+`resolve_device` (the default device of its entry points), `unported`
+(the error of what is not ported yet),
 `tree_leaves_with_path` (a params tree's leaves by path) and `tree_map`
 are the port's own.
 """
@@ -43,6 +45,12 @@ def resolve_device(device=None):
     return torch.device(device)
 
 
+def unported(what: str, item: int) -> NotImplementedError:
+    """The error raised for what the port does not have yet, naming its
+    ROADMAP.md item."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
+
+
 def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in the tree's order; None leaves are skipped."""
     if isinstance(tree, dict):
@@ -64,3 +72,45 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def rank0_print(*args, **kwargs) -> None:
+    """Print only on rank 0 (reference train.py:43-45): the rank of an
+    initialized torch.distributed group, else this one process."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+        print(*args, **kwargs)
+
+
+class profile_trace:
+    """A `torch.profiler` trace of the block, CPU and CUDA activity, written
+    into `profile_dir` as a Chrome / Perfetto trace (`trace.json`) when the
+    block ends (the JAX driver's --profile_dir). No-op when `profile_dir` is
+    None."""
+
+    def __init__(self, profile_dir):
+        self.profile_dir = profile_dir
+        self._prof = None
+
+    def __enter__(self):
+        if self.profile_dir:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            import os
+
+            self._prof.__exit__(*exc)
+            os.makedirs(self.profile_dir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+            self._prof = None
+        return False

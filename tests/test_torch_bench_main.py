@@ -49,7 +49,7 @@ def tiny():
     return bench_main.Settings(
         cfg=cfg, device="cpu", prompt_len=32, text_tokens=20, decode_new=4, e2e_new=3,
         enc_batch=2, enc_iters=1, train_batch=2, iters=1, stream_side=64, stream_panels=2,
-        stream_reps=2, matmul_side=32)
+        stream_reps=2, matmul_side=32, train_bf16_llm={})
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,9 @@ PHASE_KEYS = {
         ("ttft_s_prefix_miss", "tok"), ("ttft_s_prefix_hit", "tok"),
         ("prefix_hit_ttft_speedup", ""))},
     "train": {"train_step_s_bs2_seq32", "train_tokens_per_sec", "tensor_core_peak_tflops",
-              "train_mfu"},
+              "train_mfu", "train_tokens_per_sec_accum8", "train_mfu_accum8"},
+    # bench.py's names: its 1.1B geometry, here the tiny decoder's
+    "train_bf16": {"train_tokens_per_sec_bf16full_1b", "train_mfu_bf16full_1b"},
     # bench.py's eval keys carry its batch of 8; these tiny_eval's batch of 2
     "eval": {"eval_examples_per_sec_bs2", "eval_examples_per_sec_bs1", "eval_bs2_vs_bs1"},
     "preprocess": {"preprocess_pil_frames_per_sec", "preprocess_native_frames_per_sec"},
@@ -213,6 +215,8 @@ def test_default_settings_give_bench_pys_keys():
     assert st.prefix_curve == ((128, 512), (1024, 2048), (2048, 2560))
     assert (st.frame_hw, st.eval_examples, st.eval_batch, st.eval_new) == ((512, 640), 16, 8, 16)
     assert (st.preprocess_n, st.pipeline_batches, st.enc_batch) == (64, 8, 32)
+    assert st.train_bf16_llm == dict(hidden_size=2048, intermediate_size=5632, num_layers=22,
+                                     num_heads=32, num_kv_heads=4)  # bench.py's phase_train_bf16
 
 
 def test_every_ported_phase_is_listed():

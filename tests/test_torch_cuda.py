@@ -756,6 +756,12 @@ def test_vit_attention_reads_strided_inputs_and_refuses_the_rest(gen, b, s, h):
     with pytest.raises(ValueError):  # fp32
         x = torch.randn(1, 64, 2, 64, device="cuda")
         vit_mod.vit_attention(x, x, x)
+    # no backward: a tower that trains raises instead of cutting the gradient
+    x = _randn((1, 64, 2, 64), gen).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        vit_mod.vit_attention(x, x, x)
+    with torch.no_grad():
+        assert vit_mod.vit_attention(x, x, x).shape == x.shape
 
 
 # ------------------------------------------------ gradients with an fp32 operand (F2b, F3)

@@ -344,7 +344,9 @@ def test_tiny_train_end_to_end_matches_jax(tmp_path, capsys, monkeypatch):
     tstate = torch_train_mod.train(
         torch_train_mod.ModelArguments(),
         torch_data.DataArguments(image_processor=TinyProcessor()),
-        torch_train_mod.TrainingArguments(**common), cfg=cfg, params=to_torch(_np(params), "cpu"),
+        torch_train_mod.TrainingArguments(output_dir=str(tmp_path / "torch"), report_to="none",
+                                          save_strategy="no", **common),
+        cfg=cfg, params=to_torch(_np(params), "cpu"),
         tokenizer=MockTokenizer(), dataset=data, max_steps_override=steps, history=history)
 
     assert len(jlosses) == len(history) == steps
@@ -357,7 +359,7 @@ def test_tiny_train_end_to_end_matches_jax(tmp_path, capsys, monkeypatch):
     assert np.abs(to_numpy(tstate.params)["llm"]["layers"]["mlp"]["down"]["lora_b"]).max() > 0
 
 
-def test_train_keeps_fp32_masters_of_a_bf16_model(tiny):
+def test_train_keeps_fp32_masters_of_a_bf16_model(tiny, tmp_path):
     """train() on a bf16 tree: the adapters and the projector train as fp32
     copies (a bf16 weight would round the projector's small Adam steps away),
     the frozen leaves are shared and the caller's tree is not written."""
@@ -370,7 +372,8 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny):
     before = {p: x.clone() for p, x in torch_trainer.tree_leaves_with_path(params)}
     args = torch_train_mod.TrainingArguments(
         per_device_train_batch_size=2, learning_rate=1e-3, mm_projector_lr=1e-5,
-        lr_scheduler_type="constant", lora_r=4, lora_alpha=8.0, logging_steps=1, seed=3)
+        lr_scheduler_type="constant", lora_r=4, lora_alpha=8.0, logging_steps=1, seed=3,
+        output_dir=str(tmp_path), report_to="none")
     state = torch_train_mod.train(
         torch_train_mod.ModelArguments(),
         torch_data.DataArguments(image_processor=TinyProcessor()), args, cfg=cfg,
@@ -393,14 +396,38 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny):
         assert (x.to(torch.bfloat16) == old).float().mean() > 0.5, path
 
 
-def test_train_refuses_what_is_not_ported(tiny):
+def test_train_refuses_what_is_not_ported(tiny, tmp_path):
+    """What stays unported raises, naming its ROADMAP item: the device mesh
+    and its sequence and pipeline axes (item 16), the vision tokenizer
+    (item 15: mm_use_im_start_end, or mm_use_im_patch_token with a
+    tokenizer that can grow), the MPT backend (item 14)."""
+    from teochat_torch.config import MeshConfig
     from teochat_torch.train import train as torch_train_mod
 
     cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="save"):
-        torch_train_mod.train(torch_train_mod.ModelArguments(), torch_data.DataArguments(),
-                              torch_train_mod.TrainingArguments(save_strategy="steps"),
-                              cfg=cfg, params=to_torch(_np(params), "cpu"), tokenizer=MockTokenizer())
+
+    class GrowingTokenizer(MockTokenizer):
+        def add_tokens(self, tokens, special_tokens=False):
+            return 0
+
+    def run(model_kw=None, cfg=cfg, tokenizer=MockTokenizer, **train_kw):
+        torch_train_mod.train(
+            torch_train_mod.ModelArguments(**(model_kw or {})), torch_data.DataArguments(),
+            torch_train_mod.TrainingArguments(output_dir=str(tmp_path), **train_kw),
+            cfg=cfg, params=to_torch(_np(params), "cpu"), tokenizer=tokenizer())
+
+    for mesh in (MeshConfig(sequence=2), MeshConfig(pipe=2), MeshConfig(fsdp=2),
+                 MeshConfig(data=2, fsdp=-1)):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            run(mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run(dict(mm_use_im_start_end=True))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run(tokenizer=GrowingTokenizer)
+    mpt = dataclasses.replace(cfg, llm_backend="mpt")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run(cfg=mpt)
+    assert not list(tmp_path.iterdir())  # nothing was saved
 
 
 def test_train_modules_import_without_jax():
