@@ -101,7 +101,7 @@ them. Phases, each printing its lines before the last:
 11. the int8 path on that loaded model: the requests of 7; K1, K2 and K5
     must launch; the graph against the eager loop (the 2-frame request and
     the batch of 4), speculative decoding (k 4; ms a verify iteration at k 4
-    and 8) and the e4m3 cache (batch 32) as in 7; then the last-position
+    beside the plain step) and the e4m3 cache (batch 32) as in 7; then the last-position
     prefill logits of the 2-frame request with the kernels against the
     same forward on the plain attention;
 12. the chat server on that loaded model: the port's `ChatServer` on
@@ -138,8 +138,8 @@ them. Phases, each printing its lines before the last:
     engine's graph against its eager step over one chunk from the same state
     (tokens and launch counts, twice) and a host read planted in the step
     failing the capture; (b) `max_slots` 16, `max_len` 512: aggregate tok/s
-    at 8 and 16 text streams of 121 + 64 tokens beside the same requests one
-    at a time through `TEOChat.generate`, with the card's name and power
+    at 8 and 16 text streams of 121 + 64 tokens beside four of the requests
+    one at a time through `TEOChat.generate`, with the card's name and power
     limit; (c) a 1-token request's time with a 512-token prefix pooled and
     not (bench `ttft_prefix`); then `ChatServer` in engine mode: four
     concurrent HTTP requests, one streamed by SSE whose token_ids equal a
@@ -155,9 +155,9 @@ them. Phases, each printing its lines before the last:
     twice; the cache outside the trash slot) and a host read planted in the
     step failing the capture; ms a plain and a speculative chunk of 8 steps
     over 8 rows, both graphs over one state; (f) 8 text streams of 121 + 64
-    tokens, eight rounds, through the adaptive speculative engine (k 4)
-    beside four through the plain engine: tok/s, its mode switches and
-    probes; (g) the
+    tokens, four rounds, through the adaptive speculative engine (k 4, a
+    re-probe every 4 plain chunks) beside two through the plain engine:
+    tok/s, its mode switches and probes (at least one); (g) the
     eight requests of (a) through `BatchEngine(kv_dtype="float8_e4m3fn")`,
     plain (chunked prefill, a prefix hit) and speculative (k 4): each
     greedy token within SPEC_GAP_TOL of its teacher-forced maximum over an
@@ -234,7 +234,29 @@ them. Phases, each printing its lines before the last:
     K5 (their `v0` and `current` rows), must rise;
 20. the main bench (`teochat_torch.bench.main`) with `--phases encode e2e
     train train_bf16`: the train phase's keys at accumulation 1 and 8, and
-    bf16 full fine-tuning of the TinyLlama-1.1B geometry.
+    bf16 full fine-tuning of the TinyLlama-1.1B geometry;
+21. the vision extras, each part where its inputs are: (a) after phase 6,
+    the w8a8 projection (`quantized_proj_act_i8`: per-token int8 activations,
+    `int8_matmul` on torch._int_mm, the card's int8 tensor cores) at the
+    tower's shapes (M 32 x 257, K 1024 -> N 1024 / 4096, K 4096 -> N 1024),
+    the 7B prefill's (M 640: q, k, v, out; gate, up; down) and a 5-row
+    suffix's (rows padded to 17): the int8 activations equal the CPU's and
+    the int32 sums the exact product, bit for bit; ms beside the w8a16
+    projection, a bf16 `torch.matmul` and the int8 bound; (b) 32 frames
+    through ViT-L/14 and the projector after `quantize_vit_params`: the
+    vision tokens' relative L2 (W8A8_TOWER_REL_L2) and cosine against the
+    bf16 tower's, K5's launches, frames/s both ways; (e) the audio tower
+    (126 x 1036 spectrograms, S 667 through K5) and the video tower (8
+    frames) at full width, K5 at S 667 against its plain version; (c) after
+    phase 11, the loaded 8-bit model with `int8_prefill_activations` (no
+    reload): TTFT beside the w8a16 prefill's in turns, greedy tokens within
+    SPEC_GAP_TOL of a teacher-forced maximum, K1 and the int8 products
+    counted (none in a decode graph), a session's turn 2 and an engine
+    request replaying their graphs; (d) the checkpoint with
+    `mm_use_im_start_end` and `mm_use_im_patch_token` set, loaded with
+    `load_8bit` (five tokens added, the embedding and the int8 lm_head
+    grown; seconds and peak beside phase 10's), one `eval()` example whose
+    prompt wraps each <image>.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -242,7 +264,8 @@ the same function where there is one (`scaled_dot_product_attention`,
 `torch._weight_int4pack_mm`; used nowhere in the port), and works out the
 least time the card could take:
 the larger of the bytes moved over 3.35 TB/s and the operations over
-989 TFLOP/s (bf16), the H100 SXM's published rates.
+989 TFLOP/s (bf16; 1,979 TOP/s for an int8 product), the H100 SXM's
+published rates.
 
 The line before the last is a JSON object with each of the twenty-one
 kernel rows' launches, error, times and bound (K2 and K2m twice: on a bf16
@@ -250,10 +273,10 @@ and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
 "fp8_generate", the engine phase's
 numbers under "engine", the batched eval's and preprocessing's under
-"eval" and multi-LoRA's under "multi_lora" (K3c has two: its wrapper runs
-the M > 8 kernel at prefill and the split-K one at decode; K2m's launches
-are the chat server's five turns, the spec turn's verify blocks among
-them); the last line is
+"eval", multi-LoRA's under "multi_lora" and phase 21's under
+"vision_extras" (K3c has two: its wrapper runs the M > 8 kernel at prefill
+and the split-K one at decode; K2m's launches are the chat server's five
+turns, the spec turn's verify blocks among them); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2434,10 +2457,10 @@ def phase_checkpoint_eval(gen, root):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     rss_before = _peak_rss_gib()
-    (tokenizer, model, processor), sec = wall(lambda: eval_mod.load_model(path, load_8bit=True))
+    (tokenizer, model, processor), load_s = wall(lambda: eval_mod.load_model(path, load_8bit=True))
     tree = _tree_bytes(model.params)
     peak = torch.cuda.max_memory_allocated() - before
-    log(f"[checkpoint] eval.load_model(load_8bit=True): {sec:.2f} s; the process's peak RSS "
+    log(f"[checkpoint] eval.load_model(load_8bit=True): {load_s:.2f} s; the process's peak RSS "
         f"{_peak_rss_gib():.3f} GiB ({rss_before:.3f} GiB before the load); card: loaded tree {tree} bytes "
         f"({tree / 2**30:.3f} GiB), peak during the load {peak / 2**30:.3f} GiB above the "
         f"{before / 2**30:.3f} GiB held before; tokenizer {type(tokenizer).__name__} of "
@@ -2494,7 +2517,8 @@ def phase_checkpoint_eval(gen, root):
     log(f"[checkpoint] the second eval() on the same out_dir, with no model: {sec:.3f} s, "
         f"metrics {again}")
     check(again == metrics and not any(cached.values()), "the cached eval")
-    entry = {"batched": _eval_batched(path, root, dataset, (tokenizer, model, processor),
+    entry = {"load_s": load_s, "load_peak_gib": peak / 2**30,
+             "batched": _eval_batched(path, root, dataset, (tokenizer, model, processor),
                                       outputs, sec_b1=sec_b1),
              "preprocess": _device_preprocess(processor)}
     return model, tokenizer, processor, counts, entry
@@ -3228,14 +3252,14 @@ def phase_engine(model, tokenizer, image_processor):
     finally:
         engine.shutdown()
     del engine
-    one_by_one = wall(lambda: [model.generate([p], None, g64) for p in prompts])[1]
+    one_by_one = wall(lambda: [model.generate([p], None, g64) for p in prompts[:4]])[1]
     smi = _timing.smi_line()
     log(f"[engine b] {smi}: 8 streams of 121 + 64 tokens {t8:.3f} s, {8 * 64 / t8:.2f} tok/s; "
-        f"16 streams (the 8 prompts twice) {t16:.3f} s, {16 * 64 / t16:.2f} tok/s; the same 8 "
+        f"16 streams (the 8 prompts twice) {t16:.3f} s, {16 * 64 / t16:.2f} tok/s; 4 of the "
         f"requests one at a time through TEOChat.generate {one_by_one:.3f} s, "
-        f"{8 * 64 / one_by_one:.2f} tok/s (16: twice that time, the same requests twice)")
+        f"{4 * 64 / one_by_one:.2f} tok/s")
     entry["b"] = {"tok_s_8": 8 * 64 / t8, "tok_s_16": 16 * 64 / t16,
-                  "tok_s_one_at_a_time": 8 * 64 / one_by_one, "smi": smi}
+                  "tok_s_one_at_a_time": 4 * 64 / one_by_one, "smi": smi}
 
     # (c) the prefix hit and miss TTFT at a 512-token prefix (bench ttft_prefix)
     miss, hit, _ = bench_main._ttft_prefix_at(bench_main.Settings(), model, 512, 1024, pool=4)
@@ -3358,7 +3382,7 @@ def _engine_fp8(model, requests, plain_results):
     of K2 (plain steps) and K2m (pieces, the hit, verify blocks) launch and
     the bf16 ones never; the cache's GiB; then 8 text streams of 121 + 64
     tokens through an e4m3 and a bf16 engine (max_slots 16, max_len 512,
-    chunk 16), three rounds each, aggregate tok/s."""
+    chunk 16), one round each, aggregate tok/s."""
     from teochat_torch.serve.engine import BatchEngine
 
     out, k2m = {}, 0
@@ -3417,7 +3441,7 @@ def _engine_fp8(model, requests, plain_results):
     for kv in ("float8_e4m3fn", "bfloat16"):
         engine = BatchEngine(model, max_slots=16, max_len=512, chunk=16, kv_dtype=kv).start()
         try:
-            times, _ = _engine_streams(engine, prompts, g64, 3)
+            times, _ = _engine_streams(engine, prompts, g64, 1)
         finally:
             engine.shutdown()
         rates[kv] = [8 * 64 / t for t in times]
@@ -3508,17 +3532,20 @@ def _engine_streams(engine, prompts, gen, runs):
 
 def _engine_adaptive_cell(model):
     """(f) 8 text streams of 121 + 64 tokens on random weights (prompt
-    lookup accepts next to nothing): the adaptive speculative engine (k 4),
-    eight rounds (~5 chunks of 16 a round: past the 32 chunks after which
-    it fires its first probe), against the plain engine, four rounds; its
-    mode switches and the probes it fired."""
+    lookup accepts next to nothing): the adaptive speculative engine (k 4,
+    a re-probe every 4 plain chunks), four rounds (~5 chunks of 16 a round:
+    drafting turns off after its first chunks at random weights, and the
+    ~20 chunks that follow cross the probe's countdown several times),
+    against the plain engine, two rounds; its mode switches and the probes
+    it fired, at least one of each."""
     from teochat_torch.serve.engine import BatchEngine
 
     g64 = GenerationConfig(max_new_tokens=64, temperature=0.0, do_sample=False, stop_strings=())
     prompts = [[1] + list(range(10 + i, 130 + i)) for i in range(8)]
     out = {}
-    for name, kw, runs in (("plain", {}, 4),
-                           ("adaptive", dict(speculative_k=4, adaptive_spec=True), 8)):
+    for name, kw, runs in (("plain", {}, 2),
+                           ("adaptive", dict(speculative_k=4, adaptive_spec=True,
+                                             spec_probe_every=4), 4)):
         engine = BatchEngine(model, max_slots=8, max_len=512, chunk=16, **kw).start()
         try:
             times, _ = _engine_streams(engine, prompts, g64, runs=runs)
@@ -3526,13 +3553,14 @@ def _engine_adaptive_cell(model):
             engine.shutdown()
         out[name] = {"tok_s": [8 * 64 / t for t in times], "stats": dict(engine.stats)}
     a = out["adaptive"]["stats"]
-    log(f"[engine f] {_timing.smi_line()}: 8 streams of 121 + 64 tokens: plain (4 rounds) "
-        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; adaptive k 4 (8 rounds) "
+    log(f"[engine f] {_timing.smi_line()}: 8 streams of 121 + 64 tokens: plain (2 rounds) "
+        f"{', '.join(f'{x:.2f}' for x in out['plain']['tok_s'])} tok/s; adaptive k 4 (4 rounds) "
         f"{', '.join(f'{x:.2f}' for x in out['adaptive']['tok_s'])} tok/s; the adaptive engine "
         f"switched {a.get('spec_mode_switches', 0)} times and fired {a.get('spec_probes', 0)} "
         f"probes over {a['chunks']} chunks ({a.get('spec_tokens', 0)} tokens in "
         f"{a.get('spec_iterations', 0)} row iterations of speculative chunks)")
     check(a.get("spec_mode_switches", 0) >= 1, f"engine (f): drafting never switched off {a}")
+    check(a.get("spec_probes", 0) >= 1, f"engine (f): no re-probe fired {a}")
     return out
 
 
@@ -4237,6 +4265,308 @@ def phase_bench_run():
     return counts, train_keys
 
 
+# ------------------------------------------------- the vision extras (w8a8, towers, tokens)
+
+# the w8a8 products' shapes (name, M, K, N): the tower's at an encode of 32
+# frames of 257 tokens (q, k, v and out; fc1; fc2), the 7B prefill's of 640
+# tokens (q, k, v and out; gate and up; down: the int8 tree keeps them
+# unfused), and a suffix of 5 rows, which torch._int_mm on the card takes only
+# padded to 17
+W8A8_SHAPES = [("tower q|k|v|out", 32 * 257, 1024, 1024), ("tower fc1", 32 * 257, 1024, 4096),
+               ("tower fc2", 32 * 257, 4096, 1024), ("prefill q|k|v|out", 640, 4096, 4096),
+               ("prefill gate|up", 640, 4096, 11008), ("prefill down", 640, 11008, 4096),
+               ("suffix q|k|v|out", 5, 4096, 4096)]
+# the w8a8 tower's vision tokens against the bf16 tower's on the same
+# frames: per-token int8 activations through 23 layers keep the tokens
+# close, not equal (the JAX package's own tests hold its w8a8 tower to 5e-2
+# of the largest hidden state and a cosine above 0.999)
+W8A8_TOWER_REL_L2 = 5e-2
+W8A8_TOWER_COS = 0.99
+
+
+def phase_w8a8_projections(gen):
+    """(a) The w8a8 projection at the tower's, the 7B prefill's and a short
+    suffix's shapes: the int8 activations equal the CPU's quantization of the
+    same bf16 rows, and the int32 sums of `int8_matmul` (torch._int_mm, rows
+    padded below 17) equal the exact product (fp64 on the card), bit for
+    bit, from the decoder's row-major [K, N] weight and from a `k_major`
+    one; ms of the w8a8 projection (quantize, product, scale) on the weight
+    as its tree stores it (the tower's `k_major`, the decoder's row-major),
+    of the int8 product alone (from the row-major weight, which
+    `int8_matmul` copies to column-major first, and from the `k_major`
+    weight), beside the w8a16 projection and a bf16 `torch.matmul` at the
+    same shape, and the int8 bound."""
+    rows = {}
+    for name, m, k, n in W8A8_SHAPES:
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        p = quant_mod.quantize_kernel(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+        x_i8, scale_x = quant_mod.quantize_rows_i8(x)
+        want_i8, want_sx = quant_mod.quantize_rows_i8(x.cpu())
+        check(torch.equal(x_i8.cpu(), want_i8) and torch.equal(scale_x.cpu(), want_sx),
+              f"w8a8 {name}: the int8 activations differ from the CPU's")
+        col_major = quant_mod.k_major(p["kernel"])
+        exact = x_i8.double() @ p["kernel"].double()  # |sum| < 2^31: exact in fp64
+        for w in (p["kernel"], col_major):
+            acc = quant_mod.int8_matmul(x_i8, w)
+            check(torch.equal(acc.double(), exact), f"w8a8 {name}: the int32 sums are not exact")
+        tree_p = {**p, "kernel": col_major} if name.startswith("tower") else p
+        y = quant_mod.quantized_proj_act_i8(x, tree_p)
+        check(tuple(y.shape) == (m, n) and torch.isfinite(y).all().item(), f"w8a8 {name}: output")
+        w_bf16 = quant_mod.dequantize_kernel(p, torch.bfloat16)
+        ms = time_ms(lambda: quant_mod.quantized_proj_act_i8(x, tree_p))
+        mm_ms = time_ms(lambda: quant_mod.int8_matmul(x_i8, p["kernel"]))
+        col_ms = time_ms(lambda: quant_mod.int8_matmul(x_i8, col_major))
+        w8a16_ms = time_ms(lambda: quant_mod.quantized_proj(x, p))
+        bf16_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+        bound, by = bound_ms(2 * m * k + k * n + 4 * n + 2 * m * n, 2 * m * k * n,
+                             _timing.INT8_OPS_PER_S)
+        log(f"[w8a8 a] {name} M={m} K={k} N={n}: int8 activations and int32 sums exact; ms "
+            f"w8a8 {ms:.4f} on the tree's "
+            f"{'k_major' if tree_p is not p else 'row-major'} weight (the int8 product on a "
+            f"row-major weight with its copy {mm_ms:.4f}, on a k_major weight {col_ms:.4f}: "
+            f"{2 * m * k * n / col_ms / 1e9:.1f} TOP/s), w8a16 "
+            f"{w8a16_ms:.4f}, bf16 matmul "
+            f"{bf16_ms:.4f}; int8 bound {bound:.4f} ({by})")
+        rows[name] = {"m": m, "k": k, "n": n, "w8a8_ms": ms, "int_mm_ms": mm_ms,
+                      "int_mm_col_major_ms": col_ms, "w8a16_ms": w8a16_ms, "bf16_ms": bf16_ms,
+                      "bound_ms": bound, "bound_by": by}
+    return rows
+
+
+def phase_w8a8_tower(gen):
+    """(b) 32 frames through the full ViT-L/14 tower and the projector, bf16
+    and after `quantize_vit_params`: the vision tokens' relative L2 and
+    cosine, K5's and the int8 products' launches in the w8a8 encode, and
+    frames/s both ways (in turns, medians of 3 batches of 5)."""
+    cfg = TEOChatConfig()
+    enc = init_encoder(cfg, gen, "cuda", torch.bfloat16)
+    w8 = {**enc, "vision": quant_mod.quantize_vit_params(enc["vision"])}
+    frames = torch.randn(32, 3, 224, 224, generator=gen, device="cuda").to(torch.bfloat16)
+    layers = cfg.vision.num_layers - 1  # select_layer -2
+    with torch.no_grad():
+        want = teochat_mod.encode_frames(enc, cfg, frames)
+        vit_mod.LAUNCHES.reset()
+        quant_mod.ACT_I8_PRODUCTS.reset()
+        got = teochat_mod.encode_frames(w8, cfg, frames)
+        sync()
+        k5, products = vit_mod.LAUNCHES.count, quant_mod.ACT_I8_PRODUCTS.count
+        times = {"bf16": [], "w8a8": []}
+        for params, key in ((enc, "bf16"), (w8, "w8a8"), (w8, "w8a8"), (enc, "bf16")):
+            times[key].append(_timing.timeit(
+                lambda: teochat_mod.encode_frames(params, cfg, frames), 5, "cuda"))
+    diff = (got.float() - want.float()).norm() / want.float().norm()
+    cos = F.cosine_similarity(got.float().flatten(), want.float().flatten(), dim=0)
+    fps = {key: 32 / statistics.median(t) for key, t in times.items()}
+    log(f"[w8a8 b] 32 frames through ViT-L/14 and the projector, w8a8 against bf16: vision "
+        f"tokens rel L2 {diff.item():.3e} (bound {W8A8_TOWER_REL_L2}), cosine {cos.item():.5f}; "
+        f"K5 {k5} launches, {products} int8 products (6 a layer of {layers}); frames/s w8a8 "
+        f"{fps['w8a8']:.1f} against bf16 {fps['bf16']:.1f} (x{fps['w8a8'] / fps['bf16']:.3f}); "
+        f"{_timing.smi_line()}")
+    check(tuple(got.shape) == tuple(want.shape) and torch.isfinite(got).all().item(),
+          "w8a8 tower output")
+    check(diff.item() <= W8A8_TOWER_REL_L2 and cos.item() >= W8A8_TOWER_COS,
+          f"w8a8 tower tokens rel L2 {diff.item()}, cosine {cos.item()}")
+    check(k5 == layers and products == 6 * layers, f"w8a8 tower: K5 {k5}, products {products}")
+    del enc, w8
+    return {"tokens_rel_l2": diff.item(), "cosine": cos.item(), "k5_launches": k5,
+            "frames_per_sec_w8a8": fps["w8a8"], "frames_per_sec_bf16": fps["bf16"]}
+
+
+def phase_towers(gen):
+    """(e) The audio tower (126 x 1036 spectrograms: 9 x 74 patches and CLS,
+    S 667 through K5) and the video tower (8 frames, temporal attention) at
+    full width, random weights from the seed: finite features of the
+    expected shapes, K5 launching; then K5 at the audio tower's shape
+    against its plain version (VIT_TOL) and timed beside it and SDPA."""
+    from teochat_torch.models.towers import build_video_tower, build_vision_tower
+
+    audio = build_vision_tower("LanguageBind/LanguageBind_Audio").load_model(
+        rng=gen, device="cuda", dtype=torch.bfloat16)
+    s, layers = audio.cfg.num_positions, audio.cfg.num_layers - 1
+    check(s == 667 and vit_mod.in_kernel_range(s), f"audio tower S {s}")
+    spec = torch.randn(2, 3, 126, 1036, generator=gen, device="cuda").to(torch.bfloat16)
+    vit_mod.LAUNCHES.reset()
+    with torch.no_grad():
+        feats, audio_s = wall(lambda: audio(spec))
+    k5_audio = vit_mod.LAUNCHES.count
+    check(tuple(feats.shape) == (2, 666, 1024) and torch.isfinite(feats).all().item(),
+          f"audio tower features {tuple(feats.shape)}")
+    check(k5_audio == layers, f"audio tower K5 launches {k5_audio}")
+    del audio
+
+    b, h, d = 2, 16, 64
+    q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
+    got = vit_mod.vit_attention(q, k, v)
+    sync()
+    want = vit_mod.vit_attention_plain(q.float(), k.float(), v.float())
+    err = (got.float() - want).abs().max().item()
+    check(err <= VIT_TOL, f"K5 at S {s}: error {err} > {VIT_TOL}")
+    ms = time_ms(lambda: vit_mod.vit_attention(q, k, v))
+    plain_ms = time_ms(lambda: vit_mod.vit_attention_plain(q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(_bhsd(q), _bhsd(k), _bhsd(v)))
+    row = kernel_row(err, ms, plain_ms, 2 * 4 * b * s * h * d, 4 * b * h * s * s * d, lib_ms)
+
+    video = build_video_tower().load_model(rng=gen, device="cuda", dtype=torch.bfloat16)
+    clip = torch.randn(1, 8, 3, 224, 224, generator=gen, device="cuda").to(torch.bfloat16)
+    vit_mod.LAUNCHES.reset()
+    with torch.no_grad():
+        vfeats, video_s = wall(lambda: video.encode_videos(clip))
+    k5_video = vit_mod.LAUNCHES.count
+    check(tuple(vfeats.shape) == (1, 8, 256, 1024) and torch.isfinite(vfeats).all().item(),
+          f"video tower features {tuple(vfeats.shape)}")
+    check(k5_video == layers, f"video tower K5 launches {k5_video}")
+    del video
+    log(f"[towers e] audio tower, 2 spectrograms of 126 x 1036 (S {s}): features (2, 666, 1024) "
+        f"in {audio_s * 1e3:.2f} ms, K5 {k5_audio} launches; K5 at [{b},{s},{h},{d}] "
+        f"max_abs_err {err:.3e} (tol {VIT_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); video tower, 8 frames: features (1, 8, 256, 1024) in "
+        f"{video_s * 1e3:.2f} ms (the temporal attention over 8 frames on the plain attention), "
+        f"K5 {k5_video} launches")
+    return {"audio_s": audio_s, "video_s": video_s, "k5_launches_audio": k5_audio,
+            "k5_launches_video": k5_video, "k5_s667": row}
+
+
+def phase_w8a8_prefill(model, tokenizer, ids, frames):
+    """(c) The loaded 8-bit TEOChat-7B with `int8_prefill_activations` (the
+    same params, no reload): the 2-frame request's TTFT beside the w8a16
+    prefill's, in turns in one process (medians of 5); its greedy tokens
+    each within SPEC_GAP_TOL of its position's largest logit in a
+    teacher-forced w8a16 prefill (the decode steps are w8a16); K1 and the
+    int8 products counted (one a projection of the prefill, none in the
+    decode graph); a session's turn 2 (its suffix prefill w8a8) and an
+    engine request, each replaying its decode graph."""
+    from teochat_torch.serve.engine import BatchEngine
+    from teochat_torch.serve.session import ChatSession
+
+    cfg = model.cfg
+    w8 = teochat_mod.TEOChat(dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, int8_prefill_activations=True)), model.params, tokenizer=model.tokenizer)
+    layers = cfg.llm.num_layers
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    g32 = dataclasses.replace(g1, max_new_tokens=32)
+    ttft = {"w8a16": [], "w8a8": []}
+    for m in (model, w8):
+        m.generate([ids], frames, g1)
+    for _ in range(5):
+        for key, m in (("w8a16", model), ("w8a8", w8)):
+            ttft[key].append(wall(lambda: m.generate([ids], frames, g1))[1])
+    med = {key: statistics.median(t) for key, t in ttft.items()}
+    quant_mod.ACT_I8_PRODUCTS.reset()
+    out, counts = counted("w8a8 c", lambda: w8.generate([ids], frames, g32)[0])
+    products = quant_mod.ACT_I8_PRODUCTS.count
+    plain = model.generate([ids], frames, g32)[0]
+    gaps, _ = teacher_forced_gaps(model, ids, frames, out)
+    gaps8, _ = teacher_forced_gaps(w8, ids, frames, out)
+    log(f"[w8a8 c] 2-frame bs1 TTFT (encode + fuse + prefill + first token; medians of 5 in "
+        f"turns): w8a8 {med['w8a8'] * 1e3:.2f} ms against w8a16 {med['w8a16'] * 1e3:.2f} ms "
+        f"(x{med['w8a16'] / med['w8a8']:.3f}); {_timing.smi_line()}")
+    log(f"[w8a8 c] greedy 32 tokens: K1 {counts['K1']} launches, {products} int8 products "
+        f"({7 * layers} in the prefill); first difference from the w8a16 path at "
+        f"{_first_difference(out, plain)}; largest gap to the teacher-forced maximum "
+        f"{max(gaps):.3e} rms over a w8a16 prefill, {max(gaps8):.3e} over a w8a8 one "
+        f"(bound {SPEC_GAP_TOL})")
+    check(counts["K1"] == layers and counts["K2"] > 0 and products == 7 * layers,
+          f"w8a8 c: K1 {counts['K1']}, int8 products {products}")
+    check(max(gaps) <= SPEC_GAP_TOL, f"w8a8 c: a token {max(gaps)} rms below its maximum")
+
+    # a session's second turn: the suffix prefill w8a8, its decode replayed
+    session = ChatSession(w8, max_len=1024)
+    g8 = dataclasses.replace(g1, max_new_tokens=8)
+    first = session.generate(ids, frames, g8)
+    turn2 = list(ids) + list(first) + list(range(300, 340))
+    quant_mod.ACT_I8_PRODUCTS.reset()
+    second = session.generate(turn2, frames, g8)
+    suffix_products = quant_mod.ACT_I8_PRODUCTS.count
+    replays = sum(g.replays for g in gen_mod.decode_graphs())
+    check(len(second) == 8 and suffix_products == 7 * layers and replays > 0,
+          f"w8a8 c: session turn 2 {suffix_products} int8 products, {replays} replays")
+    del session
+    gen_mod.clear_decode_graphs()
+
+    # an engine request: a w8a8 prefill, the engine's own graph replayed
+    engine = BatchEngine(w8, max_slots=2, max_len=1024, chunk=8).start()
+    quant_mod.ACT_I8_PRODUCTS.reset()
+    try:
+        e_out = engine.submit(ids, frames, dataclasses.replace(g1, max_new_tokens=16))
+        e_products = quant_mod.ACT_I8_PRODUCTS.count
+        e_replays = engine._graph.replays
+    finally:
+        engine.shutdown()
+    e_gaps, _ = teacher_forced_gaps(model, ids, frames, e_out)
+    log(f"[w8a8 c] a session's turn 2 ({len(turn2)} ids, the suffix prefilled w8a8): "
+        f"{suffix_products} int8 products, its decode graph replayed {replays} times; an engine "
+        f"request of 16 tokens: {e_products} int8 products, the engine's graph replayed "
+        f"{e_replays} times, largest gap {max(e_gaps):.3e} rms")
+    check(e_products == 7 * layers and e_replays > 0 and max(e_gaps) <= SPEC_GAP_TOL,
+          f"w8a8 c: engine {e_products} int8 products, {e_replays} replays, gap {max(e_gaps)}")
+    return {"ttft_s_w8a8": med["w8a8"], "ttft_s_w8a16": med["w8a16"],
+            "k1_launches": counts["K1"], "int8_products": products,
+            "largest_gap_rms": max(gaps)}
+
+
+def phase_vision_tokens(root, path, load_entry):
+    """(d) The smoke's 7B checkpoint with `mm_use_im_start_end` and
+    `mm_use_im_patch_token` in its config (the same shards and tokenizer,
+    linked): `eval.load_model(load_8bit=True)` adds the five vision tokens
+    to the tokenizer and grows the embedding and the lm_head by their mean
+    before the int8 quantization (seconds, the card's peak beside phase
+    10's); one `eval()` example, whose prompt wraps each frame's <image> in
+    <im_start> / <im_end>."""
+    from teochat_torch.eval import eval as eval_mod
+    from teochat_torch.eval.inference import _build_prompt
+
+    imse = os.path.join(root, "TEOChat-7B-imse")
+    os.makedirs(imse)
+    for name in os.listdir(path):
+        if name != "config.json":
+            os.symlink(os.path.abspath(os.path.join(path, name)), os.path.join(imse, name))
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    hf.update(mm_use_im_start_end=True, mm_use_im_patch_token=True)
+    with open(os.path.join(imse, "config.json"), "w") as f:
+        json.dump(hf, f)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (tok, m, proc), load_s = wall(lambda: eval_mod.load_model(imse, load_8bit=True))
+    peak = torch.cuda.max_memory_allocated() - before
+    tree = _tree_bytes(m.params)
+    n = len(tok)
+    llm = m.params["llm"]
+    log(f"[vision tokens d] eval.load_model(mm_use_im_start_end, mm_use_im_patch_token, "
+        f"load_8bit=True): {load_s:.2f} s (phase 10's load {load_entry['load_s']:.2f} s); card: "
+        f"tree {tree / 2**30:.3f} GiB, peak during the load {peak / 2**30:.3f} GiB (phase 10's "
+        f"{load_entry['load_peak_gib']:.3f}); tokenizer {n} tokens, embedding "
+        f"{tuple(llm['embed_tokens']['embedding'].shape)}, int8 lm_head "
+        f"{tuple(llm['lm_head']['kernel'].shape)}")
+    check(n == hf["vocab_size"] + 5 and m.cfg.llm.vocab_size == n
+          and llm["embed_tokens"]["embedding"].shape[0] == n
+          and tuple(llm["lm_head"]["kernel"].shape) == (hf["hidden_size"], n)
+          and llm["lm_head"]["kernel"].dtype == torch.int8, "vision tokens: the grown vocab")
+    check(peak < tree + CKPT_LOAD_HEADROOM, f"vision tokens: the load's peak {peak}")
+    prompt = _build_prompt(EVAL_QUESTION, ["a", "b"], "v1", ["2019-01-01", "2019-02-01"],
+                           "interleave", True, mm_use_im_start_end=True)[0]
+    ids = tokenizer_image_token(prompt, tok, IMAGE_TOKEN_INDEX)
+    start, end = tok.convert_tokens_to_ids("<im_start>"), tok.convert_tokens_to_ids("<im_end>")
+    at = [i for i, t in enumerate(ids) if t == IMAGE_TOKEN_INDEX]
+    check(len(at) == 2 and all(ids[i - 1] == start and ids[i + 1] == end for i in at),
+          "vision tokens: the prompt's wrap")
+    dataset = eval_dataset(SEED)[:1]
+    (metrics, eval_s), counts = counted("vision tokens d", lambda: wall(lambda: eval_mod.eval(
+        "fmow_high_res", model_path=imse, dataset=dataset, model_bundle=(tok, m, proc),
+        out_dir=os.path.join(root, "eval_imse"), temperature=0.0, max_new_tokens=16)))
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K5")), f"vision tokens eval {counts}")
+    log(f"[vision tokens d] eval('fmow_high_res') of one example: {eval_s:.3f} s, metrics "
+        f"{metrics}; the prompt's two <image> each between <im_start> ({start}) and <im_end> "
+        f"({end})")
+    del m, llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "peak_gib": peak / 2**30, "tree_gib": tree / 2**30,
+            "eval_s": eval_s, "vocab": n}
+
+
 def stamp(t0, what):
     log(f"[time] {time.perf_counter() - t0:.1f} s: {what} done")
 
@@ -4252,7 +4582,11 @@ def main():
     rows.update({"K3a": k3["k3a"], "K3b": k3["k3b"], "K3c": k3["k3c"],
                  "K3c M<=8": k3["k3c_decode"]})
     rows["K5"] = phase_vit_attention(gen)
-    stamp(t0, "phases 1-6")
+    extras = {"w8a8_projections": phase_w8a8_projections(gen), "w8a8_tower": phase_w8a8_tower(gen),
+              "towers": phase_towers(gen)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t0, "phases 1-6 and 21 (a), (b), (e)")
     tokenizer = WordTokenizer()
 
     int4_counts, k3a_counts, (fp8_int4, fp8_launches) = phase_int4_path(gen, tokenizer)
@@ -4278,10 +4612,14 @@ def main():
               f"int8 path launches {int8_counts}")
         phase_decode_graph(model, hf_tokenizer, processor, ids, frames, "main", batch16=False)
         # phase 7 ran the same checks at every k on int4; here k 4 alone
-        phase_spec(model, hf_tokenizer, processor, ids, frames, "main", ks=(4,), sweep=(0, 4, 8))
+        phase_spec(model, hf_tokenizer, processor, ids, frames, "main", ks=(4,), sweep=(0, 4))
         fp8_int8, _ = phase_fp8_generate(model, hf_tokenizer, processor, "main", batches=(32,))
         phase_logits(model, ids, frames)
         stamp(t0, "phase 11")
+        extras["w8a8_prefill"] = phase_w8a8_prefill(model, hf_tokenizer, ids, frames)
+        extras["vision_tokens"] = phase_vision_tokens(
+            ckpt_root, os.path.join(ckpt_root, "TEOChat-7B"), eval_entry)
+        stamp(t0, "phase 21 (c), (d)")
         serve_k2m = phase_server(model, hf_tokenizer, image_processor)
         stamp(t0, "phase 12")
         engine_entry = phase_engine(model, hf_tokenizer, image_processor)
@@ -4373,7 +4711,7 @@ def main():
     print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
                       "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8},
                       "multi_lora": lora_entry,
-                      "train": {**train_entry, "bench": bench_train}}))
+                      "train": {**train_entry, "bench": bench_train}, "vision_extras": extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

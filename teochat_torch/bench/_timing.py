@@ -18,6 +18,7 @@ import torch
 # the H100 SXM's published rates, for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 L2_BYTES = 50 * 2**20
 N_TIMED = 25
 
@@ -93,9 +94,11 @@ def timeit(fn, iters, device=None):
     return timeit_all(fn, iters, device)[1]
 
 
-def bound_ms(nbytes: float, flops: float):
-    """The least time the card could take: (ms, 'bytes' | 'operations')."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
+    """The least time the card could take: (ms, 'bytes' | 'operations'); the
+    operations at `ops_per_s` (bf16's rate unless given, INT8_OPS_PER_S for
+    an int8 product)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

@@ -7,9 +7,15 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
 
 - encode: `encode_frames_per_sec` (a batch of 32 frames through the tower
   and the projector);
+- encode_w8a8: `encode_frames_per_sec_w8a8`, the same batch through the
+  w8a8 tower (`quantize_vit_params`' layout: per-token int8 activations on
+  the int8 tensor cores);
 - decode: `decode_tokens_per_sec` (+ `_min` / `_max` over the timed batches),
   `ttft_s_prefill640_int8`, `prefill_tokens`, `hbm_stream_peak_gbps` and the
   roofline keys `decode_effective_hbm_gbps`, `decode_pct_of_hbm_peak`;
+- ttft_int8act: `ttft_s_prefill640_int8act`, decode's prefill + first token
+  with `int8_prefill_activations` (the prefill's int8 projections w8a8,
+  the decode step w8a16);
 - decode_bs8 / decode_bs16: `decode_tokens_per_sec_bs8` / `_bs16`;
 - decode_bs32: `decode_tokens_per_sec_bs32_fp8kv` (int8, an e4m3 KV cache:
   bf16's would take 11.8 GB);
@@ -59,14 +65,15 @@ LLaMA-7B, int8 or int4 weight-only) with random weights from a seed:
   the card (`encode_sustained_fps_devicepre`), beside the encode of frames
   already on the card (`encode_frames_per_sec_deviceonly`,
   `encode_sustained_vs_deviceonly`) and the upload rate of one batch of
-  uint8 frames (`h2d_mbps`).
+  uint8 frames (`h2d_mbps`); the same four again on the w8a8 tower
+  (bench.py's), each key ending `_w8a8`.
 
 The two peaks are measured on this card, not read from a data sheet: the
 stream peak by tall-skinny `torch.matmul`s over eight distinct 512 MB bf16
 panels (the pattern decode is bound by), the tensor-core peak by four chained
-8192^3 bf16 products. Phases whose modules are not ported yet raise
-NotImplementedError and name their ROADMAP item (`UNPORTED`). Times are host
-wall times around work that ends in a synchronize.
+8192^3 bf16 products. Every phase of bench.py is ported (bench.py's path C
+key of encode_pipeline aside). Times are host wall times around work that
+ends in a synchronize.
 
 Run: python3 -m teochat_torch.bench.main [--phases encode decode ...]
 The last line is one JSON object of every key.
@@ -259,15 +266,19 @@ def _train_mfu(cfg, tok_s: float, seq: int, peak_tflops: float, full_finetune: b
 # --------------------------------------------------------------------- phases
 
 def build_decode_setup(st: Settings, batch: int = 1, quant: str = "int8",
-                       kv_dtype: Optional[str] = None):
+                       kv_dtype: Optional[str] = None, int8_act: bool = False):
     """(run_generate, max_new, prompt_len): `run_generate(n_new)` prefills the
     2-frame prompt of `batch` rows on stand-in fused embeddings and decodes
     greedily without ever stopping (or at the stops of `stops`, a StopSpec,
     where one is given), over a KV cache in `kv_dtype` (None: the model's);
     it carries `weight_bytes` (every leaf of the decoder) and `kv_bytes`
     (the live KV bytes a decode step reads at the cache's itemsize, mean
-    over the steps: the decode kernel reads each row up to its length)."""
+    over the steps: the decode kernel reads each row up to its length).
+    `int8_act` runs the prefill's int8 projections w8a8."""
     cfg, dev = st.cfg, st.dev
+    if int8_act:
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, int8_prefill_activations=True))
     llm = bridge.init_llama(cfg.llm, st.generator(), dev, st.dtype, quant=quant)
     prompt_len, max_new = st.prompt_len, st.decode_new
     t_max = prompt_len + max_new + 1
@@ -304,13 +315,27 @@ def _decode_times(st: Settings, batch: int, quant: str, kv_dtype: Optional[str] 
     return t_fulls, t_one, run_generate, max_new, prompt_len
 
 
-def phase_encode(st: Settings) -> dict:
-    params = bridge.init_encoder(st.cfg, st.generator(), st.dev, st.dtype)
+def _encode_s(st: Settings, vision_quant: Optional[str] = None) -> float:
+    """Seconds a batch of `enc_batch` frames takes through the tower (w8a8
+    with vision_quant='int8') and the projector."""
+    params = bridge.init_encoder(st.cfg, st.generator(), st.dev, st.dtype,
+                                 vision_quant=vision_quant)
     frames = st.frames(st.enc_batch)
     with torch.no_grad():
-        dt = _timing.timeit(lambda: teochat_mod.encode_frames(params, st.cfg, frames),
-                            st.enc_iters, st.dev)
+        return _timing.timeit(lambda: teochat_mod.encode_frames(params, st.cfg, frames),
+                              st.enc_iters, st.dev)
+
+
+def phase_encode(st: Settings) -> dict:
+    dt = _encode_s(st)
     return {"encode_s_per_batch": dt, "encode_frames_per_sec": st.enc_batch / dt}
+
+
+def phase_encode_w8a8(st: Settings) -> dict:
+    """The encode phase's batch through the w8a8 tower (bench.py's opt-in:
+    close to the bf16 tower, not equal to it)."""
+    dt = _encode_s(st, "int8")
+    return {"encode_s_per_batch_w8a8": dt, "encode_frames_per_sec_w8a8": st.enc_batch / dt}
 
 
 def phase_decode(st: Settings) -> dict:
@@ -329,6 +354,17 @@ def phase_decode(st: Settings) -> dict:
         "hbm_stream_peak_gbps": peak,
         **_roofline_keys(tok_s[1], run_generate.weight_bytes, run_generate.kv_bytes, peak),
     }
+
+
+def phase_ttft_int8act(st: Settings) -> dict:
+    """decode's prefill + first token with the prefill's int8 projections
+    w8a8 (per-token int8 activations on the int8 tensor cores; the decode
+    steps stay w8a16)."""
+    with torch.no_grad():
+        run_generate, _, _ = build_decode_setup(st, 1, "int8", int8_act=True)
+        t_one = _timing.timeit(lambda: run_generate(1), st.iters, st.dev)
+    gen_mod.clear_decode_graphs()
+    return {"ttft_s_prefill640_int8act": t_one}
 
 
 def _phase_decode_batched(st: Settings, batch: int, kv_dtype: Optional[str] = None,
@@ -830,23 +866,40 @@ def phase_preprocess(st: Settings) -> dict:
 
 
 def phase_encode_pipeline(st: Settings) -> dict:
-    """Sustained encode from raw uint8 frames to vision tokens on the bf16
-    tower, each path one batch deep: (A) the native host preprocessing on a
-    worker thread while the card encodes the batch before; (B)
-    `preprocess_frames` on the card (the host uploads uint8 only). Beside
-    them the encode of frames already on the card and the upload rate of
-    one batch of raw frames. Not run: bench.py's w8a8 tower
-    (`quantize_vit_params`, ROADMAP queue 1 item 15) and its path C, which
-    resizes on the host with cv2 (`encode_sustained_fps_linkopt`): the
-    card's machine has no cv2."""
+    """Sustained encode from raw uint8 frames to vision tokens, each path
+    one batch deep: (A) the native host preprocessing on a worker thread
+    while the card encodes the batch before; (B) `preprocess_frames` on the
+    card (the host uploads uint8 only). Beside them the encode of frames
+    already on the card, and the upload rate of one batch of raw frames.
+    Each on the bf16 tower (the one eval and serve run) and, under keys
+    ending `_w8a8`, on the w8a8 tower (bench.py's). Not run: bench.py's
+    path C, which resizes on the host with cv2
+    (`encode_sustained_fps_linkopt`): the card's machine has no cv2 (ROADMAP
+    queue 1 item 10)."""
     cfg, dev = st.cfg, st.dev
-    params = bridge.init_encoder(cfg, st.generator(), dev, st.dtype)
     nb, bs, size = st.pipeline_batches, st.enc_batch, cfg.vision.image_size
     raw = [_raw_frames(st, bs, np.random.RandomState(i)) for i in range(nb)]
     proc = ImageProcessor(size=size)
 
     def prep_host(i):
         return proc.preprocess(list(raw[i]))["pixel_values"]
+
+    out = {}
+    with torch.no_grad():
+        t_up = _timing.timeit(lambda: torch.from_numpy(raw[0]).to(dev), 1, dev)
+    out["h2d_mbps"] = raw[0].nbytes / t_up / 1e6
+    for suffix, quant in (("", None), ("_w8a8", "int8")):
+        params = bridge.init_encoder(cfg, st.generator(), dev, st.dtype, vision_quant=quant)
+        for key, value in _encode_pipeline_rates(st, params, raw, prep_host).items():
+            out[key + suffix] = value
+        del params
+    return out
+
+
+def _encode_pipeline_rates(st: Settings, params, raw, prep_host) -> dict:
+    """`phase_encode_pipeline`'s paths through the tower of `params`."""
+    cfg, dev = st.cfg, st.dev
+    nb, bs, size = st.pipeline_batches, st.enc_batch, cfg.vision.image_size
 
     def encode(x):
         return teochat_mod.encode_frames(params, cfg, x)
@@ -866,8 +919,6 @@ def phase_encode_pipeline(st: Settings) -> dict:
 
     out = {}
     with torch.no_grad():
-        t_up = _timing.timeit(lambda: torch.from_numpy(raw[0]).to(dev), 1, dev)
-        out["h2d_mbps"] = raw[0].nbytes / t_up / 1e6
         out["encode_sustained_fps_hostpre"] = nb * bs / _timing.timeit(run_host_path, 1, dev)
         out["encode_sustained_fps_devicepre"] = nb * bs / _timing.timeit(run_device_path, 1, dev)
         staged = torch.from_numpy(prep_host(0)).to(dev, st.dtype)
@@ -880,7 +931,9 @@ def phase_encode_pipeline(st: Settings) -> dict:
 
 PHASES: Dict[str, Callable[[Settings], dict]] = {
     "encode": phase_encode,
+    "encode_w8a8": phase_encode_w8a8,
     "decode": phase_decode,
+    "ttft_int8act": phase_ttft_int8act,
     "decode_bs8": phase_decode_bs8,
     "decode_bs16": phase_decode_bs16,
     "decode_bs32": phase_decode_bs32,
@@ -898,17 +951,7 @@ PHASES: Dict[str, Callable[[Settings], dict]] = {
     "encode_pipeline": phase_encode_pipeline,
 }
 
-# bench.py's other phases and keys, and the ROADMAP (queue 1) item each waits for
-UNPORTED = {
-    "ttft_int8act": "w8a8 prefill, item 15",
-    "encode_w8a8": "the w8a8 tower, item 15",
-}
-
-
 def run_phase(name: str, st: Settings) -> dict:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"bench phase {name!r} needs {UNPORTED[name]} of ROADMAP.md queue 1, not ported yet")
     if name not in PHASES:
         raise ValueError(f"unknown bench phase {name!r}; ported: {sorted(PHASES)}")
     out = PHASES[name](st)
@@ -920,7 +963,7 @@ def run_phase(name: str, st: Settings) -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", nargs="+", default=list(PHASES),
-                        help=f"ported: {' '.join(PHASES)}; not ported: {' '.join(UNPORTED)}")
+                        help=f"of: {' '.join(PHASES)}")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     st = Settings(seed=args.seed)

@@ -25,16 +25,22 @@ context_len) for API parity.
 `load_multi_lora` attaches N peft adapter dirs UNMERGED over a loaded
 model's backbone (int8 / int4 included), stacked for per-request routing.
 
+The load-time vision-token machinery (reference builder.py:135-148): the
+tokens that `mm_use_im_patch_token` / `mm_use_im_start_end` call for are
+added to the tokenizer, and the embeddings resized to its length
+(vision_tokenizer.py), on the host's 16-bit tensors before any
+quantization; a LoRA dir whose config declares a larger vocab grows its
+base first. `quantize_vision` quantizes the tower for the w8a8 encode
+(ops/quant.py::quantize_vit_params). The processor dict holds the image
+processor and the video one (data/processing_extra.py).
+
 The train-time flow (reference train.py:961 + llava_arch.py:51): with
 `allow_partial` a checkpoint without a projector or a tower loads anyway,
 without those subtrees, and `initialize_vision_modules` attaches them from
 `--image_tower` / `--pretrain_mm_mlp_adapter` or a fresh draw.
 
 Not ported yet, and raising where asked for: the MPT backend (ROADMAP item
-14); the vision-token machinery (`mm_use_im_patch_token`,
-`mm_use_im_start_end`, a tokenizer whose length differs from the
-embedding's rows, a LoRA dir whose vocab differs from its base's),
-`quantize_vision` and the video processor (item 15).
+14).
 """
 
 from __future__ import annotations
@@ -57,8 +63,11 @@ from teochat_torch.config import (
     vision_config_from_hf,
 )
 from teochat_torch.data.processing import ImageProcessor
+from teochat_torch.data.processing_extra import VideoProcessor
 from teochat_torch.models.teochat import TEOChat
+from teochat_torch.models.towers import tower_config
 from teochat_torch.utils import resolve_device, tree_leaves_with_path, tree_map, unported
+from teochat_torch.vision_tokenizer import add_vision_tokens, resize_token_embeddings
 
 
 class _LazyStateDict(Mapping):
@@ -141,7 +150,11 @@ def load_config(model_path: str) -> TEOChatConfig:
         llm = mpt_config_from_hf(hf)
     else:
         llm = llama_config_from_hf(hf)
-    vision = VisionConfig()  # production tower geometry (LanguageBind ViT-L/14)
+    # production tower geometry (LanguageBind ViT-L/14), as the tower's name
+    # selects it: a video tower's temporal attention, an audio tower's
+    # rectangular grid; an unknown name raises
+    vision = (tower_config(hf["mm_image_tower"]) if hf.get("mm_image_tower")
+              else VisionConfig())
     projector = ProjectorConfig(
         projector_type=hf.get("mm_projector_type", "mlp2x_gelu"),
         mm_hidden_size=hf.get("mm_hidden_size", vision.hidden_size),
@@ -181,16 +194,6 @@ def _strip_prefix(sd: Dict[str, Any], prefixes=("base_model.model.",)) -> Dict[s
                 break
         out[k] = v
     return out
-
-
-class UnportedVideoProcessor:
-    """The "video" entry of the processor dict: the port has no video
-    processor yet (ROADMAP item 15), so using it raises."""
-
-    def _raise(self, *args, **kwargs):
-        raise NotImplementedError("the video processor is not ported yet (ROADMAP item 15)")
-
-    preprocess = __call__ = _raise
 
 
 def _vision_params(sd: Mapping[str, Any], cfg: TEOChatConfig,
@@ -244,11 +247,13 @@ def _apply_lora_dir(lora_path: str, llm_params: Dict, proj_keys: Dict,
     """Branch A on the host decoder (reference builder.py:37-72): the
     non-LoRA trainables (projector, trained embed / lm_head rows) when the
     dir has them, then the peft adapter merged with its r / lora_alpha.
+    A dir whose config declares a larger vocab than the base's rows (a
+    tokenizer grown by `mm_use_im_start_end` training) first grows the
+    base's embedding and lm_head to it, mean-initialised (reference
+    builder.py:42-45); its trained rows come with the non-LoRA trainables.
     Returns (decoder, projector keys)."""
-    n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
-    if cfg.llm.vocab_size != n_rows:
-        raise unported(f"resizing the base's embeddings to the LoRA config's vocab "
-                        f"({cfg.llm.vocab_size} against {n_rows} rows; vision_tokenizer)", 15)
+    if cfg.llm.vocab_size != llm_params["embed_tokens"]["embedding"].shape[0]:
+        llm_params = resize_token_embeddings(llm_params, cfg.llm.vocab_size)
     nlt_file = os.path.join(lora_path, "non_lora_trainables.bin")
     if os.path.exists(nlt_file):
         nlt = _strip_prefix(_load_torch_file(nlt_file))
@@ -295,16 +300,11 @@ def load_pretrained_model(
         )
     if "mpt" in model_name.lower():
         raise unported("the MPT backend", 14)
-    if quantize_vision:
-        raise unported("quantize_vision", 15)
     device = resolve_device(device)
 
     base_path = model_base if model_base is not None else model_path
     lora_path = model_path if "lora" in model_name.lower() and model_base is not None else None
     cfg = load_config(lora_path or base_path)
-    if cfg.mm_use_im_patch_token or cfg.mm_use_im_start_end:
-        raise unported("the vision-token machinery (mm_use_im_patch_token, "
-                        "mm_use_im_start_end)", 15)
     sd = _load_state_dict(base_path)
 
     llm_params = convert_hf.convert_llama(sd, cfg.llm)
@@ -321,11 +321,13 @@ def load_pretrained_model(
     proj_params = convert_hf.convert_projector(proj_keys, cfg.projector) if proj_keys else None
     vision_params = _vision_params(sd, cfg, vision_path, allow_partial)
 
+    # the vision tokens, and the embeddings resized to the tokenizer, on the
+    # host's 16-bit tensors before the quantization below (the reference
+    # resizes the fp model before bitsandbytes wraps it)
     tokenizer = _load_tokenizer(lora_path or base_path)
-    n_rows = llm_params["embed_tokens"]["embedding"].shape[0]
-    if len(tokenizer) != n_rows:
-        raise unported(f"resizing the embeddings to the tokenizer ({len(tokenizer)} "
-                        f"tokens, {n_rows} rows; vision_tokenizer)", 15)
+    add_vision_tokens(tokenizer, cfg.mm_use_im_patch_token, cfg.mm_use_im_start_end)
+    if len(tokenizer) != llm_params["embed_tokens"]["embedding"].shape[0]:
+        llm_params = resize_token_embeddings(llm_params, len(tokenizer))
     if cfg.llm.vocab_size != len(tokenizer):
         import dataclasses
 
@@ -341,6 +343,11 @@ def load_pretrained_model(
     params = {k: upload(v) for k, v in (("vision", vision_params), ("projector", proj_params))
               if v is not None}
     del vision_params, proj_params
+    if quantize_vision and "vision" in params:
+        # the w8a8 encode (opt-in: the reference's load_8bit quantizes only the LLM)
+        from teochat_torch.ops.quant import quantize_vit_params
+
+        params["vision"] = quantize_vit_params(params["vision"])
     if load_8bit or load_int4:
         # projections stream host -> device in layer chunks: uploading the
         # whole fp16 7B decoder before quantizing would hold 13.5 GB on the card
@@ -357,7 +364,8 @@ def load_pretrained_model(
     # processor geometry follows the tower (224 in production; tiny in tests)
     processor = {
         "image": ImageProcessor(size=cfg.vision.image_size),
-        "video": UnportedVideoProcessor(),
+        "video": VideoProcessor(size=cfg.vision.image_size,
+                                video_decode_backend=cfg.video_decode_backend),
     }
     return tokenizer, model, processor, cfg.max_sequence_length
 
@@ -377,7 +385,9 @@ def initialize_vision_modules(
     Records the tower and projector choices on the config (mm_projector_type,
     mm_vision_select_layer / feature, mm_hidden_size), loads the tower from
     the local dir `model_args.image_tower` (or `video_tower`) with that dir's
-    own config.json, and takes the projector from
+    own config.json (the geometry `tower_config` gives the image or video
+    tower: `video_tower` alone selects the temporal attention), and takes
+    the projector from
     `model_args.pretrain_mm_mlp_adapter` or draws it from `generator`.
     Subtrees already present are kept. The new leaves go to `device` (None:
     the device of the params, else the card) in `dtype`."""
@@ -386,7 +396,8 @@ def initialize_vision_modules(
     if device is None:
         device = next((x.device for _, x in tree_leaves_with_path(params)), None)
     device = resolve_device(device)
-    tower = getattr(model_args, "image_tower", None) or getattr(model_args, "video_tower", None)
+    image_tower = getattr(model_args, "image_tower", None)
+    tower = image_tower or getattr(model_args, "video_tower", None)
     params = dict(params)
     if "vision" not in params:
         if tower is None or not os.path.isdir(tower):
@@ -400,6 +411,8 @@ def initialize_vision_modules(
                 tower_hf = json.load(f)
             cfg = dataclasses.replace(
                 cfg, vision=vision_config_from_hf(tower_hf.get("vision_config", tower_hf)))
+        cfg = dataclasses.replace(
+            cfg, vision=tower_config("image" if image_tower else "video", cfg.vision))
         vision = convert_hf.convert_clip_vision(_load_state_dict(tower), cfg.vision)
         params["vision"] = tree_map(lambda t: t.to(device, dtype), vision)
 

@@ -12,7 +12,14 @@ byte.
 `init_teochat` makes a random TEOChat directly on a device, with the JAX
 package's init scheme. With quant='int8' or 'int4' it draws and quantizes one
 layer's projection at a time, so the peak stays near the quantized model
-rather than the bf16 one (13.5 GB for the 7B decoder).
+rather than the bf16 one (13.5 GB for the 7B decoder). `init_encoder(...,
+vision_quant="int8")` draws the tower's projections the same way into
+`quantize_vit_params`' layout (the w8a8 tower).
+
+The trees of the other towers cross too: the video tower's temporal leaves
+(`temporal_ln`, `temporal_attn`, `temporal_embedding`), the audio tower's
+rectangular position table and a w8a8 tower's int8 kernels, fp32 scales and
+biases.
 
 The device defaults to the card: `device=None` means "cuda" and raises when
 there is none; the CPU is used only when the caller passes "cpu".
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 
 from teochat_torch.config import TEOChatConfig
-from teochat_torch.ops.quant import quantize_kernel, quantize_kernel_int4
+from teochat_torch.ops.quant import k_major, quantize_kernel, quantize_kernel_int4
 from teochat_torch.utils import resolve_device
 
 Params = Dict
@@ -117,14 +124,21 @@ class _Init:
         return out
 
 
-def _init_vit(ini: _Init, cfg) -> Params:
+def _init_vit(ini: _Init, cfg, quant: Optional[str] = None) -> Params:
+    """A random tower; quant='int8' quantizes the attention, temporal
+    attention and MLP projections as they are drawn (quantize_vit_params'
+    leaves, biases kept, the int8 kernels stored `k_major` as it stores
+    them)."""
     d, i_size, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     in_std = d ** -0.5
     attn_std = (d ** -0.5) * ((2 * L) ** -0.5)
     fc_std = (2 * d) ** -0.5
 
     def dense(fan_in, fan_out, std):
-        return {**ini.stacked(L, fan_in, fan_out, std, None), "bias": ini.zeros((L, fan_out))}
+        p = ini.stacked(L, fan_in, fan_out, std, quant)
+        if quant == "int8":
+            p["kernel"] = k_major(p["kernel"])
+        return {**p, "bias": ini.zeros((L, fan_out))}
 
     def ln(shape):
         return {"scale": ini.ones32(shape), "bias": torch.zeros(shape, device=ini.device)}
@@ -202,10 +216,12 @@ def _init_llama(ini: _Init, cfg, quant: Optional[str], fuse_projections: bool) -
 
 
 def init_encoder(cfg: TEOChatConfig, generator: torch.Generator, device=None,
-                 dtype: torch.dtype = torch.bfloat16) -> Params:
-    """Random tower and projector alone: {'vision', 'projector'}."""
+                 dtype: torch.dtype = torch.bfloat16,
+                 vision_quant: Optional[str] = None) -> Params:
+    """Random tower and projector alone: {'vision', 'projector'}; the tower
+    w8a8 with vision_quant='int8'."""
     ini = _Init(generator, resolve_device(device), dtype)
-    return {"vision": _init_vit(ini, cfg.vision),
+    return {"vision": _init_vit(ini, cfg.vision, vision_quant),
             "projector": _init_projector(ini, cfg.projector)}
 
 

@@ -8,8 +8,8 @@ with its v1 branch (the LLaMA recipe's template), `LazySupervisedDataset`,
 `make_supervised_data_module`. The conversation templates, constants,
 `tokenizer_image_token`, `order_pick_k` and the sampler are this package's
 own copies of the JAX package's host modules. Every template's preprocessor
-is ported (v1, llama_2, mpt, plain); not ported yet: `mm_use_im_start_end`
-(the vision tokenizer, ROADMAP item 15).
+is ported (v1, llama_2, mpt, plain), and so is `mm_use_im_start_end`'s
+`<im_start><image><im_end>` wrap (vision_tokenizer.py).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from teochat_torch.constants import (
 )
 from teochat_torch.mm_utils import tokenizer_image_token
 from teochat_torch.utils import order_pick_k
+from teochat_torch.vision_tokenizer import wrap_image_tokens
 from teochat_torch.models.fusion import build_fusion_plan
 from teochat_torch.models.teochat import round_to_bucket
 
@@ -72,8 +73,6 @@ def preprocess_multimodal(
 ) -> Sequence[List[Dict]]:
     if not data_args.is_multimodal:
         return sources
-    if getattr(data_args, "mm_use_im_start_end", False):
-        raise NotImplementedError("mm_use_im_start_end (the vision tokenizer) is not ported yet")
     for source in sources:
         for sentence in source:
             value = sentence["value"]
@@ -106,6 +105,9 @@ def preprocess_multimodal(
 
             value = value.replace(DEFAULT_IMAGE_TOKEN, replace_token)
             value = value.replace(DEFAULT_VIDEO_TOKEN, vid_replace_token)
+            if getattr(data_args, "mm_use_im_start_end", False):
+                # at each <image>, so interleave's "Image {i}: " stays outside
+                value = wrap_image_tokens(value)
             sentence["value"] = value
     return sources
 

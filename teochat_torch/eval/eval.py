@@ -172,7 +172,8 @@ def main(argv=None):
     parser.add_argument("--load_4bit", action="store_true")
     parser.add_argument("--load_int4", action="store_true")
     parser.add_argument("--quantize_vision", action="store_true",
-                        help="w8a8 int8 vision tower (not ported yet)")
+                        help="w8a8 int8 vision tower (per-token int8 activations "
+                             "on the int8 tensor cores; close to, not equal to, bf16)")
     parser.add_argument("--cache_dir", type=str, default=None)
     parser.add_argument("--data_cache_dir", type=str, default=None)
     parser.add_argument("--out_name", type=str, default=None)

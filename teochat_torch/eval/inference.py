@@ -5,8 +5,7 @@ rebuild of reference videollava/eval/inference.py): `replace_video_token`
 (:11-20), `run_inference_single` (:23-77), `extract_bboxes` (:80-85),
 `run_inference` (:88-137), and the JAX package's `run_inference_batched`.
 `model` is a `teochat_torch.models.teochat.TEOChat`; `rng` is a
-torch.Generator on its device or an int seed. Not ported yet: the
-`mm_use_im_start_end` wrap, which raises where it is asked for.
+torch.Generator on its device or an int seed.
 """
 
 from __future__ import annotations
@@ -68,7 +67,10 @@ def _build_prompt(
 
     prompt = replace_video_token(prompt, image_paths, prompt_strategy)
     if mm_use_im_start_end:
-        raise NotImplementedError("mm_use_im_start_end is not ported yet")
+        # models trained with the wrap expect it at inference too
+        from teochat_torch.vision_tokenizer import wrap_image_tokens
+
+        prompt = wrap_image_tokens(prompt)
     stop_str = conv.sep if conv.sep_style != SeparatorStyle.TWO else conv.sep2
     return prompt, list(image_paths), stop_str
 

@@ -388,8 +388,9 @@ def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: t
     right-padded suffix alone (positions from 0 within it); `start` [B] is
     the cache slot where it begins. Runs the spec_verify mode: writes at
     each token's slot, then every suffix query attends the cache up to its
-    own slot (K2m), so it sees the committed conversation. Returns
-    (last-token logits [B, V] fp32, cache)."""
+    own slot (K2m), so it sees the committed conversation. Unlike a verify
+    block it keeps the w8a8 activations of `int8_prefill_activations`.
+    Returns (last-token logits [B, V] fp32, cache)."""
     t_max = cache.max_len
     abs_pos = start[:, None] + position_ids
     slots = torch.where(attention_mask.bool(), abs_pos, t_max - 1)
@@ -398,6 +399,7 @@ def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: t
     logits = llama_mod.llama_forward(
         params, cfg, embeds, position_ids=abs_pos, cache=cache, write_slots=slots,
         kv_mask=kv_mask, logits_mode="last", last_index=seq_lens - 1, spec_verify=True,
+        act_quant_ok=True,  # a prefill: w8a8 where the config asks, as a stateless one
         adapter_route=adapter_route,
     )
     return logits[:, -1], cache

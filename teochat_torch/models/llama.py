@@ -1,7 +1,9 @@
 """LLaMA-2 decoder (port of teochat_tpu/models/llama.py).
 
 Params keep the JAX layout: stacked per-layer tensors (`[L, ...]`), kernels
-`[in, out]`, int8 projections as {'kernel' int8, 'scale' fp32 [out]}, int4
+`[in, out]`, int8 projections as {'kernel' int8, 'scale' fp32 [out]}
+(w8a16, or w8a8 in an S > 1 block with `cfg.int8_prefill_activations`:
+per-token int8 activations, ops/quant.py::quantized_proj_act_i8), int4
 projections as {'packed_tiles' | 'packed', 'scale'} (ops/quant.py), optionally
 fused into 'qkv' and 'gateup' leaves, LoRA
 adapters as extra leaves of a projection ('lora_a' [L, in, r], 'lora_b'
@@ -73,7 +75,12 @@ from teochat_torch.ops.decode_attention import (
     decode_attention_multi,
     query_lengths,
 )
-from teochat_torch.ops.quant import int4_proj, matmul_fp32, quantized_proj
+from teochat_torch.ops.quant import (
+    int4_proj,
+    matmul_fp32,
+    quantized_proj,
+    quantized_proj_act_i8,
+)
 from teochat_torch.utils import resolve_device
 
 Params = Dict
@@ -177,9 +184,11 @@ def _lora_delta(x: torch.Tensor, p: Params, route: Optional[torch.Tensor]) -> to
 
 
 def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None,
-          route: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if _is_int4(p):  # int4 w4a16; stacked leaves stay whole and `layer` picks
+          route: Optional[torch.Tensor] = None, act_quant: bool = False) -> torch.Tensor:
+    if _is_int4(p):  # int4 w4a16 (act_quant ignored); `layer` picks from the stack
         y = int4_proj(x, p, layer)
+    elif "scale" in p and act_quant:  # w8a8: per-token int8 activations
+        y = quantized_proj_act_i8(x, p)
     elif "scale" in p:  # int8 weight-only
         y = quantized_proj(x, p)
     else:
@@ -190,34 +199,35 @@ def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None,
 
 
 def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None,
-         route: Optional[torch.Tensor] = None) -> torch.Tensor:
+         route: Optional[torch.Tensor] = None, act_quant: bool = False) -> torch.Tensor:
     if "gateup" in lp:  # fused gate|up (ops/quant.py fuse_projections)
-        gu = _proj(x, lp["gateup"], layer, route)
+        gu = _proj(x, lp["gateup"], layer, route, act_quant)
         i_sz = gu.shape[-1] // 2
         gate_in, up = gu[..., :i_sz], gu[..., i_sz:]
     else:
-        gate_in = _proj(x, lp["gate"], layer, route)
-        up = _proj(x, lp["up"], layer, route)
+        gate_in = _proj(x, lp["gate"], layer, route, act_quant)
+        up = _proj(x, lp["up"], layer, route, act_quant)
     gate = F.silu(gate_in.float()).to(x.dtype)
-    return _proj(gate * up, lp["down"], layer, route)
+    return _proj(gate * up, lp["down"], layer, route, act_quant)
 
 
 def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache],
                      layer: int, write_slots, prefill_start: int, attn_impl: str,
                      attention_mask=None, right_padded: bool = False, lengths=None,
                      spec_verify: bool = False, row_offset: int = 0,
-                     attend_cache: bool = False, route=None) -> torch.Tensor:
+                     attend_cache: bool = False, route=None,
+                     act_quant: bool = False) -> torch.Tensor:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:
         # fused q|k|v projection (ops/quant.py fuse_projections): one weight
         # read and one launch instead of three
-        fused = _proj(x, lp["qkv"], layer, route)
+        fused = _proj(x, lp["qkv"], layer, route, act_quant)
         q = fused[..., : h * hd]
         k = fused[..., h * hd: (h + hkv) * hd]
         v = fused[..., (h + hkv) * hd:]
     else:
-        q, k, v = (_proj(x, lp[n], layer, route) for n in ("q", "k", "v"))
+        q, k, v = (_proj(x, lp[n], layer, route, act_quant) for n in ("q", "k", "v"))
     q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
     v = v.reshape(b, s, hkv, hd)
@@ -226,7 +236,7 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         # (which the flash kernels drop for a right-padded batch)
         out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
                                     impl=attn_impl, right_padded=right_padded)
-        return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route)
+        return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route, act_quant)
     # this batch's rows of the layer's slab, [B, T, Hkv, D] views
     k_slab = cache.k[layer, row_offset:row_offset + b]
     v_slab = cache.v[layer, row_offset:row_offset + b]
@@ -257,19 +267,20 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         v_slab[rows, slots] = v.to(cache.dtype)
         out = decode_attention_multi(q, k_slab.transpose(1, 2), v_slab.transpose(1, 2),
                                      lengths, impl=attn_impl)
-    return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route)
+    return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route, act_quant)
 
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
                    prefill_start, attn_impl, attention_mask, right_padded, lengths=None,
                    spec_verify=False, row_offset=0, attend_cache=False,
-                   route=None) -> torch.Tensor:
+                   route=None, act_quant=False) -> torch.Tensor:
     y = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
                              prefill_start, attn_impl, attention_mask, right_padded,
-                             lengths, spec_verify, row_offset, attend_cache, route)
+                             lengths, spec_verify, row_offset, attend_cache, route,
+                             act_quant)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, lp["mlp"], layer, route)
+    return x + _mlp(y, lp["mlp"], layer, route, act_quant)
 
 
 def unstack_layers(tree, n_layers: int):
@@ -303,7 +314,6 @@ def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
         raise ValueError(f"llama_forward: rows [{row_offset}, {row_offset + b}) "
                          f"outside a cache of {cache.k.shape[1]} rows")
     unsupported = {
-        "int8_prefill_activations (w8a8)": cfg.int8_prefill_activations,
         "sequence_axis (ring attention)": cfg.sequence_axis is not None,
         "cache_sequence_axis (sharded cache)": cfg.cache_sequence_axis is not None,
         "pipeline_axis": cfg.pipeline_axis is not None,
@@ -333,6 +343,7 @@ def llama_forward(
     attend_cache: bool = False,
     kv_len: Optional[torch.Tensor] = None,
     adapter_route: Optional[torch.Tensor] = None,
+    act_quant_ok: Optional[bool] = None,
     attn_impl: str = "auto",  # auto | plain
 ) -> torch.Tensor:
     """Run the decoder stack; returns fp32 logits [B, S|1, V], or with
@@ -356,6 +367,12 @@ def llama_forward(
     `adapter_route` [B, A] mixes adapter-stacked LoRA leaves per row
     (train/lora.py::adapter_route; required with such leaves, which raise
     without it).
+    `cfg.int8_prefill_activations` runs the int8 projections of an S > 1
+    block as w8a8 (`quantized_proj_act_i8`) where `act_quant_ok` allows it;
+    it defaults to `not spec_verify`, so a speculative verify block keeps
+    bf16 activations and the plain decode's numerics (a session's suffix
+    prefill passes True). Decode (S = 1), int4 and float leaves and the
+    lm_head stay as they are.
     Cache-free path (`cache=None`, training): `attention_mask` [B, S] marks
     the valid tokens, `right_padded` says the padding is all on the right,
     `remat` recomputes each layer in the backward. `last_index` [B] picks
@@ -365,6 +382,9 @@ def llama_forward(
     x = inputs_embeds
     b, s, _ = x.shape
     _check_supported(cfg, cache, b, cache_row_offset)
+    if act_quant_ok is None:
+        act_quant_ok = not spec_verify
+    act_quant = bool(cfg.int8_prefill_activations) and s > 1 and act_quant_ok
     cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
     mask = None if attention_mask is None else attention_mask.bool()
     # the live length of each query that reads the cache, once for all layers
@@ -377,7 +397,7 @@ def llama_forward(
     for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
                 attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
-                attend_cache, adapter_route)
+                attend_cache, adapter_route, act_quant)
         if remat and cache is None:
             x = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:

@@ -3,8 +3,18 @@
 An API-parity layer over the one ViT in vit.py, in place of the reference's
 tower classes (LanguageBindImageTower languagebind/__init__.py:94-173,
 CLIPVisionTower clip_encoder.py:7-78) and its name-dispatched builder
-(multimodal_encoder/builder.py:7-24). Only the CLIP image tower is ported:
-the video, audio, depth and thermal towers raise (ROADMAP item 15).
+(multimodal_encoder/builder.py:7-24). One implementation, five modality
+surfaces: the video tower is the image tower with `add_time_attn` (the
+temporal attention over the frame axis); the audio tower runs the same
+stack over rectangular mel spectrograms; depth and thermal reuse the image
+geometry (their processors differ: data/processing_extra.py).
+`tower_config` is the one place a tower name is read: the builder takes
+its geometry from it (`load_config` for a checkpoint's `mm_image_tower`,
+`initialize_vision_modules` for `--image_tower` / `--video_tower`), so an
+unknown name raises and a video or audio tower loads with its own
+geometry. `TEOChat.encode` then runs `vit.py` on that config; the
+`VisionTower` facade is the reference's API by tower name over the same
+function.
 """
 
 from __future__ import annotations
@@ -17,9 +27,6 @@ import torch
 from teochat_torch.config import VisionConfig
 from teochat_torch.models import vit as vit_mod
 from teochat_torch.utils import resolve_device
-
-_UNPORTED_TOWERS = ("video", "audio", "depth", "thermal")
-
 
 class VisionTower:
     """Frozen tower facade: __call__(frames) -> selected features.
@@ -77,7 +84,8 @@ class VisionTower:
 
     def encode_videos(self, videos: torch.Tensor) -> torch.Tensor:
         """[B, T, 3, H, W] -> [B, T, tokens, D] (reference encode_videos
-        llava_arch.py:142-146); an image tower encodes each frame alone."""
+        llava_arch.py:142-146): a video tower's temporal attention runs over
+        the T axis; an image tower encodes each frame alone."""
         self._require_loaded()
         b, t = videos.shape[:2]
         flat = videos.reshape((b * t,) + tuple(videos.shape[2:]))
@@ -89,6 +97,30 @@ class VisionTower:
         return feats.reshape(b, t, feats.shape[1], feats.shape[2])
 
 
+def tower_config(tower_name: str, base_cfg: Optional[VisionConfig] = None,
+                 num_mel_bins: int = 126, target_length: int = 1036) -> VisionConfig:
+    """The tower geometry a name selects (reference builder.py:7-16 +
+    languagebind dispatch), every name onto the one ViT of `base_cfg`
+    (the production ViT-L/14 when None):
+
+    - *Video* -> the temporal-attention tower (add_time_attn);
+    - *Audio* -> rectangular spectrograms, image_size (num_mel_bins,
+      target_length), LanguageBind's 126 x 1036 by default: 9 x 74 patches
+      at p 14 (reference modeling_audio.py:795-846);
+    - *Image* / openai/* / laion/* / clip / depth / thermal -> the image tower.
+    Any other name raises ValueError."""
+    cfg = base_cfg or VisionConfig()
+    name = tower_name.lower()
+    if "video" in name:
+        return dataclasses.replace(cfg, add_time_attn=True)
+    if "audio" in name:
+        return dataclasses.replace(cfg, add_time_attn=False,
+                                   image_size=(num_mel_bins, target_length))
+    if any(k in name for k in ("image", "openai", "laion", "depth", "thermal", "clip")):
+        return dataclasses.replace(cfg, add_time_attn=False)
+    raise ValueError(f"Unknown vision tower: {tower_name}")
+
+
 def build_vision_tower(
     tower_name: str,
     *,
@@ -97,20 +129,11 @@ def build_vision_tower(
     select_feature: str = "patch",
     **kwargs,
 ) -> VisionTower:
-    """Name-dispatched tower construction (reference builder.py:7-16 +
-    languagebind dispatch): *LanguageBind_Image* / openai/* / laion/* / clip
-    names give the image tower."""
-    cfg = base_cfg or VisionConfig()
-    name = tower_name.lower()
-    unported = next((k for k in _UNPORTED_TOWERS if k in name), None)
-    if unported is not None:
-        raise NotImplementedError(
-            f"the {unported} tower ({tower_name}) is not ported yet (ROADMAP item 15)"
-        )
-    if not any(k in name for k in ("image", "openai", "laion", "clip")):
-        raise ValueError(f"Unknown vision tower: {tower_name}")
-    cfg = dataclasses.replace(cfg, add_time_attn=False)
-    return VisionTower(cfg, select_layer=select_layer, select_feature=select_feature)
+    """Name-dispatched tower construction: `tower_config`'s geometry
+    (`kwargs`: the audio tower's num_mel_bins / target_length), weights
+    attached by `load_model`."""
+    return VisionTower(tower_config(tower_name, base_cfg, **kwargs),
+                       select_layer=select_layer, select_feature=select_feature)
 
 
 def build_video_tower(tower_name: str = "LanguageBind_Video_merge", **kwargs) -> VisionTower:

@@ -7,7 +7,12 @@ spatial attention goes through `vit_attention` (ops/vit_attention.py: the
 one-shot kernel on a CUDA tensor, the plain attention on a CPU tensor)
 whenever the sequence is inside the JAX function's gate for its kernel
 (64 <= S <= 1024); the temporal attention over a few frames, and shorter
-or longer sequences, take the plain attention (ops/attention.py).
+or longer sequences, take the plain attention (ops/attention.py). A tower
+quantized by `ops/quant.py::quantize_vit_params` runs its projections w8a8
+(per-token int8 activations on the int8 tensor cores, the bias added to the
+rounded product as in the JAX function). `resize_position_embedding`
+resamples the patch position table as `jax.image.resize(..., "bicubic")`
+does.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from teochat_torch.config import VisionConfig
 from teochat_torch.ops.attention import plain_attention
+from teochat_torch.ops.quant import quantized_proj_act_i8
 from teochat_torch.ops.vit_attention import in_kernel_range, vit_attention
 
 Params = Dict
@@ -52,7 +58,10 @@ def _layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
 
 
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "scale" in p:  # w8a8 (ops/quant.py::quantize_vit_params); the bias after
+        y = quantized_proj_act_i8(x, p)
+    else:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -145,3 +154,41 @@ def select_features(hidden: torch.Tensor, feature: str = "patch") -> torch.Tenso
     if feature == "cls_patch":
         return hidden
     raise ValueError(f"Unexpected select feature: {feature}")
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 on |distance| (jax.image's)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_in, n_out] fp32 weights of jax.image.resize's bicubic along one
+    axis (`scale_and_translate` with antialiasing): the kernel widened by
+    the inverse scale when shrinking, each column normalised to sum 1, and
+    zero where the sample falls outside the input."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kernel_scale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
+    w = _keys_cubic(dist / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_position_embedding(pos: torch.Tensor, old_grid: int, new_grid: int) -> torch.Tensor:
+    """Bicubic resampling of the patch position table [1 + old^2, D] to
+    [1 + new^2, D] (reference modeling_video.py:800-846 `resize_pos`), as
+    the JAX package's `jax.image.resize(method="bicubic")`; the CLS row is
+    kept. Computed in fp32, returned in pos's dtype."""
+    cls_row, patch = pos[:1], pos[1:]
+    d = patch.shape[-1]
+    grid = patch.float().reshape(old_grid, old_grid, d)
+    w = _resize_weights(old_grid, new_grid).to(grid.device)
+    resized = torch.einsum("hwd,hi,wj->ijd", grid, w, w)
+    return torch.cat([cls_row, resized.reshape(new_grid * new_grid, d).to(pos.dtype)], dim=0)

@@ -32,6 +32,14 @@ unpack -> matmul -> scale on a CPU tensor. Forward only, as in the JAX
 package (int4 is a serving format). The JAX module's search for a block
 size that fits the TPU's vector memory has no counterpart here.
 
+w8a8 (`quantized_proj_act_i8`, `quantize_vit_params`): per-token int8
+activations times the int8 weight, the int32 sum scaled in fp32 and rounded
+once; the product is `int8_matmul` (`torch._int_mm`: cuBLASLt's int8 GEMM on
+the card, the JAX package's XLA int8 `einsum`), the quantize and the scale
+plain torch ops. It runs the prefill of an int8 decoder with
+`int8_prefill_activations` (models/llama.py) and a tower quantized by
+`quantize_vit_params` (models/vit.py).
+
 `quantize_kernel_host` and `quantize_llama_params_host` take a decoder
 tree that lies on the host (the checkpoint loader's) and quantize it on the
 card a few layers at a time, so the 16-bit decoder (13.5 GB at 7B) is never
@@ -46,6 +54,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from teochat_torch.ops import _build
 from teochat_torch.ops import int4_matmul as int4_mod
 from teochat_torch.utils import resolve_device, tree_map
 
@@ -182,6 +191,116 @@ def quantized_proj(x: torch.Tensor, p: Dict[str, torch.Tensor],
     kernel is [in, out] and scale [out] (one layer's slice). `fp32_out`
     (the int8 lm_head) returns the scaled fp32 sum itself."""
     return _Int8Proj.apply(x, p["kernel"], p["scale"], fp32_out)
+
+
+# ------------------------------------------------------------- w8a8 (int8 x int8)
+
+# every w8a8 product (`int8_matmul`), on any device: a count of the int8
+# tensor-core GEMMs a run made (a CUDA graph's capture records it as a launch)
+ACT_I8_PRODUCTS = _build.LaunchCounter("w8a8_int_mm")
+INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    if t.shape[dim] >= size:
+        return t
+    pad = [0, 0] * (t.ndim - 1 - dim) + [0, size - t.shape[dim]]
+    return torch.nn.functional.pad(t, pad)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 -> int32 [M, N], exact.
+
+    One `torch._int_mm`: cuBLASLt's int8 tensor-core GEMM on the card, the
+    JAX package's int8 `einsum` with `preferred_element_type=int32` (an XLA
+    op there, not a Pallas kernel). On the card it takes M > 16 and K, N
+    multiples of 8: fewer rows, and K or N off a multiple of 8, are padded
+    with zeros and the result sliced back. Each row's int32 sum is exact and
+    depends on its own row alone, and zero columns add exact zeros, so the
+    padding changes no bit. On the card b goes to cuBLASLt K-contiguous
+    (column-major, its "TN" form): on an H100 the product runs 4-7x faster
+    that way (chip_smoke.py phase 21 (a)). The w8a8 tower's kernels are
+    stored so once (`quantize_vit_params`, `k_major`) and go straight in;
+    the decoder's int8 leaves, row-major because the w8a16 path reads them
+    too, are copied to that order on every call."""
+    m, k = a.shape
+    n = b.shape[1]
+    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+    rows = max(m, INT_MM_MIN_ROWS) if a.is_cuda else m
+    a_p = _pad_to(_pad_to(a, 1, k8), 0, rows)
+    b_p = _pad_to(_pad_to(b, 0, k8), 1, n8)
+    if b_p.is_cuda and b_p.stride(0) != 1:
+        b_p = b_p.t().contiguous().t()
+    ACT_I8_PRODUCTS.count += 1
+    y = torch._int_mm(a_p.contiguous(), b_p)
+    return y if (rows, n8) == (m, n) else y[:m, :n]
+
+
+def quantize_rows_i8(x: torch.Tensor):
+    """Per-token symmetric int8 quantization of x [..., K]: (x_i8, scale_x
+    fp32 [..., 1]). In fp32: amax over the feature axis, scale_x = amax *
+    fp32(1 / 127) (1 where amax is 0), round half to even, clip to ±127.
+
+    The scale takes the form XLA gives `amax / 127.0` under `jit` (a
+    multiplication by the fp32 reciprocal); the JAX package runs this
+    quantizer inside jitted programs (`llama_forward`, `encode_frames`), so
+    the port holds `jax.jit(quantized_proj_act_i8)` bit for bit (ROADMAP,
+    differences)."""
+    amax = x.abs().amax(dim=-1, keepdim=True).float()  # a max is exact in x's dtype
+    scale_x = torch.where(amax == 0, torch.ones_like(amax), amax * _INV_127)
+    x_i8 = torch.div(x, scale_x).round_().clamp_(-127, 127).to(torch.int8)  # in fp32
+    return x_i8, scale_x
+
+
+def quantized_proj_act_i8(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """w8a8 projection: per-token int8 activations times the int8 weight on
+    the int8 tensor cores, y = (x_i8 @ W_i8) * scale_x[token] *
+    scale_w[channel], the int32 sum converted to fp32, scaled in that order
+    and rounded once to x's dtype (the JAX function's fp32 chain).
+
+    kernel is [in, out] int8 and scale [out] fp32 (one layer's slice). The
+    quantize runs as plain torch ops (`quantize_rows_i8`); the product is
+    `int8_matmul`. No gradient reaches x through the rounding (as in JAX)."""
+    x_i8, scale_x = quantize_rows_i8(x)
+    kernel = p["kernel"]
+    y = int8_matmul(x_i8.reshape(-1, x.shape[-1]), kernel)
+    y = y.reshape(*x.shape[:-1], kernel.shape[-1]).float()
+    return (y * scale_x * p["scale"].float()).to(x.dtype)
+
+
+_VIT_QUANT_GROUPS = ("attn", "temporal_attn", "mlp")
+
+
+def k_major(kernel: torch.Tensor) -> torch.Tensor:
+    """The same [..., K, N] values stored K-contiguous (each [K, N] slice
+    column-major), the order `int8_matmul` hands cuBLASLt without a copy."""
+    return kernel.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def quantize_vit_params(params: Dict) -> Dict:
+    """Quantize the ViT encoder's projection kernels for the w8a8 encode
+    path: each kernel of the `attn`, `temporal_attn` and `mlp` groups
+    becomes {'kernel' int8, 'scale' fp32} by `quantize_kernel` (the eager
+    form, as the JAX function's), its bias kept; `vit._dense` takes the
+    w8a8 product where a leaf has a `scale`. The int8 kernel is stored
+    `k_major` (no other path reads it), so `int8_matmul` copies nothing.
+    LayerNorms, embeddings and the patch embedding stay as they are."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for group in _VIT_QUANT_GROUPS:
+        if group not in layers:
+            continue
+        g = {}
+        for name, proj in layers[group].items():
+            q = quantize_kernel(proj["kernel"])
+            q["kernel"] = k_major(q["kernel"])
+            if "bias" in proj:
+                q["bias"] = proj["bias"]
+            g[name] = q
+        layers[group] = g
+    out["layers"] = layers
+    return out
 
 
 def quantize_llama_params(params: Dict, quantize_lm_head: bool = True) -> Dict:

@@ -6,8 +6,7 @@ temporal system prefix on a first turn (:516-521), `mask2bbox` (brush mask
 -> [0, 100] bbox, :102-120) and `draw_bboxes` (the cv2 overlay, :62-101,
 303-340; cv2 is imported only when it draws). `build_request` assembles one
 turn's prompt from the port's own copies of the conversation templates and
-tokenizer helpers. `build_demo` (serve/demo.py) needs gradio. Not ported:
-`mm_use_im_start_end` prompts (ROADMAP queue 1 item 15) raise.
+tokenizer helpers. `build_demo` (serve/demo.py) needs gradio.
 """
 
 from __future__ import annotations
@@ -102,9 +101,6 @@ def build_request(
     from teochat_torch.eval.inference import replace_video_token
     from teochat_torch.mm_utils import tokenizer_image_token
 
-    if mm_use_im_start_end:
-        raise NotImplementedError(
-            "mm_use_im_start_end is not ported yet (ROADMAP queue 1 item 15)")
     if bbox is not None:
         text = f"{text} [{', '.join(str(int(b)) for b in bbox)}]"
     if first_turn and len(image_paths) > 0 and "<video>" not in text:
@@ -122,6 +118,10 @@ def build_request(
     if timestamps:
         image_paths = [image_paths[i] for i in _chronological(timestamps)]
     prompt = replace_video_token(prompt, image_paths, "interleave")
+    if mm_use_im_start_end:
+        from teochat_torch.vision_tokenizer import wrap_image_tokens
+
+        prompt = wrap_image_tokens(prompt)
 
     input_ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
     if image_paths and prompt.count("<image>"):
@@ -152,16 +152,14 @@ class Chat:
         session_max_len: int = 4096,
         device=None,
     ):
-        if quantize_vision:
-            raise NotImplementedError(
-                "quantize_vision (the w8a8 tower) is not ported yet (ROADMAP queue 1 item 15)")
         if model_bundle is not None:
             self.tokenizer, self.model, self.processor = model_bundle
         else:
             from teochat_torch.eval.eval import load_model
 
             self.tokenizer, self.model, self.processor = load_model(
-                model_path, load_8bit=load_8bit, vision_path=vision_path, device=device)
+                model_path, load_8bit=load_8bit, vision_path=vision_path,
+                quantize_vision=quantize_vision, device=device)
         self.conv_mode = conv_mode
         self._session = None
         if incremental:

@@ -340,7 +340,8 @@ def main(argv=None):
     p.add_argument("--vision_path", default=None)
     p.add_argument("--load_8bit", action="store_true", default=True)
     p.add_argument("--quantize_vision", action="store_true",
-                   help="w8a8 int8 vision tower (not ported yet)")
+                   help="w8a8 int8 vision tower (per-token int8 activations on the int8 "
+                        "tensor cores; close to, not equal to, bf16)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--continuous_batching", action="store_true",
@@ -372,16 +373,12 @@ def main(argv=None):
                         "the base model)")
     args = p.parse_args(argv)
 
-    if args.quantize_vision:
-        raise NotImplementedError("--quantize_vision (the w8a8 tower) is not ported yet "
-                                  "(ROADMAP queue 1 item 15)")
-
     from teochat_torch.serve.chat import Chat
     from teochat_torch.utils import resolve_device
 
     device = resolve_device(None)  # the card; raises without one
     chat = Chat(args.model_path, load_8bit=args.load_8bit, vision_path=args.vision_path,
-                device=device)
+                quantize_vision=args.quantize_vision, device=device)
     if args.lora_paths:
         from teochat_torch.builder import load_multi_lora
 

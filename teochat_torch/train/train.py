@@ -19,8 +19,14 @@ save at a step just saved periodically replaces that checkpoint without
 its `opt_state` (ROADMAP F7); a resume restarts the epoch's data order
 from its first batch (F8).
 
+With `mm_use_im_patch_token` / `mm_use_im_start_end` the vision tokens are
+added to a tokenizer that can grow and the embeddings resized
+(vision_tokenizer.py::initialize_vision_tokenizer), and the prompts carry
+the `<im_start><image><im_end>` wrap; a projector-only run then trains the
+input embeddings too (`embed_trainable_filter`).
+
 Not ported yet, and raising: a device mesh, sequence and pipeline axes
-(ROADMAP item 16); the vision tokenizer (item 15); MPT (item 14).
+(ROADMAP item 16); MPT (item 14).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from teochat_torch.train.trainer import (
     make_train_step,
 )
 from teochat_torch.utils import rank0_print, unported
+from teochat_torch.vision_tokenizer import embed_trainable_filter, initialize_vision_tokenizer
 
 
 @dataclass
@@ -252,6 +259,10 @@ def trainable_filter_of(model_args: ModelArguments, training_args: TrainingArgum
         trainable_filter = lora_trainable_filter
     elif model_args.tune_mm_mlp_adapter:
         trainable_filter = lambda p: "projector" in p  # noqa: E731
+        if model_args.mm_use_im_start_end:
+            # the new tokens' rows train with the adapter; the lm_head stays
+            # frozen (reference llava_arch.py:369-374)
+            trainable_filter = embed_trainable_filter(trainable_filter)
     elif model_args.freeze_backbone:
         trainable_filter = lambda p: not p.startswith("vision/")  # noqa: E731
     if model_args.freeze_mm_mlp_adapter and trainable_filter is not None:
@@ -282,8 +293,6 @@ def train(
     and padded token counts, and the seconds of its periodic save if it
     made one."""
     _refuse_mesh(training_args.mesh)
-    if model_args.mm_use_im_start_end:
-        raise unported("mm_use_im_start_end (the vision tokenizer)", 15)
     np.random.seed(training_args.seed)
     set_default_conversation(model_args.version)
 
@@ -306,10 +315,6 @@ def train(
             data_args.image_processor = ImageProcessor(size=cfg.vision.image_size)
     if cfg.llm_backend == "mpt":
         raise unported("training the MPT backend", 14)
-    if tokenizer is not None and hasattr(tokenizer, "add_tokens") and (
-            model_args.mm_use_im_start_end or model_args.mm_use_im_patch_token):
-        raise unported("mm_use_im_patch_token (the vision tokenizer; the recipe passes "
-                        "--mm_use_im_patch_token False)", 15)
     device = params["llm"]["embed_tokens"]["embedding"].device
 
     # sequence-length caps (train_teochat.sh:37)
@@ -320,7 +325,18 @@ def train(
             tokenizer_model_max_length=training_args.tokenizer_model_max_length
             or cfg.tokenizer_model_max_length,
         )
+    # the vision tokens (reference llava_arch.py:348-391 via train.py:1083-1086):
+    # added, the embeddings mean-resized, the wrap passed to the data; skipped
+    # for a tokenizer that cannot grow (no add_tokens)
     data_args.mm_use_im_start_end = model_args.mm_use_im_start_end
+    if tokenizer is not None and hasattr(tokenizer, "add_tokens") and (
+            model_args.mm_use_im_start_end or model_args.mm_use_im_patch_token):
+        pretrain_rows = None
+        if model_args.pretrain_mm_mlp_adapter and model_args.mm_use_im_start_end:
+            pretrain_rows = torch.load(model_args.pretrain_mm_mlp_adapter, map_location="cpu",
+                                       weights_only=True).get("model.embed_tokens.weight")
+        cfg, params, _ = initialize_vision_tokenizer(
+            model_args, cfg, params, tokenizer, pretrain_embed_rows=pretrain_rows)
 
     trainable_filter = trainable_filter_of(model_args, training_args)
     if training_args.lora_enable:

@@ -6,8 +6,8 @@ tokenizer and the eval phase's tokenizer; each ported phase (the serving
 engine's, eval's and the preprocessing ones among them) runs at a tiny
 configuration on "cpu" and
 returns the keys its JAX twin returns (the times are the host's here and say
-nothing of a card); an unported phase raises and names its ROADMAP item; the
-shared timing helper's bound arithmetic is checked.
+nothing of a card); no phase is left unported; the shared timing helper's
+bound arithmetic is checked.
 """
 
 import dataclasses
@@ -106,6 +106,8 @@ def test_train_mfu_same_arithmetic(jax_bench, full):
 
 PHASE_KEYS = {
     "encode": {"encode_s_per_batch", "encode_frames_per_sec"},
+    "encode_w8a8": {"encode_s_per_batch_w8a8", "encode_frames_per_sec_w8a8"},
+    "ttft_int8act": {"ttft_s_prefill640_int8act"},
     "decode": {"decode_tokens_per_sec", "decode_tokens_per_sec_min", "decode_tokens_per_sec_max",
                "ttft_s_prefill640_int8", "full_loop_s", "prefill_tokens", "hbm_stream_peak_gbps",
                "decode_effective_hbm_gbps", "decode_pct_of_hbm_peak"},
@@ -131,9 +133,12 @@ PHASE_KEYS = {
     # bench.py's eval keys carry its batch of 8; these tiny_eval's batch of 2
     "eval": {"eval_examples_per_sec_bs2", "eval_examples_per_sec_bs1", "eval_bs2_vs_bs1"},
     "preprocess": {"preprocess_pil_frames_per_sec", "preprocess_native_frames_per_sec"},
-    "encode_pipeline": {"h2d_mbps", "encode_sustained_fps_hostpre",
-                        "encode_sustained_fps_devicepre", "encode_frames_per_sec_deviceonly",
-                        "encode_sustained_vs_deviceonly"},
+    # the bf16 tower's keys, and the w8a8 tower's ending _w8a8
+    "encode_pipeline": {"h2d_mbps"} | {
+        k + suffix for k in ("encode_sustained_fps_hostpre", "encode_sustained_fps_devicepre",
+                             "encode_frames_per_sec_deviceonly",
+                             "encode_sustained_vs_deviceonly")
+        for suffix in ("", "_w8a8")},
 }
 
 
@@ -221,14 +226,6 @@ def test_default_settings_give_bench_pys_keys():
 
 def test_every_ported_phase_is_listed():
     assert set(PHASE_KEYS) | set(SPEC_PHASE_KEYS) == set(bench_main.PHASES)
-    assert not set(bench_main.PHASES) & set(bench_main.UNPORTED)
-    assert not any("item 8" in item for item in bench_main.UNPORTED.values())
-
-
-@pytest.mark.parametrize("name", sorted(bench_main.UNPORTED))
-def test_unported_phase_raises_and_names_its_item(tiny, name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-        bench_main.run_phase(name, tiny)
 
 
 def test_unknown_phase_and_missing_card():

@@ -341,47 +341,105 @@ def test_load_variants_hold_the_checkpoint(loaded, ckpts):
     assert_trees_equal(loaded("safetensors 8bit")[1][1].params, loaded("8bit")[1][1].params)
 
 
-@pytest.mark.parametrize("case", ["lora vocab", "mpt", "load_4bit", "quantize_vision", "vocab",
-                                  "patch_token", "allow_partial"])
+@pytest.mark.parametrize("case", ["mpt", "load_4bit"])
 def test_load_raises_for_what_is_not_ported(ckpts, tiny_towers, tmp_path, case):
     path = ckpts["TEOChat-tiny"]
     kwargs = dict(device="cpu")
     args = (path, None, None)
-    if case == "lora vocab":  # a LoRA dir that grew the vocab: vision_tokenizer's resize
-        lora = write_lora_dir(tmp_path / "teochat-lora", seed=5,
-                              config=hf_config(vocab_size=VOCAB + 2))
-        args = (lora, ckpts["base"], None)
-    elif case == "mpt":
+    if case == "mpt":
         args = (path, None, "llava-mpt-7b")
-    elif case in ("load_4bit", "quantize_vision"):
-        kwargs[case] = True
-    elif case == "allow_partial":  # a plain LM loads partial, but not past the vision tokens
-        sd = {k: v for k, v in ckpts["sd"].items()
-              if "mm_projector" not in k and "image_tower" not in k}
-        args = (write_checkpoint(tmp_path / case, sd, n_shards=1,
-                                 config=hf_config(mm_use_im_patch_token=True)), None, None)
-        kwargs[case] = True
     else:
-        sd = {k: v for k, v in ckpts["sd"].items()}
-        if case == "vocab":  # the embedding has more rows than the tokenizer has tokens
-            sd["model.embed_tokens.weight"] = torch.cat([sd["model.embed_tokens.weight"]] * 2)
-            config = hf_config()
-        else:
-            config = hf_config(mm_use_im_patch_token=True)
-        args = (write_checkpoint(tmp_path / case, sd, n_shards=1, config=config), None, None)
+        kwargs[case] = True
     with pytest.raises(NotImplementedError, match="ROADMAP item 1[2-5]|nf4"):
         torch_builder.load_pretrained_model(*args, **kwargs)
 
 
+def _grown_lora_dir(path, n_new):
+    """Branch A's dir after a fine-tune that grew the tokenizer by `n_new`
+    tokens: its config and tokenizer declare the larger vocab, and its
+    non-LoRA trainables hold the trained embedding of that many rows."""
+    lora = write_lora_dir(path, seed=5, config=hf_config(vocab_size=VOCAB + n_new))
+    write_tokenizer(lora, VOCAB + n_new)
+    nlt_file = os.path.join(lora, "non_lora_trainables.bin")
+    nlt = torch.load(nlt_file, weights_only=True)
+    key = "base_model.model.model.embed_tokens.weight"
+    extra = torch.randn(n_new, D, generator=torch.Generator().manual_seed(9)).half() * 0.5
+    nlt[key] = torch.cat([nlt[key], extra])
+    torch.save(nlt, nlt_file)
+    return lora
+
+
+@pytest.mark.parametrize("case", ["lora vocab", "quantize_vision", "vocab", "patch_token",
+                                  "allow_partial", "start_end 8bit"])
+def test_vision_extras_load_and_match_jax(ckpts, tiny_towers, tmp_path, case):
+    """The loads the vision extras allow, in both packages: branch A over a
+    base whose vocab its LoRA dir grew; the w8a8 tower (`quantize_vision`);
+    an embedding with more rows than the tokenizer has tokens (truncated);
+    `mm_use_im_patch_token` (one token added, the embedding and lm_head grown
+    by their mean); a plain LM loaded partial past the vision tokens; and
+    `mm_use_im_start_end` over an 8-bit load (four tokens added and the
+    lm_head resized on the host before it is quantized). The same config,
+    tokenizer length and tree, and where the model is whole the prefill
+    logits and greedy tokens of test_load_pretrained_model_matches_jax."""
+    kwargs = {}
+    args = (ckpts["TEOChat-tiny"], None)
+    if case == "lora vocab":
+        args = (_grown_lora_dir(tmp_path / "teochat-lora", 3), ckpts["base"])
+    elif case == "quantize_vision":
+        kwargs["quantize_vision"] = True
+    elif case == "allow_partial":
+        sd = {k: v for k, v in ckpts["sd"].items()
+              if "mm_projector" not in k and "image_tower" not in k}
+        args = (write_checkpoint(tmp_path / case, sd, n_shards=1,
+                                 config=hf_config(mm_use_im_patch_token=True)), None)
+        kwargs[case] = True
+    else:
+        sd = dict(ckpts["sd"])
+        config = {"vocab": hf_config(), "patch_token": hf_config(mm_use_im_patch_token=True),
+                  "start_end 8bit": hf_config(mm_use_im_start_end=True)}[case]
+        if case == "vocab":  # the embedding has more rows than the tokenizer has tokens
+            sd["model.embed_tokens.weight"] = torch.cat([sd["model.embed_tokens.weight"]] * 2)
+        if case == "start_end 8bit":
+            kwargs["load_8bit"] = True
+        args = (write_checkpoint(tmp_path / case.split()[0], sd, n_shards=1, config=config), None)
+    jtok, jm, jproc, _ = jax_builder.load_pretrained_model(*args, **kwargs)
+    ttok, tm, tproc, _ = torch_builder.load_pretrained_model(*args, device="cpu", **kwargs)
+    n_vocab = {"lora vocab": VOCAB + 3, "patch_token": VOCAB + 1, "allow_partial": VOCAB + 1,
+               "start_end 8bit": VOCAB + 4}.get(case, VOCAB)
+    assert len(ttok) == len(jtok) == n_vocab == tm.cfg.llm.vocab_size
+    assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
+    assert_trees_equal(tm.params, jm.params)
+    assert tm.params["llm"]["embed_tokens"]["embedding"].shape[0] == n_vocab
+    if case == "quantize_vision":
+        q = tm.params["vision"]["layers"]["attn"]["q"]
+        assert q["kernel"].dtype == torch.int8 and set(q) == {"kernel", "scale", "bias"}
+    if case == "allow_partial":
+        assert set(tm.params) == {"llm"}
+        return
+    frames = _frames()
+    got, want = _prefill_logits(jm, tm, PROMPT_IDS, frames)
+    tol = PREFILL_LOGITS_RTOL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    assert int(np.argmax(got)) == int(np.argmax(want))
+    assert tm.generate([PROMPT_IDS], frames, GREEDY) == jm.generate([PROMPT_IDS], frames, GREEDY)
+
+
 def test_load_defaults_to_the_card_and_the_video_processor_raises(ckpts, tiny_towers):
+    """Without a card the default device raises; the processor dict's video
+    entry is the port's VideoProcessor, which gives the JAX one's pixels on
+    decoded frames (tests/test_torch_host_copies.py holds it further)."""
+    from teochat_tpu.data.processing_extra import VideoProcessor as JaxVideoProcessor
+
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device is it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_builder.load_pretrained_model(ckpts["TEOChat-tiny"])
-    video = torch_builder.UnportedVideoProcessor()
+    video = torch_builder.load_pretrained_model(ckpts["TEOChat-tiny"], device="cpu")[2]["video"]
+    clip = np.random.RandomState(0).randint(0, 256, (10, 40, 52, 3), np.uint8)
+    want = JaxVideoProcessor(size=28).preprocess(clip)["pixel_values"]
     for call in (video, video.preprocess):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call(["a.mp4"])
+        np.testing.assert_array_equal(call(clip)["pixel_values"], want)
+    assert want.shape == (1, 8, 3, 28, 28)
 
 
 def test_load_config_and_strip_prefix_match_jax(ckpts):
@@ -630,10 +688,9 @@ def test_vision_tower_builder_and_random_init():
     with torch.no_grad():
         assert small(torch.zeros(2, 3, 28, 28)).shape == (2, 4, 32)
     for name in ("LanguageBind_Video_merge", "LanguageBind_Audio", "LanguageBind_Depth",
-                 "LanguageBind_Thermal"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            torch_towers.build_vision_tower(name)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        torch_towers.build_video_tower()
+                 "LanguageBind_Thermal"):  # each tower's config is JAX's
+        assert dataclasses.asdict(torch_towers.build_vision_tower(name).cfg) == \
+            dataclasses.asdict(jax_towers.build_vision_tower(name).cfg)
+    assert torch_towers.build_video_tower().cfg.add_time_attn
     with pytest.raises(ValueError, match="Unknown"):
         torch_towers.build_vision_tower("resnet50")

@@ -1767,3 +1767,49 @@ def test_multi_lora_spec_graph_equals_eager_and_the_single_models(lora_decoders,
     for row, a in enumerate(ids):
         assert torch.equal(got[0][row], _spec(models[a], prompt, True, k=4)[0][row]), (row, a)
     gen_mod.clear_decode_graphs()
+
+
+# ------------------------------------------------------------- w8a8 (_int_mm)
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 64, 640])
+def test_w8a8_int_mm_pads_rows_exactly(gen, m):
+    """`int8_matmul` on the card: torch._int_mm takes more than 16 rows, so
+    fewer are padded with zero rows and sliced off. The int32 sums equal the
+    exact product (fp64 on the card: |sum| < 2^27, exact there) at the
+    projection shapes of the 7B prefill and the tower, with b row-major (the
+    decoder's leaves) and `k_major` (the tower's), and a w8a8 projection
+    gives the CPU's bits."""
+    for k, n in ((4096, 1024), (1024, 4096), (4096, 12288)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        for w in (b, quant_mod.k_major(b)):
+            got = quant_mod.int8_matmul(a, w)
+            assert got.dtype == torch.int32 and got.shape == (m, n)
+            assert torch.equal(got.double(), a.double() @ b.double())
+    x = torch.randn(m, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    p = quant_mod.quantize_kernel(torch.randn(1024, 1024, generator=gen, device="cuda") * 0.02)
+    got = quant_mod.quantized_proj_act_i8(x, p)
+    want = quant_mod.quantized_proj_act_i8(x.cpu(), {k: v.cpu() for k, v in p.items()})
+    assert torch.equal(got.cpu(), want)
+
+
+def test_w8a8_prefill_leaves_the_decode_graph_w8a16(decoders):
+    """With `int8_prefill_activations` the prefill takes one w8a8 product a
+    projection and the replayed decode steps none (a capture would record
+    it as a launch); the graph's tokens are the eager loop's."""
+    cfg = dataclasses.replace(GRAPH_CFG, int8_prefill_activations=True)
+    params, (embeds, lens, mask, pos) = decoders["int8"], _graph_prompt(4)
+    gen_mod.clear_decode_graphs()
+    out = []
+    for graphed in (False, True, True):
+        quant_mod.ACT_I8_PRODUCTS.reset()
+        tokens, n_gen, _ = gen_mod._generate_tokens(
+            params, cfg, embeds, lens, mask, pos, _never_stop(),
+            torch.Generator(device="cuda").manual_seed(0), max_new_tokens=11,
+            cache_len=GRAPH_S + 12, temperature=0.0, do_sample=False, top_p=1.0, pad_id=0,
+            graphed=graphed)
+        out.append((tokens.cpu(), n_gen.cpu(), quant_mod.ACT_I8_PRODUCTS.count))
+    for tokens, n_gen, count in out:
+        assert torch.equal(tokens, out[0][0]) and torch.equal(n_gen, out[0][1])
+        assert count == 7 * cfg.num_layers
+    gen_mod.clear_decode_graphs()

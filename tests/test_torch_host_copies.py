@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host modules (config,
 constants, conversation, mm_utils, utils, data.sampler, data.processing,
-eval.inference, eval.classification, eval.detection, eval.geometry,
-serve.maptiles, and serve.chat's host helpers) behave as their originals,
+data.processing_extra, eval.inference, eval.classification, eval.detection,
+eval.geometry, serve.maptiles, and serve.chat's host helpers) behave as
+their originals (the extra processors' pixels equal, exactly),
 the port imports nothing of JAX or of the JAX package, and its entry points
 default to the card."""
 
@@ -250,7 +251,7 @@ def test_port_has_no_import_of_jax_or_the_jax_package():
     assert {f"teochat_torch/{m}.py" for m in (
         "builder", "checkpoint/convert_hf", "native/__init__", "models/towers", "eval/eval",
         "eval/classification", "eval/detection", "eval/geometry", "data/processing",
-        "ops/quant", "serve/__init__", "serve/session", "serve/chat", "serve/server",
+        "data/processing_extra", "vision_tokenizer", "ops/quant", "serve/__init__", "serve/session", "serve/chat", "serve/server",
         "serve/demo", "serve/maptiles")} <= names
     bad = [(str(f.relative_to(REPO)), m.group(0).strip())
            for f in files for m in IMPORT_RE.finditer(f.read_text())]
@@ -412,3 +413,83 @@ def test_chat_host_helpers_equal_the_originals():
     for boxes, thickness in (([[10, 20, 50, 60]], 2), ([[0, 0, 100, 100], [5, 5, 6, 90]], 3)):
         np.testing.assert_array_equal(torch_chat.draw_bboxes(img.copy(), boxes, thickness=thickness),
                                       jax_chat.draw_bboxes(img.copy(), boxes, thickness=thickness))
+
+
+# ------------------------------------------------- data/processing_extra.py
+
+
+def _clip(n=9, hw=(30, 40), seed=0):
+    return np.random.RandomState(seed).randint(0, 256, (n, *hw, 3), np.uint8)
+
+
+@pytest.mark.parametrize("case", ["frames list", "array", "batch", "file"])
+def test_video_processor_equals_the_original(case, tmp_path):
+    """Decoded frames as a list, a [T, H, W, 3] array and a batch of clips
+    of other lengths, and an mp4 decoded by cv2: the same pixels."""
+    from teochat_tpu.data import processing_extra as jax_extra
+    from teochat_torch.data import processing_extra as torch_extra
+
+    if case == "frames list":
+        videos = [list(_clip())]
+    elif case == "array":
+        videos = _clip(12)
+    elif case == "batch":
+        videos = [_clip(5, seed=1), _clip(16, seed=2)]
+    else:
+        cv2 = pytest.importorskip("cv2")
+        videos = str(tmp_path / "clip.mp4")
+        out = cv2.VideoWriter(videos, cv2.VideoWriter_fourcc(*"mp4v"), 5, (40, 32))
+        if not out.isOpened():
+            pytest.skip("this cv2 cannot write mp4")
+        for i in range(12):
+            out.write(np.full((32, 40, 3), i * 20, np.uint8))
+        out.release()
+    want = jax_extra.VideoProcessor(num_frames=4, size=28).preprocess(videos)["pixel_values"]
+    got = torch_extra.VideoProcessor(num_frames=4, size=28)(videos)["pixel_values"]
+    assert got.shape == want.shape and got.shape[1:] == (4, 3, 28, 28)
+    np.testing.assert_array_equal(got, want)
+    for total, n in ((100, 8), (3, 8), (1, 4)):
+        np.testing.assert_array_equal(torch_extra.uniform_frame_indices(total, n),
+                                      jax_extra.uniform_frame_indices(total, n))
+    with pytest.raises(ValueError, match="empty video"):
+        torch_extra.uniform_frame_indices(0, 8)
+
+
+def test_video_backends_fail_as_the_original(tmp_path):
+    """An unknown backend raises NameError at construction; decord and
+    pytorchvideo, where they are not installed, raise ImportError naming
+    the opencv default when a path is decoded (arrays need neither)."""
+    from teochat_torch.data import processing_extra as torch_extra
+
+    with pytest.raises(NameError, match="video_decode_backend"):
+        torch_extra.VideoProcessor(video_decode_backend="nvdec")
+    for backend in ("decord", "pytorchvideo"):
+        vp = torch_extra.VideoProcessor(num_frames=2, size=28, video_decode_backend=backend)
+        assert vp(_clip(3))["pixel_values"].shape == (1, 2, 3, 28, 28)
+        try:
+            vp._decode(str(tmp_path / "missing.mp4"))
+        except ImportError as e:
+            assert "opencv" in str(e)
+        except Exception:  # noqa: BLE001 - the library is installed and the file is missing
+            pass
+
+
+def test_depth_thermal_and_audio_processors_equal_the_originals():
+    from teochat_tpu.data import processing_extra as jax_extra
+    from teochat_torch.data import processing_extra as torch_extra
+
+    rs = np.random.RandomState(3)
+    depth = [rs.rand(50, 60) * 10, rs.rand(40, 40, 1) * 3, np.zeros((30, 30))]
+    for cls, kw in (("DepthProcessor", {}), ("DepthProcessor", {"max_depth": 4.0}),
+                    ("ThermalProcessor", {})):
+        want = getattr(jax_extra, cls)(size=28, **kw).preprocess(depth)["pixel_values"]
+        got = getattr(torch_extra, cls)(size=28, **kw)(depth)["pixel_values"]
+        assert got.shape == (3, 3, 28, 28)
+        np.testing.assert_array_equal(got, want)
+    t = np.linspace(0, 1, 8000, dtype=np.float32)
+    waves = [np.sin(2 * np.pi * 440 * t), rs.randn(3000).astype(np.float32)]
+    kw = dict(sample_rate=8000, num_mels=16, target_length=64, size=28)
+    want = jax_extra.AudioProcessor(**kw).preprocess(waves)["pixel_values"]
+    got = torch_extra.AudioProcessor(**kw)(waves)["pixel_values"]
+    assert got.shape == (2, 3, 28, 28) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)

@@ -141,15 +141,30 @@ def test_cached_prefill_then_decode_matches_jax(quant, kv_heads):
 
 def test_unported_options_raise(plain_params):
     """A cache wider than the batch and attend_cache are ported (the serving
-    engine's modes, tests/test_torch_engine.py); what is not raises."""
+    engine's modes, tests/test_torch_engine.py), and so is the w8a8 prefill
+    (tests/test_torch_w8a8.py): with `int8_prefill_activations` a decode
+    step (S = 1) keeps w8a16 and takes no int8 x int8 product, a prefill
+    takes one a projection; what is not ported raises."""
     cfg, params = plain_params
     tparams = to_torch(_np_tree(params), "cpu")
     cache = torch_llama.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
     x = torch.zeros(1, 1, cfg.hidden_size)
     one = torch.zeros(1, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        torch_llama.llama_forward(tparams, dataclasses.replace(cfg, int8_prefill_activations=True),
-                                  x, position_ids=one, cache=cache, write_slots=one)
+    q8 = to_torch(_np_tree(jax_quant.quantize_llama_params(params)), "cpu")
+    w8a8 = dataclasses.replace(cfg, int8_prefill_activations=True)
+    step = torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(0))
+    counter = torch_quant.ACT_I8_PRODUCTS
+    for c in (cfg, w8a8):
+        counter.reset()
+        cache1 = torch_llama.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
+        got = torch_llama.llama_forward(q8, c, step, position_ids=one, cache=cache1,
+                                        write_slots=one)
+        assert counter.count == 0
+        if c is cfg:
+            want = got
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch_llama.llama_forward(q8, w8a8, step.expand(1, 3, -1), position_ids=torch.arange(3)[None])
+    assert counter.count == 7 * cfg.num_layers  # q, k, v, out, gate, up, down; not the lm_head
     with pytest.raises(ValueError, match="outside a cache of 2 rows"):
         torch_llama.llama_forward(tparams, cfg, torch.zeros(2, 1, cfg.hidden_size),
                                   position_ids=one.expand(2, 1), cache=cache,

@@ -7,8 +7,9 @@ frames and timestamps, the third adding a frame that sorts before the
 others; history, the bbox suffix, reset, and a failed turn that commits
 nothing; the JAX tests/test_server.py cases against the port's ChatServer
 on an ephemeral port; the demo against a stub gradio as tests/test_demo.py
-drives it; the options that are not ported raise, and a turn with
-`speculative_k` is answered (over HTTP too, its counters in /stats).
+drives it; a turn with `speculative_k` is answered (over HTTP too, its
+counters in /stats); `mm_use_im_start_end`'s wrap and `--quantize_vision`
+reach the prompt and the loader.
 """
 
 import base64
@@ -66,7 +67,8 @@ def _imgs(n=2, seed=0, shape=(40, 40, 3)):
 # ----------------------------------------------------------- build_request
 
 
-@pytest.mark.parametrize("case", ["first turn with frames", "history and bbox", "text only"])
+@pytest.mark.parametrize("case", ["first turn with frames", "history and bbox", "text only",
+                                  "im_start_end"])
 def test_build_request_gives_the_jax_ids(case):
     history = [(SYSTEM_PREFIX + "<video>\nWhat is here?", "a field"), ("And now?", "a road")]
     kwargs = {
@@ -76,6 +78,8 @@ def test_build_request_gives_the_jax_ids(case):
                                  timestamps=["2020-03-01", "2019-01-01"], bbox=[10, 20, 30.7, 40],
                                  history=history, first_turn=False),
         "text only": dict(text="Hello there", image_paths=[]),
+        "im_start_end": dict(text="Describe the change.", image_paths=["b", "a"],
+                             timestamps=["2020-03-01", "2019-01-01"], mm_use_im_start_end=True),
     }[case]
     proc = types.SimpleNamespace(
         preprocess=lambda paths: {"pixel_values": np.arange(len(paths), dtype=np.float32)})
@@ -148,10 +152,18 @@ def test_a_failed_turn_commits_nothing(params):
 
 
 def test_unported_options_raise(params):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _torch_chat(params, quantize_vision=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_request("q", [], MockTokenizer(), None, mm_use_im_start_end=True)
+    """The options this module once refused are ported: `quantize_vision`
+    (which, as in the JAX Chat, acts on a load and not on a model bundle)
+    and `mm_use_im_start_end`'s wrap around each frame's <image>."""
+    assert _torch_chat(params, quantize_vision=True).generate(
+        "q", [], temperature=0.0, max_new_tokens=2) == _torch_chat(params).generate(
+        "q", [], temperature=0.0, max_new_tokens=2)
+    proc = types.SimpleNamespace(
+        preprocess=lambda p: {"pixel_values": np.zeros((len(p), 3, 2, 2), np.float32)})
+    wrapped, plain = (build_request("q", ["a"], MockTokenizer(), proc, mm_use_im_start_end=w)[0]
+                      for w in (True, False))
+    want = jax_chat.build_request("q", ["a"], MockTokenizer(), proc, mm_use_im_start_end=True)[0]
+    assert list(wrapped) == list(want) and len(wrapped) > len(plain)
     # speculative decoding is ported: a turn with speculative_k is answered,
     # with the tokens of a turn without it
     chat = _torch_chat(params)
@@ -160,12 +172,22 @@ def test_unported_options_raise(params):
     assert len(chat.history) == 1 and chat._session.stats["spec_steps"] >= 1
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--quantize_vision"], "item 15"),
-])
-def test_server_main_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        server_mod.main(["--model_path", "unused"] + flag)
+def test_server_main_passes_quantize_vision(monkeypatch):
+    """`--quantize_vision` reaches the loader through Chat (the w8a8 tower)."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_chat(*args, **kwargs):
+        seen.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(chat_mod, "Chat", fake_chat)
+    monkeypatch.setattr("teochat_torch.utils.resolve_device", lambda device: "cpu")
+    with pytest.raises(Stop):
+        server_mod.main(["--model_path", "unused", "--quantize_vision"])
+    assert seen["quantize_vision"] is True
 
 
 def test_server_main_needs_a_card(monkeypatch):

@@ -398,17 +398,14 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny, tmp_path):
 
 def test_train_refuses_what_is_not_ported(tiny, tmp_path):
     """What stays unported raises, naming its ROADMAP item: the device mesh
-    and its sequence and pipeline axes (item 16), the vision tokenizer
-    (item 15: mm_use_im_start_end, or mm_use_im_patch_token with a
-    tokenizer that can grow), the MPT backend (item 14)."""
+    and its sequence and pipeline axes (item 16), the MPT backend (item 14).
+    The vision tokenizer is ported (tests/test_torch_vision_tokenizer.py
+    trains with it): a projector-only run with mm_use_im_start_end trains
+    the input embeddings and not the lm_head, as JAX's."""
     from teochat_torch.config import MeshConfig
     from teochat_torch.train import train as torch_train_mod
 
     cfg, params = tiny
-
-    class GrowingTokenizer(MockTokenizer):
-        def add_tokens(self, tokens, special_tokens=False):
-            return 0
 
     def run(model_kw=None, cfg=cfg, tokenizer=MockTokenizer, **train_kw):
         torch_train_mod.train(
@@ -420,10 +417,16 @@ def test_train_refuses_what_is_not_ported(tiny, tmp_path):
                  MeshConfig(data=2, fsdp=-1)):
         with pytest.raises(NotImplementedError, match="item 16"):
             run(mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run(dict(mm_use_im_start_end=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run(tokenizer=GrowingTokenizer)
+    from teochat_tpu.vision_tokenizer import embed_trainable_filter as jax_embed_filter
+
+    args = torch_train_mod.ModelArguments(tune_mm_mlp_adapter=True, mm_use_im_start_end=True)
+    keep = torch_train_mod.trainable_filter_of(
+        args, torch_train_mod.TrainingArguments(output_dir=str(tmp_path), lora_enable=False))
+    want = jax_embed_filter(lambda p: "projector" in p)
+    for path in ("llm/embed_tokens/embedding", "llm/lm_head/kernel", "projector/layers/0/kernel",
+                 "vision/layers/attn/q/kernel", "llm/layers/attn/q/kernel"):
+        assert keep(path) == want(path), path
+    assert keep("llm/embed_tokens/embedding") and not keep("llm/lm_head/kernel")
     mpt = dataclasses.replace(cfg, llm_backend="mpt")
     with pytest.raises(NotImplementedError, match="item 14"):
         run(cfg=mpt)
