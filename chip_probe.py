@@ -825,13 +825,14 @@ def cmd_k1k4a(smoke, args):
         l = torch.empty_like(m)
         for (bq, bk, stages), lib in libs.items():
             stream = torch.cuda.current_stream().cuda_stream
-            tail = (b, s, s, h, h, d, *flash_mod._strides(q, k, v), scale, 1, stream)
+            # no bias table: a null pointer and a stride of 0
+            tail = (b, s, s, h, h, d, *flash_mod._strides(q, k, v), 0, scale, 1, stream)
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
             if stats:
                 run = lambda: lib.teochat_flash_attention_fwd_res(  # noqa: E731
-                    *ptrs, m.data_ptr(), l.data_ptr(), *tail)
+                    *ptrs, m.data_ptr(), l.data_ptr(), 0, *tail)
             else:
-                run = lambda: lib.teochat_flash_attention_fwd(*ptrs, *tail)  # noqa: E731
+                run = lambda: lib.teochat_flash_attention_fwd(*ptrs, 0, *tail)  # noqa: E731
             out.zero_()
             rc = run()
             torch.cuda.synchronize()

@@ -256,7 +256,21 @@ them. Phases, each printing its lines before the last:
     `mm_use_im_start_end` and `mm_use_im_patch_token` set, loaded with
     `load_8bit` (five tokens added, the embedding and the int8 lm_head
     grown; seconds and peak beside phase 10's), one `eval()` example whose
-    prompt wraps each <image>.
+    prompt wraps each <image>;
+22. the MPT backend, after phase 6 (its own generator): (a) K1's `bias_k`
+    branch against its plain twin with MPT-7B's ALiBi table for a 4,096-slot
+    cache at the 2-frame prefill's shape, the multiquery case (one kv head)
+    and a ragged S, ms beside the bias-free K1 in the same call, the plain
+    twin and SDPA with a float mask; K4a's o, m and l
+    with the bias; (b) LLaVA-MPT at MPT-7B's width and depth, int8 (random
+    weights): a 2-frame greedy request of 32 tokens through
+    TEOChat.generate, K1's bias branch launching once a layer for the
+    prefill, TTFT and decode tok/s, the prefill's last logits against plain
+    attention (LOGITS_REL_L2_BOUND); (c) its decode graph's tokens and
+    last logits bit-equal to the eager loop's, twice; (d) a speculative
+    greedy request (k 4); (e) a session's turn 2 and an engine request,
+    (d) and (e) each the plain greedy tokens or within SPEC_GAP_TOL of a
+    teacher-forced maximum at a near-tie. The model is freed after.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -267,14 +281,16 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16; 1,979 TOP/s for an int8 product), the H100 SXM's
 published rates.
 
-The line before the last is a JSON object with each of the twenty-one
-kernel rows' launches, error, times and bound (K2 and K2m twice: on a bf16
+The line before the last is a JSON object with each of the twenty-two
+kernel rows' launches, error, times and bound (K1 twice: bias-free, its
+launches the int4 path's, and with MPT's bias, its launches the MPT
+request's; K2 and K2m twice: on a bf16
 and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
 "fp8_generate", the engine phase's
 numbers under "engine", the batched eval's and preprocessing's under
-"eval", multi-LoRA's under "multi_lora" and phase 21's under
-"vision_extras" (K3c has two: its wrapper runs the M > 8 kernel at prefill
+"eval", multi-LoRA's under "multi_lora", phase 21's under
+"vision_extras" and phase 22's under "mpt" (K3c has two: its wrapper runs the M > 8 kernel at prefill
 and the split-K one at decode; K2m's launches are the chat server's five
 turns, the spec turn's verify blocks among them); the last line is
 {"ok": true, "device": {...}}.
@@ -306,7 +322,7 @@ from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.bench import main as bench_main
 from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.bench._timing import bound_ms, kernel_row, sync, time_ms, wall
-from teochat_torch.config import GenerationConfig, TEOChatConfig
+from teochat_torch.config import GenerationConfig, MptConfig, TEOChatConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from teochat_torch.eval.classification import classification_metrics
 from teochat_torch.eval.inference import run_inference, run_inference_single
@@ -316,6 +332,7 @@ from teochat_torch.data.dataset import DataArguments, make_supervised_data_modul
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
+from teochat_torch.models import mpt as mpt_mod
 from teochat_torch.models import teochat as teochat_mod
 from teochat_torch.models.vit import layer_index
 from teochat_torch.ops import _build
@@ -325,6 +342,7 @@ from teochat_torch.ops import int4_matmul as int4_mod
 from teochat_torch.ops import quant as quant_mod
 from teochat_torch.ops import vit_attention as vit_mod
 from teochat_torch.serve import engine as engine_mod
+from teochat_torch.serve.session import ChatSession
 from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
 
@@ -349,8 +367,17 @@ DECODE_TOL = 2e-2
 # 8.6e-3 to 1.2e-2 against the walk, where DECODE_TOL passes the last two
 K2M_REL_MAX = 1e-2
 K2M_WALK_REL_MAX = 5e-3
-# ||logits(kernels) - logits(plain)|| / ||logits(plain)|| after 32 bf16 layers
+# ||logits(kernels) - logits(plain)|| / ||logits(plain)|| after 32 bf16 layers;
+# it holds the MPT-7B-width request too (K1 with its ALiBi bias against plain
+# attention), read 1.707e-02 there on an H100 80GB HBM3 at 700 W: the bias
+# adds little (the plain twin rounds it at an ulp of 2.4e-4, the kernel after
+# shifting each head's table)
 LOGITS_REL_L2_BOUND = 5e-2
+# The MPT phase's ALiBi table is sized to a 4,096-slot cache, as mpt_forward
+# sizes it to its cache: a prefill's biases reach -3,443 there
+MPT_TABLE_SLOTS = 4096
+# K4a's m with the bias: near -3,000, where an ulp is 2.4e-4; four of them
+MPT_STAT_M_TOL = 1e-3
 # A greedy token of the speculative path against one teacher-forced prefill
 # of the prompt and the emitted tokens: its distance from its position's
 # largest logit, in rms units of that position's logits. Two correct bf16
@@ -1068,7 +1095,7 @@ def phase_vit_attention(gen):
 
 
 INFERENCE_COUNTERS = {  # the kernels an inference path may launch
-    "K1": flash_mod.LAUNCHES, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
+    "K1": flash_mod.LAUNCHES, "K1 bias": flash_mod.LAUNCHES_BIAS, "K2": dec_mod.LAUNCHES, "K3a": int4_mod.LAUNCHES_FLAT,
     "K3b": int4_mod.LAUNCHES_TILED, "K3c": int4_mod.LAUNCHES_STACKED,
     "K3c M<=8": int4_mod.LAUNCHES_STACKED_SMALL_M, "K5": vit_mod.LAUNCHES,
     "K2m": dec_mod.LAUNCHES_MULTI, "K2 e4m3": dec_mod.LAUNCHES_E4M3,
@@ -1297,7 +1324,7 @@ def teacher_forced_gaps(model, ids, frames, out):
     mask = torch.as_tensor(plan.attention_mask, device="cuda")
     cache = llama_mod.init_cache(cfg.llm, 1, pad_to + 1, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
-        logits = llama_mod.llama_forward(model.params["llm"], cfg.llm, embeds, position_ids=pos,
+        logits = gen_mod.backend_forward(model.params["llm"], cfg.llm, embeds, position_ids=pos,
                                          cache=cache, write_slots=torch.where(mask, pos, pad_to),
                                          logits_mode="all")[0]
     n, end = len(out), int(plan.seq_lens[0]) - 1
@@ -1655,7 +1682,8 @@ def phase_fp8_generate(model, tokenizer, processor, tag, batches=(1, 32)):
 def phase_logits(model, ids, frames, compare="attention"):
     """Last-position prefill logits of the 2-frame request, kernels against
     plain: `compare` = 'attention' (flash kernel vs plain attention) or
-    'int4' (int4 kernels vs plain int4_proj, the attention kernels in both)."""
+    'int4' (int4 kernels vs plain int4_proj, the attention kernels in both).
+    Returns the relative L2."""
     cfg = model.cfg
     vision = model.encode(frames)
     tpf = model.tokens_per_frame
@@ -1670,7 +1698,7 @@ def phase_logits(model, ids, frames, compare="attention"):
     for impl in ("auto", "plain"):
         cache = llama_mod.init_cache(cfg.llm, 1, pad_to + 2, dtype=torch.bfloat16, device="cuda")
         with plain_int4() if (compare, impl) == ("int4", "plain") else contextlib.nullcontext():
-            logits[impl] = llama_mod.llama_forward(
+            logits[impl] = gen_mod.backend_forward(
                 model.params["llm"], cfg.llm, embeds, position_ids=pos, cache=cache,
                 write_slots=pos, logits_mode="last", last_index=last,
                 attn_impl=impl if compare == "attention" else "auto",
@@ -1691,6 +1719,7 @@ def phase_logits(model, ids, frames, compare="attention"):
     if compare == "int4":  # the same token, unless the two best are closer than the error
         check(int(a.argmax()) == int(b.argmax()) or margin <= 2 * worst,
               "int4 kernels and plain int4_proj pick different tokens")
+    return rel
 
 
 def _flash_grads(fn, q, k, v, do):
@@ -2241,7 +2270,9 @@ def phase_int4_path(gen, tokenizer):
     check(counts["K5"] % vit_layers == 0, f"K5 per encode {counts}")
     phase_decode_graph(model, tokenizer, processor, ids, frames, "int4")
     phase_failed_capture(model, ids, frames)
-    phase_spec(model, tokenizer, processor, ids, frames, "int4")
+    # the verify iteration's ms at k 4 and 8 beside the plain step (k 1 and 7
+    # were cut for phase 22's time)
+    phase_spec(model, tokenizer, processor, ids, frames, "int4", sweep=(0, 4, 8))
     fp8 = phase_fp8_generate(model, tokenizer, processor, "int4")
     phase_logits(model, ids, frames, compare="int4")
     k3a_counts = phase_k3a_path(cfg, gen, tokenizer, processor)
@@ -4567,6 +4598,214 @@ def phase_vision_tokens(root, path, load_entry):
             "eval_s": eval_s, "vocab": n}
 
 
+# ------------------------------------------------- phase 22: the MPT backend
+
+def _alibi_table(h, s):
+    """MPT-7B's ALiBi table for a MPT_TABLE_SLOTS-slot cache (32 heads,
+    alibi_bias_max 8), its first H heads and S keys: a row-strided view, as
+    mpt_forward slices it for a prefill."""
+    return mpt_mod.alibi_bias(32, MPT_TABLE_SLOTS, device="cuda")[0, :h, 0, :s]
+
+
+def phase_mpt_kernels(gen):
+    """(a) K1's bias branch against its plain twin on the card: MPT-7B's
+    2-frame prefill shape with a 4,096-slot table (reported in the JSON
+    line), the multiquery case (one kv head, 32 slopes) and a ragged S; ms
+    beside the bias-free K1 on the same inputs in this call, the plain
+    twin, and scaled_dot_product_attention with a float mask holding the
+    causal -inf and the bias (materialized [1, H, S, T], in bf16, each row
+    shifted by its diagonal key's bias); K4a's o, m and l with the bias
+    against flash_statistics_plain. Returns (the row, extra numbers)."""
+    cases = [(1, 768, 32, 32, 128), (1, 768, 32, 1, 128), (1, 700, 32, 32, 128)]
+    worst, main, extra = 0.0, None, {}
+    for b, s, h, hkv, d in cases:
+        q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+        bias = _alibi_table(h, s)
+        got = flash_mod.flash_attention(q, k, v, bias_k=bias)
+        sync()
+        want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), bias_k=bias)
+        err = (got.float() - want).abs().max().item()
+        check(torch.isfinite(got).all().item(), "K1 bias output finite")
+        ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, bias_k=bias))
+        nobias_ms = time_ms(lambda: flash_mod.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: flash_mod.flash_attention_plain(q, k, v, bias_k=bias))
+        flops = 4 * b * h * s * s * d / 2
+        log(f"[K1 bias] B={b} S={s} H={h} Hkv={hkv} D={d} table of {MPT_TABLE_SLOTS} slots "
+            f"(min {bias.min().item():.1f}): max_abs_err={err:.3e} (tol {FLASH_TOL}) kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bias-free K1 {nobias_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        check(err <= FLASH_TOL, f"K1 bias error {err} > {FLASH_TOL}")
+        worst = max(worst, err)
+        if main is None:
+            # the library's call for the same function: SDPA with a float
+            # mask [1, H, S, T] in the inputs' bf16 holding the causal -inf
+            # and the bias, each row shifted by its diagonal key's bias (the
+            # softmax does not move; unshifted, bf16 cannot hold ALiBi's
+            # -3,443 to a slope's precision)
+            causal = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+            mask = ((bias[:, None, :] - bias[:, :, None]) + causal)[None].to(torch.bfloat16)
+
+            def sdpa():
+                return _bhsd(F.scaled_dot_product_attention(_bhsd(q), _bhsd(k), _bhsd(v),
+                                                            attn_mask=mask))
+
+            lib_ms = time_ms(sdpa)
+            lib_err = (sdpa().float() - want).abs().max().item()
+            check(lib_err == lib_err, "SDPA with the mask gave NaN")
+            nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d) + 4 * h * s  # + the table
+            main = kernel_row(None, ms, plain_ms, nbytes, flops, lib_ms)
+            extra = {"k1_bias_ms": ms, "k1_no_bias_ms": nobias_ms, "sdpa_mask_ms": lib_ms,
+                     "sdpa_mask_max_abs_err": lib_err}
+            log(f"[K1 bias] same shape: scaled_dot_product_attention with a bf16 mask "
+                f"[1, {h}, {s}, {s}] {lib_ms:.4f} ms (max_abs_err against the plain twin "
+                f"{lib_err:.3e}); bound {main['bound_ms']:.4f} ms ({main['bound_by']})")
+    main["max_abs_err"] = worst
+
+    b, s, h, d = 1, 768, 32, 128
+    q, k, v = _randn((b, s, h, d), gen), _randn((b, s, h, d), gen), _randn((b, s, h, d), gen)
+    bias = _alibi_table(h, s)
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, d ** -0.5, bias)
+    sync()
+    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float(),
+                                                      bias_k=bias)
+    want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), bias_k=bias)
+    o_err = (o.float() - want).abs().max().item()
+    m_err = (m - want_m).abs().max().item()
+    l_err = ((l - want_l).abs() / want_l).max().item()
+    log(f"[K4a bias] B={b} S={s} H={h} D={d}: o max_abs_err {o_err:.3e} (tol {FLASH_TOL}), "
+        f"m {m_err:.3e} (tol {MPT_STAT_M_TOL}), l relative {l_err:.3e} (tol {STAT_L_REL_TOL})")
+    check(o_err <= FLASH_TOL and m_err <= MPT_STAT_M_TOL and l_err <= STAT_L_REL_TOL,
+          "K4a's bias branch against flash_statistics_plain")
+    return main, extra
+
+
+def mpt_teochat_config():
+    """LLaVA-MPT at MPT-7B's published geometry (mosaicml/mpt-7b config.json:
+    d_model 4096, 32 layers, 32 heads, expansion 4, ALiBi with bias max 8,
+    no_bias, vocab 50,432) beside the full CLIP ViT-L/14 tower and the
+    mlp2x_gelu projector to 4096."""
+    base = TEOChatConfig()
+    llm = MptConfig(vocab_size=50432)
+    return dataclasses.replace(base, llm=llm, llm_backend="mpt",
+                               projector=dataclasses.replace(base.projector,
+                                                             hidden_size=llm.d_model))
+
+
+def _greedy_or_near_tie(model, ids, frames, got, want, what):
+    """A greedy path's tokens against another's: equal, or (two bf16 paths
+    that reduce in other orders, at a near-tie) each of `got`'s tokens
+    within SPEC_GAP_TOL rms of its position's largest logit in a
+    teacher-forced prefill. Returns whether they were equal."""
+    if got == want:
+        log(f"[mpt] {what}: the same {len(got)} tokens")
+        return True
+    gaps, _ = teacher_forced_gaps(model, ids, frames, got)
+    log(f"[mpt] {what}: the tokens leave the other path's at {_first_difference(got, want)}; "
+        f"each token's teacher-forced gap: largest {max(gaps):.3e} (bound {SPEC_GAP_TOL})")
+    check(max(gaps) <= SPEC_GAP_TOL, f"mpt {what}: a token {max(gaps)} rms below its max")
+    return False
+
+
+def phase_mpt(gen):
+    """The MPT serving path at MPT-7B width and depth, int8 (random weights
+    from `gen`): (b) a 2-frame greedy request of 32 tokens through
+    TEOChat.generate, K1's bias branch launching once a layer for the
+    prefill and no decode kernel after it, TTFT and decode tok/s, the
+    prefill's last logits against plain attention; (c) the decode graph's
+    tokens and last logits bit-equal to the eager loop's, twice; (d) a
+    speculative greedy request (k 4) against the plain tokens; (e) a
+    session's turn 2 and an engine request. Returns (the request's launch
+    counts, the JSON entry)."""
+    t_start = time.perf_counter()
+    tokenizer = WordTokenizer()
+    cfg = mpt_teochat_config()
+    model = teochat_mod.TEOChat(cfg, init_teochat(cfg, gen, "cuda", torch.bfloat16,
+                                                  quant="int8"), tokenizer=tokenizer)
+    n_layers = cfg.llm.n_layers
+    log(f"[mpt] LLaVA-MPT-7B int8 drawn in {time.perf_counter() - t_start:.1f} s: "
+        f"{_tree_bytes(model.params['llm']) / 2**30:.3f} GiB decoder, "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    processor = FrameProcessor(cfg.vision.image_size, SEED)
+    frames = processor.preprocess(["a", "b"])["pixel_values"]
+    ids = tokenizer_image_token(PROMPT_2.replace("<video>", "Image 1: <image> Image 2: <image>"),
+                                tokenizer, IMAGE_TOKEN_INDEX)
+    g1 = GenerationConfig(max_new_tokens=1, temperature=0.0, do_sample=False, stop_strings=())
+    g32 = dataclasses.replace(g1, max_new_tokens=32)
+    gen_mod.clear_decode_graphs()
+
+    # (b) the request, its launches, TTFT and decode
+    out, counts = counted("mpt", lambda: model.generate([ids], frames, g32))
+    out = out[0]
+    check(len(out) == 32 and all(0 <= t < cfg.llm.vocab_size for t in out), "mpt tokens")
+    check(counts["K1 bias"] == n_layers, f"mpt: K1's bias branch launched {counts['K1 bias']} "
+          f"times for the prefill, not {n_layers}")
+    check(counts["K5"] > 0 and counts["K1"] == counts["K2"] == counts["K2m"] == 0,
+          f"mpt: launches {counts}")
+    ttfts, fulls = [], []
+    for _ in range(3):
+        ttfts.append(wall(lambda: model.generate([ids], frames, g1))[1])
+        fulls.append(wall(lambda: model.generate([ids], frames, g32))[1])
+    # the least of each term's runs: a stall lengthens a run and never
+    # shortens one, so a median prefill could exceed the fastest full loop
+    ttft_s, full_s = min(ttfts), min(fulls)
+    tok_s = 31 / (full_s - ttft_s)
+    log(f"[mpt] 2-frame bs1 ({len(ids)} ids): TTFT {ttft_s * 1e3:.2f} ms, decode 31 steps "
+        f"{tok_s:.2f} tok/s ({(full_s - ttft_s) / 31 * 1e3:.2f} ms/step), from the least of 3 "
+        f"interleaved generates of 1 and of 32 tokens; answer {tokenizer.decode(out[:12])!r}")
+    rel = phase_logits(model, ids, frames)
+
+    # (c) the decode graph against the eager loop
+    runs = {}
+    for graphed in (False, True, True):
+        with decode_loop(graphed) as last:
+            got = model.generate([ids], frames, g32)[0]
+        runs.setdefault(graphed, []).append((got, last["logits"]))
+    (eager, eager_logits), replays = runs[False][0], runs[True]
+    bit_equal = all(got == eager and torch.equal(lg, eager_logits) for got, lg in replays)
+    entries = gen_mod.decode_graphs()
+    log(f"[mpt graph] graph tokens and last logits {'bit-equal to' if bit_equal else 'DIFFER from'}"
+        f" the eager loop's, twice; {len(entries)} graph, "
+        f"{sum(e.replays for e in entries)} replays")
+    check(bit_equal, "mpt: the decode graph's tokens or logits differ from the eager loop's")
+
+    # (d) speculative greedy against the plain tokens
+    spec = model.generate([ids], frames, dataclasses.replace(g32, speculative_k=4))[0]
+    spec_stats = dict(model.last_spec_stats)
+    spec_equal = _greedy_or_near_tie(model, ids, frames, spec, eager,
+                                     f"speculative k 4 ({spec_stats})")
+
+    # (e) a session's turn 2 and an engine request
+    g16 = dataclasses.replace(g1, max_new_tokens=16)
+    session = ChatSession(model, max_len=2048)
+    turn1 = session.generate(ids, frames, g16)
+    convo = ids + turn1 + tokenizer("What changed between the two images?").input_ids[1:]
+    turn2, turn2_s = wall(lambda: session.generate(convo, frames, g16))
+    check(session.stats["reused_tokens"] == len(ids) + len(turn1) - 1,
+          f"mpt session: {session.stats}")
+    session_equal = _greedy_or_near_tie(model, convo, frames, turn2,
+                                        model.generate([convo], frames, g16)[0],
+                                        f"session turn 2 ({turn2_s * 1e3:.1f} ms, {session.stats})")
+    del session
+    engine = engine_mod.BatchEngine(model, max_slots=2, max_len=1024, chunk=8).start()
+    try:
+        engine_out, engine_s = wall(lambda: engine.submit(ids, frames, g16))
+    finally:
+        engine.shutdown()
+    engine_equal = _greedy_or_near_tie(model, ids, frames, engine_out, eager[:16],
+                                       f"engine request ({engine_s * 1e3:.1f} ms)")
+    del engine, model
+    gen_mod.clear_decode_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mpt] after the model is deleted: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; phase {time.perf_counter() - t_start:.1f} s")
+    return counts, {"ttft_ms": ttft_s * 1e3, "decode_tokens_per_sec": tok_s,
+                    "prefill_logits_rel_l2": rel, "graph_bit_equal": bit_equal,
+                    "spec_tokens_equal": spec_equal, "spec_stats": spec_stats,
+                    "session_turn2_ms": turn2_s * 1e3, "session_tokens_equal": session_equal,
+                    "engine_ms": engine_s * 1e3, "engine_tokens_equal": engine_equal}
+
+
 def stamp(t0, what):
     log(f"[time] {time.perf_counter() - t0:.1f} s: {what} done")
 
@@ -4587,6 +4826,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     stamp(t0, "phases 1-6 and 21 (a), (b), (e)")
+    # the MPT phase draws from its own generator: the later phases' weights stay as they were
+    mpt_gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rows["K1 bias"], mpt_kernels = phase_mpt_kernels(mpt_gen)
+    mpt_counts, mpt_entry = phase_mpt(mpt_gen)
+    mpt_entry.update(mpt_kernels)
+    stamp(t0, "phase 22 (MPT)")
     tokenizer = WordTokenizer()
 
     int4_counts, k3a_counts, (fp8_int4, fp8_launches) = phase_int4_path(gen, tokenizer)
@@ -4672,6 +4917,9 @@ def main():
     kernels = [
         row("flash_attention", "flash_attention.cu", "flash_attention.py:32",
             int4_counts["K1"], rows["K1"]),
+        # the same kernel's bias branch (`has_bias_k`): the MPT request's prefill
+        row("flash_attention_bias", "flash_attention.cu", "flash_attention.py:32",
+            mpt_counts["K1 bias"], rows["K1 bias"]),
         row("decode_attention", "decode_attention.cu", "decode_attention.py:44",
             int4_counts["K2"], rows["K2"]),
         # no Pallas kernel: XLA's masked attention in the JAX cached path
@@ -4710,7 +4958,7 @@ def main():
     ]
     print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
                       "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8},
-                      "multi_lora": lora_entry,
+                      "multi_lora": lora_entry, "mpt": mpt_entry,
                       "train": {**train_entry, "bench": bench_train}, "vision_extras": extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,16 +77,25 @@ def wall(fn, device=None):
 def timeit_all(fn, iters, device=None, batches=3):
     """Wall seconds per call of each of `batches` batches of `iters` calls
     (ascending), after one warm-up; the device is drained at each batch's end."""
-    fn()
+    return timeit_interleaved([fn], iters, device, batches)[0]
+
+
+def timeit_interleaved(fns, iters, device=None, batches=3):
+    """timeit_all of each of `fns`, with their batches taken in turn (a, b, a,
+    b, ...): a load that comes and goes on the host falls on each alike, so
+    the difference of two of them is not the difference of two moments."""
+    for fn in fns:
+        fn()
     sync(device)
-    times = []
+    times = [[] for _ in fns]
     for _ in range(batches):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        sync(device)
-        times.append((time.perf_counter() - t0) / iters)
-    return sorted(times)
+        for fn, out in zip(fns, times):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            sync(device)
+            out.append((time.perf_counter() - t0) / iters)
+    return [sorted(t) for t in times]
 
 
 def timeit(fn, iters, device=None):

@@ -39,8 +39,13 @@ The train-time flow (reference train.py:961 + llava_arch.py:51): with
 without those subtrees, and `initialize_vision_modules` attaches them from
 `--image_tower` / `--pretrain_mm_mlp_adapter` or a fresh draw.
 
-Not ported yet, and raising where asked for: the MPT backend (ROADMAP item
-14).
+LLaVA-MPT (a model name holding "mpt", reference builder.py:107-133):
+`_load_mpt_model` reads the merged checkpoint's `transformer.*` decoder
+(models/mpt.py::convert_hf_mpt), its projector and tower, adds the vision
+tokens and resizes the tied `wte`; `load_8bit` quantizes the decoder's
+projections on the card a few layers at a time
+(ops/quant.py::quantize_mpt_params_host), and `load_int4` raises as the JAX
+loader does.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from teochat_torch.data.processing import ImageProcessor
 from teochat_torch.data.processing_extra import VideoProcessor
 from teochat_torch.models.teochat import TEOChat
 from teochat_torch.models.towers import tower_config
-from teochat_torch.utils import resolve_device, tree_leaves_with_path, tree_map, unported
+from teochat_torch.utils import resolve_device, tree_leaves_with_path, tree_map
 from teochat_torch.vision_tokenizer import add_vision_tokens, resize_token_embeddings
 
 
@@ -298,9 +303,13 @@ def load_pretrained_model(
             "bitsandbytes nf4 is not used; use load_int4 (packed w4a16) or "
             "load_8bit (int8 weight-only)"
         )
-    if "mpt" in model_name.lower():
-        raise unported("the MPT backend", 14)
     device = resolve_device(device)
+    if "mpt" in model_name.lower():
+        # LLaVA-MPT: a merged single-path checkpoint (no LoRA-dir MPT
+        # checkpoints were shipped)
+        return _load_mpt_model(model_path, model_base or model_path, device=device,
+                               load_8bit=load_8bit, load_int4=load_int4,
+                               vision_path=vision_path)
 
     base_path = model_base if model_base is not None else model_path
     lora_path = model_path if "lora" in model_name.lower() and model_base is not None else None
@@ -361,13 +370,73 @@ def load_pretrained_model(
     del llm_params, sd
 
     model = TEOChat(cfg, params, tokenizer=tokenizer)
-    # processor geometry follows the tower (224 in production; tiny in tests)
-    processor = {
+    return tokenizer, model, _processors(cfg), cfg.max_sequence_length
+
+
+def _processors(cfg: TEOChatConfig) -> Dict[str, Any]:
+    """The image and video processors; their geometry follows the tower (224
+    in production, tiny in tests)."""
+    return {
         "image": ImageProcessor(size=cfg.vision.image_size),
         "video": VideoProcessor(size=cfg.vision.image_size,
                                 video_decode_backend=cfg.video_decode_backend),
     }
-    return tokenizer, model, processor, cfg.max_sequence_length
+
+
+def _load_mpt_model(model_path: str, base_path: str, *, device, load_8bit: bool = False,
+                    load_int4: bool = False, vision_path: Optional[str] = None,
+                    ) -> Tuple[Any, TEOChat, Dict[str, Any], int]:
+    """LLaVA-MPT checkpoint load (reference builder.py:107-133, the mpt
+    branch; JAX builder.py `_load_mpt_model`): the `transformer.*` decoder,
+    the projector (under `transformer.mm_projector`) and tower subtrees,
+    the vision tokens added and the tied wte resized to the tokenizer."""
+    if load_int4:
+        raise NotImplementedError(
+            "packed int4 is wired for the llama backend (fused qkv/gateup "
+            "kernel layouts); MPT supports load_8bit or bf16"
+        )
+    from teochat_torch.models.mpt import convert_hf_mpt
+
+    cfg = load_config(model_path)
+    sd = _load_state_dict(base_path)
+    llm_params = convert_hf_mpt(sd, cfg.llm)
+    proj_keys = {k.replace("transformer.mm_projector", "model.mm_projector"): sd[k]
+                 for k in sd if "mm_projector" in k}
+    if not proj_keys:
+        raise ValueError(f"no mm_projector weights found for {model_path}")
+    proj_params = convert_hf.convert_projector(proj_keys, cfg.projector)
+    vision_params = _vision_params(sd, cfg, vision_path)
+
+    tokenizer = _load_tokenizer(model_path)
+    add_vision_tokens(tokenizer, cfg.mm_use_im_patch_token, cfg.mm_use_im_start_end)
+    if len(tokenizer) != llm_params["wte"]["embedding"].shape[0]:
+        # the shared resize works on an "embed_tokens" key; MPT has no lm_head
+        shim = resize_token_embeddings({"embed_tokens": llm_params["wte"]}, len(tokenizer))
+        llm_params = {**llm_params, "wte": shim["embed_tokens"]}
+    if cfg.llm.vocab_size != len(tokenizer):
+        import dataclasses
+
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, vocab_size=len(tokenizer)))
+
+    dtype = torch.bfloat16
+
+    def upload(tree):
+        return tree_map(lambda t: t.to(device, dtype), tree)
+
+    params = {"vision": upload(vision_params), "projector": upload(proj_params)}
+    del vision_params, proj_params
+    if load_8bit:
+        from teochat_torch.ops.quant import quantize_mpt_params_host
+
+        wte = llm_params["wte"]["embedding"]
+        params["llm"] = quantize_mpt_params_host(llm_params, device=device)
+        params["llm"]["wte"] = {"embedding": wte.to(device, dtype)}
+    else:
+        params["llm"] = upload(llm_params)
+    del llm_params, sd
+    model = TEOChat(cfg, params, tokenizer=tokenizer)
+    return tokenizer, model, _processors(cfg), cfg.max_sequence_length
 
 
 def initialize_vision_modules(

@@ -14,7 +14,10 @@ package's init scheme. With quant='int8' or 'int4' it draws and quantizes one
 layer's projection at a time, so the peak stays near the quantized model
 rather than the bf16 one (13.5 GB for the 7B decoder). `init_encoder(...,
 vision_quant="int8")` draws the tower's projections the same way into
-`quantize_vit_params`' layout (the w8a8 tower).
+`quantize_vit_params`' layout (the w8a8 tower). An MPT decoder
+(`cfg.llm` an MptConfig: `init_mpt`) is drawn the same way, its four
+projections a block int8 as `quantize_mpt_params` leaves them, the tied
+`wte` in `dtype`.
 
 The trees of the other towers cross too: the video tower's temporal leaves
 (`temporal_ln`, `temporal_attn`, `temporal_embedding`), the audio tower's
@@ -215,6 +218,53 @@ def _init_llama(ini: _Init, cfg, quant: Optional[str], fuse_projections: bool) -
     return params
 
 
+def _init_mpt(ini: _Init, cfg, quant: Optional[str]) -> Params:
+    """The JAX `init_mpt`'s simple scheme: every kernel N(0, 0.02), norm
+    scales ones (fp32), biases zeros where `no_bias` is off; quant='int8'
+    quantizes each block's four projections as they are drawn."""
+    if quant not in (None, "int8"):
+        raise NotImplementedError(
+            f"quant={quant!r}: the MPT decoder is served in its dtype or int8 "
+            "(the JAX loader refuses int4 for it)")
+    d, L = cfg.d_model, cfg.n_layers
+    hd = d // cfg.n_heads
+    ffn = cfg.expansion_ratio * d
+    std = 0.02
+
+    def dense(fan_in, fan_out):
+        p = ini.stacked(L, fan_in, fan_out, std, quant)
+        if not cfg.no_bias:
+            p["bias"] = ini.zeros((L, fan_out))
+        return p
+
+    def ln(shape):
+        p = {"scale": ini.ones32(shape)}
+        if not cfg.no_bias:
+            p["bias"] = ini.zeros(shape, torch.float32)
+        return p
+
+    return {
+        "wte": {"embedding": ini.normal((cfg.vocab_size, d), std)},
+        "layers": {
+            "norm1": ln((L, d)),
+            "wqkv": dense(d, d + 2 * cfg.num_kv_heads * hd),
+            "out_proj": dense(d, d),
+            "norm2": ln((L, d)),
+            "up_proj": dense(d, ffn),
+            "down_proj": dense(ffn, d),
+        },
+        "final_norm": ln((d,)),
+    }
+
+
+def init_mpt(cfg, generator: torch.Generator, device=None, dtype: torch.dtype = torch.bfloat16,
+             quant: Optional[str] = "int8") -> Params:
+    """A random MPT decoder alone (`cfg` is the MptConfig), drawn on `device`
+    (None = the card) from `generator`, its projections int8 when
+    quant='int8', one layer's at a time."""
+    return _init_mpt(_Init(generator, resolve_device(device), dtype), cfg, quant)
+
+
 def init_encoder(cfg: TEOChatConfig, generator: torch.Generator, device=None,
                  dtype: torch.dtype = torch.bfloat16,
                  vision_quant: Optional[str] = None) -> Params:
@@ -246,9 +296,14 @@ def init_teochat(cfg: TEOChatConfig, generator: torch.Generator, device=None,
     """Random TEOChat params on `device` (None = the card), drawn from
     `generator` (which must live on that device). The decoder's projections
     and lm_head are int8 when quant='int8' and packed int4 when quant='int4'
-    (q|k|v and gate|up fused unless `fuse_projections` is False); the tower
-    and projector stay in `dtype`."""
-    return {
-        **init_encoder(cfg, generator, device, dtype),
-        "llm": init_llama(cfg.llm, generator, device, dtype, quant, fuse_projections),
-    }
+    (q|k|v and gate|up fused unless `fuse_projections` is False); an MPT
+    decoder's four projections a block are int8 when quant='int8' (its tied
+    wte in `dtype`). The tower and projector stay in `dtype`."""
+    from teochat_torch.models.mpt import is_mpt
+
+    params = init_encoder(cfg, generator, device, dtype)
+    if is_mpt(cfg.llm):
+        params["llm"] = init_mpt(cfg.llm, generator, device, dtype, quant)
+    else:
+        params["llm"] = init_llama(cfg.llm, generator, device, dtype, quant, fuse_projections)
+    return params

@@ -9,7 +9,10 @@
 // accumulator; P is rounded to bf16 before P V; causal kv tiles above the
 // diagonal are skipped and the diagonal tile is masked per element; GQA query
 // head h reads kv head h / (H / Hkv); a row whose denominator is 0 is written
-// as 0 (the `l == 0` guard).
+// as 0 (the `l == 0` guard). With the BIAS flag (the `has_bias_k` branch
+// of both TPU kernels: ALiBi, the MPT backend) a key-separable fp32 table
+// bias [H, T] is added to each scaled score by query head and key before the
+// causal mask, and the row maximum is taken over the biased scores.
 //
 // What bounds it on an H100: at prefill and training lengths (S >= 512,
 // D = 128) the two products Q K^T and P V, that is tensor-core operations;
@@ -57,6 +60,22 @@
 // [B, S, H, D], m and l fp32 [B, H, S]. Keys past T score MASK_VALUE; rows
 // past S are computed on zeros and written nowhere. Causal masking assumes
 // S == T (a self-attention prefill), as the TPU kernel does.
+//
+// The bias branch. MPT sizes its table to the KV cache (T_max slots), so a
+// prefill's biases are large negative numbers (-slope (T_max - 1 - key), down
+// to ~-3,400 for the first head at 4,096 slots, where an fp32 ulp is ~2.4e-4).
+// Softmax does not move when a row's scores shift together, so each head's
+// table is taken relative to its last key's bias, bref = bias[h, T - 1]:
+// the scores then lie within slope x T of 0, where a base-2 score's
+// roundings are ~10x finer, and bref comes back only into m (K4a's statistic).
+// The table is read as given: rows `bias_sh` floats apart (a cache-sized
+// table's first T columns, read in place), by plain cached global loads, each
+// thread loading the 2 x BK / 8 columns of its score fragment once a kv tile,
+// where it applies them to both of its rows; a key at or past T reads 0 (TMA's
+// zero fill covers K and V there, not the table). A score becomes
+// s c2 + (bias - bref) log2(e) in one fma, is masked after that, and the
+// softmax runs on it with a unit multiplier. The bias-free instantiations
+// compile as before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -160,12 +179,14 @@ struct TileWalk {
 // STATS (K4a, the training forward) also writes each row's running max m
 // and denominator l, fp32 [B, H, S], for the backward kernels. `order` says
 // for q (bit 0), k (bit 1) and v (bit 2) whether the map has rows before heads.
-template <int D, bool STATS>
+// BIAS adds bias[h * bias_sh + key] to each scaled score (unread otherwise).
+template <int D, bool STATS, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS, NWG == 1 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, int order,
                  uint16_t* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 const float* __restrict__ bias, long long bias_sh,
                  int B, int S, int T, int H, int Hkv, float scale, int causal) {
   constexpr int BOXES = D / 64;  // 64-column boxes a row
   constexpr uint32_t Q_BOX = BQ * SWIZZLE_ROW_BYTES, KV_BOX = BK * SWIZZLE_ROW_BYTES;
@@ -279,6 +300,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       float m_run[2] = {-INFINITY, -INFINITY};  // base-2 units
       float l_run[2] = {0.f, 0.f};              // this thread's share of the row's sum
+      // the head's reference bias (see the note at the top); 0 without a bias
+      const float* brow = BIAS ? bias + tile.h * bias_sh : nullptr;
+      const float bref = BIAS && T > 0 ? __ldg(brow + T - 1) : 0.f;
 
       mbar_wait(q_full, n_tiles & 1);
       mbar_wait(bar(K_FULL, n_kv_tiles % STAGES), (n_kv_tiles / STAGES) & 1);
@@ -288,6 +312,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
       for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
         const int k0 = j * BK;
+        if constexpr (BIAS) {
+          // s c2 + (bias - bref) log2(e): a thread's keys are
+          // k0 + 8 nt + 2 tig + e, the same for its two rows, so each bias
+          // is loaded once a tile
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + nt * 8 + tig * 2 + e;
+              const float bl = col < T ? (__ldg(brow + col) - bref) * LOG2E : 0.f;
+              s[4 * nt + e] = fmaf(s[4 * nt + e], c2, bl);
+              s[4 * nt + 2 + e] = fmaf(s[4 * nt + 2 + e], c2, bl);
+            }
+          }
+        }
         // mask (ragged keys and the causal diagonal) where the tile needs it
         if (k0 + BK > T || (causal && k0 + BK - 1 > row_lo - gid)) {
 #pragma unroll
@@ -303,7 +342,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         // is MASK_VALUE before the scale: times c2 it stays far below any
         // real score (or overflows to -inf, which masks as well).
         float mul = c2;
-        if (!(c2 > 0.f)) {
+        if (BIAS) {
+          mul = 1.f;  // the scale is in the scores already
+        } else if (!(c2 > 0.f)) {
 #pragma unroll
           for (int i = 0; i < BK / 2; ++i) s[i] = s[i] == MASK_VALUE ? MASK_VALUE : s[i] * c2;
           mul = 1.f;
@@ -371,7 +412,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         if (row >= S) continue;
         if (STATS && tig == 0) {  // m and l are the same on the 4 lanes of a quad
           const long long idx = (static_cast<long long>(tile.b) * H + tile.h) * S + row;
-          m_out[idx] = m_run[r] * LN2;  // back to natural units: p = exp(s - m)
+          m_out[idx] = m_run[r] * LN2 + bref;  // back to natural units: p = exp(s - m)
           l_out[idx] = l;
         }
         const float inv = l == 0.f ? 1.f : 1.f / l;
@@ -385,13 +426,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, bool STATS>
+template <int D, bool STATS, bool BIAS>
 int launch_kernel(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
-                  int order, void* o, float* m, float* l, int B, int S, int T, int H, int Hkv,
-                  float scale, int causal, void* stream) {
+                  int order, void* o, float* m, float* l, const float* bias, long long bias_sh,
+                  int B, int S, int T, int H, int Hkv, float scale, int causal, void* stream) {
   // above 48 KB shared memory is dynamic and has to be asked for; the
   // attribute belongs to the device the launch goes to, so it is set each time
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, STATS>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, STATS, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes<D>()));
   int device = 0, sms = 0;
@@ -402,16 +443,19 @@ int launch_kernel(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUte
   const long long n_qt = (S + BQ - 1) / BQ;
   const long long items = (causal ? (n_qt + 1) / 2 : n_qt) * H * B;
   const int blocks = static_cast<int>(items < sms * (3 - NWG) ? items : sms * (3 - NWG));
-  flash_fwd_kernel<D, STATS><<<blocks, NTHREADS, smem_bytes<D>(), static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, order, static_cast<uint16_t*>(o), m, l, B, S, T, H, Hkv, scale, causal);
+  flash_fwd_kernel<D, STATS, BIAS><<<blocks, NTHREADS, smem_bytes<D>(),
+                                     static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, order, static_cast<uint16_t*>(o), m, l, bias, bias_sh, B, S, T, H,
+      Hkv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Encodes the three tensor maps from the pointers and strides of this call
-// (nothing is kept between calls), then launches.
+// (nothing is kept between calls), then launches: the BIAS instantiation
+// where a table is given, else the bias-free one.
 template <bool STATS>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m, float* l,
-               int B, int S, int T, int H, int Hkv, int D,
+               const float* bias, long long bias_sh, int B, int S, int T, int H, int Hkv, int D,
                long long q_sb, long long q_ss, long long q_sh,
                long long k_sb, long long k_st, long long k_sh,
                long long v_sb, long long v_st, long long v_sh,
@@ -424,39 +468,45 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m, f
   if (!err) err = encode_bf16_rows_map(&v_map, &v_rows_first, v, B, T, Hkv, D, v_sb, v_st, v_sh, BK);
   if (err) return err;
   const int order = q_rows_first | (k_rows_first << 1) | (v_rows_first << 2);
-  return D == 128 ? launch_kernel<128, STATS>(q_map, k_map, v_map, order, o, m, l, B, S, T, H, Hkv,
-                                              scale, causal, stream)
-                  : launch_kernel<64, STATS>(q_map, k_map, v_map, order, o, m, l, B, S, T, H, Hkv,
-                                             scale, causal, stream);
+  auto go = [&](auto kernel) {
+    return kernel(q_map, k_map, v_map, order, o, m, l, bias, bias_sh, B, S, T, H, Hkv, scale,
+                  causal, stream);
+  };
+  if (D == 128) return bias ? go(launch_kernel<128, STATS, true>) : go(launch_kernel<128, STATS, false>);
+  return bias ? go(launch_kernel<64, STATS, true>) : go(launch_kernel<64, STATS, false>);
 }
 
 }  // namespace
 
-// K1, the inference forward. Returns 0, or the error of the tensor maps'
-// encoding or of the launch.
+// K1, the inference forward. `bias` is the key-separable table
+// (`has_bias_k`): fp32 [H, T], rows bias_sh floats apart, each row
+// contiguous; null (and bias_sh 0) for none. Returns 0, or the error of the
+// tensor maps' encoding or of the launch.
 extern "C" int teochat_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, const void* bias,
     int B, int S, int T, int H, int Hkv, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh,
+    long long v_sb, long long v_st, long long v_sh, long long bias_sh,
     float scale, int causal, void* stream) {
-  return launch_fwd<false>(q, k, v, o, nullptr, nullptr, B, S, T, H, Hkv, D,
-                           q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-                           scale, causal, stream);
+  return launch_fwd<false>(q, k, v, o, nullptr, nullptr, static_cast<const float*>(bias),
+                           bias_sh, B, S, T, H, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
+                           v_sb, v_st, v_sh, scale, causal, stream);
 }
 
-// K4a, the training forward: K1 plus m and l (fp32 [B, H, S], contiguous).
+// K4a, the training forward: K1 plus m and l (fp32 [B, H, S], contiguous),
+// of the biased scores where a bias is given.
 // Replaces teochat_tpu/ops/flash_attention.py::_flash_fwd_res_kernel, whose
 // statistics are padded to 128 lanes for the TPU's tiling; here one float a row.
 extern "C" int teochat_flash_attention_fwd_res(
-    const void* q, const void* k, const void* v, void* o, void* m, void* l,
+    const void* q, const void* k, const void* v, void* o, void* m, void* l, const void* bias,
     int B, int S, int T, int H, int Hkv, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh,
+    long long v_sb, long long v_st, long long v_sh, long long bias_sh,
     float scale, int causal, void* stream) {
   return launch_fwd<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l),
-                          B, S, T, H, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
-                          v_sb, v_st, v_sh, scale, causal, stream);
+                          static_cast<const float*>(bias), bias_sh, B, S, T, H, Hkv, D,
+                          q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
+                          scale, causal, stream);
 }

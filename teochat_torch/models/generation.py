@@ -5,7 +5,9 @@ Port of teochat_tpu/models/generation.py (`StopSpec`, `make_stop_spec`,
 `_run_decode_loop`, the session API `prefill_full`, `prefill_suffix`,
 `decode_with_cache`, and prompt-lookup speculation `_ngram_match_start`,
 `_draft_lookup`, `_sample_excluding`, `generate_tokens_spec`,
-`_run_spec_decode_loop`, `decode_with_cache_spec`). The semantics are the
+`_run_spec_decode_loop`, `decode_with_cache_spec`) and its backend
+dispatch (`backend_embed`, `backend_forward`: the LLaMA or the MPT decoder,
+by the config). The semantics are the
 JAX package's: tokens after a row stops are `pad_id`, `n_gen` counts up to
 and including the stop token, and the loop ends when every row is done.
 
@@ -73,6 +75,7 @@ import torch
 
 from teochat_torch.config import LlamaConfig
 from teochat_torch.models import llama as llama_mod
+from teochat_torch.models import mpt as mpt_mod
 from teochat_torch.ops import _build
 from teochat_torch.utils import tree_leaves_with_path
 
@@ -90,6 +93,33 @@ DECODE_CHUNK = 2
 # PERF.md, Findings).
 SPEC_CHUNK = 1
 MAX_DECODE_GRAPHS = 4  # live DecodeGraph entries; the least recently used goes first
+
+
+# ------------------------------------------------------ backend dispatch
+#
+# The decode machinery is the same for both decoders; only the embedding
+# table and the stack differ. The decoder's params pick the backend
+# (mpt.is_mpt_params), as the JAX package's config type picks it.
+
+def backend_embed(params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    embed = mpt_mod.mpt_embed if mpt_mod.is_mpt_params(params) else llama_mod.embed_tokens
+    return embed(params, ids, dtype=dtype)
+
+
+def backend_forward(params, cfg, emb: torch.Tensor, *, position_ids: torch.Tensor,
+                    act_quant_ok: Optional[bool] = None, **kw) -> torch.Tensor:
+    """The cached-path decoder: llama_forward, or mpt_forward, which takes
+    the same cache contract (`kw`) and ignores position_ids (ALiBi) and
+    `act_quant_ok` (w8a8 prefill is a LLaMA-path knob)."""
+    if mpt_mod.is_mpt_params(params):
+        return mpt_mod.mpt_forward(params, cfg, emb, **kw)
+    return llama_mod.llama_forward(params, cfg, emb, position_ids=position_ids,
+                                   act_quant_ok=act_quant_ok, **kw)
+
+
+def embedding_table(llm_params) -> torch.Tensor:
+    """The decoder's token-embedding table: LLaMA's `embed_tokens` or MPT's tied `wte`."""
+    return llm_params["wte" if mpt_mod.is_mpt_params(llm_params) else "embed_tokens"]["embedding"]
 
 
 @dataclasses.dataclass
@@ -221,7 +251,7 @@ def _generate_tokens(params, cfg, inputs_embeds, seq_lens, attention_mask, posit
             cfg.vocab_size, max_new_tokens, tuple(np.shape(stop.keyword_ids)), n_adapters)
     trash = cache_len - 1
     slots = torch.where(attention_mask, position_ids, trash)
-    logits = llama_mod.llama_forward(
+    logits = backend_forward(
         params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
         write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
         adapter_route=adapter_route,
@@ -326,10 +356,9 @@ def _decode_iteration(params, cfg, st: DecodeState, generator, *, emb_dtype, **s
     JAX's `step_fn` with its forward moved to the front: the token of step
     s was fed at slot start_pos + s. Reads nothing back to the host."""
     pos = (st.start_pos + st.step)[:, None]  # [B, 1]
-    emb = llama_mod.embed_tokens(params, st.tok[:, None].long(), dtype=emb_dtype)
-    logits = llama_mod.llama_forward(params, cfg, emb, position_ids=pos, cache=st.cache,
-                                     write_slots=pos, logits_mode="last",
-                                     adapter_route=st.route)
+    emb = backend_embed(params, st.tok[:, None].long(), dtype=emb_dtype)
+    logits = backend_forward(params, cfg, emb, position_ids=pos, cache=st.cache,
+                             write_slots=pos, logits_mode="last", adapter_route=st.route)
     st.step.add_(1)
     _record(st, logits[:, -1], generator, **step_kw)
 
@@ -371,7 +400,7 @@ def prefill_full(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: tor
     prefill; padded positions write to the trash slot T_max - 1."""
     trash = cache.max_len - 1
     slots = torch.where(attention_mask.bool(), position_ids, trash)
-    logits = llama_mod.llama_forward(
+    logits = backend_forward(
         params, cfg, embeds, position_ids=position_ids, cache=cache, write_slots=slots,
         logits_mode="last", last_index=seq_lens - 1, adapter_route=adapter_route,
     )
@@ -396,7 +425,7 @@ def prefill_suffix(params, cfg: LlamaConfig, cache: llama_mod.KVCache, embeds: t
     slots = torch.where(attention_mask.bool(), abs_pos, t_max - 1)
     kv_mask = (torch.arange(t_max, device=embeds.device)[None, :]
                < (start + seq_lens)[:, None])
-    logits = llama_mod.llama_forward(
+    logits = backend_forward(
         params, cfg, embeds, position_ids=abs_pos, cache=cache, write_slots=slots,
         kv_mask=kv_mask, logits_mode="last", last_index=seq_lens - 1, spec_verify=True,
         act_quant_ok=True,  # a prefill: w8a8 where the config asks, as a stateless one
@@ -648,10 +677,10 @@ def _spec_iteration(params, cfg, st: SpecState, generator, *, spec_k: int, tempe
 
     blk = torch.cat([tok0[:, None], drafts], dim=1)  # [B, k + 1]
     blk_pos = (pos0[:, None] + torch.arange(k + 1, device=dev)[None, :]).clamp(max=t_max - 2)
-    emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
-    blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
-                                         write_slots=blk_pos, logits_mode="all",
-                                         spec_verify=True, adapter_route=st.route)  # [B, k + 1, V]
+    emb = backend_embed(params, blk.long(), dtype=emb_dtype)
+    blk_logits = backend_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
+                                 write_slots=blk_pos, logits_mode="all",
+                                 spec_verify=True, adapter_route=st.route)  # [B, k + 1, V]
     if sampling:
         p = torch.softmax(_filtered_logits(blk_logits[:, :k], temperature, top_p), dim=-1)
         pd = torch.gather(p, -1, drafts.long()[..., None])[..., 0]
@@ -780,7 +809,7 @@ def _generate_tokens_spec(params, cfg, inputs_embeds, seq_lens, attention_mask, 
             cfg.vocab_size, max_new_tokens, keyword_shape, hist_width,
             draft_keep=step_kw["draft_keep"], oracle=step_kw["oracle"], n_adapters=n_adapters)
     slots = torch.where(attention_mask, position_ids, cache_len - 1)
-    logits = llama_mod.llama_forward(
+    logits = backend_forward(
         params, cfg, inputs_embeds, position_ids=position_ids, cache=state.cache,
         write_slots=slots, logits_mode="last", last_index=seq_lens - 1,
         adapter_route=adapter_route,

@@ -1,10 +1,13 @@
-"""TEOChat: CLIP tower + projector + LLaMA decoder (port of teochat_tpu/models/teochat.py).
+"""TEOChat: CLIP tower + projector + LLaMA or MPT decoder (port of teochat_tpu/models/teochat.py).
 
 `TEOChat` has the JAX class's surface (`cfg`, `tokenizer`,
 `tokens_per_frame`, `encode`, `generate`), so `run_inference_single`
 (eval/inference.py, a copy of the JAX package's) drives it. Prompt lengths
 are bucketed as in the JAX package, so the cache size and the prefill shapes
-are the same on both backends. `forward_train` is the training loss.
+are the same on both backends. The decoder is LLaMA's or, for an
+MptConfig, LLaVA-MPT's (models/mpt.py: its tied `wte` embeds the text, and
+generation's backend dispatch runs it). `forward_train` is the training
+loss, on the LLaMA decoder only.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ from teochat_torch.checkpoint.bridge import init_teochat  # noqa: F401  (public 
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
+from teochat_torch.models import mpt as mpt_mod
 from teochat_torch.models.projector import projector_forward
 from teochat_torch.models.vit import select_features, vit_forward
 from teochat_torch.train import lora as lora_mod
-from teochat_torch.utils import tree_leaves_with_path
+from teochat_torch.utils import tree_leaves_with_path, unported
 
 Params = dict
 
@@ -31,12 +35,10 @@ SEQ_BUCKETS = (128, 256, 512, 768, 1024, 1536, 2048, 3072, 4352)
 FRAME_BUCKETS = (1, 2, 4, 8, 16)
 
 
-def _require_llama(cfg: TEOChatConfig) -> None:
-    """Configs are read by their fields, so a tree of the JAX package's
-    classes (field for field the same) describes the same model; an MPT
-    decoder is told by its `d_model` field, as `TEOChatConfig.from_json` does."""
-    if hasattr(cfg.llm, "d_model"):
-        raise NotImplementedError("only the LLaMA backend is ported")
+def _require_llama(params: Params) -> None:
+    """Training takes the LLaMA decoder only; an MPT one is told by its params."""
+    if mpt_mod.is_mpt_params(params["llm"]):
+        raise unported("training the MPT backend", 14)
 
 
 def round_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -59,11 +61,10 @@ def encode_frames(params: Params, cfg: TEOChatConfig, pixel_values: torch.Tensor
 
 def fuse_embeds(llm_params: Params, plan: fusion_mod.FusionPlan,
                 vision_tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings + vision splice -> [B, L, D]."""
-    if "wte" in llm_params:
-        raise NotImplementedError("the MPT backend is not ported yet")
+    """Token embeddings + vision splice -> [B, L, D]; MPT's tied `wte` table
+    where the params hold one."""
     text_ids = torch.as_tensor(plan.text_ids, dtype=torch.long, device=vision_tokens.device)
-    text_emb = llama_mod.embed_tokens(llm_params, text_ids, dtype=vision_tokens.dtype)
+    text_emb = gen_mod.backend_embed(llm_params, text_ids, dtype=vision_tokens.dtype)
     return fusion_mod.fuse(text_emb, vision_tokens, plan)
 
 
@@ -86,7 +87,7 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
     `remat` recomputes decoder layers in the backward (HF gradient
     checkpointing); `attn_impl='plain'` runs the plain attention instead.
     """
-    _require_llama(cfg)
+    _require_llama(params)
     dev = pixel_values.device
     tower_trains = any(x.requires_grad for _, x in tree_leaves_with_path(params["vision"]))
     with torch.set_grad_enabled(torch.is_grad_enabled() and tower_trains):
@@ -112,12 +113,11 @@ class TEOChat:
     """Imperative shell for the harnesses; params live on one device."""
 
     def __init__(self, cfg: TEOChatConfig, params: Params, tokenizer=None):
-        _require_llama(cfg)
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
         self.dtype = getattr(torch, cfg.dtype)
-        self.device = params["llm"]["embed_tokens"]["embedding"].device
+        self.device = gen_mod.embedding_table(params["llm"]).device
 
     @property
     def tokens_per_frame(self) -> int:

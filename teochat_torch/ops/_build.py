@@ -29,11 +29,12 @@ NVCC_FLAGS = (
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
+    # q, k, v, o (and K4a's m, l), the bias table or null; the bias rows' stride
     "teochat_flash_attention_fwd": (
-        [_P, _P, _P, _P] + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]
+        [_P] * 5 + [_I] * 6 + [_LL] * 10 + [_F, _I, _P]
     ),
     "teochat_flash_attention_fwd_res": (
-        [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]
+        [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _I, _P]
     ),
     "teochat_flash_attention_bwd_dkv": (
         [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P] * 2

@@ -2,8 +2,9 @@
 
 Port of teochat_tpu/ops/attention.py. `plain_attention` is the reference
 (the JAX package's `xla_attention`): fp32 logits and softmax whatever the
-input dtype. `dot_product_attention` sends a causal, bias-free
-self-attention (S == T) on a CUDA tensor to the hand-written flash kernels
+input dtype. `dot_product_attention` sends a causal self-attention
+(S == T) on a CUDA tensor, with no bias or with a key-separable one
+(`bias_k` [H, T], ALiBi: the MPT backend), to the hand-written flash kernels
 (ops/flash_attention.py): a right-padded one (the training forward) to the
 differentiable `flash_attention_trainable_padded`, dropping the padding mask
 as the JAX cache-free path does (causality hides the padded keys), and a
@@ -78,6 +79,7 @@ def dot_product_attention(
     v: torch.Tensor,
     *,
     bias: Optional[torch.Tensor] = None,
+    bias_k: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     scale: Optional[float] = None,
@@ -87,7 +89,12 @@ def dot_product_attention(
     """Attention entry point. impl: auto | plain | flash.
 
     `right_padded` says that `mask` only marks right padding of a causal
-    self-attention, so the flash kernels may drop it."""
+    self-attention, so the flash kernels may drop it. `bias_k` [H, T] is a
+    key-separable additive bias (ALiBi): unlike the general `bias` it stays
+    eligible for the flash kernel; on the plain path it broadcasts to
+    [1, H, 1, T]."""
+    if bias is not None and bias_k is not None:
+        raise ValueError("pass either bias or bias_k, not both")
     if impl == "auto":
         use_flash = (
             q.is_cuda
@@ -103,8 +110,11 @@ def dot_product_attention(
         if bias is not None or (mask is not None and not right_padded):
             raise ValueError("the flash kernels take no mask or bias")
         if right_padded:
-            return flash_mod.flash_attention_trainable_padded(q, k, v, causal, scale)
-        return flash_mod.flash_attention(q, k, v, causal=causal, scale=scale)
+            return flash_mod.flash_attention_trainable_padded(q, k, v, causal, scale,
+                                                              bias_k=bias_k)
+        return flash_mod.flash_attention(q, k, v, causal=causal, scale=scale, bias_k=bias_k)
     if impl != "plain":
         raise ValueError(f"unknown attention impl {impl!r}")
+    if bias_k is not None:
+        bias = bias_k[None, :, None, :]
     return plain_attention(q, k, v, bias=bias, mask=mask, causal=causal, scale=scale)

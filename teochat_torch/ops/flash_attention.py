@@ -14,6 +14,12 @@ TMA loads through a ring of shared-memory tiles; their source notes say what
 bounds them on the card and how they are laid out. A CPU tensor goes to the
 plain twin (ops/attention.py::plain_attention, with autograd for the
 trainable one); a CUDA tensor launches the kernels or raises.
+K1 and K4a take the JAX kernels' optional key-separable bias `bias_k`
+[H, T] fp32 (ALiBi, the MPT backend: models/mpt.py), added to each scaled
+score before the causal mask, as `_flash_kernel` adds its [1, block_k] tile;
+a launch with it is counted on LAUNCHES_BIAS. The backward kernels do not
+take it yet: `flash_attention_trainable(bias_k=...)` runs K4a with the bias
+and its backward raises (ROADMAP item 14).
 `flash_forward_schedule`, `flash_backward_dkv_schedule` and
 `flash_backward_dq_schedule` walk the kernels' tiles in plain PyTorch, so
 that their schedules can be held against the JAX kernels without a card.
@@ -27,8 +33,10 @@ import torch
 
 from teochat_torch.ops import _build
 from teochat_torch.ops.attention import NEG_INF, _repeat_kv, plain_attention
+from teochat_torch.utils import unported
 
 LAUNCHES = _build.LaunchCounter("flash_attention")  # K1
+LAUNCHES_BIAS = _build.LaunchCounter("flash_attention_bias")  # K1 with bias_k
 FWD_RES_LAUNCHES = _build.LaunchCounter("flash_attention_fwd_res")  # K4a
 BWD_DKV_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dkv")  # K4b
 BWD_DQ_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dq")  # K4c
@@ -43,20 +51,30 @@ BWD_DQ_BLOCK_Q = 128  # K4c: query rows a block owns, two warpgroups of 64
 BWD_DQ_BLOCK_K = 64  # K4c: keys a step of the ring
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None) -> torch.Tensor:
+def _bias_4d(bias_k: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[H, T] -> the [1, H, 1, T] additive bias of the plain attention."""
+    return None if bias_k is None else bias_k.float()[None, :, None, :]
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
+                          bias_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """What the kernel computes, in plain PyTorch (fp32 logits and softmax)."""
-    return plain_attention(q, k, v, causal=causal, scale=scale)
+    return plain_attention(q, k, v, causal=causal, scale=scale, bias=_bias_4d(bias_k))
 
 
-def flash_statistics_plain(q, k, v, *, causal: bool = True, scale=None):
+def flash_statistics_plain(q, k, v, *, causal: bool = True, scale=None,
+                           bias_k: Optional[torch.Tensor] = None):
     """What K4a stores beside o, in plain PyTorch: each row's largest scaled
-    score m and the sum l of exp(score - m) over its keys, fp32 [B, H, S]."""
+    score m (plus its key's bias_k) and the sum l of exp(score - m) over its
+    keys, fp32 [B, H, S]."""
     b, s, h, d = q.shape
     t = k.shape[1]
     if scale is None:
         scale = d ** -0.5
     logits = torch.einsum("bshd,bthd->bhst", q.float(),
                           _repeat_kv(k, h // k.shape[2]).float()) * scale
+    if bias_k is not None:
+        logits = logits + _bias_4d(bias_k)
     if causal:
         rows = torch.arange(s, device=q.device)[:, None] + (t - s)
         logits = torch.where(rows >= torch.arange(t, device=q.device)[None, :], logits, NEG_INF)
@@ -65,7 +83,8 @@ def flash_statistics_plain(q, k, v, *, causal: bool = True, scale=None):
 
 
 def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
-                           block_q: int = FWD_BLOCK_Q, block_k: int = FWD_BLOCK_K):
+                           block_q: int = FWD_BLOCK_Q, block_k: int = FWD_BLOCK_K,
+                           bias_k: Optional[torch.Tensor] = None):
     """The forward kernel's schedule, tile by tile, in plain PyTorch.
 
     Returns (o [B, S, H, D] in q's dtype, m, l fp32 [B, H, S]). As in
@@ -74,9 +93,13 @@ def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
     are read as zeros, and keys past T are then masked; scores are scaled
     into base-2 units, the running maximum, sum and accumulator are fp32, P
     is rounded to v's dtype (bf16 on the card) before P V; a row whose sum
-    is 0 is written as 0; m leaves in natural units. (The order in which a
-    block takes its tiles, and which warpgroup multiplies when, move no
-    number.)"""
+    is 0 is written as 0; m leaves in natural units. With `bias_k` [H, T]
+    each head's table is taken relative to its last key's bias bref (the
+    kernel's shift: softmax does not move, and the scores stay near 0 where
+    fp32 is finer), each score is s c2 + (bias - bref) log2(e), formed before
+    the mask (a key past T reads 0), the row maximum is taken over those, and
+    bref is added back to m. (The order in which a block takes its tiles,
+    and which warpgroup multiplies when, move no number.)"""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -87,6 +110,10 @@ def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
     qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_s)).float()
     kp = torch.nn.functional.pad(_repeat_kv(k, h // hkv), (0, 0, 0, 0, 0, pad_t)).float()
     vp = torch.nn.functional.pad(_repeat_kv(v, h // hkv), (0, 0, 0, 0, 0, pad_t))
+    bl, bref = None, torch.zeros((1, h, 1), device=q.device)
+    if bias_k is not None and t > 0:  # [1, H, 1, T + pad] in base-2 units, relative to bref
+        bref = bias_k.float()[None, :, t - 1:]
+        bl = torch.nn.functional.pad(bias_k.float() - bref[0], (0, pad_t))[None, :, None, :] * log2e
     o = torch.zeros((b, s + pad_s, h, d), dtype=torch.float32, device=q.device)
     m_out = torch.zeros((b, h, s + pad_s), dtype=torch.float32, device=q.device)
     l_out = torch.zeros_like(m_out)
@@ -103,6 +130,8 @@ def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
             cols = torch.arange(k0, k0 + block_k, device=q.device)
             sc = torch.einsum("bshd,bthd->bhst", qp[:, q0:q0 + block_q],
                               kp[:, k0:k0 + block_k]) * c2
+            if bl is not None:
+                sc = sc + bl[..., k0:k0 + block_k]
             dead = (cols >= t)[None, :]
             if causal:
                 dead = dead | (cols[None, :] > rows[:, None])
@@ -116,7 +145,7 @@ def flash_forward_schedule(q, k, v, *, causal: bool = True, scale=None,
             m = m_next
         inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
         o[:, q0:q0 + block_q] = (acc * inv[..., None]).transpose(1, 2)
-        m_out[:, :, q0:q0 + block_q] = m / log2e
+        m_out[:, :, q0:q0 + block_q] = m / log2e + bref
         l_out[:, :, q0:q0 + block_q] = l
     return o[:, :s].to(q.dtype), m_out[:, :, :s].contiguous(), l_out[:, :, :s].contiguous()
 
@@ -238,7 +267,33 @@ def _strides(*tensors):
     return [st for x in tensors for st in x.stride()[:3]]
 
 
-def _flash_cuda(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _check_bias_shape(bias_k: Optional[torch.Tensor], q, k) -> None:
+    if bias_k is not None and tuple(bias_k.shape) != (q.shape[2], k.shape[1]):
+        raise ValueError(f"bias_k shape {tuple(bias_k.shape)} != (H={q.shape[2]}, "
+                         f"T={k.shape[1]})")
+
+
+def _bias_operand(bias_k: Optional[torch.Tensor], q) -> Optional[torch.Tensor]:
+    """The [H, T] table as the kernel reads it (None stays None): fp32 on q's
+    device, each row contiguous. A row-strided view (a cache-sized table's
+    first T columns, models/mpt.py) is read in place: the kernel takes the
+    rows' stride."""
+    if bias_k is None:
+        return None
+    if bias_k.device != q.device:
+        raise ValueError(f"flash_attention: bias_k on {bias_k.device}, q on {q.device}")
+    bias_k = bias_k.to(torch.float32)
+    return bias_k if bias_k.stride(-1) == 1 else bias_k.contiguous()
+
+
+def _bias_ptr(bias_k: Optional[torch.Tensor]) -> tuple:
+    """(pointer, rows' stride) of the table for the C entries; (0, 0) for none.
+    The caller keeps the tensor alive across the launch."""
+    return (0, 0) if bias_k is None else (bias_k.data_ptr(), bias_k.stride(0))
+
+
+def _flash_cuda(q, k, v, causal: bool, scale: float,
+                bias_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check_cuda_operands(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         # the K1 launch records no autograd graph: gradients would stop here
@@ -248,13 +303,15 @@ def _flash_cuda(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    bias_k = _bias_operand(bias_k, q)
+    bias_ptr, bias_sh = _bias_ptr(bias_k)
     _build.launch(
         "teochat_flash_attention_fwd", q,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, t, h, hkv, d, *_strides(q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
+        b, s, t, h, hkv, d, *_strides(q, k, v), bias_sh,
         float(scale), int(causal),
     )
-    LAUNCHES.count += 1
+    (LAUNCHES if bias_k is None else LAUNCHES_BIAS).count += 1
     return out
 
 
@@ -271,11 +328,11 @@ def flash_attention(
 
     A causal call is a self-attention prefill (S == T), as for the TPU
     kernel. There is no mask argument: right-padded causal prompts need none
-    (padded keys sit after every valid query). `bias_k` (ALiBi, the MPT
-    backend) is not supported yet and raises.
+    (padded keys sit after every valid query). `bias_k` [H, T] (fp32; ALiBi,
+    the MPT backend) is added to each query head's scaled scores, by key,
+    before the causal mask.
     """
-    if bias_k is not None:
-        raise NotImplementedError("flash_attention: bias_k (ALiBi) is not ported yet")
+    _check_bias_shape(bias_k, q, k)
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k.shape[2]}")
     if causal and q.shape[1] != k.shape[1]:
@@ -283,17 +340,18 @@ def flash_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
-        return _flash_cuda(q, k, v, causal, scale)
+        return _flash_cuda(q, k, v, causal, scale, bias_k)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale, bias_k=bias_k)
 
 
 # ------------------------------------------------------------------ training
 
 
-def _fwd_res_cuda(q, k, v, causal: bool, scale: float):
-    """K4a: o [B, S, H, D] bf16 plus m and l, fp32 [B, H, S]."""
+def _fwd_res_cuda(q, k, v, causal: bool, scale: float, bias_k: Optional[torch.Tensor] = None):
+    """K4a: o [B, S, H, D] bf16 plus m and l, fp32 [B, H, S]; with `bias_k`
+    [H, T] the biased scores' (K1's bias branch)."""
     _check_cuda_operands(q, k, v)
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -302,11 +360,13 @@ def _fwd_res_cuda(q, k, v, causal: bool, scale: float):
     l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
+    bias_k = _bias_operand(bias_k, q)
+    bias_ptr, bias_sh = _bias_ptr(bias_k)
     _build.launch(
         "teochat_flash_attention_fwd_res", q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(),
-        b, s, t, h, hkv, d, *_strides(q, k, v),
+        m.data_ptr(), l.data_ptr(), bias_ptr,
+        b, s, t, h, hkv, d, *_strides(q, k, v), bias_sh,
         float(scale), int(causal),
     )
     FWD_RES_LAUNCHES.count += 1
@@ -373,20 +433,24 @@ def _bwd_cuda(q, k, v, o, m, l, do, causal: bool, scale: float):
 
 
 class _FlashTrainable(torch.autograd.Function):
-    """K4a forward, K4b + K4c backward (the JAX custom_vjp's _fa_fwd/_fa_bwd)."""
+    """K4a forward, K4b + K4c backward (the JAX custom_vjp's _fa_fwd/_fa_bwd).
+    With a bias table the forward is K4a's bias branch and the backward
+    raises: K4b and K4c do not take the bias yet."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, m, l = _fwd_res_cuda(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, bias_k=None):
+        o, m, l = _fwd_res_cuda(q, k, v, causal, scale, bias_k)
         ctx.save_for_backward(q, k, v, o, m, l)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.has_bias = causal, scale, bias_k is not None
         return o
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.has_bias:
+            raise unported("the flash backward kernels with bias_k (K4b, K4c)", 14)
         q, k, v, o, m, l = ctx.saved_tensors
         dq, dk, dv = _bwd_cuda(q, k, v, o, m, l, do.contiguous(), ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_trainable(q, k, v, causal: bool = True, scale: Optional[float] = None,
@@ -398,10 +462,11 @@ def flash_attention_trainable(q, k, v, causal: bool = True, scale: Optional[floa
     through the fp32 plain attention. As in the JAX function, right-padded
     causal batches need no mask: padded keys sit after every valid query,
     and padded queries' gradients arrive as zeros through the loss mask.
-    `bias_k` (ALiBi, the MPT backend) is not ported yet and raises.
+    `bias_k` [H, T] (ALiBi, the MPT backend) is a constant table, as in the
+    JAX function (its cotangent is zero): on CUDA tensors the forward is
+    K4a's bias branch and the backward raises until K4b and K4c take it.
     """
-    if bias_k is not None:
-        raise NotImplementedError("flash_attention_trainable: bias_k (ALiBi) is not ported yet")
+    _check_bias_shape(bias_k, q, k)
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k.shape[2]}")
     if causal and q.shape[1] != k.shape[1]:
@@ -409,10 +474,11 @@ def flash_attention_trainable(q, k, v, causal: bool = True, scale: Optional[floa
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
-        return _FlashTrainable.apply(q, k, v, causal, float(scale))
+        return _FlashTrainable.apply(q, k, v, causal, float(scale), bias_k)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention_trainable: no kernel for device {q.device}")
-    return plain_attention(q, k, v, causal=causal, scale=scale)
+    return plain_attention(q, k, v, causal=causal, scale=scale,
+                           bias=None if bias_k is None else _bias_4d(bias_k.detach()))
 
 
 def flash_attention_trainable_padded(q, k, v, causal: bool = True,
@@ -425,7 +491,8 @@ def flash_attention_trainable_padded(q, k, v, causal: bool = True,
     mask value, rows past S are read as zeros and written nowhere), which
     gives the real rows the same values and gradients as the pad (padded
     keys sit after every real query; padded queries get zero dO), so here
-    the pad is not needed and nothing is copied.
+    the pad is not needed and nothing is copied: nor is `bias_k`, which JAX
+    zero-pads along T and the kernels read as 0 past T.
     """
     if not causal:
         raise ValueError(

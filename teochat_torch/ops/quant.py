@@ -43,8 +43,9 @@ plain torch ops. It runs the prefill of an int8 decoder with
 `quantize_kernel_host` and `quantize_llama_params_host` take a decoder
 tree that lies on the host (the checkpoint loader's) and quantize it on the
 card a few layers at a time, so the 16-bit decoder (13.5 GB at 7B) is never
-on the card whole. `quantize_mpt_params_host` is not ported yet (ROADMAP
-item 14).
+on the card whole. `quantize_mpt_params` and `quantize_mpt_params_host` do
+the same for the MPT decoder's four projections a block (models/mpt.py):
+norms, biases and the tied `wte` stay as they are.
 """
 
 from __future__ import annotations
@@ -515,4 +516,40 @@ def quantize_llama_params_host(params: Dict, int4: bool = False, layer_chunk: in
     out = dict(params)
     out["layers"] = layers
     out["lm_head"] = quantize_kernel_host(params["lm_head"]["kernel"], int4=int4, device=device)
+    return tree_map(lambda t: t.to(device), out)
+
+
+# ------------------------------------------------------------------- MPT int8
+
+_MPT_QUANT_TARGETS = ("wqkv", "out_proj", "up_proj", "down_proj")
+
+
+def _quantize_mpt(params: Dict, quantize) -> Dict:
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in _MPT_QUANT_TARGETS:
+        proj = dict(layers[name])
+        q = quantize(proj.pop("kernel"))
+        q.update(proj)  # any bias leaf rides beside the quantized kernel
+        layers[name] = q
+    out["layers"] = layers
+    return out
+
+
+def quantize_mpt_params(params: Dict) -> Dict:
+    """int8 weight-only quantization of the MPT decoder (models/mpt.py): the
+    four projection kernels of each block (biases, norms and the tied wte
+    stay). The llama quantizer's per-channel layout; mpt._dense dispatches
+    on the 'scale' key."""
+    return _quantize_mpt(params, quantize_kernel)
+
+
+def quantize_mpt_params_host(params: Dict, layer_chunk: int = 8, device=None) -> Dict:
+    """quantize_mpt_params for a HOST tree (models/mpt.py::convert_hf_mpt's),
+    the projections streamed to `device` in layer chunks as
+    quantize_llama_params_host streams them (the same bytes as the JAX
+    host quantizer under `jit`); the other leaves are moved as they are."""
+    device = resolve_device(device)
+    out = _quantize_mpt(params, lambda k: quantize_kernel_host(
+        k, layer_chunk=layer_chunk, device=device))
     return tree_map(lambda t: t.to(device), out)

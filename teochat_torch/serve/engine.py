@@ -24,6 +24,10 @@ KV cache of `max_slots + prefix_cache_slots` rows:
 - greedy rows give the tokens of a single-request `TEOChat.generate`, up to
   floating-point argmax ties between batch shapes.
 
+Every forward goes through models/generation.py's backend dispatch
+(`backend_embed`, `backend_forward`), so the engine serves the LLaMA and the
+MPT decoder alike.
+
 The scheduler's numbers live on the device in `EngineState`, fixed-shape
 tensors written in place (never rebound): on the card each step is captured
 once an engine in a CUDA graph (models/generation.py::DecodeGraph; the
@@ -243,7 +247,7 @@ def _prefill_slot(params, cache, state: EngineState, cfg, plan, vision_tokens, s
     dev = state.device
     embeds = teochat_mod.fuse_embeds(params, plan, vision_tokens)
     pos = torch.as_tensor(plan.position_ids, device=dev)
-    logits = llama_mod.llama_forward(
+    logits = gen_mod.backend_forward(
         params, cfg, embeds, position_ids=pos, cache=cache, write_slots=pos,
         logits_mode="last", last_index=torch.as_tensor(plan.seq_lens - 1, device=dev),
         cache_row_offset=slot, adapter_route=_request_route(params, adapter, dev),
@@ -264,7 +268,7 @@ def _prefill_chunk_write(params, cache, cfg, emb, start: int, slot: int, adapter
     `slot` at slots [start, start + S), each query attending the row's cache
     up to its own slot (the earlier pieces, K2m). No logits, no state."""
     pos = _piece_positions(emb, start)
-    llama_mod.llama_forward(
+    gen_mod.backend_forward(
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="none",
         cache_row_offset=slot, prefill_start=start, attend_cache=True,
         adapter_route=_request_route(params, adapter, emb.device),
@@ -281,7 +285,7 @@ def _prefill_slot_tail(params, cache, state: EngineState, cfg, emb, start: int, 
     Pad queries past the prompt write K/V past it, where decode writes
     overwrite them before any query reads them."""
     pos = _piece_positions(emb, start)
-    logits = llama_mod.llama_forward(
+    logits = gen_mod.backend_forward(
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="last",
         last_index=torch.tensor([last_index], device=emb.device), cache_row_offset=slot,
         prefill_start=start, attend_cache=True,
@@ -320,7 +324,7 @@ def _prefill_slot_from_prefix(params, cache, state: EngineState, cfg, plan, visi
     # tail's K/V land past fused_len, where decode overwrites them first
     emb = F.pad(embeds, (0, 0, 0, w))[:, plen:plen + w]
     pos = _piece_positions(emb, plen)
-    logits = llama_mod.llama_forward(
+    logits = gen_mod.backend_forward(
         params, cfg, emb, position_ids=pos, cache=cache, write_slots=pos, logits_mode="last",
         last_index=torch.tensor([fused_len - 1 - plen], device=emb.device),
         cache_row_offset=slot, prefill_start=plen, attend_cache=True,
@@ -343,12 +347,12 @@ def _decode_step(params, cfg, st: EngineState, generator, *, eos_id: int, pad_id
     b = st.active.shape[0]
     trash = st.cache.max_len - 1
     act, pos = st.active, st.positions
-    emb = llama_mod.embed_tokens(params, st.last_tokens[:, None].long(), dtype=emb_dtype)
+    emb = gen_mod.backend_embed(params, st.last_tokens[:, None].long(), dtype=emb_dtype)
     # a row the host has stopped decodes on until its chunk ends: past the
     # cache its writes go to the trash slot (JAX drops them there)
     write = torch.where(act, pos, trash).clamp(max=trash)[:, None]
     kv_len = torch.where(act, pos + 1, 1).clamp(max=trash + 1)
-    logits = llama_mod.llama_forward(params, cfg, emb, position_ids=pos[:, None], cache=st.cache,
+    logits = gen_mod.backend_forward(params, cfg, emb, position_ids=pos[:, None], cache=st.cache,
                                      write_slots=write, kv_len=kv_len, logits_mode="last",
                                      adapter_route=_engine_route(params, st.adapter))
     nxt = _sample_rows(logits[:, -1], generator, st.temperature, st.do_sample)
@@ -411,8 +415,8 @@ def _spec_step(params, cfg, st: EngineState, generator, *, spec_k: int, eos_id: 
     blk_pos = pos[:, None] + torch.arange(k + 1, device=dev)[None, :]
     write = torch.where(act[:, None], blk_pos.clamp(max=trash - 1), trash)
     kv_len = torch.where(act, pos + k + 1, 1)
-    emb = llama_mod.embed_tokens(params, blk.long(), dtype=emb_dtype)
-    blk_logits = llama_mod.llama_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
+    emb = gen_mod.backend_embed(params, blk.long(), dtype=emb_dtype)
+    blk_logits = gen_mod.backend_forward(params, cfg, emb, position_ids=blk_pos, cache=st.cache,
                                          write_slots=write, kv_len=kv_len, logits_mode="all",
                                          spec_verify=True,
                                          adapter_route=_engine_route(params, st.adapter))
@@ -1012,7 +1016,7 @@ class BatchEngine:
         name = "_spec_graph" if spec else "_graph"
         if getattr(self, name) is None:
             st = self._state
-            anchor = self.model.params["llm"]["embed_tokens"]["embedding"]
+            anchor = gen_mod.embedding_table(self.model.params["llm"])
             setattr(self, name, gen_mod.own_decode_graph(gen_mod.DecodeGraph(
                 st, _spec_step if spec else _decode_step, anchor, self._step_kw(spec),
                 generator=st.generator)))

@@ -106,5 +106,5 @@ def test_dispatch_takes_plain_path_for_cpu_tensors():
                                  torch.tensor([3], dtype=torch.int32), impl="kernel")
     with pytest.raises(ValueError):
         flash_mod.flash_attention(q, q[:, :32], q[:, :32], causal=True)
-    with pytest.raises(NotImplementedError):
-        flash_mod.flash_attention(q, q, q, bias_k=torch.zeros(2, 64))
+    with pytest.raises(ValueError, match="bias_k shape"):  # the table must be [H, T]
+        flash_mod.flash_attention(q, q, q, bias_k=torch.zeros(2, 32))

@@ -36,6 +36,7 @@ from teochat_torch.checkpoint import bridge
 from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import generation as gen_mod
 from teochat_torch.models import llama as llama_mod
+from teochat_torch.models import mpt as mpt_mod
 from teochat_torch.ops import _build
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
@@ -50,6 +51,11 @@ GRAD_REL_MAX = 2e-2
 INT4_REL_L2 = 3e-3
 INT4_REL_MAX = 4e-3
 STAT_M_ATOL = 2e-4  # K4a's row maximum, absolute
+# K4a's row maximum with MPT's ALiBi table for a 4,096-slot cache: m near
+# -3,000, where the plain version's fp32 sum of score and bias rounds by up to
+# 1.2e-4 and one ulp of m is 2.4e-4; the kernel shifts the table by each
+# head's last bias first, so the two round in other places: four ulps
+BIAS_STAT_M_ATOL = 1e-3
 STAT_L_RTOL = 1e-3  # K4a's denominator, relative
 # K4b and K4c against their tile walks on the same bf16 inputs: summation
 # order and ex2.approx against exp move a P, a dS or a gradient across a bf16
@@ -1812,4 +1818,98 @@ def test_w8a8_prefill_leaves_the_decode_graph_w8a16(decoders):
     for tokens, n_gen, count in out:
         assert torch.equal(tokens, out[0][0]) and torch.equal(n_gen, out[0][1])
         assert count == 7 * cfg.num_layers
+    gen_mod.clear_decode_graphs()
+
+
+
+# ------------------------------------------- the MPT backend: K1 / K4a with bias_k
+
+
+def _alibi(h, s, t_cache=4096):
+    """MPT-7B's table for a `t_cache`-slot cache (32 heads), its first H
+    heads and S keys: a row-strided view, as mpt_forward slices it."""
+    return mpt_mod.alibi_bias(32, t_cache, device="cuda")[0, :h, 0, :s]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (1, 768, 32, 32, 128),  # MPT-7B's 2-frame prefill
+    (1, 768, 32, 1, 128),  # multiquery: one kv head, 32 slopes
+    (2, 700, 8, 8, 128),  # ragged S
+    (1, 300, 4, 4, 64),  # head_dim 64, ragged
+    (2, 40, 4, 1, 64),  # S below one warpgroup's 64 rows
+])
+def test_flash_bias_kernel_matches_plain(gen, b, s, h, hkv, d):
+    """K1's bias branch against the plain twin with the same table (TOL, as
+    the bias-free kernel); counted on LAUNCHES_BIAS alone; a contiguous copy
+    of the table gives the same bits as the strided view."""
+    q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+    bias = _alibi(h, s)
+    before, plain_before = flash_mod.LAUNCHES_BIAS.count, flash_mod.LAUNCHES.count
+    got = flash_mod.flash_attention(q, k, v, bias_k=bias)
+    torch.cuda.synchronize()
+    assert flash_mod.LAUNCHES_BIAS.count == before + 1
+    assert flash_mod.LAUNCHES.count == plain_before
+    want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), bias_k=bias)
+    assert torch.isfinite(got).all() and (got.float() - want).abs().max().item() <= TOL
+    same = flash_mod.flash_attention(q, k, v, bias_k=bias.contiguous())
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+
+
+def test_flash_bias_statistics_match_plain_and_the_backward_raises(gen):
+    """K4a's bias branch: o, m and l against the plain twin's on the biased
+    scores; the trainable path runs it forward and refuses the backward."""
+    b, s, h, d = 2, 333, 4, 128
+    q, k, v = _randn((b, s, h, d), gen), _randn((b, s, 1, d), gen), _randn((b, s, 1, d), gen)
+    bias = _alibi(h, s)
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, d ** -0.5, bias)
+    torch.cuda.synchronize()
+    want_m, want_l = flash_mod.flash_statistics_plain(q.float(), k.float(), v.float(),
+                                                      bias_k=bias)
+    torch.testing.assert_close(m, want_m, rtol=0, atol=BIAS_STAT_M_ATOL)
+    torch.testing.assert_close(l, want_l, rtol=STAT_L_RTOL, atol=0)
+    want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), bias_k=bias)
+    assert (o.float() - want).abs().max().item() <= TOL
+    qg = q.clone().requires_grad_()
+    out = flash_mod.flash_attention_trainable_padded(qg, k, v, True, bias_k=bias)
+    torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        out.float().sum().backward()
+
+
+@pytest.fixture(scope="module")
+def mpt_decoder():
+    """A 2-layer MPT at MPT-7B's width (d 4096, 32 heads, vocab 50,432), int8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from teochat_torch.config import MptConfig
+
+    cfg = MptConfig(vocab_size=50432, n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, bridge.init_mpt(cfg, gen, "cuda", torch.bfloat16, quant="int8")
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_mpt_decode_graph_is_bit_equal_to_the_eager_loop(mpt_decoder, b):
+    """The MPT decode step (plain masked attention with the ALiBi table, the
+    slot mask built on the device) replayed from a CUDA graph: the eager
+    loop's tokens, n_gen and last logits bit for bit, twice; the prefill
+    launches K1's bias branch once a layer and the steps no attention kernel."""
+    cfg, params = mpt_decoder
+    embeds, lens, mask, pos = _graph_prompt(b)  # d 4096: MPT-7B's d_model too
+    gen_mod.clear_decode_graphs()
+    out = []
+    for graphed in (False, True, True):
+        flash_mod.LAUNCHES_BIAS.reset()
+        dec_mod.LAUNCHES.reset()
+        tokens, n_gen, state = gen_mod._generate_tokens(
+            params, cfg, embeds, lens, mask, pos, _never_stop(),
+            torch.Generator(device="cuda").manual_seed(0), max_new_tokens=11,
+            cache_len=GRAPH_S + 12, temperature=0.0, do_sample=False, top_p=1.0, pad_id=0,
+            graphed=graphed)
+        assert flash_mod.LAUNCHES_BIAS.count == cfg.n_layers and dec_mod.LAUNCHES.count == 0
+        out.append((tokens.clone(), n_gen.clone(), state.logits.clone()))
+    assert len(gen_mod.decode_graphs()) == 1
+    for got in out[1:]:
+        for a, w in zip(got, out[0]):
+            assert torch.equal(a, w)
     gen_mod.clear_decode_graphs()

@@ -79,8 +79,8 @@ def test_trainable_flash_matches_jax_interpret(b, s, h, hkv, d, padded):
 
 def test_trainable_flash_refuses_what_it_does_not_take():
     x = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="bias_k"):
-        torch_flash.flash_attention_trainable(x, x, x, bias_k=torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="bias_k"):  # the table must be [H, T]
+        torch_flash.flash_attention_trainable(x, x, x, bias_k=torch.zeros(2, 4))
     with pytest.raises(ValueError, match="causal"):
         torch_flash.flash_attention_trainable_padded(x, x, x, causal=False)
     with pytest.raises(ValueError, match="S == T"):
