@@ -12,6 +12,7 @@
     python3 chip_probe.py k4
     python3 chip_probe.py k1k4a [--root DIR] [--tiles 64x64 128x128 ...] [--long]
     python3 chip_probe.py k4bc [--root DIR] [--variants dqbk=128,stages=2 stages=4 ...] [--long]
+                               [--bias]
     python3 chip_probe.py train-step [--root DIR]
     python3 chip_probe.py int8-proj [--root DIR]
     python3 chip_probe.py k3k5
@@ -100,7 +101,11 @@ another checkout, so two trees can be timed in one session on one card.
   128 keys leaves shared memory for two stages; `stages` the rings' depth), with ptxas's registers, spills and warnings, each held
   to the tree's own gradients.
   With `--root` on a parent checkout and once without, both are read in one
-  run on one card.
+  run on one card. `--bias` also times K4a, K4b and K4c with MPT-7B's ALiBi
+  table (sized to S, as in training) at each shape beside the bias-free
+  kernels on the same inputs, each bias branch's gradients held to the
+  tile walks; a tree whose backward takes no table says so and times the
+  bias-free kernels alone.
 - train-step: the smoke's training phase alone (`train()` for three
   optimizer steps at 7B width): s a step and tokens/s; with `--root`, a
   parent's beside the tree's in one call.
@@ -897,6 +902,8 @@ def cmd_k4bc(smoke, args):
               f"({3 * product / t_dq / 1e9:.1f} TFLOP/s), together {total:.4f} ms; "
               f"scaled_dot_product_attention backward {lib_ms:.4f} ms ({total / lib_ms:.2f}x)",
               flush=True)
+        if args.bias:
+            _k4bc_bias(smoke, flash_mod, args, row, q, k, v, do, (t_dkv, t_dq), product)
         out_k, out_v, out_q = torch.empty_like(dk), torch.empty_like(dv), torch.empty_like(dq)
         for label, lib in libs.items():
             head = flash_mod._bwd_args(q, k, v, do, m, l, di, True, scale)
@@ -913,6 +920,43 @@ def cmd_k4bc(smoke, args):
             print(f"[k4bc]   {label}: K4b {v_dkv:.4f} ms ({4 * product / v_dkv / 1e9:.1f} TFLOP/s), "
                   f"K4c {v_dq:.4f} ms ({3 * product / v_dq / 1e9:.1f} TFLOP/s), rc {rcs}, "
                   f"max |gradient - tree's| {diff:.3e}", flush=True)
+
+
+def _k4bc_bias(smoke, flash_mod, args, row, q, k, v, do, free_ms, product):
+    """K4a, K4b and K4c with MPT-7B's table at one shape beside the bias-free
+    K4b and K4c (`free_ms`, timed on the same inputs); the bias branches'
+    gradients against their tile walks."""
+    import inspect
+
+    from teochat_torch.models import mpt as mpt_mod
+
+    if "bias_k" not in inspect.signature(flash_mod._bwd_dkv_cuda).parameters:
+        print(f"[k4bc] root={args.root} {row}: this tree's backward takes no bias table",
+              flush=True)
+        return
+    h, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    bias = mpt_mod.alibi_bias(h, q.shape[1], device="cuda")[0, :, 0, :]
+    t_fwd_free = smoke.time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale))
+    t_fwd = smoke.time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale, bias))
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale, bias)
+    di = flash_mod._bwd_di_cuda(o, do)
+    dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias)
+    dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias)
+    want_dk, want_dv = flash_mod.flash_backward_dkv_schedule(q, k, v, do, m, l, di, bias_k=bias)
+    want_dq = flash_mod.flash_backward_dq_schedule(q, k, v, do, m, l, di, bias_k=bias)
+    rel = ", ".join(
+        f"{name} {((g.float() - w.float()).abs().max() / w.float().abs().max()).item():.2e}"
+        for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)))
+    t_dkv = smoke.time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale,
+                                                          bias))
+    t_dq = smoke.time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias))
+    print(f"[k4bc] root={args.root} {row} with the bias: K4a {t_fwd:.4f} ms (bias-free "
+          f"{t_fwd_free:.4f}, x{t_fwd / t_fwd_free:.3f}), K4b {t_dkv:.4f} ms (bias-free "
+          f"{free_ms[0]:.4f}, x{t_dkv / free_ms[0]:.3f}; {4 * product / t_dkv / 1e9:.1f} "
+          f"TFLOP/s), K4c {t_dq:.4f} ms (bias-free {free_ms[1]:.4f}, x{t_dq / free_ms[1]:.3f}; "
+          f"{3 * product / t_dq / 1e9:.1f} TFLOP/s); largest error against the tile walks over "
+          f"the largest gradient: {rel}", flush=True)
 
 
 def _run_phases(smoke, phases):
@@ -1821,6 +1865,8 @@ def main():
                            default=["dqbk=128,stages=2", "stages=2", "stages=4"],
                            help="key=value[,key=value] over dqbk, stages")
             p.add_argument("--long", action="store_true", help="also a GQA shape and B1 S4096")
+            p.add_argument("--bias", action="store_true",
+                           help="also the bias branches with MPT-7B's table")
         if name == "k3":
             p.add_argument("--ms", type=int, nargs="+", default=[1, 2, 4, 8, 16, 768])
             p.add_argument("--ttft", action="store_true",

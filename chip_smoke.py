@@ -270,7 +270,27 @@ them. Phases, each printing its lines before the last:
     last logits bit-equal to the eager loop's, twice; (d) a speculative
     greedy request (k 4); (e) a session's turn 2 and an engine request,
     (d) and (e) each the plain greedy tokens or within SPEC_GAP_TOL of a
-    teacher-forced maximum at a near-tie. The model is freed after.
+    teacher-forced maximum at a near-tie;
+23. MPT training, after phase 22 and on its drawn int8 LLaVA-MPT-7B (no
+    second draw): (a) K4b's and K4c's `bias_k` branches against their tile
+    walks on the same bf16 inputs, m, l and di (WALK_REL_*) at B4 S1024 H32
+    D128 with MPT-7B's table sized to S (the training shape), multiquery
+    (one kv head) at a ragged S 700, and with the first 768 keys of a
+    4,096-slot table (each head's last bias far from 0); the trainable path
+    with the table against autograd of the plain attention (GRAD_REL_*);
+    K4a, K4b and K4c with the bias timed at the training shape beside the
+    bias-free kernels, the plain twin's forward and backward and
+    `scaled_dot_product_attention` with phase 22's shifted bf16 mask
+    (forward, and dq, dk, dv in one backward call); (b) 3 optimizer steps of
+    `train.train.train` with the recipe's LoRA r128 / alpha 256 over the
+    int8 backbone, batch 2 (about 640 fused tokens), remat, on phase 16's
+    synthetic 2-frame conversations: the losses finite and positive, every
+    adapter of the four projections and the projector moved, the int8
+    kernels bitwise unchanged, K4a-c launched with the bias only (K4a twice
+    a layer under remat, K4b and K4c once) and never without; s a step,
+    valid tokens/s and the peak; (c) one micro-step's loss and LoRA and
+    projector gradients with the kernels against attn_impl='plain' on those
+    weights and one batch (phase 17's bounds). The model is freed after.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -281,16 +301,19 @@ the larger of the bytes moved over 3.35 TB/s and the operations over
 989 TFLOP/s (bf16; 1,979 TOP/s for an int8 product), the H100 SXM's
 published rates.
 
-The line before the last is a JSON object with each of the twenty-two
+The line before the last is a JSON object with each of the twenty-five
 kernel rows' launches, error, times and bound (K1 twice: bias-free, its
 launches the int4 path's, and with MPT's bias, its launches the MPT
-request's; K2 and K2m twice: on a bf16
+request's; K4a, K4b and K4c twice: bias-free, their launches phase 16's
+`cli.main`, and with MPT's bias, their launches phase 23's `train()`; K2
+and K2m twice: on a bf16
 and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
 "fp8_generate", the engine phase's
 numbers under "engine", the batched eval's and preprocessing's under
 "eval", multi-LoRA's under "multi_lora", phase 21's under
-"vision_extras" and phase 22's under "mpt" (K3c has two: its wrapper runs the M > 8 kernel at prefill
+"vision_extras" and phases 22 and 23's under "mpt" (phase 23's under its
+"train"; K3c has two: its wrapper runs the M > 8 kernel at prefill
 and the split-K one at decode; K2m's launches are the chat server's five
 turns, the spec turn's verify blocks among them); the last line is
 {"ok": true, "device": {...}}.
@@ -343,7 +366,12 @@ from teochat_torch.ops import quant as quant_mod
 from teochat_torch.ops import vit_attention as vit_mod
 from teochat_torch.serve import engine as engine_mod
 from teochat_torch.serve.session import ChatSession
-from teochat_torch.train.lora import LORA_TARGET_GROUPS, add_lora_params, lora_trainable_filter
+from teochat_torch.train.lora import (
+    LORA_TARGET_GROUPS,
+    MPT_TARGET_NAMES,
+    add_lora_params,
+    lora_trainable_filter,
+)
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
 
 SEED = 0
@@ -2165,20 +2193,28 @@ def phase_train_cli(root, ckpt_path, model):
         "phase_s": phase_s, "part_s": parts, "smi": smi}
 
 
-def parity_batch(cfg, params, tokenizer, processor, gen):
+def _lora_projections(llm):
+    """The projection dicts that carry adapters: LLaMA's attn / mlp groups,
+    or MPT's four flat projections."""
+    layers = llm["layers"]
+    if mpt_mod.is_mpt_params(llm):
+        return [layers[name] for name in MPT_TARGET_NAMES]
+    return [proj for group in LORA_TARGET_GROUPS for proj in layers[group].values()]
+
+
+def parity_batch(cfg, params, tokenizer, processor, gen, rows=4):
     """The parity phase's inputs: params with fp32 LoRA (B drawn nonzero from
     `gen`, so every adapter gets a gradient) and projector masters, their
-    trainable leaves by path, and one 4-row batch of `train_samples`."""
-    dev = params["llm"]["embed_tokens"]["embedding"].device
+    trainable leaves by path, and one batch of `rows` `train_samples`."""
+    dev = gen_mod.embedding_table(params["llm"]).device
     llm = add_lora_params(gen, params["llm"], rank=128, alpha=256.0)
-    for group in LORA_TARGET_GROUPS:
-        for proj in llm["layers"][group].values():
-            proj["lora_b"] = torch.randn(proj["lora_b"].shape, generator=gen, device=dev) * 1e-3
+    for proj in _lora_projections(llm):
+        proj["lora_b"] = torch.randn(proj["lora_b"].shape, generator=gen, device=dev) * 1e-3
     params = fp32_masters({**params, "llm": llm}, lora_trainable_filter)
     module = make_supervised_data_module(
         tokenizer, DataArguments(image_processor=processor),
         tokens_per_frame=cfg.vision.num_patches, max_length=cfg.tokenizer_model_max_length,
-        dataset=train_samples(4))
+        dataset=train_samples(rows))
     ds = module["train_dataset"]
     plan, pixels = module["data_collator"]([ds[i] for i in range(len(ds))])
     pixels = torch.as_tensor(pixels).to(dev, torch.bfloat16)
@@ -2205,22 +2241,25 @@ def compare_steps(leaves, got, want):
     return abs(la - lb) / abs(lb), total, rels
 
 
-def phase_train_parity(cfg, params, tokenizer, processor, gen):
-    """One micro-step at full width, kernels vs plain attention, LoRA B nonzero."""
-    params, leaves, plan, pixels = parity_batch(cfg, params, tokenizer, processor, gen)
+def phase_train_parity(cfg, params, tokenizer, processor, gen, rows=4, tag="train parity"):
+    """One micro-step at full width, kernels vs plain attention, LoRA B
+    nonzero; returns the numbers it logs."""
+    params, leaves, plan, pixels = parity_batch(cfg, params, tokenizer, processor, gen, rows)
     got = micro_step(cfg, params, leaves, plan, pixels, "auto")
     want = micro_step(cfg, params, leaves, plan, pixels, "plain")
     check(np.isfinite(got[0]) and all(torch.isfinite(g).all().item() for g in got[1]),
           "parity finite")
     loss_rel, total, rels = compare_steps(leaves, got, want)
     worst_path = max(rels, key=rels.get)
-    log(f"[train parity] B={plan.labels.shape[0]} S={plan.labels.shape[1]} one micro-step, "
+    log(f"[{tag}] B={plan.labels.shape[0]} S={plan.labels.shape[1]} one micro-step, "
         f"kernels vs plain attention: loss {got[0]:.6f} vs {want[0]:.6f}, rel diff "
         f"{loss_rel:.3e} (bound {TRAIN_LOSS_REL_BOUND}); gradients rel L2 {total:.3e} over all "
         f"{len(rels)} trainable leaves, worst leaf {worst_path} {rels[worst_path]:.3e} "
         f"(bound {TRAIN_GRAD_REL_L2_BOUND})")
     check(loss_rel <= TRAIN_LOSS_REL_BOUND, f"loss rel diff {loss_rel}")
     check(rels[worst_path] <= TRAIN_GRAD_REL_L2_BOUND, f"gradient rel L2 {rels[worst_path]}")
+    return {"loss_rel_diff": loss_rel, "grads_rel_l2": total, "worst_leaf": worst_path,
+            "worst_leaf_rel_l2": rels[worst_path]}
 
 
 def phase_k3a_path(cfg, gen, tokenizer, processor):
@@ -4715,7 +4754,7 @@ def phase_mpt(gen):
     tokens and last logits bit-equal to the eager loop's, twice; (d) a
     speculative greedy request (k 4) against the plain tokens; (e) a
     session's turn 2 and an engine request. Returns (the request's launch
-    counts, the JSON entry)."""
+    counts, the JSON entry, the model: phase 23 trains it)."""
     t_start = time.perf_counter()
     tokenizer = WordTokenizer()
     cfg = mpt_teochat_config()
@@ -4793,17 +4832,248 @@ def phase_mpt(gen):
         engine.shutdown()
     engine_equal = _greedy_or_near_tie(model, ids, frames, engine_out, eager[:16],
                                        f"engine request ({engine_s * 1e3:.1f} ms)")
-    del engine, model
+    del engine
     gen_mod.clear_decode_graphs()
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[mpt] after the model is deleted: allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; phase {time.perf_counter() - t_start:.1f} s")
+    log(f"[mpt] phase {time.perf_counter() - t_start:.1f} s")
     return counts, {"ttft_ms": ttft_s * 1e3, "decode_tokens_per_sec": tok_s,
                     "prefill_logits_rel_l2": rel, "graph_bit_equal": bit_equal,
                     "spec_tokens_equal": spec_equal, "spec_stats": spec_stats,
                     "session_turn2_ms": turn2_s * 1e3, "session_tokens_equal": session_equal,
-                    "engine_ms": engine_s * 1e3, "engine_tokens_equal": engine_equal}
+                    "engine_ms": engine_s * 1e3, "engine_tokens_equal": engine_equal}, model
+
+
+# ------------------------------------------------- phase 23: MPT training
+
+K4_BIAS_COUNTERS = {"fwd": flash_mod.FWD_RES_BIAS_LAUNCHES, "dkv": flash_mod.BWD_DKV_BIAS_LAUNCHES,
+                    "dq": flash_mod.BWD_DQ_BIAS_LAUNCHES}
+
+
+def _mpt_training_table(h, s):
+    """MPT-7B's ALiBi table as mpt_forward sizes it without a cache: [H, S],
+    each head's last key's bias 0."""
+    return mpt_mod.alibi_bias(h, s, device="cuda")[0, :, 0, :]
+
+
+def _time_flash_bias(q, k, v, do, bias):
+    """K4a, K4b and K4c with `bias` alone at one shape, beside the bias-free
+    kernels on the same inputs, the plain twin's forward and backward with
+    the table, and scaled_dot_product_attention with phase 22's shifted bf16
+    mask (forward; dq, dk and dv in one backward call); returns each
+    kernel's row for the JSON line (its error filled in later) and the
+    numbers."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale, bias)
+    di = flash_mod._bwd_di_cuda(o, do)
+    o0, m0, l0 = flash_mod._fwd_res_cuda(q, k, v, True, scale)
+    di0 = flash_mod._bwd_di_cuda(o0, do)
+    t = {
+        "fwd": time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale, bias)),
+        "fwd_free": time_ms(lambda: flash_mod._fwd_res_cuda(q, k, v, True, scale)),
+        "dkv": time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias)),
+        "dkv_free": time_ms(lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m0, l0, di0, True,
+                                                            scale)),
+        "dq": time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias)),
+        "dq_free": time_ms(lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m0, l0, di0, True,
+                                                          scale)),
+        "plain_fwd": time_ms(lambda: flash_mod.flash_attention_plain(q, k, v, bias_k=bias)),
+    }
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    op = flash_mod.flash_attention_plain(qg, kg, vg, bias_k=bias)
+    t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(op, (qg, kg, vg), do, retain_graph=True))
+    del op
+    causal = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+    mask = ((bias[:, None, :] - bias[:, :, None]) + causal)[None].to(torch.bfloat16)
+    qt, kt, vt = (_bhsd(x).detach().requires_grad_(True) for x in (q, k, v))
+    t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    ol = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    t["lib_bwd"] = time_ms(
+        lambda: torch.autograd.grad(ol, (qt, kt, vt), _bhsd(do), retain_graph=True))
+    del ol, mask
+    product = 2 * b * h * s * s * d / 2  # one causal S x S x D product
+    tensor, stat, table = 2 * q.numel(), 4 * b * h * s, 4 * h * s
+    log(f"[K4 bias] B={b} S={s} H={h} D={d} with MPT-7B's table: K4a {t['fwd']:.4f} ms "
+        f"(bias-free {t['fwd_free']:.4f} ms, x{t['fwd'] / t['fwd_free']:.3f}; "
+        f"{2 * product / t['fwd'] / 1e9:.1f} TFLOP/s), K4b {t['dkv']:.4f} ms (bias-free "
+        f"{t['dkv_free']:.4f} ms, x{t['dkv'] / t['dkv_free']:.3f}; "
+        f"{4 * product / t['dkv'] / 1e9:.1f} TFLOP/s), K4c {t['dq']:.4f} ms (bias-free "
+        f"{t['dq_free']:.4f} ms, x{t['dq'] / t['dq_free']:.3f}; "
+        f"{3 * product / t['dq'] / 1e9:.1f} TFLOP/s); plain forward {t['plain_fwd']:.4f} ms, "
+        f"plain backward {t['plain_bwd']:.4f} ms; scaled_dot_product_attention with the bf16 "
+        f"mask [1, {h}, {s}, {s}]: forward {t['lib_fwd']:.4f} ms, backward {t['lib_bwd']:.4f} ms; "
+        f"{_timing.smi_line()}")
+    # bytes: bf16 [B, S, H, D] tensors in and out, fp32 [B, H, S] statistics
+    # and the fp32 [H, S] table; operations: the products each kernel's
+    # function needs (K4a: S and PV; K4b: S, dP, dV, dK; K4c: S, dP, dQ)
+    rows = {
+        "fwd": kernel_row(None, t["fwd"], t["plain_fwd"], 4 * tensor + 2 * stat + table,
+                          2 * product, t["lib_fwd"]),
+        "dkv": kernel_row(None, t["dkv"], t["plain_bwd"], 6 * tensor + 3 * stat + table,
+                          4 * product, t["lib_bwd"]),
+        "dq": kernel_row(None, t["dq"], t["plain_bwd"], 5 * tensor + 3 * stat + table,
+                         3 * product, t["lib_bwd"]),
+    }
+    return rows, {f"k4_bias_{key}_ms": value for key, value in t.items()}
+
+
+def phase_mpt_train_kernels(gen):
+    """(a) K4b's and K4c's bias branches against their tile walks and the
+    trainable path with the table against plain autograd, at the training
+    shape, multiquery at a ragged S and with a cache-sized table; timed at
+    the training shape. Returns (the three rows, the numbers)."""
+    cases = [  # (B, S, H, Hkv, D, the table's slots: None sizes it to S)
+        (4, 1024, 32, 32, 128, None),  # the training shape of the K4 rows
+        (1, 700, 32, 1, 128, None),  # multiquery: one kv head, a group of 32, ragged S
+        (1, 768, 32, 32, 128, MPT_TABLE_SLOTS),  # each head's last bias far from 0
+    ]
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    rows = extra = None
+    for b, s, h, hkv, d, slots in cases:
+        q, k, v = _randn((b, s, h, d), gen), _randn((b, s, hkv, d), gen), _randn((b, s, hkv, d), gen)
+        do = _randn((b, s, h, d), gen)
+        bias = _mpt_training_table(h, s) if slots is None else _alibi_table(h, s)
+        scale = d ** -0.5
+        o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale, bias)
+        di = flash_mod._bwd_di_cuda(o, do)
+        dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias)
+        dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias)
+        sync()
+        want_dk, want_dv = flash_mod.flash_backward_dkv_schedule(q, k, v, do, m, l, di,
+                                                                 bias_k=bias)
+        want_dq = flash_mod.flash_backward_dq_schedule(q, k, v, do, m, l, di, bias_k=bias)
+        walks = [_check_grad(name, g.float(), w.float(), WALK_REL_L2, WALK_REL_MAX)
+                 for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))]
+        got = _flash_grads(lambda q, k, v: flash_mod.flash_attention_trainable_padded(
+            q, k, v, True, bias_k=bias), q, k, v, do)
+        sync()
+        want = _flash_grads(lambda q, k, v: flash_mod.flash_attention_plain(
+            q.float(), k.float(), v.float(), bias_k=bias), q, k, v, do)
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        check(all(torch.isfinite(g).all().item() for g in got), "flash backward with bias finite")
+        check(errs[0] <= FLASH_TOL, f"K4a bias output error {errs[0]} > {FLASH_TOL}")
+        rel = [_check_grad(name, g, w, GRAD_REL_L2, GRAD_REL_MAX)
+               for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:])]
+        worst["fwd"] = max(worst["fwd"], errs[0])
+        worst["dq"] = max(worst["dq"], errs[1])
+        worst["dkv"] = max(worst["dkv"], errs[2], errs[3])
+        del got, want
+        log(f"[K4 bias] B={b} S={s} H={h} Hkv={hkv} D={d} table "
+            f"{'sized to S' if slots is None else f'of {slots} slots'} (min "
+            f"{bias.min().item():.1f}, last key {bias[0, -1].item():.1f}): vs the tile walks: "
+            + "; ".join(walks) + "; trainable vs plain autograd: o max_abs_err "
+            f"{errs[0]:.3e}, " + "; ".join(rel))
+        if rows is None:
+            rows, extra = _time_flash_bias(q, k, v, do, bias)
+        elif hkv == 1:
+            extra["k4_bias_multiquery_dkv_ms"] = time_ms(
+                lambda: flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias))
+            extra["k4_bias_multiquery_dq_ms"] = time_ms(
+                lambda: flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias))
+            items = ((s + 127) // 128 + 1) // 2 * hkv * b
+            log(f"[K4 bias] multiquery B={b} S={s} H={h} Hkv=1: K4b "
+                f"{extra['k4_bias_multiquery_dkv_ms']:.4f} ms ({items} work items: {items} "
+                f"blocks), K4c {extra['k4_bias_multiquery_dq_ms']:.4f} ms")
+    for name, row in rows.items():
+        row["max_abs_err"] = worst[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+def phase_mpt_train(model, gen):
+    """(b) 3 optimizer steps of `train.train.train` on the phase-22 model
+    (LoRA r128 / alpha 256 over the int8 backbone, batch 2, remat) and (c)
+    one micro-step, kernels against plain attention. Returns (the K4 bias
+    launches of (b), the JSON entry)."""
+    from teochat_torch.train import train as train_mod
+
+    t0 = time.perf_counter()
+    cfg, params = model.cfg, model.params
+    tokenizer = WordTokenizer()
+    processor = FrameProcessor(cfg.vision.image_size, SEED)
+    n_layers, steps, batch = cfg.llm.n_layers, 3, 2
+    # the int8 kernels, to hold them bitwise after the run
+    frozen = {path: x.clone() for path, x in tree_leaves_with_path(params["llm"])
+              if x.dtype == torch.int8}
+    os.makedirs("results", exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_mpt_train_", dir="results")
+    history = []
+    for counter in (*K4_BIAS_COUNTERS.values(), flash_mod.FWD_RES_LAUNCHES,
+                    flash_mod.BWD_DKV_LAUNCHES, flash_mod.BWD_DQ_LAUNCHES):
+        counter.reset()
+    gc.collect()
+    before_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, sec = wall(lambda: train_mod.train(
+            train_mod.ModelArguments(mm_use_im_patch_token=False, mm_use_im_start_end=False),
+            DataArguments(image_processor=processor),
+            train_mod.TrainingArguments(
+                output_dir=out, per_device_train_batch_size=batch, gradient_accumulation_steps=1,
+                lora_enable=True, lora_r=128, lora_alpha=256, bits=8, bf16=True,
+                gradient_checkpointing=True, learning_rate=2e-4, mm_projector_lr=2e-5,
+                warmup_ratio=0.0, save_strategy="no", report_to="none", logging_steps=1,
+                seed=SEED),
+            cfg=cfg, params=params, tokenizer=tokenizer, dataset=train_samples(2 * steps * batch),
+            max_steps_override=steps, history=history))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {name: c.count for name, c in K4_BIAS_COUNTERS.items()}
+    free = _k4_counts()
+    peak = (torch.cuda.max_memory_allocated() - before_alloc) / 2**30
+    check(len(history) == steps and state.step == steps, "three optimizer steps")
+    check(all(np.isfinite(h["loss"]) and h["loss"] > 0 for h in history),
+          "MPT training losses finite and positive")
+    _log_history("mpt train", history, 1)
+    steady = history[1:]
+    s_step = sum(h["seconds"] for h in steady) / len(steady)
+    tok_s = sum(h["tokens"] for h in steady) / sum(h["seconds"] for h in steady)
+    seq = history[0]["padded_tokens"] // batch
+    per_micro = {name: n / steps for name, n in launches.items()}
+    log(f"[mpt train] train.train.train (LLaVA-MPT-7B int8 + LoRA r128, batch {batch} x {seq} "
+        f"fused tokens, remat): {sec:.2f} s for {steps} steps (with the set-up and the final "
+        f"save); steps 2-3: {s_step:.3f} s/step, {tok_s:.1f} valid tokens/s; peak allocated "
+        f"{peak:.3f} GiB above the {before_alloc / 2**30:.3f} GiB held before; "
+        f"{_timing.smi_line()}")
+    log(f"[mpt train] launches over {steps} micro-steps of {n_layers} layers: with the bias "
+        f"K4a {launches['fwd']}, K4b {launches['dkv']}, K4c {launches['dq']} (a micro-step: "
+        f"{per_micro}); bias-free {free}")
+    check(per_micro == {"fwd": 2 * n_layers, "dkv": n_layers, "dq": n_layers},
+          f"K4 bias launches a micro-step {per_micro}")
+    check(not any(free.values()), f"bias-free K4 launches during MPT training: {free}")
+    dev = gen_mod.embedding_table(params["llm"]).device
+    init_lora = add_lora_params(torch.Generator(device=dev).manual_seed(SEED), params["llm"],
+                                rank=128, alpha=256.0)
+    want = dict(tree_leaves_with_path(partition_params({"llm": init_lora},
+                                                       lora_trainable_filter)[0]))
+    got = dict(tree_leaves_with_path(partition_params({"llm": state.params["llm"]},
+                                                      lora_trainable_filter)[0]))
+    check(sorted(got) == sorted(want) and len(got) == 2 * len(MPT_TARGET_NAMES),
+          f"MPT LoRA leaves {sorted(got)}")
+    for path, x in got.items():
+        check(not torch.equal(x, want[path]), f"{path} did not change")
+    before_proj = dict(tree_leaves_with_path(params["projector"]))
+    for path, x in tree_leaves_with_path(state.params["projector"]):
+        check(not torch.equal(x, before_proj[path].float()), f"projector/{path} did not change")
+    after = dict(tree_leaves_with_path(state.params["llm"]))
+    for path, x in frozen.items():
+        check(torch.equal(after[path], x), f"the int8 kernel {path} changed")
+    del init_lora, want, got, state, frozen, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t0
+
+    # (c)
+    parity = phase_train_parity(cfg, params, tokenizer, processor, gen, rows=batch,
+                                tag="mpt train parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"step_s": s_step, "tokens_per_s": tok_s, "peak_gib": peak,
+                      "seq": seq, "losses": [h["loss"] for h in history],
+                      "launches_per_micro_step": per_micro, "train_s": train_s,
+                      "parity": parity, "phase_s": time.perf_counter() - t0}
 
 
 def stamp(t0, what):
@@ -4829,9 +5099,19 @@ def main():
     # the MPT phase draws from its own generator: the later phases' weights stay as they were
     mpt_gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     rows["K1 bias"], mpt_kernels = phase_mpt_kernels(mpt_gen)
-    mpt_counts, mpt_entry = phase_mpt(mpt_gen)
+    mpt_counts, mpt_entry, mpt_model = phase_mpt(mpt_gen)
     mpt_entry.update(mpt_kernels)
     stamp(t0, "phase 22 (MPT)")
+    k4_bias_rows, k4_bias_extra = phase_mpt_train_kernels(mpt_gen)
+    k4_bias_launches, mpt_entry["train"] = phase_mpt_train(mpt_model, mpt_gen)
+    mpt_entry["train"].update(k4_bias_extra)
+    del mpt_model
+    gen_mod.clear_decode_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mpt] after the model is deleted: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    stamp(t0, "phase 23 (MPT training)")
     tokenizer = WordTokenizer()
 
     int4_counts, k3a_counts, (fp8_int4, fp8_launches) = phase_int4_path(gen, tokenizer)
@@ -4937,6 +5217,13 @@ def main():
             train_launches["dkv"], k4_rows["dkv"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:421",
             train_launches["dq"], k4_rows["dq"]),
+        # the same three kernels' bias branches (`has_bias_k`): MPT training's
+        row("flash_attention_fwd_res_bias", "flash_attention.cu", "flash_attention.py:243",
+            k4_bias_launches["fwd"], k4_bias_rows["fwd"]),
+        row("flash_attention_bwd_dkv_bias", "flash_attention_bwd.cu", "flash_attention.py:348",
+            k4_bias_launches["dkv"], k4_bias_rows["dkv"]),
+        row("flash_attention_bwd_dq_bias", "flash_attention_bwd.cu", "flash_attention.py:421",
+            k4_bias_launches["dq"], k4_bias_rows["dq"]),
         row("int4_matmul", "int4_matmul.cu", "int4_matmul.py:44",
             k3a_counts["K3a"], rows["K3a"]),
         row("int4_matmul_tiled", "int4_matmul.cu", "int4_matmul.py:208",

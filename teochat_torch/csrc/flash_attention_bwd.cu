@@ -78,6 +78,19 @@
 // m, l and di are fp32 [B, H, S]; dq, dk and dv are written contiguous in the
 // inputs' shapes. Keys past T are masked; rows past S are computed on zeros
 // and add exactly nothing. Causal masking assumes S == T.
+//
+// BIAS (the `has_bias_k` branch of both TPU kernels: ALiBi, the MPT backend)
+// adds a key-separable fp32 table bias[h * bias_sh + key] to each scaled
+// score before the mask, as K4a did when it stored m. K4a takes each head's
+// table relative to its last key's bias bref = bias[h, T - 1] and adds bref
+// back to m; here the row's offset is taken relative to bref again
+// (`softmax_offset(m - bref, l)`) and each score is s c2 + (bias - bref)
+// log2(e) - offset, so a cache-sized table (biases down to ~-3,400, where an
+// fp32 ulp is 2.4e-4) costs the scores no precision. The table is a
+// constant: it has no gradient. K4c's thread reads its 16 keys' biases for
+// each kv tile; K4b's thread owns two keys, whose biases it reads once for
+// each q head of the group, and the producer warp stages the rows' offsets
+// relative to that head's bref.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -237,10 +250,11 @@ struct DqWalk {
   }
 };
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ m,
                     const float* __restrict__ l, const float* __restrict__ di,
+                    const float* __restrict__ bias, long long bias_sh,
                     uint16_t* __restrict__ dq, int B, int S, int T, int H, int Hkv, float scale,
                     int causal) {
   constexpr int BOXES = D / 64;  // 64-column boxes a row
@@ -347,6 +361,10 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
 
     while (walk.next(tile)) {
       const int row_lo = tile.q0 + wg * 64 + warp * 16 + gid;  // this thread's rows: row_lo, + 8
+      // the head's table and reference bias (see the note at the top); 0
+      // without a bias
+      const float* brow = BIAS ? bias + tile.h * bias_sh : nullptr;
+      const float bref = BIAS ? __ldg(brow + T - 1) : 0.f;
       // p = exp(s - m) / l = 2^(s c2 - ml2): the row's maximum and denominator
       // in one base-2 offset. Rows past S take m = 0, 1 / l = 1, di = 0 (their
       // q and dO are zeros)
@@ -356,7 +374,7 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
         const int row = row_lo + 8 * r;
         if (row < S) {
           const long long idx = (static_cast<long long>(tile.b) * H + tile.h) * S + row;
-          ml2[r] = softmax_offset(m[idx], l[idx]);
+          ml2[r] = softmax_offset(m[idx] - bref, l[idx]);
           di_r[r] = di[idx];
         }
       }
@@ -371,8 +389,23 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
       for (int j = 0; j < tile.n_kv; ++j, ++n_kv_tiles) {
         const int k0 = j * DQ_BK;
         // scores into base-2 units, less the row's offset
+        if constexpr (BIAS) {
+          // plus (bias - bref) log2(e): a thread's keys are k0 + 8 nt + 2 tig
+          // + e, the same for its two rows, so each bias is loaded once a tile
 #pragma unroll
-        for (int i = 0; i < DQ_BK / 2; ++i) s[i] = fmaf(s[i], c2, -ml2[(i >> 1) & 1]);
+          for (int nt = 0; nt < DQ_BK / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + nt * 8 + tig * 2 + e;
+              const float bl = col < T ? (__ldg(brow + col) - bref) * LOG2E : 0.f;
+              s[4 * nt + e] = fmaf(s[4 * nt + e], c2, bl - ml2[0]);
+              s[4 * nt + 2 + e] = fmaf(s[4 * nt + 2 + e], c2, bl - ml2[1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < DQ_BK / 2; ++i) s[i] = fmaf(s[i], c2, -ml2[(i >> 1) & 1]);
+        }
         // mask (ragged keys and the causal diagonal) where the tile needs it
         if (k0 + DQ_BK > T || (causal && k0 + DQ_BK - 1 > row_lo - gid)) {
 #pragma unroll
@@ -469,10 +502,11 @@ struct DkvWalk {
   }
 };
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ m,
                      const float* __restrict__ l, const float* __restrict__ di,
+                     const float* __restrict__ bias, long long bias_sh,
                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int B, int S, int T,
                      int H, int Hkv, float scale, int causal) {
   constexpr int BOXES = D / 64;
@@ -535,6 +569,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
       for (int g = 0; g < G; ++g) {
         const int h = tile.hk * G + g;
         const long long row_base = (static_cast<long long>(tile.b) * H + h) * S;
+        // the offsets are staged relative to the head's reference bias
+        const float bref = BIAS ? __ldg(bias + h * bias_sh + T - 1) : 0.f;
         for (int qt = tile.qt0; qt < n_qt; ++qt, ++n_steps) {
           const int st = n_steps % STAGES, q0 = qt * DKV_BQ;
           mbar_wait(q_empty(st), ((n_steps / STAGES) & 1) ^ 1);
@@ -553,7 +589,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
             // rows past S: q = dO = 0 and di = 0, so they add exactly nothing
             float off = 0.f, dd = 0.f;
             if (q0 + i < S) {
-              off = softmax_offset(m[row_base + q0 + i], l[row_base + q0 + i]);
+              off = softmax_offset(m[row_base + q0 + i] - bref, l[row_base + q0 + i]);
               dd = di[row_base + q0 + i];
             }
             st_shared_f32(stat + 4 * i, off);
@@ -605,6 +641,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
       const int per_head = n_qt - tile.qt0, steps = G * per_head;
+      // (bias - bref) log2(e) of this thread's two keys for the head the walk
+      // is on, read when it reaches the head's first step
+      float bk[2] = {0.f, 0.f};
 
       mbar_wait(kv_full, n_tiles & 1);
       mbar_wait(q_full(n_steps % STAGES), (n_steps / STAGES) & 1);
@@ -615,6 +654,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
 
       for (int i_step = 0; i_step < steps; ++i_step, ++n_steps) {
         const int st = n_steps % STAGES;
+        if (BIAS && i_step % per_head == 0) {
+          const float* brow = bias + (tile.hk * G + i_step / per_head) * bias_sh;
+          const float bref = __ldg(brow + T - 1);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = key_lo + 8 * r;
+            bk[r] = key < T ? (__ldg(brow + key) - bref) * LOG2E : 0.f;
+          }
+        }
 #pragma unroll
         for (int part = 0; part < PARTS; ++part) {
           const int q0 = (tile.qt0 + i_step % per_head) * DKV_BQ + part * DKV_SUB;
@@ -634,7 +682,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
                 const int i = 4 * nt + e;
-                float x = fmaf(st_[i], c2, -((e & 1) ? off.y : off.x));
+                float x = fmaf(st_[i], c2, (BIAS ? bk[e >> 1] : 0.f) - ((e & 1) ? off.y : off.x));
                 if (edge) {  // ragged keys and the causal diagonal
                   const int key = key_lo + (e >> 1) * 8, row = q0 + c + (e & 1);
                   if (key >= T || (causal && key > row)) x = MASK_VALUE;
@@ -705,9 +753,9 @@ static_assert(dq_smem_bytes<128>() <= 227 * 1024 && dkv_smem_bytes<128>() <= 227
 // What both entries are given; see TEOCHAT_BWD_ARGS below.
 struct Call {
   const void *q, *k, *v, *dout;
-  const float *m, *l, *di;
+  const float *m, *l, *di, *bias;
   int B, S, T, H, Hkv, D;
-  long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh;
+  long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh, bias_sh;
   float scale;
   int causal;
   cudaStream_t stream;
@@ -746,52 +794,57 @@ int prepare(Kernel kernel, size_t smem, long long items, int* blocks) {
   return static_cast<int>(err);
 }
 
-template <int D>
+// The BIAS instantiation where a table is given, else the bias-free one.
+template <int D, bool BIAS>
 int launch_dkv(const Call& c, uint16_t* dk, uint16_t* dv) {
   Maps maps;
   int blocks, err = encode_maps(&maps, c, DKV_BQ, DKV_BK);
   const long long n_kt = (c.T + DKV_BK - 1) / DKV_BK;
   const long long items = (c.causal ? (n_kt + 1) / 2 : n_kt) * c.Hkv * c.B;
-  if (!err) err = prepare(flash_bwd_dkv_kernel<D>, dkv_smem_bytes<D>(), items, &blocks);
+  if (!err) err = prepare(flash_bwd_dkv_kernel<D, BIAS>, dkv_smem_bytes<D>(), items, &blocks);
   if (err) return err;
-  flash_bwd_dkv_kernel<D><<<blocks, NTHREADS, dkv_smem_bytes<D>(), c.stream>>>(
-      maps, c.m, c.l, c.di, dk, dv, c.B, c.S, c.T, c.H, c.Hkv, c.scale, c.causal);
+  flash_bwd_dkv_kernel<D, BIAS><<<blocks, NTHREADS, dkv_smem_bytes<D>(), c.stream>>>(
+      maps, c.m, c.l, c.di, c.bias, c.bias_sh, dk, dv, c.B, c.S, c.T, c.H, c.Hkv, c.scale,
+      c.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool BIAS>
 int launch_dq(const Call& c, uint16_t* dq) {
   Maps maps;
   int blocks, err = encode_maps(&maps, c, DQ_BQ, DQ_BK);
   const long long n_qt = (c.S + DQ_BQ - 1) / DQ_BQ;
   const long long items = (c.causal ? (n_qt + 1) / 2 : n_qt) * c.H * c.B;
-  if (!err) err = prepare(flash_bwd_dq_kernel<D>, dq_smem_bytes<D>(), items, &blocks);
+  if (!err) err = prepare(flash_bwd_dq_kernel<D, BIAS>, dq_smem_bytes<D>(), items, &blocks);
   if (err) return err;
-  flash_bwd_dq_kernel<D><<<blocks, NTHREADS, dq_smem_bytes<D>(), c.stream>>>(
-      maps, c.m, c.l, c.di, dq, c.B, c.S, c.T, c.H, c.Hkv, c.scale, c.causal);
+  flash_bwd_dq_kernel<D, BIAS><<<blocks, NTHREADS, dq_smem_bytes<D>(), c.stream>>>(
+      maps, c.m, c.l, c.di, c.bias, c.bias_sh, dq, c.B, c.S, c.T, c.H, c.Hkv, c.scale,
+      c.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The two backward entries take the same arguments: q, k, v, dO (bf16,
-// strided), m, l, di (fp32 [B, H, S]), sizes, strides, scale, causal and the
-// stream, then the outputs. Each returns 0, or the error of the tensor maps'
-// encoding or of the launch.
+// strided), m, l, di (fp32 [B, H, S]), the bias table (`has_bias_k`: fp32
+// [H, T], rows bias_sh floats apart, each row contiguous; null and a stride
+// of 0 for none), sizes, strides, scale, causal and the stream, then the
+// outputs. Each returns 0, or the error of the tensor maps' encoding or of
+// the launch.
 #define TEOCHAT_BWD_ARGS                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *m, \
-      const void *l, const void *di, int B, int S, int T, int H, int Hkv,       \
-      int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,    \
-      long long k_st, long long k_sh, long long v_sb, long long v_st,           \
-      long long v_sh, long long o_sb, long long o_ss, long long o_sh,           \
-      float scale, int causal, void *stream
+      const void *l, const void *di, const void *bias, int B, int S, int T,     \
+      int H, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,    \
+      long long k_sb, long long k_st, long long k_sh, long long v_sb,           \
+      long long v_st, long long v_sh, long long o_sb, long long o_ss,           \
+      long long o_sh, long long bias_sh, float scale, int causal, void *stream
 
 #define TEOCHAT_BWD_CALL                                                                  \
   Call {                                                                                  \
     q, k, v, dout, static_cast<const float*>(m), static_cast<const float*>(l),            \
-        static_cast<const float*>(di), B, S, T, H, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_st,  \
-        k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh, scale, causal,                          \
-        static_cast<cudaStream_t>(stream)                                                 \
+        static_cast<const float*>(di), static_cast<const float*>(bias), B, S, T, H, Hkv,  \
+        D, q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,        \
+        bias_sh, scale, causal, static_cast<cudaStream_t>(stream)                         \
   }
 
 // K4b: dK and dV, contiguous [B, T, Hkv, D].
@@ -799,16 +852,19 @@ extern "C" int teochat_flash_attention_bwd_dkv(TEOCHAT_BWD_ARGS, void* dk, void*
   const Call c = TEOCHAT_BWD_CALL;
   auto* dkp = static_cast<uint16_t*>(dk);
   auto* dvp = static_cast<uint16_t*>(dv);
-  if (D == 128) return launch_dkv<128>(c, dkp, dvp);
-  if (D == 64) return launch_dkv<64>(c, dkp, dvp);
+  if (D == 128)
+    return c.bias ? launch_dkv<128, true>(c, dkp, dvp) : launch_dkv<128, false>(c, dkp, dvp);
+  if (D == 64)
+    return c.bias ? launch_dkv<64, true>(c, dkp, dvp) : launch_dkv<64, false>(c, dkp, dvp);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4c: dQ, contiguous [B, S, H, D].
 extern "C" int teochat_flash_attention_bwd_dq(TEOCHAT_BWD_ARGS, void* dq) {
   const Call c = TEOCHAT_BWD_CALL;
-  if (D == 128) return launch_dq<128>(c, static_cast<uint16_t*>(dq));
-  if (D == 64) return launch_dq<64>(c, static_cast<uint16_t*>(dq));
+  auto* dqp = static_cast<uint16_t*>(dq);
+  if (D == 128) return c.bias ? launch_dq<128, true>(c, dqp) : launch_dq<128, false>(c, dqp);
+  if (D == 64) return c.bias ? launch_dq<64, true>(c, dqp) : launch_dq<64, false>(c, dqp);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

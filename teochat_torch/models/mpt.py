@@ -29,9 +29,10 @@ Attention, by path:
   whole table as its bias: JAX runs XLA's masked attention there, not a
   Pallas kernel, and the decode kernels K2 / K2m take no bias;
 - cache-free (`cache=None`): causal self-attention over S, through the
-  differentiable flash path (K4a with the bias; its backward raises until
-  K4b-c take the bias) on the card when there is no mask, else the plain
-  masked attention.
+  differentiable flash path (K4a, K4b and K4c with the bias) on the card
+  when there is no mask or the mask is right padding (`right_padded`, the
+  training plan: the padded keys sit after every valid query), else the
+  plain masked attention.
 
 The KV cache is llama.py's `KVCache`, updated in place as there.
 """
@@ -47,7 +48,6 @@ from torch.utils.checkpoint import checkpoint
 
 from teochat_torch.models import llama as llama_mod
 from teochat_torch.ops.attention import dot_product_attention
-from teochat_torch.ops.flash_attention import flash_attention_trainable_padded
 from teochat_torch.ops.quant import matmul_fp32
 from teochat_torch.utils import resolve_device, unported
 
@@ -126,10 +126,11 @@ def _query_mask(write_slots: torch.Tensor, t_max: int, kv_mask=None, kv_len=None
 
 def _mpt_layer(x, lp, cfg, bias, layer: int, cache, mask, write_slots, query_mask,
                row_offset: int = 0, spec_verify: bool = False, prefill_start: int = 0,
-               attend_cache: bool = False, route=None, attn_impl: str = "auto") -> torch.Tensor:
+               attend_cache: bool = False, route=None, attn_impl: str = "auto",
+               right_padded: bool = False) -> torch.Tensor:
     """One block. `bias` is the [H, T] ALiBi table; `mask` the cache-free
-    padding mask [B, S]; `query_mask` [B, S, T_max] what a cached query
-    reading the slab attends."""
+    padding mask [B, S] (right padding where `right_padded`); `query_mask`
+    [B, S, T_max] what a cached query reading the slab attends."""
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
@@ -142,12 +143,10 @@ def _mpt_layer(x, lp, cfg, bias, layer: int, cache, mask, write_slots, query_mas
     v = qkv[..., d + n_kv * hd:].reshape(b, s, n_kv, hd)
 
     if cache is None:
-        if mask is None and x.is_cuda and attn_impl == "auto":
-            # the differentiable flash path with the table riding in-kernel
-            out = flash_attention_trainable_padded(q, k, v, True, bias_k=bias[:, :s])
-        else:
-            out = dot_product_attention(q, k, v, causal=True, mask=mask, bias_k=bias[:, :s],
-                                        impl="plain")
+        # the differentiable flash path with the table riding in-kernel
+        # where the mask may be dropped, else the plain masked attention
+        out = dot_product_attention(q, k, v, causal=True, mask=mask, bias_k=bias[:, :s],
+                                    impl=attn_impl, right_padded=right_padded or mask is None)
     else:
         # this batch's rows of the layer's slab, [B, T, Hkv, D] views
         k_slab = cache.k[layer, row_offset:row_offset + b]
@@ -206,6 +205,7 @@ def mpt_forward(
     kv_len: Optional[torch.Tensor] = None,
     adapter_route: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",  # auto | plain
+    right_padded: bool = False,
 ) -> torch.Tensor:
     """Run the MPT stack with llama_forward's cache contract; returns fp32
     logits [B, S|1, V] (the tied `wte` head, times `cfg.logit_scale`), or
@@ -218,9 +218,11 @@ def mpt_forward(
     slab); `attend_cache` makes an S > 1 prefill written at `prefill_start`
     attend the cache; the cached path runs on rows [cache_row_offset,
     cache_row_offset + B). ALiBi takes the place of position ids. Cache-free
-    (`cache=None`): `attention_mask` [B, S] marks valid tokens, `remat`
-    recomputes each block in the backward. `attn_impl` 'plain' routes every
-    attention to the plain version (the kernel's reference)."""
+    (`cache=None`): `attention_mask` [B, S] marks valid tokens,
+    `right_padded` says they are all on the left (the training plan), so the
+    flash kernels may drop the mask, and `remat` recomputes each block in the
+    backward. `attn_impl` 'plain' routes every attention to the plain
+    version (the kernel's reference)."""
     x = inputs_embeds
     b, s, _ = x.shape
     _check_supported(cfg, cache, b, cache_row_offset)
@@ -235,7 +237,7 @@ def mpt_forward(
     for layer, lp in enumerate(llama_mod.unstack_layers(params["layers"], cfg.n_layers)):
         args = (x, lp, cfg, bias, layer, cache, mask, write_slots, query_mask,
                 cache_row_offset, spec_verify, prefill_start, attend_cache, adapter_route,
-                attn_impl)
+                attn_impl, right_padded)
         if remat and cache is None:
             x = checkpoint(_mpt_layer, *args, use_reentrant=False)
         else:

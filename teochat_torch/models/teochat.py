@@ -7,7 +7,7 @@ are bucketed as in the JAX package, so the cache size and the prefill shapes
 are the same on both backends. The decoder is LLaMA's or, for an
 MptConfig, LLaVA-MPT's (models/mpt.py: its tied `wte` embeds the text, and
 generation's backend dispatch runs it). `forward_train` is the training
-loss, on the LLaMA decoder only.
+loss, on either decoder.
 """
 
 from __future__ import annotations
@@ -26,19 +26,13 @@ from teochat_torch.models import mpt as mpt_mod
 from teochat_torch.models.projector import projector_forward
 from teochat_torch.models.vit import select_features, vit_forward
 from teochat_torch.train import lora as lora_mod
-from teochat_torch.utils import tree_leaves_with_path, unported
+from teochat_torch.utils import tree_leaves_with_path
 
 Params = dict
 
 # prefill-length buckets (fused tokens) and frame-count buckets
 SEQ_BUCKETS = (128, 256, 512, 768, 1024, 1536, 2048, 3072, 4352)
 FRAME_BUCKETS = (1, 2, 4, 8, 16)
-
-
-def _require_llama(params: Params) -> None:
-    """Training takes the LLaMA decoder only; an MPT one is told by its params."""
-    if mpt_mod.is_mpt_params(params["llm"]):
-        raise unported("training the MPT backend", 14)
 
 
 def round_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -81,13 +75,16 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
 
     The tower runs without a graph unless one of its leaves requires a
     gradient (full fine-tuning, the CPU only: K5 has no backward); the
-    projector, the fusion and the decoder carry gradients. The decoder runs
-    cache-free on the right-padded plan (`right_padded=True`: the flash
-    kernels on CUDA).
+    projector, the fusion and the decoder carry gradients. The decoder (LLaMA,
+    or MPT where the params hold its tied `wte`) runs cache-free on the
+    right-padded plan (`right_padded=True`: the flash kernels on CUDA, K4a-c
+    with MPT's ALiBi table). JAX's MPT branch passes the mask to its plain
+    path; dropping it changes nothing that reaches the loss: a causal,
+    key-separable bias leaves the padded keys after every valid query, and
+    the padded rows' logits are out of the loss, as for LLaMA.
     `remat` recomputes decoder layers in the backward (HF gradient
     checkpointing); `attn_impl='plain'` runs the plain attention instead.
     """
-    _require_llama(params)
     dev = pixel_values.device
     tower_trains = any(x.requires_grad for _, x in tree_leaves_with_path(params["vision"]))
     with torch.set_grad_enabled(torch.is_grad_enabled() and tower_trains):
@@ -96,12 +93,19 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
         feats = select_features(hidden, cfg.mm_vision_select_feature)
     vision_tokens = projector_forward(params["projector"], cfg.projector, feats)
     embeds = multimodal_embeds(params, cfg, plan, vision_tokens)
-    logits = llama_mod.llama_forward(
-        params["llm"], cfg.llm, embeds,
-        position_ids=torch.as_tensor(plan.position_ids, device=dev),
-        attention_mask=torch.as_tensor(plan.attention_mask, device=dev),
-        right_padded=True, remat=remat, attn_impl=attn_impl,
-    )
+    attention_mask = torch.as_tensor(plan.attention_mask, device=dev)
+    if mpt_mod.is_mpt_params(params["llm"]):
+        logits = mpt_mod.mpt_forward(
+            params["llm"], cfg.llm, embeds, attention_mask=attention_mask,
+            right_padded=True, remat=remat, attn_impl=attn_impl,
+        )
+    else:
+        logits = llama_mod.llama_forward(
+            params["llm"], cfg.llm, embeds,
+            position_ids=torch.as_tensor(plan.position_ids, device=dev),
+            attention_mask=attention_mask, right_padded=True, remat=remat,
+            attn_impl=attn_impl,
+        )
     labels = torch.as_tensor(plan.labels, dtype=torch.long, device=dev)[:, 1:]
     valid = labels != fusion_mod.IGNORE_INDEX
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)

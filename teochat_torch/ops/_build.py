@@ -36,11 +36,13 @@ _SIGNATURES = {
     "teochat_flash_attention_fwd_res": (
         [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _I, _P]
     ),
+    # q, k, v, dO, m, l, di, the bias table or null; the strides, the bias
+    # rows' stride; then the outputs
     "teochat_flash_attention_bwd_dkv": (
-        [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P] * 2
+        [_P] * 8 + [_I] * 6 + [_LL] * 13 + [_F, _I, _P] + [_P] * 2
     ),
     "teochat_flash_attention_bwd_dq": (
-        [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P] + [_P]
+        [_P] * 8 + [_I] * 6 + [_LL] * 13 + [_F, _I, _P] + [_P]
     ),
     "teochat_flash_attention_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P],
     "teochat_decode_attention": (

@@ -14,12 +14,16 @@ TMA loads through a ring of shared-memory tiles; their source notes say what
 bounds them on the card and how they are laid out. A CPU tensor goes to the
 plain twin (ops/attention.py::plain_attention, with autograd for the
 trainable one); a CUDA tensor launches the kernels or raises.
-K1 and K4a take the JAX kernels' optional key-separable bias `bias_k`
+Every kernel takes the JAX kernels' optional key-separable bias `bias_k`
 [H, T] fp32 (ALiBi, the MPT backend: models/mpt.py), added to each scaled
-score before the causal mask, as `_flash_kernel` adds its [1, block_k] tile;
-a launch with it is counted on LAUNCHES_BIAS. The backward kernels do not
-take it yet: `flash_attention_trainable(bias_k=...)` runs K4a with the bias
-and its backward raises (ROADMAP item 14).
+score before the causal mask, as the Pallas kernels add their [1, block_k]
+tile: K1 and K4a (csrc/flash_attention.cu) and K4b and K4c
+(csrc/flash_attention_bwd.cu) as a BIAS template branch, each head's table
+taken relative to its last key's bias. The table is a constant: it gets no
+gradient, as JAX's custom_vjp gives it zeros. A launch with a bias is
+counted on the branch's own counter (LAUNCHES_BIAS, FWD_RES_BIAS_LAUNCHES,
+BWD_DKV_BIAS_LAUNCHES, BWD_DQ_BIAS_LAUNCHES), one without it on the
+bias-free one, so that a run tells the branches apart.
 `flash_forward_schedule`, `flash_backward_dkv_schedule` and
 `flash_backward_dq_schedule` walk the kernels' tiles in plain PyTorch, so
 that their schedules can be held against the JAX kernels without a card.
@@ -33,13 +37,16 @@ import torch
 
 from teochat_torch.ops import _build
 from teochat_torch.ops.attention import NEG_INF, _repeat_kv, plain_attention
-from teochat_torch.utils import unported
 
 LAUNCHES = _build.LaunchCounter("flash_attention")  # K1
 LAUNCHES_BIAS = _build.LaunchCounter("flash_attention_bias")  # K1 with bias_k
 FWD_RES_LAUNCHES = _build.LaunchCounter("flash_attention_fwd_res")  # K4a
 BWD_DKV_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dkv")  # K4b
 BWD_DQ_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dq")  # K4c
+# the same three with bias_k
+FWD_RES_BIAS_LAUNCHES = _build.LaunchCounter("flash_attention_fwd_res_bias")
+BWD_DKV_BIAS_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dkv_bias")
+BWD_DQ_BIAS_LAUNCHES = _build.LaunchCounter("flash_attention_bwd_dq_bias")
 HEAD_DIMS = (64, 128)
 # the forward kernel's tiles (csrc/flash_attention.cu: TEOCHAT_FLASH_BQ, _BK)
 FWD_BLOCK_Q = 128  # query rows a tile: two warpgroups of 64
@@ -156,26 +163,40 @@ def flash_di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _backward_operands(q, k, v, do, m, l, di, block_q: int, block_k: int):
+def _backward_operands(q, k, v, do, m, l, di, block_q: int, block_k: int, bias_k=None):
     """The backward tile walks' inputs: q, k, v, dO in fp32 with rows past S
-    and keys past T as zeros (k and v expanded to the q heads), and the
-    rows' m, 1 / l (1 where l == 0) and di, padded with 0, 1 and 0."""
-    h, hkv = q.shape[2], k.shape[2]
+    and keys past T as zeros (k and v expanded to the q heads), the rows'
+    m, 1 / l (1 where l == 0) and di, padded with 0, 1 and 0, and the bias
+    table [1, H, 1, T] (None without one) taken relative to each head's last
+    key's bias bref, keys past T 0, with m - bref in place of m (the
+    kernels' shift: p does not move, and the scores stay near 0 where fp32
+    is finer)."""
+    h, hkv, t = q.shape[2], k.shape[2], k.shape[1]
     pad_s, pad_t = -q.shape[1] % block_q, -k.shape[1] % block_k
     pad = torch.nn.functional.pad
     qp, dop = (pad(x, (0, 0, 0, 0, 0, pad_s)).float() for x in (q, do))
     kp, vp = (pad(_repeat_kv(x, h // hkv), (0, 0, 0, 0, 0, pad_t)).float() for x in (k, v))
     linv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
-    return qp, kp, vp, dop, pad(m, (0, pad_s)), pad(linv, (0, pad_s), value=1.0), pad(di, (0, pad_s))
+    bl = None
+    if bias_k is not None and t > 0:
+        bref = bias_k.float()[:, t - 1:]  # [H, 1]
+        bl = pad(bias_k.float() - bref, (0, pad_t))[None, :, None, :]
+        m = m - bref[None]
+    return (qp, kp, vp, dop, pad(m, (0, pad_s)), pad(linv, (0, pad_s), value=1.0),
+            pad(di, (0, pad_s)), bl)
 
 
 def _backward_tile(qt, kt, vt, dot, m, linv, di, q0: int, k0: int, t: int,
-                   causal: bool, scale: float, dtype):
+                   causal: bool, scale: float, dtype, bl=None):
     """P and dS of one (query tile, kv tile) pair, [B, H, rows, keys], each
-    rounded to `dtype` as the kernels round them before their products."""
+    rounded to `dtype` as the kernels round them before their products. `bl`
+    is this tile's slice of the relative bias table, m the rows' maxima
+    relative to it, as `_backward_operands` makes them."""
     rows = torch.arange(q0, q0 + qt.shape[1], device=qt.device)
     cols = torch.arange(k0, k0 + kt.shape[1], device=qt.device)
     sc = torch.einsum("bshd,bthd->bhst", qt, kt) * scale
+    if bl is not None:
+        sc = sc + bl
     dead = (cols >= t)[None, :]
     if causal:
         dead = dead | (cols[None, :] > rows[:, None])
@@ -187,7 +208,8 @@ def _backward_tile(qt, kt, vt, dot, m, linv, di, q0: int, k0: int, t: int,
 
 def flash_backward_dkv_schedule(q, k, v, do, m, l, di, *, causal: bool = True, scale=None,
                                 block_q: int = BWD_DKV_BLOCK_Q,
-                                block_k: int = BWD_DKV_BLOCK_K):
+                                block_k: int = BWD_DKV_BLOCK_K,
+                                bias_k: Optional[torch.Tensor] = None):
     """K4b's schedule, tile by tile, in plain PyTorch: (dk, dv) [B, T, Hkv, D]
     in k's dtype from q, k, v, dO and the rows' m, l and di (fp32 [B, H, S]).
 
@@ -198,12 +220,16 @@ def flash_backward_dkv_schedule(q, k, v, do, m, l, di, *, causal: bool = True, s
     1 / l = 1 where l == 0, ds = p (dp - di); P and dS are rounded to the
     inputs' dtype before dV += P^T dO and dK += dS^T Q; the sums are fp32
     over the whole walk (the group's heads included) and `scale` meets the
-    fp32 dK before its one rounding."""
+    fp32 dK before its one rounding. With `bias_k` [H, T] (the table K4a's m
+    and l were taken with) each key's bias is added to the scaled score
+    before the mask, relative to the head's last key's bias as K4a took it:
+    s + (bias - bref), against m - bref."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d ** -0.5
-    qp, kp, vp, dop, mp, linv, dip = _backward_operands(q, k, v, do, m, l, di, block_q, block_k)
+    qp, kp, vp, dop, mp, linv, dip, bl = _backward_operands(q, k, v, do, m, l, di, block_q,
+                                                            block_k, bias_k)
     dk = torch.zeros((b, kp.shape[1], h, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     for k0 in range(0, kp.shape[1], block_k):
@@ -213,7 +239,8 @@ def flash_backward_dkv_schedule(q, k, v, do, m, l, di, *, causal: bool = True, s
             rows, keys = slice(q0, q0 + block_q), slice(k0, k0 + block_k)
             p, ds = _backward_tile(qp[:, rows], kp[:, keys], vp[:, keys], dop[:, rows],
                                    mp[..., rows], linv[..., rows], dip[..., rows],
-                                   q0, k0, t, causal, scale, q.dtype)
+                                   q0, k0, t, causal, scale, q.dtype,
+                                   None if bl is None else bl[..., keys])
             dv[:, keys] += torch.einsum("bhst,bshd->bthd", p, dop[:, rows])
             dk[:, keys] += torch.einsum("bhst,bshd->bthd", ds, qp[:, rows])
 
@@ -224,17 +251,19 @@ def flash_backward_dkv_schedule(q, k, v, do, m, l, di, *, causal: bool = True, s
 
 
 def flash_backward_dq_schedule(q, k, v, do, m, l, di, *, causal: bool = True, scale=None,
-                               block_q: int = BWD_DQ_BLOCK_Q, block_k: int = BWD_DQ_BLOCK_K):
+                               block_q: int = BWD_DQ_BLOCK_Q, block_k: int = BWD_DQ_BLOCK_K,
+                               bias_k: Optional[torch.Tensor] = None):
     """K4c's schedule, tile by tile, in plain PyTorch: dq [B, S, H, D] in q's
     dtype. A block owns `block_q` query rows and walks the kv tiles of
-    `block_k` keys up to its diagonal; padding, masking, p, ds and the
-    rounding of dS as in `flash_backward_dkv_schedule`; dQ += dS K in fp32,
-    times `scale` before the one rounding."""
+    `block_k` keys up to its diagonal; padding, masking, the bias, p, ds and
+    the rounding of dS as in `flash_backward_dkv_schedule`; dQ += dS K in
+    fp32, times `scale` before the one rounding."""
     b, s, h, d = q.shape
     t = k.shape[1]
     if scale is None:
         scale = d ** -0.5
-    qp, kp, vp, dop, mp, linv, dip = _backward_operands(q, k, v, do, m, l, di, block_q, block_k)
+    qp, kp, vp, dop, mp, linv, dip, bl = _backward_operands(q, k, v, do, m, l, di, block_q,
+                                                            block_k, bias_k)
     dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
     for q0 in range(0, qp.shape[1], block_q):
         n_kv = kp.shape[1] // block_k
@@ -245,7 +274,8 @@ def flash_backward_dq_schedule(q, k, v, do, m, l, di, *, causal: bool = True, sc
             keys = slice(k0, k0 + block_k)
             _, ds = _backward_tile(qp[:, rows], kp[:, keys], vp[:, keys], dop[:, rows],
                                    mp[..., rows], linv[..., rows], dip[..., rows],
-                                   q0, k0, t, causal, scale, q.dtype)
+                                   q0, k0, t, causal, scale, q.dtype,
+                                   None if bl is None else bl[..., keys])
             dq[:, rows] += torch.einsum("bhst,bthd->bshd", ds, kp[:, keys])
     return (dq[:, :s] * scale).to(q.dtype)
 
@@ -369,40 +399,52 @@ def _fwd_res_cuda(q, k, v, causal: bool, scale: float, bias_k: Optional[torch.Te
         b, s, t, h, hkv, d, *_strides(q, k, v), bias_sh,
         float(scale), int(causal),
     )
-    FWD_RES_LAUNCHES.count += 1
+    (FWD_RES_LAUNCHES if bias_k is None else FWD_RES_BIAS_LAUNCHES).count += 1
     return out, m, l
 
 
-def _bwd_args(q, k, v, do, m, l, di, causal: bool, scale: float):
+def _bwd_args(q, k, v, do, m, l, di, causal: bool, scale: float,
+              bias_k: Optional[torch.Tensor] = None):
+    """The backward entries' arguments before their outputs; `bias_k` as
+    `_bias_operand` gives it (kept alive by the caller across the launch)."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
+    bias_ptr, bias_sh = _bias_ptr(bias_k)
     return (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), di.data_ptr(),
-        b, s, t, h, hkv, d, *_strides(q, k, v, do),
+        m.data_ptr(), l.data_ptr(), di.data_ptr(), bias_ptr,
+        b, s, t, h, hkv, d, *_strides(q, k, v, do), bias_sh,
         float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
 
 
-def _bwd_dkv_cuda(q, k, v, do, m, l, di, causal: bool, scale: float):
-    """K4b: dk, dv [B, T, Hkv, D] from the forward's m, l and di = rowsum(o * dO)."""
+def _bwd_dkv_cuda(q, k, v, do, m, l, di, causal: bool, scale: float,
+                  bias_k: Optional[torch.Tensor] = None):
+    """K4b: dk, dv [B, T, Hkv, D] from the forward's m, l and di = rowsum(o * dO);
+    with `bias_k` [H, T], the table the forward's m and l were taken with."""
+    _check_bias_shape(bias_k, q, k)
+    bias_k = _bias_operand(bias_k, q)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
         _build.library().call("teochat_flash_attention_bwd_dkv",
-                              *_bwd_args(q, k, v, do, m, l, di, causal, scale),
+                              *_bwd_args(q, k, v, do, m, l, di, causal, scale, bias_k),
                               dk.data_ptr(), dv.data_ptr())
-    BWD_DKV_LAUNCHES.count += 1
+    (BWD_DKV_LAUNCHES if bias_k is None else BWD_DKV_BIAS_LAUNCHES).count += 1
     return dk, dv
 
 
-def _bwd_dq_cuda(q, k, v, do, m, l, di, causal: bool, scale: float):
-    """K4c: dq [B, S, H, D]."""
+def _bwd_dq_cuda(q, k, v, do, m, l, di, causal: bool, scale: float,
+                 bias_k: Optional[torch.Tensor] = None):
+    """K4c: dq [B, S, H, D]; `bias_k` as for K4b."""
+    _check_bias_shape(bias_k, q, k)
+    bias_k = _bias_operand(bias_k, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _build.library().call("teochat_flash_attention_bwd_dq",
-                              *_bwd_args(q, k, v, do, m, l, di, causal, scale), dq.data_ptr())
-    BWD_DQ_LAUNCHES.count += 1
+                              *_bwd_args(q, k, v, do, m, l, di, causal, scale, bias_k),
+                              dq.data_ptr())
+    (BWD_DQ_LAUNCHES if bias_k is None else BWD_DQ_BIAS_LAUNCHES).count += 1
     return dq
 
 
@@ -421,35 +463,35 @@ def _bwd_di_cuda(o, do):
     return di
 
 
-def _bwd_cuda(q, k, v, o, m, l, do, causal: bool, scale: float):
-    """di = rowsum(o * dO) in fp32 [B, H, S] (the preamble kernel), then K4b and K4c."""
+def _bwd_cuda(q, k, v, o, m, l, do, causal: bool, scale: float,
+              bias_k: Optional[torch.Tensor] = None):
+    """di = rowsum(o * dO) in fp32 [B, H, S] (the preamble kernel), then K4b and
+    K4c, with the bias branch where `bias_k` is given."""
     if do.shape != q.shape:
         raise ValueError(f"flash backward: dO {do.shape} != q {q.shape}")
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     di = _bwd_di_cuda(o, do)
-    dk, dv = _bwd_dkv_cuda(q, k, v, do, m, l, di, causal, scale)
-    return _bwd_dq_cuda(q, k, v, do, m, l, di, causal, scale), dk, dv
+    dk, dv = _bwd_dkv_cuda(q, k, v, do, m, l, di, causal, scale, bias_k)
+    return _bwd_dq_cuda(q, k, v, do, m, l, di, causal, scale, bias_k), dk, dv
 
 
 class _FlashTrainable(torch.autograd.Function):
-    """K4a forward, K4b + K4c backward (the JAX custom_vjp's _fa_fwd/_fa_bwd).
-    With a bias table the forward is K4a's bias branch and the backward
-    raises: K4b and K4c do not take the bias yet."""
+    """K4a forward, K4b + K4c backward (the JAX custom_vjp's _fa_fwd/_fa_bwd),
+    each with its bias branch where a table is given. The table is a
+    constant: its gradient is None (JAX's is zeros)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, bias_k=None):
         o, m, l = _fwd_res_cuda(q, k, v, causal, scale, bias_k)
-        ctx.save_for_backward(q, k, v, o, m, l)
-        ctx.causal, ctx.scale, ctx.has_bias = causal, scale, bias_k is not None
+        ctx.save_for_backward(q, k, v, o, m, l, None if bias_k is None else bias_k.detach())
+        ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.has_bias:
-            raise unported("the flash backward kernels with bias_k (K4b, K4c)", 14)
-        q, k, v, o, m, l = ctx.saved_tensors
-        dq, dk, dv = _bwd_cuda(q, k, v, o, m, l, do.contiguous(), ctx.causal, ctx.scale)
+        q, k, v, o, m, l, bias_k = ctx.saved_tensors
+        dq, dk, dv = _bwd_cuda(q, k, v, o, m, l, do.contiguous(), ctx.causal, ctx.scale, bias_k)
         return dq, dk, dv, None, None, None
 
 
@@ -463,8 +505,8 @@ def flash_attention_trainable(q, k, v, causal: bool = True, scale: Optional[floa
     causal batches need no mask: padded keys sit after every valid query,
     and padded queries' gradients arrive as zeros through the loss mask.
     `bias_k` [H, T] (ALiBi, the MPT backend) is a constant table, as in the
-    JAX function (its cotangent is zero): on CUDA tensors the forward is
-    K4a's bias branch and the backward raises until K4b and K4c take it.
+    JAX function (its cotangent is zero): on CUDA tensors the forward and
+    backward run the kernels' bias branches, and the table gets no gradient.
     """
     _check_bias_shape(bias_k, q, k)
     if q.shape[2] % k.shape[2]:

@@ -1,6 +1,8 @@
 """LoRA adapters (port of teochat_tpu/train/lora.py).
 
-Adapters are extra leaves of each decoder projection's params dict:
+Adapters are extra leaves of each decoder projection's params dict (LLaMA's
+`attn` / `mlp` groups, or MPT's flat `wqkv`, `out_proj`, `up_proj` and
+`down_proj`: models/mpt.py::_dense routes them through the same `_proj`):
 'lora_a' [L, in, r] ~ N(0, 1/r), 'lora_b' [L, r, out] = 0 (the peft init)
 and 'lora_scale' [L] = alpha / r, all fp32 (the masters; the forward casts
 a and b to the activation dtype). `models/llama.py::_proj` applies them as
@@ -14,7 +16,7 @@ Multi-LoRA serving: `stack_lora_adapters` stacks N single-adapter trees
 over one backbone into adapter-stacked leaves ('lora_a' [L, A, in, r],
 'lora_b' [L, A, r, out], 'lora_scale' [L, A]), which `_proj` routes per
 batch row by an `adapter_route` [B, A] (one-hot rows; an all-zero row is
-the base model). The MPT layout is not ported yet (ROADMAP item 14).
+the base model), on either layout.
 """
 
 from __future__ import annotations
@@ -28,15 +30,17 @@ LORA_TARGET_NAMES = {
     "attn": ("q", "k", "v", "out"),
     "mlp": ("gate", "up", "down"),
 }
+# MPT layout (models/mpt.py): flat projection dicts inside layers
+MPT_TARGET_NAMES = ("wqkv", "out_proj", "up_proj", "down_proj")
 
 
 def add_lora_params(generator: torch.Generator, llm_params: Dict, rank: int = 128,
                     alpha: float = 256.0, dtype: torch.dtype = torch.float32,
                     include_lm_head: bool = False) -> Dict:
     """Attach adapters (A ~ N(0, 1/r) drawn from `generator`, B = 0) on the
-    device of the kernels. Returns a new tree; the backbone leaves are shared."""
-    if "wqkv" in llm_params["layers"]:
-        raise NotImplementedError("LoRA on the MPT backend is not ported yet")
+    device of the kernels. Returns a new tree; the backbone leaves are shared.
+    The MPT layout (a `wqkv` in the layers) gets adapters on its four
+    projections, drawn in MPT_TARGET_NAMES' order."""
 
     def attach(proj: Dict) -> Dict:
         kern = proj["kernel"]
@@ -52,8 +56,13 @@ def add_lora_params(generator: torch.Generator, llm_params: Dict, rank: int = 12
         }
 
     layers = dict(llm_params["layers"])
-    for group in LORA_TARGET_GROUPS:
-        layers[group] = {name: attach(layers[group][name]) for name in LORA_TARGET_NAMES[group]}
+    if "wqkv" in layers:
+        for name in MPT_TARGET_NAMES:
+            layers[name] = attach(layers[name])
+    else:
+        for group in LORA_TARGET_GROUPS:
+            layers[group] = {name: attach(layers[group][name])
+                             for name in LORA_TARGET_NAMES[group]}
     out = {**llm_params, "layers": layers}
     if include_lm_head and "lm_head" in out:
         out["lm_head"] = attach(out["lm_head"])
@@ -80,11 +89,12 @@ def merge_lora(llm_params: Dict) -> Dict:
                 if k not in ("kernel", "lora_a", "lora_b", "lora_scale")}
         return {"kernel": (kern.float() + delta).to(kern.dtype), **rest}
 
-    layers = {
-        gname: ({n: merge_proj(p) for n, p in group.items()}
-                if gname in LORA_TARGET_GROUPS else group)
-        for gname, group in llm_params["layers"].items()
-    }
+    def merge_group(gname, group):
+        if gname in LORA_TARGET_GROUPS:
+            return {n: merge_proj(p) for n, p in group.items()}
+        return merge_proj(group) if gname in MPT_TARGET_NAMES else group
+
+    layers = {gname: merge_group(gname, group) for gname, group in llm_params["layers"].items()}
     out = {**llm_params, "layers": layers}
     if "lm_head" in out:
         out["lm_head"] = merge_proj(out["lm_head"])
@@ -120,6 +130,8 @@ def stack_lora_adapters(llm_params_list) -> Dict:
         if gname in LORA_TARGET_GROUPS and all(isinstance(v, dict) for v in group.values()):
             layers[gname] = {n: stack_proj([t["layers"][gname][n] for t in llm_params_list])
                              for n in group}
+        elif gname in MPT_TARGET_NAMES:
+            layers[gname] = stack_proj([t["layers"][gname] for t in llm_params_list])
         else:
             layers[gname] = group
     return {**first, "layers": layers}
@@ -139,11 +151,11 @@ def adapter_route(adapter_ids, num_adapters: int) -> torch.Tensor:
 def num_stacked_adapters(llm_params) -> int:
     """Adapter count A of a multi-LoRA tree (0: single-adapter or no LoRA)."""
     layers = llm_params.get("layers", {})
-    for gname in LORA_TARGET_GROUPS:
+    for gname in (*LORA_TARGET_GROUPS, *MPT_TARGET_NAMES):
         group = layers.get(gname)
         if not isinstance(group, dict):
             continue
-        for p in group.values():
+        for p in ([group] if "lora_a" in group else group.values()):
             if isinstance(p, dict) and "lora_a" in p:
                 a = p["lora_a"]
                 return a.shape[1] if a.ndim == 4 else 0

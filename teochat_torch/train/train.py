@@ -25,8 +25,16 @@ added to a tokenizer that can grow and the embeddings resized
 the `<im_start><image><im_end>` wrap; a projector-only run then trains the
 input embeddings too (`embed_trainable_filter`).
 
+The decoder is LLaMA's or LLaVA-MPT's (its params hold the tied `wte`):
+LoRA then goes on MPT's four projections and the loss runs the MPT decoder
+(models/teochat.py::forward_train). The vision tokenizer resizes LLaMA's
+`embed_tokens` only, as JAX's does (ROADMAP F10): an MPT run with
+`mm_use_im_patch_token` or `mm_use_im_start_end` and a tokenizer that can
+grow raises a ValueError naming it. `mpt_attn_impl` is accepted and
+ignored, as in the JAX driver.
+
 Not ported yet, and raising: a device mesh, sequence and pipeline axes
-(ROADMAP item 16); MPT (item 14).
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from teochat_torch.data.dataset import (
     set_default_conversation,
 )
 from teochat_torch.data.sampler import LengthGroupedSampler
+from teochat_torch.models.generation import embedding_table
+from teochat_torch.models.mpt import is_mpt_params
 from teochat_torch.train.lora import add_lora_params, lora_trainable_filter
 from teochat_torch.train.trainer import (
     MultiSteps,
@@ -308,14 +318,12 @@ def train(
         if "vision" not in params or "projector" not in params:
             from teochat_torch.data.processing import ImageProcessor
 
-            gen = torch.Generator(device=params["llm"]["embed_tokens"]["embedding"].device)
+            gen = torch.Generator(device=embedding_table(params["llm"]).device)
             cfg, params = initialize_vision_modules(
                 model_args, cfg, params, generator=gen.manual_seed(training_args.seed))
             # the attached tower may change the input geometry
             data_args.image_processor = ImageProcessor(size=cfg.vision.image_size)
-    if cfg.llm_backend == "mpt":
-        raise unported("training the MPT backend", 14)
-    device = params["llm"]["embed_tokens"]["embedding"].device
+    device = embedding_table(params["llm"]).device
 
     # sequence-length caps (train_teochat.sh:37)
     if training_args.model_max_length or training_args.tokenizer_model_max_length:
@@ -331,6 +339,13 @@ def train(
     data_args.mm_use_im_start_end = model_args.mm_use_im_start_end
     if tokenizer is not None and hasattr(tokenizer, "add_tokens") and (
             model_args.mm_use_im_start_end or model_args.mm_use_im_patch_token):
+        if is_mpt_params(params["llm"]):
+            # JAX's initialize_vision_tokenizer reads `embed_tokens`, which
+            # MPT's tree does not hold, and fails there (ROADMAP F10)
+            raise ValueError(
+                "the vision tokenizer (--mm_use_im_patch_token / --mm_use_im_start_end) "
+                "resizes LLaMA's embed_tokens and takes no MPT decoder, as in the JAX "
+                "driver; pass --mm_use_im_patch_token False --mm_use_im_start_end False")
         pretrain_rows = None
         if model_args.pretrain_mm_mlp_adapter and model_args.mm_use_im_start_end:
             pretrain_rows = torch.load(model_args.pretrain_mm_mlp_adapter, map_location="cpu",

@@ -19,6 +19,7 @@ from teochat_tpu.ops.flash_attention import flash_attention as jax_flash
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops.attention import dot_product_attention, plain_attention
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5  # fp32 on both sides; only the summation order differs
 

@@ -37,6 +37,7 @@ from jax.experimental import pallas as pl
 from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.ops import _build
 from teochat_torch.ops import int4_matmul as int4_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 REL = 1e-4

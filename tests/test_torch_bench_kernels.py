@@ -24,6 +24,7 @@ from jax.experimental import pallas as pl
 from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.ops import int4_matmul as int4_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 K, N, M = 256, 700, 3

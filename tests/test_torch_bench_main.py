@@ -22,6 +22,7 @@ from teochat_tpu.config import TEOChatConfig as JaxTEOChatConfig
 from teochat_torch.bench import _timing
 from teochat_torch.bench import main as bench_main
 from teochat_torch.config import TEOChatConfig, tiny_test_config
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.ops import _build
 from teochat_torch.ops import vit_attention as vit_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-4

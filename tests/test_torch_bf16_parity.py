@@ -24,6 +24,7 @@ from teochat_tpu.ops import quant as jax_quant
 from teochat_torch.checkpoint.bridge import to_torch
 from teochat_torch.models import llama as torch_llama
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # Two fp32 sums of the same K exact products in different orders differ by at
 # most ~K * 2^-24 of the sum of their magnitudes; read 2e-7 relative at K = 256

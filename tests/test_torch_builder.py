@@ -46,6 +46,7 @@ from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.models import towers as torch_towers
 from teochat_torch.ops import quant as torch_quant
 from teochat_torch.utils import tree_leaves_with_path
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the tiny model: a 2-layer LLaMA (d 64, 4 heads, MLP 256: the fused int4

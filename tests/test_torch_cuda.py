@@ -1857,7 +1857,10 @@ def test_flash_bias_kernel_matches_plain(gen, b, s, h, hkv, d):
 
 def test_flash_bias_statistics_match_plain_and_the_backward_raises(gen):
     """K4a's bias branch: o, m and l against the plain twin's on the biased
-    scores; the trainable path runs it forward and refuses the backward."""
+    scores; the trainable path runs it forward and its backward through K4b's
+    and K4c's bias branches (counted on their own counters, the bias-free
+    ones unmoved), the gradients against autograd of the plain twin and the
+    table given none."""
     b, s, h, d = 2, 333, 4, 128
     q, k, v = _randn((b, s, h, d), gen), _randn((b, s, 1, d), gen), _randn((b, s, 1, d), gen)
     bias = _alibi(h, s)
@@ -1870,10 +1873,143 @@ def test_flash_bias_statistics_match_plain_and_the_backward_raises(gen):
     want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float(), bias_k=bias)
     assert (o.float() - want).abs().max().item() <= TOL
     qg = q.clone().requires_grad_()
-    out = flash_mod.flash_attention_trainable_padded(qg, k, v, True, bias_k=bias)
+    table = bias.clone().requires_grad_()
+    out = flash_mod.flash_attention_trainable_padded(qg, k, v, True, bias_k=table)
     torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        out.float().sum().backward()
+    before, bias_before = _counts(), _bias_counts()
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert _counts() == before and _bias_counts() == (bias_before[0],) + tuple(
+        c + 1 for c in bias_before[1:])
+    assert table.grad is None
+    want_q = q.float().clone().requires_grad_()
+    flash_mod.flash_attention_plain(want_q, k.float(), v.float(), bias_k=bias).sum().backward()
+    g, w = qg.grad.float(), want_q.grad
+    assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item()
+    assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item()
+
+
+def _bias_counts():
+    return (flash_mod.FWD_RES_BIAS_LAUNCHES.count, flash_mod.BWD_DKV_BIAS_LAUNCHES.count,
+            flash_mod.BWD_DQ_BIAS_LAUNCHES.count)
+
+
+BIAS_BACKWARD_CASES = [  # (B, S, H, Hkv, D, t_cache): the table sized to S, or a cache's
+    (2, 256, 8, 8, 128, None),  # MPT's table, several tiles
+    (1, 700, 32, 1, 128, None),  # multiquery: one kv head, a group of 32, ragged S
+    (2, 333, 4, 4, 64, None),  # head_dim 64, ragged
+    (1, 130, 4, 1, 64, None),  # head_dim 64, multiquery, ragged
+    (2, 300, 8, 8, 128, 4096),  # a 4,096-slot table's first S keys: bref far from 0
+    (1, 40, 4, 1, 64, 1024),  # below one tile, a cache-sized table
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,t_cache", BIAS_BACKWARD_CASES)
+def test_flash_backward_bias_kernels_match_their_tile_walks(gen, b, s, h, hkv, d, t_cache):
+    """K4b's and K4c's bias branches from K4a's residuals with the same
+    table against `flash_backward_*_schedule(bias_k=)` on the same bf16
+    inputs (WALK_REL_*, as the bias-free kernels); the table read in place
+    as a row-strided view gives the bits of a contiguous copy; each launch
+    counted on its bias counter alone."""
+    q, k, v, do = _trainable_case(gen, b, s, h, hkv, d)
+    bias = _alibi(h, s, t_cache) if t_cache else mpt_mod.alibi_bias(h, s, device="cuda")[0, :, 0, :]
+    scale = d ** -0.5
+    o, m, l = flash_mod._fwd_res_cuda(q, k, v, True, scale, bias)
+    di = flash_mod._bwd_di_cuda(o, do)
+    before, bias_before = _counts(), _bias_counts()
+    dk, dv = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias)
+    dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert _bias_counts() == (bias_before[0], bias_before[1] + 1, bias_before[2] + 1)
+    want_dk, want_dv = flash_mod.flash_backward_dkv_schedule(q, k, v, do, m, l, di, bias_k=bias)
+    want_dq = flash_mod.flash_backward_dq_schedule(q, k, v, do, m, l, di, bias_k=bias)
+    for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), name
+        assert (g - w).norm().item() <= WALK_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= WALK_REL_MAX * w.abs().max().item(), name
+    same_dk, _ = flash_mod._bwd_dkv_cuda(q, k, v, do, m, l, di, True, scale, bias.contiguous())
+    same_dq = flash_mod._bwd_dq_cuda(q, k, v, do, m, l, di, True, scale, bias.contiguous())
+    assert torch.equal(same_dk, dk) and torch.equal(same_dq, dq)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,t_cache", BIAS_BACKWARD_CASES[:4])
+def test_flash_trainable_bias_matches_plain_autograd(gen, b, s, h, hkv, d, t_cache):
+    """The trainable path with MPT's table (K4a, K4b, K4c with the bias)
+    against autograd through the plain attention with the same table; the
+    bias-free backward of the same inputs differs (the table is used)."""
+    q, k, v, do = _trainable_case(gen, b, s, h, hkv, d)
+    bias = mpt_mod.alibi_bias(h, s, device="cuda")[0, :, 0, :]
+    got = _grads(lambda q, k, v: flash_mod.flash_attention_trainable_padded(
+        q, k, v, True, bias_k=bias), q, k, v, do)
+    torch.cuda.synchronize()
+    want = _grads(lambda q, k, v: flash_mod.flash_attention_plain(
+        q.float(), k.float(), v.float(), bias_k=bias), q, k, v, do)
+    assert (got[0] - want[0]).abs().max().item() <= TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item(), name
+    free = _grads(flash_mod.flash_attention_trainable_padded, q, k, v, do)
+    assert (free[1] - got[1]).norm().item() > 10 * GRAD_REL_L2 * want[1].norm().item()
+
+
+def test_mpt_forward_train_kernels_match_plain(gen):
+    """A 2-layer LLaVA-MPT at MPT-7B's width (int8, LoRA r16 with B drawn
+    nonzero, remat) on a right-padded 2-row batch: forward_train's loss and
+    LoRA and projector gradients with the kernels (K4a, K4b, K4c with the
+    table, each launched once a layer, twice for K4a under remat; no
+    bias-free launch) against attn_impl='plain' (the masked plain attention),
+    held to the smoke's phase-17 bounds."""
+    from teochat_torch.config import MptConfig, tiny_test_config
+    from teochat_torch.models import fusion as fusion_mod
+    from teochat_torch.models import teochat as teochat_mod
+    from teochat_torch.train import lora as lora_mod
+    from teochat_torch.train import trainer as trainer_mod
+
+    base = tiny_test_config(vocab_size=512)
+    llm = MptConfig(vocab_size=512, n_layers=2)
+    cfg = dataclasses.replace(base, llm=llm, llm_backend="mpt", projector=dataclasses.replace(
+        base.projector, hidden_size=llm.d_model))
+    g = gen.manual_seed(3)
+    params = bridge.init_teochat(cfg, g, "cuda", torch.bfloat16, quant="int8")
+    lora = lora_mod.add_lora_params(g, params["llm"], rank=16, alpha=32.0)
+    for name in lora_mod.MPT_TARGET_NAMES:
+        proj = lora["layers"][name]
+        proj["lora_b"] = torch.randn(proj["lora_b"].shape, generator=g, device="cuda") * 1e-2
+    params = trainer_mod.fp32_masters({**params, "llm": lora}, lora_mod.lora_trainable_filter)
+    rs = np.random.RandomState(4)
+    ids = [[1] + rs.randint(3, 512, n).tolist() for n in (300, 200)]
+    for row in ids:
+        row[2] = -200
+    plan = fusion_mod.build_fusion_plan(ids, tokens_per_frame=cfg.vision.num_patches, pad_to=320,
+                                        labels=[[-100] * 4 + r[4:] for r in ids])
+    pixels = torch.from_numpy(rs.randn(2, 3, 28, 28).astype(np.float32)).to("cuda", torch.bfloat16)
+    leaves = dict(trainer_mod.tree_leaves_with_path(
+        trainer_mod.partition_params(params, lora_mod.lora_trainable_filter)[0]))
+    for x in leaves.values():
+        x.requires_grad_(True)
+    out = {}
+    for impl in ("auto", "plain"):
+        for c in (flash_mod.FWD_RES_LAUNCHES, flash_mod.BWD_DKV_LAUNCHES,
+                  flash_mod.BWD_DQ_LAUNCHES, flash_mod.FWD_RES_BIAS_LAUNCHES,
+                  flash_mod.BWD_DKV_BIAS_LAUNCHES, flash_mod.BWD_DQ_BIAS_LAUNCHES):
+            c.reset()
+        loss = teochat_mod.forward_train(params, cfg, plan, pixels, remat=True, attn_impl=impl)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), grads, _counts(), _bias_counts())
+    (loss, grads, free, biased), (want_loss, want_grads, *_) = out["auto"], out["plain"]
+    n = cfg.llm.n_layers
+    assert free == (0, 0, 0) and biased == (2 * n, n, n)
+    assert out["plain"][2:] == ((0, 0, 0), (0, 0, 0))
+    assert np.isfinite(loss) and abs(loss - want_loss) <= 1e-2 * abs(want_loss)
+    assert len(leaves) == 2 * 4 + 4
+    for (path, _), g, w in zip(leaves.items(), grads, want_grads):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all() and w.norm() > 0, path
+        assert (g - w).norm().item() <= 1.5e-1 * w.norm().item(), path
 
 
 @pytest.fixture(scope="module")

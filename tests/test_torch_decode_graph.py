@@ -41,6 +41,7 @@ from teochat_torch.models import llama as torch_llama
 from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.ops import _build
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 MAX_NEW = 11  # not a multiple of DECODE_CHUNK: the last chunk is a short one
 CHUNKS = sorted({torch_gen.DECODE_CHUNK, 1, 3, 4})

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from teochat_tpu.ops.decode_attention import decode_attention as jax_decode
 from teochat_torch.ops import decode_attention as dec_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5
 C = dec_mod.CHUNK

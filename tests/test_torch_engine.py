@@ -57,6 +57,7 @@ from teochat_torch.serve.chat import Chat
 from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.serve.server import ChatServer
 from tests.test_eval_e2e import MockTokenizer
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5  # the forward's logits against JAX's
 STATE_TOL = 1e-5  # cache rows and state against JAX's programs

@@ -52,6 +52,7 @@ from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.serve.server import ChatServer
 from tests.test_eval_e2e import MockTokenizer
 from tests.test_torch_engine import SYSTEM, _chat, _http, _prompts
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 STATE_TOL = 1e-5  # the cache against JAX's program
 GREEDY = dict(temperature=0.0, do_sample=False, stop_strings=())

@@ -22,6 +22,7 @@ from teochat_tpu.eval import eval as jax_eval
 from teochat_torch import builder as torch_builder
 from teochat_torch.eval import eval as torch_eval
 from tests.test_torch_builder import _tiny_tower_config, tiny_state_dict, write_checkpoint
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(scope="module")

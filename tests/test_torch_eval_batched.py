@@ -32,6 +32,7 @@ from teochat_torch.eval import eval as torch_eval
 from teochat_torch.eval import inference as torch_inference
 from teochat_torch.ops import preprocess as torch_preprocess
 from tests.test_torch_eval import _dataset, _run, _saved, ckpt  # noqa: F401 (a fixture)
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 PREPROCESS_TOL = 5e-5  # after normalization (|x| up to ~2.1)
 ARGS = dict(prompt_strategy="interleave", chronological_prefix=True, conv_mode="v1",

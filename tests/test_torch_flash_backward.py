@@ -7,7 +7,12 @@ gradient is that of sum(o * cos(o)), so dO is not constant. The port's twin
 is autograd through the plain attention (full softmax), the JAX side the
 tiled online softmax with recomputed probabilities, so they differ by fp32
 summation order only: o to 1e-5 and dq, dk, dv to 1e-4 (absolute and
-relative; gradients are O(1) sums over up to 256 keys or queries).
+relative; gradients are O(1) sums over up to 256 keys or queries). The
+`bias_k` cases add an ALiBi-style table [H, T] (JAX's `has_bias_k`
+branch, a constant on both sides): MPT's table sized to S, a random one,
+and the first S keys of MPT's table for a 1,024-slot cache, whose biases
+reach -860 (JAX adds them to the scores before it subtracts m, so they cost
+it half an fp32 ulp there, 3e-5 relative, inside GRAD_TOL).
 """
 
 import numpy as np
@@ -18,7 +23,9 @@ import jax
 import jax.numpy as jnp
 
 from teochat_tpu.ops import flash_attention as jax_flash
+from teochat_torch.models import mpt as torch_mpt
 from teochat_torch.ops import flash_attention as torch_flash
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 O_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -30,6 +37,16 @@ def _inputs(b, s, h, hkv, d, seed):
     k = (rs.randn(b, s, hkv, d) * 0.3).astype(np.float32)
     v = rs.randn(b, s, hkv, d).astype(np.float32)
     return q, k, v
+
+
+def _table(kind, h, s):
+    """[H, S] fp32 bias_k: MPT's ALiBi table sized to S, a random one, or the
+    first S keys of MPT's table for a 1,024-slot cache (32 heads' slopes)."""
+    if kind == "mpt":
+        return np.asarray(torch_mpt.alibi_bias(h, s)[0, :, 0, :])
+    if kind == "random":
+        return (np.random.RandomState(h + s).randn(h, s) * 2).astype(np.float32)
+    return np.ascontiguousarray(torch_mpt.alibi_bias(32, 1024)[0, :h, 0, :s].numpy())
 
 
 def _jax_grads(fn, q, k, v):
@@ -50,25 +67,33 @@ def _torch_grads(fn, q, k, v):
 
 
 @pytest.mark.parametrize(
-    "b,s,h,hkv,d,padded",
+    "b,s,h,hkv,d,padded,table",
     [
-        (1, 256, 2, 2, 64, False),  # causal, 2 x 2 tiles: the diagonal skip
-        (2, 256, 4, 2, 64, False),  # GQA 2:1, the group's dK/dV sum
-        (1, 200, 2, 1, 64, True),  # ragged S through the padded wrapper, GQA 2:1
-        (1, 128, 2, 2, 128, False),  # head_dim 128, one tile
+        (1, 256, 2, 2, 64, False, None),  # causal, 2 x 2 tiles: the diagonal skip
+        (2, 256, 4, 2, 64, False, None),  # GQA 2:1, the group's dK/dV sum
+        (1, 200, 2, 1, 64, True, None),  # ragged S through the padded wrapper, GQA 2:1
+        (1, 128, 2, 2, 128, False, None),  # head_dim 128, one tile
+        (1, 256, 2, 2, 64, False, "mpt"),  # MPT's ALiBi table, the diagonal skip
+        (1, 256, 2, 1, 64, False, "random"),  # multiquery: one kv head
+        (1, 200, 2, 2, 64, True, "cache"),  # a cache-sized table, ragged S padded
     ],
-    ids=["causal-multi-tile", "gqa", "ragged-padded", "d128"],
+    ids=["causal-multi-tile", "gqa", "ragged-padded", "d128", "bias-mpt",
+         "bias-random-multiquery", "bias-cache-ragged-padded"],
 )
-def test_trainable_flash_matches_jax_interpret(b, s, h, hkv, d, padded):
+def test_trainable_flash_matches_jax_interpret(b, s, h, hkv, d, padded, table):
     q, k, v = _inputs(b, s, h, hkv, d, seed=s + h + d)
+    bias = None if table is None else _table(table, h, s)
+    jb = None if bias is None else jnp.asarray(bias)
+    tb = None if bias is None else torch.from_numpy(bias)
     if padded:
         jfn = lambda q, k, v: jax_flash.flash_attention_trainable_padded(  # noqa: E731
-            q, k, v, True, None, 128, 128, True)
-        tfn = lambda q, k, v: torch_flash.flash_attention_trainable_padded(q, k, v)  # noqa: E731
+            q, k, v, True, None, 128, 128, True, bias_k=jb)
+        tfn = lambda q, k, v: torch_flash.flash_attention_trainable_padded(  # noqa: E731
+            q, k, v, bias_k=tb)
     else:
         jfn = lambda q, k, v: jax_flash.flash_attention_trainable(  # noqa: E731
-            q, k, v, True, None, 128, 128, True)
-        tfn = lambda q, k, v: torch_flash.flash_attention_trainable(q, k, v)  # noqa: E731
+            q, k, v, True, None, 128, 128, True, jb)
+        tfn = lambda q, k, v: torch_flash.flash_attention_trainable(q, k, v, bias_k=tb)  # noqa: E731
     want = _jax_grads(jfn, q, k, v)
     got = _torch_grads(tfn, q, k, v)
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 
 from teochat_tpu.ops import flash_attention as jax_flash
 from teochat_torch.ops import flash_attention as flash_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 GRAD_TOL = 1e-4
 

@@ -62,6 +62,7 @@ from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.serve.engine import BatchEngine
 from tests.test_eval_e2e import MockTokenizer
 from tests.test_torch_engine import _prompts
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 E4M3 = torch.float8_e4m3fn
 RTOL, ATOL = 1e-4, 1e-5  # fp32 attention against JAX's, as the K2 / K2m walk tests

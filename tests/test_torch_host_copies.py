@@ -44,6 +44,7 @@ from teochat_torch.eval import inference as torch_inference
 from teochat_torch.models import llama as torch_llama
 from teochat_torch.serve import chat as torch_chat
 from teochat_torch.serve import maptiles as torch_maptiles
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONFIG_CLASSES = ["VisionConfig", "ProjectorConfig", "LlamaConfig", "MptConfig",

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from teochat_tpu.ops import int4_matmul as jax_i4
 from teochat_torch.ops import int4_matmul as torch_i4
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 N_OUT = 640  # two tiles of 512, the second ragged; five bands of 128
 

@@ -16,6 +16,7 @@ from teochat_tpu.ops import int4_matmul as jax_i4
 from teochat_tpu.ops import quant as jax_quant
 from teochat_torch.ops import int4_matmul as torch_i4
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _values(k, n, seed):

@@ -21,6 +21,7 @@ from teochat_tpu.ops import quant as jax_quant
 from teochat_torch.checkpoint.bridge import to_numpy, to_torch
 from teochat_torch.models import llama as torch_llama
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5
 N_DECODE = 3

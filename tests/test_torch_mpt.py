@@ -47,6 +47,7 @@ from teochat_torch.ops import flash_attention as flash_mod
 from teochat_torch.ops import quant as torch_quant
 from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.serve.session import ChatSession
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # fp32 decoders on both sides: the same products in another order
 RTOL, ATOL = 1e-4, 1e-5
@@ -167,8 +168,9 @@ def test_flash_twins_with_bias_k_match_jax(b, s, h, hkv, d):
 def test_bias_k_is_an_explicit_bias_and_the_trainable_path_takes_it():
     """dot_product_attention(bias_k=) is the plain attention with the
     [1, H, 1, T] bias; the trainable flash path on the CPU is autograd
-    through it, the table a constant; both bias forms at once raise, as do
-    a table of the wrong shape and the CUDA backward with a bias."""
+    through it, the table a constant; both bias forms at once raise, as does
+    a table of the wrong shape; the CUDA backward (K4b, K4c) is handed the
+    saved table and gives it no gradient."""
     q, k, v = (torch.from_numpy(_rand(shape, i)) for i, shape in
                enumerate([(2, 33, 4, 16), (2, 33, 2, 16), (2, 33, 2, 16)]))
     bias = _table(4, 33)
@@ -186,9 +188,19 @@ def test_bias_k_is_an_explicit_bias_and_the_trainable_path_takes_it():
                                               bias_k=bias)
     with pytest.raises(ValueError, match="bias_k shape"):
         flash_mod.flash_attention(q, k, v, bias_k=bias[:, :30])
-    ctx = type("Ctx", (), {"has_bias": True})()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        flash_mod._FlashTrainable.backward(ctx, torch.zeros(1))
+    seen = {}
+
+    def bwd(q, k, v, o, m, l, do, causal, scale, bias_k=None):
+        seen.update(causal=causal, scale=scale, bias_k=bias_k)
+        return q + 1, k + 2, v + 3
+
+    saved = (q, k, v, q, bias[0], bias[1], bias)
+    ctx = type("Ctx", (), {"saved_tensors": saved, "causal": True, "scale": 0.25})()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flash_mod, "_bwd_cuda", bwd)
+        grads = flash_mod._FlashTrainable.backward(ctx, torch.ones_like(q))
+    assert seen["bias_k"] is bias and seen["causal"] and seen["scale"] == 0.25
+    assert torch.equal(grads[0], q + 1) and grads[3:] == (None, None, None)
 
 
 # ------------------------------------------------------------ the decoder

@@ -27,6 +27,7 @@ from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import mpt as torch_mpt
 from teochat_torch.models import mpt_init as torch_mpt_init
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 STD_RTOL = 0.05
 

@@ -69,6 +69,7 @@ from teochat_torch.serve.engine import BatchEngine
 from teochat_torch.serve.server import ChatServer
 from teochat_torch.train import lora as torch_lora
 from tests.test_eval_e2e import MockTokenizer
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RANK = 4
 N_ADAPTERS = 3

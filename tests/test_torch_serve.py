@@ -41,6 +41,7 @@ from teochat_torch.serve.chat import SYSTEM_PREFIX, Chat, build_request
 from teochat_torch.serve.server import ChatServer
 from tests.test_demo import FakeChat, _find, _make_stub
 from tests.test_eval_e2e import MockTokenizer
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from teochat_torch.models import llama as torch_llama
 from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.ops import decode_attention as dec_mod
 from teochat_torch.serve.session import ChatSession
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5
 MAX_LEN = 512

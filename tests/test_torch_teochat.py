@@ -34,6 +34,7 @@ from teochat_torch.eval.inference import run_inference_single as torch_run_infer
 from teochat_torch.models import fusion as torch_fusion
 from teochat_torch.models import generation as torch_gen
 from teochat_torch.models import teochat as torch_teochat
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GREEDY = GenerationConfig(max_new_tokens=8, temperature=0.0, do_sample=False, stop_strings=())

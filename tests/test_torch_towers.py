@@ -28,6 +28,7 @@ from teochat_torch.config import VisionConfig as TorchVisionConfig
 from teochat_torch.models import towers as torch_towers
 from teochat_torch.models import vit as torch_vit
 from teochat_torch.utils import tree_leaves_with_path
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 FWD_RTOL = 1e-5
 TINY = dict(image_size=28, patch_size=14, hidden_size=32, intermediate_size=64, num_layers=2,

@@ -48,6 +48,7 @@ from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.train import lora as torch_lora
 from teochat_torch.train import trainer as torch_trainer
 from tests.test_data_pipeline import MockTokenizer, TinyProcessor, _raw_example
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 IMG = -200
 FAST = 1e-5
@@ -398,20 +399,24 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny, tmp_path):
 
 def test_train_refuses_what_is_not_ported(tiny, tmp_path):
     """What stays unported raises, naming its ROADMAP item: the device mesh
-    and its sequence and pipeline axes (item 16), the MPT backend (item 14).
-    The vision tokenizer is ported (tests/test_torch_vision_tokenizer.py
-    trains with it): a projector-only run with mm_use_im_start_end trains
-    the input embeddings and not the lm_head, as JAX's."""
-    from teochat_torch.config import MeshConfig
+    and its sequence and pipeline axes (item 16). The vision tokenizer is
+    ported (tests/test_torch_vision_tokenizer.py trains with it): a
+    projector-only run with mm_use_im_start_end trains the input embeddings
+    and not the lm_head, as JAX's. MPT training is ported
+    (tests/test_torch_mpt_train.py); the vision tokenizer takes no MPT
+    decoder, as in JAX's driver, and an MPT run with a tokenizer that can
+    grow raises a ValueError naming it before anything is saved."""
+    from teochat_torch.checkpoint.bridge import init_mpt
+    from teochat_torch.config import MeshConfig, MptConfig
     from teochat_torch.train import train as torch_train_mod
 
     cfg, params = tiny
 
-    def run(model_kw=None, cfg=cfg, tokenizer=MockTokenizer, **train_kw):
+    def run(model_kw=None, cfg=cfg, tokenizer=MockTokenizer, tparams=None, **train_kw):
         torch_train_mod.train(
             torch_train_mod.ModelArguments(**(model_kw or {})), torch_data.DataArguments(),
             torch_train_mod.TrainingArguments(output_dir=str(tmp_path), **train_kw),
-            cfg=cfg, params=to_torch(_np(params), "cpu"), tokenizer=tokenizer())
+            cfg=cfg, params=tparams or to_torch(_np(params), "cpu"), tokenizer=tokenizer())
 
     for mesh in (MeshConfig(sequence=2), MeshConfig(pipe=2), MeshConfig(fsdp=2),
                  MeshConfig(data=2, fsdp=-1)):
@@ -427,9 +432,16 @@ def test_train_refuses_what_is_not_ported(tiny, tmp_path):
                  "vision/layers/attn/q/kernel", "llm/layers/attn/q/kernel"):
         assert keep(path) == want(path), path
     assert keep("llm/embed_tokens/embedding") and not keep("llm/lm_head/kernel")
-    mpt = dataclasses.replace(cfg, llm_backend="mpt")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run(cfg=mpt)
+    class GrowingTokenizer(MockTokenizer):
+        def add_tokens(self, tokens, special_tokens=False):
+            return len(tokens)
+
+    mpt_llm = MptConfig(vocab_size=128, d_model=32, n_layers=1, n_heads=2, expansion_ratio=2)
+    mpt = dataclasses.replace(cfg, llm=mpt_llm, llm_backend="mpt")
+    mpt_params = {**to_torch(_np(params), "cpu"),
+                  "llm": init_mpt(mpt_llm, torch.Generator().manual_seed(0), "cpu", torch.float32)}
+    with pytest.raises(ValueError, match="vision tokenizer"):
+        run(cfg=mpt, tokenizer=GrowingTokenizer, tparams=mpt_params)
     assert not list(tmp_path.iterdir())  # nothing was saved
 
 

@@ -57,6 +57,7 @@ from tests.test_torch_builder import (
     tiny_state_dict,
     write_checkpoint,
 )
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tests/test_cli.py::test_train_cli_accepts_reference_script_verbatim's argv
@@ -498,7 +499,8 @@ def test_cli_trains_saves_prunes_and_resumes_without_jax(parts, tmp_path):
             "sys.argv = ['teochat_torch.train.cli'] + sys.argv[1:]\n"
             "runpy.run_module('teochat_torch.train.cli', run_name='__main__')\n"
             "assert not [n for n in sys.modules if n.startswith(('jax.', 'optax.', 'teochat_tpu'))]\n")
-    env = {**os.environ, "HF_DATASETS_OFFLINE": "1", "HF_HUB_OFFLINE": "1",
+    # one torch thread, as the test process runs (tests/_torch_threads.py)
+    env = {**os.environ, "HF_DATASETS_OFFLINE": "1", "HF_HUB_OFFLINE": "1", "OMP_NUM_THREADS": "1",
            "HF_HOME": str(tmp_path / "hf"), "PYTHONPATH": REPO}
 
     def run(max_steps):

@@ -39,6 +39,7 @@ from teochat_torch.data import dataset as torch_data
 from teochat_torch.train import train as torch_train_mod
 from teochat_torch.utils import tree_leaves_with_path
 from tests.test_data_pipeline import MockTokenizer, TinyProcessor, _raw_example
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 FAST = 1e-5
 STEP_REL_L2 = 5e-2

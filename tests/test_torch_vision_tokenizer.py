@@ -38,6 +38,7 @@ from teochat_torch.eval import inference as torch_inference
 from teochat_torch.train import trainer as torch_trainer
 from tests.test_data_pipeline import MockTokenizer, TinyProcessor, _raw_example
 from tests.test_vision_tokenizer import GrowableMockTokenizer
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 MEAN_ATOL = 8 * 2.0 ** -23  # of the largest |value| a mean sums
 

@@ -16,6 +16,7 @@ from teochat_tpu.models import vit as jax_vit
 from teochat_torch.checkpoint.bridge import to_torch
 from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.models import vit as torch_vit
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -18,6 +18,7 @@ from teochat_tpu.ops import vit_attention as jax_va
 from teochat_torch.checkpoint.bridge import to_torch
 from teochat_torch.models import vit as torch_vit
 from teochat_torch.ops import vit_attention as torch_va
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _qkv(b, s, h, d, seed):

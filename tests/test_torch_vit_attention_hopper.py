@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from teochat_tpu.ops import vit_attention as jax_va
 from teochat_torch.ops import vit_attention as vit_mod
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL = 1e-4
 

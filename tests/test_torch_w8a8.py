@@ -39,6 +39,7 @@ from teochat_torch.models import llama as torch_llama
 from teochat_torch.models import teochat as torch_teochat
 from teochat_torch.models import vit as torch_vit
 from teochat_torch.ops import quant as torch_quant
+from tests._torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 W8A8_RTOL = 1e-5  # of the largest |output| (see above)
 GREEDY = GenerationConfig(max_new_tokens=6, temperature=0.0, do_sample=False, stop_strings=())
