@@ -21,11 +21,16 @@
     python3 chip_probe.py s1s2 [--root DIR]
     python3 chip_probe.py s1-ring
     python3 chip_probe.py profile-train
+    python3 chip_probe.py two-ranks
 
 Each command prints the card's name and power limit first, then its lines.
 `--root` (every command) imports `teochat_torch` and `chip_smoke` from
 another checkout, so two trees can be timed in one session on one card.
 
+- two-ranks: two processes of this script on the one card, gloo and then
+  NCCL: which backend runs the mesh's collectives (all-gather,
+  reduce-scatter, all-reduce, broadcast) on CUDA tensors; each rank's exit
+  and last error (phase 24 of the smoke puts its two ranks on gloo).
 - decode: the main bench's decode set-up (`teochat_torch.bench.main`: the
   2-frame prompt of 640 fused tokens on stand-in embeddings, a random
   LLaMA-7B decoder from seed 0, greedy, never stopping) at each batch size
@@ -1839,13 +1844,64 @@ def cmd_int8_proj(smoke, args):
                   f"step (32 layers, 2 micro-steps)", flush=True)
 
 
+def _two_ranks_child(backend: str, init: str, rank: int) -> None:
+    """One of two ranks on cuda:0: the collectives the mesh runs, on CUDA tensors."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    done = []
+    for name, fn in (
+            ("all_gather", lambda: dist.all_gather_into_tensor(torch.empty(8, device="cuda"), x)),
+            ("reduce_scatter", lambda: dist.reduce_scatter_tensor(torch.empty(2, device="cuda"), x)),
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
+        fn()
+        torch.cuda.synchronize()
+        done.append(name)
+    print(f"rank {rank} {backend}: {', '.join(done)} ran", flush=True)
+    dist.destroy_process_group()
+
+
+def cmd_two_ranks(smoke, args):
+    """Two processes on the one card, gloo then NCCL: which backend runs the
+    collectives of the mesh (parallel/tensor_parallel.py) on CUDA tensors.
+    Each backend's two ranks get 120 s; a failure prints its last error."""
+    import subprocess
+    import tempfile
+
+    for backend in ("gloo", "nccl"):
+        init = tempfile.mktemp(prefix="two_ranks_")
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "two-ranks", "--child", backend, "--init", init,
+             "--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=120)
+                tail = err.strip().splitlines()[-1:] if p.returncode else []
+                print(f"[two-ranks] {backend} rank {r}: exit {p.returncode} {out.strip()} "
+                      f"{' '.join(tail)}", flush=True)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                print(f"[two-ranks] {backend} rank {r}: no answer in 120 s", flush=True)
+
+
 def main():
+    if sys.argv[1:3] == ["two-ranks", "--child"]:  # one rank of `two-ranks`
+        _two_ranks_child(sys.argv[3], sys.argv[5], int(sys.argv[7]))
+        return
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in ("decode", "decode-ttft", "decode-paths", "spec", "parity", "k1", "k2m", "k4",
                  "k1k4a",
                  "k4bc", "k3k5", "k3",
-                 "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj"):
+                 "k5k2", "s1s2", "s1-ring", "profile-train", "train-step", "int8-proj",
+                 "two-ranks"):
         p = sub.add_parser(name)
         p.add_argument("--root", type=Path, default=Path(__file__).parent)
         if name == "decode":
@@ -1905,7 +1961,7 @@ def main():
      "k5k2": cmd_k5k2,
      "s1s2": cmd_s1s2, "s1-ring": cmd_s1_ring,
      "profile-train": cmd_profile_train, "train-step": cmd_train_step,
-     "int8-proj": cmd_int8_proj}[args.cmd](smoke, args)
+     "int8-proj": cmd_int8_proj, "two-ranks": cmd_two_ranks}[args.cmd](smoke, args)
 
 
 if __name__ == "__main__":

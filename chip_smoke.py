@@ -291,6 +291,23 @@ them. Phases, each printing its lines before the last:
     valid tokens/s and the peak; (c) one micro-step's loss and LoRA and
     projector gradients with the kernels against attn_impl='plain' on those
     weights and one batch (phase 17's bounds). The model is freed after.
+24. the (data, fsdp, model) mesh, after phase 17 (`phase_mesh`,
+    `phase_tower_train`): (a) two ranks of this script (`--ranks DIR`) on
+    the one card, gloo over CUDA tensors (NCCL refuses two ranks on one
+    device: `chip_probe.py two-ranks`), all-gather, reduce-scatter,
+    all-reduce and broadcast run; (b) LLaMA-7B's width cut to P24_LAYERS
+    layers, random int8 weights and LoRA r128 from seed 0, batch 2 x 1,024,
+    remat: 2 optimizer steps on mesh (1, 2, 1), then 2 on (1, 1, 2), their
+    losses and every trained leaf's change against one rank's on the same
+    batches (P24_LOSS_REL, P24_LEAF_REL); s a step, the collectives' share
+    of it, GiB a rank; (c) the (1, 2, 1) run's sharded saves at steps 1 and
+    2, pruned to one, loaded on one process (the trained leaves bitwise the
+    gathered shards, the frozen ones the seed's), s and GB, and a resume of
+    one step against one rank's third; (d) TinyLlama-1.1B's geometry with
+    the full ViT-L/14 tower, bf16 full fine-tuning, 2 steps of `train()`:
+    the tower's attention on K4a-c non-causal (launches counted exactly, K5
+    none), every tower leaf the loss reaches moved, the peak; a tiny tower's
+    gradients on the card against the CPU's (TOWER_TRAIN_GRAD_REL).
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -305,15 +322,17 @@ The line before the last is a JSON object with each of the twenty-five
 kernel rows' launches, error, times and bound (K1 twice: bias-free, its
 launches the int4 path's, and with MPT's bias, its launches the MPT
 request's; K4a, K4b and K4c twice: bias-free, their launches phase 16's
-`cli.main`, and with MPT's bias, their launches phase 23's `train()`; K2
+`cli.main`, phase 24's ranks, its one-rank reference and resume, and its
+tower's `train()`, and with MPT's bias, their launches phase 23's
+`train()`; K5's add phase 24's ranks' frozen tower; K2
 and K2m twice: on a bf16
 and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
 "fp8_generate", the engine phase's
 numbers under "engine", the batched eval's and preprocessing's under
 "eval", multi-LoRA's under "multi_lora", phase 21's under
-"vision_extras" and phases 22 and 23's under "mpt" (phase 23's under its
-"train"; K3c has two: its wrapper runs the M > 8 kernel at prefill
+"vision_extras", phases 22 and 23's under "mpt" (phase 23's under its
+"train"), phase 24's under "mesh"; K3c has two: its wrapper runs the M > 8 kernel at prefill
 and the split-K one at decode; K2m's launches are the chat server's five
 turns, the spec turn's verify blocks among them); the last line is
 {"ok": true, "device": {...}}.
@@ -345,7 +364,7 @@ from teochat_torch.bench import int4_kernel as bench_int4
 from teochat_torch.bench import main as bench_main
 from teochat_torch.bench import vit_attention as bench_vit
 from teochat_torch.bench._timing import bound_ms, kernel_row, sync, time_ms, wall
-from teochat_torch.config import GenerationConfig, MptConfig, TEOChatConfig
+from teochat_torch.config import GenerationConfig, MptConfig, TEOChatConfig, VisionConfig
 from teochat_torch.constants import IMAGE_TOKEN_INDEX, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from teochat_torch.eval.classification import classification_metrics
 from teochat_torch.eval.inference import run_inference, run_inference_single
@@ -5076,6 +5095,476 @@ def phase_mpt_train(model, gen):
                       "parity": parity, "phase_s": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------------ phase 24: the mesh
+
+P24_LAYERS = 4  # LLaMA-7B's width, depth cut from 32 (phase 24's time budget)
+P24_SEQ = 1024  # a row's fused length: one frame's 256 tokens and 768 of text
+P24_ROWS = 2
+P24_MESHES = ((1, 2, 1), (1, 1, 2))
+P24_LOSS_REL = 1e-2  # PERF.md section 4's micro-step bounds: the loss,
+P24_GRAD_REL = 1.5e-1  # each gradient of the first step,
+P24_LEAF_REL = 1.5e-1  # and each trained leaf after the steps
+P24_OPT = dict(learning_rate=2e-4, projector_lr=2e-5, lr_scheduler_type="constant",
+               max_grad_norm=1.0, total_steps=10)
+TOWER_TRAIN_GRAD_REL = 1.5e-1  # bf16 on the card against fp32 on the CPU
+# a tiny tower the flash kernels take: head_dim 64, S 17
+TOWER_TINY = VisionConfig(image_size=56, patch_size=14, hidden_size=128, intermediate_size=256,
+                          num_layers=2, num_heads=2)
+
+
+def p24_config():
+    cfg = TEOChatConfig()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=P24_LAYERS))
+
+
+def p24_batches(cfg, n):
+    """n global batches of P24_ROWS rows of P24_SEQ fused tokens (one frame
+    a row, labels on the text's second half), the same on every process."""
+    out = []
+    text = P24_SEQ - cfg.vision.num_patches + 1
+    for i in range(n):
+        rs = np.random.RandomState(SEED + 24 + i)
+        rows = []
+        for _ in range(P24_ROWS):
+            ids = [1] + rs.randint(3, cfg.llm.vocab_size, text - 1).tolist()
+            ids[1] = IMAGE_TOKEN_INDEX
+            rows.append({"ids": ids, "labels": [-100] * (text // 2) + ids[text // 2:],
+                         "frames": rs.randn(1, 3, 224, 224).astype(np.float32)})
+        out.append(rows)
+    return out
+
+
+def p24_params(cfg, device):
+    """The recipe's trainable set at seed 0: random int8 LLaMA, LoRA r128
+    (B drawn nonzero), fp32 masters; built alike on every process."""
+    from teochat_torch.train.trainer import fp32_masters as masters
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_teochat(cfg, gen, device, torch.bfloat16, quant="int8")
+    llm = add_lora_params(gen, params["llm"], rank=128, alpha=256.0)
+    for proj in _lora_projections(llm):
+        proj["lora_b"] = torch.randn(proj["lora_b"].shape, generator=gen, device=device) * 1e-3
+    return masters({**params, "llm": llm}, lora_trainable_filter)
+
+
+def p24_plan(cfg, rows, device):
+    plan = fusion_mod.build_fusion_plan(
+        [r["ids"] for r in rows], labels=[r["labels"] for r in rows],
+        tokens_per_frame=cfg.vision.num_patches)
+    pixels = torch.from_numpy(np.concatenate([r["frames"] for r in rows]))
+    return plan, pixels.to(device, torch.bfloat16)
+
+
+def p24_steps(cfg, state, batches, device, sharded=None, on_step=None, grads=None):
+    """Optimizer steps over `batches` (a rank's rows of each on a mesh);
+    (state, losses, seconds a step). `grads`, a dict, gets the first
+    step's gradients as the optimizer takes them (on a mesh: this rank's
+    shards, summed over the row ranks)."""
+    from teochat_torch.train import trainer as trainer_mod
+
+    optimizer = trainer_mod.make_optimizer(**P24_OPT)
+    if grads is not None:
+        inner = optimizer.step
+
+        def keep_first(params, g, state, sq_norm=None):
+            if not grads:
+                grads.update({p: x.detach().clone() for p, x in g.items()})
+            return inner(params, g, state, sq_norm)
+
+        optimizer.step = keep_first
+    step = trainer_mod.make_train_step(cfg, optimizer, trainable_filter=lora_trainable_filter,
+                                       remat=True, sharded=sharded)
+    losses, secs = [], []
+    for rows in batches:
+        if sharded is not None:
+            k = len(rows) // sharded.row_count
+            rows = rows[sharded.row_rank * k:(sharded.row_rank + 1) * k]
+        plan, pixels = p24_plan(cfg, rows, device)
+        sync()
+        t = time.perf_counter()
+        state, loss = step(state, plan, pixels)
+        sync()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        if on_step is not None:
+            on_step(state, len(losses))
+    return state, losses, secs
+
+
+def _trained_leaves(params):
+    return {p: x.detach().float().cpu() for p, x in tree_leaves_with_path(params)
+            if lora_trainable_filter(p)}
+
+
+class _CommTimer:
+    """Seconds the card waits on the mesh's collectives (each one bracketed
+    by synchronizes), by wrapping parallel/tensor_parallel.py's three."""
+
+    def __init__(self):
+        from teochat_torch.parallel import tensor_parallel as tp
+
+        self.tp, self.seconds, self.saved = tp, {"gather": 0.0, "scatter": 0.0, "reduce": 0.0}, {}
+
+    def __enter__(self):
+        for key, name in (("gather", "_all_gather"), ("scatter", "_reduce_scatter"),
+                          ("reduce", "_all_reduce")):
+            fn = getattr(self.tp, name)
+            self.saved[name] = fn
+
+            def timed(*a, _fn=fn, _key=key):
+                sync()
+                t = time.perf_counter()
+                out = _fn(*a)
+                sync()
+                self.seconds[_key] += time.perf_counter() - t
+                return out
+
+            setattr(self.tp, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.tp, name, fn)
+        return False
+
+
+def rank_main(out_dir):
+    """One of phase 24's two ranks on the one card (`chip_smoke.py --ranks DIR`)."""
+    import torch.distributed as dist
+
+    from teochat_torch.checkpoint import orbax_io
+    from teochat_torch.checkpoint.orbax_io import _as_dtensor
+    from teochat_torch.config import MeshConfig
+    from teochat_torch.parallel import Sharded, create_mesh, init_distributed, shard_params
+    from teochat_torch.parallel.sharding import unshard
+    from teochat_torch.train import trainer as trainer_mod
+    from teochat_torch.train.train import _prune_checkpoints
+
+    import faulthandler
+
+    faulthandler.enable()  # a rank that dies prints where
+    rank = int(os.environ["RANK"])
+    device = init_distributed("cuda", backend="gloo", device=torch.device("cuda", 0),
+                              init_method=f"file://{os.path.join(out_dir, 'init')}",
+                              rank=rank, world_size=2)
+    log(f"[mesh rank {rank}] joined: {dist.get_backend()}, {dist.get_world_size()} ranks")
+    summary = {"backend": dist.get_backend(), "world": dist.get_world_size(), "collectives": {}}
+    x = torch.full((4,), float(rank + 1), device=device)
+    for name, fn in (
+            ("all_gather", lambda: dist.all_gather_into_tensor(torch.empty(8, device=device), x)),
+            ("reduce_scatter", lambda: dist.reduce_scatter_tensor(
+                torch.empty(2, device=device), x)),
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
+        fn()
+        sync()
+        summary["collectives"][name] = "ok"
+    log(f"[mesh rank {rank}] collectives ran: {summary['collectives']}")
+    cfg = p24_config()
+    batches = p24_batches(cfg, 2)
+    for shape in P24_MESHES:
+        tag = "".join(map(str, shape))
+        mesh = create_mesh(MeshConfig(*shape), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        params = shard_params(p24_params(cfg, device), mesh, cfg)
+        sharded = Sharded(mesh, cfg, params)
+        log(f"[mesh rank {rank}] mesh {shape}: params placed")
+        state = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                             lora_trainable_filter)
+        entry = {}
+        ckpt = os.path.join(out_dir, "ckpt")
+
+        def save(st, n, entry=entry):
+            if shape != P24_MESHES[0]:
+                return
+            dist.barrier()
+            t = time.perf_counter()
+            orbax_io.save_checkpoint(ckpt, st.params, cfg, opt_state=st.opt_state, step=n)
+            entry[f"save_{n}_s"] = time.perf_counter() - t
+            if rank == 0:
+                _prune_checkpoints(ckpt, 1)
+            dist.barrier()
+
+        k4, k5 = _k4_counts(), vit_mod.LAUNCHES.count
+        grads = {}
+        with _CommTimer() as comm:
+            state, losses, secs = p24_steps(cfg, state, batches, device, sharded, on_step=save,
+                                            grads=grads)
+        counts = {**{k: v - k4[k] for k, v in _k4_counts().items()},
+                  "K5": vit_mod.LAUNCHES.count - k5}
+        both = torch.tensor(list(counts.values()), dtype=torch.int64)
+        dist.all_reduce(both)  # the two ranks' launches together
+        entry.update(losses=losses, step_s=secs, comm_s=comm.seconds,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     launches=dict(zip(counts, both.tolist())))
+        log(f"[mesh rank {rank}] mesh {shape}: losses {losses}, s a step {secs}")
+        like = dict(tree_leaves_with_path(state.params))
+        leaves = {p: unshard(x, p, cfg).float().cpu() for p, x in like.items()
+                  if lora_trainable_filter(p)}
+        grads = {p: unshard(_as_dtensor(g, like[p]), p, cfg).float().cpu()
+                 for p, g in grads.items()}
+        if rank == 0:
+            torch.save({"entry": entry, "leaves": leaves, "grads": grads},
+                       os.path.join(out_dir, f"mesh_{tag}.pt"))
+        del state, params, sharded, leaves, grads, like
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(out_dir, "ranks.json"), "w") as f:
+            json.dump(summary, f)
+    dist.destroy_process_group()
+
+
+def _rel(got, want):
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def _rel_l2(got, want, before):
+    d = (got - before) - (want - before)
+    return (d.norm() / (want - before).norm().clamp(min=1e-30)).item()
+
+
+def phase_mesh(gen):
+    """Phase 24 (a)-(c): two ranks on the one card (gloo over CUDA tensors:
+    NCCL refuses two ranks on one device, `chip_probe.py two-ranks`), the
+    recipe's shape on meshes (1, 2, 1) and (1, 1, 2) against one rank,
+    a sharded save, prune, a one-process load and a resume."""
+    import subprocess
+
+    from teochat_torch.checkpoint import orbax_io
+    from teochat_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    cfg, device = p24_config(), torch.device("cuda")
+    batches = p24_batches(cfg, 3)
+    k4, k5 = _k4_counts(), vit_mod.LAUNCHES.count
+    # the one-rank reference: 3 steps, the trainable leaves after 2
+    params = p24_params(cfg, device)
+    before = _trained_leaves(params)
+    state = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                         lora_trainable_filter)
+    torch.cuda.reset_peak_memory_stats()
+    kept, ref_grads = {}, {}
+    state, ref_losses, ref_secs = p24_steps(
+        cfg, state, batches, device, grads=ref_grads,
+        on_step=lambda st, n: kept.update(leaves=_trained_leaves(st.params)) if n == 2 else None)
+    ref_grads = {p: g.float().cpu() for p, g in ref_grads.items()}
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir="results")
+    try:
+        env = {**os.environ, "WORLD_SIZE": "2"}
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ranks", out_dir],
+                                  env={**env, "RANK": str(r)}) for r in range(2)]
+        codes = [p.wait(timeout=600) for p in procs]
+        ranks_s = time.perf_counter() - t_ranks
+        check(codes == [0, 0], f"phase 24 ranks exited {codes}")
+        with open(os.path.join(out_dir, "ranks.json")) as f:
+            summary = json.load(f)
+        log(f"[mesh] backend {summary['backend']} over CUDA tensors, {summary['world']} ranks on "
+            f"cuda:0: NCCL refuses two ranks on one device ('Duplicate GPU detected', "
+            f"chip_probe.py two-ranks); gloo ran {summary['collectives']}")
+        entries = {}
+        for shape in P24_MESHES:
+            tag = "".join(map(str, shape))
+            got = torch.load(os.path.join(out_dir, f"mesh_{tag}.pt"), weights_only=False)
+            e = got["entry"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(e["losses"], ref_losses[:2]))
+            grad_rels = {p: _rel(got["grads"][p], ref_grads[p]) for p in ref_grads}
+            leaf_rels = {p: _rel(got["leaves"][p], kept["leaves"][p]) for p in before}
+            change_rels = {p: _rel_l2(got["leaves"][p], kept["leaves"][p], before[p])
+                           for p in before}
+            wg, wl, wc = (max(r, key=r.get) for r in (grad_rels, leaf_rels, change_rels))
+            comm = sum(e["comm_s"].values())
+            log(f"[mesh] (data, fsdp, model) {shape}, {P24_LAYERS} of 32 layers at 7B width, "
+                f"batch {P24_ROWS} x {P24_SEQ}, LoRA r128 over int8, remat: losses "
+                f"{[round(x, 6) for x in e['losses']]} vs one rank's "
+                f"{[round(x, 6) for x in ref_losses[:2]]} (max rel {loss_rel:.3e}, bound "
+                f"{P24_LOSS_REL}); {len(grad_rels)} trained leaves: first step's gradients "
+                f"worst {wg} rel L2 {grad_rels[wg]:.3e} (bound {P24_GRAD_REL}), leaves after 2 "
+                f"steps worst {wl} {leaf_rels[wl]:.3e} (bound {P24_LEAF_REL}), their changes "
+                f"worst {wc} {change_rels[wc]:.3e} (Adam's first steps move an element by "
+                f"about lr whatever its gradient, so a gradient in bf16's noise moves either "
+                f"way); s a step {e['step_s']} (one rank: {ref_secs[:2]}); collectives "
+                f"{comm:.3f} s of {sum(e['step_s']):.3f} ({e['comm_s']}); peak "
+                f"{e['peak_gib']:.2f} GiB a rank (one rank {ref_peak:.2f})")
+            check(loss_rel <= P24_LOSS_REL, f"mesh {shape} loss rel {loss_rel}")
+            check(grad_rels[wg] <= P24_GRAD_REL, f"mesh {shape} gradient {wg} {grad_rels[wg]}")
+            check(leaf_rels[wl] <= P24_LEAF_REL, f"mesh {shape} leaf {wl} rel {leaf_rels[wl]}")
+            entries[tag] = {**e, "loss_rel": loss_rel, "worst_grad": wg,
+                            "worst_grad_rel_l2": grad_rels[wg], "worst_leaf": wl,
+                            "worst_leaf_rel_l2": leaf_rels[wl], "worst_change": wc,
+                            "worst_change_rel_l2": change_rels[wc],
+                            "comm_share": comm / sum(e["step_s"])}
+        # (c) the sharded checkpoint of mesh (1, 2, 1) on one process, bitwise
+        ckpt_root = os.path.join(out_dir, "ckpt")
+        check(sorted(os.listdir(ckpt_root)) == ["checkpoint-2"], f"pruned to {os.listdir(ckpt_root)}")
+        ckpt = os.path.join(ckpt_root, "checkpoint-2")
+        ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt)
+                      for f in fs) / 1e9
+        sharded_leaves = torch.load(os.path.join(out_dir, "mesh_121.pt"),
+                                    weights_only=False)["leaves"]
+        params = p24_params(cfg, device)
+        template = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                                lora_trainable_filter)
+        sync()
+        t = time.perf_counter()
+        loaded, _, opt = orbax_io.load_checkpoint(ckpt, restore_opt=True,
+                                                  params_template=template.params,
+                                                  opt_template=template.opt_state)
+        sync()
+        load_s = time.perf_counter() - t
+        flat = dict(tree_leaves_with_path(loaded))
+        for path, x in sharded_leaves.items():
+            check(torch.equal(flat[path].float().cpu(), x), f"loaded {path} != the gathered shards")
+        for path, x in tree_leaves_with_path(params):
+            if not lora_trainable_filter(path):
+                check(torch.equal(flat[path], x), f"loaded frozen {path} changed")
+        state, losses, _ = p24_steps(cfg, trainer_mod.TrainState(loaded, opt, 2), batches[2:],
+                                     device)
+        resume_rel = abs(losses[0] - ref_losses[2]) / abs(ref_losses[2])
+        log(f"[mesh] checkpoint of (1, 2, 1): saved at steps 1 and 2 by both ranks "
+            f"({entries['121']['save_1_s']:.2f} s, {entries['121']['save_2_s']:.2f} s), "
+            f"pruned to checkpoint-2, {ckpt_gb:.3f} GB; loaded on one process in {load_s:.2f} s, "
+            f"{len(sharded_leaves)} trained leaves bitwise the gathered shards, the frozen ones "
+            f"bitwise the seed's; resumed step 3 loss {losses[0]:.6f} vs one rank's "
+            f"{ref_losses[2]:.6f} (rel {resume_rel:.3e})")
+        check(resume_rel <= P24_LOSS_REL, f"resume loss rel {resume_rel}")
+        del state, params, loaded, opt, template
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # launches: this process's (the one-rank reference and the resume) and
+    # both ranks' (each mesh's steps)
+    launches = {k: v - k4[k] for k, v in _k4_counts().items()}
+    launches["K5"] = vit_mod.LAUNCHES.count - k5
+    for e in entries.values():
+        for k in launches:
+            launches[k] += e["launches"][k]
+    return launches, {"backend": summary["backend"], "world": summary["world"],
+            "layers": P24_LAYERS,
+            "reference": {"losses": ref_losses, "step_s": ref_secs, "peak_gib": ref_peak},
+            "meshes": entries, "checkpoint_gb": ckpt_gb, "load_s": load_s,
+            "resume_loss_rel": resume_rel, "ranks_s": ranks_s,
+            "phase_s": time.perf_counter() - t0}
+
+
+def _tiny_tower_grads(device, dtype, params, pixels, w):
+    from teochat_torch.models.vit import vit_forward
+
+    leaves = {p: x.detach().to(device, dtype).requires_grad_(True)
+              for p, x in tree_leaves_with_path(params)}
+    tree = {}
+    for p, x in leaves.items():
+        node = tree
+        *head, last = p.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    vcfg = TOWER_TINY
+    out = vit_forward(tree, vcfg, pixels.to(device, dtype), select_layer=-1)
+    loss = (out.float() * w.to(device)).sum()
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return {p: g.float().cpu() for p, g in zip(leaves, grads) if g is not None}  # not post-LN
+
+
+def phase_tower_train(gen):
+    """Phase 24 (d): the tower trained on the card. TinyLlama-1.1B's
+    geometry (bench/main.py) with the full ViT-L/14 tower, bf16 full
+    fine-tuning, 2 steps of train(): the tower's attention takes K4a-c
+    non-causally (K5 has no backward), every tower leaf the loss reaches
+    moves; then a tiny tower's gradients on the card against the CPU's."""
+    from teochat_torch.config import LlamaConfig
+    from teochat_torch.train import train as train_mod
+
+    t0 = time.perf_counter()
+    cfg = TEOChatConfig(llm=LlamaConfig(hidden_size=2048, intermediate_size=5632, num_layers=22,
+                                        num_heads=32, num_kv_heads=4))
+    cfg = dataclasses.replace(cfg, projector=dataclasses.replace(cfg.projector, hidden_size=2048))
+    params = init_teochat(cfg, torch.Generator(device="cuda").manual_seed(SEED + 24), "cuda",
+                          torch.bfloat16, quant=None)
+    before = {p: x.clone() for p, x in tree_leaves_with_path(params["vision"])}
+    tokenizer = WordTokenizer()
+    processor = FrameProcessor(cfg.vision.image_size, SEED)
+    k4 = _k4_counts()
+    k5 = vit_mod.LAUNCHES.count
+    torch.cuda.reset_peak_memory_stats()
+    out = tempfile.mkdtemp(prefix="chip_smoke_tower_", dir="results")
+    history = []
+    try:
+        state = train_mod.train(
+            train_mod.ModelArguments(freeze_backbone=False, mm_use_im_patch_token=False),
+            DataArguments(image_processor=processor),
+            train_mod.TrainingArguments(
+                output_dir=out, lora_enable=False, per_device_train_batch_size=2,
+                learning_rate=1e-5, mm_projector_lr=None, warmup_steps=0,
+                lr_scheduler_type="constant", bf16=True, save_strategy="no",
+                report_to="none", logging_steps=1, seed=SEED),
+            cfg=cfg, params=params, tokenizer=tokenizer, dataset=train_samples(4),
+            max_steps_override=2, history=history)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v - k4[k] for k, v in _k4_counts().items()}
+    k5_launches = vit_mod.LAUNCHES.count - k5
+    n_vit = cfg.vision.num_layers - 1  # select_layer -2
+    n_llm = cfg.llm.num_layers
+    want = {"fwd": 2 * (n_vit + 2 * n_llm), "dkv": 2 * (n_vit + n_llm),
+            "dq": 2 * (n_vit + n_llm)}
+    moved = still = 0
+    for path, x in tree_leaves_with_path(state.params["vision"]):
+        if path.startswith("post_layernorm") or path == "layers/attn/k/bias":
+            continue  # not reached by the loss; a key bias's exact gradient is 0
+        changed = not torch.equal(x.float(), before[path].float())
+        moved, still = moved + changed, still + (not changed)
+        check(changed, f"tower leaf {path} did not move")
+    losses = [h["loss"] for h in history]
+    log(f"[tower train] TinyLlama-1.1B geometry ({n_llm} layers, h 2048, kv 4) with ViT-L/14, "
+        f"bf16 full fine-tuning, 2 steps of train(): losses {losses}, s a step "
+        f"{[round(h['seconds'], 3) for h in history]}, peak {peak:.2f} GiB; launches K4a "
+        f"{launches['fwd']}, K4b {launches['dkv']}, K4c {launches['dq']} (expected {want}: "
+        f"{n_vit} tower layers non-causal a step, the decoder's causal ones with remat), K5 "
+        f"{k5_launches}; {moved} tower leaves moved")
+    check(launches == want, f"K4 launches {launches} != {want}")
+    check(k5_launches == 0, f"K5 launched {k5_launches} times in a training tower")
+    check(all(np.isfinite(losses)), f"tower train losses {losses}")
+    del state, params, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a tiny tower (head_dim 64, S 17) on the card in bf16 against the CPU in fp32
+    from teochat_torch.checkpoint.bridge import init_encoder as encoder
+
+    small = dataclasses.replace(TEOChatConfig(), vision=TOWER_TINY)
+    vparams = encoder(small, torch.Generator(device="cuda").manual_seed(SEED + 25), "cuda",
+                      torch.bfloat16)["vision"]
+    vparams = {p: x.float().cpu() for p, x in tree_leaves_with_path(vparams)}
+    rs = np.random.RandomState(SEED + 25)
+    pixels = torch.from_numpy(rs.randn(2, 3, 56, 56).astype(np.float32)).bfloat16().float()
+    w = torch.from_numpy(rs.randn(2, 17, 128).astype(np.float32))
+    k4 = _k4_counts()
+    card = _tiny_tower_grads("cuda", torch.bfloat16, vparams, pixels, w)
+    tiny_launches = {k: v - k4[k] for k, v in _k4_counts().items()}
+    cpu = _tiny_tower_grads("cpu", torch.float32, vparams, pixels, w)
+    rels = {p: ((card[p] - cpu[p]).norm() / cpu[p].norm().clamp(min=1e-30)).item()
+            for p in cpu if cpu[p].norm() > 0 and not p.endswith("attn/k/bias")}
+    worst = max(rels, key=rels.get)
+    log(f"[tower train] tiny tower (h 128, 2 heads of 64, 2 layers, S 17): gradients of "
+        f"{len(rels)} leaves on the card (bf16, K4a-c launches {tiny_launches}) against the "
+        f"CPU's (fp32): worst {worst} rel L2 {rels[worst]:.3e} (bound {TOWER_TRAIN_GRAD_REL})")
+    check(rels[worst] <= TOWER_TRAIN_GRAD_REL, f"tiny tower gradient {worst} {rels[worst]}")
+    check(tiny_launches["fwd"] == 2 and tiny_launches["dq"] == 2, f"{tiny_launches}")
+    return launches, {"losses": losses, "step_s": [h["seconds"] for h in history],
+                      "peak_gib": peak, "launches": launches, "k5_launches": k5_launches,
+                      "tiny_worst_leaf_rel_l2": rels[worst],
+                      "phase_s": time.perf_counter() - t0}
+
+
 def stamp(t0, what):
     log(f"[time] {time.perf_counter() - t0:.1f} s: {what} done")
 
@@ -5178,6 +5667,11 @@ def main():
         f"live, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     stamp(t0, "phases 15-17")
+    mesh_launches, mesh_entry = phase_mesh(gen)
+    tower_launches, mesh_entry["tower"] = phase_tower_train(gen)
+    for k in ("fwd", "dkv", "dq"):
+        train_launches[k] += mesh_launches[k] + tower_launches[k]
+    stamp(t0, "phase 24 (the mesh, the tower trained)")
     s_rows = {**phase_bench_int4(gen), **phase_bench_vit(gen)}
     bench_counts, bench_train = phase_bench_run()
     stamp(t0, "phases 18-20")
@@ -5191,9 +5685,10 @@ def main():
         return row(name, source, replaces, bench_counts[key], s_rows[key], where="scripts/")
 
     # launches: K1, K2, K3b, K3c (its prefill's M > 8 kernel and its decode's
-    # kernel apart), K5 on the int4 path, K3a on its own request,
-    # K4a-c in train(), the benches' variants in their benches; the int8 path's
-    # and the main bench's counts are checked above
+    # kernel apart), K5 on the int4 path and phase 24's ranks, K3a on its own
+    # request, K4a-c in phase 16's train() and phase 24's runs, the benches'
+    # variants in their benches; the int8 path's and the main bench's counts
+    # are checked above
     kernels = [
         row("flash_attention", "flash_attention.cu", "flash_attention.py:32",
             int4_counts["K1"], rows["K1"]),
@@ -5233,7 +5728,7 @@ def main():
         row("int4_matmul_tiled_stacked_decode", "int4_matmul.cu", "int4_matmul.py:348",
             int4_counts["K3c M<=8"], rows["K3c M<=8"]),
         row("vit_attention", "vit_attention.cu", "vit_attention.py:42",
-            int4_counts["K5"], rows["K5"]),
+            int4_counts["K5"] + mesh_launches["K5"], rows["K5"]),
         bench_row("S1-v2", "bench_int4_kernel.cu", "bench_int4_kernel.py:55"),
         bench_row("S1-v3", "bench_int4_kernel.cu", "bench_int4_kernel.py:135"),
         bench_row("S1-v4", "bench_int4_kernel.cu", "bench_int4_kernel.py:219"),
@@ -5245,7 +5740,7 @@ def main():
     ]
     print(json.dumps({"kernels": kernels, "engine": engine_entry, "eval": eval_entry,
                       "fp8_generate": {"int4": fp8_int4, "int8": fp8_int8},
-                      "multi_lora": lora_entry, "mpt": mpt_entry,
+                      "multi_lora": lora_entry, "mpt": mpt_entry, "mesh": mesh_entry,
                       "train": {**train_entry, "bench": bench_train}, "vision_extras": extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5253,5 +5748,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks"]:  # one of phase 24's ranks
+        rank_main(sys.argv[2])
+    else:
+        main()
     sys.exit(0)

@@ -81,7 +81,7 @@ from teochat_torch.ops.quant import (
     quantized_proj,
     quantized_proj_act_i8,
 )
-from teochat_torch.utils import resolve_device
+from teochat_torch.utils import resolve_device, unported
 
 Params = Dict
 
@@ -199,8 +199,13 @@ def _proj(x: torch.Tensor, p: Params, layer: Optional[int] = None,
 
 
 def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None,
-         route: Optional[torch.Tensor] = None, act_quant: bool = False) -> torch.Tensor:
-    if "gateup" in lp:  # fused gate|up (ops/quant.py fuse_projections)
+         route: Optional[torch.Tensor] = None, act_quant: bool = False,
+         sh=None) -> torch.Tensor:
+    split = sh is not None and sh.splits("mlp")
+    if split:  # this rank's gate / up columns, its rows of down
+        x = sh.to_model(x)
+        lp = {k: sh.col(v) if k != "down" else v for k, v in lp.items()}
+    if "gateup" in lp:  # fused gate|up (ops/quant.py fuse_projections; per rank on a mesh)
         gu = _proj(x, lp["gateup"], layer, route, act_quant)
         i_sz = gu.shape[-1] // 2
         gate_in, up = gu[..., :i_sz], gu[..., i_sz:]
@@ -208,6 +213,8 @@ def _mlp(x: torch.Tensor, lp: Params, layer: Optional[int] = None,
         gate_in = _proj(x, lp["gate"], layer, route, act_quant)
         up = _proj(x, lp["up"], layer, route, act_quant)
     gate = F.silu(gate_in.float()).to(x.dtype)
+    if split:
+        return sh.row_proj(gate * up, lp["down"])
     return _proj(gate * up, lp["down"], layer, route, act_quant)
 
 
@@ -216,9 +223,14 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
                      attention_mask=None, right_padded: bool = False, lengths=None,
                      spec_verify: bool = False, row_offset: int = 0,
                      attend_cache: bool = False, route=None,
-                     act_quant: bool = False) -> torch.Tensor:
+                     act_quant: bool = False, sh=None) -> torch.Tensor:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    split = sh is not None and sh.splits("attn")
+    if split:  # this model rank's heads: its q heads and their kv heads
+        h, hkv = h // sh.m, hkv // sh.m
+        x = sh.to_model(x)
+        lp = {k: sh.col(v) if k != "out" else v for k, v in lp.items()}
     if "qkv" in lp:
         # fused q|k|v projection (ops/quant.py fuse_projections): one weight
         # read and one launch instead of three
@@ -236,6 +248,8 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
         # (which the flash kernels drop for a right-padded batch)
         out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
                                     impl=attn_impl, right_padded=right_padded)
+        if split:
+            return sh.row_proj(out.reshape(b, s, h * hd), lp["out"])
         return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route, act_quant)
     # this batch's rows of the layer's slab, [B, T, Hkv, D] views
     k_slab = cache.k[layer, row_offset:row_offset + b]
@@ -273,14 +287,16 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, layer, write_slots,
                    prefill_start, attn_impl, attention_mask, right_padded, lengths=None,
                    spec_verify=False, row_offset=0, attend_cache=False,
-                   route=None, act_quant=False) -> torch.Tensor:
+                   route=None, act_quant=False, sh=None) -> torch.Tensor:
+    if sh is not None:  # the layer's fsdp shards gathered at use (inside remat)
+        lp = sh.gather(lp, "llm/layers", lead=1)
     y = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
     x = x + _attention_layer(y, lp["attn"], cfg, cos, sin, cache, layer, write_slots,
                              prefill_start, attn_impl, attention_mask, right_padded,
                              lengths, spec_verify, row_offset, attend_cache, route,
-                             act_quant)
+                             act_quant, sh)
     y = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, lp["mlp"], layer, route, act_quant)
+    return x + _mlp(y, lp["mlp"], layer, route, act_quant, sh)
 
 
 def unstack_layers(tree, n_layers: int):
@@ -309,7 +325,9 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=None) -> torch.T
 
 
 def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
-                     row_offset: int) -> None:
+                     row_offset: int, sharded=None) -> None:
+    if sharded is not None and cache is not None:
+        raise unported("a KV cache on a mesh (sharded generate, sessions, the engine)", 16)
     if cache is not None and not 0 <= row_offset <= cache.k.shape[1] - b:
         raise ValueError(f"llama_forward: rows [{row_offset}, {row_offset + b}) "
                          f"outside a cache of {cache.k.shape[1]} rows")
@@ -320,7 +338,37 @@ def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
     }
     named = [name for name, on in unsupported.items() if on]
     if named:
-        raise NotImplementedError(f"llama_forward: not ported yet: {', '.join(named)}")
+        raise unported(f"llama_forward: {', '.join(named)}", 16)
+
+
+def vocab_logits(x: torch.Tensor, head: Optional[Params], table: Optional[torch.Tensor],
+                 sh) -> torch.Tensor:
+    """fp32 logits [..., V] on the mesh from the vocab-sharded lm_head
+    (`head`, its fsdp dim gathered) or tied table [V/m, D]: x enters by
+    to_model, each rank takes its vocabulary's columns, and the columns are
+    all-gathered over `model` (the cross-entropy then sees the whole
+    vocabulary, F1)."""
+    split = sh.splits("vocab")
+    if split:
+        x = sh.to_model(x)
+    if head is None:
+        logits = matmul_fp32(x, table.to(x.dtype).T)
+    elif "scale" in head:
+        logits = quantized_proj(x, head, fp32_out=True)
+    else:
+        logits = matmul_fp32(x, head["kernel"].to(x.dtype))
+    return sh.gather_model(logits, -1) if split else logits
+
+
+def _sharded_head(params, cfg, x, sh, logits_mode, last_index):
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    if logits_mode != "all" or last_index is not None:
+        raise ValueError("llama_forward on a mesh: training's logits_mode 'all' only")
+    head = params.get("lm_head")
+    if head is not None:
+        return vocab_logits(x, sh.gather(head, "llm/lm_head"), None, sh)
+    table = sh.gather(params["embed_tokens"]["embedding"], "llm/embed_tokens/embedding")
+    return vocab_logits(x, None, table, sh)
 
 
 def llama_forward(
@@ -345,6 +393,7 @@ def llama_forward(
     adapter_route: Optional[torch.Tensor] = None,
     act_quant_ok: Optional[bool] = None,
     attn_impl: str = "auto",  # auto | plain
+    sharded=None,
 ) -> torch.Tensor:
     """Run the decoder stack; returns fp32 logits [B, S|1, V], or with
     logits_mode 'none' the final norm's output [B, S, D] (no lm_head).
@@ -378,10 +427,15 @@ def llama_forward(
     `remat` recomputes each layer in the backward. `last_index` [B] picks
     each row's position for logits_mode='last'. `attn_impl` 'plain' routes
     every attention to its plain twin (the kernels' reference).
+    `sharded` (parallel/tensor_parallel.py::Sharded; cache-free only) runs
+    the stack on the mesh: `params` are this rank's local shards, each
+    layer's gathered over `fsdp` at use, its heads and MLP columns split
+    over `model`; the logits come back whole (fp32, all-gathered over
+    `model` from the vocab-sharded head).
     """
     x = inputs_embeds
     b, s, _ = x.shape
-    _check_supported(cfg, cache, b, cache_row_offset)
+    _check_supported(cfg, cache, b, cache_row_offset, sharded)
     if act_quant_ok is None:
         act_quant_ok = not spec_verify
     act_quant = bool(cfg.int8_prefill_activations) and s > 1 and act_quant_ok
@@ -397,11 +451,13 @@ def llama_forward(
     for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
                 attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
-                attend_cache, adapter_route, act_quant)
+                attend_cache, adapter_route, act_quant, sharded)
         if remat and cache is None:
             x = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:
             x = _decoder_layer(*args)
+    if sharded is not None:
+        return _sharded_head(params, cfg, x, sharded, logits_mode, last_index)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
     if logits_mode == "none":

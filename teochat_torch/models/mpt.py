@@ -127,17 +127,28 @@ def _query_mask(write_slots: torch.Tensor, t_max: int, kv_mask=None, kv_len=None
 def _mpt_layer(x, lp, cfg, bias, layer: int, cache, mask, write_slots, query_mask,
                row_offset: int = 0, spec_verify: bool = False, prefill_start: int = 0,
                attend_cache: bool = False, route=None, attn_impl: str = "auto",
-               right_padded: bool = False) -> torch.Tensor:
+               right_padded: bool = False, sh=None) -> torch.Tensor:
     """One block. `bias` is the [H, T] ALiBi table; `mask` the cache-free
     padding mask [B, S] (right padding where `right_padded`); `query_mask`
-    [B, S, T_max] what a cached query reading the slab attends."""
+    [B, S, T_max] what a cached query reading the slab attends. On the mesh
+    (`sh`) the block's fsdp shards are gathered here, the heads split over
+    `model` take their own rows of the table."""
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
     n_kv = cfg.num_kv_heads
+    if sh is not None:
+        lp = sh.gather(lp, "llm/layers", lead=1)
+    split = sh is not None and sh.splits("attn")
+    split_mlp = sh is not None and sh.splits("mlp")
 
     y = _ln(x, lp["norm1"])
-    qkv = _dense(y, lp["wqkv"], layer, route)  # [B, S, D + 2 n_kv hd]
+    wqkv = lp["wqkv"]
+    if split:  # this rank's heads: [its q | its k | its v] columns of wqkv
+        h, n_kv, d = h // sh.m, n_kv // sh.m, d // sh.m
+        bias = bias[sh.model_rank * h:(sh.model_rank + 1) * h]
+        y, wqkv = sh.to_model(y), sh.col(wqkv)
+    qkv = _dense(y, wqkv, layer, route)  # [B, S, D + 2 n_kv hd]
     q = qkv[..., :d].reshape(b, s, h, hd)
     k = qkv[..., d:d + n_kv * hd].reshape(b, s, n_kv, hd)
     v = qkv[..., d + n_kv * hd:].reshape(b, s, n_kv, hd)
@@ -169,14 +180,22 @@ def _mpt_layer(x, lp, cfg, bias, layer: int, cache, mask, write_slots, query_mas
             t_max = k_slab.shape[1]
             out = dot_product_attention(q, k_slab.to(q.dtype), v_slab.to(q.dtype),
                                         mask=query_mask, bias_k=bias[:, :t_max], impl="plain")
-    x = x + _dense(out.reshape(b, s, d), lp["out_proj"], layer, route)
+    if split:
+        x = x + sh.row_proj(out.reshape(b, s, d), lp["out_proj"])
+    else:
+        x = x + _dense(out.reshape(b, s, d), lp["out_proj"], layer, route)
 
     y = _ln(x, lp["norm2"])
+    if split_mlp:
+        y = F.gelu(_dense(sh.to_model(y), sh.col(lp["up_proj"]), layer, route))
+        return x + sh.row_proj(y, lp["down_proj"])
     y = _dense(F.gelu(_dense(y, lp["up_proj"], layer, route)), lp["down_proj"], layer, route)
     return x + y
 
 
-def _check_supported(cfg, cache, b: int, row_offset: int) -> None:
+def _check_supported(cfg, cache, b: int, row_offset: int, sharded=None) -> None:
+    if sharded is not None and cache is not None:
+        raise unported("a KV cache on a mesh (sharded generate, sessions, the engine)", 16)
     if cache is not None and not 0 <= row_offset <= cache.k.shape[1] - b:
         raise ValueError(f"mpt_forward: rows [{row_offset}, {row_offset + b}) "
                          f"outside a cache of {cache.k.shape[1]} rows")
@@ -206,6 +225,7 @@ def mpt_forward(
     adapter_route: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",  # auto | plain
     right_padded: bool = False,
+    sharded=None,
 ) -> torch.Tensor:
     """Run the MPT stack with llama_forward's cache contract; returns fp32
     logits [B, S|1, V] (the tied `wte` head, times `cfg.logit_scale`), or
@@ -222,10 +242,11 @@ def mpt_forward(
     `right_padded` says they are all on the left (the training plan), so the
     flash kernels may drop the mask, and `remat` recomputes each block in the
     backward. `attn_impl` 'plain' routes every attention to the plain
-    version (the kernel's reference)."""
+    version (the kernel's reference). `sharded` runs the cache-free stack
+    on the mesh as llama_forward's does (the tied `wte` vocab-sharded)."""
     x = inputs_embeds
     b, s, _ = x.shape
-    _check_supported(cfg, cache, b, cache_row_offset)
+    _check_supported(cfg, cache, b, cache_row_offset, sharded)
     t_bias = cache.max_len if cache is not None else s
     # key-separable [H, T] form: the flash kernel's per-key add, the plain
     # path's [1, H, 1, T] broadcast
@@ -237,12 +258,18 @@ def mpt_forward(
     for layer, lp in enumerate(llama_mod.unstack_layers(params["layers"], cfg.n_layers)):
         args = (x, lp, cfg, bias, layer, cache, mask, write_slots, query_mask,
                 cache_row_offset, spec_verify, prefill_start, attend_cache, adapter_route,
-                attn_impl, right_padded)
+                attn_impl, right_padded, sharded)
         if remat and cache is None:
             x = checkpoint(_mpt_layer, *args, use_reentrant=False)
         else:
             x = _mpt_layer(*args)
     x = _ln(x, params["final_norm"])
+    if sharded is not None:
+        if logits_mode != "all" or last_index is not None:
+            raise ValueError("mpt_forward on a mesh: training's logits_mode 'all' only")
+        table = sharded.gather(params["wte"]["embedding"], "llm/wte/embedding")
+        logits = llama_mod.vocab_logits(x, None, table, sharded)
+        return logits * cfg.logit_scale if cfg.logit_scale is not None else logits
 
     if logits_mode == "none":
         return x

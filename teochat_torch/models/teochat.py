@@ -70,11 +70,12 @@ def multimodal_embeds(params: Params, cfg: TEOChatConfig, plan: fusion_mod.Fusio
 
 def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPlan,
                   pixel_values: torch.Tensor, remat: bool = False,
-                  attn_impl: str = "auto") -> torch.Tensor:
+                  attn_impl: str = "auto", sharded=None) -> torch.Tensor:
     """Mean next-token cross-entropy over the valid labels of a fused batch.
 
     The tower runs without a graph unless one of its leaves requires a
-    gradient (full fine-tuning, the CPU only: K5 has no backward); the
+    gradient (full fine-tuning: its attention then takes the trainable
+    flash path, models/vit.py::attend); the
     projector, the fusion and the decoder carry gradients. The decoder (LLaMA,
     or MPT where the params hold its tied `wte`) runs cache-free on the
     right-padded plan (`right_padded=True`: the flash kernels on CUDA, K4a-c
@@ -84,33 +85,57 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
     the padded rows' logits are out of the loss, as for LLaMA.
     `remat` recomputes decoder layers in the backward (HF gradient
     checkpointing); `attn_impl='plain'` runs the plain attention instead.
+
+    `sharded` (parallel/tensor_parallel.py::Sharded) runs it on the mesh:
+    `params` are this rank's local shards and `plan` / `pixel_values` its
+    rows; the result is this rank's share of the global batch's loss, its
+    rows' sum over the count of valid labels in every rank's rows (JAX's
+    mean under GSPMD), so the ranks' shares and gradients sum to the
+    global mean's.
     """
     dev = pixel_values.device
     tower_trains = any(x.requires_grad for _, x in tree_leaves_with_path(params["vision"]))
     with torch.set_grad_enabled(torch.is_grad_enabled() and tower_trains):
         hidden = vit_forward(params["vision"], cfg.vision, pixel_values,
-                             select_layer=cfg.mm_vision_select_layer)
+                             select_layer=cfg.mm_vision_select_layer, sharded=sharded)
         feats = select_features(hidden, cfg.mm_vision_select_feature)
-    vision_tokens = projector_forward(params["projector"], cfg.projector, feats)
-    embeds = multimodal_embeds(params, cfg, plan, vision_tokens)
+    vision_tokens = projector_forward(params["projector"], cfg.projector, feats, sharded)
+    if sharded is None:
+        embeds = multimodal_embeds(params, cfg, plan, vision_tokens)
+    else:
+        embeds = _sharded_embeds(params["llm"], plan, vision_tokens, sharded)
     attention_mask = torch.as_tensor(plan.attention_mask, device=dev)
     if mpt_mod.is_mpt_params(params["llm"]):
         logits = mpt_mod.mpt_forward(
             params["llm"], cfg.llm, embeds, attention_mask=attention_mask,
-            right_padded=True, remat=remat, attn_impl=attn_impl,
+            right_padded=True, remat=remat, attn_impl=attn_impl, sharded=sharded,
         )
     else:
         logits = llama_mod.llama_forward(
             params["llm"], cfg.llm, embeds,
             position_ids=torch.as_tensor(plan.position_ids, device=dev),
             attention_mask=attention_mask, right_padded=True, remat=remat,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, sharded=sharded,
         )
     labels = torch.as_tensor(plan.labels, dtype=torch.long, device=dev)[:, 1:]
     valid = labels != fusion_mod.IGNORE_INDEX
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tok_lp = torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
-    return -(tok_lp * valid).sum() / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if sharded is not None:
+        count = sharded.sum_rows(count)
+    return -(tok_lp * valid).sum() / count.clamp(min=1)
+
+
+def _sharded_embeds(llm_params: Params, plan: fusion_mod.FusionPlan,
+                    vision_tokens: torch.Tensor, sh) -> torch.Tensor:
+    """fuse_embeds on the mesh: the table's fsdp dim gathered, its
+    vocabulary split over `model` (each rank's rows, summed)."""
+    name = "wte" if mpt_mod.is_mpt_params(llm_params) else "embed_tokens"
+    table = sh.gather(llm_params[name]["embedding"], f"llm/{name}/embedding")
+    text_ids = torch.as_tensor(plan.text_ids, dtype=torch.long, device=vision_tokens.device)
+    text_emb = sh.vocab_embed(table.to(vision_tokens.dtype), text_ids)
+    return fusion_mod.fuse(text_emb, vision_tokens, plan)
 
 
 class TEOChat:

@@ -8,6 +8,8 @@ one-shot kernel on a CUDA tensor, the plain attention on a CPU tensor)
 whenever the sequence is inside the JAX function's gate for its kernel
 (64 <= S <= 1024); the temporal attention over a few frames, and shorter
 or longer sequences, take the plain attention (ops/attention.py). A tower
+that trains (a q, k or v that requires a gradient) attends through the
+trainable flash path instead (`attend`): K5 has no backward. A tower
 quantized by `ops/quant.py::quantize_vit_params` runs its projections w8a8
 (per-token int8 activations on the int8 tensor cores, the bias added to the
 rounded product as in the JAX function). `resize_position_embedding`
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from teochat_torch.config import VisionConfig
 from teochat_torch.ops.attention import plain_attention
+from teochat_torch.ops.flash_attention import flash_attention_trainable
 from teochat_torch.ops.quant import quantized_proj_act_i8
 from teochat_torch.ops.vit_attention import in_kernel_range, vit_attention
 
@@ -67,26 +70,43 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
-def _attn_block(x: torch.Tensor, p: Params, cfg: VisionConfig) -> torch.Tensor:
-    """CLIP bidirectional self-attention. x: [B, N, D]."""
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The tower's bidirectional attention, by what the call needs: without
+    a gradient (no tower leaf requires one, or grad is off) K5 inside its
+    range; with one, the trainable flash path (K4a, K4b, K4c non-causal on
+    the card; plain autograd on the CPU), since K5 has no backward; outside
+    K5's range without a gradient, the plain attention."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        return flash_attention_trainable(q, k, v, causal=False)
+    if in_kernel_range(q.shape[1]):
+        return vit_attention(q, k, v)
+    return plain_attention(q, k, v, causal=False)
+
+
+def _attn_block(x: torch.Tensor, p: Params, cfg: VisionConfig, sh=None) -> torch.Tensor:
+    """CLIP bidirectional self-attention. x: [B, N, D]. On the mesh (`sh`)
+    with `model` splitting the heads: this rank's heads, q / k / v
+    column-parallel, out row-parallel."""
     b, n, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
+    split = sh is not None and sh.splits("vit_attn")
+    if split:
+        h, x = h // sh.m, sh.to_model(x)
     q = _dense(x, p["q"]).reshape(b, n, h, hd)
     k = _dense(x, p["k"]).reshape(b, n, h, hd)
     v = _dense(x, p["v"]).reshape(b, n, h, hd)
-    if in_kernel_range(n):
-        out = vit_attention(q, k, v)
-    else:
-        out = plain_attention(q, k, v, causal=False)
-    return _dense(out.reshape(b, n, h * hd), p["out"])
+    out = attend(q, k, v).reshape(b, n, h * hd)
+    return sh.row_proj(out, p["out"]) if split else _dense(out, p["out"])
 
 
-def _mlp_block(x: torch.Tensor, p: Params, cfg: VisionConfig) -> torch.Tensor:
+def _mlp_block(x: torch.Tensor, p: Params, cfg: VisionConfig, sh=None) -> torch.Tensor:
+    if sh is not None and sh.splits("vit_mlp"):
+        return sh.row_proj(ACT[cfg.hidden_act](_dense(sh.to_model(x), p["fc1"])), p["fc2"])
     return _dense(ACT[cfg.hidden_act](_dense(x, p["fc1"])), p["fc2"])
 
 
 def _encoder_layer(x: torch.Tensor, lp: Params, cfg: VisionConfig,
-                   num_frames: int = 1) -> torch.Tensor:
+                   num_frames: int = 1, sh=None) -> torch.Tensor:
     """One pre-LN CLIP layer; temporal attention first when configured.
 
     x: [(B*T), N, D] with T = num_frames when temporal attention is on.
@@ -100,16 +120,22 @@ def _encoder_layer(x: torch.Tensor, lp: Params, cfg: VisionConfig,
         if t != 1:
             xt = xt + lp["temporal_embedding"][:t].to(x.dtype)
         y = _layer_norm(xt, lp["temporal_ln"], cfg.layer_norm_eps)
-        xt = xt + _attn_block(y, lp["temporal_attn"], cfg)
+        xt = xt + _attn_block(y, lp["temporal_attn"], cfg, sh)
         # (b n) t d -> (b t) n d
         x = xt.reshape(b, n, t, d).transpose(1, 2).reshape(bt, n, d)
 
-    x = x + _attn_block(_layer_norm(x, lp["ln1"], cfg.layer_norm_eps), lp["attn"], cfg)
-    return x + _mlp_block(_layer_norm(x, lp["ln2"], cfg.layer_norm_eps), lp["mlp"], cfg)
+    x = x + _attn_block(_layer_norm(x, lp["ln1"], cfg.layer_norm_eps), lp["attn"], cfg, sh)
+    return x + _mlp_block(_layer_norm(x, lp["ln2"], cfg.layer_norm_eps), lp["mlp"], cfg, sh)
 
 
-def embed_patches(params: Params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+def embed_patches(params: Params, cfg: VisionConfig, pixel_values: torch.Tensor,
+                  sh=None) -> torch.Tensor:
     """[B, 3, H, W] -> [B, 1 + num_patches, D] (CLS + patches + positions + pre-LN)."""
+    if sh is not None:  # the patch kernel's and the positions' fsdp shards
+        params = {**params, "patch_embedding": sh.gather(params["patch_embedding"],
+                                                         "vision/patch_embedding"),
+                  "position_embedding": sh.gather(params["position_embedding"],
+                                                  "vision/position_embedding")}
     b = pixel_values.shape[0]
     p = cfg.patch_size
     gh, gw = cfg.grid
@@ -130,20 +156,27 @@ def vit_forward(
     *,
     select_layer: Optional[int] = None,
     num_frames: int = 1,
+    sharded=None,
 ) -> torch.Tensor:
     """Hidden states at `select_layer`, before the post-layernorm.
 
     pixel_values: [B*T, 3, H, W] (frames folded into the batch). As in HF,
     hidden_states[select_layer] with -2 is the input of the last layer.
+    `sharded` (parallel/tensor_parallel.py::Sharded) runs the tower on the
+    mesh: each layer's fsdp shards gathered at use, its heads and MLP
+    columns split over `model`.
     """
     if select_layer is None:
         select_layer = cfg.select_layer
     k = cfg.num_layers + 1 + select_layer if select_layer < 0 else select_layer
     if not 0 <= k <= cfg.num_layers:
         raise ValueError(f"select_layer {select_layer} out of range")
-    x = embed_patches(params, cfg, pixel_values)
+    x = embed_patches(params, cfg, pixel_values, sharded)
     for i in range(k):
-        x = _encoder_layer(x, layer_index(params["layers"], i), cfg, num_frames)
+        lp = layer_index(params["layers"], i)
+        if sharded is not None:
+            lp = sharded.gather(lp, "vision/layers", lead=1)
+        x = _encoder_layer(x, lp, cfg, num_frames, sharded)
     return x
 
 

@@ -164,11 +164,16 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _Int8Proj(torch.autograd.Function):
-    """y = (x @ W_i8) * scale, with dx from the saved int8 kernel."""
+    """y = (x @ W_i8) * scale, with dx from the saved int8 kernel. `reduce`
+    (a row-parallel projection on a mesh) sums the fp32 partial products
+    over the ranks before the scale; its backward is the identity."""
 
     @staticmethod
-    def forward(ctx, x, kernel, scale, fp32_out: bool):
-        y = matmul_fp32(x, kernel.to(x.dtype)) * scale.float()  # the scale on the fp32 sum
+    def forward(ctx, x, kernel, scale, fp32_out: bool, reduce=None):
+        y = matmul_fp32(x, kernel.to(x.dtype))
+        if reduce is not None:
+            y = reduce(y)
+        y = y * scale.float()  # the scale on the fp32 sum
         ctx.save_for_backward(kernel, scale)
         ctx.x_dtype = x.dtype
         return y if fp32_out else y.to(x.dtype)  # fp32 logits, or a projection: one rounding
@@ -181,17 +186,19 @@ class _Int8Proj(torch.autograd.Function):
         g = dy.reshape(-1, dy.shape[-1]).float() * scale.float()
         dx = mm_fp32_operand(g, kernel.to(ctx.x_dtype).t(), ctx.x_dtype)
         dx = dx.reshape(*dy.shape[:-1], kernel.shape[0])
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 def quantized_proj(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                   fp32_out: bool = False) -> torch.Tensor:
+                   fp32_out: bool = False, reduce=None) -> torch.Tensor:
     """y = (x @ W_i8) * scale: the product summed in fp32, scaled there, and
     rounded once to x's dtype.
 
     kernel is [in, out] and scale [out] (one layer's slice). `fp32_out`
-    (the int8 lm_head) returns the scaled fp32 sum itself."""
-    return _Int8Proj.apply(x, p["kernel"], p["scale"], fp32_out)
+    (the int8 lm_head) returns the scaled fp32 sum itself. `reduce`, an
+    all-reduce of the fp32 sum over the ranks of a row-parallel projection,
+    runs before the scale and the rounding."""
+    return _Int8Proj.apply(x, p["kernel"], p["scale"], fp32_out, reduce)
 
 
 # ------------------------------------------------------------- w8a8 (int8 x int8)

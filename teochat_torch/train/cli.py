@@ -3,21 +3,29 @@
 Accepts the reference's launch flags VERBATIM: the argv of
 scripts/train_teochat.sh / finetune_teochat.sh parses unchanged (run
 `python -m teochat_torch.train.cli` in place of `python -m
-teochat_tpu.train.cli`). `--deepspeed <json>` is accepted and ignored: one
-card holds the recipe, and sharding is ROADMAP item 16, as are
-`--distributed` (raises) and mesh axes above 1. `--device` is the port's
-own (default: the card). A run resumes by itself from the newest
-`checkpoint-*` under `--output_dir`.
+teochat_tpu.train.cli`). `--distributed` starts the process group from
+torchrun's environment (JAX's calls `jax.distributed.initialize()`), one
+rank a card, and the run trains on the `--mesh_data` / `--mesh_fsdp` /
+`--mesh_model` mesh over the ranks (by default every rank on fsdp, ZeRO-3):
+`torchrun --nproc_per_node 8 -m teochat_torch.train.cli --distributed ...`.
+`--deepspeed <json>` is accepted and ignored: the mesh replaces ZeRO.
+`--mesh_sequence` and `--mesh_pipe` above 1 are not ported yet (ROADMAP
+item 16). `--device` is the port's own (default: the card; "cpu" runs the
+ranks on gloo). A run resumes by itself from the newest `checkpoint-*`
+under `--output_dir`.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from teochat_torch.config import MeshConfig
 from teochat_torch.data.dataset import DataArguments
+from teochat_torch.parallel.mesh import init_distributed
 from teochat_torch.train.train import ModelArguments, TrainingArguments, train
-from teochat_torch.utils import profile_trace, rank0_print, unported
+from teochat_torch.utils import profile_trace, rank0_print, resolve_device
 
 
 def _bool(s: str) -> bool:
@@ -103,9 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report_to", type=str, default="tensorboard")
     p.add_argument("--cache_dir", type=str, default=None)
     p.add_argument("--deepspeed", type=str, default=None,
-                   help="accepted and ignored: one card holds the recipe")
+                   help="accepted and ignored: the mesh (--mesh_* flags) replaces ZeRO")
     _add_bool(p, "--remove_unused_columns", False)
-    # the JAX driver's mesh knobs: on one card every axis must be 1 (item 16)
+    # the mesh over the --distributed ranks (the JAX driver's knobs)
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_fsdp", type=int, default=-1)
     p.add_argument("--mesh_model", type=int, default=1)
@@ -120,7 +128,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "count); batch size must divide evenly")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training: not ported yet (ROADMAP item 16)")
+                   help="multi-process training: init torch.distributed from torchrun's "
+                        "environment (RANK, WORLD_SIZE, MASTER_ADDR/PORT, LOCAL_RANK)")
     p.add_argument("--device", type=str, default=None,
                    help="where the model loads and trains (default: the card)")
     return p
@@ -210,18 +219,23 @@ def main(argv=None, history=None):
     state. `history` is passed to `train`."""
     model_args, data_args, training_args, args = parse_args(argv)
     if args.distributed:
-        raise unported("--distributed (multi-process training)", 16)
+        device = resolve_device(args.device)
+        init_distributed(device.type)
     if args.deepspeed:
-        rank0_print(f"--deepspeed {args.deepspeed} ignored: one card holds the recipe "
-                    f"(sharding is ROADMAP item 16)")
+        rank0_print(f"--deepspeed {args.deepspeed} ignored: the mesh (--mesh_data / "
+                    f"--mesh_fsdp / --mesh_model over --distributed ranks) replaces ZeRO")
     if args.evaluation_strategy != "no":
         rank0_print(
             f"--evaluation_strategy {args.evaluation_strategy} not supported "
             f"in-loop; run teochat_torch.eval.eval on saved checkpoints"
         )
-    with profile_trace(args.profile_dir):
-        return train(model_args, data_args, training_args, history=history,
-                     device=args.device)
+    try:
+        with profile_trace(args.profile_dir):
+            return train(model_args, data_args, training_args, history=history,
+                         device=args.device)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

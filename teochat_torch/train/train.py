@@ -1,8 +1,9 @@
 """Train driver (port of teochat_tpu/train/train.py).
 
-The TEOChat fine-tuning recipe on one CUDA device (or the CPU), rebuilt from
-reference videollava/train/train.py:915-1134 + llava_trainer.py as the JAX
-driver has it: HfArgumentParser-style dataclass configs, the model loaded
+The TEOChat fine-tuning recipe on one CUDA device, on a mesh of them
+(below) or on the CPU, rebuilt from reference
+videollava/train/train.py:915-1134 + llava_trainer.py as the JAX driver has
+it: HfArgumentParser-style dataclass configs, the model loaded
 through the builder (`allow_partial`, then `initialize_vision_modules`
 attaches a missing tower or projector), the trainable set (LoRA r=128 /
 alpha=256 on every decoder projection over a frozen, optionally int8,
@@ -33,8 +34,10 @@ LoRA then goes on MPT's four projections and the loss runs the MPT decoder
 grow raises a ValueError naming it. `mpt_attn_impl` is accepted and
 ignored, as in the JAX driver.
 
-Not ported yet, and raising: a device mesh, sequence and pipeline axes
-(ROADMAP item 16).
+On more than one process the run is on the (data, fsdp, model) mesh
+(parallel/): the params as DTensors, each rank's rows, the gradients summed
+over the row ranks, sharded checkpoints. Not ported yet, and raising: the
+sequence and pipeline axes (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from teochat_torch.checkpoint.orbax_io import (
     latest_checkpoint,
@@ -64,6 +68,8 @@ from teochat_torch.data.dataset import (
 from teochat_torch.data.sampler import LengthGroupedSampler
 from teochat_torch.models.generation import embedding_table
 from teochat_torch.models.mpt import is_mpt_params
+from teochat_torch.parallel import Sharded, create_mesh, shard_params
+from teochat_torch.parallel.tensor_parallel import check_trainable_on_mesh
 from teochat_torch.train.lora import add_lora_params, lora_trainable_filter
 from teochat_torch.train.trainer import (
     MultiSteps,
@@ -73,7 +79,7 @@ from teochat_torch.train.trainer import (
     make_optimizer,
     make_train_step,
 )
-from teochat_torch.utils import rank0_print, unported
+from teochat_torch.utils import is_rank0, rank0_print, unported
 from teochat_torch.vision_tokenizer import embed_trainable_filter, initialize_vision_tokenizer
 
 
@@ -148,25 +154,39 @@ class TrainingArguments:
     mpt_attn_impl: str = "triton"
 
 
-def _refuse_mesh(mesh: MeshConfig) -> None:
-    """One device: every mesh axis must be 1 (fsdp -1 means all devices)."""
+def _make_mesh(mesh: MeshConfig, device: torch.device):
+    """The run's mesh (JAX train.py:372-420): a DeviceMesh over the process
+    group's ranks when more than one process takes part, else None. A
+    sequence or pipe axis is not ported yet; an axis above 1 on one process
+    has no ranks to split."""
     if mesh.sequence > 1:
         raise unported(f"--mesh_sequence {mesh.sequence} (ring attention)", 16)
     if mesh.pipe > 1:
         raise unported(f"--mesh_pipe {mesh.pipe} (pipeline parallelism)", 16)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1:
+        return create_mesh(mesh, device.type)
     sizes = {"data": mesh.data, "fsdp": mesh.fsdp, "model": mesh.model}
     if any(n > 1 for n in sizes.values()):
-        raise unported(f"a device mesh over more than one device ({sizes})", 16)
+        raise ValueError(f"a mesh of {sizes} needs as many processes (torch.distributed, "
+                         "--distributed under torchrun); this run has one")
+    return None
 
 
-def _batches(dataset, collator, sampler: Iterable[int], batch_size: int):
-    """Consecutive sampler chunks of `batch_size` indices, collated (one
-    process: every chunk is this process's)."""
+def _batches(dataset, collator, sampler: Iterable[int], batch_size: int,
+             process_index: int = 0, process_count: int = 1):
+    """Per-process batch stream: the sampler emits megabatches split into
+    `process_count` consecutive chunks of `batch_size`, and process p owns
+    every chunk with index = p (mod process_count), the DistributedSampler
+    slicing the reference gets from its launcher (llava_trainer.py:135-148)."""
     buf: List[int] = []
+    chunk_i = 0
     for idx in sampler:
         buf.append(idx)
         if len(buf) == batch_size:
-            yield collator([dataset[i] for i in buf])
+            if chunk_i % process_count == process_index:
+                yield collator([dataset[i] for i in buf])
+            chunk_i += 1
             buf = []
 
 
@@ -301,8 +321,15 @@ def train(
     `history`, when given, receives one dict per optimizer step: the step,
     its last micro-batch's loss, its wall seconds (synchronised), its valid
     and padded token counts, and the seconds of its periodic save if it
-    made one."""
-    _refuse_mesh(training_args.mesh)
+    made one.
+
+    With a process group of more than one rank (`--distributed`) the run is
+    on the mesh `training_args.mesh` (JAX train.py:372-420): every rank
+    builds the same params from the seed, `shard_params` places them, each
+    rank (its (data, fsdp) coordinate) takes its own chunks of the
+    sampler's megabatches, the global batch counts the row ranks, and rank
+    0 alone prints and writes the files no rank shards (checkpoints:
+    checkpoint/orbax_io.py's sharded format)."""
     np.random.seed(training_args.seed)
     set_default_conversation(model_args.version)
 
@@ -359,6 +386,13 @@ def train(
         params = {**params, "llm": add_lora_params(
             gen, params["llm"], rank=training_args.lora_r, alpha=training_args.lora_alpha)}
     params = fp32_masters(params, trainable_filter)
+    mesh = _make_mesh(training_args.mesh, device)
+    sharded = None
+    if mesh is not None:
+        check_trainable_on_mesh(params)
+        params = shard_params(params, mesh, cfg)
+        sharded = Sharded(mesh, cfg, params)
+    row_index, row_count = (0, 1) if sharded is None else (sharded.row_rank, sharded.row_count)
 
     tokens_per_frame = cfg.vision.num_patches + (cfg.mm_vision_select_feature != "patch")
     module = make_supervised_data_module(
@@ -368,7 +402,7 @@ def train(
     train_dataset, collator = module["train_dataset"], module["data_collator"]
 
     accum = max(training_args.gradient_accumulation_steps, 1)
-    global_batch = training_args.per_device_train_batch_size * accum
+    global_batch = training_args.per_device_train_batch_size * row_count * accum
     steps_per_epoch = max(len(train_dataset) // global_batch, 1)
     total_steps = (
         max_steps_override
@@ -404,12 +438,12 @@ def train(
         state = TrainState(params, opt_state, start_step)
     del params
     train_step = make_train_step(cfg, optimizer, trainable_filter=trainable_filter,
-                                 remat=training_args.gradient_checkpointing)
-    writer = _writer(training_args)
+                                 remat=training_args.gradient_checkpointing, sharded=sharded)
+    writer = _writer(training_args) if is_rank0() else None
 
     sampler = LengthGroupedSampler(
         training_args.per_device_train_batch_size,
-        world_size=1,
+        world_size=row_count,
         lengths=train_dataset.modality_lengths,
         generator=np.random.default_rng(training_args.seed),
         group_by_modality=training_args.group_by_modality_length,
@@ -426,7 +460,8 @@ def train(
     t0 = t_step = time.perf_counter()
     for _ in range(training_args.num_train_epochs):
         batch_stream = _batches(train_dataset, collator, sampler,
-                                training_args.per_device_train_batch_size)
+                                training_args.per_device_train_batch_size,
+                                process_index=row_index, process_count=row_count)
         if training_args.dataloader_num_workers > 0:
             batch_stream = _prefetch(batch_stream, depth=training_args.dataloader_num_workers)
         for plan, pixels in batch_stream:
@@ -458,7 +493,10 @@ def train(
                 t_save = time.perf_counter()
                 save_checkpoint(training_args.output_dir, state.params, cfg,
                                 opt_state=state.opt_state, step=step)
-                _prune_checkpoints(training_args.output_dir, training_args.save_total_limit)
+                if is_rank0():
+                    _prune_checkpoints(training_args.output_dir, training_args.save_total_limit)
+                if sharded is not None:
+                    dist.barrier()
                 if history is not None:  # the save is not the next step's time
                     t_step = time.perf_counter()
                     history[-1]["save_seconds"] = t_step - t_save

@@ -33,7 +33,8 @@ import torch
 from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.models import teochat as teochat_mod
-from teochat_torch.utils import tree_leaves_with_path
+from teochat_torch.parallel.tensor_parallel import local_tensor
+from teochat_torch.utils import tree_leaves_with_path, tree_map
 
 Schedule = Callable[[int], float]
 
@@ -139,9 +140,15 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             state: Dict) -> None:
+             state: Dict, sq_norm=None) -> None:
+        """One update in place. `sq_norm(grads)`, where given, is the squared
+        global norm the clip reads (on a mesh: the shards' sums, each leaf
+        counted once, summed over the ranks)."""
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+            if sq_norm is None:
+                norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+            else:
+                norm = torch.sqrt(sq_norm(grads))
             keep = norm < self.max_grad_norm
             grads = {p: torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_grad_norm)
                      for p, g in grads.items()}
@@ -177,13 +184,13 @@ class MultiSteps:
                 "acc": {p: torch.zeros_like(x) for p, x in leaves}}
 
     @torch.no_grad()
-    def step(self, params, grads, state) -> None:
+    def step(self, params, grads, state, sq_norm=None) -> None:
         n = state["mini_step"]
         for path, g in grads.items():
             acc = state["acc"][path]
             acc.add_((g - acc) / (n + 1))
         if n == self.every_k - 1:
-            self.inner.step(params, state["acc"], state["inner"])
+            self.inner.step(params, state["acc"], state["inner"], sq_norm)
             for acc in state["acc"].values():
                 acc.zero_()
         state["mini_step"] = (n + 1) % self.every_k
@@ -241,30 +248,47 @@ def fp32_masters(params: Dict, trainable_filter) -> Dict:
 
 
 def init_train_state(params: Dict, optimizer, trainable_filter=None) -> TrainState:
-    """Optimizer state over the trainable subtree only (all leaves without a filter)."""
+    """Optimizer state over the trainable subtree only (all leaves without a
+    filter). On a mesh (DTensor leaves) the moments are plain tensors the
+    shape of each leaf's local shard."""
     trainable = params if trainable_filter is None else partition_params(
         params, trainable_filter)[0]
+    trainable = tree_map(local_tensor, trainable)
     return TrainState(params=params, opt_state=optimizer.init(trainable), step=0)
 
 
 def make_train_step(cfg: TEOChatConfig, optimizer, *, trainable_filter=None,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, sharded=None) -> Callable:
     """train_step(state, plan, pixel_values) -> (state, loss).
 
     Gradients flow only to the leaves `trainable_filter(path)` accepts; the
     optimizer updates them in place. `remat` recomputes decoder layers in
-    the backward (HF gradient checkpointing)."""
+    the backward (HF gradient checkpointing).
+
+    With `sharded` (parallel/tensor_parallel.py::Sharded) the state's params
+    are DTensors and `plan` / `pixel_values` this rank's rows: the forward
+    runs on the local shards, each gradient is summed over the ranks that
+    hold other rows, the clip reads the global norm, AdamW updates the
+    local shards and their moments in place, and the loss returned is the
+    global batch's (the same on every rank)."""
 
     def train_step(state: TrainState, plan: fusion_mod.FusionPlan,
                    pixel_values: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
-        leaves = _trainable_leaves(state.params, trainable_filter)
+        params = state.params if sharded is None else sharded.local(state.params)
+        leaves = _trainable_leaves(params, trainable_filter)
         for x in leaves.values():
             x.requires_grad_(True)
-        loss = teochat_mod.forward_train(state.params, cfg, plan, pixel_values, remat=remat)
+        loss = teochat_mod.forward_train(params, cfg, plan, pixel_values, remat=remat,
+                                         sharded=sharded)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {p: torch.zeros_like(x) if g is None else g
                  for (p, x), g in zip(leaves.items(), grads)}
-        optimizer.step(leaves, grads, state.opt_state)
+        if sharded is None:
+            optimizer.step(leaves, grads, state.opt_state)
+        else:
+            optimizer.step(leaves, sharded.reduce_grads(grads), state.opt_state,
+                           sq_norm=sharded.global_sq_norm)
+            loss = sharded.sum_rows(loss)
         return TrainState(state.params, state.opt_state, state.step + 1), loss.detach()
 
     return train_step

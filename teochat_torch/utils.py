@@ -5,8 +5,8 @@ The port's own copy of what it needs of teochat_tpu/utils.py: `order_pick_k`
 and `profile_trace` (a `torch.profiler` trace in place of JAX's).
 `resolve_device` (the default device of its entry points), `unported`
 (the error of what is not ported yet),
-`tree_leaves_with_path` (a params tree's leaves by path) and `tree_map`
-are the port's own.
+`tree_leaves_with_path` (a params tree's leaves by path), `tree_map` and
+`tree_map_with_path` are the port's own.
 """
 
 from __future__ import annotations
@@ -74,12 +74,30 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """A params tree with `fn(path, leaf)` applied to each leaf; dicts and
+    lists are the tree's nodes, anything else (a tuple too) a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def is_rank0() -> bool:
+    """Whether this process is rank 0 of an initialized torch.distributed
+    group, or the one process of a run without one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def rank0_print(*args, **kwargs) -> None:
     """Print only on rank 0 (reference train.py:43-45): the rank of an
     initialized torch.distributed group, else this one process."""
-    import torch.distributed as dist
-
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+    if is_rank0():
         print(*args, **kwargs)
 
 

@@ -2049,3 +2049,89 @@ def test_mpt_decode_graph_is_bit_equal_to_the_eager_loop(mpt_decoder, b):
         for a, w in zip(got, out[0]):
             assert torch.equal(a, w)
     gen_mod.clear_decode_graphs()
+
+
+# ------------------------------------------------ the tower trained on the card
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_tower_trainable_route_matches_plain(gen, b):
+    """The tower's attention under grad (models/vit.py::attend) at its shape,
+    D 64, H 16, S 257 non-causal: the trainable flash path (K4a, K4b, K4c;
+    K5 not launched) against plain_attention in fp32, the output and all
+    three gradients; without grad the same call takes K5."""
+    from teochat_torch.models.vit import attend
+    from teochat_torch.ops.attention import plain_attention
+
+    q, k, v, do = _trainable_case(gen, b, 257, 16, 16, 64)
+    before, k5 = _counts(), vit_mod.LAUNCHES.count
+    got = _grads(attend, q, k, v, do)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before) and vit_mod.LAUNCHES.count == k5
+    want = _grads(lambda q, k, v: plain_attention(q.float(), k.float(), v.float()), q, k, v, do)
+    assert (got[0] - want[0]).abs().max().item() <= TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item(), name
+    with torch.no_grad():
+        o = attend(q, k, v)
+    torch.cuda.synchronize()
+    assert vit_mod.LAUNCHES.count == k5 + 1 and _counts() == tuple(c + 1 for c in before)
+    assert (o.float() - want[0]).abs().max().item() <= TOL
+
+
+def _tiny_card_variant():
+    """A tiny TEOChat the flash kernels take (head_dim 64 in the tower and
+    the decoder), fp32 numpy weights from a seed, full fine-tuning in bf16."""
+    from teochat_torch.checkpoint.bridge import to_numpy
+    from teochat_torch.config import LlamaConfig, ProjectorConfig, VisionConfig
+
+    cfg = TEOChatConfig(
+        vision=VisionConfig(image_size=28, patch_size=14, hidden_size=128,
+                            intermediate_size=256, num_layers=3, num_heads=2),
+        projector=ProjectorConfig(mm_hidden_size=128, hidden_size=128),
+        llm=LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,
+                        num_heads=2, num_kv_heads=2))
+    params = bridge.init_teochat(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32,
+                                 quant=None)
+    opt = dict(learning_rate=1e-3, projector_lr=2e-3, lr_scheduler_type="constant",
+               max_grad_norm=0.05, total_steps=10)
+    return dict(cfg=cfg.to_json(), filter="full", dtype="bfloat16", opt=opt,
+                params=to_numpy(params))
+
+
+def test_one_rank_nccl_mesh_step_equals_the_meshless_step(gen, tmp_path):
+    """A (1, 1, 1) mesh under NCCL runs every mesh code path at degree 1
+    (the DTensor leaves, the gathers, the row sums, the global norm): two
+    steps of a tiny model with its tower training equal the meshless steps
+    on the card, losses to 1e-6 and every leaf bitwise."""
+    import torch.distributed as dist
+
+    from teochat_torch.config import MeshConfig
+    from teochat_torch.parallel import create_mesh, init_distributed
+    from tests import _torch_dist
+
+    variant = _tiny_card_variant()
+    rs = np.random.RandomState(0)
+    batches = []
+    for _ in range(2):
+        rows = []
+        for n in (9, 6):
+            ids = [1] + rs.randint(3, 128, n).tolist()
+            ids[2] = -200
+            rows.append({"ids": ids, "labels": [-100] * 4 + ids[4:],
+                         "frames": rs.randn(1, 3, 28, 28).astype(np.float32)})
+        batches.append(rows)
+    want, want_losses, _ = _torch_dist.run_steps(variant, batches, device="cuda")
+    init_distributed("cuda", device=torch.device("cuda", 0),
+                     init_method=f"file://{tmp_path / 'init'}", rank=0, world_size=1)
+    try:
+        mesh = create_mesh(MeshConfig(1, 1, 1), "cuda")
+        state, losses, _ = _torch_dist.run_steps(variant, batches, mesh=mesh, device="cuda")
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-6)
+        cfg = TEOChatConfig.from_json(variant["cfg"])
+        got = _torch_dist.full_tree(state.params, cfg)
+        for path, x in _torch_dist.tree_leaves_with_path(want.params):
+            assert np.array_equal(got[path], x.detach().float().cpu().numpy()), path
+    finally:
+        dist.destroy_process_group()

@@ -114,8 +114,13 @@ def test_parser_gives_the_jax_cli_dataclasses(name, monkeypatch, capsys):
 
 
 def test_cli_refuses_distributed_and_ignores_deepspeed(monkeypatch, capsys):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        torch_cli.main(["--model_name_or_path", "x", "--distributed"])
+    """--distributed is ported (test_cli_distributed_trains_on_two_ranks):
+    outside torchrun's environment it refuses, naming what is missing,
+    before anything loads. --deepspeed is accepted and ignored."""
+    for name in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        torch_cli.main(["--model_name_or_path", "x", "--distributed", "--device", "cpu"])
     seen = []
     monkeypatch.setattr(torch_cli, "train", lambda *a, **k: seen.append((a, k)) or "state")
     assert torch_cli.main(["--model_name_or_path", "x", "--deepspeed", "z.json",
@@ -568,3 +573,73 @@ def test_full_fine_tuning_refuses_an_int8_backbone(tmp_path, model_kw):
                               dataset=[_raw_example(2, s) for s in range(2)],
                               max_steps_override=1)
     assert not list(tmp_path.iterdir())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
+    """`python -m teochat_torch.train.cli --distributed` on 2 gloo ranks under
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR /
+    MASTER_PORT on 127.0.0.1), the default mesh (every rank on fsdp),
+    accumulation 2: each rank takes its own chunks of the sampler's
+    megabatches, and the losses rank 0 prints equal a one-process run of
+    the global batch (2 rows a rank against 4 on one process) to the
+    printed 4 decimals; the sharded
+    checkpoints are pruned and the final one loads on one process, its
+    leaves within Adam's steps of the one process's."""
+    from teochat_torch.conversation import conv_templates
+
+    lm = str(tmp_path / "lm")
+    shutil.copytree(parts["lm"], lm)
+    v1 = conv_templates["v1"]
+    _word_tokenizer(lm, [v1.system, *v1.roles, QUESTION, "Image 1 2 3 in chronological order",
+                         "airport dam factory"])
+    data = _dataset_dir(tmp_path / "data", 8)
+
+    def argv(out, batch):
+        return (f"--bits 8 --lora_enable True --lora_r 4 --lora_alpha 8 --model_name_or_path {lm} "
+                f"--version v1 --data_name {data} --data_split train "
+                f"--data_cache_dir {tmp_path / 'cache'} --image_tower {parts['tower']} "
+                f"--mm_projector_type mlp2x_gelu --pretrain_mm_mlp_adapter {parts['adapter']} "
+                f"--mm_use_im_start_end False --mm_use_im_patch_token False --bf16 False "
+                f"--output_dir {out} --num_train_epochs 2 --per_device_train_batch_size {batch} "
+                f"--gradient_accumulation_steps 2 "
+                f"--save_strategy steps --save_steps 1 --save_total_limit 1 --learning_rate 1e-3 "
+                f"--lr_scheduler_type constant --logging_steps 1 --gradient_checkpointing True "
+                f"--report_to none --device cpu --max_steps 2").split()
+
+    env = {**os.environ, "HF_DATASETS_OFFLINE": "1", "HF_HUB_OFFLINE": "1", "OMP_NUM_THREADS": "1",
+           "HF_HOME": str(tmp_path / "hf"), "PYTHONPATH": REPO, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2"}
+    out = str(tmp_path / "out")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "teochat_torch.train.cli", *argv(out, 2), "--distributed"],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    outputs = [p.communicate(timeout=600) for p in procs]
+    for p, (_, err) in zip(procs, outputs):
+        assert p.returncode == 0, err[-3000:]
+    losses = re.findall(r"step \d+/2 loss ([0-9.]+)", outputs[0][0])
+    assert len(losses) == 2 and not re.findall(r"step \d+/2 loss", outputs[1][0])  # rank 0 prints
+    assert sorted(os.listdir(out)) == ["checkpoint-2"]
+    assert os.path.exists(os.path.join(out, "checkpoint-2", "params", "tree.json"))
+
+    one = str(tmp_path / "one")
+    history = []
+    torch_cli.main(argv(one, 4), history=history)
+    assert [f"{h['loss']:.4f}" for h in history] == losses
+    got, _, _ = orbax_io.load_checkpoint(os.path.join(out, "checkpoint-2"))
+    want, _, _ = orbax_io.load_checkpoint(os.path.join(one, "checkpoint-2"))
+    got, want = dict(tree_leaves_with_path(got)), dict(tree_leaves_with_path(want))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        if w.dtype == torch.int8:
+            assert torch.equal(got[path], w), path
+        else:  # two Adam steps of lr 1e-3 each way at most, summed in another order
+            assert (got[path].float() - w.float()).abs().max() <= 4e-3, path
