@@ -29,8 +29,12 @@ another checkout, so two trees can be timed in one session on one card.
 
 - two-ranks: two processes of this script on the one card, gloo and then
   NCCL: which backend runs the mesh's collectives (all-gather,
-  reduce-scatter, all-reduce, broadcast) on CUDA tensors; each rank's exit
-  and last error (phase 24 of the smoke puts its two ranks on gloo).
+  reduce-scatter, all-reduce, broadcast) on CUDA tensors; then, each in a
+  pair of its own (a crash ends only its pair), the point-to-point
+  operations the ring and the pipeline would take on CUDA tensors
+  (`send` / `recv`, `batch_isend_irecv`, `all_to_all_single`), each rank's
+  exit, whether it received its neighbour's values, and its last error
+  (phases 24 and 25 of the smoke put their two ranks on gloo).
 - decode: the main bench's decode set-up (`teochat_torch.bench.main`: the
   2-frame prompt of 640 fused tokens on stand-in embeddings, a random
   LLaMA-7B decoder from seed 0, greedy, never stopping) at each batch size
@@ -1844,8 +1848,12 @@ def cmd_int8_proj(smoke, args):
                   f"step (32 layers, 2 micro-steps)", flush=True)
 
 
-def _two_ranks_child(backend: str, init: str, rank: int) -> None:
-    """One of two ranks on cuda:0: the collectives the mesh runs, on CUDA tensors."""
+TWO_RANK_OPS = ("collectives", "send_recv", "batch_isend_irecv", "all_to_all_single")
+
+
+def _two_ranks_child(backend: str, init: str, rank: int, op: str) -> None:
+    """One of two ranks on cuda:0: `op` on CUDA tensors (the mesh's
+    collectives, or one point-to-point form), its values checked."""
     import datetime
 
     import torch.distributed as dist
@@ -1854,46 +1862,76 @@ def _two_ranks_child(backend: str, init: str, rank: int) -> None:
     dist.init_process_group(backend, init_method=f"file://{init}", rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=60))
     x = torch.full((4,), float(rank + 1), device="cuda")
-    done = []
-    for name, fn in (
-            ("all_gather", lambda: dist.all_gather_into_tensor(torch.empty(8, device="cuda"), x)),
-            ("reduce_scatter", lambda: dist.reduce_scatter_tensor(torch.empty(2, device="cuda"), x)),
-            ("all_reduce", lambda: dist.all_reduce(x.clone())),
-            ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
-        fn()
+    other = 2 - rank  # the neighbour's value
+    if op == "collectives":
+        done = []
+        for name, fn in (
+                ("all_gather", lambda: dist.all_gather_into_tensor(torch.empty(8, device="cuda"),
+                                                                   x)),
+                ("reduce_scatter", lambda: dist.reduce_scatter_tensor(
+                    torch.empty(2, device="cuda"), x)),
+                ("all_reduce", lambda: dist.all_reduce(x.clone())),
+                ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
+            fn()
+            torch.cuda.synchronize()
+            done.append(name)
+        print(f"rank {rank} {backend}: {', '.join(done)} ran", flush=True)
+    else:
+        got = torch.zeros(4, device="cuda")
+        if op == "send_recv":  # rank 0 sends first, rank 1 receives first
+            if rank == 0:
+                dist.send(x, 1)
+                dist.recv(got, 1)
+            else:
+                dist.recv(got, 0)
+                dist.send(x, 0)
+        elif op == "batch_isend_irecv":
+            peer = 1 - rank
+            for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                                dist.P2POp(dist.irecv, got, peer)]):
+                work.wait()
+        else:  # a ring shift as an all-to-all: everything to the other rank
+            sizes = [0, 4] if rank == 0 else [4, 0]
+            dist.all_to_all_single(got, x, output_split_sizes=sizes, input_split_sizes=sizes)
         torch.cuda.synchronize()
-        done.append(name)
-    print(f"rank {rank} {backend}: {', '.join(done)} ran", flush=True)
+        right = bool((got == other).all())
+        print(f"rank {rank} {backend} {op}: ran, received {got.tolist()} "
+              f"({'right' if right else 'WRONG'})", flush=True)
     dist.destroy_process_group()
 
 
 def cmd_two_ranks(smoke, args):
     """Two processes on the one card, gloo then NCCL: which backend runs the
-    collectives of the mesh (parallel/tensor_parallel.py) on CUDA tensors.
-    Each backend's two ranks get 120 s; a failure prints its last error."""
+    collectives of the mesh (parallel/tensor_parallel.py) and which
+    point-to-point forms (parallel/ring_attention.py::_rotate,
+    parallel/pipeline.py) on CUDA tensors. Each (backend, operation) runs in
+    its own pair of processes with 120 s; a failure prints its last error."""
     import subprocess
     import tempfile
 
     for backend in ("gloo", "nccl"):
-        init = tempfile.mktemp(prefix="two_ranks_")
-        procs = [subprocess.Popen(
-            [sys.executable, __file__, "two-ranks", "--child", backend, "--init", init,
-             "--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(2)]
-        for r, p in enumerate(procs):
-            try:
-                out, err = p.communicate(timeout=120)
-                tail = err.strip().splitlines()[-1:] if p.returncode else []
-                print(f"[two-ranks] {backend} rank {r}: exit {p.returncode} {out.strip()} "
-                      f"{' '.join(tail)}", flush=True)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                print(f"[two-ranks] {backend} rank {r}: no answer in 120 s", flush=True)
+        for op in TWO_RANK_OPS:
+            init = tempfile.mktemp(prefix="two_ranks_")
+            procs = [subprocess.Popen(
+                [sys.executable, __file__, "two-ranks", "--child", backend, "--init", init,
+                 "--rank", str(r), "--op", op], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for r in range(2)]
+            for r, p in enumerate(procs):
+                try:
+                    out, err = p.communicate(timeout=120)
+                    tail = err.strip().splitlines()[-1:] if p.returncode else []
+                    print(f"[two-ranks] {backend} {op} rank {r}: exit {p.returncode} "
+                          f"{out.strip()} {' '.join(tail)}", flush=True)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.communicate()
+                    print(f"[two-ranks] {backend} {op} rank {r}: no answer in 120 s", flush=True)
+            Path(init).unlink(missing_ok=True)
 
 
 def main():
     if sys.argv[1:3] == ["two-ranks", "--child"]:  # one rank of `two-ranks`
-        _two_ranks_child(sys.argv[3], sys.argv[5], int(sys.argv[7]))
+        _two_ranks_child(sys.argv[3], sys.argv[5], int(sys.argv[7]), sys.argv[9])
         return
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)

@@ -37,9 +37,10 @@ them. Phases, each printing its lines before the last:
 6. the one-shot ViT attention (K5) against its plain version at the tower's
    shape for a 2-frame request and a 32-frame encode, at a ragged 100, at a
    336-pixel tower's 577 and at the gate's 1024;
-7. the int4 path at TEOChat-7B width and depth (ViT-L/14 through K5,
-   mlp2x_gelu, LLaMA-7B with fused packed-int4 projections and an int4
-   lm_head, bf16 activations, random weights from a seed): three requests
+7. the int4 path at TEOChat-7B width (ViT-L/14 through K5, mlp2x_gelu,
+   LLaMA-7B's width with fused packed-int4 projections and an int4 lm_head,
+   its depth cut to INT4_LAYERS of 32 to pay for phase 25; bf16
+   activations, random weights from a seed): three requests
    through `run_inference_single` and one batched generate of four ragged
    rows; the launch counts of K1, K2, K3b, K3c and K5 must rise; then the
    decode steps as a replayed CUDA graph against the eager loop (the
@@ -308,6 +309,23 @@ them. Phases, each printing its lines before the last:
     the tower's attention on K4a-c non-causal (launches counted exactly, K5
     none), every tower leaf the loss reaches moved, the peak; a tiny tower's
     gradients on the card against the CPU's (TOWER_TRAIN_GRAD_REL).
+25. context and pipeline parallelism, after phase 24 (`phase_context_pipe`:
+    two ranks of this script, `--ranks25 DIR`, phase 24's launcher and
+    config helpers): (a) the point-to-point transport (gloo's send / recv
+    abort on CUDA tensors, so `exchange` stages through pinned host
+    buffers, counted); (b) the ring alone at LLaMA-7B's attention shape
+    (P25_RING: B 2, S 4,096 split 2 x 2,048, H 32, D 128, causal) on K4a-c
+    against the plain twin in fp32 (phase 17's bounds), its launches (3 of
+    each kernel over the ranks), ms a step beside the rotations' share and
+    one rank's K4a-c over the whole S; (c) the recipe's trainable set on
+    mesh (1, 1, 1, sequence 2), batch 2 x 2,048, (d) on (1, 1, 1, 1, pipe 2),
+    batch 4 x 1,024 at 2 and 4 microbatches, (e) LLaVA-MPT-7B's width cut to
+    P25_MPT_LAYERS layers on pipe 2, one step, K4a-c with the bias only;
+    each against one rank's run on the same batches (phase 24's bounds:
+    losses, the first step's gradients, the leaves after), launches exact,
+    s a step, the collectives' and sends' share, GiB a rank; (f) the pipe
+    mesh's sharded save loaded on one process bitwise, its config without
+    the run's axes.
 
 Every path runs at full width and depth. Beside each kernel's time the run
 takes the time of its plain version, of the one PyTorch call that computes
@@ -322,9 +340,10 @@ The line before the last is a JSON object with each of the twenty-five
 kernel rows' launches, error, times and bound (K1 twice: bias-free, its
 launches the int4 path's, and with MPT's bias, its launches the MPT
 request's; K4a, K4b and K4c twice: bias-free, their launches phase 16's
-`cli.main`, phase 24's ranks, its one-rank reference and resume, and its
-tower's `train()`, and with MPT's bias, their launches phase 23's
-`train()`; K5's add phase 24's ranks' frozen tower; K2
+`cli.main`, phase 24's ranks, its one-rank reference and resume, its
+tower's `train()` and phase 25's ranks' sequence and pipe runs, and with
+MPT's bias, their launches phase 23's `train()` and phase 25's MPT pipe
+run; K5's add phase 24's ranks' frozen tower; K2
 and K2m twice: on a bf16
 and on an e4m3 cache; the e4m3 rows' launches are the int4 path's e4m3
 generate's and the e4m3 engine's), the e4m3 generate's numbers under
@@ -332,7 +351,8 @@ generate's and the e4m3 engine's), the e4m3 generate's numbers under
 numbers under "engine", the batched eval's and preprocessing's under
 "eval", multi-LoRA's under "multi_lora", phase 21's under
 "vision_extras", phases 22 and 23's under "mpt" (phase 23's under its
-"train"), phase 24's under "mesh"; K3c has two: its wrapper runs the M > 8 kernel at prefill
+"train"), phases 24 and 25's under "mesh" (25's under its
+"context_pipe"); K3c has two: its wrapper runs the M > 8 kernel at prefill
 and the split-K one at decode; K2m's launches are the chat server's five
 turns, the spec turn's verify blocks among them); the last line is
 {"ok": true, "device": {...}}.
@@ -394,6 +414,8 @@ from teochat_torch.train.lora import (
 from teochat_torch.train.trainer import fp32_masters, partition_params, tree_leaves_with_path
 
 SEED = 0
+# the int4 path's depth (phase 7), cut from 32 to pay for phase 25's time
+INT4_LAYERS = 16
 # |kernel (bf16 out) - plain (fp32 on the same bf16 inputs)|: outputs are
 # averages of N(0, 1) values, |o| < 4, so bf16 output rounding alone is up to
 # 2^-8 * 4 = 1.6e-2; P is rounded to bf16 before PV, as on the TPU
@@ -1651,7 +1673,8 @@ def fp8_batch(tokenizer, processor, n):
 
 
 def phase_fp8_generate(model, tokenizer, processor, tag, batches=(1, 32)):
-    """generate over an e4m3 KV cache at 7B width and depth, at each batch
+    """generate over an e4m3 KV cache at 7B width (the int8 model's depth,
+    or the int4 path's INT4_LAYERS), at each batch
     of `batches` (rows of 2, 1 and 0 frames), 32 greedy tokens: the graph's
     tokens equal the eager loop's, the first token the bf16 cache's (the
     prefill attends the fresh K/V in bf16), every token of the first three
@@ -2307,12 +2330,15 @@ def phase_k3a_path(cfg, gen, tokenizer, processor):
 
 
 def phase_int4_path(gen, tokenizer):
-    """The int4 inference path at full width and depth, then its logits check."""
+    """The int4 inference path at full width, INT4_LAYERS deep, then its
+    logits check."""
     cfg = TEOChatConfig()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=INT4_LAYERS))
     torch.cuda.reset_peak_memory_stats()
     params, init_s = wall(lambda: init_teochat(cfg, gen, "cuda", torch.bfloat16, quant="int4"))
-    log(f"[int4] init TEOChat-7B int4 (fused q|k|v and gate|up, int4 lm_head; random, seed "
-        f"{SEED}): {init_s:.2f} s, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+    log(f"[int4] init TEOChat-7B's width int4, {INT4_LAYERS} of 32 layers (fused q|k|v and "
+        f"gate|up, int4 lm_head; random, seed {SEED}): {init_s:.2f} s, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     model = teochat_mod.TEOChat(cfg, params, tokenizer=tokenizer)
     processor = FrameProcessor(cfg.vision.image_size, SEED)
@@ -5117,15 +5143,15 @@ def p24_config():
     return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=P24_LAYERS))
 
 
-def p24_batches(cfg, n):
-    """n global batches of P24_ROWS rows of P24_SEQ fused tokens (one frame
-    a row, labels on the text's second half), the same on every process."""
+def p24_batches(cfg, n, rows_n=P24_ROWS, seq=P24_SEQ):
+    """n global batches of `rows_n` rows of `seq` fused tokens (one frame a
+    row, labels on the text's second half), the same on every process."""
     out = []
-    text = P24_SEQ - cfg.vision.num_patches + 1
+    text = seq - cfg.vision.num_patches + 1
     for i in range(n):
         rs = np.random.RandomState(SEED + 24 + i)
         rows = []
-        for _ in range(P24_ROWS):
+        for _ in range(rows_n):
             ids = [1] + rs.randint(3, cfg.llm.vocab_size, text - 1).tolist()
             ids[1] = IMAGE_TOKEN_INDEX
             rows.append({"ids": ids, "labels": [-100] * (text // 2) + ids[text // 2:],
@@ -5197,17 +5223,20 @@ def _trained_leaves(params):
 
 
 class _CommTimer:
-    """Seconds the card waits on the mesh's collectives (each one bracketed
-    by synchronizes), by wrapping parallel/tensor_parallel.py's three."""
+    """Seconds the card waits on the mesh's collectives and point-to-point
+    traffic (each call bracketed by synchronizes), by wrapping
+    parallel/tensor_parallel.py's helpers."""
+
+    NAMES = (("gather", "_all_gather"), ("scatter", "_reduce_scatter"), ("reduce", "_all_reduce"),
+             ("p2p", "exchange"), ("broadcast", "_broadcast"))
 
     def __init__(self):
         from teochat_torch.parallel import tensor_parallel as tp
 
-        self.tp, self.seconds, self.saved = tp, {"gather": 0.0, "scatter": 0.0, "reduce": 0.0}, {}
+        self.tp, self.seconds, self.saved = tp, {key: 0.0 for key, _ in self.NAMES}, {}
 
     def __enter__(self):
-        for key, name in (("gather", "_all_gather"), ("scatter", "_reduce_scatter"),
-                          ("reduce", "_all_reduce")):
+        for key, name in self.NAMES:
             fn = getattr(self.tp, name)
             self.saved[name] = fn
 
@@ -5315,6 +5344,27 @@ def rank_main(out_dir):
     dist.destroy_process_group()
 
 
+def run_ranks(flag, out_dir, what, timeout=600):
+    """This script's two ranks (`chip_smoke.py FLAG OUT_DIR`, RANK and
+    WORLD_SIZE in their environment) on the one card; their seconds. Fails
+    unless both exit 0; a rank still running at `timeout` is killed."""
+    import subprocess
+
+    env = {**os.environ, "WORLD_SIZE": "2"}
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, out_dir],
+                              env={**env, "RANK": str(r)}) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0, 0], f"{what} ranks exited {codes}")
+    return time.perf_counter() - t
+
+
 def _rel(got, want):
     return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
 
@@ -5329,8 +5379,6 @@ def phase_mesh(gen):
     NCCL refuses two ranks on one device, `chip_probe.py two-ranks`), the
     recipe's shape on meshes (1, 2, 1) and (1, 1, 2) against one rank,
     a sharded save, prune, a one-process load and a resume."""
-    import subprocess
-
     from teochat_torch.checkpoint import orbax_io
     from teochat_torch.train import trainer as trainer_mod
 
@@ -5356,13 +5404,7 @@ def phase_mesh(gen):
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir="results")
     try:
-        env = {**os.environ, "WORLD_SIZE": "2"}
-        t_ranks = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ranks", out_dir],
-                                  env={**env, "RANK": str(r)}) for r in range(2)]
-        codes = [p.wait(timeout=600) for p in procs]
-        ranks_s = time.perf_counter() - t_ranks
-        check(codes == [0, 0], f"phase 24 ranks exited {codes}")
+        ranks_s = run_ranks("--ranks", out_dir, "phase 24")
         with open(os.path.join(out_dir, "ranks.json")) as f:
             summary = json.load(f)
         log(f"[mesh] backend {summary['backend']} over CUDA tensors, {summary['world']} ranks on "
@@ -5565,6 +5607,369 @@ def phase_tower_train(gen):
                       "phase_s": time.perf_counter() - t0}
 
 
+# phase 25: the ring and the pipeline on two ranks of the one card
+P25_RING = (2, 4096, 32, 128)  # B, S, H, D: LLaMA-7B's attention, S split 2 x 2,048
+P25_SEQ_ROWS, P25_SEQ = 2, 2048  # (c): mesh (1, 1, 1, sequence 2)
+P25_PIPE_ROWS, P25_PIPE_SEQ = 4, 1024  # (d): mesh (1, 1, 1, 1, pipe 2)
+P25_MICROBATCHES = (2, 4)
+P25_MPT_LAYERS = 2  # (e): LLaVA-MPT-7B's width, 2 of 32 layers, one a stage
+P25_MPT_ROWS = 2
+P25_STEPS = 2
+# the runs the ranks make: (tag, mesh (data, fsdp, model, sequence, pipe),
+# microbatches, steps)
+P25_RUNS = (("seq", (1, 1, 1, 2, 1), None, P25_STEPS),
+            ("pipe_m2", (1, 1, 1, 1, 2), 2, P25_STEPS),
+            ("pipe_m4", (1, 1, 1, 1, 2), 4, P25_STEPS),
+            ("mpt", (1, 1, 1, 1, 2), 2, 1))
+
+
+def p25_config(tag):
+    if tag == "mpt":
+        cfg = mpt_teochat_config()
+        return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=P25_MPT_LAYERS))
+    return p24_config()
+
+
+def p25_batches(cfg, tag, n):
+    if tag == "seq":
+        return p24_batches(cfg, n, P25_SEQ_ROWS, P25_SEQ)
+    if tag == "mpt":
+        return p24_batches(cfg, n, P25_MPT_ROWS, P25_PIPE_SEQ)
+    return p24_batches(cfg, n, P25_PIPE_ROWS, P25_PIPE_SEQ)
+
+
+def _k4_all():
+    return {**_k4_counts(), **{f"{k}_bias": c.count for k, c in K4_BIAS_COUNTERS.items()}}
+
+
+def _ring_alone(rank, group, n=2):
+    """(b): the ring at LLaMA-7B's attention shape on the two ranks, on
+    K4a-c and through the plain twin (fp32) on the same bf16 inputs: this
+    rank's errors, launches, times and host-staged bytes."""
+    from teochat_torch.parallel import ring_attention as ring_mod
+    from teochat_torch.parallel import tensor_parallel as tp
+
+    import torch.distributed as dist
+
+    b, s, h, d = P25_RING
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    full = [_randn((b, s, h, d), gen) for _ in range(4)]  # q, k, v, dO: the same on both ranks
+    own = [x.chunk(n, 1)[rank].contiguous() for x in full]
+
+    def run(impl, dtype=torch.bfloat16, rows=slice(None), heads=slice(None)):
+        q, k, v = (x[rows, :, heads].detach().to(dtype).requires_grad_() for x in own[:3])
+        o = ring_mod.ring_attention(q, k, v, group=group, n=n, rank=rank, impl=impl)
+        o.backward(own[3][rows, :, heads].to(o.dtype))
+        return [x.detach().float() for x in (o, q.grad, k.grad, v.grad)]
+
+    before, staged = _k4_counts(), dict(tp.HOST_STAGED)
+    got = run("auto")
+    sync()
+    launches = {k: v - before[k] for k, v in _k4_counts().items()}
+    staged = {k: v - staged[k] for k, v in tp.HOST_STAGED.items()}
+    # the plain twin a row and 8 heads at a time (rows and heads attend
+    # apart): its fp32 scores a pair are 32x smaller than the whole call's
+    parts = [[run("plain", torch.float32, slice(r, r + 1), slice(c, c + 8))
+              for c in range(0, h, 8)] for r in range(b)]
+    want = [torch.cat([torch.cat([p[i] for p in row], 2) for row in parts], 0)
+            for i in range(4)]
+    del parts
+    # errors over the whole sequence: each rank's sums of squares and maxima, combined
+    parts = []
+    for g, w in zip(got, want):
+        parts += [(g - w).pow(2).sum(), w.pow(2).sum()]
+    sums = torch.stack(parts)
+    dist.all_reduce(sums, group=group)
+    maxima = torch.stack([t for g, w in zip(got, want) for t in ((g - w).abs().max(),
+                                                                  w.abs().max())])
+    dist.all_reduce(maxima, op=dist.ReduceOp.MAX, group=group)
+    del want
+    # the ring a step (forward and backward) and the rotations' share of it
+    rot = {"s": 0.0}
+    inner = ring_mod._rotate
+
+    def timed_rotate(*a, **k):
+        sync()
+        t = time.perf_counter()
+        out = inner(*a, **k)
+        sync()
+        rot["s"] += time.perf_counter() - t
+        return out
+
+    ring_mod._rotate = timed_rotate
+    steps = []
+    try:
+        for _ in range(3):
+            dist.barrier(group=group)
+            sync()
+            t = time.perf_counter()
+            run("auto")
+            sync()
+            steps.append(time.perf_counter() - t)
+    finally:
+        ring_mod._rotate = inner
+    # one rank's K4a-c over the whole S beside it (the other rank waits)
+    whole = []
+    if rank == 0:
+        for _ in range(3):
+            q, k, v = (x.clone().requires_grad_() for x in full[:3])
+            sync()
+            t = time.perf_counter()
+            o = flash_mod.flash_attention_trainable(q, k, v, True)
+            o.backward(full[3])
+            sync()
+            whole.append(time.perf_counter() - t)
+    dist.barrier(group=group)
+    return {"launches": launches, "staged": staged, "sq": sums.tolist(), "max": maxima.tolist(),
+            "step_s": steps, "rotate_s": rot["s"] / len(steps), "whole_s": whole}
+
+
+def rank_main_cp(out_dir):
+    """One of phase 25's two ranks on the one card (`chip_smoke.py --ranks25 DIR`)."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from teochat_torch.checkpoint import orbax_io
+    from teochat_torch.checkpoint.orbax_io import _as_dtensor
+    from teochat_torch.config import MeshConfig
+    from teochat_torch.parallel import Sharded, create_mesh, init_distributed, shard_params
+    from teochat_torch.parallel import tensor_parallel as tp
+    from teochat_torch.parallel.sharding import unshard
+    from teochat_torch.train import trainer as trainer_mod
+    from teochat_torch.train.train import TrainingArguments, _run_cfg
+
+    faulthandler.enable()
+    rank = int(os.environ["RANK"])
+    device = init_distributed("cuda", backend="gloo", device=torch.device("cuda", 0),
+                              init_method=f"file://{os.path.join(out_dir, 'init')}",
+                              rank=rank, world_size=2)
+    summary = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    ring_mesh = create_mesh(MeshConfig(1, 1, 1, 2, 1), "cuda")
+    summary["ring"] = _ring_alone(rank, ring_mesh.get_group("sequence"))
+    log(f"[cp rank {rank}] ring alone: {summary['ring']['step_s']} s a step")
+    for tag, shape, mb, steps in P25_RUNS:
+        cfg = p25_config(tag)
+        mesh = create_mesh(MeshConfig(*shape), "cuda")
+        run_cfg = _run_cfg(cfg, TrainingArguments(mesh=MeshConfig(*shape),
+                                                  pipeline_microbatches=mb))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = shard_params(p24_params(cfg, device), mesh, cfg)
+        sharded = Sharded(mesh, cfg, params)
+        state = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                             lora_trainable_filter)
+        before, staged = _k4_all(), dict(tp.HOST_STAGED)
+        grads = {}
+        with _CommTimer() as comm:
+            state, losses, secs = p24_steps(run_cfg, state, p25_batches(cfg, tag, steps), device,
+                                            sharded, grads=grads)
+        counts = torch.tensor([v - before[k] for k, v in _k4_all().items()], dtype=torch.int64)
+        dist.all_reduce(counts)  # the two ranks' launches together
+        entry = {"losses": losses, "step_s": secs, "comm_s": comm.seconds,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "launches": dict(zip(_k4_all(), counts.tolist())),
+                 "staged": {k: v - staged[k] for k, v in tp.HOST_STAGED.items()}}
+        if tag == "pipe_m2":  # (f): the sharded save of a pipe mesh
+            dist.barrier()
+            t = time.perf_counter()
+            orbax_io.save_checkpoint(os.path.join(out_dir, "ckpt"), state.params, cfg,
+                                     opt_state=state.opt_state, step=steps)
+            entry["save_s"] = time.perf_counter() - t
+            dist.barrier()
+        like = dict(tree_leaves_with_path(state.params))
+        leaves = {p: unshard(x, p, cfg).float().cpu() for p, x in like.items()
+                  if lora_trainable_filter(p)}
+        grads = {p: unshard(_as_dtensor(g.contiguous(), like[p]), p, cfg).float().cpu()
+                 for p, g in grads.items()}
+        log(f"[cp rank {rank}] {tag} {shape}: losses {losses}, s a step {secs}")
+        if rank == 0:
+            torch.save({"entry": entry, "leaves": leaves, "grads": grads},
+                       os.path.join(out_dir, f"cp_{tag}.pt"))
+        del state, params, sharded, leaves, grads, like
+    if rank == 0:
+        with open(os.path.join(out_dir, "ranks.json"), "w") as f:
+            json.dump(summary, f)
+    dist.destroy_process_group()
+
+
+def _p25_reference(tag, device):
+    """One rank's run of a phase-25 configuration on the same batches: the
+    seed's trained leaves, the losses, the first step's gradients, the
+    leaves after the steps, s a step and the peak."""
+    from teochat_torch.train import trainer as trainer_mod
+
+    _, shape, _, steps = next(r for r in P25_RUNS if r[0] == tag)
+    cfg = p25_config(tag)
+    params = p24_params(cfg, device)
+    before = _trained_leaves(params)
+    state = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                         lora_trainable_filter)
+    torch.cuda.reset_peak_memory_stats()
+    grads = {}
+    state, losses, secs = p24_steps(cfg, state, p25_batches(cfg, tag, steps), device,
+                                    grads=grads)
+    out = {"before": before, "losses": losses, "step_s": secs,
+           "grads": {p: g.float().cpu() for p, g in grads.items()},
+           "leaves": _trained_leaves(state.params),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_context_pipe(gen):
+    """Phase 25: (a) the point-to-point transport, (b) the ring alone at
+    LLaMA-7B's attention shape on K4a-c against the plain twin, (c) the
+    recipe on mesh (1, 1, 1, sequence 2), (d) on (1, 1, 1, 1, pipe 2) at 2
+    and 4 microbatches, (e) LLaVA-MPT-7B's width on pipe 2 (K4a-c with the
+    bias), each against one rank's run on the same batches, (f) the pipe
+    mesh's sharded save loaded on one process. Two ranks of this script
+    share the card over gloo (phase 24's launcher). Returns (the K4a-c
+    launches of (c)-(e), with and without the bias; the JSON entry)."""
+    from teochat_torch.checkpoint import orbax_io
+    from teochat_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[cp] before the ranks: this process allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB; the card {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free")
+    refs = {tag: _p25_reference(tag, device) for tag in ("seq", "pipe_m2", "mpt")}
+    refs["pipe_m4"] = refs["pipe_m2"]  # one rank has no microbatches: the same run
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cp_", dir="results")
+    entries, launches = {}, dict.fromkeys(_k4_all(), 0)
+    try:
+        ranks_s = run_ranks("--ranks25", out_dir, "phase 25")
+        with open(os.path.join(out_dir, "ranks.json")) as f:
+            summary = json.load(f)
+        # (a), (b)
+        ring = summary["ring"]
+        sq, mx = ring["sq"], ring["max"]
+        errs = {name: (np.sqrt(sq[2 * i] / sq[2 * i + 1]), mx[2 * i] / mx[2 * i + 1], mx[2 * i])
+                for i, name in enumerate(("o", "dq", "dk", "dv"))}
+        n = 2
+        want_launches = n * (n + 1) // 2
+        b, s, h, d = P25_RING
+        ring_ms = 1e3 * statistics.median(ring["step_s"])
+        whole_ms = 1e3 * statistics.median(ring["whole_s"])
+        log(f"[cp] (a) transport: gloo over CUDA tensors on two ranks of cuda:0 (NCCL refuses "
+            f"two ranks on one device); gloo's send / recv and batch_isend_irecv abort on CUDA "
+            f"tensors ('writev ... Bad address', chip_probe.py two-ranks), so the ring's "
+            f"rotations and the pipeline's sends are copied through pinned host buffers "
+            f"(parallel/tensor_parallel.py::exchange): the ring alone staged "
+            f"{ring['staged']['calls']} exchanges, {ring['staged']['bytes'] / 2**20:.1f} MiB "
+            f"on rank 0")
+        log(f"[cp] (b) the ring alone, B {b} S {s} split {n} x {s // n}, H {h} D {d}, causal, "
+            f"on K4a-c against the plain twin (fp32) on the same bf16 inputs: o max abs err "
+            f"{errs['o'][2]:.3e} (bound {FLASH_TOL}); dq / dk / dv rel L2 "
+            f"{errs['dq'][0]:.3e} / {errs['dk'][0]:.3e} / {errs['dv'][0]:.3e} (bound "
+            f"{GRAD_REL_L2}), rel max {errs['dq'][1]:.3e} / {errs['dk'][1]:.3e} / "
+            f"{errs['dv'][1]:.3e} (bound {GRAD_REL_MAX}); launches on rank 0 "
+            f"{ring['launches']} (both ranks: K4a, K4b, K4c {want_launches} each); "
+            f"{ring_ms:.3f} ms a step (forward and backward, median of "
+            f"{len(ring['step_s'])}), the rotations (staged copies and the wait for the "
+            f"other rank included) {1e3 * ring['rotate_s']:.3f} ms a step, "
+            f"{ring['rotate_s'] / statistics.mean(ring['step_s']):.1%} of the mean step; one "
+            f"rank's K4a-c over the whole S {whole_ms:.3f} ms")
+        check(errs["o"][2] <= FLASH_TOL, f"ring output err {errs['o'][2]}")
+        for name in ("dq", "dk", "dv"):
+            check(errs[name][0] <= GRAD_REL_L2 and errs[name][1] <= GRAD_REL_MAX,
+                  f"ring {name} rel L2 {errs[name][0]}, rel max {errs[name][1]}")
+        # (c)-(e)
+        for tag, shape, mb, steps in P25_RUNS:
+            got = torch.load(os.path.join(out_dir, f"cp_{tag}.pt"), weights_only=False)
+            e, ref = got["entry"], refs[tag]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(e["losses"], ref["losses"]))
+            grad_rels = {p: _rel(got["grads"][p], ref["grads"][p]) for p in ref["grads"]}
+            leaf_rels = {p: _rel(got["leaves"][p], ref["leaves"][p]) for p in ref["before"]}
+            wg, wl = (max(r, key=r.get) for r in (grad_rels, leaf_rels))
+            comm = sum(e["comm_s"].values())
+            step = sum(e["step_s"])
+            cfg = p25_config(tag)
+            layers = cfg.llm.n_layers if tag == "mpt" else cfg.llm.num_layers
+            rows, seq = len(p25_batches(cfg, tag, 1)[0]), (P25_SEQ if tag == "seq"
+                                                           else P25_PIPE_SEQ)
+            extra = ""
+            if mb is not None:
+                p = shape[4]
+                extra = (f"; GPipe's bubble (P - 1) / (M + P - 1) = {(p - 1) / (mb + p - 1):.3f} "
+                         f"of a stage's slots, the sends and receives (waits included) "
+                         f"{e['comm_s']['p2p'] / step:.1%} of the step")
+            log(f"[cp] ({'c' if tag == 'seq' else 'e' if tag == 'mpt' else 'd'}) {tag} mesh "
+                f"{shape}, {layers} layers at {'MPT' if tag == 'mpt' else 'LLaMA'}-7B width, "
+                f"batch {rows} x {seq}, LoRA r128 over int8, remat, {steps} step(s): losses "
+                f"{[round(x, 6) for x in e['losses']]} vs one rank's "
+                f"{[round(x, 6) for x in ref['losses']]} (max rel {loss_rel:.3e}, bound "
+                f"{P24_LOSS_REL}); first step's gradients worst {wg} rel L2 {grad_rels[wg]:.3e} "
+                f"(bound {P24_GRAD_REL}); leaves after the steps worst {wl} "
+                f"{leaf_rels[wl]:.3e} (bound {P24_LEAF_REL}); s a step {e['step_s']} (one "
+                f"rank: {ref['step_s']}); collectives and sends {comm:.3f} s of {step:.3f} "
+                f"({e['comm_s']}){extra}; peak {e['peak_gib']:.2f} GiB a rank (one rank "
+                f"{ref['peak_gib']:.2f}); launches {e['launches']}; host-staged "
+                f"{e['staged']['bytes'] / 2**20:.1f} MiB on rank 0")
+            check(loss_rel <= P24_LOSS_REL, f"{tag} loss rel {loss_rel}")
+            check(grad_rels[wg] <= P24_GRAD_REL, f"{tag} gradient {wg} {grad_rels[wg]}")
+            check(leaf_rels[wl] <= P24_LEAF_REL, f"{tag} leaf {wl} rel {leaf_rels[wl]}")
+            lc = e["launches"]
+            if tag == "mpt":  # the bias branches only
+                check(lc["fwd"] == lc["dkv"] == lc["dq"] == 0 and lc["fwd_bias"] > 0
+                      and lc["dkv_bias"] == lc["dq_bias"] > 0, f"MPT pipe launches {lc}")
+            else:
+                ring_pairs = want_launches if tag == "seq" else 1
+                micro = mb or 1
+                want = {"fwd": 2 * layers * ring_pairs * micro * steps,
+                        "dkv": layers * ring_pairs * micro * steps}
+                want["dq"] = want["dkv"]
+                check(all(lc[k] == v for k, v in want.items()) and lc["fwd_bias"] == 0,
+                      f"{tag} launches {lc}, expected {want}")
+            for k in launches:
+                launches[k] += lc[k]
+            entries[tag] = {**e, "loss_rel": loss_rel, "worst_grad": wg,
+                            "worst_grad_rel_l2": grad_rels[wg], "worst_leaf": wl,
+                            "worst_leaf_rel_l2": leaf_rels[wl], "comm_share": comm / step,
+                            "reference": {k: ref[k] for k in ("losses", "step_s", "peak_gib")}}
+        # (f) the pipe mesh's sharded checkpoint on one process, bitwise
+        ckpt = os.path.join(out_dir, "ckpt", f"checkpoint-{P25_STEPS}")
+        with open(os.path.join(ckpt, "config.json")) as f:
+            saved_llm = json.load(f)["llm"]
+        check(saved_llm["pipeline_axis"] is None and saved_llm["sequence_axis"] is None,
+              f"the saved config carries the run's axes: {saved_llm}")
+        cfg = p24_config()
+        params = p24_params(cfg, device)
+        template = trainer_mod.init_train_state(params, trainer_mod.make_optimizer(**P24_OPT),
+                                                lora_trainable_filter)
+        loaded, _, opt = orbax_io.load_checkpoint(ckpt, restore_opt=True,
+                                                  params_template=template.params,
+                                                  opt_template=template.opt_state)
+        flat = dict(tree_leaves_with_path(loaded))
+        sharded_leaves = torch.load(os.path.join(out_dir, "cp_pipe_m2.pt"),
+                                    weights_only=False)["leaves"]
+        for path, x in sharded_leaves.items():
+            check(torch.equal(flat[path].float().cpu(), x), f"loaded {path} != the gathered shards")
+        for path, x in tree_leaves_with_path(params):
+            if not lora_trainable_filter(path):
+                check(torch.equal(flat[path], x), f"loaded frozen {path} changed")
+        log(f"[cp] (f) the pipe mesh's checkpoint (each stage its layers, saved in "
+            f"{entries['pipe_m2']['save_s']:.2f} s) on one process: {len(sharded_leaves)} "
+            f"trained leaves bitwise the gathered shards, the frozen ones the seed's, the "
+            f"config without pipeline_axis or sequence_axis")
+        del params, loaded, opt, template
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"ring": {**ring, "errors": {k: list(v) for k, v in errs.items()},
+                               "ms": ring_ms, "whole_ms": whole_ms},
+                      "runs": entries, "ranks_s": ranks_s, "phase_s": time.perf_counter() - t0}
+
+
 def stamp(t0, what):
     log(f"[time] {time.perf_counter() - t0:.1f} s: {what} done")
 
@@ -5669,9 +6074,12 @@ def main():
     stamp(t0, "phases 15-17")
     mesh_launches, mesh_entry = phase_mesh(gen)
     tower_launches, mesh_entry["tower"] = phase_tower_train(gen)
-    for k in ("fwd", "dkv", "dq"):
-        train_launches[k] += mesh_launches[k] + tower_launches[k]
     stamp(t0, "phase 24 (the mesh, the tower trained)")
+    cp_launches, mesh_entry["context_pipe"] = phase_context_pipe(gen)
+    for k in ("fwd", "dkv", "dq"):
+        train_launches[k] += mesh_launches[k] + tower_launches[k] + cp_launches[k]
+        k4_bias_launches[k] += cp_launches[f"{k}_bias"]
+    stamp(t0, "phase 25 (the ring, the pipeline)")
     s_rows = {**phase_bench_int4(gen), **phase_bench_vit(gen)}
     bench_counts, bench_train = phase_bench_run()
     stamp(t0, "phases 18-20")
@@ -5750,6 +6158,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks"]:  # one of phase 24's ranks
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--ranks25"]:  # one of phase 25's ranks
+        rank_main_cp(sys.argv[2])
     else:
         main()
     sys.exit(0)

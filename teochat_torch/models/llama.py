@@ -17,9 +17,12 @@ ROADMAP F6).
 The cache-free forward (`cache=None`, training) runs causal self-attention
 over the whole sequence: a right-padded batch on CUDA goes to the
 differentiable flash kernels (K4a-c) with the padding mask dropped, other
-cases to the plain masked attention. `remat=True` wraps each decoder layer
-in a non-reentrant `torch.utils.checkpoint` (the JAX `jax.checkpoint(...,
-nothing_saveable)`), so its activations are recomputed in the backward.
+cases to the plain masked attention. On a mesh, `LlamaConfig.sequence_axis`
+runs it as ring attention over this rank's chunk of the sequence, and
+`pipeline_axis` runs the layer stack as a GPipe pipeline (parallel/).
+`remat=True` wraps each decoder layer in a non-reentrant
+`torch.utils.checkpoint` (the JAX `jax.checkpoint(..., nothing_saveable)`),
+so its activations are recomputed in the backward.
 
 The KV cache is two buffers K and V of shape [L, B, T_max, Hkv, D]. Unlike
 the JAX package, which is functional and threads new buffers through its
@@ -244,10 +247,22 @@ def _attention_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: Optional[KVCache]
     k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
     v = v.reshape(b, s, hkv, hd)
     if cache is None:
-        # cache-free path: causal self-attention over S, plus the padding mask
-        # (which the flash kernels drop for a right-padded batch)
-        out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
-                                    impl=attn_impl, right_padded=right_padded)
+        if cfg.sequence_axis is not None:
+            # context parallelism: x is this rank's chunk of S, and the key /
+            # value blocks rotate around the `sequence` ring (K4a-c on the
+            # card). Right-padded batches only: causality hides the pads.
+            if not (right_padded or attention_mask is None):
+                raise ValueError("sequence_axis needs right-padded batches (causal-only "
+                                 "masking); got a padding mask without right_padded=True")
+            from teochat_torch.parallel.ring_attention import ring_self_attention
+
+            out = ring_self_attention(q, k, v, sharded=sh, axis_name=cfg.sequence_axis,
+                                      causal=True, impl=attn_impl)
+        else:
+            # causal self-attention over S, plus the padding mask (which the
+            # flash kernels drop for a right-padded batch)
+            out = dot_product_attention(q, k, v, causal=True, mask=attention_mask,
+                                        impl=attn_impl, right_padded=right_padded)
         if split:
             return sh.row_proj(out.reshape(b, s, h * hd), lp["out"])
         return _proj(out.reshape(b, s, h * hd), lp["out"], layer, route, act_quant)
@@ -331,14 +346,19 @@ def _check_supported(cfg: LlamaConfig, cache: Optional[KVCache], b: int,
     if cache is not None and not 0 <= row_offset <= cache.k.shape[1] - b:
         raise ValueError(f"llama_forward: rows [{row_offset}, {row_offset + b}) "
                          f"outside a cache of {cache.k.shape[1]} rows")
-    unsupported = {
-        "sequence_axis (ring attention)": cfg.sequence_axis is not None,
-        "cache_sequence_axis (sharded cache)": cfg.cache_sequence_axis is not None,
-        "pipeline_axis": cfg.pipeline_axis is not None,
-    }
-    named = [name for name, on in unsupported.items() if on]
-    if named:
-        raise unported(f"llama_forward: {', '.join(named)}", 16)
+    if cfg.cache_sequence_axis is not None:
+        raise unported("llama_forward: cache_sequence_axis (sharded cache)", 16)
+
+
+def check_pipeline(cfg, adapter_route) -> None:
+    """JAX's errors for a pipelined forward (`cfg.pipeline_axis`)."""
+    if getattr(cfg, "sequence_axis", None) is not None:
+        raise ValueError("pipeline_axis and sequence_axis cannot be combined "
+                         "(ring attention inside a pipeline stage nests shard_maps)")
+    if adapter_route is not None:
+        raise ValueError("adapter_route (multi-LoRA) is a serving feature and does not "
+                         "compose with pipeline_axis (the route would have to travel with "
+                         "each microbatch); merge or route on the host")
 
 
 def vocab_logits(x: torch.Tensor, head: Optional[Params], table: Optional[torch.Tensor],
@@ -431,7 +451,14 @@ def llama_forward(
     the stack on the mesh: `params` are this rank's local shards, each
     layer's gathered over `fsdp` at use, its heads and MLP columns split
     over `model`; the logits come back whole (fp32, all-gathered over
-    `model` from the vocab-sharded head).
+    `model` from the vocab-sharded head). With `cfg.sequence_axis` the
+    inputs (`inputs_embeds`, `position_ids`: global positions, and
+    `attention_mask`) are this rank's chunk of S on the mesh's `sequence`
+    axis, attention runs the ring (parallel/ring_attention.py) and the
+    logits are the chunk's. With `cfg.pipeline_axis` the layers run as a
+    GPipe pipeline over the mesh's `pipe` axis
+    (parallel/pipeline.py::pipelined_scan_blocks, `params["layers"]` this
+    stage's), and every pipe rank gets the whole output.
     """
     x = inputs_embeds
     b, s, _ = x.shape
@@ -448,14 +475,31 @@ def llama_forward(
         if kv_len is not None:
             cap = kv_len if kv_len.ndim == 2 else kv_len[:, None]
             lengths = torch.minimum(lengths, cap.to(torch.int32))
-    for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
-        args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
-                attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
-                attend_cache, adapter_route, act_quant, sharded)
-        if remat and cache is None:
-            x = checkpoint(_decoder_layer, *args, use_reentrant=False)
-        else:
-            x = _decoder_layer(*args)
+    if cache is None and cfg.pipeline_axis is not None:
+        # GPipe over the stacked layer axis (parallel/pipeline.py): this
+        # stage's layers; cos, sin and the mask travel with their microbatch
+        check_pipeline(cfg, adapter_route)
+        from teochat_torch.parallel.pipeline import pipelined_scan_blocks
+
+        def block_fn(xc, lp, layer, cos_b, sin_b, mask_b):
+            args = (xc, lp, cfg, cos_b, sin_b, None, layer, None, 0, attn_impl, mask_b,
+                    right_padded, None, False, 0, False, None, act_quant, sharded)
+            if remat:
+                return checkpoint(_decoder_layer, *args, use_reentrant=False)
+            return _decoder_layer(*args)
+
+        x = pipelined_scan_blocks(params["layers"], block_fn, x, (cos, sin, mask),
+                                  sharded=sharded, num_layers=cfg.num_layers,
+                                  num_microbatches=cfg.pipeline_microbatches)
+    else:
+        for layer, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
+            args = (x, lp, cfg, cos, sin, cache, layer, write_slots, prefill_start,
+                    attn_impl, mask, right_padded, lengths, spec_verify, cache_row_offset,
+                    attend_cache, adapter_route, act_quant, sharded)
+            if remat and cache is None:
+                x = checkpoint(_decoder_layer, *args, use_reentrant=False)
+            else:
+                x = _decoder_layer(*args)
     if sharded is not None:
         return _sharded_head(params, cfg, x, sharded, logits_mode, last_index)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)

@@ -199,8 +199,6 @@ def _check_supported(cfg, cache, b: int, row_offset: int, sharded=None) -> None:
     if cache is not None and not 0 <= row_offset <= cache.k.shape[1] - b:
         raise ValueError(f"mpt_forward: rows [{row_offset}, {row_offset + b}) "
                          f"outside a cache of {cache.k.shape[1]} rows")
-    if cfg.pipeline_axis is not None:
-        raise unported("mpt_forward: pipeline_axis", 16)
     if cfg.cache_sequence_axis is not None:
         raise unported("mpt_forward: cache_sequence_axis (sharded cache)", 16)
 
@@ -243,7 +241,8 @@ def mpt_forward(
     flash kernels may drop the mask, and `remat` recomputes each block in the
     backward. `attn_impl` 'plain' routes every attention to the plain
     version (the kernel's reference). `sharded` runs the cache-free stack
-    on the mesh as llama_forward's does (the tied `wte` vocab-sharded)."""
+    on the mesh as llama_forward's does (the tied `wte` vocab-sharded), and
+    with `cfg.pipeline_axis` as a GPipe pipeline over its `pipe` axis."""
     x = inputs_embeds
     b, s, _ = x.shape
     _check_supported(cfg, cache, b, cache_row_offset, sharded)
@@ -255,14 +254,31 @@ def mpt_forward(
     query_mask = None
     if cache is not None and (s == 1 or spec_verify or attend_cache):
         query_mask = _query_mask(write_slots, cache.max_len, kv_mask, kv_len)
-    for layer, lp in enumerate(llama_mod.unstack_layers(params["layers"], cfg.n_layers)):
-        args = (x, lp, cfg, bias, layer, cache, mask, write_slots, query_mask,
-                cache_row_offset, spec_verify, prefill_start, attend_cache, adapter_route,
-                attn_impl, right_padded, sharded)
-        if remat and cache is None:
-            x = checkpoint(_mpt_layer, *args, use_reentrant=False)
-        else:
-            x = _mpt_layer(*args)
+    if cache is None and cfg.pipeline_axis is not None:
+        # GPipe over the stacked layer axis (parallel/pipeline.py): the ALiBi
+        # table closes over the block, only the padding mask travels
+        llama_mod.check_pipeline(cfg, adapter_route)
+        from teochat_torch.parallel.pipeline import pipelined_scan_blocks
+
+        def block_fn(xc, lp, layer, mask_b):
+            args = (xc, lp, cfg, bias, layer, None, mask_b, None, None, 0, False, 0, False,
+                    None, attn_impl, right_padded, sharded)
+            if remat:
+                return checkpoint(_mpt_layer, *args, use_reentrant=False)
+            return _mpt_layer(*args)
+
+        x = pipelined_scan_blocks(params["layers"], block_fn, x, (mask,), sharded=sharded,
+                                  num_layers=cfg.n_layers,
+                                  num_microbatches=cfg.pipeline_microbatches)
+    else:
+        for layer, lp in enumerate(llama_mod.unstack_layers(params["layers"], cfg.n_layers)):
+            args = (x, lp, cfg, bias, layer, cache, mask, write_slots, query_mask,
+                    cache_row_offset, spec_verify, prefill_start, attend_cache, adapter_route,
+                    attn_impl, right_padded, sharded)
+            if remat and cache is None:
+                x = checkpoint(_mpt_layer, *args, use_reentrant=False)
+            else:
+                x = _mpt_layer(*args)
     x = _ln(x, params["final_norm"])
     if sharded is not None:
         if logits_mode != "all" or last_index is not None:

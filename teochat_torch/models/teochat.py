@@ -91,7 +91,9 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
     rows; the result is this rank's share of the global batch's loss, its
     rows' sum over the count of valid labels in every rank's rows (JAX's
     mean under GSPMD), so the ranks' shares and gradients sum to the
-    global mean's.
+    global mean's. With `cfg.llm.sequence_axis` (a `sequence` axis) each
+    rank runs the decoder on its chunk of S and its share counts the
+    chunk's labels; on a `pipe` axis every pipe rank returns the same loss.
     """
     dev = pixel_values.device
     tower_trains = any(x.requires_grad for _, x in tree_leaves_with_path(params["vision"]))
@@ -105,6 +107,16 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
     else:
         embeds = _sharded_embeds(params["llm"], plan, vision_tokens, sharded)
     attention_mask = torch.as_tensor(plan.attention_mask, device=dev)
+    position_ids = torch.as_tensor(plan.position_ids, device=dev)
+    labels = torch.as_tensor(plan.labels, dtype=torch.long, device=dev)
+    on_ring = getattr(cfg.llm, "sequence_axis", None) is not None
+    if on_ring:
+        # this rank's chunk of S; each label shifted on the whole sequence
+        # first, so a chunk's last token takes the next chunk's first
+        ignore = torch.full_like(labels[:, :1], fusion_mod.IGNORE_INDEX)
+        labels = torch.cat([labels[:, 1:], ignore], 1)
+        embeds, attention_mask, position_ids, labels = (
+            sharded.own_sequence(a, 1) for a in (embeds, attention_mask, position_ids, labels))
     if mpt_mod.is_mpt_params(params["llm"]):
         logits = mpt_mod.mpt_forward(
             params["llm"], cfg.llm, embeds, attention_mask=attention_mask,
@@ -112,14 +124,14 @@ def forward_train(params: Params, cfg: TEOChatConfig, plan: fusion_mod.FusionPla
         )
     else:
         logits = llama_mod.llama_forward(
-            params["llm"], cfg.llm, embeds,
-            position_ids=torch.as_tensor(plan.position_ids, device=dev),
+            params["llm"], cfg.llm, embeds, position_ids=position_ids,
             attention_mask=attention_mask, right_padded=True, remat=remat,
             attn_impl=attn_impl, sharded=sharded,
         )
-    labels = torch.as_tensor(plan.labels, dtype=torch.long, device=dev)[:, 1:]
+    if not on_ring:
+        labels, logits = labels[:, 1:], logits[:, :-1]
     valid = labels != fusion_mod.IGNORE_INDEX
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     tok_lp = torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
     count = valid.sum()
     if sharded is not None:

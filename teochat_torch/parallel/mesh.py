@@ -6,8 +6,9 @@ stores every leaf sharded on its rule's fsdp dim (ZeRO-3), `model` runs
 Megatron-style tensor parallelism over the heads and the MLP columns
 (parallel/sharding.py holds the rules, parallel/tensor_parallel.py the
 collectives). The axis arithmetic is the JAX function's: any one axis may be
--1 and takes what the others leave; `sequence` and `pipe` are appended only
-above 1, and are not ported yet.
+-1 and takes what the others leave; `sequence` (context parallelism:
+parallel/ring_attention.py) and `pipe` (GPipe: parallel/pipeline.py) are
+appended only above 1, so 3-axis layouts are untouched.
 
 The mesh's device type is explicit: "cuda" (the default, one card a rank,
 NCCL) or "cpu" (gloo, which the tests ask for). `init_distributed` starts
@@ -25,7 +26,6 @@ import torch
 import torch.distributed as dist
 
 from teochat_torch.config import MeshConfig
-from teochat_torch.utils import unported
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -59,16 +59,12 @@ def mesh_shape(cfg: Optional[MeshConfig], n: int) -> Tuple[List[int], List[str]]
 
 
 def create_mesh(cfg: Optional[MeshConfig] = None, device_type: str = "cuda"):
-    """A (data, fsdp, model) DeviceMesh over the initialized process group's
-    ranks, in rank order. `device_type` "cuda" (NCCL) or "cpu" (gloo) must be
-    the group's own."""
+    """A (data, fsdp, model[, sequence][, pipe]) DeviceMesh over the
+    initialized process group's ranks, in rank order. `device_type` "cuda"
+    (NCCL) or "cpu" (gloo) must be the group's own."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = cfg or MeshConfig(fsdp=-1)
-    if cfg.sequence > 1:
-        raise unported(f"a mesh sequence axis of {cfg.sequence} (ring attention)", 16)
-    if cfg.pipe > 1:
-        raise unported(f"a mesh pipe axis of {cfg.pipe} (pipeline parallelism)", 16)
     if not dist.is_initialized():
         raise RuntimeError("create_mesh: no process group (init_distributed first)")
     sizes, names = mesh_shape(cfg, dist.get_world_size())

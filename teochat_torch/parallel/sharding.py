@@ -13,7 +13,9 @@
 - norms and most biases replicate.
 
 `param_specs` is the JAX function (the multi-LoRA adapter axis replicated,
-ranks clipped, `_fit_spec` dropping an axis a dim cannot divide).
+ranks clipped, a decoder layer leaf's unsharded leading dim on `pipe` where
+the mesh has that axis, `_fit_spec` dropping an axis a dim cannot divide).
+No leaf takes `sequence`: the ring splits activations, not weights.
 `placement_specs` adds what the port's compute needs, since it runs each
 rank's own heads where GSPMD would reshard: a block whose heads (or MLP
 columns, or vocabulary) the `model` axis does not divide replicates over
@@ -146,9 +148,12 @@ def _leaf_spec(path_s: str, leaf, sizes: Optional[Mapping[str, int]]) -> Spec:
         spec = P(spec[0], None, *spec[1:])
     if len(spec) > leaf.ndim:
         spec = P(*spec[: leaf.ndim])
+    if (sizes is not None and "pipe" in sizes and path_s.startswith("llm/layers/")
+            and leaf.ndim >= 1 and (len(spec) == 0 or spec[0] is None)):
+        # pipeline parallelism (parallel/pipeline.py): the stacked layer
+        # axis splits over `pipe`, each stage holding its layers
+        spec = P("pipe", *spec[1:])
     if sizes is not None:
-        if "pipe" in sizes or "sequence" in sizes:
-            raise ValueError("param_specs: the port's meshes have no pipe or sequence axis")
         spec = _fit_spec(spec, leaf.shape, sizes)
     return spec
 

@@ -23,11 +23,17 @@ collectives no-ops on every rank alike.
 
 Gradients: a leaf sharded on `fsdp` gets its fsdp sum from the gather's
 backward; `reduce_grads` all-reduces the others over `fsdp`, and every leaf
-over `data` (rows only). A leaf replicated over `model` is either used the
-same way on every model rank (a norm: equal gradients, nothing to sum) or
-enters through `to_model` (a LoRA A on a split block), whose backward sums
-it. The loss is each rank's sum over its rows divided by the global count
-of valid labels (`sum_rows`), so the summed gradients are the global mean's.
+over `data` (rows only) and `sequence` (each rank's chunk of the tokens). A
+leaf replicated over `model` is either used the same way on every model
+rank (a norm: equal gradients, nothing to sum) or enters through `to_model`
+(a LoRA A on a split block), whose backward sums it. On a `pipe` axis the
+stages hold their own layers; every other leaf takes stage 0's gradient
+(parallel/pipeline.py says why). The loss is each rank's sum over its
+tokens divided by the global count of valid labels (`sum_rows`), so the
+summed gradients are the global mean's.
+
+`exchange` is the point-to-point traffic of the ring
+(parallel/ring_attention.py) and the pipeline (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -62,6 +68,54 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
     return x
+
+
+def _broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """x from the group's rank `src` to every rank of the group, in place."""
+    dist.broadcast(x, dist.get_global_rank(group, src), group=group)
+    return x
+
+
+# point-to-point traffic copied through pinned host buffers (exchange's
+# gloo path on CUDA tensors): calls and bytes sent, for a run to report
+HOST_STAGED = {"calls": 0, "bytes": 0}
+
+
+def exchange(sends, recvs, group):
+    """Point-to-point on `group`: each (tensor, group rank) of `sends` is sent
+    to that rank, and each (like, group rank) of `recvs` received from it
+    into a new tensor shaped, typed and placed as `like`; returns those.
+    Every rank names its sends and receives in the same order as its peers.
+
+    The transport is the group's backend's: NCCL (one process a card) takes
+    CUDA tensors in `batch_isend_irecv`; gloo takes host tensors only, so on
+    CUDA tensors (two ranks sharing one card) each is copied through a
+    pinned host buffer and counted on HOST_STAGED, never silently."""
+    if not sends and not recvs:
+        return []
+    dev = (sends[0][0] if sends else recvs[0][0]).device
+    staged = dist.get_backend(group) == "gloo" and dev.type == "cuda"
+
+    def host(x):
+        if not staged:
+            return x.contiguous()
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x)
+        return buf
+
+    out_bufs = [torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else dev,
+                            pin_memory=staged) for like, _ in recvs]
+    ops = [dist.P2POp(dist.isend, host(x), dist.get_global_rank(group, r), group)
+           for x, r in sends]
+    ops += [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, r), group)
+            for buf, (_, r) in zip(out_bufs, recvs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if not staged:
+        return out_bufs
+    HOST_STAGED["calls"] += 1
+    HOST_STAGED["bytes"] += sum(x.numel() * x.element_size() for x, _ in sends)
+    return [buf.to(dev, non_blocking=True) for buf in out_bufs]
 
 
 class _GatherFsdp(torch.autograd.Function):
@@ -242,12 +296,34 @@ class Sharded:
     # ------------------------------------------------------------ batch rows
 
     def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks that hold other rows (data, fsdp), outside autograd."""
+        """Sum over the ranks that hold other tokens (data, fsdp: other rows;
+        sequence: other chunks of them), outside autograd."""
         x = x.detach()
-        for name in ("data", "fsdp"):
-            if self.sizes[name] > 1:
+        for name in ("data", "fsdp", "sequence"):
+            if self.sizes.get(name, 1) > 1:
                 x = _all_reduce(x, self.groups[name])
         return x
+
+    # ------------------------------------------------------------ sequence, pipe
+
+    @property
+    def seq(self) -> int:
+        return self.sizes.get("sequence", 1)
+
+    @property
+    def pipe(self) -> int:
+        return self.sizes.get("pipe", 1)
+
+    def own_sequence(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's contiguous chunk of x along `dim` over `sequence`
+        (its global positions [i S/n, (i+1) S/n)); S must divide by n, as
+        JAX's ring requires."""
+        n = self.seq
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"sequence length {x.shape[dim]} not divisible by sequence={n}")
+        return x.chunk(n, dim)[self.coords["sequence"]]
 
     @property
     def row_rank(self) -> int:
@@ -262,13 +338,22 @@ class Sharded:
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Sum each trainable leaf's gradient over the ranks that hold other
-        rows: over `fsdp` where the gather's backward has not, over `data`."""
+        tokens: over `fsdp` where the gather's backward has not, over `data`
+        and over `sequence` (each rank's chunk contributes to every leaf).
+        On a `pipe` axis a leaf that the stages do not split (the embedding,
+        projector and tower that feed stage 0; the final norm and lm_head
+        after the pipeline, whose gradient every pipe rank computes alike)
+        takes stage 0's gradient, which is whole: summing would count the
+        head's P times."""
         out = {}
         for path, g in grads.items():
             if self.sizes["fsdp"] > 1 and "fsdp" not in self.specs[path]:
                 g = _all_reduce(g, self.groups["fsdp"])
-            if self.sizes["data"] > 1:
-                g = _all_reduce(g, self.groups["data"])
+            for name in ("data", "sequence"):
+                if self.sizes.get(name, 1) > 1:
+                    g = _all_reduce(g, self.groups[name])
+            if self.pipe > 1 and "pipe" not in self.specs[path]:
+                g = _broadcast(g.contiguous(), 0, self.groups["pipe"])
             out[path] = g
         return out
 

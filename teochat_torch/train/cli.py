@@ -6,11 +6,12 @@ scripts/train_teochat.sh / finetune_teochat.sh parses unchanged (run
 teochat_tpu.train.cli`). `--distributed` starts the process group from
 torchrun's environment (JAX's calls `jax.distributed.initialize()`), one
 rank a card, and the run trains on the `--mesh_data` / `--mesh_fsdp` /
-`--mesh_model` mesh over the ranks (by default every rank on fsdp, ZeRO-3):
+`--mesh_model` / `--mesh_sequence` (ring attention) / `--mesh_pipe` (GPipe,
+`--pipeline_microbatches`) mesh over the ranks (by default every rank on
+fsdp, ZeRO-3):
 `torchrun --nproc_per_node 8 -m teochat_torch.train.cli --distributed ...`.
 `--deepspeed <json>` is accepted and ignored: the mesh replaces ZeRO.
-`--mesh_sequence` and `--mesh_pipe` above 1 are not ported yet (ROADMAP
-item 16). `--device` is the port's own (default: the card; "cpu" runs the
+`--device` is the port's own (default: the card; "cpu" runs the
 ranks on gloo). A run resumes by itself from the newest `checkpoint-*`
 under `--output_dir`.
 """

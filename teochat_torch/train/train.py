@@ -36,8 +36,15 @@ ignored, as in the JAX driver.
 
 On more than one process the run is on the (data, fsdp, model) mesh
 (parallel/): the params as DTensors, each rank's rows, the gradients summed
-over the row ranks, sharded checkpoints. Not ported yet, and raising: the
-sequence and pipeline axes (ROADMAP item 16).
+over the row ranks, sharded checkpoints. A `sequence` axis
+(`--mesh_sequence`) splits each row's tokens over a ring
+(parallel/ring_attention.py), a `pipe` axis (`--mesh_pipe`,
+`--pipeline_microbatches`) the layer stack over GPipe stages
+(parallel/pipeline.py); as in the JAX driver they switch on
+`sequence_axis` / `pipeline_axis` in the config the train step runs
+(`run_cfg`) and never in the one checkpoints persist. The ring takes LLaMA
+only: JAX's driver fails on LLaVA-MPT there (ROADMAP F11), and the port
+raises a ValueError naming it.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ from teochat_torch.train.trainer import (
     make_optimizer,
     make_train_step,
 )
-from teochat_torch.utils import is_rank0, rank0_print, unported
+from teochat_torch.utils import is_rank0, rank0_print
 from teochat_torch.vision_tokenizer import embed_trainable_filter, initialize_vision_tokenizer
 
 
@@ -156,21 +163,45 @@ class TrainingArguments:
 
 def _make_mesh(mesh: MeshConfig, device: torch.device):
     """The run's mesh (JAX train.py:372-420): a DeviceMesh over the process
-    group's ranks when more than one process takes part, else None. A
-    sequence or pipe axis is not ported yet; an axis above 1 on one process
-    has no ranks to split."""
-    if mesh.sequence > 1:
-        raise unported(f"--mesh_sequence {mesh.sequence} (ring attention)", 16)
-    if mesh.pipe > 1:
-        raise unported(f"--mesh_pipe {mesh.pipe} (pipeline parallelism)", 16)
+    group's ranks when more than one process takes part, else None. An axis
+    above 1 on one process has no ranks to split."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world > 1:
         return create_mesh(mesh, device.type)
+    for flag, n in (("--mesh_sequence", mesh.sequence), ("--mesh_pipe", mesh.pipe)):
+        if n > 1:
+            raise ValueError(f"{flag} {n} needs a multi-device runtime (have 1 process: "
+                             "torch.distributed, --distributed under torchrun)")
     sizes = {"data": mesh.data, "fsdp": mesh.fsdp, "model": mesh.model}
     if any(n > 1 for n in sizes.values()):
         raise ValueError(f"a mesh of {sizes} needs as many processes (torch.distributed, "
                          "--distributed under torchrun); this run has one")
     return None
+
+
+def _run_cfg(cfg: TEOChatConfig, training_args: TrainingArguments) -> TEOChatConfig:
+    """The config the train step runs (JAX train.py:378-418): the ring's
+    `sequence_axis` and the pipeline's `pipeline_axis` /
+    `pipeline_microbatches` switched on for this run's mesh, never in `cfg`,
+    which checkpoints persist (a checkpoint loads on any topology)."""
+    mesh = training_args.mesh
+    llm = cfg.llm
+    if mesh.sequence > 1:
+        llm = dataclasses.replace(llm, sequence_axis="sequence")
+    if mesh.pipe > 1:
+        llm = dataclasses.replace(llm, pipeline_axis="pipe",
+                                  pipeline_microbatches=training_args.pipeline_microbatches)
+    return cfg if llm is cfg.llm else dataclasses.replace(cfg, llm=llm)
+
+
+def _check_sequence_buckets(collator, n: int) -> None:
+    """Every length the collator pads a batch to (its buckets, and multiples
+    of 512 past them: models/teochat.py::round_to_bucket) must divide by
+    the `sequence` axis, as JAX's ring requires; raise its error otherwise,
+    never pad in the model."""
+    for length in (*collator.seq_buckets, 512):
+        if length % n:
+            raise ValueError(f"sequence length {length} not divisible by sequence={n}")
 
 
 def _batches(dataset, collator, sampler: Iterable[int], batch_size: int,
@@ -380,6 +411,13 @@ def train(
         cfg, params, _ = initialize_vision_tokenizer(
             model_args, cfg, params, tokenizer, pretrain_embed_rows=pretrain_rows)
 
+    if training_args.mesh.sequence > 1 and is_mpt_params(params["llm"]):
+        # JAX's driver replaces MptConfig's sequence_axis, a field it does not
+        # have, and fails with a TypeError before its first step (ROADMAP F11)
+        raise ValueError(
+            f"--mesh_sequence {training_args.mesh.sequence}: ring attention runs the LLaMA "
+            "decoder only; LLaVA-MPT has no sequence_axis, as in the JAX driver. Use "
+            "--mesh_pipe, --mesh_fsdp or --mesh_model for MPT")
     trainable_filter = trainable_filter_of(model_args, training_args)
     if training_args.lora_enable:
         gen = torch.Generator(device=device).manual_seed(training_args.seed)
@@ -400,6 +438,8 @@ def train(
         max_length=cfg.tokenizer_model_max_length, dataset=dataset,
     )
     train_dataset, collator = module["train_dataset"], module["data_collator"]
+    if training_args.mesh.sequence > 1:
+        _check_sequence_buckets(collator, training_args.mesh.sequence)
 
     accum = max(training_args.gradient_accumulation_steps, 1)
     global_batch = training_args.per_device_train_batch_size * row_count * accum
@@ -437,7 +477,8 @@ def train(
             opt_state = init_train_state(params, optimizer, trainable_filter).opt_state
         state = TrainState(params, opt_state, start_step)
     del params
-    train_step = make_train_step(cfg, optimizer, trainable_filter=trainable_filter,
+    train_step = make_train_step(_run_cfg(cfg, training_args), optimizer,
+                                 trainable_filter=trainable_filter,
                                  remat=training_args.gradient_checkpointing, sharded=sharded)
     writer = _writer(training_args) if is_rank0() else None
 

@@ -29,7 +29,7 @@ from teochat_torch.config import TEOChatConfig
 from teochat_torch.models import fusion as fusion_mod
 from teochat_torch.train import lora as lora_mod
 from teochat_torch.train import trainer as trainer_mod
-from teochat_torch.utils import tree_leaves_with_path
+from teochat_torch.utils import tree_leaves_with_path, tree_map
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILTERS = {
@@ -78,13 +78,29 @@ def launch(world: int, out_dir: str, scenarios: List[str], timeout: float = 300.
 # ------------------------------------------------------------------ inputs
 
 
-def rows_plan(cfg: TEOChatConfig, rows: List[Dict]):
+def rows_plan(cfg: TEOChatConfig, rows: List[Dict], pad_to: Optional[int] = None):
     """(FusionPlan, pixels [N, 3, H, W] fp32) of a list of rows, each
-    {'ids', 'labels', 'frames'}: one plan padded to its longest row."""
+    {'ids', 'labels', 'frames'}: one plan padded to its longest row, or to
+    `pad_to` (a length the `sequence` axis divides, as the collator's
+    buckets are)."""
     plan = fusion_mod.build_fusion_plan(
         [r["ids"] for r in rows], labels=[r["labels"] for r in rows],
-        tokens_per_frame=cfg.vision.num_patches)
+        tokens_per_frame=cfg.vision.num_patches, pad_to=pad_to)
     return plan, torch.from_numpy(np.concatenate([r["frames"] for r in rows]))
+
+
+def run_cfg_of(cfg: TEOChatConfig, mesh, microbatches: Optional[int] = None) -> TEOChatConfig:
+    """The train driver's run config for `mesh` (train.py::_run_cfg): the
+    ring's and the pipeline's switches for its sequence and pipe axes."""
+    from teochat_torch.config import MeshConfig
+    from teochat_torch.parallel.sharding import axis_sizes
+    from teochat_torch.train.train import TrainingArguments, _run_cfg
+
+    sizes = {} if mesh is None else axis_sizes(mesh)
+    args = TrainingArguments(mesh=MeshConfig(sequence=sizes.get("sequence", 1),
+                                             pipe=sizes.get("pipe", 1)),
+                             pipeline_microbatches=microbatches)
+    return _run_cfg(cfg, args)
 
 
 def variant_params(variant: Dict, device="cpu") -> Dict:
@@ -92,11 +108,15 @@ def variant_params(variant: Dict, device="cpu") -> Dict:
 
 
 def run_steps(variant: Dict, batches: List[List[Dict]], sharded=None, mesh=None,
-              record: Optional[Dict] = None, device="cpu"):
+              record: Optional[Dict] = None, device="cpu", pad_to: Optional[int] = None,
+              microbatches: Optional[int] = None):
     """Train `variant` ({'cfg' json, 'params' numpy, 'filter', 'dtype', 'opt'
-    kwargs}) one optimizer step a global batch. On a mesh each rank takes
-    its rows (its (data, fsdp) index's chunk). Returns (state, losses,
-    sharded); `record['sq_norm']` gets the squared norms the clip read."""
+    kwargs}) one optimizer step a global batch, each plan padded to `pad_to`
+    where given. On a mesh each rank takes its rows (its (data, fsdp)
+    index's chunk), and a sequence or pipe axis runs the ring or the
+    pipeline (`microbatches` a step). Returns (state, losses, sharded);
+    `record['sq_norm']` gets the squared norms the clip read and
+    `record['grads']` the first step's gradients, whole."""
     from teochat_torch.parallel import Sharded, shard_params
 
     cfg = TEOChatConfig.from_json(variant["cfg"])
@@ -115,28 +135,46 @@ def run_steps(variant: Dict, batches: List[List[Dict]], sharded=None, mesh=None,
 
             sharded.global_sq_norm = norm
     optimizer = trainer_mod.make_optimizer(**variant["opt"])
-    if mesh is None and record is not None:
+    if record is not None:
         inner_step = optimizer.step
+        like = dict(tree_leaves_with_path(params))
 
-        def recorded(params, grads, state, sq_norm=None):
-            record.setdefault("sq_norm", []).append(
-                float(sum(g.float().pow(2).sum() for g in grads.values())))
-            return inner_step(params, grads, state, sq_norm)
+        def recorded(leaves, grads, state, sq_norm=None):
+            if mesh is None:
+                record.setdefault("sq_norm", []).append(
+                    float(sum(g.float().pow(2).sum() for g in grads.values())))
+            if "grads" not in record:
+                record["grads"] = _whole_grads(grads, like, cfg, mesh is not None)
+            return inner_step(leaves, grads, state, sq_norm)
 
         optimizer.step = recorded
     state = trainer_mod.init_train_state(params, optimizer, filt)
-    step = trainer_mod.make_train_step(cfg, optimizer, trainable_filter=filt, remat=True,
-                                       sharded=sharded)
+    step = trainer_mod.make_train_step(run_cfg_of(cfg, mesh, microbatches), optimizer,
+                                       trainable_filter=filt, remat=True, sharded=sharded)
     dtype = getattr(torch, variant["dtype"])
     losses = []
     for rows in batches:
         if sharded is not None:
             k = len(rows) // sharded.row_count
             rows = rows[sharded.row_rank * k:(sharded.row_rank + 1) * k]
-        plan, pixels = rows_plan(cfg, rows)
+        plan, pixels = rows_plan(cfg, rows, pad_to)
         state, loss = step(state, plan, pixels.to(device, dtype))
         losses.append(float(loss))
     return state, losses, sharded
+
+
+def _whole_grads(grads, like, cfg, on_mesh: bool) -> Dict[str, np.ndarray]:
+    """{path: the gradient whole, fp32 numpy}; on a mesh each local shard
+    is gathered with its leaf's placements (every rank takes part)."""
+    from teochat_torch.checkpoint.orbax_io import _as_dtensor
+    from teochat_torch.parallel.sharding import unshard
+
+    out = {}
+    for path, g in grads.items():
+        if on_mesh:
+            g = unshard(_as_dtensor(g.contiguous(), like[path]), path, cfg)
+        out[path] = g.detach().float().cpu().numpy().copy()
+    return out
 
 
 def full_tree(params, cfg) -> Dict[str, np.ndarray]:
@@ -312,6 +350,150 @@ def scenario_rounding(setup, out_dir, rank):
         shares[name] = (got == want).float().mean().item()
     if rank == 0:
         torch.save(shares, os.path.join(out_dir, "rounding.pt"))
+
+
+def scenario_context_pipe(setup, out_dir, rank):
+    """setup['cp_variants'] on each sequence / pipe mesh of this world
+    (setup['cp_runs']: (mesh shape of 5, microbatches, variant names)),
+    plans padded to setup['pad_to']: losses, the first step's gradients,
+    the trees whole; on the first pipe mesh a sharded save of the first
+    variant."""
+    from teochat_torch.checkpoint import orbax_io
+
+    world = torch.distributed.get_world_size()
+    saved = False
+    for shape, mb, names in setup["cp_runs"]:
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = _mesh(shape)
+        tag = "".join(map(str, shape)) + f"_m{mb}"
+        for name in names:
+            variant = setup["cp_variants"][name]
+            cfg = TEOChatConfig.from_json(variant["cfg"])
+            record = {}
+            state, losses, _ = run_steps(variant, setup["batches"], mesh=mesh, record=record,
+                                         pad_to=setup["pad_to"], microbatches=mb)
+            if shape[4] > 1 and not saved:
+                orbax_io.save_checkpoint(os.path.join(out_dir, f"ckpt_{name}_{tag}"),
+                                         state.params, cfg, opt_state=state.opt_state, step=3)
+                saved = True
+            full = full_tree(state.params, cfg)
+            if rank == 0:
+                torch.save({"losses": losses, "params": full, **record},
+                           os.path.join(out_dir, f"cp_{name}_{tag}.pt"))
+
+
+def scenario_ring(setup, out_dir, rank):
+    """Each ring case on this world's `sequence` mesh, through the plain
+    twin (context_parallel_attention) and through the kernel path with the
+    kernels' tile walks in their place: the output and the q / k / v
+    gradients of sum(out * w), whole; the errors of a length the ring does
+    not divide and of heads GQA cannot group."""
+    import torch.distributed as dist
+
+    from teochat_torch.parallel import ring_attention as ring
+
+    n = dist.get_world_size()
+    mesh = _mesh((1, 1, 1, n, 1))
+    group = mesh.get_group("sequence")
+    out = {}
+    for name, case in setup["ring"].items():
+        q, k, v = (torch.from_numpy(case[x]).requires_grad_() for x in ("q", "k", "v"))
+        w = torch.from_numpy(case["w"])
+        own_w = w.chunk(n, 1)[rank]
+        for form in ("plain", "walks"):
+            if form == "plain":
+                o = ring.context_parallel_attention(q, k, v, mesh, causal=case["causal"])
+            else:
+                o = ring.ring_attention_flash(*(x.chunk(n, 1)[rank] for x in (q, k, v)),
+                                              group=group, n=n, rank=rank,
+                                              causal=case["causal"],
+                                              kernels=ring.schedule_kernels())
+            grads = [g.contiguous() for g in torch.autograd.grad((o * own_w).sum(), (q, k, v))]
+            for g in grads:
+                dist.all_reduce(g)
+            whole = [torch.empty_like(o) for _ in range(n)]
+            dist.all_gather(whole, o.detach().contiguous())
+            out[f"{name}_{form}"] = [torch.cat(whole, 1).numpy()] + [g.numpy() for g in grads]
+    errors = {}
+    x = torch.zeros(1, 6 * n + 1, 2, 8)
+    for name, fn in (("not_divisible", lambda: ring.context_parallel_attention(x, x, x, mesh)),
+                     ("heads", lambda: ring.ring_attention(
+                         torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 2, 8),
+                         torch.zeros(1, 4, 2, 8), group=group, n=n, rank=rank))):
+        try:
+            fn()
+        except ValueError as e:
+            errors[name] = str(e)
+    if rank == 0:
+        torch.save({"out": out, "errors": errors}, os.path.join(out_dir, f"ring_{n}.pt"))
+
+
+def scenario_pipeline(setup, out_dir, rank):
+    """Each pipeline case (setup['pipe']) on this world's `pipe` mesh at each
+    microbatch count: the decoder's logits (with its padding mask where the
+    case has one) and the gradients of sum(logits * probe) for the input
+    and every layer leaf, whole; the shape errors."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from teochat_torch.checkpoint.orbax_io import _as_dtensor
+    from teochat_torch.models import llama as llama_mod
+    from teochat_torch.models import mpt as mpt_mod
+    from teochat_torch.parallel import Sharded, shard_params
+    from teochat_torch.parallel.sharding import unshard
+
+    n = dist.get_world_size()
+    mesh = _mesh((1, 1, 1, 1, n))
+    out = {}
+    for name, case in setup["pipe"].items():
+        cfg = TEOChatConfig.from_json(case["cfg"])
+        for mb in case["microbatches"]:
+            llm_cfg = dataclasses.replace(cfg.llm, pipeline_axis="pipe", pipeline_microbatches=mb)
+            params = shard_params({"llm": to_torch(case["llm"], "cpu")}, mesh, cfg)
+            sh = Sharded(mesh, cfg, params)
+            llm = sh.local(params)["llm"]
+            leaves = {p: x.requires_grad_() for p, x in tree_leaves_with_path(llm["layers"])}
+            x = torch.from_numpy(case["x"]).requires_grad_()
+            mask = None if case["mask"] is None else torch.from_numpy(case["mask"])
+            if mpt_mod.is_mpt_params(llm):
+                logits = mpt_mod.mpt_forward(llm, llm_cfg, x, attention_mask=mask,
+                                             right_padded=mask is None, remat=True, sharded=sh)
+            else:
+                logits = llama_mod.llama_forward(
+                    llm, llm_cfg, x, position_ids=torch.from_numpy(case["pos"]),
+                    attention_mask=mask, right_padded=mask is None, remat=True, sharded=sh)
+            got = torch.autograd.grad((logits * torch.from_numpy(case["probe"])).sum(),
+                                      [x, *leaves.values()], allow_unused=True)
+            dx = got[0] if got[0] is not None else torch.zeros_like(x)
+            dist.all_reduce(dx)  # stage 0's: the others' are zero
+            like = dict(tree_leaves_with_path(params))
+            grads = {p: unshard(_as_dtensor(g.contiguous(), like[f"llm/layers/{p}"]),
+                                f"llm/layers/{p}", cfg).numpy()
+                     for p, g in zip(leaves, got[1:])}
+            out[f"{name}_m{mb}"] = {"logits": logits.detach().numpy(), "dx": dx.numpy(),
+                                    "grads": grads}
+    # the shape errors: 3 layers over the stages, a batch of 4 in 3 microbatches
+    case = setup["pipe"]["llama"]
+    cfg = TEOChatConfig.from_json(case["cfg"])
+    llm = to_torch(case["llm"], "cpu")
+    odd = {**llm, "layers": tree_map(lambda t: t[:3], llm["layers"])}
+    errors = {}
+    for key, tree, llm_cfg in (
+            ("layers", odd, dataclasses.replace(cfg.llm, num_layers=3, pipeline_axis="pipe")),
+            ("batch", llm, dataclasses.replace(cfg.llm, pipeline_axis="pipe",
+                                               pipeline_microbatches=3))):
+        params = shard_params({"llm": tree}, mesh, cfg)
+        sh = Sharded(mesh, cfg, params)
+        try:
+            llama_mod.llama_forward(sh.local(params)["llm"], llm_cfg, torch.from_numpy(case["x"]),
+                                    position_ids=torch.from_numpy(case["pos"]),
+                                    right_padded=True, sharded=sh)
+        except ValueError as e:
+            errors[key] = str(e)
+    if rank == 0:
+        torch.save({"out": out, "errors": errors}, os.path.join(out_dir, f"pipe_{n}.pt"))
 
 
 def _opt_whole(state, cfg) -> Dict[str, np.ndarray]:

@@ -2135,3 +2135,39 @@ def test_one_rank_nccl_mesh_step_equals_the_meshless_step(gen, tmp_path):
             assert np.array_equal(got[path], x.detach().float().cpu().numpy()), path
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("hkv", [32, 8])
+def test_ring_kernel_path_matches_plain(gen, n, hkv):
+    """The ring's kernel path (parallel/ring_attention.py: K4a's pairs
+    combined in fp32, K4b / K4c on the global m and l, dK / dV summed at
+    their owners) for n ranks run in one process, the rotation replaced by
+    indexing the blocks (`ring_flash_one_process`), at B 1, S 2,048, H 32,
+    D 128, causal: the output and gradients against the plain attention's
+    autograd, and exactly n(n+1)/2 launches of each of K4a, K4b and K4c."""
+    from teochat_torch.parallel import ring_attention as ring
+
+    q, k, v, do = _trainable_case(gen, 1, 2048, 32, hkv, 128)
+    before = _counts()
+    got = ring.ring_flash_one_process(q, k, v, do, n)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + n * (n + 1) // 2 for c in before)
+    want = _grads(lambda q, k, v: flash_mod.flash_attention_plain(q.float(), k.float(), v.float()),
+                  q, k, v, do)
+    assert (got[0].float() - want[0]).abs().max().item() <= TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        g = g.float()
+        assert g.shape == w.shape, name
+        assert (g - w).norm().item() <= GRAD_REL_L2 * w.norm().item(), name
+        assert (g - w).abs().max().item() <= GRAD_REL_MAX * w.abs().max().item(), name
+
+
+def test_ring_entry_refuses_what_the_kernels_do_not_take(gen):
+    """On a CUDA tensor the ring runs the kernels or raises: fp32 operands
+    (K4a takes bf16) raise rather than giving way to the plain twin."""
+    from teochat_torch.parallel import ring_attention as ring
+
+    q = torch.randn(1, 128, 2, 128, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="bf16|bfloat16"):
+        ring.ring_attention(q, q, q, group=None, n=1, rank=0)

@@ -401,6 +401,41 @@ def test_mpt_train_matches_jax_driver(tiny_mpt, tmp_path, capsys, monkeypatch):
     assert not (tmp_path / "grow").exists()  # nothing was saved
 
 
+def test_mesh_sequence_on_mpt_fails_as_in_jax(tiny_mpt, tmp_path):
+    """ROADMAP F11: JAX's driver turns the ring on by replacing
+    `sequence_axis` in the decoder's config, a field MptConfig does not
+    have, so `--mesh_sequence 2` on LLaVA-MPT (its 8 virtual devices: a
+    mesh of fsdp 4 x sequence 2) raises a TypeError before its first step.
+    The port raises a ValueError naming the flag and MPT, before anything
+    is saved."""
+    from teochat_tpu.config import MeshConfig as JaxMeshConfig
+    from teochat_tpu.train import train as jax_train_mod
+    from teochat_torch.config import MeshConfig
+    from teochat_torch.train import train as torch_train_mod
+
+    cfg, params = tiny_mpt
+    data = [_raw_example(2, s) for s in range(4)]
+    common = dict(per_device_train_batch_size=2, bf16=False, lora_r=4, lora_alpha=8.0,
+                  report_to="none", save_strategy="no", lr_scheduler_type="constant")
+    jargs = jax_train_mod.TrainingArguments(
+        output_dir=str(tmp_path / "jax"), mesh=JaxMeshConfig(fsdp=-1, sequence=2), **common)
+    with pytest.raises(TypeError, match="sequence_axis"):
+        jax_train_mod.train(
+            jax_train_mod.ModelArguments(), jax_data.DataArguments(image_processor=TinyProcessor()),
+            jargs, cfg=cfg, params=params, tokenizer=MockTokenizer(), dataset=data,
+            max_steps_override=1)
+    out = tmp_path / "torch"
+    targs = torch_train_mod.TrainingArguments(
+        output_dir=str(out), mesh=MeshConfig(fsdp=-1, sequence=2), **common)
+    with pytest.raises(ValueError, match="--mesh_sequence 2: ring attention runs the LLaMA"):
+        torch_train_mod.train(
+            torch_train_mod.ModelArguments(),
+            torch_data.DataArguments(image_processor=TinyProcessor()), targs, cfg=cfg,
+            params=to_torch(params, "cpu"), tokenizer=MockTokenizer(), dataset=data,
+            max_steps_override=1)
+    assert not out.exists()  # nothing was saved
+
+
 def test_cli_trains_an_mpt_checkpoint(tmp_path):
     """train.cli.main over a tiny LLaVA-MPT checkpoint (an "mpt" name: the
     `builder._load_mpt_model`, which ignores allow_partial as JAX's does),

@@ -76,6 +76,17 @@ OPT = dict(learning_rate=1e-3, projector_lr=2e-3, lr_scheduler_type="constant",
            max_grad_norm=0.05, total_steps=10)
 MPT_KW = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, expansion_ratio=2,
               max_seq_len=128)
+# the sequence and pipe meshes (data, fsdp, model, sequence, pipe), each
+# with its microbatch count (None: the stage count) and variants; plans
+# padded to a length the sequence axis divides, as the collator's buckets
+LORA, FULL, MPT = "llama4_int8_lora", "llama4_bf16_full", "mpt_int8_lora"
+CP_RUNS = [((1, 1, 1, 2, 1), None, [LORA, FULL]), ((1, 2, 1, 2, 1), None, [LORA, FULL]),
+           ((1, 1, 1, 1, 2), None, [LORA, FULL, MPT]), ((1, 1, 1, 1, 2), 4, [LORA]),
+           ((1, 2, 1, 1, 2), None, [LORA, FULL])]
+PAD_TO = 20
+# each trained leaf's first gradient on a sequence / pipe mesh against one
+# process's: fp32 the same sums in another order; bf16 as the leaves' bound
+GRAD = dict(float32=1e-4, bfloat16=1.5e-1)
 
 
 def _np(tree):
@@ -138,6 +149,17 @@ def setup():
                 jax.random.PRNGKey(5), _np(jax_quant.quantize_mpt_params(mpt["llm"])),
                 rank=4, alpha=8.0), 5)}),
     }
+    # 4 layers, which a pipe axis of 2 divides, for the sequence / pipe runs
+    cfg4 = dataclasses.replace(llama_cfg, llm=dataclasses.replace(llama_cfg.llm, num_layers=4))
+    llama4 = _np(jax_teochat.init_teochat(jax.random.PRNGKey(12), cfg4))
+    cp_variants = {
+        LORA: dict(cfg=cfg4, filter="lora", dtype="float32", params={
+            **llama4, "llm": _random_lora_b(jax_lora.add_lora_params(
+                jax.random.PRNGKey(6), _np(jax_quant.quantize_llama_params(llama4["llm"])),
+                rank=4, alpha=8.0), 6)}),
+        FULL: dict(cfg=cfg4, filter="full", dtype="bfloat16", params=llama4),
+        MPT: variants[MPT],
+    }
     rs = np.random.RandomState(0)
     mask = np.ones((2, 10), bool)
     mask[1, 7:] = False
@@ -151,7 +173,8 @@ def setup():
     return dict(variants=variants, forward=forward, batches=batches,
                 meshes=MESHES_4 + MESHES_2,
                 checkpoint=dict(variant="mpt_int8_lora", save_mesh=(1, 2, 2),
-                                load_mesh=(2, 1, 1)))
+                                load_mesh=(2, 1, 1)),
+                cp_variants=cp_variants, cp_runs=CP_RUNS, pad_to=PAD_TO)
 
 
 def _port_setup(setup):
@@ -161,6 +184,7 @@ def _port_setup(setup):
                 **({"opt": OPT} if "filter" in d else {})}
 
     return {**setup, "variants": {k: conv(v) for k, v in setup["variants"].items()},
+            "cp_variants": {k: conv(v) for k, v in setup["cp_variants"].items()},
             "forward": {k: conv(v) for k, v in setup["forward"].items()}}
 
 
@@ -182,8 +206,8 @@ def ranks(setup, tmp_path_factory):
                 "opt": {p: x.numpy().copy() for p, x in tree_leaves_with_path(state.opt_state)
                         if isinstance(x, torch.Tensor)}},
                os.path.join(out, "one_saved.pt"))
-    _torch_dist.launch(4, out, ["train", "save"])
-    _torch_dist.launch(2, out, ["train", "load", "rounding"])
+    _torch_dist.launch(4, out, ["train", "save", "context_pipe"])
+    _torch_dist.launch(2, out, ["train", "load", "rounding", "context_pipe"])
     return out
 
 
@@ -228,8 +252,8 @@ def _changes_agree(got, want, before, filt, tol, tree_tol=None):
         assert num <= tree_tol ** 2 * den, np.sqrt(num / den)
 
 
-def _before(setup, name):
-    return dict(tree_leaves_with_path(setup["variants"][name]["params"]))
+def _before(setup, name, key="variants"):
+    return dict(tree_leaves_with_path(setup[key][name]["params"]))
 
 
 @pytest.mark.parametrize("mesh", MESHES_4 + MESHES_2, ids=lambda m: "x".join(map(str, m)))
@@ -377,3 +401,101 @@ def test_per_rank_batch_streams_match_jax():
             assert got == want
             taken += [i for b in got for i in b]
         assert sorted(taken) == dataset
+
+
+# ------------------------------------------------------------ sequence and pipe
+
+
+@pytest.fixture(scope="module")
+def one_process_padded(setup):
+    """The sequence / pipe runs' variants on one process, plans padded alike:
+    (losses, tree, record with the first step's gradients)."""
+    port = _port_setup(setup)
+    out = {}
+    for name in (LORA, FULL, MPT):
+        record = {}
+        state, losses, _ = _torch_dist.run_steps(port["cp_variants"][name], port["batches"],
+                                                 record=record, pad_to=PAD_TO)
+        out[name] = (losses, {p: x.detach().float().numpy()
+                              for p, x in tree_leaves_with_path(state.params)}, record)
+    return out
+
+
+def _cp_tag(shape, mb):
+    return "".join(map(str, shape)) + f"_m{mb}"
+
+
+CP_CASES = [(shape, mb, name) for shape, mb, names in CP_RUNS for name in names]
+
+
+@pytest.mark.parametrize("shape,mb,name", CP_CASES,
+                         ids=[f"{_cp_tag(s, m)}-{n}" for s, m, n in CP_CASES])
+def test_sequence_and_pipe_meshes_train_like_one_process(setup, ranks, one_process_padded,
+                                                         shape, mb, name):
+    """3 steps on a sequence mesh (the ring: each rank its chunk of every
+    row, labels shifted on the whole row) or a pipe mesh (GPipe stages)
+    equal one process's: the losses, the clip's global norm, every trained
+    leaf's first gradient (full fine-tuning trains the embedding, the
+    lm_head and the tower, which feed or follow the pipeline), and the
+    leaves after the steps; frozen leaves bitwise."""
+    got = torch.load(os.path.join(ranks, f"cp_{name}_{_cp_tag(shape, mb)}.pt"),
+                     weights_only=False)
+    losses, tree, record = one_process_padded[name]
+    dtype = setup["cp_variants"][name]["dtype"]
+    tol = BF16 if dtype == "bfloat16" else FP32
+    np.testing.assert_allclose(got["losses"], losses, rtol=tol["loss"])
+    np.testing.assert_allclose(got["sq_norm"], record["sq_norm"], rtol=tol["loss"])
+    assert sorted(got["grads"]) == sorted(record["grads"])
+    for path, want in record["grads"].items():
+        if path == ZERO_GRADIENT:  # rounding noise on both sides
+            continue
+        err = np.linalg.norm(got["grads"][path] - want)
+        assert err <= GRAD[dtype] * np.linalg.norm(want) + 1e-12, (
+            path, float(err / max(np.linalg.norm(want), 1e-30)))
+    _changes_agree(got["params"], tree, _before(setup, name, "cp_variants"),
+                   _torch_dist.FILTERS[setup["cp_variants"][name]["filter"]], tol["leaf"])
+
+
+def test_sequence_mesh_loss_matches_jax(setup, ranks, one_process_padded):
+    """JAX's train step with `sequence_axis` on its (1, 2, 1, sequence 4)
+    mesh (tests/test_ring_attention.py's check, loss within 2e-3) against
+    the port's first loss on one process and on (1, 2, 1, sequence 2)."""
+    v = setup["cp_variants"][LORA]
+    cfg = v["cfg"]
+    seq_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, sequence_axis="sequence"))
+    filt = _torch_dist.FILTERS[v["filter"]]
+    optimizer = jax_trainer.make_optimizer(**OPT)
+    rows = setup["batches"][0]
+    plan = jax_fusion.build_fusion_plan(
+        [r["ids"] for r in rows], labels=[r["labels"] for r in rows],
+        tokens_per_frame=cfg.vision.num_patches, pad_to=PAD_TO)
+    pixels = jnp.asarray(np.concatenate([r["frames"] for r in rows]))
+    mesh = jax_create_mesh(JaxMeshConfig(data=1, fsdp=2, model=1, sequence=4))
+    with jax.set_mesh(mesh):
+        params = jax_shard_params(jax.tree.map(jnp.asarray, v["params"]), mesh)
+        state = jax.jit(lambda p: jax_trainer.init_train_state(p, optimizer, filt))(params)
+        step = jax_trainer.make_train_step(seq_cfg, optimizer, trainable_filter=filt, remat=True)
+        _, loss = step(state, plan, pixels)
+    mesh_run = torch.load(os.path.join(ranks, f"cp_{LORA}_{_cp_tag((1, 2, 1, 2, 1), None)}.pt"),
+                          weights_only=False)
+    for losses in (one_process_padded[LORA][0], mesh_run["losses"]):
+        assert abs(losses[0] - float(loss)) < 2e-3, (losses[0], float(loss))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 2), (1, 2, 1, 1, 2)],
+                         ids=lambda s: "".join(map(str, s)))
+def test_pipe_checkpoint_loads_on_one_process(ranks, shape):
+    """A checkpoint saved on a pipe mesh (each stage writes its layers)
+    loads on one process: every leaf bitwise the run's gathered tree, the
+    optimizer state whole, and the saved config without `pipeline_axis` or
+    `sequence_axis` (the run's switches are never persisted)."""
+    tag = _cp_tag(shape, None)
+    params, cfg, opt = orbax_io.load_checkpoint(
+        os.path.join(ranks, f"ckpt_{LORA}_{tag}", "checkpoint-3"), restore_opt=True)
+    want = torch.load(os.path.join(ranks, f"cp_{LORA}_{tag}.pt"), weights_only=False)["params"]
+    got = dict(tree_leaves_with_path(params))
+    assert sorted(got) == sorted(want)
+    for path, x in got.items():
+        np.testing.assert_array_equal(x.float().numpy(), want[path], err_msg=path)
+    assert cfg.llm.pipeline_axis is None and cfg.llm.sequence_axis is None
+    assert opt["inner"]["mu"] if "inner" in opt else opt["mu"]

@@ -11,8 +11,11 @@
   undoes it, bitwise;
 - a one-rank gloo mesh (1, 1, 1) runs every mesh code path at degree 1: a
   train step on it equals the meshless step to 1e-6 relative (the same
-  products; the gathers and the reductions are identities), and the mesh's
-  sequence and pipe axes raise, naming ROADMAP item 16.
+  products; the gathers and the reductions are identities), and a
+  sequence or pipe axis of 2 on one rank raises JAX's mesh-size error (the
+  axes run on ranks: tests/test_torch_parallel_train.py);
+- on meshes with `sequence` and `pipe` axes every leaf's spec is JAX's (a
+  decoder layer leaf's unsharded leading dim takes `pipe`).
 """
 
 import dataclasses
@@ -99,6 +102,25 @@ def test_param_specs_match_jax_leaf_for_leaf(trees, name):
         jmesh = None if mesh is None else jax_mesh.create_mesh(JaxMeshConfig(*mesh))
         want = jax_sharding.param_specs(tree, jmesh)
         got = torch_sharding.param_specs(tree, None if jmesh is None else dict(jmesh.shape))
+        for path, _ in tree_leaves_with_path(tree):
+            w, g = tuple(_spec_at(want, path)), _spec_at(got, path)
+            assert g == w, (mesh, path, g, w)
+
+
+# (data, fsdp, model, sequence, pipe) over the 8 virtual devices
+JAX_CP_MESHES = [(1, 2, 1, 2, 2), (1, 1, 2, 1, 4), (1, 4, 1, 2, 1), (2, 1, 1, 1, 4)]
+
+
+@pytest.mark.parametrize("name", TREE_NAMES)
+def test_param_specs_on_sequence_and_pipe_meshes_match_jax(trees, name):
+    """Every leaf's spec on meshes with `sequence` and `pipe` axes: the
+    decoder's layer leaves take `pipe` on their leading dim where it is
+    unsharded (and divides), nothing takes `sequence`."""
+    tree = trees[name]
+    for mesh in JAX_CP_MESHES:
+        jmesh = jax_mesh.create_mesh(JaxMeshConfig(*mesh))
+        want = jax_sharding.param_specs(tree, jmesh)
+        got = torch_sharding.param_specs(tree, dict(jmesh.shape))
         for path, _ in tree_leaves_with_path(tree):
             w, g = tuple(_spec_at(want, path)), _spec_at(got, path)
             assert g == w, (mesh, path, g, w)
@@ -219,5 +241,5 @@ def test_one_rank_mesh_step_equals_the_meshless_step(one_rank):
         np.testing.assert_allclose(got[path], x.detach().numpy(), rtol=1e-5, atol=1e-7,
                                    err_msg=path)
     for kw in (dict(sequence=2), dict(pipe=2)):
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(ValueError, match=re.escape("!= 1 devices")):
             torch_mesh.create_mesh(MeshConfig(**kw), "cpu")

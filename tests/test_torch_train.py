@@ -398,8 +398,10 @@ def test_train_keeps_fp32_masters_of_a_bf16_model(tiny, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tiny, tmp_path):
-    """What stays unported raises, naming its ROADMAP item: the mesh's
-    sequence and pipeline axes (item 16). The vision tokenizer is
+    """What a run on one process cannot do raises: the mesh's sequence and
+    pipeline axes are ported (tests/test_torch_parallel_train.py), and on
+    one process an axis above 1 raises a ValueError naming its flag, as
+    JAX's driver does on one device. The vision tokenizer is
     ported (tests/test_torch_vision_tokenizer.py trains with it): a
     projector-only run with mm_use_im_start_end trains the input embeddings
     and not the lm_head, as JAX's. MPT training is ported
@@ -418,8 +420,9 @@ def test_train_refuses_what_is_not_ported(tiny, tmp_path):
             torch_train_mod.TrainingArguments(output_dir=str(tmp_path), **train_kw),
             cfg=cfg, params=tparams or to_torch(_np(params), "cpu"), tokenizer=tokenizer())
 
-    for mesh in (MeshConfig(sequence=2), MeshConfig(pipe=2)):
-        with pytest.raises(NotImplementedError, match="item 16"):
+    for flag, mesh in (("--mesh_sequence", MeshConfig(sequence=2)),
+                       ("--mesh_pipe", MeshConfig(pipe=2))):
+        with pytest.raises(ValueError, match=f"{flag} 2 needs a multi-device runtime"):
             run(mesh=mesh)
     # the mesh is ported (tests/test_torch_parallel_train.py); on one
     # process an axis above 1 has no ranks to split, and says so

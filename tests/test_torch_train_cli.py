@@ -583,16 +583,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
-    """`python -m teochat_torch.train.cli --distributed` on 2 gloo ranks under
-    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR /
-    MASTER_PORT on 127.0.0.1), the default mesh (every rank on fsdp),
-    accumulation 2: each rank takes its own chunks of the sampler's
-    megabatches, and the losses rank 0 prints equal a one-process run of
-    the global batch (2 rows a rank against 4 on one process) to the
-    printed 4 decimals; the sharded
-    checkpoints are pruned and the final one loads on one process, its
-    leaves within Adam's steps of the one process's."""
+def _two_rank_cli(parts, tmp_path, rank_batch, extra=()):
+    """`train.cli.main --distributed` on 2 gloo ranks (per-device batch
+    `rank_batch`, `extra` flags) and on one process (batch 4), both with
+    accumulation 2 over the same data: (rank 0's printed losses, the one
+    process's history, the ranks' and the one process's output dirs)."""
     from teochat_torch.conversation import conv_templates
 
     lm = str(tmp_path / "lm")
@@ -619,7 +614,8 @@ def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
            "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2"}
     out = str(tmp_path / "out")
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "teochat_torch.train.cli", *argv(out, 2), "--distributed"],
+        [sys.executable, "-m", "teochat_torch.train.cli", *argv(out, rank_batch), *extra,
+         "--distributed"],
         env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
     outputs = [p.communicate(timeout=600) for p in procs]
@@ -627,13 +623,17 @@ def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
         assert p.returncode == 0, err[-3000:]
     losses = re.findall(r"step \d+/2 loss ([0-9.]+)", outputs[0][0])
     assert len(losses) == 2 and not re.findall(r"step \d+/2 loss", outputs[1][0])  # rank 0 prints
-    assert sorted(os.listdir(out)) == ["checkpoint-2"]
-    assert os.path.exists(os.path.join(out, "checkpoint-2", "params", "tree.json"))
-
     one = str(tmp_path / "one")
     history = []
     torch_cli.main(argv(one, 4), history=history)
-    assert [f"{h['loss']:.4f}" for h in history] == losses
+    return losses, history, out, one
+
+
+def _checkpoints_agree(out, one):
+    """The ranks' final (sharded) checkpoint, pruned to checkpoint-2, loads
+    on one process within two Adam steps of the one process's."""
+    assert sorted(os.listdir(out)) == ["checkpoint-2"]
+    assert os.path.exists(os.path.join(out, "checkpoint-2", "params", "tree.json"))
     got, _, _ = orbax_io.load_checkpoint(os.path.join(out, "checkpoint-2"))
     want, _, _ = orbax_io.load_checkpoint(os.path.join(one, "checkpoint-2"))
     got, want = dict(tree_leaves_with_path(got)), dict(tree_leaves_with_path(want))
@@ -643,3 +643,51 @@ def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
             assert torch.equal(got[path], w), path
         else:  # two Adam steps of lr 1e-3 each way at most, summed in another order
             assert (got[path].float() - w.float()).abs().max() <= 4e-3, path
+
+
+def test_cli_distributed_trains_on_two_ranks(parts, tmp_path):
+    """`python -m teochat_torch.train.cli --distributed` on 2 gloo ranks under
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR /
+    MASTER_PORT on 127.0.0.1), the default mesh (every rank on fsdp),
+    accumulation 2: each rank takes its own chunks of the sampler's
+    megabatches, and the losses rank 0 prints equal a one-process run of
+    the global batch (2 rows a rank against 4 on one process) to the
+    printed 4 decimals; the sharded
+    checkpoints are pruned and the final one loads on one process, its
+    leaves within Adam's steps of the one process's."""
+    losses, history, out, one = _two_rank_cli(parts, tmp_path, 2)
+    assert [f"{h['loss']:.4f}" for h in history] == losses
+    _checkpoints_agree(out, one)
+
+
+@pytest.mark.parametrize("flags", ["--mesh_fsdp 1 --mesh_sequence 2",
+                                   "--mesh_fsdp 1 --mesh_pipe 2 --pipeline_microbatches 2"],
+                         ids=["sequence", "pipe"])
+def test_cli_distributed_trains_on_sequence_and_pipe_meshes(parts, tmp_path, flags):
+    """The same run on mesh (1, 1, 1, sequence 2), the ring (each rank half
+    of every row's 256 bucketed tokens), and on (1, 1, 1, pipe 2), GPipe in
+    2 microbatches (each rank one of the 2 layers): both ranks take all 4
+    rows, and rank 0 prints the one process's losses to the printed 4
+    decimals; the final checkpoint loads on one process within Adam's
+    steps, and its config carries neither axis (the run's switches only)."""
+    losses, history, out, one = _two_rank_cli(parts, tmp_path, 4, flags.split())
+    assert [f"{h['loss']:.4f}" for h in history] == losses
+    _checkpoints_agree(out, one)
+    with open(os.path.join(out, "checkpoint-2", "config.json")) as f:
+        llm = json.load(f)["llm"]
+    assert llm["sequence_axis"] is None and llm["pipeline_axis"] is None
+    assert llm["pipeline_microbatches"] is None
+
+
+@pytest.mark.parametrize("flag", ["--mesh_sequence", "--mesh_pipe"])
+def test_sequence_or_pipe_axis_on_one_process_raises(parts, tmp_path, flag):
+    """An axis above 1 with one process has no ranks to split: a ValueError
+    naming the flag, as JAX's driver raises on one device, before anything
+    is saved."""
+    out = tmp_path / "out"
+    argv = (f"--model_name_or_path {parts['lm']} --image_tower {parts['tower']} "
+            f"--mm_projector_type mlp2x_gelu --output_dir {out} --device cpu "
+            f"--report_to none {flag} 2").split()
+    with pytest.raises(ValueError, match=f"{flag} 2 needs a multi-device runtime"):
+        torch_cli.main(argv)
+    assert not out.exists()
